@@ -1,0 +1,138 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU (and nvcc to build the kernels): they
+carry the `cuda` marker and skip where no GPU is present. Run them on the
+card with `python -m pytest tests/test_torch_kernels.py -m cuda`.
+Tolerances, relative to the largest |reference|: the qmm kernels form every
+dequantized weight exactly as the plain version does and differ only in
+f32 summation order (QMM_TOL); the attention kernels differ in summation
+order and __expf, ~1e-6 in f32, and bf16 outputs by one bf16 rounding
+(2^-8) of either side.
+"""
+
+import pytest
+import torch
+
+from llamacog_tpu_torch.ops.cuda import build
+from llamacog_tpu_torch.ops.cuda.flash_prefill import (
+    flash_prefill_attention_plain, flash_prefill_kernel)
+from llamacog_tpu_torch.ops.cuda.flash_q8 import (
+    flash_decode_stacked_dense, flash_decode_stacked_dense_plain)
+from llamacog_tpu_torch.ops.cuda.qmm import qgemm, qmm_plain, qmv
+from llamacog_tpu_torch.quant.wire import BLOCK_BYTES, WireTensor
+from llamacog_tpu_torch.utils.synthetic import random_wire
+
+QMM_TOL = 1e-4
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def rel_err(got, ref):
+    got, ref = got.double(), ref.double()
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("kind", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("B,dtype", [(1, torch.float32), (3, torch.float32),
+                                     (8, torch.float32), (33, torch.float32),
+                                     (1, torch.bfloat16), (8, torch.bfloat16)])
+def test_qmv_matches_plain(dev, kind, B, dtype):
+    g = torch.Generator(device=dev).manual_seed(B)
+    w = random_wire(kind, 200, 1024, g, dev)  # N not a multiple of the block rows
+    x = torch.randn(B, 1024, generator=g, device=dev).to(dtype)
+    got, = qmv(x, [w])
+    torch.cuda.synchronize()
+    assert rel_err(got, qmm_plain(x, w)) < QMM_TOL
+
+
+@pytest.mark.parametrize("B", [9, 33, 130])
+def test_qgemm_multi_matches_plain(dev, B):
+    g = torch.Generator(device=dev).manual_seed(B)
+    ws = [random_wire("Q4_K", 160, 512, g, dev), random_wire("Q6_K", 72, 512, g, dev)]
+    x = torch.randn(B, 512, generator=g, device=dev).to(torch.bfloat16)
+    outs = qgemm(x, ws)
+    torch.cuda.synchronize()
+    for got, w in zip(outs, ws):
+        assert got.shape == (B, w.shape[0])
+        assert rel_err(got, qmm_plain(x, w)) < QMM_TOL
+
+
+def test_qmv_multi_launch_counts_once(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    ws = [random_wire("Q4_K", 64, 256, g, dev), random_wire("Q6_K", 24, 256, g, dev)]
+    x = torch.randn(1, 256, generator=g, device=dev)
+    before = build.LAUNCHES["qmv"]
+    outs = qmv(x, ws)
+    assert build.LAUNCHES["qmv"] == before + 1
+    for got, w in zip(outs, ws):
+        assert rel_err(got, qmm_plain(x, w)) < QMM_TOL
+
+
+def test_qmm_launchers_reject_bad_input(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    w = random_wire("Q4_K", 64, 256, g, dev)
+    with pytest.raises(ValueError):
+        qgemm(torch.zeros(9, 256, device=dev), [w])  # f32 x: qmv's job
+    with pytest.raises(ValueError):
+        qmv(torch.zeros(1, 512, device=dev), [w])  # K mismatch
+    with pytest.raises(ValueError):
+        qmv(torch.zeros(1, 256, device=dev, dtype=torch.float16), [w])
+
+
+@pytest.mark.parametrize("softcap,window", [(0.0, 0), (25.0, 0), (0.0, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_matches_plain(dev, softcap, window, dtype):
+    L, B, S, H, Hkv, D = 2, 2, 512, 8, 2, 64
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def rnd(*s):
+        return torch.randn(*s, generator=g, device=dev).to(dtype)
+
+    ks, vs = rnd(L, B, S, Hkv, D), rnd(L, B, S, Hkv, D)
+    q, kc, vc = rnd(B, H, D), rnd(B, Hkv, D), rnd(B, Hkv, D)
+    seq_len = torch.tensor([300, 17], dtype=torch.int32, device=dev)
+    for il in range(L):
+        got = flash_decode_stacked_dense(q, ks, vs, il, kc, vc, seq_len, D**-0.5,
+                                         softcap=softcap, window=window, kv_cap=384)
+        ref = flash_decode_stacked_dense_plain(q, ks, vs, il, kc, vc, seq_len, D**-0.5,
+                                               softcap=softcap, window=window, kv_cap=384)
+        torch.cuda.synchronize()
+        tol = 1e-5 if dtype == torch.float32 else 1e-2
+        assert rel_err(got, ref) < tol
+
+
+@pytest.mark.parametrize("softcap,window", [(0.0, 0), (25.0, 0), (0.0, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 16, 37])
+def test_flash_prefill_matches_plain(dev, softcap, window, dtype, T):
+    B, S, H, Hkv, D = 2, 300, 8, 2, 64
+    g = torch.Generator(device=dev).manual_seed(T)
+
+    def rnd(*s):
+        return torch.randn(*s, generator=g, device=dev).to(dtype)
+
+    cache_k, cache_v = rnd(2, B, S + 20, Hkv, D), rnd(2, B, S + 20, Hkv, D)
+    k, v = cache_k[1, :, :S], cache_v[1, :, :S]  # a strided layer view
+    q, kc, vc = rnd(B, T, H, D), rnd(B, T, Hkv, D), rnd(B, T, Hkv, D)
+    seq_len = torch.tensor([250, 0], dtype=torch.int32, device=dev)
+    got = flash_prefill_kernel(q, k, v, kc, vc, seq_len, D**-0.5, softcap, window)
+    ref = flash_prefill_attention_plain(q, k, v, kc, vc, seq_len, D**-0.5, softcap, window)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert rel_err(got, ref) < tol
+
+
+def test_random_wire_is_finite(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    for kind in BLOCK_BYTES:
+        w = random_wire(kind, 64, 512, g, dev)
+        assert isinstance(w, WireTensor)
+        x = torch.ones(1, 512, device=dev)
+        assert torch.isfinite(qmv(x, [w])[0]).all()
