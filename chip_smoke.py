@@ -8,12 +8,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   2. build every CUDA kernel from llamacog_tpu_torch/csrc (one nvcc per
      source, in parallel) into llamacog_tpu_torch/csrc/build/;
   3. each kernel against its plain PyTorch version at the Llama-3-8B shapes
-     of the main path, with kernel, plain, library and bound times;
+     of the main path, with kernel, plain, library and bound times: the
+     weight kernels, the dense-cache attention kernels, and the
+     quantized-cache attention kernels (decode over every K/V kind pair at
+     depth 1000, q8_0/q4_0 at depth 32765, the per-layer entries, and
+     prefill at write offsets 0 and 896);
   4. the full-width kernel path (8B widths, 2 layers) against the plain
      path (the same params on the CPU): prefill logits and 4
-     teacher-forced decode steps;
-  5. the 8B Q4_K_M synthetic run through Engine: 128-token prefill, 128
-     greedy tokens, with every kernel's launch count over that run;
+     teacher-forced decode steps, with the dense cache, q8_0, and the split
+     q5_1:q4_0 cache;
+  5. the 8B Q4_K_M synthetic run through Engine with the dense cache and
+     with kv_type="q8_0" (the same params), in turns (dense, q8_0, q8_0,
+     dense): 128-token prefill, 128 greedy tokens, with every kernel's
+     launch count over each run;
   6. one JSON line of per-kernel results, the card's name and power limit,
      and the final {"ok": true, ...} line.
 
@@ -74,9 +81,12 @@ def main() -> int:
     from llamacog_tpu_torch.ops.cuda.flash_prefill import (
         flash_prefill_attention_plain, flash_prefill_kernel)
     from llamacog_tpu_torch.ops.cuda.flash_q8 import (
-        flash_decode_stacked_dense, flash_decode_stacked_dense_plain)
+        flash_decode_q8, flash_decode_q8_tiled, flash_decode_stacked,
+        flash_decode_stacked_dense, flash_decode_stacked_dense_plain,
+        flash_decode_stacked_plain, flash_prefill_q8, flash_prefill_q8_plain)
     from llamacog_tpu_torch.ops.cuda.qmm import qgemm, qmm_plain, qmv
     from llamacog_tpu_torch.runtime.engine import Engine
+    from llamacog_tpu_torch.runtime.kv_cache import QuantKVCache, kv_plane_shapes
     from llamacog_tpu_torch.utils.synthetic import (
         llama3_8b_config, make_synthetic_params, random_wire)
 
@@ -247,6 +257,87 @@ def main() -> int:
     del ks, vs, kl, vl, w_qk, w_v, w_o, w_gu, w_d4, w_d6, w_head
     torch.cuda.empty_cache()
 
+    # quantized-cache attention: layer 1 of a 2-layer stacked plane cache
+    # filled with quantized random K/V at every slot
+    log("[parity] flash_decode_quant/flash_prefill_quant: no single PyTorch call attends "
+        "over quantized KV planes, so they have no library time (library_ms null)")
+    fq8 = "llamacog_tpu/ops/pallas/flash_q8.py:{}"
+
+    def quant_cache(kinds, s_len):
+        c = QuantKVCache.create(2, 1, s_len, Hkv, D, D, kinds=kinds, device=dev)
+        for il in range(2):  # one layer at a time keeps the f32 staging small
+            kv = [torch.randn(1, 1, s_len, Hkv, D, generator=g, device=dev) for _ in "kv"]
+            part = QuantKVCache([p[il:il + 1] for p in c.k_planes],
+                                [p[il:il + 1] for p in c.v_planes], kinds, Hkv)
+            part.write_all(*kv, torch.zeros(1, dtype=torch.int32, device=dev))
+        return c
+
+    def row_bytes(kind):
+        """Plane bytes of one head's row (q values, scales, mins, high bits)."""
+        return sum(shp[0] * torch.empty((), dtype=dt).element_size()
+                   for shp, dt in kv_plane_shapes(kind, D))
+
+    def decode_row(label, fn, plain, cache, n, source_line, kinds, per_layer):
+        seq = torch.tensor([n], dtype=torch.int32, device=dev)
+        kp, vp = cache.k_planes, cache.v_planes
+        if per_layer:
+            kp, vp = [p[1] for p in kp], [p[1] for p in vp]
+            args = (q, kp, vp, kc, vc, seq, scale)
+        else:
+            args = (q, kp, vp, 1, kc, vc, seq, scale)
+        out = fn(*args, kinds=kinds)
+        ref = plain(q, cache.k_planes, cache.v_planes, 1, kc, vc, seq, scale, kinds=kinds)
+        torch.cuda.synchronize()
+        nbytes = (n * Hkv * (row_bytes(kinds[0]) + row_bytes(kinds[1]))
+                  + 2 * (q.numel() + kc.numel() + vc.numel() + H * D))
+        record(f"{label} {kinds[0]}:{kinds[1]} H={H} Hkv={Hkv} D={D} S={cache.max_seq} "
+               f"seq_len={n}", "llamacog_tpu_torch/csrc/flash_decode_quant.cu",
+               fq8.format(source_line), [out], [ref], TOL_ATTN,
+               time_ms(lambda: fn(*args, kinds=kinds)),
+               time_ms(lambda: plain(q, cache.k_planes, cache.v_planes, 1, kc, vc, seq, scale,
+                                     kinds=kinds), iters=5),
+               nbytes, 4 * H * (n + 1) * D)
+
+    pairs = [(k, k) for k in ("q8_0", "q4_0", "q4_1", "q5_0", "q5_1")] + [
+        ("q8_0", "q5_1"), ("q5_0", "q4_1"), ("bf16", "q4_0"), ("q8_0", "f16")]
+    for kinds in pairs:
+        cache = quant_cache(kinds, S)
+        decode_row("flash_decode_stacked", flash_decode_stacked, flash_decode_stacked_plain,
+                   cache, 1000, 828, kinds, False)
+        if kinds == ("q8_0", "q8_0"):  # the per-layer entry on planes[il] views (K8a)
+            decode_row("flash_decode_q8", flash_decode_q8, flash_decode_stacked_plain,
+                       cache, 1000, 187, kinds, True)
+        del cache
+    for kind in ("q8_0", "q4_0"):  # at depth, and the tiled per-layer entry (K8b)
+        cache = quant_cache((kind, kind), 32768)
+        decode_row("flash_decode_stacked", flash_decode_stacked, flash_decode_stacked_plain,
+                   cache, 32765, 828, (kind, kind), False)
+        if kind == "q8_0":
+            decode_row("flash_decode_q8_tiled", flash_decode_q8_tiled,
+                       flash_decode_stacked_plain, cache, 32765, 520, (kind, kind), True)
+        del cache
+        torch.cuda.empty_cache()
+    for kinds in (("q8_0", "q8_0"), ("q4_0", "q4_0"), ("q8_0", "q5_1")):
+        cache = quant_cache(kinds, S)
+        kp, vp = [p[1] for p in cache.k_planes], [p[1] for p in cache.v_planes]
+        for n in (0, S - T):
+            seq = torch.tensor([n], dtype=torch.int32, device=dev)
+            args = (qp, kp, vp, kcp, vcp, seq, scale)
+            out = flash_prefill_q8(*args, kinds=kinds)
+            ref = flash_prefill_q8_plain(*args, kinds=kinds)
+            torch.cuda.synchronize()
+            keys = sum(n + t + 1 for t in range(T))
+            record(f"flash_prefill_q8 {kinds[0]}:{kinds[1]} T={T} H={H} Hkv={Hkv} D={D} "
+                   f"S={S} seq_len={n}", "llamacog_tpu_torch/csrc/flash_prefill_quant.cu",
+                   fq8.format(331), [out], [ref], TOL_ATTN,
+                   time_ms(lambda: flash_prefill_q8(*args, kinds=kinds)),
+                   time_ms(lambda: flash_prefill_q8_plain(*args, kinds=kinds), iters=5),
+                   n * Hkv * (row_bytes(kinds[0]) + row_bytes(kinds[1]))
+                   + 2 * (qp.numel() + kcp.numel() + vcp.numel() + T * H * D),
+                   4 * H * keys * D)
+        del cache
+    torch.cuda.empty_cache()
+
     # 4. full-width kernel path vs the plain path (same params on the CPU)
     cfg2 = llama3_8b_config(n_layer=2)
     p_gpu = make_synthetic_params(cfg2, seed=7)
@@ -255,21 +346,29 @@ def main() -> int:
     prompt = [(i * 7919) % V for i in range(2, 22)]
     forced = [11, 12345, 777, 90000]
     t0 = time.perf_counter()
-    runs = {}
-    for name, params, device in (("kernel", p_gpu, "cuda"), ("plain", p_cpu, "cpu")):
-        eng = Engine(params, cfg2, batch_size=1, max_seq=1024, device=device)
-        steps = [eng.prefill(prompt)]
-        for tok in forced:
-            steps.append(eng.decode_one([tok])[0])
-        runs[name] = steps
-    for i, (a, b) in enumerate(zip(runs["kernel"], runs["plain"])):
-        err = rel_err(torch.from_numpy(a), torch.from_numpy(b))
-        what = "prefill" if i == 0 else f"decode step {i}"
-        check(a.shape == (V,) and bool(torch.isfinite(torch.from_numpy(a)).all()),
-              f"{what}: logits not finite of shape [{V}]")
-        log(f"[path] 8B widths, 2 layers, {what}: logits max rel err {err:.3e} "
-            f"(tol {TOL_PATH:.0e}), argmax kernel {int(a.argmax())} plain {int(b.argmax())}")
-        check(err <= TOL_PATH, f"kernel path disagrees with the plain path at {what}")
+    # the dense cache, q8_0, and a split pair; a second prefill chunk at the
+    # end attends the (quantized) cache of the first
+    for kv_type in ("dense", "q8_0", "q5_1:q4_0"):
+        runs = {}
+        for name, params, device in (("kernel", p_gpu, "cuda"), ("plain", p_cpu, "cpu")):
+            eng = Engine(params, cfg2, batch_size=1, max_seq=1024, kv_type=kv_type,
+                         device=device)
+            steps = [eng.prefill(prompt)]
+            for tok in forced:
+                steps.append(eng.decode_one([tok])[0])
+            steps.append(eng.prefill(prompt[:9]))
+            runs[name] = steps
+        for i, (a, b) in enumerate(zip(runs["kernel"], runs["plain"])):
+            err = rel_err(torch.from_numpy(a), torch.from_numpy(b))
+            what = ("prefill" if i == 0 else "prefill chunk 2" if i == len(forced) + 1
+                    else f"decode step {i}")
+            what = f"kv {kv_type}, {what}"
+            check(a.shape == (V,) and bool(torch.isfinite(torch.from_numpy(a)).all()),
+                  f"{what}: logits not finite of shape [{V}]")
+            log(f"[path] 8B widths, 2 layers, {what}: logits max rel err {err:.3e} "
+                f"(tol {TOL_PATH:.0e}), argmax kernel {int(a.argmax())} "
+                f"plain {int(b.argmax())}")
+            check(err <= TOL_PATH, f"kernel path disagrees with the plain path at {what}")
     log(f"[path] done in {time.perf_counter() - t0:.1f}s")
     del p_gpu, p_cpu, runs
     torch.cuda.empty_cache()
@@ -280,55 +379,78 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[8b] synthetic Q4_K_M params built in {time.perf_counter() - t0:.1f}s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    eng = Engine(params, cfg, batch_size=1, max_seq=1024)
     prompt = [(i * 31337) % V for i in range(PROMPT_LEN)]
-    ttfts = []
-    for _ in range(4):  # the first is a warm-up (allocator, first launches)
+    # which kernels each run must launch, and which it must not
+    paths = {
+        "dense": (("qmv", "qgemm", "flash_decode_dense", "flash_prefill"),
+                  ("flash_decode_quant", "flash_prefill_quant")),
+        "q8_0": (("qmv", "qgemm", "flash_decode_quant", "flash_prefill_quant"),
+                 ("flash_decode_dense", "flash_prefill")),
+    }
+    path_launches = {}
+    # in turns (dense, q8_0, q8_0, dense): host time drifts within a process
+    for i, kv_type in enumerate(("dense", "q8_0", "q8_0", "dense")):
+        used, unused = paths[kv_type]
+        eng = Engine(params, cfg, batch_size=1, max_seq=1024, kv_type=kv_type)
+        c = eng.cache
+        kv_bytes = sum(t.nbytes for t in ((c.k_planes + c.v_planes)
+                                          if isinstance(c, QuantKVCache) else (c.k, c.v)))
+        ttfts = []
+        for _ in range(4):  # the first is a warm-up (allocator, first launches)
+            eng.reset()
+            t0 = time.perf_counter()
+            eng.prefill(prompt)
+            ttfts.append(time.perf_counter() - t0)
+        ttft = statistics.median(ttfts[1:])
+        # the main-path run whose launches are counted: prefill + greedy decode
         eng.reset()
-        t0 = time.perf_counter()
-        eng.prefill(prompt)
-        ttfts.append(time.perf_counter() - t0)
-    ttft = statistics.median(ttfts[1:])
-    # the main-path run whose launches are counted: prefill + greedy decode
-    eng.reset()
-    torch.cuda.reset_peak_memory_stats()
-    build.reset_launches()
-    logits = eng.prefill(prompt)
-    prefill_launches = dict(build.LAUNCHES)
-    t1 = time.perf_counter()
-    toks = eng.decode_greedy_tokens([int(logits.argmax())], N_DECODE)
-    dt = time.perf_counter() - t1
-    launches = dict(build.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    check(logits.shape == (V,) and bool(torch.isfinite(torch.from_numpy(logits)).all()),
-          "8B prefill logits not finite of the expected shape")
-    check(toks.shape == (1, N_DECODE) and 0 <= toks.min() and toks.max() < V,
-          "8B greedy tokens out of shape or range")
-    decode_launches = {k: launches[k] - prefill_launches[k] for k in launches}
-    log(f"[8b] TTFT {ttft * 1e3:.2f} ms (median of 3 prefills of {PROMPT_LEN} tokens; "
-        f"all: {', '.join(f'{t * 1e3:.2f}' for t in ttfts)} ms)")
-    log(f"[8b] decode {N_DECODE} tokens in {dt:.3f}s: {N_DECODE / dt:.2f} tokens/s, "
-        f"{dt / N_DECODE * 1e3:.3f} ms/token; weight-stream bound "
-        f"{sum_wire_bytes(params) / HBM_BYTES_PER_S * 1e3:.3f} ms/token")
-    log(f"[8b] launches: prefill {json.dumps(prefill_launches)}, "
-        f"decode {json.dumps(decode_launches)}")
-    log(f"[8b] peak device memory {peak / 2**30:.2f} GiB")
-    missing = [k for k, v in launches.items() if v == 0]
-    check(not missing, f"kernels never launched on the main path: {missing}")
-    # the device-side loop agrees with host-driven decode_one + argmax
-    eng.reset()
-    first = int(eng.prefill(prompt).argmax())
-    host_toks, tok = [], first
-    for _ in range(8):
-        tok = int(eng.decode_one([tok])[0].argmax())
-        host_toks.append(tok)
-    check(host_toks == [int(t) for t in toks[0, :8]],
-          f"greedy loop {toks[0, :8]} != decode_one {host_toks}")
-    log(f"[8b] greedy loop and decode_one agree on the first 8 tokens: {host_toks}")
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        logits = eng.prefill(prompt)
+        prefill_launches = dict(build.LAUNCHES)
+        t1 = time.perf_counter()
+        toks = eng.decode_greedy_tokens([int(logits.argmax())], N_DECODE)
+        dt = time.perf_counter() - t1
+        launches = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        tag = f"[8b kv {kv_type} run {i + 1}]"
+        check(logits.shape == (V,) and bool(torch.isfinite(torch.from_numpy(logits)).all()),
+              f"{tag} prefill logits not finite of the expected shape")
+        check(toks.shape == (1, N_DECODE) and 0 <= toks.min() and toks.max() < V,
+              f"{tag} greedy tokens out of shape or range")
+        decode_launches = {k: launches[k] - prefill_launches[k] for k in launches}
+        log(f"{tag} KV cache {kv_bytes / 1e6:.1f} MB at max_seq 1024")
+        log(f"{tag} TTFT {ttft * 1e3:.2f} ms (median of 3 prefills of {PROMPT_LEN} tokens; "
+            f"all: {', '.join(f'{t * 1e3:.2f}' for t in ttfts)} ms)")
+        log(f"{tag} decode {N_DECODE} tokens in {dt:.3f}s: {N_DECODE / dt:.2f} tokens/s, "
+            f"{dt / N_DECODE * 1e3:.3f} ms/token; weight-stream bound "
+            f"{sum_wire_bytes(params) / HBM_BYTES_PER_S * 1e3:.3f} ms/token")
+        log(f"{tag} launches: prefill {json.dumps(prefill_launches)}, "
+            f"decode {json.dumps(decode_launches)}")
+        log(f"{tag} peak device memory {peak / 2**30:.2f} GiB")
+        missing = [k for k in used if launches[k] == 0]
+        check(not missing, f"{tag} kernels never launched on the main path: {missing}")
+        stray = [k for k in unused if launches[k] != 0]
+        check(not stray, f"{tag} kernels of another cache path launched: {stray}")
+        path_launches[kv_type] = launches
+        # the device-side loop agrees with host-driven decode_one + argmax
+        eng.reset()
+        first = int(eng.prefill(prompt).argmax())
+        host_toks, tok = [], first
+        for _ in range(8):
+            tok = int(eng.decode_one([tok])[0].argmax())
+            host_toks.append(tok)
+        check(host_toks == [int(t) for t in toks[0, :8]],
+              f"{tag} greedy loop {toks[0, :8]} != decode_one {host_toks}")
+        log(f"{tag} greedy loop and decode_one agree on the first 8 tokens: {host_toks}")
+        del eng, c
+        torch.cuda.empty_cache()
 
     # 6. results
+    # each kernel's launches in the run of its cache path
     for r in results:
-        r["launches"] = launches[r.pop("kernel")]
+        k = r.pop("kernel")
+        r["launches"] = path_launches["q8_0" if k in paths["dense"][1] else "dense"][k]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))

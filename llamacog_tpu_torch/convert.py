@@ -22,6 +22,7 @@ from .gguf import GGMLType
 from .models.config import ModelConfig
 from .models.llama import check_supported
 from .quant import wire
+from .runtime.kv_cache import KVCache, quant_cache_class
 
 _LAYER_TENSORS = {
     "attn_norm": "attn_norm.weight",
@@ -106,3 +107,27 @@ def gguf_tensors(reader) -> dict:
         else:
             out[name] = (GGMLType(ti.ggml_type), shape, np.asarray(data, np.uint8))
     return out
+
+
+def _cache_tensor(arr, dev) -> torch.Tensor:
+    """A numpy array of a reference cache -> a tensor on `dev`. bfloat16
+    arrives as numpy's extension type, which torch.from_numpy does not
+    take: its bits cross as uint16. The array is copied (a JAX array's
+    numpy view is read-only)."""
+    arr = np.array(arr, order="C")
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(arr).to(dev)
+
+
+def kv_cache_from_reference(k_planes, v_planes, kinds, hkv, device=None):
+    """The numpy planes of a JAX KVCache (kinds None: one [L, B, S, Hkv, D]
+    array per tensor) or QuantKVCache (its k_planes/v_planes, kinds, hkv) ->
+    the port's cache on `device` (None = CUDA), the same layout plane for
+    plane, so both packages can compute from the same state."""
+    dev = resolve_device(device)
+    k = tuple(_cache_tensor(p, dev) for p in k_planes)
+    v = tuple(_cache_tensor(p, dev) for p in v_planes)
+    if kinds is None:
+        return KVCache(k[0], v[0])
+    return quant_cache_class(kinds)(k, v, kinds, hkv)

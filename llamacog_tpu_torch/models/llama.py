@@ -18,7 +18,7 @@ from ..ops.linear import qmatmul, qmatmul_multi
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope_tables, rope_tables
 from ..quant.wire import WireTensor, dequantize_rows
-from ..runtime.kv_cache import KVCache
+from ..runtime.kv_cache import KVCache, QuantKVCache
 from .config import ModelConfig
 
 SUPPORTED_ARCHES = ("llama",)
@@ -71,12 +71,12 @@ def forward(
     cfg: ModelConfig,
     tokens: torch.Tensor,     # [B, T] int64
     positions: torch.Tensor,  # [B, T] absolute positions
-    cache: KVCache,
+    cache: KVCache | QuantKVCache,
     write_pos: torch.Tensor,  # [B] int32 cache write offsets (= valid old length)
     dtype=torch.bfloat16,
     logits_last=None,         # host ints [B]: compute the LM head only there
     kv_cap: int | None = None,  # bound on the attended cache prefix
-) -> tuple[torch.Tensor, KVCache]:
+) -> tuple[torch.Tensor, KVCache | QuantKVCache]:
     """Returns (logits [B, T, V] f32 — [B, 1, V] with logits_last — and the
     cache, updated in place). Layers read the old cache and attend to the
     current block explicitly; one bulk write lands all layers' K/V."""
@@ -93,6 +93,11 @@ def forward(
             return flash_q8.decode_from_cache(
                 q[:, 0], cache, il, k[:, 0], v[:, 0], write_pos, scale,
                 softcap=cfg.attn_logit_softcap, window=win, kv_cap=kv_cap)[:, None]
+        if isinstance(cache, QuantKVCache):
+            return flash_q8.flash_prefill_q8(
+                q, tuple(p[il] for p in cache.k_planes), tuple(p[il] for p in cache.v_planes),
+                k, v, write_pos, scale, softcap=cfg.attn_logit_softcap, window=win,
+                kv_cap=kv_cap, kinds=cache.kinds)
         k_old, v_old = cache.read(il)
         if kv_cap is not None:
             k_old, v_old = k_old[:, :kv_cap], v_old[:, :kv_cap]

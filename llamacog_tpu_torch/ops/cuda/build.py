@@ -27,13 +27,16 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("qmv", "qgemm", "flash_decode_dense", "flash_prefill")
+KERNELS = ("qmv", "qgemm", "flash_decode_dense", "flash_prefill", "flash_decode_quant",
+           "flash_prefill_quant")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # element types the launchers take, as csrc/common.cuh numbers them
 DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
+# KV cache plane kinds, as csrc/common.cuh numbers them (KV_Q8_0 ...)
+KV_KIND_ID = {"q8_0": 0, "q4_0": 1, "q4_1": 2, "q5_0": 3, "q5_1": 4, "f16": 5, "bf16": 6}
 
 LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_LOG: dict[str, str] = {}  # nvcc/ptxas output (registers, smem, spills)
@@ -102,6 +105,10 @@ def _bind(lib: ctypes.CDLL) -> None:
                                    i, f, f, i, vp],
         "lcg_flash_prefill": [i, vp, vp, vp, ll, ll, ll, ll, vp, vp, vp, vp,
                               i, i, i, i, i, i, i, f, f, i, vp],
+        "lcg_flash_decode_quant": [i, i, i, vp, *[vp] * 8, i, i, i, i, i, i, vp, vp, vp, vp,
+                                   i, f, f, i, vp],
+        "lcg_flash_prefill_quant": [i, i, i, vp, *[vp] * 8, i, i, i, i, i, i, i, vp, vp, vp, vp,
+                                    i, f, f, i, vp],
     }
     for fn, argtypes in sigs.items():
         if hasattr(lib, fn):

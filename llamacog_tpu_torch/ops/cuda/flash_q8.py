@@ -1,18 +1,36 @@
-"""Decode attention out of the stacked dense cache: kernel K4 and its plain
-version.
+"""Attention read straight out of the stacked KV cache: kernels K4 (dense
+decode), K6/K8 (quantized decode) and K7 (quantized prefill), each with its
+plain version.
 
-Counterpart of llamacog_tpu/ops/pallas/flash_q8.py's dense stacked path
-(_flash_decode_stacked_dense / decode_from_cache). The kernel
-(csrc/flash_decode_dense.cu) reads layer `il` of the [L, B, S, Hkv, D]
-cache in place, stops each row at its seq_len, and folds the current
-step's k_cur/v_cur in last.
+Counterpart of llamacog_tpu/ops/pallas/flash_q8.py, with its names and
+signatures:
+
+- flash_decode_stacked_dense (csrc/flash_decode_dense.cu) reads layer `il`
+  of the dense [L, B, S, Hkv, D] cache in place;
+- flash_decode_stacked (K6), flash_decode_q8 (K8a), flash_decode_q8_tiled
+  (K8b) and flash_decode_q8_auto read the quantized planes
+  (runtime/kv_cache.py) through one kernel, csrc/flash_decode_quant.cu: the
+  per-layer entries launch it as a one-layer stack, and the whole-S versus
+  tiled split of the TPU is the kernel's own tile loop;
+- flash_prefill_q8 (K7, csrc/flash_prefill_quant.cu) attends a prefill block
+  over one layer's quantized planes plus the causal current block.
+
+Every kernel stops each row at its seq_len (and kv_cap) and folds the
+current step's unquantized k_cur/v_cur in last (the deferred KV write).
+q, k_cur, v_cur and the outputs are in natural head-dim order; the kernels
+undo the planes' group-strided order by index. The plain versions
+dequantize the planes to f32 (kv_dequant_planes), as the Pallas kernels do,
+then run masked_attention. The `*_kernel` launchers take CUDA tensors only;
+the entries with the JAX names run the plain version for CPU tensors and
+the kernel otherwise.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..attention import masked_attention, old_cache_mask
+from ...runtime.kv_cache import QuantKVCache, kv_dequant_planes, kv_plane_shapes
+from ..attention import intra_block_mask, masked_attention, old_cache_mask
 from . import build
 
 MAX_REP = 16
@@ -50,9 +68,7 @@ def flash_decode_stacked_dense(q, k_stack, v_stack, il, k_cur, v_cur, seq_len, s
                 or not t.is_contiguous():
             raise ValueError(f"flash_decode_dense: {name} must be contiguous {dt} "
                              f"{shape} on {q.device}, got {t.dtype} {tuple(t.shape)}")
-    if seq_len.dtype != torch.int32 or tuple(seq_len.shape) != (B,) \
-            or seq_len.device != q.device:
-        raise ValueError("flash_decode_dense: seq_len must be int32 [B] on the same device")
+    _check_seq_len("flash_decode_dense", seq_len, B, q.device)
     if H % Hkv or H // Hkv > MAX_REP or Dk > MAX_D or Dv > MAX_D or Dk % 8:
         raise ValueError(f"flash_decode_dense: unsupported heads/dims H={H} Hkv={Hkv} "
                          f"Dk={Dk} Dv={Dv}")
@@ -71,16 +87,218 @@ def flash_decode_stacked_dense(q, k_stack, v_stack, il, k_cur, v_cur, seq_len, s
     return out
 
 
-def decode_from_cache(q, cache, il, k_cur, v_cur, seq_len, scale, softcap=0.0, window=0,
-                      kv_cap=None):
-    """Decode attention for layer `il` reading the stacked cache directly:
-    the kernel on the card, the plain version on the CPU."""
+def _check_seq_len(what, seq_len, B, dev):
+    if seq_len.dtype != torch.int32 or tuple(seq_len.shape) != (B,) or seq_len.device != dev:
+        raise ValueError(f"{what}: seq_len must be int32 [B] on the same device")
+
+
+# ---------------------------------------------------------------------------
+# Quantized planes
+# ---------------------------------------------------------------------------
+
+
+def _flat_planes(planes, ndim):
+    """Accept the cache's flat [.., S, Hkv*W] planes (ndim dims) or the
+    unflattened [.., S, Hkv, W] form: merge the trailing two dims."""
+    return tuple(p.reshape(*p.shape[:-2], p.shape[-2] * p.shape[-1])
+                 if p.dim() == ndim + 1 else p for p in planes)
+
+
+def _deq_layer(kind, planes, s, hkv):
+    """One layer's flat planes [B, S, Hkv*W] -> f32 [B, s, Hkv, D]."""
+    return kv_dequant_planes(
+        kind, tuple(p[:, :s].reshape(p.shape[0], s, hkv, -1) for p in planes),
+        torch.float32)
+
+
+def flash_decode_stacked_plain(q, k_planes, v_planes, il, k_cur, v_cur, seq_len, scale,
+                               softcap=0.0, window=0, kv_cap=None, kinds=("q8_0", "q8_0")):
+    """Plain K6: q [B, H, Dk] over layer `il` of the stacked planes
+    [L, B, S, Hkv*W] dequantized to f32 -> [B, H, Dv]."""
+    k_planes, v_planes = _flat_planes(k_planes, 4), _flat_planes(v_planes, 4)
+    Hkv = k_cur.shape[1]
+    S = k_planes[0].shape[2] if kv_cap is None else min(kv_cap, k_planes[0].shape[2])
+    k = _deq_layer(kinds[0], tuple(p[il] for p in k_planes), S, Hkv)
+    v = _deq_layer(kinds[1], tuple(p[il] for p in v_planes), S, Hkv)
+    return flash_decode_stacked_dense_plain(q, k[None], v[None], 0, k_cur, v_cur, seq_len,
+                                            scale, softcap=softcap, window=window)
+
+
+def flash_prefill_q8_plain(q, k_planes, v_planes, k_cur, v_cur, seq_len, scale, softcap=0.0,
+                           window=0, kv_cap=None, kinds=("q8_0", "q8_0")):
+    """Plain K7: q [B, T, H, Dk] over one layer's planes [B, S, Hkv*W]
+    dequantized to f32, plus the causal current block -> [B, T, H, Dv]."""
+    k_planes, v_planes = _flat_planes(k_planes, 3), _flat_planes(v_planes, 3)
+    T, Hkv = q.shape[1], k_cur.shape[2]
+    S = k_planes[0].shape[1] if kv_cap is None else min(kv_cap, k_planes[0].shape[1])
+    k = _deq_layer(kinds[0], k_planes, S, Hkv)
+    v = _deq_layer(kinds[1], v_planes, S, Hkv)
+    return masked_attention(q, k, v, k_cur, v_cur, old_cache_mask(seq_len, T, S, window),
+                            intra_block_mask(T, window, device=q.device), scale,
+                            logit_softcap=softcap)
+
+
+def _plane_ptrs(what, planes, kind, il, B, S, Hkv, D, dev):
+    """Validate one tensor's stacked planes [L, B, S, Hkv*W] against its
+    kind; the (q, s, m, h) pointers of layer `il`, None where the kind has
+    no such plane."""
+    shapes = kv_plane_shapes(kind, D)
+    if len(planes) != len(shapes):
+        raise ValueError(f"{what}: {kind} takes {len(shapes)} planes, got {len(planes)}")
+    L = planes[0].shape[0]
+    for p, (shp, dt) in zip(planes, shapes):
+        want = (L, B, S, Hkv * shp[0])
+        if tuple(p.shape) != want or p.dtype != dt or p.device != dev \
+                or not p.is_contiguous() or p.data_ptr() % 16:
+            raise ValueError(f"{what}: {kind} plane must be contiguous {dt} {want} on {dev}, "
+                             f"got {p.dtype} {tuple(p.shape)} on {p.device}")
+    if not 0 <= il < L:
+        raise ValueError(f"{what}: layer {il} out of range")
+    roles = (planes[0], planes[1] if len(planes) > 1 else None,
+             planes[2] if kind in ("q4_1", "q5_1") else None,
+             planes[-1] if kind in ("q5_0", "q5_1") else None)
+    return [None if p is None else p[il].data_ptr() for p in roles]
+
+
+def _check_attn_args(what, q, k_cur, v_cur, kinds, dims):
+    if not q.is_cuda:
+        raise ValueError(f"{what}: q must be a CUDA tensor, got {q.device}")
+    dt = q.dtype
+    if dt not in build.DTYPE_ID:
+        raise ValueError(f"{what}: dtype must be float32 or bfloat16, got {dt}")
+    for name, t in (("q", q), ("k_cur", k_cur), ("v_cur", v_cur)):
+        if t.dtype != dt or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous {dt} on {q.device}")
+    for kind in kinds:
+        if kind not in build.KV_KIND_ID:
+            raise ValueError(f"{what}: unknown kv kind {kind!r}")
+    H, Hkv, Dk, Dv = dims
+    if Hkv < 1 or H % Hkv or H // Hkv > MAX_REP or Dk > MAX_D or Dv > MAX_D \
+            or Dk % 32 or Dv % 32:
+        raise ValueError(f"{what}: unsupported heads/dims H={H} Hkv={Hkv} Dk={Dk} Dv={Dv}")
+
+
+def flash_decode_quant_kernel(q, k_planes, v_planes, il, k_cur, v_cur, seq_len, scale,
+                              softcap=0.0, window=0, kv_cap=None, kinds=("q8_0", "q8_0")):
+    """The quantized decode kernel (CUDA tensors only): q [B, H, Dk] over
+    layer `il` of the planes [L, B, S, Hkv*W] (or [L, B, S, Hkv, W]), k/v_cur
+    [B, Hkv, D], seq_len [B] int32 -> [B, H, Dv]."""
+    what = "flash_decode_quant"
+    k_planes, v_planes = _flat_planes(k_planes, 4), _flat_planes(v_planes, 4)
+    B, H, Dk = q.shape
+    Hkv, Dv = k_cur.shape[1], v_cur.shape[-1]
+    _check_attn_args(what, q, k_cur, v_cur, kinds, (H, Hkv, Dk, Dv))
+    if tuple(k_cur.shape) != (B, Hkv, Dk) or tuple(v_cur.shape) != (B, Hkv, Dv):
+        raise ValueError(f"{what}: k_cur/v_cur must be [B, Hkv, D]")
+    _check_seq_len(what, seq_len, B, q.device)
+    S = k_planes[0].shape[2]
+    kptr = _plane_ptrs(what, k_planes, kinds[0], il, B, S, Hkv, Dk, q.device)
+    vptr = _plane_ptrs(what, v_planes, kinds[1], il, B, S, Hkv, Dv, q.device)
+    s_eff = S if kv_cap is None else min(int(kv_cap), S)
+    out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
+    lib = build.load("flash_decode_quant")
+    rc = lib.lcg_flash_decode_quant(
+        build.DTYPE_ID[q.dtype], build.KV_KIND_ID[kinds[0]], build.KV_KIND_ID[kinds[1]],
+        q.data_ptr(), *kptr, *vptr, B, S, H, Hkv, Dk, Dv, k_cur.data_ptr(),
+        v_cur.data_ptr(), seq_len.data_ptr(), out.data_ptr(), s_eff, float(scale),
+        float(softcap), int(window), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, rc, what)
+    build.LAUNCHES["flash_decode_quant"] += 1
+    return out
+
+
+def flash_prefill_quant_kernel(q, k_planes, v_planes, k_cur, v_cur, seq_len, scale,
+                               softcap=0.0, window=0, kv_cap=None, kinds=("q8_0", "q8_0")):
+    """The quantized prefill kernel (CUDA tensors only): q [B, T, H, Dk]
+    over one layer's planes [B, S, Hkv*W] (or [B, S, Hkv, W]) plus the
+    causal current block k/v_cur [B, T, Hkv, D] -> [B, T, H, Dv]."""
+    what = "flash_prefill_quant"
+    k_planes, v_planes = _flat_planes(k_planes, 3), _flat_planes(v_planes, 3)
+    B, T, H, Dk = q.shape
+    Hkv, Dv = k_cur.shape[2], v_cur.shape[-1]
+    _check_attn_args(what, q, k_cur, v_cur, kinds, (H, Hkv, Dk, Dv))
+    if tuple(k_cur.shape) != (B, T, Hkv, Dk) or tuple(v_cur.shape) != (B, T, Hkv, Dv):
+        raise ValueError(f"{what}: k_cur/v_cur must be [B, T, Hkv, D]")
+    _check_seq_len(what, seq_len, B, q.device)
+    S = k_planes[0].shape[1]
+    kptr = _plane_ptrs(what, [p[None] for p in k_planes], kinds[0], 0, B, S, Hkv, Dk,
+                       q.device)
+    vptr = _plane_ptrs(what, [p[None] for p in v_planes], kinds[1], 0, B, S, Hkv, Dv,
+                       q.device)
+    s_eff = S if kv_cap is None else min(int(kv_cap), S)
+    out = torch.empty((B, T, H, Dv), dtype=q.dtype, device=q.device)
+    lib = build.load("flash_prefill_quant")
+    rc = lib.lcg_flash_prefill_quant(
+        build.DTYPE_ID[q.dtype], build.KV_KIND_ID[kinds[0]], build.KV_KIND_ID[kinds[1]],
+        q.data_ptr(), *kptr, *vptr, B, S, T, H, Hkv, Dk, Dv, k_cur.data_ptr(),
+        v_cur.data_ptr(), seq_len.data_ptr(), out.data_ptr(), s_eff, float(scale),
+        float(softcap), int(window), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, rc, what)
+    build.LAUNCHES["flash_prefill_quant"] += 1
+    return out
+
+
+def _on(q, kernel, plain, *args, **kwargs):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
     if q.is_cuda:
-        return flash_decode_stacked_dense(q, cache.k, cache.v, il, k_cur, v_cur, seq_len,
-                                          scale, softcap=softcap, window=window,
-                                          kv_cap=kv_cap)
+        return kernel(q, *args, **kwargs)
     if q.device.type != "cpu":
         raise ValueError(f"unsupported device {q.device}")
-    return flash_decode_stacked_dense_plain(q, cache.k, cache.v, il, k_cur, v_cur, seq_len,
-                                            scale, softcap=softcap, window=window,
-                                            kv_cap=kv_cap)
+    return plain(q, *args, **kwargs)
+
+
+def flash_decode_stacked(q, k_planes, v_planes, il, k_cur, v_cur, seq_len, scale,
+                         softcap=0.0, window=0, kv_cap=None, kinds=("q8_0", "q8_0")):
+    """K6: decode attention over layer `il` of the stacked planes
+    [L, B, S, Hkv*W]; q [B, H, Dk] -> [B, H, Dv], natural order."""
+    return _on(q, flash_decode_quant_kernel, flash_decode_stacked_plain, k_planes, v_planes,
+               il, k_cur, v_cur, seq_len, scale, softcap=softcap, window=window,
+               kv_cap=kv_cap, kinds=kinds)
+
+
+def flash_decode_q8(q, k_planes, v_planes, k_cur, v_cur, seq_len, scale, softcap=0.0,
+                    window=0, kv_cap=None, kinds=("q8_0", "q8_0")):
+    """K8a: decode attention over one layer's planes [B, S, Hkv*W] (the
+    same kernel as K6, as a one-layer stack)."""
+    return flash_decode_stacked(q, [p[None] for p in k_planes], [p[None] for p in v_planes],
+                                0, k_cur, v_cur, seq_len, scale, softcap=softcap,
+                                window=window, kv_cap=kv_cap, kinds=kinds)
+
+
+def flash_decode_q8_tiled(q, k_planes, v_planes, k_cur, v_cur, seq_len, scale, softcap=0.0,
+                          window=0, kv_cap=None, kinds=("q8_0", "q8_0")):
+    """K8b: the S-tiled per-layer entry. The kernel walks S in tiles for
+    every depth, so this is flash_decode_q8 under the JAX name."""
+    return flash_decode_q8(q, k_planes, v_planes, k_cur, v_cur, seq_len, scale,
+                           softcap=softcap, window=window, kv_cap=kv_cap, kinds=kinds)
+
+
+def flash_decode_q8_auto(q, k_planes, v_planes, k_cur, v_cur, seq_len, scale, softcap=0.0,
+                         window=0, kv_cap=None, kinds=("q8_0", "q8_0")):
+    """The JAX package picks the whole-S or the tiled kernel by a TPU VMEM
+    rule; here both are the one kernel, so this is flash_decode_q8."""
+    return flash_decode_q8(q, k_planes, v_planes, k_cur, v_cur, seq_len, scale,
+                           softcap=softcap, window=window, kv_cap=kv_cap, kinds=kinds)
+
+
+def flash_prefill_q8(q, k_planes, v_planes, k_cur, v_cur, seq_len, scale, softcap=0.0,
+                     window=0, kv_cap=None, kinds=("q8_0", "q8_0")):
+    """K7: prefill attention over one layer's planes [B, S, Hkv*W] plus the
+    causal current block; q [B, T, H, Dk] -> [B, T, H, Dv]."""
+    return _on(q, flash_prefill_quant_kernel, flash_prefill_q8_plain, k_planes, v_planes,
+               k_cur, v_cur, seq_len, scale, softcap=softcap, window=window, kv_cap=kv_cap,
+               kinds=kinds)
+
+
+def decode_from_cache(q, cache, il, k_cur, v_cur, seq_len, scale, softcap=0.0, window=0,
+                      kv_cap=None):
+    """Decode attention for layer `il` reading the stacked cache directly,
+    dispatched on the cache type: the quantized planes go to K6, the dense
+    store to K4 (kernels on the card, plain versions on the CPU)."""
+    if isinstance(cache, QuantKVCache):
+        return flash_decode_stacked(q, cache.k_planes, cache.v_planes, il, k_cur, v_cur,
+                                    seq_len, scale, softcap=softcap, window=window,
+                                    kv_cap=kv_cap, kinds=cache.kinds)
+    return _on(q, flash_decode_stacked_dense, flash_decode_stacked_dense_plain, cache.k,
+               cache.v, il, k_cur, v_cur, seq_len, scale, softcap=softcap, window=window,
+               kv_cap=kv_cap)

@@ -1,9 +1,10 @@
 """Single-stream generation engine (PyTorch).
 
-Counterpart of llamacog_tpu/runtime/engine.py::Engine for the dense-cache
-llama path: prefill in padded length buckets (the pad slots are written to
-the cache, as the JAX engine writes them), one-token decode steps, and a
-greedy loop that keeps the token on the device. The cache bound `_kv_cap`
+Counterpart of llamacog_tpu/runtime/engine.py::Engine for the llama path,
+with the dense cache or the quantized one (kv_type, the -ctk/-ctv kinds,
+through make_cache): prefill in padded length buckets (the pad slots are
+written to the cache, as the JAX engine writes them), one-token decode
+steps, and a greedy loop that keeps the token on the device. The cache bound `_kv_cap`
 is the JAX engine's. Steps run eagerly; capturing the decode step in a
 CUDA graph is later work.
 """
@@ -16,7 +17,7 @@ import torch
 from .. import resolve_device
 from ..models.config import ModelConfig
 from ..models.llama import check_supported, forward
-from .kv_cache import KVCache
+from .kv_cache import make_cache
 
 PREFILL_BUCKETS = (32, 128, 512, 2048)
 # longest single prefill step; longer prompts loop chunks of this size
@@ -45,8 +46,6 @@ class Engine:
         check_supported(config)
         if batch_size != 1:
             raise NotImplementedError("batch_size > 1 is not ported yet")
-        if kv_type != "dense":
-            raise NotImplementedError(f"KV cache type {kv_type!r} is not ported yet")
         self.device = resolve_device(device)
         stray = {str(d) for d in _param_devices(params) if d.type != self.device.type}
         if stray:
@@ -56,9 +55,9 @@ class Engine:
         self.batch_size = batch_size
         self.max_seq = max_seq
         self.dtype = dtype
-        self.cache = KVCache.create(config.n_layer, batch_size, max_seq, config.n_head_kv,
-                                    config.head_dim_k, config.head_dim_v, dtype=dtype,
-                                    device=self.device)
+        self.cache = make_cache(kv_type, config.n_layer, batch_size, max_seq, config.n_head_kv,
+                                config.head_dim_k, config.head_dim_v, dtype=dtype,
+                                device=self.device)
         self.seq_len = np.zeros(batch_size, dtype=np.int32)  # host-side lengths
 
     def _dev_i32(self, values) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """llamacog-cli (PyTorch port) — greedy generation from a llama GGUF.
 
 Usage:
-    python -m llamacog_tpu_torch.tools.cli -m model.gguf -p "..." -n 64
+    python -m llamacog_tpu_torch.tools.cli -m model.gguf -p "..." -n 64 \
+        [-ctk q8_0 [-ctv q4_0]]
 
 Counterpart of llamacog_tpu/tools/cli.py's plain generation path. Chat,
 sampling, speculative decoding and session state stay in the JAX CLI for
@@ -14,6 +15,15 @@ import argparse
 import sys
 import time
 
+KV_TYPES = ("f16", "bf16", "q8_0", "q4_0", "q4_1", "q5_0", "q5_1")
+
+
+def _kv_type_arg(ctk: str, ctv: str | None) -> str:
+    """-ctk/-ctv flag values -> Engine kv_type ("k:v" when they differ);
+    make_cache resolves dense kinds and picks the cache class."""
+    ctv = ctv or ctk
+    return ctk if ctk == ctv else f"{ctk}:{ctv}"
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="llamacog-cli-torch",
@@ -23,6 +33,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-n", "--n-predict", type=int, default=64, help="tokens to generate")
     p.add_argument("-c", "--ctx-size", type=int, default=2048)
     p.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
+    p.add_argument("-ctk", "--cache-type-k", choices=KV_TYPES, default="bf16",
+                   help="K cache type (q8_0 about halves the KV memory, q4_0 about a third)")
+    p.add_argument("-ctv", "--cache-type-v", choices=KV_TYPES, default=None,
+                   help="V cache type (defaults to the K type)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda (the kernels) or cpu (the plain PyTorch path)")
     return p
@@ -43,6 +57,7 @@ def main(argv=None) -> int:
         print("error: model has no supported tokenizer", file=sys.stderr)
         return 1
     engine = Engine(model.params, model.config, max_seq=args.ctx_size, dtype=dtype,
+                    kv_type=_kv_type_arg(args.cache_type_k, args.cache_type_v),
                     device=args.device)
     vocab = model.vocab
     ids = model.tokenizer.tokenize(args.prompt, add_special=True, parse_special=True)

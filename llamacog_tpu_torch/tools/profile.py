@@ -1,14 +1,16 @@
 """Where the time of a decode step goes, on the GPU.
 
-    python -m llamacog_tpu_torch.tools.profile [--layers 32] [--steps 32]
+    python -m llamacog_tpu_torch.tools.profile [--layers 32] [--steps 32] [--kv-type q8_0]
 
 Builds the Llama-3-8B synthetic Q4_K_M model (depth cut by --layers),
 prefills a 128-token prompt, then runs --steps greedy decode steps
 (Engine.decode_greedy_tokens) twice: once timed on the host clock, once
-under torch.profiler. Prints host ms/token, device busy ms/token (the sum
-of kernel times the profiler saw), the device's idle share, and kernel
-time by name. If the profiler sees no CUDA kernels, the device numbers are
-reported as not measured.
+under torch.profiler. Prints host ms/token, the host time of the two
+pieces the cache kind changes (the step's bulk cache write and one layer's
+decode attention call, without a sync), device busy ms/token (the sum of
+kernel times the profiler saw), the device's idle share, kernel time by
+name and host op time by name. If the profiler sees no CUDA kernels, the
+device numbers are reported as not measured.
 """
 
 from __future__ import annotations
@@ -22,16 +24,19 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--prompt", type=int, default=128)
+    ap.add_argument("--kv-type", default="dense", help="KV cache kinds, as Engine's kv_type")
     args = ap.parse_args(argv)
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from ..ops.cuda.flash_q8 import decode_from_cache
     from ..runtime.engine import Engine
     from ..utils.synthetic import llama3_8b_config, make_synthetic_params
 
     cfg = llama3_8b_config(n_layer=args.layers)
-    eng = Engine(make_synthetic_params(cfg, seed=0), cfg, batch_size=1, max_seq=1024)
+    eng = Engine(make_synthetic_params(cfg, seed=0), cfg, batch_size=1, max_seq=1024,
+                 kv_type=args.kv_type)
     prompt = [(i * 31337) % cfg.n_vocab for i in range(args.prompt)]
 
     def prefill() -> int:
@@ -52,10 +57,31 @@ def main(argv=None) -> int:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / args.steps
     print(f"[profile] {torch.cuda.get_device_name(0)}, {args.layers} layers, "
-          f"{args.steps} decode steps after a {args.prompt}-token prompt")
+          f"{args.steps} decode steps after a {args.prompt}-token prompt, kv {args.kv_type}")
     print(f"[profile] host clock: {wall / args.steps * 1e3:.3f} ms/token "
           f"({args.steps / wall:.2f} tokens/s); under the profiler "
           f"{wall_prof / args.steps * 1e3:.3f} ms/token")
+
+    def host_us(fn, n=320) -> float:
+        """Host time of one call, the device's drain excluded."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / n * 1e6
+
+    L, H, Hkv, D = cfg.n_layer, cfg.n_head, cfg.n_head_kv, cfg.head_dim_k
+    dev = eng.device
+    kv_new = torch.zeros((L, 1, 1, Hkv, D), dtype=eng.dtype, device=dev)
+    q, cur = (torch.zeros((1, h, D), dtype=eng.dtype, device=dev) for h in (H, Hkv))
+    pos = torch.tensor([args.prompt], dtype=torch.int32, device=dev)
+    write_us = host_us(lambda: eng.cache.write_all(kv_new, kv_new, pos))
+    attn_us = host_us(lambda: decode_from_cache(q, eng.cache, 0, cur, cur, pos, D**-0.5))
+    print(f"[profile] host time: cache write_all {write_us:.1f} us a step, "
+          f"decode attention call {attn_us:.1f} us a layer")
     if not kernels:
         print("[profile] device busy time: not measured (the profiler saw no CUDA kernels)")
         return 0
@@ -68,6 +94,13 @@ def main(argv=None) -> int:
         print(f"{e.key[:70]:<70} {e.count / args.steps:>9.1f} "
               f"{e.self_device_time_total / 1e3 / args.steps:>8.4f} "
               f"{e.self_device_time_total / max(e.count, 1):>8.2f}")
+    # where the host's time goes (the profiler's own cost is in every row)
+    host = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
+    print(f"{'host op (self CPU time)':<70} {'calls/tok':>9} {'ms/tok':>8} {'avg us':>8}")
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:15]:
+        print(f"{e.key[:70]:<70} {e.count / args.steps:>9.1f} "
+              f"{e.self_cpu_time_total / 1e3 / args.steps:>8.4f} "
+              f"{e.self_cpu_time_total / max(e.count, 1):>8.2f}")
     return 0
 
 

@@ -59,7 +59,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 def test_raw_kernel_launchers_refuse_cpu_tensors():
     from llamacog_tpu_torch.ops.cuda.flash_prefill import flash_prefill_kernel
-    from llamacog_tpu_torch.ops.cuda.flash_q8 import flash_decode_stacked_dense
+    from llamacog_tpu_torch.ops.cuda.flash_q8 import (
+        flash_decode_quant_kernel, flash_decode_stacked_dense, flash_prefill_quant_kernel)
+    from llamacog_tpu_torch.runtime.kv_cache import QuantKVCache
     from llamacog_tpu_torch.ops.cuda.qmm import qgemm, qmv
     from llamacog_tpu_torch.utils.synthetic import random_wire
 
@@ -77,3 +79,11 @@ def test_raw_kernel_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         flash_prefill_kernel(torch.zeros(1, 8, 4, 32), kv[0], kv[0], torch.zeros(1, 8, 2, 32),
                              torch.zeros(1, 8, 2, 32), n, 1.0)
+    planes = QuantKVCache.create(1, 1, 64, 2, 32, 32, kinds=("q8_0", "q4_1"))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_decode_quant_kernel(q, planes.k_planes, planes.v_planes, 0, cur, cur, n, 1.0,
+                                  kinds=planes.kinds)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_prefill_quant_kernel(torch.zeros(1, 8, 4, 32), [p[0] for p in planes.k_planes],
+                                   [p[0] for p in planes.v_planes], torch.zeros(1, 8, 2, 32),
+                                   torch.zeros(1, 8, 2, 32), n, 1.0, kinds=planes.kinds)

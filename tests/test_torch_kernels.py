@@ -17,12 +17,20 @@ from llamacog_tpu_torch.ops.cuda import build
 from llamacog_tpu_torch.ops.cuda.flash_prefill import (
     flash_prefill_attention_plain, flash_prefill_kernel)
 from llamacog_tpu_torch.ops.cuda.flash_q8 import (
-    flash_decode_stacked_dense, flash_decode_stacked_dense_plain)
+    flash_decode_q8, flash_decode_quant_kernel, flash_decode_stacked_dense,
+    flash_decode_stacked_dense_plain, flash_decode_stacked_plain, flash_prefill_q8_plain,
+    flash_prefill_quant_kernel)
 from llamacog_tpu_torch.ops.cuda.qmm import qgemm, qmm_plain, qmv
 from llamacog_tpu_torch.quant.wire import BLOCK_BYTES, WireTensor
+from llamacog_tpu_torch.runtime.kv_cache import QuantKVCache
 from llamacog_tpu_torch.utils.synthetic import random_wire
 
 QMM_TOL = 1e-4
+# the quantized-KV kernels dequantize every element bit for bit as the plain
+# version does: the same tolerances as the dense attention kernels
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+KIND_PAIRS = [(k, k) for k in ("q8_0", "q4_0", "q4_1", "q5_0", "q5_1")] + [
+    ("q8_0", "q5_1"), ("q5_0", "q4_1"), ("bf16", "q4_0"), ("q8_0", "f16")]
 
 pytestmark = pytest.mark.cuda
 
@@ -127,6 +135,75 @@ def test_flash_prefill_matches_plain(dev, softcap, window, dtype, T):
     torch.cuda.synchronize()
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     assert rel_err(got, ref) < tol
+
+
+def _quant_cache(dev, kinds, L, B, S, Hkv, D, g):
+    """A QuantKVCache filled with quantized random K/V at every slot."""
+    cache = QuantKVCache.create(L, B, S, Hkv, D, D, kinds=kinds, device=dev)
+    k = torch.randn(L, B, S, Hkv, D, generator=g, device=dev)
+    v = torch.randn(L, B, S, Hkv, D, generator=g, device=dev)
+    return cache.write_all(k, v, torch.zeros(B, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kinds", KIND_PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
+def test_flash_decode_quant_matches_plain(dev, kinds, dtype):
+    L, B, S, H, Hkv, D = 2, 2, 512, 8, 2, 128
+    g = torch.Generator(device=dev).manual_seed(3)
+    cache = _quant_cache(dev, kinds, L, B, S, Hkv, D, g)
+    q = torch.randn(B, H, D, generator=g, device=dev).to(dtype)
+    kc = torch.randn(B, Hkv, D, generator=g, device=dev).to(dtype)
+    vc = torch.randn(B, Hkv, D, generator=g, device=dev).to(dtype)
+    seq_len = torch.tensor([300, 17], dtype=torch.int32, device=dev)
+    for softcap, window, kv_cap in ((0.0, 0, None), (25.0, 64, 384)):
+        args = (q, cache.k_planes, cache.v_planes, 1, kc, vc, seq_len, D**-0.5)
+        kw = dict(softcap=softcap, window=window, kv_cap=kv_cap, kinds=kinds)
+        got = flash_decode_quant_kernel(*args, **kw)
+        ref = flash_decode_stacked_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == (B, H, D) and got.dtype == dtype
+        assert rel_err(got, ref) < ATTN_TOL[dtype]
+    # the per-layer entry (K8a/K8b) on planes[il] views launches the same kernel
+    before = build.LAUNCHES["flash_decode_quant"]
+    got = flash_decode_q8(q, [p[1] for p in cache.k_planes], [p[1] for p in cache.v_planes],
+                          kc, vc, seq_len, D**-0.5, kinds=kinds)
+    assert build.LAUNCHES["flash_decode_quant"] == before + 1
+    ref = flash_decode_stacked_plain(q, cache.k_planes, cache.v_planes, 1, kc, vc, seq_len,
+                                     D**-0.5, kinds=kinds)
+    assert rel_err(got, ref) < ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kinds", KIND_PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
+def test_flash_prefill_quant_matches_plain(dev, kinds, dtype):
+    B, S, T, H, Hkv, D = 2, 320, 37, 8, 2, 128
+    g = torch.Generator(device=dev).manual_seed(4)
+    cache = _quant_cache(dev, kinds, 2, B, S, Hkv, D, g)
+    kp, vp = [p[1] for p in cache.k_planes], [p[1] for p in cache.v_planes]
+    q = torch.randn(B, T, H, D, generator=g, device=dev).to(dtype)
+    kc = torch.randn(B, T, Hkv, D, generator=g, device=dev).to(dtype)
+    vc = torch.randn(B, T, Hkv, D, generator=g, device=dev).to(dtype)
+    seq_len = torch.tensor([250, 0], dtype=torch.int32, device=dev)
+    for softcap, window, kv_cap in ((0.0, 0, None), (25.0, 16, 256)):
+        kw = dict(softcap=softcap, window=window, kv_cap=kv_cap, kinds=kinds)
+        got = flash_prefill_quant_kernel(q, kp, vp, kc, vc, seq_len, D**-0.5, **kw)
+        ref = flash_prefill_q8_plain(q, kp, vp, kc, vc, seq_len, D**-0.5, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == (B, T, H, D) and got.dtype == dtype
+        assert rel_err(got, ref) < ATTN_TOL[dtype]
+
+
+def test_quant_launchers_reject_bad_input(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    cache = _quant_cache(dev, ("q8_0", "q4_0"), 1, 1, 64, 2, 64, g)
+    q, cur = torch.zeros(1, 4, 64, device=dev), torch.zeros(1, 2, 64, device=dev)
+    n = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # kinds do not match the planes
+        flash_decode_quant_kernel(q, cache.k_planes, cache.v_planes, 0, cur, cur, n, 1.0,
+                                  kinds=("q4_0", "q8_0"))
+    with pytest.raises(ValueError):  # layer out of range
+        flash_decode_quant_kernel(q, cache.k_planes, cache.v_planes, 1, cur, cur, n, 1.0,
+                                  kinds=cache.kinds)
 
 
 def test_random_wire_is_finite(dev):

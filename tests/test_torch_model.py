@@ -2,9 +2,9 @@
 
 Both packages load the same GGUF (an F32 tiny llama quantized with the
 repo's own Q4_K_M tool, so attn_qk fuses and attn_v is Q6_K) and run at
-max_seq=512, so the JAX side goes through its Pallas prefill (K5) and
-stacked decode (K4) kernels in interpret mode, and the port through the
-plain versions of its kernels (CPU tensors).
+max_seq=512, so the JAX side goes through its Pallas prefill (K5, or K7
+with a quantized cache) and stacked decode (K4, or K6) kernels in interpret
+mode, and the port through the plain versions of its kernels (CPU tensors).
 """
 
 import numpy as np
@@ -19,11 +19,12 @@ from llamacog_tpu.quant.planar import QuantTensor, decode
 from llamacog_tpu.runtime.engine import Engine as JaxEngine
 from llamacog_tpu.tools.quantize import main as quantize_main
 from llamacog_tpu.utils.testing import make_tiny_llama_gguf
-from llamacog_tpu_torch.convert import from_reference, gguf_tensors
+from llamacog_tpu_torch.convert import from_reference, gguf_tensors, kv_cache_from_reference
 from llamacog_tpu_torch.gguf import GGUFModelReader
 from llamacog_tpu_torch.models.loader import load_model
 from llamacog_tpu_torch.quant.wire import WireTensor, dequantize
 from llamacog_tpu_torch.runtime.engine import Engine
+from llamacog_tpu_torch.runtime.kv_cache import QuantKVCache
 
 PROMPT = [3, 17, 9, 41, 200, 5, 77]
 N_DECODE = 8
@@ -40,17 +41,19 @@ def q4km_path(tmp_path_factory):
     return q
 
 
-def _run_jax(path, dtype):
+def _run_jax(path, dtype, kv_type="dense"):
     m = jax_load_model(path, with_tokenizer=False, dtype=dtype)
-    eng = JaxEngine(m.params, m.config, batch_size=1, max_seq=512, dtype=dtype)
+    eng = JaxEngine(m.params, m.config, batch_size=1, max_seq=512, dtype=dtype,
+                    kv_type=kv_type)
     logits = np.asarray(eng.prefill(PROMPT))
     toks = eng.decode_greedy_tokens(np.array([int(np.argmax(logits))]), N_DECODE)
     return logits, np.asarray(toks)
 
 
-def _run_port(path, dtype):
+def _run_port(path, dtype, kv_type="dense"):
     m = load_model(path, dtype=dtype, device="cpu", with_tokenizer=False)
-    eng = Engine(m.params, m.config, batch_size=1, max_seq=512, dtype=dtype, device="cpu")
+    eng = Engine(m.params, m.config, batch_size=1, max_seq=512, dtype=dtype, kv_type=kv_type,
+                 device="cpu")
     logits = eng.prefill(PROMPT)
     toks = eng.decode_greedy_tokens(np.array([int(np.argmax(logits))]), N_DECODE)
     return logits, toks
@@ -63,6 +66,66 @@ def test_f32_prefill_logits_and_greedy_tokens_match_jax(q4km_path):
     np.testing.assert_allclose(logits, ref_logits, atol=2e-3, rtol=1e-3)
     assert toks.shape == (1, N_DECODE)
     np.testing.assert_array_equal(toks, ref_toks)
+
+
+@pytest.mark.parametrize("kv_type", ["q8_0", "q4_0", "q5_0:q4_1", "bf16:q4_0"])
+def test_f32_quant_kv_greedy_tokens_match_jax(q4km_path, kv_type):
+    """The quantized cache path (plain K7 at prefill, K6 at decode) gives the
+    JAX engine's greedy tokens exactly; the prefill logits (a fresh prompt
+    attends no cached token) as closely as the dense path's. q4_0's tokens
+    differ from the dense cache's, so this tells a quantized path from one
+    that attends dense K/V."""
+    ref_logits, ref_toks = _run_jax(q4km_path, jnp.float32, kv_type)
+    logits, toks = _run_port(q4km_path, torch.float32, kv_type)
+    np.testing.assert_allclose(logits, ref_logits, atol=2e-3, rtol=1e-3)
+    assert toks.shape == (1, N_DECODE)
+    np.testing.assert_array_equal(toks, ref_toks)
+    if kv_type == "q4_0":
+        _, dense_toks = _run_port(q4km_path, torch.float32)
+        assert not np.array_equal(toks, dense_toks)
+
+
+def test_bf16_q8_0_kv_close_to_jax(q4km_path):
+    """As the dense bf16 test, through the q8_0 cache: prefill logits of a
+    second chunk (which attends the quantized first chunk) within a few
+    bf16 ulps of the largest logit."""
+    out = []
+    for engine, dtype, dev in ((JaxEngine, jnp.bfloat16, None), (Engine, torch.bfloat16, "cpu")):
+        if dev is None:
+            m = jax_load_model(q4km_path, with_tokenizer=False, dtype=dtype)
+            eng = engine(m.params, m.config, batch_size=1, max_seq=512, dtype=dtype,
+                         kv_type="q8_0")
+        else:
+            m = load_model(q4km_path, dtype=dtype, device=dev, with_tokenizer=False)
+            eng = engine(m.params, m.config, batch_size=1, max_seq=512, dtype=dtype,
+                         kv_type="q8_0", device=dev)
+        eng.prefill(PROMPT)
+        out.append(np.asarray(eng.prefill(PROMPT[::-1]), np.float32))
+    ref_logits, logits = out
+    assert np.isfinite(logits).all()
+    assert np.abs(logits - ref_logits).max() / np.abs(ref_logits).max() < 3e-2
+
+
+def test_quant_kv_state_carried_from_jax(q4km_path):
+    """The JAX engine prefills into a q5_1:q4_0 cache; kv_cache_from_reference
+    carries that cache into the port; one decode_one in each package then
+    gives the same logits."""
+    mj = jax_load_model(q4km_path, with_tokenizer=False, dtype=jnp.float32)
+    je = JaxEngine(mj.params, mj.config, batch_size=1, max_seq=512, dtype=jnp.float32,
+                   kv_type="q5_1:q4_0")
+    je.prefill(PROMPT)
+    m = load_model(q4km_path, dtype=torch.float32, device="cpu", with_tokenizer=False)
+    eng = Engine(m.params, m.config, batch_size=1, max_seq=512, dtype=torch.float32,
+                 kv_type="q5_1:q4_0", device="cpu")
+    c = je.cache
+    eng.cache = kv_cache_from_reference([np.asarray(p) for p in c.k_planes],
+                                        [np.asarray(p) for p in c.v_planes], c.kinds, c.hkv,
+                                        device="cpu")
+    assert isinstance(eng.cache, QuantKVCache) and eng.cache.kinds == ("q5_1", "q4_0")
+    eng.seq_len[:] = je.seq_len
+    want = np.asarray(je.decode_one(np.array([42])))
+    got = eng.decode_one([42])
+    np.testing.assert_allclose(got, want, atol=2e-3, rtol=1e-3)
 
 
 def test_bf16_prefill_logits_close_to_jax(q4km_path):
@@ -115,8 +178,8 @@ def test_engine_raises_on_unported_options(q4km_path):
     m = load_model(q4km_path, dtype=torch.float32, device="cpu", with_tokenizer=False)
     with pytest.raises(NotImplementedError):
         Engine(m.params, m.config, batch_size=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        Engine(m.params, m.config, kv_type="q8_0", device="cpu")
+    with pytest.raises(ValueError, match="unknown kv cache type"):
+        Engine(m.params, m.config, kv_type="q9_0", device="cpu")
 
 
 def test_cli_greedy_generation_on_cpu(tmp_path, capsys):
@@ -125,5 +188,17 @@ def test_cli_greedy_generation_on_cpu(tmp_path, capsys):
     path = make_tiny_llama_gguf(str(tmp_path / "tiny.gguf"))
     assert main(["-m", path, "-p", "hello", "-n", "4", "--device", "cpu",
                  "--dtype", "f32", "-c", "64"]) == 0
+    out = capsys.readouterr()
+    assert out.out.startswith("hello") and "[perf]" in out.err
+
+
+def test_cli_quantized_kv_cache_on_cpu(tmp_path, capsys):
+    from llamacog_tpu_torch.tools.cli import _kv_type_arg, main
+
+    assert _kv_type_arg("q8_0", None) == "q8_0"
+    assert _kv_type_arg("q8_0", "q4_0") == "q8_0:q4_0"
+    path = make_tiny_llama_gguf(str(tmp_path / "tiny.gguf"))
+    assert main(["-m", path, "-p", "hello", "-n", "4", "--device", "cpu", "--dtype", "f32",
+                 "-c", "64", "-ctk", "q8_0", "-ctv", "q4_0"]) == 0
     out = capsys.readouterr()
     assert out.out.startswith("hello") and "[perf]" in out.err
