@@ -12,15 +12,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      weight kernels, the dense-cache attention kernels, and the
      quantized-cache attention kernels (decode over every K/V kind pair at
      depth 1000, q8_0/q4_0 at depth 32765, the per-layer entries, and
-     prefill at write offsets 0 and 896);
+     prefill at write offsets 0 and 896); then the MoE kernels at the
+     Mixtral-8x7B expert shapes (the gather at 2 and 32 rows, the offset
+     entry, the grouped GEMM of a 128-token prefill);
   4. the full-width kernel path (8B widths, 2 layers) against the plain
      path (the same params on the CPU): prefill logits and 4
      teacher-forced decode steps, with the dense cache, q8_0, and the split
-     q5_1:q4_0 cache;
+     q5_1:q4_0 cache; then the same at Mixtral widths (2 layers, dense
+     cache): a 20-token prefill (grouped GEMM), 4 decode steps and a
+     9-token second chunk (gather);
   5. the 8B Q4_K_M synthetic run through Engine with the dense cache and
      with kv_type="q8_0" (the same params), in turns (dense, q8_0, q8_0,
      dense): 128-token prefill, 128 greedy tokens, with every kernel's
-     launch count over each run;
+     launch count over each run; then, with the 8B params freed, the
+     Mixtral-8x7B Q4_K_M synthetic run at full depth (32 layers), the same
+     way;
   6. one JSON line of per-kernel results, the card's name and power limit,
      and the final {"ok": true, ...} line.
 
@@ -84,11 +90,16 @@ def main() -> int:
         flash_decode_q8, flash_decode_q8_tiled, flash_decode_stacked,
         flash_decode_stacked_dense, flash_decode_stacked_dense_plain,
         flash_decode_stacked_plain, flash_prefill_q8, flash_prefill_q8_plain)
+    from llamacog_tpu_torch.models.llama import _ffn_moe, moe_sort
     from llamacog_tpu_torch.ops.cuda.qmm import qgemm, qmm_plain, qmv
+    from llamacog_tpu_torch.ops.cuda.qmm_id import (
+        qmm_gather, qmm_gather_offset, qmm_gather_plain, qmm_ragged, qmm_ragged_plain)
+    from llamacog_tpu_torch.quant.wire import WireTensor
     from llamacog_tpu_torch.runtime.engine import Engine
     from llamacog_tpu_torch.runtime.kv_cache import QuantKVCache, kv_plane_shapes
     from llamacog_tpu_torch.utils.synthetic import (
-        llama3_8b_config, make_synthetic_params, random_wire)
+        llama3_8b_config, make_synthetic_params, mixtral_8x7b_config, random_experts,
+        random_wire)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -254,7 +265,7 @@ def main() -> int:
                4 * H * keys * D,
                time_ms(lambda: sdpa(qs, kfull, vfull, attn_mask=allowed, scale=scale,
                                     enable_gqa=True)))
-    del ks, vs, kl, vl, w_qk, w_v, w_o, w_gu, w_d4, w_d6, w_head
+    del ks, vs, kl, vl, shapes, ws, x, w_qk, w_v, w_o, w_gu, w_d4, w_d6, w_head
     torch.cuda.empty_cache()
 
     # quantized-cache attention: layer 1 of a 2-layer stacked plane cache
@@ -338,119 +349,257 @@ def main() -> int:
         del cache
     torch.cuda.empty_cache()
 
-    # 4. full-width kernel path vs the plain path (same params on the CPU)
-    cfg2 = llama3_8b_config(n_layer=2)
-    p_gpu = make_synthetic_params(cfg2, seed=7)
-    p_cpu = {k: (v if k == "layers" else v.to("cpu")) for k, v in p_gpu.items()}
-    p_cpu["layers"] = [{k: v.to("cpu") for k, v in layer.items()} for layer in p_gpu["layers"]]
-    prompt = [(i * 7919) % V for i in range(2, 22)]
-    forced = [11, 12345, 777, 90000]
-    t0 = time.perf_counter()
-    # the dense cache, q8_0, and a split pair; a second prefill chunk at the
-    # end attends the (quantized) cache of the first
-    for kv_type in ("dense", "q8_0", "q5_1:q4_0"):
-        runs = {}
-        for name, params, device in (("kernel", p_gpu, "cuda"), ("plain", p_cpu, "cpu")):
-            eng = Engine(params, cfg2, batch_size=1, max_seq=1024, kv_type=kv_type,
-                         device=device)
-            steps = [eng.prefill(prompt)]
-            for tok in forced:
-                steps.append(eng.decode_one([tok])[0])
-            steps.append(eng.prefill(prompt[:9]))
-            runs[name] = steps
-        for i, (a, b) in enumerate(zip(runs["kernel"], runs["plain"])):
-            err = rel_err(torch.from_numpy(a), torch.from_numpy(b))
-            what = ("prefill" if i == 0 else "prefill chunk 2" if i == len(forced) + 1
-                    else f"decode step {i}")
-            what = f"kv {kv_type}, {what}"
-            check(a.shape == (V,) and bool(torch.isfinite(torch.from_numpy(a)).all()),
-                  f"{what}: logits not finite of shape [{V}]")
-            log(f"[path] 8B widths, 2 layers, {what}: logits max rel err {err:.3e} "
-                f"(tol {TOL_PATH:.0e}), argmax kernel {int(a.argmax())} "
-                f"plain {int(b.argmax())}")
-            check(err <= TOL_PATH, f"kernel path disagrees with the plain path at {what}")
-    log(f"[path] done in {time.perf_counter() - t0:.1f}s")
-    del p_gpu, p_cpu, runs
+    # MoE kernels at the Mixtral-8x7B expert shapes. Routing is top-2 of 8
+    # from random router logits, as the model's; a row's expert is read once
+    # per distinct expert in the bound (the data's need), and the grouped
+    # GEMM's bound counts the real (token, slot) rows, not the padding.
+    mcfg = mixtral_8x7b_config()
+    n_exp, k_used, Fm = mcfg.n_expert, mcfg.n_expert_used, mcfg.n_ff
+    moe_gu = random_experts("Q4_K", n_exp, 2 * Fm, E, g, dev)
+    moe_d6 = random_experts("Q6_K", n_exp, E, Fm, g, dev)
+    qid_rep = "llamacog_tpu/ops/pallas/qmm_id.py:{}"
+    log("[parity] qmv_id/qgemm_id: no single PyTorch call multiplies by GGUF blocks, "
+        "so they have no library time (library_ms null)")
+
+    def route(tokens):
+        """Top-2 expert ids [tokens * 2] of random router logits."""
+        logits = torch.randn(tokens, n_exp, generator=g, device=dev)
+        return torch.topk(logits, k_used, dim=-1).indices.reshape(-1).to(torch.int32)
+
+    def expert_bytes(w, ids):
+        return w.nbytes // n_exp * len(set(ids.tolist()))
+
+    for label, w, tokens, fn, line in (
+            ("qmv_id gather ffn_gate_up_exps Q4_K 8x28672x4096", moe_gu, 1, qmm_gather, 115),
+            ("qmv_id gather ffn_gate_up_exps Q4_K 8x28672x4096", moe_gu, 16, qmm_gather, 115),
+            ("qmv_id gather ffn_down_exps Q6_K 8x4096x14336", moe_d6, 1, qmm_gather, 115),
+            ("qmv_id offset ffn_gate_up_exps Q4_K 8x28672x4096", moe_gu, 1, qmm_gather_offset,
+             267)):
+        ids = route(tokens)
+        S_rows, (_, Nw, Kw) = ids.shape[0], w.shape
+        x = torch.randn(S_rows, Kw, generator=g, device=dev).to(torch.bfloat16)
+        out, ref = fn(x, ids, w), qmm_gather_plain(x, ids, w)
+        torch.cuda.synchronize()
+        record(f"{label} S={S_rows}", qmm_src.format("qmv_id"), qid_rep.format(line), [out],
+               [ref], TOL_QMM, time_ms(lambda: fn(x, ids, w)),
+               time_ms(lambda: qmm_gather_plain(x, ids, w), iters=5),
+               expert_bytes(w, ids) + x.numel() * 2 + out.numel() * 4, 2 * S_rows * Nw * Kw)
+    # the grouped GEMM of a 128-token prefill: 256 rows sorted by expert,
+    # padded to 64-row tiles, s_pad 768
+    ids = route(PROMPT_LEN)
+    dest, tile_expert, s_pad = moe_sort(ids, n_exp, 64)
+    for label, w in (("ffn_gate_up_exps Q4_K 8x28672x4096", moe_gu),
+                     ("ffn_down_exps Q6_K 8x4096x14336", moe_d6)):
+        _, Nw, Kw = w.shape
+        rows = torch.randn(ids.shape[0], Kw, generator=g, device=dev).to(torch.bfloat16)
+        xs = torch.zeros(s_pad, Kw, dtype=torch.bfloat16, device=dev).index_copy_(0, dest, rows)
+        out = qmm_ragged(xs, tile_expert, w, 64)
+        ref = qmm_ragged_plain(xs, tile_expert, w, 64)
+        torch.cuda.synchronize()
+        record(f"qgemm_id ragged {label} tokens={PROMPT_LEN} rows={ids.shape[0]} "
+               f"s_pad={s_pad}", qmm_src.format("qgemm_id"), qid_rep.format(188), [out], [ref],
+               TOL_QMM, time_ms(lambda: qmm_ragged(xs, tile_expert, w, 64)),
+               time_ms(lambda: qmm_ragged_plain(xs, tile_expert, w, 64), iters=5),
+               expert_bytes(w, ids) + ids.shape[0] * (Kw * 2 + Nw * 4),
+               2 * ids.shape[0] * Nw * Kw)
+    # the MoE FFN keeps routing on the device: a decode step (2 rows, the
+    # gather) and a 128-token prefill (the grouped GEMM) run with any
+    # synchronizing call raising
+    moe_layer = {"ffn_gate_inp": torch.randn(n_exp, E, generator=g, device=dev) * 0.02,
+                 "ffn_gate_up_exps": moe_gu, "ffn_down_exps": moe_d6}
+
+    def no_sync(fn):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    try:  # the mode has teeth: a device-to-host read raises under it
+        no_sync(lambda: bool(moe_layer["ffn_gate_inp"].isfinite().all()))
+        flagged = False
+    except RuntimeError:
+        flagged = True
+    check(flagged, "torch.cuda.set_sync_debug_mode did not flag a host sync")
+    for T_moe in (1, PROMPT_LEN):
+        h_moe = torch.randn(1, T_moe, E, generator=g, device=dev).to(torch.bfloat16)
+        out = no_sync(lambda: _ffn_moe(moe_layer, h_moe, mcfg))
+        check(out.shape == h_moe.shape and bool(torch.isfinite(out).all()),
+              f"MoE FFN at T={T_moe}: output not finite of shape {tuple(h_moe.shape)}")
+        log(f"[moe] _ffn_moe T={T_moe} ({T_moe * k_used} rows) ran with no host sync")
+    del moe_gu, moe_d6, moe_layer, w, x, rows, xs, out, ref  # `w` holds a stack too
     torch.cuda.empty_cache()
 
-    # 5. the 8B Q4_K_M synthetic run through the engine
+    # 4. full-width kernel path vs the plain path (same params on the CPU)
+    cfg2 = llama3_8b_config(n_layer=2)
     t0 = time.perf_counter()
-    params = make_synthetic_params(cfg, seed=0)
-    torch.cuda.synchronize()
-    log(f"[8b] synthetic Q4_K_M params built in {time.perf_counter() - t0:.1f}s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    prompt = [(i * 31337) % V for i in range(PROMPT_LEN)]
-    # which kernels each run must launch, and which it must not
-    paths = {
-        "dense": (("qmv", "qgemm", "flash_decode_dense", "flash_prefill"),
-                  ("flash_decode_quant", "flash_prefill_quant")),
-        "q8_0": (("qmv", "qgemm", "flash_decode_quant", "flash_prefill_quant"),
-                 ("flash_decode_dense", "flash_prefill")),
-    }
-    path_launches = {}
-    # in turns (dense, q8_0, q8_0, dense): host time drifts within a process
-    for i, kv_type in enumerate(("dense", "q8_0", "q8_0", "dense")):
-        used, unused = paths[kv_type]
-        eng = Engine(params, cfg, batch_size=1, max_seq=1024, kv_type=kv_type)
-        c = eng.cache
-        kv_bytes = sum(t.nbytes for t in ((c.k_planes + c.v_planes)
-                                          if isinstance(c, QuantKVCache) else (c.k, c.v)))
-        ttfts = []
-        for _ in range(4):  # the first is a warm-up (allocator, first launches)
-            eng.reset()
-            t0 = time.perf_counter()
-            eng.prefill(prompt)
-            ttfts.append(time.perf_counter() - t0)
-        ttft = statistics.median(ttfts[1:])
-        # the main-path run whose launches are counted: prefill + greedy decode
-        eng.reset()
-        torch.cuda.reset_peak_memory_stats()
-        build.reset_launches()
-        logits = eng.prefill(prompt)
-        prefill_launches = dict(build.LAUNCHES)
-        t1 = time.perf_counter()
-        toks = eng.decode_greedy_tokens([int(logits.argmax())], N_DECODE)
-        dt = time.perf_counter() - t1
-        launches = dict(build.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated()
-        tag = f"[8b kv {kv_type} run {i + 1}]"
-        check(logits.shape == (V,) and bool(torch.isfinite(torch.from_numpy(logits)).all()),
-              f"{tag} prefill logits not finite of the expected shape")
-        check(toks.shape == (1, N_DECODE) and 0 <= toks.min() and toks.max() < V,
-              f"{tag} greedy tokens out of shape or range")
-        decode_launches = {k: launches[k] - prefill_launches[k] for k in launches}
-        log(f"{tag} KV cache {kv_bytes / 1e6:.1f} MB at max_seq 1024")
-        log(f"{tag} TTFT {ttft * 1e3:.2f} ms (median of 3 prefills of {PROMPT_LEN} tokens; "
-            f"all: {', '.join(f'{t * 1e3:.2f}' for t in ttfts)} ms)")
-        log(f"{tag} decode {N_DECODE} tokens in {dt:.3f}s: {N_DECODE / dt:.2f} tokens/s, "
-            f"{dt / N_DECODE * 1e3:.3f} ms/token; weight-stream bound "
-            f"{sum_wire_bytes(params) / HBM_BYTES_PER_S * 1e3:.3f} ms/token")
-        log(f"{tag} launches: prefill {json.dumps(prefill_launches)}, "
-            f"decode {json.dumps(decode_launches)}")
-        log(f"{tag} peak device memory {peak / 2**30:.2f} GiB")
-        missing = [k for k in used if launches[k] == 0]
-        check(not missing, f"{tag} kernels never launched on the main path: {missing}")
-        stray = [k for k in unused if launches[k] != 0]
-        check(not stray, f"{tag} kernels of another cache path launched: {stray}")
-        path_launches[kv_type] = launches
-        # the device-side loop agrees with host-driven decode_one + argmax
-        eng.reset()
-        first = int(eng.prefill(prompt).argmax())
-        host_toks, tok = [], first
-        for _ in range(8):
-            tok = int(eng.decode_one([tok])[0].argmax())
-            host_toks.append(tok)
-        check(host_toks == [int(t) for t in toks[0, :8]],
-              f"{tag} greedy loop {toks[0, :8]} != decode_one {host_toks}")
-        log(f"{tag} greedy loop and decode_one agree on the first 8 tokens: {host_toks}")
-        del eng, c
+
+    def path_check(model, cfgp, kv_types, prompt, forced, max_seq, must=()):
+        """Prefill, teacher-forced decode steps and a 9-token second chunk
+        (which attends the cache of the first) through Engine on the card
+        and on the CPU, the same params; logits held within TOL_PATH, and
+        the kernels `must` launched on the card."""
+        p_gpu = make_synthetic_params(cfgp, seed=7)
+        p_cpu = {k: (v if k == "layers" else v.to("cpu")) for k, v in p_gpu.items()}
+        p_cpu["layers"] = [{k: v.to("cpu") for k, v in layer.items()}
+                           for layer in p_gpu["layers"]]
+        Vp = cfgp.n_vocab
+        for kv_type in kv_types:
+            runs = {}
+            for name, params, device in (("kernel", p_gpu, "cuda"), ("plain", p_cpu, "cpu")):
+                eng = Engine(params, cfgp, batch_size=1, max_seq=max_seq, kv_type=kv_type,
+                             device=device)
+                build.reset_launches()
+                steps = [eng.prefill(prompt)]
+                for tok in forced:
+                    steps.append(eng.decode_one([tok])[0])
+                steps.append(eng.prefill(prompt[:9]))
+                runs[name] = steps
+                if name == "kernel":
+                    log(f"[path] {model}, kv {kv_type}: kernel launches "
+                        f"{json.dumps({k: v for k, v in build.LAUNCHES.items() if v})}")
+                    missing = [k for k in must if build.LAUNCHES[k] == 0]
+                    check(not missing, f"{model}: kernels never launched: {missing}")
+            for i, (a, b) in enumerate(zip(runs["kernel"], runs["plain"])):
+                err = rel_err(torch.from_numpy(a), torch.from_numpy(b))
+                what = ("prefill" if i == 0 else "prefill chunk 2" if i == len(forced) + 1
+                        else f"decode step {i}")
+                what = f"kv {kv_type}, {what}"
+                check(a.shape == (Vp,) and bool(torch.isfinite(torch.from_numpy(a)).all()),
+                      f"{model} {what}: logits not finite of shape [{Vp}]")
+                log(f"[path] {model}, 2 layers, {what}: logits max rel err {err:.3e} "
+                    f"(tol {TOL_PATH:.0e}), argmax kernel {int(a.argmax())} "
+                    f"plain {int(b.argmax())}")
+                check(err <= TOL_PATH, f"{model}: kernel path disagrees with the plain path "
+                      f"at {what}")
+        del p_gpu, p_cpu
         torch.cuda.empty_cache()
 
+    # the dense cache, q8_0, and a split pair
+    path_check("8B widths", cfg2, ("dense", "q8_0", "q5_1:q4_0"),
+               [(i * 7919) % V for i in range(2, 22)], [11, 12345, 777, 90000], 1024)
+    # Mixtral widths: the 20-token prefill (bucket 32: 64 rows) takes the
+    # grouped GEMM, each decode step (2 rows) the gather; max_seq 33 makes
+    # the second chunk an exact tail fit of 9 tokens (18 rows: the gather)
+    path_check("Mixtral widths", mixtral_8x7b_config(n_layer=2), ("dense",),
+               [(i * 7919) % mcfg.n_vocab for i in range(2, 22)], [11, 12345, 777, 31000], 33,
+               must=("qmv_id", "qgemm_id"))
+    log(f"[path] done in {time.perf_counter() - t0:.1f}s")
+
+    # 5. the synthetic Q4_K_M models through the engine
+    def main_path_runs(model, params, cfgm, kv_types, paths):
+        """128-token prefill and N_DECODE greedy tokens through Engine for
+        each kv type in turn (host time drifts within a process), with the
+        launches of every kernel over each run; returns the last run's
+        launches per kv type."""
+        Vm = cfgm.n_vocab
+        prompt = [(i * 31337) % Vm for i in range(PROMPT_LEN)]
+        bound_ms = sum_wire_bytes(params, cfgm) / HBM_BYTES_PER_S * 1e3
+        path_launches = {}
+        for i, kv_type in enumerate(kv_types):
+            used, unused = paths[kv_type]
+            eng = Engine(params, cfgm, batch_size=1, max_seq=1024, kv_type=kv_type)
+            c = eng.cache
+            kv_bytes = sum(t.nbytes for t in ((c.k_planes + c.v_planes)
+                                              if isinstance(c, QuantKVCache) else (c.k, c.v)))
+            ttfts = []
+            for _ in range(4):  # the first is a warm-up (allocator, first launches)
+                eng.reset()
+                t0 = time.perf_counter()
+                eng.prefill(prompt)
+                ttfts.append(time.perf_counter() - t0)
+            ttft = statistics.median(ttfts[1:])
+            # the main-path run whose launches are counted: prefill + greedy decode
+            eng.reset()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launches()
+            logits = eng.prefill(prompt)
+            prefill_launches = dict(build.LAUNCHES)
+            t1 = time.perf_counter()
+            toks = eng.decode_greedy_tokens([int(logits.argmax())], N_DECODE)
+            dt = time.perf_counter() - t1
+            launches = dict(build.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            tag = f"[{model} kv {kv_type} run {i + 1}]"
+            check(logits.shape == (Vm,) and bool(torch.isfinite(torch.from_numpy(logits)).all()),
+                  f"{tag} prefill logits not finite of the expected shape")
+            check(toks.shape == (1, N_DECODE) and 0 <= toks.min() and toks.max() < Vm,
+                  f"{tag} greedy tokens out of shape or range")
+            decode_launches = {k: launches[k] - prefill_launches[k] for k in launches}
+            log(f"{tag} KV cache {kv_bytes / 1e6:.1f} MB at max_seq 1024")
+            log(f"{tag} TTFT {ttft * 1e3:.2f} ms (median of 3 prefills of {PROMPT_LEN} tokens; "
+                f"all: {', '.join(f'{t * 1e3:.2f}' for t in ttfts)} ms)")
+            log(f"{tag} decode {N_DECODE} tokens in {dt:.3f}s: {N_DECODE / dt:.2f} tokens/s, "
+                f"{dt / N_DECODE * 1e3:.3f} ms/token; weight-stream bound {bound_ms:.3f} ms/token")
+            log(f"{tag} launches: prefill {json.dumps(prefill_launches)}, "
+                f"decode {json.dumps(decode_launches)}")
+            log(f"{tag} peak device memory {peak / 2**30:.2f} GiB")
+            missing = [k for k in used if launches[k] == 0]
+            check(not missing, f"{tag} kernels never launched on the main path: {missing}")
+            stray = [k for k in unused if launches[k] != 0]
+            check(not stray, f"{tag} kernels of another path launched: {stray}")
+            path_launches[kv_type] = launches
+            # the device-side loop agrees with host-driven decode_one + argmax
+            eng.reset()
+            first = int(eng.prefill(prompt).argmax())
+            host_toks, tok = [], first
+            for _ in range(8):
+                tok = int(eng.decode_one([tok])[0].argmax())
+                host_toks.append(tok)
+            check(host_toks == [int(t) for t in toks[0, :8]],
+                  f"{tag} greedy loop {toks[0, :8]} != decode_one {host_toks}")
+            log(f"{tag} greedy loop and decode_one agree on the first 8 tokens: {host_toks}")
+            del eng, c
+            torch.cuda.empty_cache()
+        return path_launches
+
+    def build_params(model, cfgm):
+        t0 = time.perf_counter()
+        params = make_synthetic_params(cfgm, seed=0)
+        torch.cuda.synchronize()
+        log(f"[{model}] synthetic Q4_K_M params ({cfgm.n_layer} layers) built in "
+            f"{time.perf_counter() - t0:.1f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        if cfgm.n_expert:
+            tensors = [params["tok_embd"], params["output"],
+                       *(v for layer in params["layers"] for v in layer.values())]
+            total = sum(v.nbytes for v in tensors if isinstance(v, WireTensor))
+            experts = sum(v.nbytes for v in tensors
+                          if isinstance(v, WireTensor) and len(v.shape) == 3)
+            stream = sum_wire_bytes(params, cfgm)
+            stream_exp = experts * cfgm.n_expert_used // cfgm.n_expert
+            log(f"[{model}] wire blocks {total / 1e9:.3f} GB, experts {experts / total:.1%} "
+                f"of them; a decode token streams {stream / 1e9:.3f} GB, experts "
+                f"{stream_exp / stream:.1%} of it")
+        return params
+
+    # which kernels each run must launch, and which it must not
+    dense_attn = ("flash_decode_dense", "flash_prefill")
+    quant_attn = ("flash_decode_quant", "flash_prefill_quant")
+    moe_kernels = ("qmv_id", "qgemm_id")
+    paths = {"dense": (("qmv", "qgemm", *dense_attn), (*quant_attn, *moe_kernels)),
+             "q8_0": (("qmv", "qgemm", *quant_attn), (*dense_attn, *moe_kernels))}
+    params = build_params("8b", cfg)
+    launches_8b = main_path_runs("8b", params, cfg, ("dense", "q8_0", "q8_0", "dense"), paths)
+    del params
+    torch.cuda.empty_cache()
+    # Mixtral-8x7B at full depth (28.3 GB of wire blocks), the dense cache:
+    # the MoE kernels must launch, the quantized-cache ones must not
+    moe_paths = {"dense": (("qmv", "qgemm", *dense_attn, *moe_kernels), quant_attn)}
+    params = build_params("mixtral", mcfg)
+    launches_moe = main_path_runs("mixtral", params, mcfg, ("dense", "dense"), moe_paths)
+    del params
+    torch.cuda.empty_cache()
+
     # 6. results
-    # each kernel's launches in the run of its cache path
+    # each kernel's launches in the run of its path: the MoE kernels in the
+    # Mixtral run, the quantized-cache kernels in the 8B q8_0 run, the rest
+    # in the 8B dense run
     for r in results:
         k = r.pop("kernel")
-        r["launches"] = path_launches["q8_0" if k in paths["dense"][1] else "dense"][k]
+        run = (launches_moe["dense"] if k in moe_kernels
+               else launches_8b["q8_0" if k in quant_attn else "dense"])
+        r["launches"] = run[k]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))
@@ -461,14 +610,18 @@ def main() -> int:
     return 0
 
 
-def sum_wire_bytes(params: dict) -> int:
-    """Bytes one decode step must stream: every layer weight and the LM
-    head (the embedding table is gathered by row, not streamed)."""
+def sum_wire_bytes(params: dict, cfg) -> int:
+    """Bytes one decode step must stream: every layer weight, n_expert_used
+    of the n_expert experts of each stacked expert tensor, and the LM head
+    (the embedding table is gathered by row, not streamed)."""
     from llamacog_tpu_torch.quant.wire import WireTensor
 
     total = params["output"].nbytes
     for layer in params["layers"]:
-        total += sum(v.nbytes for v in layer.values() if isinstance(v, WireTensor))
+        for v in layer.values():
+            if isinstance(v, WireTensor):
+                total += (v.nbytes * cfg.n_expert_used // cfg.n_expert if len(v.shape) == 3
+                          else v.nbytes)
     return total
 
 

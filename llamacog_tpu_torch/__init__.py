@@ -1,9 +1,10 @@
 """llamacog_tpu_torch — the PyTorch + CUDA port of llamacog_tpu.
 
-Runs single-stream greedy generation of llama-family Q4_K_M models on an
-NVIDIA Hopper GPU. Weights stay in GGUF wire format on the device; the
-fused dequant x matmul and the two attention kernels are hand-written CUDA
-C++ (``csrc/``), each with a plain PyTorch version beside it. The JAX
+Runs single-stream greedy generation of llama-family Q4_K_M models, dense
+or sparse MoE (Mixtral), on an NVIDIA Hopper GPU. Weights stay in GGUF
+wire format on the device; the fused dequant x matmul, the attention and
+the MoE expert products are hand-written CUDA C++ (``csrc/``), each with a
+plain PyTorch version beside it. The JAX
 package ``llamacog_tpu`` is the reference this port is tested against; the
 port imports nothing from it.
 """

@@ -4,9 +4,9 @@
 form — dense tensors as float numpy arrays, quantized tensors as
 ``(ggml_type, shape, uint8 block bytes)`` — and returns the port's params
 with the same keys as the JAX loader's tree (``attn_qk``, ``attn_v``,
-``ffn_gate_up``, ...), applying the same fusion (llamacog_tpu/models/
-loader.py:297-348). Quantized tensors stay in wire format; fusing two of
-them is a row concatenation of their block bytes. The port's loader and
+``ffn_gate_up``, ``ffn_gate_up_exps``, ...), applying the same fusion
+(llamacog_tpu/models/loader.py:297-348). Quantized tensors stay in wire
+format; fusing two of them is a row concatenation of their block bytes. The port's loader and
 the tests that hold the port against the JAX package both go through it:
 the JAX package's planar planes cannot be turned back into wire bytes, so
 weights cross over in their file form.
@@ -34,6 +34,10 @@ _LAYER_TENSORS = {
     "ffn_gate": "ffn_gate.weight",
     "ffn_up": "ffn_up.weight",
     "ffn_down": "ffn_down.weight",
+    "ffn_gate_inp": "ffn_gate_inp.weight",
+    "ffn_gate_exps": "ffn_gate_exps.weight",
+    "ffn_up_exps": "ffn_up_exps.weight",
+    "ffn_down_exps": "ffn_down_exps.weight",
 }
 _MODEL_TENSORS = {
     "tok_embd": "token_embd.weight",
@@ -92,6 +96,11 @@ def from_reference(cfg: ModelConfig, tensors: dict, device=None,
             if fused is not None:
                 layer["ffn_gate_up"] = fused
                 del layer["ffn_gate"], layer["ffn_up"]
+        if "ffn_gate_exps" in layer and "ffn_up_exps" in layer:
+            fused = wire.fuse_experts(layer["ffn_gate_exps"], layer["ffn_up_exps"])
+            if fused is not None:
+                layer["ffn_gate_up_exps"] = fused
+                del layer["ffn_gate_exps"], layer["ffn_up_exps"]
         params["layers"].append(layer)
     return params
 

@@ -24,16 +24,12 @@
 // formed exactly as the plain torch dequant forms it, so kernel and plain
 // differ only in summation order. blockIdx.y walks x in chunks of QMV_MAX_B
 // rows, so f32 activations of any batch take this f32 path too (streaming
-// the weights once per chunk).
+// the weights once per chunk). The slice decoders and the warp's row walk
+// (qmv_rows) live in common.cuh, shared with qmv_id.cu.
 #include "common.cuh"
 
 constexpr int QMV_MAX_DESC = 4;
-constexpr int QMV_WARPS = 4;
-constexpr int QMV_ROWS = 2;                               // rows per warp
-constexpr int QMV_BLOCK_ROWS = QMV_WARPS * QMV_ROWS;      // rows per block
 constexpr int QMV_MAX_B = 8;
-constexpr int QMV_SB_STEP = 4;   // superblocks per warp step (8 lanes each)
-constexpr int QMV_SLICE = 32;    // weights per lane per superblock
 
 struct QmvDesc {
     const uint8_t* w;  // [n, row_bytes] wire blocks
@@ -50,114 +46,6 @@ struct QmvParams {
     int B;
     int K;
 };
-
-// Q4_K slice of lane slot i (0..7) of a superblock: qs bytes 16i..16i+15,
-// i.e. group j = i/2 (64 weights), p = 16*(i%2). Slice index k < 16 is the
-// low nibble of byte k (element j*64 + p + k, sub-block 2j); k >= 16 the
-// high nibble of byte k-16 (element j*64 + 32 + p + k-16, sub-block 2j+1).
-__device__ __forceinline__ void q4k_slice(const uint8_t* blk, int i, float* w) {
-    const int j = i >> 1;
-    const uint32_t dm = *reinterpret_cast<const uint32_t*>(blk);
-    const uint32_t s0 = *reinterpret_cast<const uint32_t*>(blk + 4);
-    const uint32_t s1 = *reinterpret_cast<const uint32_t*>(blk + 8);
-    const uint32_t s2 = *reinterpret_cast<const uint32_t*>(blk + 12);
-    const uint4 q = *reinterpret_cast<const uint4*>(blk + 16 + 16 * i);
-    const float d = f16_bits(dm & 0xFFFF);
-    const float dmin = f16_bits(dm >> 16);
-    int sc0, m0, sc1, m1;
-    q4k_scale_min(s0, s1, s2, 2 * j, sc0, m0);
-    q4k_scale_min(s0, s1, s2, 2 * j + 1, sc1, m1);
-    const float dl0 = __fmul_rn(d, (float)sc0), ml0 = __fmul_rn(dmin, (float)m0);
-    const float dl1 = __fmul_rn(d, (float)sc1), ml1 = __fmul_rn(dmin, (float)m1);
-    const uint32_t words[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-        const int byte = (words[k >> 2] >> (8 * (k & 3))) & 0xFF;
-        w[k] = q4k_weight(dl0, ml0, byte & 0xF);
-        w[16 + k] = q4k_weight(dl1, ml1, byte >> 4);
-    }
-}
-
-__device__ __forceinline__ int q4k_x_offset(int i, int part) {  // part 0: k<16, 1: k>=16
-    return (i >> 1) * 64 + (i & 1) * 16 + part * 32;
-}
-
-// Q6_K slice of lane slot i: chunk c = i/4, positions lq..lq+7 of the
-// chunk's 32 (lq = 8*(i%4)) for all four quarters; slice index qt*8 + t is
-// element c*128 + qt*32 + lq + t (sub-scale c*8 + qt*2 + lq/16).
-__device__ __forceinline__ void q6k_slice(const uint8_t* blk, int i, float* w) {
-    const int c = i >> 2, lq = (i & 3) * 8;
-    const uint16_t* ql0 = reinterpret_cast<const uint16_t*>(blk + c * 64 + lq);
-    const uint16_t* ql1 = reinterpret_cast<const uint16_t*>(blk + c * 64 + 32 + lq);
-    const uint16_t* qhp = reinterpret_cast<const uint16_t*>(blk + 128 + c * 32 + lq);
-    const int8_t* scales = reinterpret_cast<const int8_t*>(blk + 192);
-    const float d = f16_bits(*reinterpret_cast<const uint16_t*>(blk + 208));
-    float dl[4];
-#pragma unroll
-    for (int qt = 0; qt < 4; ++qt) dl[qt] = __fmul_rn(d, (float)scales[c * 8 + qt * 2 + (lq >> 4)]);
-#pragma unroll
-    for (int t2 = 0; t2 < 4; ++t2) {
-        const uint32_t a = ql0[t2], b = ql1[t2], h2 = qhp[t2];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-            const int t = 2 * t2 + u;
-            const int b0 = (a >> (8 * u)) & 0xFF;
-            const int b1 = (b >> (8 * u)) & 0xFF;
-            const int h = (h2 >> (8 * u)) & 0xFF;
-            w[0 * 8 + t] = __fmul_rn(dl[0], (float)(((b0 & 0xF) | (((h >> 0) & 3) << 4)) - 32));
-            w[1 * 8 + t] = __fmul_rn(dl[1], (float)(((b1 & 0xF) | (((h >> 2) & 3) << 4)) - 32));
-            w[2 * 8 + t] = __fmul_rn(dl[2], (float)(((b0 >> 4) | (((h >> 4) & 3) << 4)) - 32));
-            w[3 * 8 + t] = __fmul_rn(dl[3], (float)(((b1 >> 4) | (((h >> 6) & 3) << 4)) - 32));
-        }
-    }
-}
-
-// The 32 activation values matching a lane's slice, for one row of x.
-template <int KIND, typename TX>
-__device__ __forceinline__ void x_slice(const TX* xsb, int i, float* xv) {
-    if constexpr (KIND == KIND_Q4_K) {
-        load8(xsb + q4k_x_offset(i, 0), xv);
-        load8(xsb + q4k_x_offset(i, 0) + 8, xv + 8);
-        load8(xsb + q4k_x_offset(i, 1), xv + 16);
-        load8(xsb + q4k_x_offset(i, 1) + 8, xv + 24);
-    } else {
-        const int base = (i >> 2) * 128 + (i & 3) * 8;
-#pragma unroll
-        for (int qt = 0; qt < 4; ++qt) load8(xsb + base + qt * 32, xv + qt * 8);
-    }
-}
-
-template <int KIND, int NB, typename TX>
-__device__ void qmv_rows(const QmvDesc& D, const TX* x, int B, int K, int row0,
-                         float (&acc)[QMV_ROWS][NB]) {
-    const int lane = threadIdx.x & 31;
-    const int sub = lane >> 3;  // which of the step's four superblocks
-    const int i = lane & 7;     // slice slot within the superblock
-    const int nsb = K / QK_K;
-    const int bpb = KIND == KIND_Q4_K ? Q4K_BYTES : Q6K_BYTES;
-    for (int sb0 = 0; sb0 < nsb; sb0 += QMV_SB_STEP) {
-        const int sb = sb0 + sub;
-        if (sb >= nsb) continue;
-        float w[QMV_ROWS][QMV_SLICE];
-#pragma unroll
-        for (int r = 0; r < QMV_ROWS; ++r) {
-            const int row = min(row0 + r, D.n - 1);  // a spare row re-reads the last
-            const uint8_t* blk = D.w + (size_t)row * D.row_bytes + (size_t)sb * bpb;
-            if constexpr (KIND == KIND_Q4_K) q4k_slice(blk, i, w[r]);
-            else q6k_slice(blk, i, w[r]);
-        }
-#pragma unroll
-        for (int b = 0; b < NB; ++b) {
-            if (b >= B) break;
-            float xv[QMV_SLICE];
-            x_slice<KIND>(x + (size_t)b * K + (size_t)sb * QK_K, i, xv);
-#pragma unroll
-            for (int r = 0; r < QMV_ROWS; ++r)
-#pragma unroll
-                for (int k = 0; k < QMV_SLICE; ++k) acc[r][b] = fmaf(w[r][k], xv[k], acc[r][b]);
-        }
-    }
-}
 
 template <int NB, typename TX>
 __global__ void __launch_bounds__(QMV_WARPS * 32)
@@ -178,8 +66,10 @@ qmv_kernel(const QmvParams p, const TX* __restrict__ x) {
 #pragma unroll
         for (int b = 0; b < NB; ++b) acc[r][b] = 0.f;
     if (row0 < D.n) {
-        if (D.kind == KIND_Q4_K) qmv_rows<KIND_Q4_K, NB, TX>(D, x, B, p.K, row0, acc);
-        else qmv_rows<KIND_Q6_K, NB, TX>(D, x, B, p.K, row0, acc);
+        if (D.kind == KIND_Q4_K)
+            qmv_rows<KIND_Q4_K, NB, TX>(D.w, D.n, D.row_bytes, x, B, p.K, row0, acc);
+        else
+            qmv_rows<KIND_Q6_K, NB, TX>(D.w, D.n, D.row_bytes, x, B, p.K, row0, acc);
     }
     const int lane = threadIdx.x & 31;
 #pragma unroll

@@ -4,7 +4,9 @@ Counterpart of the llama branches of llamacog_tpu/models/llama.py::forward:
 embedding -> per layer (rms norm, fused q/k/v projections, rope, attention
 over the old cache plus the current block, output projection, SwiGLU FFN)
 -> final norm -> LM head, with the KV write deferred to one bulk write per
-step. Other architectures and features raise NotImplementedError.
+step. A layer with a router (``ffn_gate_inp``) takes the MoE FFN instead
+(Mixtral: top-k routing, sparse products over the selected experts only).
+Other architectures and features raise NotImplementedError.
 
 Params are a plain dict of dense tensors and WireTensors (convert.py).
 """
@@ -13,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.cuda import flash_prefill, flash_q8
+from ..ops.cuda import flash_prefill, flash_q8, qmm_id
 from ..ops.linear import qmatmul, qmatmul_multi
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope_tables, rope_tables
@@ -30,7 +32,8 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.arch not in SUPPORTED_ARCHES:
         raise NotImplementedError(f"architecture {cfg.arch!r} is not ported yet")
     unsupported = {
-        "MoE": cfg.n_expert > 0,
+        "shared experts": cfg.n_expert_shared > 0 or cfg.n_ff_shexp > 0,
+        "MoE weights before the experts": cfg.moe_weight_before,
         "per-layer head counts": bool(cfg.n_head_arr or cfg.n_head_kv_arr),
         "M-RoPE": bool(cfg.rope.sections),
     }
@@ -64,6 +67,122 @@ def _ffn(layer: dict, x: torch.Tensor) -> torch.Tensor:
         gate, up = _linear_multi(x, layer, ("ffn_gate", "ffn_up"))
     h = (torch.nn.functional.silu(gate.float()) * up.float()).to(x.dtype)
     return qmatmul(h, layer["ffn_down"])
+
+
+def _moe_router(layer: dict, x: torch.Tensor, cfg: ModelConfig):
+    """Top-k routing (build_moe_ffn): softmax or sigmoid gating, optional
+    selection bias, weight norm and scale. x [..., E] -> (top_i [..., k],
+    gate_w [..., k] f32), both on x's device."""
+    logits = qmatmul(x, layer["ffn_gate_inp"]).float()  # [..., n_exp]
+    if cfg.expert_gating_func == "sigmoid":
+        probs = torch.sigmoid(logits)
+    else:
+        probs = torch.softmax(logits, dim=-1)
+    sel = probs + layer["exp_probs_b"].float() if "exp_probs_b" in layer else probs
+    top_i = torch.topk(sel, cfg.n_expert_used, dim=-1).indices
+    gate_w = torch.gather(probs, -1, top_i)  # pre-bias probs
+    if cfg.expert_weights_norm:
+        gate_w = gate_w / (gate_w.sum(dim=-1, keepdim=True) + 1e-20)
+    return top_i, gate_w * cfg.expert_weights_scale
+
+
+def _matmul_id(rows: torch.Tensor, ids: torch.Tensor, w: WireTensor) -> torch.Tensor:
+    """[S, K] rows x per-row expert -> [S, N] f32; reads only the selected
+    experts (K10). The JAX package's offset route (K12, behind
+    GATHER_OFFSET_MAX) is the same launch here, so it has no setting. The
+    JAX package's _matmul_ragged has no counterpart here: its choice of
+    route is qmm_id.qmm_ragged's."""
+    return qmm_id.qmm_gather(rows, ids, w)
+
+
+# decode-vs-prefill crossover (in (token, slot) rows) and prefill token tile
+# of the sparse MoE paths; row counts follow the step's shape, so the
+# choice never looks at routing results
+_MOE_GATHER_MAX = 32
+_MOE_TILE = qmm_id.RAGGED_TILE
+
+
+def moe_sort(ids: torch.Tensor, n_exp: int, tt: int):
+    """The expert-sorted, per-expert padded row layout of the grouped GEMM
+    for the (token, slot) pairs' experts ids [Sp], computed on the device
+    with no host sync. Returns (dest [Sp]: each pair's row in the padded
+    buffer, in pair order; tile_expert [s_pad // tt] int32: the expert of
+    each token tile, n_exp for the padding tiles past the last used
+    expert's padded end, which the kernels skip; s_pad: the static row
+    bound, a function of Sp alone)."""
+    Sp = ids.shape[0]
+    ids = ids.long()
+    order = torch.argsort(ids, stable=True)
+    sids = ids[order]
+    counts = torch.zeros(n_exp, dtype=torch.long, device=ids.device).index_add_(
+        0, ids, torch.ones_like(ids))
+    padded = (counts + tt - 1) // tt * tt
+    offs = torch.cumsum(padded, 0) - padded    # padded start of each expert
+    starts = torch.cumsum(counts, 0) - counts  # sorted start of each expert
+    rank = torch.arange(Sp, device=ids.device) - starts[sids]
+    dest = torch.empty_like(sids).index_copy_(0, order, offs[sids] + rank)
+    s_pad = (Sp + n_exp * (tt - 1) + tt - 1) // tt * tt
+    tile_start = torch.arange(s_pad // tt, device=ids.device) * tt
+    tile_expert = torch.searchsorted(offs + padded, tile_start, right=True)
+    return dest, tile_expert.to(torch.int32), s_pad
+
+
+def _ffn_moe_sparse(layer: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Sparse MoE over stacked wire-format experts: only the top-k experts'
+    bytes are read. Few rows (decode): per-(token, slot) expert-gathered
+    matvecs. Many rows (prefill): rows sorted by expert and padded to
+    _MOE_TILE multiples, a grouped GEMM, then back to pair order. Returns
+    [B, T, E] f32."""
+    B, T, E = x.shape
+    n_exp, k = cfg.n_expert, cfg.n_expert_used
+    S = B * T
+    xf = x.reshape(S, E)
+    top_i, gate_w = _moe_router(layer, xf, cfg)  # [S, k]
+    Sp = S * k
+    ids = top_i.reshape(Sp).to(torch.int32)
+    rows = xf.repeat_interleave(k, dim=0)  # [(s, slot)] pair rows
+    if not all(isinstance(layer[key], WireTensor) for key in
+               ("ffn_gate_up_exps", "ffn_gate_exps", "ffn_up_exps", "ffn_down_exps")
+               if key in layer):
+        raise NotImplementedError("sparse MoE with dense and quantized expert stacks mixed")
+    ragged = Sp > _MOE_GATHER_MAX
+    if ragged:
+        dest, tile_expert, s_pad = moe_sort(ids, n_exp, _MOE_TILE)
+        rows = torch.zeros((s_pad, E), dtype=x.dtype, device=x.device).index_copy_(
+            0, dest, rows)
+
+    def product(inp, w):
+        if ragged:
+            return qmm_id.qmm_ragged(inp, tile_expert, w, _MOE_TILE)
+        return _matmul_id(inp, ids, w)
+
+    if "ffn_gate_up_exps" in layer:  # fused per-expert [gate; up] rows
+        gate, up = product(rows, layer["ffn_gate_up_exps"]).chunk(2, dim=-1)
+    else:
+        gate, up = product(rows, layer["ffn_gate_exps"]), product(rows, layer["ffn_up_exps"])
+    h = (torch.nn.functional.silu(gate) * up).to(x.dtype)
+    down = product(h, layer["ffn_down_exps"])  # [Sp, E] or [s_pad, E] f32
+    if ragged:
+        down = down.index_select(0, dest)  # back to (s, slot) pair order
+    out = (down.reshape(S, k, E) * gate_w[..., None]).sum(dim=1)
+    return out.reshape(B, T, E)
+
+
+def _ffn_moe(layer: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """MoE FFN. Wire-format experts take the sparse top-k path; dense
+    (f32/f16/bf16) experts the all-expert einsums, as the JAX package."""
+    if isinstance(layer.get("ffn_gate_up_exps", layer.get("ffn_gate_exps")), WireTensor):
+        out = _ffn_moe_sparse(layer, x, cfg)
+    else:
+        top_i, gate_w = _moe_router(layer, x, cfg)  # [B, T, k]
+        comb = torch.zeros((*x.shape[:-1], cfg.n_expert), dtype=torch.float32,
+                           device=x.device).scatter_add_(-1, top_i, gate_w)
+        gate = torch.einsum("bte,nfe->btnf", x, layer["ffn_gate_exps"])
+        up = torch.einsum("bte,nfe->btnf", x, layer["ffn_up_exps"])
+        act = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
+        expert_out = torch.einsum("btnf,nef->btne", act, layer["ffn_down_exps"])
+        out = torch.einsum("btne,btn->bte", expert_out.float(), comb)
+    return out.to(x.dtype)
 
 
 def forward(
@@ -135,7 +254,10 @@ def forward(
         attn = qmatmul(attn.reshape(B, T, H * Dv), layer["attn_output"])
         x = x + attn
         h = rms_norm(x, layer["ffn_norm"], cfg.rms_norm_eps)
-        x = x + _ffn(layer, h)
+        if cfg.n_expert > 0 and "ffn_gate_inp" in layer:
+            x = x + _ffn_moe(layer, h, cfg)
+        else:
+            x = x + _ffn(layer, h)
 
     cache = cache.write_all(torch.stack(new_ks), torch.stack(new_vs), write_pos)
     if logits_last is not None:

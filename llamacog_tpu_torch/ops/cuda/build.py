@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 KERNELS = ("qmv", "qgemm", "flash_decode_dense", "flash_prefill", "flash_decode_quant",
-           "flash_prefill_quant")
+           "flash_prefill_quant", "qmv_id", "qgemm_id")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -60,7 +60,7 @@ def nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for src in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
@@ -109,6 +109,8 @@ def _bind(lib: ctypes.CDLL) -> None:
                                    i, f, f, i, vp],
         "lcg_flash_prefill_quant": [i, i, i, vp, *[vp] * 8, i, i, i, i, i, i, i, vp, vp, vp, vp,
                                     i, f, f, i, vp],
+        "lcg_qmv_id": [vp, i, i, i, vp, i, i, i, vp, vp, vp],
+        "lcg_qgemm_id": [vp, i, i, i, vp, i, i, i, vp, i, vp, vp],
     }
     for fn, argtypes in sigs.items():
         if hasattr(lib, fn):
@@ -127,6 +129,16 @@ def load(name: str) -> ctypes.CDLL:
         _bind(lib)
         _LIBS[name] = lib
     return lib
+
+
+def on_device(x: torch.Tensor, kernel, plain, *args, **kwargs):
+    """`kernel` for a CUDA tensor x, `plain` (the kernel's plain PyTorch
+    version) for a CPU tensor; other devices raise."""
+    if x.is_cuda:
+        return kernel(x, *args, **kwargs)
+    if x.device.type != "cpu":
+        raise ValueError(f"unsupported device {x.device}")
+    return plain(x, *args, **kwargs)
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -238,22 +238,13 @@ def flash_prefill_quant_kernel(q, k_planes, v_planes, k_cur, v_cur, seq_len, sca
     return out
 
 
-def _on(q, kernel, plain, *args, **kwargs):
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    if q.is_cuda:
-        return kernel(q, *args, **kwargs)
-    if q.device.type != "cpu":
-        raise ValueError(f"unsupported device {q.device}")
-    return plain(q, *args, **kwargs)
-
-
 def flash_decode_stacked(q, k_planes, v_planes, il, k_cur, v_cur, seq_len, scale,
                          softcap=0.0, window=0, kv_cap=None, kinds=("q8_0", "q8_0")):
     """K6: decode attention over layer `il` of the stacked planes
     [L, B, S, Hkv*W]; q [B, H, Dk] -> [B, H, Dv], natural order."""
-    return _on(q, flash_decode_quant_kernel, flash_decode_stacked_plain, k_planes, v_planes,
-               il, k_cur, v_cur, seq_len, scale, softcap=softcap, window=window,
-               kv_cap=kv_cap, kinds=kinds)
+    return build.on_device(q, flash_decode_quant_kernel, flash_decode_stacked_plain, k_planes,
+                           v_planes, il, k_cur, v_cur, seq_len, scale, softcap=softcap,
+                           window=window, kv_cap=kv_cap, kinds=kinds)
 
 
 def flash_decode_q8(q, k_planes, v_planes, k_cur, v_cur, seq_len, scale, softcap=0.0,
@@ -285,9 +276,9 @@ def flash_prefill_q8(q, k_planes, v_planes, k_cur, v_cur, seq_len, scale, softca
                      window=0, kv_cap=None, kinds=("q8_0", "q8_0")):
     """K7: prefill attention over one layer's planes [B, S, Hkv*W] plus the
     causal current block; q [B, T, H, Dk] -> [B, T, H, Dv]."""
-    return _on(q, flash_prefill_quant_kernel, flash_prefill_q8_plain, k_planes, v_planes,
-               k_cur, v_cur, seq_len, scale, softcap=softcap, window=window, kv_cap=kv_cap,
-               kinds=kinds)
+    return build.on_device(q, flash_prefill_quant_kernel, flash_prefill_q8_plain, k_planes,
+                           v_planes, k_cur, v_cur, seq_len, scale, softcap=softcap,
+                           window=window, kv_cap=kv_cap, kinds=kinds)
 
 
 def decode_from_cache(q, cache, il, k_cur, v_cur, seq_len, scale, softcap=0.0, window=0,
@@ -299,6 +290,6 @@ def decode_from_cache(q, cache, il, k_cur, v_cur, seq_len, scale, softcap=0.0, w
         return flash_decode_stacked(q, cache.k_planes, cache.v_planes, il, k_cur, v_cur,
                                     seq_len, scale, softcap=softcap, window=window,
                                     kv_cap=kv_cap, kinds=cache.kinds)
-    return _on(q, flash_decode_stacked_dense, flash_decode_stacked_dense_plain, cache.k,
-               cache.v, il, k_cur, v_cur, seq_len, scale, softcap=softcap, window=window,
-               kv_cap=kv_cap)
+    return build.on_device(q, flash_decode_stacked_dense, flash_decode_stacked_dense_plain,
+                           cache.k, cache.v, il, k_cur, v_cur, seq_len, scale, softcap=softcap,
+                           window=window, kv_cap=kv_cap)

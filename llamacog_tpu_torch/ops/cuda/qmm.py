@@ -64,8 +64,8 @@ def _launch(fn_name: str, counter: str, x: torch.Tensor, ws) -> list[torch.Tenso
     if not 1 <= len(ws) <= MAX_WEIGHTS:
         raise ValueError(f"{counter}: takes 1 to {MAX_WEIGHTS} weights, got {len(ws)}")
     for w in ws:
-        if not isinstance(w, WireTensor) or w.kind not in _KIND_ID:
-            raise ValueError(f"{counter}: weights must be Q4_K/Q6_K WireTensors")
+        if not isinstance(w, WireTensor) or w.kind not in _KIND_ID or len(w.shape) != 2:
+            raise ValueError(f"{counter}: weights must be 2-D Q4_K/Q6_K WireTensors")
         if w.device != x.device or not w.blocks.is_contiguous():
             raise ValueError(f"{counter}: weight blocks must be contiguous on {x.device}")
         if w.shape[1] != K:

@@ -9,6 +9,11 @@ as the file stores it: a ``uint8 [N, row_bytes]`` tensor of ggml blocks
 read these blocks directly; the plain dequantizers below are their
 reference and the CPU path.
 
+Stacked MoE experts are one wire tensor of logical shape [n_exp, N, K]
+whose blocks are ``[n_exp * N, row_bytes]``, expert e's rows at
+``e*N .. e*N+N-1`` (the file's own order); only the selected experts'
+blocks are ever decoded (:func:`dequantize_experts`).
+
 The dequantizers repeat decode_np's arithmetic operation for operation in
 f32, so they are bit-exact against it.
 """
@@ -30,19 +35,23 @@ DENSE_TYPES = (GGMLType.F32, GGMLType.F16, GGMLType.BF16)
 
 @dataclass
 class WireTensor:
-    """A block-quantized [N, K] weight: kind, logical shape, wire blocks."""
+    """A block-quantized [N, K] weight, or a stack of experts [n_exp, N, K]:
+    kind, logical shape, wire blocks."""
 
     kind: str
-    shape: tuple[int, int]
-    blocks: torch.Tensor  # uint8 [N, (K // 256) * BLOCK_BYTES[kind]]
+    shape: tuple[int, ...]
+    blocks: torch.Tensor  # uint8 [prod(shape[:-1]), (K // 256) * BLOCK_BYTES[kind]]
 
     def __post_init__(self):
         if self.kind not in BLOCK_BYTES:
             raise NotImplementedError(f"quant kind {self.kind} is not ported yet")
-        n, k = self.shape
+        if len(self.shape) not in (2, 3):
+            raise ValueError(f"{self.kind}: shape {self.shape} is neither [N, K] nor "
+                             "[n_exp, N, K]")
+        k = self.shape[-1]
         if k % QK_K:
             raise ValueError(f"{self.kind}: K={k} is not a multiple of {QK_K}")
-        want = (n, k // QK_K * BLOCK_BYTES[self.kind])
+        want = (int(np.prod(self.shape[:-1])), k // QK_K * BLOCK_BYTES[self.kind])
         if self.blocks.dtype != torch.uint8 or tuple(self.blocks.shape) != want:
             raise ValueError(f"{self.kind} blocks must be uint8 {want}, got "
                              f"{self.blocks.dtype} {tuple(self.blocks.shape)}")
@@ -69,15 +78,17 @@ def kind_of(ggml_type: GGMLType) -> str:
 
 
 def from_bytes(data, ggml_type, shape, device=None) -> WireTensor:
-    """A 2-D quantized GGUF tensor (raw block bytes, numpy shape [N, K])."""
+    """A quantized GGUF tensor (raw block bytes, numpy shape [N, K], or
+    [n_exp, N, K] for stacked experts)."""
     kind = kind_of(ggml_type)
-    if len(shape) != 2:
+    if len(shape) not in (2, 3):
         raise NotImplementedError(f"{len(shape)}-D quantized tensors are not ported yet")
-    n, k = (int(s) for s in shape)
+    shape = tuple(int(s) for s in shape)
+    n = int(np.prod(shape[:-1]))
     raw = np.frombuffer(np.ascontiguousarray(data, dtype=np.uint8), np.uint8)
-    row_bytes = k // QK_K * BLOCK_BYTES[kind]
+    row_bytes = shape[-1] // QK_K * BLOCK_BYTES[kind]
     blocks = torch.from_numpy(raw[: n * row_bytes].copy()).reshape(n, row_bytes)
-    return WireTensor(kind, (n, k), blocks.to(device) if device is not None else blocks)
+    return WireTensor(kind, shape, blocks.to(device) if device is not None else blocks)
 
 
 def dense_from_bytes(data, ggml_type, shape) -> np.ndarray:
@@ -139,10 +150,9 @@ _DEQUANT = {"Q4_K": dequant_q4_k, "Q6_K": dequant_q6_k}
 
 
 def dequantize(w: WireTensor, dtype=torch.float32) -> torch.Tensor:
-    """The full [N, K] weight, computed in f32 then cast to `dtype`."""
-    n, k = w.shape
+    """The full weight of w.shape, computed in f32 then cast to `dtype`."""
     out = _DEQUANT[w.kind](w.blocks.reshape(-1, BLOCK_BYTES[w.kind]))
-    return out.reshape(n, k).to(dtype)
+    return out.reshape(w.shape).to(dtype)
 
 
 def dequantize_rows(w: WireTensor, idx: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -152,6 +162,30 @@ def dequantize_rows(w: WireTensor, idx: torch.Tensor, dtype=torch.float32) -> to
     rows = w.blocks.index_select(0, idx.reshape(-1).to(w.device))
     sub = WireTensor(w.kind, (rows.shape[0], w.shape[1]), rows)
     return dequantize(sub, dtype).reshape(*idx.shape, w.shape[1])
+
+
+def dequantize_experts(w: WireTensor, ids: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """dequantize(w)[ids] for a stack [n_exp, N, K]: the selected experts'
+    blocks are gathered first and only those are decoded (the counterpart
+    of qmm_id.qmm_gather_xla's plane gather). Returns [*ids.shape, N, K]."""
+    n_exp, n, k = w.shape
+    sel = w.blocks.reshape(n_exp, n, -1).index_select(0, ids.reshape(-1).to(w.device))
+    sub = WireTensor(w.kind, (sel.shape[0] * n, k), sel.reshape(-1, sel.shape[-1]))
+    return dequantize(sub, dtype).reshape(*ids.shape, n, k)
+
+
+def fuse_experts(gate: WireTensor, up: WireTensor) -> WireTensor | None:
+    """Per-expert [gate; up] fusion of two stacks [n_exp, F, K] into one
+    [n_exp, 2F, K]: every expert's gate rows, then its up rows, so one
+    expert gather streams both products (models/loader.py's
+    ffn_gate_up_exps). None unless both are stacks of one kind and shape."""
+    if not (isinstance(gate, WireTensor) and isinstance(up, WireTensor)
+            and gate.kind == up.kind and gate.shape == up.shape and len(gate.shape) == 3):
+        return None
+    n_exp, f, k = gate.shape
+    blocks = torch.cat([gate.blocks.reshape(n_exp, f, -1), up.blocks.reshape(n_exp, f, -1)],
+                       dim=1)
+    return WireTensor(gate.kind, (n_exp, 2 * f, k), blocks.reshape(n_exp * 2 * f, -1))
 
 
 def fuse_rows(ws: list) -> "WireTensor | torch.Tensor | None":

@@ -1,8 +1,10 @@
 """Where the time of a decode step goes, on the GPU.
 
-    python -m llamacog_tpu_torch.tools.profile [--layers 32] [--steps 32] [--kv-type q8_0]
+    python -m llamacog_tpu_torch.tools.profile [--model mixtral-8x7b] [--layers 32] \
+        [--steps 32] [--kv-type q8_0]
 
-Builds the Llama-3-8B synthetic Q4_K_M model (depth cut by --layers),
+Builds the Llama-3-8B (or, with --model mixtral-8x7b, the Mixtral-8x7B)
+synthetic Q4_K_M model (depth cut by --layers),
 prefills a 128-token prompt, then runs --steps greedy decode steps
 (Engine.decode_greedy_tokens) twice: once timed on the host clock, once
 under torch.profiler. Prints host ms/token, the host time of the two
@@ -21,6 +23,7 @@ import time
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="llamacog-profile-torch")
+    ap.add_argument("--model", choices=("llama3-8b", "mixtral-8x7b"), default="llama3-8b")
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--prompt", type=int, default=128)
@@ -32,9 +35,10 @@ def main(argv=None) -> int:
 
     from ..ops.cuda.flash_q8 import decode_from_cache
     from ..runtime.engine import Engine
-    from ..utils.synthetic import llama3_8b_config, make_synthetic_params
+    from ..utils.synthetic import llama3_8b_config, make_synthetic_params, mixtral_8x7b_config
 
-    cfg = llama3_8b_config(n_layer=args.layers)
+    make_config = mixtral_8x7b_config if args.model == "mixtral-8x7b" else llama3_8b_config
+    cfg = make_config(n_layer=args.layers)
     eng = Engine(make_synthetic_params(cfg, seed=0), cfg, batch_size=1, max_seq=1024,
                  kv_type=args.kv_type)
     prompt = [(i * 31337) % cfg.n_vocab for i in range(args.prompt)]
@@ -56,7 +60,7 @@ def main(argv=None) -> int:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / args.steps
-    print(f"[profile] {torch.cuda.get_device_name(0)}, {args.layers} layers, "
+    print(f"[profile] {torch.cuda.get_device_name(0)}, {args.model}, {args.layers} layers, "
           f"{args.steps} decode steps after a {args.prompt}-token prompt, kv {args.kv_type}")
     print(f"[profile] host clock: {wall / args.steps * 1e3:.3f} ms/token "
           f"({args.steps / wall:.2f} tokens/s); under the profiler "

@@ -7,7 +7,9 @@ wire blocks made on the device from a torch.Generator. The per-tensor kind
 policy is the JAX package's (after llama_tensor_get_type for Q4_K_M):
 attn_v and output are Q6_K, ffn_down is Q6_K on the "use more bits" layers,
 everything else Q4_K; q+k and gate+up arrive fused, as the loader fuses a
-real Q4_K_M file.
+real Q4_K_M file. A MoE config (n_expert > 0) gets an f32 router and
+stacked experts instead of the dense FFN: gate+up fused per expert, Q4_K;
+down by the same "more bits" rule.
 """
 
 from __future__ import annotations
@@ -50,6 +52,24 @@ def llama3_8b_config(n_layer: int = 32) -> ModelConfig:
     )
 
 
+def mixtral_8x7b_config(n_layer: int = 32) -> ModelConfig:
+    """Mixtral-8x7B geometry (8 experts, top-2, normalized softmax gating);
+    `n_layer` cuts depth only."""
+    return ModelConfig(
+        arch="llama", n_vocab=32000, n_ctx_train=8192, n_embd=4096,
+        n_layer=n_layer, n_head=32, n_head_kv=8, n_ff=14336,
+        head_dim_k=128, head_dim_v=128, n_expert=8, n_expert_used=2,
+        expert_weights_norm=True, rope=RopeConfig(dim=128, freq_base=1e6),
+    )
+
+
+def random_experts(kind: str, n_exp: int, n: int, k: int, generator: torch.Generator,
+                   device=None) -> WireTensor:
+    """A random stack of n_exp [n, k] experts, [n_exp, n, k]."""
+    w = random_wire(kind, n_exp * n, k, generator, device)
+    return WireTensor(kind, (n_exp, n, k), w.blocks)
+
+
 def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random Q4_K_M params for the llama forward, on `device`."""
     from .. import resolve_device
@@ -66,13 +86,20 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     }
     for il in range(cfg.n_layer):
         down_kind = "Q6_K" if _use_more_bits(il, cfg.n_layer) else "Q4_K"
-        params["layers"].append({
+        layer = {
             "attn_norm": torch.ones(E, dtype=torch.float32, device=dev),
             "ffn_norm": torch.ones(E, dtype=torch.float32, device=dev),
             "attn_qk": random_wire("Q4_K", cfg.n_head * cfg.head_dim_k + kv, E, g, dev),
             "attn_v": random_wire("Q6_K", kv, E, g, dev),
             "attn_output": random_wire("Q4_K", E, cfg.n_head * cfg.head_dim_v, g, dev),
-            "ffn_gate_up": random_wire("Q4_K", 2 * F, E, g, dev),
-            "ffn_down": random_wire(down_kind, E, F, g, dev),
-        })
+        }
+        if cfg.n_expert > 0:
+            n_exp = cfg.n_expert
+            layer["ffn_gate_inp"] = torch.randn((n_exp, E), generator=g, device=dev) * 0.02
+            layer["ffn_gate_up_exps"] = random_experts("Q4_K", n_exp, 2 * F, E, g, dev)
+            layer["ffn_down_exps"] = random_experts(down_kind, n_exp, E, F, g, dev)
+        else:
+            layer["ffn_gate_up"] = random_wire("Q4_K", 2 * F, E, g, dev)
+            layer["ffn_down"] = random_wire(down_kind, E, F, g, dev)
+        params["layers"].append(layer)
     return params

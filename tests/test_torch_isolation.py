@@ -87,3 +87,22 @@ def test_raw_kernel_launchers_refuse_cpu_tensors():
         flash_prefill_quant_kernel(torch.zeros(1, 8, 4, 32), [p[0] for p in planes.k_planes],
                                    [p[0] for p in planes.v_planes], torch.zeros(1, 8, 2, 32),
                                    torch.zeros(1, 8, 2, 32), n, 1.0, kinds=planes.kinds)
+
+
+def test_moe_entry_points_and_launchers_refuse_cpu(monkeypatch):
+    """The MoE kernels (K10-K12) take CUDA tensors only, and the Mixtral
+    synthetic model, like every entry point, needs CUDA unless asked for
+    the CPU."""
+    from llamacog_tpu_torch.ops.cuda.qmm_id import qgemm_id_kernel, qmv_id_kernel
+    from llamacog_tpu_torch.utils.synthetic import (
+        make_synthetic_params, mixtral_8x7b_config, random_experts)
+
+    w = random_experts("Q4_K", 4, 64, 256, torch.Generator().manual_seed(0))
+    ids = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        qmv_id_kernel(torch.zeros(2, 256), ids, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        qgemm_id_kernel(torch.zeros(64, 256, dtype=torch.bfloat16), ids[:1], w, 64)
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_synthetic_params(mixtral_8x7b_config(n_layer=1))

@@ -7,7 +7,8 @@ Tolerances, relative to the largest |reference|: the qmm kernels form every
 dequantized weight exactly as the plain version does and differ only in
 f32 summation order (QMM_TOL); the attention kernels differ in summation
 order and __expf, ~1e-6 in f32, and bf16 outputs by one bf16 rounding
-(2^-8) of either side.
+(2^-8) of either side. The MoE kernels (qmv_id, qgemm_id) form their
+weights as qmv and qgemm do: QMM_TOL.
 """
 
 import pytest
@@ -21,9 +22,12 @@ from llamacog_tpu_torch.ops.cuda.flash_q8 import (
     flash_decode_stacked_dense_plain, flash_decode_stacked_plain, flash_prefill_q8_plain,
     flash_prefill_quant_kernel)
 from llamacog_tpu_torch.ops.cuda.qmm import qgemm, qmm_plain, qmv
+from llamacog_tpu_torch.ops.cuda.qmm_id import (
+    qgemm_id_kernel, qmm_gather, qmm_gather_offset, qmm_gather_plain, qmm_ragged,
+    qmm_ragged_plain, qmv_id_kernel)
 from llamacog_tpu_torch.quant.wire import BLOCK_BYTES, WireTensor
 from llamacog_tpu_torch.runtime.kv_cache import QuantKVCache
-from llamacog_tpu_torch.utils.synthetic import random_wire
+from llamacog_tpu_torch.utils.synthetic import random_experts, random_wire
 
 QMM_TOL = 1e-4
 # the quantized-KV kernels dequantize every element bit for bit as the plain
@@ -92,6 +96,62 @@ def test_qmm_launchers_reject_bad_input(dev):
         qmv(torch.zeros(1, 512, device=dev), [w])  # K mismatch
     with pytest.raises(ValueError):
         qmv(torch.zeros(1, 256, device=dev, dtype=torch.float16), [w])
+
+
+@pytest.mark.parametrize("kind", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 2, 32])
+def test_qmv_id_matches_plain(dev, kind, dtype, S):
+    g = torch.Generator(device=dev).manual_seed(S)
+    w = random_experts(kind, 8, 200, 1024, g, dev)  # N not a multiple of the block rows
+    x = torch.randn(S, 1024, generator=g, device=dev).to(dtype)
+    ids = torch.randint(0, 8, (S,), generator=g, device=dev, dtype=torch.int32)
+    before = build.LAUNCHES["qmv_id"]
+    got = qmm_gather(x, ids, w)
+    assert build.LAUNCHES["qmv_id"] == before + 1
+    torch.cuda.synchronize()
+    assert got.shape == (S, 200) and rel_err(got, qmm_gather_plain(x, ids, w)) < QMM_TOL
+    assert torch.equal(qmm_gather_offset(x, ids, w), got)  # K12: the same kernel
+
+
+# tile -> expert maps: every expert, empty experts between used ones, one
+# expert, and padding tiles (expert n_exp) past the last used one
+TILE_MAPS = [[0, 1, 2, 3], [0, 0, 3, 3, 3, 4, 4], [2], [1, 3, 3, 4, 4, 4]]
+
+
+@pytest.mark.parametrize("kind", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("tiles", TILE_MAPS, ids=lambda t: "-".join(map(str, t)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qgemm_id_matches_plain(dev, kind, tiles, dtype):
+    """bf16 takes qgemm_id; f32 the qmv_id kernel over repeated tile ids."""
+    g = torch.Generator(device=dev).manual_seed(len(tiles))
+    w = random_experts(kind, 4, 160, 512, g, dev)
+    te = torch.tensor(tiles, dtype=torch.int32, device=dev)
+    xs = torch.randn(64 * len(tiles), 512, generator=g, device=dev).to(dtype)
+    counter = "qgemm_id" if dtype == torch.bfloat16 else "qmv_id"
+    before = build.LAUNCHES[counter]
+    got = qmm_ragged(xs, te, w, 64)
+    assert build.LAUNCHES[counter] == before + 1
+    torch.cuda.synchronize()
+    ref = qmm_ragged_plain(xs, te, w, 64)
+    assert got.shape == (xs.shape[0], 160) and rel_err(got, ref) < QMM_TOL
+    pad = (te >= 4).repeat_interleave(64)
+    assert (got[pad] == 0).all()
+
+
+def test_moe_launchers_reject_bad_input(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    w = random_experts("Q4_K", 4, 64, 256, g, dev)
+    te = torch.zeros(1, dtype=torch.int32, device=dev)
+    xs = torch.zeros(64, 256, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):  # the kernel's token tile is 64
+        qgemm_id_kernel(torch.zeros(32, 256, dtype=torch.bfloat16, device=dev), te, w, 32)
+    with pytest.raises(ValueError):  # int64 ids
+        qmv_id_kernel(xs[:2], torch.zeros(2, dtype=torch.int64, device=dev), w)
+    with pytest.raises(ValueError):  # a 2-D weight
+        qmv_id_kernel(xs[:2], te.repeat(2), random_wire("Q4_K", 64, 256, g, dev))
+    with pytest.raises(ValueError):  # f32 x: the K10 route's job
+        qgemm_id_kernel(xs.float(), te, w, 64)
 
 
 @pytest.mark.parametrize("softcap,window", [(0.0, 0), (25.0, 0), (0.0, 64)])
