@@ -9,24 +9,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      source, in parallel) into llamacog_tpu_torch/csrc/build/;
   3. each kernel against its plain PyTorch version at the Llama-3-8B shapes
      of the main path, with kernel, plain, library and bound times: the
-     weight kernels, the dense-cache attention kernels, and the
-     quantized-cache attention kernels (decode over every K/V kind pair at
-     depth 1000, q8_0/q4_0 at depth 32765, the per-layer entries, and
-     prefill at write offsets 0 and 896); then the MoE kernels at the
-     Mixtral-8x7B expert shapes (the gather at 2 and 32 rows, the offset
-     entry, the grouped GEMM of a 128-token prefill);
+     weight kernels, the int8 prefill GEMM (K13) at the five layer shapes
+     at 512 rows and ragged 300, the dense-cache attention kernels (the
+     stacked K4 and the per-layer K9), and the quantized-cache attention
+     kernels (decode over every K/V kind pair at depth 1000, q8_0/q4_0 at
+     depth 32765, the per-layer entries, and prefill at write offsets 0
+     and 896); then the MoE kernels at the Mixtral-8x7B expert shapes (the
+     gather at 2 and 32 rows, the offset entry, the grouped GEMM of a
+     128-token prefill);
   4. the full-width kernel path (8B widths, 2 layers) against the plain
-     path (the same params on the CPU): prefill logits and 4
-     teacher-forced decode steps, with the dense cache, q8_0, and the split
-     q5_1:q4_0 cache; then the same at Mixtral widths (2 layers, dense
-     cache): a 20-token prefill (grouped GEMM), 4 decode steps and a
-     9-token second chunk (gather);
-  5. the 8B Q4_K_M synthetic run through Engine with the dense cache and
-     with kv_type="q8_0" (the same params), in turns (dense, q8_0, q8_0,
-     dense): 128-token prefill, 128 greedy tokens, with every kernel's
-     launch count over each run; then, with the 8B params freed, the
-     Mixtral-8x7B Q4_K_M synthetic run at full depth (32 layers), the same
-     way;
+     path (the same params on the CPU): prefill logits, 4 teacher-forced
+     decode steps and a 9-token second chunk, with the dense cache, q8_0,
+     the split q5_1:q4_0 cache, LLAMACOG_MMQ=1 on a 300-token prompt (int8
+     prefill), and the per-layer decode routes (LLAMACOG_FLASH_STACKED=0:
+     K9 on the dense cache with LLAMACOG_FLASH_DECODE=1, K8 on q8_0); then
+     the same at Mixtral widths (2 layers, dense cache): a 20-token
+     prefill (grouped GEMM), 4 decode steps and a 9-token second chunk
+     (gather);
+  5. the 8B Q4_K_M synthetic run through Engine at full depth, in turns:
+     the dense cache and kv_type="q8_0" (dense, q8_0, q8_0, dense;
+     128-token prefill, 128 greedy tokens), a 512-token prompt exact and
+     with LLAMACOG_MMQ=1 (exact, mmq, mmq, exact), and the per-layer dense
+     decode route (K9), whose greedy tokens must equal the stacked
+     route's; every kernel's launch count over each run; then, with the 8B
+     params freed, the Mixtral-8x7B Q4_K_M synthetic run at full depth (32
+     layers), the same way;
   6. one JSON line of per-kernel results, the card's name and power limit,
      and the final {"ok": true, ...} line.
 
@@ -35,7 +42,9 @@ Weights are random Q4_K_M wire blocks made on the card from a seed.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -44,11 +53,15 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
+INT8_OPS = 1979e12         # H100 SXM dense int8 tensor-core peak
 # tolerances, relative to the largest |reference| value
 # qmm: the kernel forms every weight bit for bit as the plain version; only
 # the f32 summation order over K <= 14336 terms differs (worst case
 # ~K * 2^-24 of the term magnitudes, 9e-4; typically below 2e-5)
 TOL_QMM = 1e-4
+# qmm_i8: the same integer block products and the same f32 combine,
+# operation for operation, as the plain version: bit parity expected
+TOL_K13 = 1e-6
 TOL_ATTN = 1e-2       # bf16 outputs: one bf16 rounding (2^-8) of each side
 TOL_PATH = 5e-2       # bf16 model, 2 layers: bf16 roundings that flip between paths
 PROMPT_LEN = 128
@@ -75,6 +88,22 @@ def rel_err(got, ref) -> float:
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
 
 
+@contextlib.contextmanager
+def env_vars(values: dict):
+    """Set the environment variables `values` for the block, then restore
+    the previous environment."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def main() -> int:
     import torch
 
@@ -84,6 +113,10 @@ def main() -> int:
     repo = Path(__file__).resolve().parent
     sys.path.insert(0, str(repo))
     from llamacog_tpu_torch.ops.cuda import build
+    from llamacog_tpu_torch.ops.cuda import flash_decode as flash_decode_mod
+    from llamacog_tpu_torch.ops.cuda import flash_q8 as flash_q8_mod
+    from llamacog_tpu_torch.ops.cuda.flash_decode import (
+        flash_decode_attention_plain, flash_decode_kernel)
     from llamacog_tpu_torch.ops.cuda.flash_prefill import (
         flash_prefill_attention_plain, flash_prefill_kernel)
     from llamacog_tpu_torch.ops.cuda.flash_q8 import (
@@ -91,9 +124,13 @@ def main() -> int:
         flash_decode_stacked_dense, flash_decode_stacked_dense_plain,
         flash_decode_stacked_plain, flash_prefill_q8, flash_prefill_q8_plain)
     from llamacog_tpu_torch.models.llama import _ffn_moe, moe_sort
+    from llamacog_tpu_torch.ops.linear import qmatmul
     from llamacog_tpu_torch.ops.cuda.qmm import qgemm, qmm_plain, qmv
+    from llamacog_tpu_torch.ops.cuda.qmm_i8 import (
+        qmm_i8_kernel, qmm_i8_plain, quantize_activations)
     from llamacog_tpu_torch.ops.cuda.qmm_id import (
         qmm_gather, qmm_gather_offset, qmm_gather_plain, qmm_ragged, qmm_ragged_plain)
+    from llamacog_tpu_torch.quant.mmq import build_mmq_planes
     from llamacog_tpu_torch.quant.wire import WireTensor
     from llamacog_tpu_torch.runtime.engine import Engine
     from llamacog_tpu_torch.runtime.kv_cache import QuantKVCache, kv_plane_shapes
@@ -142,16 +179,58 @@ def main() -> int:
             times.append(a.elapsed_time(b))
         return statistics.median(times)
 
+    def time_interleaved_ms(fns, iters=31, warmup=2) -> list:
+        """time_ms of each of fns, the calls taken in turns within one loop
+        so that a drift of the card's clocks reaches all of them alike.
+        Logs each one's spread (min-max)."""
+        for _ in range(warmup):
+            for fn in fns:
+                fn()
+        times = [[] for _ in fns]
+        for _ in range(iters):
+            for fn, t in zip(fns, times):
+                flush.zero_()
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                fn()
+                b.record()
+                torch.cuda.synchronize()
+                t.append(a.elapsed_time(b))
+        log("[timing] interleaved: " + ", ".join(
+            f"median {statistics.median(t):.4f} ms (min {min(t):.4f}, max {max(t):.4f})"
+            for t in times))
+        return [statistics.median(t) for t in times]
+
     results = []
 
+    def no_sync(fn):
+        """fn() with any call that makes the host wait for the card raising."""
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    probe = torch.ones(4, device=dev)
+    try:  # the mode has teeth: a device-to-host read raises under it
+        no_sync(lambda: bool(probe.isfinite().all()))
+        flagged = False
+    except RuntimeError:
+        flagged = True
+    check(flagged, "torch.cuda.set_sync_debug_mode did not flag a host sync")
+
     def record(name, source, replaces, outs, refs, tol, ms, plain_ms, nbytes, flops,
-               library_ms=None):
+               library_ms=None, peak=BF16_FLOPS, counter=None):
         """Hold a kernel's outputs against its plain version's (relative to
-        the largest |reference|, tolerance `tol`) and keep its times."""
+        the largest |reference|, tolerance `tol`) and keep its times. The
+        bound is the larger of nbytes over the HBM rate and flops over
+        `peak` (the tensor-core rate of the operands' type); `counter` is
+        the launch count the row reads (the source's name by default)."""
         err = max(rel_err(o, r) for o, r in zip(outs, refs))
         abs_err = max(float((o.double() - r.double()).abs().max()) for o, r in zip(outs, refs))
-        bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-        by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations"
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
+        by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / peak else "operations"
         ok = err <= tol
         log(f"[parity] {name}: max abs err {abs_err:.3e}, rel {err:.3e} (tol {tol:.0e}) "
             f"{'ok' if ok else 'FAIL'} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -159,7 +238,8 @@ def main() -> int:
             + (f", library {library_ms:.4f} ms" if library_ms is not None else ""))
         check(ok, f"{name}: kernel disagrees with its plain version")
         results.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "kernel": source.split("/")[-1][:-3],
+                        "replaces": replaces,
+                        "kernel": counter or source.split("/")[-1][:-3],
                         "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound, "bound_by": by, "library_ms": library_ms})
 
@@ -205,6 +285,38 @@ def main() -> int:
                    nbytes, flops)
             del outs, refs
 
+    # the int8 prefill GEMM (K13, LLAMACOG_MMQ=1) over the planes of the five
+    # 8B layer weights, at a 512-row prefill chunk and a ragged 300
+    log("[parity] qmm_i8: the library time is torch._int_mm(xq, qi8.T), the int32 "
+        "products alone, without the per-block weight scales and the row scales; "
+        "qmatmul's int8 route runs each shape once with host syncs raising")
+    i8_shapes = [("attn_qk Q4_K 5120x4096", w_qk), ("attn_v Q6_K 1024x4096", w_v),
+                 ("attn_output Q4_K 4096x4096", w_o), ("ffn_gate_up Q4_K 28672x4096", w_gu),
+                 ("ffn_down Q4_K 4096x14336", w_d4)]
+    for label, w, B in [(lb, w, 512) for lb, w in i8_shapes] + [(*i8_shapes[3], 300)]:
+        qi8, ws8T = build_mmq_planes(w)
+        N, K = w.shape
+        x = torch.randn(B, K, generator=g, device=dev).to(torch.bfloat16)
+        xq, xs = quantize_activations(x)
+        out = qmm_i8_kernel(xq, xs, qi8, ws8T)
+        ref = qmm_i8_plain(xq, xs, qi8, ws8T)
+        torch.cuda.synchronize()
+        record(f"qmm_i8 B={B} {label}", qmm_src.format("qmm_i8"),
+               "llamacog_tpu/ops/pallas/qmm_i8.py:68", [out], [ref], TOL_K13,
+               time_ms(lambda: qmm_i8_kernel(xq, xs, qi8, ws8T)),
+               time_ms(lambda: qmm_i8_plain(xq, xs, qi8, ws8T), iters=5),
+               xq.numel() + xs.numel() * 4 + qi8.numel() + ws8T.numel() * 4 + out.numel() * 4,
+               2 * B * N * K, time_ms(lambda: torch._int_mm(xq, qi8.t())), peak=INT8_OPS)
+        if B == 512:
+            log(f"[route] qgemm B=512 {label} (the route K13 replaces): "
+                f"{time_ms(lambda: qgemm(x, [w])):.4f} ms")
+        # the model's int8 route (activation quantization, then K13) never
+        # makes the host wait for the card
+        w8 = WireTensor(w.kind, w.shape, w.blocks, qi8, ws8T)
+        check(torch.equal(no_sync(lambda: qmatmul(x, w8)), ref.to(torch.bfloat16)),
+              f"qmatmul {label}: the int8 route disagrees with qmm_i8_plain")
+        del qi8, ws8T, out, ref, w8
+
     H, Hkv, D = cfg.n_head, cfg.n_head_kv, cfg.head_dim_k
     rep = H // Hkv
     scale = D ** -0.5
@@ -227,14 +339,32 @@ def main() -> int:
     lib = sdpa(qf, kf, vf, scale=scale, enable_gqa=True)[:, :, 0]
     torch.cuda.synchronize()
     log(f"[library] decode sdpa vs plain: max rel err {rel_err(lib, ref):.3e}")
+    # K4 and the per-layer K9 below launch one kernel on the same layer:
+    # they are timed in turns, K4 first
+    log("[timing] K4 (stacked) and K9 (per-layer), the same kernel on layer 1:")
+    k4_ms, k9_ms = time_interleaved_ms(
+        [lambda: flash_decode_stacked_dense(q, ks, vs, 1, kc, vc, seq, scale),
+         lambda: flash_decode_kernel(q, ks[1], vs[1], kc, vc, seq, scale)])
     record(f"flash_decode_dense H={H} Hkv={Hkv} D={D} S={S} seq_len={n}",
            "llamacog_tpu_torch/csrc/flash_decode_dense.cu",
-           "llamacog_tpu/ops/pallas/flash_q8.py:968", [out], [ref], TOL_ATTN,
-           time_ms(lambda: flash_decode_stacked_dense(q, ks, vs, 1, kc, vc, seq, scale)),
+           "llamacog_tpu/ops/pallas/flash_q8.py:968", [out], [ref], TOL_ATTN, k4_ms,
            time_ms(lambda: flash_decode_stacked_dense_plain(q, ks, vs, 1, kc, vc, seq, scale)),
            2 * (q.numel() + 2 * n * Hkv * D + kc.numel() + vc.numel() + H * D),
            4 * H * (n + 1) * D,
            time_ms(lambda: sdpa(qf, kf, vf, scale=scale, enable_gqa=True)))
+    # the per-layer entry (K9, LLAMACOG_FLASH_STACKED=0 LLAMACOG_FLASH_DECODE=1)
+    # on the same layer as one [B, S, Hkv, D] tensor
+    out = flash_decode_kernel(q, ks[1], vs[1], kc, vc, seq, scale)
+    ref = flash_decode_attention_plain(q, ks[1], vs[1], kc, vc, seq, scale)
+    torch.cuda.synchronize()
+    record(f"flash_decode H={H} Hkv={Hkv} D={D} S={S} seq_len={n}",
+           "llamacog_tpu_torch/csrc/flash_decode_dense.cu",
+           "llamacog_tpu/ops/pallas/flash_decode.py:84", [out], [ref], TOL_ATTN, k9_ms,
+           time_ms(lambda: flash_decode_attention_plain(q, ks[1], vs[1], kc, vc, seq, scale)),
+           2 * (q.numel() + 2 * n * Hkv * D + kc.numel() + vc.numel() + H * D),
+           4 * H * (n + 1) * D,
+           time_ms(lambda: sdpa(qf, kf, vf, scale=scale, enable_gqa=True)),
+           counter="flash_decode")
 
     # prefill attention: T=128 over a 1024-slot cache, at write offsets 0
     # (the main path's fresh prompt) and 896 (old-cache tiles too)
@@ -265,7 +395,8 @@ def main() -> int:
                4 * H * keys * D,
                time_ms(lambda: sdpa(qs, kfull, vfull, attn_mask=allowed, scale=scale,
                                     enable_gqa=True)))
-    del ks, vs, kl, vl, shapes, ws, x, w_qk, w_v, w_o, w_gu, w_d4, w_d6, w_head
+    del ks, vs, kl, vl, shapes, ws, x, xq, xs, i8_shapes, w, w_qk, w_v, w_o, w_gu, w_d4, w_d6, \
+        w_head
     torch.cuda.empty_cache()
 
     # quantized-cache attention: layer 1 of a 2-layer stacked plane cache
@@ -408,20 +539,6 @@ def main() -> int:
     moe_layer = {"ffn_gate_inp": torch.randn(n_exp, E, generator=g, device=dev) * 0.02,
                  "ffn_gate_up_exps": moe_gu, "ffn_down_exps": moe_d6}
 
-    def no_sync(fn):
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-
-    try:  # the mode has teeth: a device-to-host read raises under it
-        no_sync(lambda: bool(moe_layer["ffn_gate_inp"].isfinite().all()))
-        flagged = False
-    except RuntimeError:
-        flagged = True
-    check(flagged, "torch.cuda.set_sync_debug_mode did not flag a host sync")
     for T_moe in (1, PROMPT_LEN):
         h_moe = torch.randn(1, T_moe, E, generator=g, device=dev).to(torch.bfloat16)
         out = no_sync(lambda: _ffn_moe(moe_layer, h_moe, mcfg))
@@ -432,40 +549,73 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 4. full-width kernel path vs the plain path (same params on the CPU)
-    cfg2 = llama3_8b_config(n_layer=2)
     t0 = time.perf_counter()
+    route_fns = ((flash_q8_mod, "decode_from_cache", "stacked"),
+                 (flash_q8_mod, "flash_decode_q8_auto", "per-layer quantized"),
+                 (flash_decode_mod, "flash_decode_attention", "per-layer dense"))
 
-    def path_check(model, cfgp, kv_types, prompt, forced, max_seq, must=()):
-        """Prefill, teacher-forced decode steps and a 9-token second chunk
-        (which attends the cache of the first) through Engine on the card
-        and on the CPU, the same params; logits held within TOL_PATH, and
-        the kernels `must` launched on the card."""
+    @contextlib.contextmanager
+    def route_calls():
+        """Count the forward's calls of each T=1 attention route (wrappers on
+        the module functions it calls, restored after the block)."""
+        calls = {name: 0 for _, _, name in route_fns}
+        saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in route_fns]
+        for (mod, attr, fn), (_, _, name) in zip(saved, route_fns):
+            def counted(*a, _fn=fn, _name=name, **kw):
+                calls[_name] += 1
+                return _fn(*a, **kw)
+            setattr(mod, attr, counted)
+        try:
+            yield calls
+        finally:
+            for mod, attr, fn in saved:
+                setattr(mod, attr, fn)
+
+    def two_copies(cfgp):
         p_gpu = make_synthetic_params(cfgp, seed=7)
         p_cpu = {k: (v if k == "layers" else v.to("cpu")) for k, v in p_gpu.items()}
         p_cpu["layers"] = [{k: v.to("cpu") for k, v in layer.items()}
                            for layer in p_gpu["layers"]]
+        return p_gpu, p_cpu
+
+    def path_check(model, cfgp, p_gpu, p_cpu, cases, forced, max_seq):
+        """For each case (label, kv type, environment, prompt, kernels that
+        must launch, the T=1 attention route that must run), under the
+        case's environment: prefill, teacher-forced decode steps and a
+        9-token second chunk (which attends the cache of the first) through
+        Engine on the card and on the CPU, the same params; logits held
+        within TOL_PATH. Returns the card's first prefill logits per case."""
         Vp = cfgp.n_vocab
-        for kv_type in kv_types:
+        firsts = {}
+        for label, kv_type, env, prompt, must, route in cases:
             runs = {}
-            for name, params, device in (("kernel", p_gpu, "cuda"), ("plain", p_cpu, "cpu")):
-                eng = Engine(params, cfgp, batch_size=1, max_seq=max_seq, kv_type=kv_type,
-                             device=device)
-                build.reset_launches()
-                steps = [eng.prefill(prompt)]
-                for tok in forced:
-                    steps.append(eng.decode_one([tok])[0])
-                steps.append(eng.prefill(prompt[:9]))
-                runs[name] = steps
-                if name == "kernel":
-                    log(f"[path] {model}, kv {kv_type}: kernel launches "
-                        f"{json.dumps({k: v for k, v in build.LAUNCHES.items() if v})}")
-                    missing = [k for k in must if build.LAUNCHES[k] == 0]
-                    check(not missing, f"{model}: kernels never launched: {missing}")
+            with env_vars(env):
+                for name, params, device in (("kernel", p_gpu, "cuda"), ("plain", p_cpu, "cpu")):
+                    eng = Engine(params, cfgp, batch_size=1, max_seq=max_seq, kv_type=kv_type,
+                                 device=device)
+                    build.reset_launches()
+                    with route_calls() as calls:
+                        steps = [eng.prefill(prompt)]
+                        for tok in forced:
+                            steps.append(eng.decode_one([tok])[0])
+                        steps.append(eng.prefill(prompt[:9]))
+                    runs[name] = steps
+                    del eng
+                    if name == "kernel":
+                        log(f"[path] {model}, {label}: kernel launches "
+                            f"{json.dumps({k: v for k, v in build.LAUNCHES.items() if v})}, "
+                            f"T=1 attention calls {json.dumps(calls)}")
+                        missing = [k for k in must if build.LAUNCHES[k] == 0]
+                        check(not missing, f"{model} {label}: kernels never launched: {missing}")
+                        want = {k: len(forced) * cfgp.n_layer if k == route else 0 for k in calls}
+                        check(calls == want, f"{model} {label}: T=1 attention took {calls}, "
+                              f"not the {route} route")
+            firsts[label] = runs["kernel"][0]
             for i, (a, b) in enumerate(zip(runs["kernel"], runs["plain"])):
                 err = rel_err(torch.from_numpy(a), torch.from_numpy(b))
                 what = ("prefill" if i == 0 else "prefill chunk 2" if i == len(forced) + 1
                         else f"decode step {i}")
-                what = f"kv {kv_type}, {what}"
+                what = f"{label}, {what}"
                 check(a.shape == (Vp,) and bool(torch.isfinite(torch.from_numpy(a)).all()),
                       f"{model} {what}: logits not finite of shape [{Vp}]")
                 log(f"[path] {model}, 2 layers, {what}: logits max rel err {err:.3e} "
@@ -473,86 +623,122 @@ def main() -> int:
                     f"plain {int(b.argmax())}")
                 check(err <= TOL_PATH, f"{model}: kernel path disagrees with the plain path "
                       f"at {what}")
-        del p_gpu, p_cpu
-        torch.cuda.empty_cache()
+        return firsts
 
-    # the dense cache, q8_0, and a split pair
-    path_check("8B widths", cfg2, ("dense", "q8_0", "q5_1:q4_0"),
-               [(i * 7919) % V for i in range(2, 22)], [11, 12345, 777, 90000], 1024)
+    # the dense cache, q8_0 and a split pair; int8 prefill on a 300-token
+    # prompt (bucket 512, so the real MMQ_MIN_B of 256 holds); the per-layer
+    # decode routes (LLAMACOG_FLASH_STACKED=0): K9 on the dense cache, K8 on q8_0
+    cfg2 = llama3_8b_config(n_layer=2)
+    p_gpu, p_cpu = two_copies(cfg2)
+    prompt20 = [(i * 7919) % V for i in range(2, 22)]
+    prompt300 = [(i * 7919) % V for i in range(2, 302)]
+    per_layer = {"LLAMACOG_FLASH_STACKED": "0"}
+    mmq_label = "LLAMACOG_MMQ=1 300-token prompt"
+    firsts = path_check("8B widths", cfg2, p_gpu, p_cpu, [
+        ("kv dense", "dense", {}, prompt20, (), "stacked"),
+        ("kv q8_0", "q8_0", {}, prompt20, (), "stacked"),
+        ("kv q5_1:q4_0", "q5_1:q4_0", {}, prompt20, (), "stacked"),
+        (mmq_label, "dense", {"LLAMACOG_MMQ": "1"}, prompt300, ("qmm_i8",), "stacked"),
+        ("per-layer dense decode (K9)", "dense", {**per_layer, "LLAMACOG_FLASH_DECODE": "1"},
+         prompt20, ("flash_decode",), "per-layer dense"),
+        ("per-layer q8_0 decode (K8)", "q8_0", per_layer, prompt20, ("flash_decode_quant",),
+         "per-layer quantized"),
+    ], [11, 12345, 777, 90000], 1024)
+    exact = torch.from_numpy(Engine(p_gpu, cfg2, batch_size=1, max_seq=1024).prefill(prompt300))
+    mm = torch.from_numpy(firsts[mmq_label])
+    cos = float(torch.nn.functional.cosine_similarity(mm.double(), exact.double(), dim=0))
+    log(f"[path] 8B widths, 300-token prompt: cosine of the mmq and the exact prefill logits "
+        f"{cos:.6f} (the JAX package's test asks > 0.995 at 512 wide, tests/test_qmm_i8.py:116)")
+    del p_gpu, p_cpu, exact, mm
+    torch.cuda.empty_cache()
     # Mixtral widths: the 20-token prefill (bucket 32: 64 rows) takes the
     # grouped GEMM, each decode step (2 rows) the gather; max_seq 33 makes
     # the second chunk an exact tail fit of 9 tokens (18 rows: the gather)
-    path_check("Mixtral widths", mixtral_8x7b_config(n_layer=2), ("dense",),
-               [(i * 7919) % mcfg.n_vocab for i in range(2, 22)], [11, 12345, 777, 31000], 33,
-               must=("qmv_id", "qgemm_id"))
+    mcfg2 = mixtral_8x7b_config(n_layer=2)
+    p_gpu, p_cpu = two_copies(mcfg2)
+    path_check("Mixtral widths", mcfg2, p_gpu, p_cpu, [
+        ("kv dense", "dense", {}, [(i * 7919) % mcfg.n_vocab for i in range(2, 22)],
+         ("qmv_id", "qgemm_id"), "stacked")], [11, 12345, 777, 31000], 33)
+    del p_gpu, p_cpu
+    torch.cuda.empty_cache()
     log(f"[path] done in {time.perf_counter() - t0:.1f}s")
 
     # 5. the synthetic Q4_K_M models through the engine
-    def main_path_runs(model, params, cfgm, kv_types, paths):
-        """128-token prefill and N_DECODE greedy tokens through Engine for
-        each kv type in turn (host time drifts within a process), with the
-        launches of every kernel over each run; returns the last run's
-        launches per kv type."""
+    def main_path_runs(model, params, cfgm, runs):
+        """For each run (name, kv type, environment, prompt length, the
+        kernels it launches — and no other) in turn (host time drifts within
+        a process): TTFT of the prompt, then the counted run, the prompt's
+        prefill and N_DECODE greedy tokens, with every kernel's launches.
+        Returns per run name the last such run's launches (prefill, decode,
+        total) and tokens."""
         Vm = cfgm.n_vocab
-        prompt = [(i * 31337) % Vm for i in range(PROMPT_LEN)]
         bound_ms = sum_wire_bytes(params, cfgm) / HBM_BYTES_PER_S * 1e3
-        path_launches = {}
-        for i, kv_type in enumerate(kv_types):
-            used, unused = paths[kv_type]
-            eng = Engine(params, cfgm, batch_size=1, max_seq=1024, kv_type=kv_type)
-            c = eng.cache
-            kv_bytes = sum(t.nbytes for t in ((c.k_planes + c.v_planes)
-                                              if isinstance(c, QuantKVCache) else (c.k, c.v)))
-            ttfts = []
-            for _ in range(4):  # the first is a warm-up (allocator, first launches)
+        out = {}
+        for i, (name, kv_type, env, prompt_len, used) in enumerate(runs):
+            prompt = [(j * 31337) % Vm for j in range(prompt_len)]
+            tag = f"[{model} {name} run {i + 1}]"
+            with env_vars(env):
+                eng = Engine(params, cfgm, batch_size=1, max_seq=1024, kv_type=kv_type)
+                c = eng.cache
+                kv_bytes = sum(t.nbytes for t in ((c.k_planes + c.v_planes)
+                                                  if isinstance(c, QuantKVCache) else (c.k, c.v)))
+                planes = [w for layer in eng.params["layers"] for w in layer.values()
+                          if isinstance(w, WireTensor) and w.qi8 is not None]
+                if planes:
+                    log(f"{tag} int8 prefill planes on {len(planes)} weights: "
+                        f"{sum(w.qi8.nbytes + w.ws8T.nbytes for w in planes) / 1e9:.3f} GB")
+                ttfts = []
+                for _ in range(4):  # the first is a warm-up (allocator, first launches)
+                    eng.reset()
+                    t0 = time.perf_counter()
+                    eng.prefill(prompt)
+                    ttfts.append(time.perf_counter() - t0)
+                ttft = statistics.median(ttfts[1:])
+                # the main-path run whose launches are counted: prefill + greedy decode
                 eng.reset()
-                t0 = time.perf_counter()
-                eng.prefill(prompt)
-                ttfts.append(time.perf_counter() - t0)
-            ttft = statistics.median(ttfts[1:])
-            # the main-path run whose launches are counted: prefill + greedy decode
-            eng.reset()
-            torch.cuda.reset_peak_memory_stats()
-            build.reset_launches()
-            logits = eng.prefill(prompt)
-            prefill_launches = dict(build.LAUNCHES)
-            t1 = time.perf_counter()
-            toks = eng.decode_greedy_tokens([int(logits.argmax())], N_DECODE)
-            dt = time.perf_counter() - t1
-            launches = dict(build.LAUNCHES)
-            peak = torch.cuda.max_memory_allocated()
-            tag = f"[{model} kv {kv_type} run {i + 1}]"
-            check(logits.shape == (Vm,) and bool(torch.isfinite(torch.from_numpy(logits)).all()),
-                  f"{tag} prefill logits not finite of the expected shape")
-            check(toks.shape == (1, N_DECODE) and 0 <= toks.min() and toks.max() < Vm,
-                  f"{tag} greedy tokens out of shape or range")
-            decode_launches = {k: launches[k] - prefill_launches[k] for k in launches}
-            log(f"{tag} KV cache {kv_bytes / 1e6:.1f} MB at max_seq 1024")
-            log(f"{tag} TTFT {ttft * 1e3:.2f} ms (median of 3 prefills of {PROMPT_LEN} tokens; "
-                f"all: {', '.join(f'{t * 1e3:.2f}' for t in ttfts)} ms)")
-            log(f"{tag} decode {N_DECODE} tokens in {dt:.3f}s: {N_DECODE / dt:.2f} tokens/s, "
-                f"{dt / N_DECODE * 1e3:.3f} ms/token; weight-stream bound {bound_ms:.3f} ms/token")
-            log(f"{tag} launches: prefill {json.dumps(prefill_launches)}, "
-                f"decode {json.dumps(decode_launches)}")
-            log(f"{tag} peak device memory {peak / 2**30:.2f} GiB")
-            missing = [k for k in used if launches[k] == 0]
-            check(not missing, f"{tag} kernels never launched on the main path: {missing}")
-            stray = [k for k in unused if launches[k] != 0]
-            check(not stray, f"{tag} kernels of another path launched: {stray}")
-            path_launches[kv_type] = launches
-            # the device-side loop agrees with host-driven decode_one + argmax
-            eng.reset()
-            first = int(eng.prefill(prompt).argmax())
-            host_toks, tok = [], first
-            for _ in range(8):
-                tok = int(eng.decode_one([tok])[0].argmax())
-                host_toks.append(tok)
-            check(host_toks == [int(t) for t in toks[0, :8]],
-                  f"{tag} greedy loop {toks[0, :8]} != decode_one {host_toks}")
-            log(f"{tag} greedy loop and decode_one agree on the first 8 tokens: {host_toks}")
-            del eng, c
+                torch.cuda.reset_peak_memory_stats()
+                build.reset_launches()
+                logits = eng.prefill(prompt)
+                prefill_launches = dict(build.LAUNCHES)
+                t1 = time.perf_counter()
+                toks = eng.decode_greedy_tokens([int(logits.argmax())], N_DECODE)
+                dt = time.perf_counter() - t1
+                launches = dict(build.LAUNCHES)
+                peak = torch.cuda.max_memory_allocated()
+                check(logits.shape == (Vm,)
+                      and bool(torch.isfinite(torch.from_numpy(logits)).all()),
+                      f"{tag} prefill logits not finite of the expected shape")
+                check(toks.shape == (1, N_DECODE) and 0 <= toks.min() and toks.max() < Vm,
+                      f"{tag} greedy tokens out of shape or range")
+                decode_launches = {k: launches[k] - prefill_launches[k] for k in launches}
+                log(f"{tag} KV cache {kv_bytes / 1e6:.1f} MB at max_seq 1024")
+                log(f"{tag} TTFT {ttft * 1e3:.2f} ms (median of 3 prefills of {prompt_len} "
+                    f"tokens; all: {', '.join(f'{t * 1e3:.2f}' for t in ttfts)} ms)")
+                log(f"{tag} decode {N_DECODE} tokens in {dt:.3f}s: {N_DECODE / dt:.2f} "
+                    f"tokens/s, {dt / N_DECODE * 1e3:.3f} ms/token; weight-stream bound "
+                    f"{bound_ms:.3f} ms/token")
+                log(f"{tag} launches: prefill {json.dumps(prefill_launches)}, "
+                    f"decode {json.dumps(decode_launches)}")
+                log(f"{tag} peak device memory {peak / 2**30:.2f} GiB")
+                missing = [k for k in used if launches[k] == 0]
+                check(not missing, f"{tag} kernels never launched on the main path: {missing}")
+                stray = [k for k in launches if k not in used and launches[k] != 0]
+                check(not stray, f"{tag} kernels of another path launched: {stray}")
+                out[name] = {"prefill": prefill_launches, "decode": decode_launches,
+                             "total": launches, "tokens": toks}
+                # the device-side loop agrees with host-driven decode_one + argmax
+                eng.reset()
+                first = int(eng.prefill(prompt).argmax())
+                host_toks, tok = [], first
+                for _ in range(8):
+                    tok = int(eng.decode_one([tok])[0].argmax())
+                    host_toks.append(tok)
+                check(host_toks == [int(t) for t in toks[0, :8]],
+                      f"{tag} greedy loop {toks[0, :8]} != decode_one {host_toks}")
+                log(f"{tag} greedy loop and decode_one agree on the first 8 tokens: {host_toks}")
+            del eng, c, planes
             torch.cuda.empty_cache()
-        return path_launches
+        return out
 
     def build_params(model, cfgm):
         t0 = time.perf_counter()
@@ -573,33 +759,63 @@ def main() -> int:
                 f"{stream_exp / stream:.1%} of it")
         return params
 
-    # which kernels each run must launch, and which it must not
+    # the kernels each run launches (and it launches no other)
     dense_attn = ("flash_decode_dense", "flash_prefill")
     quant_attn = ("flash_decode_quant", "flash_prefill_quant")
     moe_kernels = ("qmv_id", "qgemm_id")
-    paths = {"dense": (("qmv", "qgemm", *dense_attn), (*quant_attn, *moe_kernels)),
-             "q8_0": (("qmv", "qgemm", *quant_attn), (*dense_attn, *moe_kernels))}
+    exact_path = ("qmv", "qgemm", *dense_attn)
+    mmq_env, k9_env = {"LLAMACOG_MMQ": "1"}, {"LLAMACOG_FLASH_STACKED": "0",
+                                              "LLAMACOG_FLASH_DECODE": "1"}
     params = build_params("8b", cfg)
-    launches_8b = main_path_runs("8b", params, cfg, ("dense", "q8_0", "q8_0", "dense"), paths)
+    runs_8b = main_path_runs("8b", params, cfg, [
+        ("kv dense", "dense", {}, PROMPT_LEN, exact_path),
+        ("kv q8_0", "q8_0", {}, PROMPT_LEN, ("qmv", "qgemm", *quant_attn)),
+        ("kv q8_0", "q8_0", {}, PROMPT_LEN, ("qmv", "qgemm", *quant_attn)),
+        ("kv dense", "dense", {}, PROMPT_LEN, exact_path),
+        # a 512-token prompt, exact and int8 prefill (LLAMACOG_MMQ=1)
+        ("exact 512", "dense", {}, 512, exact_path),
+        ("mmq 512", "dense", mmq_env, 512, ("qmv", "qmm_i8", *dense_attn)),
+        ("mmq 512", "dense", mmq_env, 512, ("qmv", "qmm_i8", *dense_attn)),
+        ("exact 512", "dense", {}, 512, exact_path),
+        # the per-layer dense decode route (K9)
+        ("per-layer K9", "dense", k9_env, PROMPT_LEN, ("qmv", "qgemm", "flash_decode",
+                                                       "flash_prefill")),
+    ])
+    n_l = cfg.n_layer
+    mmq_run, k9_run = runs_8b["mmq 512"], runs_8b["per-layer K9"]
+    check(mmq_run["prefill"]["qmm_i8"] == 5 * n_l and mmq_run["prefill"]["qgemm"] == 0
+          and mmq_run["decode"]["qmm_i8"] == 0,
+          f"mmq run: prefill qmm_i8 {mmq_run['prefill']['qmm_i8']} (want {5 * n_l}), qgemm "
+          f"{mmq_run['prefill']['qgemm']} (want 0), decode qmm_i8 {mmq_run['decode']['qmm_i8']}")
+    check(k9_run["decode"]["flash_decode"] == n_l * N_DECODE
+          and k9_run["total"]["flash_decode_dense"] == 0,
+          f"K9 run: flash_decode {k9_run['decode']['flash_decode']} (want {n_l * N_DECODE}), "
+          f"flash_decode_dense {k9_run['total']['flash_decode_dense']} (want 0)")
+    same = bool((k9_run["tokens"] == runs_8b["kv dense"]["tokens"]).all())
+    log(f"[8b] per-layer K9 run: {N_DECODE} greedy tokens equal the stacked dense run's: {same}")
+    check(same, "the per-layer K9 route's greedy tokens differ from the stacked route's")
     del params
     torch.cuda.empty_cache()
     # Mixtral-8x7B at full depth (28.3 GB of wire blocks), the dense cache:
     # the MoE kernels must launch, the quantized-cache ones must not
-    moe_paths = {"dense": (("qmv", "qgemm", *dense_attn, *moe_kernels), quant_attn)}
     params = build_params("mixtral", mcfg)
-    launches_moe = main_path_runs("mixtral", params, mcfg, ("dense", "dense"), moe_paths)
+    moe_path = (*exact_path, *moe_kernels)
+    runs_moe = main_path_runs("mixtral", params, mcfg, [
+        ("kv dense", "dense", {}, PROMPT_LEN, moe_path),
+        ("kv dense", "dense", {}, PROMPT_LEN, moe_path)])
     del params
     torch.cuda.empty_cache()
 
     # 6. results
     # each kernel's launches in the run of its path: the MoE kernels in the
-    # Mixtral run, the quantized-cache kernels in the 8B q8_0 run, the rest
-    # in the 8B dense run
+    # Mixtral run, the quantized-cache kernels in the 8B q8_0 run, K13 in
+    # the mmq run, K9 in the per-layer run, the rest in the 8B dense run
+    run_of = {"qmm_i8": mmq_run, "flash_decode": k9_run,
+              **{k: runs_moe["kv dense"] for k in moe_kernels},
+              **{k: runs_8b["kv q8_0"] for k in quant_attn}}
     for r in results:
         k = r.pop("kernel")
-        run = (launches_moe["dense"] if k in moe_kernels
-               else launches_8b["q8_0" if k in quant_attn else "dense"])
-        r["launches"] = run[k]
+        r["launches"] = run_of.get(k, runs_8b["kv dense"])["total"][k]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))

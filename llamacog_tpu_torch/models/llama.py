@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.cuda import flash_prefill, flash_q8, qmm_id
+from ..ops.attention import intra_block_mask, masked_attention, old_cache_mask
+from ..ops.cuda import flash_decode, flash_prefill, flash_q8, qmm_id
 from ..ops.linear import qmatmul, qmatmul_multi
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope_tables, rope_tables
@@ -205,13 +206,37 @@ def forward(
     scale = cfg.kq_scale
     if kv_cap is not None and kv_cap >= cache.max_seq:
         kv_cap = None
+    # decode routes of the JAX forward (models/llama.py:444-452): stacked by
+    # default; with LLAMACOG_FLASH_STACKED=0 per layer — a quantized cache
+    # to K8, the dense one to K9 when LLAMACOG_FLASH_DECODE=1, else masked
+    use_stacked = flash_q8.stacked_decode_supported(T)
+    use_q8 = not use_stacked and flash_q8.decode_supported(cache, T)
+    use_flash = flash_decode.supported(cfg, cache, T)
 
     def _attend(q, k, v, il, is_swa):
         win = cfg.sliding_window if is_swa else 0
-        if T == 1:
+        softcap = cfg.attn_logit_softcap
+        if use_stacked:
             return flash_q8.decode_from_cache(
                 q[:, 0], cache, il, k[:, 0], v[:, 0], write_pos, scale,
-                softcap=cfg.attn_logit_softcap, window=win, kv_cap=kv_cap)[:, None]
+                softcap=softcap, window=win, kv_cap=kv_cap)[:, None]
+        if use_q8:
+            return flash_q8.flash_decode_q8_auto(
+                q[:, 0], tuple(p[il] for p in cache.k_planes),
+                tuple(p[il] for p in cache.v_planes), k[:, 0], v[:, 0], write_pos, scale,
+                softcap=softcap, window=win, kv_cap=kv_cap, kinds=cache.kinds)[:, None]
+        if T == 1:
+            k_old, v_old = cache.read(il)
+            if kv_cap is not None:
+                k_old, v_old = k_old[:, :kv_cap], v_old[:, :kv_cap]
+            if use_flash:
+                return flash_decode.flash_decode_attention(
+                    q[:, 0], k_old, v_old, k[:, 0], v[:, 0], write_pos, scale,
+                    softcap=softcap, window=win)[:, None]
+            return masked_attention(q, k_old, v_old, k, v,
+                                    old_cache_mask(write_pos, 1, k_old.shape[1], win),
+                                    intra_block_mask(1, win, device=q.device), scale,
+                                    logit_softcap=softcap)
         if isinstance(cache, QuantKVCache):
             return flash_q8.flash_prefill_q8(
                 q, tuple(p[il] for p in cache.k_planes), tuple(p[il] for p in cache.v_planes),

@@ -10,7 +10,9 @@ which starts one ``nvcc`` per source in parallel.
 
 Every launcher returns ``cudaGetLastError()``; :func:`check` raises on a
 non-zero code. ``LAUNCHES`` counts the launches of each kernel: a wrapper
-adds one where it launches, and nowhere else.
+adds one where it launches, and nowhere else. ``flash_decode`` (K9) has a
+count of its own but no source: it launches the flash_decode_dense library
+on one layer's tensors.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 KERNELS = ("qmv", "qgemm", "flash_decode_dense", "flash_prefill", "flash_decode_quant",
-           "flash_prefill_quant", "qmv_id", "qgemm_id")
+           "flash_prefill_quant", "qmv_id", "qgemm_id", "qmm_i8")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -38,7 +40,7 @@ DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
 # KV cache plane kinds, as csrc/common.cuh numbers them (KV_Q8_0 ...)
 KV_KIND_ID = {"q8_0": 0, "q4_0": 1, "q4_1": 2, "q5_0": 3, "q5_1": 4, "f16": 5, "bf16": 6}
 
-LAUNCHES = {name: 0 for name in KERNELS}
+LAUNCHES = {name: 0 for name in (*KERNELS, "flash_decode")}
 BUILD_LOG: dict[str, str] = {}  # nvcc/ptxas output (registers, smem, spills)
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -111,6 +113,7 @@ def _bind(lib: ctypes.CDLL) -> None:
                                     i, f, f, i, vp],
         "lcg_qmv_id": [vp, i, i, i, vp, i, i, i, vp, vp, vp],
         "lcg_qgemm_id": [vp, i, i, i, vp, i, i, i, vp, i, vp, vp],
+        "lcg_qmm_i8": [vp, vp, vp, vp, vp, i, i, i, vp],
     }
     for fn, argtypes in sigs.items():
         if hasattr(lib, fn):

@@ -27,6 +27,8 @@ the kernel otherwise.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from ...runtime.kv_cache import QuantKVCache, kv_dequant_planes, kv_plane_shapes
@@ -54,36 +56,61 @@ def flash_decode_stacked_dense(q, k_stack, v_stack, il, k_cur, v_cur, seq_len, s
                                softcap=0.0, window=0, kv_cap=None):
     """Kernel K4 (CUDA tensors only): q [B, H, Dk], k/v_stack
     [L, B, S, Hkv, D], k/v_cur [B, Hkv, D], seq_len [B] int32 -> [B, H, Dv]."""
-    if not q.is_cuda:
-        raise ValueError(f"flash_decode_dense: q must be a CUDA tensor, got {q.device}")
-    dt = q.dtype
-    if dt not in build.DTYPE_ID:
-        raise ValueError(f"flash_decode_dense: dtype must be float32 or bfloat16, got {dt}")
+    what = "flash_decode_dense"
+    dt = check_dense_q(what, q)
     L, B, S, Hkv, Dk = k_stack.shape
-    H, Dv = q.shape[1], v_stack.shape[-1]
-    for name, t, shape in (("q", q, (B, H, Dk)), ("k_stack", k_stack, (L, B, S, Hkv, Dk)),
-                           ("v_stack", v_stack, (L, B, S, Hkv, Dv)),
-                           ("k_cur", k_cur, (B, Hkv, Dk)), ("v_cur", v_cur, (B, Hkv, Dv))):
+    for name, t, shape in (("k_stack", k_stack, (L, B, S, Hkv, Dk)),
+                           ("v_stack", v_stack, (L, B, S, Hkv, v_stack.shape[-1]))):
         if tuple(t.shape) != shape or t.dtype != dt or t.device != q.device \
                 or not t.is_contiguous():
-            raise ValueError(f"flash_decode_dense: {name} must be contiguous {dt} "
+            raise ValueError(f"{what}: {name} must be contiguous {dt} "
                              f"{shape} on {q.device}, got {t.dtype} {tuple(t.shape)}")
-    _check_seq_len("flash_decode_dense", seq_len, B, q.device)
-    if H % Hkv or H // Hkv > MAX_REP or Dk > MAX_D or Dv > MAX_D or Dk % 8:
-        raise ValueError(f"flash_decode_dense: unsupported heads/dims H={H} Hkv={Hkv} "
-                         f"Dk={Dk} Dv={Dv}")
     if not 0 <= il < L:
-        raise ValueError(f"flash_decode_dense: layer {il} out of range")
+        raise ValueError(f"{what}: layer {il} out of range")
     s_eff = S if kv_cap is None else min(int(kv_cap), S)
+    return launch_dense_decode(what, q, k_stack, v_stack, il, S, s_eff, k_cur, v_cur, seq_len,
+                               scale, softcap, window)
+
+
+def check_dense_q(what, q) -> torch.dtype:
+    """q's dtype, once q is a CUDA [B, H, Dk] tensor of a dtype the dense
+    decode kernel takes."""
+    if not q.is_cuda:
+        raise ValueError(f"{what}: q must be a CUDA tensor, got {q.device}")
+    if q.dtype not in build.DTYPE_ID:
+        raise ValueError(f"{what}: dtype must be float32 or bfloat16, got {q.dtype}")
+    if q.dim() != 3:
+        raise ValueError(f"{what}: q must be [B, H, Dk], got {tuple(q.shape)}")
+    return q.dtype
+
+
+def launch_dense_decode(what, q, k, v, il, s_stride, s_eff, k_cur, v_cur, seq_len, scale,
+                        softcap, window):
+    """One launch of csrc/flash_decode_dense.cu, counted under `what`: layer
+    `il` of k/v [.., B, S, Hkv, D], whose layers and batch rows lie
+    s_stride positions apart (the caller has checked that layout), read to
+    s_eff positions. Checks q, k/v_cur, seq_len and the head counts."""
+    dt = q.dtype
+    B, Hkv, Dk, Dv = k.shape[-4], k.shape[-2], k.shape[-1], v.shape[-1]
+    H = q.shape[1]
+    for name, t, shape in (("q", q, (B, H, Dk)), ("k_cur", k_cur, (B, Hkv, Dk)),
+                           ("v_cur", v_cur, (B, Hkv, Dv))):
+        if tuple(t.shape) != shape or t.dtype != dt or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous {dt} {shape} on {q.device}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    _check_seq_len(what, seq_len, B, q.device)
+    if H % Hkv or H // Hkv > MAX_REP or Dk > MAX_D or Dv > MAX_D or Dk % 8:
+        raise ValueError(f"{what}: unsupported heads/dims H={H} Hkv={Hkv} Dk={Dk} Dv={Dv}")
     out = torch.empty((B, H, Dv), dtype=dt, device=q.device)
     lib = build.load("flash_decode_dense")
     rc = lib.lcg_flash_decode_dense(
-        build.DTYPE_ID[dt], q.data_ptr(), k_stack.data_ptr(), v_stack.data_ptr(), il, B, S, H,
-        Hkv, Dk, Dv, k_cur.data_ptr(), v_cur.data_ptr(), seq_len.data_ptr(),
-        out.data_ptr(), s_eff, float(scale), float(softcap), int(window),
+        build.DTYPE_ID[dt], q.data_ptr(), k.data_ptr(), v.data_ptr(), il, B, s_stride, H, Hkv,
+        Dk, Dv, k_cur.data_ptr(), v_cur.data_ptr(), seq_len.data_ptr(), out.data_ptr(), s_eff,
+        float(scale), float(softcap), int(window),
         torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, rc, "flash_decode_dense")
-    build.LAUNCHES["flash_decode_dense"] += 1
+    build.check(lib, rc, what)
+    build.LAUNCHES[what] += 1
     return out
 
 
@@ -279,6 +306,22 @@ def flash_prefill_q8(q, k_planes, v_planes, k_cur, v_cur, seq_len, scale, softca
     return build.on_device(q, flash_prefill_quant_kernel, flash_prefill_q8_plain, k_planes,
                            v_planes, k_cur, v_cur, seq_len, scale, softcap=softcap,
                            window=window, kv_cap=kv_cap, kinds=kinds)
+
+
+def stacked_decode_supported(t: int) -> bool:
+    """The stacked decode route (K4/K6, the default at T = 1), switched off
+    by LLAMACOG_FLASH_STACKED=0 as in the JAX package (flash_q8.py:1034).
+    The JAX predicate's other terms are TPU tiling rules or shapes the
+    port's forward refuses; the kernels here take any S."""
+    return t == 1 and os.environ.get("LLAMACOG_FLASH_STACKED", "1") == "1"
+
+
+def decode_supported(cache, t: int) -> bool:
+    """The per-layer quantized decode route (K8, flash_decode_q8_auto) when
+    the stacked route is off: a quantized cache at T = 1, unless
+    LLAMACOG_FLASH_Q8=0 (flash_q8.py:372), which leaves the masked path."""
+    return (t == 1 and isinstance(cache, QuantKVCache)
+            and os.environ.get("LLAMACOG_FLASH_Q8", "1") == "1")
 
 
 def decode_from_cache(q, cache, il, k_cur, v_cur, seq_len, scale, softcap=0.0, window=0,

@@ -36,11 +36,14 @@ DENSE_TYPES = (GGMLType.F32, GGMLType.F16, GGMLType.BF16)
 @dataclass
 class WireTensor:
     """A block-quantized [N, K] weight, or a stack of experts [n_exp, N, K]:
-    kind, logical shape, wire blocks."""
+    kind, logical shape, wire blocks, and optionally the int8 prefill
+    planes of quant/mmq.py (qi8 int8 [N, K], ws8T f32 [K / 512, N])."""
 
     kind: str
     shape: tuple[int, ...]
     blocks: torch.Tensor  # uint8 [prod(shape[:-1]), (K // 256) * BLOCK_BYTES[kind]]
+    qi8: torch.Tensor | None = None
+    ws8T: torch.Tensor | None = None
 
     def __post_init__(self):
         if self.kind not in BLOCK_BYTES:
@@ -55,6 +58,17 @@ class WireTensor:
         if self.blocks.dtype != torch.uint8 or tuple(self.blocks.shape) != want:
             raise ValueError(f"{self.kind} blocks must be uint8 {want}, got "
                              f"{self.blocks.dtype} {tuple(self.blocks.shape)}")
+        if (self.qi8 is None) != (self.ws8T is None):
+            raise ValueError("the int8 planes qi8 and ws8T come together")
+        if self.qi8 is not None:
+            n, k = self.shape if len(self.shape) == 2 else (0, 0)
+            if (self.qi8.dtype != torch.int8 or tuple(self.qi8.shape) != (n, k)
+                    or self.ws8T.dtype != torch.float32 or self.ws8T.dim() != 2
+                    or self.ws8T.shape[1] != n or k % self.ws8T.shape[0]):
+                raise ValueError(f"int8 planes of a {self.shape} weight must be qi8 int8 "
+                                 f"[N, K] and ws8T f32 [groups, N], got {self.qi8.dtype} "
+                                 f"{tuple(self.qi8.shape)}, {self.ws8T.dtype} "
+                                 f"{tuple(self.ws8T.shape)}")
 
     @property
     def device(self) -> torch.device:
@@ -62,10 +76,13 @@ class WireTensor:
 
     @property
     def nbytes(self) -> int:
+        """Bytes of the wire blocks (the int8 planes are not counted)."""
         return self.blocks.numel()
 
     def to(self, device) -> "WireTensor":
-        return WireTensor(self.kind, self.shape, self.blocks.to(device))
+        planes = (None, None) if self.qi8 is None else (self.qi8.to(device),
+                                                         self.ws8T.to(device))
+        return WireTensor(self.kind, self.shape, self.blocks.to(device), *planes)
 
 
 def kind_of(ggml_type: GGMLType) -> str:

@@ -5,11 +5,16 @@ with the dense cache or the quantized one (kv_type, the -ctk/-ctv kinds,
 through make_cache): prefill in padded length buckets (the pad slots are
 written to the cache, as the JAX engine writes them), one-token decode
 steps, and a greedy loop that keeps the token on the device. The cache bound `_kv_cap`
-is the JAX engine's. Steps run eagerly; capturing the decode step in a
+is the JAX engine's. With ``LLAMACOG_MMQ=1`` (read at construction, as
+engine.py:59 reads it) the engine attaches int8 prefill planes to its own
+copy of the params (quant/mmq.py), so prefill chunks of MMQ_MIN_B rows or
+more take the int8 GEMM. Steps run eagerly; capturing the decode step in a
 CUDA graph is later work.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -17,6 +22,7 @@ import torch
 from .. import resolve_device
 from ..models.config import ModelConfig
 from ..models.llama import check_supported, forward
+from ..quant.mmq import attach_mmq_planes
 from .kv_cache import make_cache
 
 PREFILL_BUCKETS = (32, 128, 512, 2048)
@@ -50,6 +56,8 @@ class Engine:
         stray = {str(d) for d in _param_devices(params) if d.type != self.device.type}
         if stray:
             raise ValueError(f"params live on {sorted(stray)}, the engine on {self.device}")
+        if os.environ.get("LLAMACOG_MMQ", "0") == "1":
+            params = attach_mmq_planes(params)  # a new dict; the caller's is untouched
         self.params = params
         self.config = config
         self.batch_size = batch_size
