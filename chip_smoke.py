@@ -11,7 +11,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      of the main path, with kernel, plain, library and bound times: the
      weight kernels, the int8 prefill GEMM (K13) at the five layer shapes
      at 512 rows and ragged 300, the dense-cache attention kernels (the
-     stacked K4 and the per-layer K9), and the quantized-cache attention
+     stacked K4 and the per-layer K9 at depths 1000 and 32765; prefill K5
+     at T=128 over write offsets 0 and 896 and at T=512; each also run once
+     with host syncs raising, and timed beside SDPA on the device alone and
+     on the host per call), and the quantized-cache attention
      kernels (decode over every K/V kind pair at depth 1000, q8_0/q4_0 at
      depth 32765, the per-layer entries, and prefill at write offsets 0
      and 896); then the MoE kernels at the Mixtral-8x7B expert shapes (the
@@ -31,7 +34,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      128-token prefill, 128 greedy tokens), a 512-token prompt exact and
      with LLAMACOG_MMQ=1 (exact, mmq, mmq, exact), and the per-layer dense
      decode route (K9), whose greedy tokens must equal the stacked
-     route's; every kernel's launch count over each run; then, with the 8B
+     route's, and a long-context run (max_seq 8192, a 4096-token prompt in
+     two 2048-token chunks, 64 greedy tokens); every kernel's launch count
+     over each run; then, with the 8B
      params freed, the Mixtral-8x7B Q4_K_M synthetic run at full depth (32
      layers), the same way;
   6. one JSON line of per-kernel results, the card's name and power limit,
@@ -66,6 +71,7 @@ TOL_ATTN = 1e-2       # bf16 outputs: one bf16 rounding (2^-8) of each side
 TOL_PATH = 5e-2       # bf16 model, 2 layers: bf16 roundings that flip between paths
 PROMPT_LEN = 128
 N_DECODE = 128
+LONG_PROMPT = 4096
 
 
 def log(msg: str) -> None:
@@ -163,14 +169,24 @@ def main() -> int:
 
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
 
-    def time_ms(fn, iters=15, warmup=2) -> float:
-        """Median device time of one call (CUDA events), L2 flushed before
-        each call by rewriting a 256 MB buffer (untimed)."""
+    def flush_l2(hold=False):
+        """Flush the L2 cache by rewriting a 256 MB buffer (untimed). With
+        hold, keep the card busy ~0.2 ms more, so that the host has queued
+        the timed call before the start event fires."""
+        flush.zero_()
+        if hold:
+            torch.cuda._sleep(400_000)
+
+    def time_ms(fn, iters=15, warmup=2, hold=False) -> float:
+        """Median time of one call (CUDA events), L2 flushed before each
+        call. The span starts right after the flush, so a wrapper's host work
+        that outlasts the flush counts: the span of every `ms` in the results.
+        With hold, the device's time alone (flush_l2)."""
         for _ in range(warmup):
             fn()
         times = []
         for _ in range(iters):
-            flush.zero_()
+            flush_l2(hold)
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
             fn()
@@ -179,7 +195,7 @@ def main() -> int:
             times.append(a.elapsed_time(b))
         return statistics.median(times)
 
-    def time_interleaved_ms(fns, iters=31, warmup=2) -> list:
+    def time_interleaved_ms(fns, iters=31, warmup=2, hold=False) -> list:
         """time_ms of each of fns, the calls taken in turns within one loop
         so that a drift of the card's clocks reaches all of them alike.
         Logs each one's spread (min-max)."""
@@ -189,17 +205,37 @@ def main() -> int:
         times = [[] for _ in fns]
         for _ in range(iters):
             for fn, t in zip(fns, times):
-                flush.zero_()
+                flush_l2(hold)
                 a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 a.record()
                 fn()
                 b.record()
                 torch.cuda.synchronize()
                 t.append(a.elapsed_time(b))
-        log("[timing] interleaved: " + ", ".join(
+        log(f"[timing] interleaved{' (device alone)' if hold else ''}: " + ", ".join(
             f"median {statistics.median(t):.4f} ms (min {min(t):.4f}, max {max(t):.4f})"
             for t in times))
         return [statistics.median(t) for t in times]
+
+    def host_us(fn, n=200) -> float:
+        """Host time of one call (the wrapper's Python and launches), the
+        device's drain excluded."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / n * 1e6
+
+    def log_device_and_host(what, named):
+        """Log each (name, fn)'s device time alone (in turns) and its host
+        time per call."""
+        dev_ms = time_interleaved_ms([fn for _, fn in named], hold=True)
+        log(f"[timing] {what}: " + ", ".join(
+            f"{name} device {d:.4f} ms, host {host_us(fn):.1f} us a call"
+            for (name, fn), d in zip(named, dev_ms)))
 
     results = []
 
@@ -325,77 +361,96 @@ def main() -> int:
     def rnd(*s):
         return torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
 
-    # decode attention: layer 1 of a 2-layer stacked cache, seq_len 1000
-    n = 1000
-    ks, vs = rnd(2, 1, S, Hkv, D), rnd(2, 1, S, Hkv, D)
+    # decode attention: layer 1 of a 2-layer stacked cache, at depth 1000 of
+    # 1024 slots and 32765 of 32768
     q, kc, vc = rnd(1, H, D), rnd(1, Hkv, D), rnd(1, Hkv, D)
-    seq = torch.tensor([n], dtype=torch.int32, device=dev)
-    out = flash_decode_stacked_dense(q, ks, vs, 1, kc, vc, seq, scale)
-    ref = flash_decode_stacked_dense_plain(q, ks, vs, 1, kc, vc, seq, scale)
-    kf = torch.cat([ks[1, :, :n], kc[:, None]], 1).transpose(1, 2).contiguous()
-    vf = torch.cat([vs[1, :, :n], vc[:, None]], 1).transpose(1, 2).contiguous()
     qf = q[:, :, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = sdpa(qf, kf, vf, scale=scale, enable_gqa=True)[:, :, 0]
-    torch.cuda.synchronize()
-    log(f"[library] decode sdpa vs plain: max rel err {rel_err(lib, ref):.3e}")
-    # K4 and the per-layer K9 below launch one kernel on the same layer:
-    # they are timed in turns, K4 first
-    log("[timing] K4 (stacked) and K9 (per-layer), the same kernel on layer 1:")
-    k4_ms, k9_ms = time_interleaved_ms(
-        [lambda: flash_decode_stacked_dense(q, ks, vs, 1, kc, vc, seq, scale),
-         lambda: flash_decode_kernel(q, ks[1], vs[1], kc, vc, seq, scale)])
-    record(f"flash_decode_dense H={H} Hkv={Hkv} D={D} S={S} seq_len={n}",
-           "llamacog_tpu_torch/csrc/flash_decode_dense.cu",
-           "llamacog_tpu/ops/pallas/flash_q8.py:968", [out], [ref], TOL_ATTN, k4_ms,
-           time_ms(lambda: flash_decode_stacked_dense_plain(q, ks, vs, 1, kc, vc, seq, scale)),
-           2 * (q.numel() + 2 * n * Hkv * D + kc.numel() + vc.numel() + H * D),
-           4 * H * (n + 1) * D,
-           time_ms(lambda: sdpa(qf, kf, vf, scale=scale, enable_gqa=True)))
-    # the per-layer entry (K9, LLAMACOG_FLASH_STACKED=0 LLAMACOG_FLASH_DECODE=1)
-    # on the same layer as one [B, S, Hkv, D] tensor
-    out = flash_decode_kernel(q, ks[1], vs[1], kc, vc, seq, scale)
-    ref = flash_decode_attention_plain(q, ks[1], vs[1], kc, vc, seq, scale)
-    torch.cuda.synchronize()
-    record(f"flash_decode H={H} Hkv={Hkv} D={D} S={S} seq_len={n}",
-           "llamacog_tpu_torch/csrc/flash_decode_dense.cu",
-           "llamacog_tpu/ops/pallas/flash_decode.py:84", [out], [ref], TOL_ATTN, k9_ms,
-           time_ms(lambda: flash_decode_attention_plain(q, ks[1], vs[1], kc, vc, seq, scale)),
-           2 * (q.numel() + 2 * n * Hkv * D + kc.numel() + vc.numel() + H * D),
-           4 * H * (n + 1) * D,
-           time_ms(lambda: sdpa(qf, kf, vf, scale=scale, enable_gqa=True)),
-           counter="flash_decode")
+    for S_dec, n in ((S, 1000), (32768, 32765)):
+        ks, vs = rnd(2, 1, S_dec, Hkv, D), rnd(2, 1, S_dec, Hkv, D)
+        seq = torch.tensor([n], dtype=torch.int32, device=dev)
+        out = flash_decode_stacked_dense(q, ks, vs, 1, kc, vc, seq, scale)
+        ref = flash_decode_stacked_dense_plain(q, ks, vs, 1, kc, vc, seq, scale)
+        kf = torch.cat([ks[1, :, :n], kc[:, None]], 1).transpose(1, 2).contiguous()
+        vf = torch.cat([vs[1, :, :n], vc[:, None]], 1).transpose(1, 2).contiguous()
+        lib = sdpa(qf, kf, vf, scale=scale, enable_gqa=True)[:, :, 0]
+        torch.cuda.synchronize()
+        log(f"[library] decode seq_len={n} sdpa vs plain: max rel err {rel_err(lib, ref):.3e}")
+        for fn in (lambda: flash_decode_stacked_dense(q, ks, vs, 1, kc, vc, seq, scale),
+                   lambda: flash_decode_kernel(q, ks[1], vs[1], kc, vc, seq, scale)):
+            no_sync(fn)
+        log(f"[sync] K4 and K9 at seq_len={n} ran with host syncs raising")
+        # K4 and the per-layer K9 below launch one kernel on the same layer:
+        # they are timed in turns, K4 first
+        log(f"[timing] K4 (stacked) and K9 (per-layer) on layer 1, seq_len={n}:")
+        k4_ms, k9_ms = time_interleaved_ms(
+            [lambda: flash_decode_stacked_dense(q, ks, vs, 1, kc, vc, seq, scale),
+             lambda: flash_decode_kernel(q, ks[1], vs[1], kc, vc, seq, scale)])
+        dec_bytes = 2 * (q.numel() + 2 * n * Hkv * D + kc.numel() + vc.numel() + H * D)
+        sdpa_ms = time_ms(lambda: sdpa(qf, kf, vf, scale=scale, enable_gqa=True))
+        log_device_and_host(f"decode seq_len={n}", [
+            ("K4", lambda: flash_decode_stacked_dense(q, ks, vs, 1, kc, vc, seq, scale)),
+            ("K9", lambda: flash_decode_kernel(q, ks[1], vs[1], kc, vc, seq, scale)),
+            ("sdpa", lambda: sdpa(qf, kf, vf, scale=scale, enable_gqa=True))])
+        record(f"flash_decode_dense H={H} Hkv={Hkv} D={D} S={S_dec} seq_len={n}",
+               "llamacog_tpu_torch/csrc/flash_decode_dense.cu",
+               "llamacog_tpu/ops/pallas/flash_q8.py:968", [out], [ref], TOL_ATTN, k4_ms,
+               time_ms(lambda: flash_decode_stacked_dense_plain(q, ks, vs, 1, kc, vc, seq,
+                                                                scale), iters=5),
+               dec_bytes, 4 * H * (n + 1) * D, sdpa_ms)
+        # the per-layer entry (K9, LLAMACOG_FLASH_STACKED=0 LLAMACOG_FLASH_DECODE=1)
+        # on the same layer as one [B, S, Hkv, D] tensor
+        out = flash_decode_kernel(q, ks[1], vs[1], kc, vc, seq, scale)
+        ref = flash_decode_attention_plain(q, ks[1], vs[1], kc, vc, seq, scale)
+        torch.cuda.synchronize()
+        record(f"flash_decode H={H} Hkv={Hkv} D={D} S={S_dec} seq_len={n}",
+               "llamacog_tpu_torch/csrc/flash_decode_dense.cu",
+               "llamacog_tpu/ops/pallas/flash_decode.py:84", [out], [ref], TOL_ATTN, k9_ms,
+               time_ms(lambda: flash_decode_attention_plain(q, ks[1], vs[1], kc, vc, seq,
+                                                            scale), iters=5),
+               dec_bytes, 4 * H * (n + 1) * D, sdpa_ms, counter="flash_decode")
+        del ks, vs, kf, vf
+        torch.cuda.empty_cache()
 
-    # prefill attention: T=128 over a 1024-slot cache, at write offsets 0
-    # (the main path's fresh prompt) and 896 (old-cache tiles too)
+    # prefill attention over a 1024-slot cache: T=128 at write offsets 0 (the
+    # 128-token prompt) and 896 (old-cache tiles too), T=512 at 0 (the
+    # 512-token prompt)
     T = PROMPT_LEN
     kl, vl = rnd(1, S, Hkv, D), rnd(1, S, Hkv, D)
-    qp, kcp, vcp = rnd(1, T, H, D), rnd(1, T, Hkv, D), rnd(1, T, Hkv, D)
-    for n in (0, S - T):
+    blocks = {t: (rnd(1, t, H, D), rnd(1, t, Hkv, D), rnd(1, t, Hkv, D)) for t in (T, 512)}
+    for Tp, n in ((T, 0), (T, S - T), (512, 0)):
+        qp, kcp, vcp = blocks[Tp]
         seq = torch.tensor([n], dtype=torch.int32, device=dev)
         out = flash_prefill_kernel(qp, kl, vl, kcp, vcp, seq, scale)
         ref = flash_prefill_attention_plain(qp, kl, vl, kcp, vcp, seq, scale)
         qs = qp.transpose(1, 2)
         kfull = torch.cat([kl[:, :n], kcp], 1).transpose(1, 2).contiguous()
         vfull = torch.cat([vl[:, :n], vcp], 1).transpose(1, 2).contiguous()
-        allowed = (torch.arange(n + T, device=dev)[None, :]
-                   <= (n + torch.arange(T, device=dev))[:, None])
+        allowed = (torch.arange(n + Tp, device=dev)[None, :]
+                   <= (n + torch.arange(Tp, device=dev))[:, None])
         lib = sdpa(qs, kfull, vfull, attn_mask=allowed, scale=scale, enable_gqa=True)
         torch.cuda.synchronize()
-        log(f"[library] prefill n={n} sdpa vs plain: max rel err "
+        log(f"[library] prefill T={Tp} n={n} sdpa vs plain: max rel err "
             f"{rel_err(lib.transpose(1, 2), ref):.3e}")
-        keys = sum(n + t + 1 for t in range(T))
-        record(f"flash_prefill T={T} H={H} Hkv={Hkv} D={D} S={S} seq_len={n}",
+        no_sync(lambda: flash_prefill_kernel(qp, kl, vl, kcp, vcp, seq, scale))
+        log(f"[sync] K5 at T={Tp} seq_len={n} ran with host syncs raising")
+        log_device_and_host(f"prefill T={Tp} seq_len={n}", [
+            ("K5", lambda: flash_prefill_kernel(qp, kl, vl, kcp, vcp, seq, scale)),
+            ("sdpa", lambda: sdpa(qs, kfull, vfull, attn_mask=allowed, scale=scale,
+                                  enable_gqa=True))])
+        keys = sum(n + t + 1 for t in range(Tp))
+        record(f"flash_prefill T={Tp} H={H} Hkv={Hkv} D={D} S={S} seq_len={n}",
                "llamacog_tpu_torch/csrc/flash_prefill.cu",
                "llamacog_tpu/ops/pallas/flash_prefill.py:129", [out], [ref], TOL_ATTN,
                time_ms(lambda: flash_prefill_kernel(qp, kl, vl, kcp, vcp, seq, scale)),
                time_ms(lambda: flash_prefill_attention_plain(qp, kl, vl, kcp, vcp, seq,
                                                              scale), iters=5),
-               2 * (qp.numel() + 2 * n * Hkv * D + kcp.numel() + vcp.numel() + T * H * D),
+               2 * (qp.numel() + 2 * n * Hkv * D + kcp.numel() + vcp.numel() + Tp * H * D),
                4 * H * keys * D,
                time_ms(lambda: sdpa(qs, kfull, vfull, attn_mask=allowed, scale=scale,
                                     enable_gqa=True)))
-    del ks, vs, kl, vl, shapes, ws, x, xq, xs, i8_shapes, w, w_qk, w_v, w_o, w_gu, w_d4, w_d6, \
+    qp, kcp, vcp = blocks[T]
+    del kl, vl, blocks, shapes, ws, x, xq, xs, i8_shapes, w, w_qk, w_v, w_o, w_gu, w_d4, w_d6, \
         w_head
     torch.cuda.empty_cache()
 
@@ -666,19 +721,21 @@ def main() -> int:
     # 5. the synthetic Q4_K_M models through the engine
     def main_path_runs(model, params, cfgm, runs):
         """For each run (name, kv type, environment, prompt length, the
-        kernels it launches — and no other) in turn (host time drifts within
-        a process): TTFT of the prompt, then the counted run, the prompt's
-        prefill and N_DECODE greedy tokens, with every kernel's launches.
-        Returns per run name the last such run's launches (prefill, decode,
-        total) and tokens."""
+        kernels it launches — and no other; optionally max_seq and the
+        number of greedy tokens, else 1024 and N_DECODE) in turn (host time
+        drifts within a process): TTFT of the prompt, then the counted run,
+        the prompt's prefill and the greedy tokens, with every kernel's
+        launches. Returns per run name the last such run's launches
+        (prefill, decode, total) and tokens."""
         Vm = cfgm.n_vocab
         bound_ms = sum_wire_bytes(params, cfgm) / HBM_BYTES_PER_S * 1e3
         out = {}
-        for i, (name, kv_type, env, prompt_len, used) in enumerate(runs):
+        for i, (name, kv_type, env, prompt_len, used, *sizes) in enumerate(runs):
+            max_seq, n_tok = sizes or (1024, N_DECODE)
             prompt = [(j * 31337) % Vm for j in range(prompt_len)]
             tag = f"[{model} {name} run {i + 1}]"
             with env_vars(env):
-                eng = Engine(params, cfgm, batch_size=1, max_seq=1024, kv_type=kv_type)
+                eng = Engine(params, cfgm, batch_size=1, max_seq=max_seq, kv_type=kv_type)
                 c = eng.cache
                 kv_bytes = sum(t.nbytes for t in ((c.k_planes + c.v_planes)
                                                   if isinstance(c, QuantKVCache) else (c.k, c.v)))
@@ -701,22 +758,22 @@ def main() -> int:
                 logits = eng.prefill(prompt)
                 prefill_launches = dict(build.LAUNCHES)
                 t1 = time.perf_counter()
-                toks = eng.decode_greedy_tokens([int(logits.argmax())], N_DECODE)
+                toks = eng.decode_greedy_tokens([int(logits.argmax())], n_tok)
                 dt = time.perf_counter() - t1
                 launches = dict(build.LAUNCHES)
                 peak = torch.cuda.max_memory_allocated()
                 check(logits.shape == (Vm,)
                       and bool(torch.isfinite(torch.from_numpy(logits)).all()),
                       f"{tag} prefill logits not finite of the expected shape")
-                check(toks.shape == (1, N_DECODE) and 0 <= toks.min() and toks.max() < Vm,
+                check(toks.shape == (1, n_tok) and 0 <= toks.min() and toks.max() < Vm,
                       f"{tag} greedy tokens out of shape or range")
                 decode_launches = {k: launches[k] - prefill_launches[k] for k in launches}
-                log(f"{tag} KV cache {kv_bytes / 1e6:.1f} MB at max_seq 1024")
+                log(f"{tag} KV cache {kv_bytes / 1e6:.1f} MB at max_seq {max_seq}")
                 log(f"{tag} TTFT {ttft * 1e3:.2f} ms (median of 3 prefills of {prompt_len} "
                     f"tokens; all: {', '.join(f'{t * 1e3:.2f}' for t in ttfts)} ms)")
-                log(f"{tag} decode {N_DECODE} tokens in {dt:.3f}s: {N_DECODE / dt:.2f} "
-                    f"tokens/s, {dt / N_DECODE * 1e3:.3f} ms/token; weight-stream bound "
-                    f"{bound_ms:.3f} ms/token")
+                log(f"{tag} decode {n_tok} tokens at depth {prompt_len}-{prompt_len + n_tok} "
+                    f"in {dt:.3f}s: {n_tok / dt:.2f} tokens/s, {dt / n_tok * 1e3:.3f} "
+                    f"ms/token; weight-stream bound {bound_ms:.3f} ms/token")
                 log(f"{tag} launches: prefill {json.dumps(prefill_launches)}, "
                     f"decode {json.dumps(decode_launches)}")
                 log(f"{tag} peak device memory {peak / 2**30:.2f} GiB")
@@ -780,9 +837,18 @@ def main() -> int:
         # the per-layer dense decode route (K9)
         ("per-layer K9", "dense", k9_env, PROMPT_LEN, ("qmv", "qgemm", "flash_decode",
                                                        "flash_prefill")),
+        # long context: a 4096-token prompt in two 2048-token chunks (the
+        # second attends a 2048-deep old cache), 64 tokens at depth 4096+
+        ("long 4096", "dense", {}, LONG_PROMPT, exact_path, 8192, 64),
     ])
     n_l = cfg.n_layer
     mmq_run, k9_run = runs_8b["mmq 512"], runs_8b["per-layer K9"]
+    long_run = runs_8b["long 4096"]
+    check(long_run["prefill"]["flash_prefill"] == 2 * n_l
+          and long_run["decode"]["flash_decode_dense"] == 64 * n_l,
+          f"long run: prefill flash_prefill {long_run['prefill']['flash_prefill']} (want "
+          f"{2 * n_l}), decode flash_decode_dense {long_run['decode']['flash_decode_dense']} "
+          f"(want {64 * n_l})")
     check(mmq_run["prefill"]["qmm_i8"] == 5 * n_l and mmq_run["prefill"]["qgemm"] == 0
           and mmq_run["decode"]["qmm_i8"] == 0,
           f"mmq run: prefill qmm_i8 {mmq_run['prefill']['qmm_i8']} (want {5 * n_l}), qgemm "

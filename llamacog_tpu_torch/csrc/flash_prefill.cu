@@ -3,21 +3,154 @@
 //
 // Replaces llamacog_tpu/ops/pallas/flash_prefill.py::flash_prefill_attention
 // (_kernel): q [B, T, H, Dk] attends to the old cache k/v [B, S, Hkv, D]
-// (positions below seq_len, the write offset) and then to the block's own
-// k_cur/v_cur [B, T, Hkv, D] causally, with softcap and sliding window.
-// Query row r of kv head h is token r / rep, query head h*rep + r % rep
-// (GQA rows T*rep, as the Pallas kernel). Out [B, T, H, Dv].
+// (positions below min(seq_len, s_eff), the write offset) and then to the
+// block's own k_cur/v_cur [B, T, Hkv, D] causally, with softcap and sliding
+// window. Query row r of kv head h is token r / rep, query head
+// h*rep + r % rep (GQA rows T*rep, as the Pallas kernel). Out [B, T, H, Dv].
 //
 // Bound on this card: operations at long blocks and deep caches (4 flops
-// per query row, key and head dimension), bytes otherwise. Design: one
-// block per (query-row tile of PF_BR rows, kv head, batch row) streams the
-// old K/V prefix in tiles of PF_BC positions through shared memory —
-// reading [B, S, Hkv, D] by stride, without the head-major transposes of
-// the TPU version — and then the current block, with an online softmax in
-// f32. Any S is taken (the Pallas kernel's S % 512 rule is a TPU tiling
-// rule). Scores and the PV product are f32 FMAs from shared memory: tensor
-// cores are later work.
-#include "common.cuh"
+// per query row, key and head dimension), bytes otherwise; a 512-token
+// prefill of the 8B model is ~2.1 GFLOP a layer. The first version of
+// this kernel computed scores and PV as f32 FMAs from shared memory, with
+// element-wise K/V loads: 1.39 ms at T=512 (H100 80GB HBM3, 700 W).
+//
+// Design, bf16 (what the Engine runs): the tile loop of flash_attn_tile.cuh
+// on tensor cores — one block per (tile of 16*NW GQA rows, kv head, batch
+// row), Q fragments in registers, S and PV by mma.sync m16n8k16, K/V tiles
+// of 64 positions double-buffered by cp.async 16-byte copies that read the
+// old cache by its batch and position strides (a kv_cap slice of a stacked
+// layer needs no copy) and then k_cur/v_cur through the same loop. NW is 4
+// when 64-row tiles fill the card's 132 SMs, else 2 (T=128: 128 blocks);
+// above head dim 128 it is always 2. The mask runs only on tiles it can
+// cut, as two bounds a row. Head dims Dk == Dv, any multiple of 16 up to
+// 256, and Dk = 192 with Dv = 128 (deepseek2); rows 16-byte aligned.
+//
+// f32 is chosen by dtype in the C entry and keeps the SIMT body below (one
+// block per 32 query rows, f32 FMAs from shared memory): the exact path of
+// the -m cuda tests at 1e-5, not a fallback — a bf16 call never reaches it.
+//
+// Measured (tools/attn_compare.py, 8B heads, bf16, device time alone — the
+// card held busy past the host's enqueue; NVIDIA H100 80GB HBM3, 700.00 W;
+// PERF.md §6): T=128 at write offset 0 0.0144 ms (SDPA 0.0236), at 896
+// 0.0408 (SDPA 0.0446), T=512 at 0 0.0332 (SDPA 0.0359), against
+// 0.22-1.47 ms for the first version at the same shapes in the same run.
+#include "flash_attn_tile.cuh"
+
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core tile loop over the dense cache
+
+// K/V tiles by cp.async: phase 0 from the old cache by stride, phase 1 from
+// the current block.
+struct DenseKVLoader {
+    const bf16* k;      // old cache at (b, position 0, hk)
+    const bf16* v;
+    long long k_ss, v_ss;  // position strides (elements)
+    const bf16* kc;     // current block at (b, token 0, hk)
+    const bf16* vc;
+    long long kc_ss, vc_ss;  // Hkv * Dk, Hkv * Dv
+
+    // the rows [c0, c0 + FA_BC) of one tensor, W elements a row, by
+    // 16-byte copies; zeros at positions >= len
+    template <int W, int NT>
+    static __device__ __forceinline__ void rows(bf16* dst, const bf16* src, long long st,
+                                                int c0, int len, int tid) {
+        constexpr int CH = W / 8;  // 16-byte chunks a row
+        for (int i = tid; i < FA_BC * CH; i += NT) {
+            const int r = i / CH, ch = i - r * CH;
+            const int pos = c0 + r;
+            const bool ok = pos < len;
+            cp_async16(dst + r * (W + FA_PAD) + ch * 8, src + (ok ? pos : 0) * st + ch * 8, ok);
+        }
+    }
+
+    template <int DK, int DV, int NT>
+    __device__ __forceinline__ void load(bf16* ks, bf16* vs, int phase, int c0, int len,
+                                         int tid) const {
+        const bf16* kb = phase == 0 ? k : kc;
+        const bf16* vb = phase == 0 ? v : vc;
+        const long long kst = phase == 0 ? k_ss : kc_ss;
+        const long long vst = phase == 0 ? v_ss : vc_ss;
+        if constexpr (DK == DV) {
+            // one index walk for both tensors: half the loop overhead of
+            // two, which the old-cache tiles of a long prefix pay each tile
+            constexpr int CH = DK / 8;
+            for (int i = tid; i < FA_BC * CH; i += NT) {
+                const int r = i / CH, ch = i - r * CH;
+                const int pos = c0 + r;
+                const bool ok = pos < len;
+                const size_t p = ok ? (size_t)pos : 0;
+                cp_async16(ks + r * (DK + FA_PAD) + ch * 8, kb + p * kst + ch * 8, ok);
+                cp_async16(vs + r * (DV + FA_PAD) + ch * 8, vb + p * vst + ch * 8, ok);
+            }
+        } else {
+            rows<DK, NT>(ks, kb, kst, c0, len, tid);
+            rows<DV, NT>(vs, vb, vst, c0, len, tid);
+        }
+    }
+};
+
+template <int DK, int DV, int NW>
+__global__ void __launch_bounds__(32 * NW)
+flash_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, long long k_sb, long long k_ss,
+                         long long v_sb, long long v_ss, const bf16* __restrict__ kc,
+                         const bf16* __restrict__ vc, const int* __restrict__ seq_len,
+                         bf16* __restrict__ out, int T_, int H, int Hkv, int s_eff, float scale,
+                         float softcap, int window) {
+    const int hk = blockIdx.y, b = blockIdx.z;
+    const int n = seq_len[b];
+    const size_t cur = (size_t)b * T_ * Hkv + hk;  // (b, token 0, hk) in rows
+    const DenseKVLoader ld{k + (size_t)b * k_sb + (size_t)hk * DK,
+                           v + (size_t)b * v_sb + (size_t)hk * DV, k_ss, v_ss, kc + cur * DK,
+                           vc + cur * DV, (long long)Hkv * DK, (long long)Hkv * DV};
+    prefill_attn_tiles<DK, DV, NW>(ld, q, out, b, hk, T_, H, H / Hkv, n, min(n, s_eff), scale,
+                                   softcap, window);
+}
+
+template <int DK, int DV, int NW>
+static cudaError_t launch_mma(const void* q, const void* k, const void* v, long long k_sb,
+                              long long k_ss, long long v_sb, long long v_ss, const void* kc,
+                              const void* vc, const int* seq_len, void* out, int B, int T_,
+                              int H, int Hkv, int s_eff, float scale, float softcap, int window,
+                              cudaStream_t s) {
+    static bool attr_set = false;  // once per instantiation, not per launch
+    const size_t smem = fa_smem_bytes(DK, DV);
+    if (!attr_set) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            flash_prefill_mma_kernel<DK, DV, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (err != cudaSuccess) return err;
+        attr_set = true;
+    }
+    const int R = T_ * (H / Hkv);
+    const dim3 grid((R + 16 * NW - 1) / (16 * NW), Hkv, B);
+    flash_prefill_mma_kernel<DK, DV, NW><<<grid, 32 * NW, smem, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        k_sb, k_ss, v_sb, v_ss, static_cast<const bf16*>(kc), static_cast<const bf16*>(vc),
+        seq_len, static_cast<bf16*>(out), T_, H, Hkv, s_eff, scale, softcap, window);
+    return cudaGetLastError();
+}
+
+template <int DK, int DV>
+static cudaError_t launch_mma_d(const void* q, const void* k, const void* v, long long k_sb,
+                                long long k_ss, long long v_sb, long long v_ss, const void* kc,
+                                const void* vc, const int* seq_len, void* out, int B, int T_,
+                                int H, int Hkv, int s_eff, float scale, float softcap,
+                                int window, cudaStream_t s) {
+    // 4 warps (64 rows) a block once that gives a wave on 132 SMs, else 2;
+    // above head dim 128 always 2 (one instantiation a width)
+    if constexpr (DK <= 128 && DV <= 128) {
+        const long long blocks4 = (long long)((T_ * (H / Hkv) + 63) / 64) * Hkv * B;
+        if (blocks4 >= 132)
+            return launch_mma<DK, DV, 4>(q, k, v, k_sb, k_ss, v_sb, v_ss, kc, vc, seq_len, out,
+                                         B, T_, H, Hkv, s_eff, scale, softcap, window, s);
+    }
+    return launch_mma<DK, DV, 2>(q, k, v, k_sb, k_ss, v_sb, v_ss, kc, vc, seq_len, out, B, T_,
+                                 H, Hkv, s_eff, scale, softcap, window, s);
+}
+
+// ---------------------------------------------------------------------------
+// f32: the SIMT body
 
 constexpr int PF_BR = 32;        // query rows per block
 constexpr int PF_BC = 32;        // key positions per tile
@@ -25,14 +158,13 @@ constexpr int PF_THREADS = 128;  // 4 threads per query row
 constexpr int PF_MAX_D = 256;
 constexpr int PF_ACC = PF_MAX_D / 4;
 
-template <typename T>
 __global__ void __launch_bounds__(PF_THREADS)
-flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     long long k_sb, long long k_ss, long long v_sb, long long v_ss,
-                     const T* __restrict__ kc, const T* __restrict__ vc,
-                     const int* __restrict__ seq_len, T* __restrict__ out, int T_, int H,
-                     int Hkv, int Dk, int Dv, int s_eff, float scale, float softcap,
-                     int window) {
+flash_prefill_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, long long k_sb, long long k_ss,
+                          long long v_sb, long long v_ss, const float* __restrict__ kc,
+                          const float* __restrict__ vc, const int* __restrict__ seq_len,
+                          float* __restrict__ out, int T_, int H, int Hkv, int Dk, int Dv,
+                          int s_eff, float scale, float softcap, int window) {
     extern __shared__ float sm[];
     const int ldq = Dk + 1, ldv = Dv + 1;
     float* Qs = sm;                       // [PF_BR][Dk+1]
@@ -60,7 +192,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         float val = 0.f;
         if (rr < R) {
             const int t = rr / rep, h = hk * rep + rr % rep;
-            val = to_f32(q[(((size_t)b * T_ + t) * H + h) * Dk + d]);
+            val = q[(((size_t)b * T_ + t) * H + h) * Dk + d];
         }
         Qs[ii * ldq + d] = val;
     }
@@ -82,8 +214,8 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                 float val = 0.f;
                 if (pos < len)
                     val = phase == 0
-                        ? to_f32(k[(size_t)b * k_sb + (size_t)pos * k_ss + (size_t)hk * Dk + d])
-                        : to_f32(kc[(((size_t)b * T_ + pos) * Hkv + hk) * Dk + d]);
+                        ? k[(size_t)b * k_sb + (size_t)pos * k_ss + (size_t)hk * Dk + d]
+                        : kc[(((size_t)b * T_ + pos) * Hkv + hk) * Dk + d];
                 Ks[c * ldq + d] = val;
             }
             for (int idx = tid; idx < PF_BC * Dv; idx += PF_THREADS) {
@@ -92,8 +224,8 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                 float val = 0.f;
                 if (pos < len)
                     val = phase == 0
-                        ? to_f32(v[(size_t)b * v_sb + (size_t)pos * v_ss + (size_t)hk * Dv + d])
-                        : to_f32(vc[(((size_t)b * T_ + pos) * Hkv + hk) * Dv + d]);
+                        ? v[(size_t)b * v_sb + (size_t)pos * v_ss + (size_t)hk * Dv + d]
+                        : vc[(((size_t)b * T_ + pos) * Hkv + hk) * Dv + d];
                 Vs[c * ldv + d] = val;
             }
             __syncthreads();
@@ -155,18 +287,44 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     if (row_ok) {
         const int h = hk * rep + r % rep;
         const float inv = 1.f / fmaxf(l_i, 1e-30f);
-        T* o = out + (((size_t)b * T_ + t_row) * H + h) * Dv;
+        float* o = out + (((size_t)b * T_ + t_row) * H + h) * Dv;
 #pragma unroll
         for (int e = 0; e < PF_ACC; ++e) {
             const int d = cg + 4 * e;
-            if (d < Dv) o[d] = from_f32<T>(acc[e] * inv);
+            if (d < Dv) o[d] = acc[e] * inv;
         }
     }
+}
+
+static cudaError_t launch_simt(const void* q, const void* k, const void* v, long long k_sb,
+                               long long k_ss, long long v_sb, long long v_ss, const void* kc,
+                               const void* vc, const int* seq_len, void* out, int B, int T_,
+                               int H, int Hkv, int Dk, int Dv, int s_eff, float scale,
+                               float softcap, int window, cudaStream_t s) {
+    static int attr_bytes = 0;  // the largest size set so far
+    const size_t smem = sizeof(float) *
+        ((size_t)PF_BR * (Dk + 1) + (size_t)PF_BC * (Dk + 1) + (size_t)PF_BC * (Dv + 1) +
+         (size_t)PF_BR * (PF_BC + 1));
+    if ((int)smem > attr_bytes) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            flash_prefill_simt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+        attr_bytes = (int)smem;
+    }
+    const int R = T_ * (H / Hkv);
+    const dim3 grid((R + PF_BR - 1) / PF_BR, Hkv, B);
+    flash_prefill_simt_kernel<<<grid, PF_THREADS, smem, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        k_sb, k_ss, v_sb, v_ss, static_cast<const float*>(kc), static_cast<const float*>(vc),
+        seq_len, static_cast<float*>(out), T_, H, Hkv, Dk, Dv, s_eff, scale, softcap, window);
+    return cudaGetLastError();
 }
 
 // q [B, T, H, Dk] and kc/vc [B, T, Hkv, D] contiguous; k/v [B, S, Hkv, D]
 // with batch stride k_sb/v_sb and position stride k_ss/v_ss (elements; the
 // head and dimension axes contiguous); seq_len [B] int32; out [B, T, H, Dv].
+// bf16 takes Dk == Dv a multiple of 16 up to 256, or Dk = 192 with Dv =
+// 128, and 16-byte aligned rows; f32 any Dk, Dv <= 256.
 LCG_EXPORT int lcg_flash_prefill(int dtype, const void* q, const void* k, const void* v,
                                  long long k_sb, long long k_ss, long long v_sb, long long v_ss,
                                  const void* kc, const void* vc, const int* seq_len, void* out,
@@ -174,31 +332,24 @@ LCG_EXPORT int lcg_flash_prefill(int dtype, const void* q, const void* k, const 
                                  float scale, float softcap, int window, void* stream) {
     if (Hkv < 1 || H % Hkv || Dk > PF_MAX_D || Dv > PF_MAX_D || T_ < 1)
         return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = sizeof(float) *
-        ((size_t)PF_BR * (Dk + 1) + (size_t)PF_BC * (Dk + 1) + (size_t)PF_BC * (Dv + 1) +
-         (size_t)PF_BR * (PF_BC + 1));
-    const int R = T_ * (H / Hkv);
-    const dim3 grid((R + PF_BR - 1) / PF_BR, Hkv, B);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err;
-    if (dtype == DT_BF16) {
-        using T = __nv_bfloat16;
-        err = cudaFuncSetAttribute(flash_prefill_kernel<T>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        flash_prefill_kernel<T><<<grid, PF_THREADS, smem, s>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), k_sb,
-            k_ss, v_sb, v_ss, static_cast<const T*>(kc), static_cast<const T*>(vc), seq_len,
-            static_cast<T*>(out), T_, H, Hkv, Dk, Dv, s_eff, scale, softcap, window);
-    } else {
-        using T = float;
-        err = cudaFuncSetAttribute(flash_prefill_kernel<T>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        flash_prefill_kernel<T><<<grid, PF_THREADS, smem, s>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), k_sb,
-            k_ss, v_sb, v_ss, static_cast<const T*>(kc), static_cast<const T*>(vc), seq_len,
-            static_cast<T*>(out), T_, H, Hkv, Dk, Dv, s_eff, scale, softcap, window);
-    }
-    return static_cast<int>(cudaGetLastError());
+    if (dtype != DT_BF16)
+        return static_cast<int>(launch_simt(q, k, v, k_sb, k_ss, v_sb, v_ss, kc, vc, seq_len,
+                                            out, B, T_, H, Hkv, Dk, Dv, s_eff, scale, softcap,
+                                            window, s));
+    if (k_ss % 8 || v_ss % 8 || k_sb % 8 || v_sb % 8)
+        return static_cast<int>(cudaErrorInvalidValue);
+#define LCG_PREFILL_D(DK_, DV_)                                                              \
+    if (Dk == DK_ && Dv == DV_)                                                              \
+        return static_cast<int>(launch_mma_d<DK_, DV_>(q, k, v, k_sb, k_ss, v_sb, v_ss, kc,  \
+                                                       vc, seq_len, out, B, T_, H, Hkv,      \
+                                                       s_eff, scale, softcap, window, s));
+    LCG_PREFILL_D(16, 16) LCG_PREFILL_D(32, 32) LCG_PREFILL_D(48, 48) LCG_PREFILL_D(64, 64)
+    LCG_PREFILL_D(80, 80) LCG_PREFILL_D(96, 96) LCG_PREFILL_D(112, 112)
+    LCG_PREFILL_D(128, 128) LCG_PREFILL_D(144, 144) LCG_PREFILL_D(160, 160)
+    LCG_PREFILL_D(176, 176) LCG_PREFILL_D(192, 192) LCG_PREFILL_D(208, 208)
+    LCG_PREFILL_D(224, 224) LCG_PREFILL_D(240, 240) LCG_PREFILL_D(256, 256)
+    LCG_PREFILL_D(192, 128)
+#undef LCG_PREFILL_D
+    return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,10 +7,11 @@ kv_cap by the caller), each row masked to its seq_len and the sliding
 window, softcap, and the current token's k/v_cur [B, Hkv, D] folded in.
 
 On one layer this is the function of the stacked decode kernel (K4) at
-L = 1, so the kernel is csrc/flash_decode_dense.cu launched on the layer
-tensor as a one-layer stack, read in place by stride (a kv_cap slice of
-the stacked cache needs no copy). It counts its launches under its own
-name, ``flash_decode``, so a run shows which route ran.
+L = 1, so the kernel is csrc/flash_decode_dense.cu (split-S, with its
+combine launch) launched on the layer tensor as a one-layer stack, read in
+place by stride (a kv_cap slice of the stacked cache needs no copy). It
+counts its launches under its own name, ``flash_decode``, so a run shows
+which route ran.
 """
 
 from __future__ import annotations

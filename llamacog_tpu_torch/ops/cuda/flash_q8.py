@@ -6,7 +6,12 @@ Counterpart of llamacog_tpu/ops/pallas/flash_q8.py, with its names and
 signatures:
 
 - flash_decode_stacked_dense (csrc/flash_decode_dense.cu) reads layer `il`
-  of the dense [L, B, S, Hkv, D] cache in place;
+  of the dense [L, B, S, Hkv, D] cache in place, split over the cache
+  positions: choose_splits picks the split count from s_eff on the host,
+  the wrapper allocates the f32 workspace of the splits' partials, and one
+  call launches the split kernel and the combine kernel
+  (csrc/flash_split.cuh; the combine's plain version is
+  combine_partials_plain);
 - flash_decode_stacked (K6), flash_decode_q8 (K8a), flash_decode_q8_tiled
   (K8b) and flash_decode_q8_auto read the quantized planes
   (runtime/kv_cache.py) through one kernel, csrc/flash_decode_quant.cu: the
@@ -27,6 +32,7 @@ the kernel otherwise.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
@@ -100,18 +106,67 @@ def launch_dense_decode(what, q, k, v, il, s_stride, s_eff, k_cur, v_cur, seq_le
             raise ValueError(f"{what}: {name} must be contiguous {dt} {shape} on {q.device}, "
                              f"got {t.dtype} {tuple(t.shape)}")
     _check_seq_len(what, seq_len, B, q.device)
-    if H % Hkv or H // Hkv > MAX_REP or Dk > MAX_D or Dv > MAX_D or Dk % 8:
+    if H % Hkv or H // Hkv > MAX_REP or Dk > MAX_D or Dv > MAX_D or Dk % 8 or Dv % 8:
         raise ValueError(f"{what}: unsupported heads/dims H={H} Hkv={Hkv} Dk={Dk} Dv={Dv}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("k_cur", k_cur), ("v_cur", v_cur)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned")
+    n_split, split_len = choose_splits(s_eff, B, Hkv)
     out = torch.empty((B, H, Dv), dtype=dt, device=q.device)
+    ws = torch.empty((B, Hkv, n_split, H // Hkv, Dv + 2), dtype=torch.float32, device=q.device)
     lib = build.load("flash_decode_dense")
     rc = lib.lcg_flash_decode_dense(
         build.DTYPE_ID[dt], q.data_ptr(), k.data_ptr(), v.data_ptr(), il, B, s_stride, H, Hkv,
         Dk, Dv, k_cur.data_ptr(), v_cur.data_ptr(), seq_len.data_ptr(), out.data_ptr(), s_eff,
-        float(scale), float(softcap), int(window),
+        float(scale), float(softcap), int(window), ws.data_ptr(), n_split, split_len,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, rc, what)
-    build.LAUNCHES[what] += 1
+    build.LAUNCHES[what] += 1  # one count a call: the split and the combine launch
     return out
+
+
+# Split-S decode (csrc/flash_split.cuh): about two waves of blocks on the
+# H100's 132 SMs, each split at least SPLIT_MIN_LEN positions.
+SPLIT_TARGET_BLOCKS = 2 * 132
+SPLIT_MIN_LEN = 64
+SPLIT_ALIGN = 16
+
+
+@functools.lru_cache(maxsize=256)
+def choose_splits(s_eff: int, B: int, Hkv: int) -> tuple[int, int]:
+    """(n_split, split_len) of the split-S decode kernel, from host ints
+    only: s_eff is the kv_cap bucket, constant over a decode loop, so the
+    launch never reads the device seq_len. Splits of split_len positions (a
+    multiple of SPLIT_ALIGN, at least SPLIT_MIN_LEN unless s_eff is
+    shorter) cover s_eff, and none lies wholly past it."""
+    s_eff = max(int(s_eff), 1)
+    want = -(-SPLIT_TARGET_BLOCKS // (B * Hkv))
+    n = max(1, min(want, s_eff // SPLIT_MIN_LEN))
+    per = -(-s_eff // n)
+    split_len = -(-per // SPLIT_ALIGN) * SPLIT_ALIGN
+    return -(-s_eff // split_len), split_len
+
+
+def combine_partials_plain(ws, live, q, k_cur, v_cur, scale, softcap=0.0):
+    """The combine kernel in plain torch: merge the live splits' partials
+    ws [B, Hkv, n_split, rep, Dv + 2] f32 (each split's unnormalised o[Dv],
+    its maximum m and its sum l) with the current token k/v_cur
+    [B, Hkv, D] -> [B, H, Dv] in q's dtype. live [B, n_split] bool: splits
+    that are not live weigh nothing."""
+    B, H, Dk = q.shape
+    Hkv, Dv = k_cur.shape[1], v_cur.shape[-1]
+    qf = q.float().reshape(B, Hkv, H // Hkv, Dk)
+    s_cur = torch.einsum("bhrd,bhd->bhr", qf, k_cur.float()) * scale
+    if softcap > 0.0:
+        s_cur = softcap * torch.tanh(s_cur / softcap)
+    on = live[:, None, :, None]  # [B, 1, n_split, 1]
+    m_s = torch.where(on, ws[..., Dv], torch.full_like(ws[..., Dv], -1e30))
+    mt = torch.maximum(m_s.amax(2), s_cur)  # [B, Hkv, rep]
+    wgt = torch.where(on, torch.exp(m_s - mt[:, :, None]), torch.zeros_like(m_s))
+    w_cur = torch.exp(s_cur - mt)
+    den = (ws[..., Dv + 1] * wgt).sum(2) + w_cur
+    o = (ws[..., :Dv] * wgt[..., None]).sum(2) + w_cur[..., None] * v_cur.float()[:, :, None]
+    return (o / den[..., None]).reshape(B, H, Dv).to(q.dtype)
 
 
 def _check_seq_len(what, seq_len, B, dev):

@@ -1,0 +1,188 @@
+"""The dense-cache attention kernels of two versions of the port, timed in
+turns on one GPU.
+
+    python -m llamacog_tpu_torch.tools.attn_compare --baseline DIR [--iters 31]
+
+DIR is another checkout of the repository (for example an older commit
+unpacked by ``git archive``); its ``llamacog_tpu_torch`` is imported under
+another name and builds its own kernels into its own ``csrc/build``. At the
+Llama-3-8B heads (H 32, Hkv 8, D 128, bf16) and the shapes of
+``chip_smoke.py`` phase 3 — prefill K5 at T=128 over write offsets 0 and 896
+and T=512 at 0 (a 1024-slot layer), decode K4 (layer 1 of a 2-layer stack)
+and K9 (the same layer) at depths 1000 and 32765 — each version's wrapper
+and ``scaled_dot_product_attention`` are timed in one loop, one call of
+each in turn, L2 flushed before each call, with two spans:
+
+- ``enqueue``: CUDA events around the call right after the flush, the span
+  of ``chip_smoke.py``'s ``ms``. Where the wrapper's host work outlasts the
+  flush, the span holds part of it;
+- ``device``: the card is held busy ~0.2 ms more after the flush
+  (``torch.cuda._sleep``), so the call is queued before the start event
+  fires: the device's time alone.
+
+Beside them each wrapper's host time per call (a loop of calls with no
+sync). Prints one line per shape and callee, the medians, and a JSON line
+of all of them; each kernel's error against its plain version is checked.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import importlib
+import importlib.util
+import json
+import statistics
+import sys
+import time
+from pathlib import Path
+
+BASE = "baseline_llamacog_tpu_torch"
+TOL_ATTN = 1e-2  # bf16 outputs, relative to the largest |reference| (chip_smoke.py)
+
+
+def load_baseline(root: Path):
+    """The port package of the checkout at `root`, imported as BASE."""
+    pkg = root / "llamacog_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        BASE, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[BASE] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="llamacog-attn-compare")
+    ap.add_argument("--baseline", type=Path, required=True,
+                    help="root of another checkout of the repository")
+    ap.add_argument("--iters", type=int, default=31)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from ..ops.cuda import build, flash_decode, flash_prefill, flash_q8
+
+    if not torch.cuda.is_available():
+        print("attn_compare: no CUDA device", file=sys.stderr)
+        return 2
+    load_baseline(args.baseline.resolve())
+    b_build = importlib.import_module(BASE + ".ops.cuda.build")
+    b_decode = importlib.import_module(BASE + ".ops.cuda.flash_decode")
+    b_prefill = importlib.import_module(BASE + ".ops.cuda.flash_prefill")
+    b_q8 = importlib.import_module(BASE + ".ops.cuda.flash_q8")
+    names = ("flash_decode_dense", "flash_prefill")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        secs = list(pool.map(lambda bld: bld.build(names), (build, b_build)))
+    print(f"[compare] built {json.dumps(secs)}", flush=True)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1234)
+    H, Hkv, D = 32, 8, 128
+    scale = D**-0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+
+    def rnd(*s):
+        return torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
+
+    def host_us(fn, n=200) -> float:
+        """Host time of one call, the device's drain excluded."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / n * 1e6
+
+    def spans(fns) -> list:
+        """[(enqueue ms, device ms)] medians of each fn, taken in turns."""
+        for fn in fns:
+            fn(), fn()
+        times = [([], []) for _ in fns]
+        for _ in range(args.iters):
+            for fn, (enq, devt) in zip(fns, times):
+                for hold, t in ((False, enq), (True, devt)):
+                    flush.zero_()
+                    if hold:
+                        torch.cuda._sleep(400_000)
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    fn()
+                    b.record()
+                    torch.cuda.synchronize()
+                    t.append(a.elapsed_time(b))
+        return [(statistics.median(e), statistics.median(d)) for e, d in times]
+
+    def rel_err(got, ref) -> float:
+        got, ref = got.double(), ref.double()
+        return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+    rows = []
+
+    def compare(shape, callees, plain):
+        """callees: (label, fn) pairs, SDPA last (no error check)."""
+        ref = plain()
+        for label, fn in callees[:-1]:
+            err = rel_err(fn(), ref)
+            if err > TOL_ATTN:
+                raise RuntimeError(f"attn_compare: {label} at {shape}: error {err:.3e}")
+        torch.cuda.synchronize()
+        for (label, fn), (enq, devt) in zip(callees, spans([fn for _, fn in callees])):
+            host = host_us(fn)
+            rows.append({"shape": shape, "callee": label, "enqueue_ms": enq, "device_ms": devt,
+                         "host_us": host})
+            print(f"[compare] {shape:<34} {label:<22} enqueue {enq:.4f} ms, device "
+                  f"{devt:.4f} ms, host {host:.1f} us a call", flush=True)
+
+    # decode: layer 1 of a 2-layer stacked cache
+    q, kc, vc = rnd(1, H, D), rnd(1, Hkv, D), rnd(1, Hkv, D)
+    for S, n in ((1024, 1000), (32768, 32765)):
+        ks, vs = rnd(2, 1, S, Hkv, D), rnd(2, 1, S, Hkv, D)
+        seq = torch.tensor([n], dtype=torch.int32, device=dev)
+        kf = torch.cat([ks[1, :, :n], kc[:, None]], 1).transpose(1, 2).contiguous()
+        vf = torch.cat([vs[1, :, :n], vc[:, None]], 1).transpose(1, 2).contiguous()
+        qf = q[:, :, None]
+        compare(f"decode seq_len={n} S={S}", [
+            ("K4 this", lambda: flash_q8.flash_decode_stacked_dense(q, ks, vs, 1, kc, vc, seq,
+                                                                     scale)),
+            ("K4 baseline", lambda: b_q8.flash_decode_stacked_dense(q, ks, vs, 1, kc, vc, seq,
+                                                                     scale)),
+            ("K9 this", lambda: flash_decode.flash_decode_kernel(q, ks[1], vs[1], kc, vc, seq,
+                                                                  scale)),
+            ("K9 baseline", lambda: b_decode.flash_decode_kernel(q, ks[1], vs[1], kc, vc, seq,
+                                                                  scale)),
+            ("sdpa", lambda: sdpa(qf, kf, vf, scale=scale, enable_gqa=True))],
+            lambda: flash_q8.flash_decode_stacked_dense_plain(q, ks, vs, 1, kc, vc, seq, scale))
+        del ks, vs, kf, vf
+        torch.cuda.empty_cache()
+
+    # prefill over a 1024-slot layer
+    S = 1024
+    kl, vl = rnd(1, S, Hkv, D), rnd(1, S, Hkv, D)
+    for T, n in ((128, 0), (128, S - 128), (512, 0)):
+        qp, kcp, vcp = rnd(1, T, H, D), rnd(1, T, Hkv, D), rnd(1, T, Hkv, D)
+        seq = torch.tensor([n], dtype=torch.int32, device=dev)
+        qs = qp.transpose(1, 2)
+        kfull = torch.cat([kl[:, :n], kcp], 1).transpose(1, 2).contiguous()
+        vfull = torch.cat([vl[:, :n], vcp], 1).transpose(1, 2).contiguous()
+        allowed = (torch.arange(n + T, device=dev)[None, :]
+                   <= (n + torch.arange(T, device=dev))[:, None])
+        compare(f"prefill T={T} seq_len={n} S={S}", [
+            ("K5 this", lambda: flash_prefill.flash_prefill_kernel(qp, kl, vl, kcp, vcp, seq,
+                                                                    scale)),
+            ("K5 baseline", lambda: b_prefill.flash_prefill_kernel(qp, kl, vl, kcp, vcp, seq,
+                                                                    scale)),
+            ("sdpa", lambda: sdpa(qs, kfull, vfull, attn_mask=allowed, scale=scale,
+                                  enable_gqa=True))],
+            lambda: flash_prefill.flash_prefill_attention_plain(qp, kl, vl, kcp, vcp, seq,
+                                                                scale))
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "rows": rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,12 +1,13 @@
 """Where the time of a decode step (or of a prefill) goes, on the GPU.
 
     python -m llamacog_tpu_torch.tools.profile [--model mixtral-8x7b] [--layers 32] \
-        [--steps 32] [--kv-type q8_0] [--prompt 512 --prefill]
+        [--steps 32] [--kv-type q8_0] [--prompt 512 --prefill] [--max-seq 8192]
 
 Builds the Llama-3-8B (or, with --model mixtral-8x7b, the Mixtral-8x7B)
-synthetic Q4_K_M model (depth cut by --layers),
-prefills a 128-token prompt, then runs --steps greedy decode steps
-(Engine.decode_greedy_tokens) twice: once timed on the host clock, once
+synthetic Q4_K_M model (depth cut by --layers) with an Engine of --max-seq
+slots (1024 by default), prefills a --prompt-token prompt (128), then runs
+--steps greedy decode steps (Engine.decode_greedy_tokens) twice: once
+timed on the host clock, once
 under torch.profiler. Prints host ms/token, the host time of the two
 pieces the cache kind changes (the step's bulk cache write and one layer's
 decode attention call, without a sync), device busy ms/token (the sum of
@@ -30,6 +31,7 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--prompt", type=int, default=128)
+    ap.add_argument("--max-seq", type=int, default=1024)
     ap.add_argument("--kv-type", default="dense", help="KV cache kinds, as Engine's kv_type")
     ap.add_argument("--prefill", action="store_true",
                     help="profile one prefill of the prompt instead of the decode steps")
@@ -44,7 +46,7 @@ def main(argv=None) -> int:
 
     make_config = mixtral_8x7b_config if args.model == "mixtral-8x7b" else llama3_8b_config
     cfg = make_config(n_layer=args.layers)
-    eng = Engine(make_synthetic_params(cfg, seed=0), cfg, batch_size=1, max_seq=1024,
+    eng = Engine(make_synthetic_params(cfg, seed=0), cfg, batch_size=1, max_seq=args.max_seq,
                  kv_type=args.kv_type)
     prompt = [(i * 31337) % cfg.n_vocab for i in range(args.prompt)]
 
