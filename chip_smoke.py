@@ -9,12 +9,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      source, in parallel) into llamacog_tpu_torch/csrc/build/;
   3. each kernel against its plain PyTorch version at the Llama-3-8B shapes
      of the main path, with kernel, plain, library and bound times: the
-     weight kernels, the int8 prefill GEMM (K13) at the five layer shapes
-     at 512 rows and ragged 300, the dense-cache attention kernels (the
+     weight kernels (qmv at one row, qgemm at 128 and 512 rows), the int8
+     prefill GEMM (K13) at the five layer shapes at 512 rows and ragged
+     300, the dense-cache attention kernels (the
      stacked K4 and the per-layer K9 at depths 1000 and 32765; prefill K5
      at T=128 over write offsets 0 and 896 and at T=512; each also run once
      with host syncs raising, and timed beside SDPA on the device alone and
-     on the host per call), and the quantized-cache attention
+     on the host per call; K5's bf16 SIMT body at head dim 72 and on a
+     misaligned cache view), and the quantized-cache attention
      kernels (decode over every K/V kind pair at depth 1000, q8_0/q4_0 at
      depth 32765, the per-layer entries, and prefill at write offsets 0
      and 896); then the MoE kernels at the Mixtral-8x7B expert shapes (the
@@ -60,9 +62,16 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
 INT8_OPS = 1979e12         # H100 SXM dense int8 tensor-core peak
 # tolerances, relative to the largest |reference| value
-# qmm: the kernel forms every weight bit for bit as the plain version; only
-# the f32 summation order over K <= 14336 terms differs (worst case
-# ~K * 2^-24 of the term magnitudes, 9e-4; typically below 2e-5)
+# qmm: qmv rounds no value to a narrower type but sums in another order
+# than the plain version: the biased levels (16 + q, 64 + q, exact f32)
+# dotted with x in f32 FMAs per part of a sub-block, the scale applied
+# after, the offset and the bias folded against the part's sum of x (the
+# TPU kernel's order). qgemm forms
+# every weight bit for bit as the plain version and
+# rounds it to bf16 as it does; only the f32 summation order differs. Over
+# K <= 14336 terms the worst case is ~K * 2^-24 of the term magnitudes
+# (9e-4); the folded order run in plain f32 at the 8B widths stays far
+# inside the tolerance (tests/test_torch_qmm.py)
 TOL_QMM = 1e-4
 # qmm_i8: the same integer block products and the same f32 combine,
 # operation for operation, as the plain version: bit parity expected
@@ -163,9 +172,12 @@ def main() -> int:
     log(f"[build] {time.perf_counter() - t0:.1f}s wall, per source "
         + json.dumps({k: round(v, 1) for k, v in secs.items()}))
     for name, text in build.BUILD_LOG.items():
+        func = "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                func = line.split("'")[1] if "'" in line else line.strip()
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name} {func}: {line.strip()}")
 
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
 
@@ -257,12 +269,14 @@ def main() -> int:
     check(flagged, "torch.cuda.set_sync_debug_mode did not flag a host sync")
 
     def record(name, source, replaces, outs, refs, tol, ms, plain_ms, nbytes, flops,
-               library_ms=None, peak=BF16_FLOPS, counter=None):
+               library_ms=None, peak=BF16_FLOPS, counter=None, listed=True):
         """Hold a kernel's outputs against its plain version's (relative to
         the largest |reference|, tolerance `tol`) and keep its times. The
         bound is the larger of nbytes over the HBM rate and flops over
         `peak` (the tensor-core rate of the operands' type); `counter` is
-        the launch count the row reads (the source's name by default)."""
+        the launch count the row reads (the source's name by default). A
+        row that is not `listed` is checked and logged but left out of the
+        results line: no run of phase 5 launches its kernel."""
         err = max(rel_err(o, r) for o, r in zip(outs, refs))
         abs_err = max(float((o.double() - r.double()).abs().max()) for o, r in zip(outs, refs))
         bound = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
@@ -273,11 +287,12 @@ def main() -> int:
             f"bound {bound:.4f} ms ({by})"
             + (f", library {library_ms:.4f} ms" if library_ms is not None else ""))
         check(ok, f"{name}: kernel disagrees with its plain version")
-        results.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces,
-                        "kernel": counter or source.split("/")[-1][:-3],
-                        "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound, "bound_by": by, "library_ms": library_ms})
+        if listed:
+                results.append({"name": name, "route": "cuda", "source": source,
+                            "replaces": replaces,
+                            "kernel": counter or source.split("/")[-1][:-3],
+                            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bound, "bound_by": by, "library_ms": library_ms})
 
     # 3. per-kernel parity at the 8B shapes
     cfg = llama3_8b_config()
@@ -302,7 +317,9 @@ def main() -> int:
               ("ffn_down Q4_K 4096x14336", [w_d4], False),
               ("ffn_down Q6_K 4096x14336", [w_d6], False),
               ("output Q6_K 128256x4096", [w_head], False)]
-    for kname, fn, B in (("qmv", qmv, 1), ("qgemm", qgemm, PROMPT_LEN)):
+    # qgemm at the 128-token prompt and at a 512-row prefill chunk (the route
+    # K13 replaces with LLAMACOG_MMQ=1)
+    for kname, fn, B in (("qmv", qmv, 1), ("qgemm", qgemm, PROMPT_LEN), ("qgemm", qgemm, 512)):
         for label, ws, multi in shapes:
             if kname == "qgemm" and label.startswith("output"):
                 continue  # the prefill LM head runs on the last position only: qmv
@@ -343,9 +360,6 @@ def main() -> int:
                time_ms(lambda: qmm_i8_plain(xq, xs, qi8, ws8T), iters=5),
                xq.numel() + xs.numel() * 4 + qi8.numel() + ws8T.numel() * 4 + out.numel() * 4,
                2 * B * N * K, time_ms(lambda: torch._int_mm(xq, qi8.t())), peak=INT8_OPS)
-        if B == 512:
-            log(f"[route] qgemm B=512 {label} (the route K13 replaces): "
-                f"{time_ms(lambda: qgemm(x, [w])):.4f} ms")
         # the model's int8 route (activation quantization, then K13) never
         # makes the host wait for the card
         w8 = WireTensor(w.kind, w.shape, w.blocks, qi8, ws8T)
@@ -449,6 +463,33 @@ def main() -> int:
                4 * H * keys * D,
                time_ms(lambda: sdpa(qs, kfull, vfull, attn_mask=allowed, scale=scale,
                                     enable_gqa=True)))
+    # K5's bf16 SIMT body, which the C entry picks for what the tiles do not
+    # take: a head dim outside the tiles (72) and a cache view one element
+    # off 16 bytes (8B heads), T=128 over write offset 896. No phase-5 run
+    # launches it: there the count flash_prefill_simt is a stray
+    n = S - T
+    seq = torch.tensor([n], dtype=torch.int32, device=dev)
+    for label, Dh, shift in (("D=72", 72, 0), (f"D={D} cache view off 16 bytes", D, 1)):
+        kv_flat = [rnd(S * Hkv * Dh + shift) for _ in "kv"]
+        ks1, vs1 = (f[shift:].view(1, S, Hkv, Dh) for f in kv_flat)
+        qs1, kcs1, vcs1 = rnd(1, T, H, Dh), rnd(1, T, Hkv, Dh), rnd(1, T, Hkv, Dh)
+        args = (qs1, ks1, vs1, kcs1, vcs1, seq, Dh ** -0.5)
+        before = dict(build.LAUNCHES)
+        out = flash_prefill_kernel(*args)
+        took = {k: c - before[k] for k, c in build.LAUNCHES.items() if c != before[k]}
+        check(took == {"flash_prefill_simt": 1},
+              f"K5 bf16 {label}: launched {took}, not the SIMT body once")
+        ref = flash_prefill_attention_plain(*args)
+        torch.cuda.synchronize()
+        keys = sum(n + t + 1 for t in range(T))
+        record(f"flash_prefill bf16 SIMT body T={T} H={H} Hkv={Hkv} {label} S={S} seq_len={n}",
+               "llamacog_tpu_torch/csrc/flash_prefill.cu",
+               "llamacog_tpu/ops/pallas/flash_prefill.py:129", [out], [ref], TOL_ATTN,
+               time_ms(lambda: flash_prefill_kernel(*args)),
+               time_ms(lambda: flash_prefill_attention_plain(*args), iters=5),
+               2 * (qs1.numel() + 2 * n * Hkv * Dh + kcs1.numel() + vcs1.numel() + T * H * Dh),
+               4 * H * keys * Dh, counter="flash_prefill_simt", listed=False)
+        del kv_flat, ks1, vs1, qs1, kcs1, vcs1, args
     qp, kcp, vcp = blocks[T]
     del kl, vl, blocks, shapes, ws, x, xq, xs, i8_shapes, w, w_qk, w_v, w_o, w_gu, w_d4, w_d6, \
         w_head
@@ -816,7 +857,8 @@ def main() -> int:
                 f"{stream_exp / stream:.1%} of it")
         return params
 
-    # the kernels each run launches (and it launches no other)
+    # the kernels each run launches (and it launches no other): K5 by its
+    # tensor-core tiles alone, never its SIMT body (flash_prefill_simt)
     dense_attn = ("flash_decode_dense", "flash_prefill")
     quant_attn = ("flash_decode_quant", "flash_prefill_quant")
     moe_kernels = ("qmv_id", "qgemm_id")

@@ -12,6 +12,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #define LCG_EXPORT extern "C" __attribute__((visibility("default")))
 
 // quantized weight kinds (GGUF wire format, ggml-common.h block_q4_K/q6_K)
@@ -86,81 +88,226 @@ __device__ __forceinline__ void q4k_scale_min(uint32_t s0, uint32_t s1, uint32_t
     }
 }
 
-// One dequantized weight, rounded exactly as the plain torch dequant
-// (quant/wire.py): (d*sc)*q - dmin*m with no fused multiply-add.
-__device__ __forceinline__ float q4k_weight(float dl, float ml, int q) {
-    return __fsub_rn(__fmul_rn(dl, (float)q), ml);
+// ---------------------------------------------------------------------------
+// Asynchronous copies and bf16 tensor-core fragments (flash_attn_tile.cuh,
+// qgemm_tile.cuh).
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros when !ok (nothing read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+// c += a (16x16, row-major) * b (16x8, column-major), bf16 in, f32 out
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 -> one register of two bf16 (lo in the low half), round to nearest
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 // ---------------------------------------------------------------------------
-// The matvec over wire blocks (qmv.cu, qmv_id.cu). Each warp owns QMV_ROWS
-// output rows and walks their superblocks QMV_SB_STEP at a time: eight lanes
-// share a superblock, each lane decoding a QMV_SLICE-weight slice.
+// Integers as exact f32 with no int->float conversion. I2F issues at 16 a
+// clock per SM on compute capability 9.0, against 128 f32 adds, so a kernel
+// that converts every weight is bound by it. OR-ing v < 2^23 into the
+// mantissa of 2^23 gives the float 2^23 + v exactly; one full-rate add takes
+// 2^23 off again, still exactly (the scales and mins).
+__device__ __forceinline__ float u23_f32(uint32_t v) {
+    return __int_as_float(0x4B000000u | v) - 8388608.f;
+}
+
+// BIAS + q as an exact f32 from byte B of w, where that byte holds
+// 0x80 | q << s (BIAS = 2^(7-s), q < BIAS): the byte is the float's high
+// mantissa byte under BIAS's exponent — one byte permute, no add. The
+// matvec dots these with x and folds BIAS into the offset term; the GEMM's
+// dequant takes it off in the multiply-add that scales the level.
+template <int BIAS, int B>
+__device__ __forceinline__ float level_plus(uint32_t w) {
+    static_assert(BIAS == 16 || BIAS == 64, "exponent bytes for 16 and 64 only");
+    return __int_as_float(__byte_perm(w, BIAS == 16 ? 0x41000000u : 0x42000000u, 0x7044 + (B << 8)));
+}
+
+// A signed byte (two's complement, 0..255 as stored) -> exact f32.
+__device__ __forceinline__ float s8_f32(uint32_t byte) {
+    return u23_f32(byte ^ 0x80u) - 128.f;
+}
+
+// ---------------------------------------------------------------------------
+// The matvec over wire blocks (qmv.cu, qmv_id.cu). Each warp owns R output
+// rows and walks their superblocks QMV_SB_STEP at a time: eight lanes share
+// a superblock, each lane holding a QMV_SLICE-weight slice. The slice is
+// never formed as weights. As the TPU kernel (llamacog_tpu/ops/pallas/
+// qmm.py, _tile_matvec), the lane takes the dot of the raw levels q with x
+// for each sub-block part it holds, applies the part's scale once to that
+// sum, and folds the part's offset into one product with the activation sum
+// of the part:
+//   sum_k x_k (sc q_k - mn) = sc * sum_k q_k x_k - mn * sum_k x_k
+// (Q4_K: sc = d*scale, mn = dmin*min; Q6_K: sc = d*scale, mn = 32*sc for
+// the levels' -32). The levels carry a bias (16 + q, 64 + q: level_plus),
+// which mn takes in too. The sums of x depend on x alone: a lane forms them
+// once a step and every row of the warp shares them. All of it is f32.
 constexpr int QMV_WARPS = 4;
-constexpr int QMV_ROWS = 2;                               // rows per warp
-constexpr int QMV_BLOCK_ROWS = QMV_WARPS * QMV_ROWS;      // rows per block
 constexpr int QMV_SB_STEP = 4;   // superblocks per warp step (8 lanes each)
 constexpr int QMV_SLICE = 32;    // weights per lane per superblock
 
-// Q4_K slice of lane slot i (0..7) of a superblock: qs bytes 16i..16i+15,
-// i.e. group j = i/2 (64 weights), p = 16*(i%2). Slice index k < 16 is the
-// low nibble of byte k (element j*64 + p + k, sub-block 2j); k >= 16 the
-// high nibble of byte k-16 (element j*64 + 32 + p + k-16, sub-block 2j+1).
-__device__ __forceinline__ void q4k_slice(const uint8_t* blk, int i, float* w) {
-    const int j = i >> 1;
-    const uint32_t dm = *reinterpret_cast<const uint32_t*>(blk);
-    const uint32_t s0 = *reinterpret_cast<const uint32_t*>(blk + 4);
-    const uint32_t s1 = *reinterpret_cast<const uint32_t*>(blk + 8);
-    const uint32_t s2 = *reinterpret_cast<const uint32_t*>(blk + 12);
-    const uint4 q = *reinterpret_cast<const uint4*>(blk + 16 + 16 * i);
-    const float d = f16_bits(dm & 0xFFFF);
-    const float dmin = f16_bits(dm >> 16);
-    int sc0, m0, sc1, m1;
-    q4k_scale_min(s0, s1, s2, 2 * j, sc0, m0);
-    q4k_scale_min(s0, s1, s2, 2 * j + 1, sc1, m1);
-    const float dl0 = __fmul_rn(d, (float)sc0), ml0 = __fmul_rn(dmin, (float)m0);
-    const float dl1 = __fmul_rn(d, (float)sc1), ml1 = __fmul_rn(dmin, (float)m1);
-    const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+// Rows a warp owns: 4 Q4_K rows at one activation row, where a row's
+// levels are decoded and used at once; else 2 (Q6_K's raw fields take more
+// registers; at up to 8 activation rows the levels stay decoded across them).
+template <int NB, int KIND>
+__host__ __device__ constexpr int qmv_rows_per_warp() { return NB == 1 && KIND == KIND_Q4_K ? 4 : 2; }
+
+// The raw bytes of lane slot i (0..7) of one superblock. Q4_K: the 16-byte
+// header (d, dmin, 12 scale bytes) and qs bytes 16i..16i+15, i.e. group
+// j = i/2 (64 weights), p = 16*(i%2): slice index k < 16 is the low nibble
+// of byte k (element j*64 + p + k, sub-block 2j), k >= 16 the high nibble
+// of byte k-16 (element j*64 + 32 + p + k-16, sub-block 2j+1).
+struct Q4KRaw {
+    uint4 h, q;
+};
+
+__device__ __forceinline__ Q4KRaw q4k_raw(const uint8_t* blk, int i) {
+    return {*reinterpret_cast<const uint4*>(blk), *reinterpret_cast<const uint4*>(blk + 16 + 16 * i)};
+}
+
+// Q6_K: chunk c = i/4, positions lq..lq+7 of the chunk's 32 (lq = 8*(i%4))
+// for all four quarters; slice index qt*8 + t is element c*128 + qt*32 +
+// lq + t (sub-scale c*8 + qt*2 + lq/16). The 210-byte blocks are only
+// 2-byte aligned, so each 8-byte field (ql low, ql high, qh, the chunk's 8
+// scales) is read as three aligned words and shifted into place when it is
+// used: the words stay raw while they are in flight.
+struct Q6KRaw {
+    uint32_t w[4][3];
+    uint32_t d;
+    int shift;  // 0 or 16: the block's offset from a 4-byte boundary, in bits
+};
+
+__device__ __forceinline__ Q6KRaw q6k_raw(const uint8_t* blk, int i) {
+    const int c = i >> 2, lq = (i & 3) * 8;
+    const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(blk) & 2);
+    const uint32_t* base = reinterpret_cast<const uint32_t*>(blk - mis);
+    const int off[4] = {c * 64 + lq, c * 64 + 32 + lq, 128 + c * 32 + lq, 192 + c * 8};
+    Q6KRaw r;
 #pragma unroll
-    for (int k = 0; k < 16; ++k) {
-        const int byte = (words[k >> 2] >> (8 * (k & 3))) & 0xFF;
-        w[k] = q4k_weight(dl0, ml0, byte & 0xF);
-        w[16 + k] = q4k_weight(dl1, ml1, byte >> 4);
+    for (int f = 0; f < 4; ++f) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) r.w[f][e] = base[off[f] / 4 + e];
+        // the third word only when the field straddles it (mis = 2): an
+        // aligned block reads its second word again, and so never reads
+        // past the block's last byte
+        r.w[f][2] = base[off[f] / 4 + 1 + (mis >> 1)];
+    }
+    r.d = *reinterpret_cast<const unsigned short*>(blk + 208);
+    r.shift = mis * 8;
+    return r;
+}
+
+template <int KIND>
+using QmvRaw = typename std::conditional<KIND == KIND_Q4_K, Q4KRaw, Q6KRaw>::type;
+
+template <int KIND>
+__device__ __forceinline__ QmvRaw<KIND> qmv_raw(const uint8_t* blk, int i) {
+    if constexpr (KIND == KIND_Q4_K) return q4k_raw(blk, i);
+    else return q6k_raw(blk, i);
+}
+
+// Parts of a lane's slice that share a scale: Q4_K 2 of 16, Q6_K 4 of 8.
+template <int KIND>
+__host__ __device__ constexpr int qmv_parts() { return KIND == KIND_Q4_K ? 2 : 4; }
+
+// A lane's 32 levels plus their bias (exact f32: Q4_K 16 + 0..15, Q6_K
+// 64 + 0..63) and its parts' scale sc and offset mn (the bias folded in).
+template <int KIND>
+__device__ __forceinline__ void qmv_levels(const QmvRaw<KIND>& r, int i, float (&lv)[QMV_SLICE],
+                                           float (&sc)[qmv_parts<KIND>()],
+                                           float (&mn)[qmv_parts<KIND>()]) {
+    if constexpr (KIND == KIND_Q4_K) {
+        const int j = i >> 1;
+        const float d = f16_bits(r.h.x & 0xFFFF), dmin = f16_bits(r.h.x >> 16);
+        int sc0, m0, sc1, m1;
+        q4k_scale_min(r.h.y, r.h.z, r.h.w, 2 * j, sc0, m0);
+        q4k_scale_min(r.h.y, r.h.z, r.h.w, 2 * j + 1, sc1, m1);
+        sc[0] = d * u23_f32(sc0);
+        sc[1] = d * u23_f32(sc1);
+        mn[0] = fmaf(16.f, sc[0], dmin * u23_f32(m0));  // the levels' +16 folded in
+        mn[1] = fmaf(16.f, sc[1], dmin * u23_f32(m1));
+        const uint32_t w[4] = {r.q.x, r.q.y, r.q.z, r.q.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            // each nibble as 0x80 | q << 3: the high mantissa byte of 16 + q
+            const uint32_t lo = ((w[k] << 3) & 0x78787878u) | 0x80808080u;
+            const uint32_t hi = ((w[k] >> 1) & 0x78787878u) | 0x80808080u;
+            lv[4 * k + 0] = level_plus<16, 0>(lo);
+            lv[4 * k + 1] = level_plus<16, 1>(lo);
+            lv[4 * k + 2] = level_plus<16, 2>(lo);
+            lv[4 * k + 3] = level_plus<16, 3>(lo);
+            lv[16 + 4 * k + 0] = level_plus<16, 0>(hi);
+            lv[16 + 4 * k + 1] = level_plus<16, 1>(hi);
+            lv[16 + 4 * k + 2] = level_plus<16, 2>(hi);
+            lv[16 + 4 * k + 3] = level_plus<16, 3>(hi);
+        }
+    } else {
+        uint32_t f[4][2];  // ql low, ql high, qh, scales: 8 bytes each
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            f[k][0] = __funnelshift_r(r.w[k][0], r.w[k][1], r.shift);
+            f[k][1] = __funnelshift_r(r.w[k][1], r.w[k][2], r.shift);
+        }
+        const float d = f16_bits(r.d);
+        const int g = (i & 3) >> 1;  // which of the chunk's two 16-element scales
+        const uint32_t s01 = f[3][0] >> (8 * g), s23 = f[3][1] >> (8 * g);
+        sc[0] = d * s8_f32(s01 & 0xFF);
+        sc[1] = d * s8_f32((s01 >> 16) & 0xFF);
+        sc[2] = d * s8_f32(s23 & 0xFF);
+        sc[3] = d * s8_f32((s23 >> 16) & 0xFF);
+#pragma unroll
+        for (int qt = 0; qt < 4; ++qt) mn[qt] = 96.f * sc[qt];  // the level's -32, and +64
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const uint32_t a = f[0][e], b = f[1][e], h = f[2][e];
+            const uint32_t q[4] = {
+                (a & 0x0F0F0F0Fu) | ((h << 4) & 0x30303030u),
+                (b & 0x0F0F0F0Fu) | ((h << 2) & 0x30303030u),
+                ((a >> 4) & 0x0F0F0F0Fu) | (h & 0x30303030u),
+                ((b >> 4) & 0x0F0F0F0Fu) | ((h >> 2) & 0x30303030u),
+            };
+#pragma unroll
+            for (int qt = 0; qt < 4; ++qt) {
+                const uint32_t m = (q[qt] << 1) | 0x80808080u;  // high mantissa bytes of 64 + q
+                lv[qt * 8 + 4 * e + 0] = level_plus<64, 0>(m);
+                lv[qt * 8 + 4 * e + 1] = level_plus<64, 1>(m);
+                lv[qt * 8 + 4 * e + 2] = level_plus<64, 2>(m);
+                lv[qt * 8 + 4 * e + 3] = level_plus<64, 3>(m);
+            }
+        }
     }
 }
 
 __device__ __forceinline__ int q4k_x_offset(int i, int part) {  // part 0: k<16, 1: k>=16
     return (i >> 1) * 64 + (i & 1) * 16 + part * 32;
-}
-
-// Q6_K slice of lane slot i: chunk c = i/4, positions lq..lq+7 of the
-// chunk's 32 (lq = 8*(i%4)) for all four quarters; slice index qt*8 + t is
-// element c*128 + qt*32 + lq + t (sub-scale c*8 + qt*2 + lq/16).
-__device__ __forceinline__ void q6k_slice(const uint8_t* blk, int i, float* w) {
-    const int c = i >> 2, lq = (i & 3) * 8;
-    const uint16_t* ql0 = reinterpret_cast<const uint16_t*>(blk + c * 64 + lq);
-    const uint16_t* ql1 = reinterpret_cast<const uint16_t*>(blk + c * 64 + 32 + lq);
-    const uint16_t* qhp = reinterpret_cast<const uint16_t*>(blk + 128 + c * 32 + lq);
-    const int8_t* scales = reinterpret_cast<const int8_t*>(blk + 192);
-    const float d = f16_bits(*reinterpret_cast<const uint16_t*>(blk + 208));
-    float dl[4];
-#pragma unroll
-    for (int qt = 0; qt < 4; ++qt) dl[qt] = __fmul_rn(d, (float)scales[c * 8 + qt * 2 + (lq >> 4)]);
-#pragma unroll
-    for (int t2 = 0; t2 < 4; ++t2) {
-        const uint32_t a = ql0[t2], b = ql1[t2], h2 = qhp[t2];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-            const int t = 2 * t2 + u;
-            const int b0 = (a >> (8 * u)) & 0xFF;
-            const int b1 = (b >> (8 * u)) & 0xFF;
-            const int h = (h2 >> (8 * u)) & 0xFF;
-            w[0 * 8 + t] = __fmul_rn(dl[0], (float)(((b0 & 0xF) | (((h >> 0) & 3) << 4)) - 32));
-            w[1 * 8 + t] = __fmul_rn(dl[1], (float)(((b1 & 0xF) | (((h >> 2) & 3) << 4)) - 32));
-            w[2 * 8 + t] = __fmul_rn(dl[2], (float)(((b0 >> 4) | (((h >> 4) & 3) << 4)) - 32));
-            w[3 * 8 + t] = __fmul_rn(dl[3], (float)(((b1 >> 4) | (((h >> 6) & 3) << 4)) - 32));
-        }
-    }
 }
 
 // The 32 activation values matching a lane's slice, for one row of x.
@@ -178,39 +325,122 @@ __device__ __forceinline__ void x_slice(const TX* xsb, int i, float* xv) {
     }
 }
 
-// One warp's QMV_ROWS output rows row0.. of the [n, K] wire weight `wq`
-// against the first B (<= NB) rows of x [B, K]: acc[r][b] gets this lane's
-// partial sum (the caller reduces with warp_sum). Rows past n re-read row
-// n - 1; the caller drops them.
-template <int KIND, int NB, typename TX>
-__device__ void qmv_rows(const uint8_t* wq, int n, int row_bytes, const TX* x, int B, int K,
-                         int row0, float (&acc)[QMV_ROWS][NB]) {
+// acc += the folded dot of one row's levels with one row of x, part by part
+template <int KIND>
+__device__ __forceinline__ float qmv_fold(const float (&lv)[QMV_SLICE], const float* xv,
+                                          const float (&sc)[qmv_parts<KIND>()],
+                                          const float (&mn)[qmv_parts<KIND>()],
+                                          const float (&sx)[qmv_parts<KIND>()], float acc) {
+    constexpr int P = qmv_parts<KIND>(), L = QMV_SLICE / P;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+        float dot = 0.f;
+#pragma unroll
+        for (int k = 0; k < L; ++k) dot = fmaf(lv[p * L + k], xv[p * L + k], dot);
+        acc = fmaf(sc[p], dot, fmaf(-mn[p], sx[p], acc));
+    }
+    return acc;
+}
+
+// One warp's walk over the row groups g, g + gstep, ... (< groups) of the
+// [n, K] wire weight `wq`: group g is rows gR..gR+R-1 (rows past n re-read
+// row n - 1 and are not written), each against the first B (<= NB) rows of
+// x [B, K]; out [B, n] gets the sums. The walk is one flat sequence of
+// items, a group's step of QMV_SB_STEP superblocks: the next item's raw
+// bytes are loaded into registers before this item's arithmetic, also
+// across the end of a group.
+template <int KIND, int NB, int R, typename TX>
+__device__ void qmv_walk(const uint8_t* __restrict__ wq, int n, int row_bytes,
+                         const TX* __restrict__ x, int B, int K, int g, int gstep, int groups,
+                         float* __restrict__ out) {
+    constexpr int P = qmv_parts<KIND>();
+    constexpr int bpb = KIND == KIND_Q4_K ? Q4K_BYTES : Q6K_BYTES;
     const int lane = threadIdx.x & 31;
     const int sub = lane >> 3;  // which of the step's four superblocks
     const int i = lane & 7;     // slice slot within the superblock
     const int nsb = K / QK_K;
-    const int bpb = KIND == KIND_Q4_K ? Q4K_BYTES : Q6K_BYTES;
-    for (int sb0 = 0; sb0 < nsb; sb0 += QMV_SB_STEP) {
-        const int sb = sb0 + sub;
-        if (sb >= nsb) continue;
-        float w[QMV_ROWS][QMV_SLICE];
+    const int steps = (nsb + QMV_SB_STEP - 1) / QMV_SB_STEP;
+    if (g >= groups) return;
+    // row r's block of group gg at step st (a lane past the last superblock
+    // re-reads it and drops its sums)
+    auto load = [&](int gg, int st, QmvRaw<KIND> (&raw)[R]) {
 #pragma unroll
-        for (int r = 0; r < QMV_ROWS; ++r) {
-            const int row = min(row0 + r, n - 1);  // a spare row re-reads the last
-            const uint8_t* blk = wq + (size_t)row * row_bytes + (size_t)sb * bpb;
-            if constexpr (KIND == KIND_Q4_K) q4k_slice(blk, i, w[r]);
-            else q6k_slice(blk, i, w[r]);
+        for (int r = 0; r < R; ++r)
+            raw[r] = qmv_raw<KIND>(wq + (size_t)min(gg * R + r, n - 1) * row_bytes +
+                                       (size_t)min(st * QMV_SB_STEP + sub, nsb - 1) * bpb, i);
+    };
+    QmvRaw<KIND> cur[R];
+    load(g, 0, cur);
+    float acc[R][NB];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int b = 0; b < NB; ++b) acc[r][b] = 0.f;
+    int st = 0;
+    while (true) {
+        int gn = g, sn = st + 1;
+        if (sn == steps) {
+            sn = 0;
+            gn += gstep;
         }
+        const bool more = gn < groups;
+        QmvRaw<KIND> nxt[R];
+        if (more) load(gn, sn, nxt);
+        const int sb = st * QMV_SB_STEP + sub;
+        if (sb < nsb) {
+            if constexpr (NB == 1) {
+                float xv[QMV_SLICE], sx[P];
+                x_slice<KIND>(x + (size_t)sb * QK_K, i, xv);
 #pragma unroll
-        for (int b = 0; b < NB; ++b) {
-            if (b >= B) break;
-            float xv[QMV_SLICE];
-            x_slice<KIND>(x + (size_t)b * K + (size_t)sb * QK_K, i, xv);
+                for (int p = 0; p < P; ++p) {
+                    sx[p] = 0.f;
 #pragma unroll
-            for (int r = 0; r < QMV_ROWS; ++r)
+                    for (int k = 0; k < QMV_SLICE / P; ++k) sx[p] += xv[p * (QMV_SLICE / P) + k];
+                }
 #pragma unroll
-                for (int k = 0; k < QMV_SLICE; ++k) acc[r][b] = fmaf(w[r][k], xv[k], acc[r][b]);
+                for (int r = 0; r < R; ++r) {
+                    float lv[QMV_SLICE], sc[P], mn[P];
+                    qmv_levels<KIND>(cur[r], i, lv, sc, mn);
+                    acc[r][0] = qmv_fold<KIND>(lv, xv, sc, mn, sx, acc[r][0]);
+                }
+            } else {
+                float lv[R][QMV_SLICE], sc[R][P], mn[R][P];
+#pragma unroll
+                for (int r = 0; r < R; ++r) qmv_levels<KIND>(cur[r], i, lv[r], sc[r], mn[r]);
+#pragma unroll
+                for (int b = 0; b < NB; ++b) {
+                    if (b >= B) break;
+                    float xv[QMV_SLICE], sx[P];
+                    x_slice<KIND>(x + (size_t)b * K + (size_t)sb * QK_K, i, xv);
+#pragma unroll
+                    for (int p = 0; p < P; ++p) {
+                        sx[p] = 0.f;
+#pragma unroll
+                        for (int k = 0; k < QMV_SLICE / P; ++k) sx[p] += xv[p * (QMV_SLICE / P) + k];
+                    }
+#pragma unroll
+                    for (int r = 0; r < R; ++r)
+                        acc[r][b] = qmv_fold<KIND>(lv[r], xv, sc[r], mn[r], sx, acc[r][b]);
+                }
+            }
         }
+        if (sn == 0) {  // the group's last step: reduce across the warp and store
+            const int row0 = g * R;
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+#pragma unroll
+                for (int b = 0; b < NB; ++b) {
+                    const float s = warp_sum(acc[r][b]);
+                    if (lane == 0 && b < B && row0 + r < n) out[(size_t)b * n + row0 + r] = s;
+                    acc[r][b] = 0.f;
+                }
+            }
+        }
+        if (!more) break;
+#pragma unroll
+        for (int r = 0; r < R; ++r) cur[r] = nxt[r];
+        g = gn;
+        st = sn;
     }
 }
 

@@ -48,46 +48,6 @@ __host__ __device__ constexpr size_t fa_smem_bytes(int DK, int DV) {
     return 2 * (size_t)FA_BC * (DK + DV + 2 * FA_PAD) * sizeof(bf16);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros when !ok (nothing read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-
-// c += a (16x16, row-major) * b (16x8, column-major), bf16 in, f32 out
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 -> one register of two bf16 (lo in the low half), round to nearest
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 // The loop for one block: q [B, T, H, DK] and out [B, T, H, DV] contiguous
 // bf16; n = seq_len[b] (the block's write offset), n_old = min(n, s_eff).
 template <int DK, int DV, int NW, typename Loader>

@@ -25,9 +25,12 @@
 // cut, as two bounds a row. Head dims Dk == Dv, any multiple of 16 up to
 // 256, and Dk = 192 with Dv = 128 (deepseek2); rows 16-byte aligned.
 //
-// f32 is chosen by dtype in the C entry and keeps the SIMT body below (one
-// block per 32 query rows, f32 FMAs from shared memory): the exact path of
-// the -m cuda tests at 1e-5, not a fallback — a bf16 call never reaches it.
+// The SIMT body below (one block per 32 query rows, f32 FMAs from shared
+// memory, any Dk, Dv <= 256) takes f32 — the exact path of the -m cuda
+// tests at 1e-5 — and, in bf16, exactly the calls the tiles do not take:
+// head dims outside the tile list (8, 40, 72, ...) and rows that are not
+// 16-byte aligned. The C entry picks the route from the dtype, the head
+// dims and the alignment, before any launch; nothing is tried and retried.
 //
 // Measured (tools/attn_compare.py, 8B heads, bf16, device time alone — the
 // card held busy past the host's enqueue; NVIDIA H100 80GB HBM3, 700.00 W;
@@ -150,7 +153,8 @@ static cudaError_t launch_mma_d(const void* q, const void* k, const void* v, lon
 }
 
 // ---------------------------------------------------------------------------
-// f32: the SIMT body
+// f32, and bf16 outside the tiles: the SIMT body (T the element type;
+// shared memory and arithmetic in f32)
 
 constexpr int PF_BR = 32;        // query rows per block
 constexpr int PF_BC = 32;        // key positions per tile
@@ -158,12 +162,13 @@ constexpr int PF_THREADS = 128;  // 4 threads per query row
 constexpr int PF_MAX_D = 256;
 constexpr int PF_ACC = PF_MAX_D / 4;
 
+template <typename T>
 __global__ void __launch_bounds__(PF_THREADS)
-flash_prefill_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, long long k_sb, long long k_ss,
-                          long long v_sb, long long v_ss, const float* __restrict__ kc,
-                          const float* __restrict__ vc, const int* __restrict__ seq_len,
-                          float* __restrict__ out, int T_, int H, int Hkv, int Dk, int Dv,
+flash_prefill_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, long long k_sb, long long k_ss,
+                          long long v_sb, long long v_ss, const T* __restrict__ kc,
+                          const T* __restrict__ vc, const int* __restrict__ seq_len,
+                          T* __restrict__ out, int T_, int H, int Hkv, int Dk, int Dv,
                           int s_eff, float scale, float softcap, int window) {
     extern __shared__ float sm[];
     const int ldq = Dk + 1, ldv = Dv + 1;
@@ -192,7 +197,7 @@ flash_prefill_simt_kernel(const float* __restrict__ q, const float* __restrict__
         float val = 0.f;
         if (rr < R) {
             const int t = rr / rep, h = hk * rep + rr % rep;
-            val = q[(((size_t)b * T_ + t) * H + h) * Dk + d];
+            val = to_f32(q[(((size_t)b * T_ + t) * H + h) * Dk + d]);
         }
         Qs[ii * ldq + d] = val;
     }
@@ -213,9 +218,9 @@ flash_prefill_simt_kernel(const float* __restrict__ q, const float* __restrict__
                 const int pos = c0 + c;
                 float val = 0.f;
                 if (pos < len)
-                    val = phase == 0
+                    val = to_f32(phase == 0
                         ? k[(size_t)b * k_sb + (size_t)pos * k_ss + (size_t)hk * Dk + d]
-                        : kc[(((size_t)b * T_ + pos) * Hkv + hk) * Dk + d];
+                        : kc[(((size_t)b * T_ + pos) * Hkv + hk) * Dk + d]);
                 Ks[c * ldq + d] = val;
             }
             for (int idx = tid; idx < PF_BC * Dv; idx += PF_THREADS) {
@@ -223,9 +228,9 @@ flash_prefill_simt_kernel(const float* __restrict__ q, const float* __restrict__
                 const int pos = c0 + c;
                 float val = 0.f;
                 if (pos < len)
-                    val = phase == 0
+                    val = to_f32(phase == 0
                         ? v[(size_t)b * v_sb + (size_t)pos * v_ss + (size_t)hk * Dv + d]
-                        : vc[(((size_t)b * T_ + pos) * Hkv + hk) * Dv + d];
+                        : vc[(((size_t)b * T_ + pos) * Hkv + hk) * Dv + d]);
                 Vs[c * ldv + d] = val;
             }
             __syncthreads();
@@ -287,69 +292,83 @@ flash_prefill_simt_kernel(const float* __restrict__ q, const float* __restrict__
     if (row_ok) {
         const int h = hk * rep + r % rep;
         const float inv = 1.f / fmaxf(l_i, 1e-30f);
-        float* o = out + (((size_t)b * T_ + t_row) * H + h) * Dv;
+        T* o = out + (((size_t)b * T_ + t_row) * H + h) * Dv;
 #pragma unroll
         for (int e = 0; e < PF_ACC; ++e) {
             const int d = cg + 4 * e;
-            if (d < Dv) o[d] = acc[e] * inv;
+            if (d < Dv) o[d] = from_f32<T>(acc[e] * inv);
         }
     }
 }
 
+template <typename T>
 static cudaError_t launch_simt(const void* q, const void* k, const void* v, long long k_sb,
                                long long k_ss, long long v_sb, long long v_ss, const void* kc,
                                const void* vc, const int* seq_len, void* out, int B, int T_,
                                int H, int Hkv, int Dk, int Dv, int s_eff, float scale,
                                float softcap, int window, cudaStream_t s) {
-    static int attr_bytes = 0;  // the largest size set so far
+    static int attr_bytes = 0;  // the largest size set so far, per element type
     const size_t smem = sizeof(float) *
         ((size_t)PF_BR * (Dk + 1) + (size_t)PF_BC * (Dk + 1) + (size_t)PF_BC * (Dv + 1) +
          (size_t)PF_BR * (PF_BC + 1));
     if ((int)smem > attr_bytes) {
         const cudaError_t err = cudaFuncSetAttribute(
-            flash_prefill_simt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            flash_prefill_simt_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return err;
         attr_bytes = (int)smem;
     }
     const int R = T_ * (H / Hkv);
     const dim3 grid((R + PF_BR - 1) / PF_BR, Hkv, B);
-    flash_prefill_simt_kernel<<<grid, PF_THREADS, smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        k_sb, k_ss, v_sb, v_ss, static_cast<const float*>(kc), static_cast<const float*>(vc),
-        seq_len, static_cast<float*>(out), T_, H, Hkv, Dk, Dv, s_eff, scale, softcap, window);
+    flash_prefill_simt_kernel<T><<<grid, PF_THREADS, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), k_sb, k_ss,
+        v_sb, v_ss, static_cast<const T*>(kc), static_cast<const T*>(vc), seq_len,
+        static_cast<T*>(out), T_, H, Hkv, Dk, Dv, s_eff, scale, softcap, window);
     return cudaGetLastError();
 }
 
 // q [B, T, H, Dk] and kc/vc [B, T, Hkv, D] contiguous; k/v [B, S, Hkv, D]
 // with batch stride k_sb/v_sb and position stride k_ss/v_ss (elements; the
 // head and dimension axes contiguous); seq_len [B] int32; out [B, T, H, Dv].
-// bf16 takes Dk == Dv a multiple of 16 up to 256, or Dk = 192 with Dv =
-// 128, and 16-byte aligned rows; f32 any Dk, Dv <= 256.
+// Any Dk, Dv <= 256 in both types. bf16 runs the tensor-core tiles where
+// Dk == Dv is a multiple of 16 up to 256, or Dk = 192 with Dv = 128, and
+// every row is 16-byte aligned; its other calls, and f32, run the SIMT body.
+// *simt is set to 1 when the SIMT body is launched, 0 for the tiles (the
+// wrapper counts the two bodies apart).
 LCG_EXPORT int lcg_flash_prefill(int dtype, const void* q, const void* k, const void* v,
                                  long long k_sb, long long k_ss, long long v_sb, long long v_ss,
                                  const void* kc, const void* vc, const int* seq_len, void* out,
                                  int B, int T_, int H, int Hkv, int Dk, int Dv, int s_eff,
-                                 float scale, float softcap, int window, void* stream) {
+                                 float scale, float softcap, int window, int* simt,
+                                 void* stream) {
     if (Hkv < 1 || H % Hkv || Dk > PF_MAX_D || Dv > PF_MAX_D || T_ < 1)
         return static_cast<int>(cudaErrorInvalidValue);
+    *simt = 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype != DT_BF16)
-        return static_cast<int>(launch_simt(q, k, v, k_sb, k_ss, v_sb, v_ss, kc, vc, seq_len,
-                                            out, B, T_, H, Hkv, Dk, Dv, s_eff, scale, softcap,
-                                            window, s));
-    if (k_ss % 8 || v_ss % 8 || k_sb % 8 || v_sb % 8)
-        return static_cast<int>(cudaErrorInvalidValue);
+    const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(kc) |
+                           reinterpret_cast<uintptr_t>(vc);
+    const bool rows16 = ptrs % 16 == 0 && (k_ss | v_ss | k_sb | v_sb) % 8 == 0 &&
+                        Dk % 8 == 0 && Dv % 8 == 0;
 #define LCG_PREFILL_D(DK_, DV_)                                                              \
     if (Dk == DK_ && Dv == DV_)                                                              \
         return static_cast<int>(launch_mma_d<DK_, DV_>(q, k, v, k_sb, k_ss, v_sb, v_ss, kc,  \
                                                        vc, seq_len, out, B, T_, H, Hkv,      \
                                                        s_eff, scale, softcap, window, s));
-    LCG_PREFILL_D(16, 16) LCG_PREFILL_D(32, 32) LCG_PREFILL_D(48, 48) LCG_PREFILL_D(64, 64)
-    LCG_PREFILL_D(80, 80) LCG_PREFILL_D(96, 96) LCG_PREFILL_D(112, 112)
-    LCG_PREFILL_D(128, 128) LCG_PREFILL_D(144, 144) LCG_PREFILL_D(160, 160)
-    LCG_PREFILL_D(176, 176) LCG_PREFILL_D(192, 192) LCG_PREFILL_D(208, 208)
-    LCG_PREFILL_D(224, 224) LCG_PREFILL_D(240, 240) LCG_PREFILL_D(256, 256)
-    LCG_PREFILL_D(192, 128)
+    if (dtype == DT_BF16 && rows16) {
+        LCG_PREFILL_D(16, 16) LCG_PREFILL_D(32, 32) LCG_PREFILL_D(48, 48) LCG_PREFILL_D(64, 64)
+        LCG_PREFILL_D(80, 80) LCG_PREFILL_D(96, 96) LCG_PREFILL_D(112, 112)
+        LCG_PREFILL_D(128, 128) LCG_PREFILL_D(144, 144) LCG_PREFILL_D(160, 160)
+        LCG_PREFILL_D(176, 176) LCG_PREFILL_D(192, 192) LCG_PREFILL_D(208, 208)
+        LCG_PREFILL_D(224, 224) LCG_PREFILL_D(240, 240) LCG_PREFILL_D(256, 256)
+        LCG_PREFILL_D(192, 128)
+    }
 #undef LCG_PREFILL_D
-    return static_cast<int>(cudaErrorInvalidValue);
+    *simt = 1;
+    if (dtype == DT_BF16)
+        return static_cast<int>(launch_simt<__nv_bfloat16>(q, k, v, k_sb, k_ss, v_sb, v_ss, kc,
+                                                           vc, seq_len, out, B, T_, H, Hkv, Dk,
+                                                           Dv, s_eff, scale, softcap, window, s));
+    return static_cast<int>(launch_simt<float>(q, k, v, k_sb, k_ss, v_sb, v_ss, kc, vc, seq_len,
+                                               out, B, T_, H, Hkv, Dk, Dv, s_eff, scale, softcap,
+                                               window, s));
 }

@@ -5,21 +5,38 @@
 // operands and f32 accumulation), and _qmm_multi_call / _qmm_multi_kernel
 // at B > 8: out_t[B, N_t] f32 = x @ bf16(dequant(W_t))^T for bf16
 // activations x and up to QG_MAX_DESC weights sharing x, in one launch
-// whose blockIdx.x range is partitioned by weight.
+// whose weight-block range (blockIdx.y) is partitioned by weight.
 //
-// Bound on this card: at prefill batch (B = 128 on the main path) the work
-// is 2*B flops per weight against under a byte per weight, and the least
-// time is the larger of the weight bytes over 3.35 TB/s and the flops over
-// the 989 TFLOP/s bf16 tensor-core peak — near the ridge at B = 128. Design:
-// each block owns a 64 x 64 output tile and walks K in half-superblock steps
-// of 128: the weight tile is dequantized from the wire blocks straight into
-// shared memory as bf16 (each weight formed exactly as the plain torch
-// dequant forms it, then rounded to bf16), the bf16 activation tile is
-// copied beside it, and four warps take the product with WMMA
-// bf16 x bf16 -> f32 fragments. Any B is taken (rows past B are zero), so
-// there is no counterpart of the TPU's VMEM row-tiling rule. No pipelining
-// of loads against the tensor cores yet: that is later work. The tile
-// itself (qgemm_tile) lives in qgemm_tile.cuh, shared with qgemm_id.cu.
+// Bound on this card: operations at prefill batch. At B = 128 a weight
+// takes 256 flops against under a byte, so the least time is the flops over
+// the 989 TFLOP/s bf16 tensor-core peak (gate_up 0.030 ms against 0.020 for
+// its bytes), and more so at B = 512. What stands in the way: the weights
+// must be dequantized on the way (several integer and f32 instructions a
+// weight, issued by the same warps that feed the tensor cores), so loads,
+// dequant and mma.sync have to overlap, each dequantized weight has to
+// feed many activation rows, and the row tiles of one weight strip have to
+// run together, or it is read from device memory again at B = 512
+// (gate_up's 66 MB exceed the 50 MB L2).
+//
+// Design: the pipelined tile of qgemm_tile.cuh — 128 x 128 output tiles of
+// 8 warps (or 64-row tiles, below), two blocks an SM, activations in a
+// cp.async ring two stages ahead, wire
+// bytes in registers one stage ahead of a dequant that is interleaved with
+// the mma.sync work of the stage before, levels to f32 with no conversion
+// instruction. blockIdx.x walks the row tiles of x, so the row tiles of one
+// weight strip run together and read its bytes once from device memory,
+// then from L2. Each weight is formed exactly as the plain torch dequant
+// forms it, then rounded to bf16 (the tolerance of qmm_plain holds). Any B
+// is taken (rows past B are zero), so there is no counterpart of the TPU's
+// VMEM row-tiling rule.
+//
+// Tile height: 64 rows at B <= 64, and wherever the 64-row grid still gives
+// every block an SM of its own (ceil(B / 64) x weight blocks <= the SM
+// count): there the grid of 128-row tiles would leave most SMs idle, and
+// half the rows a block halve its tensor-core work while its dequant stays
+// the same. Past one block an SM, two 64-row blocks that share an SM each
+// dequantize the same weights, and the 128-row tile wins. tools/qgemm_tiles.py
+// times this rule against both fixed heights at the 8B weights (PERF.md §6).
 #include "qgemm_tile.cuh"
 
 constexpr int QG_MAX_DESC = 4;
@@ -30,7 +47,7 @@ struct QgDesc {
     int kind;
     int n;
     int row_bytes;
-    int block0;
+    int block0;  // first blockIdx.y of this weight
 };
 
 struct QgParams {
@@ -40,15 +57,38 @@ struct QgParams {
     int K;
 };
 
-__global__ void __launch_bounds__(QG_THREADS)
+template <int BM>
+__global__ void __launch_bounds__(QG_THREADS, 2)
 qgemm_kernel(const QgParams p, const __nv_bfloat16* __restrict__ x) {
     int t = 0;
 #pragma unroll
     for (int i = 1; i < QG_MAX_DESC; ++i)
-        if (i < p.n_desc && (int)blockIdx.x >= p.d[i].block0) t = i;
+        if (i < p.n_desc && (int)blockIdx.y >= p.d[i].block0) t = i;
     const QgDesc& D = p.d[t];
-    qgemm_tile(D.w, D.kind, D.n, D.row_bytes, x, p.B, p.K, (int)blockIdx.y * QG_BM,
-               ((int)blockIdx.x - D.block0) * QG_BN, D.out);
+    qgemm_tile_kind<BM>(D.w, D.kind, D.n, D.row_bytes, x, p.B, p.K, (int)blockIdx.x * BM,
+                        ((int)blockIdx.y - D.block0) * QG_BN, D.out);
+}
+
+static int sm_count() {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms;
+}
+
+template <int BM>
+static int launch(const QgParams& p, const void* x, int n_blocks, cudaStream_t stream) {
+    static bool attr_set = false;  // once per instantiation, not per launch
+    if (!attr_set) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            qgemm_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)qg_smem_bytes(BM));
+        if (err != cudaSuccess) return static_cast<int>(err);
+        attr_set = true;
+    }
+    const dim3 grid((p.B + BM - 1) / BM, n_blocks);
+    qgemm_kernel<BM><<<grid, QG_THREADS, qg_smem_bytes(BM), stream>>>(
+        p, static_cast<const __nv_bfloat16*>(x));
+    return static_cast<int>(cudaGetLastError());
 }
 
 // x [B, K] bf16, contiguous; weight t: w[t] [n[t], K/256 blocks], kind[t];
@@ -73,8 +113,9 @@ LCG_EXPORT int lcg_qgemm(const void* x, int x_dtype, int B, int K, int n_desc,
         p.d[t].block0 = blocks;
         blocks += (n[t] + QG_BN - 1) / QG_BN;
     }
-    const dim3 grid(blocks, (B + QG_BM - 1) / QG_BM);
-    qgemm_kernel<<<grid, QG_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        p, static_cast<const __nv_bfloat16*>(x));
-    return static_cast<int>(cudaGetLastError());
+    if (blocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    static const int sms = sm_count();  // queried once
+    const bool rows64 = B <= 64 || (long long)((B + 63) / 64) * blocks <= sms;
+    return rows64 ? launch<64>(p, x, blocks, s) : launch<128>(p, x, blocks, s);
 }

@@ -1,187 +1,271 @@
-// The 64 x 64 tile of the fused dequant x GEMM over GGUF wire-format Q4_K /
+// The pipelined tile of the fused dequant x GEMM over GGUF wire-format Q4_K /
 // Q6_K weights, shared by qgemm.cu (dense weights, K2/K3) and qgemm_id.cu
-// (stacked experts, K11). A block of QG_THREADS threads owns one output
-// tile and walks K in half-superblock steps of QG_BK: the weight tile is
-// dequantized from the wire blocks straight into shared memory as bf16
-// (each weight formed exactly as the plain torch dequant forms it, then
-// rounded to bf16), the bf16 activation tile is copied beside it, and four
-// warps take the product with WMMA bf16 x bf16 -> f32 fragments.
+// (stacked experts, K11).
+//
+// A block of QG_THREADS threads (8 warps) owns a BM x QG_BN output tile
+// (BM = 128, or 64 where qgemm.cu's grid would leave SMs idle and for K11's
+// 64-row expert tiles) and
+// walks K in stages of a quarter superblock (QG_BK = 64). Two streams run
+// ahead of the tensor cores:
+//   * the bf16 activation tile [BM, 64] through a three-stage cp.async ring
+//     in shared memory, issued two stages before it is multiplied;
+//   * the wire bytes of the weight strip, loaded straight into registers
+//     one stage ahead of their dequant (each thread holds the 16-byte Q4_K
+//     header and 16 qs bytes of one row, or the four 8-byte Q6_K fields,
+//     read as aligned words since the 210-byte blocks are only 2-byte
+//     aligned: common.cuh::q4k_raw / q6k_raw), and dequantized into one of
+//     two bf16 weight tiles [128, 64] in shared memory while the tensor
+//     cores multiply the other. The dequant of stage s+1 is cut into four
+//     pieces interleaved with the four k16 steps of stage s.
+// Shared memory is 90 KB at BM = 128 (63 KB at 64), so two blocks share an
+// SM and one's barrier waits hide under the other's work. A stage is the
+// 64 weights of one Q4_K group (contiguous k), or for Q6_K positions
+// 16h..16h+15 of the four 32-weight quarters of one 128-weight chunk: the
+// activation tile takes those same k columns, so the product is unchanged
+// and each stage reads each wire byte once. Products are mma.sync m16n8k16
+// bf16 x bf16 -> f32 with both operands read by ldmatrix from rows padded
+// to 72 elements (conflict-free). Warps are 2 x 4, each a (BM/2) x 32 piece
+// of the tile.
+//
+// Each weight is formed exactly as the plain torch dequant forms it —
+// (d*sc)*q - dmin*m for Q4_K, (d*sc)*(q-32) for Q6_K, each product and sum
+// rounded once — and then rounded to bf16; the level plus a bias becomes an
+// exact f32 by one byte permute (common.cuh::level_plus), with no
+// int->float conversion, and one fused multiply-add takes the bias off
+// while it forms d*sc*q, exactly (the product needs at most 23 bits). Rows past B read as zero and are not written;
+// weight rows past n repeat row n - 1 and are not written.
 #pragma once
-
-#include <mma.h>
 
 #include "common.cuh"
 
-constexpr int QG_BM = 64;     // activation rows per block
-constexpr int QG_BN = 64;     // weight rows per block
-constexpr int QG_BK = 128;    // K per step: half a superblock
-constexpr int QG_LDS = QG_BK + 8;   // smem row stride (bf16), a multiple of 8
-constexpr int QG_LDC = QG_BN + 4;   // epilogue row stride (f32)
-constexpr int QG_THREADS = 128;
+constexpr int QG_BN = 128;          // weight rows per block
+constexpr int QG_BK = 64;           // K per stage: a quarter superblock
+constexpr int QG_LDS = QG_BK + 8;   // bf16 row stride of the A and B tiles
+constexpr int QG_X_STAGES = 3;      // activation tiles in the ring
+constexpr int QG_THREADS = 2 * QG_BN;  // 8 warps; two threads dequantize a weight row
 
-// Dequantize the half-superblock `half` of superblock `sb` for weight rows
-// n0..n0+63 into Bs [64][QG_LDS] bf16. Thread t owns row t/2 and 64 of the
-// 128 columns.
-__device__ __forceinline__ void dequant_q4k_tile(const uint8_t* wq, int n, int row_bytes, int n0,
-                                                 int sb, int half, __nv_bfloat16* Bs) {
-    const int r = threadIdx.x >> 1;
-    const int g = threadIdx.x & 1;
-    __nv_bfloat16* dst = Bs + r * QG_LDS + g * 64;
-    const int row = n0 + r;
-    if (row >= n) {
-#pragma unroll
-        for (int i = 0; i < 64; ++i) dst[i] = __float2bfloat16(0.f);
-        return;
-    }
-    const int j = 2 * half + g;  // 64-weight group of the superblock
-    const uint8_t* blk = wq + (size_t)row * row_bytes + (size_t)sb * Q4K_BYTES;
-    const uint32_t dm = *reinterpret_cast<const uint32_t*>(blk);
-    const uint32_t s0 = *reinterpret_cast<const uint32_t*>(blk + 4);
-    const uint32_t s1 = *reinterpret_cast<const uint32_t*>(blk + 8);
-    const uint32_t s2 = *reinterpret_cast<const uint32_t*>(blk + 12);
-    const float d = f16_bits(dm & 0xFFFF);
-    const float dmin = f16_bits(dm >> 16);
-    int sc0, m0, sc1, m1;
-    q4k_scale_min(s0, s1, s2, 2 * j, sc0, m0);
-    q4k_scale_min(s0, s1, s2, 2 * j + 1, sc1, m1);
-    const float dl0 = __fmul_rn(d, (float)sc0), ml0 = __fmul_rn(dmin, (float)m0);
-    const float dl1 = __fmul_rn(d, (float)sc1), ml1 = __fmul_rn(dmin, (float)m1);
-    const uint4* qs = reinterpret_cast<const uint4*>(blk + 16 + 32 * j);
-#pragma unroll
-    for (int v = 0; v < 2; ++v) {
-        const uint4 u = qs[v];
-        const uint32_t words[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-        for (int wi = 0; wi < 4; ++wi) {
-            // bytes l0..l0+3 of the group: 4 low-nibble weights at column
-            // l0, 4 high-nibble weights at 32 + l0, each stored as 8 bytes
-            const int l0 = v * 16 + wi * 4;
-            __nv_bfloat16 lo[4], hi[4];
-#pragma unroll
-            for (int bi = 0; bi < 4; ++bi) {
-                const int q = (words[wi] >> (8 * bi)) & 0xFF;
-                lo[bi] = __float2bfloat16(q4k_weight(dl0, ml0, q & 0xF));
-                hi[bi] = __float2bfloat16(q4k_weight(dl1, ml1, q >> 4));
-            }
-            *reinterpret_cast<uint2*>(dst + l0) = *reinterpret_cast<const uint2*>(lo);
-            *reinterpret_cast<uint2*>(dst + 32 + l0) = *reinterpret_cast<const uint2*>(hi);
-        }
-    }
+__host__ __device__ constexpr size_t qg_smem_bytes(int BM) {
+    return ((size_t)QG_X_STAGES * BM + 2 * (size_t)QG_BN) * QG_LDS * 2;
 }
 
-// Q6_K: half = chunk c (elements c*128 .. c*128+127). Thread t owns row
-// t/2 and positions l = g*16 .. g*16+15 of the chunk's 32, for all four
-// quarters (tile column quarter*32 + l).
-__device__ __forceinline__ void dequant_q6k_tile(const uint8_t* wq, int n, int row_bytes, int n0,
-                                                 int sb, int c, __nv_bfloat16* Bs) {
-    const int r = threadIdx.x >> 1;
-    const int g = threadIdx.x & 1;
-    __nv_bfloat16* dst = Bs + r * QG_LDS;
-    const int row = n0 + r;
-    if (row >= n) {
-#pragma unroll
-        for (int qt = 0; qt < 4; ++qt)
-#pragma unroll
-            for (int i = 0; i < 16; ++i) dst[qt * 32 + g * 16 + i] = __float2bfloat16(0.f);
-        return;
-    }
-    const uint8_t* blk = wq + (size_t)row * row_bytes + (size_t)sb * Q6K_BYTES;
-    const int8_t* scales = reinterpret_cast<const int8_t*>(blk + 192);
-    const float d = f16_bits(*reinterpret_cast<const uint16_t*>(blk + 208));
-    float dl[4];
-#pragma unroll
-    for (int qt = 0; qt < 4; ++qt) dl[qt] = __fmul_rn(d, (float)scales[c * 8 + qt * 2 + g]);
-    const uint16_t* ql0 = reinterpret_cast<const uint16_t*>(blk + c * 64 + g * 16);
-    const uint16_t* ql1 = reinterpret_cast<const uint16_t*>(blk + c * 64 + 32 + g * 16);
-    const uint16_t* qhp = reinterpret_cast<const uint16_t*>(blk + 128 + c * 32 + g * 16);
-#pragma unroll
-    for (int i2 = 0; i2 < 8; ++i2) {
-        const uint32_t a = ql0[i2], b = ql1[i2], h2 = qhp[i2];
-        __nv_bfloat16 wv[4][2];  // [quarter][t]: positions l, l+1 of the pair
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-            const int b0 = (a >> (8 * t)) & 0xFF;
-            const int b1 = (b >> (8 * t)) & 0xFF;
-            const int h = (h2 >> (8 * t)) & 0xFF;
-            const int qv[4] = {
-                ((b0 & 0xF) | (((h >> 0) & 3) << 4)) - 32,
-                ((b1 & 0xF) | (((h >> 2) & 3) << 4)) - 32,
-                ((b0 >> 4) | (((h >> 4) & 3) << 4)) - 32,
-                ((b1 >> 4) | (((h >> 6) & 3) << 4)) - 32,
-            };
-#pragma unroll
-            for (int qt = 0; qt < 4; ++qt)
-                wv[qt][t] = __float2bfloat16(__fmul_rn(dl[qt], (float)qv[qt]));
-        }
-        const int l = g * 16 + 2 * i2;
-#pragma unroll
-        for (int qt = 0; qt < 4; ++qt)
-            *reinterpret_cast<__nv_bfloat162*>(dst + qt * 32 + l) =
-                *reinterpret_cast<const __nv_bfloat162*>(wv[qt]);
-    }
-}
+// One thread's dequant of one stage: weight row r = tid / 2, slot i = 2q + g
+// (g = tid % 2) of the stage's superblock, q its quarter (common.cuh's qmv
+// slots: Q4_K group j = q, qs bytes 16i..; Q6_K chunk q / 2, positions
+// 16(q % 2) + 8g..+7 of each quarter). Piece p (0..3) writes 8 weights.
+template <int KIND>
+struct QgStage;
 
-// out[m0.., n0..] (row stride n) = x[m0..m0+63, :K] @ bf16(dequant(wq rows
-// n0..n0+63))^T for the [n, K] wire weight `wq` of `kind`; x rows past B
-// read as zero, and rows past B or columns past n are not written.
-__device__ __forceinline__ void qgemm_tile(const uint8_t* wq, int kind, int n, int row_bytes,
+template <>
+struct QgStage<KIND_Q4_K> {
+    uint32_t qs[4];
+    float dl0, ml0, dl1, ml1;
+    float n0, n1;  // -16 dl: d*sc (17 bits) times 16 + q is exact, so fma(dl, 16 + q, -16 dl) = dl*q
+    int g;
+
+    __device__ __forceinline__ QgStage(const Q4KRaw& r, int i) : g(i & 1) {
+        const int j = i >> 1;
+        const float d = f16_bits(r.h.x & 0xFFFF), dmin = f16_bits(r.h.x >> 16);
+        int sc0, m0, sc1, m1;
+        q4k_scale_min(r.h.y, r.h.z, r.h.w, 2 * j, sc0, m0);
+        q4k_scale_min(r.h.y, r.h.z, r.h.w, 2 * j + 1, sc1, m1);
+        dl0 = __fmul_rn(d, u23_f32(sc0));
+        ml0 = __fmul_rn(dmin, u23_f32(m0));
+        dl1 = __fmul_rn(d, u23_f32(sc1));
+        ml1 = __fmul_rn(dmin, u23_f32(m1));
+        n0 = -16.f * dl0;
+        n1 = -16.f * dl1;
+        qs[0] = r.q.x; qs[1] = r.q.y; qs[2] = r.q.z; qs[3] = r.q.w;
+    }
+
+    // (d*sc)*q - dmin*m rounded as the plain dequant rounds it: the product
+    // is exact (at most 21 significant bits), then one rounded subtract
+    __device__ __forceinline__ float w0(float lv) const { return __fsub_rn(__fmaf_rn(dl0, lv, n0), ml0); }
+    __device__ __forceinline__ float w1(float lv) const { return __fsub_rn(__fmaf_rn(dl1, lv, n1), ml1); }
+
+    // qs word p -> columns 16g + 4p.. (low nibbles, sub-block 2j) and
+    // 32 + 16g + 4p.. (high nibbles, sub-block 2j + 1)
+    __device__ __forceinline__ void piece(int p, __nv_bfloat16* row) const {
+        const uint32_t w = qs[p];
+        // each nibble as 0x80 | q << 3: the high mantissa byte of 16 + q
+        const uint32_t lo = ((w << 3) & 0x78787878u) | 0x80808080u;
+        const uint32_t hi = ((w >> 1) & 0x78787878u) | 0x80808080u;
+        const uint2 a = {pack_bf16x2(w0(level_plus<16, 0>(lo)), w0(level_plus<16, 1>(lo))),
+                         pack_bf16x2(w0(level_plus<16, 2>(lo)), w0(level_plus<16, 3>(lo)))};
+        const uint2 b = {pack_bf16x2(w1(level_plus<16, 0>(hi)), w1(level_plus<16, 1>(hi))),
+                         pack_bf16x2(w1(level_plus<16, 2>(hi)), w1(level_plus<16, 3>(hi)))};
+        *reinterpret_cast<uint2*>(row + 16 * g + 4 * p) = a;
+        *reinterpret_cast<uint2*>(row + 32 + 16 * g + 4 * p) = b;
+    }
+};
+
+template <>
+struct QgStage<KIND_Q6_K> {
+    uint32_t f[3][2];  // ql low, ql high, qh: 8 bytes each, shifted into place
+    float dl[4];       // d * scale of quarter qt at these positions
+    float n96[4];      // -96 dl: fma(dl, 64 + q, -96 dl) = dl*(q - 32) rounded once, as plain
+    int g;
+
+    __device__ __forceinline__ QgStage(const Q6KRaw& r, int i) : g(i & 1) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+            f[k][0] = __funnelshift_r(r.w[k][0], r.w[k][1], r.shift);
+            f[k][1] = __funnelshift_r(r.w[k][1], r.w[k][2], r.shift);
+        }
+        const float d = f16_bits(r.d);
+        const int h = (i & 3) >> 1;  // which of the chunk's two 16-element scales
+        const uint32_t s01 = __funnelshift_r(r.w[3][0], r.w[3][1], r.shift) >> (8 * h);
+        const uint32_t s23 = __funnelshift_r(r.w[3][1], r.w[3][2], r.shift) >> (8 * h);
+        dl[0] = __fmul_rn(d, s8_f32(s01 & 0xFF));
+        dl[1] = __fmul_rn(d, s8_f32((s01 >> 16) & 0xFF));
+        dl[2] = __fmul_rn(d, s8_f32(s23 & 0xFF));
+        dl[3] = __fmul_rn(d, s8_f32((s23 >> 16) & 0xFF));
+#pragma unroll
+        for (int qt = 0; qt < 4; ++qt) n96[qt] = -96.f * dl[qt];
+    }
+
+    // quarter p, positions 8g..8g+7 of the stage's 16 -> columns 16p + 8g..
+    __device__ __forceinline__ void piece(int p, __nv_bfloat16* row) const {
+        uint32_t v[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const uint32_t a = f[0][e], b = f[1][e], h = f[2][e];
+            const uint32_t q = p == 0 ? (a & 0x0F0F0F0Fu) | ((h << 4) & 0x30303030u)
+                             : p == 1 ? (b & 0x0F0F0F0Fu) | ((h << 2) & 0x30303030u)
+                             : p == 2 ? ((a >> 4) & 0x0F0F0F0Fu) | (h & 0x30303030u)
+                                      : ((b >> 4) & 0x0F0F0F0Fu) | ((h >> 2) & 0x30303030u);
+            const uint32_t m = (q << 1) | 0x80808080u;  // high mantissa bytes of 64 + q
+            v[2 * e] = pack_bf16x2(__fmaf_rn(dl[p], level_plus<64, 0>(m), n96[p]),
+                                   __fmaf_rn(dl[p], level_plus<64, 1>(m), n96[p]));
+            v[2 * e + 1] = pack_bf16x2(__fmaf_rn(dl[p], level_plus<64, 2>(m), n96[p]),
+                                       __fmaf_rn(dl[p], level_plus<64, 3>(m), n96[p]));
+        }
+        *reinterpret_cast<uint4*>(row + 16 * p + 8 * g) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+};
+
+// out[m0.., n0..] (row stride n) = x[m0..m0+BM-1, :K] @ bf16(dequant(wq rows
+// n0..n0+127))^T for the [n, K] wire weight `wq` of KIND. Needs
+// qg_smem_bytes(BM) of dynamic shared memory.
+template <int BM, int KIND>
+__device__ __forceinline__ void qgemm_tile(const uint8_t* __restrict__ wq, int n, int row_bytes,
                                            const __nv_bfloat16* __restrict__ x, int B, int K,
-                                           int m0, int n0, float* out) {
-    using namespace nvcuda;
-    __shared__ __align__(128) unsigned char smem[2 * QG_BM * QG_LDS * 2];
-    __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-    __nv_bfloat16* Bs = As + QG_BM * QG_LDS;
-    float* Cs = reinterpret_cast<float*>(smem);  // epilogue, after the K loop
+                                           int m0, int n0, float* __restrict__ out) {
+    constexpr int WM = BM / 2;   // rows a warp
+    constexpr int MT = WM / 16;  // m16 tiles a warp
+    constexpr int NT = 4;        // n8 tiles a warp (32 weight rows)
+    constexpr int bpb = KIND == KIND_Q4_K ? Q4K_BYTES : Q6K_BYTES;
+    extern __shared__ __align__(128) unsigned char qg_smem[];
+    __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(qg_smem);  // [X_STAGES][BM][LDS]
+    __nv_bfloat16* Bs = As + QG_X_STAGES * BM * QG_LDS;               // [2][BN][LDS]
 
-    const int warp = threadIdx.x >> 5;
-    const int wm = warp >> 1, wn = warp & 1;  // 2 x 2 warps, 32 x 32 each
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int wm = warp >> 2, wn = warp & 3;
+    const int n_st = K / QG_BK;
+    // this thread's dequant: weight row r (row n - 1 again past n), slot parity g
+    const int r = tid >> 1, g = tid & 1;
+    const uint8_t* wrow = wq + (size_t)min(n0 + r, n - 1) * row_bytes;
 
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-    for (int k0 = 0; k0 < K; k0 += QG_BK) {
-        // activation tile [64][128], 8 bf16 (16 bytes) a load
-        for (int i = threadIdx.x; i < QG_BM * QG_BK / 8; i += QG_THREADS) {
-            const int r = i / (QG_BK / 8), c = (i % (QG_BK / 8)) * 8;
-            const int m = m0 + r;
-            uint4 v = make_uint4(0u, 0u, 0u, 0u);
-            if (m < B) v = *reinterpret_cast<const uint4*>(x + (size_t)m * K + k0 + c);
-            *reinterpret_cast<uint4*>(As + r * QG_LDS + c) = v;
+    // activation columns of stage s: Q4_K 64 in a row; Q6_K four runs of 16
+    auto load_x = [&](int s) {
+        __nv_bfloat16* dst = As + (s % QG_X_STAGES) * BM * QG_LDS;
+        const int q = s & 3;
+        const int k0 = (s >> 2) * QK_K + (KIND == KIND_Q4_K ? 64 * q : 128 * (q >> 1) + 16 * (q & 1));
+        for (int i = tid; i < BM * (QG_BK / 8); i += QG_THREADS) {
+            const int rr = i >> 3, ch = i & 7;
+            const int m = m0 + rr;
+            const bool ok = m < B;
+            const int col = KIND == KIND_Q4_K ? 8 * ch : 32 * (ch >> 1) + 8 * (ch & 1);
+            cp_async16(dst + rr * QG_LDS + 8 * ch, x + (size_t)(ok ? m : 0) * K + k0 + col, ok);
         }
-        const int sb = k0 / QK_K, half = (k0 / QG_BK) & 1;
-        if (kind == KIND_Q4_K) dequant_q4k_tile(wq, n, row_bytes, n0, sb, half, Bs);
-        else dequant_q6k_tile(wq, n, row_bytes, n0, sb, half, Bs);
+    };
+    auto load_raw = [&](int s) {
+        return qmv_raw<KIND>(wrow + (size_t)(s >> 2) * bpb, 2 * (s & 3) + g);
+    };
+
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+    // prologue: activation stages 0 and 1 in flight, stage 0 dequantized,
+    // the raw bytes of stage 1 in registers
+    load_x(0);
+    cp_async_commit();
+    if (n_st > 1) load_x(1);
+    cp_async_commit();
+    QmvRaw<KIND> raw = load_raw(0);
+    {
+        const QgStage<KIND> dq(raw, 2 * 0 + g);
+#pragma unroll
+        for (int p = 0; p < 4; ++p) dq.piece(p, Bs + r * QG_LDS);
+    }
+    if (n_st > 1) raw = load_raw(1);
+
+    for (int s = 0; s < n_st; ++s) {
+        // landed: activations of stage s; the barrier also publishes the
+        // weight tile of stage s and retires every read of the buffers
+        // refilled below
+        cp_async_wait<1>();
         __syncthreads();
+        if (s + 2 < n_st) load_x(s + 2);
+        cp_async_commit();
+        const bool next = s + 1 < n_st;
+        const QgStage<KIND> dq(raw, 2 * ((s + 1) & 3) + g);  // unused on the last stage
+        if (s + 2 < n_st) raw = load_raw(s + 2);
+        __nv_bfloat16* dst = Bs + ((s + 1) & 1) * QG_BN * QG_LDS + r * QG_LDS;
+        const __nv_bfloat16* A = As + (s % QG_X_STAGES) * BM * QG_LDS + (wm * WM) * QG_LDS;
+        const __nv_bfloat16* Bt = Bs + (s & 1) * QG_BN * QG_LDS + (wn * 32) * QG_LDS;
 #pragma unroll
-        for (int kk = 0; kk < QG_BK; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b[2];
+        for (int kk = 0; kk < QG_BK / 16; ++kk) {
+            uint32_t a[MT][4], b[NT][2];
 #pragma unroll
-            for (int i = 0; i < 2; ++i)
-                wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * QG_LDS + kk, QG_LDS);
+            for (int i = 0; i < MT; ++i)
+                ldsm_x4(a[i], A + (i * 16 + (lane & 15)) * QG_LDS + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
-            for (int j = 0; j < 2; ++j)
-                wmma::load_matrix_sync(b[j], Bs + (wn * 32 + j * 16) * QG_LDS + kk, QG_LDS);
+            for (int j2 = 0; j2 < NT / 2; ++j2) {
+                uint32_t t[4];
+                ldsm_x4(t, Bt + (j2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * QG_LDS + kk * 16 +
+                               ((lane >> 3) & 1) * 8);
+                b[2 * j2][0] = t[0];
+                b[2 * j2][1] = t[1];
+                b[2 * j2 + 1][0] = t[2];
+                b[2 * j2 + 1][1] = t[3];
+            }
 #pragma unroll
-            for (int i = 0; i < 2; ++i)
+            for (int i = 0; i < MT; ++i)
 #pragma unroll
-                for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+                for (int j = 0; j < NT; ++j) mma_bf16_16816(acc[i][j], a[i], b[j][0], b[j][1]);
+            if (next) dq.piece(kk, dst);
         }
-        __syncthreads();
     }
+
+    // epilogue: fragments straight to the f32 output
+    const int gq = lane >> 2, t2 = 2 * (lane & 3);
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < MT; ++i) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-            wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * QG_LDC + wn * 32 + j * 16,
-                                    acc[i][j], QG_LDC, wmma::mem_row_major);
-    __syncthreads();
-    for (int i = threadIdx.x; i < QG_BM * QG_BN; i += QG_THREADS) {
-        const int r = i / QG_BN, c = i % QG_BN;
-        const int m = m0 + r, col = n0 + c;
-        if (m < B && col < n) out[(size_t)m * n + col] = Cs[r * QG_LDC + c];
+        for (int h = 0; h < 2; ++h) {
+            const int m = m0 + wm * WM + i * 16 + gq + 8 * h;
+            if (m >= B) continue;
+            float* o = out + (size_t)m * n;
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+                const int col = n0 + wn * 32 + j * 8 + t2;
+                if (col < n) o[col] = acc[i][j][2 * h];
+                if (col + 1 < n) o[col + 1] = acc[i][j][2 * h + 1];
+            }
+        }
     }
+}
+
+// qgemm_tile for a weight kind known only at run time (uniform per block).
+template <int BM>
+__device__ __forceinline__ void qgemm_tile_kind(const uint8_t* wq, int kind, int n, int row_bytes,
+                                                const __nv_bfloat16* x, int B, int K, int m0,
+                                                int n0, float* out) {
+    if (kind == KIND_Q4_K) qgemm_tile<BM, KIND_Q4_K>(wq, n, row_bytes, x, B, K, m0, n0, out);
+    else qgemm_tile<BM, KIND_Q6_K>(wq, n, row_bytes, x, B, K, m0, n0, out);
 }

@@ -35,19 +35,6 @@ constexpr int I8_KB = 512;                 // columns per weight scale (MMQ_KB)
 constexpr int I8_STAGE_BYTES = (I8_BM + I8_BN) * I8_LDS;
 constexpr int I8_SMEM = I8_STAGES * I8_STAGE_BYTES;  // 122,880 bytes
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    const int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
     asm volatile(
         "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "

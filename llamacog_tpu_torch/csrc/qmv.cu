@@ -5,27 +5,33 @@
 //     _dec_q6_K): out[B, N] f32 = x[B, K] @ dequant(W)[N, K]^T;
 //   * _qmm_multi_call (_qmm_multi_kernel): several weights sharing one x in
 //     ONE launch. Here a launch takes up to QMV_MAX_DESC weight descriptors
-//     and partitions blockIdx.x by weight — the counterpart of the Pallas
-//     phase-partitioned grid.
+//     and its warps share all of their row groups — the counterpart of the
+//     Pallas phase-partitioned grid.
 //
 // Bound on this card: bytes. At decode batch the product does 2 flops per
 // weight against 0.56 (Q4_K) or 0.82 (Q6_K) bytes per weight, far below the
 // H100's ~295 flops/byte ridge, so the least time is the weight bytes over
-// 3.35 TB/s — reached only with enough bytes in flight (~25 KB per SM at
-// HBM latency). Design: the weights are read once, straight from the GGUF
-// blocks (no relayout, no dequantized copy). Each warp owns QMV_ROWS output
-// rows and walks their superblocks four at a time: eight lanes share a
-// superblock, each lane decoding a 32-weight slice from one 16-byte load
-// (Q4_K) or twelve 2-byte loads (Q6_K, whose 210-byte blocks are only
-// 2-byte aligned), so a warp keeps 0.5-1 KB of weights in flight per step.
-// The activation slice a lane needs is loaded once (from L1) and applied to
-// all the warp's rows. Partial sums are reduced with warp shuffles.
-// Operands are f32, as the Pallas matvec path (mxu_f32): each weight is
-// formed exactly as the plain torch dequant forms it, so kernel and plain
-// differ only in summation order. blockIdx.y walks x in chunks of QMV_MAX_B
-// rows, so f32 activations of any batch take this f32 path too (streaming
-// the weights once per chunk). The slice decoders and the warp's row walk
-// (qmv_rows) live in common.cuh, shared with qmv_id.cu.
+// 3.35 TB/s. What stands in the way is instructions: a decode step has
+// ~7.5 G weights, and forming each as (d*sc)*float(q) - dmin*m takes ~10
+// instructions with an int->float conversion (16 a clock per SM) among
+// them, longer to issue than the weights' bytes take to arrive.
+//
+// Design. The weights are read once, straight from the GGUF blocks, and
+// never formed: as the TPU kernel (qmm.py _tile_matvec), the raw levels are
+// dotted with x per sub-block part, the part's scale applied once to that
+// sum, and its offset folded into one product with the part's sum of x
+// (common.cuh::qmv_walk). A level plus a bias (16 + q for Q4_K, 64 + q for
+// Q6_K) becomes an exact f32 by one byte permute into the float's high
+// mantissa byte — no conversion, no add — and the bias folds into the
+// offset. A warp owns 4 Q4_K rows (2 Q6_K rows, or 2 at B > 1) a group and
+// walks their superblocks four at a time, eight lanes a superblock and a
+// 32-weight slice a lane; partial sums are reduced with warp shuffles.
+// The grid is what the card holds at once, and each warp walks its groups
+// as one flat sequence of steps, loading the next step's blocks before this
+// one's arithmetic, across the ends of groups too.
+// Kernel and plain version differ in the order of the f32 sums only.
+// blockIdx.y walks x in chunks of QMV_MAX_B rows, so f32 activations of any
+// batch take this f32 path too (streaming the weights once per chunk).
 #include "common.cuh"
 
 constexpr int QMV_MAX_DESC = 4;
@@ -37,7 +43,6 @@ struct QmvDesc {
     int kind;
     int n;
     int row_bytes;
-    int block0;        // first blockIdx.x of this weight
 };
 
 struct QmvParams {
@@ -47,52 +52,67 @@ struct QmvParams {
     int K;
 };
 
+// Row groups of an n-row weight of `kind`.
+template <int NB>
+__host__ __device__ inline int qmv_groups(int kind, int n) {
+    const int R = kind == KIND_Q4_K ? qmv_rows_per_warp<NB, KIND_Q4_K>()
+                                    : qmv_rows_per_warp<NB, KIND_Q6_K>();
+    return (n + R - 1) / R;
+}
+
+// The grid is what the card holds at once. Each weight's row groups are
+// shared round-robin by the warps, starting where the weight before ended,
+// so the load evens out across weights; blockIdx.y takes NB activation rows.
 template <int NB, typename TX>
 __global__ void __launch_bounds__(QMV_WARPS * 32)
 qmv_kernel(const QmvParams p, const TX* __restrict__ x) {
-    int t = 0;
-#pragma unroll
-    for (int i = 1; i < QMV_MAX_DESC; ++i)
-        if (i < p.n_desc && (int)blockIdx.x >= p.d[i].block0) t = i;
-    const QmvDesc& D = p.d[t];
-    const int warp = threadIdx.x >> 5;
-    const int row0 = ((int)blockIdx.x - D.block0) * QMV_BLOCK_ROWS + warp * QMV_ROWS;
+    const int gw = (int)blockIdx.x * QMV_WARPS + (int)(threadIdx.x >> 5);
+    const int nw = (int)gridDim.x * QMV_WARPS;
     const int b0 = (int)blockIdx.y * NB;  // first activation row of this chunk
     const int B = min(NB, p.B - b0);
     x += (size_t)b0 * p.K;
-    float acc[QMV_ROWS][NB];
-#pragma unroll
-    for (int r = 0; r < QMV_ROWS; ++r)
-#pragma unroll
-        for (int b = 0; b < NB; ++b) acc[r][b] = 0.f;
-    if (row0 < D.n) {
+    int first = 0;  // row groups of the weights before this one
+    for (int t = 0; t < p.n_desc; ++t) {
+        const QmvDesc& D = p.d[t];
+        const int groups = qmv_groups<NB>(D.kind, D.n);
+        const int g = ((gw - first) % nw + nw) % nw;
+        float* out = D.out + (size_t)b0 * D.n;
         if (D.kind == KIND_Q4_K)
-            qmv_rows<KIND_Q4_K, NB, TX>(D.w, D.n, D.row_bytes, x, B, p.K, row0, acc);
+            qmv_walk<KIND_Q4_K, NB, qmv_rows_per_warp<NB, KIND_Q4_K>(), TX>(
+                D.w, D.n, D.row_bytes, x, B, p.K, g, nw, groups, out);
         else
-            qmv_rows<KIND_Q6_K, NB, TX>(D.w, D.n, D.row_bytes, x, B, p.K, row0, acc);
-    }
-    const int lane = threadIdx.x & 31;
-#pragma unroll
-    for (int r = 0; r < QMV_ROWS; ++r) {
-#pragma unroll
-        for (int b = 0; b < NB; ++b) {
-            const float s = warp_sum(acc[r][b]);
-            const int row = row0 + r;
-            if (lane == 0 && b < B && row < D.n) D.out[(size_t)(b0 + b) * D.n + row] = s;
-        }
+            qmv_walk<KIND_Q6_K, NB, qmv_rows_per_warp<NB, KIND_Q6_K>(), TX>(
+                D.w, D.n, D.row_bytes, x, B, p.K, g, nw, groups, out);
+        first += groups;
     }
 }
 
+// Blocks of kernel K that the card holds at once (queried once).
+template <typename KERNEL>
+static int resident_blocks(KERNEL kernel) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, QMV_WARPS * 32, 0);
+    return sms * per_sm > 0 ? sms * per_sm : 1;
+}
+
+template <int NB, typename TX>
+static int launch(const QmvParams& p, const TX* x, const int* n, cudaStream_t stream) {
+    static const int resident = resident_blocks(qmv_kernel<NB, TX>);
+    int groups = 0;
+    for (int t = 0; t < p.n_desc; ++t) groups += qmv_groups<NB>(p.d[t].kind, n[t]);
+    const int blocks = (groups + QMV_WARPS - 1) / QMV_WARPS;  // enough for every group at once
+    const dim3 grid(min(blocks, resident), (p.B + NB - 1) / NB);
+    qmv_kernel<NB, TX><<<grid, QMV_WARPS * 32, 0, stream>>>(p, x);
+    return static_cast<int>(cudaGetLastError());
+}
+
 template <int NB>
-static void launch(const QmvParams& p, const void* x, int x_dtype, int row_blocks,
-                   cudaStream_t stream) {
-    const dim3 blocks(row_blocks, (p.B + NB - 1) / NB);
-    if (x_dtype == DT_BF16)
-        qmv_kernel<NB, __nv_bfloat16><<<blocks, QMV_WARPS * 32, 0, stream>>>(
-            p, static_cast<const __nv_bfloat16*>(x));
-    else
-        qmv_kernel<NB, float><<<blocks, QMV_WARPS * 32, 0, stream>>>(
-            p, static_cast<const float*>(x));
+static int launch_x(const QmvParams& p, const void* x, int x_dtype, const int* n,
+                    cudaStream_t stream) {
+    if (x_dtype == DT_BF16) return launch<NB>(p, static_cast<const __nv_bfloat16*>(x), n, stream);
+    return launch<NB>(p, static_cast<const float*>(x), n, stream);
 }
 
 // x [B, K] (f32 or bf16, contiguous); weight t: w[t] [n[t], K/256 blocks],
@@ -106,7 +126,6 @@ LCG_EXPORT int lcg_qmv(const void* x, int x_dtype, int B, int K, int n_desc,
     p.n_desc = n_desc;
     p.B = B;
     p.K = K;
-    int blocks = 0;
     for (int t = 0; t < n_desc; ++t) {
         if (kind[t] != KIND_Q4_K && kind[t] != KIND_Q6_K) return static_cast<int>(cudaErrorInvalidValue);
         p.d[t].w = static_cast<const uint8_t*>(w[t]);
@@ -114,11 +133,7 @@ LCG_EXPORT int lcg_qmv(const void* x, int x_dtype, int B, int K, int n_desc,
         p.d[t].kind = kind[t];
         p.d[t].n = n[t];
         p.d[t].row_bytes = (K / QK_K) * (kind[t] == KIND_Q4_K ? Q4K_BYTES : Q6K_BYTES);
-        p.d[t].block0 = blocks;
-        blocks += (n[t] + QMV_BLOCK_ROWS - 1) / QMV_BLOCK_ROWS;
     }
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (B == 1) launch<1>(p, x, x_dtype, blocks, s);
-    else launch<QMV_MAX_B>(p, x, x_dtype, blocks, s);
-    return static_cast<int>(cudaGetLastError());
+    return B == 1 ? launch_x<1>(p, x, x_dtype, n, s) : launch_x<QMV_MAX_B>(p, x, x_dtype, n, s);
 }

@@ -12,9 +12,10 @@
 // Bound on this card: bytes. Each row does 2 flops per weight of one expert
 // against 0.56 (Q4_K) or 0.82 (Q6_K) bytes per weight, so the least time is
 // the selected experts' bytes (each distinct expert once) over 3.35 TB/s.
-// Design: qmv.cu's matvec (common.cuh::qmv_rows, the same slice decoders,
-// f32 operands, every weight formed bit for bit as the plain dequant forms
-// it) with one activation row per blockIdx.x. The block reads its row's
+// Design: qmv.cu's row walk (common.cuh::qmv_walk: raw levels dotted with x
+// per sub-block part, the scale applied once and the offset folded against
+// the part's sum of x, f32 throughout), 2 rows a warp and one group a warp,
+// with one activation row per blockIdx.x. The block reads its row's
 // expert id from device memory (the TPU kernel's scalar prefetch), so no
 // routing result reaches the host, and walks only that expert's rows at
 // base ids[s] * N. A row whose id lies outside [0, n_exp) gets zeros and
@@ -26,28 +27,30 @@
 // decoding once per expert for all its rows is later work.
 #include "common.cuh"
 
+constexpr int QMV_ID_ROWS = 2;  // rows a warp
+
 template <typename TX>
 __global__ void __launch_bounds__(QMV_WARPS * 32)
 qmv_id_kernel(const uint8_t* __restrict__ w, const TX* __restrict__ x,
               const int* __restrict__ ids, float* __restrict__ out, int kind, int n_exp,
               int N, int K, int row_bytes) {
+    constexpr int R = QMV_ID_ROWS;
     const int s = blockIdx.x;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int row0 = (int)blockIdx.y * QMV_BLOCK_ROWS + warp * QMV_ROWS;
+    const int g = (int)blockIdx.y * QMV_WARPS + (int)(threadIdx.x >> 5);  // one group a warp
+    const int groups = (N + R - 1) / R;
     const int e = ids[s];
-    float acc[QMV_ROWS][1];
-#pragma unroll
-    for (int r = 0; r < QMV_ROWS; ++r) acc[r][0] = 0.f;
-    if (e >= 0 && e < n_exp && row0 < N) {
+    float* o = out + (size_t)s * N;
+    if (e >= 0 && e < n_exp) {
         const uint8_t* we = w + (size_t)e * N * row_bytes;
         const TX* xs = x + (size_t)s * K;
-        if (kind == KIND_Q4_K) qmv_rows<KIND_Q4_K, 1, TX>(we, N, row_bytes, xs, 1, K, row0, acc);
-        else qmv_rows<KIND_Q6_K, 1, TX>(we, N, row_bytes, xs, 1, K, row0, acc);
-    }
+        if (kind == KIND_Q4_K)
+            qmv_walk<KIND_Q4_K, 1, R, TX>(we, N, row_bytes, xs, 1, K, g, groups, groups, o);
+        else
+            qmv_walk<KIND_Q6_K, 1, R, TX>(we, N, row_bytes, xs, 1, K, g, groups, groups, o);
+    } else if ((threadIdx.x & 31) == 0) {
 #pragma unroll
-    for (int r = 0; r < QMV_ROWS; ++r) {
-        const float v = warp_sum(acc[r][0]);
-        if (lane == 0 && row0 + r < N) out[(size_t)s * N + row0 + r] = v;
+        for (int r = 0; r < R; ++r)
+            if (g * R + r < N) o[g * R + r] = 0.f;
     }
 }
 
@@ -55,7 +58,8 @@ qmv_id_kernel(const uint8_t* __restrict__ w, const TX* __restrict__ x,
 // ids [S] int32 on the device; out [S, N] f32.
 LCG_EXPORT int lcg_qmv_id(const void* x, int x_dtype, int S, int K, const void* w, int kind,
                           int n_exp, int N, const void* ids, void* out, void* stream) {
-    const int row_blocks = (N + QMV_BLOCK_ROWS - 1) / QMV_BLOCK_ROWS;
+    constexpr int rows = QMV_WARPS * QMV_ID_ROWS;  // output rows a block
+    const int row_blocks = (N + rows - 1) / rows;
     if (S < 1 || K < QK_K || K % QK_K || n_exp < 1 || N < 1 || row_blocks > 65535 ||
         (kind != KIND_Q4_K && kind != KIND_Q6_K) || (x_dtype != DT_F32 && x_dtype != DT_BF16))
         return static_cast<int>(cudaErrorInvalidValue);

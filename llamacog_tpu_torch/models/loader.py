@@ -34,7 +34,10 @@ def load_model(path: str, dtype=torch.bfloat16, device=None,
         vocab = tokenizer = None
         if with_tokenizer and "tokenizer.ggml.tokens" in reader.metadata:
             vocab = Vocab.from_metadata(reader.metadata)
-            tokenizer = build_tokenizer(vocab)
+            try:  # a vocab family the port lacks loads without a tokenizer
+                tokenizer = build_tokenizer(vocab)
+            except NotImplementedError:
+                tokenizer = None
     finally:
         reader.close()
     return Model(cfg, params, vocab, tokenizer)

@@ -4,12 +4,17 @@ kernel K5 and its plain version.
 Counterpart of llamacog_tpu/ops/pallas/flash_prefill.py. The kernel
 (csrc/flash_prefill.cu) reads the old cache [B, S, Hkv, D] by stride —
 a layer of the stacked cache, sliced to kv_cap, needs no copy — and takes
-any S and any T. In bf16 it runs on tensor cores and takes the head dims
-of BF16_DIMS with 16-byte aligned rows (checked here); f32 takes any head
-dims up to MAX_D.
+any S and any T, and any head dims up to MAX_D in both types. In bf16 the
+C entry runs the tensor-core tiles at the head dims they take (Dk == Dv a
+multiple of 16, or 192/128) when every row is 16-byte aligned, and a bf16
+instantiation of the SIMT body otherwise; f32 always runs the SIMT body.
+The C entry says which body it launched: they count as ``flash_prefill``
+(the tiles) and ``flash_prefill_simt``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -17,9 +22,6 @@ from ..attention import intra_block_mask, masked_attention, old_cache_mask
 from . import build
 
 MAX_D = 256
-# (Dk, Dv) of the bf16 tensor-core tiles: Dk == Dv a multiple of 16 up to
-# MAX_D, and deepseek2's 192/128
-BF16_DIMS = frozenset({(d, d) for d in range(16, MAX_D + 1, 16)} | {(192, 128)})
 
 
 def flash_prefill_attention_plain(q, k, v, k_cur, v_cur, seq_len, scale, softcap=0.0,
@@ -39,17 +41,6 @@ def _check_cache_view(name, t, B, Hkv, D, dt, dev):
                          f"got {t.dtype} {tuple(t.shape)}")
     if t.stride(3) != 1 or t.stride(2) != D:
         raise ValueError(f"flash_prefill: {name} needs contiguous head and dim axes")
-
-
-def _check_tensor_core_route(q, k, v, k_cur, v_cur, Dk, Dv):
-    """The bf16 kernel's tensor-core tiles take the (Dk, Dv) of BF16_DIMS
-    and read every row by 16-byte copies: rows and strides 16-byte aligned."""
-    if (Dk, Dv) not in BF16_DIMS:
-        raise ValueError(f"flash_prefill: bf16 takes Dk == Dv a multiple of 16 up to {MAX_D}, "
-                         f"or Dk=192 Dv=128; got Dk={Dk} Dv={Dv}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("k_cur", k_cur), ("v_cur", v_cur)):
-        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1]):
-            raise ValueError(f"flash_prefill: {name} rows must be 16-byte aligned for bf16")
 
 
 def flash_prefill_kernel(q, k, v, k_cur, v_cur, seq_len, scale, softcap=0.0, window=0):
@@ -79,17 +70,16 @@ def flash_prefill_kernel(q, k, v, k_cur, v_cur, seq_len, scale, softcap=0.0, win
     if H % Hkv or Dk > MAX_D or Dv > MAX_D:
         raise ValueError(f"flash_prefill: unsupported heads/dims H={H} Hkv={Hkv} "
                          f"Dk={Dk} Dv={Dv}")
-    if dt == torch.bfloat16:
-        _check_tensor_core_route(q, k, v, k_cur, v_cur, Dk, Dv)
     out = torch.empty((B, T, H, Dv), dtype=dt, device=q.device)
     lib = build.load("flash_prefill")
+    simt = ctypes.c_int(0)
     rc = lib.lcg_flash_prefill(
         build.DTYPE_ID[dt], q.data_ptr(), k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), k_cur.data_ptr(), v_cur.data_ptr(), seq_len.data_ptr(),
         out.data_ptr(), B, T, H, Hkv, Dk, Dv, k.shape[1], float(scale), float(softcap),
-        int(window), torch.cuda.current_stream(q.device).cuda_stream)
+        int(window), ctypes.byref(simt), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, rc, "flash_prefill")
-    build.LAUNCHES["flash_prefill"] += 1
+    build.LAUNCHES["flash_prefill_simt" if simt.value else "flash_prefill"] += 1
     return out
 
 

@@ -1,7 +1,8 @@
-"""The dense-cache attention kernels of two versions of the port, timed in
-turns on one GPU.
+"""The dense-cache attention kernels and the weight kernels of two versions
+of the port, timed in turns on one GPU.
 
     python -m llamacog_tpu_torch.tools.attn_compare --baseline DIR [--iters 31]
+        [--only attn|weights]
 
 DIR is another checkout of the repository (for example an older commit
 unpacked by ``git archive``); its ``llamacog_tpu_torch`` is imported under
@@ -11,7 +12,12 @@ Llama-3-8B heads (H 32, Hkv 8, D 128, bf16) and the shapes of
 and T=512 at 0 (a 1024-slot layer), decode K4 (layer 1 of a 2-layer stack)
 and K9 (the same layer) at depths 1000 and 32765 — each version's wrapper
 and ``scaled_dot_product_attention`` are timed in one loop, one call of
-each in turn, L2 flushed before each call, with two spans:
+each in turn, L2 flushed before each call. The weight kernels the same way
+(no library call computes them): qmv (K1, K3) at one bf16 row over the 8B
+layer weights and the LM head, qgemm (K2, K3) at 128 and 512 rows over the
+five layer weights, and the MoE kernels at the Mixtral-8x7B expert shapes —
+the gather qmv_id (K10) at 2 and 32 rows, its offset entry (K12) and the
+grouped GEMM qgemm_id (K11) of a 128-token prefill. Two spans:
 
 - ``enqueue``: CUDA events around the call right after the flush, the span
   of ``chip_smoke.py``'s ``ms``. Where the wrapper's host work outlasts the
@@ -39,6 +45,7 @@ from pathlib import Path
 
 BASE = "baseline_llamacog_tpu_torch"
 TOL_ATTN = 1e-2  # bf16 outputs, relative to the largest |reference| (chip_smoke.py)
+TOL_QMM = 1e-4   # the weight kernels (chip_smoke.py)
 
 
 def load_baseline(root: Path):
@@ -57,11 +64,16 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", type=Path, required=True,
                     help="root of another checkout of the repository")
     ap.add_argument("--iters", type=int, default=31)
+    ap.add_argument("--only", choices=("attn", "weights"), default=None,
+                    help="time one group of kernels (default: both)")
     args = ap.parse_args(argv)
 
     import torch
 
-    from ..ops.cuda import build, flash_decode, flash_prefill, flash_q8
+    from ..ops.cuda import build, flash_decode, flash_prefill, flash_q8, qmm, qmm_id
+    from ..quant.wire import WireTensor
+    from ..utils.synthetic import llama3_8b_config, mixtral_8x7b_config, random_experts, \
+        random_wire
 
     if not torch.cuda.is_available():
         print("attn_compare: no CUDA device", file=sys.stderr)
@@ -71,7 +83,12 @@ def main(argv=None) -> int:
     b_decode = importlib.import_module(BASE + ".ops.cuda.flash_decode")
     b_prefill = importlib.import_module(BASE + ".ops.cuda.flash_prefill")
     b_q8 = importlib.import_module(BASE + ".ops.cuda.flash_q8")
-    names = ("flash_decode_dense", "flash_prefill")
+    b_qmm = importlib.import_module(BASE + ".ops.cuda.qmm")
+    b_qmm_id = importlib.import_module(BASE + ".ops.cuda.qmm_id")
+    b_wire = importlib.import_module(BASE + ".quant.wire")
+    names = {"attn": ("flash_decode_dense", "flash_prefill"),
+             "weights": ("qmv", "qgemm", "qmv_id", "qgemm_id")}
+    names = sum((v for k, v in names.items() if args.only in (None, k)), ())
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         secs = list(pool.map(lambda bld: bld.build(names), (build, b_build)))
     print(f"[compare] built {json.dumps(secs)}", flush=True)
@@ -123,12 +140,13 @@ def main(argv=None) -> int:
 
     rows = []
 
-    def compare(shape, callees, plain):
-        """callees: (label, fn) pairs, SDPA last (no error check)."""
+    def compare(shape, callees, plain, tol=TOL_ATTN, library=True):
+        """callees: (label, fn) pairs; with `library`, the last is a library
+        call (SDPA) and has no error check."""
         ref = plain()
-        for label, fn in callees[:-1]:
+        for label, fn in callees[:-1] if library else callees:
             err = rel_err(fn(), ref)
-            if err > TOL_ATTN:
+            if err > tol:
                 raise RuntimeError(f"attn_compare: {label} at {shape}: error {err:.3e}")
         torch.cuda.synchronize()
         for (label, fn), (enq, devt) in zip(callees, spans([fn for _, fn in callees])):
@@ -137,6 +155,13 @@ def main(argv=None) -> int:
                          "host_us": host})
             print(f"[compare] {shape:<34} {label:<22} enqueue {enq:.4f} ms, device "
                   f"{devt:.4f} ms, host {host:.1f} us a call", flush=True)
+
+    if args.only in (None, "weights"):
+        weights(args, compare, dev, g, qmm, qmm_id, b_qmm, b_qmm_id, b_wire, WireTensor,
+                llama3_8b_config(), mixtral_8x7b_config(), random_wire, random_experts)
+    if args.only == "weights":
+        print(json.dumps({"device": torch.cuda.get_device_name(0), "rows": rows}))
+        return 0
 
     # decode: layer 1 of a 2-layer stacked cache
     q, kc, vc = rnd(1, H, D), rnd(1, Hkv, D), rnd(1, Hkv, D)
@@ -182,6 +207,78 @@ def main(argv=None) -> int:
                                                                 scale))
     print(json.dumps({"device": torch.cuda.get_device_name(0), "rows": rows}))
     return 0
+
+
+def weights(args, compare, dev, g, qmm, qmm_id, b_qmm, b_qmm_id, b_wire, WireTensor, cfg, mcfg,
+            random_wire, random_experts):
+    """qmv, qgemm, qmv_id and qgemm_id of both trees on the same wire blocks
+    (the baseline's wrappers take its own WireTensor class)."""
+    import torch
+
+    E, F, V = cfg.n_embd, cfg.n_ff, cfg.n_vocab
+
+    def base(w):
+        return b_wire.WireTensor(w.kind, w.shape, w.blocks)
+
+    def cat(outs):
+        return torch.cat([o.reshape(-1) for o in outs])
+
+    w = {"qk": random_wire("Q4_K", 5120, E, g, dev), "v": random_wire("Q6_K", 1024, E, g, dev),
+         "o": random_wire("Q4_K", E, E, g, dev), "gu": random_wire("Q4_K", 2 * F, E, g, dev),
+         "d4": random_wire("Q4_K", E, F, g, dev), "d6": random_wire("Q6_K", E, F, g, dev),
+         "head": random_wire("Q6_K", V, E, g, dev)}
+    shapes = [("attn_qk+attn_v", ["qk", "v"]), ("attn_output", ["o"]), ("ffn_gate_up", ["gu"]),
+              ("ffn_down Q4_K", ["d4"]), ("ffn_down Q6_K", ["d6"]), ("output Q6_K", ["head"])]
+    for kname, B in (("qmv", 1), ("qgemm", 128), ("qgemm", 512)):
+        for label, keys in shapes:
+            if kname == "qgemm" and label.startswith("output"):
+                continue  # the prefill LM head runs on the last position only: qmv
+            ws = [w[k] for k in keys]
+            bws = [base(x) for x in ws]
+            x = torch.randn(B, ws[0].shape[1], generator=g, device=dev).to(torch.bfloat16)
+            this_fn, base_fn = getattr(qmm, kname), getattr(b_qmm, kname)
+            compare(f"{kname} B={B} {label}", [
+                (f"{kname} this", lambda: cat(this_fn(x, ws))),
+                (f"{kname} baseline", lambda: cat(base_fn(x, bws)))],
+                lambda: cat([qmm.qmm_plain(x, wt) for wt in ws]), TOL_QMM, library=False)
+    del w
+    torch.cuda.empty_cache()
+
+    n_exp, k_used, Fm = mcfg.n_expert, mcfg.n_expert_used, mcfg.n_ff
+    gu = random_experts("Q4_K", n_exp, 2 * Fm, E, g, dev)
+    d6 = random_experts("Q6_K", n_exp, E, Fm, g, dev)
+    bgu, bd6 = base(gu), base(d6)
+
+    def route(tokens):
+        logits = torch.randn(tokens, n_exp, generator=g, device=dev)
+        return torch.topk(logits, k_used, dim=-1).indices.reshape(-1).to(torch.int32)
+
+    for label, wt, bwt, tokens in (("ffn_gate_up_exps", gu, bgu, 1), ("ffn_gate_up_exps", gu, bgu, 16),
+                                   ("ffn_down_exps", d6, bd6, 1)):
+        ids = route(tokens)
+        x = torch.randn(ids.shape[0], wt.shape[2], generator=g, device=dev).to(torch.bfloat16)
+        callees = [("qmv_id gather this", lambda: qmm_id.qmm_gather(x, ids, wt)),
+                   ("qmv_id gather baseline", lambda: b_qmm_id.qmm_gather(x, ids, bwt))]
+        if tokens == 1 and label == "ffn_gate_up_exps":
+            callees += [("qmv_id offset this", lambda: qmm_id.qmm_gather_offset(x, ids, wt)),
+                        ("qmv_id offset baseline",
+                         lambda: b_qmm_id.qmm_gather_offset(x, ids, bwt))]
+        compare(f"qmv_id {label} S={ids.shape[0]}", callees,
+                lambda: qmm_id.qmm_gather_plain(x, ids, wt), TOL_QMM, library=False)
+    ids = route(128)
+    from ..models.llama import moe_sort
+
+    dest, tile_expert, s_pad = moe_sort(ids, n_exp, 64)
+    for label, wt, bwt in (("ffn_gate_up_exps", gu, bgu), ("ffn_down_exps", d6, bd6)):
+        rows_x = torch.randn(ids.shape[0], wt.shape[2], generator=g, device=dev).to(torch.bfloat16)
+        xs = torch.zeros(s_pad, wt.shape[2], dtype=torch.bfloat16,
+                         device=dev).index_copy_(0, dest, rows_x)
+        compare(f"qgemm_id {label} tokens=128 s_pad={s_pad}", [
+            ("qgemm_id this", lambda: qmm_id.qmm_ragged(xs, tile_expert, wt, 64)),
+            ("qgemm_id baseline", lambda: b_qmm_id.qmm_ragged(xs, tile_expert, bwt, 64))],
+            lambda: qmm_id.qmm_ragged_plain(xs, tile_expert, wt, 64), TOL_QMM, library=False)
+    del gu, d6, bgu, bd6
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

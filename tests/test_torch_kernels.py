@@ -3,9 +3,13 @@
 Every test here needs an NVIDIA GPU (and nvcc to build the kernels): they
 carry the `cuda` marker and skip where no GPU is present. Run them on the
 card with `python -m pytest tests/test_torch_kernels.py -m cuda`.
-Tolerances, relative to the largest |reference|: the qmm kernels form every
-dequantized weight exactly as the plain version does and differ only in
-f32 summation order (QMM_TOL); the attention kernels differ in summation
+Tolerances, relative to the largest |reference| (QMM_TOL): qmv rounds no
+value to a narrower type and differs from the plain version in the order
+of its sums (the biased levels dotted with x in f32 FMAs per part of a
+sub-block, the scale applied after, the offset and the bias folded against
+the part's sum of x); qgemm forms every weight as the plain version does,
+rounds it to bf16 as the plain version does, and differs in f32 summation
+order; the attention kernels differ in summation
 order and __expf, ~1e-6 in f32, and bf16 outputs by one bf16 rounding
 (2^-8) of either side. The MoE kernels (qmv_id, qgemm_id) form their
 weights as qmv and qgemm do: QMM_TOL.
@@ -21,7 +25,7 @@ from llamacog_tpu_torch.ops.cuda.flash_q8 import (
     flash_decode_q8, flash_decode_quant_kernel, flash_decode_stacked_dense,
     flash_decode_stacked_dense_plain, flash_decode_stacked_plain, flash_prefill_q8_plain,
     flash_prefill_quant_kernel)
-from llamacog_tpu_torch.ops.cuda.qmm import qgemm, qmm_plain, qmv
+from llamacog_tpu_torch.ops.cuda.qmm import qgemm, qmm_multi_cuda, qmm_plain, qmv
 from llamacog_tpu_torch.ops.cuda.qmm_id import (
     qgemm_id_kernel, qmm_gather, qmm_gather_offset, qmm_gather_plain, qmm_ragged,
     qmm_ragged_plain, qmv_id_kernel)
@@ -52,16 +56,60 @@ def rel_err(got, ref):
 
 
 @pytest.mark.parametrize("kind", ["Q4_K", "Q6_K"])
-@pytest.mark.parametrize("B,dtype", [(1, torch.float32), (3, torch.float32),
-                                     (8, torch.float32), (33, torch.float32),
-                                     (1, torch.bfloat16), (8, torch.bfloat16)])
+@pytest.mark.parametrize("B,dtype", [*[(b, torch.float32) for b in range(1, 10)],
+                                     (33, torch.float32),
+                                     *[(b, torch.bfloat16) for b in range(1, 9)]])
 def test_qmv_matches_plain(dev, kind, B, dtype):
+    """Every batch of the two instantiations (B = 1; B <= 8) in both
+    activation types, and f32 past 8 rows (chunks of 8 by blockIdx.y)."""
     g = torch.Generator(device=dev).manual_seed(B)
     w = random_wire(kind, 200, 1024, g, dev)  # N not a multiple of the block rows
     x = torch.randn(B, 1024, generator=g, device=dev).to(dtype)
     got, = qmv(x, [w])
     torch.cuda.synchronize()
     assert rel_err(got, qmm_plain(x, w)) < QMM_TOL
+
+
+@pytest.mark.parametrize("kind", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("N,K", [(1000, 256), (1000, 1024), (200, 2304), (8200, 512)])
+@pytest.mark.parametrize("B", [9, 63, 64, 65, 127, 128, 129, 300, 512])
+def test_qgemm_matches_plain(dev, kind, N, K, B):
+    """Both tile heights over ragged row tiles: 64 rows at B <= 64 and
+    while ceil(B / 64) x the 128-row weight blocks fit the SMs one each (every
+    B at N <= 1000; at N = 8200, 65 blocks, B up to 128 on a 132-SM card),
+    128 rows past that (N = 8200 from B = 129). N off every tile width, one
+    superblock (K = 256: Q6_K rows then start off 16-byte boundaries) and an
+    odd number of stages (K = 2304)."""
+    g = torch.Generator(device=dev).manual_seed(B + N + K)
+    w = random_wire(kind, N, K, g, dev)
+    x = torch.randn(B, K, generator=g, device=dev).to(torch.bfloat16)
+    before = build.LAUNCHES["qgemm"]
+    got, = qgemm(x, [w])
+    assert build.LAUNCHES["qgemm"] == before + 1
+    torch.cuda.synchronize()
+    assert got.shape == (B, N) and bool(torch.isfinite(got).all())
+    assert rel_err(got, qmm_plain(x, w)) < QMM_TOL
+
+
+@pytest.mark.parametrize("B,dtype", [(1, torch.bfloat16), (5, torch.float32),
+                                     *[(b, torch.bfloat16) for b in (9, 33, 70, 130)]])
+def test_four_mixed_descriptors_one_launch(dev, B, dtype):
+    """Four weights of both kinds sharing x (K3): one launch of qmv (B <= 8
+    or f32) or qgemm, counted once, every output as its own product; qgemm
+    on 64-row tiles (B = 9, 33) and on 128-row tiles (70 weight blocks: B =
+    70, and B = 130 over two row tiles)."""
+    g = torch.Generator(device=dev).manual_seed(B)
+    ws = [random_wire("Q4_K", 300, 512, g, dev), random_wire("Q6_K", 72, 512, g, dev),
+          random_wire("Q6_K", 8200, 512, g, dev), random_wire("Q4_K", 8, 512, g, dev)]
+    x = torch.randn(B, 512, generator=g, device=dev).to(dtype)
+    build.reset_launches()
+    outs = qmm_multi_cuda(x, ws)
+    counter = "qgemm" if dtype == torch.bfloat16 and B > 8 else "qmv"
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == {counter: 1}
+    torch.cuda.synchronize()
+    for got, w in zip(outs, ws):
+        assert got.shape == (B, w.shape[0])
+        assert rel_err(got, qmm_plain(x, w)) < QMM_TOL
 
 
 @pytest.mark.parametrize("B", [9, 33, 130])

@@ -66,9 +66,10 @@ def test_flash_prefill_matches_plain(dev, dtype, D, Hkv, T, softcap, window):
     k, v = ck[1, :, :S], cv[1, :, :S]
     q, kc, vc = rnd(B, T, H, D), rnd(B, T, Hkv, D), rnd(B, T, Hkv, D)
     seq = torch.tensor([250, 1000, 0], dtype=torch.int32, device=dev)
-    before = build.LAUNCHES["flash_prefill"]
+    body = "flash_prefill" if dtype == torch.bfloat16 else "flash_prefill_simt"
+    before = dict(build.LAUNCHES)
     got = _no_sync(lambda: flash_prefill_kernel(q, k, v, kc, vc, seq, D**-0.5, softcap, window))
-    assert build.LAUNCHES["flash_prefill"] == before + 1
+    assert {n: c - before[n] for n, c in build.LAUNCHES.items() if c != before[n]} == {body: 1}
     ref = flash_prefill_attention_plain(q, k, v, kc, vc, seq, D**-0.5, softcap, window)
     torch.cuda.synchronize()
     assert got.shape == (B, T, H, D) and got.dtype == dtype
@@ -89,36 +90,64 @@ def test_flash_prefill_bf16_head_dims(dev, Dk, Dv, T):
     k, v = rnd(B, S, Hkv, Dk), rnd(B, S, Hkv, Dv)
     q, kc, vc = rnd(B, T, H, Dk), rnd(B, T, Hkv, Dk), rnd(B, T, Hkv, Dv)
     seq = torch.tensor([250, 1000, 0], dtype=torch.int32, device=dev)
+    before = build.LAUNCHES["flash_prefill"]
     got = flash_prefill_kernel(q, k, v, kc, vc, seq, Dk**-0.5, 30.0, 100)
+    assert build.LAUNCHES["flash_prefill"] == before + 1  # the tiles, not the SIMT body
     ref = flash_prefill_attention_plain(q, k, v, kc, vc, seq, Dk**-0.5, 30.0, 100)
     torch.cuda.synchronize()
     assert got.shape == (B, T, H, Dv) and bool(torch.isfinite(got).all())
     assert rel_err(got, ref) <= ATTN_TOL[torch.bfloat16]
 
 
+@pytest.mark.parametrize("T", [37, 128])
+@pytest.mark.parametrize("Dk,Dv,misaligned", [(8, 8, False), (40, 40, False), (72, 72, False),
+                                              (64, 128, False), (64, 64, True),
+                                              (128, 128, True)])
+def test_flash_prefill_bf16_simt_head_dims(dev, Dk, Dv, misaligned, T):
+    """bf16 calls the tensor-core tiles do not take run the bf16 SIMT body:
+    head dims that are not a tile's (8, 40, 72, Dk != Dv but 192/128) and a
+    cache view whose rows are not 16-byte aligned (one element off), with
+    softcap and a window, rows at write offsets 250, 1000 and 0."""
+    B, S, Hkv, H = 3, 1024, 2, 8
+    g = torch.Generator(device=dev).manual_seed(Dk + Dv + T)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+    if misaligned:
+        flat = rnd(B * S * Hkv * Dk + 1)
+        k = flat[1:].view(B, S, Hkv, Dk)
+        assert k.data_ptr() % 16
+    else:
+        k = rnd(B, S, Hkv, Dk)
+    v = rnd(B, S, Hkv, Dv)
+    q, kc, vc = rnd(B, T, H, Dk), rnd(B, T, Hkv, Dk), rnd(B, T, Hkv, Dv)
+    seq = torch.tensor([250, 1000, 0], dtype=torch.int32, device=dev)
+    before = dict(build.LAUNCHES)
+    got = flash_prefill_kernel(q, k, v, kc, vc, seq, Dk**-0.5, 30.0, 100)
+    assert {n: c - before[n] for n, c in build.LAUNCHES.items() if c != before[n]} == {
+        "flash_prefill_simt": 1}
+    ref = flash_prefill_attention_plain(q, k, v, kc, vc, seq, Dk**-0.5, 30.0, 100)
+    torch.cuda.synchronize()
+    assert got.shape == (B, T, H, Dv) and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got).all())
+    assert rel_err(got, ref) <= ATTN_TOL[torch.bfloat16]
+
+
 def test_flash_prefill_refuses_bad_inputs(dev):
+    """What neither body takes: head dims above 256, H not a multiple of
+    Hkv, float16; the valid calls at a tile dim and at dim 72 in both types
+    run."""
     bf = torch.bfloat16
     B, T, H, Hkv, S = 1, 8, 8, 2, 64
 
-    def args(D, Dv=None, kv=None):
-        Dv = D if Dv is None else Dv
-        k = torch.zeros(B, S, Hkv, D, dtype=bf, device=dev) if kv is None else kv
-        return (torch.zeros(B, T, H, D, dtype=bf, device=dev), k,
-                torch.zeros(B, S, Hkv, Dv, dtype=bf, device=dev),
-                torch.zeros(B, T, Hkv, D, dtype=bf, device=dev),
-                torch.zeros(B, T, Hkv, Dv, dtype=bf, device=dev),
-                torch.zeros(B, dtype=torch.int32, device=dev), 1.0)
+    def args(D, dt=bf, Hq=H):
+        z = lambda *s: torch.zeros(*s, dtype=dt, device=dev)  # noqa: E731
+        return (z(B, T, Hq, D), z(B, S, Hkv, D), z(B, S, Hkv, D), z(B, T, Hkv, D),
+                z(B, T, Hkv, D), torch.zeros(B, dtype=torch.int32, device=dev), 1.0)
 
-    flash_prefill_kernel(*args(64))  # the valid call
-    flat = torch.zeros(B * S * Hkv * 64 + 1, dtype=bf, device=dev)
-    for bad in (args(72),                                        # D % 16 != 0
-                args(64, Dv=128),                                # Dk != Dv, not 192/128
-                args(64, kv=flat[1:].view(B, S, Hkv, 64))):      # misaligned view
+    for ok in (args(64), args(72), args(72, torch.float32)):
+        flash_prefill_kernel(*ok)
+    for bad in (args(264), args(64, Hq=7), args(64, torch.float16)):
         with pytest.raises(ValueError):
             flash_prefill_kernel(*bad)
-    # f32 keeps any head dim (the SIMT body)
-    q, k, v, kc, vc, seq, sc = args(72)
-    flash_prefill_kernel(*(t.float() for t in (q, k, v, kc, vc)), seq, sc)
 
 
 def _decode_lens(s_eff, B, Hkv):

@@ -81,3 +81,86 @@ def test_qmatmul_multi_declines_mismatched_k():
     _, wa = _pair("Q4_K", N, K, seed=1)
     _, wb = _pair("Q4_K", N, 2 * K, seed=2)
     assert linear.qmatmul_multi(torch.zeros(1, K), [wa, wb]) is None
+
+
+def _levels_scales(wt):
+    """The qmv kernel's levels [N, K] (the raw levels plus a bias: Q4_K
+    16 + (0..15), Q6_K 64 + (0..63)) and, per part of its lane slice (Q4_K
+    16 weights, Q6_K 8), the scale sc and offset mn [N, K / part] of wt's
+    blocks with the bias folded into mn, in f32 as the kernel forms them."""
+    b = wt.blocks.reshape(-1, wire.BLOCK_BYTES[wt.kind])
+    n, k = wt.shape
+    if wt.kind == "Q4_K":
+        d, dmin = wire._f16_at(b, 0), wire._f16_at(b, 2)
+        sc, mn = wire._k4_scale_min(b[:, 4:16])
+        qs = b[:, 16:144].reshape(-1, 4, 1, 32)
+        q = torch.cat([qs & 0xF, qs >> 4], dim=2).reshape(-1, 256)
+        sc = (d * sc.float()).repeat_interleave(2, dim=1)   # 8 sub-blocks of 32 -> parts of 16
+        mn = (16.0 * sc + (dmin * mn.float()).repeat_interleave(2, dim=1))
+        q = q + 16
+    else:
+        ql = b[:, 0:128].reshape(-1, 2, 2, 32)
+        nib = torch.cat([ql & 0xF, ql >> 4], dim=2)
+        qh = b[:, 128:192].reshape(-1, 2, 1, 32)
+        hb = torch.cat([(qh >> s) & 3 for s in (0, 2, 4, 6)], dim=2)
+        q = (nib.to(torch.int16) | (hb.to(torch.int16) << 4)).reshape(-1, 256)
+        s16 = wire._f16_at(b, 208) * b[:, 192:208].contiguous().view(torch.int8).float()
+        sc = s16.repeat_interleave(2, dim=1)                # 16 sub-blocks of 16 -> parts of 8
+        mn = 96.0 * sc
+        q = q + 64
+    return q.float().reshape(n, k), sc.reshape(n, -1), mn.reshape(n, -1)
+
+
+def qmv_folded(x, wt):
+    """The qmv kernel's (csrc/qmv.cu) order of arithmetic in plain f32: per
+    part of a sub-block, the dot of the biased levels with x, the part's
+    scale applied to that sum, its offset (the bias folded in) against the
+    part's sum of x: out = sum_parts sc * (q . x) - mn * sum(x)."""
+    q, sc, mn = _levels_scales(wt)
+    n, k = wt.shape
+    part = k // sc.shape[1]
+    xp = x.float().reshape(x.shape[0], -1, part)                    # [B, P, part]
+    dots = torch.einsum("npk,bpk->bnp", q.reshape(n, -1, part), xp)  # [B, N, P]
+    return (sc[None] * dots - mn[None] * xp.sum(-1)[:, None]).sum(-1)
+
+
+@pytest.mark.parametrize("kind", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("K", [4096, 14336])
+def test_qmv_folded_order_within_tolerance(kind, K):
+    """Evidence for qmv's tolerance (TOL_QMM = 1e-4 of the largest output in
+    chip_smoke.py and the -m cuda tests) at the 8B layer widths: the folded
+    order against qmm_plain (weights formed, then dotted) and against the
+    Pallas kernel in interpret mode, f32 at B = 1 and 8."""
+    qt, wt = _pair(kind, 128, K, seed=K)
+    for batch in (1, 8):
+        x = np.random.default_rng(K + batch).standard_normal((batch, K)).astype(np.float32)
+        got = qmv_folded(torch.from_numpy(x), wt)
+        for ref in (qmm_plain(torch.from_numpy(x), wt).numpy(),
+                    np.asarray(qmm(jnp.asarray(x), qt, interpret=True))):
+            err = np.abs(got.numpy() - ref).max() / np.abs(ref).max()
+            assert err < 1e-4, err
+
+
+def test_gemm_dequant_fused_rounding_matches_plain():
+    """The GEMM tile (csrc/qgemm_tile.cuh) forms Q4_K weights as
+    fma(d*sc, 16 + q, -16 d*sc) - dmin*m and Q6_K weights as
+    fma(d*sc, 64 + q, -96 d*sc): the exact product needs at most 23
+    significant bits, so each weight rounds exactly as the plain dequant's
+    (d*sc)*q - dmin*m and (d*sc)*(q - 32). FMA is modelled in f64 (exact
+    for these operands) with one rounding to f32."""
+    rng = np.random.default_rng(0)
+    n = 50_000
+    f32 = np.float32
+    d = (rng.standard_normal(n) * 10.0 ** rng.uniform(-4, 1, n)).astype(np.float16).astype(f32)
+    dmin = np.abs(rng.standard_normal(n) * 10.0 ** rng.uniform(-4, 1, n)).astype(np.float16).astype(f32)
+
+    def fma(a, b, c):
+        return (a.astype(np.float64) * b.astype(np.float64) + c.astype(np.float64)).astype(f32)
+
+    sc, m, q = (rng.integers(0, 64, n).astype(f32), rng.integers(0, 64, n).astype(f32),
+                rng.integers(0, 16, n).astype(f32))
+    dl, ml = d * sc, dmin * m
+    np.testing.assert_array_equal(fma(dl, 16 + q, -16 * dl) - ml, dl * q - ml)
+    s8, q6 = rng.integers(-128, 128, n).astype(f32), rng.integers(0, 64, n).astype(f32)
+    dl6 = d * s8
+    np.testing.assert_array_equal(fma(dl6, 64 + q6, -96 * dl6), dl6 * (q6 - 32))
