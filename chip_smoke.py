@@ -9,7 +9,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      source, in parallel) into llamacog_tpu_torch/csrc/build/;
   3. each kernel against its plain PyTorch version at the Llama-3-8B shapes
      of the main path, with kernel, plain, library and bound times: the
-     weight kernels (qmv at one row, qgemm at 128 and 512 rows), the int8
+     weight kernels (qmv at one row, qgemm at 128 and 512 rows; also over
+     the Q8_0 and Q5_K weights of a real Mixtral Q4_K_M file and its
+     attn_q + attn_k + attn_v launch), the int8
      prefill GEMM (K13) at the five layer shapes at 512 rows and ragged
      300, the dense-cache attention kernels (the
      stacked K4 and the per-layer K9 at depths 1000 and 32765; prefill K5
@@ -28,19 +30,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the split q5_1:q4_0 cache, LLAMACOG_MMQ=1 on a 300-token prompt (int8
      prefill), and the per-layer decode routes (LLAMACOG_FLASH_STACKED=0:
      K9 on the dense cache with LLAMACOG_FLASH_DECODE=1, K8 on q8_0); then
-     the same at Mixtral widths (2 layers, dense cache): a 20-token
-     prefill (grouped GEMM), 4 decode steps and a 9-token second chunk
-     (gather);
+     the same at Mixtral widths (2 layers, dense cache, the attention
+     weight kinds of a real Q4_K_M file: Q8_0 attn_k/attn_v, Q5_K
+     attn_output): a 20-token prefill (grouped GEMM), 4 decode steps and a
+     9-token second chunk (gather);
   5. the 8B Q4_K_M synthetic run through Engine at full depth, in turns:
      the dense cache and kv_type="q8_0" (dense, q8_0, q8_0, dense;
      128-token prefill, 128 greedy tokens), a 512-token prompt exact and
      with LLAMACOG_MMQ=1 (exact, mmq, mmq, exact), and the per-layer dense
      decode route (K9), whose greedy tokens must equal the stacked
-     route's, and a long-context run (max_seq 8192, a 4096-token prompt in
-     two 2048-token chunks, 64 greedy tokens); every kernel's launch count
-     over each run; then, with the 8B
-     params freed, the Mixtral-8x7B Q4_K_M synthetic run at full depth (32
-     layers), the same way;
+     route's, a long-context run (max_seq 8192, a 4096-token prompt in
+     two 2048-token chunks, 64 greedy tokens) and a deep q8_0 run (max_seq
+     4096, a 2048-token prompt in one chunk, 64 greedy tokens at depth
+     2048-2112); every kernel's launch count over each run; then, with the
+     8B params freed, the Mixtral-8x7B Q4_K_M synthetic run at full depth
+     (32 layers, the kinds of a real file), the same way; the phase's wall
+     time;
   6. one JSON line of per-kernel results, the card's name and power limit,
      and the final {"ok": true, ...} line.
 
@@ -269,12 +274,13 @@ def main() -> int:
     check(flagged, "torch.cuda.set_sync_debug_mode did not flag a host sync")
 
     def record(name, source, replaces, outs, refs, tol, ms, plain_ms, nbytes, flops,
-               library_ms=None, peak=BF16_FLOPS, counter=None, listed=True):
+               library_ms=None, peak=BF16_FLOPS, counter=None, listed=True, run=None):
         """Hold a kernel's outputs against its plain version's (relative to
         the largest |reference|, tolerance `tol`) and keep its times. The
         bound is the larger of nbytes over the HBM rate and flops over
         `peak` (the tensor-core rate of the operands' type); `counter` is
-        the launch count the row reads (the source's name by default). A
+        the launch count the row reads (the source's name by default), in
+        the phase-5 run `run` (by default the run of the kernel's path). A
         row that is not `listed` is checked and logged but left out of the
         results line: no run of phase 5 launches its kernel."""
         err = max(rel_err(o, r) for o, r in zip(outs, refs))
@@ -290,7 +296,7 @@ def main() -> int:
         if listed:
                 results.append({"name": name, "route": "cuda", "source": source,
                             "replaces": replaces,
-                            "kernel": counter or source.split("/")[-1][:-3],
+                            "kernel": counter or source.split("/")[-1][:-3], "run": run,
                             "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
                             "bound_ms": bound, "bound_by": by, "library_ms": library_ms})
 
@@ -305,6 +311,12 @@ def main() -> int:
     w_d4 = random_wire("Q4_K", E, F, g, dev)
     w_d6 = random_wire("Q6_K", E, F, g, dev)
     w_head = random_wire("Q6_K", V, E, g, dev)
+    # the attention weights of a real Mixtral-8x7B Q4_K_M file (8 experts:
+    # Q8_0 attn_k/attn_v, Q5_K attn_output; attn_q Q4_K), at its widths
+    w_q4 = random_wire("Q4_K", E, E, g, dev)
+    w_k8 = random_wire("Q8_0", 1024, E, g, dev)
+    w_v8 = random_wire("Q8_0", 1024, E, g, dev)
+    w_o5 = random_wire("Q5_K", E, E, g, dev)
     qmm_src = "llamacog_tpu_torch/csrc/{}.cu"
     qmm_rep = {"qmv": "llamacog_tpu/ops/pallas/qmm.py:453",
                "qgemm": "llamacog_tpu/ops/pallas/qmm.py:453"}
@@ -316,7 +328,11 @@ def main() -> int:
               ("ffn_gate_up Q4_K 28672x4096", [w_gu], False),
               ("ffn_down Q4_K 4096x14336", [w_d4], False),
               ("ffn_down Q6_K 4096x14336", [w_d6], False),
-              ("output Q6_K 128256x4096", [w_head], False)]
+              ("output Q6_K 128256x4096", [w_head], False),
+              ("attn_k Q8_0 1024x4096", [w_k8], False),
+              ("attn_output Q5_K 4096x4096", [w_o5], False),
+              ("Mixtral attn_q+attn_k+attn_v Q4_K 4096x4096 + Q8_0 1024x4096 x2",
+               [w_q4, w_k8, w_v8], True)]
     # qgemm at the 128-token prompt and at a 512-row prefill chunk (the route
     # K13 replaces with LLAMACOG_MMQ=1)
     for kname, fn, B in (("qmv", qmv, 1), ("qgemm", qgemm, PROMPT_LEN), ("qgemm", qgemm, 512)):
@@ -330,12 +346,14 @@ def main() -> int:
             torch.cuda.synchronize()
             nbytes = sum(w.nbytes for w in ws) + x.numel() * 2 + sum(o.numel() * 4 for o in outs)
             flops = sum(2 * B * w.shape[0] * w.shape[1] for w in ws)
+            # the Q8_0 and Q5_K weights run on the Mixtral path: its run's launches
+            mixtral_kinds = any(w.kind in ("Q8_0", "Q5_K") for w in ws)
             record(f"{kname} B={B} {label}", qmm_src.format(kname),
                    multi_rep if multi else qmm_rep[kname],
                    outs, refs, TOL_QMM,
                    time_ms(lambda: fn(x, ws)), time_ms(lambda: [qmm_plain(x, w) for w in ws],
                                                       iters=5),
-                   nbytes, flops)
+                   nbytes, flops, run="mixtral" if mixtral_kinds else None)
             del outs, refs
 
     # the int8 prefill GEMM (K13, LLAMACOG_MMQ=1) over the planes of the five
@@ -492,7 +510,7 @@ def main() -> int:
         del kv_flat, ks1, vs1, qs1, kcs1, vcs1, args
     qp, kcp, vcp = blocks[T]
     del kl, vl, blocks, shapes, ws, x, xq, xs, i8_shapes, w, w_qk, w_v, w_o, w_gu, w_d4, w_d6, \
-        w_head
+        w_head, w_q4, w_k8, w_v8, w_o5
     torch.cuda.empty_cache()
 
     # quantized-cache attention: layer 1 of a 2-layer stacked plane cache
@@ -842,8 +860,11 @@ def main() -> int:
         t0 = time.perf_counter()
         params = make_synthetic_params(cfgm, seed=0)
         torch.cuda.synchronize()
+        kinds = sorted({f"{k} {v.kind}" for k, v in params["layers"][0].items()
+                        if isinstance(v, WireTensor) and k.startswith("attn")})
         log(f"[{model}] synthetic Q4_K_M params ({cfgm.n_layer} layers) built in "
-            f"{time.perf_counter() - t0:.1f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+            f"{time.perf_counter() - t0:.1f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB; "
+            f"attention weights {', '.join(kinds)}")
         if cfgm.n_expert:
             tensors = [params["tok_embd"], params["output"],
                        *(v for layer in params["layers"] for v in layer.values())]
@@ -865,6 +886,7 @@ def main() -> int:
     exact_path = ("qmv", "qgemm", *dense_attn)
     mmq_env, k9_env = {"LLAMACOG_MMQ": "1"}, {"LLAMACOG_FLASH_STACKED": "0",
                                               "LLAMACOG_FLASH_DECODE": "1"}
+    t5 = time.perf_counter()
     params = build_params("8b", cfg)
     runs_8b = main_path_runs("8b", params, cfg, [
         ("kv dense", "dense", {}, PROMPT_LEN, exact_path),
@@ -882,10 +904,18 @@ def main() -> int:
         # long context: a 4096-token prompt in two 2048-token chunks (the
         # second attends a 2048-deep old cache), 64 tokens at depth 4096+
         ("long 4096", "dense", {}, LONG_PROMPT, exact_path, 8192, 64),
+        # the q8_0 cache at depth: a 2048-token prompt in one chunk (K7 at
+        # offset 0), 64 tokens at depth 2048-2112 (kv_cap 4096)
+        ("q8_0 2048", "q8_0", {}, 2048, ("qmv", "qgemm", *quant_attn), 4096, 64),
     ])
     n_l = cfg.n_layer
     mmq_run, k9_run = runs_8b["mmq 512"], runs_8b["per-layer K9"]
-    long_run = runs_8b["long 4096"]
+    long_run, deep_q8 = runs_8b["long 4096"], runs_8b["q8_0 2048"]
+    check(deep_q8["prefill"]["flash_prefill_quant"] == n_l
+          and deep_q8["decode"]["flash_decode_quant"] == 64 * n_l,
+          f"q8_0 2048 run: prefill flash_prefill_quant "
+          f"{deep_q8['prefill']['flash_prefill_quant']} (want {n_l}), decode "
+          f"flash_decode_quant {deep_q8['decode']['flash_decode_quant']} (want {64 * n_l})")
     check(long_run["prefill"]["flash_prefill"] == 2 * n_l
           and long_run["decode"]["flash_decode_dense"] == 64 * n_l,
           f"long run: prefill flash_prefill {long_run['prefill']['flash_prefill']} (want "
@@ -904,8 +934,9 @@ def main() -> int:
     check(same, "the per-layer K9 route's greedy tokens differ from the stacked route's")
     del params
     torch.cuda.empty_cache()
-    # Mixtral-8x7B at full depth (28.3 GB of wire blocks), the dense cache:
-    # the MoE kernels must launch, the quantized-cache ones must not
+    # Mixtral-8x7B at full depth (28.3 GB of wire blocks), the dense cache,
+    # the attention weight kinds of a real Q4_K_M file: the MoE kernels must
+    # launch, the quantized-cache ones must not
     params = build_params("mixtral", mcfg)
     moe_path = (*exact_path, *moe_kernels)
     runs_moe = main_path_runs("mixtral", params, mcfg, [
@@ -913,6 +944,7 @@ def main() -> int:
         ("kv dense", "dense", {}, PROMPT_LEN, moe_path)])
     del params
     torch.cuda.empty_cache()
+    log(f"[phase 5] wall time {time.perf_counter() - t5:.1f}s")
 
     # 6. results
     # each kernel's launches in the run of its path: the MoE kernels in the
@@ -922,8 +954,9 @@ def main() -> int:
               **{k: runs_moe["kv dense"] for k in moe_kernels},
               **{k: runs_8b["kv q8_0"] for k in quant_attn}}
     for r in results:
-        k = r.pop("kernel")
-        r["launches"] = run_of.get(k, runs_8b["kv dense"])["total"][k]
+        k, run = r.pop("kernel"), r.pop("run")
+        r["launches"] = (runs_moe["kv dense"] if run == "mixtral"
+                         else run_of.get(k, runs_8b["kv dense"]))["total"][k]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))

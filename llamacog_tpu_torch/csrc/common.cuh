@@ -12,18 +12,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #define LCG_EXPORT extern "C" __attribute__((visibility("default")))
 
-// quantized weight kinds (GGUF wire format, ggml-common.h block_q4_K/q6_K)
-enum { KIND_Q4_K = 0, KIND_Q6_K = 1 };
+// quantized weight kinds (GGUF wire format, ggml-common.h block_q4_K,
+// block_q6_K, block_q8_0, block_q5_K), numbered as qmm.py's _KIND_ID
+enum { KIND_Q4_K = 0, KIND_Q6_K = 1, KIND_Q8_0 = 2, KIND_Q5_K = 3 };
 // element type of activations, caches and outputs
 enum { DT_F32 = 0, DT_BF16 = 1 };
 
 constexpr int QK_K = 256;        // weights per superblock
 constexpr int Q4K_BYTES = 144;   // d f16, dmin f16, scales[12], qs[128]
 constexpr int Q6K_BYTES = 210;   // ql[128], qh[64], scales[16] i8, d f16
+constexpr int Q80_BYTES = 272;   // eight 34-byte blocks of 32: d f16, qs[32] i8
+constexpr int Q5K_BYTES = 176;   // d f16, dmin f16, scales[12], qh[32], qs[128]
+
+// Wire bytes of QK_K weights of `kind`, or 0 for a kind the kernels do not take.
+__host__ __device__ constexpr int kind_sb_bytes(int kind) {
+    return kind == KIND_Q4_K ? Q4K_BYTES : kind == KIND_Q6_K ? Q6K_BYTES
+         : kind == KIND_Q8_0 ? Q80_BYTES : kind == KIND_Q5_K ? Q5K_BYTES : 0;
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -100,6 +107,17 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) 
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0));
 }
+// 4, 8 or 16 bytes global -> shared, asynchronously; zeros when !ok.
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src, int bytes, bool ok) {
+    if (bytes == 16)
+        cp_async16(dst, src, ok);
+    else if (bytes == 8)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                     :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 8 : 0));
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                     :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 4 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -141,14 +159,24 @@ __device__ __forceinline__ float u23_f32(uint32_t v) {
 }
 
 // BIAS + q as an exact f32 from byte B of w, where that byte holds
-// 0x80 | q << s (BIAS = 2^(7-s), q < BIAS): the byte is the float's high
-// mantissa byte under BIAS's exponent — one byte permute, no add. The
-// matvec dots these with x and folds BIAS into the offset term; the GEMM's
-// dequant takes it off in the multiply-add that scales the level.
+// e | q << s (BIAS = 2^(7-s), q < BIAS; e the low bit of BIAS's exponent,
+// 0x80 for 16 and 64, 0 for 32): the byte is the float's high mantissa
+// byte under BIAS's exponent — one byte permute, no add. The matvec dots
+// these with x and folds BIAS into the offset term; the GEMM's dequant
+// takes it off in the multiply-add that scales the level.
 template <int BIAS, int B>
 __device__ __forceinline__ float level_plus(uint32_t w) {
-    static_assert(BIAS == 16 || BIAS == 64, "exponent bytes for 16 and 64 only");
+    static_assert(BIAS == 16 || BIAS == 32 || BIAS == 64, "exponent bytes for 16, 32, 64 only");
     return __int_as_float(__byte_perm(w, BIAS == 16 ? 0x41000000u : 0x42000000u, 0x7044 + (B << 8)));
+}
+
+// The signed byte B of w as an exact f32, w already XOR-ed with 0x80808080
+// (so the byte is 128 + q): 2^23 + 128 + q by one byte permute into the low
+// mantissa byte of 2^23, then one add. An 8-bit level has no room under a
+// fixed exponent in the high mantissa byte (7 bits), so Q8_0 takes the add.
+template <int B>
+__device__ __forceinline__ float s8_level(uint32_t w_x80) {
+    return __int_as_float(__byte_perm(w_x80, 0x4B000000u, 0x7540 + B)) - 8388736.f;
 }
 
 // A signed byte (two's complement, 0..255 as stored) -> exact f32.
@@ -166,17 +194,21 @@ __device__ __forceinline__ float s8_f32(uint32_t byte) {
 // sum, and folds the part's offset into one product with the activation sum
 // of the part:
 //   sum_k x_k (sc q_k - mn) = sc * sum_k q_k x_k - mn * sum_k x_k
-// (Q4_K: sc = d*scale, mn = dmin*min; Q6_K: sc = d*scale, mn = 32*sc for
-// the levels' -32). The levels carry a bias (16 + q, 64 + q: level_plus),
-// which mn takes in too. The sums of x depend on x alone: a lane forms them
+// (Q4_K, Q5_K: sc = d*scale, mn = dmin*min; Q6_K: sc = d*scale, mn = 32*sc
+// for the levels' -32; Q8_0: sc = d, no offset). The levels carry a bias
+// (16 + q, 32 + q, 64 + q: level_plus), which mn takes in too; Q8_0's are
+// the signed q (s8_level). The sums of x depend on x alone: a lane forms them
 // once a step and every row of the warp shares them. All of it is f32.
 constexpr int QMV_WARPS = 4;
 constexpr int QMV_SB_STEP = 4;   // superblocks per warp step (8 lanes each)
 constexpr int QMV_SLICE = 32;    // weights per lane per superblock
 
 // Rows a warp owns: 4 Q4_K rows at one activation row, where a row's
-// levels are decoded and used at once; else 2 (Q6_K's raw fields take more
-// registers; at up to 8 activation rows the levels stay decoded across them).
+// levels are decoded and used at once; else 2 (the raw fields of Q6_K, Q5_K
+// and Q8_0 take 14, 12 and 10 registers a row against Q4_K's 8, held twice
+// by the walk; the kernel's register count is that of its widest kind, so
+// the new kinds must not raise Q4_K's; at up to 8 activation rows the levels
+// stay decoded across them).
 template <int NB, int KIND>
 __host__ __device__ constexpr int qmv_rows_per_warp() { return NB == 1 && KIND == KIND_Q4_K ? 4 : 2; }
 
@@ -225,26 +257,127 @@ __device__ __forceinline__ Q6KRaw q6k_raw(const uint8_t* blk, int i) {
     return r;
 }
 
+// Q8_0: the eight 34-byte blocks of 32 weights make one 272-byte
+// superblock; slot i is block i (elements 32i..32i+31, one scale). The
+// blocks are 2-byte aligned (every other one 4-byte aligned), so the lane
+// reads the nine aligned words from 34i rounded down to 4: the block and
+// two bytes of a neighbour, never past the superblock's last byte.
+struct Q80Raw {
+    uint32_t w[9];
+    int shift;  // 16 when the block starts on a 4-byte boundary (qs two bytes in), else 32
+};
+
+__device__ __forceinline__ Q80Raw q80_raw(const uint8_t* sb, int i) {
+    const int off = 34 * i, mis = off & 2;
+    const uint32_t* base = reinterpret_cast<const uint32_t*>(sb + off - mis);
+    Q80Raw r;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) r.w[k] = base[k];
+    r.shift = 16 + 8 * mis;
+    return r;
+}
+
+// A Q8_0 block's d (f16 bits) and its 32 int8 as eight words, shifted into place.
+__device__ __forceinline__ uint32_t q80_d(const Q80Raw& r) {
+    return (r.w[0] >> (r.shift - 16)) & 0xFFFF;
+}
+__device__ __forceinline__ uint32_t q80_qs(const Q80Raw& r, int k) {
+    return __funnelshift_rc(r.w[k], r.w[k + 1], r.shift);
+}
+
+// Q5_K: Q4_K's header and slots, plus the 16 qh bytes of the slot's 16
+// positions (qh[p..p+15], p = 16*(i%2)): element j*64 + l takes bit 2j of
+// qh[l % 32] as its fifth bit (bit 2j + 1 for the high nibbles).
+struct Q5KRaw {
+    uint4 h, qh, q;
+};
+
+__device__ __forceinline__ Q5KRaw q5k_raw(const uint8_t* blk, int i) {
+    return {*reinterpret_cast<const uint4*>(blk), *reinterpret_cast<const uint4*>(blk + 16 + 16 * (i & 1)),
+            *reinterpret_cast<const uint4*>(blk + 48 + 16 * i)};
+}
+
+// The fifth bits of one Q5_K qs word's nibbles: the low nibbles' levels
+// as bytes q << 2 (level_plus<32>: 32 + q), and the high nibbles'. qh holds
+// the four positions' qh bytes; j is the slot's 64-weight group.
+__device__ __forceinline__ void q5k_bytes(uint32_t w, uint32_t qh, int j, uint32_t& lo,
+                                          uint32_t& hi) {
+    lo = ((w << 2) & 0x3C3C3C3Cu) | (((qh >> (2 * j)) & 0x01010101u) << 6);
+    hi = ((w >> 2) & 0x3C3C3C3Cu) | (((qh >> (2 * j + 1)) & 0x01010101u) << 6);
+}
+
+template <int KIND> struct KindRaw;
+template <> struct KindRaw<KIND_Q4_K> { using type = Q4KRaw; };
+template <> struct KindRaw<KIND_Q6_K> { using type = Q6KRaw; };
+template <> struct KindRaw<KIND_Q8_0> { using type = Q80Raw; };
+template <> struct KindRaw<KIND_Q5_K> { using type = Q5KRaw; };
 template <int KIND>
-using QmvRaw = typename std::conditional<KIND == KIND_Q4_K, Q4KRaw, Q6KRaw>::type;
+using QmvRaw = typename KindRaw<KIND>::type;
 
 template <int KIND>
 __device__ __forceinline__ QmvRaw<KIND> qmv_raw(const uint8_t* blk, int i) {
     if constexpr (KIND == KIND_Q4_K) return q4k_raw(blk, i);
-    else return q6k_raw(blk, i);
+    else if constexpr (KIND == KIND_Q6_K) return q6k_raw(blk, i);
+    else if constexpr (KIND == KIND_Q8_0) return q80_raw(blk, i);
+    else return q5k_raw(blk, i);
 }
 
-// Parts of a lane's slice that share a scale: Q4_K 2 of 16, Q6_K 4 of 8.
+// Parts of a lane's slice that share a scale: Q4_K and Q5_K 2 of 16, Q6_K
+// 4 of 8, Q8_0 one of 32.
 template <int KIND>
-__host__ __device__ constexpr int qmv_parts() { return KIND == KIND_Q4_K ? 2 : 4; }
+__host__ __device__ constexpr int qmv_parts() {
+    return KIND == KIND_Q6_K ? 4 : KIND == KIND_Q8_0 ? 1 : 2;
+}
 
-// A lane's 32 levels plus their bias (exact f32: Q4_K 16 + 0..15, Q6_K
-// 64 + 0..63) and its parts' scale sc and offset mn (the bias folded in).
+// Whether the kind's levels carry an offset folded against sums of x: Q8_0's
+// levels are the signed q themselves, with no bias and no min.
+template <int KIND>
+__host__ __device__ constexpr bool qmv_has_offset() { return KIND != KIND_Q8_0; }
+
+// A lane's 32 levels plus their bias (exact f32: Q4_K 16 + 0..15, Q5_K
+// 32 + 0..31, Q6_K 64 + 0..63; Q8_0 the signed q, no bias) and its parts'
+// scale sc and offset mn (the bias folded in; 0 for Q8_0).
 template <int KIND>
 __device__ __forceinline__ void qmv_levels(const QmvRaw<KIND>& r, int i, float (&lv)[QMV_SLICE],
                                            float (&sc)[qmv_parts<KIND>()],
                                            float (&mn)[qmv_parts<KIND>()]) {
-    if constexpr (KIND == KIND_Q4_K) {
+    if constexpr (KIND == KIND_Q8_0) {
+        sc[0] = f16_bits(q80_d(r));
+        mn[0] = 0.f;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+            const uint32_t w = q80_qs(r, k) ^ 0x80808080u;
+            lv[4 * k + 0] = s8_level<0>(w);
+            lv[4 * k + 1] = s8_level<1>(w);
+            lv[4 * k + 2] = s8_level<2>(w);
+            lv[4 * k + 3] = s8_level<3>(w);
+        }
+    } else if constexpr (KIND == KIND_Q5_K) {
+        const int j = i >> 1;
+        const float d = f16_bits(r.h.x & 0xFFFF), dmin = f16_bits(r.h.x >> 16);
+        int sc0, m0, sc1, m1;
+        q4k_scale_min(r.h.y, r.h.z, r.h.w, 2 * j, sc0, m0);
+        q4k_scale_min(r.h.y, r.h.z, r.h.w, 2 * j + 1, sc1, m1);
+        sc[0] = d * u23_f32(sc0);
+        sc[1] = d * u23_f32(sc1);
+        mn[0] = fmaf(32.f, sc[0], dmin * u23_f32(m0));  // the levels' +32 folded in
+        mn[1] = fmaf(32.f, sc[1], dmin * u23_f32(m1));
+        const uint32_t w[4] = {r.q.x, r.q.y, r.q.z, r.q.w};
+        const uint32_t h[4] = {r.qh.x, r.qh.y, r.qh.z, r.qh.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            uint32_t lo, hi;
+            q5k_bytes(w[k], h[k], j, lo, hi);
+            lv[4 * k + 0] = level_plus<32, 0>(lo);
+            lv[4 * k + 1] = level_plus<32, 1>(lo);
+            lv[4 * k + 2] = level_plus<32, 2>(lo);
+            lv[4 * k + 3] = level_plus<32, 3>(lo);
+            lv[16 + 4 * k + 0] = level_plus<32, 0>(hi);
+            lv[16 + 4 * k + 1] = level_plus<32, 1>(hi);
+            lv[16 + 4 * k + 2] = level_plus<32, 2>(hi);
+            lv[16 + 4 * k + 3] = level_plus<32, 3>(hi);
+        }
+    } else if constexpr (KIND == KIND_Q4_K) {
         const int j = i >> 1;
         const float d = f16_bits(r.h.x & 0xFFFF), dmin = f16_bits(r.h.x >> 16);
         int sc0, m0, sc1, m1;
@@ -313,7 +446,10 @@ __device__ __forceinline__ int q4k_x_offset(int i, int part) {  // part 0: k<16,
 // The 32 activation values matching a lane's slice, for one row of x.
 template <int KIND, typename TX>
 __device__ __forceinline__ void x_slice(const TX* xsb, int i, float* xv) {
-    if constexpr (KIND == KIND_Q4_K) {
+    if constexpr (KIND == KIND_Q8_0) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) load8(xsb + 32 * i + 8 * k, xv + 8 * k);
+    } else if constexpr (KIND == KIND_Q4_K || KIND == KIND_Q5_K) {
         load8(xsb + q4k_x_offset(i, 0), xv);
         load8(xsb + q4k_x_offset(i, 0) + 8, xv + 8);
         load8(xsb + q4k_x_offset(i, 1), xv + 16);
@@ -337,9 +473,24 @@ __device__ __forceinline__ float qmv_fold(const float (&lv)[QMV_SLICE], const fl
         float dot = 0.f;
 #pragma unroll
         for (int k = 0; k < L; ++k) dot = fmaf(lv[p * L + k], xv[p * L + k], dot);
-        acc = fmaf(sc[p], dot, fmaf(-mn[p], sx[p], acc));
+        acc = qmv_has_offset<KIND>() ? fmaf(sc[p], dot, fmaf(-mn[p], sx[p], acc))
+                                     : fmaf(sc[p], dot, acc);
     }
     return acc;
+}
+
+// The sums of x over each part of a lane's slice (none for Q8_0).
+template <int KIND>
+__device__ __forceinline__ void x_part_sums(const float* xv, float (&sx)[qmv_parts<KIND>()]) {
+    constexpr int P = qmv_parts<KIND>(), L = QMV_SLICE / P;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+        sx[p] = 0.f;
+        if constexpr (qmv_has_offset<KIND>()) {
+#pragma unroll
+            for (int k = 0; k < L; ++k) sx[p] += xv[p * L + k];
+        }
+    }
 }
 
 // One warp's walk over the row groups g, g + gstep, ... (< groups) of the
@@ -354,7 +505,7 @@ __device__ void qmv_walk(const uint8_t* __restrict__ wq, int n, int row_bytes,
                          const TX* __restrict__ x, int B, int K, int g, int gstep, int groups,
                          float* __restrict__ out) {
     constexpr int P = qmv_parts<KIND>();
-    constexpr int bpb = KIND == KIND_Q4_K ? Q4K_BYTES : Q6K_BYTES;
+    constexpr int bpb = kind_sb_bytes(KIND);
     const int lane = threadIdx.x & 31;
     const int sub = lane >> 3;  // which of the step's four superblocks
     const int i = lane & 7;     // slice slot within the superblock
@@ -391,12 +542,7 @@ __device__ void qmv_walk(const uint8_t* __restrict__ wq, int n, int row_bytes,
             if constexpr (NB == 1) {
                 float xv[QMV_SLICE], sx[P];
                 x_slice<KIND>(x + (size_t)sb * QK_K, i, xv);
-#pragma unroll
-                for (int p = 0; p < P; ++p) {
-                    sx[p] = 0.f;
-#pragma unroll
-                    for (int k = 0; k < QMV_SLICE / P; ++k) sx[p] += xv[p * (QMV_SLICE / P) + k];
-                }
+                x_part_sums<KIND>(xv, sx);
 #pragma unroll
                 for (int r = 0; r < R; ++r) {
                     float lv[QMV_SLICE], sc[P], mn[P];
@@ -412,12 +558,7 @@ __device__ void qmv_walk(const uint8_t* __restrict__ wq, int n, int row_bytes,
                     if (b >= B) break;
                     float xv[QMV_SLICE], sx[P];
                     x_slice<KIND>(x + (size_t)b * K + (size_t)sb * QK_K, i, xv);
-#pragma unroll
-                    for (int p = 0; p < P; ++p) {
-                        sx[p] = 0.f;
-#pragma unroll
-                        for (int k = 0; k < QMV_SLICE / P; ++k) sx[p] += xv[p * (QMV_SLICE / P) + k];
-                    }
+                    x_part_sums<KIND>(xv, sx);
 #pragma unroll
                     for (int r = 0; r < R; ++r)
                         acc[r][b] = qmv_fold<KIND>(lv[r], xv, sc[r], mn[r], sx, acc[r][b]);
@@ -525,38 +666,23 @@ __device__ __forceinline__ float kv_deq1(const KVRow& r, int c, int D, int G) {
     }
 }
 
-// Stored columns c0 .. c0+7 of a row (c0 % 8 == 0), dequantized to f32,
-// with one 8-byte (16-byte for the dense kinds) load of the q plane.
+// Stored columns c0 .. c0+7 of an f16 or bf16 row (c0 % 8 == 0) as f32, by
+// one 16-byte load (flash_decode_quant.cu reads the quantized kinds itself).
 template <int KIND>
-__device__ __forceinline__ void kv_deq8(const KVRow& r, int c0, int D, int G, float* out) {
-    if constexpr (KIND == KV_F16 || KIND == KV_BF16) {
-        const uint4 u = *reinterpret_cast<const uint4*>(r.q + 2 * (size_t)c0);
-        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+__device__ __forceinline__ void kv_deq8(const KVRow& r, int c0, float* out) {
+    static_assert(KIND == KV_F16 || KIND == KV_BF16, "the dense kinds only");
+    const uint4 u = *reinterpret_cast<const uint4*>(r.q + 2 * (size_t)c0);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            if constexpr (KIND == KV_F16) {
-                const __half2 h = *reinterpret_cast<const __half2*>(&w[i]);
-                out[2 * i] = __low2float(h);
-                out[2 * i + 1] = __high2float(h);
-            } else {
-                const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
-                out[2 * i] = __low2float(h);
-                out[2 * i + 1] = __high2float(h);
-            }
-        }
-    } else {
-        const int half = D >> 1;
-        const bool hi = KIND != KV_Q8_0 && c0 >= half;
-        const uint2 u = *reinterpret_cast<const uint2*>(r.q + (hi ? c0 - half : c0));
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-            const int byte = ((e < 4 ? u.x : u.y) >> (8 * (e & 3))) & 0xFF;
-            int lvl;
-            if constexpr (KIND == KV_Q8_0)
-                lvl = (int)(int8_t)byte;
-            else
-                lvl = hi ? byte >> 4 : byte & 0xF;
-            out[e] = kv_level<KIND>(lvl, r, c0 + e, G);
+    for (int i = 0; i < 4; ++i) {
+        if constexpr (KIND == KV_F16) {
+            const __half2 h = *reinterpret_cast<const __half2*>(&w[i]);
+            out[2 * i] = __low2float(h);
+            out[2 * i + 1] = __high2float(h);
+        } else {
+            const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+            out[2 * i] = __low2float(h);
+            out[2 * i + 1] = __high2float(h);
         }
     }
 }

@@ -1,4 +1,5 @@
-// qgemm — fused dequant x GEMM over GGUF wire-format Q4_K / Q6_K weights.
+// qgemm — fused dequant x GEMM over GGUF wire-format Q4_K / Q6_K / Q8_0 /
+// Q5_K weights.
 //
 // Replaces (llamacog_tpu/ops/pallas/qmm.py): _qmm_call at B > 8 (the plain
 // and the row-tiled tb > 0 branches, _qmm_kernel -> _tile_matvec with bf16
@@ -57,7 +58,11 @@ struct QgParams {
     int K;
 };
 
-template <int BM>
+// ALL_KINDS: a launch with a Q8_0 or Q5_K weight. The launches of Q4_K and
+// Q6_K weights alone (every one of a Q4_K_M llama) take the kernel that
+// holds those two tile loops only: the two more cost them 2-3% (more code
+// for the instruction cache; PERF.md §6).
+template <int BM, bool ALL_KINDS>
 __global__ void __launch_bounds__(QG_THREADS, 2)
 qgemm_kernel(const QgParams p, const __nv_bfloat16* __restrict__ x) {
     int t = 0;
@@ -65,8 +70,9 @@ qgemm_kernel(const QgParams p, const __nv_bfloat16* __restrict__ x) {
     for (int i = 1; i < QG_MAX_DESC; ++i)
         if (i < p.n_desc && (int)blockIdx.y >= p.d[i].block0) t = i;
     const QgDesc& D = p.d[t];
-    qgemm_tile_kind<BM>(D.w, D.kind, D.n, D.row_bytes, x, p.B, p.K, (int)blockIdx.x * BM,
-                        ((int)blockIdx.y - D.block0) * QG_BN, D.out);
+    qgemm_tile_kind<BM, ALL_KINDS>(D.w, D.kind, D.n, D.row_bytes, x, p.B, p.K,
+                                   (int)blockIdx.x * BM, ((int)blockIdx.y - D.block0) * QG_BN,
+                                   D.out);
 }
 
 static int sm_count() {
@@ -76,19 +82,27 @@ static int sm_count() {
     return sms;
 }
 
-template <int BM>
+template <int BM, bool ALL_KINDS>
 static int launch(const QgParams& p, const void* x, int n_blocks, cudaStream_t stream) {
     static bool attr_set = false;  // once per instantiation, not per launch
     if (!attr_set) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            qgemm_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)qg_smem_bytes(BM));
+        const cudaError_t err =
+            cudaFuncSetAttribute(qgemm_kernel<BM, ALL_KINDS>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)qg_smem_bytes(BM));
         if (err != cudaSuccess) return static_cast<int>(err);
         attr_set = true;
     }
     const dim3 grid((p.B + BM - 1) / BM, n_blocks);
-    qgemm_kernel<BM><<<grid, QG_THREADS, qg_smem_bytes(BM), stream>>>(
+    qgemm_kernel<BM, ALL_KINDS><<<grid, QG_THREADS, qg_smem_bytes(BM), stream>>>(
         p, static_cast<const __nv_bfloat16*>(x));
     return static_cast<int>(cudaGetLastError());
+}
+
+template <int BM>
+static int launch_kinds(const QgParams& p, const void* x, int n_blocks, cudaStream_t stream) {
+    bool all = false;
+    for (int t = 0; t < p.n_desc; ++t) all |= p.d[t].kind != KIND_Q4_K && p.d[t].kind != KIND_Q6_K;
+    return all ? launch<BM, true>(p, x, n_blocks, stream) : launch<BM, false>(p, x, n_blocks, stream);
 }
 
 // x [B, K] bf16, contiguous; weight t: w[t] [n[t], K/256 blocks], kind[t];
@@ -104,12 +118,12 @@ LCG_EXPORT int lcg_qgemm(const void* x, int x_dtype, int B, int K, int n_desc,
     p.K = K;
     int blocks = 0;
     for (int t = 0; t < n_desc; ++t) {
-        if (kind[t] != KIND_Q4_K && kind[t] != KIND_Q6_K) return static_cast<int>(cudaErrorInvalidValue);
+        if (kind_sb_bytes(kind[t]) == 0) return static_cast<int>(cudaErrorInvalidValue);
         p.d[t].w = static_cast<const uint8_t*>(w[t]);
         p.d[t].out = static_cast<float*>(out[t]);
         p.d[t].kind = kind[t];
         p.d[t].n = n[t];
-        p.d[t].row_bytes = (K / QK_K) * (kind[t] == KIND_Q4_K ? Q4K_BYTES : Q6K_BYTES);
+        p.d[t].row_bytes = (K / QK_K) * kind_sb_bytes(kind[t]);
         p.d[t].block0 = blocks;
         blocks += (n[t] + QG_BN - 1) / QG_BN;
     }
@@ -117,5 +131,5 @@ LCG_EXPORT int lcg_qgemm(const void* x, int x_dtype, int B, int K, int n_desc,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     static const int sms = sm_count();  // queried once
     const bool rows64 = B <= 64 || (long long)((B + 63) / 64) * blocks <= sms;
-    return rows64 ? launch<64>(p, x, blocks, s) : launch<128>(p, x, blocks, s);
+    return rows64 ? launch_kinds<64>(p, x, blocks, s) : launch_kinds<128>(p, x, blocks, s);
 }

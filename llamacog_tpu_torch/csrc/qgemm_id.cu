@@ -39,8 +39,9 @@ qgemm_id_kernel(const uint8_t* __restrict__ w, const __nv_bfloat16* __restrict__
         }
         return;
     }
-    qgemm_tile_kind<QGID_BM>(w + (size_t)e * N * row_bytes, kind, N, row_bytes, x, S_pad, K, m0,
-                             n0, out);
+    // the expert stacks of a Q4_K_M file are Q4_K or Q6_K
+    qgemm_tile_kind<QGID_BM, false>(w + (size_t)e * N * row_bytes, kind, N, row_bytes, x, S_pad,
+                                    K, m0, n0, out);
 }
 
 // xs [S_pad, K] bf16, contiguous, S_pad a multiple of tt = 64; w
@@ -61,7 +62,7 @@ LCG_EXPORT int lcg_qgemm_id(const void* x, int x_dtype, int S_pad, int K, const 
         if (err != cudaSuccess) return static_cast<int>(err);
         attr_set = true;
     }
-    const int row_bytes = (K / QK_K) * (kind == KIND_Q4_K ? Q4K_BYTES : Q6K_BYTES);
+    const int row_bytes = (K / QK_K) * kind_sb_bytes(kind);
     const dim3 grid(S_pad / tt, (N + QG_BN - 1) / QG_BN);
     qgemm_id_kernel<<<grid, QG_THREADS, qg_smem_bytes(QGID_BM),
                       static_cast<cudaStream_t>(stream)>>>(

@@ -1,6 +1,6 @@
 // The pipelined tile of the fused dequant x GEMM over GGUF wire-format Q4_K /
-// Q6_K weights, shared by qgemm.cu (dense weights, K2/K3) and qgemm_id.cu
-// (stacked experts, K11).
+// Q6_K / Q8_0 / Q5_K weights, shared by qgemm.cu (dense weights, K2/K3) and
+// qgemm_id.cu (stacked experts, K11: Q4_K and Q6_K).
 //
 // A block of QG_THREADS threads (8 warps) owns a BM x QG_BN output tile
 // (BM = 128, or 64 where qgemm.cu's grid would leave SMs idle and for K11's
@@ -19,7 +19,8 @@
 //     pieces interleaved with the four k16 steps of stage s.
 // Shared memory is 90 KB at BM = 128 (63 KB at 64), so two blocks share an
 // SM and one's barrier waits hide under the other's work. A stage is the
-// 64 weights of one Q4_K group (contiguous k), or for Q6_K positions
+// 64 weights of one Q4_K or Q5_K group or of two Q8_0 blocks (contiguous
+// k), or for Q6_K positions
 // 16h..16h+15 of the four 32-weight quarters of one 128-weight chunk: the
 // activation tile takes those same k columns, so the product is unchanged
 // and each stage reads each wire byte once. Products are mma.sync m16n8k16
@@ -28,8 +29,9 @@
 // of the tile.
 //
 // Each weight is formed exactly as the plain torch dequant forms it —
-// (d*sc)*q - dmin*m for Q4_K, (d*sc)*(q-32) for Q6_K, each product and sum
-// rounded once — and then rounded to bf16; the level plus a bias becomes an
+// (d*sc)*q - dmin*m for Q4_K and Q5_K, (d*sc)*(q-32) for Q6_K, q*d for Q8_0,
+// each product and sum rounded once — and then rounded to bf16; the level
+// plus a bias (Q8_0: the signed level, common.cuh::s8_level) becomes an
 // exact f32 by one byte permute (common.cuh::level_plus), with no
 // int->float conversion, and one fused multiply-add takes the bias off
 // while it forms d*sc*q, exactly (the product needs at most 23 bits). Rows past B read as zero and are not written;
@@ -143,6 +145,71 @@ struct QgStage<KIND_Q6_K> {
     }
 };
 
+template <>
+struct QgStage<KIND_Q5_K> {
+    uint32_t qs[4], qh[4];
+    float dl0, ml0, dl1, ml1;
+    float n0, n1;  // -32 dl: d*sc (17 bits) times 32 + q is exact, so fma(dl, 32 + q, -32 dl) = dl*q
+    int g, j;
+
+    __device__ __forceinline__ QgStage(const Q5KRaw& r, int i) : g(i & 1), j(i >> 1) {
+        const float d = f16_bits(r.h.x & 0xFFFF), dmin = f16_bits(r.h.x >> 16);
+        int sc0, m0, sc1, m1;
+        q4k_scale_min(r.h.y, r.h.z, r.h.w, 2 * j, sc0, m0);
+        q4k_scale_min(r.h.y, r.h.z, r.h.w, 2 * j + 1, sc1, m1);
+        dl0 = __fmul_rn(d, u23_f32(sc0));
+        ml0 = __fmul_rn(dmin, u23_f32(m0));
+        dl1 = __fmul_rn(d, u23_f32(sc1));
+        ml1 = __fmul_rn(dmin, u23_f32(m1));
+        n0 = -32.f * dl0;
+        n1 = -32.f * dl1;
+        qs[0] = r.q.x; qs[1] = r.q.y; qs[2] = r.q.z; qs[3] = r.q.w;
+        qh[0] = r.qh.x; qh[1] = r.qh.y; qh[2] = r.qh.z; qh[3] = r.qh.w;
+    }
+
+    __device__ __forceinline__ float w0(float lv) const { return __fsub_rn(__fmaf_rn(dl0, lv, n0), ml0); }
+    __device__ __forceinline__ float w1(float lv) const { return __fsub_rn(__fmaf_rn(dl1, lv, n1), ml1); }
+
+    // as Q4_K's piece, the fifth bits from qh word p
+    __device__ __forceinline__ void piece(int p, __nv_bfloat16* row) const {
+        uint32_t lo, hi;
+        q5k_bytes(qs[p], qh[p], j, lo, hi);
+        const uint2 a = {pack_bf16x2(w0(level_plus<32, 0>(lo)), w0(level_plus<32, 1>(lo))),
+                         pack_bf16x2(w0(level_plus<32, 2>(lo)), w0(level_plus<32, 3>(lo)))};
+        const uint2 b = {pack_bf16x2(w1(level_plus<32, 0>(hi)), w1(level_plus<32, 1>(hi))),
+                         pack_bf16x2(w1(level_plus<32, 2>(hi)), w1(level_plus<32, 3>(hi)))};
+        *reinterpret_cast<uint2*>(row + 16 * g + 4 * p) = a;
+        *reinterpret_cast<uint2*>(row + 32 + 16 * g + 4 * p) = b;
+    }
+};
+
+// Q8_0: slot i = 2q + g is block i of the superblock, the stage's columns
+// 32g..32g+31.
+template <>
+struct QgStage<KIND_Q8_0> {
+    uint32_t qs[8];
+    float d;
+    int g;
+
+    __device__ __forceinline__ QgStage(const Q80Raw& r, int i) : g(i & 1) {
+        d = f16_bits(q80_d(r));
+#pragma unroll
+        for (int k = 0; k < 8; ++k) qs[k] = q80_qs(r, k) ^ 0x80808080u;
+    }
+
+    // q * d, one rounding, as the plain dequant; piece p -> columns 32g + 8p..
+    __device__ __forceinline__ void piece(int p, __nv_bfloat16* row) const {
+        uint32_t v[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const uint32_t w = qs[2 * p + e];
+            v[2 * e] = pack_bf16x2(__fmul_rn(s8_level<0>(w), d), __fmul_rn(s8_level<1>(w), d));
+            v[2 * e + 1] = pack_bf16x2(__fmul_rn(s8_level<2>(w), d), __fmul_rn(s8_level<3>(w), d));
+        }
+        *reinterpret_cast<uint4*>(row + 32 * g + 8 * p) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+};
+
 // out[m0.., n0..] (row stride n) = x[m0..m0+BM-1, :K] @ bf16(dequant(wq rows
 // n0..n0+127))^T for the [n, K] wire weight `wq` of KIND. Needs
 // qg_smem_bytes(BM) of dynamic shared memory.
@@ -153,7 +220,7 @@ __device__ __forceinline__ void qgemm_tile(const uint8_t* __restrict__ wq, int n
     constexpr int WM = BM / 2;   // rows a warp
     constexpr int MT = WM / 16;  // m16 tiles a warp
     constexpr int NT = 4;        // n8 tiles a warp (32 weight rows)
-    constexpr int bpb = KIND == KIND_Q4_K ? Q4K_BYTES : Q6K_BYTES;
+    constexpr int bpb = kind_sb_bytes(KIND);
     extern __shared__ __align__(128) unsigned char qg_smem[];
     __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(qg_smem);  // [X_STAGES][BM][LDS]
     __nv_bfloat16* Bs = As + QG_X_STAGES * BM * QG_LDS;               // [2][BN][LDS]
@@ -165,16 +232,16 @@ __device__ __forceinline__ void qgemm_tile(const uint8_t* __restrict__ wq, int n
     const int r = tid >> 1, g = tid & 1;
     const uint8_t* wrow = wq + (size_t)min(n0 + r, n - 1) * row_bytes;
 
-    // activation columns of stage s: Q4_K 64 in a row; Q6_K four runs of 16
+    // activation columns of stage s: 64 in a row; Q6_K four runs of 16
     auto load_x = [&](int s) {
         __nv_bfloat16* dst = As + (s % QG_X_STAGES) * BM * QG_LDS;
         const int q = s & 3;
-        const int k0 = (s >> 2) * QK_K + (KIND == KIND_Q4_K ? 64 * q : 128 * (q >> 1) + 16 * (q & 1));
+        const int k0 = (s >> 2) * QK_K + (KIND != KIND_Q6_K ? 64 * q : 128 * (q >> 1) + 16 * (q & 1));
         for (int i = tid; i < BM * (QG_BK / 8); i += QG_THREADS) {
             const int rr = i >> 3, ch = i & 7;
             const int m = m0 + rr;
             const bool ok = m < B;
-            const int col = KIND == KIND_Q4_K ? 8 * ch : 32 * (ch >> 1) + 8 * (ch & 1);
+            const int col = KIND != KIND_Q6_K ? 8 * ch : 32 * (ch >> 1) + 8 * (ch & 1);
             cp_async16(dst + rr * QG_LDS + 8 * ch, x + (size_t)(ok ? m : 0) * K + k0 + col, ok);
         }
     };
@@ -261,11 +328,17 @@ __device__ __forceinline__ void qgemm_tile(const uint8_t* __restrict__ wq, int n
     }
 }
 
-// qgemm_tile for a weight kind known only at run time (uniform per block).
-template <int BM>
+// qgemm_tile for a weight kind known only at run time (uniform per block):
+// Q4_K or Q6_K, and with ALL_KINDS also Q8_0 or Q5_K.
+template <int BM, bool ALL_KINDS>
 __device__ __forceinline__ void qgemm_tile_kind(const uint8_t* wq, int kind, int n, int row_bytes,
                                                 const __nv_bfloat16* x, int B, int K, int m0,
                                                 int n0, float* out) {
     if (kind == KIND_Q4_K) qgemm_tile<BM, KIND_Q4_K>(wq, n, row_bytes, x, B, K, m0, n0, out);
-    else qgemm_tile<BM, KIND_Q6_K>(wq, n, row_bytes, x, B, K, m0, n0, out);
+    else if (!ALL_KINDS || kind == KIND_Q6_K)
+        qgemm_tile<BM, KIND_Q6_K>(wq, n, row_bytes, x, B, K, m0, n0, out);
+    else if constexpr (ALL_KINDS) {
+        if (kind == KIND_Q8_0) qgemm_tile<BM, KIND_Q8_0>(wq, n, row_bytes, x, B, K, m0, n0, out);
+        else qgemm_tile<BM, KIND_Q5_K>(wq, n, row_bytes, x, B, K, m0, n0, out);
+    }
 }

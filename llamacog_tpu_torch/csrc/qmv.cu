@@ -1,4 +1,5 @@
-// qmv — fused dequant x matvec over GGUF wire-format Q4_K / Q6_K weights.
+// qmv — fused dequant x matvec over GGUF wire-format Q4_K / Q6_K / Q8_0 /
+// Q5_K weights.
 //
 // Replaces (llamacog_tpu/ops/pallas/qmm.py):
 //   * _qmm_call at B <= 8 (_qmm_kernel -> _tile_matvec, decoders _dec_q4_K,
@@ -56,8 +57,17 @@ struct QmvParams {
 template <int NB>
 __host__ __device__ inline int qmv_groups(int kind, int n) {
     const int R = kind == KIND_Q4_K ? qmv_rows_per_warp<NB, KIND_Q4_K>()
-                                    : qmv_rows_per_warp<NB, KIND_Q6_K>();
+                : kind == KIND_Q6_K ? qmv_rows_per_warp<NB, KIND_Q6_K>()
+                : kind == KIND_Q8_0 ? qmv_rows_per_warp<NB, KIND_Q8_0>()
+                                    : qmv_rows_per_warp<NB, KIND_Q5_K>();
     return (n + R - 1) / R;
+}
+
+template <int KIND, int NB, typename TX>
+__device__ __forceinline__ void qmv_desc(const QmvDesc& D, const TX* x, int B, int K, int g,
+                                         int nw, int groups, float* out) {
+    qmv_walk<KIND, NB, qmv_rows_per_warp<NB, KIND>(), TX>(D.w, D.n, D.row_bytes, x, B, K, g, nw,
+                                                          groups, out);
 }
 
 // The grid is what the card holds at once. Each weight's row groups are
@@ -77,12 +87,12 @@ qmv_kernel(const QmvParams p, const TX* __restrict__ x) {
         const int groups = qmv_groups<NB>(D.kind, D.n);
         const int g = ((gw - first) % nw + nw) % nw;
         float* out = D.out + (size_t)b0 * D.n;
-        if (D.kind == KIND_Q4_K)
-            qmv_walk<KIND_Q4_K, NB, qmv_rows_per_warp<NB, KIND_Q4_K>(), TX>(
-                D.w, D.n, D.row_bytes, x, B, p.K, g, nw, groups, out);
-        else
-            qmv_walk<KIND_Q6_K, NB, qmv_rows_per_warp<NB, KIND_Q6_K>(), TX>(
-                D.w, D.n, D.row_bytes, x, B, p.K, g, nw, groups, out);
+        switch (D.kind) {
+            case KIND_Q4_K: qmv_desc<KIND_Q4_K, NB>(D, x, B, p.K, g, nw, groups, out); break;
+            case KIND_Q6_K: qmv_desc<KIND_Q6_K, NB>(D, x, B, p.K, g, nw, groups, out); break;
+            case KIND_Q8_0: qmv_desc<KIND_Q8_0, NB>(D, x, B, p.K, g, nw, groups, out); break;
+            default: qmv_desc<KIND_Q5_K, NB>(D, x, B, p.K, g, nw, groups, out); break;
+        }
         first += groups;
     }
 }
@@ -127,12 +137,12 @@ LCG_EXPORT int lcg_qmv(const void* x, int x_dtype, int B, int K, int n_desc,
     p.B = B;
     p.K = K;
     for (int t = 0; t < n_desc; ++t) {
-        if (kind[t] != KIND_Q4_K && kind[t] != KIND_Q6_K) return static_cast<int>(cudaErrorInvalidValue);
+        if (kind_sb_bytes(kind[t]) == 0) return static_cast<int>(cudaErrorInvalidValue);
         p.d[t].w = static_cast<const uint8_t*>(w[t]);
         p.d[t].out = static_cast<float*>(out[t]);
         p.d[t].kind = kind[t];
         p.d[t].n = n[t];
-        p.d[t].row_bytes = (K / QK_K) * (kind[t] == KIND_Q4_K ? Q4K_BYTES : Q6K_BYTES);
+        p.d[t].row_bytes = (K / QK_K) * kind_sb_bytes(kind[t]);
     }
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return B == 1 ? launch_x<1>(p, x, x_dtype, n, s) : launch_x<QMV_MAX_B>(p, x, x_dtype, n, s);

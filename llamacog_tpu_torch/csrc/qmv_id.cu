@@ -63,7 +63,7 @@ LCG_EXPORT int lcg_qmv_id(const void* x, int x_dtype, int S, int K, const void* 
     if (S < 1 || K < QK_K || K % QK_K || n_exp < 1 || N < 1 || row_blocks > 65535 ||
         (kind != KIND_Q4_K && kind != KIND_Q6_K) || (x_dtype != DT_F32 && x_dtype != DT_BF16))
         return static_cast<int>(cudaErrorInvalidValue);
-    const int row_bytes = (K / QK_K) * (kind == KIND_Q4_K ? Q4K_BYTES : Q6K_BYTES);
+    const int row_bytes = (K / QK_K) * kind_sb_bytes(kind);
     const dim3 grid(S, row_blocks);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const uint8_t* wq = static_cast<const uint8_t*>(w);

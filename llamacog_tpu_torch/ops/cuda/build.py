@@ -110,7 +110,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         "lcg_flash_prefill": [i, vp, vp, vp, ll, ll, ll, ll, vp, vp, vp, vp,
                               i, i, i, i, i, i, i, f, f, i, ints, vp],
         "lcg_flash_decode_quant": [i, i, i, vp, *[vp] * 8, i, i, i, i, i, i, vp, vp, vp, vp,
-                                   i, f, f, i, vp],
+                                   i, f, f, i, vp, i, i, vp],
         "lcg_flash_prefill_quant": [i, i, i, vp, *[vp] * 8, i, i, i, i, i, i, i, vp, vp, vp, vp,
                                     i, f, f, i, vp],
         "lcg_qmv_id": [vp, i, i, i, vp, i, i, i, vp, vp, vp],

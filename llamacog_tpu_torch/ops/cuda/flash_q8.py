@@ -14,9 +14,11 @@ signatures:
   combine_partials_plain);
 - flash_decode_stacked (K6), flash_decode_q8 (K8a), flash_decode_q8_tiled
   (K8b) and flash_decode_q8_auto read the quantized planes
-  (runtime/kv_cache.py) through one kernel, csrc/flash_decode_quant.cu: the
-  per-layer entries launch it as a one-layer stack, and the whole-S versus
-  tiled split of the TPU is the kernel's own tile loop;
+  (runtime/kv_cache.py) through one kernel, csrc/flash_decode_quant.cu,
+  split over the cache positions as K4 is (choose_splits, a workspace, the
+  combine of csrc/flash_split.cuh): the per-layer entries launch it as a
+  one-layer stack, and the whole-S versus tiled choice of the TPU is the
+  split rule's;
 - flash_prefill_q8 (K7, csrc/flash_prefill_quant.cu) attends a prefill block
   over one layer's quantized planes plus the causal current block.
 
@@ -277,15 +279,18 @@ def flash_decode_quant_kernel(q, k_planes, v_planes, il, k_cur, v_cur, seq_len, 
     kptr = _plane_ptrs(what, k_planes, kinds[0], il, B, S, Hkv, Dk, q.device)
     vptr = _plane_ptrs(what, v_planes, kinds[1], il, B, S, Hkv, Dv, q.device)
     s_eff = S if kv_cap is None else min(int(kv_cap), S)
+    n_split, split_len = choose_splits(s_eff, B, Hkv)
     out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
+    ws = torch.empty((B, Hkv, n_split, H // Hkv, Dv + 2), dtype=torch.float32, device=q.device)
     lib = build.load("flash_decode_quant")
     rc = lib.lcg_flash_decode_quant(
         build.DTYPE_ID[q.dtype], build.KV_KIND_ID[kinds[0]], build.KV_KIND_ID[kinds[1]],
         q.data_ptr(), *kptr, *vptr, B, S, H, Hkv, Dk, Dv, k_cur.data_ptr(),
         v_cur.data_ptr(), seq_len.data_ptr(), out.data_ptr(), s_eff, float(scale),
-        float(softcap), int(window), torch.cuda.current_stream(q.device).cuda_stream)
+        float(softcap), int(window), ws.data_ptr(), n_split, split_len,
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, rc, what)
-    build.LAUNCHES["flash_decode_quant"] += 1
+    build.LAUNCHES[what] += 1  # one count a call: the split and the combine launch
     return out
 
 
@@ -340,7 +345,7 @@ def flash_decode_q8(q, k_planes, v_planes, k_cur, v_cur, seq_len, scale, softcap
 
 def flash_decode_q8_tiled(q, k_planes, v_planes, k_cur, v_cur, seq_len, scale, softcap=0.0,
                           window=0, kv_cap=None, kinds=("q8_0", "q8_0")):
-    """K8b: the S-tiled per-layer entry. The kernel walks S in tiles for
+    """K8b: the S-tiled per-layer entry. The kernel splits S over blocks at
     every depth, so this is flash_decode_q8 under the JAX name."""
     return flash_decode_q8(q, k_planes, v_planes, k_cur, v_cur, seq_len, scale,
                            softcap=softcap, window=window, kv_cap=kv_cap, kinds=kinds)

@@ -29,7 +29,8 @@ from . import build
 
 QMV_MAX_B = 8
 MAX_WEIGHTS = 4
-_KIND_ID = {"Q4_K": 0, "Q6_K": 1}
+# weight kinds, as csrc/common.cuh numbers them (KIND_Q4_K ...)
+_KIND_ID = {"Q4_K": 0, "Q6_K": 1, "Q8_0": 2, "Q5_K": 3}
 
 
 def uses_qgemm(x: torch.Tensor) -> bool:
@@ -65,7 +66,8 @@ def _launch(fn_name: str, counter: str, x: torch.Tensor, ws) -> list[torch.Tenso
         raise ValueError(f"{counter}: takes 1 to {MAX_WEIGHTS} weights, got {len(ws)}")
     for w in ws:
         if not isinstance(w, WireTensor) or w.kind not in _KIND_ID or len(w.shape) != 2:
-            raise ValueError(f"{counter}: weights must be 2-D Q4_K/Q6_K WireTensors")
+            raise ValueError(f"{counter}: weights must be 2-D WireTensors of "
+                             f"{'/'.join(_KIND_ID)}, got {getattr(w, 'kind', type(w))}")
         if w.device != x.device or not w.blocks.is_contiguous():
             raise ValueError(f"{counter}: weight blocks must be contiguous on {x.device}")
         if w.shape[1] != K:

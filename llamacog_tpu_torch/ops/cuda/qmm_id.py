@@ -80,7 +80,9 @@ def _check(what: str, x: torch.Tensor, ids: torch.Tensor, w: WireTensor, dtypes)
     if x.dtype not in dtypes:
         raise ValueError(f"{what}: x must be one of {dtypes}, got {x.dtype}")
     if not isinstance(w, WireTensor) or len(w.shape) != 3 or not supports(w.kind):
-        raise ValueError(f"{what}: w must be a stacked Q4_K/Q6_K WireTensor [n_exp, N, K]")
+        raise ValueError(f"{what}: w must be a stacked {'/'.join(_KIND_ID)} WireTensor "
+                         f"[n_exp, N, K], got {getattr(w, 'kind', type(w))} "
+                         f"{getattr(w, 'shape', '')}")
     if x.dim() != 2 or not x.is_contiguous() or x.shape[1] != w.shape[2]:
         raise ValueError(f"{what}: x must be a contiguous [rows, {w.shape[2]}] tensor, "
                          f"got {tuple(x.shape)}")

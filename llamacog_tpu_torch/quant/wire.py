@@ -5,9 +5,10 @@ quant/decode_np.py. The planar layout exists for the TPU (lane-aligned
 unpack, group-strided columns, f32 scale planes, transposed superblock
 planes); none of its reasons hold on a GPU, so a weight stays here exactly
 as the file stores it: a ``uint8 [N, row_bytes]`` tensor of ggml blocks
-(block_q4_K: 144 bytes per 256 weights, block_q6_K: 210). The CUDA kernels
-read these blocks directly; the plain dequantizers below are their
-reference and the CPU path.
+(block_q4_K: 144 bytes per 256 weights, block_q5_K: 176, block_q6_K: 210;
+block_q8_0 holds 32 weights in 34 bytes, so 256 weights take eight of them,
+272 bytes). The CUDA kernels read these blocks directly; the plain
+dequantizers below are their reference and the CPU path.
 
 Stacked MoE experts are one wire tensor of logical shape [n_exp, N, K]
 whose blocks are ``[n_exp * N, row_bytes]``, expert e's rows at
@@ -28,8 +29,10 @@ import torch
 from ..gguf import GGMLType
 
 QK_K = 256
-BLOCK_BYTES = {"Q4_K": 144, "Q6_K": 210}
-_KIND_OF = {GGMLType.Q4_K: "Q4_K", GGMLType.Q6_K: "Q6_K"}
+# wire bytes per QK_K weights (Q8_0: eight 34-byte blocks)
+BLOCK_BYTES = {"Q4_K": 144, "Q6_K": 210, "Q8_0": 272, "Q5_K": 176}
+_KIND_OF = {GGMLType.Q4_K: "Q4_K", GGMLType.Q6_K: "Q6_K", GGMLType.Q8_0: "Q8_0",
+            GGMLType.Q5_K: "Q5_K"}
 DENSE_TYPES = (GGMLType.F32, GGMLType.F16, GGMLType.BF16)
 
 
@@ -90,7 +93,7 @@ def kind_of(ggml_type: GGMLType) -> str:
     if kind is None:
         raise NotImplementedError(
             f"quantized type {GGMLType(ggml_type).name} is not ported yet "
-            "(the port carries Q4_K and Q6_K)")
+            f"(the port carries {', '.join(BLOCK_BYTES)})")
     return kind
 
 
@@ -147,6 +150,28 @@ def dequant_q4_k(b: torch.Tensor) -> torch.Tensor:
     return dl * q - ml
 
 
+def dequant_q5_k(b: torch.Tensor) -> torch.Tensor:
+    """uint8 [M, 176] blocks -> f32 [M, 256] (decode_np.dequant_q5_K): Q4_K's
+    nibbles plus a fifth bit, element e taking bit e//32 of qh[e%32]."""
+    d, dmin = _f16_at(b, 0), _f16_at(b, 2)
+    sc, mn = _k4_scale_min(b[:, 4:16])
+    qh = b[:, 16:48].reshape(-1, 1, 32)
+    hb = torch.cat([(qh >> s) & 1 for s in range(8)], dim=1).reshape(-1, 256)
+    qs = b[:, 48:176].reshape(-1, 4, 1, 32)
+    q = (torch.cat([qs & 0xF, qs >> 4], dim=2).reshape(-1, 256) | (hb << 4)).float()
+    dl = (d * sc.float()).repeat_interleave(32, dim=1)
+    ml = (dmin * mn.float()).repeat_interleave(32, dim=1)
+    return dl * q - ml
+
+
+def dequant_q8_0(b: torch.Tensor) -> torch.Tensor:
+    """uint8 [M, 272] (eight 34-byte blocks: f16 d, 32 int8) -> f32 [M, 256]
+    (decode_np.dequant_q8_0)."""
+    blk = b.reshape(-1, 34)
+    q = blk[:, 2:34].contiguous().view(torch.int8).float()
+    return (q * _f16_at(blk, 0)).reshape(-1, 256)
+
+
 _Q6_SHIFTS = (0, 2, 4, 6)
 
 
@@ -163,7 +188,8 @@ def dequant_q6_k(b: torch.Tensor) -> torch.Tensor:
     return dl * q
 
 
-_DEQUANT = {"Q4_K": dequant_q4_k, "Q6_K": dequant_q6_k}
+_DEQUANT = {"Q4_K": dequant_q4_k, "Q6_K": dequant_q6_k, "Q8_0": dequant_q8_0,
+            "Q5_K": dequant_q5_k}
 
 
 def dequantize(w: WireTensor, dtype=torch.float32) -> torch.Tensor:

@@ -2,7 +2,7 @@
 of the port, timed in turns on one GPU.
 
     python -m llamacog_tpu_torch.tools.attn_compare --baseline DIR [--iters 31]
-        [--only attn|weights]
+        [--only attn|weights|quant]
 
 DIR is another checkout of the repository (for example an older commit
 unpacked by ``git archive``); its ``llamacog_tpu_torch`` is imported under
@@ -17,7 +17,14 @@ each in turn, L2 flushed before each call. The weight kernels the same way
 layer weights and the LM head, qgemm (K2, K3) at 128 and 512 rows over the
 five layer weights, and the MoE kernels at the Mixtral-8x7B expert shapes —
 the gather qmv_id (K10) at 2 and 32 rows, its offset entry (K12) and the
-grouped GEMM qgemm_id (K11) of a 128-token prefill. Two spans:
+grouped GEMM qgemm_id (K11) of a 128-token prefill; the Q8_0 and Q5_K
+weights of a real Mixtral Q4_K_M file (attn_k, attn_output and the
+attn_q + attn_k + attn_v launch) are timed on this tree alone where the
+baseline refuses their kinds. The quantized-cache decode kernel (K6, and
+K8 through its per-layer entry) the same way (``--only quant``): q8_0 and
+q4_0 caches at depths 1000 (a 1024-slot layer) and 32765 (32768 slots),
+layer 1 of a 2-layer stack, and the per-layer entry on that layer. Two
+spans:
 
 - ``enqueue``: CUDA events around the call right after the flush, the span
   of ``chip_smoke.py``'s ``ms``. Where the wrapper's host work outlasts the
@@ -64,8 +71,8 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", type=Path, required=True,
                     help="root of another checkout of the repository")
     ap.add_argument("--iters", type=int, default=31)
-    ap.add_argument("--only", choices=("attn", "weights"), default=None,
-                    help="time one group of kernels (default: both)")
+    ap.add_argument("--only", choices=("attn", "weights", "quant"), default=None,
+                    help="time one group of kernels (default: all)")
     args = ap.parse_args(argv)
 
     import torch
@@ -87,7 +94,8 @@ def main(argv=None) -> int:
     b_qmm_id = importlib.import_module(BASE + ".ops.cuda.qmm_id")
     b_wire = importlib.import_module(BASE + ".quant.wire")
     names = {"attn": ("flash_decode_dense", "flash_prefill"),
-             "weights": ("qmv", "qgemm", "qmv_id", "qgemm_id")}
+             "weights": ("qmv", "qgemm", "qmv_id", "qgemm_id"),
+             "quant": ("flash_decode_quant",)}
     names = sum((v for k, v in names.items() if args.only in (None, k)), ())
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         secs = list(pool.map(lambda bld: bld.build(names), (build, b_build)))
@@ -159,7 +167,9 @@ def main(argv=None) -> int:
     if args.only in (None, "weights"):
         weights(args, compare, dev, g, qmm, qmm_id, b_qmm, b_qmm_id, b_wire, WireTensor,
                 llama3_8b_config(), mixtral_8x7b_config(), random_wire, random_experts)
-    if args.only == "weights":
+    if args.only in (None, "quant"):
+        quant(compare, dev, g, flash_q8, b_q8, H, Hkv, D)
+    if args.only in ("weights", "quant"):
         print(json.dumps({"device": torch.cuda.get_device_name(0), "rows": rows}))
         return 0
 
@@ -209,6 +219,43 @@ def main(argv=None) -> int:
     return 0
 
 
+def quant(compare, dev, g, flash_q8, b_q8, H, Hkv, D):
+    """K6 (flash_decode_stacked) and K8 (flash_decode_q8, the per-layer
+    entry) of both trees over the same planes, against the plain version."""
+    import torch
+
+    from ..runtime.kv_cache import QuantKVCache
+
+    scale = D**-0.5
+    q, kc, vc = (torch.randn(1, h, D, generator=g, device=dev).to(torch.bfloat16)
+                 for h in (H, Hkv, Hkv))
+    for kind in ("q8_0", "q4_0"):
+        kinds = (kind, kind)
+        for S, n in ((1024, 1000), (32768, 32765)):
+            cache = QuantKVCache.create(2, 1, S, Hkv, D, D, kinds=kinds, device=dev)
+            for il in range(2):  # one layer at a time keeps the f32 staging small
+                kv = [torch.randn(1, 1, S, Hkv, D, generator=g, device=dev) for _ in "kv"]
+                part = QuantKVCache([p[il:il + 1] for p in cache.k_planes],
+                                    [p[il:il + 1] for p in cache.v_planes], kinds, Hkv)
+                part.write_all(*kv, torch.zeros(1, dtype=torch.int32, device=dev))
+            kp, vp = cache.k_planes, cache.v_planes
+            kl, vl = [p[1] for p in kp], [p[1] for p in vp]
+            seq = torch.tensor([n], dtype=torch.int32, device=dev)
+            compare(f"K6 {kind} seq_len={n} S={S}", [
+                ("K6 this", lambda: flash_q8.flash_decode_stacked(q, kp, vp, 1, kc, vc, seq, scale,
+                                                                  kinds=kinds)),
+                ("K6 baseline", lambda: b_q8.flash_decode_stacked(q, kp, vp, 1, kc, vc, seq,
+                                                                  scale, kinds=kinds)),
+                ("K8 this", lambda: flash_q8.flash_decode_q8(q, kl, vl, kc, vc, seq, scale,
+                                                             kinds=kinds)),
+                ("K8 baseline", lambda: b_q8.flash_decode_q8(q, kl, vl, kc, vc, seq, scale,
+                                                             kinds=kinds))],
+                lambda: flash_q8.flash_decode_stacked_plain(q, kp, vp, 1, kc, vc, seq, scale,
+                                                            kinds=kinds), library=False)
+            del cache, kp, vp, kl, vl, part, kv
+            torch.cuda.empty_cache()
+
+
 def weights(args, compare, dev, g, qmm, qmm_id, b_qmm, b_qmm_id, b_wire, WireTensor, cfg, mcfg,
             random_wire, random_experts):
     """qmv, qgemm, qmv_id and qgemm_id of both trees on the same wire blocks
@@ -226,21 +273,27 @@ def weights(args, compare, dev, g, qmm, qmm_id, b_qmm, b_qmm_id, b_wire, WireTen
     w = {"qk": random_wire("Q4_K", 5120, E, g, dev), "v": random_wire("Q6_K", 1024, E, g, dev),
          "o": random_wire("Q4_K", E, E, g, dev), "gu": random_wire("Q4_K", 2 * F, E, g, dev),
          "d4": random_wire("Q4_K", E, F, g, dev), "d6": random_wire("Q6_K", E, F, g, dev),
-         "head": random_wire("Q6_K", V, E, g, dev)}
+         "head": random_wire("Q6_K", V, E, g, dev),
+         # a real Mixtral Q4_K_M file's attention weights
+         "q4": random_wire("Q4_K", E, E, g, dev), "k8": random_wire("Q8_0", 1024, E, g, dev),
+         "v8": random_wire("Q8_0", 1024, E, g, dev), "o5": random_wire("Q5_K", E, E, g, dev)}
     shapes = [("attn_qk+attn_v", ["qk", "v"]), ("attn_output", ["o"]), ("ffn_gate_up", ["gu"]),
-              ("ffn_down Q4_K", ["d4"]), ("ffn_down Q6_K", ["d6"]), ("output Q6_K", ["head"])]
+              ("ffn_down Q4_K", ["d4"]), ("ffn_down Q6_K", ["d6"]), ("output Q6_K", ["head"]),
+              ("attn_k Q8_0", ["k8"]), ("attn_output Q5_K", ["o5"]),
+              ("Mixtral attn_q+k+v", ["q4", "k8", "v8"])]
     for kname, B in (("qmv", 1), ("qgemm", 128), ("qgemm", 512)):
         for label, keys in shapes:
             if kname == "qgemm" and label.startswith("output"):
                 continue  # the prefill LM head runs on the last position only: qmv
             ws = [w[k] for k in keys]
-            bws = [base(x) for x in ws]
             x = torch.randn(B, ws[0].shape[1], generator=g, device=dev).to(torch.bfloat16)
             this_fn, base_fn = getattr(qmm, kname), getattr(b_qmm, kname)
-            compare(f"{kname} B={B} {label}", [
-                (f"{kname} this", lambda: cat(this_fn(x, ws))),
-                (f"{kname} baseline", lambda: cat(base_fn(x, bws)))],
-                lambda: cat([qmm.qmm_plain(x, wt) for wt in ws]), TOL_QMM, library=False)
+            callees = [(f"{kname} this", lambda: cat(this_fn(x, ws)))]
+            if all(wt.kind in b_qmm._KIND_ID for wt in ws):  # else the baseline refuses
+                bws = [base(wt) for wt in ws]
+                callees.append((f"{kname} baseline", lambda: cat(base_fn(x, bws))))
+            compare(f"{kname} B={B} {label}", callees,
+                    lambda: cat([qmm.qmm_plain(x, wt) for wt in ws]), TOL_QMM, library=False)
     del w
     torch.cuda.empty_cache()
 

@@ -3,8 +3,9 @@
     python -m llamacog_tpu_torch.tools.profile [--model mixtral-8x7b] [--layers 32] \
         [--steps 32] [--kv-type q8_0] [--prompt 512 --prefill] [--max-seq 8192]
 
-Builds the Llama-3-8B (or, with --model mixtral-8x7b, the Mixtral-8x7B)
-synthetic Q4_K_M model (depth cut by --layers) with an Engine of --max-seq
+Builds the Llama-3-8B (or, with --model mixtral-8x7b, the Mixtral-8x7B,
+with the attention weight kinds of a real Q4_K_M file) synthetic Q4_K_M
+model (depth cut by --layers) with an Engine of --max-seq
 slots (1024 by default), prefills a --prompt-token prompt (128), then runs
 --steps greedy decode steps (Engine.decode_greedy_tokens) twice: once
 timed on the host clock, once
@@ -46,8 +47,8 @@ def main(argv=None) -> int:
 
     make_config = mixtral_8x7b_config if args.model == "mixtral-8x7b" else llama3_8b_config
     cfg = make_config(n_layer=args.layers)
-    eng = Engine(make_synthetic_params(cfg, seed=0), cfg, batch_size=1, max_seq=args.max_seq,
-                 kv_type=args.kv_type)
+    params = make_synthetic_params(cfg, seed=0)
+    eng = Engine(params, cfg, batch_size=1, max_seq=args.max_seq, kv_type=args.kv_type)
     prompt = [(i * 31337) % cfg.n_vocab for i in range(args.prompt)]
 
     def prefill() -> int:

@@ -9,7 +9,10 @@ attn_v and output are Q6_K, ffn_down is Q6_K on the "use more bits" layers,
 everything else Q4_K; q+k and gate+up arrive fused, as the loader fuses a
 real Q4_K_M file. A MoE config (n_expert > 0) gets an f32 router and
 stacked experts instead of the dense FFN: gate+up fused per expert, Q4_K;
-down by the same "more bits" rule.
+down by the same "more bits" rule. An 8-expert config gets the attention
+kinds llama.cpp's Q4_K_M rules give such a file (llama_tensor_get_type:
+Q8_0 attn_k and attn_v, Q5_K attn_output), with attn_q, attn_k and attn_v
+apart, as the loader leaves mixed kinds.
 """
 
 from __future__ import annotations
@@ -19,8 +22,10 @@ import torch
 from ..models.config import ModelConfig, RopeConfig
 from ..quant.wire import BLOCK_BYTES, QK_K, WireTensor
 
-# byte offsets of each kind's f16 superblock scales (d, and dmin for Q4_K)
-_F16_FIELDS = {"Q4_K": (0, 2), "Q6_K": (208,)}
+# byte offsets of each kind's f16 scales in QK_K weights (d, and dmin for
+# Q4_K and Q5_K; Q8_0 has one d in each of its eight 34-byte blocks)
+_F16_FIELDS = {"Q4_K": (0, 2), "Q6_K": (208,), "Q8_0": tuple(range(0, 272, 34)),
+               "Q5_K": (0, 2)}
 
 
 def random_wire(kind: str, n: int, k: int, generator: torch.Generator,
@@ -71,7 +76,9 @@ def random_experts(kind: str, n_exp: int, n: int, k: int, generator: torch.Gener
 
 
 def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
-    """Random Q4_K_M params for the llama forward, on `device`."""
+    """Random Q4_K_M params for the llama forward, on `device`. An 8-expert
+    config's attention weights take the kinds of a real Q4_K_M file:
+    attn_q Q4_K, attn_k and attn_v Q8_0, attn_output Q5_K, unfused."""
     from .. import resolve_device
 
     dev = resolve_device(device)
@@ -89,10 +96,16 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
         layer = {
             "attn_norm": torch.ones(E, dtype=torch.float32, device=dev),
             "ffn_norm": torch.ones(E, dtype=torch.float32, device=dev),
-            "attn_qk": random_wire("Q4_K", cfg.n_head * cfg.head_dim_k + kv, E, g, dev),
-            "attn_v": random_wire("Q6_K", kv, E, g, dev),
-            "attn_output": random_wire("Q4_K", E, cfg.n_head * cfg.head_dim_v, g, dev),
         }
+        if cfg.n_expert == 8:
+            layer["attn_q"] = random_wire("Q4_K", cfg.n_head * cfg.head_dim_k, E, g, dev)
+            layer["attn_k"] = random_wire("Q8_0", kv, E, g, dev)
+            layer["attn_v"] = random_wire("Q8_0", cfg.n_head_kv * cfg.head_dim_v, E, g, dev)
+            layer["attn_output"] = random_wire("Q5_K", E, cfg.n_head * cfg.head_dim_v, g, dev)
+        else:
+            layer["attn_qk"] = random_wire("Q4_K", cfg.n_head * cfg.head_dim_k + kv, E, g, dev)
+            layer["attn_v"] = random_wire("Q6_K", kv, E, g, dev)
+            layer["attn_output"] = random_wire("Q4_K", E, cfg.n_head * cfg.head_dim_v, g, dev)
         if cfg.n_expert > 0:
             n_exp = cfg.n_expert
             layer["ffn_gate_inp"] = torch.randn((n_exp, E), generator=g, device=dev) * 0.02

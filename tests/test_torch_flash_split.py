@@ -1,7 +1,9 @@
-"""The split-S decode (csrc/flash_decode_dense.cu with csrc/flash_split.cuh)
-on the CPU: the host's split chooser, and the combine kernel's plain
-version, over split partials made here by plain torch, held against the JAX
-Pallas K4 kernel in interpret mode.
+"""The split-S decode (csrc/flash_decode_dense.cu and
+csrc/flash_decode_quant.cu with csrc/flash_split.cuh) on the CPU: the
+host's split chooser, and the combine kernel's plain version, over split
+partials made here by plain torch, held against the JAX Pallas K4 kernel
+and, over the quantized planes (dequantized as the kernel does, bit for bit
+as kv_dequant_planes), the Pallas K6 kernel in interpret mode.
 
 f32 throughout. Tolerances as tests/test_torch_attention.py's decode test
 (2e-5 absolute and relative): the two sides differ in summation order and
@@ -16,11 +18,14 @@ import torch
 import jax.numpy as jnp
 
 from llamacog_tpu.ops.pallas import flash_q8 as jax_flash_q8
+from llamacog_tpu.runtime.kv_cache import kv_quant_planes as jax_kv_quant_planes
 from llamacog_tpu_torch.ops.cuda.flash_q8 import (
     SPLIT_ALIGN, SPLIT_MIN_LEN, SPLIT_TARGET_BLOCKS, choose_splits, combine_partials_plain,
     flash_decode_stacked_dense_plain)
+from llamacog_tpu_torch.runtime.kv_cache import kv_dequant_planes
 
 ATOL = RTOL = 2e-5
+STACKED_TOL = 2e-4  # the JAX package's own for its stacked quantized decode (test_flash_q8.py)
 
 
 def _split_bounds(n: int, s_eff: int, window: int, sp: int, split_len: int) -> tuple[int, int]:
@@ -158,3 +163,56 @@ def test_split_partials_are_the_plain_decode():
                                                n_split=n_split, split_len=split_len)
         got = combine_partials_plain(ws, live, q, kc, vc, D**-0.5)
         np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL, rtol=RTOL)
+
+
+# (seq_len per row, window) of the quantized-cache cases: B = 2 with unequal
+# depths, a window that leaves whole splits out, an empty old cache, and a
+# row deeper than the kv_cap bucket
+QUANT_CASES = [((300, 17), 0), ((300, 17), 64), ((0, 1), 0), ((450, 383), 0)]
+
+
+def quant_split_path(q, k_planes, v_planes, il, kc, vc, seq_len, scale, softcap, window,
+                     kv_cap, kinds, n_split, split_len=None):
+    """The quantized decode kernel's split rule in plain torch: layer `il`
+    of the stacked planes [L, B, S, Hkv*W] dequantized (as the kernel does,
+    bit for bit as kv_dequant_planes), the splits' partials, and the
+    combine -> [B, H, Dv]."""
+    B, Hkv = q.shape[0], kc.shape[1]
+    S = k_planes[0].shape[2] if kv_cap is None else min(kv_cap, k_planes[0].shape[2])
+    k, v = (kv_dequant_planes(kind, tuple(p[il, :, :S].reshape(B, S, Hkv, -1) for p in planes),
+                              torch.float32)
+            for kind, planes in zip(kinds, (k_planes, v_planes)))
+    ws, live = decode_split_partials_plain(q, k, v, seq_len, scale, softcap=softcap,
+                                           window=window, s_eff=S, n_split=n_split,
+                                           split_len=split_len)
+    return combine_partials_plain(ws, live, q, kc, vc, scale, softcap=softcap)
+
+
+@pytest.mark.parametrize("kv_cap", [None, 384])
+@pytest.mark.parametrize("lens,window", QUANT_CASES, ids=lambda c: str(c))
+@pytest.mark.parametrize("kinds", [("q8_0", "q8_0"), ("q4_0", "q4_0"), ("q5_1", "q4_1")],
+                         ids=lambda k: f"{k[0]}-{k[1]}")
+def test_quant_split_combine_matches_pallas(kinds, lens, window, kv_cap):
+    """K6's split rule (csrc/flash_decode_quant.cu) over the quantized planes
+    against the Pallas flash_decode_stacked, at 1, 3 and 8 splits and at
+    choose_splits' own, each with softcap off and on."""
+    L, B, S, H, Hkv, D = 2, 2, 512, 8, 2, 32
+    rng = np.random.default_rng(len(kinds[0]) + window)
+    planes = [[np.asarray(p).reshape(L, B, S, -1) for p in jax_kv_quant_planes(
+        kind, jnp.asarray(_rand(rng, L, B, S, Hkv, D)))] for kind in kinds]
+    q, kc, vc = _rand(rng, B, H, D), _rand(rng, B, Hkv, D), _rand(rng, B, Hkv, D)
+    seq_len = np.array(lens, np.int32)
+    t_planes = [[torch.from_numpy(np.array(p)) for p in ps] for ps in planes]
+    t = [torch.from_numpy(a) for a in (q, kc, vc, seq_len)]
+    s_eff = S if kv_cap is None else kv_cap
+    for softcap in (0.0, 25.0):
+        want = np.asarray(jax_flash_q8.flash_decode_stacked(
+            jnp.asarray(q), tuple(map(jnp.asarray, planes[0])),
+            tuple(map(jnp.asarray, planes[1])), 1, jnp.asarray(kc), jnp.asarray(vc),
+            jnp.asarray(seq_len), D**-0.5, softcap=softcap, window=window, interpret=True,
+            kv_cap=kv_cap, kinds=kinds))
+        for n_split, split_len in ((1, None), (3, None), (8, None), choose_splits(s_eff, B, Hkv)):
+            got = quant_split_path(t[0], *t_planes, 1, t[1], t[2], t[3], D**-0.5, softcap,
+                                   window, kv_cap, kinds, n_split, split_len)
+            assert got.shape == (B, H, D) and got.dtype == torch.float32
+            np.testing.assert_allclose(got.numpy(), want, atol=STACKED_TOL, rtol=STACKED_TOL)

@@ -22,9 +22,9 @@ from llamacog_tpu_torch.ops.cuda import build
 from llamacog_tpu_torch.ops.cuda.flash_prefill import (
     flash_prefill_attention_plain, flash_prefill_kernel)
 from llamacog_tpu_torch.ops.cuda.flash_q8 import (
-    flash_decode_q8, flash_decode_quant_kernel, flash_decode_stacked_dense,
-    flash_decode_stacked_dense_plain, flash_decode_stacked_plain, flash_prefill_q8_plain,
-    flash_prefill_quant_kernel)
+    choose_splits, flash_decode_q8, flash_decode_q8_tiled, flash_decode_quant_kernel,
+    flash_decode_stacked, flash_decode_stacked_dense, flash_decode_stacked_dense_plain,
+    flash_decode_stacked_plain, flash_prefill_q8_plain, flash_prefill_quant_kernel)
 from llamacog_tpu_torch.ops.cuda.qmm import qgemm, qmm_multi_cuda, qmm_plain, qmv
 from llamacog_tpu_torch.ops.cuda.qmm_id import (
     qgemm_id_kernel, qmm_gather, qmm_gather_offset, qmm_gather_plain, qmm_ragged,
@@ -39,6 +39,9 @@ QMM_TOL = 1e-4
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 KIND_PAIRS = [(k, k) for k in ("q8_0", "q4_0", "q4_1", "q5_0", "q5_1")] + [
     ("q8_0", "q5_1"), ("q5_0", "q4_1"), ("bf16", "q4_0"), ("q8_0", "f16")]
+# weight kinds of qmv/qgemm: the Q4_K_M body and its more-bits layers, and
+# the Q8_0 / Q5_K attention weights of an 8-expert Q4_K_M file
+WEIGHT_KINDS = ["Q4_K", "Q6_K", "Q8_0", "Q5_K"]
 
 pytestmark = pytest.mark.cuda
 
@@ -55,7 +58,7 @@ def rel_err(got, ref):
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
 
 
-@pytest.mark.parametrize("kind", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("kind", WEIGHT_KINDS)
 @pytest.mark.parametrize("B,dtype", [*[(b, torch.float32) for b in range(1, 10)],
                                      (33, torch.float32),
                                      *[(b, torch.bfloat16) for b in range(1, 9)]])
@@ -70,7 +73,7 @@ def test_qmv_matches_plain(dev, kind, B, dtype):
     assert rel_err(got, qmm_plain(x, w)) < QMM_TOL
 
 
-@pytest.mark.parametrize("kind", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("kind", WEIGHT_KINDS)
 @pytest.mark.parametrize("N,K", [(1000, 256), (1000, 1024), (200, 2304), (8200, 512)])
 @pytest.mark.parametrize("B", [9, 63, 64, 65, 127, 128, 129, 300, 512])
 def test_qgemm_matches_plain(dev, kind, N, K, B):
@@ -91,16 +94,18 @@ def test_qgemm_matches_plain(dev, kind, N, K, B):
     assert rel_err(got, qmm_plain(x, w)) < QMM_TOL
 
 
+@pytest.mark.parametrize("kinds", [("Q4_K", "Q6_K", "Q6_K", "Q4_K"),
+                                   ("Q8_0", "Q5_K", "Q4_K", "Q8_0"),
+                                   ("Q5_K", "Q8_0", "Q6_K", "Q5_K")], ids="-".join)
 @pytest.mark.parametrize("B,dtype", [(1, torch.bfloat16), (5, torch.float32),
                                      *[(b, torch.bfloat16) for b in (9, 33, 70, 130)]])
-def test_four_mixed_descriptors_one_launch(dev, B, dtype):
-    """Four weights of both kinds sharing x (K3): one launch of qmv (B <= 8
+def test_four_mixed_descriptors_one_launch(dev, B, dtype, kinds):
+    """Four weights of mixed kinds sharing x (K3): one launch of qmv (B <= 8
     or f32) or qgemm, counted once, every output as its own product; qgemm
     on 64-row tiles (B = 9, 33) and on 128-row tiles (70 weight blocks: B =
     70, and B = 130 over two row tiles)."""
     g = torch.Generator(device=dev).manual_seed(B)
-    ws = [random_wire("Q4_K", 300, 512, g, dev), random_wire("Q6_K", 72, 512, g, dev),
-          random_wire("Q6_K", 8200, 512, g, dev), random_wire("Q4_K", 8, 512, g, dev)]
+    ws = [random_wire(kind, n, 512, g, dev) for kind, n in zip(kinds, (300, 72, 8200, 8))]
     x = torch.randn(B, 512, generator=g, device=dev).to(dtype)
     build.reset_launches()
     outs = qmm_multi_cuda(x, ws)
@@ -112,10 +117,13 @@ def test_four_mixed_descriptors_one_launch(dev, B, dtype):
         assert rel_err(got, qmm_plain(x, w)) < QMM_TOL
 
 
+@pytest.mark.parametrize("kinds", [("Q4_K", "Q6_K"), ("Q4_K", "Q8_0", "Q8_0")], ids="-".join)
 @pytest.mark.parametrize("B", [9, 33, 130])
-def test_qgemm_multi_matches_plain(dev, B):
+def test_qgemm_multi_matches_plain(dev, B, kinds):
+    """attn_qk + attn_v of a Q4_K_M layer; attn_q + attn_k + attn_v of an
+    8-expert Q4_K_M file."""
     g = torch.Generator(device=dev).manual_seed(B)
-    ws = [random_wire("Q4_K", 160, 512, g, dev), random_wire("Q6_K", 72, 512, g, dev)]
+    ws = [random_wire(kind, n, 512, g, dev) for kind, n in zip(kinds, (160, 72, 72))]
     x = torch.randn(B, 512, generator=g, device=dev).to(torch.bfloat16)
     outs = qgemm(x, ws)
     torch.cuda.synchronize()
@@ -200,6 +208,11 @@ def test_moe_launchers_reject_bad_input(dev):
         qmv_id_kernel(xs[:2], te.repeat(2), random_wire("Q4_K", 64, 256, g, dev))
     with pytest.raises(ValueError):  # f32 x: the K10 route's job
         qgemm_id_kernel(xs.float(), te, w, 64)
+    w8 = random_experts("Q8_0", 4, 64, 256, g, dev)  # expert kinds stay Q4_K/Q6_K: by name
+    with pytest.raises(ValueError, match="Q8_0"):
+        qmv_id_kernel(xs[:2], te.repeat(2), w8)
+    with pytest.raises(ValueError, match="Q8_0"):
+        qgemm_id_kernel(xs, te, w8, 64)
 
 
 @pytest.mark.parametrize("softcap,window", [(0.0, 0), (25.0, 0), (0.0, 64)])
@@ -256,29 +269,63 @@ def _quant_cache(dev, kinds, L, B, S, Hkv, D, g):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kinds", KIND_PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
 def test_flash_decode_quant_matches_plain(dev, kinds, dtype):
+    """The split kernel (64-position splits here: choose_splits(512, 2, 2)
+    and (384, 2, 2)) at B = 2 with unequal depths on both sides of split
+    boundaries, whole and with window, softcap and a kv_cap bucket; one
+    count a call (split and combine)."""
     L, B, S, H, Hkv, D = 2, 2, 512, 8, 2, 128
+    assert choose_splits(S, B, Hkv)[1] == choose_splits(384, B, Hkv)[1] == 64
     g = torch.Generator(device=dev).manual_seed(3)
     cache = _quant_cache(dev, kinds, L, B, S, Hkv, D, g)
     q = torch.randn(B, H, D, generator=g, device=dev).to(dtype)
     kc = torch.randn(B, Hkv, D, generator=g, device=dev).to(dtype)
     vc = torch.randn(B, Hkv, D, generator=g, device=dev).to(dtype)
+    for lens in ((300, 17), (64, 65), (128, 511), (0, 1)):
+        seq_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for softcap, window, kv_cap in ((0.0, 0, None), (25.0, 64, 384)):
+            args = (q, cache.k_planes, cache.v_planes, 1, kc, vc, seq_len, D**-0.5)
+            kw = dict(softcap=softcap, window=window, kv_cap=kv_cap, kinds=kinds)
+            before = build.LAUNCHES["flash_decode_quant"]
+            got = flash_decode_stacked(*args, **kw)
+            assert build.LAUNCHES["flash_decode_quant"] == before + 1
+            ref = flash_decode_stacked_plain(*args, **kw)
+            torch.cuda.synchronize()
+            assert got.shape == (B, H, D) and got.dtype == dtype
+            assert rel_err(got, ref) < ATTN_TOL[dtype], (lens, softcap, window, kv_cap)
+    # the per-layer entries (K8a, K8b) on planes[il] views launch the same kernel
     seq_len = torch.tensor([300, 17], dtype=torch.int32, device=dev)
-    for softcap, window, kv_cap in ((0.0, 0, None), (25.0, 64, 384)):
-        args = (q, cache.k_planes, cache.v_planes, 1, kc, vc, seq_len, D**-0.5)
-        kw = dict(softcap=softcap, window=window, kv_cap=kv_cap, kinds=kinds)
-        got = flash_decode_quant_kernel(*args, **kw)
-        ref = flash_decode_stacked_plain(*args, **kw)
-        torch.cuda.synchronize()
-        assert got.shape == (B, H, D) and got.dtype == dtype
-        assert rel_err(got, ref) < ATTN_TOL[dtype]
-    # the per-layer entry (K8a/K8b) on planes[il] views launches the same kernel
-    before = build.LAUNCHES["flash_decode_quant"]
-    got = flash_decode_q8(q, [p[1] for p in cache.k_planes], [p[1] for p in cache.v_planes],
-                          kc, vc, seq_len, D**-0.5, kinds=kinds)
-    assert build.LAUNCHES["flash_decode_quant"] == before + 1
     ref = flash_decode_stacked_plain(q, cache.k_planes, cache.v_planes, 1, kc, vc, seq_len,
                                      D**-0.5, kinds=kinds)
-    assert rel_err(got, ref) < ATTN_TOL[dtype]
+    for entry in (flash_decode_q8, flash_decode_q8_tiled):
+        before = build.LAUNCHES["flash_decode_quant"]
+        got = entry(q, [p[1] for p in cache.k_planes], [p[1] for p in cache.v_planes],
+                    kc, vc, seq_len, D**-0.5, kinds=kinds)
+        assert build.LAUNCHES["flash_decode_quant"] == before + 1
+        assert rel_err(got, ref) < ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("H,Hkv,D", [(32, 8, 128), (16, 1, 64), (8, 2, 96)])
+@pytest.mark.parametrize("kinds", [("q8_0", "q8_0"), ("q4_0", "q5_1")],
+                         ids=lambda p: f"{p[0]}-{p[1]}")
+def test_flash_decode_quant_split_edges(dev, kinds, H, Hkv, D):
+    """The 8B heads (rep 4) over a 2048-slot cache (16 splits of 128), rep
+    16 (the spilling head group) and a head dim whose group count (3) does
+    not divide 8: depths at and around split boundaries, bf16."""
+    B, S = 2, 2048
+    g = torch.Generator(device=dev).manual_seed(H + D)
+    cache = _quant_cache(dev, kinds, 1, B, S, Hkv, D, g)
+    q = torch.randn(B, H, D, generator=g, device=dev).to(torch.bfloat16)
+    kc = torch.randn(B, Hkv, D, generator=g, device=dev).to(torch.bfloat16)
+    vc = torch.randn(B, Hkv, D, generator=g, device=dev).to(torch.bfloat16)
+    split_len = choose_splits(S, B, Hkv)[1]
+    for lens in ((split_len, split_len + 1), (8 * split_len - 1, 1000), (2047, 2048)):
+        seq_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for window in (0, 300):
+            args = (q, cache.k_planes, cache.v_planes, 0, kc, vc, seq_len, D**-0.5)
+            got = flash_decode_quant_kernel(*args, window=window, kinds=kinds)
+            ref = flash_decode_stacked_plain(*args, window=window, kinds=kinds)
+            torch.cuda.synchronize()
+            assert rel_err(got, ref) < ATTN_TOL[torch.bfloat16], (lens, window)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

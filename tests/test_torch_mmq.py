@@ -59,7 +59,7 @@ def rel_err(got, ref):
     return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
 
 
-@pytest.mark.parametrize("kind", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("kind", ["Q4_K", "Q6_K", "Q8_0", "Q5_K"])
 def test_mmq_planes_bit_equal_to_jax(kind):
     qt, w = _pair(kind, 512, 1024, seed=1)
     ref = jax_build_mmq_planes(qt)

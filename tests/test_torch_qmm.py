@@ -35,7 +35,10 @@ def _pair(kind, n, k, seed):
     return qt, wire.from_bytes(raw, t, (n, k))
 
 
-@pytest.mark.parametrize("kind", ["Q4_K", "Q6_K"])
+KINDS = ["Q4_K", "Q6_K", "Q8_0", "Q5_K"]
+
+
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("batch,bf16", [(1, False), (8, False), (32, False), (32, True)])
 def test_qmm_plain_matches_pallas(kind, batch, bf16):
     """B=32 in bf16 is the qgemm path (bf16 operands), the rest qmv's (f32)."""
@@ -55,15 +58,18 @@ def test_qmm_plain_matches_pallas(kind, batch, bf16):
     assert torch.equal(lin, got.to(xt.dtype))
 
 
+@pytest.mark.parametrize("kinds", [("Q4_K", "Q6_K"), ("Q4_K", "Q8_0", "Q8_0")],
+                         ids=lambda k: "+".join(k))
 @pytest.mark.parametrize("batch", [1, 32])
-def test_qmm_multi_plain_matches_pallas(batch):
-    """A Q4_K + Q6_K pair sharing x: the attn_qk + attn_v launch."""
-    qa, wa = _pair("Q4_K", N, K, seed=11)
-    qb, wb = _pair("Q6_K", N // 2, K, seed=12)
+def test_qmm_multi_plain_matches_pallas(batch, kinds):
+    """Weights sharing x in one launch: a Q4_K_M layer's attn_qk + attn_v
+    (Q4_K + Q6_K), and an 8-expert Q4_K_M file's attn_q + attn_k + attn_v
+    (Q4_K + Q8_0 + Q8_0)."""
+    pairs = [_pair(kind, N // (1 + i), K, seed=11 + i) for i, kind in enumerate(kinds)]
     x = np.random.default_rng(13).standard_normal((batch, K)).astype(np.float32)
-    refs = qmm_multi(jnp.asarray(x), [qa, qb], interpret=True)
-    outs = linear.qmatmul_multi(torch.from_numpy(x), [wa, wb])
-    assert [o.shape for o in outs] == [(batch, N), (batch, N // 2)]
+    refs = qmm_multi(jnp.asarray(x), [qt for qt, _ in pairs], interpret=True)
+    outs = linear.qmatmul_multi(torch.from_numpy(x), [wt for _, wt in pairs])
+    assert [o.shape for o in outs] == [(batch, wt.shape[0]) for _, wt in pairs]
     for got, ref in zip(outs, refs):
         assert nmse(got.numpy(), np.asarray(ref)) < 2e-4
 
@@ -85,12 +91,28 @@ def test_qmatmul_multi_declines_mismatched_k():
 
 def _levels_scales(wt):
     """The qmv kernel's levels [N, K] (the raw levels plus a bias: Q4_K
-    16 + (0..15), Q6_K 64 + (0..63)) and, per part of its lane slice (Q4_K
-    16 weights, Q6_K 8), the scale sc and offset mn [N, K / part] of wt's
-    blocks with the bias folded into mn, in f32 as the kernel forms them."""
+    16 + (0..15), Q5_K 32 + (0..31), Q6_K 64 + (0..63); Q8_0 the signed
+    levels) and, per part of its lane slice (Q4_K and Q5_K 16 weights, Q6_K
+    8, Q8_0 32), the scale sc and offset mn [N, K / part] of wt's blocks
+    with the bias folded into mn, in f32 as the kernel forms them."""
     b = wt.blocks.reshape(-1, wire.BLOCK_BYTES[wt.kind])
     n, k = wt.shape
-    if wt.kind == "Q4_K":
+    if wt.kind == "Q8_0":
+        blk = b.reshape(-1, 34)
+        q = blk[:, 2:34].contiguous().view(torch.int8).reshape(-1, 256)
+        sc = wire._f16_at(blk, 0).reshape(-1, 8)
+        mn = torch.zeros_like(sc)
+    elif wt.kind == "Q5_K":
+        d, dmin = wire._f16_at(b, 0), wire._f16_at(b, 2)
+        sc, mn = wire._k4_scale_min(b[:, 4:16])
+        qh = b[:, 16:48].reshape(-1, 1, 32)
+        hb = torch.cat([(qh >> s) & 1 for s in range(8)], dim=1).reshape(-1, 256)
+        qs = b[:, 48:176].reshape(-1, 4, 1, 32)
+        q = torch.cat([qs & 0xF, qs >> 4], dim=2).reshape(-1, 256) | (hb << 4)
+        sc = (d * sc.float()).repeat_interleave(2, dim=1)
+        mn = (32.0 * sc + (dmin * mn.float()).repeat_interleave(2, dim=1))
+        q = q + 32
+    elif wt.kind == "Q4_K":
         d, dmin = wire._f16_at(b, 0), wire._f16_at(b, 2)
         sc, mn = wire._k4_scale_min(b[:, 4:16])
         qs = b[:, 16:144].reshape(-1, 4, 1, 32)
@@ -124,7 +146,7 @@ def qmv_folded(x, wt):
     return (sc[None] * dots - mn[None] * xp.sum(-1)[:, None]).sum(-1)
 
 
-@pytest.mark.parametrize("kind", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("K", [4096, 14336])
 def test_qmv_folded_order_within_tolerance(kind, K):
     """Evidence for qmv's tolerance (TOL_QMM = 1e-4 of the largest output in
@@ -146,8 +168,9 @@ def test_gemm_dequant_fused_rounding_matches_plain():
     fma(d*sc, 16 + q, -16 d*sc) - dmin*m and Q6_K weights as
     fma(d*sc, 64 + q, -96 d*sc): the exact product needs at most 23
     significant bits, so each weight rounds exactly as the plain dequant's
-    (d*sc)*q - dmin*m and (d*sc)*(q - 32). FMA is modelled in f64 (exact
-    for these operands) with one rounding to f32."""
+    (d*sc)*q - dmin*m and (d*sc)*(q - 32); Q5_K weights as
+    fma(d*sc, 32 + q, -32 d*sc) - dmin*m (at most 23 bits too). FMA is
+    modelled in f64 (exact for these operands) with one rounding to f32."""
     rng = np.random.default_rng(0)
     n = 50_000
     f32 = np.float32
@@ -164,3 +187,5 @@ def test_gemm_dequant_fused_rounding_matches_plain():
     s8, q6 = rng.integers(-128, 128, n).astype(f32), rng.integers(0, 64, n).astype(f32)
     dl6 = d * s8
     np.testing.assert_array_equal(fma(dl6, 64 + q6, -96 * dl6), dl6 * (q6 - 32))
+    q5 = rng.integers(0, 32, n).astype(f32)
+    np.testing.assert_array_equal(fma(dl, 32 + q5, -32 * dl) - ml, dl * q5 - ml)

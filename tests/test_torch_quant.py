@@ -13,7 +13,7 @@ from llamacog_tpu.quant.decode_np import dequantize_tensor
 from llamacog_tpu.quant.planar import decode, from_gguf
 from llamacog_tpu_torch.quant import wire
 
-KINDS = ["Q4_K", "Q6_K"]
+KINDS = ["Q4_K", "Q6_K", "Q8_0", "Q5_K"]
 
 
 def _blocks(kind, n, k, seed):
@@ -77,5 +77,6 @@ def test_fuse_rows_concatenates_blocks():
 
 
 def test_unported_kind_raises():
-    with pytest.raises(NotImplementedError):
-        wire.from_bytes(np.zeros(34, np.uint8), GGMLType.Q8_0, (1, 32))
+    """A kind the port does not carry is refused by name."""
+    with pytest.raises(NotImplementedError, match="Q4_0"):
+        wire.from_bytes(np.zeros(18 * 8, np.uint8), GGMLType.Q4_0, (1, 256))
