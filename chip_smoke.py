@@ -20,8 +20,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      on the host per call; K5's bf16 SIMT body at head dim 72 and on a
      misaligned cache view), and the quantized-cache attention
      kernels (decode over every K/V kind pair at depth 1000, q8_0/q4_0 at
-     depth 32765, the per-layer entries, and prefill at write offsets 0
-     and 896); then the MoE kernels at the Mixtral-8x7B expert shapes (the
+     depth 32765, the per-layer entries; prefill K7's tensor-core tiles
+     over every kind pair at T=128 from write offset 896, three of them
+     also from 0, and q8_0/q4_0 at T=2048 from offsets 0 and 2048 of a
+     4096-slot layer, each beside K5 over a dense cache of the same values;
+     K7's SIMT body in f32 and on a q off 16 bytes); then the MoE kernels
+     at the Mixtral-8x7B expert shapes (the
      gather at 2 and 32 rows, the offset entry, the grouped GEMM of a
      128-token prefill);
   4. the full-width kernel path (8B widths, 2 layers) against the plain
@@ -40,9 +44,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      with LLAMACOG_MMQ=1 (exact, mmq, mmq, exact), and the per-layer dense
      decode route (K9), whose greedy tokens must equal the stacked
      route's, a long-context run (max_seq 8192, a 4096-token prompt in
-     two 2048-token chunks, 64 greedy tokens) and a deep q8_0 run (max_seq
-     4096, a 2048-token prompt in one chunk, 64 greedy tokens at depth
-     2048-2112); every kernel's launch count over each run; then, with the
+     two 2048-token chunks, 64 greedy tokens) and two deep q8_0 runs
+     (max_seq 4096, a 2048-token prompt in one chunk, 64 greedy tokens at
+     depth 2048-2112; max_seq 8192, a 4096-token prompt in two chunks, 16
+     tokens); every kernel's launch count over each run; then, with the
      8B params freed, the Mixtral-8x7B Q4_K_M synthetic run at full depth
      (32 layers, the kinds of a real file), the same way; the phase's wall
      time;
@@ -65,6 +70,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
 INT8_OPS = 1979e12         # H100 SXM dense int8 tensor-core peak
 # tolerances, relative to the largest |reference| value
 # qmm: qmv rounds no value to a narrower type but sums in another order
@@ -153,7 +159,8 @@ def main() -> int:
     from llamacog_tpu_torch.quant.mmq import build_mmq_planes
     from llamacog_tpu_torch.quant.wire import WireTensor
     from llamacog_tpu_torch.runtime.engine import Engine
-    from llamacog_tpu_torch.runtime.kv_cache import QuantKVCache, kv_plane_shapes
+    from llamacog_tpu_torch.runtime.kv_cache import (
+        QuantKVCache, kv_dequant_planes, kv_plane_shapes)
     from llamacog_tpu_torch.utils.synthetic import (
         llama3_8b_config, make_synthetic_params, mixtral_8x7b_config, random_experts,
         random_wire)
@@ -280,7 +287,8 @@ def main() -> int:
         bound is the larger of nbytes over the HBM rate and flops over
         `peak` (the tensor-core rate of the operands' type); `counter` is
         the launch count the row reads (the source's name by default), in
-        the phase-5 run `run` (by default the run of the kernel's path). A
+        the phase-5 run `run` ("mixtral" or an 8B run's name; by default
+        the run of the kernel's path). A
         row that is not `listed` is checked and logged but left out of the
         results line: no run of phase 5 launches its kernel."""
         err = max(rel_err(o, r) for o, r in zip(outs, refs))
@@ -573,25 +581,110 @@ def main() -> int:
                        flash_decode_stacked_plain, cache, 32765, 520, (kind, kind), True)
         del cache
         torch.cuda.empty_cache()
-    for kinds in (("q8_0", "q8_0"), ("q4_0", "q4_0"), ("q8_0", "q5_1")):
-        cache = quant_cache(kinds, S)
+    def prefill_row(label, cache, kinds, qp, kcp, vcp, n, run=None, dense_run=None):
+        """K7 on layer 1 of `cache` at write offset n: its tensor-core tiles
+        (one launch, checked), against its plain version, its launches read
+        from the phase-5 run `run`; with dense_run, K5 on the same shape
+        over a dense bf16 cache of the same values (the planes dequantized
+        and rounded to bf16: what K7's tiles multiply) in its own row, with
+        SDPA as its library call and its launches from `dense_run`."""
+        Tq, S_c = qp.shape[1], cache.max_seq
         kp, vp = [p[1] for p in cache.k_planes], [p[1] for p in cache.v_planes]
-        for n in (0, S - T):
-            seq = torch.tensor([n], dtype=torch.int32, device=dev)
-            args = (qp, kp, vp, kcp, vcp, seq, scale)
-            out = flash_prefill_q8(*args, kinds=kinds)
-            ref = flash_prefill_q8_plain(*args, kinds=kinds)
-            torch.cuda.synchronize()
-            keys = sum(n + t + 1 for t in range(T))
-            record(f"flash_prefill_q8 {kinds[0]}:{kinds[1]} T={T} H={H} Hkv={Hkv} D={D} "
-                   f"S={S} seq_len={n}", "llamacog_tpu_torch/csrc/flash_prefill_quant.cu",
-                   fq8.format(331), [out], [ref], TOL_ATTN,
-                   time_ms(lambda: flash_prefill_q8(*args, kinds=kinds)),
-                   time_ms(lambda: flash_prefill_q8_plain(*args, kinds=kinds), iters=5),
-                   n * Hkv * (row_bytes(kinds[0]) + row_bytes(kinds[1]))
-                   + 2 * (qp.numel() + kcp.numel() + vcp.numel() + T * H * D),
-                   4 * H * keys * D)
+        seq = torch.tensor([n], dtype=torch.int32, device=dev)
+        args = (qp, kp, vp, kcp, vcp, seq, scale)
+        before = dict(build.LAUNCHES)
+        out = flash_prefill_q8(*args, kinds=kinds)
+        took = {k: c - before[k] for k, c in build.LAUNCHES.items() if c != before[k]}
+        check(took == {"flash_prefill_quant": 1}, f"K7 {label}: launched {took}, not the tiles")
+        ref = flash_prefill_q8_plain(*args, kinds=kinds)
+        torch.cuda.synchronize()
+        keys = sum(n + t + 1 for t in range(Tq))
+        io_bytes = 2 * (qp.numel() + kcp.numel() + vcp.numel() + Tq * H * D)
+        shape = f"T={Tq} H={H} Hkv={Hkv} D={D} S={S_c} seq_len={n}"
+        record(f"flash_prefill_q8 {kinds[0]}:{kinds[1]} {shape}",
+               "llamacog_tpu_torch/csrc/flash_prefill_quant.cu", fq8.format(331), [out], [ref],
+               TOL_ATTN, time_ms(lambda: flash_prefill_q8(*args, kinds=kinds)),
+               time_ms(lambda: flash_prefill_q8_plain(*args, kinds=kinds), iters=5),
+               n * Hkv * (row_bytes(kinds[0]) + row_bytes(kinds[1])) + io_bytes,
+               4 * H * keys * D, run=run)
+        if dense_run is None:
+            return
+        kd, vd = (kv_dequant_planes(kind, tuple(p.reshape(1, S_c, Hkv, -1) for p in planes),
+                                    torch.float32).to(torch.bfloat16)
+                  for kind, planes in zip(kinds, (kp, vp)))
+        dargs = (qp, kd, vd, kcp, vcp, seq, scale)
+        out = flash_prefill_kernel(*dargs)
+        ref = flash_prefill_attention_plain(*dargs)
+        qs = qp.transpose(1, 2)
+        kfull = torch.cat([kd[:, :n], kcp], 1).transpose(1, 2).contiguous()
+        vfull = torch.cat([vd[:, :n], vcp], 1).transpose(1, 2).contiguous()
+        allowed = (torch.arange(n + Tq, device=dev)[None, :]
+                   <= (n + torch.arange(Tq, device=dev))[:, None])
+        torch.cuda.synchronize()
+        log_device_and_host(f"prefill {kinds[0]}:{kinds[1]} {shape}", [
+            ("K7", lambda: flash_prefill_q8(*args, kinds=kinds)),
+            ("K5 dense", lambda: flash_prefill_kernel(*dargs))])
+        record(f"flash_prefill {shape} (dense bf16 of the {kinds[0]}:{kinds[1]} values, "
+               f"beside K7)", "llamacog_tpu_torch/csrc/flash_prefill.cu",
+               "llamacog_tpu/ops/pallas/flash_prefill.py:129", [out], [ref], TOL_ATTN,
+               time_ms(lambda: flash_prefill_kernel(*dargs)),
+               time_ms(lambda: flash_prefill_attention_plain(*dargs), iters=5),
+               2 * 2 * n * Hkv * D + io_bytes, 4 * H * keys * D,
+               time_ms(lambda: sdpa(qs, kfull, vfull, attn_mask=allowed, scale=scale,
+                                    enable_gqa=True)), run=dense_run)
+        del kd, vd, kfull, vfull, allowed, dargs
+
+    # K7 over every kind pair of the decode rows at T=128 from write offset
+    # 896 (old-cache tiles), three of them also from 0 (the current block
+    # alone); then the 2048-token chunks of the deep runs of phase 5 (q8_0
+    # and q4_0, from offsets 0 and 2048 of a 4096-slot layer), each with K5
+    # beside it
+    for kinds in pairs:
+        cache = quant_cache(kinds, S)
+        for n in ((0, S - T) if kinds in (("q8_0", "q8_0"), ("q4_0", "q4_0"), ("q8_0", "q5_1"))
+                  else (S - T,)):
+            prefill_row("T=128", cache, kinds, qp, kcp, vcp, n)
         del cache
+    Tl = 2048
+    ql, kcl, vcl = rnd(1, Tl, H, D), rnd(1, Tl, Hkv, D), rnd(1, Tl, Hkv, D)
+    for kind in ("q8_0", "q4_0"):
+        cache = quant_cache((kind, kind), 2 * Tl)
+        for n, run in ((0, "q8_0 2048"), (Tl, "q8_0 4096")):
+            prefill_row(f"T={Tl}", cache, (kind, kind), ql, kcl, vcl, n,
+                        run=run if kind == "q8_0" else None, dense_run="long 4096")
+        del cache
+        torch.cuda.empty_cache()
+    # K7's SIMT body, which the C entry picks for f32 and for the bf16 calls
+    # the tiles do not take (here a q one element off 16 bytes), T=128 over
+    # write offset 896. No phase-5 run launches it: there the count
+    # flash_prefill_quant_simt is a stray
+    cache = quant_cache(("q8_0", "q8_0"), S)
+    kp, vp = [p[1] for p in cache.k_planes], [p[1] for p in cache.v_planes]
+    n = S - T
+    seq = torch.tensor([n], dtype=torch.int32, device=dev)
+    q_off = rnd(T * H * D + 1)[1:].view(1, T, H, D)
+    for label, q_s, kc_s, vc_s in (("f32", qp.float(), kcp.float(), vcp.float()),
+                                   ("bf16 q off 16 bytes", q_off, kcp, vcp)):
+        args = (q_s, kp, vp, kc_s, vc_s, seq, scale)
+        before = dict(build.LAUNCHES)
+        out = flash_prefill_q8(*args)
+        took = {k: c - before[k] for k, c in build.LAUNCHES.items() if c != before[k]}
+        check(took == {"flash_prefill_quant_simt": 1},
+              f"K7 {label}: launched {took}, not the SIMT body once")
+        ref = flash_prefill_q8_plain(*args)
+        torch.cuda.synchronize()
+        keys = sum(n + t + 1 for t in range(T))
+        elt = q_s.element_size()
+        record(f"flash_prefill_q8 SIMT body {label} q8_0:q8_0 T={T} H={H} Hkv={Hkv} D={D} "
+               f"S={S} seq_len={n}", "llamacog_tpu_torch/csrc/flash_prefill_quant.cu",
+               fq8.format(331), [out], [ref], 1e-5 if elt == 4 else TOL_ATTN,
+               time_ms(lambda: flash_prefill_q8(*args)),
+               time_ms(lambda: flash_prefill_q8_plain(*args), iters=5),
+               n * Hkv * 2 * row_bytes("q8_0")
+               + elt * (q_s.numel() + kc_s.numel() + vc_s.numel() + T * H * D),
+               4 * H * keys * D, peak=BF16_FLOPS if elt == 2 else F32_FLOPS,
+               counter="flash_prefill_quant_simt", listed=False)
+    del cache, kp, vp, q_off, ql, kcl, vcl, args, out, ref
     torch.cuda.empty_cache()
 
     # MoE kernels at the Mixtral-8x7B expert shapes. Routing is top-2 of 8
@@ -878,8 +971,9 @@ def main() -> int:
                 f"{stream_exp / stream:.1%} of it")
         return params
 
-    # the kernels each run launches (and it launches no other): K5 by its
-    # tensor-core tiles alone, never its SIMT body (flash_prefill_simt)
+    # the kernels each run launches (and it launches no other): K5 and K7 by
+    # their tensor-core tiles alone, never their SIMT bodies
+    # (flash_prefill_simt, flash_prefill_quant_simt)
     dense_attn = ("flash_decode_dense", "flash_prefill")
     quant_attn = ("flash_decode_quant", "flash_prefill_quant")
     moe_kernels = ("qmv_id", "qgemm_id")
@@ -907,15 +1001,23 @@ def main() -> int:
         # the q8_0 cache at depth: a 2048-token prompt in one chunk (K7 at
         # offset 0), 64 tokens at depth 2048-2112 (kv_cap 4096)
         ("q8_0 2048", "q8_0", {}, 2048, ("qmv", "qgemm", *quant_attn), 4096, 64),
+        # and a 4096-token prompt in two 2048-token chunks (the second's K7
+        # dequantizes a 2048-deep old cache), 16 tokens at depth 4096+
+        ("q8_0 4096", "q8_0", {}, LONG_PROMPT, ("qmv", "qgemm", *quant_attn), 8192, 16),
     ])
     n_l = cfg.n_layer
     mmq_run, k9_run = runs_8b["mmq 512"], runs_8b["per-layer K9"]
     long_run, deep_q8 = runs_8b["long 4096"], runs_8b["q8_0 2048"]
-    check(deep_q8["prefill"]["flash_prefill_quant"] == n_l
-          and deep_q8["decode"]["flash_decode_quant"] == 64 * n_l,
-          f"q8_0 2048 run: prefill flash_prefill_quant "
-          f"{deep_q8['prefill']['flash_prefill_quant']} (want {n_l}), decode "
-          f"flash_decode_quant {deep_q8['decode']['flash_decode_quant']} (want {64 * n_l})")
+    check(deep_q8["decode"]["flash_decode_quant"] == 64 * n_l,
+          f"q8_0 2048 run: decode flash_decode_quant {deep_q8['decode']['flash_decode_quant']} "
+          f"(want {64 * n_l})")
+    # K7 by its tiles, one launch a layer and chunk, in every q8_0 run (the
+    # SIMT body is a stray: main_path_runs fails a run that launches it)
+    for name, chunks in (("kv q8_0", 1), ("q8_0 2048", 1), ("q8_0 4096", 2)):
+        got = runs_8b[name]["prefill"]["flash_prefill_quant"]
+        check(got == chunks * n_l and runs_8b[name]["total"]["flash_prefill_quant_simt"] == 0,
+              f"{name} run: prefill flash_prefill_quant {got} (want {chunks * n_l}), "
+              f"flash_prefill_quant_simt {runs_8b[name]['total']['flash_prefill_quant_simt']}")
     check(long_run["prefill"]["flash_prefill"] == 2 * n_l
           and long_run["decode"]["flash_decode_dense"] == 64 * n_l,
           f"long run: prefill flash_prefill {long_run['prefill']['flash_prefill']} (want "
@@ -955,7 +1057,7 @@ def main() -> int:
               **{k: runs_8b["kv q8_0"] for k in quant_attn}}
     for r in results:
         k, run = r.pop("kernel"), r.pop("run")
-        r["launches"] = (runs_moe["kv dense"] if run == "mixtral"
+        r["launches"] = (runs_moe["kv dense"] if run == "mixtral" else runs_8b[run] if run
                          else run_of.get(k, runs_8b["kv dense"]))["total"][k]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -687,6 +687,57 @@ __device__ __forceinline__ void kv_deq8(const KVRow& r, int c0, float* out) {
     }
 }
 
+// Where one staging slot in shared memory holds the plane rows of `rows`
+// positions of one layer's K and V (flash_decode_quant.cu: a warp's round;
+// flash_prefill_quant.cu: a 64-position tile): plane j (K q, s, m, h; V q,
+// s, m, h) at off[j], rowb[j] bytes a row (0: the kind has no such plane).
+// The kind decides only how many bytes a row has: flash_decode_quant.cu
+// copies the planes kind-blind by cp.async in units of unit[j] bytes;
+// flash_prefill_quant.cu compiles its copy per kind and reads src, off and
+// bytes. Set on the host from the kinds and head dims (kv_stage).
+constexpr int KV_STAGE_PLANES = 8;
+struct KVStage {
+    const uint8_t* src[KV_STAGE_PLANES];  // the layer's planes
+    int rowb[KV_STAGE_PLANES];
+    int off[KV_STAGE_PLANES];
+    int unit[KV_STAGE_PLANES];
+    int per_log2[KV_STAGE_PLANES];  // log2 of rowb / unit where a power of two, else -1
+    int bytes;    // a slot
+    int rows;     // positions a slot holds
+    int q_bytes;  // flash_decode_quant.cu: the staged q ahead of the rings
+};
+
+// The slot layout of one launch: each plane's row bytes by kind, each
+// plane's rows 16-byte aligned in the slot.
+static inline KVStage kv_stage(int kind_k, int kind_v, const KVPlanes& kp, const KVPlanes& vp,
+                               int Dk, int Dv, int rows) {
+    KVStage st{};
+    st.rows = rows;
+    int off = 0;
+    const int kinds[2] = {kind_k, kind_v}, dims[2] = {Dk, Dv};
+    const KVPlanes* planes[2] = {&kp, &vp};
+    for (int t = 0; t < 2; ++t) {
+        const int kind = kinds[t], D = dims[t], gb = 4 * (D / KV_GS);
+        const bool dense = kind == KV_F16 || kind == KV_BF16;
+        const int rowb[4] = {dense ? 2 * D : kind == KV_Q8_0 ? D : D / 2, dense ? 0 : gb,
+                             kind == KV_Q4_1 || kind == KV_Q5_1 ? gb : 0,
+                             kind == KV_Q5_0 || kind == KV_Q5_1 ? gb : 0};
+        const void* src[4] = {planes[t]->q, planes[t]->s, planes[t]->m, planes[t]->h};
+        for (int i = 0; i < 4; ++i) {
+            const int j = 4 * t + i;
+            st.src[j] = static_cast<const uint8_t*>(src[i]);
+            st.rowb[j] = rowb[i];
+            st.unit[j] = rowb[i] % 16 == 0 ? 16 : rowb[i] % 8 == 0 ? 8 : 4;
+            const int per = rowb[i] / st.unit[j];
+            st.per_log2[j] = per > 0 && (per & (per - 1)) == 0 ? __builtin_ctz(per) : -1;
+            st.off[j] = off;
+            off += (st.rows * rowb[i] + 15) / 16 * 16;
+        }
+    }
+    st.bytes = off;
+    return st;
+}
+
 // Calls FN<kind>(args...) for a kind known only at run time; the switch is
 // uniform across a launch.
 #define KV_DISPATCH(kind, FN, ...)                                   \

@@ -29,11 +29,20 @@
 //
 // A loader is a type with
 //   template <int DK, int DV, int NT> __device__ void load(bf16* ks, bf16* vs,
-//       int phase, int c0, int len, int tid) const;
+//       int phase, int c0, int len, int slot, int tid) const;
 // that fills rows [0, FA_BC) of the K and V tiles (row strides DK + FA_PAD
 // and DV + FA_PAD)
 // with positions c0.. of `phase`, zeros at positions >= len, by cp.async
-// (or by plain stores: the loop's commit and wait are then empty).
+// (or by plain stores: the loop's commit and wait are then empty), and a
+// constant `static constexpr bool LANDS`. A loader that LANDS may instead
+// queue raw bytes into a staging slot of its own (`slot`, the tile's
+// buffer parity) and turn them into the tiles once they have landed, in
+//   template <int DK, int DV, int NT> __device__ bool land(bf16* ks,
+//       bf16* vs, int phase, int slot, int tid) const;
+// which the loop calls after the tile's wait and block barrier; it returns
+// whether it wrote the tiles (the same in every thread), and the loop then
+// takes one more barrier before the tiles are read. A loader that does not
+// land compiles to the loop without the hook.
 #pragma once
 
 #include "common.cuh"
@@ -46,6 +55,45 @@ constexpr int FA_PAD = 8;   // bf16 elements of padding per shared-memory row
 // Dynamic shared memory of the loop: two buffers of a K and a V tile.
 __host__ __device__ constexpr size_t fa_smem_bytes(int DK, int DV) {
     return 2 * (size_t)FA_BC * (DK + DV + 2 * FA_PAD) * sizeof(bf16);
+}
+
+// Rows [c0, c0 + FA_BC) of one tensor, W elements a row at position stride
+// st, into a tile (row stride W + FA_PAD) by 16-byte cp.async copies; zeros
+// at positions >= len.
+template <int W, int NT>
+__device__ __forceinline__ void fa_copy_rows(bf16* dst, const bf16* src, long long st, int c0,
+                                             int len, int tid) {
+    constexpr int CH = W / 8;  // 16-byte chunks a row
+    for (int i = tid; i < FA_BC * CH; i += NT) {
+        const int r = i / CH, ch = i - r * CH;
+        const int pos = c0 + r;
+        const bool ok = pos < len;
+        cp_async16(dst + r * (W + FA_PAD) + ch * 8, src + (ok ? pos : 0) * st + ch * 8, ok);
+    }
+}
+
+// The K and V tiles of positions [c0, c0 + FA_BC) from bf16 rows k and v
+// (position strides kst and vst, elements), as fa_copy_rows.
+template <int DK, int DV, int NT>
+__device__ __forceinline__ void fa_copy_kv(bf16* ks, bf16* vs, const bf16* k, const bf16* v,
+                                           long long kst, long long vst, int c0, int len,
+                                           int tid) {
+    if constexpr (DK == DV) {
+        // one index walk for both tensors: half the loop overhead of two,
+        // which the old-cache tiles of a long prefix pay each tile
+        constexpr int CH = DK / 8;
+        for (int i = tid; i < FA_BC * CH; i += NT) {
+            const int r = i / CH, ch = i - r * CH;
+            const int pos = c0 + r;
+            const bool ok = pos < len;
+            const size_t p = ok ? (size_t)pos : 0;
+            cp_async16(ks + r * (DK + FA_PAD) + ch * 8, k + p * kst + ch * 8, ok);
+            cp_async16(vs + r * (DV + FA_PAD) + ch * 8, v + p * vst + ch * 8, ok);
+        }
+    } else {
+        fa_copy_rows<DK, NT>(ks, k, kst, c0, len, tid);
+        fa_copy_rows<DV, NT>(vs, v, vst, c0, len, tid);
+    }
 }
 
 // The loop for one block: q [B, T, H, DK] and out [B, T, H, DV] contiguous
@@ -128,7 +176,7 @@ __device__ __forceinline__ void prefill_attn_tiles(const Loader& ld, const bf16*
     {
         int phase, c0, len;
         tile_of(0, phase, c0, len);
-        ld.template load<DK, DV, NT>(buf_k(0), buf_k(0) + FA_BC * LDK, phase, c0, len, tid);
+        ld.template load<DK, DV, NT>(buf_k(0), buf_k(0) + FA_BC * LDK, phase, c0, len, 0, tid);
         cp_async_commit();
     }
     for (int j = 0; j < n_tiles; ++j) {
@@ -136,7 +184,7 @@ __device__ __forceinline__ void prefill_attn_tiles(const Loader& ld, const bf16*
             int phase, c0, len;
             tile_of(j + 1, phase, c0, len);
             ld.template load<DK, DV, NT>(buf_k(j + 1), buf_k(j + 1) + FA_BC * LDK, phase, c0,
-                                         len, tid);
+                                         len, (j + 1) & 1, tid);
             cp_async_commit();
             cp_async_wait<1>();
         } else {
@@ -145,6 +193,10 @@ __device__ __forceinline__ void prefill_attn_tiles(const Loader& ld, const bf16*
         __syncthreads();
         int phase, c0, len;
         tile_of(j, phase, c0, len);
+        if constexpr (Loader::LANDS) {
+            if (ld.template land<DK, DV, NT>(buf_k(j), buf_k(j) + FA_BC * LDK, phase, j & 1, tid))
+                __syncthreads();
+        }
         const bool skip = !warp_live || (phase == 1 && c0 > w_tlast);
         if (!skip) {
             const bf16* ks = buf_k(j);

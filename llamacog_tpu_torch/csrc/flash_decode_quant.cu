@@ -68,7 +68,6 @@ constexpr int DQ_MAX_D = 256;
 constexpr int DQ_VEC = 8;  // stored columns a lane reads of a row
 constexpr int DQ_U = 4;    // rows a group reads per round
 constexpr int DQ_STAGES = 3;  // rounds in a warp's shared-memory ring
-constexpr int DQ_PLANES = 8;  // K q, s, m, h; V q, s, m, h
 // the warps' partial results (red) at the widest heads; q and the rings
 // take less (16 KB + 8 warps x 3 slots x 4 positions x 1 KB: f16 K and V
 // at D = 256), and red takes their place after the walk
@@ -80,21 +79,6 @@ __host__ __device__ inline int lanes_a_row(int Dk, int Dv) {
     while (lpr * DQ_VEC < (Dk > Dv ? Dk : Dv)) lpr <<= 1;
     return lpr;
 }
-
-// Where a warp's round of plane rows goes in a ring slot: plane j's rows of
-// the `rows` positions lie at off[j], rowb[j] bytes each (0: the kind has
-// no such plane), copied in units of unit[j] bytes. Set on the host from
-// the kinds and head dims (kv_stage).
-struct KVStage {
-    const uint8_t* src[DQ_PLANES];  // the layer's planes
-    int rowb[DQ_PLANES];
-    int off[DQ_PLANES];
-    int unit[DQ_PLANES];
-    int per_log2[DQ_PLANES];  // log2 of rowb / unit where a power of two, else -1
-    int bytes;    // a ring slot
-    int rows;     // positions a warp takes a round
-    int q_bytes;  // the staged q ahead of the rings
-};
 
 // The per-group words (f32 scales or mins, int32 high bits) of one row that
 // stored columns c0..c0+7 use: w[e] is group (c0 + e) % G's. Where G
@@ -275,7 +259,7 @@ decode_quant_split_kernel(const T* __restrict__ q, const KVStage st, int kind_k,
             copy_plane(base, 5, first, DC / 8, 16, 0);
         } else {
 #pragma unroll 1
-            for (int j = 0; j < DQ_PLANES; ++j)
+            for (int j = 0; j < KV_STAGE_PLANES; ++j)
                 if (st.rowb[j]) copy_plane(base, j, first, st.rowb[j], st.unit[j], st.per_log2[j]);
         }
     };
@@ -438,37 +422,6 @@ decode_quant_split_kernel(const T* __restrict__ q, const KVStage st, int kind_k,
     }
 }
 
-// The ring slot layout of one launch: each plane's row bytes by kind.
-static KVStage kv_stage(int kind_k, int kind_v, const KVPlanes& kp, const KVPlanes& vp, int Dk,
-                        int Dv, int rep) {
-    KVStage st{};
-    st.rows = DQ_U * (32 / lanes_a_row(Dk, Dv));
-    int off = 0;
-    const int kinds[2] = {kind_k, kind_v}, dims[2] = {Dk, Dv};
-    const KVPlanes* planes[2] = {&kp, &vp};
-    for (int t = 0; t < 2; ++t) {
-        const int kind = kinds[t], D = dims[t], gb = 4 * (D / KV_GS);
-        const bool dense = kind == KV_F16 || kind == KV_BF16;
-        const int rowb[4] = {dense ? 2 * D : kind == KV_Q8_0 ? D : D / 2, dense ? 0 : gb,
-                             kind == KV_Q4_1 || kind == KV_Q5_1 ? gb : 0,
-                             kind == KV_Q5_0 || kind == KV_Q5_1 ? gb : 0};
-        const void* src[4] = {planes[t]->q, planes[t]->s, planes[t]->m, planes[t]->h};
-        for (int i = 0; i < 4; ++i) {
-            const int j = 4 * t + i;
-            st.src[j] = static_cast<const uint8_t*>(src[i]);
-            st.rowb[j] = rowb[i];
-            st.unit[j] = rowb[i] % 16 == 0 ? 16 : rowb[i] % 8 == 0 ? 8 : 4;
-            const int per = rowb[i] / st.unit[j];
-            st.per_log2[j] = per > 0 && (per & (per - 1)) == 0 ? __builtin_ctz(per) : -1;
-            st.off[j] = off;
-            off += (st.rows * rowb[i] + 15) / 16 * 16;
-        }
-    }
-    st.bytes = off;
-    st.q_bytes = (int)sizeof(float) * rep * Dk;
-    return st;
-}
-
 template <typename T, int RB, int FIXED, int DC>
 static cudaError_t launch_split(const T* q, const KVStage& st, int kind_k, int kind_v,
                                 const int* seq_len, float* ws, int B, int S, int H, int Hkv,
@@ -499,7 +452,8 @@ static cudaError_t launch_decode(const void* q_, const KVPlanes& kp, const KVPla
                                  float* ws, int n_split, int split_len, cudaStream_t s) {
     const T* q = static_cast<const T*>(q_);
     const int rep = H / Hkv;
-    const KVStage st = kv_stage(kind_k, kind_v, kp, vp, Dk, Dv, rep);
+    KVStage st = kv_stage(kind_k, kind_v, kp, vp, Dk, Dv, DQ_U * (32 / lanes_a_row(Dk, Dv)));
+    st.q_bytes = (int)sizeof(float) * rep * Dk;
     cudaError_t err;
     // q8_0 K and V of head dim 128 at four query heads a kv head (-ctk/-ctv
     // q8_0 on the 8B and Mixtral heads, bf16) take a walk compiled for them:

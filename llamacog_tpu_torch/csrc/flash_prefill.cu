@@ -45,6 +45,7 @@
 // K/V tiles by cp.async: phase 0 from the old cache by stride, phase 1 from
 // the current block.
 struct DenseKVLoader {
+    static constexpr bool LANDS = false;
     const bf16* k;      // old cache at (b, position 0, hk)
     const bf16* v;
     long long k_ss, v_ss;  // position strides (elements)
@@ -52,43 +53,12 @@ struct DenseKVLoader {
     const bf16* vc;
     long long kc_ss, vc_ss;  // Hkv * Dk, Hkv * Dv
 
-    // the rows [c0, c0 + FA_BC) of one tensor, W elements a row, by
-    // 16-byte copies; zeros at positions >= len
-    template <int W, int NT>
-    static __device__ __forceinline__ void rows(bf16* dst, const bf16* src, long long st,
-                                                int c0, int len, int tid) {
-        constexpr int CH = W / 8;  // 16-byte chunks a row
-        for (int i = tid; i < FA_BC * CH; i += NT) {
-            const int r = i / CH, ch = i - r * CH;
-            const int pos = c0 + r;
-            const bool ok = pos < len;
-            cp_async16(dst + r * (W + FA_PAD) + ch * 8, src + (ok ? pos : 0) * st + ch * 8, ok);
-        }
-    }
-
     template <int DK, int DV, int NT>
-    __device__ __forceinline__ void load(bf16* ks, bf16* vs, int phase, int c0, int len,
+    __device__ __forceinline__ void load(bf16* ks, bf16* vs, int phase, int c0, int len, int,
                                          int tid) const {
-        const bf16* kb = phase == 0 ? k : kc;
-        const bf16* vb = phase == 0 ? v : vc;
-        const long long kst = phase == 0 ? k_ss : kc_ss;
-        const long long vst = phase == 0 ? v_ss : vc_ss;
-        if constexpr (DK == DV) {
-            // one index walk for both tensors: half the loop overhead of
-            // two, which the old-cache tiles of a long prefix pay each tile
-            constexpr int CH = DK / 8;
-            for (int i = tid; i < FA_BC * CH; i += NT) {
-                const int r = i / CH, ch = i - r * CH;
-                const int pos = c0 + r;
-                const bool ok = pos < len;
-                const size_t p = ok ? (size_t)pos : 0;
-                cp_async16(ks + r * (DK + FA_PAD) + ch * 8, kb + p * kst + ch * 8, ok);
-                cp_async16(vs + r * (DV + FA_PAD) + ch * 8, vb + p * vst + ch * 8, ok);
-            }
-        } else {
-            rows<DK, NT>(ks, kb, kst, c0, len, tid);
-            rows<DV, NT>(vs, vb, vst, c0, len, tid);
-        }
+        fa_copy_kv<DK, DV, NT>(ks, vs, phase == 0 ? k : kc, phase == 0 ? v : vc,
+                               phase == 0 ? k_ss : kc_ss, phase == 0 ? v_ss : vc_ss, c0, len,
+                               tid);
     }
 };
 

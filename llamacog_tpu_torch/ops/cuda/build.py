@@ -12,9 +12,11 @@ Every launcher returns ``cudaGetLastError()``; :func:`check` raises on a
 non-zero code. ``LAUNCHES`` counts the launches of each kernel: a wrapper
 adds one where it launches, and nowhere else. ``flash_decode`` (K9) has a
 count of its own but no source: it launches the flash_decode_dense library
-on one layer's tensors. The flash_prefill library has two bodies, counted
-apart: ``flash_prefill`` the bf16 tensor-core tiles, ``flash_prefill_simt``
-the SIMT body (f32, and bf16 head dims or rows the tiles do not take).
+on one layer's tensors. The flash_prefill and flash_prefill_quant libraries
+have two bodies each, counted apart: ``flash_prefill`` and
+``flash_prefill_quant`` the bf16 tensor-core tiles, ``flash_prefill_simt``
+and ``flash_prefill_quant_simt`` the SIMT bodies (f32, and bf16 head dims
+or rows the tiles do not take).
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
 # KV cache plane kinds, as csrc/common.cuh numbers them (KV_Q8_0 ...)
 KV_KIND_ID = {"q8_0": 0, "q4_0": 1, "q4_1": 2, "q5_0": 3, "q5_1": 4, "f16": 5, "bf16": 6}
 
-LAUNCHES = {name: 0 for name in (*KERNELS, "flash_decode", "flash_prefill_simt")}
+LAUNCHES = {name: 0 for name in (*KERNELS, "flash_decode", "flash_prefill_simt",
+                                   "flash_prefill_quant_simt")}
 BUILD_LOG: dict[str, str] = {}  # nvcc/ptxas output (registers, smem, spills)
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -112,7 +115,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         "lcg_flash_decode_quant": [i, i, i, vp, *[vp] * 8, i, i, i, i, i, i, vp, vp, vp, vp,
                                    i, f, f, i, vp, i, i, vp],
         "lcg_flash_prefill_quant": [i, i, i, vp, *[vp] * 8, i, i, i, i, i, i, i, vp, vp, vp, vp,
-                                    i, f, f, i, vp],
+                                    i, f, f, i, ints, vp],
         "lcg_qmv_id": [vp, i, i, i, vp, i, i, i, vp, vp, vp],
         "lcg_qgemm_id": [vp, i, i, i, vp, i, i, i, vp, i, vp, vp],
         "lcg_qmm_i8": [vp, vp, vp, vp, vp, i, i, i, vp],

@@ -20,7 +20,12 @@ signatures:
   one-layer stack, and the whole-S versus tiled choice of the TPU is the
   split rule's;
 - flash_prefill_q8 (K7, csrc/flash_prefill_quant.cu) attends a prefill block
-  over one layer's quantized planes plus the causal current block.
+  over one layer's quantized planes plus the causal current block. In bf16
+  the C entry runs K5's tensor-core tile loop with a loader that
+  dequantizes the planes (head dims Dk == Dv, multiples of 32 up to 256,
+  and 192/128, 16-byte aligned q and k_cur/v_cur); f32 and the other bf16
+  calls run a SIMT body. The entry says which body it launched: they count
+  as ``flash_prefill_quant`` (the tiles) and ``flash_prefill_quant_simt``.
 
 Every kernel stops each row at its seq_len (and kv_cap) and folds the
 current step's unquantized k_cur/v_cur in last (the deferred KV write).
@@ -34,6 +39,7 @@ the kernel otherwise.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import os
 
@@ -315,13 +321,15 @@ def flash_prefill_quant_kernel(q, k_planes, v_planes, k_cur, v_cur, seq_len, sca
     s_eff = S if kv_cap is None else min(int(kv_cap), S)
     out = torch.empty((B, T, H, Dv), dtype=q.dtype, device=q.device)
     lib = build.load("flash_prefill_quant")
+    simt = ctypes.c_int(0)
     rc = lib.lcg_flash_prefill_quant(
         build.DTYPE_ID[q.dtype], build.KV_KIND_ID[kinds[0]], build.KV_KIND_ID[kinds[1]],
         q.data_ptr(), *kptr, *vptr, B, S, T, H, Hkv, Dk, Dv, k_cur.data_ptr(),
         v_cur.data_ptr(), seq_len.data_ptr(), out.data_ptr(), s_eff, float(scale),
-        float(softcap), int(window), torch.cuda.current_stream(q.device).cuda_stream)
+        float(softcap), int(window), ctypes.byref(simt),
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, rc, what)
-    build.LAUNCHES["flash_prefill_quant"] += 1
+    build.LAUNCHES["flash_prefill_quant_simt" if simt.value else what] += 1
     return out
 
 

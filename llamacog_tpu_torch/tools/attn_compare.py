@@ -2,7 +2,7 @@
 of the port, timed in turns on one GPU.
 
     python -m llamacog_tpu_torch.tools.attn_compare --baseline DIR [--iters 31]
-        [--only attn|weights|quant]
+        [--only attn|weights|quant|prefill_quant]
 
 DIR is another checkout of the repository (for example an older commit
 unpacked by ``git archive``); its ``llamacog_tpu_torch`` is imported under
@@ -23,8 +23,13 @@ attn_q + attn_k + attn_v launch) are timed on this tree alone where the
 baseline refuses their kinds. The quantized-cache decode kernel (K6, and
 K8 through its per-layer entry) the same way (``--only quant``): q8_0 and
 q4_0 caches at depths 1000 (a 1024-slot layer) and 32765 (32768 slots),
-layer 1 of a 2-layer stack, and the per-layer entry on that layer. Two
-spans:
+layer 1 of a 2-layer stack, and the per-layer entry on that layer. The
+quantized-cache prefill kernel (K7, ``--only prefill_quant``): q8_0 and
+q4_0 planes, T=128 over write offsets 0 and 896 (a 1024-slot layer) and
+T=2048 over 0 and 2048 (4096 slots), each beside K5 over a dense bf16
+cache holding the same values (the planes dequantized and rounded to
+bf16, which is what K7's tiles multiply): K7's target is K5's time on
+the same work. Two spans:
 
 - ``enqueue``: CUDA events around the call right after the flush, the span
   of ``chip_smoke.py``'s ``ms``. Where the wrapper's host work outlasts the
@@ -71,7 +76,7 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", type=Path, required=True,
                     help="root of another checkout of the repository")
     ap.add_argument("--iters", type=int, default=31)
-    ap.add_argument("--only", choices=("attn", "weights", "quant"), default=None,
+    ap.add_argument("--only", choices=("attn", "weights", "quant", "prefill_quant"), default=None,
                     help="time one group of kernels (default: all)")
     args = ap.parse_args(argv)
 
@@ -95,7 +100,8 @@ def main(argv=None) -> int:
     b_wire = importlib.import_module(BASE + ".quant.wire")
     names = {"attn": ("flash_decode_dense", "flash_prefill"),
              "weights": ("qmv", "qgemm", "qmv_id", "qgemm_id"),
-             "quant": ("flash_decode_quant",)}
+             "quant": ("flash_decode_quant",),
+             "prefill_quant": ("flash_prefill_quant", "flash_prefill")}
     names = sum((v for k, v in names.items() if args.only in (None, k)), ())
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         secs = list(pool.map(lambda bld: bld.build(names), (build, b_build)))
@@ -169,7 +175,9 @@ def main(argv=None) -> int:
                 llama3_8b_config(), mixtral_8x7b_config(), random_wire, random_experts)
     if args.only in (None, "quant"):
         quant(compare, dev, g, flash_q8, b_q8, H, Hkv, D)
-    if args.only in ("weights", "quant"):
+    if args.only in (None, "prefill_quant"):
+        prefill_quant(compare, dev, g, flash_q8, flash_prefill, b_q8, H, Hkv, D)
+    if args.only in ("weights", "quant", "prefill_quant"):
         print(json.dumps({"device": torch.cuda.get_device_name(0), "rows": rows}))
         return 0
 
@@ -253,6 +261,41 @@ def quant(compare, dev, g, flash_q8, b_q8, H, Hkv, D):
                 lambda: flash_q8.flash_decode_stacked_plain(q, kp, vp, 1, kc, vc, seq, scale,
                                                             kinds=kinds), library=False)
             del cache, kp, vp, kl, vl, part, kv
+            torch.cuda.empty_cache()
+
+
+def prefill_quant(compare, dev, g, flash_q8, flash_prefill, b_q8, H, Hkv, D):
+    """K7 (flash_prefill_q8) of both trees over the same planes, and K5 of
+    this tree over the dense cache of the same values, against K7's plain
+    version."""
+    import torch
+
+    from ..runtime.kv_cache import QuantKVCache, kv_dequant_planes
+
+    scale = D**-0.5
+    for kind in ("q8_0", "q4_0"):
+        kinds = (kind, kind)
+        for S, shapes in ((1024, ((128, 0), (128, 896))), (4096, ((2048, 0), (2048, 2048)))):
+            cache = QuantKVCache.create(1, 1, S, Hkv, D, D, kinds=kinds, device=dev)
+            kv = [torch.randn(1, 1, S, Hkv, D, generator=g, device=dev) for _ in "kv"]
+            cache.write_all(*kv, torch.zeros(1, dtype=torch.int32, device=dev))
+            kp, vp = [p[0] for p in cache.k_planes], [p[0] for p in cache.v_planes]
+            kd, vd = (kv_dequant_planes(kind, tuple(p.reshape(1, S, Hkv, -1) for p in planes),
+                                        torch.float32).to(torch.bfloat16) for planes in (kp, vp))
+            for T, n in shapes:
+                q, kc, vc = (torch.randn(1, T, h, D, generator=g, device=dev).to(torch.bfloat16)
+                             for h in (H, Hkv, Hkv))
+                seq = torch.tensor([n], dtype=torch.int32, device=dev)
+                compare(f"K7 {kind} T={T} seq_len={n} S={S}", [
+                    ("K7 this", lambda: flash_q8.flash_prefill_q8(q, kp, vp, kc, vc, seq, scale,
+                                                                  kinds=kinds)),
+                    ("K7 baseline", lambda: b_q8.flash_prefill_q8(q, kp, vp, kc, vc, seq, scale,
+                                                                  kinds=kinds)),
+                    ("K5 dense this", lambda: flash_prefill.flash_prefill_kernel(
+                        q, kd, vd, kc, vc, seq, scale))],
+                    lambda: flash_q8.flash_prefill_q8_plain(q, kp, vp, kc, vc, seq, scale,
+                                                            kinds=kinds), library=False)
+            del cache, kv, kp, vp, kd, vd
             torch.cuda.empty_cache()
 
 

@@ -124,6 +124,43 @@ def test_prefill_q8_matches_pallas(kinds, softcap, window):
     _check(got, want, ATOL, RTOL)
 
 
+# (rep, head dim, kinds): every rep and head dim of the card tests' edges,
+# each with another kind pair
+PREFILL_EDGES = [(1, 32, ("q8_0", "q8_0")), (4, 64, ("q4_0", "q5_1")), (8, 32, ("q5_0", "q4_1")),
+                 (4, 32, ("q4_1", "f16")), (8, 64, ("bf16", "q8_0")), (1, 64, ("q5_1", "q4_0"))]
+
+
+@pytest.mark.parametrize("T", [1, 8, 16, 17])
+@pytest.mark.parametrize("rep,D,kinds", PREFILL_EDGES,
+                         ids=[f"rep{r}-D{d}-{pair_id(k)}" for r, d, k in PREFILL_EDGES])
+def test_prefill_q8_edges_match_pallas(rep, D, kinds, T):
+    """The edges the card tests of K7's tiles rely on, plain version against
+    Pallas: B = 2 rows at write offsets on and around the 64-position tile
+    grid (0/1, 63/64, 65/1000), T off and on the 16-row MMA tiles, rep 1,
+    4 and 8; whole, and with softcap, a 40-position window that cuts tiles
+    and kv_cap < S (a multiple of the Pallas kernel's 512-position tile)."""
+    B, S, Hkv = 2, 1024, 2
+    H = Hkv * rep
+    rng = np.random.default_rng(rep * 100 + D + T)
+    kp = _planes(rng, kinds[0], (B,), S, Hkv, D)
+    vp = _planes(rng, kinds[1], (B,), S, Hkv, D)
+    q = rng.standard_normal((B, T, H, D)).astype(np.float32)
+    kc = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    vc = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    for lens in ((0, 1), (63, 64), (65, 1000)):
+        seq_len = np.array(lens, np.int32)
+        for softcap, window, kv_cap in ((0.0, 0, None), (20.0, 40, 512)):
+            kw = dict(softcap=softcap, window=window, kv_cap=kv_cap, kinds=kinds)
+            want = ref.flash_prefill_q8(
+                jnp.asarray(q), tuple(map(jnp.asarray, kp)), tuple(map(jnp.asarray, vp)),
+                jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(seq_len), D**-0.5,
+                interpret=True, **kw)
+            got = port.flash_prefill_q8(
+                _np(q), [_np(p) for p in kp], [_np(p) for p in vp], _np(kc), _np(vc),
+                _np(seq_len), D**-0.5, **kw)
+            _check(got, want, ATOL, RTOL)
+
+
 def test_decode_from_cache_dispatches_quantized_cache():
     """decode_from_cache sends a QuantKVCache to K6 (here its plain
     version), with the cache's kinds."""
