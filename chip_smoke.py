@@ -11,9 +11,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      of the main path, with kernel, plain, library and bound times: the
      weight kernels (qmv at one row, qgemm at 128 and 512 rows; also over
      the Q8_0 and Q5_K weights of a real Mixtral Q4_K_M file and its
-     attn_q + attn_k + attn_v launch), the int8
-     prefill GEMM (K13) at the five layer shapes at 512 rows and ragged
-     300, the dense-cache attention kernels (the
+     attn_q + attn_k + attn_v launch), the int8 route's activation
+     quantization (bit-equal) and prefill GEMM (K13, bit-equal at both tile
+     heights, beside torch._int_mm) at the five layer shapes at 512 rows and
+     ragged 300, and attn_qk + attn_v on one quantization; the dense-cache
+     attention kernels (the
      stacked K4 and the per-layer K9 at depths 1000 and 32765; prefill K5
      at T=128 over write offsets 0 and 896 and at T=512; each also run once
      with host syncs raising, and timed beside SDPA on the device alone and
@@ -27,7 +29,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      K7's SIMT body in f32 and on a q off 16 bytes); then the MoE kernels
      at the Mixtral-8x7B expert shapes (the
      gather at 2 and 32 rows, the offset entry, the grouped GEMM of a
-     128-token prefill);
+     128- and a 512-token prefill);
   4. the full-width kernel path (8B widths, 2 layers) against the plain
      path (the same params on the CPU): prefill logits, 4 teacher-forced
      decode steps and a 9-token second chunk, with the dense cache, q8_0,
@@ -43,14 +45,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      128-token prefill, 128 greedy tokens), a 512-token prompt exact and
      with LLAMACOG_MMQ=1 (exact, mmq, mmq, exact), and the per-layer dense
      decode route (K9), whose greedy tokens must equal the stacked
-     route's, a long-context run (max_seq 8192, a 4096-token prompt in
+     route's (the mmq runs quantize each layer input once: 4 launches a
+     layer), a long-context run (max_seq 8192, a 4096-token prompt in
      two 2048-token chunks, 64 greedy tokens) and two deep q8_0 runs
      (max_seq 4096, a 2048-token prompt in one chunk, 64 greedy tokens at
      depth 2048-2112; max_seq 8192, a 4096-token prompt in two chunks, 16
      tokens); every kernel's launch count over each run; then, with the
      8B params freed, the Mixtral-8x7B Q4_K_M synthetic run at full depth
-     (32 layers, the kinds of a real file), the same way; the phase's wall
-     time;
+     (32 layers, the kinds of a real file), the same way, and with a
+     512-token prompt and 16 tokens (the grouped GEMM over several tiles an
+     expert); the phase's wall time;
   6. one JSON line of per-kernel results, the card's name and power limit,
      and the final {"ok": true, ...} line.
 
@@ -153,9 +157,11 @@ def main() -> int:
     from llamacog_tpu_torch.ops.linear import qmatmul
     from llamacog_tpu_torch.ops.cuda.qmm import qgemm, qmm_plain, qmv
     from llamacog_tpu_torch.ops.cuda.qmm_i8 import (
-        qmm_i8_kernel, qmm_i8_plain, quantize_activations)
+        qmm_i8_kernel, qmm_i8_plain, qmm_i8_tile_rows, quantize_activations, quantize_kernel)
     from llamacog_tpu_torch.ops.cuda.qmm_id import (
-        qmm_gather, qmm_gather_offset, qmm_gather_plain, qmm_ragged, qmm_ragged_plain)
+        RAGGED_TILE, qmm_gather, qmm_gather_offset, qmm_gather_plain, qmm_ragged,
+        qmm_ragged_plain)
+    from llamacog_tpu_torch.ops.linear import qmatmul_multi
     from llamacog_tpu_torch.quant.mmq import build_mmq_planes
     from llamacog_tpu_torch.quant.wire import WireTensor
     from llamacog_tpu_torch.runtime.engine import Engine
@@ -364,34 +370,81 @@ def main() -> int:
                    nbytes, flops, run="mixtral" if mixtral_kinds else None)
             del outs, refs
 
+    # the activation quantization of the int8 route (one launch a layer
+    # input), bit-equal to its plain version, at the 8B layer inputs: a
+    # 512-row prefill chunk and a ragged 300, K 4096 (attention, FFN input)
+    # and 14336 (ffn_down's), with a row of zeros and ties to round
+    i8_rep = "llamacog_tpu/ops/pallas/qmm_i8.py:{}"
+    log("[parity] quantize_i8: no single PyTorch call quantizes per row (library_ms null)")
+    for B, K in ((512, E), (512, F), (300, E)):
+        x = torch.randn(B, K, generator=g, device=dev).to(torch.bfloat16) * 3
+        x[1] = 0
+        x[2, :4] = torch.tensor([127.0, 63.5, -0.5, 1.5], device=dev).to(torch.bfloat16)
+        xq, xs = quantize_kernel(x)
+        rq, rs = quantize_activations(x)
+        torch.cuda.synchronize()
+        check(torch.equal(xq, rq) and torch.equal(xs, rs),
+              f"quantize_i8 B={B} K={K}: not bit-equal to quantize_activations")
+        record(f"quantize_i8 B={B} K={K} bf16", qmm_src.format("qmm_i8"), i8_rep.format(105),
+               [xq.float(), xs], [rq.float(), rs], 0.0, time_ms(lambda: quantize_kernel(x)),
+               time_ms(lambda: quantize_activations(x), iters=5),
+               x.numel() * 2 + xq.numel() + xs.numel() * 4, 0, counter="quantize_i8",
+               run="mmq 512")
+
     # the int8 prefill GEMM (K13, LLAMACOG_MMQ=1) over the planes of the five
-    # 8B layer weights, at a 512-row prefill chunk and a ragged 300
+    # 8B layer weights, at a 512-row prefill chunk and a ragged 300, with each
+    # tile height the grid rule does not take beside it in the log
     log("[parity] qmm_i8: the library time is torch._int_mm(xq, qi8.T), the int32 "
         "products alone, without the per-block weight scales and the row scales; "
         "qmatmul's int8 route runs each shape once with host syncs raising")
     i8_shapes = [("attn_qk Q4_K 5120x4096", w_qk), ("attn_v Q6_K 1024x4096", w_v),
                  ("attn_output Q4_K 4096x4096", w_o), ("ffn_gate_up Q4_K 28672x4096", w_gu),
                  ("ffn_down Q4_K 4096x14336", w_d4)]
-    for label, w, B in [(lb, w, 512) for lb, w in i8_shapes] + [(*i8_shapes[3], 300)]:
+    for label, w in i8_shapes:
         qi8, ws8T = build_mmq_planes(w)
         N, K = w.shape
-        x = torch.randn(B, K, generator=g, device=dev).to(torch.bfloat16)
-        xq, xs = quantize_activations(x)
-        out = qmm_i8_kernel(xq, xs, qi8, ws8T)
-        ref = qmm_i8_plain(xq, xs, qi8, ws8T)
-        torch.cuda.synchronize()
-        record(f"qmm_i8 B={B} {label}", qmm_src.format("qmm_i8"),
-               "llamacog_tpu/ops/pallas/qmm_i8.py:68", [out], [ref], TOL_K13,
-               time_ms(lambda: qmm_i8_kernel(xq, xs, qi8, ws8T)),
-               time_ms(lambda: qmm_i8_plain(xq, xs, qi8, ws8T), iters=5),
-               xq.numel() + xs.numel() * 4 + qi8.numel() + ws8T.numel() * 4 + out.numel() * 4,
-               2 * B * N * K, time_ms(lambda: torch._int_mm(xq, qi8.t())), peak=INT8_OPS)
-        # the model's int8 route (activation quantization, then K13) never
-        # makes the host wait for the card
         w8 = WireTensor(w.kind, w.shape, w.blocks, qi8, ws8T)
-        check(torch.equal(no_sync(lambda: qmatmul(x, w8)), ref.to(torch.bfloat16)),
-              f"qmatmul {label}: the int8 route disagrees with qmm_i8_plain")
-        del qi8, ws8T, out, ref, w8
+        for B in (512, 300):
+            x = torch.randn(B, K, generator=g, device=dev).to(torch.bfloat16)
+            xq, xs = quantize_activations(x)
+            rule = qmm_i8_tile_rows(B, N)
+            other = 192 - rule
+            out = qmm_i8_kernel(xq, xs, qi8, ws8T)
+            ref = qmm_i8_plain(xq, xs, qi8, ws8T)
+            torch.cuda.synchronize()
+            check(torch.equal(qmm_i8_kernel(xq, xs, qi8, ws8T, tile_rows=other), ref),
+                  f"qmm_i8 B={B} {label}: {other}-row tiles disagree with qmm_i8_plain")
+            log_device_and_host(f"qmm_i8 B={B} {label}", [
+                (f"K13 {rule}-row tiles (the rule)", lambda: qmm_i8_kernel(xq, xs, qi8, ws8T)),
+                (f"K13 {other}-row tiles", lambda: qmm_i8_kernel(xq, xs, qi8, ws8T,
+                                                                 tile_rows=other)),
+                ("torch._int_mm", lambda: torch._int_mm(xq, qi8.t()))])
+            record(f"qmm_i8 B={B} {label}", qmm_src.format("qmm_i8"), i8_rep.format(68),
+                   [out], [ref], TOL_K13,
+                   time_ms(lambda: qmm_i8_kernel(xq, xs, qi8, ws8T)),
+                   time_ms(lambda: qmm_i8_plain(xq, xs, qi8, ws8T), iters=5),
+                   xq.numel() + xs.numel() * 4 + qi8.numel() + ws8T.numel() * 4
+                   + out.numel() * 4, 2 * B * N * K,
+                   time_ms(lambda: torch._int_mm(xq, qi8.t())), peak=INT8_OPS)
+            # the model's int8 route (one quantization, then K13) never makes
+            # the host wait for the card
+            check(torch.equal(no_sync(lambda: qmatmul(x, w8)), ref.to(torch.bfloat16)),
+                  f"qmatmul {label}: the int8 route disagrees with qmm_i8_plain")
+            del out, ref
+        del qi8, ws8T, w8
+    # attn_qk and attn_v share one quantization of the layer input
+    w8s = [WireTensor(w.kind, w.shape, w.blocks, *build_mmq_planes(w)) for w in (w_qk, w_v)]
+    x = torch.randn(512, E, generator=g, device=dev).to(torch.bfloat16)
+    before = dict(build.LAUNCHES)
+    outs = no_sync(lambda: qmatmul_multi(x, w8s))
+    took = {k: c - before[k] for k, c in build.LAUNCHES.items() if c != before[k]}
+    check(took == {"quantize_i8": 1, "qmm_i8": 2}
+          and all(torch.equal(o, qmatmul(x, w8)) for o, w8 in zip(outs, w8s)),
+          f"qmatmul_multi attn_qk+attn_v int8: launched {took}, not one quantization and "
+          f"two K13, or results not those of per-weight qmatmul")
+    log("[parity] qmatmul_multi attn_qk+attn_v, int8: one quantize_i8 launch and two qmm_i8, "
+        "results equal per-weight qmatmul")
+    del w8s, outs
 
     H, Hkv, D = cfg.n_head, cfg.n_head_kv, cfg.head_dim_k
     rep = H // Hkv
@@ -722,37 +775,44 @@ def main() -> int:
                [ref], TOL_QMM, time_ms(lambda: fn(x, ids, w)),
                time_ms(lambda: qmm_gather_plain(x, ids, w), iters=5),
                expert_bytes(w, ids) + x.numel() * 2 + out.numel() * 4, 2 * S_rows * Nw * Kw)
-    # the grouped GEMM of a 128-token prefill: 256 rows sorted by expert,
-    # padded to 64-row tiles, s_pad 768
-    ids = route(PROMPT_LEN)
-    dest, tile_expert, s_pad = moe_sort(ids, n_exp, 64)
-    for label, w in (("ffn_gate_up_exps Q4_K 8x28672x4096", moe_gu),
-                     ("ffn_down_exps Q6_K 8x4096x14336", moe_d6)):
-        _, Nw, Kw = w.shape
-        rows = torch.randn(ids.shape[0], Kw, generator=g, device=dev).to(torch.bfloat16)
-        xs = torch.zeros(s_pad, Kw, dtype=torch.bfloat16, device=dev).index_copy_(0, dest, rows)
-        out = qmm_ragged(xs, tile_expert, w, 64)
-        ref = qmm_ragged_plain(xs, tile_expert, w, 64)
-        torch.cuda.synchronize()
-        record(f"qgemm_id ragged {label} tokens={PROMPT_LEN} rows={ids.shape[0]} "
-               f"s_pad={s_pad}", qmm_src.format("qgemm_id"), qid_rep.format(188), [out], [ref],
-               TOL_QMM, time_ms(lambda: qmm_ragged(xs, tile_expert, w, 64)),
-               time_ms(lambda: qmm_ragged_plain(xs, tile_expert, w, 64), iters=5),
-               expert_bytes(w, ids) + ids.shape[0] * (Kw * 2 + Nw * 4),
-               2 * ids.shape[0] * Nw * Kw)
+    # the grouped GEMM of a 128-token prefill (256 rows sorted by expert,
+    # each expert's padded to the model's token tile) and of a 512-token one
+    # (1024 rows: several tiles an expert)
+    for tokens in (PROMPT_LEN, 512):
+        ids = route(tokens)
+        dest, tile_expert, s_pad = moe_sort(ids, n_exp, RAGGED_TILE)
+        counts = torch.bincount(ids.long(), minlength=n_exp).tolist()
+        log(f"[parity] qgemm_id {tokens} tokens: rows per expert {counts}, s_pad {s_pad}")
+        for label, w in (("ffn_gate_up_exps Q4_K 8x28672x4096", moe_gu),
+                         ("ffn_down_exps Q6_K 8x4096x14336", moe_d6)):
+            _, Nw, Kw = w.shape
+            rows = torch.randn(ids.shape[0], Kw, generator=g, device=dev).to(torch.bfloat16)
+            xs = torch.zeros(s_pad, Kw, dtype=torch.bfloat16, device=dev).index_copy_(
+                0, dest, rows)
+            out = qmm_ragged(xs, tile_expert, w, RAGGED_TILE)
+            ref = qmm_ragged_plain(xs, tile_expert, w, RAGGED_TILE)
+            torch.cuda.synchronize()
+            record(f"qgemm_id ragged {label} tokens={tokens} rows={ids.shape[0]} "
+                   f"s_pad={s_pad}", qmm_src.format("qgemm_id"), qid_rep.format(188), [out],
+                   [ref], TOL_QMM, time_ms(lambda: qmm_ragged(xs, tile_expert, w, RAGGED_TILE)),
+                   time_ms(lambda: qmm_ragged_plain(xs, tile_expert, w, RAGGED_TILE), iters=5),
+                   expert_bytes(w, ids) + ids.shape[0] * (Kw * 2 + Nw * 4),
+                   2 * ids.shape[0] * Nw * Kw, run="mixtral" if tokens == PROMPT_LEN
+                   else "mixtral 512")
+            del out, ref, xs, rows
     # the MoE FFN keeps routing on the device: a decode step (2 rows, the
-    # gather) and a 128-token prefill (the grouped GEMM) run with any
+    # gather) and 128- and 512-token prefills (the grouped GEMM) run with any
     # synchronizing call raising
     moe_layer = {"ffn_gate_inp": torch.randn(n_exp, E, generator=g, device=dev) * 0.02,
                  "ffn_gate_up_exps": moe_gu, "ffn_down_exps": moe_d6}
 
-    for T_moe in (1, PROMPT_LEN):
+    for T_moe in (1, PROMPT_LEN, 512):
         h_moe = torch.randn(1, T_moe, E, generator=g, device=dev).to(torch.bfloat16)
         out = no_sync(lambda: _ffn_moe(moe_layer, h_moe, mcfg))
         check(out.shape == h_moe.shape and bool(torch.isfinite(out).all()),
               f"MoE FFN at T={T_moe}: output not finite of shape {tuple(h_moe.shape)}")
         log(f"[moe] _ffn_moe T={T_moe} ({T_moe * k_used} rows) ran with no host sync")
-    del moe_gu, moe_d6, moe_layer, w, x, rows, xs, out, ref  # `w` holds a stack too
+    del moe_gu, moe_d6, moe_layer, w, x, out  # `w` holds a stack too
     torch.cuda.empty_cache()
 
     # 4. full-width kernel path vs the plain path (same params on the CPU)
@@ -845,7 +905,8 @@ def main() -> int:
         ("kv dense", "dense", {}, prompt20, (), "stacked"),
         ("kv q8_0", "q8_0", {}, prompt20, (), "stacked"),
         ("kv q5_1:q4_0", "q5_1:q4_0", {}, prompt20, (), "stacked"),
-        (mmq_label, "dense", {"LLAMACOG_MMQ": "1"}, prompt300, ("qmm_i8",), "stacked"),
+        (mmq_label, "dense", {"LLAMACOG_MMQ": "1"}, prompt300, ("qmm_i8", "quantize_i8"),
+         "stacked"),
         ("per-layer dense decode (K9)", "dense", {**per_layer, "LLAMACOG_FLASH_DECODE": "1"},
          prompt20, ("flash_decode",), "per-layer dense"),
         ("per-layer q8_0 decode (K8)", "q8_0", per_layer, prompt20, ("flash_decode_quant",),
@@ -934,7 +995,8 @@ def main() -> int:
                 stray = [k for k in launches if k not in used and launches[k] != 0]
                 check(not stray, f"{tag} kernels of another path launched: {stray}")
                 out[name] = {"prefill": prefill_launches, "decode": decode_launches,
-                             "total": launches, "tokens": toks}
+                             "total": launches, "tokens": toks,
+                             "ttft": ttfts[1:] + out.get(name, {}).get("ttft", [])}
                 # the device-side loop agrees with host-driven decode_one + argmax
                 eng.reset()
                 first = int(eng.prefill(prompt).argmax())
@@ -989,8 +1051,8 @@ def main() -> int:
         ("kv dense", "dense", {}, PROMPT_LEN, exact_path),
         # a 512-token prompt, exact and int8 prefill (LLAMACOG_MMQ=1)
         ("exact 512", "dense", {}, 512, exact_path),
-        ("mmq 512", "dense", mmq_env, 512, ("qmv", "qmm_i8", *dense_attn)),
-        ("mmq 512", "dense", mmq_env, 512, ("qmv", "qmm_i8", *dense_attn)),
+        ("mmq 512", "dense", mmq_env, 512, ("qmv", "qmm_i8", "quantize_i8", *dense_attn)),
+        ("mmq 512", "dense", mmq_env, 512, ("qmv", "qmm_i8", "quantize_i8", *dense_attn)),
         ("exact 512", "dense", {}, 512, exact_path),
         # the per-layer dense decode route (K9)
         ("per-layer K9", "dense", k9_env, PROMPT_LEN, ("qmv", "qgemm", "flash_decode",
@@ -1023,14 +1085,23 @@ def main() -> int:
           f"long run: prefill flash_prefill {long_run['prefill']['flash_prefill']} (want "
           f"{2 * n_l}), decode flash_decode_dense {long_run['decode']['flash_decode_dense']} "
           f"(want {64 * n_l})")
+    # int8 prefill: one quantization a layer input (qk+v, output, gate_up,
+    # down) and K13 for each of the five weights
     check(mmq_run["prefill"]["qmm_i8"] == 5 * n_l and mmq_run["prefill"]["qgemm"] == 0
-          and mmq_run["decode"]["qmm_i8"] == 0,
-          f"mmq run: prefill qmm_i8 {mmq_run['prefill']['qmm_i8']} (want {5 * n_l}), qgemm "
-          f"{mmq_run['prefill']['qgemm']} (want 0), decode qmm_i8 {mmq_run['decode']['qmm_i8']}")
+          and mmq_run["prefill"]["quantize_i8"] == 4 * n_l
+          and mmq_run["decode"]["qmm_i8"] == 0 and mmq_run["decode"]["quantize_i8"] == 0,
+          f"mmq run: prefill qmm_i8 {mmq_run['prefill']['qmm_i8']} (want {5 * n_l}), "
+          f"quantize_i8 {mmq_run['prefill']['quantize_i8']} (want {4 * n_l}), qgemm "
+          f"{mmq_run['prefill']['qgemm']} (want 0), decode qmm_i8 {mmq_run['decode']['qmm_i8']}"
+          f" quantize_i8 {mmq_run['decode']['quantize_i8']} (want 0)")
     check(k9_run["decode"]["flash_decode"] == n_l * N_DECODE
           and k9_run["total"]["flash_decode_dense"] == 0,
           f"K9 run: flash_decode {k9_run['decode']['flash_decode']} (want {n_l * N_DECODE}), "
           f"flash_decode_dense {k9_run['total']['flash_decode_dense']} (want 0)")
+    ttft = {name: statistics.median(runs_8b[name]["ttft"]) * 1e3
+            for name in ("exact 512", "mmq 512")}
+    log(f"[8b] 512-token prompt TTFT, median of both runs' prefills: exact "
+        f"{ttft['exact 512']:.2f} ms, LLAMACOG_MMQ=1 {ttft['mmq 512']:.2f} ms")
     same = bool((k9_run["tokens"] == runs_8b["kv dense"]["tokens"]).all())
     log(f"[8b] per-layer K9 run: {N_DECODE} greedy tokens equal the stacked dense run's: {same}")
     check(same, "the per-layer K9 route's greedy tokens differ from the stacked route's")
@@ -1043,7 +1114,12 @@ def main() -> int:
     moe_path = (*exact_path, *moe_kernels)
     runs_moe = main_path_runs("mixtral", params, mcfg, [
         ("kv dense", "dense", {}, PROMPT_LEN, moe_path),
-        ("kv dense", "dense", {}, PROMPT_LEN, moe_path)])
+        ("kv dense", "dense", {}, PROMPT_LEN, moe_path),
+        # a 512-token prompt: the grouped GEMM with several tiles an expert
+        ("kv dense 512", "dense", {}, 512, moe_path, 1024, 16)])
+    got = runs_moe["kv dense 512"]["prefill"]["qgemm_id"]
+    check(got == 2 * mcfg.n_layer, f"mixtral 512 run: prefill qgemm_id {got} "
+          f"(want {2 * mcfg.n_layer})")
     del params
     torch.cuda.empty_cache()
     log(f"[phase 5] wall time {time.perf_counter() - t5:.1f}s")
@@ -1055,9 +1131,11 @@ def main() -> int:
     run_of = {"qmm_i8": mmq_run, "flash_decode": k9_run,
               **{k: runs_moe["kv dense"] for k in moe_kernels},
               **{k: runs_8b["kv q8_0"] for k in quant_attn}}
+    run_named = {**runs_8b, "mixtral": runs_moe["kv dense"],
+                 "mixtral 512": runs_moe["kv dense 512"]}
     for r in results:
         k, run = r.pop("kernel"), r.pop("run")
-        r["launches"] = (runs_moe["kv dense"] if run == "mixtral" else runs_8b[run] if run
+        r["launches"] = (run_named[run] if run
                          else run_of.get(k, runs_8b["kv dense"]))["total"][k]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

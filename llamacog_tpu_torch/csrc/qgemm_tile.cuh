@@ -1,10 +1,8 @@
 // The pipelined tile of the fused dequant x GEMM over GGUF wire-format Q4_K /
-// Q6_K / Q8_0 / Q5_K weights, shared by qgemm.cu (dense weights, K2/K3) and
-// qgemm_id.cu (stacked experts, K11: Q4_K and Q6_K).
+// Q6_K / Q8_0 / Q5_K weights of qgemm.cu (dense weights, K2/K3).
 //
 // A block of QG_THREADS threads (8 warps) owns a BM x QG_BN output tile
-// (BM = 128, or 64 where qgemm.cu's grid would leave SMs idle and for K11's
-// 64-row expert tiles) and
+// (BM = 128, or 64 where qgemm.cu's grid would leave SMs idle) and
 // walks K in stages of a quarter superblock (QG_BK = 64). Two streams run
 // ahead of the tensor cores:
 //   * the bf16 activation tile [BM, 64] through a three-stage cp.async ring

@@ -16,7 +16,8 @@ on one layer's tensors. The flash_prefill and flash_prefill_quant libraries
 have two bodies each, counted apart: ``flash_prefill`` and
 ``flash_prefill_quant`` the bf16 tensor-core tiles, ``flash_prefill_simt``
 and ``flash_prefill_quant_simt`` the SIMT bodies (f32, and bf16 head dims
-or rows the tiles do not take).
+or rows the tiles do not take). The qmm_i8 library also holds the
+activation quantization of the int8 route, counted as ``quantize_i8``.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
 KV_KIND_ID = {"q8_0": 0, "q4_0": 1, "q4_1": 2, "q5_0": 3, "q5_1": 4, "f16": 5, "bf16": 6}
 
 LAUNCHES = {name: 0 for name in (*KERNELS, "flash_decode", "flash_prefill_simt",
-                                   "flash_prefill_quant_simt")}
+                                   "flash_prefill_quant_simt", "quantize_i8")}
 BUILD_LOG: dict[str, str] = {}  # nvcc/ptxas output (registers, smem, spills)
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -118,7 +119,9 @@ def _bind(lib: ctypes.CDLL) -> None:
                                     i, f, f, i, ints, vp],
         "lcg_qmv_id": [vp, i, i, i, vp, i, i, i, vp, vp, vp],
         "lcg_qgemm_id": [vp, i, i, i, vp, i, i, i, vp, i, vp, vp],
-        "lcg_qmm_i8": [vp, vp, vp, vp, vp, i, i, i, vp],
+        "lcg_qmm_i8": [vp, vp, vp, vp, vp, i, i, i, i, vp],
+        "lcg_qmm_i8_tile_rows": [i, i],
+        "lcg_quantize_i8": [vp, i, i, i, vp, vp, vp],
     }
     for fn, argtypes in sigs.items():
         if hasattr(lib, fn):

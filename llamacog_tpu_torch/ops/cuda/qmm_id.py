@@ -13,9 +13,11 @@ contracts. The experts stay one stacked WireTensor [n_exp, N, K] (blocks
 - qmm_ragged (K11, csrc/qgemm_id.cu): xs [S_pad, K] sorted by expert and
   padded so token tile i (tt rows) belongs to expert tile_expert[i] ->
   [S_pad, N] f32. bf16 activations take the grouped GEMM (bf16 operands,
-  f32 accumulation; tt must be 64); f32 activations take the K10 kernel
-  over ids_rows = repeat(tile_expert, tt), the JAX package's own non-TPU
-  route (models/llama.py:168-169).
+  f32 accumulation; tt a multiple of 16: a block gathers the tiles of its
+  expert, dequantizes its weight strip once per pass of up to 64 of those
+  rows and multiplies all of them against it); f32 activations take the
+  K10 kernel over ids_rows = repeat(tile_expert, tt), the JAX package's
+  own non-TPU route (models/llama.py:168-169).
 
 A row (or tile) whose expert lies outside [0, n_exp) gives zeros and reads
 no weights: the MoE sort (models/llama.py::moe_sort) marks the padding
@@ -33,7 +35,10 @@ import torch
 from ...quant.wire import WireTensor, dequantize_experts
 from . import build
 
-RAGGED_TILE = 64  # the only token tile qgemm_id takes
+RAGGED_TILE = 16  # the model's token tile (models/llama.py::moe_sort's padding)
+RAGGED_TILE_STEP = 16  # qgemm_id takes any multiple of this
+RAGGED_MAX_TILES = 1024  # token tiles a qgemm_id launch
+RAGGED_MAX_EXPERTS = 256  # experts of a stack qgemm_id takes
 _KIND_ID = {"Q4_K": 0, "Q6_K": 1}
 
 
@@ -115,13 +120,18 @@ def qmv_id_kernel(x: torch.Tensor, ids: torch.Tensor, w: WireTensor) -> torch.Te
 def qgemm_id_kernel(xs: torch.Tensor, tile_expert: torch.Tensor, w: WireTensor,
                     tt: int) -> torch.Tensor:
     """Kernel K11 (CUDA tensors only): xs [S_pad, K] bf16, tile_expert
-    [S_pad / 64] int32, tt = 64 -> [S_pad, N] f32."""
-    if tt != RAGGED_TILE:
-        raise ValueError(f"qgemm_id: the token tile must be {RAGGED_TILE}, got {tt}")
+    [S_pad / tt] int32 (at most RAGGED_MAX_TILES), tt a multiple of 16, at
+    most RAGGED_MAX_EXPERTS experts -> [S_pad, N] f32."""
+    if tt <= 0 or tt % RAGGED_TILE_STEP:
+        raise ValueError(f"qgemm_id: the token tile must be a multiple of "
+                         f"{RAGGED_TILE_STEP}, got {tt}")
     _check("qgemm_id", xs, tile_expert, w, (torch.bfloat16,))
-    if xs.shape[0] != tile_expert.shape[0] * tt:
+    if w.shape[0] > RAGGED_MAX_EXPERTS:
+        raise ValueError(f"qgemm_id: at most {RAGGED_MAX_EXPERTS} experts, got {w.shape[0]}")
+    if xs.shape[0] != tile_expert.shape[0] * tt or not 0 < tile_expert.shape[0] <= \
+            RAGGED_MAX_TILES:
         raise ValueError(f"qgemm_id: {tile_expert.shape[0]} tiles of {tt} for "
-                         f"{xs.shape[0]} rows")
+                         f"{xs.shape[0]} rows (1 to {RAGGED_MAX_TILES} tiles)")
     n_exp, n, k = w.shape
     out = torch.empty((xs.shape[0], n), dtype=torch.float32, device=xs.device)
     lib = build.load("qgemm_id")

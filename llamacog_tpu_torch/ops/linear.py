@@ -5,9 +5,10 @@ tensor goes to the hand-written kernels (qmv at B <= 8, qgemm above — the
 reference's mmvq/mmq split); a CPU tensor goes to the plain version. A
 weight that carries int8 planes (quant/mmq.py, ``LLAMACOG_MMQ=1``) takes
 the int8 GEMM (K13) from MMQ_MIN_B rows up, as the JAX qmm does
-(ops/pallas/qmm.py:648-654). The kernels return f32 and the result is cast
-back to the activation type, the cast points of the JAX package
-(linear.py:82-84,128).
+(ops/pallas/qmm.py:648-654); weights that share an input and all take it
+share one quantization of that input. The kernels return f32 and the
+result is cast back to the activation type, the cast points of the JAX
+package (linear.py:82-84,128).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from ..quant import mmq
 from ..quant.wire import WireTensor
 from .cuda.qmm import MAX_WEIGHTS, qmm_multi_cuda, qmm_plain
-from .cuda.qmm_i8 import qmm_i8
+from .cuda.qmm_i8 import qmm_i8, qmm_i8_quantized, quantize_i8
 
 
 def _qmm_multi(x: torch.Tensor, ws) -> list[torch.Tensor]:
@@ -48,12 +49,17 @@ def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
 def qmatmul_multi(x: torch.Tensor, ws) -> list | None:
     """Several wire-format weights sharing x in ONE kernel launch (mixed
     kinds welcome: the Q4_K_M layer pairs Q4_K attn_qk with Q6_K attn_v).
-    Returns None when a weight cannot ride the fused launch, or when every
-    weight takes the int8 route (linear.py:109-113); the caller then runs
-    per-weight qmatmul."""
+    When every weight takes the int8 route (linear.py:109-113), x is
+    quantized once and K13 runs per weight on the same (xq, xs): the
+    results equal per-weight qmatmul bit for bit, where the JAX package
+    leaves the repeated quantization to XLA to merge. Returns None when a
+    weight cannot ride the fused launch; the caller then runs per-weight
+    qmatmul."""
     if not (1 <= len(ws) <= MAX_WEIGHTS and all(
             isinstance(w, WireTensor) and w.shape[1] == x.shape[-1] for w in ws)):
         return None
     if all(_uses_i8(x, w) for w in ws):
-        return None
+        lead = x.shape[:-1]
+        xq, xs = quantize_i8(x.reshape(-1, x.shape[-1]))
+        return [qmm_i8_quantized(xq, xs, w).reshape(*lead, w.shape[0]).to(x.dtype) for w in ws]
     return [o.to(x.dtype) for o in _qmm_multi(x, ws)]

@@ -2,7 +2,7 @@
 of the port, timed in turns on one GPU.
 
     python -m llamacog_tpu_torch.tools.attn_compare --baseline DIR [--iters 31]
-        [--only attn|weights|quant|prefill_quant]
+        [--only attn|weights|quant|prefill_quant|i8]
 
 DIR is another checkout of the repository (for example an older commit
 unpacked by ``git archive``); its ``llamacog_tpu_torch`` is imported under
@@ -17,7 +17,8 @@ each in turn, L2 flushed before each call. The weight kernels the same way
 layer weights and the LM head, qgemm (K2, K3) at 128 and 512 rows over the
 five layer weights, and the MoE kernels at the Mixtral-8x7B expert shapes —
 the gather qmv_id (K10) at 2 and 32 rows, its offset entry (K12) and the
-grouped GEMM qgemm_id (K11) of a 128-token prefill; the Q8_0 and Q5_K
+grouped GEMM qgemm_id (K11) of a 128- and a 512-token prefill (each tree on
+its own model's token tile, the same routing); the Q8_0 and Q5_K
 weights of a real Mixtral Q4_K_M file (attn_k, attn_output and the
 attn_q + attn_k + attn_v launch) are timed on this tree alone where the
 baseline refuses their kinds. The quantized-cache decode kernel (K6, and
@@ -29,7 +30,11 @@ q4_0 planes, T=128 over write offsets 0 and 896 (a 1024-slot layer) and
 T=2048 over 0 and 2048 (4096 slots), each beside K5 over a dense bf16
 cache holding the same values (the planes dequantized and rounded to
 bf16, which is what K7's tiles multiply): K7's target is K5's time on
-the same work. Two spans:
+the same work. The int8 prefill route (``--only i8``): the K13 GEMM of both
+trees and ``torch._int_mm`` over the planes of the five 8B layer weights at
+512 and 300 rows, and this tree's activation quantization kernel beside
+the baseline's route for it (``quantize_activations``, torch ops). Two
+spans:
 
 - ``enqueue``: CUDA events around the call right after the flush, the span
   of ``chip_smoke.py``'s ``ms``. Where the wrapper's host work outlasts the
@@ -60,6 +65,11 @@ TOL_ATTN = 1e-2  # bf16 outputs, relative to the largest |reference| (chip_smoke
 TOL_QMM = 1e-4   # the weight kernels (chip_smoke.py)
 
 
+def rel_err(got, ref) -> float:
+    got, ref = got.double(), ref.double()
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
 def load_baseline(root: Path):
     """The port package of the checkout at `root`, imported as BASE."""
     pkg = root / "llamacog_tpu_torch"
@@ -76,13 +86,14 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", type=Path, required=True,
                     help="root of another checkout of the repository")
     ap.add_argument("--iters", type=int, default=31)
-    ap.add_argument("--only", choices=("attn", "weights", "quant", "prefill_quant"), default=None,
+    ap.add_argument("--only", choices=("attn", "weights", "quant", "prefill_quant", "i8"),
+                    default=None,
                     help="time one group of kernels (default: all)")
     args = ap.parse_args(argv)
 
     import torch
 
-    from ..ops.cuda import build, flash_decode, flash_prefill, flash_q8, qmm, qmm_id
+    from ..ops.cuda import build, flash_decode, flash_prefill, flash_q8, qmm, qmm_i8, qmm_id
     from ..quant.wire import WireTensor
     from ..utils.synthetic import llama3_8b_config, mixtral_8x7b_config, random_experts, \
         random_wire
@@ -97,11 +108,13 @@ def main(argv=None) -> int:
     b_q8 = importlib.import_module(BASE + ".ops.cuda.flash_q8")
     b_qmm = importlib.import_module(BASE + ".ops.cuda.qmm")
     b_qmm_id = importlib.import_module(BASE + ".ops.cuda.qmm_id")
+    b_qmm_i8 = importlib.import_module(BASE + ".ops.cuda.qmm_i8")
     b_wire = importlib.import_module(BASE + ".quant.wire")
     names = {"attn": ("flash_decode_dense", "flash_prefill"),
              "weights": ("qmv", "qgemm", "qmv_id", "qgemm_id"),
              "quant": ("flash_decode_quant",),
-             "prefill_quant": ("flash_prefill_quant", "flash_prefill")}
+             "prefill_quant": ("flash_prefill_quant", "flash_prefill"),
+             "i8": ("qmm_i8",)}
     names = sum((v for k, v in names.items() if args.only in (None, k)), ())
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         secs = list(pool.map(lambda bld: bld.build(names), (build, b_build)))
@@ -148,17 +161,14 @@ def main(argv=None) -> int:
                     t.append(a.elapsed_time(b))
         return [(statistics.median(e), statistics.median(d)) for e, d in times]
 
-    def rel_err(got, ref) -> float:
-        got, ref = got.double(), ref.double()
-        return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
-
     rows = []
 
     def compare(shape, callees, plain, tol=TOL_ATTN, library=True):
         """callees: (label, fn) pairs; with `library`, the last is a library
-        call (SDPA) and has no error check."""
-        ref = plain()
-        for label, fn in callees[:-1] if library else callees:
+        call (SDPA) and has no error check; with plain None, the caller has
+        checked the callees."""
+        ref = plain() if plain is not None else None
+        for label, fn in (callees[:-1] if library else callees) if ref is not None else ():
             err = rel_err(fn(), ref)
             if err > tol:
                 raise RuntimeError(f"attn_compare: {label} at {shape}: error {err:.3e}")
@@ -177,7 +187,9 @@ def main(argv=None) -> int:
         quant(compare, dev, g, flash_q8, b_q8, H, Hkv, D)
     if args.only in (None, "prefill_quant"):
         prefill_quant(compare, dev, g, flash_q8, flash_prefill, b_q8, H, Hkv, D)
-    if args.only in ("weights", "quant", "prefill_quant"):
+    if args.only in (None, "i8"):
+        int8(compare, dev, g, qmm_i8, b_qmm_i8, llama3_8b_config(), random_wire)
+    if args.only in ("weights", "quant", "prefill_quant", "i8"):
         print(json.dumps({"device": torch.cuda.get_device_name(0), "rows": rows}))
         return 0
 
@@ -361,20 +373,69 @@ def weights(args, compare, dev, g, qmm, qmm_id, b_qmm, b_qmm_id, b_wire, WireTen
                          lambda: b_qmm_id.qmm_gather_offset(x, ids, bwt))]
         compare(f"qmv_id {label} S={ids.shape[0]}", callees,
                 lambda: qmm_id.qmm_gather_plain(x, ids, wt), TOL_QMM, library=False)
-    ids = route(128)
     from ..models.llama import moe_sort
 
-    dest, tile_expert, s_pad = moe_sort(ids, n_exp, 64)
-    for label, wt, bwt in (("ffn_gate_up_exps", gu, bgu), ("ffn_down_exps", d6, bd6)):
-        rows_x = torch.randn(ids.shape[0], wt.shape[2], generator=g, device=dev).to(torch.bfloat16)
-        xs = torch.zeros(s_pad, wt.shape[2], dtype=torch.bfloat16,
-                         device=dev).index_copy_(0, dest, rows_x)
-        compare(f"qgemm_id {label} tokens=128 s_pad={s_pad}", [
-            ("qgemm_id this", lambda: qmm_id.qmm_ragged(xs, tile_expert, wt, 64)),
-            ("qgemm_id baseline", lambda: b_qmm_id.qmm_ragged(xs, tile_expert, bwt, 64))],
-            lambda: qmm_id.qmm_ragged_plain(xs, tile_expert, wt, 64), TOL_QMM, library=False)
+    for tokens in (128, 512):
+        ids = route(tokens)
+        lay = moe_sort(ids, n_exp, qmm_id.RAGGED_TILE)
+        b_lay = moe_sort(ids, n_exp, b_qmm_id.RAGGED_TILE)
+        for label, wt, bwt in (("ffn_gate_up_exps", gu, bgu), ("ffn_down_exps", d6, bd6)):
+            rows_x = torch.randn(ids.shape[0], wt.shape[2], generator=g,
+                                 device=dev).to(torch.bfloat16)
+            (dest, te, s_pad), (b_dest, b_te, b_s_pad) = lay, b_lay
+            xs = torch.zeros(s_pad, wt.shape[2], dtype=torch.bfloat16,
+                             device=dev).index_copy_(0, dest, rows_x)
+            b_xs = torch.zeros(b_s_pad, wt.shape[2], dtype=torch.bfloat16,
+                               device=dev).index_copy_(0, b_dest, rows_x)
+            tt, b_tt = qmm_id.RAGGED_TILE, b_qmm_id.RAGGED_TILE
+            ref = qmm_id.qmm_ragged_plain(xs, te, wt, tt).index_select(0, dest)
+            # both trees' outputs in (token, slot) pair order
+            for who, got in (("this", qmm_id.qmm_ragged(xs, te, wt, tt).index_select(0, dest)),
+                             ("baseline", b_qmm_id.qmm_ragged(b_xs, b_te, bwt, b_tt)
+                              .index_select(0, b_dest))):
+                if rel_err(got, ref) > TOL_QMM:
+                    raise RuntimeError(f"attn_compare: qgemm_id {who} at {tokens} tokens: "
+                                       f"error {rel_err(got, ref):.3e}")
+            compare(f"qgemm_id {label} tokens={tokens} s_pad={s_pad}/{b_s_pad}", [
+                ("qgemm_id this", lambda: qmm_id.qmm_ragged(xs, te, wt, tt)),
+                ("qgemm_id baseline", lambda: b_qmm_id.qmm_ragged(b_xs, b_te, bwt, b_tt))],
+                None, library=False)
     del gu, d6, bgu, bd6
     torch.cuda.empty_cache()
+
+
+def int8(compare, dev, g, qmm_i8, b_qmm_i8, cfg, random_wire):
+    """K13 of both trees on the same planes and activations, beside
+    torch._int_mm (the int32 products alone); the activation quantization
+    kernel of this tree beside the baseline's route (torch ops)."""
+    import torch
+
+    from ..quant.mmq import build_mmq_planes
+
+    E, F = cfg.n_embd, cfg.n_ff
+    for B, K in ((512, E), (512, F)):
+        x = torch.randn(B, K, generator=g, device=dev).to(torch.bfloat16)
+        ref = qmm_i8.quantize_activations(x)
+        if not all(torch.equal(a, b) for a, b in zip(qmm_i8.quantize_kernel(x), ref)):
+            raise RuntimeError(f"attn_compare: quantize_i8 at B={B} K={K} is not bit-equal")
+        compare(f"quantize B={B} K={K}", [
+            ("quantize_i8 this", lambda: qmm_i8.quantize_kernel(x)),
+            ("quantize baseline", lambda: b_qmm_i8.quantize_activations(x))], None,
+            library=False)
+    for label, kind, N, K in (("attn_qk", "Q4_K", 5120, E), ("attn_v", "Q6_K", 1024, E),
+                              ("attn_output", "Q4_K", E, E), ("ffn_gate_up", "Q4_K", 2 * F, E),
+                              ("ffn_down", "Q4_K", E, F)):
+        qi8, ws8T = build_mmq_planes(random_wire(kind, N, K, g, dev))
+        for B in (512, 300):
+            xq, xs = qmm_i8.quantize_activations(
+                torch.randn(B, K, generator=g, device=dev).to(torch.bfloat16))
+            compare(f"qmm_i8 {label} B={B}", [
+                ("qmm_i8 this", lambda: qmm_i8.qmm_i8_kernel(xq, xs, qi8, ws8T)),
+                ("qmm_i8 baseline", lambda: b_qmm_i8.qmm_i8_kernel(xq, xs, qi8, ws8T)),
+                ("torch._int_mm", lambda: torch._int_mm(xq, qi8.t()))],
+                lambda: qmm_i8.qmm_i8_plain(xq, xs, qi8, ws8T), 1e-6)
+        del qi8, ws8T
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

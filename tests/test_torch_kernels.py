@@ -27,8 +27,8 @@ from llamacog_tpu_torch.ops.cuda.flash_q8 import (
     flash_decode_stacked_plain, flash_prefill_q8_plain, flash_prefill_quant_kernel)
 from llamacog_tpu_torch.ops.cuda.qmm import qgemm, qmm_multi_cuda, qmm_plain, qmv
 from llamacog_tpu_torch.ops.cuda.qmm_id import (
-    qgemm_id_kernel, qmm_gather, qmm_gather_offset, qmm_gather_plain, qmm_ragged,
-    qmm_ragged_plain, qmv_id_kernel)
+    RAGGED_MAX_EXPERTS, RAGGED_MAX_TILES, RAGGED_TILE, qgemm_id_kernel, qmm_gather, qmm_gather_offset,
+    qmm_gather_plain, qmm_ragged, qmm_ragged_plain, qmv_id_kernel)
 from llamacog_tpu_torch.quant.wire import BLOCK_BYTES, WireTensor
 from llamacog_tpu_torch.runtime.kv_cache import QuantKVCache
 from llamacog_tpu_torch.utils.synthetic import random_experts, random_wire
@@ -195,13 +195,51 @@ def test_qgemm_id_matches_plain(dev, kind, tiles, dtype):
     assert (got[pad] == 0).all()
 
 
+@pytest.mark.parametrize("kind", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("tokens", [128, 512])
+def test_qgemm_id_model_tile_token_counts(dev, kind, tokens):
+    """The grouped GEMM on moe_sort's layout at the model's token tile (16)
+    for a 128- and a 512-token prefill at top-2 of 8 experts, expert 3 empty
+    and expert 5 a single row; narrow weights (N 200, K 1024) so the plain
+    version stays quick."""
+    from llamacog_tpu_torch.models.llama import moe_sort
+
+    g = torch.Generator(device=dev).manual_seed(tokens)
+    w = random_experts(kind, 8, 200, 1024, g, dev)
+    pool = torch.tensor([0, 1, 2, 4, 6, 7], device=dev)
+    pick = torch.stack([torch.randperm(6, generator=g, device=dev)[:2] for _ in range(tokens)])
+    ids = pool[pick]
+    ids[0, 1] = 5 if int(ids[0, 0]) != 5 else 4
+    ids = ids.reshape(-1).to(torch.int32)
+    counts = torch.bincount(ids.long(), minlength=8).tolist()
+    assert counts[3] == 0 and counts[5] == 1
+    dest, te, s_pad = moe_sort(ids, 8, RAGGED_TILE)
+    rows = torch.randn(ids.shape[0], 1024, generator=g, device=dev).to(torch.bfloat16)
+    xs = torch.zeros(s_pad, 1024, dtype=torch.bfloat16, device=dev).index_copy_(0, dest, rows)
+    before = build.LAUNCHES["qgemm_id"]
+    got = qmm_ragged(xs, te, w, RAGGED_TILE)
+    assert build.LAUNCHES["qgemm_id"] == before + 1
+    ref = qmm_ragged_plain(xs, te, w, RAGGED_TILE)
+    torch.cuda.synchronize()
+    assert rel_err(got, ref) < QMM_TOL
+    pad = (te >= 8).repeat_interleave(RAGGED_TILE)
+    assert (got[pad] == 0).all()
+
+
 def test_moe_launchers_reject_bad_input(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     w = random_experts("Q4_K", 4, 64, 256, g, dev)
     te = torch.zeros(1, dtype=torch.int32, device=dev)
     xs = torch.zeros(64, 256, dtype=torch.bfloat16, device=dev)
-    with pytest.raises(ValueError):  # the kernel's token tile is 64
-        qgemm_id_kernel(torch.zeros(32, 256, dtype=torch.bfloat16, device=dev), te, w, 32)
+    with pytest.raises(ValueError):  # the kernel's token tile is a multiple of 16
+        qgemm_id_kernel(torch.zeros(24, 256, dtype=torch.bfloat16, device=dev), te, w, 24)
+    with pytest.raises(ValueError, match="experts"):  # more experts than the kernel takes
+        qgemm_id_kernel(xs[:16], te, random_experts("Q4_K", RAGGED_MAX_EXPERTS + 1, 16, 256, g,
+                                                    dev), 16)
+    with pytest.raises(ValueError):  # more tiles than the kernel's tile list holds
+        n = RAGGED_MAX_TILES + 1
+        qgemm_id_kernel(torch.zeros(16 * n, 256, dtype=torch.bfloat16, device=dev),
+                        torch.zeros(n, dtype=torch.int32, device=dev), w, 16)
     with pytest.raises(ValueError):  # int64 ids
         qmv_id_kernel(xs[:2], torch.zeros(2, dtype=torch.int64, device=dev), w)
     with pytest.raises(ValueError):  # a 2-D weight

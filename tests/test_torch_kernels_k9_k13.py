@@ -1,6 +1,6 @@
-"""The int8 prefill GEMM (K13, csrc/qmm_i8.cu) and the per-layer dense
-decode entry (K9, the flash_decode_dense kernel on one layer) against their
-plain PyTorch versions, on the card.
+"""The int8 prefill GEMM (K13, csrc/qmm_i8.cu), its activation quantization
+kernel, and the per-layer dense decode entry (K9, the flash_decode_dense
+kernel on one layer) against their plain PyTorch versions, on the card.
 
 Every test needs an NVIDIA GPU (and nvcc): they carry the `cuda` marker and
 skip where none is present. Run them on the card with
@@ -8,7 +8,9 @@ skip where none is present. Run them on the card with
 (this file imports no JAX). Tolerances, relative to the largest
 |reference|: K13 takes the plain version's integer products and its f32
 combine operation for operation, so it is expected to agree bit for bit
-(K13_TOL 1e-6); K9 as the dense attention kernels (ATTN_TOL).
+(K13_TOL 1e-6; the tile-height tests ask torch.equal); the quantize kernel
+is bit-equal to quantize_activations; K9 as the dense attention kernels
+(ATTN_TOL).
 """
 
 import pytest
@@ -20,7 +22,8 @@ from llamacog_tpu_torch.ops.cuda.flash_decode import (
     flash_decode_attention_plain, flash_decode_kernel)
 from llamacog_tpu_torch.ops.cuda.flash_q8 import flash_decode_stacked_dense
 from llamacog_tpu_torch.ops.cuda.qmm_i8 import (
-    qmm_i8, qmm_i8_kernel, qmm_i8_plain, quantize_activations)
+    qmm_i8, qmm_i8_kernel, qmm_i8_plain, qmm_i8_tile_rows, quantize_activations,
+    quantize_kernel)
 from llamacog_tpu_torch.quant import mmq
 from llamacog_tpu_torch.quant.wire import WireTensor
 from llamacog_tpu_torch.utils.synthetic import random_wire
@@ -62,6 +65,66 @@ def test_qmm_i8_matches_plain(dev, B, N, K):
     ref = qmm_i8_plain(xq, xs, w.qi8, w.ws8T)
     torch.cuda.synchronize()
     assert got.shape == (B, N) and rel_err(got, ref) <= K13_TOL
+
+
+@pytest.mark.parametrize("B,N,K", [(300, 1024, 1024), (129, 768, 512), (512, 5120, 1024),
+                                   (7, 130, 512), (513, 256, 2048)])
+def test_qmm_i8_tile_heights_bit_equal(dev, B, N, K):
+    """Both tile heights (64 and 128 weight rows) and the grid rule's choice
+    at the ragged edges they produce: B past the 128-row activation tile,
+    N past both tile heights (130), bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(B * N)
+    w = _planes("Q4_K", N, K, g, dev) if N % 256 == 0 else None
+    if w is None:  # the plane filter takes N % 256 == 0: planes of another shape
+        wq = random_wire("Q4_K", N, K, g, dev)
+        wb = torch.randint(-127, 128, (N, K), generator=g, device=dev, dtype=torch.int8)
+        ws = torch.rand(K // mmq.MMQ_KB, N, generator=g, device=dev) * 1e-2
+        w = WireTensor(wq.kind, wq.shape, wq.blocks, wb, ws)
+    xq, xs = quantize_activations(torch.randn(B, K, generator=g, device=dev))
+    ref = qmm_i8_plain(xq, xs, w.qi8, w.ws8T)
+    assert qmm_i8_tile_rows(B, N) in (64, 128)
+    for rows in (0, 64, 128):
+        got = qmm_i8_kernel(xq, xs, w.qi8, w.ws8T, tile_rows=rows)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), rows
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K", [(1, 512), (7, 4096), (300, 4096), (512, 14336)])
+def test_quantize_kernel_bit_equal(dev, dtype, B, K):
+    """Ragged row counts, a row of zeros (scale 1), ties that round to even."""
+    g = torch.Generator(device=dev).manual_seed(B + K)
+    x = (torch.randn(B, K, generator=g, device=dev) * 3).to(dtype)
+    x[-1] = 0
+    x[0, :4] = torch.tensor([127.0, 63.5, -0.5, 1.5], device=dev).to(dtype)
+    before = build.LAUNCHES["quantize_i8"]
+    xq, xs = quantize_kernel(x)
+    assert build.LAUNCHES["quantize_i8"] == before + 1
+    rq, rs = quantize_activations(x)
+    torch.cuda.synchronize()
+    assert torch.equal(xq, rq) and torch.equal(xs, rs) and xs[-1].item() == 1.0
+
+
+def test_quantize_kernel_refuses_bad_inputs(dev):
+    x = torch.zeros(4, 512, device=dev)
+    quantize_kernel(x)  # the valid call
+    for bad in (x[:, :500], x.half(), x.reshape(-1), x[:0], x.cpu()):
+        with pytest.raises(ValueError):
+            quantize_kernel(bad)
+
+
+def test_shared_quantization_one_launch(dev):
+    """attn_qk and attn_v with planes through qmatmul_multi: one quantize
+    launch, K13 for each, the results of per-weight qmatmul."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    w1, w2 = _planes("Q4_K", 768, 1024, g, dev), _planes("Q6_K", 256, 1024, g, dev)
+    x = torch.randn(mmq.MMQ_MIN_B, 1024, generator=g, device=dev).to(torch.bfloat16)
+    build.reset_launches()
+    outs = linear.qmatmul_multi(x, [w1, w2])
+    assert build.LAUNCHES["quantize_i8"] == 1 and build.LAUNCHES["qmm_i8"] == 2
+    assert build.LAUNCHES["qgemm"] == 0
+    for o, w in zip(outs, (w1, w2)):
+        assert torch.equal(o, linear.qmatmul(x, w))
 
 
 def test_qmm_i8_route_counts_and_matches(dev):

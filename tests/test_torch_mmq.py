@@ -148,7 +148,8 @@ def test_qmm_i8_plain_matches_pallas(kind, B):
 def test_qmatmul_dispatch_by_batch_and_planes(monkeypatch):
     """B < MMQ_MIN_B keeps the exact wire-format product bit for bit; at
     MMQ_MIN_B and above a weight with planes takes K13, and qmatmul_multi
-    gives way (per-weight launches) only when every weight has planes."""
+    takes the int8 route (one quantization, K13 per weight: per-weight
+    qmatmul's results) only when every weight has planes."""
     _, exact = _pair("Q4_K", 512, 1024, seed=7)
     _, w = _with_planes("Q4_K", 512, 1024, seed=7)
     _, w2 = _with_planes("Q6_K", 256, 1024, seed=8)
@@ -161,11 +162,42 @@ def test_qmatmul_dispatch_by_batch_and_planes(monkeypatch):
     cos = torch.nn.functional.cosine_similarity(got.double().flatten(),
                                                 qmm_plain(big, exact).double().flatten(), 0)
     assert cos > 0.999
-    assert linear.qmatmul_multi(big, [w, w2]) is None
+    shared = linear.qmatmul_multi(big, [w, w2])
+    assert len(shared) == 2 and all(torch.equal(a, linear.qmatmul(big, b))
+                                    for a, b in zip(shared, (w, w2)))
     assert linear.qmatmul_multi(big, [w, exact]) is not None  # exact rides the fused launch
     assert linear.qmatmul_multi(small, [w, w2]) is not None
     monkeypatch.setattr(mmq, "MMQ_MIN_B", 2)  # read at call time
     assert torch.equal(linear.qmatmul(small, w), qmm_i8(small, w))
+
+
+def test_shared_quantization_route_matches_per_weight_and_jax():
+    """attn_qk (Q4_K) and attn_v (Q6_K) with planes through qmatmul_multi:
+    one quantization of x, bit-equal to two per-weight qmatmul calls, and
+    within K13_TOL of the JAX qmm_i8 (Pallas K13 in interpret mode) of
+    each weight on the same seeded inputs."""
+    qk_j, qk = _with_planes("Q4_K", 768, 1024, seed=21)
+    v_j, v = _with_planes("Q6_K", 256, 1024, seed=22)
+    x = np.random.default_rng(23).standard_normal((mmq.MMQ_MIN_B, 1024)).astype(np.float32)
+    xt = torch.from_numpy(x)
+    got = linear.qmatmul_multi(xt, [qk, v])
+    assert [tuple(o.shape) for o in got] == [(mmq.MMQ_MIN_B, 768), (mmq.MMQ_MIN_B, 256)]
+    for out, w, qt in zip(got, (qk, v), (qk_j, v_j)):
+        assert torch.equal(out, linear.qmatmul(xt, w))
+        ref = np.asarray(jax.jit(lambda a, q=qt: jax_qmm_i8(a, q, interpret=True))(jnp.asarray(x)))
+        assert rel_err(out.numpy(), ref) <= K13_TOL
+
+
+def test_quantize_entry_and_kernel_refusal():
+    """quantize_i8 on a CPU tensor is the plain quantization; its kernel
+    takes CUDA tensors only."""
+    from llamacog_tpu_torch.ops.cuda.qmm_i8 import quantize_i8, quantize_kernel
+
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((5, 512)).astype(np.float32))
+    for a, b in zip(quantize_i8(x), quantize_activations(x)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="CUDA"):
+        quantize_kernel(x)
 
 
 def test_new_modules_import_no_jax():
@@ -255,3 +287,42 @@ def test_engine_mmq_prefill_matches_jax(mmq_gguf, monkeypatch):
     assert rel_err(got, ref) < 1e-5
     cos = float(np.dot(got, exact) / (np.linalg.norm(got) * np.linalg.norm(exact)))
     assert cos > 0.995 and not np.array_equal(got, exact)
+
+
+def test_one_quantization_per_layer_input(mmq_gguf, monkeypatch):
+    """The int8 prefill quantizes each layer input once: the attention
+    input (shared by the q/k/v weights), the attention output, the FFN
+    input (gate and up) and the down projection's input, 4 a layer; every
+    weight with planes runs K13 on one of them."""
+    from llamacog_tpu_torch.convert import from_reference, gguf_tensors
+    from llamacog_tpu_torch.gguf import GGUFModelReader
+    from llamacog_tpu_torch.models.config import ModelConfig
+    from llamacog_tpu_torch.ops.cuda import qmm_i8 as qmm_i8_mod
+    from llamacog_tpu_torch.runtime.engine import Engine
+
+    monkeypatch.setattr(mmq, "MMQ_MIN_B", 8)
+    monkeypatch.setenv("LLAMACOG_MMQ", "1")
+    reader = GGUFModelReader(mmq_gguf)
+    cfg = ModelConfig.from_metadata(reader.metadata)
+    tensors = gguf_tensors(reader)
+    reader.close()
+    params = from_reference(cfg, tensors, device="cpu", dtype=torch.float32)
+    eng = Engine(params, cfg, batch_size=1, max_seq=64, dtype=torch.float32, device="cpu")
+    calls = {"quantize": 0, "k13": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    quantize = counted("quantize", qmm_i8_mod.quantize_i8)
+    k13 = counted("k13", qmm_i8_mod.qmm_i8_quantized)
+    for mod in (qmm_i8_mod, linear):
+        monkeypatch.setattr(mod, "quantize_i8", quantize)
+        monkeypatch.setattr(mod, "qmm_i8_quantized", k13)
+    eng.prefill(PROMPT)
+    n_planes = [sum(getattr(v, "qi8", None) is not None for v in layer.values())
+                for layer in eng.params["layers"]]
+    assert min(n_planes) >= 4
+    assert calls == {"quantize": 4 * cfg.n_layer, "k13": sum(n_planes)}

@@ -157,6 +157,30 @@ def test_ragged_plain_matches_pallas(kind, bf16):
     assert nmse(got.numpy(), ref) < 2e-4
 
 
+@pytest.mark.parametrize("kind", ["Q4_K", "Q6_K"])
+def test_ragged_plain_matches_pallas_model_tile(kind):
+    """The model's token tile (qmm_id.RAGGED_TILE, 16) on moe_sort's layout
+    of 20 (token, slot) pairs: expert 2 empty, expert 3 a single row (its
+    tile 15 rows of padding), and padding tiles past the last expert."""
+    qt, wt = _experts(kind, N_EXP, N, K, seed=11)
+    tt = qmm_id.RAGGED_TILE
+    ids = torch.tensor([0, 1] * 6 + [1, 0] * 3 + [3, 0], dtype=torch.int32)
+    dest, tile_expert, s_pad = llama.moe_sort(ids, N_EXP, tt)
+    counts = torch.bincount(ids.long(), minlength=N_EXP).tolist()
+    assert tt == 16 and counts[2] == 0 and counts[3] == 1
+    rows = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (ids.shape[0], K)).astype(np.float32))
+    xs = torch.zeros(s_pad, K).index_copy_(0, dest, rows).to(torch.bfloat16)
+    ref = np.asarray(jax_qmm_id.qmm_ragged(jnp.asarray(xs.float().numpy()),
+                                           jnp.asarray(tile_expert.numpy()), qt, tt,
+                                           interpret=True))
+    got = qmm_id.qmm_ragged(xs, tile_expert, wt, tt)
+    assert got.shape == (s_pad, N)
+    assert nmse(got.numpy(), ref) < 2e-4
+    pad = (tile_expert >= N_EXP).repeat_interleave(tt)
+    assert pad.any() and (got[pad] == 0).all()
+
+
 def test_padding_tiles_and_rows_give_zeros():
     """Experts outside [0, n_exp) mark the sort's padding: zeros, no weights."""
     _, wt = _experts("Q4_K", N_EXP, N, K, seed=9)
@@ -181,6 +205,20 @@ def test_moe_sort_layout(n_pairs):
     used = int((torch.bincount(ids.long(), minlength=4) + 63).div(64, rounding_mode="floor")
                .sum())
     assert (tile_expert[used:] == 4).all() and (tile_expert[:used] < 4).all()
+
+
+def test_moe_sort_layout_model_tile():
+    """moe_sort at the model's token tile: the same layout rules at 16 rows,
+    and the bound s_pad a function of the row count alone."""
+    tt = qmm_id.RAGGED_TILE
+    for n_pairs in (64, 256, 1024):
+        ids = torch.from_numpy(np.random.default_rng(n_pairs).integers(0, 3, n_pairs)
+                               .astype(np.int32))
+        dest, tile_expert, s_pad = llama.moe_sort(ids, 4, tt)
+        assert s_pad == (n_pairs + 4 * (tt - 1) + tt - 1) // tt * tt
+        assert len(set(dest.tolist())) == n_pairs and int(dest.max()) < s_pad
+        assert torch.equal(tile_expert[dest // tt], ids)
+        assert llama._MOE_TILE == tt
 
 
 # (c) the MoE FFN against the JAX forward's
