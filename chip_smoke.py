@@ -32,7 +32,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      128- and a 512-token prefill);
   4. the full-width kernel path (8B widths, 2 layers) against the plain
      path (the same params on the CPU): prefill logits, 4 teacher-forced
-     decode steps and a 9-token second chunk, with the dense cache, q8_0,
+     decode steps (Engine.decode_one: replays of the step's CUDA graph on
+     the card, the same step run eagerly on the CPU) and a 9-token second
+     chunk, with the dense cache, q8_0,
      the split q5_1:q4_0 cache, LLAMACOG_MMQ=1 on a 300-token prompt (int8
      prefill), and the per-layer decode routes (LLAMACOG_FLASH_STACKED=0:
      K9 on the dense cache with LLAMACOG_FLASH_DECODE=1, K8 on q8_0); then
@@ -40,7 +42,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      weight kinds of a real Q4_K_M file: Q8_0 attn_k/attn_v, Q5_K
      attn_output): a 20-token prefill (grouped GEMM), 4 decode steps and a
      9-token second chunk (gather);
-  5. the 8B Q4_K_M synthetic run through Engine at full depth, in turns:
+  5. whether stream capture keeps the split-S combine's programmatic
+     dependent launch (K4 and K6 captured alone: the graph's edges by
+     type, the replay against the eager call), then the 8B Q4_K_M
+     synthetic run through Engine at full depth, every decode through the
+     step's CUDA graph (captured before the counted run; the decode's
+     launches must be the captured ones times the replays), in turns:
      the dense cache and kv_type="q8_0" (dense, q8_0, q8_0, dense;
      128-token prefill, 128 greedy tokens), a 512-token prompt exact and
      with LLAMACOG_MMQ=1 (exact, mmq, mmq, exact), and the per-layer dense
@@ -50,7 +57,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      two 2048-token chunks, 64 greedy tokens) and two deep q8_0 runs
      (max_seq 4096, a 2048-token prompt in one chunk, 64 greedy tokens at
      depth 2048-2112; max_seq 8192, a 4096-token prompt in two chunks, 16
-     tokens); every kernel's launch count over each run; then, with the
+     tokens); every kernel's launch count over each run; the first dense,
+     q8_0 and Mixtral 128-token runs also decode eagerly, the same engine
+     step called from Python every token, in turns with the graph (graph,
+     eager, eager, graph; the tokens must be equal), with ms/token of both;
+     one sampled loop (SamplerChain with a fixed seed, 32 tokens through
+     decode_one), run twice, must draw the same tokens; then, with the
      8B params freed, the Mixtral-8x7B Q4_K_M synthetic run at full depth
      (32 layers, the kinds of a real file), the same way, and with a
      512-token prompt and 16 tokens (the grouped GEMM over several tiles an
@@ -96,6 +108,8 @@ TOL_PATH = 5e-2       # bf16 model, 2 layers: bf16 roundings that flip between p
 PROMPT_LEN = 128
 N_DECODE = 128
 LONG_PROMPT = 4096
+# phase-5 runs whose decode also runs eagerly, in turns with the graph
+EAGER_TURNS = {("8b", "kv dense"), ("8b", "kv q8_0"), ("mixtral", "kv dense")}
 
 
 def log(msg: str) -> None:
@@ -167,6 +181,7 @@ def main() -> int:
     from llamacog_tpu_torch.runtime.engine import Engine
     from llamacog_tpu_torch.runtime.kv_cache import (
         QuantKVCache, kv_dequant_planes, kv_plane_shapes)
+    from llamacog_tpu_torch.runtime.sampler import SamplerChain, SamplerParams
     from llamacog_tpu_torch.utils.synthetic import (
         llama3_8b_config, make_synthetic_params, mixtral_8x7b_config, random_experts,
         random_wire)
@@ -867,14 +882,19 @@ def main() -> int:
                             steps.append(eng.decode_one([tok])[0])
                         steps.append(eng.prefill(prompt[:9]))
                     runs[name] = steps
+                    graphs = {cap: n for cap, (_, n) in eng.decoder.graphs.items()}
                     del eng
                     if name == "kernel":
                         log(f"[path] {model}, {label}: kernel launches "
                             f"{json.dumps({k: v for k, v in build.LAUNCHES.items() if v})}, "
-                            f"T=1 attention calls {json.dumps(calls)}")
+                            f"T=1 attention calls {json.dumps(calls)}, decode graphs "
+                            f"(kv_cap: captured launches) {graphs}")
                         missing = [k for k in must if build.LAUNCHES[k] == 0]
                         check(not missing, f"{model} {label}: kernels never launched: {missing}")
-                        want = {k: len(forced) * cfgp.n_layer if k == route else 0 for k in calls}
+                        # the decode steps replay one graph: the forward ran at
+                        # T=1 twice, in its eager warm-up step and its capture
+                        check(len(graphs) == 1, f"{model} {label}: decode graphs {graphs}")
+                        want = {k: 2 * cfgp.n_layer if k == route else 0 for k in calls}
                         check(calls == want, f"{model} {label}: T=1 attention took {calls}, "
                               f"not the {route} route")
             firsts[label] = runs["kernel"][0]
@@ -936,10 +956,13 @@ def main() -> int:
         """For each run (name, kv type, environment, prompt length, the
         kernels it launches — and no other; optionally max_seq and the
         number of greedy tokens, else 1024 and N_DECODE) in turn (host time
-        drifts within a process): TTFT of the prompt, then the counted run,
-        the prompt's prefill and the greedy tokens, with every kernel's
-        launches. Returns per run name the last such run's launches
-        (prefill, decode, total) and tokens."""
+        drifts within a process): TTFT of the prompt, the capture of the
+        decode step's graph for the run's kv_cap bucket, then the counted
+        run, the prompt's prefill and the greedy tokens replayed from the
+        graph, with every kernel's launches; for the first run of a name in
+        EAGER_TURNS the same decode run eagerly in turns with the graph.
+        Returns per run name the last such run's launches (prefill, decode,
+        total) and tokens."""
         Vm = cfgm.n_vocab
         bound_ms = sum_wire_bytes(params, cfgm) / HBM_BYTES_PER_S * 1e3
         out = {}
@@ -964,6 +987,22 @@ def main() -> int:
                     eng.prefill(prompt)
                     ttfts.append(time.perf_counter() - t0)
                 ttft = statistics.median(ttfts[1:])
+
+                def decode(run_tokens):
+                    eng.reset()
+                    first = int(eng.prefill(prompt).argmax())
+                    t1 = time.perf_counter()
+                    toks = run_tokens([first], n_tok)
+                    return toks, time.perf_counter() - t1
+
+                # capture the step's graph for the run's kv_cap bucket first:
+                # its eager warm-up step launches kernels the counted run
+                # must not count
+                t1 = time.perf_counter()
+                decode(eng.decode_greedy_tokens)
+                t_capture = time.perf_counter() - t1
+                kv_cap = eng._kv_cap(prompt_len + n_tok + 1)
+                captured = eng.decoder.graphs[kv_cap][1]
                 # the main-path run whose launches are counted: prefill + greedy decode
                 eng.reset()
                 torch.cuda.reset_peak_memory_stats()
@@ -986,7 +1025,10 @@ def main() -> int:
                     f"tokens; all: {', '.join(f'{t * 1e3:.2f}' for t in ttfts)} ms)")
                 log(f"{tag} decode {n_tok} tokens at depth {prompt_len}-{prompt_len + n_tok} "
                     f"in {dt:.3f}s: {n_tok / dt:.2f} tokens/s, {dt / n_tok * 1e3:.3f} "
-                    f"ms/token; weight-stream bound {bound_ms:.3f} ms/token")
+                    f"ms/token (graph replays); weight-stream bound {bound_ms:.3f} ms/token")
+                log(f"{tag} decode graph of kv_cap {kv_cap}: {sum(captured.values())} launches "
+                    f"a token ({json.dumps(captured)}) x {n_tok} replays; prefill, eager "
+                    f"warm-up step, capture and decode {t_capture:.3f}s")
                 log(f"{tag} launches: prefill {json.dumps(prefill_launches)}, "
                     f"decode {json.dumps(decode_launches)}")
                 log(f"{tag} peak device memory {peak / 2**30:.2f} GiB")
@@ -994,9 +1036,29 @@ def main() -> int:
                 check(not missing, f"{tag} kernels never launched on the main path: {missing}")
                 stray = [k for k in launches if k not in used and launches[k] != 0]
                 check(not stray, f"{tag} kernels of another path launched: {stray}")
+                want = {k: captured.get(k, 0) * n_tok for k in launches}
+                check(decode_launches == want, f"{tag} decode launches {decode_launches} are not "
+                      f"the captured {captured} x {n_tok} replays")
+                prev = out.get(name, {})
                 out[name] = {"prefill": prefill_launches, "decode": decode_launches,
                              "total": launches, "tokens": toks,
-                             "ttft": ttfts[1:] + out.get(name, {}).get("ttft", [])}
+                             "ttft": ttfts[1:] + prev.get("ttft", []),
+                             **{k: prev[k] for k in ("graph_ms", "eager_ms") if k in prev}}
+                if (model, name) in EAGER_TURNS and "graph_ms" not in prev:
+                    # graph (the counted run above), eager, eager, graph
+                    ms = {"graph": [dt / n_tok * 1e3], "eager": []}
+                    for way, run_tokens in (("eager", eng.decode_greedy_tokens_eager),
+                                            ("eager", eng.decode_greedy_tokens_eager),
+                                            ("graph", eng.decode_greedy_tokens)):
+                        got, t = decode(run_tokens)
+                        ms[way].append(t / n_tok * 1e3)
+                        check(bool((got == toks).all()), f"{tag} {way} tokens {got[0, :8]} "
+                              f"differ from the graph's {toks[0, :8]}")
+                    log(f"{tag} decode ms/token in turns (graph, eager, eager, graph): graph "
+                        f"{', '.join(f'{t:.3f}' for t in ms['graph'])}; eager "
+                        f"{', '.join(f'{t:.3f}' for t in ms['eager'])}; the {n_tok} tokens of "
+                        "all four equal")
+                    out[name].update(graph_ms=ms["graph"], eager_ms=ms["eager"])
                 # the device-side loop agrees with host-driven decode_one + argmax
                 eng.reset()
                 first = int(eng.prefill(prompt).argmax())
@@ -1011,6 +1073,94 @@ def main() -> int:
             torch.cuda.empty_cache()
         return out
 
+    def sampled_runs(params, cfgm, seed=1234, n_tok=32):
+        """The CLI's loop on the card: a SamplerChain with a fixed seed and
+        the CLI's default sampling draws each token from one decode_one
+        (one graph replay), twice; the two runs must draw the same tokens."""
+        prompt = [(j * 31337) % cfgm.n_vocab for j in range(PROMPT_LEN)]
+        eng = Engine(params, cfgm, batch_size=1, max_seq=1024)
+        drawn = []
+        for _ in range(2):
+            eng.reset()
+            chain = SamplerChain(SamplerParams(seed=seed), n_vocab=cfgm.n_vocab)
+            logits = eng.prefill(prompt)
+            toks = []
+            t1 = time.perf_counter()
+            for _ in range(n_tok):
+                tok = chain.sample(logits)
+                chain.accept(tok)
+                toks.append(tok)
+                logits = eng.decode_one([tok])[0]
+            dt = time.perf_counter() - t1
+            check(bool(torch.isfinite(torch.from_numpy(logits)).all()),
+                  "sampled run: logits not finite")
+            drawn.append(toks)
+            log(f"[8b sampled] {n_tok} tokens (seed {seed}, temp 0.8, top-k 40, top-p 0.95, "
+                f"min-p 0.05) through decode_one in {dt:.3f}s, {dt / n_tok * 1e3:.3f} ms/token "
+                f"with the sampler: {toks[:12]}")
+        check(drawn[0] == drawn[1], f"sampled runs differ: {drawn[0]} != {drawn[1]}")
+        log(f"[8b sampled] the two runs drew the same {n_tok} tokens "
+            f"({len(set(drawn[0]))} distinct)")
+        del eng
+        torch.cuda.empty_cache()
+
+    def graph_edges(raw_graph) -> dict:
+        """{"nodes": n, "edges": {type: count}} of a captured cudaGraph_t
+        (type 0 the full dependency, 1 programmatic), through the CUDA
+        runtime that PyTorch loaded."""
+        import ctypes
+        try:
+            rt = ctypes.CDLL("libcudart.so.12")
+        except OSError:
+            rt = ctypes.CDLL(str(Path(build.nvcc()).parents[1] / "lib64" / "libcudart.so"))
+        n = ctypes.c_size_t(0)
+        check(rt.cudaGraphGetEdges_v2(ctypes.c_void_p(raw_graph), None, None, None,
+                                      ctypes.byref(n)) == 0, "cudaGraphGetEdges_v2 failed")
+        src, dst = (ctypes.c_void_p * n.value)(), (ctypes.c_void_p * n.value)()
+        data = (ctypes.c_uint8 * (8 * n.value))()  # cudaGraphEdgeData: 8 bytes, type at 2
+        check(rt.cudaGraphGetEdges_v2(ctypes.c_void_p(raw_graph), src, dst, data,
+                                      ctypes.byref(n)) == 0, "cudaGraphGetEdges_v2 failed")
+        nodes = ctypes.c_size_t(0)
+        rt.cudaGraphGetNodes(ctypes.c_void_p(raw_graph), None, ctypes.byref(nodes))
+        types = {}
+        for e in range(n.value):
+            types[data[8 * e + 2]] = types.get(data[8 * e + 2], 0) + 1
+        return {"nodes": nodes.value, "edges": types}
+
+    def pdl_under_capture():
+        """K4 and K6 (a split kernel, then the combine as a programmatic
+        dependent launch) captured alone: the edge between the two in the
+        graph, and the replay's output against the eager call's."""
+        L, S, D, H, Hkv = 2, 1024, cfg.head_dim_k, cfg.n_head, cfg.n_head_kv
+        q, kc, vc = rnd(1, H, D), rnd(1, Hkv, D), rnd(1, Hkv, D)
+        n = torch.tensor([1000], dtype=torch.int32, device=dev)
+        qc = QuantKVCache.create(L, 1, S, Hkv, D, D, kinds=("q8_0", "q8_0"), device=dev)
+        qc.write_all(rnd(L, 1, S, Hkv, D), rnd(L, 1, S, Hkv, D), torch.zeros(1, dtype=torch.int32,
+                                                                           device=dev))
+        ks, vs = rnd(L, 1, S, Hkv, D), rnd(L, 1, S, Hkv, D)
+        calls = {
+            "K4 flash_decode_dense": lambda: flash_decode_stacked_dense(
+                q, ks, vs, 1, kc, vc, n, D**-0.5),
+            "K6 flash_decode_quant": lambda: flash_decode_stacked(
+                q, qc.k_planes, qc.v_planes, 1, kc, vc, n, D**-0.5, kinds=qc.kinds)}
+        for what, fn in calls.items():
+            eager = fn()
+            try:
+                graph, kept = torch.cuda.CUDAGraph(keep_graph=True), True
+            except TypeError:
+                graph, kept = torch.cuda.CUDAGraph(), False
+            with build.capturing_launches():
+                with torch.cuda.graph(graph):
+                    got = fn()
+            edges = (graph_edges(graph.raw_cuda_graph()) if kept
+                     else "not inspected (this torch keeps no captured graph)")
+            graph.replay()
+            torch.cuda.synchronize()
+            same = bool(torch.equal(got, eager))
+            log(f"[graph] {what} captured alone: {edges} (edge type 1 = programmatic: the "
+                f"combine's early launch is kept); replay equals the eager call bit for bit: "
+                f"{same}")
+            check(same, f"{what}: the captured split + combine differs from the eager call")
     def build_params(model, cfgm):
         t0 = time.perf_counter()
         params = make_synthetic_params(cfgm, seed=0)
@@ -1043,6 +1193,7 @@ def main() -> int:
     mmq_env, k9_env = {"LLAMACOG_MMQ": "1"}, {"LLAMACOG_FLASH_STACKED": "0",
                                               "LLAMACOG_FLASH_DECODE": "1"}
     t5 = time.perf_counter()
+    pdl_under_capture()
     params = build_params("8b", cfg)
     runs_8b = main_path_runs("8b", params, cfg, [
         ("kv dense", "dense", {}, PROMPT_LEN, exact_path),
@@ -1105,6 +1256,7 @@ def main() -> int:
     same = bool((k9_run["tokens"] == runs_8b["kv dense"]["tokens"]).all())
     log(f"[8b] per-layer K9 run: {N_DECODE} greedy tokens equal the stacked dense run's: {same}")
     check(same, "the per-layer K9 route's greedy tokens differ from the stacked route's")
+    sampled_runs(params, cfg)
     del params
     torch.cuda.empty_cache()
     # Mixtral-8x7B at full depth (28.3 GB of wire blocks), the dense cache,
@@ -1122,6 +1274,11 @@ def main() -> int:
           f"(want {2 * mcfg.n_layer})")
     del params
     torch.cuda.empty_cache()
+    for model, name in sorted(EAGER_TURNS):
+        r = (runs_8b if model == "8b" else runs_moe)[name]
+        log(f"[{model} {name}] decode ms/token, graph {statistics.median(r['graph_ms']):.3f} "
+            f"(median of {len(r['graph_ms'])}), eager {statistics.median(r['eager_ms']):.3f} "
+            f"(median of {len(r['eager_ms'])})")
     log(f"[phase 5] wall time {time.perf_counter() - t5:.1f}s")
 
     # 6. results

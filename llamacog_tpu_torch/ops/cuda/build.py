@@ -18,10 +18,19 @@ have two bodies each, counted apart: ``flash_prefill`` and
 and ``flash_prefill_quant_simt`` the SIMT bodies (f32, and bf16 head dims
 or rows the tiles do not take). The qmm_i8 library also holds the
 activation quantization of the int8 route, counted as ``quantize_i8``.
+
+Under CUDA graph capture the wrappers run once, as the step is recorded,
+and the device runs nothing: :func:`capturing_launches` takes those
+counts back out of ``LAUNCHES`` and hands them to the graph's owner, which
+adds them again at every replay (:func:`add_launches`), so ``LAUNCHES``
+counts the launches the device ran. A library is loaded before capture
+(the owner runs the step once eagerly first); :func:`load` raises if one
+would be loaded while the stream is being captured.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -54,6 +63,28 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def capturing_launches():
+    """Around the capture of a CUDA graph: yields a dict that receives the
+    launches counted in the block, and puts LAUNCHES back as it was (the
+    device ran none of them)."""
+    before = dict(LAUNCHES)
+    taken: dict[str, int] = {}
+    try:
+        yield taken
+    finally:
+        for name, n in before.items():
+            if LAUNCHES[name] != n:
+                taken[name] = LAUNCHES[name] - n
+            LAUNCHES[name] = n
+
+
+def add_launches(counts: dict, times: int = 1) -> None:
+    """Count `times` replays of a graph that captured `counts` launches."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n * times
 
 
 def nvcc() -> str:
@@ -135,6 +166,9 @@ def load(name: str) -> ctypes.CDLL:
     """The bound library of kernel `name`, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{name}: library not loaded before CUDA graph capture "
+                               "(run the captured step once eagerly first)")
         build((name,))
         lib = ctypes.CDLL(str(_lib_path(name)))
         _bind(lib)

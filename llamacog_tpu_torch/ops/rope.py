@@ -7,6 +7,7 @@ the decode loop needs no host round trip.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -45,16 +46,29 @@ def rope_frequencies(cfg: RopeConfig, head_dim: int) -> tuple[np.ndarray, np.nda
     return inv_freq.astype(np.float32), ramp.astype(np.float32), mscale
 
 
+# (rope config, head dim, device) -> the step's inverse frequencies on the
+# device: made once, so a step copies nothing from the host (a host copy
+# cannot be captured in a CUDA graph)
+_FREQS: dict = {}
+
+
+def _step_frequencies(cfg: RopeConfig, head_dim: int, device) -> tuple[torch.Tensor, float]:
+    key = (dataclasses.astuple(cfg), head_dim, str(device))
+    if key not in _FREQS:
+        inv_freq, ramp, mscale = rope_frequencies(cfg, head_dim)
+        if cfg.scaling_type == "yarn" and cfg.scaling_factor not in (0.0, 1.0):
+            inv_extrap = rope_frequencies(RopeConfig(dim=cfg.dim, freq_base=cfg.freq_base),
+                                          head_dim)[0]
+            inv_freq = (inv_extrap * (1 - ramp) + (inv_extrap / np.float32(cfg.scaling_factor))
+                        * ramp).astype(np.float32)
+        _FREQS[key] = (torch.from_numpy(inv_freq).to(device), mscale)
+    return _FREQS[key]
+
+
 def rope_tables(positions: torch.Tensor, cfg: RopeConfig, head_dim: int,
                 freq_factors: torch.Tensor | None = None):
     """(cos, sin) [..., T, dim/2] f32, shared by all layers of a step."""
-    inv_freq, ramp, mscale = rope_frequencies(cfg, head_dim)
-    if cfg.scaling_type == "yarn" and cfg.scaling_factor not in (0.0, 1.0):
-        inv_extrap = rope_frequencies(RopeConfig(dim=cfg.dim, freq_base=cfg.freq_base),
-                                      head_dim)[0]
-        inv_freq = (inv_extrap * (1 - ramp)
-                    + (inv_extrap / np.float32(cfg.scaling_factor)) * ramp).astype(np.float32)
-    inv = torch.from_numpy(inv_freq).to(positions.device)
+    inv, mscale = _step_frequencies(cfg, head_dim, positions.device)
     if freq_factors is not None:
         inv = inv / freq_factors.float()
     theta = positions[..., None].float() * inv

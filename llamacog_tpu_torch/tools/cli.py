@@ -1,12 +1,17 @@
-"""llamacog-cli (PyTorch port) — greedy generation from a llama GGUF.
+"""llamacog-cli (PyTorch port) — generation from a llama GGUF.
 
 Usage:
     python -m llamacog_tpu_torch.tools.cli -m model.gguf -p "..." -n 64 \
+        [--temp 0.8 --top-k 40 --top-p 0.95 --min-p 0.05 --seed -1 | --greedy] \
         [-ctk q8_0 [-ctv q4_0]]
 
-Counterpart of llamacog_tpu/tools/cli.py's plain generation path. Chat,
-sampling, speculative decoding and session state stay in the JAX CLI for
-now. Runs on the GPU unless --device cpu is given.
+Counterpart of llamacog_tpu/tools/cli.py's plain generation path, with its
+sampling flags and defaults: each token is drawn by the sampler chain from
+the logits of one decode step (Engine.decode_one, a replay of the step's
+CUDA graph on the GPU); --greedy is temperature 0. Chat, grammars,
+speculative decoding, context shift and session state stay in the JAX CLI
+for now: generation stops when the context (--ctx-size) is full. Runs on
+the GPU unless --device cpu is given.
 """
 
 from __future__ import annotations
@@ -27,11 +32,17 @@ def _kv_type_arg(ctk: str, ctv: str | None) -> str:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="llamacog-cli-torch",
-                                description="greedy llama generation on an NVIDIA GPU")
+                                description="llama generation on an NVIDIA GPU")
     p.add_argument("-m", "--model", required=True, help="GGUF model path")
     p.add_argument("-p", "--prompt", default="", help="prompt text")
     p.add_argument("-n", "--n-predict", type=int, default=64, help="tokens to generate")
     p.add_argument("-c", "--ctx-size", type=int, default=2048)
+    p.add_argument("--temp", type=float, default=0.8)
+    p.add_argument("--top-k", type=int, default=40)
+    p.add_argument("--top-p", type=float, default=0.95)
+    p.add_argument("--min-p", type=float, default=0.05)
+    p.add_argument("--seed", type=int, default=-1)
+    p.add_argument("--greedy", action="store_true", help="greedy decoding (temp 0)")
     p.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
     p.add_argument("-ctk", "--cache-type-k", choices=KV_TYPES, default="bf16",
                    help="K cache type (q8_0 about halves the KV memory, q4_0 about a third)")
@@ -48,6 +59,7 @@ def main(argv=None) -> int:
 
     from ..models.loader import load_model
     from ..runtime.engine import Engine
+    from ..runtime.sampler import SamplerChain, SamplerParams
 
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     t0 = time.time()
@@ -67,24 +79,29 @@ def main(argv=None) -> int:
                   file=sys.stderr)
             return 1
         ids = [vocab.bos_id]
+    sampler = SamplerChain(SamplerParams(temp=0.0 if args.greedy else args.temp,
+                                         top_k=args.top_k, top_p=args.top_p,
+                                         min_p=args.min_p, seed=args.seed),
+                           n_vocab=model.config.n_vocab)
     sys.stdout.write(args.prompt)
     sys.stdout.flush()
-    eog = [t for t in range(model.config.n_vocab) if vocab.is_eog(t)]
     t1 = time.time()
     logits = engine.prefill(ids)
     t_prefill = time.time() - t1
     t2 = time.time()
-    out = [int(logits.argmax())]
-    n = min(args.n_predict, args.ctx_size - len(ids)) - 1
-    if n > 0 and out[0] not in eog:
-        out += [int(t) for t in engine.decode_greedy_tokens([out[0]], n)[0]]
-    t_gen = time.time() - t2
-    for tok in out:
-        if tok in eog:
+    tok = sampler.sample(logits)
+    for _ in range(args.n_predict if args.n_predict >= 0 else 1 << 30):
+        sampler.accept(tok)
+        if vocab.is_eog(tok):
             break
         sys.stdout.write(vocab.token_to_piece(tok).decode("utf-8", errors="replace"))
+        sys.stdout.flush()
+        if int(engine.seq_len[0]) + 1 >= args.ctx_size:
+            break
+        tok = sampler.sample(engine.decode_one([tok])[0])
+    t_gen = time.time() - t2
     sys.stdout.write("\n")
-    print(f"[perf] prompt: {len(ids)} tok in {t_prefill:.3f}s | decode: {len(out) - 1} tok "
+    print(f"[perf] prompt: {len(ids)} tok in {t_prefill:.3f}s | decode: {int(engine.seq_len[0]) - len(ids)} tok "
           f"in {t_gen:.3f}s | load {t_load:.2f}s", file=sys.stderr)
     return 0
 

@@ -6,18 +6,22 @@
 Builds the Llama-3-8B (or, with --model mixtral-8x7b, the Mixtral-8x7B,
 with the attention weight kinds of a real Q4_K_M file) synthetic Q4_K_M
 model (depth cut by --layers) with an Engine of --max-seq
-slots (1024 by default), prefills a --prompt-token prompt (128), then runs
---steps greedy decode steps (Engine.decode_greedy_tokens) twice: once
-timed on the host clock, once
-under torch.profiler. Prints host ms/token, the host time of the two
+slots (1024 by default) and prefills a --prompt-token prompt (128). Decode
+runs --steps greedy steps two ways: replayed from the step's CUDA graph
+(Engine.decode_greedy_tokens) and eagerly, the same step function called
+from Python every token (Engine.decode_greedy_tokens_eager). Each way is
+warmed up (the graph captured), timed on the host clock in turns (graph,
+eager, eager, graph), then run once under torch.profiler. Prints per way
+host ms/token, device busy ms/token (the sum of kernel times the profiler
+saw), the device's idle share of the profiled run, kernel launches and
+graph replays a token, and kernel time by name; the host time of the two
 pieces the cache kind changes (the step's bulk cache write and one layer's
-decode attention call, without a sync), device busy ms/token (the sum of
-kernel times the profiler saw), the device's idle share, kernel time by
-name and host op time by name. If the profiler sees no CUDA kernels, the
-device numbers are reported as not measured. With --prefill the profiled
-work is one prefill of the prompt instead (after two warm-up prefills),
-and the numbers are per prefill; the environment's routes apply (e.g.
-LLAMACOG_MMQ=1 for the int8 prefill).
+decode attention call, without a sync); host op time by name for the eager
+step. If the profiler sees no CUDA kernels, the device numbers are
+reported as not measured. With --prefill the profiled work is one prefill
+of the prompt instead (after two warm-up prefills), and the numbers are
+per prefill; the environment's routes apply (e.g. LLAMACOG_MMQ=1 for the
+int8 prefill).
 """
 
 from __future__ import annotations
@@ -55,38 +59,79 @@ def main(argv=None) -> int:
         eng.reset()
         return int(eng.prefill(prompt).argmax())  # ends in a device->host copy
 
-    def decode(first: int) -> float:
-        t0 = time.perf_counter()
-        eng.decode_greedy_tokens([first], args.steps)  # ends in a device->host copy
-        return time.perf_counter() - t0
-
     def timed_prefill() -> float:
         eng.reset()
         t0 = time.perf_counter()
         eng.prefill(prompt)  # ends in a device->host copy
         return time.perf_counter() - t0
 
+    def report(prof, wall_prof, per, unit, label) -> None:
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not kernels:
+            print(f"[profile] {label}: device busy time: not measured (the profiler saw no "
+                  "CUDA kernels)")
+            return
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / per
+        launches = sum(e.count for e in kernels) / per
+        replays = sum(e.count for e in prof.key_averages() if e.key == "cudaGraphLaunch") / per
+        print(f"[profile] {label}: device busy {busy_ms:.3f} ms/{unit} over {launches:.0f} "
+              f"kernel launches/{unit}, {replays:.2f} graph replays/{unit}; idle share "
+              f"{1 - busy_ms / (wall_prof / per * 1e3):.3f} of the profiled {unit} "
+              f"({wall_prof / per * 1e3:.3f} ms/{unit} under the profiler)")
+        print(f"{'kernel (' + label + ')':<70} {'calls':>9} {'ms/' + unit:>11} {'avg us':>8}")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:25]:
+            print(f"{e.key[:70]:<70} {e.count / per:>9.1f} "
+                  f"{e.self_device_time_total / 1e3 / per:>11.4f} "
+                  f"{e.self_device_time_total / max(e.count, 1):>8.2f}")
+
+    def host_ops(prof, per, unit) -> None:
+        """Where the host's time goes (the profiler's own cost is in every row)."""
+        host = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
+        print(f"{'host op (self CPU time)':<70} {'calls':>9} {'ms/' + unit:>11} {'avg us':>8}")
+        for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:15]:
+            print(f"{e.key[:70]:<70} {e.count / per:>9.1f} "
+                  f"{e.self_cpu_time_total / 1e3 / per:>11.4f} "
+                  f"{e.self_cpu_time_total / max(e.count, 1):>8.2f}")
+
+    head = (f"[profile] {torch.cuda.get_device_name(0)}, {args.model}, {args.layers} layers, "
+            f"kv {args.kv_type}, a {args.prompt}-token prompt")
     if args.prefill:
-        per, unit = 1, "prefill"
         timed_prefill(), timed_prefill()  # warm-up
         wall = timed_prefill()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             wall_prof = timed_prefill()
-    else:
-        per, unit = args.steps, "token"
-        decode(prefill())  # warm-up
-        wall = decode(prefill())
+        print(f"{head}: one prefill")
+        print(f"[profile] host clock: {wall * 1e3:.3f} ms/prefill")
+        report(prof, wall_prof, 1, "prefill", "prefill")
+        host_ops(prof, 1, "prefill")
+        return 0
+
+    ways = {"graph": eng.decode_greedy_tokens, "eager": eng.decode_greedy_tokens_eager}
+
+    def decode(way: str) -> float:
+        first = prefill()
+        t0 = time.perf_counter()
+        ways[way]([first], args.steps)  # ends in a device->host copy
+        return time.perf_counter() - t0
+
+    for way in ways:
+        decode(way)  # warm-up; the graph way captures the step
+    walls = {way: [] for way in ways}
+    for way in ("graph", "eager", "eager", "graph"):
+        walls[way].append(decode(way) / args.steps * 1e3)
+    print(f"{head}: {args.steps} decode steps after the prompt")
+    print("[profile] host clock, ms/token (in turns): "
+          + "; ".join(f"{way} {', '.join(f'{t:.3f}' for t in ts)}" for way, ts in walls.items()))
+    profs = {}
+    for way in ways:
         first = prefill()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            wall_prof = decode(first)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / per
-    what = "one prefill of" if args.prefill else f"{args.steps} decode steps after"
-    print(f"[profile] {torch.cuda.get_device_name(0)}, {args.model}, {args.layers} layers, "
-          f"{what} a {args.prompt}-token prompt, kv {args.kv_type}")
-    print(f"[profile] host clock: {wall / per * 1e3:.3f} ms/{unit}; under the profiler "
-          f"{wall_prof / per * 1e3:.3f} ms/{unit}")
+            t0 = time.perf_counter()
+            ways[way]([first], args.steps)
+            wall_prof = time.perf_counter() - t0
+        profs[way] = prof
+        report(prof, wall_prof, args.steps, "token", way)
 
     def host_us(fn, n=320) -> float:
         """Host time of one call, the device's drain excluded."""
@@ -99,35 +144,16 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return dt / n * 1e6
 
-    if not args.prefill:
-        L, H, Hkv, D = cfg.n_layer, cfg.n_head, cfg.n_head_kv, cfg.head_dim_k
-        dev = eng.device
-        kv_new = torch.zeros((L, 1, 1, Hkv, D), dtype=eng.dtype, device=dev)
-        q, cur = (torch.zeros((1, h, D), dtype=eng.dtype, device=dev) for h in (H, Hkv))
-        pos = torch.tensor([args.prompt], dtype=torch.int32, device=dev)
-        write_us = host_us(lambda: eng.cache.write_all(kv_new, kv_new, pos))
-        attn_us = host_us(lambda: decode_from_cache(q, eng.cache, 0, cur, cur, pos, D**-0.5))
-        print(f"[profile] host time: cache write_all {write_us:.1f} us a step, "
-              f"decode attention call {attn_us:.1f} us a layer")
-    if not kernels:
-        print("[profile] device busy time: not measured (the profiler saw no CUDA kernels)")
-        return 0
-    launches = sum(e.count for e in kernels) / per
-    print(f"[profile] device busy {busy_ms:.3f} ms/{unit} over {launches:.0f} kernel "
-          f"launches/{unit}; idle share {1 - busy_ms / (wall_prof / per * 1e3):.3f} "
-          f"of the profiled {unit}")
-    print(f"{'kernel':<70} {'calls':>9} {'ms/' + unit:>11} {'avg us':>8}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:25]:
-        print(f"{e.key[:70]:<70} {e.count / per:>9.1f} "
-              f"{e.self_device_time_total / 1e3 / per:>11.4f} "
-              f"{e.self_device_time_total / max(e.count, 1):>8.2f}")
-    # where the host's time goes (the profiler's own cost is in every row)
-    host = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
-    print(f"{'host op (self CPU time)':<70} {'calls':>9} {'ms/' + unit:>11} {'avg us':>8}")
-    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:15]:
-        print(f"{e.key[:70]:<70} {e.count / per:>9.1f} "
-              f"{e.self_cpu_time_total / 1e3 / per:>11.4f} "
-              f"{e.self_cpu_time_total / max(e.count, 1):>8.2f}")
+    L, H, Hkv, D = cfg.n_layer, cfg.n_head, cfg.n_head_kv, cfg.head_dim_k
+    dev = eng.device
+    kv_new = torch.zeros((L, 1, 1, Hkv, D), dtype=eng.dtype, device=dev)
+    q, cur = (torch.zeros((1, h, D), dtype=eng.dtype, device=dev) for h in (H, Hkv))
+    pos = torch.tensor([args.prompt], dtype=torch.int32, device=dev)
+    write_us = host_us(lambda: eng.cache.write_all(kv_new, kv_new, pos))
+    attn_us = host_us(lambda: decode_from_cache(q, eng.cache, 0, cur, cur, pos, D**-0.5))
+    print(f"[profile] eager host time: cache write_all {write_us:.1f} us a step, "
+          f"decode attention call {attn_us:.1f} us a layer")
+    host_ops(profs["eager"], args.steps, "token")
     return 0
 
 

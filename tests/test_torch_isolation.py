@@ -20,8 +20,13 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "llamacog_tpu" or m.startswith("llamacog_tpu."))
-print(len(names), bad)
+missing = sorted(set(REQUIRED) - set(names))
+print(len(names), missing, bad, sep="|")
 """
+# modules that must be among those imported (the walk finds every module;
+# these are the ones whose absence would leave a rule untested)
+_REQUIRED = ("llamacog_tpu_torch.runtime.engine", "llamacog_tpu_torch.runtime.sampler",
+             "llamacog_tpu_torch.tools.cli")
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -29,11 +34,13 @@ def test_port_imports_no_jax_and_no_jax_package():
     importing every module of the port pulls in no `jax` and no module
     named `llamacog_tpu` or `llamacog_tpu.*` — exact names, since the port's
     own name starts with the same string."""
-    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+    script = f"REQUIRED = {_REQUIRED!r}\n" + _IMPORT_ALL
+    res = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    n, bad = res.stdout.strip().split(" ", 1)
+    n, missing, bad = res.stdout.strip().split("|")
     assert int(n) >= 20
+    assert missing == "[]"
     assert bad == "[]"
 
 
