@@ -11,7 +11,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      of the main path, with kernel, plain, library and bound times: the
      weight kernels (qmv at one row, qgemm at 128 and 512 rows; also over
      the Q8_0 and Q5_K weights of a real Mixtral Q4_K_M file and its
-     attn_q + attn_k + attn_v launch), the int8 route's activation
+     attn_q + attn_k + attn_v launch; and every kind of llama.cpp's other
+     presets, Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, Q3_K, at gate_up and ffn_down,
+     with a Q3_K_M layer's Q3_K attn_qk + Q5_K attn_v launch), the int8 route's activation
      quantization (bit-equal) and prefill GEMM (K13, bit-equal at both tile
      heights, beside torch._int_mm) at the five layer shapes at 512 rows and
      ragged 300, and attn_qk + attn_v on one quantization; the dense-cache
@@ -29,7 +31,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      K7's SIMT body in f32 and on a q off 16 bytes); then the MoE kernels
      at the Mixtral-8x7B expert shapes (the
      gather at 2 and 32 rows, the offset entry, the grouped GEMM of a
-     128- and a 512-token prefill);
+     128- and a 512-token prefill; both again over gate_up stacks of
+     every other kind: Q8_0, Q5_K and the six above);
   4. the full-width kernel path (8B widths, 2 layers) against the plain
      path (the same params on the CPU): prefill logits, 4 teacher-forced
      decode steps (Engine.decode_one: replays of the step's CUDA graph on
@@ -37,11 +40,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      chunk, with the dense cache, q8_0,
      the split q5_1:q4_0 cache, LLAMACOG_MMQ=1 on a 300-token prompt (int8
      prefill), and the per-layer decode routes (LLAMACOG_FLASH_STACKED=0:
-     K9 on the dense cache with LLAMACOG_FLASH_DECODE=1, K8 on q8_0); then
-     the same at Mixtral widths (2 layers, dense cache, the attention
+     K9 on the dense cache with LLAMACOG_FLASH_DECODE=1, K8 on q8_0), and
+     the presets Q4_0 (also with LLAMACOG_MMQ=1), Q5_1, Q3_K_M and Q2_K;
+     then the same at Mixtral widths (2 layers, dense cache, the attention
      weight kinds of a real Q4_K_M file: Q8_0 attn_k/attn_v, Q5_K
      attn_output): a 20-token prefill (grouped GEMM), 4 decode steps and a
-     9-token second chunk (gather);
+     9-token second chunk (gather), and the presets Q5_K_M and Q3_K_M;
   5. whether stream capture keeps the split-S combine's programmatic
      dependent launch (K4 and K6 captured alone: the graph's edges by
      type, the replay against the eager call), then the 8B Q4_K_M
@@ -66,11 +70,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      8B params freed, the Mixtral-8x7B Q4_K_M synthetic run at full depth
      (32 layers, the kinds of a real file), the same way, and with a
      512-token prompt and 16 tokens (the grouped GEMM over several tiles an
-     expert); the phase's wall time;
+     expert); then the other presets, each with a 128-token prompt and 64
+     greedy tokens through the graph: the 8B at full depth in Q4_0, Q4_1,
+     Q5_0, Q5_1, Q2_K and Q3_K_M, Mixtral-8x7B Q5_K_M at full depth, and
+     Mixtral in Q8_0, Q4_0, Q4_1, Q5_0, Q5_1 and Q2_K at
+     MIXTRAL_PRESET_LAYERS layers (one preset for each other expert kind);
+     the phase's wall time;
   6. one JSON line of per-kernel results, the card's name and power limit,
      and the final {"ok": true, ...} line.
 
-Weights are random Q4_K_M wire blocks made on the card from a seed.
+Weights are random wire blocks made on the card from a seed, each tensor of
+the kind llama.cpp's rules give it under the run's preset (Q4_K_M unless
+named; utils/synthetic.py).
 """
 
 from __future__ import annotations
@@ -105,8 +116,23 @@ TOL_QMM = 1e-4
 TOL_K13 = 1e-6
 TOL_ATTN = 1e-2       # bf16 outputs: one bf16 rounding (2^-8) of each side
 TOL_PATH = 5e-2       # bf16 model, 2 layers: bf16 roundings that flip between paths
+# a router tie: the k-th and the (k+1)-th router logits of a row within this
+# many bf16 ulps of the k-th (the bf16 roundings of the layer input that
+# differ between the two paths move a logit by about one)
+TIE_ULPS = 2
 PROMPT_LEN = 128
 N_DECODE = 128
+# the weight kinds of llama.cpp's presets beside Q4_K_M's, and the preset
+# whose phase-5 run holds each (in the 8B dense weights; in the Mixtral
+# expert stacks, EXPERT_PRESET)
+NEW_KINDS = ("Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K")
+KIND_PRESET = {"Q4_0": "Q4_0", "Q4_1": "Q4_1", "Q5_0": "Q5_0", "Q5_1": "Q5_1", "Q2_K": "Q2_K",
+               "Q3_K": "Q3_K_M"}
+EXPERT_PRESET = {"Q8_0": "Q8_0", "Q5_K": "Q5_K_M", "Q4_0": "Q4_0", "Q4_1": "Q4_1",
+                 "Q5_0": "Q5_0", "Q5_1": "Q5_1", "Q2_K": "Q2_K", "Q3_K": "Q2_K"}
+# depth of the Mixtral runs of the presets other than Q5_K_M (each holds one
+# more expert kind; Q5_K_M runs at full depth)
+MIXTRAL_PRESET_LAYERS = 4
 LONG_PROMPT = 4096
 # phase-5 runs whose decode also runs eagerly, in turns with the graph
 EAGER_TURNS = {("8b", "kv dense"), ("8b", "kv q8_0"), ("mixtral", "kv dense")}
@@ -167,6 +193,7 @@ def main() -> int:
         flash_decode_q8, flash_decode_q8_tiled, flash_decode_stacked,
         flash_decode_stacked_dense, flash_decode_stacked_dense_plain,
         flash_decode_stacked_plain, flash_prefill_q8, flash_prefill_q8_plain)
+    from llamacog_tpu_torch.models import llama as llama_mod
     from llamacog_tpu_torch.models.llama import _ffn_moe, moe_sort
     from llamacog_tpu_torch.ops.linear import qmatmul
     from llamacog_tpu_torch.ops.cuda.qmm import qgemm, qmm_plain, qmv
@@ -183,8 +210,8 @@ def main() -> int:
         QuantKVCache, kv_dequant_planes, kv_plane_shapes)
     from llamacog_tpu_torch.runtime.sampler import SamplerChain, SamplerParams
     from llamacog_tpu_torch.utils.synthetic import (
-        llama3_8b_config, make_synthetic_params, mixtral_8x7b_config, random_experts,
-        random_wire)
+        DEFAULT_LAYOUT, llama3_8b_config, make_synthetic_params, mixtral_8x7b_config,
+        random_experts, random_wire)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -330,6 +357,7 @@ def main() -> int:
                             "bound_ms": bound, "bound_by": by, "library_ms": library_ms})
 
     # 3. per-kernel parity at the 8B shapes
+    t3 = time.perf_counter()
     cfg = llama3_8b_config()
     E, F, V = cfg.n_embd, cfg.n_ff, cfg.n_vocab
     g = torch.Generator(device=dev).manual_seed(1234)
@@ -362,28 +390,48 @@ def main() -> int:
               ("attn_output Q5_K 4096x4096", [w_o5], False),
               ("Mixtral attn_q+attn_k+attn_v Q4_K 4096x4096 + Q8_0 1024x4096 x2",
                [w_q4, w_k8, w_v8], True)]
+    def weight_parity(kname, fn, B, label, ws, multi, run):
+        """qmv or qgemm at B rows of x over the weights ws (one launch),
+        held against qmm_plain; the launches read from the phase-5 run `run`."""
+        K = ws[0].shape[1]
+        x = torch.randn(B, K, generator=g, device=dev).to(torch.bfloat16)
+        outs = fn(x, ws)
+        refs = [qmm_plain(x, w) for w in ws]
+        torch.cuda.synchronize()
+        nbytes = sum(w.nbytes for w in ws) + x.numel() * 2 + sum(o.numel() * 4 for o in outs)
+        flops = sum(2 * B * w.shape[0] * w.shape[1] for w in ws)
+        record(f"{kname} B={B} {label}", qmm_src.format(kname),
+               multi_rep if multi else qmm_rep[kname],
+               outs, refs, TOL_QMM,
+               time_ms(lambda: fn(x, ws)), time_ms(lambda: [qmm_plain(x, w) for w in ws],
+                                                  iters=5),
+               nbytes, flops, run=run)
+
     # qgemm at the 128-token prompt and at a 512-row prefill chunk (the route
     # K13 replaces with LLAMACOG_MMQ=1)
-    for kname, fn, B in (("qmv", qmv, 1), ("qgemm", qgemm, PROMPT_LEN), ("qgemm", qgemm, 512)):
+    weight_calls = (("qmv", qmv, 1), ("qgemm", qgemm, PROMPT_LEN), ("qgemm", qgemm, 512))
+    for kname, fn, B in weight_calls:
         for label, ws, multi in shapes:
             if kname == "qgemm" and label.startswith("output"):
                 continue  # the prefill LM head runs on the last position only: qmv
-            K = ws[0].shape[1]
-            x = torch.randn(B, K, generator=g, device=dev).to(torch.bfloat16)
-            outs = fn(x, ws)
-            refs = [qmm_plain(x, w) for w in ws]
-            torch.cuda.synchronize()
-            nbytes = sum(w.nbytes for w in ws) + x.numel() * 2 + sum(o.numel() * 4 for o in outs)
-            flops = sum(2 * B * w.shape[0] * w.shape[1] for w in ws)
             # the Q8_0 and Q5_K weights run on the Mixtral path: its run's launches
             mixtral_kinds = any(w.kind in ("Q8_0", "Q5_K") for w in ws)
-            record(f"{kname} B={B} {label}", qmm_src.format(kname),
-                   multi_rep if multi else qmm_rep[kname],
-                   outs, refs, TOL_QMM,
-                   time_ms(lambda: fn(x, ws)), time_ms(lambda: [qmm_plain(x, w) for w in ws],
-                                                      iters=5),
-                   nbytes, flops, run="mixtral" if mixtral_kinds else None)
-            del outs, refs
+            weight_parity(kname, fn, B, label, ws, multi, "mixtral" if mixtral_kinds else None)
+    # the legacy and low-bit kinds of llama.cpp's other presets at the 8B FFN
+    # shapes, each read in the phase-5 run of a preset that holds it; and the
+    # mixed launch of a Q3_K_M layer's attn_qk (Q3_K) + attn_v (Q5_K, layers 0-1)
+    for kind in NEW_KINDS:
+        w_gu_k, w_d_k = random_wire(kind, 2 * F, E, g, dev), random_wire(kind, E, F, g, dev)
+        for kname, fn, B in weight_calls:
+            for label, w in ((f"ffn_gate_up {kind} 28672x4096", w_gu_k),
+                             (f"ffn_down {kind} 4096x14336", w_d_k)):
+                weight_parity(kname, fn, B, label, [w], False, f"8b {KIND_PRESET[kind]}")
+        del w_gu_k, w_d_k
+    w_qk3, w_v5 = random_wire("Q3_K", 5120, E, g, dev), random_wire("Q5_K", 1024, E, g, dev)
+    for kname, fn, B in weight_calls:
+        weight_parity(kname, fn, B, "Q3_K_M attn_qk+attn_v Q3_K 5120x4096 + Q5_K 1024x4096",
+                      [w_qk3, w_v5], True, "8b Q3_K_M")
+    del w_qk3, w_v5
 
     # the activation quantization of the int8 route (one launch a layer
     # input), bit-equal to its plain version, at the 8B layer inputs: a
@@ -815,6 +863,47 @@ def main() -> int:
                    2 * ids.shape[0] * Nw * Kw, run="mixtral" if tokens == PROMPT_LEN
                    else "mixtral 512")
             del out, ref, xs, rows
+    # every other expert kind (Q5_K and Q8_0 among them) at both expert
+    # shapes, gate_up (K 4096) and down (K 14336: 56 superblocks a row, the
+    # raw ring's row layout and chunking at the other width): the gather at
+    # 2 and 32 rows, the grouped GEMM of a 128- and a 512-token prefill,
+    # each read in the Mixtral run of a preset that holds the kind
+    # (EXPERT_PRESET)
+    for kind, preset in EXPERT_PRESET.items():
+        run = f"mixtral {preset}"
+        for stem, Nw, Kw in (("ffn_gate_up_exps", 2 * Fm, E), ("ffn_down_exps", E, Fm)):
+            w = random_experts(kind, n_exp, Nw, Kw, g, dev)
+            label = f"{stem} {kind} {n_exp}x{Nw}x{Kw}"
+            for tokens in (1, 16):
+                ids = route(tokens)
+                x = torch.randn(ids.shape[0], Kw, generator=g, device=dev).to(torch.bfloat16)
+                out, ref = qmm_gather(x, ids, w), qmm_gather_plain(x, ids, w)
+                torch.cuda.synchronize()
+                record(f"qmv_id gather {label} S={ids.shape[0]}", qmm_src.format("qmv_id"),
+                       qid_rep.format(115), [out], [ref], TOL_QMM,
+                       time_ms(lambda: qmm_gather(x, ids, w)),
+                       time_ms(lambda: qmm_gather_plain(x, ids, w), iters=5),
+                       expert_bytes(w, ids) + x.numel() * 2 + out.numel() * 4,
+                       2 * ids.shape[0] * Nw * Kw, run=run)
+            for tokens in (PROMPT_LEN, 512):
+                ids = route(tokens)
+                dest, tile_expert, s_pad = moe_sort(ids, n_exp, RAGGED_TILE)
+                rows = torch.randn(ids.shape[0], Kw, generator=g, device=dev).to(torch.bfloat16)
+                xs = torch.zeros(s_pad, Kw, dtype=torch.bfloat16, device=dev).index_copy_(
+                    0, dest, rows)
+                out = qmm_ragged(xs, tile_expert, w, RAGGED_TILE)
+                ref = qmm_ragged_plain(xs, tile_expert, w, RAGGED_TILE)
+                torch.cuda.synchronize()
+                record(f"qgemm_id ragged {label} tokens={tokens} rows={ids.shape[0]} "
+                       f"s_pad={s_pad}", qmm_src.format("qgemm_id"), qid_rep.format(188), [out],
+                       [ref], TOL_QMM, time_ms(lambda: qmm_ragged(xs, tile_expert, w, RAGGED_TILE)),
+                       time_ms(lambda: qmm_ragged_plain(xs, tile_expert, w, RAGGED_TILE), iters=5),
+                       expert_bytes(w, ids) + ids.shape[0] * (Kw * 2 + Nw * 4),
+                       2 * ids.shape[0] * Nw * Kw, run=run)
+                del xs, rows
+            del w, out, ref
+            torch.cuda.empty_cache()
+
     # the MoE FFN keeps routing on the device: a decode step (2 rows, the
     # gather) and 128- and 512-token prefills (the grouped GEMM) run with any
     # synchronizing call raising
@@ -827,8 +916,10 @@ def main() -> int:
         check(out.shape == h_moe.shape and bool(torch.isfinite(out).all()),
               f"MoE FFN at T={T_moe}: output not finite of shape {tuple(h_moe.shape)}")
         log(f"[moe] _ffn_moe T={T_moe} ({T_moe * k_used} rows) ran with no host sync")
-    del moe_gu, moe_d6, moe_layer, w, x, out  # `w` holds a stack too
+    del moe_gu, moe_d6, moe_layer, x, out
     torch.cuda.empty_cache()
+
+    log(f"[parity] done in {time.perf_counter() - t3:.1f}s")
 
     # 4. full-width kernel path vs the plain path (same params on the CPU)
     t0 = time.perf_counter()
@@ -853,12 +944,96 @@ def main() -> int:
             for mod, attr, fn in saved:
                 setattr(mod, attr, fn)
 
-    def two_copies(cfgp):
-        p_gpu = make_synthetic_params(cfgp, seed=7)
+    def two_copies(cfgp, ftype=DEFAULT_LAYOUT):
+        p_gpu = make_synthetic_params(cfgp, seed=7, ftype=ftype)
         p_cpu = {k: (v if k == "layers" else v.to("cpu")) for k, v in p_gpu.items()}
         p_cpu["layers"] = [{k: v.to("cpu") for k, v in layer.items()}
                            for layer in p_gpu["layers"]]
         return p_gpu, p_cpu
+
+    @contextlib.contextmanager
+    def routing_record(cfgp, rows, seen):
+        """The kernel path's routing on a MoE model: each call of the
+        forward's router (one a layer) also writes its layer's top-k expert
+        ids [rows <= `rows`, k] into buffers on the card (the copies recorded
+        into a captured decode graph refill them at every replay). Yields a
+        function, called after each step, that appends the step's (ids
+        [n_layer, rows, k], rows a layer) to `seen`."""
+        if not cfgp.n_expert:
+            yield lambda: None
+            return
+        k, n_l = cfgp.n_expert_used, cfgp.n_layer
+        ids = torch.zeros((n_l, rows, k), dtype=torch.long, device=dev)
+        used = torch.zeros(n_l, dtype=torch.long, device=dev)
+        orig, calls = llama_mod._moe_router, [0]
+
+        def recorded(layer, x, cfg):
+            top_i, gate_w = orig(layer, x, cfg)
+            flat = top_i.reshape(-1, k)
+            il = calls[0] % n_l
+            calls[0] += 1
+            ids[il, : flat.shape[0]].copy_(flat)
+            used[il].fill_(flat.shape[0])
+            return top_i, gate_w
+
+        llama_mod._moe_router = recorded
+        try:
+            yield lambda: seen.append((ids.cpu().clone(), used.cpu().clone()))
+        finally:
+            llama_mod._moe_router = orig
+
+    @contextlib.contextmanager
+    def routing_forced(cfgp, seen, real_rows, diffs):
+        """The plain path of a MoE model routed as the kernel path was: each
+        router call takes the experts that routing_record saw the kernel
+        path choose in the same step and layer (`seen`), weighted by the
+        plain path's own gate probabilities. Every real row (the first
+        real_rows[step] rows; the rest are the prompt bucket's padding)
+        whose experts differ from the plain path's own top-k is appended to
+        `diffs` with whether it is a tie swap: the kernel path took the
+        plain path's (k+1)-th expert for its k-th, and the two logits lie
+        within TIE_ULPS bf16 ulps. Yields the function that ends a step."""
+        if not cfgp.n_expert:
+            yield lambda: None
+            return
+        k, n_l, step, calls = cfgp.n_expert_used, cfgp.n_layer, [0], [0]
+        orig = llama_mod._moe_router
+
+        def route_as_kernel(layer, x, cfg):
+            check(cfg.expert_gating_func != "sigmoid" and "exp_probs_b" not in layer,
+                  "the forced router repeats softmax gating without a selection bias only")
+            logits = qmatmul(x, layer["ffn_gate_inp"]).float()
+            il = calls[0] % n_l
+            calls[0] += 1
+            ids, used = seen[step[0]]
+            n_rows = logits.reshape(-1, logits.shape[-1]).shape[0]
+            check(int(used[il]) == n_rows, f"layer {il} step {step[0]}: the plain path routes "
+                  f"{n_rows} rows, the kernel path routed {int(used[il])}")
+            top_i = ids[il, :n_rows].reshape(*logits.shape[:-1], k)
+            gate_w = torch.gather(torch.softmax(logits, dim=-1), -1, top_i)
+            if cfg.expert_weights_norm:
+                gate_w = gate_w / (gate_w.sum(dim=-1, keepdim=True) + 1e-20)
+            real = real_rows[step[0]]
+            own_l, own_i = torch.topk(logits.reshape(-1, logits.shape[-1])[:real], k + 1, dim=-1)
+            got = top_i.reshape(-1, k)[:real].sort(dim=1).values
+            for r in torch.nonzero((own_i[:, :k].sort(dim=1).values != got).any(dim=1)).flatten():
+                r = int(r)
+                swap = torch.cat([own_i[r, : k - 1], own_i[r, k:]]).sort().values
+                hi, lo = float(own_l[r, k - 1]), float(own_l[r, k])
+                ulp = 2.0 ** (torch.frexp(own_l[r, k - 1]).exponent.item() - 8)
+                diffs.append({"step": step[0], "layer": il, "row": r, "kernel": got[r].tolist(),
+                              "plain top-k+1": own_i[r].tolist(), "gap_ulps": (hi - lo) / ulp,
+                              "tie": torch.equal(swap, got[r]) and hi - lo <= TIE_ULPS * ulp})
+            return top_i, gate_w * cfg.expert_weights_scale
+
+        def end_step():
+            step[0] += 1
+
+        llama_mod._moe_router = route_as_kernel
+        try:
+            yield end_step
+        finally:
+            llama_mod._moe_router = orig
 
     def path_check(model, cfgp, p_gpu, p_cpu, cases, forced, max_seq):
         """For each case (label, kv type, environment, prompt, kernels that
@@ -866,21 +1041,33 @@ def main() -> int:
         case's environment: prefill, teacher-forced decode steps and a
         9-token second chunk (which attends the cache of the first) through
         Engine on the card and on the CPU, the same params; logits held
-        within TOL_PATH. Returns the card's first prefill logits per case."""
+        within TOL_PATH at every step. On a MoE model the router's bf16
+        logits can tie, and a tie broken the other way runs other experts:
+        the plain path therefore routes as the kernel path did
+        (routing_forced), and every real row where that differs from its
+        own top-k must be a tie swap. Returns the card's first prefill
+        logits per case."""
         Vp = cfgp.n_vocab
         firsts = {}
         for label, kv_type, env, prompt, must, route in cases:
-            runs = {}
+            t_case = time.perf_counter()
+            runs, seen, diffs = {}, [], []
+            real_rows = [len(prompt)] + [1] * len(forced) + [9]
             with env_vars(env):
                 for name, params, device in (("kernel", p_gpu, "cuda"), ("plain", p_cpu, "cpu")):
                     eng = Engine(params, cfgp, batch_size=1, max_seq=max_seq, kv_type=kv_type,
                                  device=device)
                     build.reset_launches()
-                    with route_calls() as calls:
+                    routing = (routing_record(cfgp, max_seq, seen) if name == "kernel"
+                               else routing_forced(cfgp, seen, real_rows, diffs))
+                    with route_calls() as calls, routing as end_step:
                         steps = [eng.prefill(prompt)]
+                        end_step()
                         for tok in forced:
                             steps.append(eng.decode_one([tok])[0])
+                            end_step()
                         steps.append(eng.prefill(prompt[:9]))
+                        end_step()
                     runs[name] = steps
                     graphs = {cap: n for cap, (_, n) in eng.decoder.graphs.items()}
                     del eng
@@ -898,6 +1085,13 @@ def main() -> int:
                         check(calls == want, f"{model} {label}: T=1 attention took {calls}, "
                               f"not the {route} route")
             firsts[label] = runs["kernel"][0]
+            if cfgp.n_expert:
+                log(f"[path] {model}, {label}: the plain path routed as the kernel path; "
+                    f"{len(diffs)} real rows differ from its own top-{cfgp.n_expert_used} "
+                    f"{json.dumps(diffs)}")
+                check(all(d["tie"] for d in diffs),
+                      f"{model} {label}: the kernel path routed a row away from the plain "
+                      f"path's top-{cfgp.n_expert_used} other than by a tie swap")
             for i, (a, b) in enumerate(zip(runs["kernel"], runs["plain"])):
                 err = rel_err(torch.from_numpy(a), torch.from_numpy(b))
                 what = ("prefill" if i == 0 else "prefill chunk 2" if i == len(forced) + 1
@@ -910,6 +1104,7 @@ def main() -> int:
                     f"plain {int(b.argmax())}")
                 check(err <= TOL_PATH, f"{model}: kernel path disagrees with the plain path "
                       f"at {what}")
+            log(f"[path] {model}, {label}: {time.perf_counter() - t_case:.1f}s")
         return firsts
 
     # the dense cache, q8_0 and a split pair; int8 prefill on a 300-token
@@ -939,16 +1134,39 @@ def main() -> int:
         f"{cos:.6f} (the JAX package's test asks > 0.995 at 512 wide, tests/test_qmm_i8.py:116)")
     del p_gpu, p_cpu, exact, mm
     torch.cuda.empty_cache()
+    # the other presets at 8B widths: legacy Q4_0 (q+k+v and gate+up fused)
+    # and Q5_1; Q3_K_M (layers 0-1: a Q3_K attn_qk + Q5_K attn_v launch, Q5_K
+    # ffn_down) and Q2_K (Q4_K attn_v, Q3_K attn_output and ffn_down); and
+    # Q4_0 under int8 prefill (its planes made by the plain dequant)
+    for preset in ("Q4_0", "Q5_1", "Q3_K_M", "Q2_K"):
+        p_gpu, p_cpu = two_copies(cfg2, preset)
+        cases = [(f"{preset} kv dense", "dense", {}, prompt20, ("qmv", "qgemm"), "stacked")]
+        if preset == "Q4_0":
+            cases.append((f"{preset} {mmq_label}", "dense", {"LLAMACOG_MMQ": "1"}, prompt300,
+                          ("qmm_i8", "quantize_i8"), "stacked"))
+        path_check("8B widths", cfg2, p_gpu, p_cpu, cases, [11, 12345, 777, 90000], 1024)
+        del p_gpu, p_cpu
+        torch.cuda.empty_cache()
     # Mixtral widths: the 20-token prefill (bucket 32: 64 rows) takes the
     # grouped GEMM, each decode step (2 rows) the gather; max_seq 33 makes
     # the second chunk an exact tail fit of 9 tokens (18 rows: the gather)
     mcfg2 = mixtral_8x7b_config(n_layer=2)
     p_gpu, p_cpu = two_copies(mcfg2)
+    prompt20m = [(i * 7919) % mcfg.n_vocab for i in range(2, 22)]
     path_check("Mixtral widths", mcfg2, p_gpu, p_cpu, [
-        ("kv dense", "dense", {}, [(i * 7919) % mcfg.n_vocab for i in range(2, 22)],
-         ("qmv_id", "qgemm_id"), "stacked")], [11, 12345, 777, 31000], 33)
+        ("kv dense", "dense", {}, prompt20m, ("qmv_id", "qgemm_id"), "stacked")],
+        [11, 12345, 777, 31000], 33)
     del p_gpu, p_cpu
     torch.cuda.empty_cache()
+    # Q5_K_M's Q5_K expert stacks (and Q6_K down on the more-bits layers) and
+    # Q3_K_M's Q3_K gate/up with Q5_K / Q4_K down
+    for preset in ("Q5_K_M", "Q3_K_M"):
+        p_gpu, p_cpu = two_copies(mcfg2, preset)
+        path_check("Mixtral widths", mcfg2, p_gpu, p_cpu, [
+            (f"{preset} kv dense", "dense", {}, prompt20m, ("qmv_id", "qgemm_id"), "stacked")],
+            [11, 12345, 777, 31000], 33)
+        del p_gpu, p_cpu
+        torch.cuda.empty_cache()
     log(f"[path] done in {time.perf_counter() - t0:.1f}s")
 
     # 5. the synthetic Q4_K_M models through the engine
@@ -1161,15 +1379,15 @@ def main() -> int:
                 f"combine's early launch is kept); replay equals the eager call bit for bit: "
                 f"{same}")
             check(same, f"{what}: the captured split + combine differs from the eager call")
-    def build_params(model, cfgm):
+    def build_params(model, cfgm, ftype=DEFAULT_LAYOUT):
         t0 = time.perf_counter()
-        params = make_synthetic_params(cfgm, seed=0)
+        params = make_synthetic_params(cfgm, seed=0, ftype=ftype)
         torch.cuda.synchronize()
         kinds = sorted({f"{k} {v.kind}" for k, v in params["layers"][0].items()
-                        if isinstance(v, WireTensor) and k.startswith("attn")})
-        log(f"[{model}] synthetic Q4_K_M params ({cfgm.n_layer} layers) built in "
+                        if isinstance(v, WireTensor)})
+        log(f"[{model}] synthetic {ftype} params ({cfgm.n_layer} layers) built in "
             f"{time.perf_counter() - t0:.1f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB; "
-            f"attention weights {', '.join(kinds)}")
+            f"layer 0 weights {', '.join(kinds)}")
         if cfgm.n_expert:
             tensors = [params["tok_embd"], params["output"],
                        *(v for layer in params["layers"] for v in layer.values())]
@@ -1259,6 +1477,20 @@ def main() -> int:
     sampled_runs(params, cfg)
     del params
     torch.cuda.empty_cache()
+
+    def preset_run(model, cfgm, preset, used):
+        """The synthetic model of `preset` at cfgm's depth through the engine:
+        a 128-token prompt, 64 greedy tokens through the graph (main_path_runs)."""
+        params = build_params(f"{model} {preset}", cfgm, preset)
+        run = main_path_runs(f"{model} {preset}", params, cfgm,
+                             [(preset, "dense", {}, PROMPT_LEN, used, 1024, 64)])[preset]
+        del params
+        torch.cuda.empty_cache()
+        return run
+
+    # the 8B at full depth in each preset that holds one of the other kinds
+    preset_runs = {f"8b {p}": preset_run("8b", cfg, p, exact_path)
+                   for p in ("Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K_M")}
     # Mixtral-8x7B at full depth (28.3 GB of wire blocks), the dense cache,
     # the attention weight kinds of a real Q4_K_M file: the MoE kernels must
     # launch, the quantized-cache ones must not
@@ -1274,6 +1506,12 @@ def main() -> int:
           f"(want {2 * mcfg.n_layer})")
     del params
     torch.cuda.empty_cache()
+    # Mixtral-8x7B Q5_K_M at full depth (Q5_K expert stacks), and the presets
+    # that hold each other expert kind at MIXTRAL_PRESET_LAYERS layers
+    mcfg_cut = mixtral_8x7b_config(n_layer=MIXTRAL_PRESET_LAYERS)
+    for preset in sorted(set(EXPERT_PRESET.values()), key=lambda p: p != "Q5_K_M"):
+        preset_runs[f"mixtral {preset}"] = preset_run(
+            "mixtral", mcfg if preset == "Q5_K_M" else mcfg_cut, preset, moe_path)
     for model, name in sorted(EAGER_TURNS):
         r = (runs_8b if model == "8b" else runs_moe)[name]
         log(f"[{model} {name}] decode ms/token, graph {statistics.median(r['graph_ms']):.3f} "
@@ -1289,7 +1527,7 @@ def main() -> int:
               **{k: runs_moe["kv dense"] for k in moe_kernels},
               **{k: runs_8b["kv q8_0"] for k in quant_attn}}
     run_named = {**runs_8b, "mixtral": runs_moe["kv dense"],
-                 "mixtral 512": runs_moe["kv dense 512"]}
+                 "mixtral 512": runs_moe["kv dense 512"], **preset_runs}
     for r in results:
         k, run = r.pop("kernel"), r.pop("run")
         r["launches"] = (run_named[run] if run

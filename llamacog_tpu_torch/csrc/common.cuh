@@ -15,8 +15,20 @@
 #define LCG_EXPORT extern "C" __attribute__((visibility("default")))
 
 // quantized weight kinds (GGUF wire format, ggml-common.h block_q4_K,
-// block_q6_K, block_q8_0, block_q5_K), numbered as qmm.py's _KIND_ID
-enum { KIND_Q4_K = 0, KIND_Q6_K = 1, KIND_Q8_0 = 2, KIND_Q5_K = 3 };
+// block_q6_K, block_q8_0, block_q5_K, block_q4_0, block_q4_1, block_q5_0,
+// block_q5_1, block_q2_K, block_q3_K), numbered as qmm.py's _KIND_ID
+enum { KIND_Q4_K = 0, KIND_Q6_K = 1, KIND_Q8_0 = 2, KIND_Q5_K = 3, KIND_Q4_0 = 4, KIND_Q4_1 = 5,
+       KIND_Q5_0 = 6, KIND_Q5_1 = 7, KIND_Q2_K = 8, KIND_Q3_K = 9 };
+// The kinds one instantiation of a weight kernel takes: a dense Q4_K_M
+// llama's (Q4_K, Q6_K), a Q4_K_M file's (those and an 8-expert model's Q8_0
+// attn_k/attn_v and Q5_K attn_output), every kind. A kernel's register
+// count is that of its widest kind, so the launches of the smaller sets
+// keep instantiations that the other kinds do not widen.
+enum { KS_Q4K_Q6K = 0, KS_Q4KM = 1, KS_ALL = 2 };
+__host__ __device__ constexpr bool kind_in_set(int kind, int set) {
+    return set == KS_ALL || kind == KIND_Q4_K || kind == KIND_Q6_K ||
+           (set == KS_Q4KM && (kind == KIND_Q8_0 || kind == KIND_Q5_K));
+}
 // element type of activations, caches and outputs
 enum { DT_F32 = 0, DT_BF16 = 1 };
 
@@ -25,11 +37,31 @@ constexpr int Q4K_BYTES = 144;   // d f16, dmin f16, scales[12], qs[128]
 constexpr int Q6K_BYTES = 210;   // ql[128], qh[64], scales[16] i8, d f16
 constexpr int Q80_BYTES = 272;   // eight 34-byte blocks of 32: d f16, qs[32] i8
 constexpr int Q5K_BYTES = 176;   // d f16, dmin f16, scales[12], qh[32], qs[128]
+// the legacy kinds: eight blocks of 32 weights a QK_K run
+constexpr int Q40_BYTES = 144;   // 18-byte blocks: d f16, qs[16]
+constexpr int Q41_BYTES = 160;   // 20-byte blocks: d f16, m f16, qs[16]
+constexpr int Q50_BYTES = 176;   // 22-byte blocks: d f16, qh u32, qs[16]
+constexpr int Q51_BYTES = 192;   // 24-byte blocks: d f16, m f16, qh u32, qs[16]
+constexpr int Q2K_BYTES = 84;    // scales[16] (4-bit scale | 4-bit min), qs[64], d f16, dmin f16
+constexpr int Q3K_BYTES = 110;   // hmask[32], qs[64], scales[12] (6-bit), d f16
 
 // Wire bytes of QK_K weights of `kind`, or 0 for a kind the kernels do not take.
 __host__ __device__ constexpr int kind_sb_bytes(int kind) {
     return kind == KIND_Q4_K ? Q4K_BYTES : kind == KIND_Q6_K ? Q6K_BYTES
-         : kind == KIND_Q8_0 ? Q80_BYTES : kind == KIND_Q5_K ? Q5K_BYTES : 0;
+         : kind == KIND_Q8_0 ? Q80_BYTES : kind == KIND_Q5_K ? Q5K_BYTES
+         : kind == KIND_Q4_0 ? Q40_BYTES : kind == KIND_Q4_1 ? Q41_BYTES
+         : kind == KIND_Q5_0 ? Q50_BYTES : kind == KIND_Q5_1 ? Q51_BYTES
+         : kind == KIND_Q2_K ? Q2K_BYTES : kind == KIND_Q3_K ? Q3K_BYTES : 0;
+}
+
+// The legacy kinds (Q4_0, Q4_1, Q5_0, Q5_1: 32-weight blocks with an f16
+// scale, optionally an f16 min and a u32 of fifth bits) and the low-bit
+// K-quants (Q2_K, Q3_K: 16-weight sub-blocks).
+__host__ __device__ constexpr bool kind_legacy(int kind) {
+    return kind == KIND_Q4_0 || kind == KIND_Q4_1 || kind == KIND_Q5_0 || kind == KIND_Q5_1;
+}
+__host__ __device__ constexpr bool kind_low_k(int kind) {
+    return kind == KIND_Q2_K || kind == KIND_Q3_K;
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -306,11 +338,214 @@ __device__ __forceinline__ void q5k_bytes(uint32_t w, uint32_t qh, int j, uint32
     hi = ((w >> 2) & 0x3C3C3C3Cu) | (((qh >> (2 * j + 1)) & 0x01010101u) << 6);
 }
 
+// The legacy kinds: slot i is block i of the QK_K run (elements 32i..32i+31,
+// one scale), as Q8_0's. Element j < 16 is the low nibble of qs byte j, 16 + j
+// its high nibble; Q5_0 and Q5_1 take bit j of qh as the fifth bit of
+// element j. Q4_1 blocks (20 bytes) are 4-byte aligned and Q5_1 blocks (24)
+// 8-byte aligned; Q4_0 (18) and Q5_0 (22) blocks only 2-byte aligned, so the
+// lane reads the aligned words from its block's start rounded down to 4 (up
+// to two bytes of a neighbour, never past the run's last byte) and shifts.
+__host__ __device__ constexpr int legacy_block_bytes(int kind) {
+    return kind == KIND_Q4_0 ? 18 : kind == KIND_Q4_1 ? 20 : kind == KIND_Q5_0 ? 22 : 24;
+}
+__host__ __device__ constexpr bool legacy_has_min(int kind) {
+    return kind == KIND_Q4_1 || kind == KIND_Q5_1;
+}
+__host__ __device__ constexpr bool legacy_5bit(int kind) {
+    return kind == KIND_Q5_0 || kind == KIND_Q5_1;
+}
+
+template <int KIND>
+struct LegacyRaw {
+    uint32_t w[KIND == KIND_Q4_0 || KIND == KIND_Q4_1 ? 5 : 6];
+    int shift;  // Q4_0, Q5_0: 16 when the block starts on a 4-byte boundary, else 32
+};
+
+template <int KIND>
+__device__ __forceinline__ LegacyRaw<KIND> legacy_raw(const uint8_t* sb, int i) {
+    const int off = legacy_block_bytes(KIND) * i, mis = off & 2;
+    const uint32_t* base = reinterpret_cast<const uint32_t*>(sb + off - mis);
+    LegacyRaw<KIND> r;
+#pragma unroll
+    for (int k = 0; k < (int)(sizeof(r.w) / 4); ++k) r.w[k] = base[k];
+    r.shift = 16 + 8 * mis;
+    return r;
+}
+
+// A legacy block's fields shifted into place: d (and m above it) in dm, the
+// fifth bits in qh, the 16 code bytes in qs[4].
+struct LegacyFields {
+    uint32_t dm, qh, qs[4];
+};
+
+template <int KIND>
+__device__ __forceinline__ LegacyFields legacy_fields(const LegacyRaw<KIND>& r) {
+    LegacyFields f;
+    f.qh = 0;
+    if constexpr (KIND == KIND_Q4_1 || KIND == KIND_Q5_1) {  // aligned blocks
+        constexpr int q0 = KIND == KIND_Q4_1 ? 1 : 2;
+        f.dm = r.w[0];
+        if constexpr (KIND == KIND_Q5_1) f.qh = r.w[1];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) f.qs[k] = r.w[q0 + k];
+    } else {
+        constexpr int q0 = KIND == KIND_Q4_0 ? 0 : 1;  // the word before qs's first
+        f.dm = (r.w[0] >> (r.shift - 16)) & 0xFFFF;
+        if constexpr (KIND == KIND_Q5_0) f.qh = __funnelshift_rc(r.w[0], r.w[1], r.shift);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+            f.qs[k] = __funnelshift_rc(r.w[q0 + k], r.w[q0 + k + 1], r.shift);
+    }
+    return f;
+}
+
+// Four bits t (bits 0..3) spread to the low bit of each byte.
+__device__ __forceinline__ uint32_t spread4(uint32_t t) { return (t * 0x00204081u) & 0x01010101u; }
+
+// The level bytes of qs word k of a legacy block: lo for elements 4k..4k+3
+// (low nibbles), hi for 16 + 4k.. (high nibbles). 4-bit kinds: 0x80 | q << 3,
+// the high mantissa byte of 16 + q (level_plus<16>); 5-bit kinds: q << 2, of
+// 32 + q (level_plus<32>).
+template <int KIND>
+__device__ __forceinline__ void legacy_bytes(const LegacyFields& f, int k, uint32_t& lo,
+                                             uint32_t& hi) {
+    if constexpr (legacy_5bit(KIND)) {
+        lo = ((f.qs[k] << 2) & 0x3C3C3C3Cu) | (spread4((f.qh >> (4 * k)) & 0xF) << 6);
+        hi = ((f.qs[k] >> 2) & 0x3C3C3C3Cu) | (spread4((f.qh >> (16 + 4 * k)) & 0xF) << 6);
+    } else {
+        lo = ((f.qs[k] << 3) & 0x78787878u) | 0x80808080u;
+        hi = ((f.qs[k] >> 1) & 0x78787878u) | 0x80808080u;
+    }
+}
+
+// The bias of a legacy kind's levels (16 + q or 32 + q) and its own offset
+// on the code (Q4_0 q - 8, Q5_0 q - 16; Q4_1, Q5_1 add m instead).
+template <int KIND>
+__host__ __device__ constexpr float legacy_bias() { return legacy_5bit(KIND) ? 32.f : 16.f; }
+template <int KIND>
+__host__ __device__ constexpr float legacy_offset() {
+    return KIND == KIND_Q4_0 ? 8.f : KIND == KIND_Q5_0 ? 16.f : 0.f;
+}
+
+// Q2_K and Q3_K take Q6_K's slots: chunk c = i/4, positions lq..lq+7 of the
+// chunk's 32 (lq = 8*(i%4)) for all four 2-bit planes (quarters); slice
+// index qt*8 + t is element c*128 + qt*32 + lq + t, of sub-block c*8 + qt*2
+// + lq/16. Q2_K: the code is bits 2qt, 2qt + 1 of qs byte c*32 + lq + t;
+// sub-block g's scale byte holds the 4-bit scale (low) and min (high).
+// Superblocks are 84 bytes, so 4-byte aligned: every field is read as words.
+struct Q2KRaw {
+    uint32_t q[2], s[2], dd;  // qs bytes, the chunk's 8 scale bytes, d and dmin
+};
+
+__device__ __forceinline__ Q2KRaw q2k_raw(const uint8_t* blk, int i) {
+    const int c = i >> 2, lq = (i & 3) * 8;
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(blk);
+    return {{w[(16 + 32 * c + lq) / 4], w[(16 + 32 * c + lq) / 4 + 1]},
+            {w[2 * c], w[2 * c + 1]}, w[20]};
+}
+
+// Q3_K: as Q2_K, and the third bit of element c*128 + qt*32 + l is bit
+// 4c + qt of hmask[l] (set: the 2-bit code as it is; clear: the code - 4).
+// The 6-bit scale of sub-block g is the low (g < 8) or high nibble of byte
+// g % 8 of scales, with bits 2(g/4), +1 of byte 8 + g%4 on top, minus 32.
+// The 110-byte superblocks are only 2-byte aligned: as Q6_K's, each 8-byte
+// field (hmask, qs, scale bytes 0-7) is read as three aligned words, the
+// 4-byte scale bytes 8-11 as two, and shifted into place when used.
+struct Q3KRaw {
+    uint32_t w[3][3];  // hmask, qs, scale bytes 0-7: 8 bytes each
+    uint32_t s2[2];    // scale bytes 8-11
+    uint32_t d;
+    int shift;  // 0 or 16: the block's offset from a 4-byte boundary, in bits
+};
+
+__device__ __forceinline__ Q3KRaw q3k_raw(const uint8_t* blk, int i) {
+    const int c = i >> 2, lq = (i & 3) * 8;
+    const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(blk) & 2);
+    const uint32_t* base = reinterpret_cast<const uint32_t*>(blk - mis);
+    const int off[3] = {lq, 32 + 32 * c + lq, 96};
+    Q3KRaw r;
+#pragma unroll
+    for (int f = 0; f < 3; ++f) {
+        r.w[f][0] = base[off[f] / 4];
+        r.w[f][1] = base[off[f] / 4 + 1];
+        r.w[f][2] = base[off[f] / 4 + 1 + (mis >> 1)];  // a word again unless straddling
+    }
+    r.s2[0] = base[26];
+    r.s2[1] = base[26 + (mis >> 1)];
+    r.d = *reinterpret_cast<const unsigned short*>(blk + 108);
+    r.shift = mis * 8;
+    return r;
+}
+
+// The 8 code bytes of a Q2_K / Q3_K slot as two words (positions lq..lq+3,
+// lq+4..lq+7), and for Q3_K the hmask bytes of the same positions.
+template <int KIND, typename RAW>
+__device__ __forceinline__ void low_k_fields(const RAW& r, uint32_t (&q)[2], uint32_t (&h)[2]) {
+    if constexpr (KIND == KIND_Q2_K) {
+        q[0] = r.q[0]; q[1] = r.q[1];
+        h[0] = h[1] = 0;
+    } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            h[e] = __funnelshift_r(r.w[0][e], r.w[0][e + 1], r.shift);
+            q[e] = __funnelshift_r(r.w[1][e], r.w[1][e + 1], r.shift);
+        }
+    }
+}
+
+// Level bytes of quarter qt, four positions (code word q, hmask word h, c
+// the chunk): 0x80 | v << 3, the high mantissa byte of 16 + v, where v is
+// the 2-bit code, or for Q3_K the code with the hmask bit as bit 2 (the
+// level's - 4 then folds into the offset).
+template <int KIND>
+__device__ __forceinline__ uint32_t low_k_bytes(uint32_t q, uint32_t h, int c, int qt) {
+    uint32_t v = (q >> (2 * qt)) & 0x03030303u;
+    if constexpr (KIND == KIND_Q3_K) v |= ((h >> (4 * c + qt)) & 0x01010101u) << 2;
+    return (v << 3) | 0x80808080u;
+}
+
+// The scale dl (and for Q2_K the min ml) of each quarter's sub-block of slot
+// i, each product rounded once as the plain dequant rounds it: Q2_K d * sc
+// and dmin * m, Q3_K d * (sc - 32).
+template <int KIND, typename RAW>
+__device__ __forceinline__ void low_k_scales(const RAW& r, int i, float (&dl)[4], float (&ml)[4]) {
+    const int c = i >> 2, h = (i & 3) >> 1;
+    if constexpr (KIND == KIND_Q2_K) {
+        const float d = f16_bits(r.dd & 0xFFFF), dmin = f16_bits(r.dd >> 16);
+        const uint32_t s01 = r.s[0] >> (8 * h), s23 = r.s[1] >> (8 * h);
+        const uint32_t b[4] = {s01 & 0xFF, (s01 >> 16) & 0xFF, s23 & 0xFF, (s23 >> 16) & 0xFF};
+#pragma unroll
+        for (int qt = 0; qt < 4; ++qt) {
+            dl[qt] = __fmul_rn(d, u23_f32(b[qt] & 0xF));
+            ml[qt] = __fmul_rn(dmin, u23_f32(b[qt] >> 4));
+        }
+    } else {
+        const float d = f16_bits(r.d);
+        const uint32_t l0 = __funnelshift_r(r.w[2][0], r.w[2][1], r.shift) >> (8 * h);
+        const uint32_t l1 = __funnelshift_r(r.w[2][1], r.w[2][2], r.shift) >> (8 * h);
+        const uint32_t hb = __funnelshift_r(r.s2[0], r.s2[1], r.shift) >> (8 * h);
+        const uint32_t lo[4] = {l0, l0 >> 16, l1, l1 >> 16};
+#pragma unroll
+        for (int qt = 0; qt < 4; ++qt) {
+            const uint32_t sc = ((lo[qt] >> (4 * c)) & 0xF) |
+                                (((hb >> (16 * (qt & 1) + 4 * c + 2 * (qt >> 1))) & 3) << 4);
+            dl[qt] = __fmul_rn(d, u23_f32(sc) - 32.f);
+            ml[qt] = 0.f;
+        }
+    }
+}
+
 template <int KIND> struct KindRaw;
 template <> struct KindRaw<KIND_Q4_K> { using type = Q4KRaw; };
 template <> struct KindRaw<KIND_Q6_K> { using type = Q6KRaw; };
 template <> struct KindRaw<KIND_Q8_0> { using type = Q80Raw; };
 template <> struct KindRaw<KIND_Q5_K> { using type = Q5KRaw; };
+template <> struct KindRaw<KIND_Q4_0> { using type = LegacyRaw<KIND_Q4_0>; };
+template <> struct KindRaw<KIND_Q4_1> { using type = LegacyRaw<KIND_Q4_1>; };
+template <> struct KindRaw<KIND_Q5_0> { using type = LegacyRaw<KIND_Q5_0>; };
+template <> struct KindRaw<KIND_Q5_1> { using type = LegacyRaw<KIND_Q5_1>; };
+template <> struct KindRaw<KIND_Q2_K> { using type = Q2KRaw; };
+template <> struct KindRaw<KIND_Q3_K> { using type = Q3KRaw; };
 template <int KIND>
 using QmvRaw = typename KindRaw<KIND>::type;
 
@@ -319,14 +554,18 @@ __device__ __forceinline__ QmvRaw<KIND> qmv_raw(const uint8_t* blk, int i) {
     if constexpr (KIND == KIND_Q4_K) return q4k_raw(blk, i);
     else if constexpr (KIND == KIND_Q6_K) return q6k_raw(blk, i);
     else if constexpr (KIND == KIND_Q8_0) return q80_raw(blk, i);
-    else return q5k_raw(blk, i);
+    else if constexpr (KIND == KIND_Q5_K) return q5k_raw(blk, i);
+    else if constexpr (kind_legacy(KIND)) return legacy_raw<KIND>(blk, i);
+    else if constexpr (KIND == KIND_Q2_K) return q2k_raw(blk, i);
+    else return q3k_raw(blk, i);
 }
 
-// Parts of a lane's slice that share a scale: Q4_K and Q5_K 2 of 16, Q6_K
-// 4 of 8, Q8_0 one of 32.
+// Parts of a lane's slice that share a scale: Q4_K and Q5_K 2 of 16; Q6_K,
+// Q2_K and Q3_K 4 of 8; Q8_0 and the legacy kinds one of 32.
 template <int KIND>
 __host__ __device__ constexpr int qmv_parts() {
-    return KIND == KIND_Q6_K ? 4 : KIND == KIND_Q8_0 ? 1 : 2;
+    return KIND == KIND_Q6_K || kind_low_k(KIND) ? 4
+         : KIND == KIND_Q8_0 || kind_legacy(KIND) ? 1 : 2;
 }
 
 // Whether the kind's levels carry an offset folded against sums of x: Q8_0's
@@ -334,14 +573,67 @@ __host__ __device__ constexpr int qmv_parts() {
 template <int KIND>
 __host__ __device__ constexpr bool qmv_has_offset() { return KIND != KIND_Q8_0; }
 
-// A lane's 32 levels plus their bias (exact f32: Q4_K 16 + 0..15, Q5_K
-// 32 + 0..31, Q6_K 64 + 0..63; Q8_0 the signed q, no bias) and its parts'
-// scale sc and offset mn (the bias folded in; 0 for Q8_0).
+// A lane's 32 levels plus their bias (exact f32: Q4_K, Q4_0, Q4_1, Q2_K
+// and Q3_K 16 + q, Q5_K, Q5_0 and Q5_1 32 + q, Q6_K 64 + q; Q8_0 the signed
+// q, no bias) and its parts' scale sc and offset mn (the bias, the kind's
+// own offset and min folded in; 0 for Q8_0).
 template <int KIND>
 __device__ __forceinline__ void qmv_levels(const QmvRaw<KIND>& r, int i, float (&lv)[QMV_SLICE],
                                            float (&sc)[qmv_parts<KIND>()],
                                            float (&mn)[qmv_parts<KIND>()]) {
-    if constexpr (KIND == KIND_Q8_0) {
+    if constexpr (kind_legacy(KIND)) {
+        const LegacyFields f = legacy_fields<KIND>(r);
+        const float d = f16_bits(f.dm & 0xFFFF);
+        sc[0] = d;
+        // sum x (d q + m) = d sum (B + q) x - (B d - m) sum x; Q4_0, Q5_0 the
+        // code's own - 8, - 16 as well
+        mn[0] = legacy_has_min(KIND) ? fmaf(legacy_bias<KIND>(), d, -f16_bits(f.dm >> 16))
+                                     : (legacy_bias<KIND>() + legacy_offset<KIND>()) * d;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            uint32_t lo, hi;
+            legacy_bytes<KIND>(f, k, lo, hi);
+            if constexpr (legacy_5bit(KIND)) {
+                lv[4 * k + 0] = level_plus<32, 0>(lo);
+                lv[4 * k + 1] = level_plus<32, 1>(lo);
+                lv[4 * k + 2] = level_plus<32, 2>(lo);
+                lv[4 * k + 3] = level_plus<32, 3>(lo);
+                lv[16 + 4 * k + 0] = level_plus<32, 0>(hi);
+                lv[16 + 4 * k + 1] = level_plus<32, 1>(hi);
+                lv[16 + 4 * k + 2] = level_plus<32, 2>(hi);
+                lv[16 + 4 * k + 3] = level_plus<32, 3>(hi);
+            } else {
+                lv[4 * k + 0] = level_plus<16, 0>(lo);
+                lv[4 * k + 1] = level_plus<16, 1>(lo);
+                lv[4 * k + 2] = level_plus<16, 2>(lo);
+                lv[4 * k + 3] = level_plus<16, 3>(lo);
+                lv[16 + 4 * k + 0] = level_plus<16, 0>(hi);
+                lv[16 + 4 * k + 1] = level_plus<16, 1>(hi);
+                lv[16 + 4 * k + 2] = level_plus<16, 2>(hi);
+                lv[16 + 4 * k + 3] = level_plus<16, 3>(hi);
+            }
+        }
+    } else if constexpr (kind_low_k(KIND)) {
+        float ml[4];
+        low_k_scales<KIND>(r, i, sc, ml);
+#pragma unroll
+        for (int qt = 0; qt < 4; ++qt)  // the levels' +16 (Q3_K: and the code's -4) folded in
+            mn[qt] = KIND == KIND_Q2_K ? fmaf(16.f, sc[qt], ml[qt]) : 20.f * sc[qt];
+        uint32_t q[2], h[2];
+        low_k_fields<KIND>(r, q, h);
+        const int c = i >> 2;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+#pragma unroll
+            for (int qt = 0; qt < 4; ++qt) {
+                const uint32_t m = low_k_bytes<KIND>(q[e], h[e], c, qt);
+                lv[qt * 8 + 4 * e + 0] = level_plus<16, 0>(m);
+                lv[qt * 8 + 4 * e + 1] = level_plus<16, 1>(m);
+                lv[qt * 8 + 4 * e + 2] = level_plus<16, 2>(m);
+                lv[qt * 8 + 4 * e + 3] = level_plus<16, 3>(m);
+            }
+        }
+    } else if constexpr (KIND == KIND_Q8_0) {
         sc[0] = f16_bits(q80_d(r));
         mn[0] = 0.f;
 #pragma unroll
@@ -446,7 +738,7 @@ __device__ __forceinline__ int q4k_x_offset(int i, int part) {  // part 0: k<16,
 // The 32 activation values matching a lane's slice, for one row of x.
 template <int KIND, typename TX>
 __device__ __forceinline__ void x_slice(const TX* xsb, int i, float* xv) {
-    if constexpr (KIND == KIND_Q8_0) {
+    if constexpr (KIND == KIND_Q8_0 || kind_legacy(KIND)) {
 #pragma unroll
         for (int k = 0; k < 4; ++k) load8(xsb + 32 * i + 8 * k, xv + 8 * k);
     } else if constexpr (KIND == KIND_Q4_K || KIND == KIND_Q5_K) {
@@ -582,6 +874,59 @@ __device__ void qmv_walk(const uint8_t* __restrict__ wq, int n, int row_bytes,
         for (int r = 0; r < R; ++r) cur[r] = nxt[r];
         g = gn;
         st = sn;
+    }
+}
+
+// One weight of a QK_K run of any kind but Q4_K and Q6_K, formed as the
+// plain dequant (quant/wire.py) forms it, each product and sum rounded once:
+// element c (0..255) of the run at `sb`, read byte by byte (the run may lie
+// at any even address). qgemm_id.cu's generic dequant reads its raw ring
+// through this.
+__device__ __forceinline__ uint32_t u16_at(const uint8_t* p) { return p[0] | (p[1] << 8); }
+
+template <int KIND>
+__device__ __forceinline__ float wire_weight(const uint8_t* sb, int c) {
+    if constexpr (KIND == KIND_Q8_0) {
+        const uint8_t* b = sb + 34 * (c >> 5);
+        return __fmul_rn((float)(int8_t)b[2 + (c & 31)], f16_bits(u16_at(b)));
+    } else if constexpr (kind_legacy(KIND)) {
+        constexpr int QH = KIND == KIND_Q5_0 ? 2 : 4, QS = KIND == KIND_Q4_0 ? 2
+                         : KIND == KIND_Q4_1 ? 4 : KIND == KIND_Q5_0 ? 6 : 8;
+        const uint8_t* b = sb + legacy_block_bytes(KIND) * (c >> 5);
+        const int j = c & 31;
+        int q = (b[QS + (j & 15)] >> (4 * (j >> 4))) & 0xF;
+        if constexpr (legacy_5bit(KIND)) q |= ((b[QH + (j >> 3)] >> (j & 7)) & 1) << 4;
+        const float d = f16_bits(u16_at(b));
+        if constexpr (legacy_has_min(KIND))
+            return __fadd_rn(__fmul_rn((float)q, d), f16_bits(u16_at(b + 2)));
+        else
+            return __fmul_rn((float)(q - (int)legacy_offset<KIND>()), d);
+    } else if constexpr (kind_low_k(KIND)) {
+        const int l = c & 31, g = c >> 4;
+        const int qs = (KIND == KIND_Q2_K ? 16 : 32) + 32 * (c >> 7) + l;
+        const int q2 = (sb[qs] >> (2 * ((c >> 5) & 3))) & 3;
+        if constexpr (KIND == KIND_Q2_K) {
+            const int s = sb[g];
+            const float dl = __fmul_rn(f16_bits(u16_at(sb + 80)), (float)(s & 0xF));
+            const float ml = __fmul_rn(f16_bits(u16_at(sb + 82)), (float)(s >> 4));
+            return __fsub_rn(__fmul_rn(dl, (float)q2), ml);
+        } else {
+            const int lo = (sb[96 + (g & 7)] >> (4 * (g >> 3))) & 0xF;
+            const int hi = (sb[104 + (g & 3)] >> (2 * (g >> 2))) & 3;
+            const float dl = __fmul_rn(f16_bits(u16_at(sb + 108)), (float)((lo | (hi << 4)) - 32));
+            const int hbit = (sb[l] >> (c >> 5)) & 1;
+            return __fmul_rn(dl, (float)(q2 - (hbit ? 0 : 4)));
+        }
+    } else {
+        static_assert(KIND == KIND_Q5_K, "Q4_K and Q6_K have tuned dequants of their own");
+        const int j = c >> 5, r = j & 3;  // the 32-weight sub-block and its scale bytes
+        const int sc = j < 4 ? sb[4 + j] & 63 : (sb[12 + r] & 0xF) | ((sb[4 + r] >> 6) << 4);
+        const int mn = j < 4 ? sb[8 + j] & 63 : (sb[12 + r] >> 4) | ((sb[8 + r] >> 6) << 4);
+        const int q = ((sb[48 + 32 * (c >> 6) + (c & 31)] >> (4 * ((c >> 5) & 1))) & 0xF) |
+                      (((sb[16 + (c & 31)] >> j) & 1) << 4);
+        const float dl = __fmul_rn(f16_bits(u16_at(sb)), (float)sc);
+        const float ml = __fmul_rn(f16_bits(u16_at(sb + 2)), (float)mn);
+        return __fsub_rn(__fmul_rn(dl, (float)q), ml);
     }
 }
 

@@ -1,5 +1,5 @@
-// qgemm — fused dequant x GEMM over GGUF wire-format Q4_K / Q6_K / Q8_0 /
-// Q5_K weights.
+// qgemm — fused dequant x GEMM over GGUF wire-format weights: Q4_K, Q6_K,
+// Q8_0, Q5_K, Q4_0, Q4_1, Q5_0, Q5_1, Q2_K and Q3_K.
 //
 // Replaces (llamacog_tpu/ops/pallas/qmm.py): _qmm_call at B > 8 (the plain
 // and the row-tiled tb > 0 branches, _qmm_kernel -> _tile_matvec with bf16
@@ -58,11 +58,13 @@ struct QgParams {
     int K;
 };
 
-// ALL_KINDS: a launch with a Q8_0 or Q5_K weight. The launches of Q4_K and
-// Q6_K weights alone (every one of a Q4_K_M llama) take the kernel that
-// holds those two tile loops only: the two more cost them 2-3% (more code
-// for the instruction cache; PERF.md §6).
-template <int BM, bool ALL_KINDS>
+// KSET: the smallest kind set (common.cuh) that holds the launch's weights.
+// The launches of Q4_K and Q6_K weights alone (every one of a Q4_K_M llama)
+// take the kernel that holds those two tile loops only: two more cost them
+// 2-3% (more code for the instruction cache; PERF.md §6). A Q4_K_M file's
+// Q8_0 and Q5_K weights take the four-kind kernel, every other kind the
+// kernel of all ten.
+template <int BM, int KSET>
 __global__ void __launch_bounds__(QG_THREADS, 2)
 qgemm_kernel(const QgParams p, const __nv_bfloat16* __restrict__ x) {
     int t = 0;
@@ -70,9 +72,8 @@ qgemm_kernel(const QgParams p, const __nv_bfloat16* __restrict__ x) {
     for (int i = 1; i < QG_MAX_DESC; ++i)
         if (i < p.n_desc && (int)blockIdx.y >= p.d[i].block0) t = i;
     const QgDesc& D = p.d[t];
-    qgemm_tile_kind<BM, ALL_KINDS>(D.w, D.kind, D.n, D.row_bytes, x, p.B, p.K,
-                                   (int)blockIdx.x * BM, ((int)blockIdx.y - D.block0) * QG_BN,
-                                   D.out);
+    qgemm_tile_kind<BM, KSET>(D.w, D.kind, D.n, D.row_bytes, x, p.B, p.K,
+                              (int)blockIdx.x * BM, ((int)blockIdx.y - D.block0) * QG_BN, D.out);
 }
 
 static int sm_count() {
@@ -82,27 +83,30 @@ static int sm_count() {
     return sms;
 }
 
-template <int BM, bool ALL_KINDS>
+template <int BM, int KSET>
 static int launch(const QgParams& p, const void* x, int n_blocks, cudaStream_t stream) {
     static bool attr_set = false;  // once per instantiation, not per launch
     if (!attr_set) {
         const cudaError_t err =
-            cudaFuncSetAttribute(qgemm_kernel<BM, ALL_KINDS>,
+            cudaFuncSetAttribute(qgemm_kernel<BM, KSET>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)qg_smem_bytes(BM));
         if (err != cudaSuccess) return static_cast<int>(err);
         attr_set = true;
     }
     const dim3 grid((p.B + BM - 1) / BM, n_blocks);
-    qgemm_kernel<BM, ALL_KINDS><<<grid, QG_THREADS, qg_smem_bytes(BM), stream>>>(
+    qgemm_kernel<BM, KSET><<<grid, QG_THREADS, qg_smem_bytes(BM), stream>>>(
         p, static_cast<const __nv_bfloat16*>(x));
     return static_cast<int>(cudaGetLastError());
 }
 
 template <int BM>
 static int launch_kinds(const QgParams& p, const void* x, int n_blocks, cudaStream_t stream) {
-    bool all = false;
-    for (int t = 0; t < p.n_desc; ++t) all |= p.d[t].kind != KIND_Q4_K && p.d[t].kind != KIND_Q6_K;
-    return all ? launch<BM, true>(p, x, n_blocks, stream) : launch<BM, false>(p, x, n_blocks, stream);
+    int set = KS_Q4K_Q6K;
+    for (int t = 0; t < p.n_desc; ++t)
+        while (!kind_in_set(p.d[t].kind, set)) ++set;
+    return set == KS_Q4K_Q6K ? launch<BM, KS_Q4K_Q6K>(p, x, n_blocks, stream)
+         : set == KS_Q4KM    ? launch<BM, KS_Q4KM>(p, x, n_blocks, stream)
+                             : launch<BM, KS_ALL>(p, x, n_blocks, stream);
 }
 
 // x [B, K] bf16, contiguous; weight t: w[t] [n[t], K/256 blocks], kind[t];

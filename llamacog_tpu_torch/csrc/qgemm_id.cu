@@ -5,8 +5,8 @@
 // _ragged_kernel): out[S_pad, N] f32 = xs @ bf16(dequant(W[e]))^T tile by
 // tile, where token tile i (rows i*tt .. i*tt+tt-1 of xs) belongs to expert
 // e = tile_expert[i] of the stack W (wire blocks [n_exp * N, row_bytes],
-// Q4_K or Q6_K). bf16 operands, f32 accumulation. Tiles whose expert lies
-// outside [0, n_exp) are padding: their rows come out zero.
+// any kind of qgemm.cu). bf16 operands, f32 accumulation. Tiles whose
+// expert lies outside [0, n_exp) are padding: their rows come out zero.
 //
 // Bound on this card: at the 128-token Mixtral prefill (256 (token, slot)
 // rows) the used experts' weight bytes over 3.35 TB/s exceed the real rows'
@@ -41,13 +41,20 @@
 // The pass width is the register budget's: ptxas builds the 384-thread
 // block at 168 registers a thread (setmaxnreg gives the consumers 232 at run
 // time, not at build time), and every wider pass tried spilled. The
-// consumers' dequant issue (~6 instructions a weight, two consumer warps an
-// SM sub-partition) bounds the kernel, not the bytes; where routing puts
-// most rows on a few experts, each 64-row pass dequantizes its strip again
-// (PERF.md).
+// kernel reads 25-30% of its bound, not bound by the bytes; nor by the
+// consumers' dequant issue (~6 instructions a weight here): the generic
+// dequant below, several times the instructions a weight, runs at about the
+// tuned kinds' speed (PERF.md). Where routing puts most rows on a few
+// experts, each 64-row pass dequantizes its strip again.
 // Each weight is formed as the plain dequant forms it, bit for bit, and
 // rounded to bf16 (the arithmetic of qgemm_tile.cuh's QgStage); only the
 // f32 summation order differs from qmm_ragged_plain.
+// Q4_K and Q6_K (a Q4_K_M file's experts) have the tuned dequants below.
+// Every other kind takes one generic dequant, compiled per kind: each of
+// the thread's A-fragment weights is formed on its own from the raw ring by
+// common.cuh::wire_weight (byte reads, each scale formed again), the plain
+// dequant's arithmetic, so the kind's layout needs no code here beyond its
+// ring rows.
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -69,13 +76,15 @@ constexpr int QID_CONSUMER_BAR = 1, QID_ACT_BAR = 3;  // named barriers
 template <int KIND>
 struct QidCfg {
     // QID_SB_GROUP consecutive superblocks of a weight row in a raw ring row:
-    // Q4_K aligned (rows of 144 * K/256 bytes from a 16-byte aligned base);
-    // Q6_K the 16-byte chunks covering them from any even offset (at most
-    // 14). Row strides padded so that the halfword reads of a warp's eight
-    // rows fall on distinct banks.
+    // aligned where a superblock's bytes are a multiple of 16 (Q4_K, Q5_K,
+    // Q8_0 and the legacy kinds: rows of that many bytes from a 16-byte
+    // aligned base); else (Q6_K, Q3_K: even offsets; Q2_K: multiples of 4)
+    // the 16-byte chunks covering them from an offset of at most 14. Row
+    // strides padded so that the halfword reads of a warp's eight rows fall
+    // on distinct banks.
     static constexpr int GROUP_BYTES = QID_SB_GROUP * kind_sb_bytes(KIND);
     static constexpr int CHUNKS =
-        KIND == KIND_Q4_K ? GROUP_BYTES / 16 : (14 + GROUP_BYTES + 15) / 16;
+        kind_sb_bytes(KIND) % 16 == 0 ? GROUP_BYTES / 16 : (14 + GROUP_BYTES + 15) / 16;
     static constexpr int ROW = (CHUNKS * 16 / 128 * 128) + (CHUNKS * 16 % 128 <= 48 ? 48 : 112);
     static constexpr int RAW_SLOT = QID_BN * ROW;
     // ring depths within the 227 KB of shared memory
@@ -123,7 +132,24 @@ __device__ __forceinline__ uint32_t lds_word(const uint8_t* p) {
 // the high nibble of 32J + c - 32; the thread's columns are the two bytes
 // at 2t + 8m (m = 0..3). Weight (d*sc)*q - dmin*m, bf16.
 template <int KIND>
-struct QidDequant;
+struct QidDequant {  // the generic dequant: every kind but Q4_K and Q6_K
+    __device__ __forceinline__ void superblock(const uint8_t* const (&)[2]) {}
+
+    template <int J>
+    __device__ __forceinline__ void stage(const uint8_t* const (&rw)[2], int t,
+                                          uint32_t (&a)[4][4]) const {
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+#pragma unroll
+            for (int v = 0; v < 2; ++v)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int c = 64 * J + 16 * s + 2 * t + 8 * v;
+                    a[s][2 * v + h] =
+                        pack_bf16x2(wire_weight<KIND>(rw[h], c), wire_weight<KIND>(rw[h], c + 1));
+                }
+    }
+};
 
 template <>
 struct QidDequant<KIND_Q4_K> {
@@ -524,20 +550,28 @@ static int launch_qid(const QidArgs& a, cudaStream_t stream) {
 }
 
 // xs [S_pad, K] bf16, contiguous, 16-byte aligned, S_pad = tt * (tiles, at
-// most QID_MAX_TILES); w [n_exp * N, K/256 superblocks] of `kind` (Q4_K or
-// Q6_K), 16-byte aligned; tile_expert [S_pad / tt] int32 on the device; out
-// [S_pad, N] f32. tt a multiple of 16.
+// most QID_MAX_TILES); w [n_exp * N, K/256 superblocks] of `kind` (any of
+// common.cuh's), 16-byte aligned; tile_expert [S_pad / tt] int32 on the
+// device; out [S_pad, N] f32. tt a multiple of 16.
 LCG_EXPORT int lcg_qgemm_id(const void* x, int x_dtype, int S_pad, int K, const void* w,
                             int kind, int n_exp, int N, const void* tile_expert, int tt,
                             void* out, void* stream) {
     if (x_dtype != DT_BF16 || tt < 16 || tt % 16 || S_pad < tt || S_pad % tt ||
         S_pad / tt > QID_MAX_TILES || K < QK_K || K % QK_K || n_exp < 1 ||
         n_exp > QID_MAX_EXPERTS || N < 1 || (N + QID_BN - 1) / QID_BN > (1 << 20) ||
-        (kind != KIND_Q4_K && kind != KIND_Q6_K))
+        kind_sb_bytes(kind) == 0)
         return static_cast<int>(cudaErrorInvalidValue);
     const QidArgs a = {static_cast<const uint8_t*>(w), static_cast<const __nv_bfloat16*>(x),
                        static_cast<const int*>(tile_expert), static_cast<float*>(out),
                        n_exp, S_pad / tt, tt, N, K, (K / QK_K) * kind_sb_bytes(kind)};
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return kind == KIND_Q4_K ? launch_qid<KIND_Q4_K>(a, s) : launch_qid<KIND_Q6_K>(a, s);
+    switch (kind) {
+#define QID_CASE(KIND) \
+    case KIND: return launch_qid<KIND>(a, s);
+        QID_CASE(KIND_Q4_K) QID_CASE(KIND_Q6_K) QID_CASE(KIND_Q8_0) QID_CASE(KIND_Q5_K)
+        QID_CASE(KIND_Q4_0) QID_CASE(KIND_Q4_1) QID_CASE(KIND_Q5_0) QID_CASE(KIND_Q5_1)
+        QID_CASE(KIND_Q2_K)
+#undef QID_CASE
+        default: return launch_qid<KIND_Q3_K>(a, s);
+    }
 }

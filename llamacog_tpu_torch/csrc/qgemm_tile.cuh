@@ -1,5 +1,6 @@
-// The pipelined tile of the fused dequant x GEMM over GGUF wire-format Q4_K /
-// Q6_K / Q8_0 / Q5_K weights of qgemm.cu (dense weights, K2/K3).
+// The pipelined tile of the fused dequant x GEMM over GGUF wire-format
+// weights of qgemm.cu (dense weights, K2/K3): Q4_K, Q6_K, Q8_0, Q5_K, the
+// legacy Q4_0, Q4_1, Q5_0, Q5_1 and the low-bit Q2_K, Q3_K.
 //
 // A block of QG_THREADS threads (8 warps) owns a BM x QG_BN output tile
 // (BM = 128, or 64 where qgemm.cu's grid would leave SMs idle) and
@@ -17,18 +18,20 @@
 //     pieces interleaved with the four k16 steps of stage s.
 // Shared memory is 90 KB at BM = 128 (63 KB at 64), so two blocks share an
 // SM and one's barrier waits hide under the other's work. A stage is the
-// 64 weights of one Q4_K or Q5_K group or of two Q8_0 blocks (contiguous
-// k), or for Q6_K positions
-// 16h..16h+15 of the four 32-weight quarters of one 128-weight chunk: the
-// activation tile takes those same k columns, so the product is unchanged
-// and each stage reads each wire byte once. Products are mma.sync m16n8k16
+// 64 weights of one Q4_K or Q5_K group or of two 32-weight blocks of Q8_0
+// and the legacy kinds (contiguous k), or for Q6_K, Q2_K and Q3_K
+// positions 16h..16h+15 of the four 32-weight quarters of one 128-weight
+// chunk (qg_quartered): the activation tile takes those same k columns, so
+// the product is unchanged and each stage reads each wire byte once. Products are mma.sync m16n8k16
 // bf16 x bf16 -> f32 with both operands read by ldmatrix from rows padded
 // to 72 elements (conflict-free). Warps are 2 x 4, each a (BM/2) x 32 piece
 // of the tile.
 //
 // Each weight is formed exactly as the plain torch dequant forms it —
-// (d*sc)*q - dmin*m for Q4_K and Q5_K, (d*sc)*(q-32) for Q6_K, q*d for Q8_0,
-// each product and sum rounded once — and then rounded to bf16; the level
+// (d*sc)*q - dmin*m for Q4_K, Q5_K and Q2_K, (d*sc)*(q-32) for Q6_K, q*d for
+// Q8_0, (q-8)*d and (q-16)*d for Q4_0 and Q5_0, q*d + m for Q4_1 and Q5_1,
+// d*(sc-32)*(q-4 or q) for Q3_K, each product and sum rounded once — and
+// then rounded to bf16; the level
 // plus a bias (Q8_0: the signed level, common.cuh::s8_level) becomes an
 // exact f32 by one byte permute (common.cuh::level_plus), with no
 // int->float conversion, and one fused multiply-add takes the bias off
@@ -208,6 +211,98 @@ struct QgStage<KIND_Q8_0> {
     }
 };
 
+// The legacy kinds: slot i = 2q + g is block i of the superblock, the
+// stage's columns 32g..32g+31, as Q8_0's.
+template <int KIND>
+struct QgLegacyStage {
+    LegacyFields f;
+    float d, m, nb;  // nb = -(B + offset) d: fma(d, B + q, nb) = d (q - offset), exact
+    int g;
+
+    __device__ __forceinline__ QgLegacyStage(const LegacyRaw<KIND>& r, int i)
+        : f(legacy_fields<KIND>(r)), g(i & 1) {
+        d = f16_bits(f.dm & 0xFFFF);
+        m = legacy_has_min(KIND) ? f16_bits(f.dm >> 16) : 0.f;
+        nb = -(legacy_bias<KIND>() + legacy_offset<KIND>()) * d;
+    }
+
+    // (q - 8) * d, (q - 16) * d or q * d + m, rounded as the plain dequant:
+    // the product is exact (at most 16 significant bits), then one rounded add
+    __device__ __forceinline__ float w(float lv) const {
+        const float p = __fmaf_rn(d, lv, nb);
+        return legacy_has_min(KIND) ? __fadd_rn(p, m) : p;
+    }
+
+    // piece p -> columns 32g + 8p..: elements 8p..8p+7 of the block, the low
+    // nibbles of qs words 2p, 2p + 1 (p < 2) or the high nibbles of words
+    // 2p - 4, 2p - 3
+    __device__ __forceinline__ void piece(int p, __nv_bfloat16* row) const {
+        constexpr int B = legacy_5bit(KIND) ? 32 : 16;
+        uint32_t v[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            uint32_t lo, hi;
+            legacy_bytes<KIND>(f, 2 * (p & 1) + e, lo, hi);
+            const uint32_t b = p < 2 ? lo : hi;
+            v[2 * e] = pack_bf16x2(w(level_plus<B, 0>(b)), w(level_plus<B, 1>(b)));
+            v[2 * e + 1] = pack_bf16x2(w(level_plus<B, 2>(b)), w(level_plus<B, 3>(b)));
+        }
+        *reinterpret_cast<uint4*>(row + 32 * g + 8 * p) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+};
+
+// Q2_K and Q3_K: Q6_K's stage (slot i = 2q + g: chunk q / 2, positions
+// 16(q % 2) + 8g..+7 of each quarter), a quarter a piece.
+template <int KIND>
+struct QgLowKStage {
+    uint32_t q[2], h[2];  // code and hmask bytes of the slot's 8 positions
+    float dl[4], ml[4];   // each quarter's d * sc (Q3_K: d * (sc - 32)) and dmin * m
+    float nn[4];          // -16 dl (Q3_K: -20 dl, the code's - 4 too): exact, as Q4_K's
+    int c, g;
+
+    __device__ __forceinline__ QgLowKStage(const QmvRaw<KIND>& r, int i) : c(i >> 2), g(i & 1) {
+        low_k_fields<KIND>(r, q, h);
+        low_k_scales<KIND>(r, i, dl, ml);
+#pragma unroll
+        for (int qt = 0; qt < 4; ++qt) nn[qt] = (KIND == KIND_Q2_K ? -16.f : -20.f) * dl[qt];
+    }
+
+    __device__ __forceinline__ float w(int p, float lv) const {
+        const float x = __fmaf_rn(dl[p], lv, nn[p]);
+        return KIND == KIND_Q2_K ? __fsub_rn(x, ml[p]) : x;
+    }
+
+    // quarter p, positions 8g..8g+7 of the stage's 16 -> columns 16p + 8g..
+    __device__ __forceinline__ void piece(int p, __nv_bfloat16* row) const {
+        uint32_t v[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const uint32_t b = low_k_bytes<KIND>(q[e], h[e], c, p);
+            v[2 * e] = pack_bf16x2(w(p, level_plus<16, 0>(b)), w(p, level_plus<16, 1>(b)));
+            v[2 * e + 1] = pack_bf16x2(w(p, level_plus<16, 2>(b)), w(p, level_plus<16, 3>(b)));
+        }
+        *reinterpret_cast<uint4*>(row + 16 * p + 8 * g) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+};
+
+#define QG_STAGE_OF(KIND, BASE)                                                 \
+    template <>                                                                 \
+    struct QgStage<KIND> : BASE<KIND> {                                         \
+        __device__ __forceinline__ QgStage(const QmvRaw<KIND>& r, int i) : BASE<KIND>(r, i) {} \
+    };
+QG_STAGE_OF(KIND_Q4_0, QgLegacyStage)
+QG_STAGE_OF(KIND_Q4_1, QgLegacyStage)
+QG_STAGE_OF(KIND_Q5_0, QgLegacyStage)
+QG_STAGE_OF(KIND_Q5_1, QgLegacyStage)
+QG_STAGE_OF(KIND_Q2_K, QgLowKStage)
+QG_STAGE_OF(KIND_Q3_K, QgLowKStage)
+#undef QG_STAGE_OF
+
+// Whether a stage holds 16 positions of each quarter of a 128-weight chunk
+// (Q6_K, Q2_K, Q3_K) rather than 64 contiguous weights.
+template <int KIND>
+__host__ __device__ constexpr bool qg_quartered() { return KIND == KIND_Q6_K || kind_low_k(KIND); }
+
 // out[m0.., n0..] (row stride n) = x[m0..m0+BM-1, :K] @ bf16(dequant(wq rows
 // n0..n0+127))^T for the [n, K] wire weight `wq` of KIND. Needs
 // qg_smem_bytes(BM) of dynamic shared memory.
@@ -230,16 +325,17 @@ __device__ __forceinline__ void qgemm_tile(const uint8_t* __restrict__ wq, int n
     const int r = tid >> 1, g = tid & 1;
     const uint8_t* wrow = wq + (size_t)min(n0 + r, n - 1) * row_bytes;
 
-    // activation columns of stage s: 64 in a row; Q6_K four runs of 16
+    // activation columns of stage s: 64 in a row, or four runs of 16 (qg_quartered)
     auto load_x = [&](int s) {
         __nv_bfloat16* dst = As + (s % QG_X_STAGES) * BM * QG_LDS;
         const int q = s & 3;
-        const int k0 = (s >> 2) * QK_K + (KIND != KIND_Q6_K ? 64 * q : 128 * (q >> 1) + 16 * (q & 1));
+        const int k0 = (s >> 2) * QK_K +
+                       (!qg_quartered<KIND>() ? 64 * q : 128 * (q >> 1) + 16 * (q & 1));
         for (int i = tid; i < BM * (QG_BK / 8); i += QG_THREADS) {
             const int rr = i >> 3, ch = i & 7;
             const int m = m0 + rr;
             const bool ok = m < B;
-            const int col = KIND != KIND_Q6_K ? 8 * ch : 32 * (ch >> 1) + 8 * (ch & 1);
+            const int col = !qg_quartered<KIND>() ? 8 * ch : 32 * (ch >> 1) + 8 * (ch & 1);
             cp_async16(dst + rr * QG_LDS + 8 * ch, x + (size_t)(ok ? m : 0) * K + k0 + col, ok);
         }
     };
@@ -326,17 +422,26 @@ __device__ __forceinline__ void qgemm_tile(const uint8_t* __restrict__ wq, int n
     }
 }
 
-// qgemm_tile for a weight kind known only at run time (uniform per block):
-// Q4_K or Q6_K, and with ALL_KINDS also Q8_0 or Q5_K.
-template <int BM, bool ALL_KINDS>
+// qgemm_tile for a weight kind known only at run time (uniform per block)
+// out of the set KSET (common.cuh: KS_Q4K_Q6K, KS_Q4KM, KS_ALL).
+template <int BM, int KSET>
 __device__ __forceinline__ void qgemm_tile_kind(const uint8_t* wq, int kind, int n, int row_bytes,
                                                 const __nv_bfloat16* x, int B, int K, int m0,
                                                 int n0, float* out) {
     if (kind == KIND_Q4_K) qgemm_tile<BM, KIND_Q4_K>(wq, n, row_bytes, x, B, K, m0, n0, out);
-    else if (!ALL_KINDS || kind == KIND_Q6_K)
+    else if (KSET == KS_Q4K_Q6K || kind == KIND_Q6_K)
         qgemm_tile<BM, KIND_Q6_K>(wq, n, row_bytes, x, B, K, m0, n0, out);
-    else if constexpr (ALL_KINDS) {
+    else if constexpr (KSET == KS_Q4KM) {
         if (kind == KIND_Q8_0) qgemm_tile<BM, KIND_Q8_0>(wq, n, row_bytes, x, B, K, m0, n0, out);
         else qgemm_tile<BM, KIND_Q5_K>(wq, n, row_bytes, x, B, K, m0, n0, out);
+    } else if constexpr (KSET == KS_ALL) {
+        switch (kind) {
+#define QG_CASE(KIND) \
+    case KIND: qgemm_tile<BM, KIND>(wq, n, row_bytes, x, B, K, m0, n0, out); break;
+            QG_CASE(KIND_Q8_0) QG_CASE(KIND_Q5_K) QG_CASE(KIND_Q4_0) QG_CASE(KIND_Q4_1)
+            QG_CASE(KIND_Q5_0) QG_CASE(KIND_Q5_1) QG_CASE(KIND_Q2_K)
+#undef QG_CASE
+            default: qgemm_tile<BM, KIND_Q3_K>(wq, n, row_bytes, x, B, K, m0, n0, out); break;
+        }
     }
 }

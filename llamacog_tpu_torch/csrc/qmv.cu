@@ -1,9 +1,10 @@
-// qmv — fused dequant x matvec over GGUF wire-format Q4_K / Q6_K / Q8_0 /
-// Q5_K weights.
+// qmv — fused dequant x matvec over GGUF wire-format weights: Q4_K, Q6_K,
+// Q8_0, Q5_K, Q4_0, Q4_1, Q5_0, Q5_1, Q2_K and Q3_K.
 //
 // Replaces (llamacog_tpu/ops/pallas/qmm.py):
-//   * _qmm_call at B <= 8 (_qmm_kernel -> _tile_matvec, decoders _dec_q4_K,
-//     _dec_q6_K): out[B, N] f32 = x[B, K] @ dequant(W)[N, K]^T;
+//   * _qmm_call at B <= 8 (_qmm_kernel -> _tile_matvec, the decoders of
+//     TILE_DECODERS but the IQ and TQ ones): out[B, N] f32 = x[B, K] @
+//     dequant(W)[N, K]^T;
 //   * _qmm_multi_call (_qmm_multi_kernel): several weights sharing one x in
 //     ONE launch. Here a launch takes up to QMV_MAX_DESC weight descriptors
 //     and its warps share all of their row groups — the counterpart of the
@@ -31,6 +32,10 @@
 // as one flat sequence of steps, loading the next step's blocks before this
 // one's arithmetic, across the ends of groups too.
 // Kernel and plain version differ in the order of the f32 sums only.
+// A launch whose weights are all of a Q4_K_M file's kinds (Q4_K, Q6_K,
+// Q8_0, Q5_K) takes the instantiation of those four alone; a launch with
+// any other kind takes the one of all ten, whose register count is its
+// widest kind's (KSET, common.cuh).
 // blockIdx.y walks x in chunks of QMV_MAX_B rows, so f32 activations of any
 // batch take this f32 path too (streaming the weights once per chunk).
 #include "common.cuh"
@@ -53,13 +58,11 @@ struct QmvParams {
     int K;
 };
 
-// Row groups of an n-row weight of `kind`.
+// Row groups of an n-row weight of `kind` (every kind but Q4_K has Q6_K's rows).
 template <int NB>
 __host__ __device__ inline int qmv_groups(int kind, int n) {
     const int R = kind == KIND_Q4_K ? qmv_rows_per_warp<NB, KIND_Q4_K>()
-                : kind == KIND_Q6_K ? qmv_rows_per_warp<NB, KIND_Q6_K>()
-                : kind == KIND_Q8_0 ? qmv_rows_per_warp<NB, KIND_Q8_0>()
-                                    : qmv_rows_per_warp<NB, KIND_Q5_K>();
+                                    : qmv_rows_per_warp<NB, KIND_Q6_K>();
     return (n + R - 1) / R;
 }
 
@@ -73,7 +76,7 @@ __device__ __forceinline__ void qmv_desc(const QmvDesc& D, const TX* x, int B, i
 // The grid is what the card holds at once. Each weight's row groups are
 // shared round-robin by the warps, starting where the weight before ended,
 // so the load evens out across weights; blockIdx.y takes NB activation rows.
-template <int NB, typename TX>
+template <int NB, typename TX, int KSET>
 __global__ void __launch_bounds__(QMV_WARPS * 32)
 qmv_kernel(const QmvParams p, const TX* __restrict__ x) {
     const int gw = (int)blockIdx.x * QMV_WARPS + (int)(threadIdx.x >> 5);
@@ -87,12 +90,22 @@ qmv_kernel(const QmvParams p, const TX* __restrict__ x) {
         const int groups = qmv_groups<NB>(D.kind, D.n);
         const int g = ((gw - first) % nw + nw) % nw;
         float* out = D.out + (size_t)b0 * D.n;
-        switch (D.kind) {
-            case KIND_Q4_K: qmv_desc<KIND_Q4_K, NB>(D, x, B, p.K, g, nw, groups, out); break;
-            case KIND_Q6_K: qmv_desc<KIND_Q6_K, NB>(D, x, B, p.K, g, nw, groups, out); break;
-            case KIND_Q8_0: qmv_desc<KIND_Q8_0, NB>(D, x, B, p.K, g, nw, groups, out); break;
-            default: qmv_desc<KIND_Q5_K, NB>(D, x, B, p.K, g, nw, groups, out); break;
+#define QMV_CASE(KIND) \
+    case KIND: qmv_desc<KIND, NB>(D, x, B, p.K, g, nw, groups, out); break;
+        if constexpr (KSET == KS_Q4KM) {
+            switch (D.kind) {
+                QMV_CASE(KIND_Q4_K) QMV_CASE(KIND_Q6_K) QMV_CASE(KIND_Q8_0)
+                default: qmv_desc<KIND_Q5_K, NB>(D, x, B, p.K, g, nw, groups, out); break;
+            }
+        } else {
+            switch (D.kind) {
+                QMV_CASE(KIND_Q4_K) QMV_CASE(KIND_Q6_K) QMV_CASE(KIND_Q8_0) QMV_CASE(KIND_Q5_K)
+                QMV_CASE(KIND_Q4_0) QMV_CASE(KIND_Q4_1) QMV_CASE(KIND_Q5_0) QMV_CASE(KIND_Q5_1)
+                QMV_CASE(KIND_Q2_K)
+                default: qmv_desc<KIND_Q3_K, NB>(D, x, B, p.K, g, nw, groups, out); break;
+            }
         }
+#undef QMV_CASE
         first += groups;
     }
 }
@@ -107,22 +120,30 @@ static int resident_blocks(KERNEL kernel) {
     return sms * per_sm > 0 ? sms * per_sm : 1;
 }
 
-template <int NB, typename TX>
+template <int NB, typename TX, int KSET>
 static int launch(const QmvParams& p, const TX* x, const int* n, cudaStream_t stream) {
-    static const int resident = resident_blocks(qmv_kernel<NB, TX>);
+    static const int resident = resident_blocks(qmv_kernel<NB, TX, KSET>);
     int groups = 0;
     for (int t = 0; t < p.n_desc; ++t) groups += qmv_groups<NB>(p.d[t].kind, n[t]);
     const int blocks = (groups + QMV_WARPS - 1) / QMV_WARPS;  // enough for every group at once
     const dim3 grid(min(blocks, resident), (p.B + NB - 1) / NB);
-    qmv_kernel<NB, TX><<<grid, QMV_WARPS * 32, 0, stream>>>(p, x);
+    qmv_kernel<NB, TX, KSET><<<grid, QMV_WARPS * 32, 0, stream>>>(p, x);
     return static_cast<int>(cudaGetLastError());
+}
+
+template <int NB, typename TX>
+static int launch_kinds(const QmvParams& p, const TX* x, const int* n, cudaStream_t stream) {
+    bool all = false;
+    for (int t = 0; t < p.n_desc; ++t) all |= !kind_in_set(p.d[t].kind, KS_Q4KM);
+    return all ? launch<NB, TX, KS_ALL>(p, x, n, stream) : launch<NB, TX, KS_Q4KM>(p, x, n, stream);
 }
 
 template <int NB>
 static int launch_x(const QmvParams& p, const void* x, int x_dtype, const int* n,
                     cudaStream_t stream) {
-    if (x_dtype == DT_BF16) return launch<NB>(p, static_cast<const __nv_bfloat16*>(x), n, stream);
-    return launch<NB>(p, static_cast<const float*>(x), n, stream);
+    if (x_dtype == DT_BF16)
+        return launch_kinds<NB>(p, static_cast<const __nv_bfloat16*>(x), n, stream);
+    return launch_kinds<NB>(p, static_cast<const float*>(x), n, stream);
 }
 
 // x [B, K] (f32 or bf16, contiguous); weight t: w[t] [n[t], K/256 blocks],

@@ -12,6 +12,10 @@
 // Bound on this card: bytes. Each row does 2 flops per weight of one expert
 // against 0.56 (Q4_K) or 0.82 (Q6_K) bytes per weight, so the least time is
 // the selected experts' bytes (each distinct expert once) over 3.35 TB/s.
+// Every weight kind of qmv.cu: a Q4_K or Q6_K stack (a Q4_K_M file's
+// experts) takes the instantiation of those two alone, every other kind
+// the one of the other eight, so the new kinds leave Q4_K's registers as
+// they were.
 // Design: qmv.cu's row walk (common.cuh::qmv_walk: raw levels dotted with x
 // per sub-block part, the scale applied once and the offset folded against
 // the part's sum of x, f32 throughout), 2 rows a warp and one group a warp,
@@ -29,7 +33,7 @@
 
 constexpr int QMV_ID_ROWS = 2;  // rows a warp
 
-template <typename TX>
+template <typename TX, bool Q4K_Q6K>
 __global__ void __launch_bounds__(QMV_WARPS * 32)
 qmv_id_kernel(const uint8_t* __restrict__ w, const TX* __restrict__ x,
               const int* __restrict__ ids, float* __restrict__ out, int kind, int n_exp,
@@ -43,10 +47,23 @@ qmv_id_kernel(const uint8_t* __restrict__ w, const TX* __restrict__ x,
     if (e >= 0 && e < n_exp) {
         const uint8_t* we = w + (size_t)e * N * row_bytes;
         const TX* xs = x + (size_t)s * K;
-        if (kind == KIND_Q4_K)
-            qmv_walk<KIND_Q4_K, 1, R, TX>(we, N, row_bytes, xs, 1, K, g, groups, groups, o);
-        else
-            qmv_walk<KIND_Q6_K, 1, R, TX>(we, N, row_bytes, xs, 1, K, g, groups, groups, o);
+        if constexpr (Q4K_Q6K) {
+            if (kind == KIND_Q4_K)
+                qmv_walk<KIND_Q4_K, 1, R, TX>(we, N, row_bytes, xs, 1, K, g, groups, groups, o);
+            else
+                qmv_walk<KIND_Q6_K, 1, R, TX>(we, N, row_bytes, xs, 1, K, g, groups, groups, o);
+        } else {
+            switch (kind) {
+#define QID_CASE(KIND) \
+    case KIND: qmv_walk<KIND, 1, R, TX>(we, N, row_bytes, xs, 1, K, g, groups, groups, o); break;
+                QID_CASE(KIND_Q8_0) QID_CASE(KIND_Q5_K) QID_CASE(KIND_Q4_0) QID_CASE(KIND_Q4_1)
+                QID_CASE(KIND_Q5_0) QID_CASE(KIND_Q5_1) QID_CASE(KIND_Q2_K)
+#undef QID_CASE
+                default:
+                    qmv_walk<KIND_Q3_K, 1, R, TX>(we, N, row_bytes, xs, 1, K, g, groups, groups, o);
+                    break;
+            }
+        }
     } else if ((threadIdx.x & 31) == 0) {
 #pragma unroll
         for (int r = 0; r < R; ++r)
@@ -54,14 +71,26 @@ qmv_id_kernel(const uint8_t* __restrict__ w, const TX* __restrict__ x,
     }
 }
 
-// x [S, K] (f32 or bf16, contiguous); w [n_exp * N, K/256 blocks] of `kind`;
+template <typename TX>
+static void launch_id(dim3 grid, cudaStream_t s, const uint8_t* w, const void* x, const int* ids,
+                      float* out, int kind, int n_exp, int N, int K, int row_bytes) {
+    const TX* xt = static_cast<const TX*>(x);
+    if (kind_in_set(kind, KS_Q4K_Q6K))
+        qmv_id_kernel<TX, true><<<grid, QMV_WARPS * 32, 0, s>>>(w, xt, ids, out, kind, n_exp, N,
+                                                                K, row_bytes);
+    else
+        qmv_id_kernel<TX, false><<<grid, QMV_WARPS * 32, 0, s>>>(w, xt, ids, out, kind, n_exp, N,
+                                                                 K, row_bytes);
+}
+
+// x [S, K] (f32 or bf16, contiguous); w [n_exp * N, K/256 blocks] of `kind` (any);
 // ids [S] int32 on the device; out [S, N] f32.
 LCG_EXPORT int lcg_qmv_id(const void* x, int x_dtype, int S, int K, const void* w, int kind,
                           int n_exp, int N, const void* ids, void* out, void* stream) {
     constexpr int rows = QMV_WARPS * QMV_ID_ROWS;  // output rows a block
     const int row_blocks = (N + rows - 1) / rows;
     if (S < 1 || K < QK_K || K % QK_K || n_exp < 1 || N < 1 || row_blocks > 65535 ||
-        (kind != KIND_Q4_K && kind != KIND_Q6_K) || (x_dtype != DT_F32 && x_dtype != DT_BF16))
+        kind_sb_bytes(kind) == 0 || (x_dtype != DT_F32 && x_dtype != DT_BF16))
         return static_cast<int>(cudaErrorInvalidValue);
     const int row_bytes = (K / QK_K) * kind_sb_bytes(kind);
     const dim3 grid(S, row_blocks);
@@ -70,10 +99,8 @@ LCG_EXPORT int lcg_qmv_id(const void* x, int x_dtype, int S, int K, const void* 
     const int* id = static_cast<const int*>(ids);
     float* o = static_cast<float*>(out);
     if (x_dtype == DT_BF16)
-        qmv_id_kernel<__nv_bfloat16><<<grid, QMV_WARPS * 32, 0, s>>>(
-            wq, static_cast<const __nv_bfloat16*>(x), id, o, kind, n_exp, N, K, row_bytes);
+        launch_id<__nv_bfloat16>(grid, s, wq, x, id, o, kind, n_exp, N, K, row_bytes);
     else
-        qmv_id_kernel<float><<<grid, QMV_WARPS * 32, 0, s>>>(
-            wq, static_cast<const float*>(x), id, o, kind, n_exp, N, K, row_bytes);
+        launch_id<float>(grid, s, wq, x, id, o, kind, n_exp, N, K, row_bytes);
     return static_cast<int>(cudaGetLastError());
 }

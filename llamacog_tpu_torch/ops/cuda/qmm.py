@@ -30,7 +30,8 @@ from . import build
 QMV_MAX_B = 8
 MAX_WEIGHTS = 4
 # weight kinds, as csrc/common.cuh numbers them (KIND_Q4_K ...)
-_KIND_ID = {"Q4_K": 0, "Q6_K": 1, "Q8_0": 2, "Q5_K": 3}
+_KIND_ID = {"Q4_K": 0, "Q6_K": 1, "Q8_0": 2, "Q5_K": 3, "Q4_0": 4, "Q4_1": 5, "Q5_0": 6,
+            "Q5_1": 7, "Q2_K": 8, "Q3_K": 9}
 
 
 def uses_qgemm(x: torch.Tensor) -> bool:

@@ -3,7 +3,8 @@ kernels K10, K11 and K12, each with its plain version.
 
 Counterpart of llamacog_tpu/ops/pallas/qmm_id.py, with its names and
 contracts. The experts stay one stacked WireTensor [n_exp, N, K] (blocks
-[n_exp * N, row_bytes]); only the selected experts' bytes are read:
+[n_exp * N, row_bytes]) of any kind the dense kernels take; only the
+selected experts' bytes are read:
 
 - qmm_gather (K10, csrc/qmv_id.cu): x [S, K] rows, ids [S] expert per row
   -> [S, N] f32 with out[s] = x[s] @ dequant(W[ids[s]])^T; f32 operands.
@@ -34,16 +35,12 @@ import torch
 
 from ...quant.wire import WireTensor, dequantize_experts
 from . import build
+from .qmm import _KIND_ID
 
 RAGGED_TILE = 16  # the model's token tile (models/llama.py::moe_sort's padding)
 RAGGED_TILE_STEP = 16  # qgemm_id takes any multiple of this
 RAGGED_MAX_TILES = 1024  # token tiles a qgemm_id launch
 RAGGED_MAX_EXPERTS = 256  # experts of a stack qgemm_id takes
-_KIND_ID = {"Q4_K": 0, "Q6_K": 1}
-
-
-def supports(kind: str) -> bool:
-    return kind in _KIND_ID
 
 
 def _plain(x: torch.Tensor, ids: torch.Tensor, w: WireTensor, bf16_weights: bool):
@@ -84,7 +81,7 @@ def _check(what: str, x: torch.Tensor, ids: torch.Tensor, w: WireTensor, dtypes)
         raise ValueError(f"{what}: x must be a CUDA tensor, got {x.device}")
     if x.dtype not in dtypes:
         raise ValueError(f"{what}: x must be one of {dtypes}, got {x.dtype}")
-    if not isinstance(w, WireTensor) or len(w.shape) != 3 or not supports(w.kind):
+    if not isinstance(w, WireTensor) or len(w.shape) != 3 or w.kind not in _KIND_ID:
         raise ValueError(f"{what}: w must be a stacked {'/'.join(_KIND_ID)} WireTensor "
                          f"[n_exp, N, K], got {getattr(w, 'kind', type(w))} "
                          f"{getattr(w, 'shape', '')}")

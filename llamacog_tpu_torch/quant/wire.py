@@ -5,10 +5,13 @@ quant/decode_np.py. The planar layout exists for the TPU (lane-aligned
 unpack, group-strided columns, f32 scale planes, transposed superblock
 planes); none of its reasons hold on a GPU, so a weight stays here exactly
 as the file stores it: a ``uint8 [N, row_bytes]`` tensor of ggml blocks
-(block_q4_K: 144 bytes per 256 weights, block_q5_K: 176, block_q6_K: 210;
-block_q8_0 holds 32 weights in 34 bytes, so 256 weights take eight of them,
-272 bytes). The CUDA kernels read these blocks directly; the plain
-dequantizers below are their reference and the CPU path.
+(per 256 weights: block_q2_K 84 bytes, block_q3_K 110, block_q4_K 144,
+block_q5_K 176, block_q6_K 210). The legacy blocks hold 32 weights each
+(block_q4_0 18 bytes, q4_1 20, q5_0 22, q5_1 24, q8_0 34), so 256 weights
+take eight of them (144, 160, 176, 192, 272 bytes) and a row of K weights
+is K / 256 such runs, as for the K-quants. The CUDA kernels read these
+blocks directly; the plain dequantizers below are their reference and the
+CPU path.
 
 Stacked MoE experts are one wire tensor of logical shape [n_exp, N, K]
 whose blocks are ``[n_exp * N, row_bytes]``, expert e's rows at
@@ -29,10 +32,10 @@ import torch
 from ..gguf import GGMLType
 
 QK_K = 256
-# wire bytes per QK_K weights (Q8_0: eight 34-byte blocks)
-BLOCK_BYTES = {"Q4_K": 144, "Q6_K": 210, "Q8_0": 272, "Q5_K": 176}
-_KIND_OF = {GGMLType.Q4_K: "Q4_K", GGMLType.Q6_K: "Q6_K", GGMLType.Q8_0: "Q8_0",
-            GGMLType.Q5_K: "Q5_K"}
+# wire bytes per QK_K weights (the legacy kinds: eight 32-weight blocks)
+BLOCK_BYTES = {"Q4_K": 144, "Q6_K": 210, "Q8_0": 272, "Q5_K": 176, "Q4_0": 144, "Q4_1": 160,
+               "Q5_0": 176, "Q5_1": 192, "Q2_K": 84, "Q3_K": 110}
+_KIND_OF = {getattr(GGMLType, kind): kind for kind in BLOCK_BYTES}
 DENSE_TYPES = (GGMLType.F32, GGMLType.F16, GGMLType.BF16)
 
 
@@ -188,8 +191,95 @@ def dequant_q6_k(b: torch.Tensor) -> torch.Tensor:
     return dl * q
 
 
+def _nibbles(qs: torch.Tensor) -> torch.Tensor:
+    """[M, 16] packed bytes of a legacy block -> [M, 32] codes: element j
+    the low nibble of byte j, element 16 + j its high nibble."""
+    return torch.cat([qs & 0xF, qs >> 4], dim=1)
+
+
+def _bits32(qh: torch.Tensor) -> torch.Tensor:
+    """[M, 4] little-endian bytes of a u32 -> [M, 32] its bits, bit j at j."""
+    return torch.cat([(qh[:, k : k + 1] >> s) & 1 for k in range(4) for s in range(8)], dim=1)
+
+
+def dequant_q4_0(b: torch.Tensor) -> torch.Tensor:
+    """uint8 [M, 144] (eight 18-byte blocks: f16 d, 16 nibble bytes) -> f32
+    [M, 256] (decode_np.dequant_q4_0: (q - 8) * d)."""
+    blk = b.reshape(-1, 18)
+    q = (_nibbles(blk[:, 2:18]).to(torch.int16) - 8).float()
+    return (q * _f16_at(blk, 0)).reshape(-1, 256)
+
+
+def dequant_q4_1(b: torch.Tensor) -> torch.Tensor:
+    """uint8 [M, 160] (eight 20-byte blocks: f16 d, f16 m, 16 nibble bytes)
+    -> f32 [M, 256] (decode_np.dequant_q4_1: q * d + m)."""
+    blk = b.reshape(-1, 20)
+    q = _nibbles(blk[:, 4:20]).float()
+    return (q * _f16_at(blk, 0) + _f16_at(blk, 2)).reshape(-1, 256)
+
+
+def dequant_q5_0(b: torch.Tensor) -> torch.Tensor:
+    """uint8 [M, 176] (eight 22-byte blocks: f16 d, u32 qh, 16 nibble bytes)
+    -> f32 [M, 256] (decode_np.dequant_q5_0: element j takes bit j of qh as
+    its fifth bit; (q - 16) * d)."""
+    blk = b.reshape(-1, 22)
+    q = _nibbles(blk[:, 6:22]).to(torch.int16) | (_bits32(blk[:, 2:6]).to(torch.int16) << 4)
+    return ((q - 16).float() * _f16_at(blk, 0)).reshape(-1, 256)
+
+
+def dequant_q5_1(b: torch.Tensor) -> torch.Tensor:
+    """uint8 [M, 192] (eight 24-byte blocks: f16 d, f16 m, u32 qh, 16 nibble
+    bytes) -> f32 [M, 256] (decode_np.dequant_q5_1: q * d + m)."""
+    blk = b.reshape(-1, 24)
+    q = (_nibbles(blk[:, 8:24]) | (_bits32(blk[:, 4:8]) << 4)).float()
+    return (q * _f16_at(blk, 0) + _f16_at(blk, 2)).reshape(-1, 256)
+
+
+def _crumbs(qs: torch.Tensor) -> torch.Tensor:
+    """[M, 64] packed 2-bit codes -> [M, 256]: element e is bits 2s, 2s + 1
+    of byte 32c + l, where c = e // 128, s = (e % 128) // 32, l = e % 32
+    (decode_np._unpack_2bit_qk)."""
+    q = qs.reshape(-1, 2, 1, 32)
+    return torch.cat([(q >> (2 * s)) & 3 for s in range(4)], dim=2).reshape(-1, 256)
+
+
+def dequant_q2_k(b: torch.Tensor) -> torch.Tensor:
+    """uint8 [M, 84] blocks (scales[16]: 4-bit scale | 4-bit min of each 16
+    weights; qs[64]; f16 d; f16 dmin) -> f32 [M, 256]
+    (decode_np.dequant_q2_K: (d * sc) * q - dmin * m)."""
+    sc = b[:, 0:16]
+    q = _crumbs(b[:, 16:80]).float()
+    dl = (_f16_at(b, 80) * (sc & 0xF).float()).repeat_interleave(16, dim=1)
+    ml = (_f16_at(b, 82) * (sc >> 4).float()).repeat_interleave(16, dim=1)
+    return dl * q - ml
+
+
+def _q3_scales(s: torch.Tensor) -> torch.Tensor:
+    """[M, 12] packed 6-bit scales -> [M, 16] in 0..63 (decode_np._q3_scales):
+    scale g takes the low nibble of byte g (g < 8) or the high nibble of
+    byte g - 8, and bits 2 (g // 4), +1 of byte 8 + g % 4 as its top two."""
+    lo = torch.cat([s[:, 0:8] & 0xF, s[:, 0:8] >> 4], dim=1)
+    hi = torch.cat([(s[:, 8:12] >> (2 * j)) & 3 for j in range(4)], dim=1)
+    return lo | (hi << 4)
+
+
+def dequant_q3_k(b: torch.Tensor) -> torch.Tensor:
+    """uint8 [M, 110] blocks (hmask[32], qs[64], scales[12], f16 d) -> f32
+    [M, 256] (decode_np.dequant_q3_K): element e has the 2-bit code of
+    _crumbs, minus 4 where bit e // 32 of hmask[e % 32] is clear, times
+    d * (scale - 32)."""
+    hm = b[:, 0:32].reshape(-1, 1, 32)
+    hb = torch.cat([(hm >> s) & 1 for s in range(8)], dim=1).reshape(-1, 256)
+    q = (_crumbs(b[:, 32:96]).to(torch.int16) + 4 * hb.to(torch.int16) - 4).float()
+    scales = _q3_scales(b[:, 96:108]).float() - 32.0
+    dl = (_f16_at(b, 108) * scales).repeat_interleave(16, dim=1)
+    return dl * q
+
+
 _DEQUANT = {"Q4_K": dequant_q4_k, "Q6_K": dequant_q6_k, "Q8_0": dequant_q8_0,
-            "Q5_K": dequant_q5_k}
+            "Q5_K": dequant_q5_k, "Q4_0": dequant_q4_0, "Q4_1": dequant_q4_1,
+            "Q5_0": dequant_q5_0, "Q5_1": dequant_q5_1, "Q2_K": dequant_q2_k,
+            "Q3_K": dequant_q3_k}
 
 
 def dequantize(w: WireTensor, dtype=torch.float32) -> torch.Tensor:

@@ -1,11 +1,14 @@
 """Where the time of a decode step (or of a prefill) goes, on the GPU.
 
     python -m llamacog_tpu_torch.tools.profile [--model mixtral-8x7b] [--layers 32] \
-        [--steps 32] [--kv-type q8_0] [--prompt 512 --prefill] [--max-seq 8192]
+        [--steps 32] [--kv-type q8_0] [--prompt 512 --prefill] [--max-seq 8192] \
+        [--ftype Q3_K_M]
 
-Builds the Llama-3-8B (or, with --model mixtral-8x7b, the Mixtral-8x7B,
-with the attention weight kinds of a real Q4_K_M file) synthetic Q4_K_M
-model (depth cut by --layers) with an Engine of --max-seq
+Builds the Llama-3-8B (or, with --model mixtral-8x7b, the Mixtral-8x7B)
+synthetic model of the weight preset --ftype (each tensor of the kind
+llama.cpp's rules give it; by default utils/synthetic.py's DEFAULT_LAYOUT,
+Q4_K_M with every attn_v Q6_K) (depth
+cut by --layers) with an Engine of --max-seq
 slots (1024 by default) and prefills a --prompt-token prompt (128). Decode
 runs --steps greedy steps two ways: replayed from the step's CUDA graph
 (Engine.decode_greedy_tokens) and eagerly, the same step function called
@@ -40,6 +43,9 @@ def main(argv=None) -> int:
     ap.add_argument("--kv-type", default="dense", help="KV cache kinds, as Engine's kv_type")
     ap.add_argument("--prefill", action="store_true",
                     help="profile one prefill of the prompt instead of the decode steps")
+    ap.add_argument("--ftype", default=None,
+                    help="weight preset of the synthetic model (utils/synthetic.py PRESETS; "
+                         "DEFAULT_LAYOUT if not given)")
     args = ap.parse_args(argv)
 
     import torch
@@ -47,11 +53,12 @@ def main(argv=None) -> int:
 
     from ..ops.cuda.flash_q8 import decode_from_cache
     from ..runtime.engine import Engine
-    from ..utils.synthetic import llama3_8b_config, make_synthetic_params, mixtral_8x7b_config
+    from ..utils.synthetic import (DEFAULT_LAYOUT, llama3_8b_config, make_synthetic_params,
+                                   mixtral_8x7b_config)
 
     make_config = mixtral_8x7b_config if args.model == "mixtral-8x7b" else llama3_8b_config
     cfg = make_config(n_layer=args.layers)
-    params = make_synthetic_params(cfg, seed=0)
+    params = make_synthetic_params(cfg, seed=0, ftype=args.ftype or DEFAULT_LAYOUT)
     eng = Engine(params, cfg, batch_size=1, max_seq=args.max_seq, kv_type=args.kv_type)
     prompt = [(i * 31337) % cfg.n_vocab for i in range(args.prompt)]
 

@@ -1,18 +1,22 @@
 """Synthetic random-weight models built directly in GGUF wire format.
 
 Counterpart of llamacog_tpu/utils/synthetic.py. Benchmarking Llama-3-8B
-Q4_K_M needs 8B-scale weights and no real checkpoint ships with the repo;
-decode cost depends on the block bytes only, so the parameters are random
-wire blocks made on the device from a torch.Generator. The per-tensor kind
-policy is the JAX package's (after llama_tensor_get_type for Q4_K_M):
-attn_v and output are Q6_K, ffn_down is Q6_K on the "use more bits" layers,
-everything else Q4_K; q+k and gate+up arrive fused, as the loader fuses a
-real Q4_K_M file. A MoE config (n_expert > 0) gets an f32 router and
-stacked experts instead of the dense FFN: gate+up fused per expert, Q4_K;
-down by the same "more bits" rule. An 8-expert config gets the attention
-kinds llama.cpp's Q4_K_M rules give such a file (llama_tensor_get_type:
-Q8_0 attn_k and attn_v, Q5_K attn_output), with attn_q, attn_k and attn_v
-apart, as the loader leaves mixed kinds.
+or Mixtral-8x7B needs full-size weights and no real checkpoint ships with
+the repo; decode cost depends on the block bytes only, so the parameters
+are random wire blocks made on the device from a torch.Generator.
+
+Each tensor takes the kind llama.cpp's quantizer gives it under a weight
+preset (``ftype``): :func:`tensor_kinds` is the port's copy of the llama
+family's part of llama_tensor_get_type (the JAX package's
+tools/quantize.py::tensor_get_type and use_more_bits), for the presets
+without an importance matrix: Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q2_K,
+Q3_K_S/M/L, Q4_K_S/M, Q5_K_S/M. The weights then arrive fused as the
+loader fuses a file of those kinds (q+k+v, else q+k, where the kinds
+agree; gate+up; the experts' gate+up per expert). A MoE config
+(n_expert > 0) gets an f32 router, as llama.cpp never quantizes
+ffn_gate_inp. The default layout, DEFAULT_LAYOUT, is not a preset: it
+is Q4_K_M with every dense attn_v Q6_K, the layout of every measurement
+made before the other presets ran.
 """
 
 from __future__ import annotations
@@ -23,9 +27,22 @@ from ..models.config import ModelConfig, RopeConfig
 from ..quant.wire import BLOCK_BYTES, QK_K, WireTensor
 
 # byte offsets of each kind's f16 scales in QK_K weights (d, and dmin for
-# Q4_K and Q5_K; Q8_0 has one d in each of its eight 34-byte blocks)
+# Q4_K, Q5_K and Q2_K; the legacy kinds have d, and m for Q4_1 and Q5_1, at
+# the start of each of their eight 32-weight blocks)
 _F16_FIELDS = {"Q4_K": (0, 2), "Q6_K": (208,), "Q8_0": tuple(range(0, 272, 34)),
-               "Q5_K": (0, 2)}
+               "Q5_K": (0, 2), "Q4_0": tuple(range(0, 144, 18)),
+               "Q4_1": tuple(o + f for o in range(0, 160, 20) for f in (0, 2)),
+               "Q5_0": tuple(range(0, 176, 22)),
+               "Q5_1": tuple(o + f for o in range(0, 192, 24) for f in (0, 2)),
+               "Q2_K": (80, 82), "Q3_K": (108,)}
+# preset -> the kind of the tensors no rule moves (llama.cpp's default type)
+PRESETS = {"Q4_0": "Q4_0", "Q4_1": "Q4_1", "Q5_0": "Q5_0", "Q5_1": "Q5_1", "Q8_0": "Q8_0",
+           "Q2_K": "Q2_K", "Q3_K_S": "Q3_K", "Q3_K_M": "Q3_K", "Q3_K_L": "Q3_K",
+           "Q4_K_S": "Q4_K", "Q4_K_M": "Q4_K", "Q5_K_S": "Q5_K", "Q5_K_M": "Q5_K"}
+# make_synthetic_params' default: Q4_K_M, except that a dense config's attn_v
+# is Q6_K in every layer (llama.cpp gives Q6_K only to the "use more bits"
+# layers), so attn_q + attn_k fuse and attn_v stays apart in every layer
+DEFAULT_LAYOUT = "Q4_K_M, attn_v Q6_K"
 
 
 def random_wire(kind: str, n: int, k: int, generator: torch.Generator,
@@ -45,6 +62,48 @@ def random_wire(kind: str, n: int, k: int, generator: torch.Generator,
 
 def _use_more_bits(i: int, n: int) -> bool:
     return i < n // 8 or i >= 7 * n // 8 or (i - n // 8) % 3 == 2
+
+
+def tensor_kinds(cfg: ModelConfig, ftype: str = "Q4_K_M") -> dict:
+    """The wire kind of every weight of a llama-family GGUF quantized to
+    `ftype`: {"token_embd", "output", "layers": [{attn_q, attn_k, attn_v,
+    attn_output, ffn_gate, ffn_up, ffn_down}]} (the FFN names stand for the
+    stacked experts in a MoE config). Unfused, by the GGUF tensor names."""
+    if ftype not in PRESETS:
+        raise NotImplementedError(
+            f"weight preset {ftype} is not ported yet (the port takes {', '.join(PRESETS)})")
+    base, n, n_exp = PRESETS[ftype], cfg.n_layer, cfg.n_expert
+    n_gqa = cfg.n_head // max(cfg.n_head_kv, 1)
+    layers = []
+    for il in range(n):
+        more = _use_more_bits(il, n)
+        v = {"Q2_K": "Q4_K" if n_gqa >= 4 else "Q3_K",
+             "Q3_K_M": "Q5_K" if il < 2 else "Q4_K", "Q3_K_L": "Q5_K",
+             "Q4_K_M": "Q6_K" if more else base, "Q5_K_M": "Q6_K" if more else base,
+             "Q4_K_S": "Q5_K" if il < 4 else base}.get(ftype, base)
+        down = {"Q2_K": "Q3_K", "Q3_K_M": "Q5_K" if il < n // 16 else "Q4_K", "Q3_K_L": "Q5_K",
+                "Q4_K_M": "Q6_K" if more else base, "Q5_K_M": "Q6_K" if more else base,
+                "Q4_K_S": "Q5_K" if il < n // 8 else base}.get(ftype, base)
+        if n_exp == 8:
+            out = "Q5_K" if ftype in ("Q2_K", "Q3_K_S", "Q3_K_M", "Q4_K_S", "Q4_K_M") else base
+        else:
+            out = {"Q2_K": "Q3_K", "Q3_K_M": "Q4_K", "Q3_K_L": "Q5_K"}.get(ftype, base)
+        layers.append({"attn_q": base, "attn_k": "Q8_0" if n_exp == 8 else base,
+                       "attn_v": "Q8_0" if n_exp == 8 else v, "attn_output": out,
+                       "ffn_gate": base, "ffn_up": base, "ffn_down": down})
+    return {"token_embd": base, "output": "Q8_0" if base == "Q8_0" else "Q6_K",
+            "layers": layers}
+
+
+def layout_kinds(cfg: ModelConfig, layout: str = DEFAULT_LAYOUT) -> dict:
+    """tensor_kinds of a preset, or of DEFAULT_LAYOUT."""
+    if layout != DEFAULT_LAYOUT:
+        return tensor_kinds(cfg, layout)
+    kinds = tensor_kinds(cfg, "Q4_K_M")
+    if not cfg.n_expert:
+        for lk in kinds["layers"]:
+            lk["attn_v"] = "Q6_K"
+    return kinds
 
 
 def llama3_8b_config(n_layer: int = 32) -> ModelConfig:
@@ -75,44 +134,48 @@ def random_experts(kind: str, n_exp: int, n: int, k: int, generator: torch.Gener
     return WireTensor(kind, (n_exp, n, k), w.blocks)
 
 
-def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
-    """Random Q4_K_M params for the llama forward, on `device`. An 8-expert
-    config's attention weights take the kinds of a real Q4_K_M file:
-    attn_q Q4_K, attn_k and attn_v Q8_0, attn_output Q5_K, unfused."""
+def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
+                          ftype: str = DEFAULT_LAYOUT) -> dict:
+    """Random params of a GGUF quantized to the preset `ftype`, or laid out
+    as DEFAULT_LAYOUT (layout_kinds), for the llama forward, on `device`,
+    fused as the loader fuses such a file."""
     from .. import resolve_device
 
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
+    kinds = layout_kinds(cfg, ftype)
     E, F = cfg.n_embd, cfg.n_ff
     kv = cfg.n_head_kv * cfg.head_dim_k
     params: dict = {
-        "tok_embd": random_wire("Q4_K", cfg.n_vocab, E, g, dev),
-        "output": random_wire("Q6_K", cfg.n_vocab, E, g, dev),
+        "tok_embd": random_wire(kinds["token_embd"], cfg.n_vocab, E, g, dev),
+        "output": random_wire(kinds["output"], cfg.n_vocab, E, g, dev),
         "output_norm": torch.ones(E, dtype=torch.float32, device=dev),
         "layers": [],
     }
-    for il in range(cfg.n_layer):
-        down_kind = "Q6_K" if _use_more_bits(il, cfg.n_layer) else "Q4_K"
+    for lk in kinds["layers"]:
         layer = {
             "attn_norm": torch.ones(E, dtype=torch.float32, device=dev),
             "ffn_norm": torch.ones(E, dtype=torch.float32, device=dev),
         }
-        if cfg.n_expert == 8:
-            layer["attn_q"] = random_wire("Q4_K", cfg.n_head * cfg.head_dim_k, E, g, dev)
-            layer["attn_k"] = random_wire("Q8_0", kv, E, g, dev)
-            layer["attn_v"] = random_wire("Q8_0", cfg.n_head_kv * cfg.head_dim_v, E, g, dev)
-            layer["attn_output"] = random_wire("Q5_K", E, cfg.n_head * cfg.head_dim_v, g, dev)
+        rows = {"attn_q": cfg.n_head * cfg.head_dim_k, "attn_k": kv,
+                "attn_v": cfg.n_head_kv * cfg.head_dim_v}
+        if lk["attn_q"] == lk["attn_k"] == lk["attn_v"]:
+            layer["attn_qkv"] = random_wire(lk["attn_q"], sum(rows.values()), E, g, dev)
+        elif lk["attn_q"] == lk["attn_k"]:
+            layer["attn_qk"] = random_wire(lk["attn_q"], rows["attn_q"] + kv, E, g, dev)
+            layer["attn_v"] = random_wire(lk["attn_v"], rows["attn_v"], E, g, dev)
         else:
-            layer["attn_qk"] = random_wire("Q4_K", cfg.n_head * cfg.head_dim_k + kv, E, g, dev)
-            layer["attn_v"] = random_wire("Q6_K", kv, E, g, dev)
-            layer["attn_output"] = random_wire("Q4_K", E, cfg.n_head * cfg.head_dim_v, g, dev)
+            for key, n in rows.items():
+                layer[key] = random_wire(lk[key], n, E, g, dev)
+        layer["attn_output"] = random_wire(lk["attn_output"], E, cfg.n_head * cfg.head_dim_v,
+                                           g, dev)
         if cfg.n_expert > 0:
             n_exp = cfg.n_expert
             layer["ffn_gate_inp"] = torch.randn((n_exp, E), generator=g, device=dev) * 0.02
-            layer["ffn_gate_up_exps"] = random_experts("Q4_K", n_exp, 2 * F, E, g, dev)
-            layer["ffn_down_exps"] = random_experts(down_kind, n_exp, E, F, g, dev)
+            layer["ffn_gate_up_exps"] = random_experts(lk["ffn_gate"], n_exp, 2 * F, E, g, dev)
+            layer["ffn_down_exps"] = random_experts(lk["ffn_down"], n_exp, E, F, g, dev)
         else:
-            layer["ffn_gate_up"] = random_wire("Q4_K", 2 * F, E, g, dev)
-            layer["ffn_down"] = random_wire(down_kind, E, F, g, dev)
+            layer["ffn_gate_up"] = random_wire(lk["ffn_gate"], 2 * F, E, g, dev)
+            layer["ffn_down"] = random_wire(lk["ffn_down"], E, F, g, dev)
         params["layers"].append(layer)
     return params

@@ -39,9 +39,11 @@ QMM_TOL = 1e-4
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 KIND_PAIRS = [(k, k) for k in ("q8_0", "q4_0", "q4_1", "q5_0", "q5_1")] + [
     ("q8_0", "q5_1"), ("q5_0", "q4_1"), ("bf16", "q4_0"), ("q8_0", "f16")]
-# weight kinds of qmv/qgemm: the Q4_K_M body and its more-bits layers, and
-# the Q8_0 / Q5_K attention weights of an 8-expert Q4_K_M file
-WEIGHT_KINDS = ["Q4_K", "Q6_K", "Q8_0", "Q5_K"]
+# weight kinds of the weight kernels (qmv, qgemm, qmv_id, qgemm_id): the
+# Q4_K_M body and its more-bits layers, the Q8_0 / Q5_K attention weights of
+# an 8-expert Q4_K_M file, and the legacy and low-bit kinds of llama.cpp's
+# other presets
+WEIGHT_KINDS = ["Q4_K", "Q6_K", "Q8_0", "Q5_K", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K"]
 
 pytestmark = pytest.mark.cuda
 
@@ -96,7 +98,9 @@ def test_qgemm_matches_plain(dev, kind, N, K, B):
 
 @pytest.mark.parametrize("kinds", [("Q4_K", "Q6_K", "Q6_K", "Q4_K"),
                                    ("Q8_0", "Q5_K", "Q4_K", "Q8_0"),
-                                   ("Q5_K", "Q8_0", "Q6_K", "Q5_K")], ids="-".join)
+                                   ("Q5_K", "Q8_0", "Q6_K", "Q5_K"),
+                                   ("Q3_K", "Q5_K", "Q4_0", "Q2_K"),
+                                   ("Q4_1", "Q5_0", "Q5_1", "Q6_K")], ids="-".join)
 @pytest.mark.parametrize("B,dtype", [(1, torch.bfloat16), (5, torch.float32),
                                      *[(b, torch.bfloat16) for b in (9, 33, 70, 130)]])
 def test_four_mixed_descriptors_one_launch(dev, B, dtype, kinds):
@@ -117,11 +121,13 @@ def test_four_mixed_descriptors_one_launch(dev, B, dtype, kinds):
         assert rel_err(got, qmm_plain(x, w)) < QMM_TOL
 
 
-@pytest.mark.parametrize("kinds", [("Q4_K", "Q6_K"), ("Q4_K", "Q8_0", "Q8_0")], ids="-".join)
+@pytest.mark.parametrize("kinds", [("Q4_K", "Q6_K"), ("Q4_K", "Q8_0", "Q8_0"), ("Q3_K", "Q5_K"),
+                                   ("Q2_K", "Q4_K")], ids="-".join)
 @pytest.mark.parametrize("B", [9, 33, 130])
 def test_qgemm_multi_matches_plain(dev, B, kinds):
     """attn_qk + attn_v of a Q4_K_M layer; attn_q + attn_k + attn_v of an
-    8-expert Q4_K_M file."""
+    8-expert Q4_K_M file; attn_qk + attn_v of a Q3_K_M layer (layers 0-1)
+    and of a Q2_K layer."""
     g = torch.Generator(device=dev).manual_seed(B)
     ws = [random_wire(kind, n, 512, g, dev) for kind, n in zip(kinds, (160, 72, 72))]
     x = torch.randn(B, 512, generator=g, device=dev).to(torch.bfloat16)
@@ -154,7 +160,7 @@ def test_qmm_launchers_reject_bad_input(dev):
         qmv(torch.zeros(1, 256, device=dev, dtype=torch.float16), [w])
 
 
-@pytest.mark.parametrize("kind", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("kind", WEIGHT_KINDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S", [1, 2, 32])
 def test_qmv_id_matches_plain(dev, kind, dtype, S):
@@ -175,7 +181,7 @@ def test_qmv_id_matches_plain(dev, kind, dtype, S):
 TILE_MAPS = [[0, 1, 2, 3], [0, 0, 3, 3, 3, 4, 4], [2], [1, 3, 3, 4, 4, 4]]
 
 
-@pytest.mark.parametrize("kind", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("kind", WEIGHT_KINDS)
 @pytest.mark.parametrize("tiles", TILE_MAPS, ids=lambda t: "-".join(map(str, t)))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_qgemm_id_matches_plain(dev, kind, tiles, dtype):
@@ -195,7 +201,7 @@ def test_qgemm_id_matches_plain(dev, kind, tiles, dtype):
     assert (got[pad] == 0).all()
 
 
-@pytest.mark.parametrize("kind", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("kind", WEIGHT_KINDS)
 @pytest.mark.parametrize("tokens", [128, 512])
 def test_qgemm_id_model_tile_token_counts(dev, kind, tokens):
     """The grouped GEMM on moe_sort's layout at the model's token tile (16)
@@ -246,11 +252,8 @@ def test_moe_launchers_reject_bad_input(dev):
         qmv_id_kernel(xs[:2], te.repeat(2), random_wire("Q4_K", 64, 256, g, dev))
     with pytest.raises(ValueError):  # f32 x: the K10 route's job
         qgemm_id_kernel(xs.float(), te, w, 64)
-    w8 = random_experts("Q8_0", 4, 64, 256, g, dev)  # expert kinds stay Q4_K/Q6_K: by name
-    with pytest.raises(ValueError, match="Q8_0"):
-        qmv_id_kernel(xs[:2], te.repeat(2), w8)
-    with pytest.raises(ValueError, match="Q8_0"):
-        qgemm_id_kernel(xs, te, w8, 64)
+    with pytest.raises(ValueError, match="WireTensor"):  # dense experts: the einsum route's
+        qmv_id_kernel(xs[:2], te.repeat(2), torch.zeros(4, 64, 256, device=dev))
 
 
 @pytest.mark.parametrize("softcap,window", [(0.0, 0), (25.0, 0), (0.0, 64)])

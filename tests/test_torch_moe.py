@@ -36,6 +36,9 @@ from llamacog_tpu_torch.quant import wire
 from llamacog_tpu_torch.runtime.engine import Engine
 
 N_EXP, N, K = 4, 256, 512
+# every wire kind of the port: a Q4_K_M file's experts (Q4_K, Q6_K), and the
+# experts of llama.cpp's other presets
+KINDS = ["Q4_K", "Q6_K", "Q8_0", "Q5_K", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K"]
 PROMPT = [(i * 37) % 250 + 3 for i in range(20)]  # > 16 tokens: a ragged prefill
 N_DECODE = 8
 _TINY = dict(arch="llama", n_vocab=256, n_ctx_train=256, n_embd=256, n_layer=1, n_head=4,
@@ -78,7 +81,7 @@ def f32_moe(tmp_path_factory):
 # (a) stacked experts in wire format
 
 
-@pytest.mark.parametrize("kind", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_stacked_from_bytes_and_expert_fusion(kind):
     qg, wg = _experts(kind, 3, 64, 512, seed=1)
     qu, wu = _experts(kind, 3, 64, 512, seed=2)
@@ -121,7 +124,7 @@ def test_from_reference_matches_jax_loader_moe(q4k_moe):
 # (b) the plain products against the Pallas kernels in interpret mode
 
 
-@pytest.mark.parametrize("kind", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("entry", ["gather", "offset"])
 def test_gather_plain_matches_pallas(kind, entry):
     qt, wt = _experts(kind, N_EXP, N, K, seed=5)
@@ -139,7 +142,7 @@ def test_gather_plain_matches_pallas(kind, entry):
                                                     torch.from_numpy(ids), wt))
 
 
-@pytest.mark.parametrize("kind", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("bf16", [False, True])
 def test_ragged_plain_matches_pallas(kind, bf16):
     """tt = 64 tiles with an empty expert (2) between used ones."""
@@ -157,7 +160,7 @@ def test_ragged_plain_matches_pallas(kind, bf16):
     assert nmse(got.numpy(), ref) < 2e-4
 
 
-@pytest.mark.parametrize("kind", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_ragged_plain_matches_pallas_model_tile(kind):
     """The model's token tile (qmm_id.RAGGED_TILE, 16) on moe_sort's layout
     of 20 (token, slot) pairs: expert 2 empty, expert 3 a single row (its

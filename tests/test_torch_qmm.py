@@ -35,7 +35,7 @@ def _pair(kind, n, k, seed):
     return qt, wire.from_bytes(raw, t, (n, k))
 
 
-KINDS = ["Q4_K", "Q6_K", "Q8_0", "Q5_K"]
+KINDS = ["Q4_K", "Q6_K", "Q8_0", "Q5_K", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K"]
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -89,15 +89,50 @@ def test_qmatmul_multi_declines_mismatched_k():
     assert linear.qmatmul_multi(torch.zeros(1, K), [wa, wb]) is None
 
 
+# legacy kinds: block bytes, qs offset, qh offset (0: none), level bias,
+# the level's own offset
+LEGACY = {"Q4_0": (18, 2, 0, 16, 8), "Q4_1": (20, 4, 0, 16, 0), "Q5_0": (22, 6, 2, 32, 16),
+          "Q5_1": (24, 8, 4, 32, 0)}
+
+
 def _levels_scales(wt):
-    """The qmv kernel's levels [N, K] (the raw levels plus a bias: Q4_K
-    16 + (0..15), Q5_K 32 + (0..31), Q6_K 64 + (0..63); Q8_0 the signed
-    levels) and, per part of its lane slice (Q4_K and Q5_K 16 weights, Q6_K
-    8, Q8_0 32), the scale sc and offset mn [N, K / part] of wt's blocks
-    with the bias folded into mn, in f32 as the kernel forms them."""
+    """The qmv kernel's levels [N, K] (the raw levels plus a bias: Q4_K,
+    Q4_0, Q4_1, Q2_K and Q3_K 16 + q, Q5_K, Q5_0 and Q5_1 32 + q, Q6_K
+    64 + q; Q8_0 the signed levels) and, per part of its lane slice (Q4_K
+    and Q5_K 16 weights, Q6_K, Q2_K and Q3_K 8, Q8_0 and the legacy kinds
+    32), the scale sc and offset mn [N, K / part] of wt's blocks with the
+    bias folded into mn, in f32 as the kernel forms them."""
     b = wt.blocks.reshape(-1, wire.BLOCK_BYTES[wt.kind])
     n, k = wt.shape
-    if wt.kind == "Q8_0":
+    if wt.kind in LEGACY:
+        # one part a 32-weight block: levels 16 + q (4-bit) or 32 + q (5-bit),
+        # sc = d, the bias and the block's offset (-8 d, -16 d, +m) in mn
+        size, qs_at, qh_at, bias, off = LEGACY[wt.kind]
+        blk = b.reshape(-1, size)
+        q = torch.cat([blk[:, qs_at:qs_at + 16] & 0xF, blk[:, qs_at:qs_at + 16] >> 4], dim=1)
+        if qh_at:
+            q = q | (wire._bits32(blk[:, qh_at:qh_at + 4]) << 4)
+        sc = wire._f16_at(blk, 0).reshape(-1, 8)
+        mn = (bias + off) * sc
+        if size in (20, 24):  # Q4_1, Q5_1: + m
+            mn = mn - wire._f16_at(blk, 2).reshape(-1, 8)
+        q = q.reshape(-1, 256) + bias
+    elif wt.kind in ("Q2_K", "Q3_K"):
+        # parts of 8 (half a 16-weight sub-block), levels 16 + q (Q3_K: q the
+        # 3-bit code, the level's -4 folded into mn = 20 dl)
+        if wt.kind == "Q2_K":
+            q = wire._crumbs(b[:, 16:80])
+            dl = wire._f16_at(b, 80) * (b[:, 0:16] & 0xF).float()
+            mn = 16.0 * dl + wire._f16_at(b, 82) * (b[:, 0:16] >> 4).float()
+        else:
+            hm = b[:, 0:32].reshape(-1, 1, 32)
+            q = wire._crumbs(b[:, 32:96]) | (torch.cat([(hm >> s) & 1 for s in range(8)],
+                                                       dim=1).reshape(-1, 256) << 2)
+            dl = wire._f16_at(b, 108) * (wire._q3_scales(b[:, 96:108]).float() - 32.0)
+            mn = 20.0 * dl
+        sc, mn = dl.repeat_interleave(2, dim=1), mn.repeat_interleave(2, dim=1)
+        q = q + 16
+    elif wt.kind == "Q8_0":
         blk = b.reshape(-1, 34)
         q = blk[:, 2:34].contiguous().view(torch.int8).reshape(-1, 256)
         sc = wire._f16_at(blk, 0).reshape(-1, 8)
@@ -170,7 +205,8 @@ def test_gemm_dequant_fused_rounding_matches_plain():
     significant bits, so each weight rounds exactly as the plain dequant's
     (d*sc)*q - dmin*m and (d*sc)*(q - 32); Q5_K weights as
     fma(d*sc, 32 + q, -32 d*sc) - dmin*m (at most 23 bits too). FMA is
-    modelled in f64 (exact for these operands) with one rounding to f32."""
+    modelled in f64 (exact for these operands) with one rounding to f32.
+    The legacy and low-bit kinds' forms below hold the same way."""
     rng = np.random.default_rng(0)
     n = 50_000
     f32 = np.float32
@@ -189,3 +225,18 @@ def test_gemm_dequant_fused_rounding_matches_plain():
     np.testing.assert_array_equal(fma(dl6, 64 + q6, -96 * dl6), dl6 * (q6 - 32))
     q5 = rng.integers(0, 32, n).astype(f32)
     np.testing.assert_array_equal(fma(dl, 32 + q5, -32 * dl) - ml, dl * q5 - ml)
+    # the legacy kinds (d alone is the scale): Q4_0 fma(d, 16 + q, -24 d) =
+    # (q - 8) d, Q5_0 fma(d, 32 + q, -48 d) = (q - 16) d, Q4_1 / Q5_1
+    # fma(d, B + q, -B d) + m = q d + m
+    m = dmin
+    np.testing.assert_array_equal(fma(d, 16 + q, -24 * d), (q - 8) * d)
+    np.testing.assert_array_equal(fma(d, 32 + q5, -48 * d), (q5 - 16) * d)
+    np.testing.assert_array_equal(fma(d, 16 + q, -16 * d) + m, q * d + m)
+    np.testing.assert_array_equal(fma(d, 32 + q5, -32 * d) + m, q5 * d + m)
+    # Q2_K (4-bit scale, 2-bit code) as Q4_K; Q3_K fma(dl, 16 + v, -20 dl) =
+    # dl (v - 4) with dl = d (sc - 32), v the 3-bit code
+    sc4, q2 = rng.integers(0, 16, n).astype(f32), rng.integers(0, 4, n).astype(f32)
+    dl2 = d * sc4
+    np.testing.assert_array_equal(fma(dl2, 16 + q2, -16 * dl2) - ml, dl2 * q2 - ml)
+    dl3, v = d * (sc - 32), rng.integers(0, 8, n).astype(f32)
+    np.testing.assert_array_equal(fma(dl3, 16 + v, -20 * dl3), dl3 * (v - 4))

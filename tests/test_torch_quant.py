@@ -13,7 +13,7 @@ from llamacog_tpu.quant.decode_np import dequantize_tensor
 from llamacog_tpu.quant.planar import decode, from_gguf
 from llamacog_tpu_torch.quant import wire
 
-KINDS = ["Q4_K", "Q6_K", "Q8_0", "Q5_K"]
+KINDS = ["Q4_K", "Q6_K", "Q8_0", "Q5_K", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K"]
 
 
 def _blocks(kind, n, k, seed):
@@ -25,10 +25,17 @@ def _blocks(kind, n, k, seed):
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("shape", [(8, 256), (64, 1024)])
 def test_dequant_bit_exact_vs_decode_np(kind, shape):
-    """Same f32 operations in the same order as decode_np -> identical bits."""
+    """Same f32 operations in the same order as decode_np -> identical bits.
+    decode_np's Q3_K returns float64 (its level offset is a float64
+    np.where); every value is an exact f32 product (d * (scale - 32) has at
+    most 17 significant bits, times a level in -4..3), so it is compared
+    as f32."""
     raw = _blocks(kind, *shape, seed=len(kind) + shape[0])
     t = getattr(GGMLType, kind)
     ref = dequantize_tensor(raw, t, shape)
+    if kind == "Q3_K":
+        assert np.array_equal(ref.astype(np.float32).astype(np.float64), ref)
+        ref = ref.astype(np.float32)
     got = wire.dequantize(wire.from_bytes(raw, t, shape)).numpy()
     assert got.dtype == np.float32 and got.shape == shape
     np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
@@ -78,5 +85,5 @@ def test_fuse_rows_concatenates_blocks():
 
 def test_unported_kind_raises():
     """A kind the port does not carry is refused by name."""
-    with pytest.raises(NotImplementedError, match="Q4_0"):
-        wire.from_bytes(np.zeros(18 * 8, np.uint8), GGMLType.Q4_0, (1, 256))
+    with pytest.raises(NotImplementedError, match="IQ4_NL"):
+        wire.from_bytes(np.zeros(18 * 8, np.uint8), GGMLType.IQ4_NL, (1, 256))
