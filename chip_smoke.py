@@ -12,8 +12,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      weight kernels (qmv at one row, qgemm at 128 and 512 rows; also over
      the Q8_0 and Q5_K weights of a real Mixtral Q4_K_M file and its
      attn_q + attn_k + attn_v launch; and every kind of llama.cpp's other
-     presets, Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, Q3_K, at gate_up and ffn_down,
-     with a Q3_K_M layer's Q3_K attn_qk + Q5_K attn_v launch), the int8 route's activation
+     presets, Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, Q3_K and the codebook IQ4_NL,
+     IQ4_XS, IQ3_XXS, IQ3_S, IQ2_S, at gate_up and ffn_down, with a Q3_K_M
+     layer's Q3_K attn_qk + Q5_K attn_v launch, an IQ3_XXS layer's IQ2_S +
+     Q4_K and an IQ4_XS layer's IQ4_XS + Q5_K), the int8 route's activation
      quantization (bit-equal) and prefill GEMM (K13, bit-equal at both tile
      heights, beside torch._int_mm) at the five layer shapes at 512 rows and
      ragged 300, and attn_qk + attn_v on one quantization; the dense-cache
@@ -31,8 +33,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      K7's SIMT body in f32 and on a q off 16 bytes); then the MoE kernels
      at the Mixtral-8x7B expert shapes (the
      gather at 2 and 32 rows, the offset entry, the grouped GEMM of a
-     128- and a 512-token prefill; both again over gate_up stacks of
-     every other kind: Q8_0, Q5_K and the six above);
+     128- and a 512-token prefill; both again over gate_up and down stacks
+     of every other kind: Q8_0, Q5_K and the eleven above);
   4. the full-width kernel path (8B widths, 2 layers) against the plain
      path (the same params on the CPU): prefill logits, 4 teacher-forced
      decode steps (Engine.decode_one: replays of the step's CUDA graph on
@@ -41,11 +43,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the split q5_1:q4_0 cache, LLAMACOG_MMQ=1 on a 300-token prompt (int8
      prefill), and the per-layer decode routes (LLAMACOG_FLASH_STACKED=0:
      K9 on the dense cache with LLAMACOG_FLASH_DECODE=1, K8 on q8_0), and
-     the presets Q4_0 (also with LLAMACOG_MMQ=1), Q5_1, Q3_K_M and Q2_K;
-     then the same at Mixtral widths (2 layers, dense cache, the attention
-     weight kinds of a real Q4_K_M file: Q8_0 attn_k/attn_v, Q5_K
-     attn_output): a 20-token prefill (grouped GEMM), 4 decode steps and a
-     9-token second chunk (gather), and the presets Q5_K_M and Q3_K_M;
+     the presets Q4_0 (with LLAMACOG_MMQ=1), Q5_1, Q3_K_M, Q2_K, IQ4_XS
+     and IQ3_XXS; then the same at Mixtral widths (2 layers, dense cache,
+     the attention weight kinds of a real Q4_K_M file: Q8_0 attn_k/attn_v,
+     Q5_K attn_output): a 20-token prefill (grouped GEMM), 4 decode steps
+     and a 9-token second chunk (gather), and the presets Q5_K_M, Q3_K_M,
+     IQ2_M and IQ3_XXS (an f32 model: see phase 4's comment);
   5. whether stream capture keeps the split-S combine's programmatic
      dependent launch (K4 and K6 captured alone: the graph's edges by
      type, the replay against the eager call), then the 8B Q4_K_M
@@ -72,8 +75,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      512-token prompt and 16 tokens (the grouped GEMM over several tiles an
      expert); then the other presets, each with a 128-token prompt and 64
      greedy tokens through the graph: the 8B at full depth in Q4_0, Q4_1,
-     Q5_0, Q5_1, Q2_K and Q3_K_M, Mixtral-8x7B Q5_K_M at full depth, and
-     Mixtral in Q8_0, Q4_0, Q4_1, Q5_0, Q5_1 and Q2_K at
+     Q5_0, Q5_1, Q2_K, Q3_K_M, IQ4_XS, IQ4_NL, IQ3_XXS, IQ3_M and IQ2_M,
+     Mixtral-8x7B Q5_K_M and IQ4_XS at full depth, and Mixtral in Q8_0,
+     Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, IQ4_NL, IQ3_XXS, IQ3_S and IQ2_M at
      MIXTRAL_PRESET_LAYERS layers (one preset for each other expert kind);
      the phase's wall time;
   6. one JSON line of per-kernel results, the card's name and power limit,
@@ -81,7 +85,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 Weights are random wire blocks made on the card from a seed, each tensor of
 the kind llama.cpp's rules give it under the run's preset (Q4_K_M unless
-named; utils/synthetic.py).
+named; utils/synthetic.py; the IQ presets with an importance matrix, as the
+public files are made).
 """
 
 from __future__ import annotations
@@ -126,12 +131,18 @@ N_DECODE = 128
 # whose phase-5 run holds each (in the 8B dense weights; in the Mixtral
 # expert stacks, EXPERT_PRESET)
 NEW_KINDS = ("Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K")
+# the codebook kinds of llama.cpp's IQ presets
+IQ_KINDS = ("IQ4_NL", "IQ4_XS", "IQ3_XXS", "IQ3_S", "IQ2_S")
 KIND_PRESET = {"Q4_0": "Q4_0", "Q4_1": "Q4_1", "Q5_0": "Q5_0", "Q5_1": "Q5_1", "Q2_K": "Q2_K",
-               "Q3_K": "Q3_K_M"}
+               "Q3_K": "Q3_K_M", "IQ4_NL": "IQ4_NL", "IQ4_XS": "IQ4_XS", "IQ3_XXS": "IQ3_XXS",
+               "IQ3_S": "IQ3_M", "IQ2_S": "IQ2_M"}
 EXPERT_PRESET = {"Q8_0": "Q8_0", "Q5_K": "Q5_K_M", "Q4_0": "Q4_0", "Q4_1": "Q4_1",
-                 "Q5_0": "Q5_0", "Q5_1": "Q5_1", "Q2_K": "Q2_K", "Q3_K": "Q2_K"}
-# depth of the Mixtral runs of the presets other than Q5_K_M (each holds one
-# more expert kind; Q5_K_M runs at full depth)
+                 "Q5_0": "Q5_0", "Q5_1": "Q5_1", "Q2_K": "Q2_K", "Q3_K": "Q2_K",
+                 "IQ4_NL": "IQ4_NL", "IQ4_XS": "IQ4_XS", "IQ3_XXS": "IQ3_XXS", "IQ3_S": "IQ3_S",
+                 "IQ2_S": "IQ2_M"}
+# the Mixtral preset runs at full depth; the others (each holds one more
+# expert kind) at MIXTRAL_PRESET_LAYERS layers
+MIXTRAL_FULL_DEPTH = ("Q5_K_M", "IQ4_XS")
 MIXTRAL_PRESET_LAYERS = 4
 LONG_PROMPT = 4096
 # phase-5 runs whose decode also runs eagerly, in turns with the graph
@@ -210,8 +221,8 @@ def main() -> int:
         QuantKVCache, kv_dequant_planes, kv_plane_shapes)
     from llamacog_tpu_torch.runtime.sampler import SamplerChain, SamplerParams
     from llamacog_tpu_torch.utils.synthetic import (
-        DEFAULT_LAYOUT, llama3_8b_config, make_synthetic_params, mixtral_8x7b_config,
-        random_experts, random_wire)
+        CODEBOOK_PRESETS, DEFAULT_LAYOUT, llama3_8b_config, make_synthetic_params,
+        mixtral_8x7b_config, random_experts, random_wire)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -417,21 +428,25 @@ def main() -> int:
             # the Q8_0 and Q5_K weights run on the Mixtral path: its run's launches
             mixtral_kinds = any(w.kind in ("Q8_0", "Q5_K") for w in ws)
             weight_parity(kname, fn, B, label, ws, multi, "mixtral" if mixtral_kinds else None)
-    # the legacy and low-bit kinds of llama.cpp's other presets at the 8B FFN
-    # shapes, each read in the phase-5 run of a preset that holds it; and the
-    # mixed launch of a Q3_K_M layer's attn_qk (Q3_K) + attn_v (Q5_K, layers 0-1)
-    for kind in NEW_KINDS:
+    # the legacy, low-bit and codebook kinds of llama.cpp's other presets at
+    # the 8B FFN shapes, each read in the phase-5 run of a preset that holds
+    # it; and the mixed launches of a Q3_K_M layer's attn_qk (Q3_K) + attn_v
+    # (Q5_K, layers 0-1), an IQ3_XXS (and IQ2_M) layer's IQ2_S attn_qk + Q4_K
+    # attn_v and an IQ4_XS layer's IQ4_XS attn_qk + Q5_K attn_v
+    for kind in (*NEW_KINDS, *IQ_KINDS):
         w_gu_k, w_d_k = random_wire(kind, 2 * F, E, g, dev), random_wire(kind, E, F, g, dev)
         for kname, fn, B in weight_calls:
             for label, w in ((f"ffn_gate_up {kind} 28672x4096", w_gu_k),
                              (f"ffn_down {kind} 4096x14336", w_d_k)):
                 weight_parity(kname, fn, B, label, [w], False, f"8b {KIND_PRESET[kind]}")
         del w_gu_k, w_d_k
-    w_qk3, w_v5 = random_wire("Q3_K", 5120, E, g, dev), random_wire("Q5_K", 1024, E, g, dev)
-    for kname, fn, B in weight_calls:
-        weight_parity(kname, fn, B, "Q3_K_M attn_qk+attn_v Q3_K 5120x4096 + Q5_K 1024x4096",
-                      [w_qk3, w_v5], True, "8b Q3_K_M")
-    del w_qk3, w_v5
+    for preset, qk, v in (("Q3_K_M", "Q3_K", "Q5_K"), ("IQ3_XXS", "IQ2_S", "Q4_K"),
+                          ("IQ4_XS", "IQ4_XS", "Q5_K")):
+        w_qk_p, w_v_p = random_wire(qk, 5120, E, g, dev), random_wire(v, 1024, E, g, dev)
+        for kname, fn, B in weight_calls:
+            weight_parity(kname, fn, B, f"{preset} attn_qk+attn_v {qk} 5120x4096 + {v} 1024x4096",
+                          [w_qk_p, w_v_p], True, f"8b {preset}")
+        del w_qk_p, w_v_p
 
     # the activation quantization of the int8 route (one launch a layer
     # input), bit-equal to its plain version, at the 8B layer inputs: a
@@ -945,7 +960,8 @@ def main() -> int:
                 setattr(mod, attr, fn)
 
     def two_copies(cfgp, ftype=DEFAULT_LAYOUT):
-        p_gpu = make_synthetic_params(cfgp, seed=7, ftype=ftype)
+        p_gpu = make_synthetic_params(cfgp, seed=7, ftype=ftype,
+                                      imatrix=ftype in CODEBOOK_PRESETS)
         p_cpu = {k: (v if k == "layers" else v.to("cpu")) for k, v in p_gpu.items()}
         p_cpu["layers"] = [{k: v.to("cpu") for k, v in layer.items()}
                            for layer in p_gpu["layers"]]
@@ -1037,8 +1053,8 @@ def main() -> int:
 
     def path_check(model, cfgp, p_gpu, p_cpu, cases, forced, max_seq):
         """For each case (label, kv type, environment, prompt, kernels that
-        must launch, the T=1 attention route that must run), under the
-        case's environment: prefill, teacher-forced decode steps and a
+        must launch, the T=1 attention route that must run, and optionally
+        the model's dtype, bf16 by default), under the case's environment: prefill, teacher-forced decode steps and a
         9-token second chunk (which attends the cache of the first) through
         Engine on the card and on the CPU, the same params; logits held
         within TOL_PATH at every step. On a MoE model the router's bf16
@@ -1049,14 +1065,15 @@ def main() -> int:
         logits per case."""
         Vp = cfgp.n_vocab
         firsts = {}
-        for label, kv_type, env, prompt, must, route in cases:
+        for label, kv_type, env, prompt, must, route, *dtype in cases:
+            dtype = dtype[0] if dtype else torch.bfloat16
             t_case = time.perf_counter()
             runs, seen, diffs = {}, [], []
             real_rows = [len(prompt)] + [1] * len(forced) + [9]
             with env_vars(env):
                 for name, params, device in (("kernel", p_gpu, "cuda"), ("plain", p_cpu, "cpu")):
                     eng = Engine(params, cfgp, batch_size=1, max_seq=max_seq, kv_type=kv_type,
-                                 device=device)
+                                 dtype=dtype, device=device)
                     build.reset_launches()
                     routing = (routing_record(cfgp, max_seq, seen) if name == "kernel"
                                else routing_forced(cfgp, seen, real_rows, diffs))
@@ -1135,15 +1152,21 @@ def main() -> int:
     del p_gpu, p_cpu, exact, mm
     torch.cuda.empty_cache()
     # the other presets at 8B widths: legacy Q4_0 (q+k+v and gate+up fused)
-    # and Q5_1; Q3_K_M (layers 0-1: a Q3_K attn_qk + Q5_K attn_v launch, Q5_K
-    # ffn_down) and Q2_K (Q4_K attn_v, Q3_K attn_output and ffn_down); and
-    # Q4_0 under int8 prefill (its planes made by the plain dequant)
-    for preset in ("Q4_0", "Q5_1", "Q3_K_M", "Q2_K"):
+    # under int8 prefill (its planes made by the plain dequant; its decode
+    # steps take qmv and its 9-token second chunk qgemm, so it also holds
+    # what a dense-prefill Q4_0 case held, and the phase keeps its time) and
+    # Q5_1; Q3_K_M (layers 0-1: a Q3_K attn_qk + Q5_K attn_v launch, Q5_K
+    # ffn_down) and Q2_K (Q4_K attn_v, Q3_K attn_output and ffn_down); IQ4_XS
+    # (an IQ4_XS attn_qk + Q5_K attn_v launch) and IQ3_XXS (all three grid
+    # kinds: IQ2_S attn_qk + Q4_K attn_v, IQ3_S attn_output and token_embd,
+    # IQ3_XXS FFN)
+    for preset in ("Q4_0", "Q5_1", "Q3_K_M", "Q2_K", "IQ4_XS", "IQ3_XXS"):
         p_gpu, p_cpu = two_copies(cfg2, preset)
-        cases = [(f"{preset} kv dense", "dense", {}, prompt20, ("qmv", "qgemm"), "stacked")]
         if preset == "Q4_0":
-            cases.append((f"{preset} {mmq_label}", "dense", {"LLAMACOG_MMQ": "1"}, prompt300,
-                          ("qmm_i8", "quantize_i8"), "stacked"))
+            cases = [(f"{preset} {mmq_label}", "dense", {"LLAMACOG_MMQ": "1"}, prompt300,
+                      ("qmv", "qgemm", "qmm_i8", "quantize_i8"), "stacked")]
+        else:
+            cases = [(f"{preset} kv dense", "dense", {}, prompt20, ("qmv", "qgemm"), "stacked")]
         path_check("8B widths", cfg2, p_gpu, p_cpu, cases, [11, 12345, 777, 90000], 1024)
         del p_gpu, p_cpu
         torch.cuda.empty_cache()
@@ -1158,12 +1181,26 @@ def main() -> int:
         [11, 12345, 777, 31000], 33)
     del p_gpu, p_cpu
     torch.cuda.empty_cache()
-    # Q5_K_M's Q5_K expert stacks (and Q6_K down on the more-bits layers) and
-    # Q3_K_M's Q3_K gate/up with Q5_K / Q4_K down
-    for preset in ("Q5_K_M", "Q3_K_M"):
+    # Q5_K_M's Q5_K expert stacks (and Q6_K down on the more-bits layers),
+    # Q3_K_M's Q3_K gate/up with Q5_K / Q4_K down, IQ2_M's IQ2_S stacks (its
+    # IQ3_S down takes the first n_layer / 8 layers: none of 2) with an IQ2_S
+    # attn_q + Q4_K attn_k/attn_v launch, and IQ3_XXS's IQ3_XXS stacks (IQ2_S
+    # attn_q + Q8_0 attn_k/attn_v) as an f32 model: in bf16 this synthetic
+    # model's own plain path moves past TOL_PATH under noise of about a bf16
+    # rounding on its products (tools/path_sensitivity.py at eps 1e-3:
+    # 5.6e-2, 4.5e-2 with the dense products alone perturbed; Q5_K_M 2.3e-2,
+    # IQ2_M 4.8e-3), so a bf16 comparison cannot tell a kernel defect from
+    # that sensitivity; in f32
+    # the paths differ by summation order alone (the K10 route serves f32
+    # prefill rows; K11's IQ3_XXS stacks are held in phase 3 and run in the
+    # Mixtral IQ3_XXS run of phase 5)
+    for preset, dtype in (("Q5_K_M", torch.bfloat16), ("Q3_K_M", torch.bfloat16),
+                          ("IQ2_M", torch.bfloat16), ("IQ3_XXS", torch.float32)):
         p_gpu, p_cpu = two_copies(mcfg2, preset)
+        bf16 = dtype == torch.bfloat16
         path_check("Mixtral widths", mcfg2, p_gpu, p_cpu, [
-            (f"{preset} kv dense", "dense", {}, prompt20m, ("qmv_id", "qgemm_id"), "stacked")],
+            (f"{preset} kv dense{'' if bf16 else ' f32'}", "dense", {}, prompt20m,
+             ("qmv_id", "qgemm_id") if bf16 else ("qmv", "qmv_id"), "stacked", dtype)],
             [11, 12345, 777, 31000], 33)
         del p_gpu, p_cpu
         torch.cuda.empty_cache()
@@ -1381,7 +1418,8 @@ def main() -> int:
             check(same, f"{what}: the captured split + combine differs from the eager call")
     def build_params(model, cfgm, ftype=DEFAULT_LAYOUT):
         t0 = time.perf_counter()
-        params = make_synthetic_params(cfgm, seed=0, ftype=ftype)
+        params = make_synthetic_params(cfgm, seed=0, ftype=ftype,
+                                       imatrix=ftype in CODEBOOK_PRESETS)
         torch.cuda.synchronize()
         kinds = sorted({f"{k} {v.kind}" for k, v in params["layers"][0].items()
                         if isinstance(v, WireTensor)})
@@ -1480,17 +1518,28 @@ def main() -> int:
 
     def preset_run(model, cfgm, preset, used):
         """The synthetic model of `preset` at cfgm's depth through the engine:
-        a 128-token prompt, 64 greedy tokens through the graph (main_path_runs)."""
+        a 128-token prompt, 64 greedy tokens through the graph (main_path_runs).
+        The kinds phase 3 reads this run's launches for (KIND_PRESET for the
+        8B, EXPERT_PRESET for Mixtral's stacks) must be among its weights."""
         params = build_params(f"{model} {preset}", cfgm, preset)
+        stacks = model == "mixtral"
+        held = {w.kind for layer in params["layers"] for w in layer.values()
+                if isinstance(w, WireTensor) and (len(w.shape) == 3) == stacks}
+        claimed = {k for k, p in (EXPERT_PRESET if stacks else KIND_PRESET).items() if p == preset}
+        check(claimed <= held, f"{model} {preset}: the run holds {sorted(held)} "
+              f"{'expert stacks' if stacks else 'layer weights'}, not {sorted(claimed - held)}")
         run = main_path_runs(f"{model} {preset}", params, cfgm,
                              [(preset, "dense", {}, PROMPT_LEN, used, 1024, 64)])[preset]
+        log(f"[{model} {preset}] the run's {'expert stacks' if stacks else 'layer weights'}: "
+            f"{sorted(held)}; phase 3 reads its launches for {sorted(claimed)}")
         del params
         torch.cuda.empty_cache()
         return run
 
     # the 8B at full depth in each preset that holds one of the other kinds
     preset_runs = {f"8b {p}": preset_run("8b", cfg, p, exact_path)
-                   for p in ("Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K_M")}
+                   for p in ("Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K_M", "IQ4_XS",
+                             "IQ4_NL", "IQ3_XXS", "IQ3_M", "IQ2_M")}
     # Mixtral-8x7B at full depth (28.3 GB of wire blocks), the dense cache,
     # the attention weight kinds of a real Q4_K_M file: the MoE kernels must
     # launch, the quantized-cache ones must not
@@ -1506,12 +1555,13 @@ def main() -> int:
           f"(want {2 * mcfg.n_layer})")
     del params
     torch.cuda.empty_cache()
-    # Mixtral-8x7B Q5_K_M at full depth (Q5_K expert stacks), and the presets
-    # that hold each other expert kind at MIXTRAL_PRESET_LAYERS layers
+    # Mixtral-8x7B Q5_K_M and IQ4_XS at full depth (Q5_K, IQ4_XS expert
+    # stacks), and the presets that hold each other expert kind at
+    # MIXTRAL_PRESET_LAYERS layers
     mcfg_cut = mixtral_8x7b_config(n_layer=MIXTRAL_PRESET_LAYERS)
-    for preset in sorted(set(EXPERT_PRESET.values()), key=lambda p: p != "Q5_K_M"):
+    for preset in sorted(set(EXPERT_PRESET.values()), key=lambda p: p not in MIXTRAL_FULL_DEPTH):
         preset_runs[f"mixtral {preset}"] = preset_run(
-            "mixtral", mcfg if preset == "Q5_K_M" else mcfg_cut, preset, moe_path)
+            "mixtral", mcfg if preset in MIXTRAL_FULL_DEPTH else mcfg_cut, preset, moe_path)
     for model, name in sorted(EAGER_TURNS):
         r = (runs_8b if model == "8b" else runs_moe)[name]
         log(f"[{model} {name}] decode ms/token, graph {statistics.median(r['graph_ms']):.3f} "

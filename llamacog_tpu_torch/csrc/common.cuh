@@ -16,18 +16,30 @@
 
 // quantized weight kinds (GGUF wire format, ggml-common.h block_q4_K,
 // block_q6_K, block_q8_0, block_q5_K, block_q4_0, block_q4_1, block_q5_0,
-// block_q5_1, block_q2_K, block_q3_K), numbered as qmm.py's _KIND_ID
+// block_q5_1, block_q2_K, block_q3_K, block_iq4_nl, block_iq4_xs,
+// block_iq3_xxs, block_iq3_s, block_iq2_s), numbered as qmm.py's _KIND_ID
 enum { KIND_Q4_K = 0, KIND_Q6_K = 1, KIND_Q8_0 = 2, KIND_Q5_K = 3, KIND_Q4_0 = 4, KIND_Q4_1 = 5,
-       KIND_Q5_0 = 6, KIND_Q5_1 = 7, KIND_Q2_K = 8, KIND_Q3_K = 9 };
+       KIND_Q5_0 = 6, KIND_Q5_1 = 7, KIND_Q2_K = 8, KIND_Q3_K = 9, KIND_IQ4_NL = 10,
+       KIND_IQ4_XS = 11, KIND_IQ3_XXS = 12, KIND_IQ3_S = 13, KIND_IQ2_S = 14 };
+// The codebook kinds (levels from a table: quant/iq_tables.py).
+__host__ __device__ constexpr bool kind_iq(int kind) {
+    return kind >= KIND_IQ4_NL && kind <= KIND_IQ2_S;
+}
 // The kinds one instantiation of a weight kernel takes: a dense Q4_K_M
 // llama's (Q4_K, Q6_K), a Q4_K_M file's (those and an 8-expert model's Q8_0
-// attn_k/attn_v and Q5_K attn_output), every kind. A kernel's register
-// count is that of its widest kind, so the launches of the smaller sets
-// keep instantiations that the other kinds do not widen.
-enum { KS_Q4K_Q6K = 0, KS_Q4KM = 1, KS_ALL = 2 };
+// attn_k/attn_v and Q5_K attn_output), every kind but the codebook ones
+// (KS_ALL), and the codebook kinds with the four of a Q4_K_M file, which
+// they share launches with (an IQ preset's Q4_K or Q5_K attn_v, an 8-expert
+// model's Q8_0 attn_k/attn_v). A kernel's register count is that of its
+// widest kind, so the launches of the smaller sets keep instantiations that
+// the other kinds do not widen. A launch of a codebook kind with a kind of
+// KS_ALL alone has no set (the Python side never makes one).
+enum { KS_Q4K_Q6K = 0, KS_Q4KM = 1, KS_ALL = 2, KS_IQ = 3 };
 __host__ __device__ constexpr bool kind_in_set(int kind, int set) {
-    return set == KS_ALL || kind == KIND_Q4_K || kind == KIND_Q6_K ||
-           (set == KS_Q4KM && (kind == KIND_Q8_0 || kind == KIND_Q5_K));
+    return set == KS_ALL ? !kind_iq(kind)
+         : kind == KIND_Q4_K || kind == KIND_Q6_K ||
+           ((set == KS_Q4KM || set == KS_IQ) && (kind == KIND_Q8_0 || kind == KIND_Q5_K)) ||
+           (set == KS_IQ && kind_iq(kind));
 }
 // element type of activations, caches and outputs
 enum { DT_F32 = 0, DT_BF16 = 1 };
@@ -44,6 +56,11 @@ constexpr int Q50_BYTES = 176;   // 22-byte blocks: d f16, qh u32, qs[16]
 constexpr int Q51_BYTES = 192;   // 24-byte blocks: d f16, m f16, qh u32, qs[16]
 constexpr int Q2K_BYTES = 84;    // scales[16] (4-bit scale | 4-bit min), qs[64], d f16, dmin f16
 constexpr int Q3K_BYTES = 110;   // hmask[32], qs[64], scales[12] (6-bit), d f16
+constexpr int IQ4NL_BYTES = 144;  // eight 18-byte blocks of 32: d f16, qs[16]
+constexpr int IQ4XS_BYTES = 136;  // d f16, scales_h u16, scales_l[4], qs[128]
+constexpr int IQ3XXS_BYTES = 98;  // d f16, qs[64] grid indices, 8 u32 (4 sign indices, scale)
+constexpr int IQ3S_BYTES = 110;   // d f16, qs[64], qh[8], signs[32], scales[4]
+constexpr int IQ2S_BYTES = 82;    // d f16, qs[32], signs[32], qh[8], scales[8]
 
 // Wire bytes of QK_K weights of `kind`, or 0 for a kind the kernels do not take.
 __host__ __device__ constexpr int kind_sb_bytes(int kind) {
@@ -51,7 +68,10 @@ __host__ __device__ constexpr int kind_sb_bytes(int kind) {
          : kind == KIND_Q8_0 ? Q80_BYTES : kind == KIND_Q5_K ? Q5K_BYTES
          : kind == KIND_Q4_0 ? Q40_BYTES : kind == KIND_Q4_1 ? Q41_BYTES
          : kind == KIND_Q5_0 ? Q50_BYTES : kind == KIND_Q5_1 ? Q51_BYTES
-         : kind == KIND_Q2_K ? Q2K_BYTES : kind == KIND_Q3_K ? Q3K_BYTES : 0;
+         : kind == KIND_Q2_K ? Q2K_BYTES : kind == KIND_Q3_K ? Q3K_BYTES
+         : kind == KIND_IQ4_NL ? IQ4NL_BYTES : kind == KIND_IQ4_XS ? IQ4XS_BYTES
+         : kind == KIND_IQ3_XXS ? IQ3XXS_BYTES : kind == KIND_IQ3_S ? IQ3S_BYTES
+         : kind == KIND_IQ2_S ? IQ2S_BYTES : 0;
 }
 
 // The legacy kinds (Q4_0, Q4_1, Q5_0, Q5_1: 32-weight blocks with an f16
@@ -535,6 +555,185 @@ __device__ __forceinline__ void low_k_scales(const RAW& r, int i, float (&dl)[4]
     }
 }
 
+// The codebook kinds. Every level is a small signed integer (an entry of
+// kvalues_iq4nl, or a grid byte times a sign), exact in f32 and in int8,
+// under a scale with no offset: a lane's slot i is sub-block i (elements
+// 32i..32i+31), as Q8_0's, and its levels go through s8_level as bytes
+// 128 + level. The tables come from iq_tables.cuh, which ops/cuda/build.py
+// writes from quant/iq_tables.py: the 16 IQ4 levels in four words held in
+// registers and picked by byte permutes; the grids in global memory, read
+// through L1 (__ldg). The sign byte of IQ3_XXS's 7-bit sign index
+// (ksigns_iq2xs) is the index with its parity as bit 7, so it is computed.
+//
+// IQ4_NL blocks are Q4_0's (18 bytes: d, 16 nibble bytes), read as Q4_0's.
+// IQ4_XS superblocks (136 bytes) are 8-byte aligned: the 8-byte header (d,
+// scales_h, scales_l) and the slot's 16 qs bytes at 8 + 16i. IQ3_XXS (98),
+// IQ3_S (110) and IQ2_S (82) superblocks are only 2-byte aligned: an 8-byte
+// field (IQ3 grid indices, 2 + 8i) is read as Q6_K's, three aligned words
+// shifted into place when used (no field of 8 ends a superblock); a 4-byte
+// field as two halfwords, a byte field as the halfword that holds it, so
+// nothing past a superblock's last byte is read.
+#include "iq_tables.cuh"
+
+struct IQ4XSRaw {
+    uint2 h, q0, q1;  // d | scales_h << 16, scales_l; qs bytes 16i..16i+7, +8..+15
+};
+
+struct IQ3XXSRaw {
+    uint32_t q[3];       // grid index bytes 8i..8i+7, as aligned words
+    uint32_t s_lo, s_hi; // the slot's u32 of sign indices and scale, by halves
+    uint32_t d;
+    int shift;           // 16 when the superblock starts on a 4-byte boundary, else 0
+};
+
+struct IQ3SRaw {
+    uint32_t q[3];    // grid index bytes 8i..8i+7, as aligned words
+    uint32_t d, qh;   // qh: the halfword holding qh[i]
+    uint32_t s_lo, s_hi;  // sign bytes 4i..4i+3, by halves
+    uint32_t sc;      // the halfword holding the slot's scale nibble
+    int shift;
+};
+
+struct IQ2SRaw {
+    uint32_t d, q_lo, q_hi, s_lo, s_hi;  // grid index and sign bytes 4i..4i+3, by halves
+    uint32_t qh, sc;                     // the halfwords holding qh[i], scales[i]
+};
+
+__device__ __forceinline__ uint32_t ld_u16(const uint8_t* p) {
+    return *reinterpret_cast<const unsigned short*>(p);
+}
+
+// The aligned words covering the 8 bytes at even address p: the third
+// only when they straddle a word boundary, else the second again.
+__device__ __forceinline__ void ld_words8(const uint8_t* p, uint32_t (&w)[3]) {
+    const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(p) & 2);
+    const uint32_t* a = reinterpret_cast<const uint32_t*>(p - mis);
+    w[0] = a[0];
+    w[1] = a[1];
+    w[2] = a[1 + (mis >> 1)];
+}
+
+__device__ __forceinline__ IQ4XSRaw iq4xs_raw(const uint8_t* blk, int i) {
+    const uint2* b = reinterpret_cast<const uint2*>(blk);
+    return {b[0], b[1 + 2 * i], b[2 + 2 * i]};
+}
+
+__device__ __forceinline__ IQ3XXSRaw iq3xxs_raw(const uint8_t* blk, int i) {
+    IQ3XXSRaw r;
+    ld_words8(blk + 2 + 8 * i, r.q);
+    r.s_lo = ld_u16(blk + 66 + 4 * i);
+    r.s_hi = ld_u16(blk + 68 + 4 * i);
+    r.d = ld_u16(blk);
+    r.shift = 16 - 8 * static_cast<int>(reinterpret_cast<uintptr_t>(blk) & 2);
+    return r;
+}
+
+__device__ __forceinline__ IQ3SRaw iq3s_raw(const uint8_t* blk, int i) {
+    IQ3SRaw r;
+    ld_words8(blk + 2 + 8 * i, r.q);
+    r.d = ld_u16(blk);
+    r.qh = ld_u16(blk + 66 + (i & ~1));
+    r.s_lo = ld_u16(blk + 74 + 4 * i);
+    r.s_hi = ld_u16(blk + 76 + 4 * i);
+    r.sc = ld_u16(blk + 106 + 2 * (i >> 2));
+    r.shift = 16 - 8 * static_cast<int>(reinterpret_cast<uintptr_t>(blk) & 2);
+    return r;
+}
+
+__device__ __forceinline__ IQ2SRaw iq2s_raw(const uint8_t* blk, int i) {
+    return {ld_u16(blk), ld_u16(blk + 2 + 4 * i), ld_u16(blk + 4 + 4 * i),
+            ld_u16(blk + 34 + 4 * i), ld_u16(blk + 36 + 4 * i), ld_u16(blk + 66 + (i & ~1)),
+            ld_u16(blk + 74 + (i & ~1))};
+}
+
+// kvalues_iq4nl[q] + 128 for the four nibbles q of sel's low 16 bits
+// (nibble n -> byte n): two byte permutes pick entry q & 7 of the low and
+// of the high eight, a third takes the high one where bit 3 of q is set.
+__device__ __forceinline__ uint32_t iq4_x80(uint32_t sel) {
+    const uint32_t s = sel & 0x7777u;
+    const uint32_t lo = __byte_perm(IQ4NL_X80_0, IQ4NL_X80_1, s);
+    const uint32_t hi = __byte_perm(IQ4NL_X80_2, IQ4NL_X80_3, s);
+    return __byte_perm(lo, hi, 0x3210u | ((sel & 0x8888u) >> 1));
+}
+
+// The levels + 128 of IQ4 qs word w: lo for its low nibbles (elements
+// 4k..4k+3 of the 32 of word k), hi for its high nibbles (16 + 4k..).
+__device__ __forceinline__ void iq4_bytes(uint32_t w, uint32_t& lo, uint32_t& hi) {
+    const uint32_t a = iq4_x80(w & 0xFFFFu);  // bytes 0 lo, 0 hi, 1 lo, 1 hi
+    const uint32_t b = iq4_x80(w >> 16);      // bytes 2 lo, 2 hi, 3 lo, 3 hi
+    lo = __byte_perm(a, b, 0x6420u);
+    hi = __byte_perm(a, b, 0x7531u);
+}
+
+// Four grid bytes (each below 128, never 0) with sign bits s (bit j: byte j
+// negated) as the bytes 128 + level: 128 + g is g ^ 0x80, and 128 - g is
+// (g ^ 0x7F) + 1; no byte carries into the next.
+__device__ __forceinline__ uint32_t iq_signed_x80(uint32_t grid4, uint32_t s) {
+    const uint32_t sp = spread4(s & 0xFu);
+    return (grid4 ^ 0x80808080u ^ (sp * 0xFFu)) + sp;
+}
+
+// ksigns_iq2xs[s7]: the 7-bit sign index with its parity as bit 7
+__device__ __forceinline__ uint32_t iq_ksigns(uint32_t s7) {
+    return s7 | ((__popc(s7) & 1u) << 7);
+}
+
+// The 32 levels + 128 of a codebook kind's slot i (word k: elements
+// 4k..4k+3) and its scales (IQ2_S: elements 0-15, 16-31; else sc[0]), each
+// scale formed as the plain dequant forms it.
+template <int KIND, typename RAW>
+__device__ __forceinline__ void iq_slot(const RAW& r, int i, uint32_t (&x80)[8], float (&sc)[2]) {
+    if constexpr (KIND == KIND_IQ4_NL) {
+        const LegacyFields f = legacy_fields<KIND_Q4_0>(r);
+        sc[0] = sc[1] = f16_bits(f.dm & 0xFFFF);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) iq4_bytes(f.qs[k], x80[k], x80[4 + k]);
+    } else if constexpr (KIND == KIND_IQ4_XS) {
+        const uint32_t ls = ((r.h.y >> (4 * i)) & 0xF) | (((r.h.x >> (16 + 2 * i)) & 3) << 4);
+        sc[0] = sc[1] = __fmul_rn(f16_bits(r.h.x & 0xFFFF), u23_f32(ls) - 32.f);
+        const uint32_t w[4] = {r.q0.x, r.q0.y, r.q1.x, r.q1.y};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) iq4_bytes(w[k], x80[k], x80[4 + k]);
+    } else if constexpr (KIND == KIND_IQ3_XXS) {
+        const uint32_t q[2] = {__funnelshift_r(r.q[0], r.q[1], r.shift),
+                               __funnelshift_r(r.q[1], r.q[2], r.shift)};
+        const uint32_t sas = r.s_lo | (r.s_hi << 16);
+        sc[0] = sc[1] = __fmul_rn(__fmul_rn(f16_bits(r.d), 0.5f + u23_f32(sas >> 28)), 0.5f);
+#pragma unroll
+        for (int l = 0; l < 4; ++l) {
+            const uint32_t s = iq_ksigns((sas >> (7 * l)) & 127);
+            const uint32_t pair = q[l >> 1] >> (16 * (l & 1));
+            x80[2 * l] = iq_signed_x80(__ldg(&IQ3XXS_GRID[pair & 0xFF]), s);
+            x80[2 * l + 1] = iq_signed_x80(__ldg(&IQ3XXS_GRID[(pair >> 8) & 0xFF]), s >> 4);
+        }
+    } else if constexpr (KIND == KIND_IQ3_S) {
+        const uint32_t q[2] = {__funnelshift_r(r.q[0], r.q[1], r.shift),
+                               __funnelshift_r(r.q[1], r.q[2], r.shift)};
+        const uint32_t qh = r.qh >> (8 * (i & 1)), signs = r.s_lo | (r.s_hi << 16);
+        sc[0] = sc[1] = __fmul_rn(f16_bits(r.d), u23_f32(1 + 2 * ((r.sc >> (4 * (i & 3))) & 0xF)));
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+            const uint32_t idx = ((q[m >> 2] >> (8 * (m & 3))) & 0xFF) | (((qh >> m) & 1) << 8);
+            x80[m] = iq_signed_x80(__ldg(&IQ3S_GRID[idx]), signs >> (4 * m));
+        }
+    } else {
+        static_assert(KIND == KIND_IQ2_S, "a codebook kind");
+        const uint32_t qs = r.q_lo | (r.q_hi << 16), signs = r.s_lo | (r.s_hi << 16);
+        const uint32_t qh = r.qh >> (8 * (i & 1)), scb = r.sc >> (8 * (i & 1));
+        const float d = f16_bits(r.d);
+        sc[0] = __fmul_rn(__fmul_rn(d, 0.5f + u23_f32(scb & 0xF)), 0.25f);
+        sc[1] = __fmul_rn(__fmul_rn(d, 0.5f + u23_f32((scb >> 4) & 0xF)), 0.25f);
+#pragma unroll
+        for (int l = 0; l < 4; ++l) {
+            const uint32_t idx = ((qs >> (8 * l)) & 0xFF) | (((qh >> (2 * l)) & 3) << 8);
+            const uint2 g = __ldg(reinterpret_cast<const uint2*>(IQ2S_GRID) + idx);
+            const uint32_t s = signs >> (8 * l);
+            x80[2 * l] = iq_signed_x80(g.x, s);
+            x80[2 * l + 1] = iq_signed_x80(g.y, s >> 4);
+        }
+    }
+}
+
 template <int KIND> struct KindRaw;
 template <> struct KindRaw<KIND_Q4_K> { using type = Q4KRaw; };
 template <> struct KindRaw<KIND_Q6_K> { using type = Q6KRaw; };
@@ -546,6 +745,11 @@ template <> struct KindRaw<KIND_Q5_0> { using type = LegacyRaw<KIND_Q5_0>; };
 template <> struct KindRaw<KIND_Q5_1> { using type = LegacyRaw<KIND_Q5_1>; };
 template <> struct KindRaw<KIND_Q2_K> { using type = Q2KRaw; };
 template <> struct KindRaw<KIND_Q3_K> { using type = Q3KRaw; };
+template <> struct KindRaw<KIND_IQ4_NL> { using type = LegacyRaw<KIND_Q4_0>; };
+template <> struct KindRaw<KIND_IQ4_XS> { using type = IQ4XSRaw; };
+template <> struct KindRaw<KIND_IQ3_XXS> { using type = IQ3XXSRaw; };
+template <> struct KindRaw<KIND_IQ3_S> { using type = IQ3SRaw; };
+template <> struct KindRaw<KIND_IQ2_S> { using type = IQ2SRaw; };
 template <int KIND>
 using QmvRaw = typename KindRaw<KIND>::type;
 
@@ -557,31 +761,56 @@ __device__ __forceinline__ QmvRaw<KIND> qmv_raw(const uint8_t* blk, int i) {
     else if constexpr (KIND == KIND_Q5_K) return q5k_raw(blk, i);
     else if constexpr (kind_legacy(KIND)) return legacy_raw<KIND>(blk, i);
     else if constexpr (KIND == KIND_Q2_K) return q2k_raw(blk, i);
-    else return q3k_raw(blk, i);
+    else if constexpr (KIND == KIND_Q3_K) return q3k_raw(blk, i);
+    else if constexpr (KIND == KIND_IQ4_NL) return legacy_raw<KIND_Q4_0>(blk, i);
+    else if constexpr (KIND == KIND_IQ4_XS) return iq4xs_raw(blk, i);
+    else if constexpr (KIND == KIND_IQ3_XXS) return iq3xxs_raw(blk, i);
+    else if constexpr (KIND == KIND_IQ3_S) return iq3s_raw(blk, i);
+    else return iq2s_raw(blk, i);
 }
 
-// Parts of a lane's slice that share a scale: Q4_K and Q5_K 2 of 16; Q6_K,
-// Q2_K and Q3_K 4 of 8; Q8_0 and the legacy kinds one of 32.
+// Parts of a lane's slice that share a scale: Q4_K, Q5_K and IQ2_S 2 of 16;
+// Q6_K, Q2_K and Q3_K 4 of 8; Q8_0, the legacy and the other codebook kinds
+// one of 32.
 template <int KIND>
 __host__ __device__ constexpr int qmv_parts() {
     return KIND == KIND_Q6_K || kind_low_k(KIND) ? 4
-         : KIND == KIND_Q8_0 || kind_legacy(KIND) ? 1 : 2;
+         : KIND == KIND_Q8_0 || kind_legacy(KIND) || (kind_iq(KIND) && KIND != KIND_IQ2_S) ? 1
+         : 2;
 }
 
 // Whether the kind's levels carry an offset folded against sums of x: Q8_0's
-// levels are the signed q themselves, with no bias and no min.
+// and the codebook kinds' levels are signed integers themselves, with no
+// bias and no min.
 template <int KIND>
-__host__ __device__ constexpr bool qmv_has_offset() { return KIND != KIND_Q8_0; }
+__host__ __device__ constexpr bool qmv_has_offset() { return KIND != KIND_Q8_0 && !kind_iq(KIND); }
 
 // A lane's 32 levels plus their bias (exact f32: Q4_K, Q4_0, Q4_1, Q2_K
-// and Q3_K 16 + q, Q5_K, Q5_0 and Q5_1 32 + q, Q6_K 64 + q; Q8_0 the signed
-// q, no bias) and its parts' scale sc and offset mn (the bias, the kind's
-// own offset and min folded in; 0 for Q8_0).
+// and Q3_K 16 + q, Q5_K, Q5_0 and Q5_1 32 + q, Q6_K 64 + q; Q8_0 and the
+// codebook kinds the signed level, no bias) and its parts' scale sc and
+// offset mn (the bias, the kind's own offset and min folded in; 0 for Q8_0
+// and the codebook kinds).
 template <int KIND>
 __device__ __forceinline__ void qmv_levels(const QmvRaw<KIND>& r, int i, float (&lv)[QMV_SLICE],
                                            float (&sc)[qmv_parts<KIND>()],
                                            float (&mn)[qmv_parts<KIND>()]) {
-    if constexpr (kind_legacy(KIND)) {
+    if constexpr (kind_iq(KIND)) {
+        uint32_t x80[8];
+        float s2[2];
+        iq_slot<KIND>(r, i, x80, s2);
+#pragma unroll
+        for (int p = 0; p < qmv_parts<KIND>(); ++p) {
+            sc[p] = s2[p];
+            mn[p] = 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+            lv[4 * k + 0] = s8_level<0>(x80[k]);
+            lv[4 * k + 1] = s8_level<1>(x80[k]);
+            lv[4 * k + 2] = s8_level<2>(x80[k]);
+            lv[4 * k + 3] = s8_level<3>(x80[k]);
+        }
+    } else if constexpr (kind_legacy(KIND)) {
         const LegacyFields f = legacy_fields<KIND>(r);
         const float d = f16_bits(f.dm & 0xFFFF);
         sc[0] = d;
@@ -738,7 +967,7 @@ __device__ __forceinline__ int q4k_x_offset(int i, int part) {  // part 0: k<16,
 // The 32 activation values matching a lane's slice, for one row of x.
 template <int KIND, typename TX>
 __device__ __forceinline__ void x_slice(const TX* xsb, int i, float* xv) {
-    if constexpr (KIND == KIND_Q8_0 || kind_legacy(KIND)) {
+    if constexpr (KIND == KIND_Q8_0 || kind_legacy(KIND) || kind_iq(KIND)) {
 #pragma unroll
         for (int k = 0; k < 4; ++k) load8(xsb + 32 * i + 8 * k, xv + 8 * k);
     } else if constexpr (KIND == KIND_Q4_K || KIND == KIND_Q5_K) {
@@ -917,6 +1146,44 @@ __device__ __forceinline__ float wire_weight(const uint8_t* sb, int c) {
             const int hbit = (sb[l] >> (c >> 5)) & 1;
             return __fmul_rn(dl, (float)(q2 - (hbit ? 0 : 4)));
         }
+    } else if constexpr (KIND == KIND_IQ4_NL || KIND == KIND_IQ4_XS) {
+        const int ib = c >> 5, j = c & 31;
+        const uint8_t* qs = KIND == KIND_IQ4_NL ? sb + 18 * ib + 2 : sb + 8 + 16 * ib;
+        const uint32_t q = (qs[j & 15] >> (4 * (j >> 4))) & 0xF;
+        const uint32_t b = __byte_perm(q & 8 ? IQ4NL_X80_2 : IQ4NL_X80_0,
+                                       q & 8 ? IQ4NL_X80_3 : IQ4NL_X80_1, q & 7) & 0xFF;
+        const float level = (float)(int)b - 128.f;
+        if constexpr (KIND == KIND_IQ4_NL) return __fmul_rn(level, f16_bits(u16_at(sb + 18 * ib)));
+        const int ls = ((sb[4 + (ib >> 1)] >> (4 * (ib & 1))) & 0xF) |
+                       (((u16_at(sb + 2) >> (2 * ib)) & 3) << 4);
+        return __fmul_rn(__fmul_rn(f16_bits(u16_at(sb)), (float)(ls - 32)), level);
+    } else if constexpr (kind_iq(KIND)) {
+        // a grid byte g, its sign, and the sub-block's scale dl: (dl * g) * sign
+        const int ib = c >> 5, j = c & 31;
+        const float d = f16_bits(u16_at(sb));
+        uint32_t g, neg;
+        float dl;
+        if constexpr (KIND == KIND_IQ3_XXS) {
+            const int l = j >> 3, e = j & 7;
+            const uint32_t sas = u16_at(sb + 66 + 4 * ib) | (u16_at(sb + 68 + 4 * ib) << 16);
+            g = __ldg(&IQ3XXS_GRID[sb[2 + 8 * ib + 2 * l + (e >> 2)]]) >> (8 * (e & 3));
+            neg = iq_ksigns((sas >> (7 * l)) & 127) >> e;
+            dl = __fmul_rn(__fmul_rn(d, 0.5f + (float)(sas >> 28)), 0.5f);
+        } else if constexpr (KIND == KIND_IQ3_S) {
+            const int m = j >> 2, e = j & 3;
+            g = __ldg(&IQ3S_GRID[sb[2 + 8 * ib + m] | (((sb[66 + ib] >> m) & 1) << 8)]) >> (8 * e);
+            neg = sb[74 + 4 * ib + (m >> 1)] >> (4 * (m & 1) + e);
+            dl = __fmul_rn(d, (float)(1 + 2 * ((sb[106 + (ib >> 1)] >> (4 * (ib & 1))) & 0xF)));
+        } else {
+            const int l = j >> 3, e = j & 7;
+            const int idx = sb[2 + 4 * ib + l] | (((sb[66 + ib] >> (2 * l)) & 3) << 8);
+            g = __ldg(&IQ2S_GRID[2 * idx + (e >> 2)]) >> (8 * (e & 3));
+            neg = sb[34 + 4 * ib + l] >> e;
+            const int s = sb[74 + ib];
+            dl = __fmul_rn(__fmul_rn(d, 0.5f + (float)(l < 2 ? s & 0xF : s >> 4)), 0.25f);
+        }
+        const float w = __fmul_rn(dl, (float)(g & 0xFF));
+        return neg & 1 ? -w : w;
     } else {
         static_assert(KIND == KIND_Q5_K, "Q4_K and Q6_K have tuned dequants of their own");
         const int j = c >> 5, r = j & 3;  // the 32-weight sub-block and its scale bytes

@@ -1,5 +1,6 @@
 // qgemm — fused dequant x GEMM over GGUF wire-format weights: Q4_K, Q6_K,
-// Q8_0, Q5_K, Q4_0, Q4_1, Q5_0, Q5_1, Q2_K and Q3_K.
+// Q8_0, Q5_K, Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, Q3_K and the codebook kinds
+// IQ4_NL, IQ4_XS, IQ3_XXS, IQ3_S, IQ2_S.
 //
 // Replaces (llamacog_tpu/ops/pallas/qmm.py): _qmm_call at B > 8 (the plain
 // and the row-tiled tb > 0 branches, _qmm_kernel -> _tile_matvec with bf16
@@ -62,8 +63,9 @@ struct QgParams {
 // The launches of Q4_K and Q6_K weights alone (every one of a Q4_K_M llama)
 // take the kernel that holds those two tile loops only: two more cost them
 // 2-3% (more code for the instruction cache; PERF.md §6). A Q4_K_M file's
-// Q8_0 and Q5_K weights take the four-kind kernel, every other kind the
-// kernel of all ten.
+// Q8_0 and Q5_K weights take the four-kind kernel, a launch with a
+// codebook kind the kernel of those four and the codebook kinds, every
+// other kind the kernel of the ten others.
 template <int BM, int KSET>
 __global__ void __launch_bounds__(QG_THREADS, 2)
 qgemm_kernel(const QgParams p, const __nv_bfloat16* __restrict__ x) {
@@ -103,10 +105,14 @@ template <int BM>
 static int launch_kinds(const QgParams& p, const void* x, int n_blocks, cudaStream_t stream) {
     int set = KS_Q4K_Q6K;
     for (int t = 0; t < p.n_desc; ++t)
-        while (!kind_in_set(p.d[t].kind, set)) ++set;
+        while (set <= KS_IQ && !kind_in_set(p.d[t].kind, set)) ++set;
+    for (int t = 0; t < p.n_desc; ++t)  // a set further on may drop a kind an earlier one held
+        if (set > KS_IQ || !kind_in_set(p.d[t].kind, set))
+            return static_cast<int>(cudaErrorInvalidValue);
     return set == KS_Q4K_Q6K ? launch<BM, KS_Q4K_Q6K>(p, x, n_blocks, stream)
          : set == KS_Q4KM    ? launch<BM, KS_Q4KM>(p, x, n_blocks, stream)
-                             : launch<BM, KS_ALL>(p, x, n_blocks, stream);
+         : set == KS_ALL     ? launch<BM, KS_ALL>(p, x, n_blocks, stream)
+                             : launch<BM, KS_IQ>(p, x, n_blocks, stream);
 }
 
 // x [B, K] bf16, contiguous; weight t: w[t] [n[t], K/256 blocks], kind[t];

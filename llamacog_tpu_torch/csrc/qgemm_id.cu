@@ -52,9 +52,10 @@
 // Q4_K and Q6_K (a Q4_K_M file's experts) have the tuned dequants below.
 // Every other kind takes one generic dequant, compiled per kind: each of
 // the thread's A-fragment weights is formed on its own from the raw ring by
-// common.cuh::wire_weight (byte reads, each scale formed again), the plain
-// dequant's arithmetic, so the kind's layout needs no code here beyond its
-// ring rows.
+// common.cuh::wire_weight (byte reads, each scale formed again; the
+// codebook kinds' grid entries read from global memory through L1), the
+// plain dequant's arithmetic, so the kind's layout needs no code here
+// beyond its ring rows.
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -77,8 +78,9 @@ template <int KIND>
 struct QidCfg {
     // QID_SB_GROUP consecutive superblocks of a weight row in a raw ring row:
     // aligned where a superblock's bytes are a multiple of 16 (Q4_K, Q5_K,
-    // Q8_0 and the legacy kinds: rows of that many bytes from a 16-byte
-    // aligned base); else (Q6_K, Q3_K: even offsets; Q2_K: multiples of 4)
+    // Q8_0, the legacy kinds, IQ4_NL: rows of that many bytes from a 16-byte
+    // aligned base); else (Q6_K, Q3_K, IQ3_XXS, IQ3_S, IQ2_S: even offsets;
+    // Q2_K: multiples of 4; IQ4_XS: of 8)
     // the 16-byte chunks covering them from an offset of at most 14. Row
     // strides padded so that the halfword reads of a warp's eight rows fall
     // on distinct banks.
@@ -570,8 +572,9 @@ LCG_EXPORT int lcg_qgemm_id(const void* x, int x_dtype, int S_pad, int K, const 
     case KIND: return launch_qid<KIND>(a, s);
         QID_CASE(KIND_Q4_K) QID_CASE(KIND_Q6_K) QID_CASE(KIND_Q8_0) QID_CASE(KIND_Q5_K)
         QID_CASE(KIND_Q4_0) QID_CASE(KIND_Q4_1) QID_CASE(KIND_Q5_0) QID_CASE(KIND_Q5_1)
-        QID_CASE(KIND_Q2_K)
+        QID_CASE(KIND_Q2_K) QID_CASE(KIND_Q3_K) QID_CASE(KIND_IQ4_NL) QID_CASE(KIND_IQ4_XS)
+        QID_CASE(KIND_IQ3_XXS) QID_CASE(KIND_IQ3_S)
 #undef QID_CASE
-        default: return launch_qid<KIND_Q3_K>(a, s);
+        default: return launch_qid<KIND_IQ2_S>(a, s);
     }
 }

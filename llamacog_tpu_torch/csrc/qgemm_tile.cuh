@@ -1,6 +1,7 @@
 // The pipelined tile of the fused dequant x GEMM over GGUF wire-format
 // weights of qgemm.cu (dense weights, K2/K3): Q4_K, Q6_K, Q8_0, Q5_K, the
-// legacy Q4_0, Q4_1, Q5_0, Q5_1 and the low-bit Q2_K, Q3_K.
+// legacy Q4_0, Q4_1, Q5_0, Q5_1, the low-bit Q2_K, Q3_K and the codebook
+// IQ4_NL, IQ4_XS, IQ3_XXS, IQ3_S, IQ2_S.
 //
 // A block of QG_THREADS threads (8 warps) owns a BM x QG_BN output tile
 // (BM = 128, or 64 where qgemm.cu's grid would leave SMs idle) and
@@ -18,8 +19,8 @@
 //     pieces interleaved with the four k16 steps of stage s.
 // Shared memory is 90 KB at BM = 128 (63 KB at 64), so two blocks share an
 // SM and one's barrier waits hide under the other's work. A stage is the
-// 64 weights of one Q4_K or Q5_K group or of two 32-weight blocks of Q8_0
-// and the legacy kinds (contiguous k), or for Q6_K, Q2_K and Q3_K
+// 64 weights of one Q4_K or Q5_K group or of two 32-weight blocks of Q8_0,
+// the legacy and the codebook kinds (contiguous k), or for Q6_K, Q2_K and Q3_K
 // positions 16h..16h+15 of the four 32-weight quarters of one 128-weight
 // chunk (qg_quartered): the activation tile takes those same k columns, so
 // the product is unchanged and each stage reads each wire byte once. Products are mma.sync m16n8k16
@@ -30,8 +31,8 @@
 // Each weight is formed exactly as the plain torch dequant forms it —
 // (d*sc)*q - dmin*m for Q4_K, Q5_K and Q2_K, (d*sc)*(q-32) for Q6_K, q*d for
 // Q8_0, (q-8)*d and (q-16)*d for Q4_0 and Q5_0, q*d + m for Q4_1 and Q5_1,
-// d*(sc-32)*(q-4 or q) for Q3_K, each product and sum rounded once — and
-// then rounded to bf16; the level
+// d*(sc-32)*(q-4 or q) for Q3_K, (scale*level)*sign for the codebook
+// kinds, each product and sum rounded once — and then rounded to bf16; the level
 // plus a bias (Q8_0: the signed level, common.cuh::s8_level) becomes an
 // exact f32 by one byte permute (common.cuh::level_plus), with no
 // int->float conversion, and one fused multiply-add takes the bias off
@@ -285,6 +286,35 @@ struct QgLowKStage {
     }
 };
 
+// The codebook kinds: slot i = 2q + g is sub-block i of the superblock, the
+// stage's columns 32g..32g+31, as Q8_0's. The constructor looks up the
+// slot's 32 levels (common.cuh::iq_slot: the grid reads, the signs); each
+// weight is scale * level, one rounding, as the plain dequant's (scale *
+// grid) * sign (the sign is exact).
+template <int KIND>
+struct QgIQStage {
+    uint32_t x80[8];  // word k: 128 + the levels of elements 4k..4k+3
+    float sc[2];      // IQ2_S: elements 0-15, 16-31; else both the one scale
+    int g;
+
+    __device__ __forceinline__ QgIQStage(const QmvRaw<KIND>& r, int i) : g(i & 1) {
+        iq_slot<KIND>(r, i, x80, sc);
+    }
+
+    // piece p -> columns 32g + 8p..: elements 8p..8p+7, words 2p, 2p + 1
+    __device__ __forceinline__ void piece(int p, __nv_bfloat16* row) const {
+        const float d = sc[p >> 1];
+        uint32_t v[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const uint32_t w = x80[2 * p + e];
+            v[2 * e] = pack_bf16x2(__fmul_rn(d, s8_level<0>(w)), __fmul_rn(d, s8_level<1>(w)));
+            v[2 * e + 1] = pack_bf16x2(__fmul_rn(d, s8_level<2>(w)), __fmul_rn(d, s8_level<3>(w)));
+        }
+        *reinterpret_cast<uint4*>(row + 32 * g + 8 * p) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+};
+
 #define QG_STAGE_OF(KIND, BASE)                                                 \
     template <>                                                                 \
     struct QgStage<KIND> : BASE<KIND> {                                         \
@@ -296,6 +326,11 @@ QG_STAGE_OF(KIND_Q5_0, QgLegacyStage)
 QG_STAGE_OF(KIND_Q5_1, QgLegacyStage)
 QG_STAGE_OF(KIND_Q2_K, QgLowKStage)
 QG_STAGE_OF(KIND_Q3_K, QgLowKStage)
+QG_STAGE_OF(KIND_IQ4_NL, QgIQStage)
+QG_STAGE_OF(KIND_IQ4_XS, QgIQStage)
+QG_STAGE_OF(KIND_IQ3_XXS, QgIQStage)
+QG_STAGE_OF(KIND_IQ3_S, QgIQStage)
+QG_STAGE_OF(KIND_IQ2_S, QgIQStage)
 #undef QG_STAGE_OF
 
 // Whether a stage holds 16 positions of each quarter of a 128-weight chunk
@@ -423,7 +458,7 @@ __device__ __forceinline__ void qgemm_tile(const uint8_t* __restrict__ wq, int n
 }
 
 // qgemm_tile for a weight kind known only at run time (uniform per block)
-// out of the set KSET (common.cuh: KS_Q4K_Q6K, KS_Q4KM, KS_ALL).
+// out of the set KSET (common.cuh: KS_Q4K_Q6K, KS_Q4KM, KS_ALL, KS_IQ).
 template <int BM, int KSET>
 __device__ __forceinline__ void qgemm_tile_kind(const uint8_t* wq, int kind, int n, int row_bytes,
                                                 const __nv_bfloat16* x, int B, int K, int m0,
@@ -440,8 +475,14 @@ __device__ __forceinline__ void qgemm_tile_kind(const uint8_t* wq, int kind, int
     case KIND: qgemm_tile<BM, KIND>(wq, n, row_bytes, x, B, K, m0, n0, out); break;
             QG_CASE(KIND_Q8_0) QG_CASE(KIND_Q5_K) QG_CASE(KIND_Q4_0) QG_CASE(KIND_Q4_1)
             QG_CASE(KIND_Q5_0) QG_CASE(KIND_Q5_1) QG_CASE(KIND_Q2_K)
-#undef QG_CASE
             default: qgemm_tile<BM, KIND_Q3_K>(wq, n, row_bytes, x, B, K, m0, n0, out); break;
         }
+    } else if constexpr (KSET == KS_IQ) {
+        switch (kind) {
+            QG_CASE(KIND_Q8_0) QG_CASE(KIND_Q5_K) QG_CASE(KIND_IQ4_NL) QG_CASE(KIND_IQ4_XS)
+            QG_CASE(KIND_IQ3_XXS) QG_CASE(KIND_IQ3_S)
+            default: qgemm_tile<BM, KIND_IQ2_S>(wq, n, row_bytes, x, B, K, m0, n0, out); break;
+        }
     }
+#undef QG_CASE
 }

@@ -1,9 +1,10 @@
 // qmv — fused dequant x matvec over GGUF wire-format weights: Q4_K, Q6_K,
-// Q8_0, Q5_K, Q4_0, Q4_1, Q5_0, Q5_1, Q2_K and Q3_K.
+// Q8_0, Q5_K, Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, Q3_K and the codebook kinds
+// IQ4_NL, IQ4_XS, IQ3_XXS, IQ3_S, IQ2_S.
 //
 // Replaces (llamacog_tpu/ops/pallas/qmm.py):
 //   * _qmm_call at B <= 8 (_qmm_kernel -> _tile_matvec, the decoders of
-//     TILE_DECODERS but the IQ and TQ ones): out[B, N] f32 = x[B, K] @
+//     TILE_DECODERS but IQ2_XXS, IQ2_XS, the IQ1 and the TQ ones): out[B, N] f32 = x[B, K] @
 //     dequant(W)[N, K]^T;
 //   * _qmm_multi_call (_qmm_multi_kernel): several weights sharing one x in
 //     ONE launch. Here a launch takes up to QMV_MAX_DESC weight descriptors
@@ -34,8 +35,11 @@
 // Kernel and plain version differ in the order of the f32 sums only.
 // A launch whose weights are all of a Q4_K_M file's kinds (Q4_K, Q6_K,
 // Q8_0, Q5_K) takes the instantiation of those four alone; a launch with
-// any other kind takes the one of all ten, whose register count is its
-// widest kind's (KSET, common.cuh).
+// a codebook kind the one of those four and the codebook kinds; a launch
+// with any other kind the one of the ten others, whose register count is
+// its widest kind's (KSET, common.cuh). The codebook kinds' levels are the
+// signed integers of their tables (common.cuh::iq_slot), dotted with x as
+// Q8_0's, with no offset.
 // blockIdx.y walks x in chunks of QMV_MAX_B rows, so f32 activations of any
 // batch take this f32 path too (streaming the weights once per chunk).
 #include "common.cuh"
@@ -97,12 +101,19 @@ qmv_kernel(const QmvParams p, const TX* __restrict__ x) {
                 QMV_CASE(KIND_Q4_K) QMV_CASE(KIND_Q6_K) QMV_CASE(KIND_Q8_0)
                 default: qmv_desc<KIND_Q5_K, NB>(D, x, B, p.K, g, nw, groups, out); break;
             }
-        } else {
+        } else if constexpr (KSET == KS_ALL) {
             switch (D.kind) {
                 QMV_CASE(KIND_Q4_K) QMV_CASE(KIND_Q6_K) QMV_CASE(KIND_Q8_0) QMV_CASE(KIND_Q5_K)
                 QMV_CASE(KIND_Q4_0) QMV_CASE(KIND_Q4_1) QMV_CASE(KIND_Q5_0) QMV_CASE(KIND_Q5_1)
                 QMV_CASE(KIND_Q2_K)
                 default: qmv_desc<KIND_Q3_K, NB>(D, x, B, p.K, g, nw, groups, out); break;
+            }
+        } else {
+            switch (D.kind) {
+                QMV_CASE(KIND_Q4_K) QMV_CASE(KIND_Q6_K) QMV_CASE(KIND_Q8_0) QMV_CASE(KIND_Q5_K)
+                QMV_CASE(KIND_IQ4_NL) QMV_CASE(KIND_IQ4_XS) QMV_CASE(KIND_IQ3_XXS)
+                QMV_CASE(KIND_IQ3_S)
+                default: qmv_desc<KIND_IQ2_S, NB>(D, x, B, p.K, g, nw, groups, out); break;
             }
         }
 #undef QMV_CASE
@@ -133,9 +144,14 @@ static int launch(const QmvParams& p, const TX* x, const int* n, cudaStream_t st
 
 template <int NB, typename TX>
 static int launch_kinds(const QmvParams& p, const TX* x, const int* n, cudaStream_t stream) {
-    bool all = false;
-    for (int t = 0; t < p.n_desc; ++t) all |= !kind_in_set(p.d[t].kind, KS_Q4KM);
-    return all ? launch<NB, TX, KS_ALL>(p, x, n, stream) : launch<NB, TX, KS_Q4KM>(p, x, n, stream);
+    bool iq = false, all = false;
+    for (int t = 0; t < p.n_desc; ++t) {
+        iq |= kind_iq(p.d[t].kind);
+        all |= !kind_in_set(p.d[t].kind, KS_Q4KM) && !kind_iq(p.d[t].kind);
+    }
+    if (iq && all) return static_cast<int>(cudaErrorInvalidValue);  // no set holds them
+    return iq ? launch<NB, TX, KS_IQ>(p, x, n, stream)
+         : all ? launch<NB, TX, KS_ALL>(p, x, n, stream) : launch<NB, TX, KS_Q4KM>(p, x, n, stream);
 }
 
 template <int NB>

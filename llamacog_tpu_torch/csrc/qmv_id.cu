@@ -13,9 +13,9 @@
 // against 0.56 (Q4_K) or 0.82 (Q6_K) bytes per weight, so the least time is
 // the selected experts' bytes (each distinct expert once) over 3.35 TB/s.
 // Every weight kind of qmv.cu: a Q4_K or Q6_K stack (a Q4_K_M file's
-// experts) takes the instantiation of those two alone, every other kind
-// the one of the other eight, so the new kinds leave Q4_K's registers as
-// they were.
+// experts) takes the instantiation of those two alone, a codebook kind's
+// stack the one of the five codebook kinds, every other kind the one of
+// the other eight, so each set leaves the others' registers as they were.
 // Design: qmv.cu's row walk (common.cuh::qmv_walk: raw levels dotted with x
 // per sub-block part, the scale applied once and the offset folded against
 // the part's sum of x, f32 throughout), 2 rows a warp and one group a warp,
@@ -33,7 +33,7 @@
 
 constexpr int QMV_ID_ROWS = 2;  // rows a warp
 
-template <typename TX, bool Q4K_Q6K>
+template <typename TX, int KSET>
 __global__ void __launch_bounds__(QMV_WARPS * 32)
 qmv_id_kernel(const uint8_t* __restrict__ w, const TX* __restrict__ x,
               const int* __restrict__ ids, float* __restrict__ out, int kind, int n_exp,
@@ -47,23 +47,31 @@ qmv_id_kernel(const uint8_t* __restrict__ w, const TX* __restrict__ x,
     if (e >= 0 && e < n_exp) {
         const uint8_t* we = w + (size_t)e * N * row_bytes;
         const TX* xs = x + (size_t)s * K;
-        if constexpr (Q4K_Q6K) {
+#define QID_CASE(KIND) \
+    case KIND: qmv_walk<KIND, 1, R, TX>(we, N, row_bytes, xs, 1, K, g, groups, groups, o); break;
+        if constexpr (KSET == KS_Q4K_Q6K) {
             if (kind == KIND_Q4_K)
                 qmv_walk<KIND_Q4_K, 1, R, TX>(we, N, row_bytes, xs, 1, K, g, groups, groups, o);
             else
                 qmv_walk<KIND_Q6_K, 1, R, TX>(we, N, row_bytes, xs, 1, K, g, groups, groups, o);
-        } else {
+        } else if constexpr (KSET == KS_ALL) {
             switch (kind) {
-#define QID_CASE(KIND) \
-    case KIND: qmv_walk<KIND, 1, R, TX>(we, N, row_bytes, xs, 1, K, g, groups, groups, o); break;
                 QID_CASE(KIND_Q8_0) QID_CASE(KIND_Q5_K) QID_CASE(KIND_Q4_0) QID_CASE(KIND_Q4_1)
                 QID_CASE(KIND_Q5_0) QID_CASE(KIND_Q5_1) QID_CASE(KIND_Q2_K)
-#undef QID_CASE
                 default:
                     qmv_walk<KIND_Q3_K, 1, R, TX>(we, N, row_bytes, xs, 1, K, g, groups, groups, o);
                     break;
             }
+        } else {
+            switch (kind) {
+                QID_CASE(KIND_IQ4_NL) QID_CASE(KIND_IQ4_XS) QID_CASE(KIND_IQ3_XXS)
+                QID_CASE(KIND_IQ3_S)
+                default:
+                    qmv_walk<KIND_IQ2_S, 1, R, TX>(we, N, row_bytes, xs, 1, K, g, groups, groups, o);
+                    break;
+            }
         }
+#undef QID_CASE
     } else if ((threadIdx.x & 31) == 0) {
 #pragma unroll
         for (int r = 0; r < R; ++r)
@@ -76,11 +84,14 @@ static void launch_id(dim3 grid, cudaStream_t s, const uint8_t* w, const void* x
                       float* out, int kind, int n_exp, int N, int K, int row_bytes) {
     const TX* xt = static_cast<const TX*>(x);
     if (kind_in_set(kind, KS_Q4K_Q6K))
-        qmv_id_kernel<TX, true><<<grid, QMV_WARPS * 32, 0, s>>>(w, xt, ids, out, kind, n_exp, N,
-                                                                K, row_bytes);
-    else
-        qmv_id_kernel<TX, false><<<grid, QMV_WARPS * 32, 0, s>>>(w, xt, ids, out, kind, n_exp, N,
+        qmv_id_kernel<TX, KS_Q4K_Q6K><<<grid, QMV_WARPS * 32, 0, s>>>(w, xt, ids, out, kind, n_exp,
+                                                                      N, K, row_bytes);
+    else if (kind_iq(kind))
+        qmv_id_kernel<TX, KS_IQ><<<grid, QMV_WARPS * 32, 0, s>>>(w, xt, ids, out, kind, n_exp, N,
                                                                  K, row_bytes);
+    else
+        qmv_id_kernel<TX, KS_ALL><<<grid, QMV_WARPS * 32, 0, s>>>(w, xt, ids, out, kind, n_exp, N,
+                                                                  K, row_bytes);
 }
 
 // x [S, K] (f32 or bf16, contiguous); w [n_exp * N, K/256 blocks] of `kind` (any);

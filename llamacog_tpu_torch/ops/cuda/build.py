@@ -4,9 +4,11 @@ Each ``csrc/<name>.cu`` compiles on its own, with ``nvcc`` for ``sm_90a``,
 into a shared library with a plain C interface, loaded with ``ctypes``. The
 libraries go to ``csrc/build/`` (listed in ``.gitignore``) under a name
 that hashes the sources and flags, so an edited source is rebuilt and an
-unchanged one is reused. Nothing here runs at import: a library is built
-the first time its kernel is launched, or all at once by :func:`build`,
-which starts one ``nvcc`` per source in parallel.
+unchanged one is reused. The codebook tables of the IQ weight kinds reach
+the kernels as ``build/iq_tables.cuh``, written from quant/iq_tables.py
+before a build (and hashed with the sources). Nothing here runs at import:
+a library is built the first time its kernel is launched, or all at once by
+:func:`build`, which starts one ``nvcc`` per source in parallel.
 
 Every launcher returns ``cudaGetLastError()``; :func:`check` raises on a
 non-zero code. ``LAUNCHES`` counts the launches of each kernel: a wrapper
@@ -40,6 +42,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from ...quant import iq_tables
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -101,8 +105,20 @@ def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
     for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
         h.update(src.read_bytes())
+    h.update(iq_tables.cuda_header().encode())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def write_tables() -> Path:
+    """build/iq_tables.cuh, rewritten only when its text changes."""
+    path = BUILD_DIR / "iq_tables.cuh"
+    text = iq_tables.cuda_header()
+    if not path.exists() or path.read_text() != text:
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        tmp.write_text(text)
+        os.replace(tmp, path)
+    return path
 
 
 def build(names=KERNELS) -> dict[str, float]:
@@ -110,13 +126,15 @@ def build(names=KERNELS) -> dict[str, float]:
     per source, all started together. Returns the seconds each took;
     raises with the compiler's output when one fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    write_tables()
     procs = {}
     for name in names:
         out = _lib_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(BUILD_DIR), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, out, time.perf_counter())
     secs, failed = {}, []

@@ -31,7 +31,19 @@ QMV_MAX_B = 8
 MAX_WEIGHTS = 4
 # weight kinds, as csrc/common.cuh numbers them (KIND_Q4_K ...)
 _KIND_ID = {"Q4_K": 0, "Q6_K": 1, "Q8_0": 2, "Q5_K": 3, "Q4_0": 4, "Q4_1": 5, "Q5_0": 6,
-            "Q5_1": 7, "Q2_K": 8, "Q3_K": 9}
+            "Q5_1": 7, "Q2_K": 8, "Q3_K": 9, "IQ4_NL": 10, "IQ4_XS": 11, "IQ3_XXS": 12,
+            "IQ3_S": 13, "IQ2_S": 14}
+# the codebook kinds, and the kinds a launch with them may hold
+# (csrc/common.cuh::KS_IQ)
+IQ_KINDS = frozenset({"IQ4_NL", "IQ4_XS", "IQ3_XXS", "IQ3_S", "IQ2_S"})
+_IQ_SET = IQ_KINDS | {"Q4_K", "Q6_K", "Q8_0", "Q5_K"}
+
+
+def share_launch(kinds) -> bool:
+    """Whether weights of these kinds can share one launch: the kernels
+    compile a codebook kind only beside a Q4_K_M file's kinds."""
+    kinds = set(kinds)
+    return not kinds & IQ_KINDS or kinds <= _IQ_SET
 
 
 def uses_qgemm(x: torch.Tensor) -> bool:
@@ -75,6 +87,8 @@ def _launch(fn_name: str, counter: str, x: torch.Tensor, ws) -> list[torch.Tenso
             raise ValueError(f"{counter}: weight K={w.shape[1]} != x K={K}")
         if w.blocks.data_ptr() % 16:
             raise ValueError(f"{counter}: weight blocks must be 16-byte aligned")
+    if not share_launch(w.kind for w in ws):
+        raise ValueError(f"{counter}: kinds {[w.kind for w in ws]} cannot share a launch")
     if x.data_ptr() % 16:
         raise ValueError(f"{counter}: x must be 16-byte aligned")
     outs = [torch.empty((B, w.shape[0]), dtype=torch.float32, device=x.device) for w in ws]

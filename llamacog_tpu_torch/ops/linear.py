@@ -17,7 +17,7 @@ import torch
 
 from ..quant import mmq
 from ..quant.wire import WireTensor
-from .cuda.qmm import MAX_WEIGHTS, qmm_multi_cuda, qmm_plain
+from .cuda.qmm import MAX_WEIGHTS, qmm_multi_cuda, qmm_plain, share_launch
 from .cuda.qmm_i8 import qmm_i8, qmm_i8_quantized, quantize_i8
 
 
@@ -53,10 +53,12 @@ def qmatmul_multi(x: torch.Tensor, ws) -> list | None:
     quantized once and K13 runs per weight on the same (xq, xs): the
     results equal per-weight qmatmul bit for bit, where the JAX package
     leaves the repeated quantization to XLA to merge. Returns None when a
-    weight cannot ride the fused launch; the caller then runs per-weight
-    qmatmul."""
+    weight cannot ride the fused launch (its kind not among those the
+    kernels compile with the others': qmm.share_launch); the caller then
+    runs per-weight qmatmul."""
     if not (1 <= len(ws) <= MAX_WEIGHTS and all(
-            isinstance(w, WireTensor) and w.shape[1] == x.shape[-1] for w in ws)):
+            isinstance(w, WireTensor) and w.shape[1] == x.shape[-1] for w in ws)
+            and share_launch(w.kind for w in ws)):
         return None
     if all(_uses_i8(x, w) for w in ws):
         lead = x.shape[:-1]

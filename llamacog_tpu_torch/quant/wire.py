@@ -6,12 +6,14 @@ unpack, group-strided columns, f32 scale planes, transposed superblock
 planes); none of its reasons hold on a GPU, so a weight stays here exactly
 as the file stores it: a ``uint8 [N, row_bytes]`` tensor of ggml blocks
 (per 256 weights: block_q2_K 84 bytes, block_q3_K 110, block_q4_K 144,
-block_q5_K 176, block_q6_K 210). The legacy blocks hold 32 weights each
-(block_q4_0 18 bytes, q4_1 20, q5_0 22, q5_1 24, q8_0 34), so 256 weights
-take eight of them (144, 160, 176, 192, 272 bytes) and a row of K weights
-is K / 256 such runs, as for the K-quants. The CUDA kernels read these
-blocks directly; the plain dequantizers below are their reference and the
-CPU path.
+block_q5_K 176, block_q6_K 210; the codebook kinds block_iq4_xs 136,
+block_iq3_xxs 98, block_iq3_s 110, block_iq2_s 82). The legacy blocks
+hold 32 weights each (block_q4_0 18 bytes, q4_1 20, q5_0 22, q5_1 24, q8_0
+34, iq4_nl 18), so 256 weights take eight of them (144, 160, 176, 192, 272,
+144 bytes) and a row of K weights is K / 256 such runs, as for the
+K-quants. The IQ kinds' levels come from the tables of quant/iq_tables.py.
+The CUDA kernels read these blocks directly; the plain dequantizers below
+are their reference and the CPU path.
 
 Stacked MoE experts are one wire tensor of logical shape [n_exp, N, K]
 whose blocks are ``[n_exp * N, row_bytes]``, expert e's rows at
@@ -30,11 +32,13 @@ import numpy as np
 import torch
 
 from ..gguf import GGMLType
+from . import iq_tables
 
 QK_K = 256
 # wire bytes per QK_K weights (the legacy kinds: eight 32-weight blocks)
 BLOCK_BYTES = {"Q4_K": 144, "Q6_K": 210, "Q8_0": 272, "Q5_K": 176, "Q4_0": 144, "Q4_1": 160,
-               "Q5_0": 176, "Q5_1": 192, "Q2_K": 84, "Q3_K": 110}
+               "Q5_0": 176, "Q5_1": 192, "Q2_K": 84, "Q3_K": 110, "IQ4_NL": 144, "IQ4_XS": 136,
+               "IQ3_XXS": 98, "IQ3_S": 110, "IQ2_S": 82}
 _KIND_OF = {getattr(GGMLType, kind): kind for kind in BLOCK_BYTES}
 DENSE_TYPES = (GGMLType.F32, GGMLType.F16, GGMLType.BF16)
 
@@ -276,10 +280,90 @@ def dequant_q3_k(b: torch.Tensor) -> torch.Tensor:
     return dl * q
 
 
+def _u32_at(b: torch.Tensor, off: int, n: int) -> torch.Tensor:
+    """n little-endian u32 fields from byte `off` of each block -> int64 [M, n]."""
+    w = b[:, off : off + 4 * n].to(torch.int64).reshape(-1, n, 4)
+    return w[..., 0] | (w[..., 1] << 8) | (w[..., 2] << 16) | (w[..., 3] << 24)
+
+
+def _iq4_levels(qs: torch.Tensor) -> torch.Tensor:
+    """[M, G, 16] nibble bytes -> [M, G, 32] levels kvalues_iq4nl[q]: element
+    j < 16 the low nibble of byte j, 16 + j its high nibble."""
+    kvalues = iq_tables.tables(qs.device)["kvalues"]
+    return kvalues[torch.cat([qs & 0xF, qs >> 4], dim=-1).long()]
+
+
+def iq_levels(kind: str, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The codebook kinds' blocks uint8 [M, BLOCK_BYTES[kind]] -> (levels f32
+    [M, 256], scales f32 [M, P]): every weight is scale * level, its part's
+    scale (P = 16 parts of 16 weights for IQ2_S, else 8 of 32) times a small
+    signed integer (a kvalues_iq4nl entry, or a grid byte times its sign),
+    each scale formed as decode_np forms it:
+    - IQ4_NL, eight 18-byte blocks (f16 d, 16 nibble bytes): d, kvalues[q];
+    - IQ4_XS (f16 d, u16 scales_h, scales_l[4], qs[128]): sub-block ib's
+      6-bit scale is nibble ib of scales_l with bits 2ib, 2ib + 1 of scales_h
+      on top; d * (ls - 32), kvalues[q], the codes as IQ4_NL's;
+    - IQ3_XXS (f16 d, qs[64] grid indices, 8 u32 of four 7-bit sign indices
+      and a 4-bit scale s): group l of sub-block ib takes grid entries
+      qs[8ib + 2l], qs[8ib + 2l + 1] of iq3xxs (4 levels each) and the signs
+      ksigns[(u32 >> 7l) & 127]; d * (0.5 + s) * 0.5;
+    - IQ3_S (f16 d, qs[64], qh[8], signs[32], scales[4]): byte m of sub-block
+      ib takes entry qs[8ib + m] | (bit m of qh[ib]) << 8 of iq3s and sign
+      bits 4(m % 2).. of signs[4ib + m // 2]; d * (1 + 2 nibble ib);
+    - IQ2_S (f16 d, qs[32], signs[32], qh[8], scales[8]): group l of
+      sub-block ib takes entry qs[4ib + l] | (bits 2l, 2l + 1 of qh[ib]) << 8
+      of iq2s and signs[4ib + l]; d * (0.5 + nibble) * 0.25, the low nibble
+      of scales[ib] for groups 0-1, the high one for 2-3.
+    decode_np forms (scale * grid) * sign: the sign is exact, so the product
+    rounds alike."""
+    t, dev = iq_tables.tables(b.device), b.device
+    if kind == "IQ4_NL":
+        blk = b.reshape(-1, 18)
+        return (_iq4_levels(blk[:, 2:18]).reshape(-1, 256), _f16_at(blk, 0).reshape(-1, 8))
+    d = _f16_at(b, 0)
+    if kind == "IQ4_XS":
+        sh = b[:, 2].long() | (b[:, 3].long() << 8)
+        sl = b[:, 4:8].long()
+        ib = torch.arange(8, device=dev)
+        ls = ((sl[:, ib // 2] >> (4 * (ib % 2))) & 0xF) | (((sh[:, None] >> (2 * ib)) & 3) << 4)
+        return _iq4_levels(b[:, 8:136].reshape(-1, 8, 16)).reshape(-1, 256), d * (ls.float() - 32.0)
+    if kind == "IQ3_XXS":
+        qs = b[:, 2:66].reshape(-1, 8, 4, 2).long()
+        sas = _u32_at(b, 66, 8)                                            # [M, 8]
+        s7 = (sas[..., None] >> (7 * torch.arange(4, device=dev))) & 127   # [M, 8, 4]
+        levels = t["iq3xxs"][qs].reshape(-1, 8, 4, 8) * t["sign128"][s7]
+        return levels.reshape(-1, 256), d * (0.5 + (sas >> 28).float()) * 0.5
+    if kind == "IQ3_S":
+        ib = torch.arange(8, device=dev)
+        idx = b[:, 2:66].reshape(-1, 8, 8).long() | (((b[:, 66:74, None].long() >> ib) & 1) << 8)
+        signs = t["sign256"][b[:, 74:106].reshape(-1, 8, 4).long()].reshape(-1, 8, 8, 4)
+        nib = (b[:, 106:110].long()[:, ib // 2] >> (4 * (ib % 2))) & 0xF
+        return (t["iq3s"][idx] * signs).reshape(-1, 256), d * (1 + 2 * nib.float())
+    if kind == "IQ2_S":
+        shift = 8 - 2 * torch.arange(4, device=dev)
+        idx = b[:, 2:34].reshape(-1, 8, 4).long() | ((b[:, 66:74, None].long() << shift) & 0x300)
+        levels = t["iq2s"][idx] * t["sign256"][b[:, 34:66].reshape(-1, 8, 4).long()]
+        sc = b[:, 74:82]
+        scales = torch.stack([d * (0.5 + (sc & 0xF).float()) * 0.25,
+                              d * (0.5 + (sc >> 4).float()) * 0.25], dim=-1)  # [M, 8, 2]
+        return levels.reshape(-1, 256), scales.reshape(-1, 16)
+    raise ValueError(f"{kind} is not a codebook kind")
+
+
+def _dequant_iq(kind: str):
+    def dequant(b: torch.Tensor) -> torch.Tensor:
+        levels, scales = iq_levels(kind, b)
+        return scales.repeat_interleave(256 // scales.shape[1], dim=1) * levels
+    dequant.__doc__ = f"uint8 [M, {BLOCK_BYTES[kind]}] -> f32 [M, 256] (iq_levels)"
+    return dequant
+
+
 _DEQUANT = {"Q4_K": dequant_q4_k, "Q6_K": dequant_q6_k, "Q8_0": dequant_q8_0,
             "Q5_K": dequant_q5_k, "Q4_0": dequant_q4_0, "Q4_1": dequant_q4_1,
             "Q5_0": dequant_q5_0, "Q5_1": dequant_q5_1, "Q2_K": dequant_q2_k,
-            "Q3_K": dequant_q3_k}
+            "Q3_K": dequant_q3_k,
+            **{kind: _dequant_iq(kind) for kind in ("IQ4_NL", "IQ4_XS", "IQ3_XXS", "IQ3_S",
+                                                    "IQ2_S")}}
 
 
 def dequantize(w: WireTensor, dtype=torch.float32) -> torch.Tensor:

@@ -2,12 +2,13 @@
 
     python -m llamacog_tpu_torch.tools.profile [--model mixtral-8x7b] [--layers 32] \
         [--steps 32] [--kv-type q8_0] [--prompt 512 --prefill] [--max-seq 8192] \
-        [--ftype Q3_K_M]
+        [--ftype IQ3_XXS]
 
 Builds the Llama-3-8B (or, with --model mixtral-8x7b, the Mixtral-8x7B)
 synthetic model of the weight preset --ftype (each tensor of the kind
-llama.cpp's rules give it; by default utils/synthetic.py's DEFAULT_LAYOUT,
-Q4_K_M with every attn_v Q6_K) (depth
+llama.cpp's rules give it, for a codebook preset those of a file made
+with an importance matrix, as the public IQ files are; by default
+utils/synthetic.py's DEFAULT_LAYOUT, Q4_K_M with every attn_v Q6_K) (depth
 cut by --layers) with an Engine of --max-seq
 slots (1024 by default) and prefills a --prompt-token prompt (128). Decode
 runs --steps greedy steps two ways: replayed from the step's CUDA graph
@@ -53,12 +54,13 @@ def main(argv=None) -> int:
 
     from ..ops.cuda.flash_q8 import decode_from_cache
     from ..runtime.engine import Engine
-    from ..utils.synthetic import (DEFAULT_LAYOUT, llama3_8b_config, make_synthetic_params,
-                                   mixtral_8x7b_config)
+    from ..utils.synthetic import (CODEBOOK_PRESETS, DEFAULT_LAYOUT, llama3_8b_config,
+                                   make_synthetic_params, mixtral_8x7b_config)
 
     make_config = mixtral_8x7b_config if args.model == "mixtral-8x7b" else llama3_8b_config
     cfg = make_config(n_layer=args.layers)
-    params = make_synthetic_params(cfg, seed=0, ftype=args.ftype or DEFAULT_LAYOUT)
+    params = make_synthetic_params(cfg, seed=0, ftype=args.ftype or DEFAULT_LAYOUT,
+                                   imatrix=args.ftype in CODEBOOK_PRESETS)
     eng = Engine(params, cfg, batch_size=1, max_seq=args.max_seq, kv_type=args.kv_type)
     prompt = [(i * 31337) % cfg.n_vocab for i in range(args.prompt)]
 

@@ -8,10 +8,15 @@ are random wire blocks made on the device from a torch.Generator.
 Each tensor takes the kind llama.cpp's quantizer gives it under a weight
 preset (``ftype``): :func:`tensor_kinds` is the port's copy of the llama
 family's part of llama_tensor_get_type (the JAX package's
-tools/quantize.py::tensor_get_type and use_more_bits), for the presets
-without an importance matrix: Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q2_K,
-Q3_K_S/M/L, Q4_K_S/M, Q5_K_S/M. The weights then arrive fused as the
-loader fuses a file of those kinds (q+k+v, else q+k, where the kinds
+tools/quantize.py::tensor_get_type and use_more_bits) for the presets
+Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q2_K, Q3_K_S/M/L, Q4_K_S/M, Q5_K_S/M and the
+codebook presets IQ4_NL, IQ4_XS, IQ3_XXS, IQ3_XS, IQ3_S, IQ3_M and IQ2_M,
+with or without an importance matrix (``imatrix``, the quantizer's
+QuantizeState.has_imatrix: it moves IQ3_XXS's ffn_down and, below 4 query
+heads a kv head, its attn_v; IQ4_NL/IQ4_XS's first ffn_down layers; and
+Q4_0/Q5_0's). The public IQ files are made with an importance matrix, so
+the card's IQ runs take ``imatrix=True``. The weights then arrive fused as
+the loader fuses a file of those kinds (q+k+v, else q+k, where the kinds
 agree; gate+up; the experts' gate+up per expert). A MoE config
 (n_expert > 0) gets an f32 router, as llama.cpp never quantizes
 ffn_gate_inp. The default layout, DEFAULT_LAYOUT, is not a preset: it
@@ -27,18 +32,26 @@ from ..models.config import ModelConfig, RopeConfig
 from ..quant.wire import BLOCK_BYTES, QK_K, WireTensor
 
 # byte offsets of each kind's f16 scales in QK_K weights (d, and dmin for
-# Q4_K, Q5_K and Q2_K; the legacy kinds have d, and m for Q4_1 and Q5_1, at
-# the start of each of their eight 32-weight blocks)
+# Q4_K, Q5_K and Q2_K; the legacy kinds and IQ4_NL have d, and m for Q4_1
+# and Q5_1, at the start of each of their eight 32-weight blocks; the other
+# IQ kinds d at byte 0)
 _F16_FIELDS = {"Q4_K": (0, 2), "Q6_K": (208,), "Q8_0": tuple(range(0, 272, 34)),
                "Q5_K": (0, 2), "Q4_0": tuple(range(0, 144, 18)),
                "Q4_1": tuple(o + f for o in range(0, 160, 20) for f in (0, 2)),
                "Q5_0": tuple(range(0, 176, 22)),
                "Q5_1": tuple(o + f for o in range(0, 192, 24) for f in (0, 2)),
-               "Q2_K": (80, 82), "Q3_K": (108,)}
+               "Q2_K": (80, 82), "Q3_K": (108,), "IQ4_NL": tuple(range(0, 144, 18)),
+               "IQ4_XS": (0,), "IQ3_XXS": (0,), "IQ3_S": (0,), "IQ2_S": (0,)}
 # preset -> the kind of the tensors no rule moves (llama.cpp's default type)
 PRESETS = {"Q4_0": "Q4_0", "Q4_1": "Q4_1", "Q5_0": "Q5_0", "Q5_1": "Q5_1", "Q8_0": "Q8_0",
            "Q2_K": "Q2_K", "Q3_K_S": "Q3_K", "Q3_K_M": "Q3_K", "Q3_K_L": "Q3_K",
-           "Q4_K_S": "Q4_K", "Q4_K_M": "Q4_K", "Q5_K_S": "Q5_K", "Q5_K_M": "Q5_K"}
+           "Q4_K_S": "Q4_K", "Q4_K_M": "Q4_K", "Q5_K_S": "Q5_K", "Q5_K_M": "Q5_K",
+           "IQ4_NL": "IQ4_NL", "IQ4_XS": "IQ4_XS", "IQ3_XXS": "IQ3_XXS", "IQ3_XS": "IQ3_S",
+           "IQ3_S": "IQ3_S", "IQ3_M": "IQ3_S", "IQ2_M": "IQ2_S"}
+# the codebook presets: their public files are made with an importance
+# matrix, so the runs on the card (chip_smoke.py, tools/profile.py) take
+# imatrix=True for them
+CODEBOOK_PRESETS = ("IQ4_NL", "IQ4_XS", "IQ3_XXS", "IQ3_XS", "IQ3_S", "IQ3_M", "IQ2_M")
 # make_synthetic_params' default: Q4_K_M, except that a dense config's attn_v
 # is Q6_K in every layer (llama.cpp gives Q6_K only to the "use more bits"
 # layers), so attn_q + attn_k fuse and attn_v stays apart in every layer
@@ -64,41 +77,64 @@ def _use_more_bits(i: int, n: int) -> bool:
     return i < n // 8 or i >= 7 * n // 8 or (i - n // 8) % 3 == 2
 
 
-def tensor_kinds(cfg: ModelConfig, ftype: str = "Q4_K_M") -> dict:
+def tensor_kinds(cfg: ModelConfig, ftype: str = "Q4_K_M", imatrix: bool = False) -> dict:
     """The wire kind of every weight of a llama-family GGUF quantized to
-    `ftype`: {"token_embd", "output", "layers": [{attn_q, attn_k, attn_v,
-    attn_output, ffn_gate, ffn_up, ffn_down}]} (the FFN names stand for the
-    stacked experts in a MoE config). Unfused, by the GGUF tensor names."""
+    `ftype` (with an importance matrix if `imatrix`): {"token_embd",
+    "output", "layers": [{attn_q, attn_k, attn_v, attn_output, ffn_gate,
+    ffn_up, ffn_down}]} (the FFN names stand for the stacked experts in a
+    MoE config). Unfused, by the GGUF tensor names."""
     if ftype not in PRESETS:
         raise NotImplementedError(
             f"weight preset {ftype} is not ported yet (the port takes {', '.join(PRESETS)})")
     base, n, n_exp = PRESETS[ftype], cfg.n_layer, cfg.n_expert
     n_gqa = cfg.n_head // max(cfg.n_head_kv, 1)
+    lowbit = ftype == "IQ2_M"  # llama.cpp's 1-2 bpw rules (of the presets ported)
     layers = []
     for il in range(n):
-        more = _use_more_bits(il, n)
-        v = {"Q2_K": "Q4_K" if n_gqa >= 4 else "Q3_K",
-             "Q3_K_M": "Q5_K" if il < 2 else "Q4_K", "Q3_K_L": "Q5_K",
-             "Q4_K_M": "Q6_K" if more else base, "Q5_K_M": "Q6_K" if more else base,
-             "Q4_K_S": "Q5_K" if il < 4 else base}.get(ftype, base)
-        down = {"Q2_K": "Q3_K", "Q3_K_M": "Q5_K" if il < n // 16 else "Q4_K", "Q3_K_L": "Q5_K",
-                "Q4_K_M": "Q6_K" if more else base, "Q5_K_M": "Q6_K" if more else base,
-                "Q4_K_S": "Q5_K" if il < n // 8 else base}.get(ftype, base)
-        if n_exp == 8:
-            out = "Q5_K" if ftype in ("Q2_K", "Q3_K_S", "Q3_K_M", "Q4_K_S", "Q4_K_M") else base
+        more, first8 = _use_more_bits(il, n), il < n // 8
+        if lowbit:
+            v = "Q4_K" if n_gqa >= 4 or n_exp >= 4 else "IQ3_S"
+            q, k = base, "Q4_K" if n_exp == 8 else base
+            down = "IQ3_S" if first8 else base
+            out = "Q5_K" if n_exp == 8 else "IQ3_S"
         else:
-            out = {"Q2_K": "Q3_K", "Q3_K_M": "Q4_K", "Q3_K_L": "Q5_K"}.get(ftype, base)
-        layers.append({"attn_q": base, "attn_k": "Q8_0" if n_exp == 8 else base,
-                       "attn_v": "Q8_0" if n_exp == 8 else v, "attn_output": out,
+            v = {"Q2_K": "Q4_K" if n_gqa >= 4 else "Q3_K",
+                 "Q3_K_M": "Q5_K" if il < 2 else "Q4_K", "Q3_K_L": "Q5_K",
+                 "Q4_K_M": "Q6_K" if more else base, "Q5_K_M": "Q6_K" if more else base,
+                 "Q4_K_S": "Q5_K" if il < 4 else base,
+                 "IQ3_XXS": "Q4_K" if n_gqa >= 4 else "IQ3_XXS" if imatrix else "IQ3_S",
+                 "IQ3_XS": "Q4_K" if n_gqa >= 4 else base, "IQ3_S": "Q4_K" if n_gqa >= 4 else base,
+                 "IQ3_M": "Q4_K", "IQ4_NL": "Q5_K" if n_gqa >= 4 else base,
+                 "IQ4_XS": "Q5_K" if n_gqa >= 4 else base}.get(ftype, base)
+            q = {"IQ3_XS": "IQ3_XXS", "IQ3_XXS": "IQ2_S"}.get(ftype, base)
+            k = "Q8_0" if n_exp == 8 else q
+            v = "Q8_0" if n_exp == 8 else v
+            down = {"Q2_K": "Q3_K", "Q3_K_M": "Q5_K" if il < n // 16 else "Q4_K",
+                    "Q3_K_L": "Q5_K", "Q4_K_M": "Q6_K" if more else base,
+                    "Q5_K_M": "Q6_K" if more else base, "Q4_K_S": "Q5_K" if first8 else base,
+                    "Q4_0": "Q4_1" if imatrix and first8 else base,
+                    "Q5_0": "Q5_1" if imatrix and first8 else base,
+                    "IQ3_XXS": base if imatrix else "Q4_K" if first8 else "Q3_K",
+                    "IQ3_M": "Q4_K" if first8 or (n_exp == 8 and more) else base,
+                    "IQ4_NL": "Q5_K" if first8 and not imatrix else base,
+                    "IQ4_XS": "Q5_K" if first8 and not imatrix else base}.get(ftype, base)
+            if n_exp == 8:
+                out = "Q5_K" if ftype in ("Q2_K", "Q3_K_S", "Q3_K_M", "Q4_K_S", "Q4_K_M", "IQ4_NL",
+                                          "IQ4_XS", "IQ3_XS", "IQ3_XXS", "IQ3_S", "IQ3_M") else base
+            else:
+                out = {"Q2_K": "Q3_K", "Q3_K_M": "Q4_K", "Q3_K_L": "Q5_K", "IQ3_XXS": "IQ3_S",
+                       "IQ3_M": "Q4_K"}.get(ftype, base)
+        layers.append({"attn_q": q, "attn_k": k, "attn_v": v, "attn_output": out,
                        "ffn_gate": base, "ffn_up": base, "ffn_down": down})
-    return {"token_embd": base, "output": "Q8_0" if base == "Q8_0" else "Q6_K",
-            "layers": layers}
+    low = ftype in ("IQ2_M", "IQ3_XXS")
+    return {"token_embd": "IQ3_S" if low else base,
+            "output": "Q5_K" if low else "Q8_0" if base == "Q8_0" else "Q6_K", "layers": layers}
 
 
-def layout_kinds(cfg: ModelConfig, layout: str = DEFAULT_LAYOUT) -> dict:
+def layout_kinds(cfg: ModelConfig, layout: str = DEFAULT_LAYOUT, imatrix: bool = False) -> dict:
     """tensor_kinds of a preset, or of DEFAULT_LAYOUT."""
     if layout != DEFAULT_LAYOUT:
-        return tensor_kinds(cfg, layout)
+        return tensor_kinds(cfg, layout, imatrix)
     kinds = tensor_kinds(cfg, "Q4_K_M")
     if not cfg.n_expert:
         for lk in kinds["layers"]:
@@ -135,15 +171,16 @@ def random_experts(kind: str, n_exp: int, n: int, k: int, generator: torch.Gener
 
 
 def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
-                          ftype: str = DEFAULT_LAYOUT) -> dict:
-    """Random params of a GGUF quantized to the preset `ftype`, or laid out
-    as DEFAULT_LAYOUT (layout_kinds), for the llama forward, on `device`,
-    fused as the loader fuses such a file."""
+                          ftype: str = DEFAULT_LAYOUT, imatrix: bool = False) -> dict:
+    """Random params of a GGUF quantized to the preset `ftype` (with an
+    importance matrix if `imatrix`), or laid out as DEFAULT_LAYOUT
+    (layout_kinds), for the llama forward, on `device`, fused as the loader
+    fuses such a file."""
     from .. import resolve_device
 
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
-    kinds = layout_kinds(cfg, ftype)
+    kinds = layout_kinds(cfg, ftype, imatrix)
     E, F = cfg.n_embd, cfg.n_ff
     kv = cfg.n_head_kv * cfg.head_dim_k
     params: dict = {

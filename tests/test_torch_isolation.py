@@ -26,7 +26,7 @@ print(len(names), missing, bad, sep="|")
 # modules that must be among those imported (the walk finds every module;
 # these are the ones whose absence would leave a rule untested)
 _REQUIRED = ("llamacog_tpu_torch.runtime.engine", "llamacog_tpu_torch.runtime.sampler",
-             "llamacog_tpu_torch.tools.cli")
+             "llamacog_tpu_torch.tools.cli", "llamacog_tpu_torch.quant.iq_tables")
 
 
 def test_port_imports_no_jax_and_no_jax_package():

@@ -41,9 +41,10 @@ KIND_PAIRS = [(k, k) for k in ("q8_0", "q4_0", "q4_1", "q5_0", "q5_1")] + [
     ("q8_0", "q5_1"), ("q5_0", "q4_1"), ("bf16", "q4_0"), ("q8_0", "f16")]
 # weight kinds of the weight kernels (qmv, qgemm, qmv_id, qgemm_id): the
 # Q4_K_M body and its more-bits layers, the Q8_0 / Q5_K attention weights of
-# an 8-expert Q4_K_M file, and the legacy and low-bit kinds of llama.cpp's
-# other presets
-WEIGHT_KINDS = ["Q4_K", "Q6_K", "Q8_0", "Q5_K", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K"]
+# an 8-expert Q4_K_M file, the legacy and low-bit kinds of llama.cpp's
+# other presets, and the codebook kinds of its IQ presets
+WEIGHT_KINDS = ["Q4_K", "Q6_K", "Q8_0", "Q5_K", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K",
+                "IQ4_NL", "IQ4_XS", "IQ3_XXS", "IQ3_S", "IQ2_S"]
 
 pytestmark = pytest.mark.cuda
 
@@ -100,7 +101,9 @@ def test_qgemm_matches_plain(dev, kind, N, K, B):
                                    ("Q8_0", "Q5_K", "Q4_K", "Q8_0"),
                                    ("Q5_K", "Q8_0", "Q6_K", "Q5_K"),
                                    ("Q3_K", "Q5_K", "Q4_0", "Q2_K"),
-                                   ("Q4_1", "Q5_0", "Q5_1", "Q6_K")], ids="-".join)
+                                   ("Q4_1", "Q5_0", "Q5_1", "Q6_K"),
+                                   ("IQ2_S", "Q4_K", "IQ3_S", "IQ3_XXS"),
+                                   ("IQ4_XS", "Q5_K", "IQ4_NL", "Q8_0")], ids="-".join)
 @pytest.mark.parametrize("B,dtype", [(1, torch.bfloat16), (5, torch.float32),
                                      *[(b, torch.bfloat16) for b in (9, 33, 70, 130)]])
 def test_four_mixed_descriptors_one_launch(dev, B, dtype, kinds):
@@ -122,12 +125,15 @@ def test_four_mixed_descriptors_one_launch(dev, B, dtype, kinds):
 
 
 @pytest.mark.parametrize("kinds", [("Q4_K", "Q6_K"), ("Q4_K", "Q8_0", "Q8_0"), ("Q3_K", "Q5_K"),
-                                   ("Q2_K", "Q4_K")], ids="-".join)
+                                   ("Q2_K", "Q4_K"), ("IQ2_S", "Q4_K"), ("IQ4_XS", "Q5_K"),
+                                   ("IQ3_XXS", "Q8_0", "Q8_0")], ids="-".join)
 @pytest.mark.parametrize("B", [9, 33, 130])
 def test_qgemm_multi_matches_plain(dev, B, kinds):
     """attn_qk + attn_v of a Q4_K_M layer; attn_q + attn_k + attn_v of an
     8-expert Q4_K_M file; attn_qk + attn_v of a Q3_K_M layer (layers 0-1)
-    and of a Q2_K layer."""
+    and of a Q2_K layer; the IQ presets' attn_qk + attn_v (IQ3_XXS and
+    IQ2_M: IQ2_S + Q4_K; IQ4_XS: + Q5_K) and an 8-expert IQ3_XS file's
+    attn_q + attn_k + attn_v."""
     g = torch.Generator(device=dev).manual_seed(B)
     ws = [random_wire(kind, n, 512, g, dev) for kind, n in zip(kinds, (160, 72, 72))]
     x = torch.randn(B, 512, generator=g, device=dev).to(torch.bfloat16)
@@ -158,6 +164,9 @@ def test_qmm_launchers_reject_bad_input(dev):
         qmv(torch.zeros(1, 512, device=dev), [w])  # K mismatch
     with pytest.raises(ValueError):
         qmv(torch.zeros(1, 256, device=dev, dtype=torch.float16), [w])
+    with pytest.raises(ValueError):  # no instantiation holds a codebook kind with Q3_K
+        qmv(torch.zeros(1, 256, device=dev), [random_wire("IQ2_S", 64, 256, g, dev),
+                                              random_wire("Q3_K", 64, 256, g, dev)])
 
 
 @pytest.mark.parametrize("kind", WEIGHT_KINDS)

@@ -46,23 +46,26 @@ _TABLE_KEY = {"attn_q": "attn_q", "attn_k": "attn_k", "attn_v": "attn_v",
 
 
 class PresetFiles:
-    """One tiny F32 GGUF and its quantized copies, made on first use."""
+    """One tiny F32 GGUF and its quantized copies, made on first use; with
+    `imatrix`, the path of an importance matrix (the .dat layout
+    tools/quantize.py::load_imatrix reads) the quantizer takes."""
 
-    def __init__(self, root, **model):
+    def __init__(self, root, n_layer: int = 2, **model):
         self.root = root
         self.src = make_tiny_llama_gguf(str(root / "f32.gguf"), n_embd=256, n_ff=256,
-                                        n_layer=2, **model)
+                                        n_layer=n_layer, **model)
         self.paths = {}
 
-    def __call__(self, preset: str) -> str:
-        if preset not in self.paths:
-            out = str(self.root / f"{preset}.gguf")
-            quantize_model(self.src, out, preset)
-            self.paths[preset] = out
-        return self.paths[preset]
+    def __call__(self, preset: str, imatrix: str | None = None) -> str:
+        key = (preset, imatrix)
+        if key not in self.paths:
+            out = str(self.root / f"{preset}{'-imatrix' if imatrix else ''}.gguf")
+            quantize_model(self.src, out, preset, imatrix_path=imatrix)
+            self.paths[key] = out
+        return self.paths[key]
 
 
-def check_kinds(path: str, preset: str) -> None:
+def check_kinds(path: str, preset: str, imatrix: bool = False) -> None:
     """The file's kinds are the table's (the router aside: the JAX
     quantizer quantizes ffn_gate_inp, llama.cpp never does and the
     synthetic params keep it f32), and make_synthetic_params has the loaded
@@ -70,7 +73,7 @@ def check_kinds(path: str, preset: str) -> None:
     reader = GGUFModelReader(path)
     try:
         cfg = ModelConfig.from_metadata(reader.metadata)
-        table = tensor_kinds(cfg, preset)
+        table = tensor_kinds(cfg, preset, imatrix)
         for name, key in (("token_embd", "token_embd"), ("output", "output")):
             got = GGMLType(reader.tensor_info(f"{name}.weight").ggml_type).name
             assert got == table[key], (preset, name)
@@ -83,7 +86,7 @@ def check_kinds(path: str, preset: str) -> None:
     finally:
         reader.close()
     m = load_model(path, dtype=torch.float32, device="cpu", with_tokenizer=False)
-    syn = make_synthetic_params(m.config, seed=0, device="cpu", ftype=preset)
+    syn = make_synthetic_params(m.config, seed=0, device="cpu", ftype=preset, imatrix=imatrix)
     for key in ("tok_embd", "output"):
         assert (syn[key].kind, syn[key].shape) == (m.params[key].kind, m.params[key].shape)
     for lf, ls in zip(m.params["layers"], syn["layers"]):
@@ -153,20 +156,18 @@ def test_engine_greedy_tokens_match_jax(files, preset):
     check_greedy_tokens(files(preset))
 
 
-@pytest.mark.parametrize("preset", sorted(synthetic.PRESETS))
-def test_tensor_kinds_follow_the_jax_quantizer_at_full_depth(preset):
-    """The table at the card's configurations (Llama-3-8B and Mixtral-8x7B,
-    32 layers) against the JAX quantizer's tensor_get_type, tensor by tensor
-    in GGUF order."""
-    for cfg in (synthetic.llama3_8b_config(), synthetic.mixtral_8x7b_config()):
+def check_tensor_kinds_at(cfgs, preset: str, imatrix: bool) -> None:
+    """tensor_kinds against the JAX quantizer's tensor_get_type for each
+    config, tensor by tensor in GGUF order."""
+    for cfg in cfgs:
         ftype = FTYPE_NAMES[preset]
         qs = QuantizeState(n_layer=cfg.n_layer, n_gqa=cfg.n_head // cfg.n_head_kv,
-                           n_expert=cfg.n_expert, has_output=True, has_imatrix=False)
+                           n_expert=cfg.n_expert, has_output=True, has_imatrix=imatrix)
 
         def jax_kind(name, k):
             return GGMLType(tensor_get_type(qs, FTYPE_BASE[ftype], name, (k,), ftype)).name
 
-        table = tensor_kinds(cfg, preset)
+        table = tensor_kinds(cfg, preset, imatrix)
         assert jax_kind("token_embd.weight", cfg.n_embd) == table["token_embd"]
         assert jax_kind("output.weight", cfg.n_embd) == table["output"]
         exps = "_exps" if cfg.n_expert else ""
@@ -176,7 +177,15 @@ def test_tensor_kinds_follow_the_jax_quantizer_at_full_depth(preset):
                 suffix = key + (exps if key.startswith("ffn") else "")
                 got = jax_kind(f"blk.{il}.{suffix}.weight", cfg.n_ff if key == "ffn_down"
                                else cfg.n_embd)
-                assert got == kinds[key], (preset, cfg.n_expert, il, key)
+                assert got == kinds[key], (preset, imatrix, cfg.n_expert, il, key)
+
+
+@pytest.mark.parametrize("preset", sorted(synthetic.PRESETS))
+def test_tensor_kinds_follow_the_jax_quantizer_at_full_depth(preset):
+    """The table at the card's configurations (Llama-3-8B and Mixtral-8x7B,
+    32 layers), without an importance matrix."""
+    check_tensor_kinds_at((synthetic.llama3_8b_config(), synthetic.mixtral_8x7b_config()),
+                          preset, imatrix=False)
 
 
 def test_default_layout_is_q4_k_m_with_every_dense_attn_v_q6_k():

@@ -13,8 +13,9 @@ from llamacog_tpu.ops.pallas.qmm import qmm, qmm_multi
 from llamacog_tpu.quant import quantize
 from llamacog_tpu.quant.planar import from_gguf
 from llamacog_tpu_torch.ops import linear
-from llamacog_tpu_torch.ops.cuda.qmm import qmm_plain
+from llamacog_tpu_torch.ops.cuda.qmm import qmm_plain, share_launch
 from llamacog_tpu_torch.quant import wire
+from llamacog_tpu_torch.utils.synthetic import random_wire
 
 N, K = 256, 512
 
@@ -35,7 +36,18 @@ def _pair(kind, n, k, seed):
     return qt, wire.from_bytes(raw, t, (n, k))
 
 
-KINDS = ["Q4_K", "Q6_K", "Q8_0", "Q5_K", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K"]
+def _random_pair(kind, n, k, seed):
+    """_pair over random blocks (utils/synthetic.py::random_wire): the codebook
+    kinds' quantizer takes tens of seconds at the 8B widths."""
+    raw = random_wire(kind, n, k, torch.Generator().manual_seed(seed)).blocks.numpy().reshape(-1)
+    t = getattr(GGMLType, kind)
+    qt = from_gguf(raw, t, (n, k))
+    qt.planes = {name: jnp.asarray(v) for name, v in qt.planes.items()}
+    return qt, wire.from_bytes(raw, t, (n, k))
+
+
+IQ_KINDS = ["IQ4_NL", "IQ4_XS", "IQ3_XXS", "IQ3_S", "IQ2_S"]
+KINDS = ["Q4_K", "Q6_K", "Q8_0", "Q5_K", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K", *IQ_KINDS]
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -58,13 +70,16 @@ def test_qmm_plain_matches_pallas(kind, batch, bf16):
     assert torch.equal(lin, got.to(xt.dtype))
 
 
-@pytest.mark.parametrize("kinds", [("Q4_K", "Q6_K"), ("Q4_K", "Q8_0", "Q8_0")],
+@pytest.mark.parametrize("kinds", [("Q4_K", "Q6_K"), ("Q4_K", "Q8_0", "Q8_0"), ("IQ2_S", "Q4_K"),
+                                   ("IQ4_XS", "Q5_K"), ("IQ3_XXS", "Q8_0", "Q8_0")],
                          ids=lambda k: "+".join(k))
 @pytest.mark.parametrize("batch", [1, 32])
 def test_qmm_multi_plain_matches_pallas(batch, kinds):
     """Weights sharing x in one launch: a Q4_K_M layer's attn_qk + attn_v
-    (Q4_K + Q6_K), and an 8-expert Q4_K_M file's attn_q + attn_k + attn_v
-    (Q4_K + Q8_0 + Q8_0)."""
+    (Q4_K + Q6_K), an 8-expert Q4_K_M file's attn_q + attn_k + attn_v
+    (Q4_K + Q8_0 + Q8_0), and the IQ presets' (IQ3_XXS's and IQ2_M's IQ2_S
+    attn_qk + Q4_K attn_v, IQ4_XS's + Q5_K attn_v, an 8-expert IQ3_XS
+    file's IQ3_XXS attn_q + Q8_0 attn_k, attn_v)."""
     pairs = [_pair(kind, N // (1 + i), K, seed=11 + i) for i, kind in enumerate(kinds)]
     x = np.random.default_rng(13).standard_normal((batch, K)).astype(np.float32)
     refs = qmm_multi(jnp.asarray(x), [qt for qt, _ in pairs], interpret=True)
@@ -72,6 +87,20 @@ def test_qmm_multi_plain_matches_pallas(batch, kinds):
     assert [o.shape for o in outs] == [(batch, wt.shape[0]) for _, wt in pairs]
     for got, ref in zip(outs, refs):
         assert nmse(got.numpy(), np.asarray(ref)) < 2e-4
+
+
+def test_codebook_kinds_share_launches_with_a_q4_k_m_files_kinds_only():
+    """The kernels compile a codebook kind beside Q4_K, Q6_K, Q8_0 and Q5_K
+    only (csrc/common.cuh::KS_IQ): qmatmul_multi declines any other mix, and
+    its caller's per-weight products are the same."""
+    assert share_launch(["IQ2_S", "Q4_K"]) and share_launch(["IQ3_XXS", "Q8_0", "Q8_0"])
+    assert share_launch(["Q3_K", "Q5_K"]) and share_launch(["IQ4_NL", "IQ3_S"])
+    assert not share_launch(["IQ2_S", "Q3_K"]) and not share_launch(["Q4_0", "IQ4_XS"])
+    _, wa = _random_pair("IQ2_S", 64, K, seed=1)
+    _, wb = _random_pair("Q3_K", 32, K, seed=2)
+    x = torch.randn(2, K, generator=torch.Generator().manual_seed(3))
+    assert linear.qmatmul_multi(x, [wa, wb]) is None
+    assert [o.shape for o in linear.qmatmul_multi(x, [wa])] == [(2, 64)]
 
 
 def test_qmatmul_casts_back_to_activation_dtype():
@@ -98,13 +127,19 @@ LEGACY = {"Q4_0": (18, 2, 0, 16, 8), "Q4_1": (20, 4, 0, 16, 0), "Q5_0": (22, 6, 
 def _levels_scales(wt):
     """The qmv kernel's levels [N, K] (the raw levels plus a bias: Q4_K,
     Q4_0, Q4_1, Q2_K and Q3_K 16 + q, Q5_K, Q5_0 and Q5_1 32 + q, Q6_K
-    64 + q; Q8_0 the signed levels) and, per part of its lane slice (Q4_K
-    and Q5_K 16 weights, Q6_K, Q2_K and Q3_K 8, Q8_0 and the legacy kinds
-    32), the scale sc and offset mn [N, K / part] of wt's blocks with the
-    bias folded into mn, in f32 as the kernel forms them."""
+    64 + q; Q8_0 and the codebook kinds the signed levels) and, per part of
+    its lane slice (Q4_K, Q5_K and IQ2_S 16 weights, Q6_K, Q2_K and Q3_K 8,
+    Q8_0, the legacy and the other codebook kinds 32), the scale sc and
+    offset mn [N, K / part] of wt's blocks with the bias folded into mn, in
+    f32 as the kernel forms them."""
     b = wt.blocks.reshape(-1, wire.BLOCK_BYTES[wt.kind])
     n, k = wt.shape
-    if wt.kind in LEGACY:
+    if wt.kind in IQ_KINDS:
+        # the signed levels themselves, no bias, no offset; a part a scale
+        # (IQ2_S 16 weights, the others 32)
+        q, sc = wire.iq_levels(wt.kind, b)
+        mn = torch.zeros_like(sc)
+    elif wt.kind in LEGACY:
         # one part a 32-weight block: levels 16 + q (4-bit) or 32 + q (5-bit),
         # sc = d, the bias and the block's offset (-8 d, -16 d, +m) in mn
         size, qs_at, qh_at, bias, off = LEGACY[wt.kind]
@@ -187,8 +222,9 @@ def test_qmv_folded_order_within_tolerance(kind, K):
     """Evidence for qmv's tolerance (TOL_QMM = 1e-4 of the largest output in
     chip_smoke.py and the -m cuda tests) at the 8B layer widths: the folded
     order against qmm_plain (weights formed, then dotted) and against the
-    Pallas kernel in interpret mode, f32 at B = 1 and 8."""
-    qt, wt = _pair(kind, 128, K, seed=K)
+    Pallas kernel in interpret mode, f32 at B = 1 and 8 (the codebook kinds
+    over random blocks)."""
+    qt, wt = (_random_pair if kind in IQ_KINDS else _pair)(kind, 128, K, seed=K)
     for batch in (1, 8):
         x = np.random.default_rng(K + batch).standard_normal((batch, K)).astype(np.float32)
         got = qmv_folded(torch.from_numpy(x), wt)

@@ -1,5 +1,10 @@
 """The port's wire-format dequant (llamacog_tpu_torch/quant/wire.py) against
-the JAX package's decoders, on blocks from llamacog_tpu.quant.quantize."""
+the JAX package's decoders, on blocks from llamacog_tpu.quant.quantize and
+on random blocks; the port's copy of the IQ tables (quant/iq_tables.py)
+against the JAX package's."""
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -9,11 +14,14 @@ import jax.numpy as jnp
 
 from llamacog_tpu.gguf import GGMLType
 from llamacog_tpu.quant import quantize
+from llamacog_tpu.quant import decode_np
 from llamacog_tpu.quant.decode_np import dequantize_tensor
 from llamacog_tpu.quant.planar import decode, from_gguf
-from llamacog_tpu_torch.quant import wire
+from llamacog_tpu_torch.quant import iq_tables, wire
+from llamacog_tpu_torch.utils.synthetic import random_wire
 
-KINDS = ["Q4_K", "Q6_K", "Q8_0", "Q5_K", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K"]
+KINDS = ["Q4_K", "Q6_K", "Q8_0", "Q5_K", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K",
+         "IQ4_NL", "IQ4_XS", "IQ3_XXS", "IQ3_S", "IQ2_S"]
 
 
 def _blocks(kind, n, k, seed):
@@ -38,6 +46,19 @@ def test_dequant_bit_exact_vs_decode_np(kind, shape):
         ref = ref.astype(np.float32)
     got = wire.dequantize(wire.from_bytes(raw, t, shape)).numpy()
     assert got.dtype == np.float32 and got.shape == shape
+    np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_dequant_bit_exact_vs_decode_np_on_random_blocks(kind):
+    """Random code, index, sign and scale bytes (every grid index and sign
+    byte is valid), small positive f16 superblock scales (random_wire):
+    the same bits as decode_np."""
+    shape = (48, 512)
+    w = random_wire(kind, *shape, torch.Generator().manual_seed(len(kind)))
+    ref = dequantize_tensor(w.blocks.numpy().reshape(-1), getattr(GGMLType, kind), shape)
+    ref = ref.astype(np.float32)  # Q3_K: exact f32 values in float64 (above)
+    got = wire.dequantize(w).numpy()
     np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
 
 
@@ -85,5 +106,47 @@ def test_fuse_rows_concatenates_blocks():
 
 def test_unported_kind_raises():
     """A kind the port does not carry is refused by name."""
-    with pytest.raises(NotImplementedError, match="IQ4_NL"):
-        wire.from_bytes(np.zeros(18 * 8, np.uint8), GGMLType.IQ4_NL, (1, 256))
+    with pytest.raises(NotImplementedError, match="IQ2_XXS"):
+        wire.from_bytes(np.zeros(66, np.uint8), GGMLType.IQ2_XXS, (1, 256))
+
+
+def test_iq_tables_are_the_jax_package_copy():
+    """The port's iq_grids.npz holds the arrays of the JAX package's, bit for
+    bit, and its f32 tables are those decode_np builds from them."""
+    with np.load(Path(decode_np.__file__).with_name("iq_grids.npz")) as z:
+        ref = {k: z[k] for k in z.files}
+    got = iq_tables.raw()
+    assert set(got) == set(ref)
+    for k in ref:
+        assert got[k].dtype == ref[k].dtype and np.array_equal(got[k], ref[k]), k
+    np.testing.assert_array_equal(iq_tables.tables()["kvalues"].numpy(), decode_np.KVALUES_IQ4NL)
+    g = decode_np._grids()
+    for name in ("iq3xxs", "iq3s", "iq2s", "sign128", "sign256"):
+        np.testing.assert_array_equal(iq_tables.tables()[name].numpy(), g[name])
+
+
+def _parse_header(text: str) -> dict:
+    """The arrays and word constants of a cuda_header() text as numpy."""
+    out = {}
+    for name, body in re.findall(r"(\w+)\[\d+\] = \{(.*?)\};", text, re.S):
+        out[name] = np.array([int(v, 16) for v in re.findall(r"0x([0-9a-f]+)u", body)],
+                             dtype=np.uint32)
+    for name, v in re.findall(r"constexpr uint32_t (\w+) = 0x([0-9a-f]+)u;", text):
+        out[name] = np.uint32(int(v, 16))
+    return out
+
+
+def test_iq_cuda_header_holds_the_tables():
+    """The header the kernels compile (ops/cuda/build.py writes it) holds
+    the npz's grids word for word and the IQ4 levels + 128; the sign byte
+    the kernels compute from a 7-bit index (the index with its parity as
+    bit 7, common.cuh::iq_ksigns) is ksigns_iq2xs."""
+    parsed = _parse_header(iq_tables.cuda_header())
+    raw = iq_tables.raw()
+    for name, c_name in (("iq3xxs", "IQ3XXS_GRID"), ("iq3s", "IQ3S_GRID"), ("iq2s", "IQ2S_GRID")):
+        np.testing.assert_array_equal(parsed[c_name], raw[name].view(np.uint32).reshape(-1))
+    x80 = np.array([parsed[f"IQ4NL_X80_{i}"] for i in range(4)], np.uint32).view(np.uint8)
+    np.testing.assert_array_equal(x80.astype(np.int64) - 128, decode_np.KVALUES_IQ4NL)
+    idx = np.arange(128)
+    parity = np.bitwise_xor.reduce((idx[:, None] >> np.arange(7)) & 1, axis=1)
+    np.testing.assert_array_equal(idx | (parity << 7), raw["ksigns"])
