@@ -12,16 +12,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      weight kernels (qmv at one row, qgemm at 128 and 512 rows; also over
      the Q8_0 and Q5_K weights of a real Mixtral Q4_K_M file and its
      attn_q + attn_k + attn_v launch; and every kind of llama.cpp's other
-     presets, Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, Q3_K and the codebook IQ4_NL,
-     IQ4_XS, IQ3_XXS, IQ3_S, IQ2_S, at gate_up and ffn_down, with a Q3_K_M
-     layer's Q3_K attn_qk + Q5_K attn_v launch, an IQ3_XXS layer's IQ2_S +
-     Q4_K and an IQ4_XS layer's IQ4_XS + Q5_K), the int8 route's activation
+     presets, Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, Q3_K, the codebook IQ4_NL,
+     IQ4_XS, IQ3_XXS, IQ3_S, IQ2_S, IQ2_XXS, IQ2_XS, IQ1_S, IQ1_M and the
+     ternary TQ1_0, TQ2_0, at gate_up and ffn_down (the last six also at
+     8 rows), with a Q3_K_M layer's Q3_K attn_qk + Q5_K attn_v launch, an
+     IQ3_XXS layer's IQ2_S + Q4_K, an IQ4_XS layer's IQ4_XS + Q5_K, the
+     1-bit and 2-bit presets' attn_qk + Q4_K attn_v and an 8-expert
+     ternary file's TQ attn_q + Q8_0 attn_k + attn_v; qmv at one row and
+     qgemm at 128 also at Llama-3-70B IQ2_XXS's own weights, K up to
+     28672), the int8 route's activation
      quantization (bit-equal) and prefill GEMM (K13, bit-equal at both tile
      heights, beside torch._int_mm) at the five layer shapes at 512 rows and
      ragged 300, and attn_qk + attn_v on one quantization; the dense-cache
      attention kernels (the
      stacked K4 and the per-layer K9 at depths 1000 and 32765; prefill K5
-     at T=128 over write offsets 0 and 896 and at T=512; each also run once
+     at T=128 over write offsets 0 and 896 and at T=512; K4 and K5 also at
+     Llama-3-70B's heads, 64 query heads over 8 kv heads; each also run once
      with host syncs raising, and timed beside SDPA on the device alone and
      on the host per call; K5's bf16 SIMT body at head dim 72 and on a
      misaligned cache view), and the quantized-cache attention
@@ -34,7 +40,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      at the Mixtral-8x7B expert shapes (the
      gather at 2 and 32 rows, the offset entry, the grouped GEMM of a
      128- and a 512-token prefill; both again over gate_up and down stacks
-     of every other kind: Q8_0, Q5_K and the eleven above);
+     of every other kind: Q8_0, Q5_K and the seventeen above, the last six
+     also through the offset entry);
   4. the full-width kernel path (8B widths, 2 layers) against the plain
      path (the same params on the CPU): prefill logits, 4 teacher-forced
      decode steps (Engine.decode_one: replays of the step's CUDA graph on
@@ -43,12 +50,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the split q5_1:q4_0 cache, LLAMACOG_MMQ=1 on a 300-token prompt (int8
      prefill), and the per-layer decode routes (LLAMACOG_FLASH_STACKED=0:
      K9 on the dense cache with LLAMACOG_FLASH_DECODE=1, K8 on q8_0), and
-     the presets Q4_0 (with LLAMACOG_MMQ=1), Q5_1, Q3_K_M, Q2_K, IQ4_XS
-     and IQ3_XXS; then the same at Mixtral widths (2 layers, dense cache,
-     the attention weight kinds of a real Q4_K_M file: Q8_0 attn_k/attn_v,
-     Q5_K attn_output): a 20-token prefill (grouped GEMM), 4 decode steps
-     and a 9-token second chunk (gather), and the presets Q5_K_M, Q3_K_M,
-     IQ2_M and IQ3_XXS (an f32 model: see phase 4's comment);
+     the presets Q4_0 (with LLAMACOG_MMQ=1), Q5_1, Q3_K_M, Q2_K, IQ4_XS,
+     IQ3_XXS and IQ1_M; then the same at Mixtral widths (2 layers, dense
+     cache, the attention weight kinds of a real Q4_K_M file: Q8_0
+     attn_k/attn_v, Q5_K attn_output): a 20-token prefill (grouped GEMM), 4
+     decode steps and a 9-token second chunk (gather), and the presets
+     Q5_K_M, Q3_K_M, IQ2_M, IQ3_XXS (an f32 model: see phase 4's comment)
+     and TQ1_0 (the CPU copy keeps each weight's plain dequant:
+     wire.keep_decoded);
   5. whether stream capture keeps the split-S combine's programmatic
      dependent launch (K4 and K6 captured alone: the graph's edges by
      type, the replay against the eager call), then the 8B Q4_K_M
@@ -75,13 +84,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      512-token prompt and 16 tokens (the grouped GEMM over several tiles an
      expert); then the other presets, each with a 128-token prompt and 64
      greedy tokens through the graph: the 8B at full depth in Q4_0, Q4_1,
-     Q5_0, Q5_1, Q2_K, Q3_K_M, IQ4_XS, IQ4_NL, IQ3_XXS, IQ3_M and IQ2_M,
-     Mixtral-8x7B Q5_K_M and IQ4_XS at full depth, and Mixtral in Q8_0,
-     Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, IQ4_NL, IQ3_XXS, IQ3_S and IQ2_M at
-     MIXTRAL_PRESET_LAYERS layers (one preset for each other expert kind);
-     the phase's wall time;
-  6. one JSON line of per-kernel results, the card's name and power limit,
-     and the final {"ok": true, ...} line.
+     Q5_0, Q5_1, Q2_K, Q3_K_M, IQ4_XS, IQ4_NL, IQ3_XXS, IQ3_M, IQ2_M,
+     IQ2_XXS, IQ2_S, IQ1_S, IQ1_M, TQ1_0 and TQ2_0, Mixtral-8x7B Q5_K_M and
+     IQ4_XS at full depth, and Mixtral in Q8_0, Q4_0, Q4_1, Q5_0, Q5_1,
+     Q2_K, IQ4_NL, IQ3_XXS, IQ3_S, IQ2_M, IQ2_XXS, IQ2_S, IQ1_S, IQ1_M,
+     TQ1_0 and TQ2_0 at MIXTRAL_PRESET_LAYERS layers (one preset for each
+     other expert kind); then Llama-3-70B IQ2_XXS at full depth (80 layers,
+     the preset that puts a 70B on one card); the phase's wall time;
+  6. each phase's seconds, one JSON line of per-kernel results, the card's
+     name and power limit, and the final {"ok": true, ...} line.
 
 Weights are random wire blocks made on the card from a seed, each tensor of
 the kind llama.cpp's rules give it under the run's preset (Q4_K_M unless
@@ -112,9 +123,9 @@ INT8_OPS = 1979e12         # H100 SXM dense int8 tensor-core peak
 # TPU kernel's order). qgemm forms
 # every weight bit for bit as the plain version and
 # rounds it to bf16 as it does; only the f32 summation order differs. Over
-# K <= 14336 terms the worst case is ~K * 2^-24 of the term magnitudes
-# (9e-4); the folded order run in plain f32 at the 8B widths stays far
-# inside the tolerance (tests/test_torch_qmm.py)
+# K <= 28672 terms (the 70B's ffn_down) the worst case is ~K * 2^-24 of the
+# term magnitudes (1.7e-3); the folded order run in plain f32 at the 8B
+# widths stays far inside the tolerance (tests/test_torch_qmm.py)
 TOL_QMM = 1e-4
 # qmm_i8: the same integer block products and the same f32 combine,
 # operation for operation, as the plain version: bit parity expected
@@ -131,15 +142,18 @@ N_DECODE = 128
 # whose phase-5 run holds each (in the 8B dense weights; in the Mixtral
 # expert stacks, EXPERT_PRESET)
 NEW_KINDS = ("Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K")
-# the codebook kinds of llama.cpp's IQ presets
-IQ_KINDS = ("IQ4_NL", "IQ4_XS", "IQ3_XXS", "IQ3_S", "IQ2_S")
+# the 1-2 bit kinds of llama.cpp's IQ2 and IQ1 presets and the ternary
+# ones (quant/wire.py::LOW_BIT_KINDS), each the body of the preset of
+# LOW_PRESET (the preset IQ2_S's body is IQ2_XS)
+LOW_PRESET = {"IQ2_XXS": "IQ2_XXS", "IQ2_XS": "IQ2_S", "IQ1_S": "IQ1_S", "IQ1_M": "IQ1_M",
+              "TQ1_0": "TQ1_0", "TQ2_0": "TQ2_0"}
 KIND_PRESET = {"Q4_0": "Q4_0", "Q4_1": "Q4_1", "Q5_0": "Q5_0", "Q5_1": "Q5_1", "Q2_K": "Q2_K",
                "Q3_K": "Q3_K_M", "IQ4_NL": "IQ4_NL", "IQ4_XS": "IQ4_XS", "IQ3_XXS": "IQ3_XXS",
-               "IQ3_S": "IQ3_M", "IQ2_S": "IQ2_M"}
+               "IQ3_S": "IQ3_M", "IQ2_S": "IQ2_M", **LOW_PRESET}
 EXPERT_PRESET = {"Q8_0": "Q8_0", "Q5_K": "Q5_K_M", "Q4_0": "Q4_0", "Q4_1": "Q4_1",
                  "Q5_0": "Q5_0", "Q5_1": "Q5_1", "Q2_K": "Q2_K", "Q3_K": "Q2_K",
                  "IQ4_NL": "IQ4_NL", "IQ4_XS": "IQ4_XS", "IQ3_XXS": "IQ3_XXS", "IQ3_S": "IQ3_S",
-                 "IQ2_S": "IQ2_M"}
+                 "IQ2_S": "IQ2_M", **LOW_PRESET}
 # the Mixtral preset runs at full depth; the others (each holds one more
 # expert kind) at MIXTRAL_PRESET_LAYERS layers
 MIXTRAL_FULL_DEPTH = ("Q5_K_M", "IQ4_XS")
@@ -215,14 +229,15 @@ def main() -> int:
         qmm_ragged_plain)
     from llamacog_tpu_torch.ops.linear import qmatmul_multi
     from llamacog_tpu_torch.quant.mmq import build_mmq_planes
-    from llamacog_tpu_torch.quant.wire import WireTensor
+    from llamacog_tpu_torch.quant.wire import (
+        CODEBOOK_KINDS, LOW_BIT_KINDS, WireTensor, keep_decoded)
     from llamacog_tpu_torch.runtime.engine import Engine
     from llamacog_tpu_torch.runtime.kv_cache import (
         QuantKVCache, kv_dequant_planes, kv_plane_shapes)
     from llamacog_tpu_torch.runtime.sampler import SamplerChain, SamplerParams
     from llamacog_tpu_torch.utils.synthetic import (
-        CODEBOOK_PRESETS, DEFAULT_LAYOUT, llama3_8b_config, make_synthetic_params,
-        mixtral_8x7b_config, random_experts, random_wire)
+        CODEBOOK_PRESETS, DEFAULT_LAYOUT, llama3_70b_config, llama3_8b_config,
+        make_synthetic_params, mixtral_8x7b_config, random_experts, random_wire)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -240,7 +255,8 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     secs = build.build()
-    log(f"[build] {time.perf_counter() - t0:.1f}s wall, per source "
+    phase_s = {"build": time.perf_counter() - t0}
+    log(f"[build] {phase_s['build']:.1f}s wall, per source "
         + json.dumps({k: round(v, 1) for k, v in secs.items()}))
     for name, text in build.BUILD_LOG.items():
         func = "?"
@@ -433,20 +449,54 @@ def main() -> int:
     # it; and the mixed launches of a Q3_K_M layer's attn_qk (Q3_K) + attn_v
     # (Q5_K, layers 0-1), an IQ3_XXS (and IQ2_M) layer's IQ2_S attn_qk + Q4_K
     # attn_v and an IQ4_XS layer's IQ4_XS attn_qk + Q5_K attn_v
-    for kind in (*NEW_KINDS, *IQ_KINDS):
+    for kind in (*NEW_KINDS, *CODEBOOK_KINDS, *LOW_BIT_KINDS):
         w_gu_k, w_d_k = random_wire(kind, 2 * F, E, g, dev), random_wire(kind, E, F, g, dev)
-        for kname, fn, B in weight_calls:
+        calls = weight_calls if kind not in LOW_BIT_KINDS else (
+            weight_calls[:1] + (("qmv", qmv, 8),) + weight_calls[1:])
+        for kname, fn, B in calls:
             for label, w in ((f"ffn_gate_up {kind} 28672x4096", w_gu_k),
                              (f"ffn_down {kind} 4096x14336", w_d_k)):
                 weight_parity(kname, fn, B, label, [w], False, f"8b {KIND_PRESET[kind]}")
         del w_gu_k, w_d_k
     for preset, qk, v in (("Q3_K_M", "Q3_K", "Q5_K"), ("IQ3_XXS", "IQ2_S", "Q4_K"),
-                          ("IQ4_XS", "IQ4_XS", "Q5_K")):
+                          ("IQ4_XS", "IQ4_XS", "Q5_K"), ("IQ2_XXS", "IQ2_XXS", "Q4_K"),
+                          ("IQ2_S", "IQ2_XS", "Q4_K"), ("IQ1_S", "IQ1_S", "Q4_K"),
+                          ("IQ1_M", "IQ1_M", "Q4_K")):
         w_qk_p, w_v_p = random_wire(qk, 5120, E, g, dev), random_wire(v, 1024, E, g, dev)
         for kname, fn, B in weight_calls:
             weight_parity(kname, fn, B, f"{preset} attn_qk+attn_v {qk} 5120x4096 + {v} 1024x4096",
                           [w_qk_p, w_v_p], True, f"8b {preset}")
         del w_qk_p, w_v_p
+    # an 8-expert ternary file's attn_q + attn_k + attn_v (TQ + Q8_0 + Q8_0:
+    # the K3 launch of the Mixtral TQ runs; the dense ternary files fuse q+k+v)
+    for preset in ("TQ1_0", "TQ2_0"):
+        ws_p = [random_wire(preset, E, E, g, dev), random_wire("Q8_0", 1024, E, g, dev),
+                random_wire("Q8_0", 1024, E, g, dev)]
+        for kname, fn, B in weight_calls:
+            weight_parity(kname, fn, B, f"Mixtral {preset} attn_q+attn_k+attn_v {preset} "
+                          "4096x4096 + Q8_0 1024x4096 x2", ws_p, True, f"mixtral {preset}")
+        del ws_p
+    # Llama-3-70B IQ2_XXS's own weights, read in its phase-5 run: K up to
+    # 28672, twice any K above (its IQ2_XXS ffn_down and layers 0-9's Q2_K
+    # one), its IQ2_XXS attn_qk + Q4_K attn_v launch and attn_output at K
+    # 8192, its gate_up, and the Q5_K LM head (qmv only, as above)
+    c70 = llama3_70b_config()
+    E70, F70, hd70 = c70.n_embd, c70.n_ff, c70.head_dim_k
+    for label, shapes70 in (
+            (f"attn_qk+attn_v IQ2_XXS {(c70.n_head + c70.n_head_kv) * hd70}x{E70} + Q4_K "
+             f"{c70.n_head_kv * hd70}x{E70}",
+             (("IQ2_XXS", (c70.n_head + c70.n_head_kv) * hd70, E70),
+              ("Q4_K", c70.n_head_kv * hd70, E70))),
+            (f"attn_output IQ2_XXS {E70}x{E70}", (("IQ2_XXS", E70, E70),)),
+            (f"ffn_gate_up IQ2_XXS {2 * F70}x{E70}", (("IQ2_XXS", 2 * F70, E70),)),
+            (f"ffn_down IQ2_XXS {E70}x{F70}", (("IQ2_XXS", E70, F70),)),
+            (f"ffn_down Q2_K {E70}x{F70}", (("Q2_K", E70, F70),)),
+            (f"output Q5_K {c70.n_vocab}x{E70}", (("Q5_K", c70.n_vocab, E70),))):
+        ws70 = [random_wire(kind, n, k, g, dev) for kind, n, k in shapes70]
+        for kname, fn, B in weight_calls[:1 if label.startswith("output") else 2]:
+            weight_parity(kname, fn, B, f"70b {label}", ws70, len(ws70) > 1, "70b IQ2_XXS")
+        del ws70
+        torch.cuda.empty_cache()
 
     # the activation quantization of the int8 route (one launch a layer
     # input), bit-equal to its plain version, at the 8B layer inputs: a
@@ -647,6 +697,47 @@ def main() -> int:
                2 * (qs1.numel() + 2 * n * Hkv * Dh + kcs1.numel() + vcs1.numel() + T * H * Dh),
                4 * H * keys * Dh, counter="flash_prefill_simt", listed=False)
         del kv_flat, ks1, vs1, qs1, kcs1, vcs1, args
+    # K4 and K5 at Llama-3-70B's heads (64 query heads over 8 kv heads: 8 a
+    # kv head, where the 8B has 4), read in the 70B run of phase 5: decode at
+    # depth 1000, the 128-token prompt's prefill at offset 0
+    H70 = llama3_70b_config().n_head
+    q70, kc70, vc70 = rnd(1, H70, D), rnd(1, Hkv, D), rnd(1, Hkv, D)
+    ks70, vs70 = rnd(2, 1, S, Hkv, D), rnd(2, 1, S, Hkv, D)
+    n = 1000
+    seq = torch.tensor([n], dtype=torch.int32, device=dev)
+    args = (q70, ks70, vs70, 1, kc70, vc70, seq, scale)
+    out = flash_decode_stacked_dense(*args)
+    ref = flash_decode_stacked_dense_plain(*args)
+    qf70 = q70[:, :, None]
+    kf = torch.cat([ks70[1, :, :n], kc70[:, None]], 1).transpose(1, 2).contiguous()
+    vf = torch.cat([vs70[1, :, :n], vc70[:, None]], 1).transpose(1, 2).contiguous()
+    torch.cuda.synchronize()
+    record(f"flash_decode_dense H={H70} Hkv={Hkv} D={D} S={S} seq_len={n}",
+           "llamacog_tpu_torch/csrc/flash_decode_dense.cu",
+           "llamacog_tpu/ops/pallas/flash_q8.py:968", [out], [ref], TOL_ATTN,
+           time_ms(lambda: flash_decode_stacked_dense(*args)),
+           time_ms(lambda: flash_decode_stacked_dense_plain(*args), iters=5),
+           2 * (q70.numel() + 2 * n * Hkv * D + kc70.numel() + vc70.numel() + H70 * D),
+           4 * H70 * (n + 1) * D,
+           time_ms(lambda: sdpa(qf70, kf, vf, scale=scale, enable_gqa=True)), run="70b IQ2_XXS")
+    qp70, kcp70, vcp70 = rnd(1, T, H70, D), rnd(1, T, Hkv, D), rnd(1, T, Hkv, D)
+    seq = torch.tensor([0], dtype=torch.int32, device=dev)
+    args = (qp70, kl, vl, kcp70, vcp70, seq, scale)
+    out = flash_prefill_kernel(*args)
+    ref = flash_prefill_attention_plain(*args)
+    allowed = torch.arange(T, device=dev)[None, :] <= torch.arange(T, device=dev)[:, None]
+    qs70, kf, vf = (t.transpose(1, 2) for t in (qp70, kcp70, vcp70))
+    torch.cuda.synchronize()
+    record(f"flash_prefill T={T} H={H70} Hkv={Hkv} D={D} S={S} seq_len=0",
+           "llamacog_tpu_torch/csrc/flash_prefill.cu",
+           "llamacog_tpu/ops/pallas/flash_prefill.py:129", [out], [ref], TOL_ATTN,
+           time_ms(lambda: flash_prefill_kernel(*args)),
+           time_ms(lambda: flash_prefill_attention_plain(*args), iters=5),
+           2 * (qp70.numel() + kcp70.numel() + vcp70.numel() + T * H70 * D),
+           4 * H70 * (T * (T + 1) // 2) * D,
+           time_ms(lambda: sdpa(qs70, kf, vf, attn_mask=allowed, scale=scale, enable_gqa=True)),
+           run="70b IQ2_XXS")
+    del q70, kc70, vc70, ks70, vs70, qf70, kf, vf, qp70, kcp70, vcp70, qs70, args
     qp, kcp, vcp = blocks[T]
     del kl, vl, blocks, shapes, ws, x, xq, xs, i8_shapes, w, w_qk, w_v, w_o, w_gu, w_d4, w_d6, \
         w_head, w_q4, w_k8, w_v8, w_o5
@@ -889,14 +980,18 @@ def main() -> int:
         for stem, Nw, Kw in (("ffn_gate_up_exps", 2 * Fm, E), ("ffn_down_exps", E, Fm)):
             w = random_experts(kind, n_exp, Nw, Kw, g, dev)
             label = f"{stem} {kind} {n_exp}x{Nw}x{Kw}"
-            for tokens in (1, 16):
+            # the gather at 2 and 32 rows; the 1-2 bit and ternary kinds also
+            # through the offset entry (K12) at 2
+            for tokens, fn, entry, line in (
+                    (1, qmm_gather, "gather", 115), (16, qmm_gather, "gather", 115),
+                    *([(1, qmm_gather_offset, "offset", 267)] if kind in LOW_BIT_KINDS else [])):
                 ids = route(tokens)
                 x = torch.randn(ids.shape[0], Kw, generator=g, device=dev).to(torch.bfloat16)
-                out, ref = qmm_gather(x, ids, w), qmm_gather_plain(x, ids, w)
+                out, ref = fn(x, ids, w), qmm_gather_plain(x, ids, w)
                 torch.cuda.synchronize()
-                record(f"qmv_id gather {label} S={ids.shape[0]}", qmm_src.format("qmv_id"),
-                       qid_rep.format(115), [out], [ref], TOL_QMM,
-                       time_ms(lambda: qmm_gather(x, ids, w)),
+                record(f"qmv_id {entry} {label} S={ids.shape[0]}", qmm_src.format("qmv_id"),
+                       qid_rep.format(line), [out], [ref], TOL_QMM,
+                       time_ms(lambda: fn(x, ids, w)),
                        time_ms(lambda: qmm_gather_plain(x, ids, w), iters=5),
                        expert_bytes(w, ids) + x.numel() * 2 + out.numel() * 4,
                        2 * ids.shape[0] * Nw * Kw, run=run)
@@ -934,7 +1029,8 @@ def main() -> int:
     del moe_gu, moe_d6, moe_layer, x, out
     torch.cuda.empty_cache()
 
-    log(f"[parity] done in {time.perf_counter() - t3:.1f}s")
+    phase_s["phase 3"] = time.perf_counter() - t3
+    log(f"[parity] done in {phase_s['phase 3']:.1f}s")
 
     # 4. full-width kernel path vs the plain path (same params on the CPU)
     t0 = time.perf_counter()
@@ -960,11 +1056,19 @@ def main() -> int:
                 setattr(mod, attr, fn)
 
     def two_copies(cfgp, ftype=DEFAULT_LAYOUT):
+        """The synthetic params on the card, and a copy on the CPU for the
+        plain path whose wire weights keep their plain dequant
+        (wire.keep_decoded): the plain path's products read the same f32
+        weights each step instead of decoding them again, most of its time
+        otherwise (4 bytes a weight: a 2-layer Mixtral-wide copy holds its
+        expert stacks in ~11 GB of host memory)."""
         p_gpu = make_synthetic_params(cfgp, seed=7, ftype=ftype,
                                       imatrix=ftype in CODEBOOK_PRESETS)
-        p_cpu = {k: (v if k == "layers" else v.to("cpu")) for k, v in p_gpu.items()}
-        p_cpu["layers"] = [{k: v.to("cpu") for k, v in layer.items()}
-                           for layer in p_gpu["layers"]]
+
+        def on_cpu(v):
+            return keep_decoded(v.to("cpu")) if isinstance(v, WireTensor) else v.to("cpu")
+        p_cpu = {k: (v if k == "layers" else on_cpu(v)) for k, v in p_gpu.items()}
+        p_cpu["layers"] = [{k: on_cpu(v) for k, v in layer.items()} for layer in p_gpu["layers"]]
         return p_gpu, p_cpu
 
     @contextlib.contextmanager
@@ -1160,7 +1264,10 @@ def main() -> int:
     # (an IQ4_XS attn_qk + Q5_K attn_v launch) and IQ3_XXS (all three grid
     # kinds: IQ2_S attn_qk + Q4_K attn_v, IQ3_S attn_output and token_embd,
     # IQ3_XXS FFN)
-    for preset in ("Q4_0", "Q5_1", "Q3_K_M", "Q2_K", "IQ4_XS", "IQ3_XXS"):
+    # IQ1_M: the delta per 8 weights, the scale per 16, the f16 d spread over
+    # the scale words (IQ1_M attn_qk + Q4_K attn_v, IQ2_XXS attn_output, Q2_K
+    # token_embd, Q5_K output)
+    for preset in ("Q4_0", "Q5_1", "Q3_K_M", "Q2_K", "IQ4_XS", "IQ3_XXS", "IQ1_M"):
         p_gpu, p_cpu = two_copies(cfg2, preset)
         if preset == "Q4_0":
             cases = [(f"{preset} {mmq_label}", "dense", {"LLAMACOG_MMQ": "1"}, prompt300,
@@ -1194,8 +1301,11 @@ def main() -> int:
     # the paths differ by summation order alone (the K10 route serves f32
     # prefill rows; K11's IQ3_XXS stacks are held in phase 3 and run in the
     # Mixtral IQ3_XXS run of phase 5)
+    # and TQ1_0's ternary stacks and TQ1_0 attn_q + Q8_0 attn_k/attn_v (base-3
+    # digits in llama.cpp's irregular element order)
     for preset, dtype in (("Q5_K_M", torch.bfloat16), ("Q3_K_M", torch.bfloat16),
-                          ("IQ2_M", torch.bfloat16), ("IQ3_XXS", torch.float32)):
+                          ("IQ2_M", torch.bfloat16), ("IQ3_XXS", torch.float32),
+                          ("TQ1_0", torch.bfloat16)):
         p_gpu, p_cpu = two_copies(mcfg2, preset)
         bf16 = dtype == torch.bfloat16
         path_check("Mixtral widths", mcfg2, p_gpu, p_cpu, [
@@ -1204,7 +1314,8 @@ def main() -> int:
             [11, 12345, 777, 31000], 33)
         del p_gpu, p_cpu
         torch.cuda.empty_cache()
-    log(f"[path] done in {time.perf_counter() - t0:.1f}s")
+    phase_s["phase 4"] = time.perf_counter() - t0
+    log(f"[path] done in {phase_s['phase 4']:.1f}s")
 
     # 5. the synthetic Q4_K_M models through the engine
     def main_path_runs(model, params, cfgm, runs):
@@ -1539,7 +1650,7 @@ def main() -> int:
     # the 8B at full depth in each preset that holds one of the other kinds
     preset_runs = {f"8b {p}": preset_run("8b", cfg, p, exact_path)
                    for p in ("Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K_M", "IQ4_XS",
-                             "IQ4_NL", "IQ3_XXS", "IQ3_M", "IQ2_M")}
+                             "IQ4_NL", "IQ3_XXS", "IQ3_M", "IQ2_M", *LOW_PRESET.values())}
     # Mixtral-8x7B at full depth (28.3 GB of wire blocks), the dense cache,
     # the attention weight kinds of a real Q4_K_M file: the MoE kernels must
     # launch, the quantized-cache ones must not
@@ -1562,12 +1673,19 @@ def main() -> int:
     for preset in sorted(set(EXPERT_PRESET.values()), key=lambda p: p not in MIXTRAL_FULL_DEPTH):
         preset_runs[f"mixtral {preset}"] = preset_run(
             "mixtral", mcfg if preset in MIXTRAL_FULL_DEPTH else mcfg_cut, preset, moe_path)
+    # Llama-3-70B in IQ2_XXS at full depth (80 layers, ~19 GB of wire blocks):
+    # the preset that puts a 70B on one card; 64 query heads over 8 kv heads
+    preset_runs["70b IQ2_XXS"] = preset_run("70b", llama3_70b_config(), "IQ2_XXS", exact_path)
+    log(f"[70b IQ2_XXS] on {nvidia_smi_line()}")
     for model, name in sorted(EAGER_TURNS):
         r = (runs_8b if model == "8b" else runs_moe)[name]
         log(f"[{model} {name}] decode ms/token, graph {statistics.median(r['graph_ms']):.3f} "
             f"(median of {len(r['graph_ms'])}), eager {statistics.median(r['eager_ms']):.3f} "
             f"(median of {len(r['eager_ms'])})")
-    log(f"[phase 5] wall time {time.perf_counter() - t5:.1f}s")
+    phase_s["phase 5"] = time.perf_counter() - t5
+    log(f"[phase 5] wall time {phase_s['phase 5']:.1f}s")
+    log("[phases] " + ", ".join(f"{k} {v:.1f}s" for k, v in phase_s.items())
+        + f"; total since the build began {sum(phase_s.values()):.1f}s")
 
     # 6. results
     # each kernel's launches in the run of its path: the MoE kernels in the
@@ -1596,7 +1714,8 @@ def sum_wire_bytes(params: dict, cfg) -> int:
     """Bytes one decode step must stream: every layer weight, n_expert_used
     of the n_expert experts of each stacked expert tensor, and the LM head
     (the embedding table is gathered by row, not streamed)."""
-    from llamacog_tpu_torch.quant.wire import WireTensor
+    from llamacog_tpu_torch.quant.wire import (
+        CODEBOOK_KINDS, LOW_BIT_KINDS, WireTensor, keep_decoded)
 
     total = params["output"].nbytes
     for layer in params["layers"]:

@@ -17,29 +17,57 @@
 // quantized weight kinds (GGUF wire format, ggml-common.h block_q4_K,
 // block_q6_K, block_q8_0, block_q5_K, block_q4_0, block_q4_1, block_q5_0,
 // block_q5_1, block_q2_K, block_q3_K, block_iq4_nl, block_iq4_xs,
-// block_iq3_xxs, block_iq3_s, block_iq2_s), numbered as qmm.py's _KIND_ID
+// block_iq3_xxs, block_iq3_s, block_iq2_s, block_iq2_xxs, block_iq2_xs,
+// block_iq1_s, block_iq1_m, block_tq1_0, block_tq2_0), numbered as qmm.py's
+// _KIND_ID
 enum { KIND_Q4_K = 0, KIND_Q6_K = 1, KIND_Q8_0 = 2, KIND_Q5_K = 3, KIND_Q4_0 = 4, KIND_Q4_1 = 5,
        KIND_Q5_0 = 6, KIND_Q5_1 = 7, KIND_Q2_K = 8, KIND_Q3_K = 9, KIND_IQ4_NL = 10,
-       KIND_IQ4_XS = 11, KIND_IQ3_XXS = 12, KIND_IQ3_S = 13, KIND_IQ2_S = 14 };
-// The codebook kinds (levels from a table: quant/iq_tables.py).
+       KIND_IQ4_XS = 11, KIND_IQ3_XXS = 12, KIND_IQ3_S = 13, KIND_IQ2_S = 14,
+       KIND_IQ2_XXS = 15, KIND_IQ2_XS = 16, KIND_IQ1_S = 17, KIND_IQ1_M = 18, KIND_TQ1_0 = 19,
+       KIND_TQ2_0 = 20 };
+// The codebook kinds of 2.5 to 4.5 bits a weight (levels from a table:
+// quant/iq_tables.py).
 __host__ __device__ constexpr bool kind_iq(int kind) {
     return kind >= KIND_IQ4_NL && kind <= KIND_IQ2_S;
 }
+// The 1.5 to 2.3 bit codebook kinds and the ternary ones.
+__host__ __device__ constexpr bool kind_iq_low(int kind) {
+    return kind >= KIND_IQ2_XXS && kind <= KIND_TQ2_0;
+}
+// Every kind whose levels are small signed integers under a scale with no
+// offset, looked up by common.cuh::iq_slot.
+__host__ __device__ constexpr bool kind_signed(int kind) { return kind_iq(kind) || kind_iq_low(kind); }
 // The kinds one instantiation of a weight kernel takes: a dense Q4_K_M
 // llama's (Q4_K, Q6_K), a Q4_K_M file's (those and an 8-expert model's Q8_0
-// attn_k/attn_v and Q5_K attn_output), every kind but the codebook ones
-// (KS_ALL), and the codebook kinds with the four of a Q4_K_M file, which
-// they share launches with (an IQ preset's Q4_K or Q5_K attn_v, an 8-expert
-// model's Q8_0 attn_k/attn_v). A kernel's register count is that of its
-// widest kind, so the launches of the smaller sets keep instantiations that
-// the other kinds do not widen. A launch of a codebook kind with a kind of
-// KS_ALL alone has no set (the Python side never makes one).
-enum { KS_Q4K_Q6K = 0, KS_Q4KM = 1, KS_ALL = 2, KS_IQ = 3 };
+// attn_k/attn_v and Q5_K attn_output), every kind but the codebook and
+// ternary ones (KS_ALL), the codebook kinds with the four of a Q4_K_M file,
+// which they share launches with (an IQ preset's Q4_K or Q5_K attn_v, an
+// 8-expert model's Q8_0 attn_k/attn_v), and the 1-2 bit and ternary kinds
+// with those four and IQ3_S (KS_IQ_LOW: an IQ2_S preset's attn_v below four
+// query heads a kv head). A kernel's register count is that of its widest
+// kind, so the launches of the smaller sets keep instantiations that the
+// other kinds do not widen. A launch whose kinds no one set holds is
+// refused (the Python side splits it: ops/cuda/qmm.py::share_launch).
+enum { KS_Q4K_Q6K = 0, KS_Q4KM = 1, KS_ALL = 2, KS_IQ = 3, KS_IQ_LOW = 4 };
 __host__ __device__ constexpr bool kind_in_set(int kind, int set) {
-    return set == KS_ALL ? !kind_iq(kind)
+    return set == KS_ALL ? !kind_signed(kind)
          : kind == KIND_Q4_K || kind == KIND_Q6_K ||
-           ((set == KS_Q4KM || set == KS_IQ) && (kind == KIND_Q8_0 || kind == KIND_Q5_K)) ||
-           (set == KS_IQ && kind_iq(kind));
+           (set != KS_Q4K_Q6K && (kind == KIND_Q8_0 || kind == KIND_Q5_K)) ||
+           (set == KS_IQ && kind_iq(kind)) ||
+           (set == KS_IQ_LOW && (kind_iq_low(kind) || kind == KIND_IQ3_S));
+}
+// The first of the sets a launcher compiled (`compiled`, a bit a set) that
+// holds every one of the n kinds, in the order of the enum (a launch of
+// Q4_K and Q6_K alone takes the narrowest compiled set); -1 when none does:
+// the launch is refused. The one search every weight launcher makes.
+inline int launch_set(const int* kinds, int n, unsigned compiled) {
+    for (int set = KS_Q4K_Q6K; set <= KS_IQ_LOW; ++set) {
+        if (!(compiled >> set & 1u)) continue;
+        bool holds = true;
+        for (int t = 0; t < n; ++t) holds = holds && kind_in_set(kinds[t], set);
+        if (holds) return set;
+    }
+    return -1;
 }
 // element type of activations, caches and outputs
 enum { DT_F32 = 0, DT_BF16 = 1 };
@@ -61,6 +89,12 @@ constexpr int IQ4XS_BYTES = 136;  // d f16, scales_h u16, scales_l[4], qs[128]
 constexpr int IQ3XXS_BYTES = 98;  // d f16, qs[64] grid indices, 8 u32 (4 sign indices, scale)
 constexpr int IQ3S_BYTES = 110;   // d f16, qs[64], qh[8], signs[32], scales[4]
 constexpr int IQ2S_BYTES = 82;    // d f16, qs[32], signs[32], qh[8], scales[8]
+constexpr int IQ2XXS_BYTES = 66;  // d f16, 8 x (u32 grid indices, u32 sign indices | scale)
+constexpr int IQ2XS_BYTES = 74;   // d f16, qs[32] u16 (9-bit index | 7-bit sign index), scales[8]
+constexpr int IQ1S_BYTES = 50;    // d f16, qs[32], qh[8] u16
+constexpr int IQ1M_BYTES = 56;    // qs[32], qh[16], scales[4] u16 (d in their top nibbles)
+constexpr int TQ10_BYTES = 54;    // qs[48] (5 trits a byte), qh[4] (4 trits), d f16
+constexpr int TQ20_BYTES = 66;    // qs[64] (4 crumbs a byte), d f16
 
 // Wire bytes of QK_K weights of `kind`, or 0 for a kind the kernels do not take.
 __host__ __device__ constexpr int kind_sb_bytes(int kind) {
@@ -71,7 +105,10 @@ __host__ __device__ constexpr int kind_sb_bytes(int kind) {
          : kind == KIND_Q2_K ? Q2K_BYTES : kind == KIND_Q3_K ? Q3K_BYTES
          : kind == KIND_IQ4_NL ? IQ4NL_BYTES : kind == KIND_IQ4_XS ? IQ4XS_BYTES
          : kind == KIND_IQ3_XXS ? IQ3XXS_BYTES : kind == KIND_IQ3_S ? IQ3S_BYTES
-         : kind == KIND_IQ2_S ? IQ2S_BYTES : 0;
+         : kind == KIND_IQ2_S ? IQ2S_BYTES : kind == KIND_IQ2_XXS ? IQ2XXS_BYTES
+         : kind == KIND_IQ2_XS ? IQ2XS_BYTES : kind == KIND_IQ1_S ? IQ1S_BYTES
+         : kind == KIND_IQ1_M ? IQ1M_BYTES : kind == KIND_TQ1_0 ? TQ10_BYTES
+         : kind == KIND_TQ2_0 ? TQ20_BYTES : 0;
 }
 
 // The legacy kinds (Q4_0, Q4_1, Q5_0, Q5_1: 32-weight blocks with an f16
@@ -573,6 +610,18 @@ __device__ __forceinline__ void low_k_scales(const RAW& r, int i, float (&dl)[4]
 // shifted into place when used (no field of 8 ends a superblock); a 4-byte
 // field as two halfwords, a byte field as the halfword that holds it, so
 // nothing past a superblock's last byte is read.
+//
+// The 1-2 bit kinds and the ternary ones take the same slots and bytes.
+// IQ1_S's and IQ1_M's levels grid + delta (grid -1, 0, 1; delta +-1/8) are
+// not integers, but 8 (grid + delta) is: one of -9, -7, -1, 1, 7, 9, a byte
+// 128 + 8 (grid + delta) that s8_level makes exact, under the scale / 8 (an
+// exact f32 too), so each product rounds as the plain dequant's. The
+// ternary kinds' levels are q - 1, the bytes 127 + q. IQ2_XXS (66 bytes),
+// IQ2_XS (74), IQ1_S (50) superblocks are 2-byte aligned and read by
+// halfwords; IQ1_M (56) superblocks are 8-byte aligned. TQ1_0 (54) and
+// TQ2_0 (66) slots read 32 code bytes (TQ1_0's last three slots 20), all of
+// one base-3 digit or 2-bit plane, as Q8_0's blocks: aligned words from
+// the field's start rounded down to 4, never past the superblock's end.
 #include "iq_tables.cuh"
 
 struct IQ4XSRaw {
@@ -646,6 +695,67 @@ __device__ __forceinline__ IQ2SRaw iq2s_raw(const uint8_t* blk, int i) {
             ld_u16(blk + 74 + (i & ~1))};
 }
 
+struct IQ2XXSRaw {
+    uint32_t d, h[4];  // the slot's two u32 (grid index bytes; sign indices | scale) by halves
+};
+
+struct IQ2XSRaw {
+    uint32_t d, h[4];  // the slot's four u16 (9-bit grid index | 7-bit sign index)
+    uint32_t sc;       // the halfword holding scales[i]
+};
+
+struct IQ1SRaw {
+    uint32_t d, q_lo, q_hi, qh;  // grid index bytes 4i..4i+3 by halves, qh[i]
+};
+
+struct IQ1MRaw {
+    uint32_t q, qh;  // grid index bytes 4i..4i+3; qh[2i], qh[2i + 1]
+    uint2 sc;        // the four u16 scale words
+};
+
+struct TQRaw {
+    uint32_t w[9];  // aligned words covering the slot's code bytes
+    uint32_t d;
+    int shift;      // 16 when the code bytes start two bytes into w[0], else 0
+};
+
+__device__ __forceinline__ IQ2XXSRaw iq2xxs_raw(const uint8_t* blk, int i) {
+    const uint8_t* p = blk + 2 + 8 * i;
+    return {ld_u16(blk), {ld_u16(p), ld_u16(p + 2), ld_u16(p + 4), ld_u16(p + 6)}};
+}
+
+__device__ __forceinline__ IQ2XSRaw iq2xs_raw(const uint8_t* blk, int i) {
+    const uint8_t* p = blk + 2 + 8 * i;
+    return {ld_u16(blk), {ld_u16(p), ld_u16(p + 2), ld_u16(p + 4), ld_u16(p + 6)},
+            ld_u16(blk + 66 + (i & ~1))};
+}
+
+__device__ __forceinline__ IQ1SRaw iq1s_raw(const uint8_t* blk, int i) {
+    return {ld_u16(blk), ld_u16(blk + 2 + 4 * i), ld_u16(blk + 4 + 4 * i), ld_u16(blk + 34 + 2 * i)};
+}
+
+__device__ __forceinline__ IQ1MRaw iq1m_raw(const uint8_t* blk, int i) {
+    return {*reinterpret_cast<const uint32_t*>(blk + 4 * i), ld_u16(blk + 32 + 2 * i),
+            *reinterpret_cast<const uint2*>(blk + 48)};
+}
+
+// TQ1_0 slots 0-4 take qs[0:32] (base-3 digit i), slots 5-7 qs[32:48] and
+// qh; TQ2_0 slot i qs[32 (i / 4)..+31] (2-bit plane i % 4). Words past the
+// field's last repeat it.
+template <int KIND>
+__device__ __forceinline__ TQRaw tq_raw(const uint8_t* blk, int i) {
+    const int off = KIND == KIND_TQ1_0 ? (i < 5 ? 0 : 32) : 32 * (i >> 2);
+    const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(blk) & 2);
+    const uint32_t* a = reinterpret_cast<const uint32_t*>(blk + off - mis);
+    const int last = (KIND == KIND_TQ1_0 && i >= 5 ? 4 : 7) + (mis >> 1);
+    TQRaw r;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) r.w[k] = a[min(k, last)];
+    r.d = ld_u16(blk + (KIND == KIND_TQ1_0 ? 52 : 64));
+    r.shift = 8 * mis;
+    return r;
+}
+
 // kvalues_iq4nl[q] + 128 for the four nibbles q of sel's low 16 bits
 // (nibble n -> byte n): two byte permutes pick entry q & 7 of the low and
 // of the high eight, a third takes the high one where bit 3 of q is set.
@@ -678,9 +788,26 @@ __device__ __forceinline__ uint32_t iq_ksigns(uint32_t s7) {
     return s7 | ((__popc(s7) & 1u) << 7);
 }
 
-// The 32 levels + 128 of a codebook kind's slot i (word k: elements
-// 4k..4k+3) and its scales (IQ2_S: elements 0-15, 16-31; else sc[0]), each
-// scale formed as the plain dequant forms it.
+// Four IQ1 levels 1 + grid (nibbles at bits 0, 8, 16, 24 of g, the rest
+// clear) as the bytes 128 + 8 (grid + delta): 8 (1 + grid) + 120 + 8 delta.
+__device__ __forceinline__ uint32_t iq1_x80(uint32_t g, bool neg) {
+    return (g << 3) + (neg ? 0x77777777u : 0x79797979u);
+}
+
+// TQ1_0: base-3 digit j (0..4) of each byte of w, ((v * 3^j) mod 256) * 3
+// >> 8 (llama.cpp's dequantize_row_tq1_0), as the bytes 127 + digit: bytes
+// 0, 2 and 1, 3 in two 16-bit lanes each, where no product overflows its lane.
+__device__ __forceinline__ uint32_t tq1_x80(uint32_t w, int j) {
+    const uint32_t p = static_cast<uint32_t>(0x511B090301ull >> (8 * j)) & 0xFFu;
+    const uint32_t e = ((w & 0x00FF00FFu) * p) & 0x00FF00FFu;
+    const uint32_t o = (((w >> 8) & 0x00FF00FFu) * p) & 0x00FF00FFu;
+    return ((((e * 3) >> 8) & 0x00030003u) | ((((o * 3) >> 8) & 0x00030003u) << 8)) + 0x7F7F7F7Fu;
+}
+
+// The 32 levels + 128 of a codebook or ternary kind's slot i (word k:
+// elements 4k..4k+3) and its scales (IQ2_S, IQ2_XS, IQ1_M: elements 0-15,
+// 16-31; else sc[0] = sc[1]), each scale formed as the plain dequant forms
+// it (IQ1_S, IQ1_M: then / 8, exactly).
 template <int KIND, typename RAW>
 __device__ __forceinline__ void iq_slot(const RAW& r, int i, uint32_t (&x80)[8], float (&sc)[2]) {
     if constexpr (KIND == KIND_IQ4_NL) {
@@ -716,6 +843,74 @@ __device__ __forceinline__ void iq_slot(const RAW& r, int i, uint32_t (&x80)[8],
             const uint32_t idx = ((q[m >> 2] >> (8 * (m & 3))) & 0xFF) | (((qh >> m) & 1) << 8);
             x80[m] = iq_signed_x80(__ldg(&IQ3S_GRID[idx]), signs >> (4 * m));
         }
+    } else if constexpr (KIND == KIND_IQ2_XXS) {
+        const uint32_t a0 = r.h[0] | (r.h[1] << 16), a1 = r.h[2] | (r.h[3] << 16);
+        sc[0] = sc[1] = __fmul_rn(__fmul_rn(f16_bits(r.d), 0.5f + u23_f32(a1 >> 28)), 0.25f);
+#pragma unroll
+        for (int l = 0; l < 4; ++l) {
+            const uint2 g = __ldg(reinterpret_cast<const uint2*>(IQ2XXS_GRID) + ((a0 >> (8 * l)) & 0xFF));
+            const uint32_t s = iq_ksigns((a1 >> (7 * l)) & 127);
+            x80[2 * l] = iq_signed_x80(g.x, s);
+            x80[2 * l + 1] = iq_signed_x80(g.y, s >> 4);
+        }
+    } else if constexpr (KIND == KIND_IQ2_XS) {
+        const uint32_t scb = r.sc >> (8 * (i & 1));
+        const float d = f16_bits(r.d);
+        sc[0] = __fmul_rn(__fmul_rn(d, 0.5f + u23_f32(scb & 0xF)), 0.25f);
+        sc[1] = __fmul_rn(__fmul_rn(d, 0.5f + u23_f32((scb >> 4) & 0xF)), 0.25f);
+#pragma unroll
+        for (int l = 0; l < 4; ++l) {
+            const uint2 g = __ldg(reinterpret_cast<const uint2*>(IQ2XS_GRID) + (r.h[l] & 511));
+            const uint32_t s = iq_ksigns(r.h[l] >> 9);
+            x80[2 * l] = iq_signed_x80(g.x, s);
+            x80[2 * l + 1] = iq_signed_x80(g.y, s >> 4);
+        }
+    } else if constexpr (KIND == KIND_IQ1_S) {
+        const uint32_t qs = r.q_lo | (r.q_hi << 16);
+        const bool neg = r.qh & 0x8000u;
+        sc[0] = sc[1] = __fmul_rn(__fmul_rn(f16_bits(r.d), u23_f32(2 * ((r.qh >> 12) & 7) + 1)),
+                                  0.125f);
+#pragma unroll
+        for (int l = 0; l < 4; ++l) {
+            const uint32_t g = __ldg(&IQ1S_GRID[((qs >> (8 * l)) & 0xFF) | (((r.qh >> (3 * l)) & 7) << 8)]);
+            x80[2 * l] = iq1_x80(g & 0x0F0F0F0Fu, neg);
+            x80[2 * l + 1] = iq1_x80((g >> 4) & 0x0F0F0F0Fu, neg);
+        }
+    } else if constexpr (KIND == KIND_IQ1_M) {
+        // the f16 d from the top nibbles of the four scale words; sub-block
+        // i's two 3-bit scales at bits 6 (i % 2) (+ 3) of scale word i / 2
+        const uint32_t d16 = ((r.sc.x >> 12) & 0xF) | ((r.sc.x >> 24) & 0xF0) |
+                             ((r.sc.y >> 4) & 0xF00) | ((r.sc.y >> 16) & 0xF000);
+        const float d = f16_bits(d16);
+        const uint32_t s = ((i & 4) ? r.sc.y : r.sc.x) >> (16 * ((i >> 1) & 1) + 6 * (i & 1));
+        sc[0] = __fmul_rn(__fmul_rn(d, u23_f32(2 * (s & 7) + 1)), 0.125f);
+        sc[1] = __fmul_rn(__fmul_rn(d, u23_f32(2 * ((s >> 3) & 7) + 1)), 0.125f);
+#pragma unroll
+        for (int l = 0; l < 4; ++l) {
+            // group l: the low (l even) or high nibble of qh[2i + l / 2],
+            // three index bits and the delta's sign
+            const uint32_t h = (r.qh >> (8 * (l >> 1) + 4 * (l & 1))) & 0xF;
+            const uint32_t g = __ldg(&IQ1S_GRID[((r.q >> (8 * l)) & 0xFF) | ((h & 7) << 8)]);
+            x80[2 * l] = iq1_x80(g & 0x0F0F0F0Fu, h & 8);
+            x80[2 * l + 1] = iq1_x80((g >> 4) & 0x0F0F0F0Fu, h & 8);
+        }
+    } else if constexpr (KIND == KIND_TQ1_0 || KIND == KIND_TQ2_0) {
+        sc[0] = sc[1] = f16_bits(r.d);
+        uint32_t q[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) q[k] = __funnelshift_r(r.w[k], r.w[k + 1], r.shift);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+            if constexpr (KIND == KIND_TQ2_0) {
+                x80[k] = ((q[k] >> (2 * (i & 3))) & 0x03030303u) + 0x7F7F7F7Fu;
+            } else {
+                // slots 0-4: digit i of qs[0:32]; 5, 6: digits 2 (i - 5), + 1
+                // of qs[32:48]; 7: digit 4 of qs[32:48], then digits 0-3 of qh
+                const uint32_t w = i < 5 ? q[k] : i == 7 && k >= 4 ? q[4] : q[k & 3];
+                const int j = i < 5 ? i : i < 7 ? 2 * (i - 5) + (k >> 2) : k < 4 ? 4 : k - 4;
+                x80[k] = tq1_x80(w, j);
+            }
+        }
     } else {
         static_assert(KIND == KIND_IQ2_S, "a codebook kind");
         const uint32_t qs = r.q_lo | (r.q_hi << 16), signs = r.s_lo | (r.s_hi << 16);
@@ -750,6 +945,12 @@ template <> struct KindRaw<KIND_IQ4_XS> { using type = IQ4XSRaw; };
 template <> struct KindRaw<KIND_IQ3_XXS> { using type = IQ3XXSRaw; };
 template <> struct KindRaw<KIND_IQ3_S> { using type = IQ3SRaw; };
 template <> struct KindRaw<KIND_IQ2_S> { using type = IQ2SRaw; };
+template <> struct KindRaw<KIND_IQ2_XXS> { using type = IQ2XXSRaw; };
+template <> struct KindRaw<KIND_IQ2_XS> { using type = IQ2XSRaw; };
+template <> struct KindRaw<KIND_IQ1_S> { using type = IQ1SRaw; };
+template <> struct KindRaw<KIND_IQ1_M> { using type = IQ1MRaw; };
+template <> struct KindRaw<KIND_TQ1_0> { using type = TQRaw; };
+template <> struct KindRaw<KIND_TQ2_0> { using type = TQRaw; };
 template <int KIND>
 using QmvRaw = typename KindRaw<KIND>::type;
 
@@ -766,35 +967,42 @@ __device__ __forceinline__ QmvRaw<KIND> qmv_raw(const uint8_t* blk, int i) {
     else if constexpr (KIND == KIND_IQ4_XS) return iq4xs_raw(blk, i);
     else if constexpr (KIND == KIND_IQ3_XXS) return iq3xxs_raw(blk, i);
     else if constexpr (KIND == KIND_IQ3_S) return iq3s_raw(blk, i);
-    else return iq2s_raw(blk, i);
+    else if constexpr (KIND == KIND_IQ2_S) return iq2s_raw(blk, i);
+    else if constexpr (KIND == KIND_IQ2_XXS) return iq2xxs_raw(blk, i);
+    else if constexpr (KIND == KIND_IQ2_XS) return iq2xs_raw(blk, i);
+    else if constexpr (KIND == KIND_IQ1_S) return iq1s_raw(blk, i);
+    else if constexpr (KIND == KIND_IQ1_M) return iq1m_raw(blk, i);
+    else return tq_raw<KIND>(blk, i);
 }
 
-// Parts of a lane's slice that share a scale: Q4_K, Q5_K and IQ2_S 2 of 16;
-// Q6_K, Q2_K and Q3_K 4 of 8; Q8_0, the legacy and the other codebook kinds
-// one of 32.
+// Parts of a lane's slice that share a scale: Q4_K, Q5_K, IQ2_S, IQ2_XS and
+// IQ1_M 2 of 16; Q6_K, Q2_K and Q3_K 4 of 8; Q8_0, the legacy, the other
+// codebook and the ternary kinds one of 32.
 template <int KIND>
 __host__ __device__ constexpr int qmv_parts() {
     return KIND == KIND_Q6_K || kind_low_k(KIND) ? 4
-         : KIND == KIND_Q8_0 || kind_legacy(KIND) || (kind_iq(KIND) && KIND != KIND_IQ2_S) ? 1
+         : KIND == KIND_Q8_0 || kind_legacy(KIND) ||
+                   (kind_signed(KIND) && KIND != KIND_IQ2_S && KIND != KIND_IQ2_XS &&
+                    KIND != KIND_IQ1_M) ? 1
          : 2;
 }
 
 // Whether the kind's levels carry an offset folded against sums of x: Q8_0's
-// and the codebook kinds' levels are signed integers themselves, with no
-// bias and no min.
+// and the codebook and ternary kinds' levels are signed integers
+// themselves, with no bias and no min.
 template <int KIND>
-__host__ __device__ constexpr bool qmv_has_offset() { return KIND != KIND_Q8_0 && !kind_iq(KIND); }
+__host__ __device__ constexpr bool qmv_has_offset() { return KIND != KIND_Q8_0 && !kind_signed(KIND); }
 
 // A lane's 32 levels plus their bias (exact f32: Q4_K, Q4_0, Q4_1, Q2_K
 // and Q3_K 16 + q, Q5_K, Q5_0 and Q5_1 32 + q, Q6_K 64 + q; Q8_0 and the
-// codebook kinds the signed level, no bias) and its parts' scale sc and
-// offset mn (the bias, the kind's own offset and min folded in; 0 for Q8_0
-// and the codebook kinds).
+// codebook and ternary kinds the signed level, IQ1_S and IQ1_M times 8, no
+// bias) and its parts' scale sc and offset mn (the bias, the kind's own
+// offset and min folded in; 0 for Q8_0, the codebook and ternary kinds).
 template <int KIND>
 __device__ __forceinline__ void qmv_levels(const QmvRaw<KIND>& r, int i, float (&lv)[QMV_SLICE],
                                            float (&sc)[qmv_parts<KIND>()],
                                            float (&mn)[qmv_parts<KIND>()]) {
-    if constexpr (kind_iq(KIND)) {
+    if constexpr (kind_signed(KIND)) {
         uint32_t x80[8];
         float s2[2];
         iq_slot<KIND>(r, i, x80, s2);
@@ -967,7 +1175,7 @@ __device__ __forceinline__ int q4k_x_offset(int i, int part) {  // part 0: k<16,
 // The 32 activation values matching a lane's slice, for one row of x.
 template <int KIND, typename TX>
 __device__ __forceinline__ void x_slice(const TX* xsb, int i, float* xv) {
-    if constexpr (KIND == KIND_Q8_0 || kind_legacy(KIND) || kind_iq(KIND)) {
+    if constexpr (KIND == KIND_Q8_0 || kind_legacy(KIND) || kind_signed(KIND)) {
 #pragma unroll
         for (int k = 0; k < 4; ++k) load8(xsb + 32 * i + 8 * k, xv + 8 * k);
     } else if constexpr (KIND == KIND_Q4_K || KIND == KIND_Q5_K) {
@@ -1184,6 +1392,61 @@ __device__ __forceinline__ float wire_weight(const uint8_t* sb, int c) {
         }
         const float w = __fmul_rn(dl, (float)(g & 0xFF));
         return neg & 1 ? -w : w;
+    } else if constexpr (KIND == KIND_IQ2_XXS || KIND == KIND_IQ2_XS) {
+        // a grid byte g, its sign, and the scale dl: (dl * g) * sign
+        const int ib = c >> 5, l = (c & 31) >> 3, e = c & 7;
+        const float d = f16_bits(u16_at(sb));
+        uint32_t idx, s;
+        float dl;
+        if constexpr (KIND == KIND_IQ2_XXS) {
+            const uint32_t a1 = u16_at(sb + 6 + 8 * ib) | (u16_at(sb + 8 + 8 * ib) << 16);
+            idx = sb[2 + 8 * ib + l];
+            s = iq_ksigns((a1 >> (7 * l)) & 127);
+            dl = __fmul_rn(__fmul_rn(d, 0.5f + (float)(a1 >> 28)), 0.25f);
+        } else {
+            const uint32_t q = u16_at(sb + 2 + 8 * ib + 2 * l);
+            const int sc = sb[66 + ib];
+            idx = q & 511;
+            s = iq_ksigns(q >> 9);
+            dl = __fmul_rn(__fmul_rn(d, 0.5f + (float)(l < 2 ? sc & 0xF : sc >> 4)), 0.25f);
+        }
+        const uint32_t* grid = KIND == KIND_IQ2_XXS ? &IQ2XXS_GRID[0] : &IQ2XS_GRID[0];
+        const uint32_t g = __ldg(&grid[2 * idx + (e >> 2)]) >> (8 * (e & 3));
+        const float w = __fmul_rn(dl, (float)(g & 0xFF));
+        return (s >> e) & 1 ? -w : w;
+    } else if constexpr (KIND == KIND_IQ1_S || KIND == KIND_IQ1_M) {
+        // the scale dl times (grid + delta)
+        const int ib = c >> 5, l = (c & 31) >> 3, e = c & 7;
+        uint32_t idx, neg;
+        float dl;
+        if constexpr (KIND == KIND_IQ1_S) {
+            const uint32_t qh = u16_at(sb + 34 + 2 * ib);
+            idx = sb[2 + 4 * ib + l] | (((qh >> (3 * l)) & 7) << 8);
+            neg = qh >> 15;
+            dl = __fmul_rn(f16_bits(u16_at(sb)), (float)(2 * ((qh >> 12) & 7) + 1));
+        } else {
+            const uint32_t h = (sb[32 + 2 * ib + (l >> 1)] >> (4 * (l & 1))) & 0xF;
+            const uint32_t d16 = (u16_at(sb + 48) >> 12) | ((u16_at(sb + 50) >> 8) & 0xF0) |
+                                 ((u16_at(sb + 52) >> 4) & 0xF00) | (u16_at(sb + 54) & 0xF000);
+            const uint32_t s = u16_at(sb + 48 + 2 * (ib >> 1)) >> (6 * (ib & 1) + 3 * (l >> 1));
+            idx = sb[4 * ib + l] | ((h & 7) << 8);
+            neg = h >> 3;
+            dl = __fmul_rn(f16_bits(d16), (float)(2 * (s & 7) + 1));
+        }
+        const uint32_t g = (__ldg(&IQ1S_GRID[idx]) >> (8 * (e & 3) + 4 * (e >> 2))) & 0xF;
+        return __fmul_rn(dl, __fadd_rn((float)g - 1.f, neg & 1 ? -0.125f : 0.125f));
+    } else if constexpr (KIND == KIND_TQ1_0 || KIND == KIND_TQ2_0) {
+        // (q - 1) * d; TQ1_0's element c is base-3 digit j of byte b: 32
+        // bytes a digit below 160, 16 below 240, 4 after
+        int q;
+        if constexpr (KIND == KIND_TQ2_0) {
+            q = (sb[32 * (c >> 7) + (c & 31)] >> (2 * ((c >> 5) & 3))) & 3;
+        } else {
+            const int b = c < 160 ? c & 31 : c < 240 ? 32 + ((c - 160) & 15) : 48 + (c & 3);
+            const int j = c < 160 ? c >> 5 : c < 240 ? (c - 160) >> 4 : (c - 240) >> 2;
+            q = (((sb[b] * (int)((0x511B090301ull >> (8 * j)) & 0xFF)) & 0xFF) * 3) >> 8;
+        }
+        return __fmul_rn((float)(q - 1), f16_bits(u16_at(sb + (KIND == KIND_TQ1_0 ? 52 : 64))));
     } else {
         static_assert(KIND == KIND_Q5_K, "Q4_K and Q6_K have tuned dequants of their own");
         const int j = c >> 5, r = j & 3;  // the 32-weight sub-block and its scale bytes

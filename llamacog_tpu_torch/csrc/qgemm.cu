@@ -1,6 +1,7 @@
 // qgemm — fused dequant x GEMM over GGUF wire-format weights: Q4_K, Q6_K,
-// Q8_0, Q5_K, Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, Q3_K and the codebook kinds
-// IQ4_NL, IQ4_XS, IQ3_XXS, IQ3_S, IQ2_S.
+// Q8_0, Q5_K, Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, Q3_K, the codebook kinds
+// IQ4_NL, IQ4_XS, IQ3_XXS, IQ3_S, IQ2_S, IQ2_XXS, IQ2_XS, IQ1_S, IQ1_M and
+// the ternary TQ1_0, TQ2_0.
 //
 // Replaces (llamacog_tpu/ops/pallas/qmm.py): _qmm_call at B > 8 (the plain
 // and the row-tiled tb > 0 branches, _qmm_kernel -> _tile_matvec with bf16
@@ -64,8 +65,9 @@ struct QgParams {
 // take the kernel that holds those two tile loops only: two more cost them
 // 2-3% (more code for the instruction cache; PERF.md §6). A Q4_K_M file's
 // Q8_0 and Q5_K weights take the four-kind kernel, a launch with a
-// codebook kind the kernel of those four and the codebook kinds, every
-// other kind the kernel of the ten others.
+// codebook kind the kernel of those four and the codebook kinds, a launch
+// with a 1-2 bit or ternary kind the kernel of those four, IQ3_S and the
+// six kinds, every other kind the kernel of the ten others.
 template <int BM, int KSET>
 __global__ void __launch_bounds__(QG_THREADS, 2)
 qgemm_kernel(const QgParams p, const __nv_bfloat16* __restrict__ x) {
@@ -102,17 +104,13 @@ static int launch(const QgParams& p, const void* x, int n_blocks, cudaStream_t s
 }
 
 template <int BM>
-static int launch_kinds(const QgParams& p, const void* x, int n_blocks, cudaStream_t stream) {
-    int set = KS_Q4K_Q6K;
-    for (int t = 0; t < p.n_desc; ++t)
-        while (set <= KS_IQ && !kind_in_set(p.d[t].kind, set)) ++set;
-    for (int t = 0; t < p.n_desc; ++t)  // a set further on may drop a kind an earlier one held
-        if (set > KS_IQ || !kind_in_set(p.d[t].kind, set))
-            return static_cast<int>(cudaErrorInvalidValue);
+static int launch_kinds(const QgParams& p, const void* x, int n_blocks, int set,
+                        cudaStream_t stream) {
     return set == KS_Q4K_Q6K ? launch<BM, KS_Q4K_Q6K>(p, x, n_blocks, stream)
          : set == KS_Q4KM    ? launch<BM, KS_Q4KM>(p, x, n_blocks, stream)
          : set == KS_ALL     ? launch<BM, KS_ALL>(p, x, n_blocks, stream)
-                             : launch<BM, KS_IQ>(p, x, n_blocks, stream);
+         : set == KS_IQ      ? launch<BM, KS_IQ>(p, x, n_blocks, stream)
+                             : launch<BM, KS_IQ_LOW>(p, x, n_blocks, stream);
 }
 
 // x [B, K] bf16, contiguous; weight t: w[t] [n[t], K/256 blocks], kind[t];
@@ -137,9 +135,12 @@ LCG_EXPORT int lcg_qgemm(const void* x, int x_dtype, int B, int K, int n_desc,
         p.d[t].block0 = blocks;
         blocks += (n[t] + QG_BN - 1) / QG_BN;
     }
-    if (blocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    // every set is compiled: a Q4_K + Q6_K launch takes KS_Q4K_Q6K's kernel
+    const int set = launch_set(kind, n_desc, (1u << (KS_IQ_LOW + 1)) - 1);
+    if (blocks > 65535 || set < 0) return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     static const int sms = sm_count();  // queried once
     const bool rows64 = B <= 64 || (long long)((B + 63) / 64) * blocks <= sms;
-    return rows64 ? launch_kinds<64>(p, x, blocks, s) : launch_kinds<128>(p, x, blocks, s);
+    return rows64 ? launch_kinds<64>(p, x, blocks, set, s)
+                  : launch_kinds<128>(p, x, blocks, set, s);
 }

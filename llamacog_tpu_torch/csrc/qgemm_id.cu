@@ -79,8 +79,9 @@ struct QidCfg {
     // QID_SB_GROUP consecutive superblocks of a weight row in a raw ring row:
     // aligned where a superblock's bytes are a multiple of 16 (Q4_K, Q5_K,
     // Q8_0, the legacy kinds, IQ4_NL: rows of that many bytes from a 16-byte
-    // aligned base); else (Q6_K, Q3_K, IQ3_XXS, IQ3_S, IQ2_S: even offsets;
-    // Q2_K: multiples of 4; IQ4_XS: of 8)
+    // aligned base); else (Q6_K, Q3_K, IQ3_XXS, IQ3_S, IQ2_S, IQ2_XXS,
+    // IQ2_XS, IQ1_S, TQ1_0, TQ2_0: even offsets; Q2_K: multiples of 4;
+    // IQ4_XS, IQ1_M: of 8)
     // the 16-byte chunks covering them from an offset of at most 14. Row
     // strides padded so that the halfword reads of a warp's eight rows fall
     // on distinct banks.
@@ -573,8 +574,9 @@ LCG_EXPORT int lcg_qgemm_id(const void* x, int x_dtype, int S_pad, int K, const 
         QID_CASE(KIND_Q4_K) QID_CASE(KIND_Q6_K) QID_CASE(KIND_Q8_0) QID_CASE(KIND_Q5_K)
         QID_CASE(KIND_Q4_0) QID_CASE(KIND_Q4_1) QID_CASE(KIND_Q5_0) QID_CASE(KIND_Q5_1)
         QID_CASE(KIND_Q2_K) QID_CASE(KIND_Q3_K) QID_CASE(KIND_IQ4_NL) QID_CASE(KIND_IQ4_XS)
-        QID_CASE(KIND_IQ3_XXS) QID_CASE(KIND_IQ3_S)
+        QID_CASE(KIND_IQ3_XXS) QID_CASE(KIND_IQ3_S) QID_CASE(KIND_IQ2_S) QID_CASE(KIND_IQ2_XXS)
+        QID_CASE(KIND_IQ2_XS) QID_CASE(KIND_IQ1_S) QID_CASE(KIND_IQ1_M) QID_CASE(KIND_TQ1_0)
 #undef QID_CASE
-        default: return launch_qid<KIND_IQ2_S>(a, s);
+        default: return launch_qid<KIND_TQ2_0>(a, s);
     }
 }

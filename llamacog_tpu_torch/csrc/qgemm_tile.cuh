@@ -1,7 +1,8 @@
 // The pipelined tile of the fused dequant x GEMM over GGUF wire-format
 // weights of qgemm.cu (dense weights, K2/K3): Q4_K, Q6_K, Q8_0, Q5_K, the
-// legacy Q4_0, Q4_1, Q5_0, Q5_1, the low-bit Q2_K, Q3_K and the codebook
-// IQ4_NL, IQ4_XS, IQ3_XXS, IQ3_S, IQ2_S.
+// legacy Q4_0, Q4_1, Q5_0, Q5_1, the low-bit Q2_K, Q3_K, the codebook
+// IQ4_NL, IQ4_XS, IQ3_XXS, IQ3_S, IQ2_S, IQ2_XXS, IQ2_XS, IQ1_S, IQ1_M and
+// the ternary TQ1_0, TQ2_0.
 //
 // A block of QG_THREADS threads (8 warps) owns a BM x QG_BN output tile
 // (BM = 128, or 64 where qgemm.cu's grid would leave SMs idle) and
@@ -32,7 +33,8 @@
 // (d*sc)*q - dmin*m for Q4_K, Q5_K and Q2_K, (d*sc)*(q-32) for Q6_K, q*d for
 // Q8_0, (q-8)*d and (q-16)*d for Q4_0 and Q5_0, q*d + m for Q4_1 and Q5_1,
 // d*(sc-32)*(q-4 or q) for Q3_K, (scale*level)*sign for the codebook
-// kinds, each product and sum rounded once — and then rounded to bf16; the level
+// kinds (IQ1: (scale/8)*(8 level), the same product), (q-1)*d for the
+// ternary kinds, each product and sum rounded once — and then rounded to bf16; the level
 // plus a bias (Q8_0: the signed level, common.cuh::s8_level) becomes an
 // exact f32 by one byte permute (common.cuh::level_plus), with no
 // int->float conversion, and one fused multiply-add takes the bias off
@@ -286,15 +288,15 @@ struct QgLowKStage {
     }
 };
 
-// The codebook kinds: slot i = 2q + g is sub-block i of the superblock, the
-// stage's columns 32g..32g+31, as Q8_0's. The constructor looks up the
-// slot's 32 levels (common.cuh::iq_slot: the grid reads, the signs); each
-// weight is scale * level, one rounding, as the plain dequant's (scale *
-// grid) * sign (the sign is exact).
+// The codebook and ternary kinds: slot i = 2q + g is sub-block i of the
+// superblock, the stage's columns 32g..32g+31, as Q8_0's. The constructor
+// looks up the slot's 32 levels (common.cuh::iq_slot: the grid reads, the
+// signs, the trits); each weight is scale * level, one rounding, as the
+// plain dequant's (scale * grid) * sign (the sign is exact).
 template <int KIND>
 struct QgIQStage {
     uint32_t x80[8];  // word k: 128 + the levels of elements 4k..4k+3
-    float sc[2];      // IQ2_S: elements 0-15, 16-31; else both the one scale
+    float sc[2];      // IQ2_S, IQ2_XS, IQ1_M: elements 0-15, 16-31; else both the one scale
     int g;
 
     __device__ __forceinline__ QgIQStage(const QmvRaw<KIND>& r, int i) : g(i & 1) {
@@ -331,6 +333,12 @@ QG_STAGE_OF(KIND_IQ4_XS, QgIQStage)
 QG_STAGE_OF(KIND_IQ3_XXS, QgIQStage)
 QG_STAGE_OF(KIND_IQ3_S, QgIQStage)
 QG_STAGE_OF(KIND_IQ2_S, QgIQStage)
+QG_STAGE_OF(KIND_IQ2_XXS, QgIQStage)
+QG_STAGE_OF(KIND_IQ2_XS, QgIQStage)
+QG_STAGE_OF(KIND_IQ1_S, QgIQStage)
+QG_STAGE_OF(KIND_IQ1_M, QgIQStage)
+QG_STAGE_OF(KIND_TQ1_0, QgIQStage)
+QG_STAGE_OF(KIND_TQ2_0, QgIQStage)
 #undef QG_STAGE_OF
 
 // Whether a stage holds 16 positions of each quarter of a 128-weight chunk
@@ -458,7 +466,8 @@ __device__ __forceinline__ void qgemm_tile(const uint8_t* __restrict__ wq, int n
 }
 
 // qgemm_tile for a weight kind known only at run time (uniform per block)
-// out of the set KSET (common.cuh: KS_Q4K_Q6K, KS_Q4KM, KS_ALL, KS_IQ).
+// out of the set KSET (common.cuh: KS_Q4K_Q6K, KS_Q4KM, KS_ALL, KS_IQ,
+// KS_IQ_LOW).
 template <int BM, int KSET>
 __device__ __forceinline__ void qgemm_tile_kind(const uint8_t* wq, int kind, int n, int row_bytes,
                                                 const __nv_bfloat16* x, int B, int K, int m0,
@@ -482,6 +491,12 @@ __device__ __forceinline__ void qgemm_tile_kind(const uint8_t* wq, int kind, int
             QG_CASE(KIND_Q8_0) QG_CASE(KIND_Q5_K) QG_CASE(KIND_IQ4_NL) QG_CASE(KIND_IQ4_XS)
             QG_CASE(KIND_IQ3_XXS) QG_CASE(KIND_IQ3_S)
             default: qgemm_tile<BM, KIND_IQ2_S>(wq, n, row_bytes, x, B, K, m0, n0, out); break;
+        }
+    } else if constexpr (KSET == KS_IQ_LOW) {
+        switch (kind) {
+            QG_CASE(KIND_Q8_0) QG_CASE(KIND_Q5_K) QG_CASE(KIND_IQ3_S) QG_CASE(KIND_IQ2_XXS)
+            QG_CASE(KIND_IQ2_XS) QG_CASE(KIND_IQ1_S) QG_CASE(KIND_IQ1_M) QG_CASE(KIND_TQ1_0)
+            default: qgemm_tile<BM, KIND_TQ2_0>(wq, n, row_bytes, x, B, K, m0, n0, out); break;
         }
     }
 #undef QG_CASE

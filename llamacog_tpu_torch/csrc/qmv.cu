@@ -1,11 +1,12 @@
 // qmv — fused dequant x matvec over GGUF wire-format weights: Q4_K, Q6_K,
-// Q8_0, Q5_K, Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, Q3_K and the codebook kinds
-// IQ4_NL, IQ4_XS, IQ3_XXS, IQ3_S, IQ2_S.
+// Q8_0, Q5_K, Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, Q3_K, the codebook kinds
+// IQ4_NL, IQ4_XS, IQ3_XXS, IQ3_S, IQ2_S, IQ2_XXS, IQ2_XS, IQ1_S, IQ1_M and
+// the ternary TQ1_0, TQ2_0.
 //
 // Replaces (llamacog_tpu/ops/pallas/qmm.py):
 //   * _qmm_call at B <= 8 (_qmm_kernel -> _tile_matvec, the decoders of
-//     TILE_DECODERS but IQ2_XXS, IQ2_XS, the IQ1 and the TQ ones): out[B, N] f32 = x[B, K] @
-//     dequant(W)[N, K]^T;
+//     TILE_DECODERS but the TPU repacks Q4_KS4, Q4_KC, Q6_KP): out[B, N]
+//     f32 = x[B, K] @ dequant(W)[N, K]^T;
 //   * _qmm_multi_call (_qmm_multi_kernel): several weights sharing one x in
 //     ONE launch. Here a launch takes up to QMV_MAX_DESC weight descriptors
 //     and its warps share all of their row groups — the counterpart of the
@@ -36,10 +37,11 @@
 // A launch whose weights are all of a Q4_K_M file's kinds (Q4_K, Q6_K,
 // Q8_0, Q5_K) takes the instantiation of those four alone; a launch with
 // a codebook kind the one of those four and the codebook kinds; a launch
-// with any other kind the one of the ten others, whose register count is
-// its widest kind's (KSET, common.cuh). The codebook kinds' levels are the
-// signed integers of their tables (common.cuh::iq_slot), dotted with x as
-// Q8_0's, with no offset.
+// with a 1-2 bit or ternary kind the one of those four, IQ3_S and the six
+// kinds; a launch with any other kind the one of the ten others: each has
+// the register count of its widest kind (KSET, common.cuh). The codebook
+// and ternary kinds' levels are the signed integers of their tables
+// (common.cuh::iq_slot), dotted with x as Q8_0's, with no offset.
 // blockIdx.y walks x in chunks of QMV_MAX_B rows, so f32 activations of any
 // batch take this f32 path too (streaming the weights once per chunk).
 #include "common.cuh"
@@ -108,12 +110,19 @@ qmv_kernel(const QmvParams p, const TX* __restrict__ x) {
                 QMV_CASE(KIND_Q2_K)
                 default: qmv_desc<KIND_Q3_K, NB>(D, x, B, p.K, g, nw, groups, out); break;
             }
-        } else {
+        } else if constexpr (KSET == KS_IQ) {
             switch (D.kind) {
                 QMV_CASE(KIND_Q4_K) QMV_CASE(KIND_Q6_K) QMV_CASE(KIND_Q8_0) QMV_CASE(KIND_Q5_K)
                 QMV_CASE(KIND_IQ4_NL) QMV_CASE(KIND_IQ4_XS) QMV_CASE(KIND_IQ3_XXS)
                 QMV_CASE(KIND_IQ3_S)
                 default: qmv_desc<KIND_IQ2_S, NB>(D, x, B, p.K, g, nw, groups, out); break;
+            }
+        } else {
+            switch (D.kind) {
+                QMV_CASE(KIND_Q4_K) QMV_CASE(KIND_Q6_K) QMV_CASE(KIND_Q8_0) QMV_CASE(KIND_Q5_K)
+                QMV_CASE(KIND_IQ3_S) QMV_CASE(KIND_IQ2_XXS) QMV_CASE(KIND_IQ2_XS)
+                QMV_CASE(KIND_IQ1_S) QMV_CASE(KIND_IQ1_M) QMV_CASE(KIND_TQ1_0)
+                default: qmv_desc<KIND_TQ2_0, NB>(D, x, B, p.K, g, nw, groups, out); break;
             }
         }
 #undef QMV_CASE
@@ -142,24 +151,24 @@ static int launch(const QmvParams& p, const TX* x, const int* n, cudaStream_t st
     return static_cast<int>(cudaGetLastError());
 }
 
+// qmv's instantiations (a Q4_K + Q6_K launch takes KS_Q4KM's kernel)
+constexpr unsigned QMV_SETS = 1u << KS_Q4KM | 1u << KS_ALL | 1u << KS_IQ | 1u << KS_IQ_LOW;
+
 template <int NB, typename TX>
-static int launch_kinds(const QmvParams& p, const TX* x, const int* n, cudaStream_t stream) {
-    bool iq = false, all = false;
-    for (int t = 0; t < p.n_desc; ++t) {
-        iq |= kind_iq(p.d[t].kind);
-        all |= !kind_in_set(p.d[t].kind, KS_Q4KM) && !kind_iq(p.d[t].kind);
-    }
-    if (iq && all) return static_cast<int>(cudaErrorInvalidValue);  // no set holds them
-    return iq ? launch<NB, TX, KS_IQ>(p, x, n, stream)
-         : all ? launch<NB, TX, KS_ALL>(p, x, n, stream) : launch<NB, TX, KS_Q4KM>(p, x, n, stream);
+static int launch_kinds(const QmvParams& p, const TX* x, const int* n, int set,
+                        cudaStream_t stream) {
+    return set == KS_Q4KM ? launch<NB, TX, KS_Q4KM>(p, x, n, stream)
+         : set == KS_ALL  ? launch<NB, TX, KS_ALL>(p, x, n, stream)
+         : set == KS_IQ   ? launch<NB, TX, KS_IQ>(p, x, n, stream)
+                          : launch<NB, TX, KS_IQ_LOW>(p, x, n, stream);
 }
 
 template <int NB>
-static int launch_x(const QmvParams& p, const void* x, int x_dtype, const int* n,
+static int launch_x(const QmvParams& p, const void* x, int x_dtype, const int* n, int set,
                     cudaStream_t stream) {
     if (x_dtype == DT_BF16)
-        return launch_kinds<NB>(p, static_cast<const __nv_bfloat16*>(x), n, stream);
-    return launch_kinds<NB>(p, static_cast<const float*>(x), n, stream);
+        return launch_kinds<NB>(p, static_cast<const __nv_bfloat16*>(x), n, set, stream);
+    return launch_kinds<NB>(p, static_cast<const float*>(x), n, set, stream);
 }
 
 // x [B, K] (f32 or bf16, contiguous); weight t: w[t] [n[t], K/256 blocks],
@@ -181,6 +190,9 @@ LCG_EXPORT int lcg_qmv(const void* x, int x_dtype, int B, int K, int n_desc,
         p.d[t].n = n[t];
         p.d[t].row_bytes = (K / QK_K) * kind_sb_bytes(kind[t]);
     }
+    const int set = launch_set(kind, n_desc, QMV_SETS);
+    if (set < 0) return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return B == 1 ? launch_x<1>(p, x, x_dtype, n, s) : launch_x<QMV_MAX_B>(p, x, x_dtype, n, s);
+    return B == 1 ? launch_x<1>(p, x, x_dtype, n, set, s)
+                  : launch_x<QMV_MAX_B>(p, x, x_dtype, n, set, s);
 }

@@ -14,8 +14,9 @@
 // the selected experts' bytes (each distinct expert once) over 3.35 TB/s.
 // Every weight kind of qmv.cu: a Q4_K or Q6_K stack (a Q4_K_M file's
 // experts) takes the instantiation of those two alone, a codebook kind's
-// stack the one of the five codebook kinds, every other kind the one of
-// the other eight, so each set leaves the others' registers as they were.
+// stack the one of the five codebook kinds, a 1-2 bit or ternary kind's the
+// one of those six, every other kind the one of the other eight, so each
+// set leaves the others' registers as they were.
 // Design: qmv.cu's row walk (common.cuh::qmv_walk: raw levels dotted with x
 // per sub-block part, the scale applied once and the offset folded against
 // the part's sum of x, f32 throughout), 2 rows a warp and one group a warp,
@@ -62,12 +63,20 @@ qmv_id_kernel(const uint8_t* __restrict__ w, const TX* __restrict__ x,
                     qmv_walk<KIND_Q3_K, 1, R, TX>(we, N, row_bytes, xs, 1, K, g, groups, groups, o);
                     break;
             }
-        } else {
+        } else if constexpr (KSET == KS_IQ) {
             switch (kind) {
                 QID_CASE(KIND_IQ4_NL) QID_CASE(KIND_IQ4_XS) QID_CASE(KIND_IQ3_XXS)
                 QID_CASE(KIND_IQ3_S)
                 default:
                     qmv_walk<KIND_IQ2_S, 1, R, TX>(we, N, row_bytes, xs, 1, K, g, groups, groups, o);
+                    break;
+            }
+        } else {
+            switch (kind) {
+                QID_CASE(KIND_IQ2_XXS) QID_CASE(KIND_IQ2_XS) QID_CASE(KIND_IQ1_S)
+                QID_CASE(KIND_IQ1_M) QID_CASE(KIND_TQ1_0)
+                default:
+                    qmv_walk<KIND_TQ2_0, 1, R, TX>(we, N, row_bytes, xs, 1, K, g, groups, groups, o);
                     break;
             }
         }
@@ -79,16 +88,22 @@ qmv_id_kernel(const uint8_t* __restrict__ w, const TX* __restrict__ x,
     }
 }
 
+// qmv_id's instantiations (Q8_0 and Q5_K stacks take KS_ALL's kernel)
+constexpr unsigned QMV_ID_SETS = 1u << KS_Q4K_Q6K | 1u << KS_ALL | 1u << KS_IQ | 1u << KS_IQ_LOW;
+
 template <typename TX>
 static void launch_id(dim3 grid, cudaStream_t s, const uint8_t* w, const void* x, const int* ids,
-                      float* out, int kind, int n_exp, int N, int K, int row_bytes) {
+                      float* out, int kind, int set, int n_exp, int N, int K, int row_bytes) {
     const TX* xt = static_cast<const TX*>(x);
-    if (kind_in_set(kind, KS_Q4K_Q6K))
+    if (set == KS_Q4K_Q6K)
         qmv_id_kernel<TX, KS_Q4K_Q6K><<<grid, QMV_WARPS * 32, 0, s>>>(w, xt, ids, out, kind, n_exp,
                                                                       N, K, row_bytes);
-    else if (kind_iq(kind))
+    else if (set == KS_IQ)
         qmv_id_kernel<TX, KS_IQ><<<grid, QMV_WARPS * 32, 0, s>>>(w, xt, ids, out, kind, n_exp, N,
                                                                  K, row_bytes);
+    else if (set == KS_IQ_LOW)
+        qmv_id_kernel<TX, KS_IQ_LOW><<<grid, QMV_WARPS * 32, 0, s>>>(w, xt, ids, out, kind, n_exp,
+                                                                     N, K, row_bytes);
     else
         qmv_id_kernel<TX, KS_ALL><<<grid, QMV_WARPS * 32, 0, s>>>(w, xt, ids, out, kind, n_exp, N,
                                                                   K, row_bytes);
@@ -103,6 +118,8 @@ LCG_EXPORT int lcg_qmv_id(const void* x, int x_dtype, int S, int K, const void* 
     if (S < 1 || K < QK_K || K % QK_K || n_exp < 1 || N < 1 || row_blocks > 65535 ||
         kind_sb_bytes(kind) == 0 || (x_dtype != DT_F32 && x_dtype != DT_BF16))
         return static_cast<int>(cudaErrorInvalidValue);
+    const int set = launch_set(&kind, 1, QMV_ID_SETS);
+    if (set < 0) return static_cast<int>(cudaErrorInvalidValue);
     const int row_bytes = (K / QK_K) * kind_sb_bytes(kind);
     const dim3 grid(S, row_blocks);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -110,8 +127,8 @@ LCG_EXPORT int lcg_qmv_id(const void* x, int x_dtype, int S, int K, const void* 
     const int* id = static_cast<const int*>(ids);
     float* o = static_cast<float*>(out);
     if (x_dtype == DT_BF16)
-        launch_id<__nv_bfloat16>(grid, s, wq, x, id, o, kind, n_exp, N, K, row_bytes);
+        launch_id<__nv_bfloat16>(grid, s, wq, x, id, o, kind, set, n_exp, N, K, row_bytes);
     else
-        launch_id<float>(grid, s, wq, x, id, o, kind, n_exp, N, K, row_bytes);
+        launch_id<float>(grid, s, wq, x, id, o, kind, set, n_exp, N, K, row_bytes);
     return static_cast<int>(cudaGetLastError());
 }

@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from ...quant.wire import WireTensor, dequantize
+from ...quant.wire import CODEBOOK_KINDS, LOW_BIT_KINDS, WireTensor, dequantize
 from . import build
 
 QMV_MAX_B = 8
@@ -32,18 +32,23 @@ MAX_WEIGHTS = 4
 # weight kinds, as csrc/common.cuh numbers them (KIND_Q4_K ...)
 _KIND_ID = {"Q4_K": 0, "Q6_K": 1, "Q8_0": 2, "Q5_K": 3, "Q4_0": 4, "Q4_1": 5, "Q5_0": 6,
             "Q5_1": 7, "Q2_K": 8, "Q3_K": 9, "IQ4_NL": 10, "IQ4_XS": 11, "IQ3_XXS": 12,
-            "IQ3_S": 13, "IQ2_S": 14}
-# the codebook kinds, and the kinds a launch with them may hold
-# (csrc/common.cuh::KS_IQ)
-IQ_KINDS = frozenset({"IQ4_NL", "IQ4_XS", "IQ3_XXS", "IQ3_S", "IQ2_S"})
-_IQ_SET = IQ_KINDS | {"Q4_K", "Q6_K", "Q8_0", "Q5_K"}
+            "IQ3_S": 13, "IQ2_S": 14, "IQ2_XXS": 15, "IQ2_XS": 16, "IQ1_S": 17, "IQ1_M": 18,
+            "TQ1_0": 19, "TQ2_0": 20}
+# the kinds one launch may hold, a mirror of csrc/common.cuh::kind_in_set
+# (edit both together): KS_ALL (every kind but the codebook and the 1-2 bit
+# and ternary ones), KS_IQ (the codebook kinds with a Q4_K_M file's four)
+# and KS_IQ_LOW (the 1-2 bit and ternary kinds with those four and IQ3_S);
+# KS_Q4K_Q6K and KS_Q4KM lie within each
+_Q4KM = frozenset({"Q4_K", "Q6_K", "Q8_0", "Q5_K"})
+LAUNCH_SETS = (frozenset(_KIND_ID) - frozenset(CODEBOOK_KINDS) - frozenset(LOW_BIT_KINDS),
+               frozenset(CODEBOOK_KINDS) | _Q4KM, frozenset(LOW_BIT_KINDS) | _Q4KM | {"IQ3_S"})
 
 
 def share_launch(kinds) -> bool:
     """Whether weights of these kinds can share one launch: the kernels
-    compile a codebook kind only beside a Q4_K_M file's kinds."""
+    compile each kind only within its sets (LAUNCH_SETS)."""
     kinds = set(kinds)
-    return not kinds & IQ_KINDS or kinds <= _IQ_SET
+    return any(kinds <= s for s in LAUNCH_SETS)
 
 
 def uses_qgemm(x: torch.Tensor) -> bool:

@@ -7,18 +7,21 @@ planes); none of its reasons hold on a GPU, so a weight stays here exactly
 as the file stores it: a ``uint8 [N, row_bytes]`` tensor of ggml blocks
 (per 256 weights: block_q2_K 84 bytes, block_q3_K 110, block_q4_K 144,
 block_q5_K 176, block_q6_K 210; the codebook kinds block_iq4_xs 136,
-block_iq3_xxs 98, block_iq3_s 110, block_iq2_s 82). The legacy blocks
-hold 32 weights each (block_q4_0 18 bytes, q4_1 20, q5_0 22, q5_1 24, q8_0
-34, iq4_nl 18), so 256 weights take eight of them (144, 160, 176, 192, 272,
-144 bytes) and a row of K weights is K / 256 such runs, as for the
-K-quants. The IQ kinds' levels come from the tables of quant/iq_tables.py.
+block_iq3_xxs 98, block_iq3_s 110, block_iq2_s 82, block_iq2_xxs 66,
+block_iq2_xs 74, block_iq1_s 50, block_iq1_m 56; the ternary block_tq1_0 54
+and block_tq2_0 66). The legacy blocks hold 32 weights each (block_q4_0 18
+bytes, q4_1 20, q5_0 22, q5_1 24, q8_0 34, iq4_nl 18), so 256 weights take
+eight of them (144, 160, 176, 192, 272, 144 bytes) and a row of K weights
+is K / 256 such runs, as for the K-quants. The IQ kinds' levels come from
+the tables of quant/iq_tables.py.
 The CUDA kernels read these blocks directly; the plain dequantizers below
 are their reference and the CPU path.
 
 Stacked MoE experts are one wire tensor of logical shape [n_exp, N, K]
 whose blocks are ``[n_exp * N, row_bytes]``, expert e's rows at
 ``e*N .. e*N+N-1`` (the file's own order); only the selected experts'
-blocks are ever decoded (:func:`dequantize_experts`).
+blocks are ever decoded (:func:`dequantize_experts`), unless the caller
+kept the whole decode (:func:`keep_decoded`).
 
 The dequantizers repeat decode_np's arithmetic operation for operation in
 f32, so they are bit-exact against it.
@@ -38,7 +41,8 @@ QK_K = 256
 # wire bytes per QK_K weights (the legacy kinds: eight 32-weight blocks)
 BLOCK_BYTES = {"Q4_K": 144, "Q6_K": 210, "Q8_0": 272, "Q5_K": 176, "Q4_0": 144, "Q4_1": 160,
                "Q5_0": 176, "Q5_1": 192, "Q2_K": 84, "Q3_K": 110, "IQ4_NL": 144, "IQ4_XS": 136,
-               "IQ3_XXS": 98, "IQ3_S": 110, "IQ2_S": 82}
+               "IQ3_XXS": 98, "IQ3_S": 110, "IQ2_S": 82, "IQ2_XXS": 66, "IQ2_XS": 74,
+               "IQ1_S": 50, "IQ1_M": 56, "TQ1_0": 54, "TQ2_0": 66}
 _KIND_OF = {getattr(GGMLType, kind): kind for kind in BLOCK_BYTES}
 DENSE_TYPES = (GGMLType.F32, GGMLType.F16, GGMLType.BF16)
 
@@ -47,13 +51,17 @@ DENSE_TYPES = (GGMLType.F32, GGMLType.F16, GGMLType.BF16)
 class WireTensor:
     """A block-quantized [N, K] weight, or a stack of experts [n_exp, N, K]:
     kind, logical shape, wire blocks, and optionally the int8 prefill
-    planes of quant/mmq.py (qi8 int8 [N, K], ws8T f32 [K / 512, N])."""
+    planes of quant/mmq.py (qi8 int8 [N, K], ws8T f32 [K / 512, N]), and
+    optionally `decoded`, the plain dequant of the whole weight (f32 of
+    `shape`), which the plain dequantizers then read instead of decoding
+    the blocks again (:func:`keep_decoded`)."""
 
     kind: str
     shape: tuple[int, ...]
     blocks: torch.Tensor  # uint8 [prod(shape[:-1]), (K // 256) * BLOCK_BYTES[kind]]
     qi8: torch.Tensor | None = None
     ws8T: torch.Tensor | None = None
+    decoded: torch.Tensor | None = None
 
     def __post_init__(self):
         if self.kind not in BLOCK_BYTES:
@@ -79,6 +87,10 @@ class WireTensor:
                                  f"[N, K] and ws8T f32 [groups, N], got {self.qi8.dtype} "
                                  f"{tuple(self.qi8.shape)}, {self.ws8T.dtype} "
                                  f"{tuple(self.ws8T.shape)}")
+        if self.decoded is not None and (self.decoded.dtype != torch.float32
+                                         or tuple(self.decoded.shape) != self.shape):
+            raise ValueError(f"the decoded weight of a {self.shape} weight must be f32 of its "
+                             f"shape, got {self.decoded.dtype} {tuple(self.decoded.shape)}")
 
     @property
     def device(self) -> torch.device:
@@ -92,7 +104,8 @@ class WireTensor:
     def to(self, device) -> "WireTensor":
         planes = (None, None) if self.qi8 is None else (self.qi8.to(device),
                                                          self.ws8T.to(device))
-        return WireTensor(self.kind, self.shape, self.blocks.to(device), *planes)
+        decoded = None if self.decoded is None else self.decoded.to(device)
+        return WireTensor(self.kind, self.shape, self.blocks.to(device), *planes, decoded)
 
 
 def kind_of(ggml_type: GGMLType) -> str:
@@ -286,6 +299,12 @@ def _u32_at(b: torch.Tensor, off: int, n: int) -> torch.Tensor:
     return w[..., 0] | (w[..., 1] << 8) | (w[..., 2] << 16) | (w[..., 3] << 24)
 
 
+def _u16_at(b: torch.Tensor, off: int, n: int) -> torch.Tensor:
+    """n little-endian u16 fields from byte `off` of each block -> int64 [M, n]."""
+    w = b[:, off : off + 2 * n].to(torch.int64).reshape(-1, n, 2)
+    return w[..., 0] | (w[..., 1] << 8)
+
+
 def _iq4_levels(qs: torch.Tensor) -> torch.Tensor:
     """[M, G, 16] nibble bytes -> [M, G, 32] levels kvalues_iq4nl[q]: element
     j < 16 the low nibble of byte j, 16 + j its high nibble."""
@@ -293,12 +312,29 @@ def _iq4_levels(qs: torch.Tensor) -> torch.Tensor:
     return kvalues[torch.cat([qs & 0xF, qs >> 4], dim=-1).long()]
 
 
+def _iq2_scales(d: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
+    """IQ2_XS / IQ2_S: [M, 8] scale bytes -> [M, 16] d * (0.5 + nibble) *
+    0.25, the low nibble of byte ib for elements 0-15 of sub-block ib, the
+    high one for 16-31."""
+    return torch.stack([d * (0.5 + (sc & 0xF).float()) * 0.25,
+                        d * (0.5 + (sc >> 4).float()) * 0.25], dim=-1).reshape(-1, 16)
+
+
+IQ1_DELTA = 0.125  # IQ1S_DELTA, IQ1M_DELTA (ggml-common.h)
+
+
+def _trits(v: torch.Tensor, j: int) -> torch.Tensor:
+    """TQ1_0's base-3 digit j (0..4) of each byte: ((v * 3^j) mod 256) * 3 >> 8."""
+    return ((v * 3**j) & 0xFF) * 3 >> 8
+
+
 def iq_levels(kind: str, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The codebook kinds' blocks uint8 [M, BLOCK_BYTES[kind]] -> (levels f32
-    [M, 256], scales f32 [M, P]): every weight is scale * level, its part's
-    scale (P = 16 parts of 16 weights for IQ2_S, else 8 of 32) times a small
-    signed integer (a kvalues_iq4nl entry, or a grid byte times its sign),
-    each scale formed as decode_np forms it:
+    """The codebook and ternary kinds' blocks uint8 [M, BLOCK_BYTES[kind]] ->
+    (levels f32 [M, 256], scales f32 [M, P]): every weight is scale * level,
+    its part's scale (P = 16 parts of 16 weights for IQ2_S, IQ2_XS and IQ1_M,
+    else 8 of 32) times a small exact level (a kvalues_iq4nl entry, a grid
+    byte times its sign, an iq1s level plus or minus IQ1_DELTA, or a trit
+    minus 1), each scale formed as decode_np forms it:
     - IQ4_NL, eight 18-byte blocks (f16 d, 16 nibble bytes): d, kvalues[q];
     - IQ4_XS (f16 d, u16 scales_h, scales_l[4], qs[128]): sub-block ib's
       6-bit scale is nibble ib of scales_l with bits 2ib, 2ib + 1 of scales_h
@@ -313,13 +349,58 @@ def iq_levels(kind: str, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     - IQ2_S (f16 d, qs[32], signs[32], qh[8], scales[8]): group l of
       sub-block ib takes entry qs[4ib + l] | (bits 2l, 2l + 1 of qh[ib]) << 8
       of iq2s and signs[4ib + l]; d * (0.5 + nibble) * 0.25, the low nibble
-      of scales[ib] for groups 0-1, the high one for 2-3.
+      of scales[ib] for groups 0-1, the high one for 2-3;
+    - IQ2_XXS (f16 d, per sub-block two u32: four grid indices as bytes;
+      four 7-bit sign indices and a 4-bit scale s): group l takes entry
+      byte l of iq2xxs and ksigns[(u32 >> 7l) & 127]; d * (0.5 + s) * 0.25;
+    - IQ2_XS (f16 d, qs[32] u16, scales[8]): group l of sub-block ib takes
+      entry u16 & 511 of iq2xs and ksigns[u16 >> 9] (u16 = qs[4ib + l]); the
+      scales as IQ2_S's;
+    - IQ1_S (f16 d, qs[32], qh[8] u16): group l of sub-block ib takes entry
+      qs[4ib + l] | (bits 3l..3l + 2 of qh[ib]) << 8 of iq1s, + IQ1_DELTA,
+      - IQ1_DELTA where bit 15 of qh[ib] is set; d * (2 s + 1), s = bits
+      12-14 of qh[ib];
+    - IQ1_M (qs[32], qh[16], four u16 scale words whose top nibbles hold the
+      f16 d): group l takes entry qs[4ib + l] with the low (l even) or high
+      (l odd) three bits of qh[2ib + l // 2] on top, the delta's sign its
+      bit 3 or 7; the scale of groups 0-1 (2-3) of sub-block ib is d * (2 s
+      + 1), s the 3-bit field 6 (ib % 2) (+ 3) of scale word ib // 2;
+    - TQ1_0 (qs[48], qh[4], f16 d): base-3 digit j of a byte is ((v * 3^j)
+      mod 256) * 3 >> 8; elements 0-159 are digits 0-4 of qs[0:32] (32 a
+      digit), 160-239 of qs[32:48] (16 a digit), 240-255 digits 0-3 of qh
+      (4 a digit); d, q - 1;
+    - TQ2_0 (qs[64], f16 d): element 128h + 32j + m is bits 2j, 2j + 1 of
+      qs[32h + m]; d, q - 1.
     decode_np forms (scale * grid) * sign: the sign is exact, so the product
     rounds alike."""
     t, dev = iq_tables.tables(b.device), b.device
     if kind == "IQ4_NL":
         blk = b.reshape(-1, 18)
         return (_iq4_levels(blk[:, 2:18]).reshape(-1, 256), _f16_at(blk, 0).reshape(-1, 8))
+    if kind == "IQ1_M":
+        scb = _u16_at(b, 48, 4)
+        d16 = ((scb[:, 0] >> 12) | ((scb[:, 1] >> 8) & 0xF0) | ((scb[:, 2] >> 4) & 0xF00)
+               | (scb[:, 3] & 0xF000))
+        d = ((d16 ^ 0x8000) - 0x8000).to(torch.int16).view(torch.float16).float()[:, None, None]
+        ib = torch.arange(8, device=dev)
+        s = scb[:, ib // 2] >> (6 * (ib % 2))                                  # [M, 8]
+        dl = torch.stack([2 * (s & 7).float() + 1, 2 * ((s >> 3) & 7).float() + 1], dim=-1)
+        qh = b[:, 32:48].reshape(-1, 8, 2).long()[:, :, [0, 0, 1, 1]]          # [M, 8, 4]
+        idx = b[:, 0:32].reshape(-1, 8, 4).long() | (
+            (qh << torch.tensor([8, 4, 8, 4], device=dev)) & 0x700)
+        neg = (qh & torch.tensor([0x08, 0x80, 0x08, 0x80], device=dev)) != 0
+        levels = t["iq1s"][idx] + torch.where(neg, -IQ1_DELTA, IQ1_DELTA)[..., None]
+        return levels.reshape(-1, 256), (d * dl).reshape(-1, 16)
+    if kind == "TQ1_0":
+        qs, qh = b[:, 0:48].long(), b[:, 48:52].long()
+        q = torch.cat([_trits(qs[:, 0:32], j) for j in range(5)]
+                      + [_trits(qs[:, 32:48], j) for j in range(5)]
+                      + [_trits(qh, j) for j in range(4)], dim=1)
+        return q.float() - 1, _f16_at(b, 52).expand(-1, 8)
+    if kind == "TQ2_0":
+        q = torch.cat([(b[:, 32 * h : 32 * h + 32] >> (2 * j)) & 3
+                       for h in range(2) for j in range(4)], dim=1)
+        return q.float() - 1, _f16_at(b, 64).expand(-1, 8)
     d = _f16_at(b, 0)
     if kind == "IQ4_XS":
         sh = b[:, 2].long() | (b[:, 3].long() << 8)
@@ -343,11 +424,34 @@ def iq_levels(kind: str, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         shift = 8 - 2 * torch.arange(4, device=dev)
         idx = b[:, 2:34].reshape(-1, 8, 4).long() | ((b[:, 66:74, None].long() << shift) & 0x300)
         levels = t["iq2s"][idx] * t["sign256"][b[:, 34:66].reshape(-1, 8, 4).long()]
-        sc = b[:, 74:82]
-        scales = torch.stack([d * (0.5 + (sc & 0xF).float()) * 0.25,
-                              d * (0.5 + (sc >> 4).float()) * 0.25], dim=-1)  # [M, 8, 2]
-        return levels.reshape(-1, 256), scales.reshape(-1, 16)
-    raise ValueError(f"{kind} is not a codebook kind")
+        return levels.reshape(-1, 256), _iq2_scales(d, b[:, 74:82])
+    if kind == "IQ2_XXS":
+        u = _u32_at(b, 2, 16).reshape(-1, 8, 2)
+        sh = torch.arange(4, device=dev)
+        idx, s7 = (u[..., 0:1] >> (8 * sh)) & 0xFF, (u[..., 1:2] >> (7 * sh)) & 127
+        levels = t["iq2xxs"][idx] * t["sign128"][s7]
+        return levels.reshape(-1, 256), d * (0.5 + (u[..., 1] >> 28).float()) * 0.25
+    if kind == "IQ2_XS":
+        qs = _u16_at(b, 2, 32).reshape(-1, 8, 4)
+        levels = t["iq2xs"][qs & 511] * t["sign128"][qs >> 9]
+        return levels.reshape(-1, 256), _iq2_scales(d, b[:, 66:74])
+    if kind == "IQ1_S":
+        qh = _u16_at(b, 34, 8)                                             # [M, 8]
+        idx = b[:, 2:34].reshape(-1, 8, 4).long() | (
+            ((qh[..., None] >> (3 * torch.arange(4, device=dev))) & 7) << 8)
+        levels = t["iq1s"][idx] + torch.where((qh & 0x8000) != 0, -IQ1_DELTA,
+                                              IQ1_DELTA)[..., None, None]
+        return levels.reshape(-1, 256), d * (2 * ((qh >> 12) & 7).float() + 1)
+    raise ValueError(f"{kind} is not a codebook or ternary kind")
+
+
+# the codebook kinds of 2.5 to 4.5 bits a weight, the 1.5 to 2.3 bit
+# codebook kinds with the ternary ones, and both together: the kinds whose
+# plain dequant is scale * level (iq_levels; the kernels' sets of
+# csrc/common.cuh::kind_iq, kind_iq_low and kind_signed)
+CODEBOOK_KINDS = ("IQ4_NL", "IQ4_XS", "IQ3_XXS", "IQ3_S", "IQ2_S")
+LOW_BIT_KINDS = ("IQ2_XXS", "IQ2_XS", "IQ1_S", "IQ1_M", "TQ1_0", "TQ2_0")
+IQ_LEVEL_KINDS = CODEBOOK_KINDS + LOW_BIT_KINDS
 
 
 def _dequant_iq(kind: str):
@@ -361,21 +465,35 @@ def _dequant_iq(kind: str):
 _DEQUANT = {"Q4_K": dequant_q4_k, "Q6_K": dequant_q6_k, "Q8_0": dequant_q8_0,
             "Q5_K": dequant_q5_k, "Q4_0": dequant_q4_0, "Q4_1": dequant_q4_1,
             "Q5_0": dequant_q5_0, "Q5_1": dequant_q5_1, "Q2_K": dequant_q2_k,
-            "Q3_K": dequant_q3_k,
-            **{kind: _dequant_iq(kind) for kind in ("IQ4_NL", "IQ4_XS", "IQ3_XXS", "IQ3_S",
-                                                    "IQ2_S")}}
+            "Q3_K": dequant_q3_k, **{kind: _dequant_iq(kind) for kind in IQ_LEVEL_KINDS}}
 
 
 def dequantize(w: WireTensor, dtype=torch.float32) -> torch.Tensor:
-    """The full weight of w.shape, computed in f32 then cast to `dtype`."""
+    """The full weight of w.shape, computed in f32 then cast to `dtype`; a
+    new tensor, which the caller may write to (quant/mmq.py does)."""
+    if w.decoded is not None:
+        return w.decoded.to(dtype, copy=True)
     out = _DEQUANT[w.kind](w.blocks.reshape(-1, BLOCK_BYTES[w.kind]))
     return out.reshape(w.shape).to(dtype)
+
+
+def keep_decoded(w: WireTensor) -> WireTensor:
+    """w with its plain dequant kept beside the blocks: a plain-path copy of
+    a model that runs many steps decodes each weight once, not once a step
+    (4 bytes a weight; a stack is then held decoded whole). The values the
+    plain dequantizers return do not change: each superblock decodes alone."""
+    if w.decoded is not None:
+        return w
+    return WireTensor(w.kind, w.shape, w.blocks, w.qi8, w.ws8T, dequantize(w))
 
 
 def dequantize_rows(w: WireTensor, idx: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """dequantize(w)[idx] without decoding the whole table: the rows' blocks
     are gathered first (the token-embedding lookup; planar.decode_rows).
     Returns [*idx.shape, K]."""
+    if w.decoded is not None:
+        rows = w.decoded.index_select(0, idx.reshape(-1).to(w.device))
+        return rows.to(dtype).reshape(*idx.shape, w.shape[1])
     rows = w.blocks.index_select(0, idx.reshape(-1).to(w.device))
     sub = WireTensor(w.kind, (rows.shape[0], w.shape[1]), rows)
     return dequantize(sub, dtype).reshape(*idx.shape, w.shape[1])
@@ -386,6 +504,9 @@ def dequantize_experts(w: WireTensor, ids: torch.Tensor, dtype=torch.float32) ->
     blocks are gathered first and only those are decoded (the counterpart
     of qmm_id.qmm_gather_xla's plane gather). Returns [*ids.shape, N, K]."""
     n_exp, n, k = w.shape
+    if w.decoded is not None:
+        sel = w.decoded.index_select(0, ids.reshape(-1).to(w.device))
+        return sel.to(dtype).reshape(*ids.shape, n, k)
     sel = w.blocks.reshape(n_exp, n, -1).index_select(0, ids.reshape(-1).to(w.device))
     sub = WireTensor(w.kind, (sel.shape[0] * n, k), sel.reshape(-1, sel.shape[-1]))
     return dequantize(sub, dtype).reshape(*ids.shape, n, k)

@@ -42,9 +42,11 @@ KIND_PAIRS = [(k, k) for k in ("q8_0", "q4_0", "q4_1", "q5_0", "q5_1")] + [
 # weight kinds of the weight kernels (qmv, qgemm, qmv_id, qgemm_id): the
 # Q4_K_M body and its more-bits layers, the Q8_0 / Q5_K attention weights of
 # an 8-expert Q4_K_M file, the legacy and low-bit kinds of llama.cpp's
-# other presets, and the codebook kinds of its IQ presets
+# other presets, the codebook kinds of its IQ presets, and the 1-2 bit and
+# ternary kinds of its IQ2, IQ1 and TQ presets
 WEIGHT_KINDS = ["Q4_K", "Q6_K", "Q8_0", "Q5_K", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K",
-                "IQ4_NL", "IQ4_XS", "IQ3_XXS", "IQ3_S", "IQ2_S"]
+                "IQ4_NL", "IQ4_XS", "IQ3_XXS", "IQ3_S", "IQ2_S", "IQ2_XXS", "IQ2_XS", "IQ1_S",
+                "IQ1_M", "TQ1_0", "TQ2_0"]
 
 pytestmark = pytest.mark.cuda
 
@@ -103,7 +105,9 @@ def test_qgemm_matches_plain(dev, kind, N, K, B):
                                    ("Q3_K", "Q5_K", "Q4_0", "Q2_K"),
                                    ("Q4_1", "Q5_0", "Q5_1", "Q6_K"),
                                    ("IQ2_S", "Q4_K", "IQ3_S", "IQ3_XXS"),
-                                   ("IQ4_XS", "Q5_K", "IQ4_NL", "Q8_0")], ids="-".join)
+                                   ("IQ4_XS", "Q5_K", "IQ4_NL", "Q8_0"),
+                                   ("IQ2_XXS", "Q4_K", "IQ1_S", "IQ3_S"),
+                                   ("TQ1_0", "IQ2_XS", "IQ1_M", "TQ2_0")], ids="-".join)
 @pytest.mark.parametrize("B,dtype", [(1, torch.bfloat16), (5, torch.float32),
                                      *[(b, torch.bfloat16) for b in (9, 33, 70, 130)]])
 def test_four_mixed_descriptors_one_launch(dev, B, dtype, kinds):
@@ -126,14 +130,18 @@ def test_four_mixed_descriptors_one_launch(dev, B, dtype, kinds):
 
 @pytest.mark.parametrize("kinds", [("Q4_K", "Q6_K"), ("Q4_K", "Q8_0", "Q8_0"), ("Q3_K", "Q5_K"),
                                    ("Q2_K", "Q4_K"), ("IQ2_S", "Q4_K"), ("IQ4_XS", "Q5_K"),
-                                   ("IQ3_XXS", "Q8_0", "Q8_0")], ids="-".join)
+                                   ("IQ3_XXS", "Q8_0", "Q8_0"), ("IQ2_XXS", "Q4_K"),
+                                   ("IQ2_XS", "IQ3_S"), ("IQ1_M", "Q4_K", "Q4_K"),
+                                   ("TQ2_0", "Q8_0", "Q8_0")], ids="-".join)
 @pytest.mark.parametrize("B", [9, 33, 130])
 def test_qgemm_multi_matches_plain(dev, B, kinds):
     """attn_qk + attn_v of a Q4_K_M layer; attn_q + attn_k + attn_v of an
     8-expert Q4_K_M file; attn_qk + attn_v of a Q3_K_M layer (layers 0-1)
     and of a Q2_K layer; the IQ presets' attn_qk + attn_v (IQ3_XXS and
     IQ2_M: IQ2_S + Q4_K; IQ4_XS: + Q5_K) and an 8-expert IQ3_XS file's
-    attn_q + attn_k + attn_v."""
+    attn_q + attn_k + attn_v; the 1-2 bit presets' (IQ2_XXS + Q4_K; IQ2_S
+    below four query heads a kv head: IQ2_XS + IQ3_S; an 8-expert IQ1_M
+    file: IQ1_M + Q4_K + Q4_K) and an 8-expert TQ2_0 file's."""
     g = torch.Generator(device=dev).manual_seed(B)
     ws = [random_wire(kind, n, 512, g, dev) for kind, n in zip(kinds, (160, 72, 72))]
     x = torch.randn(B, 512, generator=g, device=dev).to(torch.bfloat16)
@@ -167,6 +175,9 @@ def test_qmm_launchers_reject_bad_input(dev):
     with pytest.raises(ValueError):  # no instantiation holds a codebook kind with Q3_K
         qmv(torch.zeros(1, 256, device=dev), [random_wire("IQ2_S", 64, 256, g, dev),
                                               random_wire("Q3_K", 64, 256, g, dev)])
+    with pytest.raises(ValueError):  # nor a 1-2 bit kind with a codebook kind of KS_IQ
+        qgemm(torch.zeros(9, 256, device=dev, dtype=torch.bfloat16),
+              [random_wire("IQ1_S", 64, 256, g, dev), random_wire("IQ4_XS", 64, 256, g, dev)])
 
 
 @pytest.mark.parametrize("kind", WEIGHT_KINDS)

@@ -46,15 +46,23 @@ def _random_pair(kind, n, k, seed):
     return qt, wire.from_bytes(raw, t, (n, k))
 
 
-IQ_KINDS = ["IQ4_NL", "IQ4_XS", "IQ3_XXS", "IQ3_S", "IQ2_S"]
+# the 1-2 bit and ternary kinds: their quantizer takes seconds a 65k
+# weights, so their cases run over random blocks (every grid index, sign
+# and trit byte is valid)
+LOW_KINDS = ["IQ2_XXS", "IQ2_XS", "IQ1_S", "IQ1_M", "TQ1_0", "TQ2_0"]
+IQ_KINDS = ["IQ4_NL", "IQ4_XS", "IQ3_XXS", "IQ3_S", "IQ2_S", *LOW_KINDS]
 KINDS = ["Q4_K", "Q6_K", "Q8_0", "Q5_K", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K", *IQ_KINDS]
+
+
+def _any_pair(kind, n, k, seed):
+    return (_random_pair if kind in LOW_KINDS else _pair)(kind, n, k, seed)
 
 
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("batch,bf16", [(1, False), (8, False), (32, False), (32, True)])
 def test_qmm_plain_matches_pallas(kind, batch, bf16):
     """B=32 in bf16 is the qgemm path (bf16 operands), the rest qmv's (f32)."""
-    qt, wt = _pair(kind, N, K, seed=batch)
+    qt, wt = _any_pair(kind, N, K, seed=batch)
     x = np.random.default_rng(batch + 1).standard_normal((batch, K)).astype(np.float32)
     xt = torch.from_numpy(x)
     if bf16:
@@ -71,7 +79,9 @@ def test_qmm_plain_matches_pallas(kind, batch, bf16):
 
 
 @pytest.mark.parametrize("kinds", [("Q4_K", "Q6_K"), ("Q4_K", "Q8_0", "Q8_0"), ("IQ2_S", "Q4_K"),
-                                   ("IQ4_XS", "Q5_K"), ("IQ3_XXS", "Q8_0", "Q8_0")],
+                                   ("IQ4_XS", "Q5_K"), ("IQ3_XXS", "Q8_0", "Q8_0"),
+                                   ("IQ2_XXS", "Q4_K"), ("IQ2_XS", "IQ3_S"),
+                                   ("IQ1_M", "Q4_K", "Q4_K"), ("TQ2_0", "Q8_0", "Q8_0")],
                          ids=lambda k: "+".join(k))
 @pytest.mark.parametrize("batch", [1, 32])
 def test_qmm_multi_plain_matches_pallas(batch, kinds):
@@ -79,8 +89,11 @@ def test_qmm_multi_plain_matches_pallas(batch, kinds):
     (Q4_K + Q6_K), an 8-expert Q4_K_M file's attn_q + attn_k + attn_v
     (Q4_K + Q8_0 + Q8_0), and the IQ presets' (IQ3_XXS's and IQ2_M's IQ2_S
     attn_qk + Q4_K attn_v, IQ4_XS's + Q5_K attn_v, an 8-expert IQ3_XS
-    file's IQ3_XXS attn_q + Q8_0 attn_k, attn_v)."""
-    pairs = [_pair(kind, N // (1 + i), K, seed=11 + i) for i, kind in enumerate(kinds)]
+    file's IQ3_XXS attn_q + Q8_0 attn_k, attn_v), and the 1-2 bit and
+    ternary presets' (IQ2_XXS + Q4_K; IQ2_S below four query heads a kv
+    head: IQ2_XS + IQ3_S; an 8-expert IQ1_M file: IQ1_M + Q4_K + Q4_K; an
+    8-expert TQ2_0 file: TQ2_0 + Q8_0 + Q8_0)."""
+    pairs = [_any_pair(kind, N // (1 + i), K, seed=11 + i) for i, kind in enumerate(kinds)]
     x = np.random.default_rng(13).standard_normal((batch, K)).astype(np.float32)
     refs = qmm_multi(jnp.asarray(x), [qt for qt, _ in pairs], interpret=True)
     outs = linear.qmatmul_multi(torch.from_numpy(x), [wt for _, wt in pairs])
@@ -98,6 +111,21 @@ def test_codebook_kinds_share_launches_with_a_q4_k_m_files_kinds_only():
     assert not share_launch(["IQ2_S", "Q3_K"]) and not share_launch(["Q4_0", "IQ4_XS"])
     _, wa = _random_pair("IQ2_S", 64, K, seed=1)
     _, wb = _random_pair("Q3_K", 32, K, seed=2)
+    x = torch.randn(2, K, generator=torch.Generator().manual_seed(3))
+    assert linear.qmatmul_multi(x, [wa, wb]) is None
+    assert [o.shape for o in linear.qmatmul_multi(x, [wa])] == [(2, 64)]
+
+
+def test_low_bit_kinds_share_launches_with_their_set_only():
+    """The 1-2 bit and ternary kinds share a launch with a Q4_K_M file's
+    kinds and IQ3_S (csrc/common.cuh::KS_IQ_LOW), never with another
+    codebook kind or a kind of KS_ALL: qmatmul_multi declines those mixes."""
+    assert share_launch(["IQ2_XXS", "Q4_K"]) and share_launch(["IQ2_XS", "IQ3_S"])
+    assert share_launch(["IQ1_S", "Q8_0", "Q8_0"]) and share_launch(["TQ1_0", "IQ1_M", "Q5_K"])
+    assert not share_launch(["IQ2_XXS", "Q2_K"]) and not share_launch(["IQ1_S", "IQ4_XS"])
+    assert not share_launch(["TQ2_0", "IQ2_S"])
+    _, wa = _random_pair("IQ2_XXS", 64, K, seed=1)
+    _, wb = _random_pair("Q2_K", 32, K, seed=2)
     x = torch.randn(2, K, generator=torch.Generator().manual_seed(3))
     assert linear.qmatmul_multi(x, [wa, wb]) is None
     assert [o.shape for o in linear.qmatmul_multi(x, [wa])] == [(2, 64)]
@@ -128,15 +156,18 @@ def _levels_scales(wt):
     """The qmv kernel's levels [N, K] (the raw levels plus a bias: Q4_K,
     Q4_0, Q4_1, Q2_K and Q3_K 16 + q, Q5_K, Q5_0 and Q5_1 32 + q, Q6_K
     64 + q; Q8_0 and the codebook kinds the signed levels) and, per part of
-    its lane slice (Q4_K, Q5_K and IQ2_S 16 weights, Q6_K, Q2_K and Q3_K 8,
-    Q8_0, the legacy and the other codebook kinds 32), the scale sc and
+    its lane slice (Q4_K, Q5_K, IQ2_S, IQ2_XS and IQ1_M 16 weights, Q6_K,
+    Q2_K and Q3_K 8, Q8_0, the legacy, the other codebook and the ternary
+    kinds 32), the scale sc and
     offset mn [N, K / part] of wt's blocks with the bias folded into mn, in
     f32 as the kernel forms them."""
     b = wt.blocks.reshape(-1, wire.BLOCK_BYTES[wt.kind])
     n, k = wt.shape
     if wt.kind in IQ_KINDS:
         # the signed levels themselves, no bias, no offset; a part a scale
-        # (IQ2_S 16 weights, the others 32)
+        # (IQ2_S, IQ2_XS, IQ1_M 16 weights, the others 32). IQ1_S's and
+        # IQ1_M's kernel takes 8 level under scale / 8: every product and
+        # sum is these times a power of two, the same rounding
         q, sc = wire.iq_levels(wt.kind, b)
         mn = torch.zeros_like(sc)
     elif wt.kind in LEGACY:

@@ -17,11 +17,12 @@ from llamacog_tpu.quant import quantize
 from llamacog_tpu.quant import decode_np
 from llamacog_tpu.quant.decode_np import dequantize_tensor
 from llamacog_tpu.quant.planar import decode, from_gguf
-from llamacog_tpu_torch.quant import iq_tables, wire
-from llamacog_tpu_torch.utils.synthetic import random_wire
+from llamacog_tpu_torch.quant import iq_tables, mmq, wire
+from llamacog_tpu_torch.utils.synthetic import random_experts, random_wire
 
 KINDS = ["Q4_K", "Q6_K", "Q8_0", "Q5_K", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K",
-         "IQ4_NL", "IQ4_XS", "IQ3_XXS", "IQ3_S", "IQ2_S"]
+         "IQ4_NL", "IQ4_XS", "IQ3_XXS", "IQ3_S", "IQ2_S", "IQ2_XXS", "IQ2_XS", "IQ1_S", "IQ1_M",
+         "TQ1_0", "TQ2_0"]
 
 
 def _blocks(kind, n, k, seed):
@@ -92,6 +93,41 @@ def test_dequantize_rows_matches_full_indexed(kind):
                        full[idx].to(torch.bfloat16))
 
 
+@pytest.mark.parametrize("kind", ["Q4_K", "Q2_K", "IQ3_XXS", "IQ2_XXS", "IQ1_M", "TQ1_0"])
+def test_keep_decoded_returns_the_same_dequant(kind):
+    """A weight that keeps its plain dequant (wire.keep_decoded) gives the
+    dequantizers' values bit for bit: the whole weight, rows of a table,
+    experts of a stack, in f32 and bf16, after a move (.to), and after a
+    caller wrote to a dequant it was given."""
+    g = torch.Generator().manual_seed(len(kind))
+    w, stack = random_wire(kind, 256, 512, g), random_experts(kind, 4, 8, 512, g)
+    kw, ks = wire.keep_decoded(w), wire.keep_decoded(stack)
+    assert kw.decoded is not None and wire.keep_decoded(kw) is kw
+    idx, ids = torch.tensor([[5, 0, 23], [7, 7, 12]]), torch.tensor([3, 0, 3])
+    for dtype in (torch.float32, torch.bfloat16):
+        assert torch.equal(wire.dequantize(kw, dtype), wire.dequantize(w, dtype))
+        assert torch.equal(wire.dequantize_rows(kw, idx, dtype),
+                           wire.dequantize_rows(w, idx, dtype))
+        assert torch.equal(wire.dequantize_experts(ks, ids, dtype),
+                           wire.dequantize_experts(stack, ids, dtype))
+    assert torch.equal(wire.dequantize(kw.to("cpu")), wire.dequantize(w))
+    # each dequant is a new tensor: a caller that writes to it (the int8
+    # planes' build divides in place) leaves the kept decode as it was
+    for got, want in zip(mmq.build_mmq_planes(kw), mmq.build_mmq_planes(w)):
+        assert torch.equal(got, want)
+    wire.dequantize(kw).zero_()
+    assert torch.equal(wire.dequantize(kw), wire.dequantize(w))
+
+
+def test_keep_decoded_refuses_a_decode_of_another_shape():
+    w = random_wire("Q4_K", 8, 256, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="decoded"):
+        wire.WireTensor(w.kind, w.shape, w.blocks, decoded=torch.zeros(8, 512))
+    with pytest.raises(ValueError, match="decoded"):
+        wire.WireTensor(w.kind, w.shape, w.blocks,
+                        decoded=torch.zeros(8, 256, dtype=torch.bfloat16))
+
+
 def test_fuse_rows_concatenates_blocks():
     t = GGMLType.Q4_K
     a = wire.from_bytes(_blocks("Q4_K", 16, 256, 1), t, (16, 256))
@@ -105,9 +141,28 @@ def test_fuse_rows_concatenates_blocks():
 
 
 def test_unported_kind_raises():
-    """A kind the port does not carry is refused by name."""
-    with pytest.raises(NotImplementedError, match="IQ2_XXS"):
-        wire.from_bytes(np.zeros(66, np.uint8), GGMLType.IQ2_XXS, (1, 256))
+    """A kind the port does not carry is refused by name: Q8_K, which
+    neither package runs as a weight (it is llama.cpp's activation
+    quantization for the K-quant dot products)."""
+    with pytest.raises(NotImplementedError, match="Q8_K"):
+        wire.from_bytes(np.zeros(292, np.uint8), GGMLType.Q8_K, (1, 256))
+
+
+@pytest.mark.parametrize("kind", wire.IQ_LEVEL_KINDS)
+def test_iq_levels_scale_to_the_dequant(kind):
+    """iq_levels' form, which the kernels take: every weight is its part's
+    scale times its level, one f32 product (the dequant bit for bit); the
+    levels are integers of at most 127 in magnitude (the kernels' bytes
+    128 + level), IQ1_S's and IQ1_M's eighths of one (the bytes 128 + 8 level
+    under the scale / 8), and the parts are 16 or 32 weights."""
+    w = random_wire(kind, 24, 512, torch.Generator().manual_seed(len(kind) + 1))
+    levels, scales = wire.iq_levels(kind, w.blocks.reshape(-1, wire.BLOCK_BYTES[kind]))
+    assert levels.shape == (48, 256) and scales.shape[1] in (8, 16)
+    byte = levels * 8 if kind in ("IQ1_S", "IQ1_M") else levels
+    assert torch.equal(byte, byte.round()) and byte.abs().max() <= 127
+    got = scales.repeat_interleave(256 // scales.shape[1], dim=1) * levels
+    assert torch.equal(got.view(torch.int32),
+                       wire.dequantize(w).reshape(-1, 256).view(torch.int32))
 
 
 def test_iq_tables_are_the_jax_package_copy():
@@ -121,7 +176,7 @@ def test_iq_tables_are_the_jax_package_copy():
         assert got[k].dtype == ref[k].dtype and np.array_equal(got[k], ref[k]), k
     np.testing.assert_array_equal(iq_tables.tables()["kvalues"].numpy(), decode_np.KVALUES_IQ4NL)
     g = decode_np._grids()
-    for name in ("iq3xxs", "iq3s", "iq2s", "sign128", "sign256"):
+    for name in ("iq3xxs", "iq3s", "iq2xxs", "iq2xs", "iq2s", "iq1s", "sign128", "sign256"):
         np.testing.assert_array_equal(iq_tables.tables()[name].numpy(), g[name])
 
 
@@ -138,13 +193,18 @@ def _parse_header(text: str) -> dict:
 
 def test_iq_cuda_header_holds_the_tables():
     """The header the kernels compile (ops/cuda/build.py writes it) holds
-    the npz's grids word for word and the IQ4 levels + 128; the sign byte
-    the kernels compute from a 7-bit index (the index with its parity as
-    bit 7, common.cuh::iq_ksigns) is ksigns_iq2xs."""
+    the npz's grids word for word (iq1s packed: 1 + level j in the low
+    nibble of byte j, 1 + level 4 + j in its high nibble) and the IQ4 levels
+    + 128; the sign byte the kernels compute from a 7-bit index (the index
+    with its parity as bit 7, common.cuh::iq_ksigns) is ksigns_iq2xs."""
     parsed = _parse_header(iq_tables.cuda_header())
     raw = iq_tables.raw()
-    for name, c_name in (("iq3xxs", "IQ3XXS_GRID"), ("iq3s", "IQ3S_GRID"), ("iq2s", "IQ2S_GRID")):
+    for name, c_name in (("iq3xxs", "IQ3XXS_GRID"), ("iq3s", "IQ3S_GRID"), ("iq2s", "IQ2S_GRID"),
+                         ("iq2xxs", "IQ2XXS_GRID"), ("iq2xs", "IQ2XS_GRID")):
         np.testing.assert_array_equal(parsed[c_name], raw[name].view(np.uint32).reshape(-1))
+    w = parsed["IQ1S_GRID"][:, None] >> (8 * np.arange(4, dtype=np.uint32))
+    nibbles = np.concatenate([w & 0xF, (w >> 4) & 0xF], axis=1).astype(np.int64) - 1
+    np.testing.assert_array_equal(nibbles, raw["iq1s"].view(np.int8).reshape(-1, 8))
     x80 = np.array([parsed[f"IQ4NL_X80_{i}"] for i in range(4)], np.uint32).view(np.uint8)
     np.testing.assert_array_equal(x80.astype(np.int64) - 128, decode_np.KVALUES_IQ4NL)
     idx = np.arange(128)
