@@ -41,7 +41,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      gather at 2 and 32 rows, the offset entry, the grouped GEMM of a
      128- and a 512-token prefill; both again over gate_up and down stacks
      of every other kind: Q8_0, Q5_K and the seventeen above, the last six
-     also through the offset entry);
+     also through the offset entry); and the shapes of a 4-slot serving
+     step: qmv at 4 rows on the 8B weights, K4 and K6 (q8_0) over 4 rows
+     at depths 0, 100, 1000 and 2047, K5 and K7 on a one-row view of a
+     4-row cache;
   4. the full-width kernel path (8B widths, 2 layers) against the plain
      path (the same params on the CPU): prefill logits, 4 teacher-forced
      decode steps (Engine.decode_one: replays of the step's CUDA graph on
@@ -56,8 +59,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      attn_k/attn_v, Q5_K attn_output): a 20-token prefill (grouped GEMM), 4
      decode steps and a 9-token second chunk (gather), and the presets
      Q5_K_M, Q3_K_M, IQ2_M, IQ3_XXS (an f32 model: see phase 4's comment)
-     and TQ1_0 (the CPU copy keeps each weight's plain dequant:
-     wire.keep_decoded);
+     and TQ1_0 (the CPU copy keeps each weight's plain dequant, made on the
+     card: wire.keep_decoded's form); and a 4-row engine (8B widths, dense
+     and q8_0; Mixtral widths, dense): row prefills of 20, 9 and 33 tokens,
+     decode steps with inactive rows, a shift_row, each row of the bf16
+     model held against single-stream engines on the card, and the kernel
+     path against the plain path (the 8B as an f32 model);
   5. whether stream capture keeps the split-S combine's programmatic
      dependent launch (K4 and K6 captured alone: the graph's edges by
      type, the replay against the eager call), then the 8B Q4_K_M
@@ -90,7 +97,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      Q2_K, IQ4_NL, IQ3_XXS, IQ3_S, IQ2_M, IQ2_XXS, IQ2_S, IQ1_S, IQ1_M,
      TQ1_0 and TQ2_0 at MIXTRAL_PRESET_LAYERS layers (one preset for each
      other expert kind); then Llama-3-70B IQ2_XXS at full depth (80 layers,
-     the preset that puts a 70B on one card); the phase's wall time;
+     the preset that puts a 70B on one card); after the 8B runs, the
+     serving run (the port's server over HTTP, 4 slots, ctx 4096, 8
+     requests at once from --seed: greedy held against single-stream
+     engines, seeded sent twice, a JSON schema, a streamed stop string;
+     then one request past a 512-token context on one slot, dense and
+     q8_0; every decode step a graph replay); the phase's wall time;
   6. each phase's seconds, one JSON line of per-kernel results, the card's
      name and power limit, and the final {"ok": true, ...} line.
 
@@ -108,6 +120,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -132,12 +145,19 @@ TOL_QMM = 1e-4
 TOL_K13 = 1e-6
 TOL_ATTN = 1e-2       # bf16 outputs: one bf16 rounding (2^-8) of each side
 TOL_PATH = 5e-2       # bf16 model, 2 layers: bf16 roundings that flip between paths
+# a row of a B-row engine against a single-stream engine fed the row's own
+# calls, on the card: the same kernels at the same shapes, a row's qmv and
+# attention independent of the others' (at these depths one split of the
+# decode attention is live whatever the split count)
+TOL_ROWS = 1e-6
 # a router tie: the k-th and the (k+1)-th router logits of a row within this
 # many bf16 ulps of the k-th (the bf16 roundings of the layer input that
 # differ between the two paths move a logit by about one)
 TIE_ULPS = 2
 PROMPT_LEN = 128
 N_DECODE = 128
+N_SERVE = 64  # tokens a serving request generates
+SEED = 0      # --seed: the serving run's prompts
 # the weight kinds of llama.cpp's presets beside Q4_K_M's, and the preset
 # whose phase-5 run holds each (in the 8B dense weights; in the Mixtral
 # expert stacks, EXPERT_PRESET)
@@ -159,6 +179,10 @@ EXPERT_PRESET = {"Q8_0": "Q8_0", "Q5_K": "Q5_K_M", "Q4_0": "Q4_0", "Q4_1": "Q4_1
 MIXTRAL_FULL_DEPTH = ("Q5_K_M", "IQ4_XS")
 MIXTRAL_PRESET_LAYERS = 4
 LONG_PROMPT = 4096
+# the serving run of phase 5: slots, and the depths of the B-row attention
+# cases of phase 3 (a row at depth 0, rows at their own depths)
+SERVING_SLOTS = 4
+SERVING_DEPTHS = (0, 100, 1000, 2047)
 # phase-5 runs whose decode also runs eagerly, in turns with the graph
 EAGER_TURNS = {("8b", "kv dense"), ("8b", "kv q8_0"), ("mixtral", "kv dense")}
 
@@ -200,6 +224,7 @@ def env_vars(values: dict):
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -229,8 +254,7 @@ def main() -> int:
         qmm_ragged_plain)
     from llamacog_tpu_torch.ops.linear import qmatmul_multi
     from llamacog_tpu_torch.quant.mmq import build_mmq_planes
-    from llamacog_tpu_torch.quant.wire import (
-        CODEBOOK_KINDS, LOW_BIT_KINDS, WireTensor, keep_decoded)
+    from llamacog_tpu_torch.quant.wire import CODEBOOK_KINDS, LOW_BIT_KINDS, WireTensor, dequantize
     from llamacog_tpu_torch.runtime.engine import Engine
     from llamacog_tpu_torch.runtime.kv_cache import (
         QuantKVCache, kv_dequant_planes, kv_plane_shapes)
@@ -337,6 +361,9 @@ def main() -> int:
             for (name, fn), d in zip(named, dev_ms)))
 
     results = []
+    # phase 4's 4-row engines' bf16 launches, for the rows of the shapes no
+    # phase-5 run drives
+    rows_runs = {}
 
     def no_sync(fn):
         """fn() with any call that makes the host wait for the card raising."""
@@ -362,7 +389,8 @@ def main() -> int:
         bound is the larger of nbytes over the HBM rate and flops over
         `peak` (the tensor-core rate of the operands' type); `counter` is
         the launch count the row reads (the source's name by default), in
-        the phase-5 run `run` ("mixtral" or an 8B run's name; by default
+        the run `run` ("mixtral", a phase-5 8B run's name or a phase-4
+        4-row engine's, rows_runs; by default
         the run of the kernel's path). A
         row that is not `listed` is checked and logged but left out of the
         results line: no run of phase 5 launches its kernel."""
@@ -444,6 +472,11 @@ def main() -> int:
             # the Q8_0 and Q5_K weights run on the Mixtral path: its run's launches
             mixtral_kinds = any(w.kind in ("Q8_0", "Q5_K") for w in ws)
             weight_parity(kname, fn, B, label, ws, multi, "mixtral" if mixtral_kinds else None)
+    # qmv at B = 4, one row a server slot (the serving run's decode steps), on
+    # the 8B Q4_K_M weights: K1 alone and the attn_qk + attn_v launch (K3)
+    for label, ws, multi in shapes:
+        if not any(w.kind in ("Q8_0", "Q5_K") for w in ws):
+            weight_parity("qmv", qmv, SERVING_SLOTS, label, ws, multi, "serving")
     # the legacy, low-bit and codebook kinds of llama.cpp's other presets at
     # the 8B FFN shapes, each read in the phase-5 run of a preset that holds
     # it; and the mixed launches of a Q3_K_M layer's attn_qk (Q3_K) + attn_v
@@ -633,6 +666,38 @@ def main() -> int:
         del ks, vs, kf, vf
         torch.cuda.empty_cache()
 
+    # a serving step: B = 4 rows of a 2048-slot cache at their own depths,
+    # one at depth 0 (SERVING_DEPTHS), layer 1 of 2; SDPA over the same rows
+    # with a per-row mask as the library call
+    nb = SERVING_SLOTS
+    depths = torch.tensor(SERVING_DEPTHS, dtype=torch.int32, device=dev)
+    qb, kcb, vcb = rnd(nb, H, D), rnd(nb, Hkv, D), rnd(nb, Hkv, D)
+    ksb, vsb = rnd(2, nb, 2048, Hkv, D), rnd(2, nb, 2048, Hkv, D)
+    args = (qb, ksb, vsb, 1, kcb, vcb, depths, scale)
+    out = flash_decode_stacked_dense(*args)
+    ref = flash_decode_stacked_dense_plain(*args)
+    kf = torch.cat([ksb[1], kcb[:, None]], 1).transpose(1, 2).contiguous()
+    vf = torch.cat([vsb[1], vcb[:, None]], 1).transpose(1, 2).contiguous()
+    pos = torch.arange(2049, device=dev)
+    allowed = ((pos[None, :] < depths[:, None].long()) | (pos[None, :] == 2048))[:, None, None]
+    lib = sdpa(qb[:, :, None], kf, vf, attn_mask=allowed, scale=scale, enable_gqa=True)[:, :, 0]
+    torch.cuda.synchronize()
+    log(f"[library] decode B={nb} seq_len={SERVING_DEPTHS} sdpa vs plain: max rel err "
+        f"{rel_err(lib, ref):.3e}")
+    keys = sum(n + 1 for n in SERVING_DEPTHS)
+    record(f"flash_decode_dense B={nb} H={H} Hkv={Hkv} D={D} S=2048 seq_len="
+           + "/".join(map(str, SERVING_DEPTHS)),
+           "llamacog_tpu_torch/csrc/flash_decode_dense.cu",
+           "llamacog_tpu/ops/pallas/flash_q8.py:968", [out], [ref], TOL_ATTN,
+           time_ms(lambda: flash_decode_stacked_dense(*args)),
+           time_ms(lambda: flash_decode_stacked_dense_plain(*args), iters=5),
+           2 * (qb.numel() + 2 * sum(SERVING_DEPTHS) * Hkv * D + kcb.numel() + vcb.numel()
+                + nb * H * D), 4 * H * keys * D,
+           time_ms(lambda: sdpa(qb[:, :, None], kf, vf, attn_mask=allowed, scale=scale,
+                                enable_gqa=True)), run="serving")
+    del ksb, vsb, kf, vf, allowed, lib, args
+    torch.cuda.empty_cache()
+
     # prefill attention over a 1024-slot cache: T=128 at write offsets 0 (the
     # 128-token prompt) and 896 (old-cache tiles too), T=512 at 0 (the
     # 512-token prompt)
@@ -670,6 +735,38 @@ def main() -> int:
                4 * H * keys * D,
                time_ms(lambda: sdpa(qs, kfull, vfull, attn_mask=allowed, scale=scale,
                                     enable_gqa=True)))
+    # K5 on a one-row view of a 4-row cache (row 2 of layer 1: what a row
+    # prefill reads, Engine.prefill(row=)), T=128 at offsets 0 and 896: the
+    # tiles, by the view's strides, no copy
+    kl4, vl4 = rnd(2, SERVING_SLOTS, S, Hkv, D), rnd(2, SERVING_SLOTS, S, Hkv, D)
+    krow, vrow = kl4[1, 2:3], vl4[1, 2:3]
+    qr, kcr, vcr = blocks[T]
+    check(krow.data_ptr() == kl4[1, 2].data_ptr(), "K5 row view: not a view of the cache")
+    for n in (0, S - T):
+        seq = torch.tensor([n], dtype=torch.int32, device=dev)
+        args = (qr, krow, vrow, kcr, vcr, seq, scale)
+        before = dict(build.LAUNCHES)
+        out = flash_prefill_kernel(*args)
+        took = {k: c - before[k] for k, c in build.LAUNCHES.items() if c != before[k]}
+        check(took == {"flash_prefill": 1}, f"K5 row view n={n}: launched {took}, not the tiles")
+        ref = flash_prefill_attention_plain(*args)
+        qs = qr.transpose(1, 2)
+        kfull = torch.cat([krow[:, :n], kcr], 1).transpose(1, 2).contiguous()
+        vfull = torch.cat([vrow[:, :n], vcr], 1).transpose(1, 2).contiguous()
+        allowed = (torch.arange(n + T, device=dev)[None, :]
+                   <= (n + torch.arange(T, device=dev))[:, None])
+        torch.cuda.synchronize()
+        keys = sum(n + t + 1 for t in range(T))
+        record(f"flash_prefill row view (row 2 of 4) T={T} H={H} Hkv={Hkv} D={D} S={S} "
+               f"seq_len={n}", "llamacog_tpu_torch/csrc/flash_prefill.cu",
+               "llamacog_tpu/ops/pallas/flash_prefill.py:129", [out], [ref], TOL_ATTN,
+               time_ms(lambda: flash_prefill_kernel(*args)),
+               time_ms(lambda: flash_prefill_attention_plain(*args), iters=5),
+               2 * (qr.numel() + 2 * n * Hkv * D + kcr.numel() + vcr.numel() + T * H * D),
+               4 * H * keys * D,
+               time_ms(lambda: sdpa(qs, kfull, vfull, attn_mask=allowed, scale=scale,
+                                    enable_gqa=True)), run="serving")
+    del kl4, vl4, krow, vrow, kfull, vfull, allowed, args, qr, kcr, vcr
     # K5's bf16 SIMT body, which the C entry picks for what the tiles do not
     # take: a head dim outside the tiles (72) and a cache view one element
     # off 16 bytes (8B heads), T=128 over write offset 896. No phase-5 run
@@ -749,13 +846,13 @@ def main() -> int:
         "over quantized KV planes, so they have no library time (library_ms null)")
     fq8 = "llamacog_tpu/ops/pallas/flash_q8.py:{}"
 
-    def quant_cache(kinds, s_len):
-        c = QuantKVCache.create(2, 1, s_len, Hkv, D, D, kinds=kinds, device=dev)
+    def quant_cache(kinds, s_len, batch=1):
+        c = QuantKVCache.create(2, batch, s_len, Hkv, D, D, kinds=kinds, device=dev)
         for il in range(2):  # one layer at a time keeps the f32 staging small
-            kv = [torch.randn(1, 1, s_len, Hkv, D, generator=g, device=dev) for _ in "kv"]
+            kv = [torch.randn(1, batch, s_len, Hkv, D, generator=g, device=dev) for _ in "kv"]
             part = QuantKVCache([p[il:il + 1] for p in c.k_planes],
                                 [p[il:il + 1] for p in c.v_planes], kinds, Hkv)
-            part.write_all(*kv, torch.zeros(1, dtype=torch.int32, device=dev))
+            part.write_all(*kv, torch.zeros(batch, dtype=torch.int32, device=dev))
         return c
 
     def row_bytes(kind):
@@ -803,6 +900,25 @@ def main() -> int:
                        flash_decode_stacked_plain, cache, 32765, 520, (kind, kind), True)
         del cache
         torch.cuda.empty_cache()
+    # K6 over q8_0 planes at a serving step: B = 4 rows at SERVING_DEPTHS of
+    # a 2048-slot cache (its launches: phase 4's 8B 4-row q8_0 engine)
+    qc4 = quant_cache(("q8_0", "q8_0"), 2048, batch=SERVING_SLOTS)
+    qb, kcb, vcb = rnd(SERVING_SLOTS, H, D), rnd(SERVING_SLOTS, Hkv, D), rnd(SERVING_SLOTS, Hkv, D)
+    depths = torch.tensor(SERVING_DEPTHS, dtype=torch.int32, device=dev)
+    args = (qb, qc4.k_planes, qc4.v_planes, 1, kcb, vcb, depths, scale)
+    out = flash_decode_stacked(*args, kinds=qc4.kinds)
+    ref = flash_decode_stacked_plain(*args, kinds=qc4.kinds)
+    torch.cuda.synchronize()
+    record(f"flash_decode_stacked q8_0:q8_0 B={SERVING_SLOTS} H={H} Hkv={Hkv} D={D} S=2048 "
+           "seq_len=" + "/".join(map(str, SERVING_DEPTHS)),
+           "llamacog_tpu_torch/csrc/flash_decode_quant.cu", fq8.format(828), [out], [ref],
+           TOL_ATTN, time_ms(lambda: flash_decode_stacked(*args, kinds=qc4.kinds)),
+           time_ms(lambda: flash_decode_stacked_plain(*args, kinds=qc4.kinds), iters=5),
+           sum(SERVING_DEPTHS) * Hkv * 2 * row_bytes("q8_0")
+           + 2 * (qb.numel() + kcb.numel() + vcb.numel() + SERVING_SLOTS * H * D),
+           4 * H * sum(n + 1 for n in SERVING_DEPTHS) * D, run=f"8b {SERVING_SLOTS} rows q8_0")
+    del qc4, args, out, ref
+
     def prefill_row(label, cache, kinds, qp, kcp, vcp, n, run=None, dense_run=None):
         """K7 on layer 1 of `cache` at write offset n: its tensor-core tiles
         (one launch, checked), against its plain version, its launches read
@@ -867,6 +983,33 @@ def main() -> int:
                   else (S - T,)):
             prefill_row("T=128", cache, kinds, qp, kcp, vcp, n)
         del cache
+    # K7 on a one-row view of a 4-row q8_0 cache (row 2 of layer 1: a row
+    # prefill over quantized planes), T=128 at offsets 0 and 896: the tiles,
+    # on the view's planes in place (a layer of one row is contiguous); its
+    # launches: phase 4's 8B 4-row q8_0 engine
+    qc4 = quant_cache(("q8_0", "q8_0"), S, batch=SERVING_SLOTS)
+    kp, vp = [p[1, 2:3] for p in qc4.k_planes], [p[1, 2:3] for p in qc4.v_planes]
+    check(all(p.is_contiguous() for p in kp + vp), "K7 row view: planes not contiguous")
+    for n in (0, S - T):
+        seq = torch.tensor([n], dtype=torch.int32, device=dev)
+        args = (qp, kp, vp, kcp, vcp, seq, scale)
+        before = dict(build.LAUNCHES)
+        out = flash_prefill_q8(*args, kinds=qc4.kinds)
+        took = {k: c - before[k] for k, c in build.LAUNCHES.items() if c != before[k]}
+        check(took == {"flash_prefill_quant": 1},
+              f"K7 row view n={n}: launched {took}, not the tiles")
+        ref = flash_prefill_q8_plain(*args, kinds=qc4.kinds)
+        torch.cuda.synchronize()
+        keys = sum(n + t + 1 for t in range(T))
+        record(f"flash_prefill_q8 row view (row 2 of 4) q8_0:q8_0 T={T} H={H} Hkv={Hkv} D={D} "
+               f"S={S} seq_len={n}", "llamacog_tpu_torch/csrc/flash_prefill_quant.cu",
+               fq8.format(331), [out], [ref], TOL_ATTN,
+               time_ms(lambda: flash_prefill_q8(*args, kinds=qc4.kinds)),
+               time_ms(lambda: flash_prefill_q8_plain(*args, kinds=qc4.kinds), iters=5),
+               n * Hkv * 2 * row_bytes("q8_0")
+               + 2 * (qp.numel() + kcp.numel() + vcp.numel() + T * H * D),
+               4 * H * keys * D, run=f"8b {SERVING_SLOTS} rows q8_0")
+    del qc4, kp, vp, args
     Tl = 2048
     ql, kcl, vcl = rnd(1, Tl, H, D), rnd(1, Tl, Hkv, D), rnd(1, Tl, Hkv, D)
     for kind in ("q8_0", "q4_0"):
@@ -1034,6 +1177,8 @@ def main() -> int:
 
     # 4. full-width kernel path vs the plain path (same params on the CPU)
     t0 = time.perf_counter()
+    dense_attn = ("flash_decode_dense", "flash_prefill")
+    quant_attn = ("flash_decode_quant", "flash_prefill_quant")
     route_fns = ((flash_q8_mod, "decode_from_cache", "stacked"),
                  (flash_q8_mod, "flash_decode_q8_auto", "per-layer quantized"),
                  (flash_decode_mod, "flash_decode_attention", "per-layer dense"))
@@ -1061,12 +1206,27 @@ def main() -> int:
         (wire.keep_decoded): the plain path's products read the same f32
         weights each step instead of decoding them again, most of its time
         otherwise (4 bytes a weight: a 2-layer Mixtral-wide copy holds its
-        expert stacks in ~11 GB of host memory)."""
+        expert stacks in ~11 GB of host memory). The dequant runs on the
+        card, the same torch ops as on the CPU, and is copied over (decoding
+        the copies on the host took ~45% of phase 4); a sample of each
+        weight's rows (every expert's first and last, and 32 drawn from the
+        whole weight) is decoded on the CPU too and must be bit-equal."""
         p_gpu = make_synthetic_params(cfgp, seed=7, ftype=ftype,
                                       imatrix=ftype in CODEBOOK_PRESETS)
+        draw = torch.Generator().manual_seed(7)
 
         def on_cpu(v):
-            return keep_decoded(v.to("cpu")) if isinstance(v, WireTensor) else v.to("cpu")
+            if not isinstance(v, WireTensor):
+                return v.to("cpu")
+            w, decoded = v.to("cpu"), dequantize(v).cpu()
+            n_rows, n, k = w.blocks.shape[0], w.shape[-2], w.shape[-1]
+            firsts = torch.arange(0, n_rows, n)  # one a stack's expert
+            idx = torch.cat([firsts, firsts + n - 1,
+                             torch.randint(n_rows, (32,), generator=draw)]).unique()
+            rows = dequantize(WireTensor(w.kind, (len(idx), k), w.blocks.index_select(0, idx)))
+            check(torch.equal(rows, decoded.reshape(-1, k).index_select(0, idx)),
+                  f"{w.kind} {tuple(w.shape)}: the plain dequant on the card is not the CPU's")
+            return WireTensor(w.kind, w.shape, w.blocks, w.qi8, w.ws8T, decoded)
         p_cpu = {k: (v if k == "layers" else on_cpu(v)) for k, v in p_gpu.items()}
         p_cpu["layers"] = [{k: on_cpu(v) for k, v in layer.items()} for layer in p_gpu["layers"]]
         return p_gpu, p_cpu
@@ -1228,6 +1388,144 @@ def main() -> int:
             log(f"[path] {model}, {label}: {time.perf_counter() - t_case:.1f}s")
         return firsts
 
+    def batched_path_check(model, cfgp, p_gpu, p_cpu, kv_type, must, max_seq, prompts,
+                           dtype=torch.bfloat16):
+        """A SERVING_SLOTS-row engine on the card, the same params as the
+        plain path's: rows 0-2 prefilled one by one with `prompts` (the
+        forward at B = 1 over each row's view of the cache), row 3 idle at
+        depth 0; four decode_one steps with row 3 inactive and row 1 too in
+        the second (teacher-forced tokens); shift_row on row 2; two more
+        steps. The bf16 model's run (its launches counted from 0, returned):
+        the kernels `must` launched, each step one replay of the one decode
+        graph; each row's logits at every step those of a single-stream
+        engine on the card fed the row's own calls (within TOL_ROWS: the
+        rows do not interact, and the row view, the write mask and the
+        shift change nothing; within TOL_PATH on a MoE model, whose f32
+        router product goes to cuBLAS, which picks its kernel by the row
+        count, so a tie may route otherwise). Then the model in `dtype` on
+        the card (the bf16 run itself for bf16) against the same calls on
+        the plain path on the CPU, in `dtype`, within TOL_PATH at every
+        step, and the rows' lengths equal (where their caches part is
+        logged). The 8B runs this comparison as an
+        f32 model, as phase 4's Mixtral IQ3_XXS case: in bf16 its own plain
+        path moves by up to 1.3 of max |logit| at some states when its
+        activations are f32 instead (PERF.md §6, PR 14), so a bf16
+        comparison cannot tell a kernel defect from that sensitivity. A MoE
+        model's plain path routes as the kernel path did, ties only
+        (path_check)."""
+        nb = SERVING_SLOTS
+        t_case = time.perf_counter()
+        idle = np.array([True, True, True, False])
+        actives = [idle, np.array([True, False, True, False]), idle, idle, idle, idle]
+        tokens = [np.array([(7919 * (i + 3) * (r + 1)) % cfgp.n_vocab for r in range(nb)])
+                  for i in range(len(actives))]
+        real_rows = [len(p) for p in prompts] + [nb] * len(actives)
+        runs, seen, diffs, caches = {}, [], [], {}
+
+        def run(name, params, device, dtype, want_launched):
+            eng = Engine(params, cfgp, batch_size=nb, max_seq=max_seq, kv_type=kv_type,
+                         device=device, dtype=dtype)
+            if device == "cuda":
+                seen.clear()
+            build.reset_launches()
+            routing = (routing_record(cfgp, max_seq, seen) if device == "cuda"
+                       else routing_forced(cfgp, seen, real_rows, diffs))
+            steps = []
+            with route_calls() as calls, routing as end_step:
+                for row, prompt in enumerate(prompts):
+                    steps.append(("prefill row %d" % row, {row: eng.prefill(prompt, row=row)}))
+                    end_step()
+                for i, (toks, act) in enumerate(zip(tokens, actives)):
+                    if i == 4:
+                        eng.shift_row(2, 4, 16)
+                    logits = eng.decode_one(toks, active=act)
+                    steps.append((f"decode step {i + 1}" + (" after shift_row(2, 4, 16)"
+                                                            if i >= 4 else ""),
+                                  {r: logits[r] for r in np.nonzero(act)[0].tolist()}))
+                    end_step()
+            launches = dict(build.LAUNCHES)
+            runs[name] = (steps, eng.seq_len.tolist())
+            caches[name] = [p.cpu() for p in eng.cache.planes()]
+            graphs = {cap: n for cap, (_, n) in eng.decoder.graphs.items()}
+            del eng
+            if device == "cuda":
+                log(f"[path] {model}, {nb} rows, kv {kv_type}, {name}: kernel launches "
+                    f"{json.dumps({k: v for k, v in launches.items() if v})}, T=1 "
+                    f"attention calls {json.dumps(calls)}, decode graphs {graphs}")
+                missing = [k for k in want_launched if launches[k] == 0]
+                check(not missing, f"{model} {nb} rows {kv_type} {name}: kernels never "
+                      f"launched: {missing}")
+                check(len(graphs) == 1 and calls["stacked"] == 2 * cfgp.n_layer,
+                      f"{model} {nb} rows {kv_type} {name}: decode graphs {graphs}, T=1 "
+                      f"attention calls {calls}: not one graph replayed every step")
+            return launches
+
+        launches = run("bf16", p_gpu, "cuda", torch.bfloat16, must)
+        # each row alone: a single-stream engine on the card, the row's calls
+        single = [dict() for _ in runs["bf16"][0]]
+        for row, prompt in enumerate(prompts):
+            eng = Engine(p_gpu, cfgp, batch_size=1, max_seq=max_seq, kv_type=kv_type)
+            single[row][row] = eng.prefill(prompt)
+            for i, (toks, act) in enumerate(zip(tokens, actives)):
+                if i == 4 and row == 2:
+                    eng.shift_row(0, 4, 16)
+                if act[row]:
+                    single[len(prompts) + i][row] = eng.decode_one([toks[row]])[0]
+            del eng
+        worst_rows, tol_rows = 0.0, TOL_PATH if cfgp.n_expert else TOL_ROWS
+        for (what, a), alone in zip(runs["bf16"][0], single):
+            check(sorted(a) == sorted(alone), f"{model} {nb} rows {what}: rows {sorted(a)} "
+                  f"against single-stream rows {sorted(alone)}")
+            for r in a:
+                err = rel_err(torch.from_numpy(a[r]), torch.from_numpy(alone[r]))
+                worst_rows = max(worst_rows, err)
+                check(err <= tol_rows, f"{model} {nb} rows {kv_type}: row {r} at {what} "
+                      f"differs from its single-stream engine by {err:.3e}")
+        log(f"[path] {model}, {nb} rows, kv {kv_type}: the bf16 rows against single-stream "
+            f"engines: max rel err {worst_rows:.3e}")
+        # the kernel path against the plain path, both in `dtype`
+        dname = "bf16" if dtype == torch.bfloat16 else "f32"
+        if dname != "bf16":  # f32: qmv for every product, the SIMT prefill bodies
+            run(dname, p_gpu, "cuda", dtype,
+                ("qmv", *(k for k in must if k.startswith("flash_decode"))))
+        run(f"plain {dname}", p_cpu, "cpu", dtype, ())
+        if cfgp.n_expert:
+            log(f"[path] {model}, {nb} rows: {len(diffs)} real rows routed otherwise than the "
+                f"plain path's own top-{cfgp.n_expert_used} {json.dumps(diffs)}")
+            check(all(d["tie"] for d in diffs), f"{model} {nb} rows: a row routed away from "
+                  "the plain path's top-k other than by a tie swap")
+        (k_steps, k_len), (p_steps, p_len) = runs[dname], runs[f"plain {dname}"]
+        check(k_len == p_len, f"{model} {nb} rows: lengths {k_len} != {p_len}")
+        worst = 0.0
+        for (what, a), (_, b) in zip(k_steps, p_steps):
+            check(sorted(a) == sorted(b), f"{model} {nb} rows {what}: rows {sorted(a)} "
+                  f"against the plain path's {sorted(b)}")
+            for r in a:
+                ka, pb = torch.from_numpy(a[r]), torch.from_numpy(b[r])
+                check(ka.shape == (cfgp.n_vocab,) and bool(torch.isfinite(ka).all()),
+                      f"{model} {nb} rows {what} row {r}: logits not finite of shape")
+                err = rel_err(ka, pb)
+                worst = max(worst, err)
+                log(f"[path] {model}, {nb} rows, kv {kv_type}, {dname}, {what}, row {r}: logits "
+                    f"max rel err {err:.3e} (tol {TOL_PATH:.0e}), argmax kernel "
+                    f"{int(ka.argmax())} plain {int(pb.argmax())}")
+                check(err <= TOL_PATH, f"{model} {nb} rows {kv_type} {dname}: kernel path "
+                      f"disagrees with the plain path at {what}, row {r}")
+        # where the two caches part, over each row's valid slots (a quantized
+        # value on either side of a rounding boundary lands one step apart)
+        parts = []
+        for i, (a, b) in enumerate(zip(caches[dname], caches[f"plain {dname}"])):
+            for r, n in enumerate(k_len):
+                d = (a[:, r, :n].double() - b[:, r, :n].double()).abs()
+                if d.numel() and float(d.max()) > 0:
+                    parts.append(f"store {i} ({a.dtype}) row {r}: {int((d > 0).sum())} of "
+                                 f"{d.numel()} values differ, by at most {float(d.max()):.3e}")
+        log(f"[path] {model}, {nb} rows, kv {kv_type}, {dname} caches, kernel against plain: "
+            + ("; ".join(parts) or "equal"))
+        log(f"[path] {model}, {nb} rows, kv {kv_type}: lengths {k_len}; {dname} kernel against "
+            f"plain max rel err {worst:.3e}; {time.perf_counter() - t_case:.1f}s")
+        return launches
+
     # the dense cache, q8_0 and a split pair; int8 prefill on a 300-token
     # prompt (bucket 512, so the real MMQ_MIN_B of 256 holds); the per-layer
     # decode routes (LLAMACOG_FLASH_STACKED=0): K9 on the dense cache, K8 on q8_0
@@ -1253,6 +1551,16 @@ def main() -> int:
     cos = float(torch.nn.functional.cosine_similarity(mm.double(), exact.double(), dim=0))
     log(f"[path] 8B widths, 300-token prompt: cosine of the mmq and the exact prefill logits "
         f"{cos:.6f} (the JAX package's test asks > 0.995 at 512 wide, tests/test_qmm_i8.py:116)")
+    # the B-row engine: row prefills of 20, 9 and 33 tokens, decode steps
+    # with inactive rows (qmv at 4 rows, K4/K6 over rows at their own depths
+    # and one at 0), shift_row; against the plain path as an f32 model. The
+    # q8_0 run's launches are those of phase 3's K6 row at 4 rows and K7 row
+    # on a one-row view: the serving run of phase 5 has the dense cache
+    prompts_b = [prompt20, prompt300[:9], [(i * 7919) % V for i in range(40, 73)]]
+    for kv_type, attn in (("dense", dense_attn), ("q8_0", quant_attn)):
+        launches = batched_path_check("8B widths", cfg2, p_gpu, p_cpu, kv_type,
+                                      ("qmv", "qgemm", *attn), 1024, prompts_b, torch.float32)
+        rows_runs[f"8b {SERVING_SLOTS} rows {kv_type}"] = {"total": launches}
     del p_gpu, p_cpu, exact, mm
     torch.cuda.empty_cache()
     # the other presets at 8B widths: legacy Q4_0 (q+k+v and gate+up fused)
@@ -1286,6 +1594,13 @@ def main() -> int:
     path_check("Mixtral widths", mcfg2, p_gpu, p_cpu, [
         ("kv dense", "dense", {}, prompt20m, ("qmv_id", "qgemm_id"), "stacked")],
         [11, 12345, 777, 31000], 33)
+    # the B-row engine at Mixtral widths: each row prefill takes the grouped
+    # GEMM (K11: 64, 64 and 256 (token, slot) rows), each decode step the
+    # gather at 2 x 4 rows (K10)
+    batched_path_check("Mixtral widths", mcfg2, p_gpu, p_cpu, "dense",
+                       ("qmv_id", "qgemm_id", *dense_attn), 128,
+                       [prompt20m, prompt20m[:9], [(i * 7919) % mcfg.n_vocab
+                                                   for i in range(40, 73)]])
     del p_gpu, p_cpu
     torch.cuda.empty_cache()
     # Q5_K_M's Q5_K expert stacks (and Q6_K down on the more-bits layers),
@@ -1527,6 +1842,343 @@ def main() -> int:
                 f"combine's early launch is kept); replay equals the eager call bit for bit: "
                 f"{same}")
             check(same, f"{what}: the captured split + combine differs from the eager call")
+    def http_post(url, body, stream=False):
+        """POST a JSON body: the reply's JSON, or with stream the SSE
+        messages' JSON up to [DONE]."""
+        import urllib.request
+        req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            if not stream:
+                return json.loads(r.read())
+            msgs = []
+            for line in r:
+                line = line.decode().strip()
+                if line == "data: [DONE]":
+                    return msgs
+                if line.startswith("data: "):
+                    msgs.append(json.loads(line[6:]))
+        return msgs
+
+    def post_all(url, bodies):
+        """The bodies POSTed at once, one client thread each, started 50 ms
+        apart so that the server queues them in order (the slots they take
+        and the prefixes they reuse then follow from the order); the replies
+        in order, and the wall time until the last came back."""
+        out = [None] * len(bodies)
+
+        def go(i, body):
+            try:
+                out[i] = http_post(url + "/completion", body, stream=bool(body.get("stream")))
+            except Exception as e:  # the check below fails the phase on it
+                out[i] = {"error": repr(e)}
+
+        threads = [threading.Thread(target=go, args=(i, b)) for i, b in enumerate(bodies)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+            time.sleep(0.05)
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "a serving request did not return")
+        for i, r in enumerate(out):
+            final = r[-1] if isinstance(r, list) else r
+            check(isinstance(final, dict) and "error" not in final
+                  and not any("error" in m for m in (r if isinstance(r, list) else [r])),
+                  f"serving request {i}: error reply {final}")
+        return out, wall
+
+    def served(tag, model, run_requests, **server_kw):
+        """A ServerContext on the card served over HTTP on 127.0.0.1 (a port
+        the OS picks). A short warm-up request first captures the decode
+        graph; then the launches are counted over run_requests(url): every
+        decode step must be a replay (the launches of the decode steps, all
+        launches less those of the prefills, are the captured ones times
+        the replays; the step function runs no time outside a graph), and
+        the SIMT bodies of K5 and K7 never launch. Returns (the requests'
+        result, the launches, the server's metrics, peak device memory)."""
+        from llamacog_tpu_torch.server.server import serve
+
+        ctx, httpd = serve(model, host="127.0.0.1", port=0, **server_kw)
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            post_all(url, [{"prompt": list(range(300, 364)), "n_predict": 4,
+                            "temperature": 0.0, "ignore_eos": True}])
+            eng = ctx.engine
+            counts = {"steps": 0, "replays": {}, "prefill": dict.fromkeys(build.LAUNCHES, 0),
+                      "decode_s": 0.0, "decodes": 0, "rows": 0, "prefill_s": 0.0,
+                      "shift_s": 0.0}
+            step, run, prefill = eng.decoder.step, eng.decoder.run, eng.prefill
+            decode_one, shift_row = eng.decode_one, eng.shift_row
+
+            def timed_decode_one(toks, active=None):
+                t0 = time.perf_counter()
+                out = decode_one(toks, active=active)
+                counts["decode_s"] += time.perf_counter() - t0
+                counts["decodes"] += 1
+                counts["rows"] += int(np.sum(active)) if active is not None else len(toks)
+                return out
+
+            def timed_shift_row(*a):
+                t0 = time.perf_counter()
+                shift_row(*a)
+                counts["shift_s"] += time.perf_counter() - t0
+
+            def counted_step(*a, **kw):
+                counts["steps"] += 1
+                return step(*a, **kw)
+
+            def counted_run(fwd, kv_cap, n):
+                counts["replays"][kv_cap] = counts["replays"].get(kv_cap, 0) + n
+                return run(fwd, kv_cap, n)
+
+            def counted_prefill(ids, row=0):
+                before = dict(build.LAUNCHES)
+                t0 = time.perf_counter()
+                out = prefill(ids, row=row)
+                counts["prefill_s"] += time.perf_counter() - t0
+                for k, v in build.LAUNCHES.items():
+                    counts["prefill"][k] = counts["prefill"].get(k, 0) + v - before.get(k, 0)
+                return out
+
+            eng.decoder.step, eng.decoder.run, eng.prefill = counted_step, counted_run, \
+                counted_prefill
+            eng.decode_one, eng.shift_row = timed_decode_one, timed_shift_row
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launches()
+            t_run = time.perf_counter()
+            result = run_requests(url)
+            t_run = time.perf_counter() - t_run
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            total = dict(build.LAUNCHES)
+            metrics = dict(ctx.metrics)
+            decode = {k: v - counts["prefill"].get(k, 0) for k, v in total.items()}
+            captured = {cap: g[1] for cap, g in eng.decoder.graphs.items()}
+            want = {k: sum(captured.get(cap, {}).get(k, 0) * n
+                           for cap, n in counts["replays"].items()) for k in total}
+            log(f"[{tag}] decode graphs (kv_cap: replays) {counts['replays']}, captured "
+                f"launches a step {json.dumps(captured)}"
+                f"; launches: prefill {json.dumps({k: v for k, v in counts['prefill'].items() if v})}"
+                f", decode {json.dumps({k: v for k, v in decode.items() if v})}")
+            check(decode == want, f"[{tag}] decode launches {decode} are not the captured ones "
+                  f"times the replays {want}")
+            n = max(counts["decodes"], 1)
+            log(f"[{tag}] where the time goes, {t_run:.3f}s on the host clock: {counts['decodes']}"
+                f" decode steps (decode_one: the graph replay and the logits' copy to the "
+                f"host) {counts['decode_s']:.3f}s, {counts['decode_s'] / n * 1e3:.3f} ms a step "
+                f"for {counts['rows'] / n:.2f} active rows; prefill chunks "
+                f"{counts['prefill_s']:.3f}s; context shifts {counts['shift_s']:.3f}s; the rest "
+                f"(the samplers and grammars, emission, HTTP, the loop) "
+                f"{t_run - counts['decode_s'] - counts['prefill_s'] - counts['shift_s']:.3f}s")
+            check(counts["steps"] == 0, f"[{tag}] the decode step ran {counts['steps']} times "
+                  "outside a graph replay")
+            check(total["flash_prefill_simt"] == 0 and total["flash_prefill_quant_simt"] == 0,
+                  f"[{tag}] a SIMT body launched: {total}")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            ctx.stop()
+            th.join(timeout=60)
+        check(not th.is_alive() and not ctx.thread.is_alive(), f"[{tag}] server threads run on")
+        return result, total, metrics, peak
+
+    def serving_runs(params, cfgm, single_ms):
+        """Phase 5's serving run: the 8B through the port's server on the
+        card, SERVING_SLOTS slots and ctx 4096, 8 requests at once with
+        prompts of 128-1024 tokens drawn from --seed (token ids; a synthetic
+        Llama-3-sized vocab detokenizes), four of them sharing a 512-token
+        prefix; then one request past a 512-token context on one slot, with
+        the dense and the q8_0 cache. Returns the launches of each run."""
+        from llamacog_tpu_torch.models.loader import Model
+        from llamacog_tpu_torch.runtime.grammar import grammar_from_gbnf
+        from llamacog_tpu_torch.runtime.json_schema import json_schema_to_gbnf
+        from llamacog_tpu_torch.server.server import PREFILL_CHUNK
+        from llamacog_tpu_torch.utils.synthetic import synthetic_vocab
+
+        t_phase = time.perf_counter()
+        Vm = cfgm.n_vocab
+        vocab = synthetic_vocab(Vm)
+        model = Model(cfgm, params, vocab, None)
+        rng = np.random.default_rng(SEED)
+        kinds = ("greedy", "greedy", "sampled", "greedy", "greedy", "sampled", "stream",
+                 "schema")
+        # requests 0 and 1 fill slots 0 and 1 first and finish first; 4 and 5
+        # then take those slots by the prefix rule and reuse the prefix
+        share = {0, 1, 4, 5}
+        prefix = rng.integers(256, 128000, size=512).tolist()
+        prompts = []
+        for i, n in enumerate(rng.integers(128, 1025, size=len(kinds)).tolist()):
+            if i in share:
+                suffix = rng.integers(256, 128000, size=max(n, 520) - 512).tolist()
+                suffix[0] = 256 + i  # the shared prefix ends at 512 exactly
+                prompts.append(prefix + suffix)
+            else:
+                prompts.append(rng.integers(256, 128000, size=n).tolist())
+        log(f"[serving] seed {SEED}: prompts of {[len(p) for p in prompts]} tokens "
+            f"({', '.join(kinds)}); requests {sorted(share)} share a 512-token prefix; "
+            f"prefill chunks of {PREFILL_CHUNK}")
+
+        # the single-stream reference of each greedy request: an
+        # Engine(batch_size=1) fed the chunks the slot is fed (a prefix reused
+        # at 512 is the first chunk), then decode_one steps, the top-2 logits
+        # of each kept
+        ref = {}
+        eng1 = Engine(params, cfgm, batch_size=1, max_seq=4096)
+        for i, kind in enumerate(kinds):
+            if kind not in ("greedy", "stream"):
+                continue
+            p = prompts[i]
+            for off in range(0, len(p), PREFILL_CHUNK):
+                logits = eng1.prefill(p[off:off + PREFILL_CHUNK])
+            toks, top2 = [], []
+            t1 = time.perf_counter()
+            for j in range(N_SERVE):
+                lt = logits.reshape(-1).copy()
+                first = int(np.argmax(lt))  # the server's greedy pick: the first maximum
+                top1 = float(lt[first])
+                lt[first] = -np.inf
+                second = int(np.argmax(lt))
+                toks.append(first)
+                top2.append((top1, float(lt[second]), second))
+                if j + 1 < N_SERVE:
+                    logits = eng1.decode_one([toks[-1]])[0]
+            ref[i] = {"tokens": toks, "top2": top2,
+                      "ms": (time.perf_counter() - t1) / (N_SERVE - 1) * 1e3}
+            eng1.reset()
+        del eng1
+        torch.cuda.empty_cache()
+        # the streamed request's stop string: the text of three plain tokens
+        # of its reference, the last window whose text occurs there first
+        # (the random model soon repeats one token: then the window of its
+        # first three repeats, so the tokens before stream and the first two
+        # repeats are held back)
+        stream_i = kinds.index("stream")
+        rtoks = ref[stream_i]["tokens"]
+        pieces = [vocab.token_to_piece(t).decode("utf-8", "replace") for t in rtoks]
+        rtext = "".join(pieces)
+        starts = np.cumsum([0] + [len(p) for p in pieces]).tolist()
+        windows = [j for j in range(N_SERVE - 2) if all(256 <= t < 128000 for t in rtoks[j:j + 3])
+                   and rtext.find("".join(pieces[j:j + 3])) == starts[j]]
+        check(bool(windows), f"serving: no stop string in the streamed reference {rtoks}")
+        stop_j = windows[-1]
+        stop = "".join(pieces[stop_j:stop_j + 3])
+        schema = {"type": "object", "properties": {"ok": {"type": "boolean"}},
+                  "required": ["ok"]}
+        bodies = []
+        for i, kind in enumerate(kinds):
+            b = {"prompt": prompts[i], "n_predict": N_SERVE, "ignore_eos": True,
+                 "return_tokens": True, "temperature": 0.0}
+            if kind == "sampled":
+                b.update(temperature=0.8, seed=42 + i)
+            elif kind == "stream":
+                b.update(stream=True, stop=[stop])
+            elif kind == "schema":
+                b.update(json_schema=schema, n_predict=256, seed=42 + i, ignore_eos=False)
+            bodies.append(b)
+
+        def batch(url):
+            out, wall = post_all(url, bodies)
+            again, _ = post_all(url, [bodies[i] for i, k in enumerate(kinds) if k == "sampled"])
+            return out, wall, again
+
+        (out, wall, again), launches, metrics, peak = served(
+            "serving", model, batch, n_slots=SERVING_SLOTS, ctx_size=4096)
+        finals = [r[-1] if isinstance(r, list) else r for r in out]
+        n_gen = sum(f["tokens_predicted"] for f in finals)
+        for i, (kind, f) in enumerate(zip(kinds, finals)):
+            t = f["timings"]
+            log(f"[serving] request {i} ({kind}, {len(prompts[i])} prompt tokens, "
+                f"{t['cache_n']} reused): TTFT {t['prompt_ms']:.2f} ms from admission, "
+                f"{f['tokens_predicted']} tokens at "
+                f"{t['predicted_ms'] / max(f['tokens_predicted'], 1):.3f} ms/token, "
+                f"stop {f['stop_reason']}")
+            check(t["cache_n"] in (0, 512), f"serving request {i}: {t['cache_n']} prompt "
+                  "tokens reused, not 0 or the 512-token prefix")
+        log(f"[serving] {len(kinds)} requests, {n_gen} generated tokens in {wall:.3f}s: "
+            f"{n_gen / wall:.2f} tokens/s aggregate; single stream (the 8B dense run's "
+            f"graph loop) {1e3 / single_ms:.2f} tokens/s; prompt tokens "
+            f"{metrics['prompt_tokens_total']} prefilled, "
+            f"{metrics.get('prompt_tokens_cached_total', 0)} reused; peak device memory "
+            f"{peak / 2**30:.2f} GiB; {nvidia_smi_line()}")
+        check(metrics.get("prompt_tokens_cached_total", 0) > 0,
+              "serving: no prompt prefix was reused (prompt_tokens_cached_total 0)")
+        # greedy requests: the single-stream tokens, or a tie where they part
+        for i, r in ref.items():
+            got = finals[i]["tokens"]
+            want = r["tokens"][:len(got)]
+            part = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+            if part is None:
+                log(f"[serving] request {i}: its {len(got)} tokens equal the single-stream "
+                    f"tokens ({r['ms']:.3f} ms/token through decode_one)")
+            else:
+                top1, top2, second = r["top2"][part]
+                ulp = 2.0 ** (torch.frexp(torch.tensor(top1)).exponent.item() - 8)
+                gap = (top1 - top2) / ulp
+                log(f"[serving] request {i}: parts from single stream at token {part}: server "
+                    f"{got[part]}, single stream {want[part]} (its second {second}), top-2 "
+                    f"gap {gap:.2f} bf16 ulps")
+                check(gap <= TIE_ULPS, f"serving request {i}: greedy tokens part from the "
+                      f"single stream at {part} with a top-2 gap of {gap:.2f} bf16 ulps")
+            check(kinds[i] == "stream" or len(got) == N_SERVE,
+                  f"serving request {i}: {len(got)} tokens, not {N_SERVE}")
+        # the streamed request stops before its stop string, having held it back
+        f, msgs = finals[stream_i], out[stream_i]
+        streamed = "".join(m["content"] for m in msgs[:-1]) + f["content"]
+        if f["tokens"][:stop_j + 3] == rtoks[:stop_j + 3]:
+            check(streamed == rtext[:starts[stop_j]] and f["tokens_predicted"] == stop_j + 3,
+                  f"serving stream: {f['tokens_predicted']} tokens, text not the single "
+                  f"stream's up to the stop string {stop!r}")
+        check(stop not in streamed, f"serving stream: the stop string {stop!r} was streamed")
+        log(f"[serving] streamed request: stop string {stop!r} (tokens {stop_j}-{stop_j + 2}); "
+            f"{len(msgs) - 1} chunks, {len(streamed)} characters, {f['tokens_predicted']} "
+            f"tokens, stop {f['stop_reason']}")
+        # the seeded requests draw the same text when sent again
+        firsts = [finals[i] for i, k in enumerate(kinds) if k == "sampled"]
+        for a, b in zip(firsts, again):
+            check(a["content"] == b["content"] and a["tokens"] == b["tokens"],
+                  "serving: a seeded request drew other tokens when sent again")
+        log("[serving] the two seeded requests, sent again, drew the same tokens")
+        # every token of the schema reply is one the grammar accepts
+        f = finals[kinds.index("schema")]
+        gram = grammar_from_gbnf(json_schema_to_gbnf(schema), vocab)
+        for j, t in enumerate(f["tokens"]):
+            check(gram.accepts_token(t), f"serving schema: token {j} ({t}) not accepted by "
+                  "the schema's grammar")
+            gram.accept_token(t)
+        if f["stop_reason"] == "eos":
+            doc = json.loads(f["content"])
+            check(isinstance(doc, dict) and isinstance(doc.get("ok"), bool),
+                  f"serving schema: {f['content']!r} does not match the schema")
+        log(f"[serving] schema request: {f['tokens_predicted']} tokens, every one accepted by "
+            f"the grammar, stop {f['stop_reason']}: {f['content']!r}")
+        runs = {"serving": {"total": launches}}
+        # one request past a 512-token context on one slot, dense and q8_0
+        for kv in ("dense", "q8_0"):
+            body = {"prompt": rng.integers(256, 128000, size=128).tolist(), "n_predict": 600,
+                    "temperature": 0.0, "ignore_eos": True}
+
+            def one(url):
+                out, wall = post_all(url, [body])
+                return out[0], wall
+
+            (res, wall), launches, metrics, peak = served(
+                f"shift {kv}", model, one, n_slots=1, ctx_size=512, kv_type=kv)
+            shifts = metrics.get("context_shifts_total", 0)
+            log(f"[serving] shift run, kv {kv}: 1 slot, ctx 512, a 128-token prompt, "
+                f"{res['tokens_predicted']} tokens in {wall:.3f}s "
+                f"({res['tokens_predicted'] / wall:.2f} tokens/s), {shifts} context shifts, "
+                f"peak device memory {peak / 2**30:.2f} GiB")
+            check(res["tokens_predicted"] == 600 and shifts >= 1,
+                  f"shift run {kv}: {res['tokens_predicted']} tokens, {shifts} shifts")
+            runs[f"shift {kv}"] = {"total": launches}
+        log(f"[serving] phase wall time {time.perf_counter() - t_phase:.1f}s")
+        return runs
+
     def build_params(model, cfgm, ftype=DEFAULT_LAYOUT):
         t0 = time.perf_counter()
         params = make_synthetic_params(cfgm, seed=0, ftype=ftype,
@@ -1552,9 +2204,8 @@ def main() -> int:
 
     # the kernels each run launches (and it launches no other): K5 and K7 by
     # their tensor-core tiles alone, never their SIMT bodies
-    # (flash_prefill_simt, flash_prefill_quant_simt)
-    dense_attn = ("flash_decode_dense", "flash_prefill")
-    quant_attn = ("flash_decode_quant", "flash_prefill_quant")
+    # (flash_prefill_simt, flash_prefill_quant_simt); dense_attn and
+    # quant_attn are set before phase 4
     moe_kernels = ("qmv_id", "qgemm_id")
     exact_path = ("qmv", "qgemm", *dense_attn)
     mmq_env, k9_env = {"LLAMACOG_MMQ": "1"}, {"LLAMACOG_FLASH_STACKED": "0",
@@ -1624,6 +2275,8 @@ def main() -> int:
     log(f"[8b] per-layer K9 run: {N_DECODE} greedy tokens equal the stacked dense run's: {same}")
     check(same, "the per-layer K9 route's greedy tokens differ from the stacked route's")
     sampled_runs(params, cfg)
+    single_ms = statistics.median(runs_8b["kv dense"]["graph_ms"])
+    serving = serving_runs(params, cfg, single_ms)
     del params
     torch.cuda.empty_cache()
 
@@ -1695,7 +2348,7 @@ def main() -> int:
               **{k: runs_moe["kv dense"] for k in moe_kernels},
               **{k: runs_8b["kv q8_0"] for k in quant_attn}}
     run_named = {**runs_8b, "mixtral": runs_moe["kv dense"],
-                 "mixtral 512": runs_moe["kv dense 512"], **preset_runs}
+                 "mixtral 512": runs_moe["kv dense 512"], **preset_runs, **serving, **rows_runs}
     for r in results:
         k, run = r.pop("kernel"), r.pop("run")
         r["launches"] = (run_named[run] if run
@@ -1727,4 +2380,9 @@ def sum_wire_bytes(params: dict, cfg) -> int:
 
 
 if __name__ == "__main__":
+    import argparse
+
+    ap = argparse.ArgumentParser(description="smoke test of the PyTorch port on one GPU")
+    ap.add_argument("--seed", type=int, default=SEED, help="seed of the serving run's prompts")
+    SEED = ap.parse_args().seed
     sys.exit(main())

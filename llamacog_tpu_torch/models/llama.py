@@ -196,10 +196,14 @@ def forward(
     dtype=torch.bfloat16,
     logits_last=None,         # host ints [B]: compute the LM head only there
     kv_cap: int | None = None,  # bound on the attended cache prefix
+    write_mask: torch.Tensor | None = None,  # [B] bool on the device: rows whose K/V land
 ) -> tuple[torch.Tensor, KVCache | QuantKVCache]:
     """Returns (logits [B, T, V] f32 — [B, 1, V] with logits_last — and the
     cache, updated in place). Layers read the old cache and attend to the
-    current block explicitly; one bulk write lands all layers' K/V."""
+    current block explicitly; one bulk write lands all layers' K/V, in the
+    rows of write_mask only when it is given (a row that is not active
+    writes nothing). The cache may be a one-row view of a larger cache
+    (KVCache.row): the write lands there in place."""
     B, T = tokens.shape
     H, Hkv = cfg.n_head, cfg.n_head_kv
     Dk, Dv = cfg.head_dim_k, cfg.head_dim_v
@@ -284,7 +288,8 @@ def forward(
         else:
             x = x + _ffn(layer, h)
 
-    cache = cache.write_all(torch.stack(new_ks), torch.stack(new_vs), write_pos)
+    cache = cache.write_all(torch.stack(new_ks), torch.stack(new_vs), write_pos,
+                            active=write_mask)
     if logits_last is not None:
         idx = torch.as_tensor(logits_last, device=x.device).long().reshape(B, 1, 1)
         x = torch.gather(x, 1, idx.expand(B, 1, x.shape[-1]))

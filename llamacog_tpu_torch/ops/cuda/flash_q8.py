@@ -396,11 +396,14 @@ def decode_from_cache(q, cache, il, k_cur, v_cur, seq_len, scale, softcap=0.0, w
                       kv_cap=None):
     """Decode attention for layer `il` reading the stacked cache directly,
     dispatched on the cache type: the quantized planes go to K6, the dense
-    store to K4 (kernels on the card, plain versions on the CPU)."""
+    store to K4 (kernels on the card, plain versions on the CPU). The
+    kernels get layer il's [1, B, S, ...] slice, which is contiguous also
+    where the cache is a one-row view of a larger one (KVCache.row)."""
     if isinstance(cache, QuantKVCache):
-        return flash_decode_stacked(q, cache.k_planes, cache.v_planes, il, k_cur, v_cur,
+        return flash_decode_stacked(q, [p[il:il + 1] for p in cache.k_planes],
+                                    [p[il:il + 1] for p in cache.v_planes], 0, k_cur, v_cur,
                                     seq_len, scale, softcap=softcap, window=window,
                                     kv_cap=kv_cap, kinds=cache.kinds)
     return build.on_device(q, flash_decode_stacked_dense, flash_decode_stacked_dense_plain,
-                           cache.k, cache.v, il, k_cur, v_cur, seq_len, scale, softcap=softcap,
-                           window=window, kv_cap=kv_cap)
+                           cache.k[il:il + 1], cache.v[il:il + 1], 0, k_cur, v_cur, seq_len,
+                           scale, softcap=softcap, window=window, kv_cap=kv_cap)

@@ -97,3 +97,15 @@ def apply_rope_tables(x: torch.Tensor, tables, dim: int | None = None,
     if dim < D:
         out = torch.cat([out, x[..., dim:].float()], dim=-1)
     return out.to(x.dtype)
+
+
+def rope_shift(x: torch.Tensor, delta: torch.Tensor, cfg: RopeConfig,
+               freq_factors: torch.Tensor | None = None) -> torch.Tensor:
+    """x [..., S, H, D] rotated by a per-position delta [S] (the re-rope of
+    a context shift: rope is additive in the position, so rotating a key
+    stored at p by d gives the key of p + d). The same tables as a step's
+    (rope_tables, with the model's rope factors), so the JAX package's
+    apply_rope(k, delta, ...) is matched operation for operation."""
+    D = x.shape[-1]
+    return apply_rope_tables(x, rope_tables(delta, cfg, D, freq_factors), cfg.dim or D,
+                             interleaved=cfg.interleaved)

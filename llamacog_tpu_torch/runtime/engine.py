@@ -1,11 +1,17 @@
-"""Single-stream generation engine (PyTorch).
+"""Generation engine over B rows of one KV cache (PyTorch).
 
 Counterpart of llamacog_tpu/runtime/engine.py::Engine for the llama path,
 with the dense cache or the quantized one (kv_type, the -ctk/-ctv kinds,
 through make_cache): prefill in padded length buckets (the pad slots are
 written to the cache, as the JAX engine writes them), one-token decode
 steps, and a greedy loop that keeps the token on the device. The cache bound `_kv_cap`
-is the JAX engine's. With ``LLAMACOG_MMQ=1`` (read at construction, as
+is the JAX engine's. With batch_size B > 1 each row is a sequence of its
+own (a server slot): a row's prefill runs the forward at B = 1 over the
+row's view of the cache (KVCache.row; the JAX engine's step_row), so one
+prompt costs its own FLOPs; a decode step runs every row and writes the
+active ones only (a [B] mask on the device); the row operations
+(clear_row, set_seq_len, copy_row, shift_row) keep the rows' caches on the
+device. With ``LLAMACOG_MMQ=1`` (read at construction, as
 engine.py:59 reads it) the engine attaches int8 prefill planes to its own
 copy of the params (quant/mmq.py), so prefill chunks of MMQ_MIN_B rows or
 more take the int8 GEMM. Prefill runs eagerly. Decode runs through
@@ -17,6 +23,7 @@ the CPU the same step function runs eagerly into the same buffers.
 
 from __future__ import annotations
 
+import gc
 import os
 from dataclasses import dataclass
 
@@ -27,8 +34,9 @@ from .. import resolve_device
 from ..models.config import ModelConfig
 from ..models.llama import check_supported, forward
 from ..ops.cuda import build
+from ..ops.rope import rope_shift
 from ..quant.mmq import attach_mmq_planes
-from .kv_cache import make_cache
+from .kv_cache import QuantKVCache, make_cache
 
 PREFILL_BUCKETS = (32, 128, 512, 2048)
 # longest single prefill step; longer prompts loop chunks of this size
@@ -57,11 +65,14 @@ def _param_devices(params: dict) -> set:
 class DecodeStep:
     """The T = 1 decode step on static device buffers: the input token
     ``tok`` [B, 1], the cache write offsets ``write_pos`` [B] int32, the
-    in-graph step index ``index`` [B, 1] (the column of ``out`` the step
-    writes), the greedy tokens ``out`` [B, max_steps] and the step's f32
-    logits [B, V]. One step runs forward, takes the argmax, writes it to
-    ``out`` and feeds it back as the next input, and advances ``write_pos``
-    and ``index``: the body of the JAX engine's greedy fori_loop.
+    rows that advance ``active`` [B] bool, the in-graph step index
+    ``index`` [B, 1] (the column of ``out`` the step writes), the greedy
+    tokens ``out`` [B, max_steps] and the step's f32 logits [B, V]. One step
+    runs forward, takes the argmax, writes it to ``out`` and feeds it back
+    as the next input, and advances ``write_pos`` by ``active`` and
+    ``index``: the body of the JAX engine's greedy fori_loop. ``active`` is
+    also the forward's write mask, so a row that does not advance writes
+    nothing to the cache.
 
     On the GPU the step is captured in a CUDA graph once per kv_cap bucket,
     all graphs in one memory pool, and :meth:`run` replays it. Before a
@@ -79,27 +90,31 @@ class DecodeStep:
         i64 = dict(dtype=torch.int64, device=device)
         self.tok = torch.zeros((batch_size, 1), **i64)
         self.write_pos = torch.zeros(batch_size, dtype=torch.int32, device=device)
+        self.active = torch.ones(batch_size, dtype=torch.bool, device=device)
         self.index = torch.zeros((batch_size, 1), **i64)
         self.out = torch.zeros((batch_size, max_steps), **i64)
         self.logits = torch.zeros((batch_size, n_vocab), dtype=torch.float32, device=device)
         self.graphs: dict = {}  # kv_cap -> (CUDA graph, the launches it captured)
         self._pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
 
-    def load(self, tokens, seq_len: np.ndarray) -> None:
-        """The first input tokens [B] and the host lengths; step index 0."""
+    def load(self, tokens, seq_len: np.ndarray, active: np.ndarray) -> None:
+        """The first input tokens [B], the host lengths and the rows that
+        advance [B] bool; step index 0."""
         self.tok.copy_(torch.as_tensor(np.asarray(tokens, np.int64).reshape(-1, 1)))
         self.write_pos.copy_(torch.as_tensor(np.asarray(seq_len, np.int32)))
+        self.active.copy_(torch.as_tensor(np.asarray(active, bool)))
         self.index.zero_()
 
     def step(self, forward_step, kv_cap) -> None:
         """One decode step; forward_step(tokens, write_pos, t, kv_cap=)
         returns the [B, 1, V] f32 logits and writes the cache in place."""
-        logits = forward_step(self.tok, self.write_pos, 1, kv_cap=kv_cap)[:, 0]
+        logits = forward_step(self.tok, self.write_pos, 1, kv_cap=kv_cap,
+                              write_mask=self.active)[:, 0]
         self.logits.copy_(logits)
         nxt = logits.argmax(dim=-1, keepdim=True)
         self.out.scatter_(1, self.index, nxt)
         self.tok.copy_(nxt)
-        self.write_pos += 1
+        self.write_pos += self.active
         self.index += 1
 
     def run_eager(self, forward_step, kv_cap, n: int) -> None:
@@ -119,7 +134,7 @@ class DecodeStep:
         build.add_launches(launches, n)
 
     def _capture(self, forward_step, kv_cap):
-        state = (self.tok, self.write_pos, self.index)
+        state = (self.tok, self.write_pos, self.active, self.index)
         saved = [t.clone() for t in state]
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
@@ -130,9 +145,22 @@ class DecodeStep:
         for t, v in zip(state, saved):
             t.copy_(v)
         graph = torch.cuda.CUDAGraph()
-        with build.capturing_launches() as launches:
-            with torch.cuda.graph(graph, pool=self._pool):
-                self.step(forward_step, kv_cap)
+        # A dead graph (another engine's, held in a reference cycle) freed by
+        # the garbage collector while this stream captures would invalidate
+        # the capture, and a server captures in its own thread: collect
+        # first, hold the collector off during the capture, and let other
+        # threads' CUDA calls leave it alone (thread-local capture mode).
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with build.capturing_launches() as launches:
+                with torch.cuda.graph(graph, pool=self._pool,
+                                      capture_error_mode="thread_local"):
+                    self.step(forward_step, kv_cap)
+        finally:
+            if collecting:
+                gc.enable()
         self.graphs[kv_cap] = (graph, launches)
         return graph, launches
 
@@ -144,8 +172,8 @@ class Engine:
                  max_seq: int = 2048, dtype=torch.bfloat16, kv_type: str = "dense",
                  device=None):
         check_supported(config)
-        if batch_size != 1:
-            raise NotImplementedError("batch_size > 1 is not ported yet")
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         self.device = resolve_device(device)
         stray = {str(d) for d in _param_devices(params) if d.type != self.device.type}
         if stray:
@@ -167,11 +195,14 @@ class Engine:
         return torch.as_tensor(np.asarray(values, np.int32), device=self.device)
 
     def _step(self, tokens: torch.Tensor, write_pos: torch.Tensor, t: int,
-              last_pos=None, kv_cap=None) -> torch.Tensor:
+              last_pos=None, kv_cap=None, write_mask=None, cache=None) -> torch.Tensor:
+        """forward over `cache` (the engine's by default; a row's view for a
+        row prefill), which it updates in place."""
         positions = write_pos[:, None].long() + torch.arange(t, device=self.device)[None, :]
-        logits, self.cache = forward(
-            self.params, self.config, tokens, positions, self.cache, write_pos,
-            dtype=self.dtype, logits_last=last_pos, kv_cap=kv_cap)
+        logits, _ = forward(
+            self.params, self.config, tokens, positions,
+            self.cache if cache is None else cache, write_pos, dtype=self.dtype,
+            logits_last=last_pos, kv_cap=kv_cap, write_mask=write_mask)
         return logits
 
     def _kv_cap(self, needed: int) -> int | None:
@@ -197,38 +228,119 @@ class Engine:
             t = self.max_seq - wp  # exact tail fit, no padding
         return t
 
-    def _prefill_chunk(self, token_ids) -> torch.Tensor:
+    def _prefill_chunk(self, token_ids, row: int) -> torch.Tensor:
+        """One padded prefill step of `row`. At B = 1 the step runs over the
+        whole cache; at B > 1 over the row's view at B = 1 (the JAX engine's
+        step_row, engine.py:152-177), so a prompt never costs B times its
+        FLOPs and the other rows' caches are not touched."""
         n = len(token_ids)
-        t = self._prefill_t_at(n, int(self.seq_len[0]))
-        toks = np.zeros((self.batch_size, t), dtype=np.int64)
-        toks[0, :n] = token_ids
-        logits = self._step(torch.as_tensor(toks, device=self.device),
-                            self._dev_i32(self.seq_len), t, last_pos=[n - 1],
-                            kv_cap=self._kv_cap(int(self.seq_len.max()) + t))
-        self.seq_len = self.seq_len + n
+        wp = int(self.seq_len[row])
+        t = self._prefill_t_at(n, wp)
+        toks = torch.zeros((1, t), dtype=torch.int64)
+        toks[0, :n] = torch.as_tensor(np.asarray(token_ids, np.int64))
+        view = {} if self.batch_size == 1 else {"cache": self.cache.row(row)}
+        logits = self._step(toks.to(self.device), self._dev_i32([wp]), t, last_pos=[n - 1],
+                            kv_cap=self._kv_cap(wp + t), **view)
+        self.seq_len[row] += n
         return logits[0, -1]
 
-    def prefill(self, token_ids: list[int]) -> np.ndarray:
-        """Feed a prompt; returns the f32 logits [V] of its last token.
-        Prompts longer than PREFILL_MAX_CHUNK run as a chunk loop."""
+    def _check_row(self, row: int) -> None:
+        if not 0 <= row < self.batch_size:
+            raise ValueError(f"row {row} out of range for batch_size {self.batch_size}")
+
+    def prefill(self, token_ids: list[int], row: int = 0) -> np.ndarray:
+        """Feed a prompt into one row; returns the f32 logits [V] of its last
+        token. Prompts longer than PREFILL_MAX_CHUNK run as a chunk loop."""
         if not len(token_ids):
             raise ValueError("empty prompt: nothing to prefill")
+        self._check_row(row)
         for off in range(0, len(token_ids), PREFILL_MAX_CHUNK):
-            logits = self._prefill_chunk(token_ids[off : off + PREFILL_MAX_CHUNK])
+            logits = self._prefill_chunk(token_ids[off : off + PREFILL_MAX_CHUNK], row)
         return logits.cpu().numpy()
 
-    def _check_room(self, n: int) -> None:
-        if int(self.seq_len.max()) + n > self.max_seq:
-            raise ValueError(f"context full: {int(self.seq_len.max())}+{n} > {self.max_seq}")
+    def _active(self, active) -> np.ndarray:
+        if active is None:
+            return np.ones(self.batch_size, dtype=bool)
+        act = np.asarray(active, dtype=bool)
+        if act.shape != (self.batch_size,):
+            raise ValueError(f"active must be [{self.batch_size}] bool, got {act.shape}")
+        return act
 
-    def decode_one(self, token_ids) -> np.ndarray:
+    def _check_room(self, n: int, active: np.ndarray) -> int:
+        """The deepest active row's length, once each active row has room
+        for n more tokens."""
+        deepest = int(self.seq_len[active].max()) if active.any() else 0
+        if deepest + n > self.max_seq:
+            raise ValueError(f"context full: {deepest}+{n} > {self.max_seq}")
+        return deepest
+
+    def decode_one(self, token_ids, active=None) -> np.ndarray:
         """One decode step for all rows: token_ids [B] -> logits [B, V]
-        (one replay of the step's graph on the GPU)."""
-        self._check_room(1)
-        self.decoder.load(token_ids, self.seq_len)
-        self.decoder.run(self._step, self._kv_cap(int(self.seq_len.max()) + 1), 1)
-        self.seq_len = self.seq_len + 1
+        (one replay of the step's graph on the GPU). `active` (bool [B])
+        limits which rows advance, as in the JAX engine (engine.py:524-555):
+        a row that is not active keeps its length, and here also writes
+        nothing to the cache (the JAX engine writes its K/V one slot past
+        its valid length, or clamped onto its last slot when the row is
+        full). Its logits are junk. The attended bound follows the active
+        rows."""
+        act = self._active(active)
+        deepest = self._check_room(1, act)
+        self.decoder.load(token_ids, self.seq_len, act)
+        self.decoder.run(self._step, self._kv_cap(deepest + 1), 1)
+        self.seq_len = self.seq_len + act
         return self.decoder.logits.to("cpu", copy=True).numpy()
+
+    def clear_row(self, row: int) -> None:
+        """Empty a row (its cache slots are overwritten as it refills)."""
+        self._check_row(row)
+        self.seq_len[row] = 0
+
+    def set_seq_len(self, row: int, n: int) -> None:
+        """Truncate a row's valid length (prefix-cache reuse)."""
+        self._check_row(row)
+        if not 0 <= n <= self.max_seq:
+            raise ValueError(f"seq_len {n} out of range for max_seq {self.max_seq}")
+        self.seq_len[row] = n
+
+    def copy_row(self, src: int, dst: int) -> None:
+        """llama_memory_seq_cp: row dst takes row src's cache (copied on
+        the device) and length."""
+        self._check_row(src)
+        self._check_row(dst)
+        if src == dst:
+            return
+        self.cache.copy_row(src, dst)
+        self.seq_len[dst] = self.seq_len[src]
+
+    def shift_row(self, row: int, n_keep: int, n_discard: int) -> None:
+        """Context shift (engine.py:604-653): drop tokens [n_keep,
+        n_keep + n_discard) of a row and slide the rest down, re-rotating
+        the moved K by -n_discard. One gather and one delta-rope over the
+        whole row on the device: positions below n_keep map to themselves
+        with delta 0. A quantized cache is dequantized to f32, rotated and
+        quantized again, as the JAX engine's shift_fn does."""
+        self._check_row(row)
+        s = int(self.seq_len[row])
+        if n_discard <= 0 or s - (n_keep + n_discard) < 0:
+            return
+        c, S, dev = self.cache, self.max_seq, self.device
+        idx = torch.arange(S, device=dev)
+        keep = idx < n_keep
+        src = torch.where(keep, idx, idx + n_discard).clamp_(0, S - 1)
+        delta = torch.where(keep, 0, -n_discard).to(torch.int32)
+        quant = isinstance(c, QuantKVCache)
+        if quant:
+            k = c.dequant_k(tuple(p[:, row] for p in c.k_planes), torch.float32)
+            v = c.dequant_v(tuple(p[:, row] for p in c.v_planes), torch.float32)
+        else:
+            k, v = c.k[:, row], c.v[:, row]  # [L, S, Hkv, D]
+        k = rope_shift(k.index_select(1, src), delta, self.config.rope,
+                       self.params.get("rope_freqs"))
+        v = v.index_select(1, src)
+        news = (c.quant_k(k) + c.quant_v(v)) if quant else (k, v)
+        for plane, new in zip(c.planes(), news):
+            plane[:, row].copy_(new)
+        self.seq_len[row] = s - n_discard
 
     def decode_greedy_tokens(self, first_tokens, n: int) -> np.ndarray:
         """Run n greedy decode steps; returns [B, n] int32 tokens. The token
@@ -244,17 +356,21 @@ class Engine:
         return self._greedy(first_tokens, n, self.decoder.run_eager)
 
     def _greedy(self, first_tokens, n: int, run) -> np.ndarray:
-        self._check_room(n)
-        self.decoder.load(first_tokens, self.seq_len)
-        run(self._step, self._kv_cap(int(self.seq_len.max()) + n + 1), n)
+        """n greedy steps of every row (the JAX engine's greedy loop runs
+        all rows)."""
+        act = self._active(None)
+        deepest = self._check_room(n, act)
+        self.decoder.load(first_tokens, self.seq_len, act)
+        run(self._step, self._kv_cap(deepest + n + 1), n)
         self.seq_len = self.seq_len + n
         return self.decoder.out[:, :n].cpu().numpy().astype(np.int32)
 
     def generate_greedy(self, prompt_tokens: list[int], max_new_tokens: int,
                         eog_ids=()) -> GenerationResult:
-        """Prefill, then greedy tokens up to max_new_tokens or an EOG id
-        (engine.py:654-683): one decode_greedy_tokens loop, or decode_one
-        steps for max_new_tokens <= 1, as there."""
+        """Prefill row 0, then greedy tokens up to max_new_tokens or an EOG
+        id (engine.py:654-683): one decode_greedy_tokens loop of every row,
+        row 0's tokens returned, or decode_one steps for max_new_tokens <= 1,
+        as there."""
         logits = self.prefill(prompt_tokens)
         out = []
         tok = int(np.argmax(logits))

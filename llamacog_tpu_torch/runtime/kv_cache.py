@@ -4,7 +4,7 @@ Counterpart of llamacog_tpu/runtime/kv_cache.py (KVCache, the per-kind
 plane codecs, QuantKVCache, Q4KVCache, parse_kv_kinds, make_cache). The
 JAX version returns a new cache from every write; these are updated in
 place (the deferred bulk write of a step lands with one index_copy_ per
-plane and row), which saves the cache-sized copies a functional update
+plane), which saves the cache-sized copies a functional update
 would cost.
 
 The quantized planes keep the JAX package's layout exactly, so the codecs
@@ -58,25 +58,55 @@ class KVCache:
         """(k, v) [B, S, Hkv, D] views of one layer (old contents only)."""
         return self.k[layer], self.v[layer]
 
+    def planes(self) -> tuple:
+        """Every store of the cache, each [L, B, S, ...]."""
+        return (self.k, self.v)
+
+    def row(self, r: int) -> "KVCache":
+        """A cache over the [L, 1, S, ...] views of row r: a write to it
+        lands in this cache in place."""
+        return KVCache(self.k[:, r:r + 1], self.v[:, r:r + 1])
+
+    def copy_row(self, src: int, dst: int) -> None:
+        """Row dst's K/V become row src's, on the device."""
+        for p in self.planes():
+            p[:, dst].copy_(p[:, src])
+
     def write_all(self, k_new: torch.Tensor, v_new: torch.Tensor,
-                  write_pos: torch.Tensor) -> "KVCache":
+                  write_pos: torch.Tensor, active: torch.Tensor | None = None) -> "KVCache":
         """Deferred bulk write of a step, in place: [L, B, T, Hkv, D] for all
         layers at per-row offsets write_pos [B] (a device tensor, so the
-        decode loop needs no host sync). The caller keeps
-        write_pos + T <= max_seq."""
-        _write_planes((self.k, self.v), (k_new, v_new), write_pos)
+        decode loop needs no host sync). `active` [B] bool (on the device)
+        gates the rows: a row that is not active writes nothing. The caller
+        keeps write_pos + T <= max_seq for the rows it writes."""
+        _write_planes((self.k, self.v), (k_new, v_new), write_pos, active)
         return self
 
 
-def _write_planes(stores, news, write_pos: torch.Tensor) -> None:
+def _write_planes(stores, news, write_pos: torch.Tensor,
+                  active: torch.Tensor | None = None) -> None:
     """Land each [L, B, T, ...] block in its [L, B, S, ...] store at the
-    per-row offsets write_pos [B], in place."""
+    per-row offsets write_pos [B], in place: one index_copy_ a store over
+    the rows' slots, with no host read (the decode graph captures it). With
+    `active` [B] bool each row's write is gated: the slots, clamped into
+    [0, S), are read first and a row that is not active gets its own old
+    values back. The clamp keeps an idle row's index in range where
+    write_pos + t >= S (an idle row may sit at seq_len == max_seq;
+    index_copy_ asserts on an index out of range), and the duplicate slots
+    it makes there all carry the same old value."""
+    L, B, S = stores[0].shape[:3]
     T = news[0].shape[2]
-    steps = torch.arange(T, device=write_pos.device)
-    for b in range(news[0].shape[1]):
-        idx = write_pos[b].long() + steps
-        for store, new in zip(stores, news):
-            store[:, b].index_copy_(1, idx, new[:, b].to(store.dtype))
+    slot = write_pos.long()[:, None] + torch.arange(T, device=write_pos.device)  # [B, T]
+    if active is not None:
+        slot = slot.clamp_(0, S - 1)
+    flat = (torch.arange(B, device=slot.device)[:, None] * S + slot).reshape(B * T)
+    for store, new in zip(stores, news):
+        rows = store.view(L, B * S, -1)
+        val = new.reshape(L, B, T, -1).to(store.dtype)
+        if active is not None:
+            old = rows.index_select(1, flat).view(L, B, T, -1)
+            val = torch.where(active.reshape(1, B, 1, 1), val, old)
+        rows.index_copy_(1, flat, val.reshape(L, B * T, -1))
 
 
 # ---------------------------------------------------------------------------
@@ -268,14 +298,32 @@ class QuantKVCache:
         return (self.dequant_k(tuple(p[layer] for p in self.k_planes), dtype),
                 self.dequant_v(tuple(p[layer] for p in self.v_planes), dtype))
 
+    def planes(self) -> tuple:
+        """Every plane of the cache, K's then V's, each [L, B, S, ...]."""
+        return self.k_planes + self.v_planes
+
+    def row(self, r: int) -> "QuantKVCache":
+        """A cache over the [L, 1, S, ...] views of row r's planes: a write to
+        it lands in this cache in place. One layer of the view is contiguous,
+        so the attention kernels read it as they read a one-row cache."""
+        return type(self)(tuple(p[:, r:r + 1] for p in self.k_planes),
+                          tuple(p[:, r:r + 1] for p in self.v_planes), self.kinds, self.hkv)
+
+    def copy_row(self, src: int, dst: int) -> None:
+        """Row dst's planes become row src's, on the device."""
+        for p in self.planes():
+            p[:, dst].copy_(p[:, src])
+
     def write_all(self, k_new: torch.Tensor, v_new: torch.Tensor,
-                  write_pos: torch.Tensor) -> "QuantKVCache":
+                  write_pos: torch.Tensor,
+                  active: torch.Tensor | None = None) -> "QuantKVCache":
         """Deferred bulk write of a step, in place: the whole [L, B, T, Hkv, D]
         block is quantized at once (never per layer: each small torch op
         costs host time every token), then each plane lands with
-        index_copy_ at write_pos [B]."""
+        index_copy_ at write_pos [B]; `active` gates the rows as in
+        KVCache.write_all."""
         news = self.quant_k(k_new) + self.quant_v(v_new)
-        _write_planes(self.k_planes + self.v_planes, news, write_pos)
+        _write_planes(self.planes(), news, write_pos, active)
         return self
 
 

@@ -3,15 +3,16 @@
 Usage:
     python -m llamacog_tpu_torch.tools.cli -m model.gguf -p "..." -n 64 \
         [--temp 0.8 --top-k 40 --top-p 0.95 --min-p 0.05 --seed -1 | --greedy] \
-        [-ctk q8_0 [-ctv q4_0]]
+        [-ctk q8_0 [-ctv q4_0]] [--keep N]
 
 Counterpart of llamacog_tpu/tools/cli.py's plain generation path, with its
 sampling flags and defaults: each token is drawn by the sampler chain from
 the logits of one decode step (Engine.decode_one, a replay of the step's
-CUDA graph on the GPU); --greedy is temperature 0. Chat, grammars,
-speculative decoding, context shift and session state stay in the JAX CLI
-for now: generation stops when the context (--ctx-size) is full. Runs on
-the GPU unless --device cpu is given.
+CUDA graph on the GPU); --greedy is temperature 0. When the context
+(--ctx-size) is full, half of the tokens past the first --keep are dropped
+and generation goes on (Engine.shift_row, as the JAX CLI does). Chat,
+grammars, speculative decoding and session state stay in the JAX CLI for
+now. Runs on the GPU unless --device cpu is given.
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-p", "--prompt", default="", help="prompt text")
     p.add_argument("-n", "--n-predict", type=int, default=64, help="tokens to generate")
     p.add_argument("-c", "--ctx-size", type=int, default=2048)
+    p.add_argument("--keep", type=int, default=0,
+                   help="tokens kept from the initial prompt on context shift")
     p.add_argument("--temp", type=float, default=0.8)
     p.add_argument("--top-k", type=int, default=40)
     p.add_argument("--top-p", type=float, default=0.95)
@@ -89,6 +92,7 @@ def main(argv=None) -> int:
     logits = engine.prefill(ids)
     t_prefill = time.time() - t1
     t2 = time.time()
+    n_gen = 0
     tok = sampler.sample(logits)
     for _ in range(args.n_predict if args.n_predict >= 0 else 1 << 30):
         sampler.accept(tok)
@@ -97,11 +101,14 @@ def main(argv=None) -> int:
         sys.stdout.write(vocab.token_to_piece(tok).decode("utf-8", errors="replace"))
         sys.stdout.flush()
         if int(engine.seq_len[0]) + 1 >= args.ctx_size:
-            break
+            # context shift: drop the oldest half beyond --keep
+            # (tools/main/main.cpp; the engine re-rotates the moved K)
+            engine.shift_row(0, args.keep, (int(engine.seq_len[0]) - args.keep) // 2)
         tok = sampler.sample(engine.decode_one([tok])[0])
+        n_gen += 1
     t_gen = time.time() - t2
     sys.stdout.write("\n")
-    print(f"[perf] prompt: {len(ids)} tok in {t_prefill:.3f}s | decode: {int(engine.seq_len[0]) - len(ids)} tok "
+    print(f"[perf] prompt: {len(ids)} tok in {t_prefill:.3f}s | decode: {n_gen} tok "
           f"in {t_gen:.3f}s | load {t_load:.2f}s", file=sys.stderr)
     return 0
 

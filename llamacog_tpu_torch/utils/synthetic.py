@@ -247,3 +247,26 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
             layer["ffn_down"] = random_wire(lk["ffn_down"], E, F, g, dev)
         params["layers"].append(layer)
     return params
+
+
+def synthetic_vocab(n_vocab: int = 128256):
+    """An SPM vocab of Llama-3's size and special ids for a synthetic model
+    served without a tokenizer file (requests send token ids): ids 0-255 are
+    the byte tokens <0x00>..<0xFF>, 256-127999 the plain tokens "<tN>" (no
+    piece is part of another, so a piece makes an unambiguous stop string),
+    128000 <|begin_of_text|> (BOS), 128001 <|end_of_text|> (EOS), 128009
+    <|eot_id|> (EOT: end of generation with EOS) and the rest reserved
+    control tokens, as in Llama-3's vocab. The JSON grammars match the byte
+    tokens only."""
+    from ..tokenizer import Vocab
+
+    names = {128000: "<|begin_of_text|>", 128001: "<|end_of_text|>", 128009: "<|eot_id|>"}
+    tokens = [f"<0x{i:02X}>" for i in range(256)]
+    tokens += [f"<t{i}>" for i in range(256, 128000)]
+    tokens += [names.get(i, f"<|reserved_special_token_{i - 128000}|>")
+               for i in range(128000, n_vocab)]
+    types = [6] * 256 + [1] * (128000 - 256) + [3] * (n_vocab - 128000)
+    return Vocab.from_metadata({
+        "tokenizer.ggml.model": "llama", "tokenizer.ggml.tokens": tokens,
+        "tokenizer.ggml.token_type": types, "tokenizer.ggml.bos_token_id": 128000,
+        "tokenizer.ggml.eos_token_id": 128001, "tokenizer.ggml.eot_token_id": 128009})

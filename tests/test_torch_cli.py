@@ -51,8 +51,9 @@ def test_sampling_flags_default_to_the_jax_clis():
 
 
 def test_cli_stops_when_the_context_is_full(tiny, capsys):
-    """-c 24 and -n 64: the tokens generated fill the context and stop
-    there (the last one is never fed back: the context has no slot left)."""
+    """-c 24 and -n 64: the context fills and the CLI shifts it (drops half
+    of the tokens past --keep) instead of stopping, so it generates all 64
+    tokens, more than the context holds."""
     from llamacog_tpu_torch.tools import cli
 
     args = ["-m", tiny, "-p", "hello world", "-n", "64", "--dtype", "f32", "-c", "24",
@@ -61,4 +62,17 @@ def test_cli_stops_when_the_context_is_full(tiny, capsys):
     err = capsys.readouterr().err
     n_prompt = int(err.split("prompt: ")[1].split(" tok")[0])
     n_decode = int(err.split("decode: ")[1].split(" tok")[0])
-    assert n_prompt < 24 - 1 and n_prompt + n_decode == 24 - 1
+    assert n_prompt < 24 - 1 and n_prompt + n_decode > 24
+
+
+@pytest.mark.parametrize("flags", [["--greedy"], ["--seed", "7"], ["--greedy", "--keep", "4"]])
+def test_generation_past_the_context_prints_the_jax_clis_text(tiny, flags, capsys):
+    """Past --ctx-size both CLIs shift the context the same way (the engine's
+    shift_row: a gather and a re-rope of the moved keys) and print the same
+    text."""
+    args = ["-m", tiny, "-p", "hello world", "-n", "60", "--dtype", "f32", "-c", "24",
+            "--device", "cpu", *flags]
+    want = _printed(jax_main, args, capsys)
+    got = _printed(port_main, args, capsys)
+    assert len(got) > len("hello world\n")
+    assert got == want

@@ -153,9 +153,9 @@ def test_crossing_a_kv_cap_bucket_matches_the_per_step_forward_loop(ggufs):
     caps = []
     step = eng._step
 
-    def recording_step(tokens, write_pos, t, last_pos=None, kv_cap=None):
+    def recording_step(tokens, write_pos, t, last_pos=None, kv_cap=None, **kw):
         caps.append(kv_cap)
-        return step(tokens, write_pos, t, last_pos=last_pos, kv_cap=kv_cap)
+        return step(tokens, write_pos, t, last_pos=last_pos, kv_cap=kv_cap, **kw)
     eng._step = recording_step
 
     def ref_steps(tok, n, kv_cap):

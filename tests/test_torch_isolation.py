@@ -19,21 +19,27 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
-             or m == "llamacog_tpu" or m.startswith("llamacog_tpu."))
+             or m == "llamacog_tpu" or m.startswith("llamacog_tpu.")
+             or m == "regex")
 missing = sorted(set(REQUIRED) - set(names))
 print(len(names), missing, bad, sep="|")
 """
 # modules that must be among those imported (the walk finds every module;
 # these are the ones whose absence would leave a rule untested)
 _REQUIRED = ("llamacog_tpu_torch.runtime.engine", "llamacog_tpu_torch.runtime.sampler",
-             "llamacog_tpu_torch.tools.cli", "llamacog_tpu_torch.quant.iq_tables")
+             "llamacog_tpu_torch.tools.cli", "llamacog_tpu_torch.quant.iq_tables",
+             "llamacog_tpu_torch.tokenizer.bpe", "llamacog_tpu_torch.runtime.chat",
+             "llamacog_tpu_torch.runtime.grammar", "llamacog_tpu_torch.runtime.json_schema",
+             "llamacog_tpu_torch.runtime.partial", "llamacog_tpu_torch.server.server",
+             "llamacog_tpu_torch.server.__main__", "llamacog_tpu_torch.server.webui")
 
 
 def test_port_imports_no_jax_and_no_jax_package():
     """In a fresh interpreter (this test process has JAX loaded already),
     importing every module of the port pulls in no `jax` and no module
     named `llamacog_tpu` or `llamacog_tpu.*` — exact names, since the port's
-    own name starts with the same string."""
+    own name starts with the same string — and no `regex` (the GPU host has
+    none: the BPE tokenizer imports it where it is built)."""
     script = f"REQUIRED = {_REQUIRED!r}\n" + _IMPORT_ALL
     res = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=300)

@@ -175,9 +175,16 @@ def test_from_reference_matches_jax_loader(q4km_path):
 
 
 def test_engine_raises_on_unported_options(q4km_path):
+    """An architecture the port does not carry raises; batch_size > 1 is
+    ported (tests/test_torch_engine_batch.py), a batch of none is refused."""
+    import dataclasses
+
     m = load_model(q4km_path, dtype=torch.float32, device="cpu", with_tokenizer=False)
-    with pytest.raises(NotImplementedError):
-        Engine(m.params, m.config, batch_size=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        Engine(m.params, dataclasses.replace(m.config, arch="mamba"), device="cpu")
+    assert Engine(m.params, m.config, batch_size=2, device="cpu").batch_size == 2
+    with pytest.raises(ValueError, match="batch_size"):
+        Engine(m.params, m.config, batch_size=0, device="cpu")
     with pytest.raises(ValueError, match="unknown kv cache type"):
         Engine(m.params, m.config, kv_type="q9_0", device="cpu")
 
