@@ -44,7 +44,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      also through the offset entry); and the shapes of a 4-slot serving
      step: qmv at 4 rows on the 8B weights, K4 and K6 (q8_0) over 4 rows
      at depths 0, 100, 1000 and 2047, K5 and K7 on a one-row view of a
-     4-row cache;
+     4-row cache; and the Qwen and Gemma families' shapes: qmv (1 and 4
+     rows) and qgemm on Qwen2.5-0.5B's padded Q5_0 and Q8_0 weights (K =
+     896, rows padded with zero blocks to 1024), K10 and K11 on a padded
+     expert stack (Qwen1.5-MoE-A2.7B's ffn_down_exps, 60 x 2048 x 1408, in
+     Q5_0 and Q8_0), the families' projections (Qwen2.5-7B's
+     biased attn_q alone, Qwen3's q + k + v launch, Gemma-3-12B's gate_up
+     and tied Q6_K head), K4 and K5 at Gemma's heads (16 over 8, D 256,
+     softcap 50, window 4096), Qwen2.5's (28 over 4) and the 0.5B's (14
+     over 2, D 64), K6 and K7 over q8_0 planes at Gemma's, and K10 and
+     K11 at Qwen3-30B-A3B's experts (128, top 8: 8 and 32 rows, 128- and
+     512-token prefills);
   4. the full-width kernel path (8B widths, 2 layers) against the plain
      path (the same params on the CPU): prefill logits, 4 teacher-forced
      decode steps (Engine.decode_one: replays of the step's CUDA graph on
@@ -64,7 +74,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      and q8_0; Mixtral widths, dense): row prefills of 20, 9 and 33 tokens,
      decode steps with inactive rows, a shift_row, each row of the bf16
      model held against single-stream engines on the card, and the kernel
-     path against the plain path (the 8B as an f32 model);
+     path against the plain path (the 8B as an f32 model); then each of
+     the six new families at 2 layers of its config's widths: Qwen2.5-7B,
+     Qwen2.5-0.5B, Qwen3-8B, Qwen3-30B-A3B,
+     Qwen2-57B-A14B, Gemma-2-9B (max_seq 8192: the ring; and q8_0) and
+     Gemma-3 at Gemma-3-4B's widths and 6 layers (one global), an
+     1100-token prompt past its 1024-token window at max_seq 1280 (the ring
+     wraps; the decode steps and the second chunk read it);
   5. whether stream capture keeps the split-S combine's programmatic
      dependent launch (K4 and K6 captured alone: the graph's edges by
      type, the replay against the eager call), then the 8B Q4_K_M
@@ -102,7 +118,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      requests at once from --seed: greedy held against single-stream
      engines, seeded sent twice, a JSON schema, a streamed stop string;
      then one request past a 512-token context on one slot, dense and
-     q8_0; every decode step a graph replay); the phase's wall time;
+     q8_0; every decode step a graph replay); then the Qwen and Gemma
+     families in Q4_K_M through the graph, 64 greedy tokens: Qwen2.5-7B,
+     Qwen3-30B-A3B (and a 512-token prompt, 16 tokens), Gemma-3-12B (a
+     1536-token prompt in two chunks at max_seq 2048: the ring wraps) and
+     Qwen2.5-0.5B at full depth, Qwen3-8B, Gemma-2-9B
+     (max_seq 8192: the ring, the full store with kv bf16, and q8_0) and
+     Qwen2-57B-A14B at 4 layers, and a Gemma-3-12B serving run (4 slots,
+     ctx 4096: the ring; 5 greedy requests, three sharing a 512-token
+     prefix: a ring slot is prefilled anew, never truncated); the phase's
+     wall time;
   6. each phase's seconds, one JSON line of per-kernel results, the card's
      name and power limit, and the final {"ok": true, ...} line.
 
@@ -260,8 +285,10 @@ def main() -> int:
         QuantKVCache, kv_dequant_planes, kv_plane_shapes)
     from llamacog_tpu_torch.runtime.sampler import SamplerChain, SamplerParams
     from llamacog_tpu_torch.utils.synthetic import (
-        CODEBOOK_PRESETS, DEFAULT_LAYOUT, llama3_70b_config, llama3_8b_config,
-        make_synthetic_params, mixtral_8x7b_config, random_experts, random_wire)
+        CODEBOOK_PRESETS, DEFAULT_LAYOUT, gemma2_9b_config, gemma3_4b_config, gemma3_12b_config,
+        llama3_70b_config, llama3_8b_config, make_synthetic_params, mixtral_8x7b_config,
+        qwen2_5_0_5b_config, qwen2_5_7b_config, qwen2_57b_a14b_config, qwen3_8b_config,
+        qwen3_30b_a3b_config, random_experts, random_wire)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -445,22 +472,23 @@ def main() -> int:
               ("attn_output Q5_K 4096x4096", [w_o5], False),
               ("Mixtral attn_q+attn_k+attn_v Q4_K 4096x4096 + Q8_0 1024x4096 x2",
                [w_q4, w_k8, w_v8], True)]
-    def weight_parity(kname, fn, B, label, ws, multi, run):
+    def weight_parity(kname, fn, B, label, ws, multi, run, listed=True):
         """qmv or qgemm at B rows of x over the weights ws (one launch),
-        held against qmm_plain; the launches read from the phase-5 run `run`."""
+        held against qmm_plain; the launches read from the phase-5 run `run`
+        (with listed False, checked and logged only: no phase-5 run)."""
         K = ws[0].shape[1]
         x = torch.randn(B, K, generator=g, device=dev).to(torch.bfloat16)
         outs = fn(x, ws)
         refs = [qmm_plain(x, w) for w in ws]
         torch.cuda.synchronize()
-        nbytes = sum(w.nbytes for w in ws) + x.numel() * 2 + sum(o.numel() * 4 for o in outs)
+        nbytes = sum(wire_need(w) for w in ws) + x.numel() * 2 + sum(o.numel() * 4 for o in outs)
         flops = sum(2 * B * w.shape[0] * w.shape[1] for w in ws)
         record(f"{kname} B={B} {label}", qmm_src.format(kname),
                multi_rep if multi else qmm_rep[kname],
                outs, refs, TOL_QMM,
                time_ms(lambda: fn(x, ws)), time_ms(lambda: [qmm_plain(x, w) for w in ws],
                                                   iters=5),
-               nbytes, flops, run=run)
+               nbytes, flops, run=run, listed=listed)
 
     # qgemm at the 128-token prompt and at a 512-row prefill chunk (the route
     # K13 replaces with LLAMACOG_MMQ=1)
@@ -794,47 +822,6 @@ def main() -> int:
                2 * (qs1.numel() + 2 * n * Hkv * Dh + kcs1.numel() + vcs1.numel() + T * H * Dh),
                4 * H * keys * Dh, counter="flash_prefill_simt", listed=False)
         del kv_flat, ks1, vs1, qs1, kcs1, vcs1, args
-    # K4 and K5 at Llama-3-70B's heads (64 query heads over 8 kv heads: 8 a
-    # kv head, where the 8B has 4), read in the 70B run of phase 5: decode at
-    # depth 1000, the 128-token prompt's prefill at offset 0
-    H70 = llama3_70b_config().n_head
-    q70, kc70, vc70 = rnd(1, H70, D), rnd(1, Hkv, D), rnd(1, Hkv, D)
-    ks70, vs70 = rnd(2, 1, S, Hkv, D), rnd(2, 1, S, Hkv, D)
-    n = 1000
-    seq = torch.tensor([n], dtype=torch.int32, device=dev)
-    args = (q70, ks70, vs70, 1, kc70, vc70, seq, scale)
-    out = flash_decode_stacked_dense(*args)
-    ref = flash_decode_stacked_dense_plain(*args)
-    qf70 = q70[:, :, None]
-    kf = torch.cat([ks70[1, :, :n], kc70[:, None]], 1).transpose(1, 2).contiguous()
-    vf = torch.cat([vs70[1, :, :n], vc70[:, None]], 1).transpose(1, 2).contiguous()
-    torch.cuda.synchronize()
-    record(f"flash_decode_dense H={H70} Hkv={Hkv} D={D} S={S} seq_len={n}",
-           "llamacog_tpu_torch/csrc/flash_decode_dense.cu",
-           "llamacog_tpu/ops/pallas/flash_q8.py:968", [out], [ref], TOL_ATTN,
-           time_ms(lambda: flash_decode_stacked_dense(*args)),
-           time_ms(lambda: flash_decode_stacked_dense_plain(*args), iters=5),
-           2 * (q70.numel() + 2 * n * Hkv * D + kc70.numel() + vc70.numel() + H70 * D),
-           4 * H70 * (n + 1) * D,
-           time_ms(lambda: sdpa(qf70, kf, vf, scale=scale, enable_gqa=True)), run="70b IQ2_XXS")
-    qp70, kcp70, vcp70 = rnd(1, T, H70, D), rnd(1, T, Hkv, D), rnd(1, T, Hkv, D)
-    seq = torch.tensor([0], dtype=torch.int32, device=dev)
-    args = (qp70, kl, vl, kcp70, vcp70, seq, scale)
-    out = flash_prefill_kernel(*args)
-    ref = flash_prefill_attention_plain(*args)
-    allowed = torch.arange(T, device=dev)[None, :] <= torch.arange(T, device=dev)[:, None]
-    qs70, kf, vf = (t.transpose(1, 2) for t in (qp70, kcp70, vcp70))
-    torch.cuda.synchronize()
-    record(f"flash_prefill T={T} H={H70} Hkv={Hkv} D={D} S={S} seq_len=0",
-           "llamacog_tpu_torch/csrc/flash_prefill.cu",
-           "llamacog_tpu/ops/pallas/flash_prefill.py:129", [out], [ref], TOL_ATTN,
-           time_ms(lambda: flash_prefill_kernel(*args)),
-           time_ms(lambda: flash_prefill_attention_plain(*args), iters=5),
-           2 * (qp70.numel() + kcp70.numel() + vcp70.numel() + T * H70 * D),
-           4 * H70 * (T * (T + 1) // 2) * D,
-           time_ms(lambda: sdpa(qs70, kf, vf, attn_mask=allowed, scale=scale, enable_gqa=True)),
-           run="70b IQ2_XXS")
-    del q70, kc70, vc70, ks70, vs70, qf70, kf, vf, qp70, kcp70, vcp70, qs70, args
     qp, kcp, vcp = blocks[T]
     del kl, vl, blocks, shapes, ws, x, xq, xs, i8_shapes, w, w_qk, w_v, w_o, w_gu, w_d4, w_d6, \
         w_head, w_q4, w_k8, w_v8, w_o5
@@ -1172,6 +1159,240 @@ def main() -> int:
     del moe_gu, moe_d6, moe_layer, x, out
     torch.cuda.empty_cache()
 
+    # the Qwen and Gemma families' shapes, each read in its phase-5 run:
+    # K1/K2 on Qwen2.5-0.5B's padded Q5_0 and Q8_0 rows (K = 896: qmv reads
+    # x below K, qgemm takes x padded), K1/K3 at the families' projections,
+    # K4/K5 at their heads (Gemma 16 over 8 at D 256 with softcap 50 and
+    # window 4096, Qwen2.5 28 over 4, the 0.5B 14 over 2 at D 64), K6/K7 at
+    # D 256, K10/K11 at Qwen3-30B-A3B's experts
+    fam_ws = {
+        "qwen2.5-0.5b": [("attn_qkv Q5_0 1152x896 (padded to 1024)", ["Q5_0"], [1152], 896),
+                         ("attn_v Q8_0 128x896 (padded)", ["Q8_0"], [128], 896),
+                         ("ffn_gate_up Q5_0 9728x896 (padded)", ["Q5_0"], [9728], 896),
+                         ("output (tied token_embd) Q8_0 151936x896 (padded)", ["Q8_0"],
+                          [151936], 896)],
+        "qwen2.5-7b": [("attn_q Q4_K 3584x3584 (biased: its own launch)", ["Q4_K"], [3584],
+                        3584),
+                       ("ffn_gate_up Q4_K 37888x3584", ["Q4_K"], [37888], 3584)],
+        "qwen3-8b": [("attn_q+attn_k+attn_v Q4_K 4096x4096 + Q4_K 1024x4096 + Q6_K 1024x4096",
+                      ["Q4_K", "Q4_K", "Q6_K"], [4096, 1024, 1024], 4096)],
+        "qwen3-30b-a3b": [("attn_q+attn_k+attn_v Q4_K 4096x2048 + Q4_K 512x2048 + Q6_K "
+                           "512x2048", ["Q4_K", "Q4_K", "Q6_K"], [4096, 512, 512], 2048)],
+        "gemma3-12b": [("ffn_gate_up Q4_K 30720x3840", ["Q4_K"], [30720], 3840),
+                       ("output (tied token_embd) Q6_K 262208x3840", ["Q6_K"], [262208],
+                        3840)],
+    }
+    for run, items in fam_ws.items():
+        for label, kinds, rows, Kw in items:
+            ws = [random_wire(kd, n, Kw, g, dev) for kd, n in zip(kinds, rows)]
+            for kname, fn, B in (("qmv", qmv, 1), ("qgemm", qgemm, PROMPT_LEN)):
+                if kname == "qgemm" and label.startswith("output"):
+                    continue  # the LM head runs on the last position only
+                weight_parity(kname, fn, B, f"{run} {label}", ws, len(ws) > 1, run)
+            if run == "qwen2.5-0.5b":
+                # 4 rows, a 4-slot server's decode step: the K tail of the
+                # walk where a lane holds several rows of x (no phase-5 run)
+                weight_parity("qmv", qmv, 4, f"{run} {label}", ws, False, run, listed=False)
+            del ws
+        torch.cuda.empty_cache()
+    # a padded expert stack: Qwen1.5-MoE-A2.7B's ffn_down_exps (60 experts
+    # of 2048x1408, top 4) in the fallback kinds of Q4_K and Q6_K (Q5_0,
+    # Q8_0): K10 at 4 and 32 rows, K11 over a 128-token prefill's 512 rows
+    # (checked and logged: no phase-5 run holds such a stack)
+    for kd in ("Q5_0", "Q8_0"):
+        w = random_experts(kd, 60, 2048, 1408, g, dev)
+        for tokens in (1, 8, PROMPT_LEN):
+            ids = torch.topk(torch.randn(tokens, 60, generator=g, device=dev), 4,
+                             dim=-1).indices.reshape(-1).to(torch.int32)
+            need = wire_need(w) // 60 * len(set(ids.tolist()))
+            flops = 2 * ids.shape[0] * 2048 * 1408
+            if tokens < PROMPT_LEN:
+                x = torch.randn(ids.shape[0], 1408, generator=g, device=dev).to(torch.bfloat16)
+                out, ref = qmm_gather(x, ids, w), qmm_gather_plain(x, ids, w)
+                torch.cuda.synchronize()
+                record(f"qmv_id gather ffn_down_exps {kd} 60x2048x1408 (padded) "
+                       f"S={ids.shape[0]}", qmm_src.format("qmv_id"), qid_rep.format(115),
+                       [out], [ref], TOL_QMM, time_ms(lambda: qmm_gather(x, ids, w)),
+                       time_ms(lambda: qmm_gather_plain(x, ids, w), iters=5),
+                       need + x.numel() * 2 + out.numel() * 4, flops, listed=False)
+                continue
+            dest, tile_expert, s_pad = moe_sort(ids, 60, RAGGED_TILE)
+            rows = torch.randn(ids.shape[0], 1408, generator=g, device=dev).to(torch.bfloat16)
+            xs = torch.zeros(s_pad, 1408, dtype=torch.bfloat16, device=dev).index_copy_(
+                0, dest, rows)
+            out = qmm_ragged(xs, tile_expert, w, RAGGED_TILE)
+            ref = qmm_ragged_plain(xs, tile_expert, w, RAGGED_TILE)
+            torch.cuda.synchronize()
+            record(f"qgemm_id ragged ffn_down_exps {kd} 60x2048x1408 (padded) tokens={tokens} "
+                   f"rows={ids.shape[0]} s_pad={s_pad}", qmm_src.format("qgemm_id"),
+                   qid_rep.format(188), [out], [ref], TOL_QMM,
+                   time_ms(lambda: qmm_ragged(xs, tile_expert, w, RAGGED_TILE)),
+                   time_ms(lambda: qmm_ragged_plain(xs, tile_expert, w, RAGGED_TILE), iters=5),
+                   need + ids.shape[0] * (1408 * 2 + 2048 * 4), flops, listed=False)
+        del w, out, ref
+    torch.cuda.empty_cache()
+
+    def fam_attention(run, H_, Hkv_, D_, softcap, window, quant_run=None):
+        """K4 at depth 1000 (and, with a window, 5000 of 8192, where the
+        window bites) and K5 over a 128-token prompt at offset 0 at these
+        heads, with SDPA beside them where there is no softcap (SDPA has
+        none); with quant_run, K6 and K7 over q8_0 planes of the same
+        heads, K7 from offsets 0 and 896."""
+        sc = D_ ** -0.5
+        kw = dict(softcap=softcap, window=window)
+        shape = f"H={H_} Hkv={Hkv_} D={D_}" + (f" softcap={softcap:g}" if softcap else "") + (
+            f" window={window}" if window else "")
+        q1, kc1, vc1 = rnd(1, H_, D_), rnd(1, Hkv_, D_), rnd(1, Hkv_, D_)
+        for S_dec, n in ((1024, 1000), *([(8192, 5000)] if window else [])):
+            ks, vs = rnd(2, 1, S_dec, Hkv_, D_), rnd(2, 1, S_dec, Hkv_, D_)
+            seq = torch.tensor([n], dtype=torch.int32, device=dev)
+            args = (q1, ks, vs, 1, kc1, vc1, seq, sc)
+            out = no_sync(lambda: flash_decode_stacked_dense(*args, **kw))
+            ref = flash_decode_stacked_dense_plain(*args, **kw)
+            lo = max(0, n - window + 1) if window else 0  # the first old slot attended
+            lib_ms = None
+            if not softcap:
+                kf = torch.cat([ks[1, :, lo:n], kc1[:, None]], 1).transpose(1, 2).contiguous()
+                vf = torch.cat([vs[1, :, lo:n], vc1[:, None]], 1).transpose(1, 2).contiguous()
+                lib_ms = time_ms(lambda: sdpa(q1[:, :, None], kf, vf, scale=sc,
+                                              enable_gqa=True))
+            torch.cuda.synchronize()
+            record(f"flash_decode_dense {shape} S={S_dec} seq_len={n}",
+                   "llamacog_tpu_torch/csrc/flash_decode_dense.cu",
+                   "llamacog_tpu/ops/pallas/flash_q8.py:968", [out], [ref], TOL_ATTN,
+                   time_ms(lambda: flash_decode_stacked_dense(*args, **kw)),
+                   time_ms(lambda: flash_decode_stacked_dense_plain(*args, **kw), iters=5),
+                   2 * (q1.numel() + 2 * (n - lo) * Hkv_ * D_ + kc1.numel() + vc1.numel()
+                        + H_ * D_), 4 * H_ * (n - lo + 1) * D_, lib_ms, run=run)
+            del ks, vs
+        T_ = PROMPT_LEN
+        qp1, kcp1, vcp1 = rnd(1, T_, H_, D_), rnd(1, T_, Hkv_, D_), rnd(1, T_, Hkv_, D_)
+        kl1, vl1 = rnd(1, 1024, Hkv_, D_), rnd(1, 1024, Hkv_, D_)
+        seq = torch.tensor([0], dtype=torch.int32, device=dev)
+        args = (qp1, kl1, vl1, kcp1, vcp1, seq, sc)
+        before = dict(build.LAUNCHES)
+        out = no_sync(lambda: flash_prefill_kernel(*args, **kw))
+        took = {k: c - before[k] for k, c in build.LAUNCHES.items() if c != before[k]}
+        check(took == {"flash_prefill": 1}, f"K5 {shape}: launched {took}, not the tiles")
+        ref = flash_prefill_attention_plain(*args, **kw)
+        ti = torch.arange(T_, device=dev)
+        allowed = (ti[None, :] <= ti[:, None]) & ((ti[None, :] > ti[:, None] - window)
+                                                  if window else True)
+        lib_ms = None
+        if not softcap:
+            qs1, kf, vf = (t.transpose(1, 2) for t in (qp1, kcp1, vcp1))
+            lib_ms = time_ms(lambda: sdpa(qs1, kf, vf, attn_mask=allowed, scale=sc,
+                                          enable_gqa=True))
+        torch.cuda.synchronize()
+        keys = int(allowed.sum())
+        record(f"flash_prefill T={T_} {shape} S=1024 seq_len=0",
+               "llamacog_tpu_torch/csrc/flash_prefill.cu",
+               "llamacog_tpu/ops/pallas/flash_prefill.py:129", [out], [ref], TOL_ATTN,
+               time_ms(lambda: flash_prefill_kernel(*args, **kw)),
+               time_ms(lambda: flash_prefill_attention_plain(*args, **kw), iters=5),
+               2 * (qp1.numel() + kcp1.numel() + vcp1.numel() + T_ * H_ * D_),
+               4 * H_ * keys * D_, lib_ms, run=run)
+        if quant_run is None:
+            return
+        kinds = ("q8_0", "q8_0")
+        cq = QuantKVCache.create(2, 1, 1024, Hkv_, D_, D_, kinds=kinds, device=dev)
+        for il in range(2):
+            part = QuantKVCache([p[il:il + 1] for p in cq.k_planes],
+                                [p[il:il + 1] for p in cq.v_planes], kinds, Hkv_)
+            part.write_all(*[torch.randn(1, 1, 1024, Hkv_, D_, generator=g, device=dev)
+                             for _ in "kv"], torch.zeros(1, dtype=torch.int32, device=dev))
+        plane_row = 2 * (D_ + 4 * (D_ // 32))  # a head's K and V row: int8 values, f32 scales
+        n = 1000
+        seq = torch.tensor([n], dtype=torch.int32, device=dev)
+        args = (q1, cq.k_planes, cq.v_planes, 1, kc1, vc1, seq, sc)
+        out = no_sync(lambda: flash_decode_stacked(*args, kinds=kinds, **kw))
+        ref = flash_decode_stacked_plain(*args, kinds=kinds, **kw)
+        torch.cuda.synchronize()
+        record(f"flash_decode_stacked q8_0:q8_0 {shape} S=1024 seq_len={n}",
+               "llamacog_tpu_torch/csrc/flash_decode_quant.cu", fq8.format(828), [out], [ref],
+               TOL_ATTN, time_ms(lambda: flash_decode_stacked(*args, kinds=kinds, **kw)),
+               time_ms(lambda: flash_decode_stacked_plain(*args, kinds=kinds, **kw), iters=5),
+               n * Hkv_ * plane_row + 2 * (q1.numel() + kc1.numel() + vc1.numel() + H_ * D_),
+               4 * H_ * (n + 1) * D_, run=quant_run)
+        kp, vp = [p[1] for p in cq.k_planes], [p[1] for p in cq.v_planes]
+        for n in (0, 1024 - T_):
+            seq = torch.tensor([n], dtype=torch.int32, device=dev)
+            args = (qp1, kp, vp, kcp1, vcp1, seq, sc)
+            before = dict(build.LAUNCHES)
+            out = no_sync(lambda: flash_prefill_q8(*args, kinds=kinds, **kw))
+            took = {k: c - before[k] for k, c in build.LAUNCHES.items() if c != before[k]}
+            check(took == {"flash_prefill_quant": 1},
+                  f"K7 {shape} n={n}: launched {took}, not the tiles")
+            ref = flash_prefill_q8_plain(*args, kinds=kinds, **kw)
+            torch.cuda.synchronize()
+            keys = sum(n + t + 1 for t in range(T_))
+            record(f"flash_prefill_q8 q8_0:q8_0 T={T_} {shape} S=1024 seq_len={n}",
+                   "llamacog_tpu_torch/csrc/flash_prefill_quant.cu", fq8.format(331), [out],
+                   [ref], TOL_ATTN, time_ms(lambda: flash_prefill_q8(*args, kinds=kinds, **kw)),
+                   time_ms(lambda: flash_prefill_q8_plain(*args, kinds=kinds, **kw), iters=5),
+                   n * Hkv_ * plane_row + 2 * (qp1.numel() + kcp1.numel() + vcp1.numel()
+                                               + T_ * H_ * D_), 4 * H_ * keys * D_,
+                   run=quant_run)
+        del cq, kp, vp, part
+
+    fam_attention("gemma2-9b", 16, 8, 256, 50.0, 0)  # the ring's global layers
+    fam_attention("gemma2-9b kv bf16", 16, 8, 256, 50.0, 4096, quant_run="gemma2-9b kv q8_0")
+    fam_attention("qwen2.5-7b", 28, 4, 128, 0.0, 0)
+    fam_attention("qwen2.5-0.5b", 14, 2, 64, 0.0, 0)
+    # Llama-3-70B's heads (64 query heads over 8 kv heads: 8 a kv head,
+    # where the 8B has 4), read in the 70B run of phase 5
+    fam_attention("70b IQ2_XXS", llama3_70b_config().n_head, Hkv, D, 0.0, 0)
+    torch.cuda.empty_cache()
+
+    # K10/K11 at Qwen3-30B-A3B's experts (128, top 8): gate_up 128x1536x2048
+    # (Q4_K) and down 128x2048x768 (Q6_K, a more-bits layer's); the gather at
+    # 8 rows (one token) and 32 (four), the grouped GEMM of its 128- and
+    # 512-token prefills
+    q3 = qwen3_30b_a3b_config()
+    q3_exp, q3_k = q3.n_expert, q3.n_expert_used
+    q3_stacks = [("ffn_gate_up_exps Q4_K 128x1536x2048",
+                  random_experts("Q4_K", q3_exp, 2 * q3.n_ff_exp, q3.n_embd, g, dev)),
+                 ("ffn_down_exps Q6_K 128x2048x768",
+                  random_experts("Q6_K", q3_exp, q3.n_embd, q3.n_ff_exp, g, dev))]
+
+    def q3_route(tokens):
+        logits = torch.randn(tokens, q3_exp, generator=g, device=dev)
+        return torch.topk(logits, q3_k, dim=-1).indices.reshape(-1).to(torch.int32)
+
+    for label, w in q3_stacks:
+        _, Nw, Kw = w.shape
+        for tokens in (1, 4):
+            ids = q3_route(tokens)
+            x = torch.randn(ids.shape[0], Kw, generator=g, device=dev).to(torch.bfloat16)
+            out = no_sync(lambda: qmm_gather(x, ids, w))
+            ref = qmm_gather_plain(x, ids, w)
+            torch.cuda.synchronize()
+            record(f"qmv_id gather {label} S={ids.shape[0]}", qmm_src.format("qmv_id"),
+                   qid_rep.format(115), [out], [ref], TOL_QMM,
+                   time_ms(lambda: qmm_gather(x, ids, w)),
+                   time_ms(lambda: qmm_gather_plain(x, ids, w), iters=5),
+                   w.nbytes // q3_exp * len(set(ids.tolist())) + x.numel() * 2
+                   + out.numel() * 4, 2 * ids.shape[0] * Nw * Kw, run="qwen3-30b-a3b")
+        for tokens in (PROMPT_LEN, 512):
+            ids = q3_route(tokens)
+            dest, tile_expert, s_pad = moe_sort(ids, q3_exp, RAGGED_TILE)
+            rows = torch.randn(ids.shape[0], Kw, generator=g, device=dev).to(torch.bfloat16)
+            xs = torch.zeros(s_pad, Kw, dtype=torch.bfloat16, device=dev).index_copy_(
+                0, dest, rows)
+            out = qmm_ragged(xs, tile_expert, w, RAGGED_TILE)
+            ref = qmm_ragged_plain(xs, tile_expert, w, RAGGED_TILE)
+            torch.cuda.synchronize()
+            record(f"qgemm_id ragged {label} tokens={tokens} rows={ids.shape[0]} "
+                   f"s_pad={s_pad}", qmm_src.format("qgemm_id"), qid_rep.format(188), [out],
+                   [ref], TOL_QMM, time_ms(lambda: qmm_ragged(xs, tile_expert, w, RAGGED_TILE)),
+                   time_ms(lambda: qmm_ragged_plain(xs, tile_expert, w, RAGGED_TILE), iters=5),
+                   w.nbytes // q3_exp * len(set(ids.tolist()))
+                   + ids.shape[0] * (Kw * 2 + Nw * 4), 2 * ids.shape[0] * Nw * Kw,
+                   run="qwen3-30b-a3b" if tokens == PROMPT_LEN else "qwen3-30b-a3b 512")
+            del xs, rows, out, ref
+    del q3_stacks, w
+    torch.cuda.empty_cache()
+
     phase_s["phase 3"] = time.perf_counter() - t3
     log(f"[parity] done in {phase_s['phase 3']:.1f}s")
 
@@ -1351,6 +1572,10 @@ def main() -> int:
                         end_step()
                     runs[name] = steps
                     graphs = {cap: n for cap, (_, n) in eng.decoder.graphs.items()}
+                    # a ring's sliding-window layers read their ring through the
+                    # masked attention, not a T=1 route
+                    n_routed = sum(1 for il in range(cfgp.n_layer)
+                                   if not (eng.ring and cfgp.is_swa(il)))
                     del eng
                     if name == "kernel":
                         log(f"[path] {model}, {label}: kernel launches "
@@ -1362,7 +1587,7 @@ def main() -> int:
                         # the decode steps replay one graph: the forward ran at
                         # T=1 twice, in its eager warm-up step and its capture
                         check(len(graphs) == 1, f"{model} {label}: decode graphs {graphs}")
-                        want = {k: 2 * cfgp.n_layer if k == route else 0 for k in calls}
+                        want = {k: 2 * n_routed if k == route else 0 for k in calls}
                         check(calls == want, f"{model} {label}: T=1 attention took {calls}, "
                               f"not the {route} route")
             firsts[label] = runs["kernel"][0]
@@ -1380,7 +1605,7 @@ def main() -> int:
                 what = f"{label}, {what}"
                 check(a.shape == (Vp,) and bool(torch.isfinite(torch.from_numpy(a)).all()),
                       f"{model} {what}: logits not finite of shape [{Vp}]")
-                log(f"[path] {model}, 2 layers, {what}: logits max rel err {err:.3e} "
+                log(f"[path] {model}, {cfgp.n_layer} layers, {what}: logits max rel err {err:.3e} "
                     f"(tol {TOL_PATH:.0e}), argmax kernel {int(a.argmax())} "
                     f"plain {int(b.argmax())}")
                 check(err <= TOL_PATH, f"{model}: kernel path disagrees with the plain path "
@@ -1629,6 +1854,42 @@ def main() -> int:
             [11, 12345, 777, 31000], 33)
         del p_gpu, p_cpu
         torch.cuda.empty_cache()
+    # the Qwen and Gemma families: 2 layers at each config's own widths (the
+    # published member's), Q4_K_M's kinds; Gemma-3 at Gemma-3-4B's widths
+    # (a CPU copy of Gemma-3-12B's 262208 x 3840 head takes 4 GB decoded)
+    # and 6 layers, so that one of them is global (pattern 6), its
+    # 1100-token prompt past the 1024-token window: the ring wraps within
+    # the prompt, and the decode steps and the second chunk read it
+    prompt20f = [(i * 7919) % 151936 for i in range(2, 22)]
+    for model, cfgf, cases, max_seq in (
+            ("Qwen2.5-7B widths", qwen2_5_7b_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20f, ("qmv", "qgemm", *dense_attn), "stacked")],
+             1024),
+            ("Qwen2.5-0.5B widths", qwen2_5_0_5b_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20f, ("qmv", "qgemm", *dense_attn), "stacked")],
+             1024),
+            ("Qwen3-8B widths", qwen3_8b_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20f, ("qmv", "qgemm", *dense_attn), "stacked")],
+             1024),
+            ("Qwen3-30B-A3B widths", qwen3_30b_a3b_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20f, ("qmv", "qgemm", "qmv_id", "qgemm_id",
+                                                      *dense_attn), "stacked")], 64),
+            ("Qwen2-57B-A14B widths", qwen2_57b_a14b_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20f, ("qmv", "qgemm", "qmv_id", "qgemm_id",
+                                                      *dense_attn), "stacked")], 64),
+            ("Gemma-2-9B widths", gemma2_9b_config(n_layer=2), [
+                ("kv dense (ring)", "dense", {}, prompt20f, ("qmv", "qgemm", *dense_attn),
+                 "stacked"),
+                ("kv q8_0", "q8_0", {}, prompt20f, ("qmv", "qgemm", *quant_attn), "stacked")],
+             8192),
+            ("Gemma-3-4B widths", gemma3_4b_config(n_layer=6), [
+                ("kv dense (ring), 1100-token prompt", "dense", {},
+                 [(i * 7919) % 262208 for i in range(2, 1102)], ("qmv", "qgemm", *dense_attn),
+                 "stacked")], 1280)):
+        p_gpu, p_cpu = two_copies(cfgf, "Q4_K_M")
+        path_check(model, cfgf, p_gpu, p_cpu, cases, [11, 12345, 777, 90000], max_seq)
+        del p_gpu, p_cpu
+        torch.cuda.empty_cache()
     phase_s["phase 4"] = time.perf_counter() - t0
     log(f"[path] done in {phase_s['phase 4']:.1f}s")
 
@@ -1648,14 +1909,25 @@ def main() -> int:
         bound_ms = sum_wire_bytes(params, cfgm) / HBM_BYTES_PER_S * 1e3
         out = {}
         for i, (name, kv_type, env, prompt_len, used, *sizes) in enumerate(runs):
-            max_seq, n_tok = sizes or (1024, N_DECODE)
+            max_seq, n_tok, *chunk = sizes or (1024, N_DECODE)
             prompt = [(j * 31337) % Vm for j in range(prompt_len)]
             tag = f"[{model} {name} run {i + 1}]"
             with env_vars(env):
                 eng = Engine(params, cfgm, batch_size=1, max_seq=max_seq, kv_type=kv_type)
+
+                def prefill_all():
+                    """The prompt's prefill, in the run's chunks if it names them."""
+                    step = chunk[0] if chunk else prompt_len
+                    for off in range(0, prompt_len, step):
+                        logits = eng.prefill(prompt[off:off + step])
+                    return logits
+
                 c = eng.cache
-                kv_bytes = sum(t.nbytes for t in ((c.k_planes + c.v_planes)
-                                                  if isinstance(c, QuantKVCache) else (c.k, c.v)))
+                kv_bytes = sum(t.nbytes for t in c.planes())
+                log(f"{tag} cache {type(c).__name__}"
+                    + (f" (ring of {c.window} slots for {sum(c.swa_layers)} of {cfgm.n_layer} "
+                       "layers)" if eng.ring else "")
+                    + (f", prompt in chunks of {chunk[0]}" if chunk else ""))
                 planes = [w for layer in eng.params["layers"] for w in layer.values()
                           if isinstance(w, WireTensor) and w.qi8 is not None]
                 if planes:
@@ -1665,13 +1937,13 @@ def main() -> int:
                 for _ in range(4):  # the first is a warm-up (allocator, first launches)
                     eng.reset()
                     t0 = time.perf_counter()
-                    eng.prefill(prompt)
+                    prefill_all()
                     ttfts.append(time.perf_counter() - t0)
                 ttft = statistics.median(ttfts[1:])
 
                 def decode(run_tokens):
                     eng.reset()
-                    first = int(eng.prefill(prompt).argmax())
+                    first = int(prefill_all().argmax())
                     t1 = time.perf_counter()
                     toks = run_tokens([first], n_tok)
                     return toks, time.perf_counter() - t1
@@ -1688,7 +1960,7 @@ def main() -> int:
                 eng.reset()
                 torch.cuda.reset_peak_memory_stats()
                 build.reset_launches()
-                logits = eng.prefill(prompt)
+                logits = prefill_all()
                 prefill_launches = dict(build.LAUNCHES)
                 t1 = time.perf_counter()
                 toks = eng.decode_greedy_tokens([int(logits.argmax())], n_tok)
@@ -1722,7 +1994,7 @@ def main() -> int:
                       f"the captured {captured} x {n_tok} replays")
                 prev = out.get(name, {})
                 out[name] = {"prefill": prefill_launches, "decode": decode_launches,
-                             "total": launches, "tokens": toks,
+                             "total": launches, "tokens": toks, "ms": dt / n_tok * 1e3,
                              "ttft": ttfts[1:] + prev.get("ttft", []),
                              **{k: prev[k] for k in ("graph_ms", "eager_ms") if k in prev}}
                 if (model, name) in EAGER_TURNS and "graph_ms" not in prev:
@@ -1742,7 +2014,7 @@ def main() -> int:
                     out[name].update(graph_ms=ms["graph"], eager_ms=ms["eager"])
                 # the device-side loop agrees with host-driven decode_one + argmax
                 eng.reset()
-                first = int(eng.prefill(prompt).argmax())
+                first = int(prefill_all().argmax())
                 host_toks, tok = [], first
                 for _ in range(8):
                     tok = int(eng.decode_one([tok])[0].argmax())
@@ -2190,7 +2462,7 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f}s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB; "
             f"layer 0 weights {', '.join(kinds)}")
         if cfgm.n_expert:
-            tensors = [params["tok_embd"], params["output"],
+            tensors = [params["tok_embd"], *([params["output"]] if "output" in params else []),
                        *(v for layer in params["layers"] for v in layer.values())]
             total = sum(v.nbytes for v in tensors if isinstance(v, WireTensor))
             experts = sum(v.nbytes for v in tensors
@@ -2330,6 +2602,143 @@ def main() -> int:
     # the preset that puts a 70B on one card; 64 query heads over 8 kv heads
     preset_runs["70b IQ2_XXS"] = preset_run("70b", llama3_70b_config(), "IQ2_XXS", exact_path)
     log(f"[70b IQ2_XXS] on {nvidia_smi_line()}")
+
+    def ring_serving_run(params, cfgm):
+        """Gemma-3-12B through the port's server on the card: 4 slots, ctx
+        4096 (so the ring: window 1024), 4 greedy requests at once from
+        --seed (prompts of 712, 300, 612 and 1200 tokens; 0 and 2 share a
+        512-token prefix), then a fifth sharing that prefix with request 0,
+        which the prefix rule routes to request 0's slot. A ring row is
+        reused whole or prefilled anew, so no request reuses a prefix
+        (cache_n 0), and context shift is off on a ring. Each request's
+        tokens are those of a single-stream engine fed the chunks the slot
+        is fed, or part from them at a top-2 tie. Returns the launches."""
+        from llamacog_tpu_torch.models.loader import Model
+        from llamacog_tpu_torch.server.server import PREFILL_CHUNK
+        from llamacog_tpu_torch.utils.synthetic import synthetic_vocab
+
+        t_phase, n_tok = time.perf_counter(), 32
+        model = Model(cfgm, params, synthetic_vocab(cfgm.n_vocab), None)
+        rng = np.random.default_rng(SEED + 15)
+        prefix = rng.integers(256, 128000, size=512).tolist()
+        prompts = [prefix + rng.integers(256, 128000, size=200).tolist(),
+                   rng.integers(256, 128000, size=300).tolist(),
+                   prefix + rng.integers(256, 128000, size=100).tolist(),
+                   rng.integers(256, 128000, size=1200).tolist(),
+                   prefix + rng.integers(256, 128000, size=150).tolist()]
+        ref = []
+        eng1 = Engine(params, cfgm, batch_size=1, max_seq=4096)
+        check(eng1.ring, "gemma3-12b serving: a 4096-token context keeps no ring")
+        for p in prompts:
+            eng1.reset()
+            for off in range(0, len(p), PREFILL_CHUNK):
+                logits = eng1.prefill(p[off:off + PREFILL_CHUNK])
+            toks, top2 = [], []
+            for j in range(n_tok):
+                lt = logits.reshape(-1).copy()
+                first = int(np.argmax(lt))
+                top1 = float(lt[first])
+                lt[first] = -np.inf
+                toks.append(first)
+                top2.append((top1, float(lt.max())))
+                if j + 1 < n_tok:
+                    logits = eng1.decode_one([first])[0]
+            ref.append((toks, top2))
+        del eng1
+        torch.cuda.empty_cache()
+        bodies = [{"prompt": p, "n_predict": n_tok, "ignore_eos": True, "return_tokens": True,
+                   "temperature": 0.0} for p in prompts]
+
+        def requests(url):
+            first, wall = post_all(url, bodies[:4])
+            again, _ = post_all(url, bodies[4:])
+            return first + again, wall
+
+        (out, wall), launches, metrics, peak = served(
+            "gemma3-12b serving", model, requests, n_slots=4, ctx_size=4096)
+        finals = [r[-1] if isinstance(r, list) else r for r in out]
+        for i, (f, (want, top2)) in enumerate(zip(finals, ref)):
+            got, t = f["tokens"], f["timings"]
+            check(t["cache_n"] == 0 and len(got) == n_tok,
+                  f"gemma3-12b serving request {i}: {t['cache_n']} prompt tokens reused, "
+                  f"{len(got)} tokens")
+            part = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+            gap = None
+            if part is not None:
+                top1, second = top2[part]
+                gap = (top1 - second) / 2.0 ** (torch.frexp(torch.tensor(top1)).exponent.item()
+                                                - 8)
+                check(gap <= TIE_ULPS, f"gemma3-12b serving request {i}: greedy tokens part "
+                      f"from the single stream at {part} with a top-2 gap of {gap:.2f} ulps")
+            log(f"[gemma3-12b serving] request {i} ({len(prompts[i])} prompt tokens, "
+                f"{t['cache_n']} reused): TTFT {t['prompt_ms']:.2f} ms from admission, "
+                f"{t['predicted_ms'] / n_tok:.3f} ms/token; "
+                + ("its tokens equal the single stream's" if part is None else
+                   f"parts from the single stream at token {part} at a tie ({gap:.2f} ulps)"))
+        check(metrics.get("context_shifts_total", 0) == 0
+              and metrics.get("prompt_tokens_cached_total", 0) == 0,
+              f"gemma3-12b serving: context shifts or prefix reuse on a ring: {metrics}")
+        log(f"[gemma3-12b serving] 4 requests at once in {wall:.3f}s, then one sharing request "
+            f"0's 512-token prefix, prefilled anew in its slot; no prefix reused, no context "
+            f"shift; peak device memory {peak / 2**30:.2f} GiB; "
+            f"{time.perf_counter() - t_phase:.1f}s")
+        return {"total": launches}
+
+    # the Qwen and Gemma families (Q4_K_M; a 128-token prompt and 64 greedy
+    # tokens through the graph unless named): at full depth Qwen2.5-7B,
+    # Qwen3-30B-A3B (also a 512-token prompt, 16 tokens: K11 over several
+    # tiles an expert, in one 512-token chunk, the engine's step for 128
+    # experts), Gemma-3-12B (a 1536-token prompt in two 768-token chunks at
+    # max_seq 2048: the ring wraps) and Qwen2.5-0.5B (its padded 32-weight-
+    # block kinds); at 4 layers Qwen3-8B, Gemma-2-9B (max_seq 8192: the
+    # ring; the full store with kv bf16, K4 and K5 with the window; q8_0,
+    # K6 and K7 with it) and Qwen2-57B-A14B
+    quant_path = ("qmv", "qgemm", *quant_attn)
+    family_runs = {}
+    t_fam = time.perf_counter()
+    for model, cfgf, runs_f in (
+            ("qwen2.5-7b", qwen2_5_7b_config(), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64)]),
+            ("qwen3-30b-a3b", qwen3_30b_a3b_config(), [
+                ("kv dense", "dense", {}, PROMPT_LEN, moe_path, 1024, 64),
+                ("512", "dense", {}, 512, moe_path, 1024, 16)]),
+            ("gemma3-12b", gemma3_12b_config(), [
+                ("kv dense", "dense", {}, 1536, exact_path, 2048, 64, 768)]),
+            ("qwen2.5-0.5b", qwen2_5_0_5b_config(), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64)]),
+            ("qwen3-8b", qwen3_8b_config(n_layer=4), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64)]),
+            ("gemma2-9b", gemma2_9b_config(n_layer=4), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 8192, 64),
+                ("kv bf16", "bf16", {}, PROMPT_LEN, exact_path, 8192, 64),
+                ("kv q8_0", "q8_0", {}, PROMPT_LEN, quant_path, 8192, 64)]),
+            ("qwen2-57b-a14b", qwen2_57b_a14b_config(n_layer=4), [
+                ("kv dense", "dense", {}, PROMPT_LEN, moe_path, 1024, 64)])):
+        params = build_params(model, cfgf, "Q4_K_M")
+        got = main_path_runs(model, params, cfgf, runs_f)
+        n_global = sum(1 for il in range(cfgf.n_layer) if not cfgf.is_swa(il))
+        for name, r in got.items():
+            key = model if name == "kv dense" else f"{model} {name}"
+            family_runs[key] = r
+            n_tok = 16 if name == "512" else 64
+            if name == "kv dense" and model.startswith("gemma"):
+                # the ring's window layers read it through the masked
+                # attention: K4 runs on the global layers alone
+                check(r["decode"]["flash_decode_dense"] == n_tok * n_global,
+                      f"{key}: decode flash_decode_dense {r['decode']['flash_decode_dense']} "
+                      f"(want {n_tok * n_global}: the global layers)")
+        log(f"[{model}] {cfgf.n_layer} layers, weight-stream bound "
+            f"{sum_wire_bytes(params, cfgf) / HBM_BYTES_PER_S * 1e3:.3f} ms/token "
+            f"({sum_wire_bytes(params, cfgf) / 1e9:.3f} GB a token) on {nvidia_smi_line()}")
+        if model == "qwen3-30b-a3b":
+            got512 = got["512"]["prefill"]["qgemm_id"]
+            check(got512 == 2 * cfgf.n_layer, f"qwen3-30b-a3b 512 run: prefill qgemm_id "
+                  f"{got512} (want {2 * cfgf.n_layer}: one 512-token chunk)")
+        if model == "gemma3-12b":
+            family_runs["gemma3-12b serving"] = ring_serving_run(params, cfgf)
+        del params
+        torch.cuda.empty_cache()
+    log(f"[families] runs {time.perf_counter() - t_fam:.1f}s")
     for model, name in sorted(EAGER_TURNS):
         r = (runs_8b if model == "8b" else runs_moe)[name]
         log(f"[{model} {name}] decode ms/token, graph {statistics.median(r['graph_ms']):.3f} "
@@ -2348,7 +2757,8 @@ def main() -> int:
               **{k: runs_moe["kv dense"] for k in moe_kernels},
               **{k: runs_8b["kv q8_0"] for k in quant_attn}}
     run_named = {**runs_8b, "mixtral": runs_moe["kv dense"],
-                 "mixtral 512": runs_moe["kv dense 512"], **preset_runs, **serving, **rows_runs}
+                 "mixtral 512": runs_moe["kv dense 512"], **preset_runs, **serving, **rows_runs,
+                 **family_runs}
     for r in results:
         k, run = r.pop("kernel"), r.pop("run")
         r["launches"] = (run_named[run] if run
@@ -2366,17 +2776,24 @@ def main() -> int:
 def sum_wire_bytes(params: dict, cfg) -> int:
     """Bytes one decode step must stream: every layer weight, n_expert_used
     of the n_expert experts of each stacked expert tensor, and the LM head
-    (the embedding table is gathered by row, not streamed)."""
+    (the embedding table is gathered by row, not streamed; a tied one is
+    the head, and streamed as such)."""
     from llamacog_tpu_torch.quant.wire import (
         CODEBOOK_KINDS, LOW_BIT_KINDS, WireTensor, keep_decoded)
 
-    total = params["output"].nbytes
+    total = wire_need(params.get("output", params["tok_embd"]))  # the tied table is the head
     for layer in params["layers"]:
         for v in layer.values():
             if isinstance(v, WireTensor):
-                total += (v.nbytes * cfg.n_expert_used // cfg.n_expert if len(v.shape) == 3
-                          else v.nbytes)
+                total += (wire_need(v) * cfg.n_expert_used // cfg.n_expert if len(v.shape) == 3
+                          else wire_need(v))
     return total
+
+
+def wire_need(w) -> int:
+    """The wire bytes a product over w must read: its blocks, less the zero
+    blocks that pad a 32-weight-block row to a whole 256-weight run."""
+    return w.nbytes * w.shape[-1] // w.k_pad
 
 
 if __name__ == "__main__":

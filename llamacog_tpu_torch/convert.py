@@ -1,11 +1,13 @@
-"""Carry a llama model's weights across into the port's parameter tree.
+"""Carry a model's weights across into the port's parameter tree.
 
 ``from_reference`` takes the model's tensors by GGUF name, in their file
 form — dense tensors as float numpy arrays, quantized tensors as
 ``(ggml_type, shape, uint8 block bytes)`` — and returns the port's params
 with the same keys as the JAX loader's tree (``attn_qk``, ``attn_v``,
 ``ffn_gate_up``, ``ffn_gate_up_exps``, ...), applying the same fusion
-(llamacog_tpu/models/loader.py:297-348). Quantized tensors stay in wire
+under the same conditions (llamacog_tpu/models/loader.py:297-348): q/k/v
+of one kind fuse, their biases concatenated; else q+k fuse, unless q
+carries a bias or a norm; gate+up fuse unless gate carries a bias. Quantized tensors stay in wire
 format; fusing two of them is a row concatenation of their block bytes. The port's loader and
 the tests that hold the port against the JAX package both go through it:
 the JAX package's planar planes cannot be turned back into wire bytes, so
@@ -26,11 +28,20 @@ from .runtime.kv_cache import KVCache, quant_cache_class
 
 _LAYER_TENSORS = {
     "attn_norm": "attn_norm.weight",
+    "attn_qkv": "attn_qkv.weight",
+    "attn_qkv_b": "attn_qkv.bias",
     "attn_q": "attn_q.weight",
     "attn_k": "attn_k.weight",
     "attn_v": "attn_v.weight",
+    "attn_q_b": "attn_q.bias",
+    "attn_k_b": "attn_k.bias",
+    "attn_v_b": "attn_v.bias",
+    "attn_q_norm": "attn_q_norm.weight",
+    "attn_k_norm": "attn_k_norm.weight",
     "attn_output": "attn_output.weight",
+    "attn_post_norm": "post_attention_norm.weight",
     "ffn_norm": "ffn_norm.weight",
+    "ffn_post_norm": "post_ffw_norm.weight",
     "ffn_gate": "ffn_gate.weight",
     "ffn_up": "ffn_up.weight",
     "ffn_down": "ffn_down.weight",
@@ -38,6 +49,10 @@ _LAYER_TENSORS = {
     "ffn_gate_exps": "ffn_gate_exps.weight",
     "ffn_up_exps": "ffn_up_exps.weight",
     "ffn_down_exps": "ffn_down_exps.weight",
+    "ffn_gate_inp_shexp": "ffn_gate_inp_shexp.weight",
+    "ffn_gate_shexp": "ffn_gate_shexp.weight",
+    "ffn_up_shexp": "ffn_up_shexp.weight",
+    "ffn_down_shexp": "ffn_down_shexp.weight",
 }
 _MODEL_TENSORS = {
     "tok_embd": "token_embd.weight",
@@ -45,18 +60,19 @@ _MODEL_TENSORS = {
     "output": "output.weight",
     "rope_freqs": "rope_freqs.weight",
 }
-# tensors the JAX loader always keeps dense and f32
-_F32_SUFFIX = "_norm.weight"
+# tensors the JAX loader always keeps dense and f32 (norms, biases)
+_F32_SUFFIXES = ("_norm.weight", ".bias")
 
 
 def _to_param(name: str, value, device, dtype):
     if isinstance(value, tuple):
-        if name.endswith(_F32_SUFFIX):
-            raise NotImplementedError(f"{name}: quantized norm tensors are not ported yet")
+        if name.endswith(_F32_SUFFIXES):
+            raise NotImplementedError(f"{name}: quantized norm and bias tensors are not "
+                                      "ported yet")
         ggml_type, shape, data = value
         return wire.from_bytes(data, ggml_type, tuple(shape), device)
     arr = np.asarray(value, dtype=np.float32)
-    dt = torch.float32 if name.endswith(_F32_SUFFIX) else dtype
+    dt = torch.float32 if name.endswith(_F32_SUFFIXES) else dtype
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device=device, dtype=dt)
 
 
@@ -85,13 +101,16 @@ def from_reference(cfg: ModelConfig, tensors: dict, device=None,
             if fused is not None:
                 layer["attn_qkv"] = fused
                 del layer["attn_q"], layer["attn_k"], layer["attn_v"]
-            else:
-                # mixed kinds (Q4_K_M stores attn_v as Q6_K): fuse q+k
+                if all(f"attn_{t}_b" in layer for t in "qkv"):
+                    layer["attn_qkv_b"] = torch.cat([layer.pop(f"attn_{t}_b") for t in "qkv"])
+            elif "attn_q_b" not in layer and "attn_q_norm" not in layer:
+                # mixed kinds (Q4_K_M stores attn_v as Q6_K): fuse q+k, which
+                # a bias or a per-head norm of q must see apart
                 qk = wire.fuse_rows([layer["attn_q"], layer["attn_k"]])
                 if qk is not None:
                     layer["attn_qk"] = qk
                     del layer["attn_q"], layer["attn_k"]
-        if "ffn_gate" in layer and "ffn_up" in layer:
+        if "ffn_gate" in layer and "ffn_up" in layer and "ffn_gate_b" not in layer:
             fused = wire.fuse_rows([layer["ffn_gate"], layer["ffn_up"]])
             if fused is not None:
                 layer["ffn_gate_up"] = fused

@@ -120,6 +120,21 @@ __host__ __device__ constexpr bool kind_legacy(int kind) {
 __host__ __device__ constexpr bool kind_low_k(int kind) {
     return kind == KIND_Q2_K || kind == KIND_Q3_K;
 }
+// The kinds of 32-weight blocks (the legacy kinds, Q8_0, IQ4_NL), whose rows
+// may stop short of a whole QK_K run: the wire rows are then padded with zero
+// blocks to one (quant/wire.py), and qmv_walk reads x only below K.
+__host__ __device__ constexpr bool kind_block32(int kind) {
+    return kind_legacy(kind) || kind == KIND_Q8_0 || kind == KIND_IQ4_NL;
+}
+// Row lengths a launch of these kinds takes: whole runs, or any multiple of
+// 32 where every kind is a 32-weight-block kind.
+__host__ __device__ inline bool k_fits(int K, const int* kind, int n) {
+    if (K < 32 || K % 32) return false;
+    if (K % QK_K == 0) return true;
+    for (int t = 0; t < n; ++t)
+        if (!kind_block32(kind[t])) return false;
+    return true;
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -1228,7 +1243,10 @@ __device__ __forceinline__ void x_part_sums(const float* xv, float (&sx)[qmv_par
 // x [B, K]; out [B, n] gets the sums. The walk is one flat sequence of
 // items, a group's step of QMV_SB_STEP superblocks: the next item's raw
 // bytes are loaded into registers before this item's arithmetic, also
-// across the end of a group.
+// across the end of a group. A row of a 32-weight-block kind may end within
+// its last run (K % QK_K != 0): its wire row is padded with zero blocks to
+// the run's end, and a lane whose block lies past K reads no x and adds
+// nothing (its slot is its block: x_slice).
 template <int KIND, int NB, int R, typename TX>
 __device__ void qmv_walk(const uint8_t* __restrict__ wq, int n, int row_bytes,
                          const TX* __restrict__ x, int B, int K, int g, int gstep, int groups,
@@ -1238,7 +1256,7 @@ __device__ void qmv_walk(const uint8_t* __restrict__ wq, int n, int row_bytes,
     const int lane = threadIdx.x & 31;
     const int sub = lane >> 3;  // which of the step's four superblocks
     const int i = lane & 7;     // slice slot within the superblock
-    const int nsb = K / QK_K;
+    const int nsb = (K + QK_K - 1) / QK_K;
     const int steps = (nsb + QMV_SB_STEP - 1) / QMV_SB_STEP;
     if (g >= groups) return;
     // row r's block of group gg at step st (a lane past the last superblock
@@ -1267,7 +1285,7 @@ __device__ void qmv_walk(const uint8_t* __restrict__ wq, int n, int row_bytes,
         QmvRaw<KIND> nxt[R];
         if (more) load(gn, sn, nxt);
         const int sb = st * QMV_SB_STEP + sub;
-        if (sb < nsb) {
+        if (sb < nsb && (!kind_block32(KIND) || sb * QK_K + 32 * i < K)) {
             if constexpr (NB == 1) {
                 float xv[QMV_SLICE], sx[P];
                 x_slice<KIND>(x + (size_t)sb * QK_K, i, xv);

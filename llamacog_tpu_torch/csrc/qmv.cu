@@ -171,12 +171,13 @@ static int launch_x(const QmvParams& p, const void* x, int x_dtype, const int* n
     return launch_kinds<NB>(p, static_cast<const float*>(x), n, set, stream);
 }
 
-// x [B, K] (f32 or bf16, contiguous); weight t: w[t] [n[t], K/256 blocks],
-// kind[t]; out[t] [B, n[t]] f32.
+// x [B, K] (f32 or bf16, contiguous); weight t: w[t] [n[t], ceil(K/256)
+// runs], kind[t]; out[t] [B, n[t]] f32. K is a multiple of 256, or of 32
+// where every kind is a 32-weight-block kind (rows padded to a whole run).
 LCG_EXPORT int lcg_qmv(const void* x, int x_dtype, int B, int K, int n_desc,
                        const void* const* w, void* const* out, const int* kind,
                        const int* n, void* stream) {
-    if (n_desc < 1 || n_desc > QMV_MAX_DESC || B < 1 || K % QK_K)
+    if (n_desc < 1 || n_desc > QMV_MAX_DESC || B < 1 || !k_fits(K, kind, n_desc))
         return static_cast<int>(cudaErrorInvalidValue);
     QmvParams p{};
     p.n_desc = n_desc;
@@ -188,7 +189,7 @@ LCG_EXPORT int lcg_qmv(const void* x, int x_dtype, int B, int K, int n_desc,
         p.d[t].out = static_cast<float*>(out[t]);
         p.d[t].kind = kind[t];
         p.d[t].n = n[t];
-        p.d[t].row_bytes = (K / QK_K) * kind_sb_bytes(kind[t]);
+        p.d[t].row_bytes = ((K + QK_K - 1) / QK_K) * kind_sb_bytes(kind[t]);
     }
     const int set = launch_set(kind, n_desc, QMV_SETS);
     if (set < 0) return static_cast<int>(cudaErrorInvalidValue);

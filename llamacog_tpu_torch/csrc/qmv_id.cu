@@ -109,18 +109,19 @@ static void launch_id(dim3 grid, cudaStream_t s, const uint8_t* w, const void* x
                                                                   K, row_bytes);
 }
 
-// x [S, K] (f32 or bf16, contiguous); w [n_exp * N, K/256 blocks] of `kind` (any);
-// ids [S] int32 on the device; out [S, N] f32.
+// x [S, K] (f32 or bf16, contiguous); w [n_exp * N, ceil(K/256) runs] of
+// `kind` (any; K a multiple of 256, or of 32 for a 32-weight-block kind,
+// rows padded to a whole run); ids [S] int32 on the device; out [S, N] f32.
 LCG_EXPORT int lcg_qmv_id(const void* x, int x_dtype, int S, int K, const void* w, int kind,
                           int n_exp, int N, const void* ids, void* out, void* stream) {
     constexpr int rows = QMV_WARPS * QMV_ID_ROWS;  // output rows a block
     const int row_blocks = (N + rows - 1) / rows;
-    if (S < 1 || K < QK_K || K % QK_K || n_exp < 1 || N < 1 || row_blocks > 65535 ||
+    if (S < 1 || !k_fits(K, &kind, 1) || n_exp < 1 || N < 1 || row_blocks > 65535 ||
         kind_sb_bytes(kind) == 0 || (x_dtype != DT_F32 && x_dtype != DT_BF16))
         return static_cast<int>(cudaErrorInvalidValue);
     const int set = launch_set(&kind, 1, QMV_ID_SETS);
     if (set < 0) return static_cast<int>(cudaErrorInvalidValue);
-    const int row_bytes = (K / QK_K) * kind_sb_bytes(kind);
+    const int row_bytes = ((K + QK_K - 1) / QK_K) * kind_sb_bytes(kind);
     const dim3 grid(S, row_blocks);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const uint8_t* wq = static_cast<const uint8_t*>(w);

@@ -1,12 +1,20 @@
-"""Llama transformer forward pass (PyTorch).
+"""The generalized transformer forward pass (PyTorch).
 
-Counterpart of the llama branches of llamacog_tpu/models/llama.py::forward:
-embedding -> per layer (rms norm, fused q/k/v projections, rope, attention
-over the old cache plus the current block, output projection, SwiGLU FFN)
--> final norm -> LM head, with the KV write deferred to one bulk write per
-step. A layer with a router (``ffn_gate_inp``) takes the MoE FFN instead
-(Mixtral: top-k routing, sparse products over the selected experts only).
-Other architectures and features raise NotImplementedError.
+Counterpart of llamacog_tpu/models/llama.py::forward for the llama, Qwen
+and Gemma families: embedding (times sqrt(n_embd) on Gemma) -> per layer
+(rms norm, q/k/v projections with their biases (qwen2), per-head q/k rms
+norm (qwen3, gemma3), rope (gemma3's local layers with a table of their
+own), attention over the old cache plus the current block (sliding-window
+layers over their window; a ring of the last `window` tokens where the
+cache keeps one, runtime/kv_cache.py::SwaKVCache), the output
+projection, post-attention and post-FFN norms (gemma2/3), a SwiGLU or
+GeGLU FFN) -> final norm -> LM head (tied to the embedding where the
+file has no output tensor) -> final logit softcap (gemma2), with the KV
+write deferred to one bulk write per step. A layer with a router
+(``ffn_gate_inp``) takes the MoE FFN instead (top-k routing, sparse
+products over the selected experts only, and qwen2moe's sigmoid-gated
+shared expert). Other architectures and features raise
+NotImplementedError.
 
 Params are a plain dict of dense tensors and WireTensors (convert.py).
 """
@@ -15,28 +23,46 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.attention import intra_block_mask, masked_attention, old_cache_mask
+from ..ops.attention import (intra_block_mask, masked_attention, old_cache_mask,
+                             swa_ring_mask)
 from ..ops.cuda import flash_decode, flash_prefill, flash_q8, qmm_id
 from ..ops.linear import qmatmul, qmatmul_multi
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope_tables, rope_tables
 from ..quant.wire import WireTensor, dequantize_rows
-from ..runtime.kv_cache import KVCache, QuantKVCache
+from ..runtime.kv_cache import KVCache, QuantKVCache, SwaKVCache
 from .config import ModelConfig
 
-SUPPORTED_ARCHES = ("llama",)
+SUPPORTED_ARCHES = ("llama", "qwen2", "qwen2moe", "qwen3", "qwen3moe", "gemma2", "gemma3")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise on anything this slice of the port does not cover. (The other
-    feature flags of ModelConfig are set only by other architectures.)"""
+    """Raise on anything this slice of the port does not cover: an
+    architecture outside SUPPORTED_ARCHES, or a feature flag that only
+    other architectures (or metadata keys these do not use) set."""
     if cfg.arch not in SUPPORTED_ARCHES:
         raise NotImplementedError(f"architecture {cfg.arch!r} is not ported yet")
     unsupported = {
-        "shared experts": cfg.n_expert_shared > 0 or cfg.n_ff_shexp > 0,
-        "MoE weights before the experts": cfg.moe_weight_before,
+        "layer norm": cfg.norm_type != "rms" or cfg.nonparam_norms,
+        "parallel residual": cfg.parallel_residual,
+        "ALiBi": cfg.use_alibi,
+        "learned positions": cfg.learned_pos_embd or not cfg.rope.enabled,
+        "MLA": cfg.n_lora_q > 0 or cfg.n_lora_kv > 0,
         "per-layer head counts": bool(cfg.n_head_arr or cfg.n_head_kv_arr),
         "M-RoPE": bool(cfg.rope.sections),
+        "chunked SWA": cfg.swa_type == "chunked",
+        "MoE weights before the experts": cfg.moe_weight_before,
+        "shared experts": cfg.arch != "qwen2moe" and (cfg.n_expert_shared > 0
+                                                      or cfg.n_ff_shexp > 0),
+        "post-norm-only layers": cfg.post_norm_only,
+        "q/k norms over the whole projection": cfg.qk_norm_full or cfg.qk_norm_layer,
+        "NoPE layers and attention temperature": (cfg.n_no_rope_layer_step > 0
+                                                  or cfg.use_attn_temp or cfg.use_kq_norm),
+        "logit scale": cfg.logit_scale != 1.0,
+        "residual scale": cfg.residual_scale != 1.0,
+        "clamp_kqv": cfg.attn_clamp > 0.0,
+        "non-causal attention": not cfg.causal,
+        "interleaved MoE layers": cfg.moe_every_n_layers > 0,
     }
     missing = [k for k, v in unsupported.items() if v]
     if missing:
@@ -52,21 +78,41 @@ def embed_tokens(params: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return emb[tokens].to(dtype)
 
 
+def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The FFN activation in f32: SiLU, or ggml_gelu's tanh form (Gemma)."""
+    xf = x.float()
+    if kind == "silu":
+        return torch.nn.functional.silu(xf)
+    if kind == "gelu":
+        return torch.nn.functional.gelu(xf, approximate="tanh")
+    raise NotImplementedError(f"FFN activation {kind!r} is not ported yet")
+
+
+def _linear(x: torch.Tensor, layer: dict, key: str) -> torch.Tensor:
+    """One projection, plus its bias (qwen2's q/k/v) in the activation
+    dtype after the product, as the JAX _linear adds it."""
+    out = qmatmul(x, layer[key])
+    b = layer.get(key + "_b")
+    return out if b is None else out + b.to(out.dtype)
+
+
 def _linear_multi(x: torch.Tensor, layer: dict, keys) -> list:
-    """Same-input projections through ONE kernel launch (mixed kinds OK);
-    per-key launches when a weight cannot ride it."""
-    outs = qmatmul_multi(x, [layer[k] for k in keys])
-    if outs is not None:
-        return outs
-    return [qmatmul(x, layer[k]) for k in keys]
+    """Same-input projections through ONE kernel launch (mixed kinds OK)
+    when none carries a bias; per-key launches when one does, or when a
+    weight cannot ride the shared launch."""
+    if not any(k + "_b" in layer for k in keys):
+        outs = qmatmul_multi(x, [layer[k] for k in keys])
+        if outs is not None:
+            return outs
+    return [_linear(x, layer, k) for k in keys]
 
 
-def _ffn(layer: dict, x: torch.Tensor) -> torch.Tensor:
+def _ffn(layer: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if "ffn_gate_up" in layer:
         gate, up = qmatmul(x, layer["ffn_gate_up"]).chunk(2, dim=-1)
     else:
         gate, up = _linear_multi(x, layer, ("ffn_gate", "ffn_up"))
-    h = (torch.nn.functional.silu(gate.float()) * up.float()).to(x.dtype)
+    h = (_act(gate, cfg.ffn_act) * up.float()).to(x.dtype)
     return qmatmul(h, layer["ffn_down"])
 
 
@@ -161,7 +207,7 @@ def _ffn_moe_sparse(layer: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Ten
         gate, up = product(rows, layer["ffn_gate_up_exps"]).chunk(2, dim=-1)
     else:
         gate, up = product(rows, layer["ffn_gate_exps"]), product(rows, layer["ffn_up_exps"])
-    h = (torch.nn.functional.silu(gate) * up).to(x.dtype)
+    h = (_act(gate, cfg.ffn_act) * up).to(x.dtype)
     down = product(h, layer["ffn_down_exps"])  # [Sp, E] or [s_pad, E] f32
     if ragged:
         down = down.index_select(0, dest)  # back to (s, slot) pair order
@@ -171,7 +217,9 @@ def _ffn_moe_sparse(layer: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Ten
 
 def _ffn_moe(layer: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """MoE FFN. Wire-format experts take the sparse top-k path; dense
-    (f32/f16/bf16) experts the all-expert einsums, as the JAX package."""
+    (f32/f16/bf16) experts the all-expert einsums, as the JAX package. A
+    shared expert (qwen2moe) adds its FFN, times the sigmoid of its gate
+    where the layer has one, in f32 before the cast."""
     if isinstance(layer.get("ffn_gate_up_exps", layer.get("ffn_gate_exps")), WireTensor):
         out = _ffn_moe_sparse(layer, x, cfg)
     else:
@@ -180,10 +228,24 @@ def _ffn_moe(layer: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
                            device=x.device).scatter_add_(-1, top_i, gate_w)
         gate = torch.einsum("bte,nfe->btnf", x, layer["ffn_gate_exps"])
         up = torch.einsum("bte,nfe->btnf", x, layer["ffn_up_exps"])
-        act = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
+        act = _act(gate, cfg.ffn_act).to(x.dtype) * up
         expert_out = torch.einsum("btnf,nef->btne", act, layer["ffn_down_exps"])
         out = torch.einsum("btne,btn->bte", expert_out.float(), comb)
+    if "ffn_up_shexp" in layer:
+        shexp = {"ffn_gate": layer["ffn_gate_shexp"], "ffn_up": layer["ffn_up_shexp"],
+                 "ffn_down": layer["ffn_down_shexp"]}
+        sh = _ffn(shexp, x, cfg).float()
+        if "ffn_gate_inp_shexp" in layer:
+            sh = sh * torch.sigmoid(qmatmul(x, layer["ffn_gate_inp_shexp"]).float())
+        out = out + sh
     return out.to(x.dtype)
+
+
+def _scale_in(x: torch.Tensor, value: float) -> torch.Tensor:
+    """x * value with value rounded to x's dtype first, as the JAX package
+    multiplies by jnp.asarray(value, dtype): a Python scalar, so the step
+    copies nothing from the host."""
+    return x * float(torch.tensor(value, dtype=x.dtype))
 
 
 def forward(
@@ -191,46 +253,63 @@ def forward(
     cfg: ModelConfig,
     tokens: torch.Tensor,     # [B, T] int64
     positions: torch.Tensor,  # [B, T] absolute positions
-    cache: KVCache | QuantKVCache,
+    cache: KVCache | QuantKVCache | SwaKVCache,
     write_pos: torch.Tensor,  # [B] int32 cache write offsets (= valid old length)
     dtype=torch.bfloat16,
     logits_last=None,         # host ints [B]: compute the LM head only there
     kv_cap: int | None = None,  # bound on the attended cache prefix
     write_mask: torch.Tensor | None = None,  # [B] bool on the device: rows whose K/V land
-) -> tuple[torch.Tensor, KVCache | QuantKVCache]:
+    n_new: torch.Tensor | None = None,  # [B] int32 on the device: real tokens of the block
+) -> tuple[torch.Tensor, KVCache | QuantKVCache | SwaKVCache]:
     """Returns (logits [B, T, V] f32 — [B, 1, V] with logits_last — and the
     cache, updated in place). Layers read the old cache and attend to the
     current block explicitly; one bulk write lands all layers' K/V, in the
     rows of write_mask only when it is given (a row that is not active
     writes nothing). The cache may be a one-row view of a larger cache
-    (KVCache.row): the write lands there in place."""
+    (KVCache.row): the write lands there in place. On a ring cache
+    (SwaKVCache) the sliding-window layers read their ring through the
+    masked attention with the ring mask, the JAX forward's route for a ring
+    (models/llama.py:320-329), and the global layers read the full store
+    through the flash kernels; `n_new` keeps a padded prefill's pads out of
+    the ring."""
     B, T = tokens.shape
     H, Hkv = cfg.n_head, cfg.n_head_kv
     Dk, Dv = cfg.head_dim_k, cfg.head_dim_v
     scale = cfg.kq_scale
     if kv_cap is not None and kv_cap >= cache.max_seq:
         kv_cap = None
+    ring = isinstance(cache, SwaKVCache)
+    flat = cache.full if ring else cache  # the store the flash routes read
     # decode routes of the JAX forward (models/llama.py:444-452): stacked by
     # default; with LLAMACOG_FLASH_STACKED=0 per layer — a quantized cache
     # to K8, the dense one to K9 when LLAMACOG_FLASH_DECODE=1, else masked
     use_stacked = flash_q8.stacked_decode_supported(T)
-    use_q8 = not use_stacked and flash_q8.decode_supported(cache, T)
-    use_flash = flash_decode.supported(cfg, cache, T)
+    use_q8 = not use_stacked and flash_q8.decode_supported(flat, T)
+    use_flash = flash_decode.supported(cfg, flat, T)
+    if ring:
+        ring_ok = swa_ring_mask(write_pos, T, cache.window, cfg.sliding_window)
+        ring_cur = intra_block_mask(T, cfg.sliding_window, device=tokens.device)
 
     def _attend(q, k, v, il, is_swa):
         win = cfg.sliding_window if is_swa else 0
         softcap = cfg.attn_logit_softcap
+        if ring:
+            is_ring, il = cache.index(il)
+            if is_ring:
+                k_old, v_old = cache.read_ring(il)
+                return masked_attention(q, k_old, v_old, k, v, ring_ok, ring_cur, scale,
+                                        logit_softcap=softcap)
         if use_stacked:
             return flash_q8.decode_from_cache(
-                q[:, 0], cache, il, k[:, 0], v[:, 0], write_pos, scale,
+                q[:, 0], flat, il, k[:, 0], v[:, 0], write_pos, scale,
                 softcap=softcap, window=win, kv_cap=kv_cap)[:, None]
         if use_q8:
             return flash_q8.flash_decode_q8_auto(
-                q[:, 0], tuple(p[il] for p in cache.k_planes),
-                tuple(p[il] for p in cache.v_planes), k[:, 0], v[:, 0], write_pos, scale,
-                softcap=softcap, window=win, kv_cap=kv_cap, kinds=cache.kinds)[:, None]
+                q[:, 0], tuple(p[il] for p in flat.k_planes),
+                tuple(p[il] for p in flat.v_planes), k[:, 0], v[:, 0], write_pos, scale,
+                softcap=softcap, window=win, kv_cap=kv_cap, kinds=flat.kinds)[:, None]
         if T == 1:
-            k_old, v_old = cache.read(il)
+            k_old, v_old = flat.read(il)
             if kv_cap is not None:
                 k_old, v_old = k_old[:, :kv_cap], v_old[:, :kv_cap]
             if use_flash:
@@ -241,29 +320,35 @@ def forward(
                                     old_cache_mask(write_pos, 1, k_old.shape[1], win),
                                     intra_block_mask(1, win, device=q.device), scale,
                                     logit_softcap=softcap)
-        if isinstance(cache, QuantKVCache):
+        if isinstance(flat, QuantKVCache):
             return flash_q8.flash_prefill_q8(
-                q, tuple(p[il] for p in cache.k_planes), tuple(p[il] for p in cache.v_planes),
-                k, v, write_pos, scale, softcap=cfg.attn_logit_softcap, window=win,
-                kv_cap=kv_cap, kinds=cache.kinds)
-        k_old, v_old = cache.read(il)
+                q, tuple(p[il] for p in flat.k_planes), tuple(p[il] for p in flat.v_planes),
+                k, v, write_pos, scale, softcap=softcap, window=win,
+                kv_cap=kv_cap, kinds=flat.kinds)
+        k_old, v_old = flat.read(il)
         if kv_cap is not None:
             k_old, v_old = k_old[:, :kv_cap], v_old[:, :kv_cap]
         return flash_prefill.flash_prefill_attention(
-            q, k_old, v_old, k, v, write_pos, scale, softcap=cfg.attn_logit_softcap,
-            window=win)
+            q, k_old, v_old, k, v, write_pos, scale, softcap=softcap, window=win)
 
     x = embed_tokens(params, tokens, dtype)
-    # llama-3.1 style per-dim rope factors (llama_model::get_rope_factors)
-    rtab = rope_tables(positions, cfg.rope, Dk, params.get("rope_freqs"))
+    if cfg.embd_scale != 1.0:  # Gemma: sqrt(n_embd), multiplied in the activation dtype
+        x = _scale_in(x, cfg.embd_scale)
+    # llama-3.1 style per-dim rope factors (llama_model::get_rope_factors);
+    # gemma3's local layers take a rope of their own (base 10000, no scaling)
+    freq_factors = params.get("rope_freqs")
+    rtab = rope_tables(positions, cfg.rope, Dk, freq_factors)
+    rtab_swa = (rope_tables(positions, cfg.rope_swa, Dk, freq_factors)
+                if cfg.rope_freq_base_swa > 0.0 else rtab)
     rdim = cfg.rope.dim or Dk
+    eps = cfg.rms_norm_eps
     new_ks, new_vs = [], []
     for il, layer in enumerate(params["layers"]):
         if not any(kk in layer for kk in ("attn_qkv", "attn_qk", "attn_q")):
             raise NotImplementedError("attention-free layers are not ported yet")
-        h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
+        h = rms_norm(x, layer["attn_norm"], eps)
         if "attn_qkv" in layer:
-            qkv = qmatmul(h, layer["attn_qkv"])
+            qkv = _linear(h, layer, "attn_qkv")
             q, k, v = qkv.split([H * Dk, Hkv * Dk, Hkv * Dv], dim=-1)
         elif "attn_qk" in layer:
             # q+k fused when v's quant kind differs; qk and v ride ONE launch
@@ -271,30 +356,45 @@ def forward(
             q, k = qk.split([H * Dk, Hkv * Dk], dim=-1)
         else:
             q, k, v = _linear_multi(h, layer, ("attn_q", "attn_k", "attn_v"))
-        q = q.reshape(B, T, H, Dk)
-        k = k.reshape(B, T, Hkv, Dk)
-        v = v.reshape(B, T, Hkv, Dv)
-        q = apply_rope_tables(q, rtab, rdim, interleaved=cfg.rope.interleaved)
-        k = apply_rope_tables(k, rtab, rdim, interleaved=cfg.rope.interleaved).contiguous()
+        # by the weights' rows, never n_embd: Qwen3-30B-A3B's q is 4096 wide
+        # over an n_embd of 2048
+        q = q.reshape(B, T, -1, Dk)
+        k = k.reshape(B, T, -1, Dk)
+        v = v.reshape(B, T, -1, Dv)
+        if "attn_q_norm" in layer:  # qwen3, gemma3: per-head rms norm
+            q = rms_norm(q, layer["attn_q_norm"], eps)
+            k = rms_norm(k, layer["attn_k_norm"], eps)
+        is_swa = cfg.is_swa(il)
+        tab = rtab_swa if is_swa else rtab
+        q = apply_rope_tables(q, tab, rdim, interleaved=cfg.rope.interleaved)
+        k = apply_rope_tables(k, tab, rdim, interleaved=cfg.rope.interleaved).contiguous()
         v = v.contiguous()
         new_ks.append(k)
         new_vs.append(v)
-        attn = _attend(q.contiguous(), k, v, il, cfg.is_swa(il))
-        attn = qmatmul(attn.reshape(B, T, H * Dv), layer["attn_output"])
+        attn = _attend(q.contiguous(), k, v, il, is_swa)
+        attn = _linear(attn.reshape(B, T, H * Dv), layer, "attn_output")
+        if cfg.post_norms and "attn_post_norm" in layer:
+            attn = rms_norm(attn, layer["attn_post_norm"], eps)
         x = x + attn
-        h = rms_norm(x, layer["ffn_norm"], cfg.rms_norm_eps)
+        h = rms_norm(x, layer["ffn_norm"], eps)
         if cfg.n_expert > 0 and "ffn_gate_inp" in layer:
-            x = x + _ffn_moe(layer, h, cfg)
+            ffn = _ffn_moe(layer, h, cfg)
         else:
-            x = x + _ffn(layer, h)
+            ffn = _ffn(layer, h, cfg)
+        if cfg.post_norms and "ffn_post_norm" in layer:
+            ffn = rms_norm(ffn, layer["ffn_post_norm"], eps)
+        x = x + ffn
 
     cache = cache.write_all(torch.stack(new_ks), torch.stack(new_vs), write_pos,
-                            active=write_mask)
+                            active=write_mask, n_new=n_new)
     if logits_last is not None:
         idx = torch.as_tensor(logits_last, device=x.device).long().reshape(B, 1, 1)
         x = torch.gather(x, 1, idx.expand(B, 1, x.shape[-1]))
-    x = rms_norm(x, params["output_norm"], cfg.rms_norm_eps)
-    out_w = params.get("output", params["tok_embd"])
+    x = rms_norm(x, params["output_norm"], eps)
+    out_w = params.get("output", params["tok_embd"])  # tied: the embedding table
     # f32 kernel output, rounded to the activation dtype, then f32 logits
     logits = qmatmul(x, out_w).float()
+    if cfg.final_logit_softcap > 0.0:  # gemma2
+        c = cfg.final_logit_softcap
+        logits = c * torch.tanh(logits / c)
     return logits, cache

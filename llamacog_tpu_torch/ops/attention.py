@@ -37,6 +37,21 @@ def intra_block_mask(t: int, window: int = 0, device=None) -> torch.Tensor:
     return ok
 
 
+def swa_ring_mask(write_pos: torch.Tensor, t: int, ring_w: int, window: int) -> torch.Tensor:
+    """Boolean [B, T, W] over a sliding-window ring of W slots (the
+    counterpart of kv_cache.py::build_swa_ring_mask): slot j of a row with
+    write offset p holds absolute position a = p-1 - ((p-1-j) mod W), and
+    query i (position p + i) may attend to it iff a >= 0 and a > p + i -
+    window. Built on the device from write_pos alone, so a captured decode
+    step rebuilds it at every replay."""
+    dev = write_pos.device
+    j = torch.arange(ring_w, device=dev)[None, None, :]
+    p1 = write_pos.long()[:, None, None] - 1
+    a = p1 - torch.remainder(p1 - j, ring_w)  # [B, 1, W]
+    q = p1 + 1 + torch.arange(t, device=dev)[None, :, None]  # [B, T, 1]
+    return (a >= 0) & (a > q - window)
+
+
 def masked_attention(
     q: torch.Tensor,       # [B, T, H, Dk]
     k: torch.Tensor,       # [B, S, Hkv, Dk] old cache

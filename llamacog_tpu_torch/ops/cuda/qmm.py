@@ -14,7 +14,12 @@ the batch is a GEMM batch, as the Pallas kernels round at B > 8 on a bf16
 model; an f32 model keeps f32 operands, as the JAX package's f32 path does.
 
 The launchers take CUDA tensors only and raise otherwise; ``ops/linear.py``
-sends CPU tensors to :func:`qmm_plain`. No single PyTorch call computes a
+sends CPU tensors to :func:`qmm_plain`. A weight whose rows are padded to
+a whole 256-weight run (a 32-weight-block kind at K = 896, say:
+quant/wire.py) takes x as it is in qmv, whose row walk reads x only below
+K (the decode path pays nothing for the pad), and x padded with zero
+columns to match in qgemm (one copy of the prefill chunk before the
+launch). No single PyTorch call computes a
 product against GGUF blocks, so qmm has no library yardstick.
 """
 
@@ -24,7 +29,7 @@ import ctypes
 
 import torch
 
-from ...quant.wire import CODEBOOK_KINDS, LOW_BIT_KINDS, WireTensor, dequantize
+from ...quant.wire import CODEBOOK_KINDS, LOW_BIT_KINDS, WireTensor, dequantize, pad_k
 from . import build
 
 QMV_MAX_B = 8
@@ -94,6 +99,8 @@ def _launch(fn_name: str, counter: str, x: torch.Tensor, ws) -> list[torch.Tenso
             raise ValueError(f"{counter}: weight blocks must be 16-byte aligned")
     if not share_launch(w.kind for w in ws):
         raise ValueError(f"{counter}: kinds {[w.kind for w in ws]} cannot share a launch")
+    if fn_name == "lcg_qgemm":  # the GEMM tile walks whole runs of x
+        x, K = pad_k(x, ws[0]), ws[0].k_pad
     if x.data_ptr() % 16:
         raise ValueError(f"{counter}: x must be 16-byte aligned")
     outs = [torch.empty((B, w.shape[0]), dtype=torch.float32, device=x.device) for w in ws]

@@ -20,6 +20,10 @@ selected experts' bytes are read:
   K10 kernel over ids_rows = repeat(tile_expert, tt), the JAX package's
   own non-TPU route (models/llama.py:168-169).
 
+A stack of a 32-weight-block kind whose rows are padded to a whole
+256-weight run (quant/wire.py) takes x as it is in K10, whose row walk
+reads x only below K, and x padded with zero columns to match in K11.
+
 A row (or tile) whose expert lies outside [0, n_exp) gives zeros and reads
 no weights: the MoE sort (models/llama.py::moe_sort) marks the padding
 tiles past the last used expert so. The kernels read ids and tile_expert
@@ -33,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from ...quant.wire import WireTensor, dequantize_experts
+from ...quant.wire import WireTensor, dequantize_experts, pad_k
 from . import build
 from .qmm import _KIND_ID
 
@@ -129,10 +133,11 @@ def qgemm_id_kernel(xs: torch.Tensor, tile_expert: torch.Tensor, w: WireTensor,
             RAGGED_MAX_TILES:
         raise ValueError(f"qgemm_id: {tile_expert.shape[0]} tiles of {tt} for "
                          f"{xs.shape[0]} rows (1 to {RAGGED_MAX_TILES} tiles)")
-    n_exp, n, k = w.shape
+    n_exp, n, _ = w.shape
+    xs = pad_k(xs, w)
     out = torch.empty((xs.shape[0], n), dtype=torch.float32, device=xs.device)
     lib = build.load("qgemm_id")
-    rc = lib.lcg_qgemm_id(xs.data_ptr(), build.DTYPE_ID[xs.dtype], xs.shape[0], k,
+    rc = lib.lcg_qgemm_id(xs.data_ptr(), build.DTYPE_ID[xs.dtype], xs.shape[0], w.k_pad,
                           w.blocks.data_ptr(), _KIND_ID[w.kind], n_exp, n,
                           tile_expert.data_ptr(), tt, out.data_ptr(),
                           torch.cuda.current_stream(xs.device).cuda_stream)

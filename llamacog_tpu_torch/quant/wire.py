@@ -14,6 +14,17 @@ bytes, q4_1 20, q5_0 22, q5_1 24, q8_0 34, iq4_nl 18), so 256 weights take
 eight of them (144, 160, 176, 192, 272, 144 bytes) and a row of K weights
 is K / 256 such runs, as for the K-quants. The IQ kinds' levels come from
 the tables of quant/iq_tables.py.
+
+A 32-weight-block kind (Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, IQ4_NL) may have a
+row length K that is a multiple of 32 but not of 256 (llama.cpp gives such
+kinds to the rows a K-quant cannot split: n_embd 896 or 1152, an expert
+FFN of 1408). Such a row is padded at carry time with zero blocks to
+``k_pad``, the next multiple of 256: a zero block decodes to zeros (scale
+0, and min 0 for Q4_1/Q5_1), so the kernels keep their whole-run weight
+reads. The matvec row walk (qmv, qmv_id) reads x only below K; the GEMM
+tiles (qgemm, qgemm_id) take x padded with zeros to k_pad (pad_k), and a
+zero block times a zero column adds exactly 0. The logical shape keeps the
+true K; the plain dequantizers trim the pad.
 The CUDA kernels read these blocks directly; the plain dequantizers below
 are their reference and the CPU path.
 
@@ -38,6 +49,9 @@ from ..gguf import GGMLType
 from . import iq_tables
 
 QK_K = 256
+# the kinds of 32-weight blocks, whose rows may stop short of a 256-weight run
+BLOCK32_KINDS = ("Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q8_0", "IQ4_NL")
+_BLOCK32_BYTES = {"Q4_0": 18, "Q4_1": 20, "Q5_0": 22, "Q5_1": 24, "Q8_0": 34, "IQ4_NL": 18}
 # wire bytes per QK_K weights (the legacy kinds: eight 32-weight blocks)
 BLOCK_BYTES = {"Q4_K": 144, "Q6_K": 210, "Q8_0": 272, "Q5_K": 176, "Q4_0": 144, "Q4_1": 160,
                "Q5_0": 176, "Q5_1": 192, "Q2_K": 84, "Q3_K": 110, "IQ4_NL": 144, "IQ4_XS": 136,
@@ -58,7 +72,7 @@ class WireTensor:
 
     kind: str
     shape: tuple[int, ...]
-    blocks: torch.Tensor  # uint8 [prod(shape[:-1]), (K // 256) * BLOCK_BYTES[kind]]
+    blocks: torch.Tensor  # uint8 [prod(shape[:-1]), (k_pad // 256) * BLOCK_BYTES[kind]]
     qi8: torch.Tensor | None = None
     ws8T: torch.Tensor | None = None
     decoded: torch.Tensor | None = None
@@ -70,9 +84,10 @@ class WireTensor:
             raise ValueError(f"{self.kind}: shape {self.shape} is neither [N, K] nor "
                              "[n_exp, N, K]")
         k = self.shape[-1]
-        if k % QK_K:
-            raise ValueError(f"{self.kind}: K={k} is not a multiple of {QK_K}")
-        want = (int(np.prod(self.shape[:-1])), k // QK_K * BLOCK_BYTES[self.kind])
+        if k % QK_K and (self.kind not in BLOCK32_KINDS or k % 32):
+            raise ValueError(f"{self.kind}: K={k} is not a multiple of "
+                             f"{32 if self.kind in BLOCK32_KINDS else QK_K}")
+        want = (int(np.prod(self.shape[:-1])), self.k_pad // QK_K * BLOCK_BYTES[self.kind])
         if self.blocks.dtype != torch.uint8 or tuple(self.blocks.shape) != want:
             raise ValueError(f"{self.kind} blocks must be uint8 {want}, got "
                              f"{self.blocks.dtype} {tuple(self.blocks.shape)}")
@@ -95,6 +110,12 @@ class WireTensor:
     @property
     def device(self) -> torch.device:
         return self.blocks.device
+
+    @property
+    def k_pad(self) -> int:
+        """The row length the blocks hold: K rounded up to a 256-weight run
+        (the pad is zero blocks)."""
+        return -(-self.shape[-1] // QK_K) * QK_K
 
     @property
     def nbytes(self) -> int:
@@ -124,11 +145,24 @@ def from_bytes(data, ggml_type, shape, device=None) -> WireTensor:
     if len(shape) not in (2, 3):
         raise NotImplementedError(f"{len(shape)}-D quantized tensors are not ported yet")
     shape = tuple(int(s) for s in shape)
-    n = int(np.prod(shape[:-1]))
+    n, k = int(np.prod(shape[:-1])), shape[-1]
     raw = np.frombuffer(np.ascontiguousarray(data, dtype=np.uint8), np.uint8)
-    row_bytes = shape[-1] // QK_K * BLOCK_BYTES[kind]
+    if k % QK_K and kind in BLOCK32_KINDS and k % 32 == 0:
+        # rows of k / 32 blocks, each padded with zero blocks to a whole run
+        row_bytes = k // 32 * _BLOCK32_BYTES[kind]
+        rows = raw[: n * row_bytes].reshape(n, row_bytes)
+        pad = -(-k // QK_K) * BLOCK_BYTES[kind] - row_bytes
+        raw = np.concatenate([rows, np.zeros((n, pad), np.uint8)], axis=1).reshape(-1)
+    row_bytes = -(-k // QK_K) * BLOCK_BYTES[kind]
     blocks = torch.from_numpy(raw[: n * row_bytes].copy()).reshape(n, row_bytes)
     return WireTensor(kind, shape, blocks.to(device) if device is not None else blocks)
+
+
+def pad_k(x: torch.Tensor, w: WireTensor) -> torch.Tensor:
+    """x [..., K] with zero columns up to w.k_pad, for the kernels, which
+    walk whole 256-weight runs (x itself where K is one already)."""
+    pad = w.k_pad - x.shape[-1]
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x
 
 
 def dense_from_bytes(data, ggml_type, shape) -> np.ndarray:
@@ -474,6 +508,9 @@ def dequantize(w: WireTensor, dtype=torch.float32) -> torch.Tensor:
     if w.decoded is not None:
         return w.decoded.to(dtype, copy=True)
     out = _DEQUANT[w.kind](w.blocks.reshape(-1, BLOCK_BYTES[w.kind]))
+    k = w.shape[-1]
+    if w.k_pad != k:  # the zero blocks of a padded row go
+        out = out.reshape(-1, w.k_pad)[:, :k]
     return out.reshape(w.shape).to(dtype)
 
 

@@ -1,8 +1,11 @@
 """Generation engine over B rows of one KV cache (PyTorch).
 
-Counterpart of llamacog_tpu/runtime/engine.py::Engine for the llama path,
-with the dense cache or the quantized one (kv_type, the -ctk/-ctv kinds,
-through make_cache): prefill in padded length buckets (the pad slots are
+Counterpart of llamacog_tpu/runtime/engine.py::Engine for the llama,
+Qwen and Gemma families, with the dense cache or the quantized one
+(kv_type, the -ctk/-ctv kinds, through make_cache), or, for a dense cache
+of a model with interleaved sliding-window layers whose window is shorter
+than max_seq, the ring cache (SwaKVCache: the JAX engine's choice,
+engine.py:103-118): prefill in padded length buckets (the pad slots are
 written to the cache, as the JAX engine writes them), one-token decode
 steps, and a greedy loop that keeps the token on the device. The cache bound `_kv_cap`
 is the JAX engine's. With batch_size B > 1 each row is a sequence of its
@@ -33,14 +36,33 @@ import torch
 from .. import resolve_device
 from ..models.config import ModelConfig
 from ..models.llama import check_supported, forward
-from ..ops.cuda import build
+from ..ops.cuda import build, qmm_id
 from ..ops.rope import rope_shift
 from ..quant.mmq import attach_mmq_planes
-from .kv_cache import QuantKVCache, make_cache
+from .kv_cache import QuantKVCache, SwaKVCache, make_cache
 
 PREFILL_BUCKETS = (32, 128, 512, 2048)
 # longest single prefill step; longer prompts loop chunks of this size
 PREFILL_MAX_CHUNK = 2048
+
+
+def prefill_chunk(config: ModelConfig) -> int:
+    """The longest prefill step of a model: PREFILL_MAX_CHUNK, or for a MoE
+    model the longest bucket whose expert-sorted rows fit one launch of the
+    grouped GEMM (K11 takes qmm_id.RAGGED_MAX_TILES token tiles: a step of
+    T tokens pads to T * top-k + n_expert * (tile - 1) rows, so Qwen3-30B-A3B
+    (128 experts, top 8) takes 512-token steps, where 2048 would need 1144
+    tiles). The JAX engine's tiles are 64 rows with no cap, so it keeps
+    2048."""
+    if not config.n_expert:
+        return PREFILL_MAX_CHUNK
+    tt = qmm_id.RAGGED_TILE
+    for t in sorted(PREFILL_BUCKETS, reverse=True):
+        rows = t * config.n_expert_used + config.n_expert * (tt - 1)
+        if -(-rows // tt) <= qmm_id.RAGGED_MAX_TILES:
+            return t
+    raise NotImplementedError(f"{config.n_expert} experts: no prefill step fits the grouped "
+                              f"GEMM's {qmm_id.RAGGED_MAX_TILES} tiles")
 
 
 def _bucket(n: int) -> int:
@@ -185,24 +207,39 @@ class Engine:
         self.batch_size = batch_size
         self.max_seq = max_seq
         self.dtype = dtype
-        self.cache = make_cache(kv_type, config.n_layer, batch_size, max_seq, config.n_head_kv,
-                                config.head_dim_k, config.head_dim_v, dtype=dtype,
-                                device=self.device)
+        if (kv_type == "dense" and config.sliding_window > 0 and config.swa_pattern > 1
+                and config.sliding_window < max_seq and config.swa_type != "chunked"):
+            # the sliding-window layers keep a window-sized ring, not max_seq slots
+            self.cache = SwaKVCache.create(
+                tuple(config.is_swa(il) for il in range(config.n_layer)), batch_size, max_seq,
+                config.sliding_window, config.n_head_kv, config.head_dim_k, config.head_dim_v,
+                dtype=dtype, device=self.device)
+        else:
+            self.cache = make_cache(kv_type, config.n_layer, batch_size, max_seq,
+                                    config.n_head_kv, config.head_dim_k, config.head_dim_v,
+                                    dtype=dtype, device=self.device)
         self.seq_len = np.zeros(batch_size, dtype=np.int32)  # host-side lengths
         self.decoder = DecodeStep(batch_size, config.n_vocab, max_seq, self.device)
 
     def _dev_i32(self, values) -> torch.Tensor:
         return torch.as_tensor(np.asarray(values, np.int32), device=self.device)
 
+    @property
+    def ring(self) -> bool:
+        """Whether the cache is the sliding-window ring (SwaKVCache)."""
+        return isinstance(self.cache, SwaKVCache)
+
     def _step(self, tokens: torch.Tensor, write_pos: torch.Tensor, t: int,
-              last_pos=None, kv_cap=None, write_mask=None, cache=None) -> torch.Tensor:
+              last_pos=None, kv_cap=None, write_mask=None, cache=None,
+              n_new=None) -> torch.Tensor:
         """forward over `cache` (the engine's by default; a row's view for a
-        row prefill), which it updates in place."""
+        row prefill), which it updates in place; n_new [B] on the device:
+        the real tokens of a padded block (None: all t)."""
         positions = write_pos[:, None].long() + torch.arange(t, device=self.device)[None, :]
         logits, _ = forward(
             self.params, self.config, tokens, positions,
             self.cache if cache is None else cache, write_pos, dtype=self.dtype,
-            logits_last=last_pos, kv_cap=kv_cap, write_mask=write_mask)
+            logits_last=last_pos, kv_cap=kv_cap, write_mask=write_mask, n_new=n_new)
         return logits
 
     def _kv_cap(self, needed: int) -> int | None:
@@ -240,7 +277,7 @@ class Engine:
         toks[0, :n] = torch.as_tensor(np.asarray(token_ids, np.int64))
         view = {} if self.batch_size == 1 else {"cache": self.cache.row(row)}
         logits = self._step(toks.to(self.device), self._dev_i32([wp]), t, last_pos=[n - 1],
-                            kv_cap=self._kv_cap(wp + t), **view)
+                            kv_cap=self._kv_cap(wp + t), n_new=self._dev_i32([n]), **view)
         self.seq_len[row] += n
         return logits[0, -1]
 
@@ -250,12 +287,14 @@ class Engine:
 
     def prefill(self, token_ids: list[int], row: int = 0) -> np.ndarray:
         """Feed a prompt into one row; returns the f32 logits [V] of its last
-        token. Prompts longer than PREFILL_MAX_CHUNK run as a chunk loop."""
+        token. Prompts longer than the model's prefill_chunk run as a chunk
+        loop."""
         if not len(token_ids):
             raise ValueError("empty prompt: nothing to prefill")
         self._check_row(row)
-        for off in range(0, len(token_ids), PREFILL_MAX_CHUNK):
-            logits = self._prefill_chunk(token_ids[off : off + PREFILL_MAX_CHUNK], row)
+        chunk = prefill_chunk(self.config)
+        for off in range(0, len(token_ids), chunk):
+            logits = self._prefill_chunk(token_ids[off : off + chunk], row)
         return logits.cpu().numpy()
 
     def _active(self, active) -> np.ndarray:
@@ -296,10 +335,17 @@ class Engine:
         self.seq_len[row] = 0
 
     def set_seq_len(self, row: int, n: int) -> None:
-        """Truncate a row's valid length (prefix-cache reuse)."""
+        """Truncate a row's valid length (prefix-cache reuse). A ring row
+        cannot be truncated: its ring keeps the positions past n, which the
+        ring mask would read as older ones (the JAX engine truncates it all
+        the same and computes from those slots, ROADMAP §3.11); clear it and
+        prefill it anew, llama.cpp's rule for a sliding-window cache."""
         self._check_row(row)
         if not 0 <= n <= self.max_seq:
             raise ValueError(f"seq_len {n} out of range for max_seq {self.max_seq}")
+        if self.ring and n < int(self.seq_len[row]):
+            raise ValueError(f"row {row}: a sliding-window ring row of {self.seq_len[row]} "
+                             f"tokens cannot be truncated to {n}; clear it and prefill anew")
         self.seq_len[row] = n
 
     def copy_row(self, src: int, dst: int) -> None:
@@ -323,6 +369,11 @@ class Engine:
         s = int(self.seq_len[row])
         if n_discard <= 0 or s - (n_keep + n_discard) < 0:
             return
+        if self.ring:
+            # the JAX shift_fn reads cache.k, which its SwaKVCache lacks: it
+            # raises AttributeError (ROADMAP §3.11)
+            raise NotImplementedError("context shift over a sliding-window ring cache is not "
+                                      "ported yet (the JAX engine has none either)")
         c, S, dev = self.cache, self.max_seq, self.device
         idx = torch.arange(S, device=dev)
         keep = idx < n_keep

@@ -1,7 +1,9 @@
-"""Static-shape KV caches: the dense store and the quantized plane store.
+"""Static-shape KV caches: the dense store, the quantized plane store and
+the sliding-window ring.
 
 Counterpart of llamacog_tpu/runtime/kv_cache.py (KVCache, the per-kind
-plane codecs, QuantKVCache, Q4KVCache, parse_kv_kinds, make_cache). The
+plane codecs, QuantKVCache, Q4KVCache, SwaKVCache, parse_kv_kinds,
+make_cache). The
 JAX version returns a new cache from every write; these are updated in
 place (the deferred bulk write of a step lands with one index_copy_ per
 plane), which saves the cache-sized copies a functional update
@@ -73,12 +75,15 @@ class KVCache:
             p[:, dst].copy_(p[:, src])
 
     def write_all(self, k_new: torch.Tensor, v_new: torch.Tensor,
-                  write_pos: torch.Tensor, active: torch.Tensor | None = None) -> "KVCache":
+                  write_pos: torch.Tensor, active: torch.Tensor | None = None,
+                  n_new: torch.Tensor | None = None) -> "KVCache":
         """Deferred bulk write of a step, in place: [L, B, T, Hkv, D] for all
         layers at per-row offsets write_pos [B] (a device tensor, so the
         decode loop needs no host sync). `active` [B] bool (on the device)
         gates the rows: a row that is not active writes nothing. The caller
-        keeps write_pos + T <= max_seq for the rows it writes."""
+        keeps write_pos + T <= max_seq for the rows it writes. A padded
+        block's pads land past the row's length, as in the JAX cache, so
+        `n_new` (SwaKVCache's) changes nothing here."""
         _write_planes((self.k, self.v), (k_new, v_new), write_pos, active)
         return self
 
@@ -315,13 +320,13 @@ class QuantKVCache:
             p[:, dst].copy_(p[:, src])
 
     def write_all(self, k_new: torch.Tensor, v_new: torch.Tensor,
-                  write_pos: torch.Tensor,
-                  active: torch.Tensor | None = None) -> "QuantKVCache":
+                  write_pos: torch.Tensor, active: torch.Tensor | None = None,
+                  n_new: torch.Tensor | None = None) -> "QuantKVCache":
         """Deferred bulk write of a step, in place: the whole [L, B, T, Hkv, D]
         block is quantized at once (never per layer: each small torch op
         costs host time every token), then each plane lands with
-        index_copy_ at write_pos [B]; `active` gates the rows as in
-        KVCache.write_all."""
+        index_copy_ at write_pos [B]; `active` gates the rows and `n_new`
+        is ignored, as in KVCache.write_all."""
         news = self.quant_k(k_new) + self.quant_v(v_new)
         _write_planes(self.planes(), news, write_pos, active)
         return self
@@ -336,6 +341,112 @@ class Q4KVCache(QuantKVCache):
 def quant_cache_class(kinds) -> type:
     """Q4KVCache for the (q4_0, q4_0) pair, QuantKVCache otherwise."""
     return Q4KVCache if tuple(kinds) == ("q4_0", "q4_0") else QuantKVCache
+
+
+class SwaKVCache:
+    """Two stores, the reference's llama_kv_cache_unified_iswa and the JAX
+    package's SwaKVCache (kv_cache.py:482-575): a full KVCache for the
+    global-attention layers and a ring of window + 1 slots for each
+    sliding-window layer, k_swa/v_swa [Ls, B, W + 1, Hkv, D]. The deferred
+    write means the ring only ever holds old tokens, the last W of them:
+    slot j of a row with write offset p holds absolute position
+    p-1 - ((p-1-j) mod W) (ops/attention.py::swa_ring_mask). Slot W is the
+    write dump: a token that is not to land (a pad, an inactive row, or
+    one of more than W new tokens) is scattered there. Written in place,
+    with index tensors made at construction, so a captured decode step
+    copies nothing from the host.
+
+    A row cannot be truncated (its ring would keep positions past the new
+    length) or shifted: the engine refuses both by name."""
+
+    def __init__(self, full: KVCache, k_swa: torch.Tensor, v_swa: torch.Tensor,
+                 swa_layers: tuple):
+        self.full = full
+        self.k_swa = k_swa
+        self.v_swa = v_swa
+        self.swa_layers = tuple(bool(s) for s in swa_layers)
+        dev = k_swa.device
+        ids = [[i for i, s in enumerate(self.swa_layers) if s == want] for want in (True, False)]
+        self._swa_ids = torch.tensor(ids[0], dtype=torch.long, device=dev)
+        self._full_ids = torch.tensor(ids[1], dtype=torch.long, device=dev)
+
+    @property
+    def max_seq(self) -> int:
+        return self.full.max_seq
+
+    @property
+    def window(self) -> int:
+        return self.k_swa.shape[2] - 1  # the last slot is the write dump
+
+    @classmethod
+    def create(cls, swa_layers, batch, max_seq, window, n_head_kv, head_dim_k, head_dim_v,
+               dtype=torch.bfloat16, device=None) -> "SwaKVCache":
+        n_swa = sum(bool(s) for s in swa_layers)
+        w = min(window, max_seq)
+        return cls(
+            KVCache.create(len(swa_layers) - n_swa, batch, max_seq, n_head_kv, head_dim_k,
+                           head_dim_v, dtype=dtype, device=device),
+            torch.zeros((n_swa, batch, w + 1, n_head_kv, head_dim_k), dtype=dtype, device=device),
+            torch.zeros((n_swa, batch, w + 1, n_head_kv, head_dim_v), dtype=dtype, device=device),
+            swa_layers)
+
+    def index(self, layer: int) -> tuple[bool, int]:
+        """(whether model layer `layer` is a ring layer, its index in its
+        store)."""
+        is_swa = self.swa_layers[layer]
+        return is_swa, sum(1 for s in self.swa_layers[:layer] if s == is_swa)
+
+    def read_ring(self, i: int):
+        """(k, v) [B, W, Hkv, D] views of ring layer i (the dump slot off);
+        a global layer is read from `full`."""
+        return self.k_swa[i, :, :-1], self.v_swa[i, :, :-1]
+
+    def planes(self) -> tuple:
+        """Every store of the cache, each [L, B, S, ...]."""
+        return self.full.planes() + (self.k_swa, self.v_swa)
+
+    def row(self, r: int) -> "SwaKVCache":
+        """A cache over row r's views: a write to it lands here in place."""
+        view = SwaKVCache.__new__(SwaKVCache)
+        view.full = self.full.row(r)
+        view.k_swa, view.v_swa = self.k_swa[:, r:r + 1], self.v_swa[:, r:r + 1]
+        view.swa_layers, view._swa_ids, view._full_ids = (self.swa_layers, self._swa_ids,
+                                                          self._full_ids)
+        return view
+
+    def copy_row(self, src: int, dst: int) -> None:
+        """Row dst's stores become row src's, on the device."""
+        for p in self.planes():
+            p[:, dst].copy_(p[:, src])
+
+    def write_all(self, k_new: torch.Tensor, v_new: torch.Tensor,
+                  write_pos: torch.Tensor, active: torch.Tensor | None = None,
+                  n_new: torch.Tensor | None = None) -> "SwaKVCache":
+        """The global layers' K/V go to the full store (KVCache.write_all);
+        of the ring layers' [Ls, B, T, ...] block, the last W real tokens
+        of each active row land at slot (write_pos + i) mod W, the rest in
+        the dump slot (the JAX write_row, kv_cache.py:539-575). n_new [B]:
+        the block's real tokens (None: all T)."""
+        if self._full_ids.numel():
+            self.full.write_all(k_new.index_select(0, self._full_ids),
+                                v_new.index_select(0, self._full_ids), write_pos, active)
+        if not self._swa_ids.numel():
+            return self
+        B, T = k_new.shape[1], k_new.shape[2]
+        W = self.window
+        dev = write_pos.device
+        i_tok = torch.arange(T, device=dev)[None, :]
+        n = (torch.full_like(write_pos, T) if n_new is None else n_new).long()[:, None]
+        valid = (i_tok < n) & (i_tok >= n - W)
+        if active is not None:
+            valid = valid & active[:, None]
+        slot = torch.where(valid, torch.remainder(write_pos.long()[:, None] + i_tok, W), W)
+        flat = (torch.arange(B, device=dev)[:, None] * (W + 1) + slot).reshape(B * T)
+        for store, new in ((self.k_swa, k_new), (self.v_swa, v_new)):
+            ls = store.shape[0]
+            val = new.index_select(0, self._swa_ids).reshape(ls, B * T, -1).to(store.dtype)
+            store.view(ls, B * (W + 1), -1).index_copy_(1, flat, val)
+        return self
 
 
 _KIND_ALIASES = {"q8": "q8_0", "q4": "q4_0", "f32": "dense", "dense": "dense",

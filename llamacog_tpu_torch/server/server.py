@@ -9,7 +9,13 @@ round (prefix reuse, chunks of PREFILL_CHUNK tokens), then decode one token
 for every generating slot in one batched step (Engine.decode_one with the
 slots' active mask: one replay of the step's CUDA graph on the GPU);
 results stream back through per-task queues (SSE). A slot whose context
-fills shifts it (Engine.shift_row) unless context shift is off.
+fills shifts it (Engine.shift_row) unless context shift is off. On a
+model whose engine keeps the sliding-window ring (SwaKVCache), which can
+be neither shifted nor truncated, context shift is off (the JAX server's
+own branch for it: n_predict clamped to the room left, the slot finished
+at its context) and a prompt that shares only part of a slot's cached
+tokens is prefilled anew in that slot (llama.cpp's rule for a
+sliding-window cache).
 
 Endpoints: /health, /props, /metrics, /slots, /v1/models, /completion(s),
 /v1/completions, /chat/completions, /v1/chat/completions, /api/chat,
@@ -117,7 +123,8 @@ class ServerContext:
             max_seq=ctx_size, dtype=dtype or torch.bfloat16, kv_type=kv_type,
             device=device,
         )
-        self.ctx_shift = ctx_shift
+        # a ring cannot be shifted (Engine.shift_row refuses it)
+        self.ctx_shift = ctx_shift and not self.engine.ring
         self.slots = [Slot(i) for i in range(n_slots)]
         self.pending: "queue.Queue[Task]" = queue.Queue()
         self.ctx_size = ctx_size
@@ -218,6 +225,10 @@ class ServerContext:
                     limit = min(len(slot.cache_tokens), len(ids) - 1)
                     while n_common < limit and slot.cache_tokens[n_common] == ids[n_common]:
                         n_common += 1
+                if self.engine.ring and n_common != int(self.engine.seq_len[slot.id]):
+                    # the row's ring holds positions past n_common: a ring
+                    # row is reused whole or prefilled anew
+                    n_common = 0
                 if n_common > 0:
                     self.engine.set_seq_len(slot.id, n_common)
                 else:

@@ -2,7 +2,7 @@
 of the port, timed in turns on one GPU.
 
     python -m llamacog_tpu_torch.tools.attn_compare --baseline DIR [--iters 31]
-        [--only attn|weights|quant|prefill_quant|i8]
+        [--only attn|weights|quant|prefill_quant|i8|block32]
 
 DIR is another checkout of the repository (for example an older commit
 unpacked by ``git archive``); its ``llamacog_tpu_torch`` is imported under
@@ -33,7 +33,11 @@ bf16, which is what K7's tiles multiply): K7's target is K5's time on
 the same work. The int8 prefill route (``--only i8``): the K13 GEMM of both
 trees and ``torch._int_mm`` over the planes of the five 8B layer weights at
 512 and 300 rows, and this tree's activation quantization kernel beside
-the baseline's route for it (``quantize_activations``, torch ops). Two
+the baseline's route for it (``quantize_activations``, torch ops). The
+32-weight-block kinds (``--only block32``: Q4_0, Q4_1, Q5_0, Q5_1, Q8_0,
+IQ4_NL) at whole 256-weight runs, which both trees take: qmv (K1) at one
+row over the 8B gate_up and ffn_down, and the gather qmv_id (K10) at 2 and
+32 rows over the Mixtral-8x7B gate_up and down stacks. Two
 spans:
 
 - ``enqueue``: CUDA events around the call right after the flush, the span
@@ -86,7 +90,8 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", type=Path, required=True,
                     help="root of another checkout of the repository")
     ap.add_argument("--iters", type=int, default=31)
-    ap.add_argument("--only", choices=("attn", "weights", "quant", "prefill_quant", "i8"),
+    ap.add_argument("--only", choices=("attn", "weights", "quant", "prefill_quant", "i8",
+                                       "block32"),
                     default=None,
                     help="time one group of kernels (default: all)")
     args = ap.parse_args(argv)
@@ -114,7 +119,8 @@ def main(argv=None) -> int:
              "weights": ("qmv", "qgemm", "qmv_id", "qgemm_id"),
              "quant": ("flash_decode_quant",),
              "prefill_quant": ("flash_prefill_quant", "flash_prefill"),
-             "i8": ("qmm_i8",)}
+             "i8": ("qmm_i8",),
+             "block32": ("qmv", "qmv_id")}
     names = sum((v for k, v in names.items() if args.only in (None, k)), ())
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         secs = list(pool.map(lambda bld: bld.build(names), (build, b_build)))
@@ -189,7 +195,10 @@ def main(argv=None) -> int:
         prefill_quant(compare, dev, g, flash_q8, flash_prefill, b_q8, H, Hkv, D)
     if args.only in (None, "i8"):
         int8(compare, dev, g, qmm_i8, b_qmm_i8, llama3_8b_config(), random_wire)
-    if args.only in ("weights", "quant", "prefill_quant", "i8"):
+    if args.only in (None, "block32"):
+        block32(compare, dev, g, qmm, qmm_id, b_qmm, b_qmm_id, b_wire, llama3_8b_config(),
+                mixtral_8x7b_config(), random_wire, random_experts)
+    if args.only in ("weights", "quant", "prefill_quant", "i8", "block32"):
         print(json.dumps({"device": torch.cuda.get_device_name(0), "rows": rows}))
         return 0
 
@@ -402,6 +411,39 @@ def weights(args, compare, dev, g, qmm, qmm_id, b_qmm, b_qmm_id, b_wire, WireTen
                 None, library=False)
     del gu, d6, bgu, bd6
     torch.cuda.empty_cache()
+
+
+def block32(compare, dev, g, qmm, qmm_id, b_qmm, b_qmm_id, b_wire, cfg, mcfg, random_wire,
+            random_experts):
+    """qmv and the gather qmv_id of both trees over the 32-weight-block
+    kinds at whole runs (K 4096 and 14336), on the same wire blocks."""
+    import torch
+
+    E, F, n_exp, k_used = cfg.n_embd, cfg.n_ff, mcfg.n_expert, mcfg.n_expert_used
+    for kind in ("Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q8_0", "IQ4_NL"):
+        for label, N, K in (("ffn_gate_up", 2 * F, E), ("ffn_down", E, F)):
+            w = random_wire(kind, N, K, g, dev)
+            bw = b_wire.WireTensor(w.kind, w.shape, w.blocks)
+            x = torch.randn(1, K, generator=g, device=dev).to(torch.bfloat16)
+            compare(f"qmv B=1 {label} {kind}", [
+                ("qmv this", lambda: qmm.qmv(x, [w])[0]),
+                ("qmv baseline", lambda: b_qmm.qmv(x, [bw])[0])],
+                lambda: qmm.qmm_plain(x, w), TOL_QMM, library=False)
+            del w, bw
+        for label, N, K in (("ffn_gate_up_exps", 2 * mcfg.n_ff, E), ("ffn_down_exps", E,
+                                                                    mcfg.n_ff)):
+            w = random_experts(kind, n_exp, N, K, g, dev)
+            bw = b_wire.WireTensor(w.kind, w.shape, w.blocks)
+            for tokens in (1, 16):
+                ids = torch.topk(torch.randn(tokens, n_exp, generator=g, device=dev), k_used,
+                                 dim=-1).indices.reshape(-1).to(torch.int32)
+                x = torch.randn(ids.shape[0], K, generator=g, device=dev).to(torch.bfloat16)
+                compare(f"qmv_id {label} {kind} S={ids.shape[0]}", [
+                    ("qmv_id gather this", lambda: qmm_id.qmm_gather(x, ids, w)),
+                    ("qmv_id gather baseline", lambda: b_qmm_id.qmm_gather(x, ids, bw))],
+                    lambda: qmm_id.qmm_gather_plain(x, ids, w), TOL_QMM, library=False)
+            del w, bw
+        torch.cuda.empty_cache()
 
 
 def int8(compare, dev, g, qmm_i8, b_qmm_i8, cfg, random_wire):

@@ -1,16 +1,25 @@
-"""llamacog-cli (PyTorch port) — generation from a llama GGUF.
+"""llamacog-cli (PyTorch port) — generation from a GGUF of the llama, Qwen
+or Gemma families.
 
 Usage:
     python -m llamacog_tpu_torch.tools.cli -m model.gguf -p "..." -n 64 \
         [--temp 0.8 --top-k 40 --top-p 0.95 --min-p 0.05 --seed -1 | --greedy] \
         [-ctk q8_0 [-ctv q4_0]] [--keep N]
+    python -m llamacog_tpu_torch.tools.cli -m synthetic:gemma3-12b ...
+
+``-m synthetic:NAME`` runs the random-weight Q4_K_M model of a published
+configuration instead of a file (utils/synthetic.py CONFIGS: llama3-8b,
+qwen2.5-7b, qwen3-30b-a3b, gemma3-12b, ...) at its published depth, with a
+synthetic SPM vocab of its size.
 
 Counterpart of llamacog_tpu/tools/cli.py's plain generation path, with its
 sampling flags and defaults: each token is drawn by the sampler chain from
 the logits of one decode step (Engine.decode_one, a replay of the step's
 CUDA graph on the GPU); --greedy is temperature 0. When the context
 (--ctx-size) is full, half of the tokens past the first --keep are dropped
-and generation goes on (Engine.shift_row, as the JAX CLI does). Chat,
+and generation goes on (Engine.shift_row, as the JAX CLI does); the
+-ctk kinds name a full-store cache, never the sliding-window ring, so a
+Gemma model shifts as well. Chat,
 grammars, speculative decoding and session state stay in the JAX CLI for
 now. Runs on the GPU unless --device cpu is given.
 """
@@ -34,7 +43,8 @@ def _kv_type_arg(ctk: str, ctv: str | None) -> str:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="llamacog-cli-torch",
                                 description="llama generation on an NVIDIA GPU")
-    p.add_argument("-m", "--model", required=True, help="GGUF model path")
+    p.add_argument("-m", "--model", required=True,
+                   help="GGUF model path, or synthetic:NAME (utils/synthetic.py CONFIGS)")
     p.add_argument("-p", "--prompt", default="", help="prompt text")
     p.add_argument("-n", "--n-predict", type=int, default=64, help="tokens to generate")
     p.add_argument("-c", "--ctx-size", type=int, default=2048)
@@ -56,6 +66,22 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def synthetic_model(name: str, device: str):
+    """The Q4_K_M random-weight model of the configuration `name`, with a
+    synthetic SPM vocab of its size and that vocab's tokenizer."""
+    from ..models.loader import Model
+    from ..tokenizer import build_tokenizer
+    from ..utils.synthetic import CONFIGS, make_synthetic_params, synthetic_vocab
+
+    if name not in CONFIGS:
+        raise SystemExit(f"error: unknown synthetic model {name!r} (one of "
+                         f"{', '.join(CONFIGS)})")
+    cfg = CONFIGS[name]()
+    vocab = synthetic_vocab(cfg.n_vocab)
+    return Model(cfg, make_synthetic_params(cfg, seed=0, device=device, ftype="Q4_K_M"), vocab,
+                 build_tokenizer(vocab))
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     import torch
@@ -66,7 +92,10 @@ def main(argv=None) -> int:
 
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     t0 = time.time()
-    model = load_model(args.model, dtype=dtype, device=args.device)
+    if args.model.startswith("synthetic:"):
+        model = synthetic_model(args.model.split(":", 1)[1], args.device)
+    else:
+        model = load_model(args.model, dtype=dtype, device=args.device)
     t_load = time.time() - t0
     if model.tokenizer is None:
         print("error: model has no supported tokenizer", file=sys.stderr)

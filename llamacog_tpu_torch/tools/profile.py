@@ -4,8 +4,9 @@
         [--steps 32] [--kv-type q8_0] [--prompt 512 --prefill] [--max-seq 8192] \
         [--ftype IQ3_XXS]
 
-Builds the Llama-3-8B (or, with --model mixtral-8x7b, the Mixtral-8x7B)
-synthetic model of the weight preset --ftype (each tensor of the kind
+Builds the synthetic model of the configuration --model (utils/synthetic.py
+CONFIGS: llama3-8b by default, mixtral-8x7b, qwen2.5-7b, qwen3-30b-a3b,
+gemma3-12b, ...) in the weight preset --ftype (each tensor of the kind
 llama.cpp's rules give it, for a codebook preset those of a file made
 with an importance matrix, as the public IQ files are; by default
 utils/synthetic.py's DEFAULT_LAYOUT, Q4_K_M with every attn_v Q6_K) (depth
@@ -36,8 +37,11 @@ import time
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="llamacog-profile-torch")
-    ap.add_argument("--model", choices=("llama3-8b", "mixtral-8x7b"), default="llama3-8b")
-    ap.add_argument("--layers", type=int, default=32)
+    from ..utils.synthetic import CONFIGS
+
+    ap.add_argument("--model", choices=sorted(CONFIGS), default="llama3-8b")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth (default: the configuration's published depth)")
     ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--prompt", type=int, default=128)
     ap.add_argument("--max-seq", type=int, default=1024)
@@ -54,11 +58,9 @@ def main(argv=None) -> int:
 
     from ..ops.cuda.flash_q8 import decode_from_cache
     from ..runtime.engine import Engine
-    from ..utils.synthetic import (CODEBOOK_PRESETS, DEFAULT_LAYOUT, llama3_8b_config,
-                                   make_synthetic_params, mixtral_8x7b_config)
+    from ..utils.synthetic import CODEBOOK_PRESETS, DEFAULT_LAYOUT, make_synthetic_params
 
-    make_config = mixtral_8x7b_config if args.model == "mixtral-8x7b" else llama3_8b_config
-    cfg = make_config(n_layer=args.layers)
+    cfg = CONFIGS[args.model](**({} if args.layers is None else {"n_layer": args.layers}))
     params = make_synthetic_params(cfg, seed=0, ftype=args.ftype or DEFAULT_LAYOUT,
                                    imatrix=args.ftype in CODEBOOK_PRESETS)
     eng = Engine(params, cfg, batch_size=1, max_seq=args.max_seq, kv_type=args.kv_type)
@@ -103,7 +105,7 @@ def main(argv=None) -> int:
                   f"{e.self_cpu_time_total / 1e3 / per:>11.4f} "
                   f"{e.self_cpu_time_total / max(e.count, 1):>8.2f}")
 
-    head = (f"[profile] {torch.cuda.get_device_name(0)}, {args.model}, {args.layers} layers, "
+    head = (f"[profile] {torch.cuda.get_device_name(0)}, {args.model}, {cfg.n_layer} layers, "
             f"kv {args.kv_type}, a {args.prompt}-token prompt")
     if args.prefill:
         timed_prefill(), timed_prefill()  # warm-up

@@ -24,14 +24,28 @@ agree; gate+up; the experts' gate+up per expert). A MoE config
 ffn_gate_inp. The default layout, DEFAULT_LAYOUT, is not a preset: it
 is Q4_K_M with every dense attn_v Q6_K, the layout of every measurement
 made before the other presets ran.
+
+A row whose length a 256-weight run does not divide (Qwen2.5-0.5B's n_embd
+of 896) takes llama.cpp's 32-weight-block fallback kind
+(llama-quant.cpp's convert_incompatible_tensor: Q5_0 for Q4_K, Q5_1 for
+Q5_K, Q8_0 for Q6_K, IQ4_NL for the other K-quants and codebook kinds,
+Q4_0 for the ternary ones; the LM head and a tied embedding Q8_0), so a
+synthetic model of such widths has the kinds a real file has. The config
+functions give the published geometry of Llama-3, Mixtral, Qwen2.5, Qwen3,
+Qwen2-MoE, Qwen3-MoE, Gemma-2 and Gemma-3 members (CONFIGS by name);
+make_synthetic_params adds what each family's file carries beside the
+weights: q/k/v biases (qwen2, qwen2moe), per-head q/k norms (qwen3,
+qwen3moe, gemma3), post-attention and post-FFN norms (gemma2, gemma3), the
+shared expert and its gate (qwen2moe), and no output tensor where the
+embedding is tied (Gemma, Qwen2.5-0.5B).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..models.config import ModelConfig, RopeConfig
-from ..quant.wire import BLOCK_BYTES, QK_K, WireTensor
+from ..models.config import ModelConfig, RopeConfig, _apply_arch_defaults
+from ..quant.wire import BLOCK32_KINDS, BLOCK_BYTES, QK_K, WireTensor
 
 # byte offsets of each kind's f16 scales in QK_K weights (d, and dmin for
 # Q4_K, Q5_K and Q2_K; the legacy kinds and IQ4_NL have d, and m for Q4_1
@@ -72,9 +86,11 @@ def random_wire(kind: str, n: int, k: int, generator: torch.Generator,
     """Random [n, k] wire blocks: random bytes for the codes and sub-scales,
     and finite small positive f16 superblock scales in [1e-4, 1e-3] (random
     bits there would give NaN and Inf; IQ1_M's d goes into the top nibbles
-    of its four scale words, bytes 49, 51, 53, 55)."""
+    of its four scale words, bytes 49, 51, 53, 55). A 32-weight-block kind
+    at a k that 256 does not divide gets the zero blocks of its padded rows
+    (quant/wire.py)."""
     bpb = BLOCK_BYTES[kind]
-    nb = k // QK_K
+    nb = -(-k // QK_K)
     blocks = torch.randint(0, 256, (n, nb, bpb), dtype=torch.uint8,
                            generator=generator, device=device)
     for off in _F16_FIELDS[kind]:
@@ -86,7 +102,27 @@ def random_wire(kind: str, n: int, k: int, generator: torch.Generator,
         for j in range(4):
             top = ((d16 >> (4 * j)) & 0xF).to(torch.uint8) << 4
             blocks[:, :, 49 + 2 * j] = (blocks[:, :, 49 + 2 * j] & 0x0F) | top
-    return WireTensor(kind, (n, k), blocks.reshape(n, nb * bpb))
+    blocks = blocks.reshape(n, nb * bpb)
+    if k % QK_K:
+        blocks[:, k // 32 * (bpb // 8):] = 0
+    return WireTensor(kind, (n, k), blocks)
+
+
+# llama.cpp's kind for a row that 256 does not divide (llama-quant.cpp,
+# convert_incompatible_tensor)
+_FALLBACK = {"Q4_K": "Q5_0", "Q5_K": "Q5_1", "Q6_K": "Q8_0", "TQ1_0": "Q4_0", "TQ2_0": "Q4_0",
+             **{k: "IQ4_NL" for k in ("Q2_K", "Q3_K", "IQ4_XS", "IQ3_XXS", "IQ3_S", "IQ2_S",
+                                      "IQ2_XXS", "IQ2_XS", "IQ1_S", "IQ1_M")}}
+
+
+def fit_kind(kind: str, k: int) -> str:
+    """`kind`, or its 32-weight-block fallback for rows of k weights that a
+    256-weight run does not divide."""
+    if k % QK_K == 0 or kind in BLOCK32_KINDS:
+        return kind
+    if k % 32:
+        raise NotImplementedError(f"rows of {k} weights take F16 in llama.cpp: not ported yet")
+    return _FALLBACK[kind]
 
 
 def _use_more_bits(i: int, n: int) -> bool:
@@ -98,7 +134,11 @@ def tensor_kinds(cfg: ModelConfig, ftype: str = "Q4_K_M", imatrix: bool = False)
     `ftype` (with an importance matrix if `imatrix`): {"token_embd",
     "output", "layers": [{attn_q, attn_k, attn_v, attn_output, ffn_gate,
     ffn_up, ffn_down}]} (the FFN names stand for the stacked experts in a
-    MoE config). Unfused, by the GGUF tensor names."""
+    MoE config; a shared expert adds ffn_gate_shexp, ffn_up_shexp and
+    ffn_down_shexp, the last by ffn_down's rule). Unfused, by the GGUF
+    tensor names. A tied embedding (cfg.tie_word_embeddings) takes the
+    output tensor's rule, as in llama.cpp; "output" is then the kind of
+    that table. Each kind is fitted to its row length (fit_kind)."""
     if ftype not in PRESETS:
         raise NotImplementedError(
             f"weight preset {ftype} is not ported yet (the port takes {', '.join(PRESETS)})")
@@ -142,13 +182,22 @@ def tensor_kinds(cfg: ModelConfig, ftype: str = "Q4_K_M", imatrix: bool = False)
             else:
                 out = {"Q2_K": "Q3_K", "Q3_K_M": "Q4_K", "Q3_K_L": "Q5_K", "IQ3_XXS": "IQ3_S",
                        "IQ3_M": "Q4_K"}.get(ftype, base)
-        layers.append({"attn_q": q, "attn_k": k, "attn_v": v, "attn_output": out,
-                       "ffn_gate": base, "ffn_up": base, "ffn_down": down})
+        E, q_width = cfg.n_embd, cfg.n_head * cfg.head_dim_v
+        f_down = cfg.n_ff_exp or cfg.n_ff if n_exp else cfg.n_ff
+        lk = {"attn_q": fit_kind(q, E), "attn_k": fit_kind(k, E), "attn_v": fit_kind(v, E),
+              "attn_output": fit_kind(out, q_width), "ffn_gate": fit_kind(base, E),
+              "ffn_up": fit_kind(base, E), "ffn_down": fit_kind(down, f_down)}
+        if cfg.n_ff_shexp:
+            lk.update(ffn_gate_shexp=lk["ffn_gate"], ffn_up_shexp=lk["ffn_up"],
+                      ffn_down_shexp=fit_kind(down, cfg.n_ff_shexp))
+        layers.append(lk)
     embd = ("IQ3_S" if iq2_sm or ftype == "IQ3_XXS" else "Q2_K" if lowbit
             else "Q4_K" if ftype in ("TQ1_0", "TQ2_0") else base)
-    return {"token_embd": embd,
-            "output": "Q5_K" if lowbit or ftype == "IQ3_XXS" else "Q8_0" if base == "Q8_0"
-            else "Q6_K", "layers": layers}
+    # the LM head (or a tied embedding): Q8_0 where 256 does not divide its rows
+    output = ("Q8_0" if cfg.n_embd % QK_K else "Q5_K" if lowbit or ftype == "IQ3_XXS"
+              else "Q8_0" if base == "Q8_0" else "Q6_K")
+    return {"token_embd": output if cfg.tie_word_embeddings else fit_kind(embd, cfg.n_embd),
+            "output": output, "layers": layers}
 
 
 def layout_kinds(cfg: ModelConfig, layout: str = DEFAULT_LAYOUT, imatrix: bool = False) -> dict:
@@ -158,7 +207,7 @@ def layout_kinds(cfg: ModelConfig, layout: str = DEFAULT_LAYOUT, imatrix: bool =
     kinds = tensor_kinds(cfg, "Q4_K_M")
     if not cfg.n_expert:
         for lk in kinds["layers"]:
-            lk["attn_v"] = "Q6_K"
+            lk["attn_v"] = fit_kind("Q6_K", cfg.n_embd)
     return kinds
 
 
@@ -194,6 +243,123 @@ def mixtral_8x7b_config(n_layer: int = 32) -> ModelConfig:
     )
 
 
+def _family_config(arch: str, metadata=None, **fields) -> ModelConfig:
+    """A ModelConfig of `arch` with the per-arch defaults a GGUF of it gets
+    (config.py::_apply_arch_defaults; `metadata` the GGUF keys they read)."""
+    cfg = ModelConfig(arch=arch, metadata=dict(metadata or {}), **fields)
+    _apply_arch_defaults(cfg)
+    return cfg
+
+
+def qwen2_5_7b_config(n_layer: int = 28) -> ModelConfig:
+    """Qwen2.5-7B (Qwen/Qwen2.5-7B-Instruct config.json: 28 layers, hidden
+    3584, 28 query heads over 4 kv heads of 128, intermediate 18944, vocab
+    152064, rope theta 1e6, rms eps 1e-6; q/k/v biases); `n_layer` cuts
+    depth only."""
+    return _family_config(
+        "qwen2", n_vocab=152064, n_ctx_train=32768, n_embd=3584, n_layer=n_layer, n_head=28,
+        n_head_kv=4, n_ff=18944, head_dim_k=128, head_dim_v=128, rms_norm_eps=1e-6,
+        rope=RopeConfig(dim=128, freq_base=1e6))
+
+
+def qwen2_5_0_5b_config(n_layer: int = 24) -> ModelConfig:
+    """Qwen2.5-0.5B (Qwen/Qwen2.5-0.5B-Instruct config.json: 24 layers,
+    hidden 896, 14 query heads over 2 kv heads of 64, intermediate 4864,
+    vocab 151936, tied embeddings): every K = 896 row takes a 32-weight-block
+    fallback kind; `n_layer` cuts depth only."""
+    return _family_config(
+        "qwen2", n_vocab=151936, n_ctx_train=32768, n_embd=896, n_layer=n_layer, n_head=14,
+        n_head_kv=2, n_ff=4864, head_dim_k=64, head_dim_v=64, rms_norm_eps=1e-6,
+        rope=RopeConfig(dim=64, freq_base=1e6), tie_word_embeddings=True)
+
+
+def qwen3_8b_config(n_layer: int = 36) -> ModelConfig:
+    """Qwen3-8B (Qwen/Qwen3-8B config.json: 36 layers, hidden 4096, 32 query
+    heads over 8 kv heads of 128, intermediate 12288, vocab 151936, rope
+    theta 1e6; per-head q/k norms); `n_layer` cuts depth only."""
+    return _family_config(
+        "qwen3", n_vocab=151936, n_ctx_train=40960, n_embd=4096, n_layer=n_layer, n_head=32,
+        n_head_kv=8, n_ff=12288, head_dim_k=128, head_dim_v=128, rms_norm_eps=1e-6,
+        rope=RopeConfig(dim=128, freq_base=1e6))
+
+
+def qwen3_30b_a3b_config(n_layer: int = 48) -> ModelConfig:
+    """Qwen3-30B-A3B (Qwen/Qwen3-30B-A3B config.json: 48 layers, hidden 2048,
+    32 query heads over 4 kv heads of 128, so q is 4096 wide; 128 experts,
+    top 8, moe_intermediate 768, norm_topk_prob true, vocab 151936); the
+    top-k norm comes from the GGUF key, as a converted file carries it;
+    `n_layer` cuts depth only."""
+    return _family_config(
+        "qwen3moe", {"qwen3moe.expert_weights_norm": True}, n_vocab=151936,
+        n_ctx_train=40960, n_embd=2048, n_layer=n_layer, n_head=32, n_head_kv=4, n_ff=6144,
+        head_dim_k=128, head_dim_v=128, rms_norm_eps=1e-6, n_expert=128, n_expert_used=8,
+        n_ff_exp=768, expert_weights_norm=True, rope=RopeConfig(dim=128, freq_base=1e6))
+
+
+def qwen2_57b_a14b_config(n_layer: int = 28) -> ModelConfig:
+    """Qwen2-57B-A14B (Qwen/Qwen2-57B-A14B config.json: 28 layers, hidden
+    3584, 28 query heads over 4 kv heads of 128, 64 experts, top 8,
+    moe_intermediate 2560, a shared expert of 20480 with its sigmoid gate,
+    norm_topk_prob false, vocab 151936; q/k/v biases); `n_layer` cuts depth
+    only."""
+    return _family_config(
+        "qwen2moe", n_vocab=151936, n_ctx_train=32768, n_embd=3584, n_layer=n_layer,
+        n_head=28, n_head_kv=4, n_ff=18944, head_dim_k=128, head_dim_v=128,
+        rms_norm_eps=1e-6, n_expert=64, n_expert_used=8, n_ff_exp=2560, n_ff_shexp=20480,
+        rope=RopeConfig(dim=128, freq_base=1e6))
+
+
+def gemma2_9b_config(n_layer: int = 42) -> ModelConfig:
+    """Gemma-2-9B (google/gemma-2-9b-it config.json: 42 layers, hidden 3584,
+    16 query heads over 8 kv heads of 256, intermediate 14336, vocab 256000,
+    sliding window 4096 on every other layer, attention softcap 50, final
+    softcap 30, tied embeddings); `n_layer` cuts depth only."""
+    return _family_config(
+        "gemma2", n_vocab=256000, n_ctx_train=8192, n_embd=3584, n_layer=n_layer, n_head=16,
+        n_head_kv=8, n_ff=14336, head_dim_k=256, head_dim_v=256, rms_norm_eps=1e-6,
+        sliding_window=4096, attn_logit_softcap=50.0, final_logit_softcap=30.0,
+        rope=RopeConfig(dim=256, freq_base=10000.0), tie_word_embeddings=True)
+
+
+def gemma3_12b_config(n_layer: int = 48) -> ModelConfig:
+    """Gemma-3-12B (google/gemma-3-12b-it config.json, text_config: 48 layers,
+    hidden 3840, 16 query heads over 8 kv heads of 256, intermediate 15360,
+    vocab 262208, sliding window 1024 on 5 of every 6 layers, rope theta 1e6
+    with linear factor 8 on the global layers and 10000 on the local ones,
+    per-head q/k norms, tied embeddings); `n_layer` cuts depth only."""
+    return _family_config(
+        "gemma3", n_vocab=262208, n_ctx_train=131072, n_embd=3840, n_layer=n_layer, n_head=16,
+        n_head_kv=8, n_ff=15360, head_dim_k=256, head_dim_v=256, rms_norm_eps=1e-6,
+        sliding_window=1024, rope=RopeConfig(dim=256, freq_base=1e6, scaling_type="linear",
+                                             scaling_factor=8.0),
+        tie_word_embeddings=True)
+
+
+def gemma3_4b_config(n_layer: int = 34) -> ModelConfig:
+    """Gemma-3-4B (google/gemma-3-4b-it config.json, text_config: 34 layers,
+    hidden 2560, 8 query heads over 4 kv heads of 256, intermediate 10240,
+    vocab 262208, window 1024, rope as Gemma-3-12B's): the smaller member
+    whose head a CPU copy holds decoded; `n_layer` cuts depth only."""
+    return _family_config(
+        "gemma3", n_vocab=262208, n_ctx_train=131072, n_embd=2560, n_layer=n_layer, n_head=8,
+        n_head_kv=4, n_ff=10240, head_dim_k=256, head_dim_v=256, rms_norm_eps=1e-6,
+        sliding_window=1024, rope=RopeConfig(dim=256, freq_base=1e6, scaling_type="linear",
+                                             scaling_factor=8.0),
+        tie_word_embeddings=True)
+
+
+# every synthetic configuration by the name the tools take (--model)
+CONFIGS = {"llama3-8b": llama3_8b_config, "llama3-70b": llama3_70b_config,
+           "mixtral-8x7b": mixtral_8x7b_config, "qwen2.5-7b": qwen2_5_7b_config,
+           "qwen2.5-0.5b": qwen2_5_0_5b_config, "qwen3-8b": qwen3_8b_config,
+           "qwen3-30b-a3b": qwen3_30b_a3b_config, "qwen2-57b-a14b": qwen2_57b_a14b_config,
+           "gemma2-9b": gemma2_9b_config, "gemma3-12b": gemma3_12b_config,
+           "gemma3-4b": gemma3_4b_config}
+# the families whose files carry q/k/v biases, and per-head q/k norms
+_QKV_BIAS_ARCHES = ("qwen2", "qwen2moe")
+_QK_NORM_ARCHES = ("qwen3", "qwen3moe", "gemma3")
+
+
 def random_experts(kind: str, n_exp: int, n: int, k: int, generator: torch.Generator,
                    device=None) -> WireTensor:
     """A random stack of n_exp [n, k] experts, [n_exp, n, k]."""
@@ -205,43 +371,66 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
                           ftype: str = DEFAULT_LAYOUT, imatrix: bool = False) -> dict:
     """Random params of a GGUF quantized to the preset `ftype` (with an
     importance matrix if `imatrix`), or laid out as DEFAULT_LAYOUT
-    (layout_kinds), for the llama forward, on `device`, fused as the loader
-    fuses such a file."""
+    (layout_kinds), for the forward, on `device`, fused as the loader fuses
+    such a file (convert.py: q/k/v of one kind fuse with their biases; q+k
+    fuse unless q carries a bias or a norm). Norm weights are ones, biases
+    and routers small f32 draws."""
     from .. import resolve_device
 
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     kinds = layout_kinds(cfg, ftype, imatrix)
-    E, F = cfg.n_embd, cfg.n_ff
+    E = cfg.n_embd
+    F = cfg.n_ff_exp or cfg.n_ff if cfg.n_expert else cfg.n_ff
     kv = cfg.n_head_kv * cfg.head_dim_k
+    bias, qk_norm = cfg.arch in _QKV_BIAS_ARCHES, cfg.arch in _QK_NORM_ARCHES
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.float32, device=dev)
+
+    def small(*shape):
+        return torch.randn(shape, generator=g, device=dev) * 0.02
+
     params: dict = {
         "tok_embd": random_wire(kinds["token_embd"], cfg.n_vocab, E, g, dev),
-        "output": random_wire(kinds["output"], cfg.n_vocab, E, g, dev),
-        "output_norm": torch.ones(E, dtype=torch.float32, device=dev),
+        "output_norm": ones(E),
         "layers": [],
     }
+    if not cfg.tie_word_embeddings:
+        params["output"] = random_wire(kinds["output"], cfg.n_vocab, E, g, dev)
     for lk in kinds["layers"]:
-        layer = {
-            "attn_norm": torch.ones(E, dtype=torch.float32, device=dev),
-            "ffn_norm": torch.ones(E, dtype=torch.float32, device=dev),
-        }
+        layer = {"attn_norm": ones(E), "ffn_norm": ones(E)}
         rows = {"attn_q": cfg.n_head * cfg.head_dim_k, "attn_k": kv,
                 "attn_v": cfg.n_head_kv * cfg.head_dim_v}
         if lk["attn_q"] == lk["attn_k"] == lk["attn_v"]:
             layer["attn_qkv"] = random_wire(lk["attn_q"], sum(rows.values()), E, g, dev)
-        elif lk["attn_q"] == lk["attn_k"]:
+            if bias:
+                layer["attn_qkv_b"] = small(sum(rows.values()))
+        elif lk["attn_q"] == lk["attn_k"] and not (bias or qk_norm):
             layer["attn_qk"] = random_wire(lk["attn_q"], rows["attn_q"] + kv, E, g, dev)
             layer["attn_v"] = random_wire(lk["attn_v"], rows["attn_v"], E, g, dev)
         else:
             for key, n in rows.items():
                 layer[key] = random_wire(lk[key], n, E, g, dev)
+                if bias:
+                    layer[key + "_b"] = small(n)
+        if qk_norm:
+            layer["attn_q_norm"], layer["attn_k_norm"] = ones(cfg.head_dim_k), ones(cfg.head_dim_k)
         layer["attn_output"] = random_wire(lk["attn_output"], E, cfg.n_head * cfg.head_dim_v,
                                            g, dev)
+        if cfg.post_norms:
+            layer["attn_post_norm"], layer["ffn_post_norm"] = ones(E), ones(E)
         if cfg.n_expert > 0:
             n_exp = cfg.n_expert
-            layer["ffn_gate_inp"] = torch.randn((n_exp, E), generator=g, device=dev) * 0.02
+            layer["ffn_gate_inp"] = small(n_exp, E)
             layer["ffn_gate_up_exps"] = random_experts(lk["ffn_gate"], n_exp, 2 * F, E, g, dev)
             layer["ffn_down_exps"] = random_experts(lk["ffn_down"], n_exp, E, F, g, dev)
+            if cfg.n_ff_shexp:
+                fs = cfg.n_ff_shexp
+                layer["ffn_gate_inp_shexp"] = small(1, E)
+                layer["ffn_gate_shexp"] = random_wire(lk["ffn_gate_shexp"], fs, E, g, dev)
+                layer["ffn_up_shexp"] = random_wire(lk["ffn_up_shexp"], fs, E, g, dev)
+                layer["ffn_down_shexp"] = random_wire(lk["ffn_down_shexp"], E, fs, g, dev)
         else:
             layer["ffn_gate_up"] = random_wire(lk["ffn_gate"], 2 * F, E, g, dev)
             layer["ffn_down"] = random_wire(lk["ffn_down"], E, F, g, dev)

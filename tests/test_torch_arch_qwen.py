@@ -1,0 +1,330 @@
+"""The Qwen families of the generalized transformer in the port (qwen2,
+qwen2moe, qwen3, qwen3moe), held against the JAX package.
+
+Tiny random GGUFs (2 layers, widths 64-256) are written with the JAX
+package's GGUFWriter and quantize_tensor (encode_np) and loaded by both
+packages; the same prompt goes through both engines as f32 models: the
+prefill logits within 1e-4 of max |logit| and 16 greedy tokens equal, with
+the dense and the q8_0 cache. The cases: qwen2 all-Q8_0 (q/k/v fuse, their
+biases concatenated into attn_qkv_b) and Q4_K_M-mixed (q/k/v apart, each
+with its bias, no attn_qk fusion); qwen3 (per-head q/k norm, so no attn_qk
+fusion either); qwen2moe (a shared expert with its sigmoid gate); qwen3moe
+(16 experts, top 4: a 12-token prefill has 48 (token, slot) rows, past
+_MOE_GATHER_MAX, so it takes the grouped path). :func:`write_gguf` is
+shared with tests/test_torch_arch_gemma.py and tests/test_torch_wire_k32.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from llamacog_tpu.gguf import GGMLType, GGUFWriter
+from llamacog_tpu.models.loader import load_model as jax_load_model
+from llamacog_tpu.quant import quantize_tensor
+from llamacog_tpu.runtime.engine import Engine as JaxEngine
+from llamacog_tpu_torch.models.config import ModelConfig
+from llamacog_tpu_torch.models.loader import load_model
+from llamacog_tpu_torch.quant import wire
+from llamacog_tpu_torch.runtime.engine import Engine
+from llamacog_tpu_torch.utils import synthetic
+
+N_DECODE = 16
+TOL = 1e-4  # of max |logit|: f32 models, summation order alone
+PROMPT = [(i * 37) % 250 + 3 for i in range(12)]
+
+
+def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, n_head_kv=2,
+               head_dim=None, n_ff=128, qkv_bias=False, qk_norm=False, post_norms=False,
+               tied=False, n_expert=0, n_expert_used=0, n_ff_exp=None, shexp_ff=0,
+               shexp_gate=False, kind=None, metadata=None, seed=0) -> str:
+    """A tiny random GGUF of `arch` with llama.cpp's tensor names. `kind`
+    maps a tensor name to its GGMLType (None: F32); norms, biases and the
+    routers stay F32, as llama.cpp keeps them. Norm weights are drawn near
+    1, so a norm that is skipped or doubled shows."""
+    rng = np.random.default_rng(seed)
+    hd = head_dim or n_embd // n_head
+    ff_exp = n_ff_exp or n_ff
+    w = GGUFWriter(path)
+    w.add("general.architecture", arch)
+    w.add("general.name", f"tiny-{arch}")
+    for key, value in {"context_length": 512, "embedding_length": n_embd,
+                       "block_count": n_layer, "feed_forward_length": n_ff,
+                       "attention.head_count": n_head, "attention.head_count_kv": n_head_kv,
+                       "attention.key_length": hd, "attention.value_length": hd,
+                       "attention.layer_norm_rms_epsilon": 1e-6, "rope.freq_base": 10000.0,
+                       "vocab_size": n_vocab}.items():
+        w.add(f"{arch}.{key}", value)
+    if n_expert:
+        w.add(f"{arch}.expert_count", n_expert)
+        w.add(f"{arch}.expert_used_count", n_expert_used)
+        w.add(f"{arch}.expert_feed_forward_length", ff_exp)
+    if shexp_ff:
+        w.add(f"{arch}.expert_shared_feed_forward_length", shexp_ff)
+    for key, value in (metadata or {}).items():
+        w.add(key, value)
+    toks = ["<unk>", "<s>", "</s>"] + [f"<0x{i:02X}>" for i in range(n_vocab - 3)]
+    w.add("tokenizer.ggml.model", "llama")
+    w.add("tokenizer.ggml.tokens", toks)
+    w.add("tokenizer.ggml.scores", np.zeros(n_vocab, dtype=np.float32))
+    w.add("tokenizer.ggml.token_type", np.array([2, 3, 3] + [6] * (n_vocab - 3), np.int32))
+    w.add("tokenizer.ggml.bos_token_id", 1)
+    w.add("tokenizer.ggml.eos_token_id", 2)
+
+    def rand(*shape, s=0.05):
+        return (rng.standard_normal(shape) * s).astype(np.float32)
+
+    def norm(name, n):
+        w.add_tensor(name, (1.0 + rand(n, s=0.1)).astype(np.float32))
+
+    def weight(name, arr):
+        t = kind(name) if kind is not None else None
+        if t is None or t == GGMLType.F32:
+            w.add_tensor(name, arr)
+        else:
+            w.add_tensor(name, quantize_tensor(arr, t).tobytes(), shape=arr.shape, ggml_type=t)
+
+    weight("token_embd.weight", rand(n_vocab, n_embd, s=0.5))
+    norm("output_norm.weight", n_embd)
+    if not tied:
+        weight("output.weight", rand(n_vocab, n_embd))
+    for il in range(n_layer):
+        p = f"blk.{il}."
+        norm(p + "attn_norm.weight", n_embd)
+        for nm, rows in (("attn_q", n_head * hd), ("attn_k", n_head_kv * hd),
+                         ("attn_v", n_head_kv * hd)):
+            weight(p + nm + ".weight", rand(rows, n_embd))
+            if qkv_bias:
+                w.add_tensor(p + nm + ".bias", rand(rows, s=0.2))
+        if qk_norm:
+            norm(p + "attn_q_norm.weight", hd)
+            norm(p + "attn_k_norm.weight", hd)
+        weight(p + "attn_output.weight", rand(n_embd, n_head * hd))
+        if post_norms:
+            norm(p + "post_attention_norm.weight", n_embd)
+            norm(p + "post_ffw_norm.weight", n_embd)
+        norm(p + "ffn_norm.weight", n_embd)
+        if n_expert:
+            w.add_tensor(p + "ffn_gate_inp.weight", rand(n_expert, n_embd, s=0.5))
+            weight(p + "ffn_gate_exps.weight", rand(n_expert, ff_exp, n_embd))
+            weight(p + "ffn_up_exps.weight", rand(n_expert, ff_exp, n_embd))
+            weight(p + "ffn_down_exps.weight", rand(n_expert, n_embd, ff_exp))
+            if shexp_ff:
+                weight(p + "ffn_gate_shexp.weight", rand(shexp_ff, n_embd))
+                weight(p + "ffn_up_shexp.weight", rand(shexp_ff, n_embd))
+                weight(p + "ffn_down_shexp.weight", rand(n_embd, shexp_ff))
+                if shexp_gate:
+                    w.add_tensor(p + "ffn_gate_inp_shexp.weight", rand(1, n_embd, s=0.5))
+        else:
+            weight(p + "ffn_gate.weight", rand(n_ff, n_embd))
+            weight(p + "ffn_up.weight", rand(n_ff, n_embd))
+            weight(p + "ffn_down.weight", rand(n_embd, n_ff))
+    w.write()
+    return str(path)
+
+
+def q4_k_m_kinds(name: str):
+    """A Q4_K_M file's kinds by llama.cpp's rules at 2 layers (both take
+    use_more_bits), with its 32-block fallback where a row does not divide
+    256 (utils/synthetic.py::tensor_kinds)."""
+    if "attn_v" in name or "ffn_down" in name or name == "output.weight":
+        return GGMLType.Q6_K
+    return GGMLType.Q4_K
+
+
+def load_both(path, **engine):
+    """(JAX engine, port engine) of the file as f32 models on the CPU."""
+    ref = jax_load_model(path, with_tokenizer=False, dtype=jnp.float32)
+    got = load_model(path, dtype=torch.float32, device="cpu", with_tokenizer=False)
+    return (JaxEngine(ref.params, ref.config, dtype=jnp.float32, **engine),
+            Engine(got.params, got.config, dtype=torch.float32, device="cpu", **engine), got)
+
+
+def check_same_run(path, kv_type="dense", prompt=PROMPT, n_decode=N_DECODE, max_seq=256):
+    """The prefill logits within TOL of max |logit| and the greedy tokens
+    equal, port against the JAX package; returns the port's engine."""
+    ref, eng, _ = load_both(path, batch_size=1, max_seq=max_seq, kv_type=kv_type)
+    want = np.asarray(ref.prefill(prompt))
+    got = eng.prefill(prompt)
+    scale = float(np.abs(want).max())
+    assert float(np.abs(got - want).max()) <= TOL * scale, kv_type
+    first = np.array([int(np.argmax(want))])
+    want_toks = np.asarray(ref.decode_greedy_tokens(first, n_decode))
+    got_toks = eng.decode_greedy_tokens(first, n_decode)
+    np.testing.assert_array_equal(got_toks, want_toks)
+    return eng
+
+
+CASES = {
+    # q/k/v one kind: attn_qkv with the concatenated biases
+    "qwen2 Q8_0": dict(arch="qwen2", qkv_bias=True, kind=lambda n: GGMLType.Q8_0,
+                       n_embd=256, n_ff=256),
+    # Q4_K attn_q/attn_k and Q6_K attn_v, each biased: three launches
+    "qwen2 Q4_K_M": dict(arch="qwen2", qkv_bias=True, kind=q4_k_m_kinds, n_embd=256,
+                         n_ff=256),
+    "qwen3": dict(arch="qwen3", qk_norm=True, kind=q4_k_m_kinds, n_embd=256, n_ff=256,
+                  head_dim=64),
+    "qwen2moe": dict(arch="qwen2moe", qkv_bias=True, n_expert=4, n_expert_used=2,
+                     n_ff_exp=64, shexp_ff=96, shexp_gate=True),
+    # q 4 x 32 = 128 wide over n_embd 64, as Qwen3-30B-A3B's q is wider than n_embd
+    "qwen3moe": dict(arch="qwen3moe", qk_norm=True, n_expert=16, n_expert_used=4,
+                     n_ff_exp=32, head_dim=32, metadata={"qwen3moe.expert_weights_norm": True}),
+}
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    root = tmp_path_factory.mktemp("arch_qwen")
+    return {name: write_gguf(str(root / f"{name.replace(' ', '_')}.gguf"), **case)
+            for name, case in CASES.items()}
+
+
+@pytest.mark.parametrize("kv_type", ["dense", "q8_0"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_greedy_tokens_match_jax(files, case, kv_type):
+    check_same_run(files[case], kv_type)
+
+
+def test_fusions_follow_the_jax_loader(files):
+    """The keys of each file's first layer in the port are the JAX
+    loader's: q/k/v fused with attn_qkv_b where their kinds agree; no
+    attn_qk where q carries a bias (qwen2) or a norm (qwen3)."""
+    want = {"qwen2 Q8_0": {"attn_qkv", "attn_qkv_b"},
+            "qwen2 Q4_K_M": {"attn_q", "attn_k", "attn_v", "attn_q_b", "attn_k_b", "attn_v_b"},
+            "qwen3": {"attn_q", "attn_k", "attn_v", "attn_q_norm", "attn_k_norm"}}
+    for case, keys in want.items():
+        ref = jax_load_model(files[case], with_tokenizer=False, dtype=jnp.float32)
+        got = load_model(files[case], dtype=torch.float32, device="cpu", with_tokenizer=False)
+        assert set(got.params["layers"][0]) == set(ref.params["layers"][0]), case
+        assert keys <= set(got.params["layers"][0]), case
+        assert "attn_qk" not in got.params["layers"][0], case
+        for key in ("attn_qkv_b", "attn_q_b", "attn_q_norm"):
+            if key in keys:  # biases and norms stay f32, as the JAX loader keeps them
+                assert got.params["layers"][0][key].dtype == torch.float32, case
+
+
+def test_qwen3moe_routing_without_the_norm_key(tmp_path):
+    """llama.cpp's qwen3moe graph normalizes the top-k weights, but
+    config.py sets expert_weights_norm only from the GGUF key and gives
+    qwen3moe no default (ROADMAP §3.5): a file without the key routes
+    unnormalized in both packages alike, and the port keeps that parity."""
+    case = dict(CASES["qwen3moe"], metadata={})
+    path = write_gguf(str(tmp_path / "qwen3moe_nokey.gguf"), **case)
+    ref = jax_load_model(path, with_tokenizer=False, dtype=jnp.float32)
+    assert ref.config.expert_weights_norm is False
+    assert load_model(path, device="cpu", with_tokenizer=False).config.expert_weights_norm \
+        is False
+    check_same_run(path)
+
+
+def test_unported_archs_and_features_raise_by_name():
+    base = synthetic.qwen3_8b_config(n_layer=2)
+    for arch in ("phi3", "gemma", "deepseek2", "starcoder2"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            Engine({"layers": []}, ModelConfig(**{**base.__dict__, "arch": arch}),
+                   device="cpu")
+    for field, value, words in (("norm_type", "layer", "layer norm"),
+                                ("parallel_residual", True, "parallel residual"),
+                                ("use_alibi", True, "ALiBi"),
+                                ("learned_pos_embd", True, "learned positions"),
+                                ("n_lora_kv", 64, "MLA"),
+                                ("n_head_arr", (4, 4), "per-layer head counts"),
+                                ("swa_type", "chunked", "chunked SWA"),
+                                ("moe_weight_before", True, "MoE weights before"),
+                                ("n_ff_shexp", 64, "shared experts")):
+        cfg = ModelConfig(**{**base.__dict__, field: value})
+        with pytest.raises(NotImplementedError, match=words):
+            Engine({"layers": []}, cfg, device="cpu")
+
+
+_SYNTH_CASES = {
+    "qwen2": dict(arch="qwen2", qkv_bias=True),
+    "qwen3": dict(arch="qwen3", qk_norm=True),
+    "qwen2moe": dict(arch="qwen2moe", qkv_bias=True, n_expert=4, n_expert_used=2,
+                     n_ff_exp=256, shexp_ff=512, shexp_gate=True),
+    "gemma3": dict(arch="gemma3", qk_norm=True, post_norms=True, tied=True, head_dim=128,
+                   metadata={"gemma3.attention.sliding_window": 8}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SYNTH_CASES))
+def test_synthetic_params_are_a_loaded_file(tmp_path, case):
+    """make_synthetic_params at a file's geometry has the keys, kinds and
+    shapes the port loads from a Q4_K_M file of that geometry whose kinds
+    are utils/synthetic.py's table (the runs on the card stand for such
+    files): the biases, norms, shared expert and tied head included."""
+    geo = dict(_SYNTH_CASES[case], n_embd=256, n_ff=512)
+    cfg = load_model(write_gguf(str(tmp_path / "f32.gguf"), **geo), device="cpu",
+                     with_tokenizer=False).config
+    # a GGUF says it is tied by lacking output.weight; the config says it so
+    cfg.tie_word_embeddings = geo.get("tied", False)
+    table = synthetic.tensor_kinds(cfg, "Q4_K_M")
+
+    def kind(name):
+        if name.startswith("blk."):
+            il, part = name.split(".")[1:3]
+            part = part.removesuffix("_exps")
+            return GGMLType[table["layers"][int(il)][part]] \
+                if part in table["layers"][0] else None
+        return GGMLType[table[name.split(".")[0]]]
+
+    got = load_model(write_gguf(str(tmp_path / "q.gguf"), kind=kind, **geo),
+                     dtype=torch.float32, device="cpu", with_tokenizer=False).params
+    syn = synthetic.make_synthetic_params(cfg, device="cpu", ftype="Q4_K_M")
+    assert set(got) == set(syn)
+    for lg, ls in zip(got["layers"], syn["layers"]):
+        assert set(lg) == set(ls)
+        for key, w in lg.items():
+            s = ls[key]
+            if isinstance(w, wire.WireTensor):
+                assert (s.kind, s.shape) == (w.kind, w.shape), key
+            elif key != "ffn_gate_inp":  # the file's router is F32 in the model dtype
+                assert (s.dtype, tuple(s.shape)) == (w.dtype, tuple(w.shape)), key
+
+
+def _spm_metadata() -> dict:
+    """A Gemma-like SPM vocab: the specials, the 256 byte-fallback tokens and
+    scored pieces (whole words, subwords, the space marker)."""
+    pieces = ["▁", "e", "t", "h", "o", "s", "▁t", "▁th", "▁the", "▁d", "▁do", "▁dog", "▁h",
+              "▁he", "▁hel", "▁hell", "▁hello", "▁w", "▁wo", "▁wor", "ld", "▁world", "in",
+              "ing", "▁g", "▁go", "▁f", "▁fo", "▁fox", "▁<", "start_of_turn", "user"]
+    tokens = ["<pad>", "<eos>", "<bos>"] + [f"<0x{i:02X}>" for i in range(256)] + pieces
+    scores = [0.0] * 259 + [-float(i) for i in range(len(pieces))]
+    types = [3, 3, 3] + [6] * 256 + [1] * len(pieces)
+    return {"tokenizer.ggml.model": "llama", "tokenizer.ggml.tokens": tokens,
+            "tokenizer.ggml.scores": np.asarray(scores, np.float32),
+            "tokenizer.ggml.token_type": np.asarray(types, np.int32),
+            "tokenizer.ggml.bos_token_id": 2, "tokenizer.ggml.eos_token_id": 1}
+
+
+def test_family_tokenizers_and_templates_match_jax():
+    """The Qwen files' BPE under the `qwen2` pre-tokenizer, Gemma's SPM, and
+    the chatml (Qwen) and gemma chat templates: the port's ids and text are
+    the JAX package's."""
+    from llamacog_tpu.runtime import chat as jax_chat
+    from llamacog_tpu.tokenizer import BpeTokenizer as JaxBpe
+    from llamacog_tpu.tokenizer import SpmTokenizer as JaxSpm
+    from llamacog_tpu.tokenizer import Vocab as JaxVocab
+    from llamacog_tpu_torch.runtime import chat
+    from llamacog_tpu_torch.tokenizer import BpeTokenizer, SpmTokenizer, Vocab
+
+    from .test_torch_bpe import TEXTS, _metadata
+
+    texts = TEXTS + ["the quick brown fox jumps over the lazy dog", "hello world going",
+                     "<start_of_turn>user\nhello<end_of_turn>"]
+    for md, port_cls, ref_cls in ((_metadata("qwen2"), BpeTokenizer, JaxBpe),
+                                  (_spm_metadata(), SpmTokenizer, JaxSpm)):
+        port, ref = port_cls(Vocab.from_metadata(md)), ref_cls(JaxVocab.from_metadata(md))
+        for text in texts:
+            for add_special in (False, True):
+                assert port.tokenize(text, add_special=add_special) == ref.tokenize(
+                    text, add_special=add_special), (md["tokenizer.ggml.model"], text)
+    messages = [{"role": "system", "content": "Be brief."},
+                {"role": "user", "content": "Hi there"},
+                {"role": "assistant", "content": "Hello."},
+                {"role": "user", "content": "What is 2 + 2?"}]
+    for name in ("chatml", "gemma"):
+        for add_ass in (False, True):
+            assert chat.apply_builtin_template(name, messages, add_ass) == \
+                jax_chat.apply_builtin_template(name, messages, add_ass), name
