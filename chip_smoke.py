@@ -46,15 +46,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      at depths 0, 100, 1000 and 2047, K5 and K7 on a one-row view of a
      4-row cache; and the Qwen and Gemma families' shapes: qmv (1 and 4
      rows) and qgemm on Qwen2.5-0.5B's padded Q5_0 and Q8_0 weights (K =
-     896, rows padded with zero blocks to 1024), K10 and K11 on a padded
-     expert stack (Qwen1.5-MoE-A2.7B's ffn_down_exps, 60 x 2048 x 1408, in
-     Q5_0 and Q8_0), the families' projections (Qwen2.5-7B's
+     896, rows padded with zero blocks to 1024), the families' projections
+     (Qwen2.5-7B's
      biased attn_q alone, Qwen3's q + k + v launch, Gemma-3-12B's gate_up
      and tied Q6_K head), K4 and K5 at Gemma's heads (16 over 8, D 256,
      softcap 50, window 4096), Qwen2.5's (28 over 4) and the 0.5B's (14
      over 2, D 64), K6 and K7 over q8_0 planes at Gemma's, and K10 and
      K11 at Qwen3-30B-A3B's experts (128, top 8: 8 and 32 rows, 128- and
-     512-token prefills);
+     512-token prefills); and the DeepSeek, Phi-3, Command-R and Gemma-1
+     shapes: K1-K3 on the MLA weights (q with the compressed kv in one
+     launch, V2's q LoRA, attn_kv_b at K 512), DeepSeek-V2-Lite's dense
+     ffn_down at K 10944 (Q8_0, padded) and its shared experts' launch,
+     Phi-3.5's Q5_K attn_qkv, Command-R's tied 256000-row head; K4-K7 at
+     MLA's K 192 / V 128 (16 and 128 heads, one a kv head: K5/K7's
+     192/128 tiles), at Phi-3.5's D 96, at Command-R's 64 heads and
+     Gemma-7B's 16 of 256; K10/K11 on DeepSeek-V2-Lite's 64 experts top 6
+     (down 64x2048x1408 in Q5_0 and Q8_0, padded) and V2's 160;
   4. the full-width kernel path (8B widths, 2 layers) against the plain
      path (the same params on the CPU): prefill logits, 4 teacher-forced
      decode steps (Engine.decode_one: replays of the step's CUDA graph on
@@ -80,7 +87,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      Qwen2-57B-A14B, Gemma-2-9B (max_seq 8192: the ring; and q8_0) and
      Gemma-3 at Gemma-3-4B's widths and 6 layers (one global), an
      1100-token prompt past its 1024-token window at max_seq 1280 (the ring
-     wraps; the decode steps and the second chunk read it);
+     wraps; the decode steps and the second chunk read it); then the
+     DeepSeek, Phi-3, Command-R and Gemma-1 families at 2 layers (DeepSeek:
+     the dense lead layer and a MoE one): DeepSeek-V2-Lite (dense and
+     q8_0), DeepSeek-V2, Phi-3.5-mini (dense and q8_0), Command-R,
+     Gemma-7B, and Command R7B at 4 layers (its 4th global and without
+     rope; the ring at max_seq 8192);
   5. whether stream capture keeps the split-S combine's programmatic
      dependent launch (K4 and K6 captured alone: the graph's edges by
      type, the replay against the eager call), then the 8B Q4_K_M
@@ -126,8 +138,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (max_seq 8192: the ring, the full store with kv bf16, and q8_0) and
      Qwen2-57B-A14B at 4 layers, and a Gemma-3-12B serving run (4 slots,
      ctx 4096: the ring; 5 greedy requests, three sharing a 512-token
-     prefix: a ring slot is prefilled anew, never truncated); the phase's
-     wall time;
+     prefix: a ring slot is prefilled anew, never truncated); then
+     DeepSeek-V2-Lite at full depth (27 layers; dense and q8_0, and a
+     512-token prompt in one step), DeepSeek-V2 at 2 layers, Phi-3.5-mini
+     at full depth (dense and q8_0), Command-R and Gemma-7B at 4 layers,
+     and Command R7B at 4 layers with a 4352-token prompt past its 4096
+     window (max_seq 8192: the ring wraps); each family run's attention
+     launches one a layer and chunk (prefill) and token (decode), on the
+     global layers alone over a ring; the phase's wall time;
   6. each phase's seconds, one JSON line of per-kernel results, the card's
      name and power limit, and the final {"ok": true, ...} line.
 
@@ -285,10 +303,12 @@ def main() -> int:
         QuantKVCache, kv_dequant_planes, kv_plane_shapes)
     from llamacog_tpu_torch.runtime.sampler import SamplerChain, SamplerParams
     from llamacog_tpu_torch.utils.synthetic import (
-        CODEBOOK_PRESETS, DEFAULT_LAYOUT, gemma2_9b_config, gemma3_4b_config, gemma3_12b_config,
-        llama3_70b_config, llama3_8b_config, make_synthetic_params, mixtral_8x7b_config,
-        qwen2_5_0_5b_config, qwen2_5_7b_config, qwen2_57b_a14b_config, qwen3_8b_config,
-        qwen3_30b_a3b_config, random_experts, random_wire)
+        CODEBOOK_PRESETS, DEFAULT_LAYOUT, command_r7b_config, command_r_v01_config,
+        deepseek_v2_config, deepseek_v2_lite_config, gemma2_9b_config, gemma3_4b_config,
+        gemma3_12b_config, gemma_7b_config, llama3_70b_config, llama3_8b_config,
+        make_synthetic_params, mixtral_8x7b_config, phi3_5_mini_config, qwen2_5_0_5b_config,
+        qwen2_5_7b_config, qwen2_57b_a14b_config, qwen3_8b_config, qwen3_30b_a3b_config,
+        random_experts, random_wire)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1181,6 +1201,32 @@ def main() -> int:
         "gemma3-12b": [("ffn_gate_up Q4_K 30720x3840", ["Q4_K"], [30720], 3840),
                        ("output (tied token_embd) Q6_K 262208x3840", ["Q6_K"], [262208],
                         3840)],
+        # MLA: q and the compressed kv in one launch, the decompression at K
+        # 512; the dense lead layer's gate_up and its ffn_down at K 10944
+        # (Q6_K's 32-block fallback Q8_0: layer 0 takes more bits); the two
+        # shared experts' gate and up in one launch
+        "deepseek-v2-lite": [
+            ("attn_q+attn_kv_a_mqa Q4_K 3072x2048 + Q4_K 576x2048", ["Q4_K", "Q4_K"],
+             [3072, 576], 2048),
+            ("attn_kv_b Q4_K 4096x512", ["Q4_K"], [4096], 512),
+            ("ffn_gate_up (dense layer 0) Q4_K 21888x2048", ["Q4_K"], [21888], 2048),
+            ("ffn_down (dense layer 0) Q8_0 2048x10944 (padded to 11008)", ["Q8_0"], [2048],
+             10944),
+            ("ffn_gate_shexp+ffn_up_shexp Q4_K 2816x2048 x2", ["Q4_K", "Q4_K"], [2816, 2816],
+             2048)],
+        # the q LoRA: attn_q_a with the compressed kv, then attn_q_b at K 1536
+        "deepseek-v2": [
+            ("attn_q_a+attn_kv_a_mqa Q4_K 1536x5120 + Q4_K 576x5120", ["Q4_K", "Q4_K"],
+             [1536, 576], 5120),
+            ("attn_q_b Q4_K 24576x1536", ["Q4_K"], [24576], 1536),
+            ("attn_kv_b Q4_K 32768x512", ["Q4_K"], [32768], 512)],
+        "phi3.5-mini": [("attn_qkv Q5_K 9216x3072", ["Q5_K"], [9216], 3072),
+                        ("ffn_gate_up Q4_K 16384x3072", ["Q4_K"], [16384], 3072)],
+        "command-r-v01": [("attn_qkv Q4_K 24576x8192", ["Q4_K"], [24576], 8192),
+                          ("ffn_gate_up Q4_K 45056x8192", ["Q4_K"], [45056], 8192),
+                          ("output (tied token_embd) Q6_K 256000x8192", ["Q6_K"], [256000],
+                           8192)],
+        "gemma-7b": [("attn_qkv Q4_K 12288x3072", ["Q4_K"], [12288], 3072)],
     }
     for run, items in fam_ws.items():
         for label, kinds, rows, Kw in items:
@@ -1195,56 +1241,22 @@ def main() -> int:
                 weight_parity("qmv", qmv, 4, f"{run} {label}", ws, False, run, listed=False)
             del ws
         torch.cuda.empty_cache()
-    # a padded expert stack: Qwen1.5-MoE-A2.7B's ffn_down_exps (60 experts
-    # of 2048x1408, top 4) in the fallback kinds of Q4_K and Q6_K (Q5_0,
-    # Q8_0): K10 at 4 and 32 rows, K11 over a 128-token prefill's 512 rows
-    # (checked and logged: no phase-5 run holds such a stack)
-    for kd in ("Q5_0", "Q8_0"):
-        w = random_experts(kd, 60, 2048, 1408, g, dev)
-        for tokens in (1, 8, PROMPT_LEN):
-            ids = torch.topk(torch.randn(tokens, 60, generator=g, device=dev), 4,
-                             dim=-1).indices.reshape(-1).to(torch.int32)
-            need = wire_need(w) // 60 * len(set(ids.tolist()))
-            flops = 2 * ids.shape[0] * 2048 * 1408
-            if tokens < PROMPT_LEN:
-                x = torch.randn(ids.shape[0], 1408, generator=g, device=dev).to(torch.bfloat16)
-                out, ref = qmm_gather(x, ids, w), qmm_gather_plain(x, ids, w)
-                torch.cuda.synchronize()
-                record(f"qmv_id gather ffn_down_exps {kd} 60x2048x1408 (padded) "
-                       f"S={ids.shape[0]}", qmm_src.format("qmv_id"), qid_rep.format(115),
-                       [out], [ref], TOL_QMM, time_ms(lambda: qmm_gather(x, ids, w)),
-                       time_ms(lambda: qmm_gather_plain(x, ids, w), iters=5),
-                       need + x.numel() * 2 + out.numel() * 4, flops, listed=False)
-                continue
-            dest, tile_expert, s_pad = moe_sort(ids, 60, RAGGED_TILE)
-            rows = torch.randn(ids.shape[0], 1408, generator=g, device=dev).to(torch.bfloat16)
-            xs = torch.zeros(s_pad, 1408, dtype=torch.bfloat16, device=dev).index_copy_(
-                0, dest, rows)
-            out = qmm_ragged(xs, tile_expert, w, RAGGED_TILE)
-            ref = qmm_ragged_plain(xs, tile_expert, w, RAGGED_TILE)
-            torch.cuda.synchronize()
-            record(f"qgemm_id ragged ffn_down_exps {kd} 60x2048x1408 (padded) tokens={tokens} "
-                   f"rows={ids.shape[0]} s_pad={s_pad}", qmm_src.format("qgemm_id"),
-                   qid_rep.format(188), [out], [ref], TOL_QMM,
-                   time_ms(lambda: qmm_ragged(xs, tile_expert, w, RAGGED_TILE)),
-                   time_ms(lambda: qmm_ragged_plain(xs, tile_expert, w, RAGGED_TILE), iters=5),
-                   need + ids.shape[0] * (1408 * 2 + 2048 * 4), flops, listed=False)
-        del w, out, ref
-    torch.cuda.empty_cache()
-
-    def fam_attention(run, H_, Hkv_, D_, softcap, window, quant_run=None):
+    def fam_attention(run, H_, Hkv_, D_, softcap, window, quant_run=None, Dv_=None):
         """K4 at depth 1000 (and, with a window, 5000 of 8192, where the
         window bites) and K5 over a 128-token prompt at offset 0 at these
-        heads, with SDPA beside them where there is no softcap (SDPA has
-        none); with quant_run, K6 and K7 over q8_0 planes of the same
-        heads, K7 from offsets 0 and 896."""
+        heads (key dim D_, value dim Dv_, D_ by default), with SDPA beside
+        them where there is no softcap (SDPA has none); with quant_run, K6
+        and K7 over q8_0 planes of the same heads, K7 from offsets 0 and
+        896."""
+        Dv_ = Dv_ or D_
         sc = D_ ** -0.5
         kw = dict(softcap=softcap, window=window)
-        shape = f"H={H_} Hkv={Hkv_} D={D_}" + (f" softcap={softcap:g}" if softcap else "") + (
-            f" window={window}" if window else "")
-        q1, kc1, vc1 = rnd(1, H_, D_), rnd(1, Hkv_, D_), rnd(1, Hkv_, D_)
+        shape = (f"H={H_} Hkv={Hkv_} " + (f"Dk={D_} Dv={Dv_}" if Dv_ != D_ else f"D={D_}")
+                 + (f" softcap={softcap:g}" if softcap else "")
+                 + (f" window={window}" if window else ""))
+        q1, kc1, vc1 = rnd(1, H_, D_), rnd(1, Hkv_, D_), rnd(1, Hkv_, Dv_)
         for S_dec, n in ((1024, 1000), *([(8192, 5000)] if window else [])):
-            ks, vs = rnd(2, 1, S_dec, Hkv_, D_), rnd(2, 1, S_dec, Hkv_, D_)
+            ks, vs = rnd(2, 1, S_dec, Hkv_, D_), rnd(2, 1, S_dec, Hkv_, Dv_)
             seq = torch.tensor([n], dtype=torch.int32, device=dev)
             args = (q1, ks, vs, 1, kc1, vc1, seq, sc)
             out = no_sync(lambda: flash_decode_stacked_dense(*args, **kw))
@@ -1262,12 +1274,12 @@ def main() -> int:
                    "llamacog_tpu/ops/pallas/flash_q8.py:968", [out], [ref], TOL_ATTN,
                    time_ms(lambda: flash_decode_stacked_dense(*args, **kw)),
                    time_ms(lambda: flash_decode_stacked_dense_plain(*args, **kw), iters=5),
-                   2 * (q1.numel() + 2 * (n - lo) * Hkv_ * D_ + kc1.numel() + vc1.numel()
-                        + H_ * D_), 4 * H_ * (n - lo + 1) * D_, lib_ms, run=run)
+                   2 * (q1.numel() + (n - lo) * Hkv_ * (D_ + Dv_) + kc1.numel() + vc1.numel()
+                        + H_ * Dv_), 2 * H_ * (n - lo + 1) * (D_ + Dv_), lib_ms, run=run)
             del ks, vs
         T_ = PROMPT_LEN
-        qp1, kcp1, vcp1 = rnd(1, T_, H_, D_), rnd(1, T_, Hkv_, D_), rnd(1, T_, Hkv_, D_)
-        kl1, vl1 = rnd(1, 1024, Hkv_, D_), rnd(1, 1024, Hkv_, D_)
+        qp1, kcp1, vcp1 = rnd(1, T_, H_, D_), rnd(1, T_, Hkv_, D_), rnd(1, T_, Hkv_, Dv_)
+        kl1, vl1 = rnd(1, 1024, Hkv_, D_), rnd(1, 1024, Hkv_, Dv_)
         seq = torch.tensor([0], dtype=torch.int32, device=dev)
         args = (qp1, kl1, vl1, kcp1, vcp1, seq, sc)
         before = dict(build.LAUNCHES)
@@ -1290,18 +1302,20 @@ def main() -> int:
                "llamacog_tpu/ops/pallas/flash_prefill.py:129", [out], [ref], TOL_ATTN,
                time_ms(lambda: flash_prefill_kernel(*args, **kw)),
                time_ms(lambda: flash_prefill_attention_plain(*args, **kw), iters=5),
-               2 * (qp1.numel() + kcp1.numel() + vcp1.numel() + T_ * H_ * D_),
-               4 * H_ * keys * D_, lib_ms, run=run)
+               2 * (qp1.numel() + kcp1.numel() + vcp1.numel() + T_ * H_ * Dv_),
+               2 * H_ * keys * (D_ + Dv_), lib_ms, run=run)
         if quant_run is None:
             return
         kinds = ("q8_0", "q8_0")
-        cq = QuantKVCache.create(2, 1, 1024, Hkv_, D_, D_, kinds=kinds, device=dev)
+        cq = QuantKVCache.create(2, 1, 1024, Hkv_, D_, Dv_, kinds=kinds, device=dev)
         for il in range(2):
             part = QuantKVCache([p[il:il + 1] for p in cq.k_planes],
                                 [p[il:il + 1] for p in cq.v_planes], kinds, Hkv_)
-            part.write_all(*[torch.randn(1, 1, 1024, Hkv_, D_, generator=g, device=dev)
-                             for _ in "kv"], torch.zeros(1, dtype=torch.int32, device=dev))
-        plane_row = 2 * (D_ + 4 * (D_ // 32))  # a head's K and V row: int8 values, f32 scales
+            part.write_all(torch.randn(1, 1, 1024, Hkv_, D_, generator=g, device=dev),
+                           torch.randn(1, 1, 1024, Hkv_, Dv_, generator=g, device=dev),
+                           torch.zeros(1, dtype=torch.int32, device=dev))
+        # a head's K and V rows: int8 values, an f32 scale a 32-value group
+        plane_row = D_ + 4 * (D_ // 32) + Dv_ + 4 * (Dv_ // 32)
         n = 1000
         seq = torch.tensor([n], dtype=torch.int32, device=dev)
         args = (q1, cq.k_planes, cq.v_planes, 1, kc1, vc1, seq, sc)
@@ -1312,8 +1326,8 @@ def main() -> int:
                "llamacog_tpu_torch/csrc/flash_decode_quant.cu", fq8.format(828), [out], [ref],
                TOL_ATTN, time_ms(lambda: flash_decode_stacked(*args, kinds=kinds, **kw)),
                time_ms(lambda: flash_decode_stacked_plain(*args, kinds=kinds, **kw), iters=5),
-               n * Hkv_ * plane_row + 2 * (q1.numel() + kc1.numel() + vc1.numel() + H_ * D_),
-               4 * H_ * (n + 1) * D_, run=quant_run)
+               n * Hkv_ * plane_row + 2 * (q1.numel() + kc1.numel() + vc1.numel() + H_ * Dv_),
+               2 * H_ * (n + 1) * (D_ + Dv_), run=quant_run)
         kp, vp = [p[1] for p in cq.k_planes], [p[1] for p in cq.v_planes]
         for n in (0, 1024 - T_):
             seq = torch.tensor([n], dtype=torch.int32, device=dev)
@@ -1331,7 +1345,7 @@ def main() -> int:
                    [ref], TOL_ATTN, time_ms(lambda: flash_prefill_q8(*args, kinds=kinds, **kw)),
                    time_ms(lambda: flash_prefill_q8_plain(*args, kinds=kinds, **kw), iters=5),
                    n * Hkv_ * plane_row + 2 * (qp1.numel() + kcp1.numel() + vcp1.numel()
-                                               + T_ * H_ * D_), 4 * H_ * keys * D_,
+                                               + T_ * H_ * Dv_), 2 * H_ * keys * (D_ + Dv_),
                    run=quant_run)
         del cq, kp, vp, part
 
@@ -1342,56 +1356,88 @@ def main() -> int:
     # Llama-3-70B's heads (64 query heads over 8 kv heads: 8 a kv head,
     # where the 8B has 4), read in the 70B run of phase 5
     fam_attention("70b IQ2_XXS", llama3_70b_config().n_head, Hkv, D, 0.0, 0)
+    # DeepSeek-V2's MLA heads: K 192 (128 nope + 64 rope), V 128, one kv head
+    # a query head (K5/K7's 192/128 tiles); Phi-3.5's D 96; Command-R's and
+    # Gemma-7B's MHA
+    fam_attention("deepseek-v2-lite", 16, 16, 192, 0.0, 0, quant_run="deepseek-v2-lite kv q8_0",
+                  Dv_=128)
+    fam_attention("deepseek-v2", 128, 128, 192, 0.0, 0, Dv_=128)
+    fam_attention("phi3.5-mini", 32, 32, 96, 0.0, 0, quant_run="phi3.5-mini kv q8_0")
+    fam_attention("command-r-v01", 64, 64, 128, 0.0, 0)
+    fam_attention("gemma-7b", 16, 16, 256, 0.0, 0)
     torch.cuda.empty_cache()
 
-    # K10/K11 at Qwen3-30B-A3B's experts (128, top 8): gate_up 128x1536x2048
-    # (Q4_K) and down 128x2048x768 (Q6_K, a more-bits layer's); the gather at
-    # 8 rows (one token) and 32 (four), the grouped GEMM of its 128- and
-    # 512-token prefills
+    def family_experts(run, n_exp_f, top_k, stacks, run512=None):
+        """K10 (the gather at one token's and four tokens' rows) and K11 (the
+        grouped GEMM of a 128-token prefill, and with run512 a 512-token
+        one) over each (label, stack) of a family's experts, top_k of
+        n_exp_f routed from random logits; the launches from the phase-5
+        run `run`. A padded stack's bound counts its real blocks."""
+        def fam_route(tokens):
+            logits = torch.randn(tokens, n_exp_f, generator=g, device=dev)
+            return torch.topk(logits, top_k, dim=-1).indices.reshape(-1).to(torch.int32)
+
+        for label, w in stacks:
+            _, Nw, Kw = w.shape
+            per_expert = wire_need(w) // n_exp_f
+            for tokens in (1, 4):
+                ids = fam_route(tokens)
+                x = torch.randn(ids.shape[0], Kw, generator=g, device=dev).to(torch.bfloat16)
+                out = no_sync(lambda: qmm_gather(x, ids, w))
+                ref = qmm_gather_plain(x, ids, w)
+                torch.cuda.synchronize()
+                record(f"qmv_id gather {label} S={ids.shape[0]}", qmm_src.format("qmv_id"),
+                       qid_rep.format(115), [out], [ref], TOL_QMM,
+                       time_ms(lambda: qmm_gather(x, ids, w)),
+                       time_ms(lambda: qmm_gather_plain(x, ids, w), iters=5),
+                       per_expert * len(set(ids.tolist())) + x.numel() * 2 + out.numel() * 4,
+                       2 * ids.shape[0] * Nw * Kw, run=run)
+            for tokens, r in ((PROMPT_LEN, run), *([(512, run512)] if run512 else [])):
+                ids = fam_route(tokens)
+                dest, tile_expert, s_pad = moe_sort(ids, n_exp_f, RAGGED_TILE)
+                rows = torch.randn(ids.shape[0], Kw, generator=g, device=dev).to(torch.bfloat16)
+                xs = torch.zeros(s_pad, Kw, dtype=torch.bfloat16, device=dev).index_copy_(
+                    0, dest, rows)
+                out = qmm_ragged(xs, tile_expert, w, RAGGED_TILE)
+                ref = qmm_ragged_plain(xs, tile_expert, w, RAGGED_TILE)
+                torch.cuda.synchronize()
+                record(f"qgemm_id ragged {label} tokens={tokens} rows={ids.shape[0]} "
+                       f"s_pad={s_pad}", qmm_src.format("qgemm_id"), qid_rep.format(188),
+                       [out], [ref], TOL_QMM,
+                       time_ms(lambda: qmm_ragged(xs, tile_expert, w, RAGGED_TILE)),
+                       time_ms(lambda: qmm_ragged_plain(xs, tile_expert, w, RAGGED_TILE),
+                               iters=5),
+                       per_expert * len(set(ids.tolist())) + ids.shape[0] * (Kw * 2 + Nw * 4),
+                       2 * ids.shape[0] * Nw * Kw, run=r)
+                del xs, rows, out, ref
+        torch.cuda.empty_cache()
+
+    # Qwen3-30B-A3B's experts (128, top 8): gate_up 128x1536x2048 (Q4_K) and
+    # down 128x2048x768 (Q6_K, a more-bits layer's); DeepSeek-V2-Lite's (64,
+    # top 6): gate_up 64x2816x2048 and down 64x2048x1408, whose K 256 does
+    # not divide (Q4_K's fallback Q5_0, and Q8_0, Q6_K's, on the more-bits
+    # layers: rows padded with zero blocks to 1536); DeepSeek-V2's (160, top
+    # 6): gate_up 160x3072x5120 and down 160x5120x1536
     q3 = qwen3_30b_a3b_config()
-    q3_exp, q3_k = q3.n_expert, q3.n_expert_used
-    q3_stacks = [("ffn_gate_up_exps Q4_K 128x1536x2048",
-                  random_experts("Q4_K", q3_exp, 2 * q3.n_ff_exp, q3.n_embd, g, dev)),
-                 ("ffn_down_exps Q6_K 128x2048x768",
-                  random_experts("Q6_K", q3_exp, q3.n_embd, q3.n_ff_exp, g, dev))]
-
-    def q3_route(tokens):
-        logits = torch.randn(tokens, q3_exp, generator=g, device=dev)
-        return torch.topk(logits, q3_k, dim=-1).indices.reshape(-1).to(torch.int32)
-
-    for label, w in q3_stacks:
-        _, Nw, Kw = w.shape
-        for tokens in (1, 4):
-            ids = q3_route(tokens)
-            x = torch.randn(ids.shape[0], Kw, generator=g, device=dev).to(torch.bfloat16)
-            out = no_sync(lambda: qmm_gather(x, ids, w))
-            ref = qmm_gather_plain(x, ids, w)
-            torch.cuda.synchronize()
-            record(f"qmv_id gather {label} S={ids.shape[0]}", qmm_src.format("qmv_id"),
-                   qid_rep.format(115), [out], [ref], TOL_QMM,
-                   time_ms(lambda: qmm_gather(x, ids, w)),
-                   time_ms(lambda: qmm_gather_plain(x, ids, w), iters=5),
-                   w.nbytes // q3_exp * len(set(ids.tolist())) + x.numel() * 2
-                   + out.numel() * 4, 2 * ids.shape[0] * Nw * Kw, run="qwen3-30b-a3b")
-        for tokens in (PROMPT_LEN, 512):
-            ids = q3_route(tokens)
-            dest, tile_expert, s_pad = moe_sort(ids, q3_exp, RAGGED_TILE)
-            rows = torch.randn(ids.shape[0], Kw, generator=g, device=dev).to(torch.bfloat16)
-            xs = torch.zeros(s_pad, Kw, dtype=torch.bfloat16, device=dev).index_copy_(
-                0, dest, rows)
-            out = qmm_ragged(xs, tile_expert, w, RAGGED_TILE)
-            ref = qmm_ragged_plain(xs, tile_expert, w, RAGGED_TILE)
-            torch.cuda.synchronize()
-            record(f"qgemm_id ragged {label} tokens={tokens} rows={ids.shape[0]} "
-                   f"s_pad={s_pad}", qmm_src.format("qgemm_id"), qid_rep.format(188), [out],
-                   [ref], TOL_QMM, time_ms(lambda: qmm_ragged(xs, tile_expert, w, RAGGED_TILE)),
-                   time_ms(lambda: qmm_ragged_plain(xs, tile_expert, w, RAGGED_TILE), iters=5),
-                   w.nbytes // q3_exp * len(set(ids.tolist()))
-                   + ids.shape[0] * (Kw * 2 + Nw * 4), 2 * ids.shape[0] * Nw * Kw,
-                   run="qwen3-30b-a3b" if tokens == PROMPT_LEN else "qwen3-30b-a3b 512")
-            del xs, rows, out, ref
-    del q3_stacks, w
-    torch.cuda.empty_cache()
+    family_experts("qwen3-30b-a3b", q3.n_expert, q3.n_expert_used, [
+        ("ffn_gate_up_exps Q4_K 128x1536x2048",
+         random_experts("Q4_K", q3.n_expert, 2 * q3.n_ff_exp, q3.n_embd, g, dev)),
+        ("ffn_down_exps Q6_K 128x2048x768",
+         random_experts("Q6_K", q3.n_expert, q3.n_embd, q3.n_ff_exp, g, dev))],
+        run512="qwen3-30b-a3b 512")
+    dl = deepseek_v2_lite_config()
+    family_experts("deepseek-v2-lite", dl.n_expert, dl.n_expert_used, [
+        ("ffn_gate_up_exps Q4_K 64x2816x2048",
+         random_experts("Q4_K", dl.n_expert, 2 * dl.n_ff_exp, dl.n_embd, g, dev)),
+        *((f"ffn_down_exps {kd} 64x2048x1408 (padded to 1536)",
+           random_experts(kd, dl.n_expert, dl.n_embd, dl.n_ff_exp, g, dev))
+          for kd in ("Q5_0", "Q8_0"))], run512="deepseek-v2-lite 512")
+    dv2 = deepseek_v2_config()
+    family_experts("deepseek-v2", dv2.n_expert, dv2.n_expert_used, [
+        ("ffn_gate_up_exps Q4_K 160x3072x5120",
+         random_experts("Q4_K", dv2.n_expert, 2 * dv2.n_ff_exp, dv2.n_embd, g, dev)),
+        ("ffn_down_exps Q4_K 160x5120x1536",
+         random_experts("Q4_K", dv2.n_expert, dv2.n_embd, dv2.n_ff_exp, g, dev))])
 
     phase_s["phase 3"] = time.perf_counter() - t3
     log(f"[parity] done in {phase_s['phase 3']:.1f}s")
@@ -1463,7 +1509,8 @@ def main() -> int:
         if not cfgp.n_expert:
             yield lambda: None
             return
-        k, n_l = cfgp.n_expert_used, cfgp.n_layer
+        # one router call a MoE layer: deepseek2's leading dense layers have none
+        k, n_l = cfgp.n_expert_used, cfgp.n_layer - cfgp.n_layer_dense_lead
         ids = torch.zeros((n_l, rows, k), dtype=torch.long, device=dev)
         used = torch.zeros(n_l, dtype=torch.long, device=dev)
         orig, calls = llama_mod._moe_router, [0]
@@ -1497,7 +1544,8 @@ def main() -> int:
         if not cfgp.n_expert:
             yield lambda: None
             return
-        k, n_l, step, calls = cfgp.n_expert_used, cfgp.n_layer, [0], [0]
+        k, step, calls = cfgp.n_expert_used, [0], [0]
+        n_l = cfgp.n_layer - cfgp.n_layer_dense_lead
         orig = llama_mod._moe_router
 
         def route_as_kernel(layer, x, cfg):
@@ -1542,7 +1590,8 @@ def main() -> int:
         the model's dtype, bf16 by default), under the case's environment: prefill, teacher-forced decode steps and a
         9-token second chunk (which attends the cache of the first) through
         Engine on the card and on the CPU, the same params; logits held
-        within TOL_PATH at every step. On a MoE model the router's bf16
+        within TOL_PATH at every step; a bf16 model launches no SIMT body of
+        K5/K7. On a MoE model the router's bf16
         logits can tie, and a tie broken the other way runs other experts:
         the plain path therefore routes as the kernel path did
         (routing_forced), and every real row where that differs from its
@@ -1584,6 +1633,12 @@ def main() -> int:
                             f"(kv_cap: captured launches) {graphs}")
                         missing = [k for k in must if build.LAUNCHES[k] == 0]
                         check(not missing, f"{model} {label}: kernels never launched: {missing}")
+                        # a bf16 model's prefill attention runs K5/K7's tiles
+                        # alone (f32 takes their SIMT bodies by design)
+                        simt = {k: build.LAUNCHES[k] for k in ("flash_prefill_simt",
+                                                               "flash_prefill_quant_simt")}
+                        check(dtype != torch.bfloat16 or not any(simt.values()),
+                              f"{model} {label}: a SIMT body launched: {simt}")
                         # the decode steps replay one graph: the forward ran at
                         # T=1 twice, in its eager warm-up step and its capture
                         check(len(graphs) == 1, f"{model} {label}: decode graphs {graphs}")
@@ -1888,6 +1943,35 @@ def main() -> int:
                  "stacked")], 1280)):
         p_gpu, p_cpu = two_copies(cfgf, "Q4_K_M")
         path_check(model, cfgf, p_gpu, p_cpu, cases, [11, 12345, 777, 90000], max_seq)
+        del p_gpu, p_cpu
+        torch.cuda.empty_cache()
+    # the Phi-3, Command-R and DeepSeek-V2 families and Gemma-1, Q4_K_M: 2
+    # layers of each config's widths (DeepSeek: the dense lead layer and a
+    # MoE one); Command R7B at 4, so that one layer is global (pattern 4)
+    # and without rope, at max_seq 8192: the ring beside the full store
+    prompt20v = [(i * 7919) % 32064 for i in range(2, 22)]
+    moe_attn = ("qmv", "qgemm", "qmv_id", "qgemm_id")
+    for model, cfgf, cases, max_seq in (
+            ("DeepSeek-V2-Lite widths", deepseek_v2_lite_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20v, (*moe_attn, *dense_attn), "stacked"),
+                ("kv q8_0", "q8_0", {}, prompt20v, (*moe_attn, *quant_attn), "stacked")], 1024),
+            ("DeepSeek-V2 widths", deepseek_v2_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20v, (*moe_attn, *dense_attn), "stacked")], 64),
+            ("Phi-3.5-mini widths", phi3_5_mini_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20v, ("qmv", "qgemm", *dense_attn), "stacked"),
+                ("kv q8_0", "q8_0", {}, prompt20v, ("qmv", "qgemm", *quant_attn), "stacked")],
+             1024),
+            ("Command-R widths", command_r_v01_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20v, ("qmv", "qgemm", *dense_attn), "stacked")],
+             1024),
+            ("Command R7B widths", command_r7b_config(n_layer=4), [
+                ("kv dense (ring)", "dense", {}, prompt20v, ("qmv", "qgemm", *dense_attn),
+                 "stacked")], 8192),
+            ("Gemma-7B widths", gemma_7b_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20v, ("qmv", "qgemm", *dense_attn), "stacked")],
+             1024)):
+        p_gpu, p_cpu = two_copies(cfgf, "Q4_K_M")
+        path_check(model, cfgf, p_gpu, p_cpu, cases, [11, 12345, 777, 31000], max_seq)
         del p_gpu, p_cpu
         torch.cuda.empty_cache()
     phase_s["phase 4"] = time.perf_counter() - t0
@@ -2694,6 +2778,7 @@ def main() -> int:
     # ring; the full store with kv bf16, K4 and K5 with the window; q8_0,
     # K6 and K7 with it) and Qwen2-57B-A14B
     quant_path = ("qmv", "qgemm", *quant_attn)
+    moe_quant = (*quant_path, *moe_kernels)
     family_runs = {}
     t_fam = time.perf_counter()
     for model, cfgf, runs_f in (
@@ -2713,27 +2798,57 @@ def main() -> int:
                 ("kv bf16", "bf16", {}, PROMPT_LEN, exact_path, 8192, 64),
                 ("kv q8_0", "q8_0", {}, PROMPT_LEN, quant_path, 8192, 64)]),
             ("qwen2-57b-a14b", qwen2_57b_a14b_config(n_layer=4), [
-                ("kv dense", "dense", {}, PROMPT_LEN, moe_path, 1024, 64)])):
+                ("kv dense", "dense", {}, PROMPT_LEN, moe_path, 1024, 64)]),
+            # DeepSeek-V2-Lite at full depth: MLA (K5/K7's 192/128 tiles, K4/K6
+            # at Dk != Dv), the dense lead layer's K-10944 ffn_down, 26 MoE
+            # layers of 64 experts top 6 beside 2 shared ones; dense and q8_0,
+            # and a 512-token prompt in one step (K11 over 3072 rows)
+            ("deepseek-v2-lite", deepseek_v2_lite_config(), [
+                ("kv dense", "dense", {}, PROMPT_LEN, moe_path, 1024, 64),
+                ("kv q8_0", "q8_0", {}, PROMPT_LEN, moe_quant, 1024, 64),
+                ("512", "dense", {}, 512, moe_path, 1024, 16)]),
+            # the q LoRA and 160 experts (routed scale 16): the dense lead
+            # layer and one MoE layer
+            ("deepseek-v2", deepseek_v2_config(n_layer=2), [
+                ("kv dense", "dense", {}, PROMPT_LEN, moe_path, 1024, 64)]),
+            # D 96, fused qkv and gate_up, the short rope factors (max_seq
+            # 1024 within the original 4096)
+            ("phi3.5-mini", phi3_5_mini_config(), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64),
+                ("kv q8_0", "q8_0", {}, PROMPT_LEN, quant_path, 1024, 64)]),
+            ("command-r-v01", command_r_v01_config(n_layer=4), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64)]),
+            # past the 4096 window: a 4352-token prompt in 2048-token chunks at
+            # max_seq 8192 (the ring of layers 0-2 wraps; layer 3 global, NoPE)
+            ("command-r7b", command_r7b_config(n_layer=4), [
+                ("kv dense", "dense", {}, 4352, exact_path, 8192, 64, 2048)]),
+            ("gemma-7b", gemma_7b_config(n_layer=4), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64)])):
         params = build_params(model, cfgf, "Q4_K_M")
         got = main_path_runs(model, params, cfgf, runs_f)
-        n_global = sum(1 for il in range(cfgf.n_layer) if not cfgf.is_swa(il))
-        for name, r in got.items():
+        for (name, kv_type, _, prompt_len, _, max_seq, n_tok, *chunk) in runs_f:
             key = model if name == "kv dense" else f"{model} {name}"
-            family_runs[key] = r
-            n_tok = 16 if name == "512" else 64
-            if name == "kv dense" and model.startswith("gemma"):
-                # the ring's window layers read it through the masked
-                # attention: K4 runs on the global layers alone
-                check(r["decode"]["flash_decode_dense"] == n_tok * n_global,
-                      f"{key}: decode flash_decode_dense {r['decode']['flash_decode_dense']} "
-                      f"(want {n_tok * n_global}: the global layers)")
+            r = family_runs[key] = got[name]
+            # one prefill attention launch a layer and chunk, one decode one a
+            # layer and token; a ring's window layers read it through the
+            # masked attention, so K4/K5 run on the global layers alone
+            ring = kv_type == "dense" and 0 < cfgf.sliding_window < max_seq \
+                and cfgf.swa_pattern > 1
+            n_att = sum(1 for il in range(cfgf.n_layer) if not (ring and cfgf.is_swa(il)))
+            chunks = -(-prompt_len // (chunk[0] if chunk else prompt_len))
+            pre, dec = (("flash_prefill_quant", "flash_decode_quant") if kv_type == "q8_0"
+                        else ("flash_prefill", "flash_decode_dense"))
+            check(r["prefill"][pre] == chunks * n_att and r["decode"][dec] == n_tok * n_att,
+                  f"{key}: prefill {pre} {r['prefill'][pre]} (want {chunks * n_att}), decode "
+                  f"{dec} {r['decode'][dec]} (want {n_tok * n_att})")
         log(f"[{model}] {cfgf.n_layer} layers, weight-stream bound "
             f"{sum_wire_bytes(params, cfgf) / HBM_BYTES_PER_S * 1e3:.3f} ms/token "
             f"({sum_wire_bytes(params, cfgf) / 1e9:.3f} GB a token) on {nvidia_smi_line()}")
-        if model == "qwen3-30b-a3b":
+        if "512" in got:  # one chunk: gate_up and down a MoE layer
             got512 = got["512"]["prefill"]["qgemm_id"]
-            check(got512 == 2 * cfgf.n_layer, f"qwen3-30b-a3b 512 run: prefill qgemm_id "
-                  f"{got512} (want {2 * cfgf.n_layer}: one 512-token chunk)")
+            want512 = 2 * (cfgf.n_layer - cfgf.n_layer_dense_lead)
+            check(got512 == want512, f"{model} 512 run: prefill qgemm_id {got512} (want "
+                  f"{want512}: one 512-token chunk)")
         if model == "gemma3-12b":
             family_runs["gemma3-12b serving"] = ring_serving_run(params, cfgf)
         del params

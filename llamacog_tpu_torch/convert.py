@@ -5,10 +5,12 @@ form — dense tensors as float numpy arrays, quantized tensors as
 ``(ggml_type, shape, uint8 block bytes)`` — and returns the port's params
 with the same keys as the JAX loader's tree (``attn_qk``, ``attn_v``,
 ``ffn_gate_up``, ``ffn_gate_up_exps``, ...), applying the same fusion
-under the same conditions (llamacog_tpu/models/loader.py:297-348): q/k/v
+under the same conditions (llamacog_tpu/models/loader.py:297-350): q/k/v
 of one kind fuse, their biases concatenated; else q+k fuse, unless q
-carries a bias or a norm; gate+up fuse unless gate carries a bias. Quantized tensors stay in wire
-format; fusing two of them is a row concatenation of their block bytes. The port's loader and
+carries a bias or a norm; gate+up fuse unless gate carries a bias; a lone
+ffn_up of 2 x n_ff rows (phi3's pre-fused [gate; up]) becomes ffn_gate_up.
+Quantized tensors stay in wire format; fusing two of them is a row
+concatenation of their block bytes. The port's loader and
 the tests that hold the port against the JAX package both go through it:
 the JAX package's planar planes cannot be turned back into wire bytes, so
 weights cross over in their file form.
@@ -28,6 +30,7 @@ from .runtime.kv_cache import KVCache, quant_cache_class
 
 _LAYER_TENSORS = {
     "attn_norm": "attn_norm.weight",
+    "attn_norm_b": "attn_norm.bias",
     "attn_qkv": "attn_qkv.weight",
     "attn_qkv_b": "attn_qkv.bias",
     "attn_q": "attn_q.weight",
@@ -38,9 +41,18 @@ _LAYER_TENSORS = {
     "attn_v_b": "attn_v.bias",
     "attn_q_norm": "attn_q_norm.weight",
     "attn_k_norm": "attn_k_norm.weight",
+    # deepseek2's MLA; the q LoRA's second product is attn_q_b_proj, apart
+    # from the q bias key attn_q_b (the JAX loader's names, loader.py:45-53)
+    "attn_q_a": "attn_q_a.weight",
+    "attn_q_a_norm": "attn_q_a_norm.weight",
+    "attn_q_b_proj": "attn_q_b.weight",
+    "attn_kv_a_mqa": "attn_kv_a_mqa.weight",
+    "attn_kv_a_norm": "attn_kv_a_norm.weight",
+    "attn_kv_b": "attn_kv_b.weight",
     "attn_output": "attn_output.weight",
     "attn_post_norm": "post_attention_norm.weight",
     "ffn_norm": "ffn_norm.weight",
+    "ffn_norm_b": "ffn_norm.bias",
     "ffn_post_norm": "post_ffw_norm.weight",
     "ffn_gate": "ffn_gate.weight",
     "ffn_up": "ffn_up.weight",
@@ -53,13 +65,20 @@ _LAYER_TENSORS = {
     "ffn_gate_shexp": "ffn_gate_shexp.weight",
     "ffn_up_shexp": "ffn_up_shexp.weight",
     "ffn_down_shexp": "ffn_down_shexp.weight",
+    "exp_probs_b": "exp_probs_b.bias",  # DeepSeek-V3's selection bias
 }
 _MODEL_TENSORS = {
     "tok_embd": "token_embd.weight",
     "output_norm": "output_norm.weight",
     "output": "output.weight",
+    "output_norm_b": "output_norm.bias",
     "rope_freqs": "rope_freqs.weight",
+    "rope_long": "rope_factors_long.weight",  # phi3 longrope
+    "rope_short": "rope_factors_short.weight",
 }
+# the absorbed MLA of newer llama.cpp DeepSeek conversions, which the JAX
+# loader has no keys for
+_ABSORBED_MLA = ("attn_k_b.weight", "attn_v_b.weight")
 # tensors the JAX loader always keeps dense and f32 (norms, biases)
 _F32_SUFFIXES = ("_norm.weight", ".bias")
 
@@ -81,6 +100,9 @@ def from_reference(cfg: ModelConfig, tensors: dict, device=None,
     """GGUF-named tensors -> the port's params on `device` (None = CUDA)."""
     check_supported(cfg)
     dev = resolve_device(device)
+    if any(n.endswith(_ABSORBED_MLA) for n in tensors):
+        raise NotImplementedError("absorbed MLA (attn_k_b.weight / attn_v_b.weight, a newer "
+                                  "llama.cpp DeepSeek conversion) is not ported yet")
     unknown = sorted(n for n in tensors if n not in _MODEL_TENSORS.values()
                      and not (n.startswith("blk.")
                               and n.split(".", 2)[2] in _LAYER_TENSORS.values()))
@@ -115,6 +137,9 @@ def from_reference(cfg: ModelConfig, tensors: dict, device=None,
             if fused is not None:
                 layer["ffn_gate_up"] = fused
                 del layer["ffn_gate"], layer["ffn_up"]
+        if "ffn_gate" not in layer and "ffn_up" in layer \
+                and layer["ffn_up"].shape[0] == 2 * cfg.n_ff:
+            layer["ffn_gate_up"] = layer.pop("ffn_up")  # phi3: [gate; up] in one tensor
         if "ffn_gate_exps" in layer and "ffn_up_exps" in layer:
             fused = wire.fuse_experts(layer["ffn_gate_exps"], layer["ffn_up_exps"])
             if fused is not None:

@@ -1,20 +1,27 @@
 """The generalized transformer forward pass (PyTorch).
 
-Counterpart of llamacog_tpu/models/llama.py::forward for the llama, Qwen
-and Gemma families: embedding (times sqrt(n_embd) on Gemma) -> per layer
-(rms norm, q/k/v projections with their biases (qwen2), per-head q/k rms
-norm (qwen3, gemma3), rope (gemma3's local layers with a table of their
-own), attention over the old cache plus the current block (sliding-window
-layers over their window; a ring of the last `window` tokens where the
-cache keeps one, runtime/kv_cache.py::SwaKVCache), the output
-projection, post-attention and post-FFN norms (gemma2/3), a SwiGLU or
-GeGLU FFN) -> final norm -> LM head (tied to the embedding where the
-file has no output tensor) -> final logit softcap (gemma2), with the KV
-write deferred to one bulk write per step. A layer with a router
-(``ffn_gate_inp``) takes the MoE FFN instead (top-k routing, sparse
-products over the selected experts only, and qwen2moe's sigmoid-gated
-shared expert). Other architectures and features raise
-NotImplementedError.
+Counterpart of llamacog_tpu/models/llama.py::forward for the llama, Qwen,
+Gemma, Phi-3, Command-R and DeepSeek-V2 families: embedding (times
+sqrt(n_embd) on Gemma) -> per layer (rms norm, or layer norm (command-r,
+cohere2), q/k/v projections, pre-fused (phi3) or with their biases
+(qwen2), per-head q/k norm (qwen3, gemma3, command-r-plus), rope (gemma3's
+local layers with a table of their own; none on cohere2's global layers;
+phi3's long or short factors by context length), or deepseek2's MLA in its
+decompressed form (a q LoRA or a plain q, the compressed kv and its rope
+part, decompressed to one K of 192 and a V of 128 a head), attention over
+the old cache plus the current block (sliding-window layers over their
+window; a ring of the last `window` tokens where the cache keeps one,
+runtime/kv_cache.py::SwaKVCache), the output projection, post-attention
+and post-FFN norms (gemma2/3), a SwiGLU or GeGLU FFN, in parallel with the
+attention where the arch says so (command-r, cohere2)) -> final norm -> LM
+head (tied to the embedding where the file has no output tensor) -> logit
+scale (command-r) and final logit softcap (gemma2), with the KV write
+deferred to one bulk write per step. A layer with a router
+(``ffn_gate_inp``) takes the MoE FFN instead (top-k routing, softmax or
+sigmoid with a selection bias, sparse products over the selected experts
+only, and a shared expert, sigmoid-gated in qwen2moe, plain in deepseek2);
+a layer without one the dense FFN (deepseek2's leading dense layers).
+Other architectures and features raise NotImplementedError.
 
 Params are a plain dict of dense tensors and WireTensors (convert.py).
 """
@@ -27,13 +34,22 @@ from ..ops.attention import (intra_block_mask, masked_attention, old_cache_mask,
                              swa_ring_mask)
 from ..ops.cuda import flash_decode, flash_prefill, flash_q8, qmm_id
 from ..ops.linear import qmatmul, qmatmul_multi
-from ..ops.norms import rms_norm
+from ..ops.norms import layer_norm, rms_norm
 from ..ops.rope import apply_rope_tables, rope_tables
 from ..quant.wire import WireTensor, dequantize_rows
 from ..runtime.kv_cache import KVCache, QuantKVCache, SwaKVCache
 from .config import ModelConfig
 
-SUPPORTED_ARCHES = ("llama", "qwen2", "qwen2moe", "qwen3", "qwen3moe", "gemma2", "gemma3")
+SUPPORTED_ARCHES = ("llama", "qwen2", "qwen2moe", "qwen3", "qwen3moe", "gemma", "gemma2",
+                    "gemma3", "phi3", "command-r", "cohere2", "deepseek2")
+
+
+# the features each admitted family brings: layer norm, the parallel
+# residual and the logit scale (Command-R), cohere2's NoPE global layers,
+# MLA (DeepSeek-V2) and shared experts (Qwen2-MoE, DeepSeek-V2); another
+# arch that sets one is refused by the feature's name
+_COHERE_ARCHES = ("command-r", "cohere2")
+_SHEXP_ARCHES = ("qwen2moe", "deepseek2")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -42,23 +58,25 @@ def check_supported(cfg: ModelConfig) -> None:
     other architectures (or metadata keys these do not use) set."""
     if cfg.arch not in SUPPORTED_ARCHES:
         raise NotImplementedError(f"architecture {cfg.arch!r} is not ported yet")
+    cohere = cfg.arch in _COHERE_ARCHES
     unsupported = {
-        "layer norm": cfg.norm_type != "rms" or cfg.nonparam_norms,
-        "parallel residual": cfg.parallel_residual,
+        "non-parametric layer norm": cfg.nonparam_norms,
+        "layer norm": cfg.norm_type != "rms" and not cohere,
+        "parallel residual": cfg.parallel_residual and not cohere,
         "ALiBi": cfg.use_alibi,
         "learned positions": cfg.learned_pos_embd or not cfg.rope.enabled,
-        "MLA": cfg.n_lora_q > 0 or cfg.n_lora_kv > 0,
+        "MLA": (cfg.n_lora_q > 0 or cfg.n_lora_kv > 0) and cfg.arch != "deepseek2",
         "per-layer head counts": bool(cfg.n_head_arr or cfg.n_head_kv_arr),
         "M-RoPE": bool(cfg.rope.sections),
         "chunked SWA": cfg.swa_type == "chunked",
         "MoE weights before the experts": cfg.moe_weight_before,
-        "shared experts": cfg.arch != "qwen2moe" and (cfg.n_expert_shared > 0
-                                                      or cfg.n_ff_shexp > 0),
+        "shared experts": cfg.arch not in _SHEXP_ARCHES and (cfg.n_expert_shared > 0
+                                                             or cfg.n_ff_shexp > 0),
         "post-norm-only layers": cfg.post_norm_only,
         "q/k norms over the whole projection": cfg.qk_norm_full or cfg.qk_norm_layer,
-        "NoPE layers and attention temperature": (cfg.n_no_rope_layer_step > 0
-                                                  or cfg.use_attn_temp or cfg.use_kq_norm),
-        "logit scale": cfg.logit_scale != 1.0,
+        "NoPE layers and attention temperature": (cfg.use_attn_temp or cfg.use_kq_norm or (
+            cfg.n_no_rope_layer_step > 0 and cfg.arch != "cohere2")),
+        "logit scale": cfg.logit_scale != 1.0 and not cohere,
         "residual scale": cfg.residual_scale != 1.0,
         "clamp_kqv": cfg.attn_clamp > 0.0,
         "non-causal attention": not cfg.causal,
@@ -248,6 +266,56 @@ def _scale_in(x: torch.Tensor, value: float) -> torch.Tensor:
     return x * float(torch.tensor(value, dtype=x.dtype))
 
 
+def _norm(x: torch.Tensor, tensors: dict, key: str, cfg: ModelConfig) -> torch.Tensor:
+    """The arch's norm with weight `key` (and its bias `key`_b where the
+    file has one): layer norm (command-r, cohere2) or rms norm."""
+    if cfg.norm_type == "layer":
+        return layer_norm(x, tensors.get(key), tensors.get(key + "_b"), cfg.norm_eps)
+    return rms_norm(x, tensors[key], cfg.rms_norm_eps, tensors.get(key + "_b"))
+
+
+def rope_factors(params: dict, cfg: ModelConfig, max_seq: int):
+    """The per-dim rope frequency divisors (llama_model::get_rope_factors,
+    the JAX _rope_factors): rope_freqs where the file has it, else phi3's
+    long factors when the cache reaches past the original context, its
+    short ones otherwise. The forward and the context shift both take
+    them, so a shifted key is rotated by the table that made it."""
+    if "rope_freqs" in params:
+        return params["rope_freqs"]
+    if "rope_long" in params or "rope_short" in params:
+        if cfg.rope.orig_ctx_len and max_seq > cfg.rope.orig_ctx_len:
+            return params.get("rope_long", params.get("rope_short"))
+        return params.get("rope_short", params.get("rope_long"))
+    return None
+
+
+def _mla_qkv(layer: dict, h: torch.Tensor, cfg: ModelConfig, tab):
+    """deepseek2's MLA in the decompressed-MHA form (the JAX forward's
+    branch, llama.py:571-604): q from attn_q, or from the q LoRA (attn_q_a,
+    its rms norm, attn_q_b_proj); the compressed kv and the shared rope key
+    from attn_kv_a_mqa (one launch with q's first product); rope on the
+    rope parts only; the compressed kv's rms norm decompressed by attn_kv_b
+    into each head's nope key and value. q and k put the rope part first,
+    the JAX cache's layout. Returns q, k [B, T, H, Dk] and v [B, T, H, Dv]."""
+    B, T = h.shape[:2]
+    H, Dk, Dv = cfg.n_head, cfg.head_dim_k, cfg.head_dim_v
+    rdim, eps = cfg.rope.dim, cfg.rms_norm_eps
+    nope = Dk - rdim
+    q_in = "attn_q_a" if "attn_q_a" in layer else "attn_q"
+    q, kv_pe = _linear_multi(h, layer, (q_in, "attn_kv_a_mqa"))
+    if q_in == "attn_q_a":
+        q = qmatmul(rms_norm(q, layer["attn_q_a_norm"], eps), layer["attn_q_b_proj"])
+    q = q.reshape(B, T, H, Dk)
+    q_pe = apply_rope_tables(q[..., nope:], tab, rdim, interleaved=cfg.rope.interleaved)
+    k_pe = apply_rope_tables(kv_pe[..., cfg.n_lora_kv:].reshape(B, T, 1, rdim), tab, rdim,
+                             interleaved=cfg.rope.interleaved)
+    kv_cmpr = rms_norm(kv_pe[..., :cfg.n_lora_kv], layer["attn_kv_a_norm"], eps)
+    kv = qmatmul(kv_cmpr, layer["attn_kv_b"]).reshape(B, T, H, nope + Dv)
+    q = torch.cat([q_pe, q[..., :nope]], dim=-1)
+    k = torch.cat([k_pe.expand(B, T, H, rdim), kv[..., :nope]], dim=-1)
+    return q, k, kv[..., nope:].contiguous()
+
+
 def forward(
     params: dict,
     cfg: ModelConfig,
@@ -334,9 +402,10 @@ def forward(
     x = embed_tokens(params, tokens, dtype)
     if cfg.embd_scale != 1.0:  # Gemma: sqrt(n_embd), multiplied in the activation dtype
         x = _scale_in(x, cfg.embd_scale)
-    # llama-3.1 style per-dim rope factors (llama_model::get_rope_factors);
-    # gemma3's local layers take a rope of their own (base 10000, no scaling)
-    freq_factors = params.get("rope_freqs")
+    # llama-3.1 style per-dim rope factors, phi3's long or short ones
+    # (rope_factors); gemma3's local layers take a rope of their own (base
+    # 10000, no scaling)
+    freq_factors = rope_factors(params, cfg, cache.max_seq)
     rtab = rope_tables(positions, cfg.rope, Dk, freq_factors)
     rtab_swa = (rope_tables(positions, cfg.rope_swa, Dk, freq_factors)
                 if cfg.rope_freq_base_swa > 0.0 else rtab)
@@ -344,45 +413,59 @@ def forward(
     eps = cfg.rms_norm_eps
     new_ks, new_vs = [], []
     for il, layer in enumerate(params["layers"]):
-        if not any(kk in layer for kk in ("attn_qkv", "attn_qk", "attn_q")):
-            raise NotImplementedError("attention-free layers are not ported yet")
-        h = rms_norm(x, layer["attn_norm"], eps)
-        if "attn_qkv" in layer:
-            qkv = _linear(h, layer, "attn_qkv")
-            q, k, v = qkv.split([H * Dk, Hkv * Dk, Hkv * Dv], dim=-1)
-        elif "attn_qk" in layer:
-            # q+k fused when v's quant kind differs; qk and v ride ONE launch
-            qk, v = _linear_multi(h, layer, ("attn_qk", "attn_v"))
-            q, k = qk.split([H * Dk, Hkv * Dk], dim=-1)
-        else:
-            q, k, v = _linear_multi(h, layer, ("attn_q", "attn_k", "attn_v"))
-        # by the weights' rows, never n_embd: Qwen3-30B-A3B's q is 4096 wide
-        # over an n_embd of 2048
-        q = q.reshape(B, T, -1, Dk)
-        k = k.reshape(B, T, -1, Dk)
-        v = v.reshape(B, T, -1, Dv)
-        if "attn_q_norm" in layer:  # qwen3, gemma3: per-head rms norm
-            q = rms_norm(q, layer["attn_q_norm"], eps)
-            k = rms_norm(k, layer["attn_k_norm"], eps)
+        h = _norm(x, layer, "attn_norm", cfg)
+        # parallel residual (command-r, cohere2): the FFN reads the same
+        # normed input, or its own norm of x where the layer has one
+        par_ffn_h = (_norm(x, layer, "ffn_norm", cfg)
+                     if cfg.parallel_residual and "ffn_norm" in layer else h)
         is_swa = cfg.is_swa(il)
         tab = rtab_swa if is_swa else rtab
-        q = apply_rope_tables(q, tab, rdim, interleaved=cfg.rope.interleaved)
-        k = apply_rope_tables(k, tab, rdim, interleaved=cfg.rope.interleaved).contiguous()
-        v = v.contiguous()
+        if "attn_kv_a_mqa" in layer:
+            # the JAX MLA branch ends its layer as the common tail below
+            # does for deepseek2 (no post norms, no parallel residual)
+            q, k, v = _mla_qkv(layer, h, cfg, tab)
+        else:
+            if "attn_qkv" in layer:
+                qkv = _linear(h, layer, "attn_qkv")
+                q, k, v = qkv.split([H * Dk, Hkv * Dk, Hkv * Dv], dim=-1)
+            elif "attn_qk" in layer:
+                # q+k fused when v's quant kind differs; qk and v ride ONE launch
+                qk, v = _linear_multi(h, layer, ("attn_qk", "attn_v"))
+                q, k = qk.split([H * Dk, Hkv * Dk], dim=-1)
+            elif "attn_q" in layer:
+                q, k, v = _linear_multi(h, layer, ("attn_q", "attn_k", "attn_v"))
+            else:
+                raise NotImplementedError("attention-free layers are not ported yet")
+            # by the weights' rows, never n_embd: Qwen3-30B-A3B's q is 4096 wide
+            # over an n_embd of 2048
+            q = q.reshape(B, T, -1, Dk)
+            k = k.reshape(B, T, -1, Dk)
+            v = v.reshape(B, T, -1, Dv).contiguous()
+            if "attn_q_norm" in layer:  # qwen3, gemma3, command-r-plus: per-head rms norm
+                q = rms_norm(q, layer["attn_q_norm"], eps)
+                k = rms_norm(k, layer["attn_k_norm"], eps)
+            # cohere2's global layers (every n_no_rope_layer_step-th) take no rope
+            if not (cfg.n_no_rope_layer_step > 0 and (il + 1) % cfg.n_no_rope_layer_step == 0):
+                q = apply_rope_tables(q, tab, rdim, interleaved=cfg.rope.interleaved)
+                k = apply_rope_tables(k, tab, rdim, interleaved=cfg.rope.interleaved)
+            k = k.contiguous()
         new_ks.append(k)
         new_vs.append(v)
         attn = _attend(q.contiguous(), k, v, il, is_swa)
         attn = _linear(attn.reshape(B, T, H * Dv), layer, "attn_output")
         if cfg.post_norms and "attn_post_norm" in layer:
-            attn = rms_norm(attn, layer["attn_post_norm"], eps)
+            attn = _norm(attn, layer, "attn_post_norm", cfg)
+        if cfg.parallel_residual:
+            x = x + attn + _ffn(layer, par_ffn_h, cfg)
+            continue
         x = x + attn
-        h = rms_norm(x, layer["ffn_norm"], eps)
+        h = _norm(x, layer, "ffn_norm", cfg) if "ffn_norm" in layer else x
         if cfg.n_expert > 0 and "ffn_gate_inp" in layer:
             ffn = _ffn_moe(layer, h, cfg)
-        else:
+        else:  # a dense layer, deepseek2's leading ones among them
             ffn = _ffn(layer, h, cfg)
         if cfg.post_norms and "ffn_post_norm" in layer:
-            ffn = rms_norm(ffn, layer["ffn_post_norm"], eps)
+            ffn = _norm(ffn, layer, "ffn_post_norm", cfg)
         x = x + ffn
 
     cache = cache.write_all(torch.stack(new_ks), torch.stack(new_vs), write_pos,
@@ -390,10 +473,12 @@ def forward(
     if logits_last is not None:
         idx = torch.as_tensor(logits_last, device=x.device).long().reshape(B, 1, 1)
         x = torch.gather(x, 1, idx.expand(B, 1, x.shape[-1]))
-    x = rms_norm(x, params["output_norm"], eps)
+    x = _norm(x, params, "output_norm", cfg)
     out_w = params.get("output", params["tok_embd"])  # tied: the embedding table
     # f32 kernel output, rounded to the activation dtype, then f32 logits
     logits = qmatmul(x, out_w).float()
+    if cfg.logit_scale != 1.0:  # command-r (f_logit_scale)
+        logits = logits * cfg.logit_scale
     if cfg.final_logit_softcap > 0.0:  # gemma2
         c = cfg.final_logit_softcap
         logits = c * torch.tanh(logits / c)

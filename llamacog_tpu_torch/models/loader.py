@@ -1,9 +1,10 @@
-"""GGUF -> model params loader (llama only).
+"""GGUF -> model params loader.
 
-Counterpart of llamacog_tpu/models/loader.py::load_model for the llama
-architecture: the tensors are read from the file and carried into the
-port's tree by convert.from_reference, which keeps quantized weights in
-wire format and applies the JAX loader's q/k/v and gate/up fusion.
+Counterpart of llamacog_tpu/models/loader.py::load_model for the
+architectures of models/llama.py::SUPPORTED_ARCHES: the tensors are read
+from the file and carried into the port's tree by convert.from_reference,
+which keeps quantized weights in wire format and applies the JAX loader's
+q/k/v and gate/up fusion.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ class Model:
 
 def load_model(path: str, dtype=torch.bfloat16, device=None,
                with_tokenizer: bool = True) -> Model:
-    """Load a llama GGUF onto `device` (None = CUDA; raises without one)."""
+    """Load a GGUF onto `device` (None = CUDA; raises without one)."""
     reader = GGUFModelReader(path)
     try:
         cfg = ModelConfig.from_metadata(reader.metadata)

@@ -69,7 +69,9 @@ def qmm_plain(x: torch.Tensor, w: WireTensor) -> torch.Tensor:
     that of a bf16 x bf16 -> f32 kernel), f32 operands elsewhere."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    wd = dequantize(w, torch.float32)
+    # a kept decode (wire.keep_decoded) is read in place: dequantize would
+    # copy the whole weight at every call
+    wd = w.decoded if w.decoded is not None else dequantize(w, torch.float32)
     if uses_qgemm(x2):
         out = x2.float() @ wd.to(torch.bfloat16).float().T
     else:

@@ -58,7 +58,8 @@ def _plain(x: torch.Tensor, ids: torch.Tensor, w: WireTensor, bf16_weights: bool
         sel = ids == e
         if not bool(sel.any()):
             continue
-        wd = dequantize_experts(w, torch.tensor([e]))[0]
+        # a kept decode is read in place, not copied expert by expert
+        wd = w.decoded[e] if w.decoded is not None else dequantize_experts(w, torch.tensor([e]))[0]
         if bf16_weights:
             wd = wd.to(torch.bfloat16).float()
         out[sel] = xf[sel] @ wd.T

@@ -1,8 +1,9 @@
 """Generation engine over B rows of one KV cache (PyTorch).
 
 Counterpart of llamacog_tpu/runtime/engine.py::Engine for the llama,
-Qwen and Gemma families, with the dense cache or the quantized one
-(kv_type, the -ctk/-ctv kinds, through make_cache), or, for a dense cache
+Qwen, Gemma, Phi-3, Command-R and DeepSeek-V2 families, with the dense
+cache or the quantized one (kv_type, the -ctk/-ctv kinds, through
+make_cache), or, for a dense cache
 of a model with interleaved sliding-window layers whose window is shorter
 than max_seq, the ring cache (SwaKVCache: the JAX engine's choice,
 engine.py:103-118): prefill in padded length buckets (the pad slots are
@@ -35,7 +36,7 @@ import torch
 
 from .. import resolve_device
 from ..models.config import ModelConfig
-from ..models.llama import check_supported, forward
+from ..models.llama import check_supported, forward, rope_factors
 from ..ops.cuda import build, qmm_id
 from ..ops.rope import rope_shift
 from ..quant.mmq import attach_mmq_planes
@@ -386,7 +387,7 @@ class Engine:
         else:
             k, v = c.k[:, row], c.v[:, row]  # [L, S, Hkv, D]
         k = rope_shift(k.index_select(1, src), delta, self.config.rope,
-                       self.params.get("rope_freqs"))
+                       rope_factors(self.params, self.config, self.max_seq))
         v = v.index_select(1, src)
         news = (c.quant_k(k) + c.quant_v(v)) if quant else (k, v)
         for plane, new in zip(c.planes(), news):

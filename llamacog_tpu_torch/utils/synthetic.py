@@ -42,6 +42,8 @@ embedding is tied (Gemma, Qwen2.5-0.5B).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..models.config import ModelConfig, RopeConfig, _apply_arch_defaults
@@ -129,13 +131,23 @@ def _use_more_bits(i: int, n: int) -> bool:
     return i < n // 8 or i >= 7 * n // 8 or (i - n // 8) % 3 == 2
 
 
+def shared_ff(cfg: ModelConfig) -> int:
+    """The shared expert's width: its own key (qwen2moe), or deepseek2's
+    n_expert_shared experts side by side."""
+    return cfg.n_ff_shexp or cfg.n_ff_exp * cfg.n_expert_shared
+
+
 def tensor_kinds(cfg: ModelConfig, ftype: str = "Q4_K_M", imatrix: bool = False) -> dict:
     """The wire kind of every weight of a llama-family GGUF quantized to
     `ftype` (with an importance matrix if `imatrix`): {"token_embd",
     "output", "layers": [{attn_q, attn_k, attn_v, attn_output, ffn_gate,
     ffn_up, ffn_down}]} (the FFN names stand for the stacked experts in a
-    MoE config; a shared expert adds ffn_gate_shexp, ffn_up_shexp and
-    ffn_down_shexp, the last by ffn_down's rule). Unfused, by the GGUF
+    MoE layer; a shared expert adds ffn_gate_shexp, ffn_up_shexp and
+    ffn_down_shexp, the last by ffn_down's rule). phi3 has one attn_qkv
+    instead of q/k/v (Q5_K under Q4_K_M); deepseek2's MLA layers have
+    attn_q (or the q LoRA's attn_q_a and attn_q_b), attn_kv_a_mqa and
+    attn_kv_b, which no rule names, and its leading dense layers the dense
+    FFN's. Unfused, by the GGUF
     tensor names. A tied embedding (cfg.tie_word_embeddings) takes the
     output tensor's rule, as in llama.cpp; "output" is then the kind of
     that table. Each kind is fitted to its row length (fit_kind)."""
@@ -183,13 +195,26 @@ def tensor_kinds(cfg: ModelConfig, ftype: str = "Q4_K_M", imatrix: bool = False)
                 out = {"Q2_K": "Q3_K", "Q3_K_M": "Q4_K", "Q3_K_L": "Q5_K", "IQ3_XXS": "IQ3_S",
                        "IQ3_M": "Q4_K"}.get(ftype, base)
         E, q_width = cfg.n_embd, cfg.n_head * cfg.head_dim_v
-        f_down = cfg.n_ff_exp or cfg.n_ff if n_exp else cfg.n_ff
+        moe = n_exp > 0 and il >= cfg.n_layer_dense_lead  # deepseek2 leads with dense layers
+        f_down = (cfg.n_ff_exp or cfg.n_ff) if moe else cfg.n_ff
         lk = {"attn_q": fit_kind(q, E), "attn_k": fit_kind(k, E), "attn_v": fit_kind(v, E),
               "attn_output": fit_kind(out, q_width), "ffn_gate": fit_kind(base, E),
               "ffn_up": fit_kind(base, E), "ffn_down": fit_kind(down, f_down)}
-        if cfg.n_ff_shexp:
+        if cfg.arch == "phi3":  # one attn_qkv tensor, by its own rule
+            qkv = base if lowbit else {"Q3_K_M": "Q4_K", "Q3_K_L": "Q4_K", "IQ3_M": "Q4_K",
+                                       "Q4_K_M": "Q5_K", "Q5_K_M": "Q6_K"}.get(ftype, base)
+            del lk["attn_q"], lk["attn_k"], lk["attn_v"]
+            lk["attn_qkv"] = fit_kind(qkv, E)
+        if cfg.n_lora_kv:  # MLA: no attn_k/attn_v; its products take the default kind
+            del lk["attn_k"], lk["attn_v"]
+            if cfg.n_lora_q:
+                del lk["attn_q"]
+                lk.update(attn_q_a=fit_kind(base, E), attn_q_b=fit_kind(base, cfg.n_lora_q))
+            lk.update(attn_kv_a_mqa=fit_kind(base, E), attn_kv_b=fit_kind(base, cfg.n_lora_kv))
+        shexp = shared_ff(cfg) if moe else 0
+        if shexp:
             lk.update(ffn_gate_shexp=lk["ffn_gate"], ffn_up_shexp=lk["ffn_up"],
-                      ffn_down_shexp=fit_kind(down, cfg.n_ff_shexp))
+                      ffn_down_shexp=fit_kind(down, shexp))
         layers.append(lk)
     embd = ("IQ3_S" if iq2_sm or ftype == "IQ3_XXS" else "Q2_K" if lowbit
             else "Q4_K" if ftype in ("TQ1_0", "TQ2_0") else base)
@@ -207,7 +232,8 @@ def layout_kinds(cfg: ModelConfig, layout: str = DEFAULT_LAYOUT, imatrix: bool =
     kinds = tensor_kinds(cfg, "Q4_K_M")
     if not cfg.n_expert:
         for lk in kinds["layers"]:
-            lk["attn_v"] = fit_kind("Q6_K", cfg.n_embd)
+            if "attn_v" in lk:
+                lk["attn_v"] = fit_kind("Q6_K", cfg.n_embd)
     return kinds
 
 
@@ -348,13 +374,119 @@ def gemma3_4b_config(n_layer: int = 34) -> ModelConfig:
         tie_word_embeddings=True)
 
 
+def gemma_7b_config(n_layer: int = 28) -> ModelConfig:
+    """Gemma-7B (google/gemma-7b config.json: 28 layers, hidden 3072, 16
+    query heads over 16 kv heads of 256, so q is 4096 wide, intermediate
+    24576, vocab 256000, rope theta 10000, rms eps 1e-6, GELU, tied
+    embeddings); `n_layer` cuts depth only."""
+    return _family_config(
+        "gemma", n_vocab=256000, n_ctx_train=8192, n_embd=3072, n_layer=n_layer, n_head=16,
+        n_head_kv=16, n_ff=24576, head_dim_k=256, head_dim_v=256, rms_norm_eps=1e-6,
+        rope=RopeConfig(dim=256, freq_base=10000.0), tie_word_embeddings=True)
+
+
+def phi3_5_mini_config(n_layer: int = 32) -> ModelConfig:
+    """Phi-3.5-mini (microsoft/Phi-3.5-mini-instruct config.json: 32 layers,
+    hidden 3072, 32 heads of 96 (no GQA), intermediate 8192, vocab 32064,
+    rope theta 10000, rms eps 1e-5; longrope: 48 long and 48 short
+    factors, original context 4096 of 131072). As llama.cpp's converter
+    writes it: no rope scaling type (the factors are tensors, rope_long
+    and rope_short) and rope.scaling.attn_factor sqrt(1 + ln 32 / ln 4096),
+    which the JAX rope reads under YaRN only; its sliding_window of 262144
+    is past any context here; `n_layer` cuts depth only."""
+    return _family_config(
+        "phi3", n_vocab=32064, n_ctx_train=131072, n_embd=3072, n_layer=n_layer, n_head=32,
+        n_head_kv=32, n_ff=8192, head_dim_k=96, head_dim_v=96, rms_norm_eps=1e-5,
+        rope=RopeConfig(dim=96, freq_base=10000.0, orig_ctx_len=4096,
+                        attn_factor=math.sqrt(1 + math.log(32) / math.log(4096))))
+
+
+def phi4_config(n_layer: int = 40) -> ModelConfig:
+    """Phi-4 (microsoft/phi-4 config.json: 40 layers, hidden 5120, 40 query
+    heads over 10 kv heads of 128, intermediate 17920, vocab 100352, rope
+    theta 250000, rms eps 1e-5, no rope scaling, no window; GGUF arch
+    phi3); `n_layer` cuts depth only."""
+    return _family_config(
+        "phi3", n_vocab=100352, n_ctx_train=16384, n_embd=5120, n_layer=n_layer, n_head=40,
+        n_head_kv=10, n_ff=17920, head_dim_k=128, head_dim_v=128, rms_norm_eps=1e-5,
+        rope=RopeConfig(dim=128, freq_base=250000.0))
+
+
+def command_r_v01_config(n_layer: int = 40) -> ModelConfig:
+    """Command-R (CohereForAI/c4ai-command-r-v01 config.json: 40 layers,
+    hidden 8192, 64 heads of 128 (no GQA), intermediate 22528, vocab
+    256000, layer norm eps 1e-5 without bias, rope theta 8e6, logit scale
+    0.0625, tied embeddings, no q/k norm); `n_layer` cuts depth only."""
+    return _family_config(
+        "command-r", n_vocab=256000, n_ctx_train=8192, n_embd=8192, n_layer=n_layer,
+        n_head=64, n_head_kv=64, n_ff=22528, head_dim_k=128, head_dim_v=128, norm_eps=1e-5,
+        logit_scale=0.0625, rope=RopeConfig(dim=128, freq_base=8e6),
+        tie_word_embeddings=True)
+
+
+def command_r7b_config(n_layer: int = 32) -> ModelConfig:
+    """Command R7B (CohereForAI/c4ai-command-r7b-12-2024 config.json: 32
+    layers, hidden 4096, 32 query heads over 8 kv heads of 128,
+    intermediate 14336, vocab 256000, layer norm eps 1e-5, rope theta
+    50000, logit scale 0.25, sliding window 4096 on 3 of every 4 layers
+    (the 4th global and without rope), tied embeddings); `n_layer` cuts
+    depth only."""
+    return _family_config(
+        "cohere2", n_vocab=256000, n_ctx_train=8192, n_embd=4096, n_layer=n_layer, n_head=32,
+        n_head_kv=8, n_ff=14336, head_dim_k=128, head_dim_v=128, norm_eps=1e-5,
+        logit_scale=0.25, sliding_window=4096, rope=RopeConfig(dim=128, freq_base=50000.0),
+        tie_word_embeddings=True)
+
+
+def _deepseek2_rope() -> RopeConfig:
+    """DeepSeek-V2's rope as llama.cpp's converter writes it: 64 rotary dims
+    of the 192-wide key, YaRN factor 40 over 4096 original positions,
+    yarn_log_multiplier 0.1 x mscale_all_dim 0.707 (the config's
+    rope_scaling)."""
+    return RopeConfig(dim=64, freq_base=10000.0, scaling_type="yarn", scaling_factor=40.0,
+                      orig_ctx_len=4096, yarn_log_mul=0.0707)
+
+
+def deepseek_v2_lite_config(n_layer: int = 27) -> ModelConfig:
+    """DeepSeek-V2-Lite (deepseek-ai/DeepSeek-V2-Lite config.json: 27 layers,
+    hidden 2048, 16 heads; MLA without a q LoRA, kv_lora_rank 512, key 128
+    nope + 64 rope, value 128; layer 0 dense (intermediate 10944), the rest
+    64 routed experts of 1408, top 6, softmax, no top-k norm, scale 1.0,
+    beside 2 shared experts; vocab 102400, rms eps 1e-6); `n_layer` cuts
+    depth only."""
+    return _family_config(
+        "deepseek2", n_vocab=102400, n_ctx_train=163840, n_embd=2048, n_layer=n_layer,
+        n_head=16, n_head_kv=16, n_ff=10944, head_dim_k=192, head_dim_v=128,
+        rms_norm_eps=1e-6, n_expert=64, n_expert_used=6, n_ff_exp=1408, n_expert_shared=2,
+        n_lora_kv=512, n_layer_dense_lead=1, rope=_deepseek2_rope())
+
+
+def deepseek_v2_config(n_layer: int = 60) -> ModelConfig:
+    """DeepSeek-V2 (deepseek-ai/DeepSeek-V2 config.json: 60 layers, hidden
+    5120, 128 heads; MLA with q_lora_rank 1536, kv_lora_rank 512, key 128 +
+    64, value 128; layer 0 dense (intermediate 12288), the rest 160 routed
+    experts of 1536, top 6, routed_scaling_factor 16, beside 2 shared
+    experts; vocab 102400; its group-limited routing (8 groups, top 3) is
+    not in the JAX router, which takes top-k over all experts); `n_layer`
+    cuts depth only."""
+    return _family_config(
+        "deepseek2", n_vocab=102400, n_ctx_train=163840, n_embd=5120, n_layer=n_layer,
+        n_head=128, n_head_kv=128, n_ff=12288, head_dim_k=192, head_dim_v=128,
+        rms_norm_eps=1e-6, n_expert=160, n_expert_used=6, n_ff_exp=1536, n_expert_shared=2,
+        expert_weights_scale=16.0, n_lora_q=1536, n_lora_kv=512, n_layer_dense_lead=1,
+        rope=_deepseek2_rope())
+
+
 # every synthetic configuration by the name the tools take (--model)
 CONFIGS = {"llama3-8b": llama3_8b_config, "llama3-70b": llama3_70b_config,
            "mixtral-8x7b": mixtral_8x7b_config, "qwen2.5-7b": qwen2_5_7b_config,
            "qwen2.5-0.5b": qwen2_5_0_5b_config, "qwen3-8b": qwen3_8b_config,
            "qwen3-30b-a3b": qwen3_30b_a3b_config, "qwen2-57b-a14b": qwen2_57b_a14b_config,
            "gemma2-9b": gemma2_9b_config, "gemma3-12b": gemma3_12b_config,
-           "gemma3-4b": gemma3_4b_config}
+           "gemma3-4b": gemma3_4b_config, "gemma-7b": gemma_7b_config,
+           "phi3.5-mini": phi3_5_mini_config, "phi4": phi4_config,
+           "command-r-v01": command_r_v01_config, "command-r7b": command_r7b_config,
+           "deepseek-v2-lite": deepseek_v2_lite_config, "deepseek-v2": deepseek_v2_config}
 # the families whose files carry q/k/v biases, and per-head q/k norms
 _QKV_BIAS_ARCHES = ("qwen2", "qwen2moe")
 _QK_NORM_ARCHES = ("qwen3", "qwen3moe", "gemma3")
@@ -373,15 +505,17 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
     importance matrix if `imatrix`), or laid out as DEFAULT_LAYOUT
     (layout_kinds), for the forward, on `device`, fused as the loader fuses
     such a file (convert.py: q/k/v of one kind fuse with their biases; q+k
-    fuse unless q carries a bias or a norm). Norm weights are ones, biases
-    and routers small f32 draws."""
+    fuse unless q carries a bias or a norm; phi3's attn_qkv and its ffn_up
+    of 2 x n_ff rows, which is ffn_gate_up). Norm weights are ones (and a
+    layer-norm arch has no ffn_norm: its FFN reads the attention's input
+    norm), biases and routers small f32 draws, phi3's rope factors a long
+    and a short table of cfg.rope.dim / 2."""
     from .. import resolve_device
 
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     kinds = layout_kinds(cfg, ftype, imatrix)
     E = cfg.n_embd
-    F = cfg.n_ff_exp or cfg.n_ff if cfg.n_expert else cfg.n_ff
     kv = cfg.n_head_kv * cfg.head_dim_k
     bias, qk_norm = cfg.arch in _QKV_BIAS_ARCHES, cfg.arch in _QK_NORM_ARCHES
 
@@ -398,11 +532,33 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
     }
     if not cfg.tie_word_embeddings:
         params["output"] = random_wire(kinds["output"], cfg.n_vocab, E, g, dev)
-    for lk in kinds["layers"]:
-        layer = {"attn_norm": ones(E), "ffn_norm": ones(E)}
+    if cfg.arch == "phi3" and cfg.rope.orig_ctx_len:  # longrope's two factor tables
+        half = cfg.rope.dim // 2
+        params["rope_short"] = 1.0 + torch.rand(half, generator=g, device=dev) * 0.1
+        params["rope_long"] = torch.linspace(1.0, 40.0, half, device=dev)
+    for il, lk in enumerate(kinds["layers"]):
+        layer = {"attn_norm": ones(E)}
+        if not cfg.parallel_residual:
+            layer["ffn_norm"] = ones(E)
         rows = {"attn_q": cfg.n_head * cfg.head_dim_k, "attn_k": kv,
                 "attn_v": cfg.n_head_kv * cfg.head_dim_v}
-        if lk["attn_q"] == lk["attn_k"] == lk["attn_v"]:
+        if cfg.n_lora_kv:  # deepseek2's MLA
+            Dk, r = cfg.head_dim_k, cfg.rope.dim
+            if cfg.n_lora_q:
+                layer["attn_q_a"] = random_wire(lk["attn_q_a"], cfg.n_lora_q, E, g, dev)
+                layer["attn_q_a_norm"] = ones(cfg.n_lora_q)
+                layer["attn_q_b_proj"] = random_wire(lk["attn_q_b"], cfg.n_head * Dk,
+                                                     cfg.n_lora_q, g, dev)
+            else:
+                layer["attn_q"] = random_wire(lk["attn_q"], cfg.n_head * Dk, E, g, dev)
+            layer["attn_kv_a_mqa"] = random_wire(lk["attn_kv_a_mqa"], cfg.n_lora_kv + r, E, g,
+                                                 dev)
+            layer["attn_kv_a_norm"] = ones(cfg.n_lora_kv)
+            layer["attn_kv_b"] = random_wire(
+                lk["attn_kv_b"], cfg.n_head * (Dk - r + cfg.head_dim_v), cfg.n_lora_kv, g, dev)
+        elif "attn_qkv" in lk:
+            layer["attn_qkv"] = random_wire(lk["attn_qkv"], sum(rows.values()), E, g, dev)
+        elif lk["attn_q"] == lk["attn_k"] == lk["attn_v"]:
             layer["attn_qkv"] = random_wire(lk["attn_q"], sum(rows.values()), E, g, dev)
             if bias:
                 layer["attn_qkv_b"] = small(sum(rows.values()))
@@ -420,20 +576,21 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
                                            g, dev)
         if cfg.post_norms:
             layer["attn_post_norm"], layer["ffn_post_norm"] = ones(E), ones(E)
-        if cfg.n_expert > 0:
-            n_exp = cfg.n_expert
+        if cfg.n_expert > 0 and il >= cfg.n_layer_dense_lead:
+            n_exp, F = cfg.n_expert, cfg.n_ff_exp or cfg.n_ff
             layer["ffn_gate_inp"] = small(n_exp, E)
             layer["ffn_gate_up_exps"] = random_experts(lk["ffn_gate"], n_exp, 2 * F, E, g, dev)
             layer["ffn_down_exps"] = random_experts(lk["ffn_down"], n_exp, E, F, g, dev)
-            if cfg.n_ff_shexp:
-                fs = cfg.n_ff_shexp
-                layer["ffn_gate_inp_shexp"] = small(1, E)
+            fs = shared_ff(cfg)
+            if fs:
+                if cfg.arch == "qwen2moe":  # deepseek2's shared experts have no gate
+                    layer["ffn_gate_inp_shexp"] = small(1, E)
                 layer["ffn_gate_shexp"] = random_wire(lk["ffn_gate_shexp"], fs, E, g, dev)
                 layer["ffn_up_shexp"] = random_wire(lk["ffn_up_shexp"], fs, E, g, dev)
                 layer["ffn_down_shexp"] = random_wire(lk["ffn_down_shexp"], E, fs, g, dev)
         else:
-            layer["ffn_gate_up"] = random_wire(lk["ffn_gate"], 2 * F, E, g, dev)
-            layer["ffn_down"] = random_wire(lk["ffn_down"], E, F, g, dev)
+            layer["ffn_gate_up"] = random_wire(lk["ffn_gate"], 2 * cfg.n_ff, E, g, dev)
+            layer["ffn_down"] = random_wire(lk["ffn_down"], E, cfg.n_ff, g, dev)
         params["layers"].append(layer)
     return params
 
@@ -445,17 +602,18 @@ def synthetic_vocab(n_vocab: int = 128256):
     piece is part of another, so a piece makes an unambiguous stop string),
     128000 <|begin_of_text|> (BOS), 128001 <|end_of_text|> (EOS), 128009
     <|eot_id|> (EOT: end of generation with EOS) and the rest reserved
-    control tokens, as in Llama-3's vocab. The JSON grammars match the byte
-    tokens only."""
+    control tokens, as in Llama-3's vocab. A vocab under 128010 ids ends
+    its plain tokens 10 ids early instead, so its last ten are the special
+    ones. The JSON grammars match the byte tokens only."""
     from ..tokenizer import Vocab
 
-    names = {128000: "<|begin_of_text|>", 128001: "<|end_of_text|>", 128009: "<|eot_id|>"}
+    bos = min(128000, n_vocab - 10)
+    names = {bos: "<|begin_of_text|>", bos + 1: "<|end_of_text|>", bos + 9: "<|eot_id|>"}
     tokens = [f"<0x{i:02X}>" for i in range(256)]
-    tokens += [f"<t{i}>" for i in range(256, 128000)]
-    tokens += [names.get(i, f"<|reserved_special_token_{i - 128000}|>")
-               for i in range(128000, n_vocab)]
-    types = [6] * 256 + [1] * (128000 - 256) + [3] * (n_vocab - 128000)
+    tokens += [f"<t{i}>" for i in range(256, bos)]
+    tokens += [names.get(i, f"<|reserved_special_token_{i - bos}|>") for i in range(bos, n_vocab)]
+    types = [6] * 256 + [1] * (bos - 256) + [3] * (n_vocab - bos)
     return Vocab.from_metadata({
         "tokenizer.ggml.model": "llama", "tokenizer.ggml.tokens": tokens,
-        "tokenizer.ggml.token_type": types, "tokenizer.ggml.bos_token_id": 128000,
-        "tokenizer.ggml.eos_token_id": 128001, "tokenizer.ggml.eot_token_id": 128009})
+        "tokenizer.ggml.token_type": types, "tokenizer.ggml.bos_token_id": bos,
+        "tokenizer.ggml.eos_token_id": bos + 1, "tokenizer.ggml.eot_token_id": bos + 9})

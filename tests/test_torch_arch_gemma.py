@@ -1,5 +1,6 @@
-"""The Gemma families of the generalized transformer in the port (gemma2,
-gemma3) and the sliding-window ring cache, held against the JAX package.
+"""The Gemma families of the generalized transformer in the port (gemma,
+gemma2, gemma3) and the sliding-window ring cache, held against the JAX
+package.
 
 Tiny random GGUFs (tests/test_torch_arch_qwen.py::write_gguf): gemma2
 with its softcaps (attention 50, final 30) and a window of 8 on every
@@ -12,7 +13,10 @@ held by the masks and kernels), and q8_0 the quantized planes. Prompts run
 past the window and decode wraps the ring several times. The cases of
 tests/test_swa_ring.py are mirrored on the port, and the two row
 operations a ring cannot take (shift_row, a truncating set_seq_len) are
-each stated against the JAX package's behavior.
+each stated against the JAX package's behavior. Gemma-1 (gemma): the
+embedding scale and the GELU FFN without post norms or a window, q 128
+wide over n_embd 64 as Gemma-7B's over its 3072, with the dense and the
+q8_0 cache.
 """
 
 import numpy as np
@@ -60,6 +64,20 @@ def test_greedy_tokens_match_jax(files, case, kv_type):
     eng = check_same_run(files[case], kv_type, PROMPT, N_DECODE, MAX_SEQ)
     want = {"dense": SwaKVCache, "bf16": KVCache, "q8_0": QuantKVCache}[kv_type]
     assert type(eng.cache) is want
+
+
+@pytest.fixture(scope="module")
+def gemma1_file(tmp_path_factory):
+    return write_gguf(str(tmp_path_factory.mktemp("arch_gemma1") / "gemma1.gguf"), "gemma",
+                      tied=True, n_head=4, n_head_kv=4, head_dim=32)
+
+
+@pytest.mark.parametrize("kv_type", ["dense", "q8_0"])
+def test_gemma1_tokens_match_jax(gemma1_file, kv_type):
+    eng = check_same_run(gemma1_file, kv_type)
+    cfg = eng.config
+    assert (cfg.embd_scale, cfg.ffn_act, cfg.post_norms) == (8.0, "gelu", False)
+    assert type(eng.cache) is (KVCache if kv_type == "dense" else QuantKVCache)
 
 
 def test_config_follows_the_arch(files):

@@ -38,13 +38,26 @@ PROMPT = [(i * 37) % 250 + 3 for i in range(12)]
 def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, n_head_kv=2,
                head_dim=None, n_ff=128, qkv_bias=False, qk_norm=False, post_norms=False,
                tied=False, n_expert=0, n_expert_used=0, n_ff_exp=None, shexp_ff=0,
-               shexp_gate=False, kind=None, metadata=None, seed=0) -> str:
+               shexp_gate=False, kind=None, metadata=None, seed=0, norm_bias=False,
+               ffn_norm=True, fused_qkv=False, fused_up=False, mla=None, dense_lead=0,
+               probs_bias=False, rope_factors=None, extra_tensors=None) -> str:
     """A tiny random GGUF of `arch` with llama.cpp's tensor names. `kind`
     maps a tensor name to its GGMLType (None: F32); norms, biases and the
     routers stay F32, as llama.cpp keeps them. Norm weights are drawn near
-    1, so a norm that is skipped or doubled shows."""
+    1, so a norm that is skipped or doubled shows. The other families'
+    tensors: `norm_bias` (a bias on every norm), `ffn_norm=False` (command-r:
+    the FFN reads the attention's norm), `fused_qkv` (one attn_qkv),
+    `fused_up` (phi3's ffn_up of 2 x n_ff rows, no ffn_gate), `qk_norm="head"`
+    (command-r-plus: a [heads, head_dim] norm), `mla` (deepseek2: a dict of
+    kv_lora, q_lora (0: no q LoRA), rope, nope and v widths, in place of
+    q/k/v), `dense_lead` (the first layers dense in a MoE file),
+    `probs_bias` (exp_probs_b), `rope_factors` ((long, short) tables) and
+    `extra_tensors` ({name: array})."""
     rng = np.random.default_rng(seed)
     hd = head_dim or n_embd // n_head
+    hd_k = hd_v = hd
+    if mla:
+        hd_k, hd_v = mla["nope"] + mla["rope"], mla["v"]
     ff_exp = n_ff_exp or n_ff
     w = GGUFWriter(path)
     w.add("general.architecture", arch)
@@ -52,7 +65,7 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
     for key, value in {"context_length": 512, "embedding_length": n_embd,
                        "block_count": n_layer, "feed_forward_length": n_ff,
                        "attention.head_count": n_head, "attention.head_count_kv": n_head_kv,
-                       "attention.key_length": hd, "attention.value_length": hd,
+                       "attention.key_length": hd_k, "attention.value_length": hd_v,
                        "attention.layer_norm_rms_epsilon": 1e-6, "rope.freq_base": 10000.0,
                        "vocab_size": n_vocab}.items():
         w.add(f"{arch}.{key}", value)
@@ -62,6 +75,13 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
         w.add(f"{arch}.expert_feed_forward_length", ff_exp)
     if shexp_ff:
         w.add(f"{arch}.expert_shared_feed_forward_length", shexp_ff)
+    if mla:
+        w.add(f"{arch}.attention.kv_lora_rank", mla["kv_lora"])
+        w.add(f"{arch}.rope.dimension_count", mla["rope"])
+        if mla.get("q_lora"):
+            w.add(f"{arch}.attention.q_lora_rank", mla["q_lora"])
+    if dense_lead:
+        w.add(f"{arch}.leading_dense_block_count", dense_lead)
     for key, value in (metadata or {}).items():
         w.add(key, value)
     toks = ["<unk>", "<s>", "</s>"] + [f"<0x{i:02X}>" for i in range(n_vocab - 3)]
@@ -75,8 +95,10 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
     def rand(*shape, s=0.05):
         return (rng.standard_normal(shape) * s).astype(np.float32)
 
-    def norm(name, n):
-        w.add_tensor(name, (1.0 + rand(n, s=0.1)).astype(np.float32))
+    def norm(name, *shape):
+        w.add_tensor(name + ".weight", (1.0 + rand(*shape, s=0.1)).astype(np.float32))
+        if norm_bias:
+            w.add_tensor(name + ".bias", rand(*shape, s=0.1))
 
     def weight(name, arr):
         t = kind(name) if kind is not None else None
@@ -86,27 +108,50 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
             w.add_tensor(name, quantize_tensor(arr, t).tobytes(), shape=arr.shape, ggml_type=t)
 
     weight("token_embd.weight", rand(n_vocab, n_embd, s=0.5))
-    norm("output_norm.weight", n_embd)
+    norm("output_norm", n_embd)
     if not tied:
         weight("output.weight", rand(n_vocab, n_embd))
+    if rope_factors is not None:
+        for name, table in zip(("long", "short"), rope_factors):
+            w.add_tensor(f"rope_factors_{name}.weight", np.asarray(table, np.float32))
     for il in range(n_layer):
         p = f"blk.{il}."
-        norm(p + "attn_norm.weight", n_embd)
-        for nm, rows in (("attn_q", n_head * hd), ("attn_k", n_head_kv * hd),
-                         ("attn_v", n_head_kv * hd)):
-            weight(p + nm + ".weight", rand(rows, n_embd))
-            if qkv_bias:
-                w.add_tensor(p + nm + ".bias", rand(rows, s=0.2))
-        if qk_norm:
-            norm(p + "attn_q_norm.weight", hd)
-            norm(p + "attn_k_norm.weight", hd)
-        weight(p + "attn_output.weight", rand(n_embd, n_head * hd))
+        norm(p + "attn_norm", n_embd)
+        if mla:
+            q_rows, r = n_head * hd_k, mla["rope"]
+            if mla.get("q_lora"):
+                weight(p + "attn_q_a.weight", rand(mla["q_lora"], n_embd))
+                norm(p + "attn_q_a_norm", mla["q_lora"])
+                weight(p + "attn_q_b.weight", rand(q_rows, mla["q_lora"]))
+            else:
+                weight(p + "attn_q.weight", rand(q_rows, n_embd))
+            weight(p + "attn_kv_a_mqa.weight", rand(mla["kv_lora"] + r, n_embd))
+            norm(p + "attn_kv_a_norm", mla["kv_lora"])
+            weight(p + "attn_kv_b.weight", rand(n_head * (mla["nope"] + hd_v), mla["kv_lora"]))
+        elif fused_qkv:
+            weight(p + "attn_qkv.weight", rand((n_head + 2 * n_head_kv) * hd, n_embd))
+        else:
+            for nm, rows in (("attn_q", n_head * hd), ("attn_k", n_head_kv * hd),
+                             ("attn_v", n_head_kv * hd)):
+                weight(p + nm + ".weight", rand(rows, n_embd))
+                if qkv_bias:
+                    w.add_tensor(p + nm + ".bias", rand(rows, s=0.2))
+        if qk_norm == "head":
+            norm(p + "attn_q_norm", n_head, hd)
+            norm(p + "attn_k_norm", n_head_kv, hd)
+        elif qk_norm:
+            norm(p + "attn_q_norm", hd)
+            norm(p + "attn_k_norm", hd)
+        weight(p + "attn_output.weight", rand(n_embd, n_head * hd_v))
         if post_norms:
-            norm(p + "post_attention_norm.weight", n_embd)
-            norm(p + "post_ffw_norm.weight", n_embd)
-        norm(p + "ffn_norm.weight", n_embd)
-        if n_expert:
+            norm(p + "post_attention_norm", n_embd)
+            norm(p + "post_ffw_norm", n_embd)
+        if ffn_norm:
+            norm(p + "ffn_norm", n_embd)
+        if n_expert and il >= dense_lead:
             w.add_tensor(p + "ffn_gate_inp.weight", rand(n_expert, n_embd, s=0.5))
+            if probs_bias:
+                w.add_tensor(p + "exp_probs_b.bias", rand(n_expert, s=0.5))
             weight(p + "ffn_gate_exps.weight", rand(n_expert, ff_exp, n_embd))
             weight(p + "ffn_up_exps.weight", rand(n_expert, ff_exp, n_embd))
             weight(p + "ffn_down_exps.weight", rand(n_expert, n_embd, ff_exp))
@@ -116,10 +161,15 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
                 weight(p + "ffn_down_shexp.weight", rand(n_embd, shexp_ff))
                 if shexp_gate:
                     w.add_tensor(p + "ffn_gate_inp_shexp.weight", rand(1, n_embd, s=0.5))
+        elif fused_up:
+            weight(p + "ffn_up.weight", rand(2 * n_ff, n_embd))
+            weight(p + "ffn_down.weight", rand(n_embd, n_ff))
         else:
             weight(p + "ffn_gate.weight", rand(n_ff, n_embd))
             weight(p + "ffn_up.weight", rand(n_ff, n_embd))
             weight(p + "ffn_down.weight", rand(n_embd, n_ff))
+    for name, arr in (extra_tensors or {}).items():
+        w.add_tensor(name, np.asarray(arr, np.float32))
     w.write()
     return str(path)
 
@@ -220,7 +270,7 @@ def test_qwen3moe_routing_without_the_norm_key(tmp_path):
 
 def test_unported_archs_and_features_raise_by_name():
     base = synthetic.qwen3_8b_config(n_layer=2)
-    for arch in ("phi3", "gemma", "deepseek2", "starcoder2"):
+    for arch in ("phi2", "starcoder2", "gpt2", "llama4"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             Engine({"layers": []}, ModelConfig(**{**base.__dict__, "arch": arch}),
                    device="cpu")
@@ -245,6 +295,16 @@ _SYNTH_CASES = {
                      n_ff_exp=256, shexp_ff=512, shexp_gate=True),
     "gemma3": dict(arch="gemma3", qk_norm=True, post_norms=True, tied=True, head_dim=128,
                    metadata={"gemma3.attention.sliding_window": 8}),
+    "phi3": dict(arch="phi3", fused_qkv=True, fused_up=True,
+                 rope_factors=(np.linspace(1.0, 4.0, 32), np.ones(32)),
+                 metadata={"phi3.rope.scaling.original_context_length": 256}),
+    "command-r": dict(arch="command-r", ffn_norm=False, tied=True),
+    # the dense lead layer, then MoE with two ungated shared experts; K 64
+    # of the MLA's LoRA products takes the 32-block fallback
+    "deepseek2": dict(arch="deepseek2", n_head=4, n_head_kv=4, dense_lead=1, n_expert=4,
+                      n_expert_used=2, n_ff_exp=64, shexp_ff=128,
+                      mla={"kv_lora": 64, "q_lora": 64, "rope": 16, "nope": 48, "v": 64},
+                      metadata={"deepseek2.expert_shared_count": 2}),
 }
 
 
@@ -264,9 +324,9 @@ def test_synthetic_params_are_a_loaded_file(tmp_path, case):
     def kind(name):
         if name.startswith("blk."):
             il, part = name.split(".")[1:3]
+            lk = table["layers"][int(il)]
             part = part.removesuffix("_exps")
-            return GGMLType[table["layers"][int(il)][part]] \
-                if part in table["layers"][0] else None
+            return GGMLType[lk[part]] if part in lk else None
         return GGMLType[table[name.split(".")[0]]]
 
     got = load_model(write_gguf(str(tmp_path / "q.gguf"), kind=kind, **geo),

@@ -119,6 +119,30 @@ def test_keep_decoded_returns_the_same_dequant(kind):
     assert torch.equal(wire.dequantize(kw), wire.dequantize(w))
 
 
+@pytest.mark.parametrize("kind, k", [("Q4_K", 512), ("Q5_0", 288)])
+def test_plain_products_read_a_kept_decode_in_place(kind, k):
+    """The plain products (qmv/qgemm's and the experts' gather and grouped
+    GEMM) over a kept decode, which they read in place, equal those over the
+    blocks bit for bit, and leave the kept decode as it was."""
+    from llamacog_tpu_torch.ops.cuda.qmm import qmm_plain
+    from llamacog_tpu_torch.ops.cuda.qmm_id import qmm_gather_plain, qmm_ragged_plain
+
+    g = torch.Generator().manual_seed(7)
+    w, stack = random_wire(kind, 64, k, g), random_experts(kind, 4, 32, k, g)
+    kw, ks = wire.keep_decoded(w), wire.keep_decoded(stack)
+    before = kw.decoded.clone(), ks.decoded.clone()
+    for rows in (1, 16):  # the matvec's f32 operands, the GEMM's bf16-rounded ones
+        x = torch.randn(rows, k, generator=g).to(torch.bfloat16)
+        assert torch.equal(qmm_plain(x, kw), qmm_plain(x, w))
+        ids = torch.tensor([3, 0, 3, 1] * 4)[:rows]
+        xs = torch.randn(len(ids), k, generator=g).to(torch.bfloat16)
+        assert torch.equal(qmm_gather_plain(xs, ids, ks), qmm_gather_plain(xs, ids, stack))
+    tiles = torch.tensor([2, 0], dtype=torch.int32)
+    xs = torch.randn(32, k, generator=g).to(torch.bfloat16)
+    assert torch.equal(qmm_ragged_plain(xs, tiles, ks, 16), qmm_ragged_plain(xs, tiles, stack, 16))
+    assert torch.equal(kw.decoded, before[0]) and torch.equal(ks.decoded, before[1])
+
+
 def test_keep_decoded_refuses_a_decode_of_another_shape():
     w = random_wire("Q4_K", 8, 256, torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="decoded"):
