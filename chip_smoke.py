@@ -61,7 +61,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      MLA's K 192 / V 128 (16 and 128 heads, one a kv head: K5/K7's
      192/128 tiles), at Phi-3.5's D 96, at Command-R's 64 heads and
      Gemma-7B's 16 of 256; K10/K11 on DeepSeek-V2-Lite's 64 experts top 6
-     (down 64x2048x1408 in Q5_0 and Q8_0, padded) and V2's 160;
+     (down 64x2048x1408 in Q5_0 and Q8_0, padded) and V2's 160; and the
+     layer-norm families' shapes: K1/K2 on Falcon-7B's K-4544 rows in their
+     32-weight-block kinds and its K-18176 ffn_down, Phi-2's biased
+     attn_qkv, GPT-J's q+k+v launch; multi-query heads, K4 and K6 (q8_0)
+     at 71 query heads over one kv head of 64 (Falcon-7B), 48 and 32 over
+     one of 128 (StarCoder-15B, StarCoderBase-7B), at depths 1000 and 32765,
+     K5 and K7 at rep 71 from offsets 0 and 896; K4/K5 at Phi-2's D 80;
   4. the full-width kernel path (8B widths, 2 layers) against the plain
      path (the same params on the CPU): prefill logits, 4 teacher-forced
      decode steps (Engine.decode_one: replays of the step's CUDA graph on
@@ -74,9 +80,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      IQ3_XXS and IQ1_M; then the same at Mixtral widths (2 layers, dense
      cache, the attention weight kinds of a real Q4_K_M file: Q8_0
      attn_k/attn_v, Q5_K attn_output): a 20-token prefill (grouped GEMM), 4
-     decode steps and a 9-token second chunk (gather), and the presets
-     Q5_K_M, Q3_K_M, IQ2_M, IQ3_XXS (an f32 model: see phase 4's comment)
-     and TQ1_0 (the CPU copy keeps each weight's plain dequant, made on the
+     decode steps and a 9-token second chunk (gather), and at 1 layer the
+     presets Q5_K_M, Q3_K_M, IQ2_M, IQ3_XXS (an f32 model: see phase 4's
+     comment) and TQ1_0 (the CPU copy keeps each weight's plain dequant, made on the
      card: wire.keep_decoded's form); and a 4-row engine (8B widths, dense
      and q8_0; Mixtral widths, dense): row prefills of 20, 9 and 33 tokens,
      decode steps with inactive rows, a shift_row, each row of the bf16
@@ -92,7 +98,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the dense lead layer and a MoE one): DeepSeek-V2-Lite (dense and
      q8_0), DeepSeek-V2, Phi-3.5-mini (dense and q8_0), Command-R,
      Gemma-7B, and Command R7B at 4 layers (its 4th global and without
-     rope; the ring at max_seq 8192);
+     rope; the ring at max_seq 8192); then the layer-norm families at 2
+     layers: Falcon-7B (dense and q8_0: rep 71), Phi-2 (dense: K4/K5 at D
+     80; q8_0: the masked path, no attention kernel, the JAX route), GPT-2,
+     StableLM-2-1.6B, StarCoder2-7B, StarCoderBase-7B (q8_0: rep 32),
+     Pythia-6.9B, GPT-J-6B and Falcon-40B (StableLM-2, StarCoder2,
+     StarCoderBase and GPT-J as f32 models: see phase 4's comment);
   5. whether stream capture keeps the split-S combine's programmatic
      dependent launch (K4 and K6 captured alone: the graph's edges by
      type, the replay against the eager call), then the 8B Q4_K_M
@@ -145,7 +156,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      and Command R7B at 4 layers with a 4352-token prompt past its 4096
      window (max_seq 8192: the ring wraps); each family run's attention
      launches one a layer and chunk (prefill) and token (decode), on the
-     global layers alone over a ring; the phase's wall time;
+     global layers alone over a ring; then the layer-norm families, 64
+     greedy tokens each: Phi-2 at full depth (32 layers; dense, and q8_0,
+     which launches no K6/K7: the masked path at D 80) and a Phi-2 serving
+     run (4 slots, ctx 4096, 5 greedy requests, each held against one
+     stream through a 4-row engine), Falcon-7B at full depth (32 layers; dense, which launches K4
+     and K5, q8_0, which launches K6 and K7, at 71 query heads a kv head,
+     and a 512-token prompt), GPT-2 (12 layers) and StableLM-2-1.6B (24)
+     at full depth, StarCoder2-7B, StarCoderBase-7B (dense and q8_0),
+     Pythia-6.9B and GPT-J-6B at 4 layers and Falcon-40B at 2; the phase's
+     wall time;
   6. each phase's seconds, one JSON line of per-kernel results, the card's
      name and power limit, and the final {"ok": true, ...} line.
 
@@ -308,7 +328,9 @@ def main() -> int:
         gemma3_12b_config, gemma_7b_config, llama3_70b_config, llama3_8b_config,
         make_synthetic_params, mixtral_8x7b_config, phi3_5_mini_config, qwen2_5_0_5b_config,
         qwen2_5_7b_config, qwen2_57b_a14b_config, qwen3_8b_config, qwen3_30b_a3b_config,
-        random_experts, random_wire)
+        random_experts, random_wire, falcon_7b_config, falcon_40b_config, gpt2_config,
+        gptj_6b_config, phi2_config, pythia_6_9b_config, stablelm2_1_6b_config,
+        starcoder2_7b_config, starcoderbase_7b_config)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1227,6 +1249,16 @@ def main() -> int:
                           ("output (tied token_embd) Q6_K 256000x8192", ["Q6_K"], [256000],
                            8192)],
         "gemma-7b": [("attn_qkv Q4_K 12288x3072", ["Q4_K"], [12288], 3072)],
+        # the layer-norm families: Falcon-7B's K-4544 rows in their 32-weight-
+        # block fallback kinds (padded to 4608) and its K-quant ffn_down at K
+        # 18176; Phi-2's biased attn_qkv (its own launch); GPT-J's q+k with
+        # Q6_K v in one launch
+        "falcon-7b": [("attn_qkv Q5_1 4672x4544 (padded to 4608)", ["Q5_1"], [4672], 4544),
+                      ("ffn_up Q5_0 18176x4544 (padded)", ["Q5_0"], [18176], 4544),
+                      ("ffn_down Q6_K 4544x18176", ["Q6_K"], [4544], 18176)],
+        "phi2": [("attn_qkv Q5_K 7680x2560 (biased)", ["Q5_K"], [7680], 2560)],
+        "gpt-j-6b": [("attn_qk+attn_v Q4_K 8192x4096 + Q6_K 4096x4096", ["Q4_K", "Q6_K"],
+                      [8192, 4096], 4096)],
     }
     for run, items in fam_ws.items():
         for label, kinds, rows, Kw in items:
@@ -1241,21 +1273,26 @@ def main() -> int:
                 weight_parity("qmv", qmv, 4, f"{run} {label}", ws, False, run, listed=False)
             del ws
         torch.cuda.empty_cache()
-    def fam_attention(run, H_, Hkv_, D_, softcap, window, quant_run=None, Dv_=None):
+    def fam_attention(run, H_, Hkv_, D_, softcap, window, quant_run=None, Dv_=None,
+                      deep=False, offsets=(0,)):
         """K4 at depth 1000 (and, with a window, 5000 of 8192, where the
-        window bites) and K5 over a 128-token prompt at offset 0 at these
+        window bites; with deep, 32765 of 32768) and K5 over a 128-token
+        prompt from each write offset of `offsets` (of 1024 slots) at these
         heads (key dim D_, value dim Dv_, D_ by default), with SDPA beside
         them where there is no softcap (SDPA has none); with quant_run, K6
-        and K7 over q8_0 planes of the same heads, K7 from offsets 0 and
-        896."""
+        (at depth 1000, and with deep 32765) and K7 over q8_0 planes of the
+        same heads, K7 from offsets 0 and 896."""
         Dv_ = Dv_ or D_
+        check(window == 0 or offsets == (0,), "fam_attention: K5 from an offset without a "
+              "window only")
         sc = D_ ** -0.5
         kw = dict(softcap=softcap, window=window)
         shape = (f"H={H_} Hkv={Hkv_} " + (f"Dk={D_} Dv={Dv_}" if Dv_ != D_ else f"D={D_}")
                  + (f" softcap={softcap:g}" if softcap else "")
                  + (f" window={window}" if window else ""))
         q1, kc1, vc1 = rnd(1, H_, D_), rnd(1, Hkv_, D_), rnd(1, Hkv_, Dv_)
-        for S_dec, n in ((1024, 1000), *([(8192, 5000)] if window else [])):
+        for S_dec, n in ((1024, 1000), *([(8192, 5000)] if window else []),
+                         *([(32768, 32765)] if deep else [])):
             ks, vs = rnd(2, 1, S_dec, Hkv_, D_), rnd(2, 1, S_dec, Hkv_, Dv_)
             seq = torch.tensor([n], dtype=torch.int32, device=dev)
             args = (q1, ks, vs, 1, kc1, vc1, seq, sc)
@@ -1280,54 +1317,71 @@ def main() -> int:
         T_ = PROMPT_LEN
         qp1, kcp1, vcp1 = rnd(1, T_, H_, D_), rnd(1, T_, Hkv_, D_), rnd(1, T_, Hkv_, Dv_)
         kl1, vl1 = rnd(1, 1024, Hkv_, D_), rnd(1, 1024, Hkv_, Dv_)
-        seq = torch.tensor([0], dtype=torch.int32, device=dev)
-        args = (qp1, kl1, vl1, kcp1, vcp1, seq, sc)
-        before = dict(build.LAUNCHES)
-        out = no_sync(lambda: flash_prefill_kernel(*args, **kw))
-        took = {k: c - before[k] for k, c in build.LAUNCHES.items() if c != before[k]}
-        check(took == {"flash_prefill": 1}, f"K5 {shape}: launched {took}, not the tiles")
-        ref = flash_prefill_attention_plain(*args, **kw)
-        ti = torch.arange(T_, device=dev)
-        allowed = (ti[None, :] <= ti[:, None]) & ((ti[None, :] > ti[:, None] - window)
-                                                  if window else True)
-        lib_ms = None
-        if not softcap:
-            qs1, kf, vf = (t.transpose(1, 2) for t in (qp1, kcp1, vcp1))
-            lib_ms = time_ms(lambda: sdpa(qs1, kf, vf, attn_mask=allowed, scale=sc,
-                                          enable_gqa=True))
-        torch.cuda.synchronize()
-        keys = int(allowed.sum())
-        record(f"flash_prefill T={T_} {shape} S=1024 seq_len=0",
-               "llamacog_tpu_torch/csrc/flash_prefill.cu",
-               "llamacog_tpu/ops/pallas/flash_prefill.py:129", [out], [ref], TOL_ATTN,
-               time_ms(lambda: flash_prefill_kernel(*args, **kw)),
-               time_ms(lambda: flash_prefill_attention_plain(*args, **kw), iters=5),
-               2 * (qp1.numel() + kcp1.numel() + vcp1.numel() + T_ * H_ * Dv_),
-               2 * H_ * keys * (D_ + Dv_), lib_ms, run=run)
+        for n in offsets:
+            seq = torch.tensor([n], dtype=torch.int32, device=dev)
+            args = (qp1, kl1, vl1, kcp1, vcp1, seq, sc)
+            before = dict(build.LAUNCHES)
+            out = no_sync(lambda: flash_prefill_kernel(*args, **kw))
+            took = {k: c - before[k] for k, c in build.LAUNCHES.items() if c != before[k]}
+            check(took == {"flash_prefill": 1}, f"K5 {shape}: launched {took}, not the tiles")
+            ref = flash_prefill_attention_plain(*args, **kw)
+            ti = torch.arange(T_, device=dev)
+            # the old positions, then the causal (windowed) current block
+            allowed = torch.cat([torch.ones(T_, n, dtype=torch.bool, device=dev),
+                                 (ti[None, :] <= ti[:, None])
+                                 & ((ti[None, :] > ti[:, None] - window) if window else True)],
+                                dim=1)
+            lib_ms = None
+            if not softcap:
+                qs1 = qp1.transpose(1, 2)
+                kf = torch.cat([kl1[:, :n], kcp1], 1).transpose(1, 2).contiguous()
+                vf = torch.cat([vl1[:, :n], vcp1], 1).transpose(1, 2).contiguous()
+                lib_ms = time_ms(lambda: sdpa(qs1, kf, vf, attn_mask=allowed, scale=sc,
+                                              enable_gqa=True))
+            torch.cuda.synchronize()
+            keys = int(allowed.sum())
+            record(f"flash_prefill T={T_} {shape} S=1024 seq_len={n}",
+                   "llamacog_tpu_torch/csrc/flash_prefill.cu",
+                   "llamacog_tpu/ops/pallas/flash_prefill.py:129", [out], [ref], TOL_ATTN,
+                   time_ms(lambda: flash_prefill_kernel(*args, **kw)),
+                   time_ms(lambda: flash_prefill_attention_plain(*args, **kw), iters=5),
+                   2 * (qp1.numel() + n * Hkv_ * (D_ + Dv_) + kcp1.numel() + vcp1.numel()
+                        + T_ * H_ * Dv_), 2 * H_ * keys * (D_ + Dv_), lib_ms, run=run)
         if quant_run is None:
             return
         kinds = ("q8_0", "q8_0")
-        cq = QuantKVCache.create(2, 1, 1024, Hkv_, D_, Dv_, kinds=kinds, device=dev)
-        for il in range(2):
-            part = QuantKVCache([p[il:il + 1] for p in cq.k_planes],
-                                [p[il:il + 1] for p in cq.v_planes], kinds, Hkv_)
-            part.write_all(torch.randn(1, 1, 1024, Hkv_, D_, generator=g, device=dev),
-                           torch.randn(1, 1, 1024, Hkv_, Dv_, generator=g, device=dev),
-                           torch.zeros(1, dtype=torch.int32, device=dev))
+
+        def q8_cache(S_q):
+            cq = QuantKVCache.create(2, 1, S_q, Hkv_, D_, Dv_, kinds=kinds, device=dev)
+            for il in range(2):
+                part = QuantKVCache([p[il:il + 1] for p in cq.k_planes],
+                                    [p[il:il + 1] for p in cq.v_planes], kinds, Hkv_)
+                part.write_all(torch.randn(1, 1, S_q, Hkv_, D_, generator=g, device=dev),
+                               torch.randn(1, 1, S_q, Hkv_, Dv_, generator=g, device=dev),
+                               torch.zeros(1, dtype=torch.int32, device=dev))
+            return cq
+
         # a head's K and V rows: int8 values, an f32 scale a 32-value group
         plane_row = D_ + 4 * (D_ // 32) + Dv_ + 4 * (Dv_ // 32)
-        n = 1000
-        seq = torch.tensor([n], dtype=torch.int32, device=dev)
-        args = (q1, cq.k_planes, cq.v_planes, 1, kc1, vc1, seq, sc)
-        out = no_sync(lambda: flash_decode_stacked(*args, kinds=kinds, **kw))
-        ref = flash_decode_stacked_plain(*args, kinds=kinds, **kw)
-        torch.cuda.synchronize()
-        record(f"flash_decode_stacked q8_0:q8_0 {shape} S=1024 seq_len={n}",
-               "llamacog_tpu_torch/csrc/flash_decode_quant.cu", fq8.format(828), [out], [ref],
-               TOL_ATTN, time_ms(lambda: flash_decode_stacked(*args, kinds=kinds, **kw)),
-               time_ms(lambda: flash_decode_stacked_plain(*args, kinds=kinds, **kw), iters=5),
-               n * Hkv_ * plane_row + 2 * (q1.numel() + kc1.numel() + vc1.numel() + H_ * Dv_),
-               2 * H_ * (n + 1) * (D_ + Dv_), run=quant_run)
+        for S_q, n in ((1024, 1000), *([(32768, 32765)] if deep else [])):
+            cache = q8_cache(S_q)
+            if S_q == 1024:
+                cq = cache  # K7's planes below
+            seq = torch.tensor([n], dtype=torch.int32, device=dev)
+            args = (q1, cache.k_planes, cache.v_planes, 1, kc1, vc1, seq, sc)
+            out = no_sync(lambda: flash_decode_stacked(*args, kinds=kinds, **kw))
+            ref = flash_decode_stacked_plain(*args, kinds=kinds, **kw)
+            torch.cuda.synchronize()
+            record(f"flash_decode_stacked q8_0:q8_0 {shape} S={S_q} seq_len={n}",
+                   "llamacog_tpu_torch/csrc/flash_decode_quant.cu", fq8.format(828), [out],
+                   [ref], TOL_ATTN,
+                   time_ms(lambda: flash_decode_stacked(*args, kinds=kinds, **kw)),
+                   time_ms(lambda: flash_decode_stacked_plain(*args, kinds=kinds, **kw),
+                           iters=5),
+                   n * Hkv_ * plane_row + 2 * (q1.numel() + kc1.numel() + vc1.numel()
+                                               + H_ * Dv_),
+                   2 * H_ * (n + 1) * (D_ + Dv_), run=quant_run)
+            del cache
         kp, vp = [p[1] for p in cq.k_planes], [p[1] for p in cq.v_planes]
         for n in (0, 1024 - T_):
             seq = torch.tensor([n], dtype=torch.int32, device=dev)
@@ -1347,7 +1401,7 @@ def main() -> int:
                    n * Hkv_ * plane_row + 2 * (qp1.numel() + kcp1.numel() + vcp1.numel()
                                                + T_ * H_ * Dv_), 2 * H_ * keys * (D_ + Dv_),
                    run=quant_run)
-        del cq, kp, vp, part
+        del cq, kp, vp
 
     fam_attention("gemma2-9b", 16, 8, 256, 50.0, 0)  # the ring's global layers
     fam_attention("gemma2-9b kv bf16", 16, 8, 256, 50.0, 4096, quant_run="gemma2-9b kv q8_0")
@@ -1365,6 +1419,19 @@ def main() -> int:
     fam_attention("phi3.5-mini", 32, 32, 96, 0.0, 0, quant_run="phi3.5-mini kv q8_0")
     fam_attention("command-r-v01", 64, 64, 128, 0.0, 0)
     fam_attention("gemma-7b", 16, 16, 256, 0.0, 0)
+    # multi-query heads, K4/K6 in head groups of 8 past 16 query heads a kv
+    # head: Falcon-7B's 71 over one kv head of 64, StarCoder-15B's 48 and
+    # StarCoderBase-7B's 32 over one of 128, at depths 1000 and 32765, K5
+    # (and K7) from offsets 0 and 896; the 48-head rows read their launches
+    # in the StarCoderBase-7B runs (no run drives StarCoder-15B); Phi-2's D
+    # 80 (K4/K5 only: a quantized cache at D 80 takes the masked path)
+    fam_attention("falcon-7b", 71, 1, 64, 0.0, 0, quant_run="falcon-7b kv q8_0", deep=True,
+                  offsets=(0, 896))
+    fam_attention("starcoderbase-7b", 48, 1, 128, 0.0, 0,
+                  quant_run="starcoderbase-7b kv q8_0", deep=True)
+    fam_attention("starcoderbase-7b", 32, 1, 128, 0.0, 0,
+                  quant_run="starcoderbase-7b kv q8_0", deep=True)
+    fam_attention("phi2", 32, 32, 80, 0.0, 0)
     torch.cuda.empty_cache()
 
     def family_experts(run, n_exp_f, top_k, stacks, run512=None):
@@ -1494,8 +1561,11 @@ def main() -> int:
             check(torch.equal(rows, decoded.reshape(-1, k).index_select(0, idx)),
                   f"{w.kind} {tuple(w.shape)}: the plain dequant on the card is not the CPU's")
             return WireTensor(w.kind, w.shape, w.blocks, w.qi8, w.ws8T, decoded)
+        t_copy = time.perf_counter()
         p_cpu = {k: (v if k == "layers" else on_cpu(v)) for k, v in p_gpu.items()}
         p_cpu["layers"] = [{k: on_cpu(v) for k, v in layer.items()} for layer in p_gpu["layers"]]
+        log(f"[path] {cfgp.arch} {cfgp.n_layer} layers, {ftype}: the CPU copy in "
+            f"{time.perf_counter() - t_copy:.1f}s")
         return p_gpu, p_cpu
 
     @contextlib.contextmanager
@@ -1645,6 +1715,11 @@ def main() -> int:
                         want = {k: 2 * n_routed if k == route else 0 for k in calls}
                         check(calls == want, f"{model} {label}: T=1 attention took {calls}, "
                               f"not the {route} route")
+                        # the masked route (a quantized cache at a head dim
+                        # that 32 does not divide) launches no attention kernel
+                        attn = {k: build.LAUNCHES[k] for k in (*dense_attn, *quant_attn)}
+                        check(route != "masked" or not any(attn.values()),
+                              f"{model} {label}: the masked route launched {attn}")
             firsts[label] = runs["kernel"][0]
             if cfgp.n_expert:
                 log(f"[path] {model}, {label}: the plain path routed as the kernel path; "
@@ -1897,13 +1972,16 @@ def main() -> int:
     # prefill rows; K11's IQ3_XXS stacks are held in phase 3 and run in the
     # Mixtral IQ3_XXS run of phase 5)
     # and TQ1_0's ternary stacks and TQ1_0 attn_q + Q8_0 attn_k/attn_v (base-3
-    # digits in llama.cpp's irregular element order)
+    # digits in llama.cpp's irregular element order); at 1 layer (the
+    # script's time: a 2-layer Mixtral-wide CPU copy holds ~11 GB decoded),
+    # whose kinds are the 2-layer model's
+    mcfg1 = mixtral_8x7b_config(n_layer=1)
     for preset, dtype in (("Q5_K_M", torch.bfloat16), ("Q3_K_M", torch.bfloat16),
                           ("IQ2_M", torch.bfloat16), ("IQ3_XXS", torch.float32),
                           ("TQ1_0", torch.bfloat16)):
-        p_gpu, p_cpu = two_copies(mcfg2, preset)
+        p_gpu, p_cpu = two_copies(mcfg1, preset)
         bf16 = dtype == torch.bfloat16
-        path_check("Mixtral widths", mcfg2, p_gpu, p_cpu, [
+        path_check("Mixtral widths", mcfg1, p_gpu, p_cpu, [
             (f"{preset} kv dense{'' if bf16 else ' f32'}", "dense", {}, prompt20m,
              ("qmv_id", "qgemm_id") if bf16 else ("qmv", "qmv_id"), "stacked", dtype)],
             [11, 12345, 777, 31000], 33)
@@ -1943,6 +2021,59 @@ def main() -> int:
                  "stacked")], 1280)):
         p_gpu, p_cpu = two_copies(cfgf, "Q4_K_M")
         path_check(model, cfgf, p_gpu, p_cpu, cases, [11, 12345, 777, 90000], max_seq)
+        del p_gpu, p_cpu
+        torch.cuda.empty_cache()
+    # the layer-norm families, Q4_K_M, 2 layers of each config's widths:
+    # Falcon-7B (71 query heads over one kv head: K4-K7 at rep 71; K 4544 in
+    # the 32-block kinds) and Phi-2 (D 80: K4/K5 on the dense cache, the
+    # masked path on q8_0, the JAX route) with both caches, one case each
+    # for the others (learned positions on GPT-2 and StarCoderBase-7B,
+    # whose 32 query heads share one kv head; attn_norm_2 on Falcon-40B;
+    # gptneox's two norms; GPT-J's interleaved partial rope at D 256).
+    # StableLM-2, StarCoder2, StarCoderBase and GPT-J run as f32 models: in
+    # bf16 their synthetic models' own plain paths move past TOL_PATH under
+    # noise of about a bf16 rounding on every product
+    # (tools/path_sensitivity.py --ftype Q4_K_M at eps 1e-3, 2 layers, on
+    # the CPU: 0.056-0.481, 0.119-0.190, 0.057-0.075 and 0.035-0.058 of max
+    # |logit|; Pythia 0.035-0.038), so a bf16 comparison cannot tell a
+    # kernel defect from that sensitivity; in f32 the paths differ by
+    # summation order alone (qmv takes every f32 row, K5/K7 their f32
+    # bodies; phase 3 holds the bf16 tiles at these heads, phase 5 runs them)
+    prompt20n = [(i * 7919) % 49152 for i in range(2, 22)]
+    q8_attn = ("qmv", "qgemm", *quant_attn)
+    f32_dense = ("qmv", "flash_decode_dense", "flash_prefill_simt")
+    f32_q8 = ("qmv", "flash_decode_quant", "flash_prefill_quant_simt")
+    for model, cfgf, cases, max_seq in (
+            ("Falcon-7B widths", falcon_7b_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20n, ("qmv", "qgemm", *dense_attn), "stacked"),
+                ("kv q8_0", "q8_0", {}, prompt20n, q8_attn, "stacked")], 1024),
+            ("Phi-2 widths", phi2_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20n, ("qmv", "qgemm", *dense_attn), "stacked"),
+                ("kv q8_0 (masked)", "q8_0", {}, prompt20n, ("qmv", "qgemm"), "masked")],
+             1024),
+            ("GPT-2 widths", gpt2_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20n, ("qmv", "qgemm", *dense_attn), "stacked")],
+             1024),
+            ("StableLM-2-1.6B widths", stablelm2_1_6b_config(n_layer=2), [
+                ("kv dense f32", "dense", {}, prompt20n, f32_dense, "stacked", torch.float32)],
+             1024),
+            ("StarCoder2-7B widths", starcoder2_7b_config(n_layer=2), [
+                ("kv dense f32", "dense", {}, prompt20n, f32_dense, "stacked", torch.float32)],
+             1024),
+            ("StarCoderBase-7B widths", starcoderbase_7b_config(n_layer=2), [
+                ("kv q8_0 f32", "q8_0", {}, prompt20n, f32_q8, "stacked", torch.float32)],
+             1024),
+            ("Pythia-6.9B widths", pythia_6_9b_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20n, ("qmv", "qgemm", *dense_attn), "stacked")],
+             1024),
+            ("GPT-J-6B widths", gptj_6b_config(n_layer=2), [
+                ("kv dense f32", "dense", {}, prompt20n, f32_dense, "stacked", torch.float32)],
+             1024),
+            ("Falcon-40B widths", falcon_40b_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20n, ("qmv", "qgemm", *dense_attn), "stacked")],
+             1024)):
+        p_gpu, p_cpu = two_copies(cfgf, "Q4_K_M")
+        path_check(model, cfgf, p_gpu, p_cpu, cases, [11, 12345, 777, 31000], max_seq)
         del p_gpu, p_cpu
         torch.cuda.empty_cache()
     # the Phi-3, Command-R and DeepSeek-V2 families and Gemma-1, Q4_K_M: 2
@@ -2687,16 +2818,21 @@ def main() -> int:
     preset_runs["70b IQ2_XXS"] = preset_run("70b", llama3_70b_config(), "IQ2_XXS", exact_path)
     log(f"[70b IQ2_XXS] on {nvidia_smi_line()}")
 
-    def ring_serving_run(params, cfgm):
-        """Gemma-3-12B through the port's server on the card: 4 slots, ctx
-        4096 (so the ring: window 1024), 4 greedy requests at once from
-        --seed (prompts of 712, 300, 612 and 1200 tokens; 0 and 2 share a
-        512-token prefix), then a fifth sharing that prefix with request 0,
-        which the prefix rule routes to request 0's slot. A ring row is
-        reused whole or prefilled anew, so no request reuses a prefix
-        (cache_n 0), and context shift is off on a ring. Each request's
-        tokens are those of a single-stream engine fed the chunks the slot
-        is fed, or part from them at a top-2 tie. Returns the launches."""
+    def family_serving_run(tag, params, cfgm, ring):
+        """A family model through the port's server on the card: 4 slots,
+        ctx 4096, 4 greedy requests at once from --seed (prompts of 712, 300,
+        612 and 1200 tokens), then a fifth. With `ring` (Gemma-3-12B, window
+        1024: the ring), requests 0, 2 and 4 share a 512-token prefix, which
+        the prefix rule routes to request 0's slot; a ring row is reused
+        whole or prefilled anew, so no request reuses a prefix (cache_n 0),
+        and context shift is off on a ring. Without (Phi-2), no prompt
+        shares another's prefix, so none is reused either. Each request's
+        tokens are those of one stream through an engine of the server's 4
+        rows, fed on one row the chunks the slot is fed while the others idle
+        (a B-row decode picks K4's split count by B, so a batch-of-one
+        engine sums the attention of a deep row in another order, and a
+        synthetic Phi-2 at full depth amplifies that past a tie: run C17-4),
+        or part from them at a top-2 tie. Returns the launches."""
         from llamacog_tpu_torch.models.loader import Model
         from llamacog_tpu_torch.server.server import PREFILL_CHUNK
         from llamacog_tpu_torch.utils.synthetic import synthetic_vocab
@@ -2704,19 +2840,23 @@ def main() -> int:
         t_phase, n_tok = time.perf_counter(), 32
         model = Model(cfgm, params, synthetic_vocab(cfgm.n_vocab), None)
         rng = np.random.default_rng(SEED + 15)
-        prefix = rng.integers(256, 128000, size=512).tolist()
-        prompts = [prefix + rng.integers(256, 128000, size=200).tolist(),
-                   rng.integers(256, 128000, size=300).tolist(),
-                   prefix + rng.integers(256, 128000, size=100).tolist(),
-                   rng.integers(256, 128000, size=1200).tolist(),
-                   prefix + rng.integers(256, 128000, size=150).tolist()]
+        top = min(128000, cfgm.n_vocab - 10)  # the synthetic vocab's plain tokens
+
+        def draw(n):
+            return rng.integers(256, top, size=n).tolist()
+
+        prefix = draw(512)
+        lead = (lambda: prefix) if ring else (lambda: draw(512))
+        prompts = [lead() + draw(200), draw(300), lead() + draw(100), draw(1200),
+                   lead() + draw(150)]
         ref = []
-        eng1 = Engine(params, cfgm, batch_size=1, max_seq=4096)
-        check(eng1.ring, "gemma3-12b serving: a 4096-token context keeps no ring")
+        eng1 = Engine(params, cfgm, batch_size=4, max_seq=4096)
+        check(eng1.ring == ring, f"{tag}: a 4096-token context keeps a ring: {eng1.ring}")
+        one = np.array([True, False, False, False])
         for p in prompts:
             eng1.reset()
             for off in range(0, len(p), PREFILL_CHUNK):
-                logits = eng1.prefill(p[off:off + PREFILL_CHUNK])
+                logits = eng1.prefill(p[off:off + PREFILL_CHUNK], row=0)
             toks, top2 = [], []
             for j in range(n_tok):
                 lt = logits.reshape(-1).copy()
@@ -2726,7 +2866,7 @@ def main() -> int:
                 toks.append(first)
                 top2.append((top1, float(lt.max())))
                 if j + 1 < n_tok:
-                    logits = eng1.decode_one([first])[0]
+                    logits = eng1.decode_one([first, 0, 0, 0], active=one)[0]
             ref.append((toks, top2))
         del eng1
         torch.cuda.empty_cache()
@@ -2738,33 +2878,33 @@ def main() -> int:
             again, _ = post_all(url, bodies[4:])
             return first + again, wall
 
-        (out, wall), launches, metrics, peak = served(
-            "gemma3-12b serving", model, requests, n_slots=4, ctx_size=4096)
+        (out, wall), launches, metrics, peak = served(tag, model, requests, n_slots=4,
+                                                      ctx_size=4096)
         finals = [r[-1] if isinstance(r, list) else r for r in out]
         for i, (f, (want, top2)) in enumerate(zip(finals, ref)):
             got, t = f["tokens"], f["timings"]
             check(t["cache_n"] == 0 and len(got) == n_tok,
-                  f"gemma3-12b serving request {i}: {t['cache_n']} prompt tokens reused, "
-                  f"{len(got)} tokens")
+                  f"{tag} request {i}: {t['cache_n']} prompt tokens reused, {len(got)} tokens")
             part = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
             gap = None
             if part is not None:
                 top1, second = top2[part]
                 gap = (top1 - second) / 2.0 ** (torch.frexp(torch.tensor(top1)).exponent.item()
                                                 - 8)
-                check(gap <= TIE_ULPS, f"gemma3-12b serving request {i}: greedy tokens part "
-                      f"from the single stream at {part} with a top-2 gap of {gap:.2f} ulps")
-            log(f"[gemma3-12b serving] request {i} ({len(prompts[i])} prompt tokens, "
+                check(gap <= TIE_ULPS, f"{tag} request {i}: greedy tokens part from the one-row "
+                      f"stream at {part} with a top-2 gap of {gap:.2f} ulps")
+            log(f"[{tag}] request {i} ({len(prompts[i])} prompt tokens, "
                 f"{t['cache_n']} reused): TTFT {t['prompt_ms']:.2f} ms from admission, "
                 f"{t['predicted_ms'] / n_tok:.3f} ms/token; "
-                + ("its tokens equal the single stream's" if part is None else
-                   f"parts from the single stream at token {part} at a tie ({gap:.2f} ulps)"))
+                + ("its tokens equal the one-row stream's" if part is None else
+                   f"parts from the one-row stream at token {part} at a tie ({gap:.2f} ulps)"))
         check(metrics.get("context_shifts_total", 0) == 0
               and metrics.get("prompt_tokens_cached_total", 0) == 0,
-              f"gemma3-12b serving: context shifts or prefix reuse on a ring: {metrics}")
-        log(f"[gemma3-12b serving] 4 requests at once in {wall:.3f}s, then one sharing request "
-            f"0's 512-token prefix, prefilled anew in its slot; no prefix reused, no context "
-            f"shift; peak device memory {peak / 2**30:.2f} GiB; "
+              f"{tag}: context shifts or prefix reuse: {metrics}")
+        log(f"[{tag}] 4 requests at once in {wall:.3f}s, then one "
+            + ("sharing request 0's 512-token prefix, prefilled anew in its slot"
+               if ring else "more") + "; no prefix reused, no context shift; peak device "
+            f"memory {peak / 2**30:.2f} GiB on {nvidia_smi_line()}; "
             f"{time.perf_counter() - t_phase:.1f}s")
         return {"total": launches}
 
@@ -2850,10 +2990,74 @@ def main() -> int:
             check(got512 == want512, f"{model} 512 run: prefill qgemm_id {got512} (want "
                   f"{want512}: one 512-token chunk)")
         if model == "gemma3-12b":
-            family_runs["gemma3-12b serving"] = ring_serving_run(params, cfgf)
+            family_runs["gemma3-12b serving"] = family_serving_run("gemma3-12b serving", params,
+                                                                   cfgf, ring=True)
         del params
         torch.cuda.empty_cache()
     log(f"[families] runs {time.perf_counter() - t_fam:.1f}s")
+    # the layer-norm families in Q4_K_M, a 128-token prompt and 64 greedy
+    # tokens through the graph: Phi-2 at full depth with the dense cache
+    # (K4/K5 at D 80) and q8_0 (the masked path at D 80, the JAX route: no
+    # K6/K7), then its serving run on 4 slots; Falcon-7B at full depth, dense
+    # (K4/K5 at rep 71) and q8_0 (K6/K7 at rep 71), and a 512-token prompt;
+    # GPT-2 (learned positions, max_seq 1024: its table) and StableLM-2-1.6B
+    # at full depth; StarCoder2-7B, StarCoderBase-7B (dense and q8_0: rep
+    # 32), Pythia-6.9B and GPT-J-6B at 4 layers; Falcon-40B at 2
+    t_ln = time.perf_counter()
+    for model, cfgf, runs_f in (
+            ("phi2", phi2_config(), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64),
+                ("kv q8_0", "q8_0", {}, PROMPT_LEN, ("qmv", "qgemm"), 1024, 64)]),
+            ("falcon-7b", falcon_7b_config(), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64),
+                ("kv q8_0", "q8_0", {}, PROMPT_LEN, quant_path, 1024, 64),
+                ("512", "dense", {}, 512, exact_path, 1024, 64)]),
+            ("gpt2", gpt2_config(), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64)]),
+            ("stablelm-2-1.6b", stablelm2_1_6b_config(), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64)]),
+            ("starcoder2-7b", starcoder2_7b_config(n_layer=4), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64)]),
+            ("starcoderbase-7b", starcoderbase_7b_config(n_layer=4), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64),
+                ("kv q8_0", "q8_0", {}, PROMPT_LEN, quant_path, 1024, 64)]),
+            ("pythia-6.9b", pythia_6_9b_config(n_layer=4), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64)]),
+            ("gpt-j-6b", gptj_6b_config(n_layer=4), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64)]),
+            ("falcon-40b", falcon_40b_config(n_layer=2), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64)])):
+        params = build_params(model, cfgf, "Q4_K_M")
+        got = main_path_runs(model, params, cfgf, runs_f)
+        masked_q8 = not flash_q8_mod.quant_heads_supported(cfgf)
+        for (name, kv_type, _, prompt_len, _, max_seq, n_tok, *chunk) in runs_f:
+            key = model if name == "kv dense" else f"{model} {name}"
+            r = family_runs[key] = got[name]
+            # one prefill attention launch a layer, one decode one a layer and
+            # token: K5/K4 on the dense cache, K7/K6 on q8_0; none at all on
+            # q8_0 at a head dim that 32 does not divide (Phi-2: the masked
+            # path, the JAX route)
+            L_f = cfgf.n_layer
+            pre, dec = (("flash_prefill_quant", "flash_decode_quant") if kv_type == "q8_0"
+                        else ("flash_prefill", "flash_decode_dense"))
+            want_pre, want_dec = (0, 0) if kv_type == "q8_0" and masked_q8 else (L_f, n_tok * L_f)
+            attn = {k: r["total"][k] for k in (*dense_attn, *quant_attn, "flash_decode")}
+            check(r["prefill"][pre] == want_pre and r["decode"][dec] == want_dec
+                  and sum(attn.values()) == want_pre + want_dec,
+                  f"{key}: prefill {pre} {r['prefill'][pre]} (want {want_pre}), decode {dec} "
+                  f"{r['decode'][dec]} (want {want_dec}); attention launches {attn}")
+            log(f"[{key}] attention launches {json.dumps(attn)}: "
+                + ("the masked path, no attention kernel (the JAX route at head dim "
+                   f"{cfgf.head_dim_k})" if want_pre == 0 else f"{pre} and {dec}"))
+        log(f"[{model}] {cfgf.n_layer} layers, weight-stream bound "
+            f"{sum_wire_bytes(params, cfgf) / HBM_BYTES_PER_S * 1e3:.3f} ms/token "
+            f"({sum_wire_bytes(params, cfgf) / 1e9:.3f} GB a token) on {nvidia_smi_line()}")
+        if model == "phi2":
+            family_runs["phi2 serving"] = family_serving_run("phi2 serving", params, cfgf,
+                                                             ring=False)
+        del params
+        torch.cuda.empty_cache()
+    log(f"[layer-norm families] runs {time.perf_counter() - t_ln:.1f}s")
     for model, name in sorted(EAGER_TURNS):
         r = (runs_8b if model == "8b" else runs_moe)[name]
         log(f"[{model} {name}] decode ms/token, graph {statistics.median(r['graph_ms']):.3f} "

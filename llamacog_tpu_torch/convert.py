@@ -31,6 +31,8 @@ from .runtime.kv_cache import KVCache, quant_cache_class
 _LAYER_TENSORS = {
     "attn_norm": "attn_norm.weight",
     "attn_norm_b": "attn_norm.bias",
+    "attn_norm_2": "attn_norm_2.weight",  # falcon-40B: the attention's own norm
+    "attn_norm_2_b": "attn_norm_2.bias",
     "attn_qkv": "attn_qkv.weight",
     "attn_qkv_b": "attn_qkv.bias",
     "attn_q": "attn_q.weight",
@@ -50,6 +52,7 @@ _LAYER_TENSORS = {
     "attn_kv_a_norm": "attn_kv_a_norm.weight",
     "attn_kv_b": "attn_kv_b.weight",
     "attn_output": "attn_output.weight",
+    "attn_output_b": "attn_output.bias",
     "attn_post_norm": "post_attention_norm.weight",
     "ffn_norm": "ffn_norm.weight",
     "ffn_norm_b": "ffn_norm.bias",
@@ -57,6 +60,9 @@ _LAYER_TENSORS = {
     "ffn_gate": "ffn_gate.weight",
     "ffn_up": "ffn_up.weight",
     "ffn_down": "ffn_down.weight",
+    "ffn_gate_b": "ffn_gate.bias",
+    "ffn_up_b": "ffn_up.bias",
+    "ffn_down_b": "ffn_down.bias",
     "ffn_gate_inp": "ffn_gate_inp.weight",
     "ffn_gate_exps": "ffn_gate_exps.weight",
     "ffn_up_exps": "ffn_up_exps.weight",
@@ -71,7 +77,11 @@ _MODEL_TENSORS = {
     "tok_embd": "token_embd.weight",
     "output_norm": "output_norm.weight",
     "output": "output.weight",
+    "output_b": "output.bias",
     "output_norm_b": "output_norm.bias",
+    # learned positions (gpt2, starcoder): dense in the model dtype, or
+    # quantized, taken as a wire tensor whose looked-up rows are decoded
+    "pos_embd": "position_embd.weight",
     "rope_freqs": "rope_freqs.weight",
     "rope_long": "rope_factors_long.weight",  # phi3 longrope
     "rope_short": "rope_factors_short.weight",

@@ -19,10 +19,10 @@
 // s_eff (the kv_cap bucket, constant over a decode loop; never from the
 // device seq_len, so a launch makes no host sync): about two waves of blocks
 // (16 splits of 64 positions at s_eff 1024, 33 of 1008 at 32768 for the 8B
-// heads). Grid (n_split, Hkv, B): each block walks its split's positions
-// once, 8 warps side by side. A row group of lpr lanes reads a K and a V
-// row with one 16-byte load a lane (8 elements; 16 lanes a row for D=128 in
-// bf16), U rows a round; the rep query heads' scores are reduced by
+// heads). Grid (n_split, Hkv x head groups, B): each block walks its
+// split's positions once, 8 warps side by side. A row group of lpr lanes
+// reads a K and a V row with one 16-byte load a lane (8 elements; 16 lanes
+// a row for D=128 in bf16), U rows a round; the rep query heads' scores are reduced by
 // shuffles within the group, and one online-softmax step a round folds the
 // U rows' P.V in, in f32 registers. The groups of a warp merge by shuffles,
 // the warps in shared memory, and the split writes (o, m, l) to the
@@ -30,6 +30,17 @@
 // entry as a programmatic dependent launch, merges the splits and the
 // current token. Splits past seq_len (or wholly before the window) exit at
 // once. rep > 8 (RB = 16) spills registers.
+//
+// Multi-query heads (Falcon-7B: 71 query heads over one kv head;
+// StarCoder: 32 or 48 over one): a block reduces the query heads of one
+// head group in registers, at most SPLIT_MAX_REP of them. The host gives
+// the group size (ops/cuda/flash_q8.py::head_group: the whole rep up to
+// 16, else 8, which does not spill), and the grid's y axis runs over
+// (kv head, group). Each group re-reads its kv head's rows of the split,
+// so at rep 71 each row is read 9 times (the L2 may serve some of the
+// re-reads); one read for all the groups is later work. A group writes its
+// heads' rows of the workspace, whose layout (and so the combine) does not
+// change.
 //
 // Measured (tools/attn_compare.py, 8B heads, bf16, device time alone — the
 // card held busy past the host's enqueue; NVIDIA H100 80GB HBM3, 700.00 W;
@@ -81,18 +92,22 @@ __device__ __forceinline__ void unpack_chunk(const RowChunk<T>& c, float* f) {
     }
 }
 
-// One split of one (kv head, batch row): partial (o, m, l) of each of the
-// rep <= RB query heads into the workspace. k/v point at the layer.
+// One split of one (kv head, head group, batch row): partial (o, m, l) of
+// each of the group's rg <= RB query heads (heads g0 .. g0 + rg - 1 of the
+// kv head's rep) into the workspace. k/v point at the layer.
 template <typename T, int RB>
 __global__ void __launch_bounds__(DS_THREADS)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const int* __restrict__ seq_len, float* __restrict__ ws, int S, int H,
                     int Hkv, int Dk, int Dv, int s_eff, int n_split, int split_len, float scale,
-                    float softcap, int window) {
+                    float softcap, int window, int grp) {
     constexpr int U = 2;  // rows a group reads per round
-    extern __shared__ float red[];             // o [W][rep][Dv], m [W][rep], l [W][rep]
-    const int sp = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+    extern __shared__ float red[];             // o [W][rg][Dv], m [W][rg], l [W][rg]
+    const int sp = blockIdx.x, b = blockIdx.z;
     const int rep = H / Hkv;
+    const int n_grp = (rep + grp - 1) / grp;
+    const int hk = blockIdx.y / n_grp, g0 = (blockIdx.y - hk * n_grp) * grp;
+    const int rg = min(grp, rep - g0);
     const int n = seq_len[b];
     const int n_end = min(n, s_eff);
     const int lo = split_window_lo(n, window);
@@ -104,7 +119,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     int lpr = 1;  // lanes a row: a power of two covering the wider head dim
     while (lpr * DS_VEC < max(Dk, Dv)) lpr <<= 1;
-    const int ch = lane & (lpr - 1), grp = lane / lpr, rpw = 32 / lpr;
+    const int ch = lane & (lpr - 1), row_grp = lane / lpr, rpw = 32 / lpr;
     const bool k_on = ch * DS_VEC < Dk, v_on = ch * DS_VEC < Dv;
     const size_t krow = (size_t)Hkv * Dk, vrow = (size_t)Hkv * Dv;
     const T* kb = k + (size_t)b * S * krow + (size_t)hk * Dk + ch * DS_VEC;
@@ -113,8 +128,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     float qv[RB][DS_VEC], acc[RB][DS_VEC], m[RB], l[RB];
 #pragma unroll
     for (int r = 0; r < RB; ++r) {
-        const bool on = r < rep && k_on;
-        const T* qp = q + ((size_t)b * H + hk * rep + min(r, rep - 1)) * Dk + ch * DS_VEC;
+        const bool on = r < rg && k_on;
+        const T* qp = q + ((size_t)b * H + hk * rep + g0 + min(r, rg - 1)) * Dk + ch * DS_VEC;
         unpack_chunk<T>(load_chunk<T>(qp, on), qv[r]);
         m[r] = MASKED;
         l[r] = 0.f;
@@ -128,7 +143,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         bool ok[U];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-            const int pos = base + grp + u * step;
+            const int pos = base + row_grp + u * step;
             ok[u] = pos < stop;
             kr[u] = load_chunk<T>(kb + (size_t)pos * krow, ok[u] && k_on);
             vr[u] = load_chunk<T>(vb + (size_t)pos * vrow, ok[u] && v_on);
@@ -199,38 +214,38 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         }
     }
     float* red_o = red;
-    float* red_m = red + DS_WARPS * rep * Dv;
-    float* red_l = red_m + DS_WARPS * rep;
-    if (grp == 0) {
+    float* red_m = red + DS_WARPS * rg * Dv;
+    float* red_l = red_m + DS_WARPS * rg;
+    if (row_grp == 0) {
 #pragma unroll
         for (int r = 0; r < RB; ++r) {
-            if (r >= rep) break;
+            if (r >= rg) break;
             if (v_on)
 #pragma unroll
                 for (int e = 0; e < DS_VEC; ++e)
-                    red_o[(warp * rep + r) * Dv + ch * DS_VEC + e] = acc[r][e];
+                    red_o[(warp * rg + r) * Dv + ch * DS_VEC + e] = acc[r][e];
             if (ch == 0) {
-                red_m[warp * rep + r] = m[r];
-                red_l[warp * rep + r] = l[r];
+                red_m[warp * rg + r] = m[r];
+                red_l[warp * rg + r] = l[r];
             }
         }
     }
     __syncthreads();
     // merge the warps; the split is live, so some warp holds a real maximum
     const int ld = Dv + 2;
-    float* wsp = ws + (((size_t)b * Hkv + hk) * n_split + sp) * rep * ld;
-    for (int i = tid; i < rep * Dv; i += DS_THREADS) {
+    float* wsp = ws + ((((size_t)b * Hkv + hk) * n_split + sp) * rep + g0) * ld;
+    for (int i = tid; i < rg * Dv; i += DS_THREADS) {
         const int r = i / Dv, d = i - r * Dv;
         float mt = MASKED;
 #pragma unroll
-        for (int w = 0; w < DS_WARPS; ++w) mt = fmaxf(mt, red_m[w * rep + r]);
+        for (int w = 0; w < DS_WARPS; ++w) mt = fmaxf(mt, red_m[w * rg + r]);
         float o = 0.f, lt = 0.f;
 #pragma unroll
         for (int w = 0; w < DS_WARPS; ++w) {
-            const float mw = red_m[w * rep + r];
+            const float mw = red_m[w * rg + r];
             const float wgt = mw > 0.5f * MASKED ? __expf(mw - mt) : 0.f;
-            o += red_o[(w * rep + r) * Dv + d] * wgt;
-            lt += red_l[w * rep + r] * wgt;
+            o += red_o[(w * rg + r) * Dv + d] * wgt;
+            lt += red_l[w * rg + r] * wgt;
         }
         wsp[r * ld + d] = o;
         if (d == 0) {
@@ -244,7 +259,7 @@ template <typename T, int RB>
 static cudaError_t launch_split(const T* q, const T* k, const T* v, const int* seq_len,
                                 float* ws, int B, int S, int H, int Hkv, int Dk, int Dv,
                                 int s_eff, int n_split, int split_len, float scale,
-                                float softcap, int window, cudaStream_t s) {
+                                float softcap, int window, int grp, cudaStream_t s) {
     static bool attr_set = false;  // once per instantiation, not per launch
     if (!attr_set) {
         const cudaError_t err = cudaFuncSetAttribute(
@@ -253,11 +268,11 @@ static cudaError_t launch_split(const T* q, const T* k, const T* v, const int* s
         if (err != cudaSuccess) return err;
         attr_set = true;
     }
-    const int rep = H / Hkv;
-    const size_t smem = sizeof(float) * DS_WARPS * rep * (Dv + 2);
-    decode_split_kernel<T, RB><<<dim3(n_split, Hkv, B), DS_THREADS, smem, s>>>(
+    const int rep = H / Hkv, n_grp = (rep + grp - 1) / grp;
+    const size_t smem = sizeof(float) * DS_WARPS * min(grp, rep) * (Dv + 2);
+    decode_split_kernel<T, RB><<<dim3(n_split, Hkv * n_grp, B), DS_THREADS, smem, s>>>(
         q, k, v, seq_len, ws, S, H, Hkv, Dk, Dv, s_eff, n_split, split_len, scale, softcap,
-        window);
+        window, grp);
     return cudaGetLastError();
 }
 
@@ -266,18 +281,18 @@ static cudaError_t launch_decode(const void* q_, const void* k_stack, const void
                                  int il, int B, int S, int H, int Hkv, int Dk, int Dv,
                                  const void* kc, const void* vc, const int* seq_len, void* out,
                                  int s_eff, float scale, float softcap, int window, float* ws,
-                                 int n_split, int split_len, cudaStream_t s) {
+                                 int n_split, int split_len, int grp, cudaStream_t s) {
     const T* q = static_cast<const T*>(q_);
     const T* k = static_cast<const T*>(k_stack) + (size_t)il * B * S * Hkv * Dk;
     const T* v = static_cast<const T*>(v_stack) + (size_t)il * B * S * Hkv * Dv;
-    const int rep = H / Hkv;
+    const int rep = H / Hkv, rb = min(grp, rep);  // the query heads a block holds
     cudaError_t err;
 #define LCG_SPLIT(RB) launch_split<T, RB>(q, k, v, seq_len, ws, B, S, H, Hkv, Dk, Dv, s_eff, \
-                                          n_split, split_len, scale, softcap, window, s)
-    if (rep <= 1) err = LCG_SPLIT(1);
-    else if (rep <= 2) err = LCG_SPLIT(2);
-    else if (rep <= 4) err = LCG_SPLIT(4);
-    else if (rep <= 8) err = LCG_SPLIT(8);
+                                          n_split, split_len, scale, softcap, window, grp, s)
+    if (rb <= 1) err = LCG_SPLIT(1);
+    else if (rb <= 2) err = LCG_SPLIT(2);
+    else if (rb <= 4) err = LCG_SPLIT(4);
+    else if (rb <= 8) err = LCG_SPLIT(8);
     else err = LCG_SPLIT(16);
 #undef LCG_SPLIT
     if (err != cudaSuccess) return err;
@@ -304,14 +319,16 @@ static cudaError_t launch_decode(const void* q_, const void* k_stack, const void
 // q [B, H, Dk]; k_stack/v_stack [L, B, S, Hkv, D] (layer il is read in
 // place); kc/vc [B, Hkv, D]; seq_len [B] int32; out [B, H, Dv]. All of the
 // element type `dtype`, contiguous, 16-byte aligned. ws: f32 workspace
-// [B, Hkv, n_split, H / Hkv, Dv + 2]; n_split * split_len >= s_eff.
+// [B, Hkv, n_split, H / Hkv, Dv + 2]; n_split * split_len >= s_eff. grp:
+// the query heads a block reduces (any rep; 1 <= grp <= SPLIT_MAX_REP).
 LCG_EXPORT int lcg_flash_decode_dense(int dtype, const void* q, const void* k_stack,
                                       const void* v_stack, int il, int B, int S, int H,
                                       int Hkv, int Dk, int Dv, const void* kc, const void* vc,
                                       const int* seq_len, void* out, int s_eff, float scale,
                                       float softcap, int window, void* ws, int n_split,
-                                      int split_len, void* stream) {
-    if (Hkv < 1 || H % Hkv || H / Hkv > SPLIT_MAX_REP || Dk > DS_MAX_D || Dv > DS_MAX_D ||
+                                      int split_len, int grp, void* stream) {
+    if (Hkv < 1 || H % Hkv || grp < 1 || grp > SPLIT_MAX_REP ||
+        (long long)Hkv * ((H / Hkv + grp - 1) / grp) > 65535 || Dk > DS_MAX_D || Dv > DS_MAX_D ||
         Dk % DS_VEC || Dv % DS_VEC || s_eff > S || n_split < 1 || n_split > SPLIT_MAX ||
         split_len < 1 ||
         (long long)n_split * split_len < s_eff)
@@ -322,9 +339,9 @@ LCG_EXPORT int lcg_flash_decode_dense(int dtype, const void* q, const void* k_st
         dtype == DT_BF16
             ? launch_decode<__nv_bfloat16>(q, k_stack, v_stack, il, B, S, H, Hkv, Dk, Dv, kc, vc,
                                            seq_len, out, s_eff, scale, softcap, window, w,
-                                           n_split, split_len, s)
+                                           n_split, split_len, grp, s)
             : launch_decode<float>(q, k_stack, v_stack, il, B, S, H, Hkv, Dk, Dv, kc, vc,
                                    seq_len, out, s_eff, scale, softcap, window, w, n_split,
-                                   split_len, s);
+                                   split_len, grp, s);
     return static_cast<int>(err);
 }

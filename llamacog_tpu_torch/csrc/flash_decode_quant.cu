@@ -20,9 +20,11 @@
 //
 // Design: split-S flash-decoding, as flash_decode_dense.cu. The host picks
 // n_split and split_len from s_eff alone (ops/cuda/flash_q8.py::
-// choose_splits), so a launch makes no host sync. Grid (n_split, Hkv, B):
-// each block walks its split's positions once, 8 warps side by side; q
-// sits in shared memory in K's stored column order. Each warp walks its own
+// choose_splits), so a launch makes no host sync. Grid (n_split, Hkv x
+// head groups, B), the head groups as in flash_decode_dense.cu (at most
+// SPLIT_MAX_REP query heads a block, each group re-reading its kv head's
+// planes): each block walks its split's positions once, 8 warps side by
+// side; q sits in shared memory in K's stored column order. Each warp walks its own
 // rounds of U rows a row group (8 positions a warp for D = 128): the plane
 // bytes of a round (every plane row of K and V its positions hold) come
 // into the warp's shared-memory ring by cp.async, two rounds ahead of the
@@ -182,8 +184,9 @@ __device__ __forceinline__ void kind_rows(int kind, const KVPlanes& p, const siz
     }
 }
 
-// One split of one (kv head, batch row): partial (o, m, l) of each of the
-// rep <= RB query heads into the workspace, o in natural order. st holds
+// One split of one (kv head, head group, batch row): partial (o, m, l) of
+// each of the group's rg <= RB query heads (heads g0 .. g0 + rg - 1 of the
+// kv head's rep) into the workspace, o in natural order. st holds
 // the layer's planes and the rings' layout. Up to 4 query heads a kv head
 // (the 8B and Mixtral heads): two blocks an SM. FIXED: the one kind of K
 // and V where the launch has a compiled walk of its own (q8_0:q8_0), else
@@ -194,15 +197,18 @@ __global__ void __launch_bounds__(DQ_THREADS, RB <= 4 ? 2 : 1)
 decode_quant_split_kernel(const T* __restrict__ q, const KVStage st, int kind_k, int kind_v,
                           const int* __restrict__ seq_len, float* __restrict__ ws, int S, int H,
                           int Hkv, int Dk_, int Dv_, int s_eff, int n_split, int split_len,
-                          float scale, float softcap, int window) {
+                          float scale, float softcap, int window, int grp) {
     const int Dk = DC ? DC : Dk_, Dv = DC ? DC : Dv_;
-    // q [rep][Dk] in K's stored column order, then each warp's ring of
+    // q [rg][Dk] in K's stored column order, then each warp's ring of
     // DQ_STAGES slots; after the walk, the warps' partials
-    // red: o [W][rep][Dv], m [W][rep], l [W][rep]
+    // red: o [W][rg][Dv], m [W][rg], l [W][rg]
     extern __shared__ __align__(16) unsigned char dq_smem[];
     float* red = reinterpret_cast<float*>(dq_smem);
-    const int sp = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+    const int sp = blockIdx.x, b = blockIdx.z;
     const int rep = H / Hkv;
+    const int n_grp = (rep + grp - 1) / grp;
+    const int hk = blockIdx.y / n_grp, g0 = (blockIdx.y - hk * n_grp) * grp;
+    const int rg = min(grp, rep - g0);
     const int n = seq_len[b];
     const int n_end = min(n, s_eff);
     const int lo = split_window_lo(n, window);
@@ -213,16 +219,16 @@ decode_quant_split_kernel(const T* __restrict__ q, const KVStage st, int kind_k,
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int lpr = lanes_a_row(Dk, Dv);
-    const int ch = lane & (lpr - 1), grp = lane / lpr, rpw = 32 / lpr;
+    const int ch = lane & (lpr - 1), row_grp = lane / lpr, rpw = 32 / lpr;
     const int c0 = ch * DQ_VEC;  // this lane's first stored column of a row
     const bool k_on = c0 < Dk, v_on = c0 < Dv;
     const int Gk = Dk / KV_GS, Gv = Dv / KV_GS;
     const size_t row0 = (size_t)b * S * Hkv + hk;  // plane row of (b, position 0, hk)
 
     float* qs = reinterpret_cast<float*>(dq_smem);
-    for (int i = tid; i < rep * Dk; i += DQ_THREADS) {
+    for (int i = tid; i < rg * Dk; i += DQ_THREADS) {
         const int r = i / Dk, c = i - r * Dk;
-        qs[i] = to_f32(q[((size_t)b * H + hk * rep + r) * Dk + nat_col(c, Gk)]);
+        qs[i] = to_f32(q[((size_t)b * H + hk * rep + g0 + r) * Dk + nat_col(c, Gk)]);
     }
     float acc[RB][DQ_VEC], m[RB], l[RB];
 #pragma unroll
@@ -235,7 +241,7 @@ decode_quant_split_kernel(const T* __restrict__ q, const KVStage st, int kind_k,
     __syncthreads();
 
     // This warp's rows of round rd: positions first + [0, RW), first =
-    // start + rd * P + warp * RW; a lane's are grp + u * rpw. Each warp
+    // start + rd * P + warp * RW; a lane's are row_grp + u * rpw. Each warp
     // copies and reads its own ring, so a round needs no block barrier.
     const int RW = st.rows, P = DQ_WARPS * RW;
     unsigned char* ring = dq_smem + st.q_bytes + (size_t)warp * DQ_STAGES * st.bytes;
@@ -280,7 +286,7 @@ decode_quant_split_kernel(const T* __restrict__ q, const KVStage st, int kind_k,
     cp_async_commit();
     size_t row[DQ_U];  // this lane's rows of a slot
 #pragma unroll
-    for (int u = 0; u < DQ_U; ++u) row[u] = grp + u * rpw;
+    for (int u = 0; u < DQ_U; ++u) row[u] = row_grp + u * rpw;
     for (int rd = 0; rd < rounds; ++rd) {
         // landed: round rd; the warp barrier also retires every lane's read
         // of the slot refilled below (round rd - 1's)
@@ -303,9 +309,9 @@ decode_quant_split_kernel(const T* __restrict__ q, const KVStage st, int kind_k,
 #pragma unroll
             for (int r = 0; r < RB; ++r) {
                 float qv[DQ_VEC];
-                const float4 q0 = k_on ? *reinterpret_cast<const float4*>(qs + min(r, rep - 1) * Dk + c0)
+                const float4 q0 = k_on ? *reinterpret_cast<const float4*>(qs + min(r, rg - 1) * Dk + c0)
                                        : make_float4(0.f, 0.f, 0.f, 0.f);
-                const float4 q1 = k_on ? *reinterpret_cast<const float4*>(qs + min(r, rep - 1) * Dk + c0 + 4)
+                const float4 q1 = k_on ? *reinterpret_cast<const float4*>(qs + min(r, rg - 1) * Dk + c0 + 4)
                                        : make_float4(0.f, 0.f, 0.f, 0.f);
                 qv[0] = q0.x; qv[1] = q0.y; qv[2] = q0.z; qv[3] = q0.w;
                 qv[4] = q1.x; qv[5] = q1.y; qv[6] = q1.z; qv[7] = q1.w;
@@ -381,38 +387,38 @@ decode_quant_split_kernel(const T* __restrict__ q, const KVStage st, int kind_k,
         }
     }
     float* red_o = red;
-    float* red_m = red + DQ_WARPS * rep * Dv;
-    float* red_l = red_m + DQ_WARPS * rep;
-    if (grp == 0) {
+    float* red_m = red + DQ_WARPS * rg * Dv;
+    float* red_l = red_m + DQ_WARPS * rg;
+    if (row_grp == 0) {
 #pragma unroll
         for (int r = 0; r < RB; ++r) {
-            if (r >= rep) break;
+            if (r >= rg) break;
             if (v_on)  // stored V column c0 + e holds natural element nat_col(c0 + e)
 #pragma unroll
                 for (int e = 0; e < DQ_VEC; ++e)
-                    red_o[(warp * rep + r) * Dv + nat_col(c0 + e, Gv)] = acc[r][e];
+                    red_o[(warp * rg + r) * Dv + nat_col(c0 + e, Gv)] = acc[r][e];
             if (ch == 0) {
-                red_m[warp * rep + r] = m[r];
-                red_l[warp * rep + r] = l[r];
+                red_m[warp * rg + r] = m[r];
+                red_l[warp * rg + r] = l[r];
             }
         }
     }
     __syncthreads();
     // merge the warps; the split is live, so some warp holds a real maximum
     const int ld = Dv + 2;
-    float* wsp = ws + (((size_t)b * Hkv + hk) * n_split + sp) * rep * ld;
-    for (int i = tid; i < rep * Dv; i += DQ_THREADS) {
+    float* wsp = ws + ((((size_t)b * Hkv + hk) * n_split + sp) * rep + g0) * ld;
+    for (int i = tid; i < rg * Dv; i += DQ_THREADS) {
         const int r = i / Dv, d = i - r * Dv;
         float mt = MASKED;
 #pragma unroll
-        for (int w = 0; w < DQ_WARPS; ++w) mt = fmaxf(mt, red_m[w * rep + r]);
+        for (int w = 0; w < DQ_WARPS; ++w) mt = fmaxf(mt, red_m[w * rg + r]);
         float o = 0.f, lt = 0.f;
 #pragma unroll
         for (int w = 0; w < DQ_WARPS; ++w) {
-            const float mw = red_m[w * rep + r];
+            const float mw = red_m[w * rg + r];
             const float wgt = mw > 0.5f * MASKED ? __expf(mw - mt) : 0.f;
-            o += red_o[(w * rep + r) * Dv + d] * wgt;
-            lt += red_l[w * rep + r] * wgt;
+            o += red_o[(w * rg + r) * Dv + d] * wgt;
+            lt += red_l[w * rg + r] * wgt;
         }
         wsp[r * ld + d] = o;
         if (d == 0) {
@@ -426,7 +432,7 @@ template <typename T, int RB, int FIXED, int DC>
 static cudaError_t launch_split(const T* q, const KVStage& st, int kind_k, int kind_v,
                                 const int* seq_len, float* ws, int B, int S, int H, int Hkv,
                                 int Dk, int Dv, int s_eff, int n_split, int split_len,
-                                float scale, float softcap, int window, cudaStream_t s) {
+                                float scale, float softcap, int window, int grp, cudaStream_t s) {
     static bool attr_set = false;  // once per instantiation, not per launch
     if (!attr_set) {
         const cudaError_t err = cudaFuncSetAttribute(
@@ -435,12 +441,13 @@ static cudaError_t launch_split(const T* q, const KVStage& st, int kind_k, int k
         if (err != cudaSuccess) return err;
         attr_set = true;
     }
-    const int rep = H / Hkv;
-    const size_t smem = max(sizeof(float) * DQ_WARPS * rep * (Dv + 2),
+    const int rep = H / Hkv, n_grp = (rep + grp - 1) / grp;
+    const size_t smem = max(sizeof(float) * DQ_WARPS * min(grp, rep) * (Dv + 2),
                             (size_t)st.q_bytes + (size_t)DQ_WARPS * DQ_STAGES * st.bytes);
-    decode_quant_split_kernel<T, RB, FIXED, DC><<<dim3(n_split, Hkv, B), DQ_THREADS, smem, s>>>(
-        q, st, kind_k, kind_v, seq_len, ws, S, H, Hkv, Dk, Dv, s_eff, n_split, split_len, scale,
-        softcap, window);
+    decode_quant_split_kernel<T, RB, FIXED, DC>
+        <<<dim3(n_split, Hkv * n_grp, B), DQ_THREADS, smem, s>>>(
+            q, st, kind_k, kind_v, seq_len, ws, S, H, Hkv, Dk, Dv, s_eff, n_split, split_len,
+            scale, softcap, window, grp);
     return cudaGetLastError();
 }
 
@@ -449,11 +456,12 @@ static cudaError_t launch_decode(const void* q_, const KVPlanes& kp, const KVPla
                                  int kind_k, int kind_v, int B, int S, int H, int Hkv, int Dk,
                                  int Dv, const void* kc, const void* vc, const int* seq_len,
                                  void* out, int s_eff, float scale, float softcap, int window,
-                                 float* ws, int n_split, int split_len, cudaStream_t s) {
+                                 float* ws, int n_split, int split_len, int grp,
+                                 cudaStream_t s) {
     const T* q = static_cast<const T*>(q_);
-    const int rep = H / Hkv;
+    const int rep = H / Hkv, rb = min(grp, rep);  // the query heads a block holds
     KVStage st = kv_stage(kind_k, kind_v, kp, vp, Dk, Dv, DQ_U * (32 / lanes_a_row(Dk, Dv)));
-    st.q_bytes = (int)sizeof(float) * rep * Dk;
+    st.q_bytes = (int)sizeof(float) * rb * Dk;
     cudaError_t err;
     // q8_0 K and V of head dim 128 at four query heads a kv head (-ctk/-ctv
     // q8_0 on the 8B and Mixtral heads, bf16) take a walk compiled for them:
@@ -464,15 +472,15 @@ static cudaError_t launch_decode(const void* q_, const KVPlanes& kp, const KVPla
     const bool q8 = kind_k == KV_Q8_0 && kind_v == KV_Q8_0 && Dk == 128 && Dv == 128;
 #define LCG_SPLIT(RB, FIXED, DC)                                                               \
     launch_split<T, RB, FIXED, DC>(q, st, kind_k, kind_v, seq_len, ws, B, S, H, Hkv, Dk, Dv,    \
-                                   s_eff, n_split, split_len, scale, softcap, window, s)
-    if (rep <= 1) err = LCG_SPLIT(1, -1, 0);
-    else if (rep <= 2) err = LCG_SPLIT(2, -1, 0);
-    else if (rep <= 4) {
+                                   s_eff, n_split, split_len, scale, softcap, window, grp, s)
+    if (rb <= 1) err = LCG_SPLIT(1, -1, 0);
+    else if (rb <= 2) err = LCG_SPLIT(2, -1, 0);
+    else if (rb <= 4) {
         if constexpr (std::is_same<T, __nv_bfloat16>::value)
             err = q8 ? LCG_SPLIT(4, KV_Q8_0, 128) : LCG_SPLIT(4, -1, 0);
         else
             err = LCG_SPLIT(4, -1, 0);
-    } else if (rep <= 8) err = LCG_SPLIT(8, -1, 0);
+    } else if (rb <= 8) err = LCG_SPLIT(8, -1, 0);
     else err = LCG_SPLIT(16, -1, 0);
 #undef LCG_SPLIT
     if (err != cudaSuccess) return err;
@@ -500,7 +508,8 @@ static cudaError_t launch_decode(const void* q_, const KVPlanes& kp, const KVPla
 // element type `dtype`. K and V planes of one layer, each [B, S, Hkv*W]
 // contiguous and 16-byte aligned (m/h null where the kind has none);
 // seq_len [B] int32; s_eff the attended bound (<= S). ws: f32 workspace
-// [B, Hkv, n_split, H / Hkv, Dv + 2]; n_split * split_len >= s_eff.
+// [B, Hkv, n_split, H / Hkv, Dv + 2]; n_split * split_len >= s_eff. grp:
+// the query heads a block reduces (any rep; 1 <= grp <= SPLIT_MAX_REP).
 LCG_EXPORT int lcg_flash_decode_quant(int dtype, int kind_k, int kind_v, const void* q,
                                       const void* kq, const void* ks, const void* km,
                                       const void* kh, const void* vq, const void* vs,
@@ -508,8 +517,9 @@ LCG_EXPORT int lcg_flash_decode_quant(int dtype, int kind_k, int kind_v, const v
                                       int Hkv, int Dk, int Dv, const void* kc, const void* vc,
                                       const int* seq_len, void* out, int s_eff, float scale,
                                       float softcap, int window, void* ws, int n_split,
-                                      int split_len, void* stream) {
-    if (Hkv < 1 || H % Hkv || H / Hkv > SPLIT_MAX_REP || Dk > DQ_MAX_D || Dv > DQ_MAX_D ||
+                                      int split_len, int grp, void* stream) {
+    if (Hkv < 1 || H % Hkv || grp < 1 || grp > SPLIT_MAX_REP ||
+        (long long)Hkv * ((H / Hkv + grp - 1) / grp) > 65535 || Dk > DQ_MAX_D || Dv > DQ_MAX_D ||
         Dk % KV_GS || Dv % KV_GS || s_eff > S || !kv_kind_ok(kind_k) || !kv_kind_ok(kind_v) ||
         n_split < 1 || n_split > SPLIT_MAX || split_len < 1 ||
         (long long)n_split * split_len < s_eff)
@@ -524,9 +534,9 @@ LCG_EXPORT int lcg_flash_decode_quant(int dtype, int kind_k, int kind_v, const v
         dtype == DT_BF16
             ? launch_decode<__nv_bfloat16>(q, kp, vp, kind_k, kind_v, B, S, H, Hkv, Dk, Dv, kc,
                                            vc, seq_len, out, s_eff, scale, softcap, window, w,
-                                           n_split, split_len, st)
+                                           n_split, split_len, grp, st)
             : launch_decode<float>(q, kp, vp, kind_k, kind_v, B, S, H, Hkv, Dk, Dv, kc, vc,
                                    seq_len, out, s_eff, scale, softcap, window, w, n_split,
-                                   split_len, st);
+                                   split_len, grp, st);
     return static_cast<int>(err);
 }

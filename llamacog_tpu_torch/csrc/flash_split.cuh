@@ -22,7 +22,7 @@
 
 #include "common.cuh"
 
-constexpr int SPLIT_MAX_REP = 16;
+constexpr int SPLIT_MAX_REP = 16;  // query heads a split block reduces (a head group)
 constexpr int SPLIT_MAX = 512;         // splits a launch may have
 constexpr int COMBINE_THREADS = 128;
 constexpr int COMBINE_UNROLL = 8;      // splits read at once by a thread

@@ -1,22 +1,30 @@
 """The generalized transformer forward pass (PyTorch).
 
 Counterpart of llamacog_tpu/models/llama.py::forward for the llama, Qwen,
-Gemma, Phi-3, Command-R and DeepSeek-V2 families: embedding (times
-sqrt(n_embd) on Gemma) -> per layer (rms norm, or layer norm (command-r,
-cohere2), q/k/v projections, pre-fused (phi3) or with their biases
-(qwen2), per-head q/k norm (qwen3, gemma3, command-r-plus), rope (gemma3's
-local layers with a table of their own; none on cohere2's global layers;
-phi3's long or short factors by context length), or deepseek2's MLA in its
-decompressed form (a q LoRA or a plain q, the compressed kv and its rope
-part, decompressed to one K of 192 and a V of 128 a head), attention over
-the old cache plus the current block (sliding-window layers over their
-window; a ring of the last `window` tokens where the cache keeps one,
-runtime/kv_cache.py::SwaKVCache), the output projection, post-attention
-and post-FFN norms (gemma2/3), a SwiGLU or GeGLU FFN, in parallel with the
-attention where the arch says so (command-r, cohere2)) -> final norm -> LM
-head (tied to the embedding where the file has no output tensor) -> logit
-scale (command-r) and final logit softcap (gemma2), with the KV write
-deferred to one bulk write per step. A layer with a router
+Gemma, Phi-3, Command-R and DeepSeek-V2 families and the layer-norm
+families (phi2, gpt2, starcoder, starcoder2, falcon, gptneox, gptj,
+stablelm): embedding (times sqrt(n_embd) on Gemma; plus the learned
+position rows on gpt2 and starcoder) -> per layer (rms norm, or layer norm
+with its bias where the file has one, q/k/v projections, pre-fused (phi3,
+phi2, falcon, gpt2, starcoder, gptneox) or with their biases (qwen2,
+stablelm, starcoder2), per-head q/k norm (qwen3, gemma3, command-r-plus),
+rope, full or partial (phi2, gptneox, stablelm, gptj; interleaved on gptj),
+where the arch has it (gemma3's local layers with a table of their own;
+none on cohere2's global layers, gpt2 or starcoder; phi3's long or short
+factors by context length), or deepseek2's MLA in its decompressed form (a
+q LoRA or a plain q, the compressed kv and its rope part, decompressed to
+one K of 192 and a V of 128 a head), attention over the old cache plus the
+current block (sliding-window layers over their window; a ring of the last
+`window` tokens where the cache keeps one, runtime/kv_cache.py::SwaKVCache),
+the output projection and its bias, post-attention and post-FFN norms
+(gemma2/3), a SwiGLU or GeGLU FFN or an ungated GELU one, each product with
+its bias where the file has one, in parallel with the attention where the
+arch says so (command-r, cohere2, phi2, falcon, gptj: one shared norm;
+falcon-40B: the attention's own attn_norm_2; gptneox: the FFN's own
+ffn_norm)) -> final norm -> LM head (tied to the embedding where the file
+has no output tensor) and its bias (phi2, gptj) -> logit scale (command-r)
+and final logit softcap (gemma2), with the KV write deferred to one bulk
+write per step. A layer with a router
 (``ffn_gate_inp``) takes the MoE FFN instead (top-k routing, softmax or
 sigmoid with a selection bias, sparse products over the selected experts
 only, and a shared expert, sigmoid-gated in qwen2moe, plain in deepseek2);
@@ -41,14 +49,21 @@ from ..runtime.kv_cache import KVCache, QuantKVCache, SwaKVCache
 from .config import ModelConfig
 
 SUPPORTED_ARCHES = ("llama", "qwen2", "qwen2moe", "qwen3", "qwen3moe", "gemma", "gemma2",
-                    "gemma3", "phi3", "command-r", "cohere2", "deepseek2")
+                    "gemma3", "phi3", "command-r", "cohere2", "deepseek2", "phi2", "gpt2",
+                    "starcoder", "starcoder2", "falcon", "gptneox", "gptj", "stablelm")
 
 
-# the features each admitted family brings: layer norm, the parallel
-# residual and the logit scale (Command-R), cohere2's NoPE global layers,
-# MLA (DeepSeek-V2) and shared experts (Qwen2-MoE, DeepSeek-V2); another
-# arch that sets one is refused by the feature's name
+# the features each admitted family brings: layer norm (Command-R and the
+# layer-norm families), the parallel residual (Command-R, phi2, falcon,
+# gptneox, gptj), the logit scale (Command-R), cohere2's NoPE global layers,
+# learned positions without rope (gpt2, starcoder), MLA (DeepSeek-V2) and
+# shared experts (Qwen2-MoE, DeepSeek-V2); another arch that sets one is
+# refused by the feature's name
 _COHERE_ARCHES = ("command-r", "cohere2")
+_LAYER_NORM_ARCHES = (*_COHERE_ARCHES, "phi2", "gpt2", "starcoder", "starcoder2", "falcon",
+                      "gptneox", "gptj", "stablelm")
+_PARALLEL_ARCHES = (*_COHERE_ARCHES, "phi2", "falcon", "gptneox", "gptj")
+_LEARNED_POS_ARCHES = ("gpt2", "starcoder")
 _SHEXP_ARCHES = ("qwen2moe", "deepseek2")
 
 
@@ -61,10 +76,11 @@ def check_supported(cfg: ModelConfig) -> None:
     cohere = cfg.arch in _COHERE_ARCHES
     unsupported = {
         "non-parametric layer norm": cfg.nonparam_norms,
-        "layer norm": cfg.norm_type != "rms" and not cohere,
-        "parallel residual": cfg.parallel_residual and not cohere,
+        "layer norm": cfg.norm_type != "rms" and cfg.arch not in _LAYER_NORM_ARCHES,
+        "parallel residual": cfg.parallel_residual and cfg.arch not in _PARALLEL_ARCHES,
         "ALiBi": cfg.use_alibi,
-        "learned positions": cfg.learned_pos_embd or not cfg.rope.enabled,
+        "learned positions": ((cfg.learned_pos_embd or not cfg.rope.enabled)
+                              and cfg.arch not in _LEARNED_POS_ARCHES),
         "MLA": (cfg.n_lora_q > 0 or cfg.n_lora_kv > 0) and cfg.arch != "deepseek2",
         "per-layer head counts": bool(cfg.n_head_arr or cfg.n_head_kv_arr),
         "M-RoPE": bool(cfg.rope.sections),
@@ -87,13 +103,27 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
 
 
-def embed_tokens(params: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    emb = params["tok_embd"]
-    if isinstance(emb, WireTensor):
+def _gather_rows(table, ids: torch.Tensor, dtype) -> torch.Tensor:
+    if isinstance(table, WireTensor):
         # gather the looked-up rows' blocks first, decode only those — never
         # the whole [V, E] table
-        return dequantize_rows(emb, tokens, torch.float32).to(dtype)
-    return emb[tokens].to(dtype)
+        return dequantize_rows(table, ids, torch.float32).to(dtype)
+    return table[ids].to(dtype)
+
+
+def embed_tokens(params: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    return _gather_rows(params["tok_embd"], tokens, dtype)
+
+
+def embed_positions(params: dict, positions: torch.Tensor, dtype) -> torch.Tensor:
+    """The learned position rows (gpt2, starcoder), dense or quantized (the
+    JAX quantizer does not skip position_embd.weight). A position past the
+    table reads its last row: the engine refuses a max_seq past the table
+    (runtime/engine.py), so only an inactive full row of a batch, whose
+    logits nobody reads, gets there; the JAX package's jnp.take gives that
+    row NaN, and a CUDA index past the table would fault the device."""
+    table = params["pos_embd"]
+    return _gather_rows(table, positions.clamp(max=table.shape[0] - 1), dtype)
 
 
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -107,8 +137,9 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def _linear(x: torch.Tensor, layer: dict, key: str) -> torch.Tensor:
-    """One projection, plus its bias (qwen2's q/k/v) in the activation
-    dtype after the product, as the JAX _linear adds it."""
+    """One projection, plus its bias (qwen2's q/k/v, the layer-norm
+    families' products) in the activation dtype after the product, as the
+    JAX _linear adds it."""
     out = qmatmul(x, layer[key])
     b = layer.get(key + "_b")
     return out if b is None else out + b.to(out.dtype)
@@ -126,12 +157,17 @@ def _linear_multi(x: torch.Tensor, layer: dict, keys) -> list:
 
 
 def _ffn(layer: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Gated (SwiGLU/GeGLU) or, with no ffn_gate, the plain act(up) -> down
+    MLP (the layer-norm families), each product with its bias."""
     if "ffn_gate_up" in layer:
-        gate, up = qmatmul(x, layer["ffn_gate_up"]).chunk(2, dim=-1)
-    else:
+        gate, up = _linear(x, layer, "ffn_gate_up").chunk(2, dim=-1)
+        h = (_act(gate, cfg.ffn_act) * up.float()).to(x.dtype)
+    elif "ffn_gate" in layer:
         gate, up = _linear_multi(x, layer, ("ffn_gate", "ffn_up"))
-    h = (_act(gate, cfg.ffn_act) * up.float()).to(x.dtype)
-    return qmatmul(h, layer["ffn_down"])
+        h = (_act(gate, cfg.ffn_act) * up.float()).to(x.dtype)
+    else:
+        h = _act(_linear(x, layer, "ffn_up"), cfg.ffn_act).to(x.dtype)
+    return _linear(h, layer, "ffn_down")
 
 
 def _moe_router(layer: dict, x: torch.Tensor, cfg: ModelConfig):
@@ -351,9 +387,12 @@ def forward(
     # decode routes of the JAX forward (models/llama.py:444-452): stacked by
     # default; with LLAMACOG_FLASH_STACKED=0 per layer — a quantized cache
     # to K8, the dense one to K9 when LLAMACOG_FLASH_DECODE=1, else masked
-    use_stacked = flash_q8.stacked_decode_supported(T)
-    use_q8 = not use_stacked and flash_q8.decode_supported(flat, T)
+    use_stacked = flash_q8.stacked_decode_supported(cfg, flat, T)
+    use_q8 = not use_stacked and flash_q8.decode_supported(cfg, flat, T)
     use_flash = flash_decode.supported(cfg, flat, T)
+    # a block over a quantized cache: K7, or the masked path over the
+    # dequantized planes where 32 does not divide the head dim (Phi-2)
+    use_q8_prefill = flash_q8.prefill_supported(cfg, flat)
     if ring:
         ring_ok = swa_ring_mask(write_pos, T, cache.window, cfg.sliding_window)
         ring_cur = intra_block_mask(T, cfg.sliding_window, device=tokens.device)
@@ -388,7 +427,7 @@ def forward(
                                     old_cache_mask(write_pos, 1, k_old.shape[1], win),
                                     intra_block_mask(1, win, device=q.device), scale,
                                     logit_softcap=softcap)
-        if isinstance(flat, QuantKVCache):
+        if use_q8_prefill:
             return flash_q8.flash_prefill_q8(
                 q, tuple(p[il] for p in flat.k_planes), tuple(p[il] for p in flat.v_planes),
                 k, v, write_pos, scale, softcap=softcap, window=win,
@@ -396,28 +435,41 @@ def forward(
         k_old, v_old = flat.read(il)
         if kv_cap is not None:
             k_old, v_old = k_old[:, :kv_cap], v_old[:, :kv_cap]
+        if isinstance(flat, QuantKVCache):
+            return masked_attention(q, k_old, v_old, k, v,
+                                    old_cache_mask(write_pos, T, k_old.shape[1], win),
+                                    intra_block_mask(T, win, device=q.device), scale,
+                                    logit_softcap=softcap)
         return flash_prefill.flash_prefill_attention(
             q, k_old, v_old, k, v, write_pos, scale, softcap=softcap, window=win)
 
     x = embed_tokens(params, tokens, dtype)
     if cfg.embd_scale != 1.0:  # Gemma: sqrt(n_embd), multiplied in the activation dtype
         x = _scale_in(x, cfg.embd_scale)
+    if cfg.learned_pos_embd and "pos_embd" in params:  # gpt2, starcoder
+        x = x + embed_positions(params, positions, dtype)
     # llama-3.1 style per-dim rope factors, phi3's long or short ones
     # (rope_factors); gemma3's local layers take a rope of their own (base
-    # 10000, no scaling)
+    # 10000, no scaling); no rope at all where the arch has none (gpt2,
+    # starcoder)
     freq_factors = rope_factors(params, cfg, cache.max_seq)
-    rtab = rope_tables(positions, cfg.rope, Dk, freq_factors)
+    rtab = rope_tables(positions, cfg.rope, Dk, freq_factors) if cfg.rope.enabled else None
     rtab_swa = (rope_tables(positions, cfg.rope_swa, Dk, freq_factors)
-                if cfg.rope_freq_base_swa > 0.0 else rtab)
+                if rtab is not None and cfg.rope_freq_base_swa > 0.0 else rtab)
     rdim = cfg.rope.dim or Dk
     eps = cfg.rms_norm_eps
     new_ks, new_vs = [], []
     for il, layer in enumerate(params["layers"]):
         h = _norm(x, layer, "attn_norm", cfg)
-        # parallel residual (command-r, cohere2): the FFN reads the same
-        # normed input, or its own norm of x where the layer has one
-        par_ffn_h = (_norm(x, layer, "ffn_norm", cfg)
-                     if cfg.parallel_residual and "ffn_norm" in layer else h)
+        # parallel residual: the FFN reads the same normed input (command-r,
+        # cohere2, phi2, falcon-7B, gptj); falcon-40B's attention reads its
+        # own attn_norm_2 and the FFN attn_norm; gptneox's FFN its own ffn_norm
+        par_ffn_h = h
+        if cfg.parallel_residual:
+            if "attn_norm_2" in layer:
+                h = _norm(x, layer, "attn_norm_2", cfg)
+            elif "ffn_norm" in layer:
+                par_ffn_h = _norm(x, layer, "ffn_norm", cfg)
         is_swa = cfg.is_swa(il)
         tab = rtab_swa if is_swa else rtab
         if "attn_kv_a_mqa" in layer:
@@ -445,7 +497,8 @@ def forward(
                 q = rms_norm(q, layer["attn_q_norm"], eps)
                 k = rms_norm(k, layer["attn_k_norm"], eps)
             # cohere2's global layers (every n_no_rope_layer_step-th) take no rope
-            if not (cfg.n_no_rope_layer_step > 0 and (il + 1) % cfg.n_no_rope_layer_step == 0):
+            if tab is not None and not (cfg.n_no_rope_layer_step > 0
+                                        and (il + 1) % cfg.n_no_rope_layer_step == 0):
                 q = apply_rope_tables(q, tab, rdim, interleaved=cfg.rope.interleaved)
                 k = apply_rope_tables(k, tab, rdim, interleaved=cfg.rope.interleaved)
             k = k.contiguous()
@@ -477,6 +530,8 @@ def forward(
     out_w = params.get("output", params["tok_embd"])  # tied: the embedding table
     # f32 kernel output, rounded to the activation dtype, then f32 logits
     logits = qmatmul(x, out_w).float()
+    if "output_b" in params:  # phi2, gptj
+        logits = logits + params["output_b"].float()
     if cfg.logit_scale != 1.0:  # command-r (f_logit_scale)
         logits = logits * cfg.logit_scale
     if cfg.final_logit_softcap > 0.0:  # gemma2

@@ -7,11 +7,12 @@ signatures:
 
 - flash_decode_stacked_dense (csrc/flash_decode_dense.cu) reads layer `il`
   of the dense [L, B, S, Hkv, D] cache in place, split over the cache
-  positions: choose_splits picks the split count from s_eff on the host,
-  the wrapper allocates the f32 workspace of the splits' partials, and one
-  call launches the split kernel and the combine kernel
-  (csrc/flash_split.cuh; the combine's plain version is
-  combine_partials_plain);
+  positions and over groups of a kv head's query heads (head_group: any
+  number of query heads a kv head, Falcon-7B's 71 over one among them):
+  choose_splits picks the split count from s_eff on the host, the wrapper
+  allocates the f32 workspace of the splits' partials, and one call
+  launches the split kernel and the combine kernel (csrc/flash_split.cuh;
+  the combine's plain version is combine_partials_plain);
 - flash_decode_stacked (K6), flash_decode_q8 (K8a), flash_decode_q8_tiled
   (K8b) and flash_decode_q8_auto read the quantized planes
   (runtime/kv_cache.py) through one kernel, csrc/flash_decode_quant.cu,
@@ -49,8 +50,27 @@ from ...runtime.kv_cache import QuantKVCache, kv_dequant_planes, kv_plane_shapes
 from ..attention import intra_block_mask, masked_attention, old_cache_mask
 from . import build
 
-MAX_REP = 16
 MAX_D = 256
+# query heads one block of the split decode kernels reduces (a head group):
+# the whole rep of a kv head up to SPLIT_MAX_GROUP, else groups of
+# SPLIT_GROUP, the most a block holds in registers without spilling
+# (csrc/flash_decode_dense.cu)
+SPLIT_MAX_GROUP = 16
+SPLIT_GROUP = 8
+
+
+def head_group(rep: int) -> int:
+    """The query heads a block of K4/K6 reduces for `rep` query heads a kv
+    head: rep itself up to SPLIT_MAX_GROUP (one group), else SPLIT_GROUP
+    (Falcon-7B's 71: nine groups, the last of 7)."""
+    return rep if rep <= SPLIT_MAX_GROUP else SPLIT_GROUP
+
+
+def _split_grid(s_eff: int, B: int, Hkv: int, rep: int) -> tuple[int, int, int]:
+    """(n_split, split_len, group) of a split decode launch: the splits
+    chosen for the blocks a split has, one a (kv head, head group)."""
+    grp = head_group(rep)
+    return (*choose_splits(s_eff, B, Hkv * -(-rep // grp)), grp)
 
 
 def flash_decode_stacked_dense_plain(q, k_stack, v_stack, il, k_cur, v_cur, seq_len,
@@ -114,19 +134,19 @@ def launch_dense_decode(what, q, k, v, il, s_stride, s_eff, k_cur, v_cur, seq_le
             raise ValueError(f"{what}: {name} must be contiguous {dt} {shape} on {q.device}, "
                              f"got {t.dtype} {tuple(t.shape)}")
     _check_seq_len(what, seq_len, B, q.device)
-    if H % Hkv or H // Hkv > MAX_REP or Dk > MAX_D or Dv > MAX_D or Dk % 8 or Dv % 8:
+    if H % Hkv or Dk > MAX_D or Dv > MAX_D or Dk % 8 or Dv % 8:
         raise ValueError(f"{what}: unsupported heads/dims H={H} Hkv={Hkv} Dk={Dk} Dv={Dv}")
     for name, t in (("q", q), ("k", k), ("v", v), ("k_cur", k_cur), ("v_cur", v_cur)):
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be 16-byte aligned")
-    n_split, split_len = choose_splits(s_eff, B, Hkv)
+    n_split, split_len, grp = _split_grid(s_eff, B, Hkv, H // Hkv)
     out = torch.empty((B, H, Dv), dtype=dt, device=q.device)
     ws = torch.empty((B, Hkv, n_split, H // Hkv, Dv + 2), dtype=torch.float32, device=q.device)
     lib = build.load("flash_decode_dense")
     rc = lib.lcg_flash_decode_dense(
         build.DTYPE_ID[dt], q.data_ptr(), k.data_ptr(), v.data_ptr(), il, B, s_stride, H, Hkv,
         Dk, Dv, k_cur.data_ptr(), v_cur.data_ptr(), seq_len.data_ptr(), out.data_ptr(), s_eff,
-        float(scale), float(softcap), int(window), ws.data_ptr(), n_split, split_len,
+        float(scale), float(softcap), int(window), ws.data_ptr(), n_split, split_len, grp,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, rc, what)
     build.LAUNCHES[what] += 1  # one count a call: the split and the combine launch
@@ -263,8 +283,7 @@ def _check_attn_args(what, q, k_cur, v_cur, kinds, dims):
         if kind not in build.KV_KIND_ID:
             raise ValueError(f"{what}: unknown kv kind {kind!r}")
     H, Hkv, Dk, Dv = dims
-    if Hkv < 1 or H % Hkv or H // Hkv > MAX_REP or Dk > MAX_D or Dv > MAX_D \
-            or Dk % 32 or Dv % 32:
+    if Hkv < 1 or H % Hkv or Dk > MAX_D or Dv > MAX_D or Dk % 32 or Dv % 32:
         raise ValueError(f"{what}: unsupported heads/dims H={H} Hkv={Hkv} Dk={Dk} Dv={Dv}")
 
 
@@ -285,7 +304,7 @@ def flash_decode_quant_kernel(q, k_planes, v_planes, il, k_cur, v_cur, seq_len, 
     kptr = _plane_ptrs(what, k_planes, kinds[0], il, B, S, Hkv, Dk, q.device)
     vptr = _plane_ptrs(what, v_planes, kinds[1], il, B, S, Hkv, Dv, q.device)
     s_eff = S if kv_cap is None else min(int(kv_cap), S)
-    n_split, split_len = choose_splits(s_eff, B, Hkv)
+    n_split, split_len, grp = _split_grid(s_eff, B, Hkv, H // Hkv)
     out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
     ws = torch.empty((B, Hkv, n_split, H // Hkv, Dv + 2), dtype=torch.float32, device=q.device)
     lib = build.load("flash_decode_quant")
@@ -293,7 +312,7 @@ def flash_decode_quant_kernel(q, k_planes, v_planes, il, k_cur, v_cur, seq_len, 
         build.DTYPE_ID[q.dtype], build.KV_KIND_ID[kinds[0]], build.KV_KIND_ID[kinds[1]],
         q.data_ptr(), *kptr, *vptr, B, S, H, Hkv, Dk, Dv, k_cur.data_ptr(),
         v_cur.data_ptr(), seq_len.data_ptr(), out.data_ptr(), s_eff, float(scale),
-        float(softcap), int(window), ws.data_ptr(), n_split, split_len,
+        float(softcap), int(window), ws.data_ptr(), n_split, split_len, grp,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, rc, what)
     build.LAUNCHES[what] += 1  # one count a call: the split and the combine launch
@@ -376,20 +395,45 @@ def flash_prefill_q8(q, k_planes, v_planes, k_cur, v_cur, seq_len, scale, softca
                            window=window, kv_cap=kv_cap, kinds=kinds)
 
 
-def stacked_decode_supported(t: int) -> bool:
+def quant_heads_supported(cfg) -> bool:
+    """The JAX quantized routes' head-dim term (flash_q8.py:379-380,402-403,
+    1044-1045): K6/K7/K8 read whole 32-element groups, so a head dim that
+    32 does not divide (Phi-2's 80: the cache stores it as one whole-head
+    group, runtime/kv_cache.py) takes the masked path over the dequantized
+    planes, as in the JAX package."""
+    return cfg.head_dim_k % 32 == 0 and cfg.head_dim_v % 32 == 0
+
+
+def stacked_decode_supported(cfg, cache, t: int) -> bool:
     """The stacked decode route (K4/K6, the default at T = 1), switched off
-    by LLAMACOG_FLASH_STACKED=0 as in the JAX package (flash_q8.py:1034).
-    The JAX predicate's other terms are TPU tiling rules or shapes the
-    port's forward refuses; the kernels here take any S."""
+    by LLAMACOG_FLASH_STACKED=0 as in the JAX package (flash_q8.py:1034),
+    and for a quantized cache whose head dims 32 does not divide. The JAX
+    predicate asks that of the dense cache too; K4 takes any head dim that
+    8 divides, so a dense D-80 cache (Phi-2) decodes through K4 where the
+    JAX route is masked: the same result by another route. Its other terms
+    are TPU tiling rules or shapes the port's forward refuses; the kernels
+    here take any S."""
+    if isinstance(cache, QuantKVCache) and not quant_heads_supported(cfg):
+        return False
     return t == 1 and os.environ.get("LLAMACOG_FLASH_STACKED", "1") == "1"
 
 
-def decode_supported(cache, t: int) -> bool:
+def decode_supported(cfg, cache, t: int) -> bool:
     """The per-layer quantized decode route (K8, flash_decode_q8_auto) when
-    the stacked route is off: a quantized cache at T = 1, unless
-    LLAMACOG_FLASH_Q8=0 (flash_q8.py:372), which leaves the masked path."""
-    return (t == 1 and isinstance(cache, QuantKVCache)
+    the stacked route is off: a quantized cache at T = 1 whose head dims 32
+    divides, unless LLAMACOG_FLASH_Q8=0 (flash_q8.py:372), which leaves the
+    masked path."""
+    return (t == 1 and isinstance(cache, QuantKVCache) and quant_heads_supported(cfg)
             and os.environ.get("LLAMACOG_FLASH_Q8", "1") == "1")
+
+
+def prefill_supported(cfg, cache) -> bool:
+    """The quantized prefill route (K7, flash_prefill_q8) for a block over a
+    quantized cache: head dims that 32 divides (the JAX prefill_supported's
+    term, flash_q8.py:402-403; its T and S terms are TPU tiling rules, and
+    the port reads LLAMACOG_FLASH_Q8 at decode only), else the masked path
+    over the dequantized planes."""
+    return isinstance(cache, QuantKVCache) and quant_heads_supported(cfg)
 
 
 def decode_from_cache(q, cache, il, k_cur, v_cur, seq_len, scale, softcap=0.0, window=0,

@@ -105,7 +105,10 @@ def rope_shift(x: torch.Tensor, delta: torch.Tensor, cfg: RopeConfig,
     a context shift: rope is additive in the position, so rotating a key
     stored at p by d gives the key of p + d). The same tables as a step's
     (rope_tables, with the model's rope factors), so the JAX package's
-    apply_rope(k, delta, ...) is matched operation for operation."""
+    apply_rope(k, delta, ...) is matched operation for operation, and, as
+    there, a model without rope (gpt2, starcoder) is moved unrotated."""
+    if not cfg.enabled:
+        return x
     D = x.shape[-1]
     return apply_rope_tables(x, rope_tables(delta, cfg, D, freq_factors), cfg.dim or D,
                              interleaved=cfg.interleaved)

@@ -1,7 +1,9 @@
 """Generation engine over B rows of one KV cache (PyTorch).
 
 Counterpart of llamacog_tpu/runtime/engine.py::Engine for the llama,
-Qwen, Gemma, Phi-3, Command-R and DeepSeek-V2 families, with the dense
+Qwen, Gemma, Phi-3, Command-R and DeepSeek-V2 families and the layer-norm
+families (phi2, gpt2, starcoder, starcoder2, falcon, gptneox, gptj,
+stablelm), with the dense
 cache or the quantized one (kv_type, the -ctk/-ctv kinds, through
 make_cache), or, for a dense cache
 of a model with interleaved sliding-window layers whose window is shorter
@@ -197,6 +199,12 @@ class Engine:
         check_supported(config)
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        pos = params.get("pos_embd")
+        if pos is not None and max_seq > pos.shape[0]:
+            # the JAX engine takes such a max_seq and its jnp.take reads NaN
+            # past the table; a CUDA index past it would fault the device
+            raise ValueError(f"max_seq {max_seq} reaches past the model's {pos.shape[0]} "
+                             "learned positions (position_embd.weight)")
         self.device = resolve_device(device)
         stray = {str(d) for d in _param_devices(params) if d.type != self.device.type}
         if stray:

@@ -3,6 +3,8 @@
     python -m llamacog_tpu_torch.tools.path_sensitivity --ftype IQ3_XXS \
         [--model mixtral-8x7b] [--layers 2] [--eps 1e-3] [--only dense|experts]
 
+(--model: any name of utils/synthetic.py's CONFIGS, at --layers layers.)
+
 chip_smoke.py's phase 4 holds the kernel path against the plain path at full
 width and 2 layers: prefill logits, 4 teacher-forced decode steps and a
 9-token second chunk, bf16, each step within TOL_PATH of the largest
@@ -26,7 +28,9 @@ import json
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="llamacog-path-sensitivity")
-    ap.add_argument("--model", choices=("llama3-8b", "mixtral-8x7b"), default="mixtral-8x7b")
+    from ..utils.synthetic import CONFIGS
+
+    ap.add_argument("--model", choices=sorted(CONFIGS), default="mixtral-8x7b")
     ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--ftype", default=None, help="weight preset (utils/synthetic.py PRESETS)")
     ap.add_argument("--eps", type=float, default=1e-3)
@@ -40,16 +44,15 @@ def main(argv=None) -> int:
     from ..ops import linear
     from ..ops.cuda import qmm, qmm_id
     from ..runtime.engine import Engine
-    from ..utils.synthetic import (CODEBOOK_PRESETS, DEFAULT_LAYOUT, llama3_8b_config,
-                                   make_synthetic_params, mixtral_8x7b_config)
+    from ..utils.synthetic import CODEBOOK_PRESETS, DEFAULT_LAYOUT, make_synthetic_params
 
-    moe = args.model == "mixtral-8x7b"
-    cfg = (mixtral_8x7b_config if moe else llama3_8b_config)(n_layer=args.layers)
+    cfg = CONFIGS[args.model](n_layer=args.layers)
+    moe = cfg.n_expert > 0
     params = make_synthetic_params(cfg, seed=7, device="cpu", ftype=args.ftype or DEFAULT_LAYOUT,
                                    imatrix=args.ftype in CODEBOOK_PRESETS)
     # phase 4's prompt, teacher-forced tokens and cache size
     prompt = [(i * 7919) % cfg.n_vocab for i in range(2, 22)]
-    forced = [11, 12345, 777, 31000 if moe else 90000]
+    forced = [11, 12345, 777, 31000 if moe or cfg.n_vocab <= 90000 else 90000]
     max_seq = 33 if moe else 1024
     dtype = getattr(torch, args.dtype)
 

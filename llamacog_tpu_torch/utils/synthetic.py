@@ -32,12 +32,16 @@ Q5_K, Q8_0 for Q6_K, IQ4_NL for the other K-quants and codebook kinds,
 Q4_0 for the ternary ones; the LM head and a tied embedding Q8_0), so a
 synthetic model of such widths has the kinds a real file has. The config
 functions give the published geometry of Llama-3, Mixtral, Qwen2.5, Qwen3,
-Qwen2-MoE, Qwen3-MoE, Gemma-2 and Gemma-3 members (CONFIGS by name);
-make_synthetic_params adds what each family's file carries beside the
-weights: q/k/v biases (qwen2, qwen2moe), per-head q/k norms (qwen3,
-qwen3moe, gemma3), post-attention and post-FFN norms (gemma2, gemma3), the
-shared expert and its gate (qwen2moe), and no output tensor where the
-embedding is tied (Gemma, Qwen2.5-0.5B).
+Qwen2-MoE, Qwen3-MoE, Gemma-2 and Gemma-3 members, and of the layer-norm
+families' (Phi-2, Falcon-7B and -40B, GPT-2, StableLM-2, StarCoder2,
+StarCoderBase, Pythia, GPT-J) (CONFIGS by name); make_synthetic_params adds
+what each family's file carries beside the weights: q/k/v biases (qwen2,
+qwen2moe, stablelm, starcoder2), the other products' biases (_BIASES), norm
+biases (the layer-norm families), learned positions (gpt2, starcoder),
+falcon-40B's attn_norm_2, per-head q/k norms (qwen3, qwen3moe, gemma3),
+post-attention and post-FFN norms (gemma2, gemma3), the shared expert and
+its gate (qwen2moe), and no output tensor where the embedding is tied
+(Gemma, Qwen2.5-0.5B, GPT-2, StarCoderBase).
 """
 
 from __future__ import annotations
@@ -143,8 +147,10 @@ def tensor_kinds(cfg: ModelConfig, ftype: str = "Q4_K_M", imatrix: bool = False)
     "output", "layers": [{attn_q, attn_k, attn_v, attn_output, ffn_gate,
     ffn_up, ffn_down}]} (the FFN names stand for the stacked experts in a
     MoE layer; a shared expert adds ffn_gate_shexp, ffn_up_shexp and
-    ffn_down_shexp, the last by ffn_down's rule). phi3 has one attn_qkv
-    instead of q/k/v (Q5_K under Q4_K_M); deepseek2's MLA layers have
+    ffn_down_shexp, the last by ffn_down's rule). phi3 and the families
+    whose files fuse q/k/v (_FUSED_QKV_ARCHES) have one attn_qkv instead of
+    q/k/v (Q5_K under Q4_K_M); an FFN without a gate (_UNGATED_ARCHES) has
+    no ffn_gate; deepseek2's MLA layers have
     attn_q (or the q LoRA's attn_q_a and attn_q_b), attn_kv_a_mqa and
     attn_kv_b, which no rule names, and its leading dense layers the dense
     FFN's. Unfused, by the GGUF
@@ -200,7 +206,7 @@ def tensor_kinds(cfg: ModelConfig, ftype: str = "Q4_K_M", imatrix: bool = False)
         lk = {"attn_q": fit_kind(q, E), "attn_k": fit_kind(k, E), "attn_v": fit_kind(v, E),
               "attn_output": fit_kind(out, q_width), "ffn_gate": fit_kind(base, E),
               "ffn_up": fit_kind(base, E), "ffn_down": fit_kind(down, f_down)}
-        if cfg.arch == "phi3":  # one attn_qkv tensor, by its own rule
+        if cfg.arch in _FUSED_QKV_ARCHES:  # one attn_qkv tensor, by its own rule
             qkv = base if lowbit else {"Q3_K_M": "Q4_K", "Q3_K_L": "Q4_K", "IQ3_M": "Q4_K",
                                        "Q4_K_M": "Q5_K", "Q5_K_M": "Q6_K"}.get(ftype, base)
             del lk["attn_q"], lk["attn_k"], lk["attn_v"]
@@ -211,6 +217,8 @@ def tensor_kinds(cfg: ModelConfig, ftype: str = "Q4_K_M", imatrix: bool = False)
                 del lk["attn_q"]
                 lk.update(attn_q_a=fit_kind(base, E), attn_q_b=fit_kind(base, cfg.n_lora_q))
             lk.update(attn_kv_a_mqa=fit_kind(base, E), attn_kv_b=fit_kind(base, cfg.n_lora_kv))
+        if cfg.arch in _UNGATED_ARCHES:
+            del lk["ffn_gate"]
         shexp = shared_ff(cfg) if moe else 0
         if shexp:
             lk.update(ffn_gate_shexp=lk["ffn_gate"], ffn_up_shexp=lk["ffn_up"],
@@ -477,6 +485,118 @@ def deepseek_v2_config(n_layer: int = 60) -> ModelConfig:
         rope=_deepseek2_rope())
 
 
+def phi2_config(n_layer: int = 32) -> ModelConfig:
+    """Phi-2 (microsoft/phi-2 config.json: 32 layers, hidden 2560, 32 heads
+    of 80 (no GQA), intermediate 10240, partial_rotary_factor 0.4 (32 of
+    80 dims), rope theta 10000, layer norm eps 1e-5, vocab 51200, 2048
+    positions, untied; biases on every product, the LM head's included; one
+    norm feeds the attention and the FFN in parallel); `n_layer` cuts depth
+    only."""
+    return _family_config(
+        "phi2", n_vocab=51200, n_ctx_train=2048, n_embd=2560, n_layer=n_layer, n_head=32,
+        n_head_kv=32, n_ff=10240, head_dim_k=80, head_dim_v=80, norm_eps=1e-5,
+        rope=RopeConfig(dim=32, freq_base=10000.0))
+
+
+def falcon_7b_config(n_layer: int = 32) -> ModelConfig:
+    """Falcon-7B (tiiuae/falcon-7b config.json: 32 layers, hidden 4544, 71
+    query heads of 64 over one kv head (multi_query), intermediate 4 x 4544
+    = 18176, rope theta 10000, layer norm eps 1e-5, vocab 65024, no biases
+    on the products, parallel_attn: one norm feeds both branches): K 4544
+    rows take the 32-weight-block fallback kinds; `n_layer` cuts depth
+    only."""
+    return _family_config(
+        "falcon", n_vocab=65024, n_ctx_train=2048, n_embd=4544, n_layer=n_layer, n_head=71,
+        n_head_kv=1, n_ff=18176, head_dim_k=64, head_dim_v=64, norm_eps=1e-5,
+        rope=RopeConfig(dim=64, freq_base=10000.0))
+
+
+def falcon_40b_config(n_layer: int = 60) -> ModelConfig:
+    """Falcon-40B (tiiuae/falcon-40b config.json: 60 layers, hidden 8192,
+    128 query heads of 64 over 8 kv heads (new_decoder_architecture: the
+    attention's own norm, attn_norm_2, beside attn_norm for the FFN),
+    intermediate 32768, vocab 65024, no biases on the products); `n_layer`
+    cuts depth only."""
+    return _family_config(
+        "falcon", n_vocab=65024, n_ctx_train=2048, n_embd=8192, n_layer=n_layer, n_head=128,
+        n_head_kv=8, n_ff=32768, head_dim_k=64, head_dim_v=64, norm_eps=1e-5,
+        rope=RopeConfig(dim=64, freq_base=10000.0))
+
+
+def gpt2_config(n_layer: int = 12) -> ModelConfig:
+    """GPT-2 (openai-community/gpt2 config.json: 12 layers, n_embd 768, 12
+    heads of 64, n_inner 4 x 768 = 3072, 1024 learned positions, no rope,
+    layer norm eps 1e-5, vocab 50257, tied embeddings, biases on every
+    product); `n_layer` cuts depth only."""
+    return _family_config(
+        "gpt2", n_vocab=50257, n_ctx_train=1024, n_embd=768, n_layer=n_layer, n_head=12,
+        n_head_kv=12, n_ff=3072, head_dim_k=64, head_dim_v=64, norm_eps=1e-5,
+        rope=RopeConfig(dim=64), tie_word_embeddings=True)
+
+
+def stablelm2_1_6b_config(n_layer: int = 24) -> ModelConfig:
+    """StableLM-2-1.6B (stabilityai/stablelm-2-1_6b config.json: 24 layers,
+    hidden 2048, 32 heads of 64, intermediate 5632 with a SiLU gate,
+    partial_rotary_factor 0.25 (16 of 64 dims), rope theta 10000, layer
+    norm eps 1e-5, q/k/v biases (use_qkv_bias), vocab 100352, 4096
+    positions, untied); `n_layer` cuts depth only."""
+    return _family_config(
+        "stablelm", n_vocab=100352, n_ctx_train=4096, n_embd=2048, n_layer=n_layer, n_head=32,
+        n_head_kv=32, n_ff=5632, head_dim_k=64, head_dim_v=64, norm_eps=1e-5,
+        rope=RopeConfig(dim=16, freq_base=10000.0))
+
+
+def starcoder2_7b_config(n_layer: int = 32) -> ModelConfig:
+    """StarCoder2-7B (bigcode/starcoder2-7b config.json: 32 layers, hidden
+    4608, 36 query heads of 128 over 4 kv heads, intermediate 18432 without
+    a gate (GELU), rope theta 1e6, layer norm eps 1e-5, vocab 49152, biases
+    on every product (use_bias), untied; its sliding_window of 4096 is left
+    out: the JAX forward gives starcoder2 no window pattern); `n_layer` cuts
+    depth only."""
+    return _family_config(
+        "starcoder2", n_vocab=49152, n_ctx_train=16384, n_embd=4608, n_layer=n_layer,
+        n_head=36, n_head_kv=4, n_ff=18432, head_dim_k=128, head_dim_v=128, norm_eps=1e-5,
+        rope=RopeConfig(dim=128, freq_base=1e6))
+
+
+def starcoderbase_7b_config(n_layer: int = 42) -> ModelConfig:
+    """StarCoderBase-7B (bigcode/starcoderbase-7b config.json: 42 layers,
+    n_embd 4096, 32 query heads of 128 over one kv head (multi_query),
+    n_inner 16384, 8192 learned positions, no rope, layer norm eps 1e-5,
+    vocab 49152, tied embeddings, biases on every product); `n_layer` cuts
+    depth only."""
+    return _family_config(
+        "starcoder", n_vocab=49152, n_ctx_train=8192, n_embd=4096, n_layer=n_layer,
+        n_head=32, n_head_kv=1, n_ff=16384, head_dim_k=128, head_dim_v=128, norm_eps=1e-5,
+        rope=RopeConfig(dim=128), tie_word_embeddings=True)
+
+
+def pythia_6_9b_config(n_layer: int = 32) -> ModelConfig:
+    """Pythia-6.9B (EleutherAI/pythia-6.9b config.json, GPT-NeoX: 32
+    layers, hidden 4096, 32 heads of 128, intermediate 16384, rotary_pct
+    0.25 (32 of 128 dims), rotary_emb_base 10000, layer norm eps 1e-5,
+    use_parallel_residual (attn_norm for the attention, ffn_norm for the
+    FFN), vocab 50432, untied, biases on every product); `n_layer` cuts
+    depth only."""
+    return _family_config(
+        "gptneox", {"gptneox.use_parallel_residual": True}, n_vocab=50432, n_ctx_train=2048,
+        n_embd=4096, n_layer=n_layer, n_head=32, n_head_kv=32, n_ff=16384, head_dim_k=128,
+        head_dim_v=128, norm_eps=1e-5, rope=RopeConfig(dim=32, freq_base=10000.0))
+
+
+def gptj_6b_config(n_layer: int = 28) -> ModelConfig:
+    """GPT-J-6B (EleutherAI/gpt-j-6b config.json: 28 layers, n_embd 4096,
+    16 heads of 256, n_inner 4 x 4096 = 16384, rotary_dim 64 of 256
+    (interleaved pairs), layer norm eps 1e-5, vocab 50400, untied with a
+    biased LM head; q/k/v and the output projection without biases, the
+    FFN's with them; one norm feeds both branches); `n_layer` cuts depth
+    only."""
+    return _family_config(
+        "gptj", n_vocab=50400, n_ctx_train=2048, n_embd=4096, n_layer=n_layer, n_head=16,
+        n_head_kv=16, n_ff=16384, head_dim_k=256, head_dim_v=256, norm_eps=1e-5,
+        rope=RopeConfig(dim=64, freq_base=10000.0))
+
+
 # every synthetic configuration by the name the tools take (--model)
 CONFIGS = {"llama3-8b": llama3_8b_config, "llama3-70b": llama3_70b_config,
            "mixtral-8x7b": mixtral_8x7b_config, "qwen2.5-7b": qwen2_5_7b_config,
@@ -486,10 +606,29 @@ CONFIGS = {"llama3-8b": llama3_8b_config, "llama3-70b": llama3_70b_config,
            "gemma3-4b": gemma3_4b_config, "gemma-7b": gemma_7b_config,
            "phi3.5-mini": phi3_5_mini_config, "phi4": phi4_config,
            "command-r-v01": command_r_v01_config, "command-r7b": command_r7b_config,
-           "deepseek-v2-lite": deepseek_v2_lite_config, "deepseek-v2": deepseek_v2_config}
+           "deepseek-v2-lite": deepseek_v2_lite_config, "deepseek-v2": deepseek_v2_config,
+           "phi2": phi2_config, "falcon-7b": falcon_7b_config, "falcon-40b": falcon_40b_config,
+           "gpt2": gpt2_config, "stablelm-2-1.6b": stablelm2_1_6b_config,
+           "starcoder2-7b": starcoder2_7b_config, "starcoderbase-7b": starcoderbase_7b_config,
+           "pythia-6.9b": pythia_6_9b_config, "gpt-j-6b": gptj_6b_config}
 # the families whose files carry q/k/v biases, and per-head q/k norms
-_QKV_BIAS_ARCHES = ("qwen2", "qwen2moe")
+_QKV_BIAS_ARCHES = ("qwen2", "qwen2moe", "stablelm", "starcoder2")
 _QK_NORM_ARCHES = ("qwen3", "qwen3moe", "gemma3")
+# the files that hold q/k/v as one attn_qkv tensor, and the FFNs without a
+# gate (act(up) -> down)
+_FUSED_QKV_ARCHES = ("phi3", "phi2", "falcon", "gpt2", "starcoder", "gptneox")
+_UNGATED_ARCHES = ("phi2", "falcon", "gpt2", "starcoder", "starcoder2", "gptneox", "gptj")
+# the biases of the layer-norm families' products beside q/k/v's (llama.cpp's
+# tensor lists of each arch): "output" is the LM head's
+_BIASES = {"phi2": ("attn_qkv", "attn_output", "ffn_up", "ffn_down", "output"),
+           "gpt2": ("attn_qkv", "attn_output", "ffn_up", "ffn_down"),
+           "starcoder": ("attn_qkv", "attn_output", "ffn_up", "ffn_down"),
+           "gptneox": ("attn_qkv", "attn_output", "ffn_up", "ffn_down"),
+           "starcoder2": ("attn_output", "ffn_up", "ffn_down"),
+           "gptj": ("ffn_up", "ffn_down", "output")}
+# the layer-norm families whose norms carry biases (command-r's have none)
+_NORM_BIAS_ARCHES = ("phi2", "falcon", "gpt2", "starcoder", "starcoder2", "gptneox", "gptj",
+                     "stablelm")
 
 
 def random_experts(kind: str, n_exp: int, n: int, k: int, generator: torch.Generator,
@@ -506,10 +645,12 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
     (layout_kinds), for the forward, on `device`, fused as the loader fuses
     such a file (convert.py: q/k/v of one kind fuse with their biases; q+k
     fuse unless q carries a bias or a norm; phi3's attn_qkv and its ffn_up
-    of 2 x n_ff rows, which is ffn_gate_up). Norm weights are ones (and a
-    layer-norm arch has no ffn_norm: its FFN reads the attention's input
-    norm), biases and routers small f32 draws, phi3's rope factors a long
-    and a short table of cfg.rope.dim / 2."""
+    of 2 x n_ff rows, which is ffn_gate_up; the fused attn_qkv of
+    _FUSED_QKV_ARCHES). Norm weights are ones (and a parallel-residual arch
+    has no ffn_norm, its FFN reading the attention's input norm, but
+    gptneox, whose FFN has its own; falcon-40B's attention has its own
+    attn_norm_2), biases, learned positions and routers small f32 draws,
+    phi3's rope factors a long and a short table of cfg.rope.dim / 2."""
     from .. import resolve_device
 
     dev = resolve_device(device)
@@ -518,6 +659,7 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
     E = cfg.n_embd
     kv = cfg.n_head_kv * cfg.head_dim_k
     bias, qk_norm = cfg.arch in _QKV_BIAS_ARCHES, cfg.arch in _QK_NORM_ARCHES
+    biased = _BIASES.get(cfg.arch, ())
 
     def ones(n):
         return torch.ones(n, dtype=torch.float32, device=dev)
@@ -525,21 +667,36 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
     def small(*shape):
         return torch.randn(shape, generator=g, device=dev) * 0.02
 
-    params: dict = {
-        "tok_embd": random_wire(kinds["token_embd"], cfg.n_vocab, E, g, dev),
-        "output_norm": ones(E),
-        "layers": [],
-    }
+    def norm(tensors, key, n):
+        tensors[key] = ones(n)
+        if cfg.arch in _NORM_BIAS_ARCHES:
+            tensors[key + "_b"] = small(n)
+
+    def product(tensors, key, kind, n, k):
+        tensors[key] = random_wire(kind, n, k, g, dev)
+        if key in biased:
+            tensors[key + "_b"] = small(n)
+
+    params: dict = {"tok_embd": random_wire(kinds["token_embd"], cfg.n_vocab, E, g, dev),
+                    "layers": []}
+    norm(params, "output_norm", E)
+    if cfg.learned_pos_embd:  # gpt2, starcoder: dense, as a converted file holds it
+        params["pos_embd"] = small(cfg.n_ctx_train, E)
     if not cfg.tie_word_embeddings:
         params["output"] = random_wire(kinds["output"], cfg.n_vocab, E, g, dev)
+        if "output" in biased:
+            params["output_b"] = small(cfg.n_vocab)
     if cfg.arch == "phi3" and cfg.rope.orig_ctx_len:  # longrope's two factor tables
         half = cfg.rope.dim // 2
         params["rope_short"] = 1.0 + torch.rand(half, generator=g, device=dev) * 0.1
         params["rope_long"] = torch.linspace(1.0, 40.0, half, device=dev)
     for il, lk in enumerate(kinds["layers"]):
-        layer = {"attn_norm": ones(E)}
-        if not cfg.parallel_residual:
-            layer["ffn_norm"] = ones(E)
+        layer: dict = {}
+        norm(layer, "attn_norm", E)
+        if cfg.arch == "falcon" and cfg.n_head_kv > 1:  # falcon-40B's second norm
+            norm(layer, "attn_norm_2", E)
+        if not cfg.parallel_residual or cfg.arch == "gptneox":
+            norm(layer, "ffn_norm", E)
         rows = {"attn_q": cfg.n_head * cfg.head_dim_k, "attn_k": kv,
                 "attn_v": cfg.n_head_kv * cfg.head_dim_v}
         if cfg.n_lora_kv:  # deepseek2's MLA
@@ -557,7 +714,7 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
             layer["attn_kv_b"] = random_wire(
                 lk["attn_kv_b"], cfg.n_head * (Dk - r + cfg.head_dim_v), cfg.n_lora_kv, g, dev)
         elif "attn_qkv" in lk:
-            layer["attn_qkv"] = random_wire(lk["attn_qkv"], sum(rows.values()), E, g, dev)
+            product(layer, "attn_qkv", lk["attn_qkv"], sum(rows.values()), E)
         elif lk["attn_q"] == lk["attn_k"] == lk["attn_v"]:
             layer["attn_qkv"] = random_wire(lk["attn_q"], sum(rows.values()), E, g, dev)
             if bias:
@@ -572,8 +729,7 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
                     layer[key + "_b"] = small(n)
         if qk_norm:
             layer["attn_q_norm"], layer["attn_k_norm"] = ones(cfg.head_dim_k), ones(cfg.head_dim_k)
-        layer["attn_output"] = random_wire(lk["attn_output"], E, cfg.n_head * cfg.head_dim_v,
-                                           g, dev)
+        product(layer, "attn_output", lk["attn_output"], E, cfg.n_head * cfg.head_dim_v)
         if cfg.post_norms:
             layer["attn_post_norm"], layer["ffn_post_norm"] = ones(E), ones(E)
         if cfg.n_expert > 0 and il >= cfg.n_layer_dense_lead:
@@ -589,8 +745,11 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
                 layer["ffn_up_shexp"] = random_wire(lk["ffn_up_shexp"], fs, E, g, dev)
                 layer["ffn_down_shexp"] = random_wire(lk["ffn_down_shexp"], E, fs, g, dev)
         else:
-            layer["ffn_gate_up"] = random_wire(lk["ffn_gate"], 2 * cfg.n_ff, E, g, dev)
-            layer["ffn_down"] = random_wire(lk["ffn_down"], E, cfg.n_ff, g, dev)
+            if "ffn_gate" in lk:
+                layer["ffn_gate_up"] = random_wire(lk["ffn_gate"], 2 * cfg.n_ff, E, g, dev)
+            else:  # act(up) -> down
+                product(layer, "ffn_up", lk["ffn_up"], cfg.n_ff, E)
+            product(layer, "ffn_down", lk["ffn_down"], E, cfg.n_ff)
         params["layers"].append(layer)
     return params
 

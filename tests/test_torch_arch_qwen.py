@@ -40,7 +40,8 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
                tied=False, n_expert=0, n_expert_used=0, n_ff_exp=None, shexp_ff=0,
                shexp_gate=False, kind=None, metadata=None, seed=0, norm_bias=False,
                ffn_norm=True, fused_qkv=False, fused_up=False, mla=None, dense_lead=0,
-               probs_bias=False, rope_factors=None, extra_tensors=None) -> str:
+               probs_bias=False, rope_factors=None, extra_tensors=None, ffn_gate=True,
+               biases=(), n_pos=0, attn_norm_2=False) -> str:
     """A tiny random GGUF of `arch` with llama.cpp's tensor names. `kind`
     maps a tensor name to its GGMLType (None: F32); norms, biases and the
     routers stay F32, as llama.cpp keeps them. Norm weights are drawn near
@@ -51,8 +52,13 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
     (command-r-plus: a [heads, head_dim] norm), `mla` (deepseek2: a dict of
     kv_lora, q_lora (0: no q LoRA), rope, nope and v widths, in place of
     q/k/v), `dense_lead` (the first layers dense in a MoE file),
-    `probs_bias` (exp_probs_b), `rope_factors` ((long, short) tables) and
-    `extra_tensors` ({name: array})."""
+    `probs_bias` (exp_probs_b), `rope_factors` ((long, short) tables),
+    `extra_tensors` ({name: array}), and the layer-norm families' tensors:
+    `ffn_gate=False` (an FFN of ffn_up and ffn_down alone), `biases` (the
+    products among attn_qkv, attn_output, ffn_up, ffn_down and output that
+    carry a bias), `n_pos` (rows of learned positions, position_embd.weight,
+    of the kind `kind` gives it) and `attn_norm_2` (falcon-40B's second
+    norm)."""
     rng = np.random.default_rng(seed)
     hd = head_dim or n_embd // n_head
     hd_k = hd_v = hd
@@ -107,16 +113,25 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
         else:
             w.add_tensor(name, quantize_tensor(arr, t).tobytes(), shape=arr.shape, ggml_type=t)
 
+    def bias(name, rows):
+        if name.split(".")[-1] in biases:
+            w.add_tensor(name + ".bias", rand(rows, s=0.2))
+
     weight("token_embd.weight", rand(n_vocab, n_embd, s=0.5))
+    if n_pos:
+        weight("position_embd.weight", rand(n_pos, n_embd, s=0.5))
     norm("output_norm", n_embd)
     if not tied:
         weight("output.weight", rand(n_vocab, n_embd))
+        bias("output", n_vocab)
     if rope_factors is not None:
         for name, table in zip(("long", "short"), rope_factors):
             w.add_tensor(f"rope_factors_{name}.weight", np.asarray(table, np.float32))
     for il in range(n_layer):
         p = f"blk.{il}."
         norm(p + "attn_norm", n_embd)
+        if attn_norm_2:
+            norm(p + "attn_norm_2", n_embd)
         if mla:
             q_rows, r = n_head * hd_k, mla["rope"]
             if mla.get("q_lora"):
@@ -130,6 +145,7 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
             weight(p + "attn_kv_b.weight", rand(n_head * (mla["nope"] + hd_v), mla["kv_lora"]))
         elif fused_qkv:
             weight(p + "attn_qkv.weight", rand((n_head + 2 * n_head_kv) * hd, n_embd))
+            bias(p + "attn_qkv", (n_head + 2 * n_head_kv) * hd)
         else:
             for nm, rows in (("attn_q", n_head * hd), ("attn_k", n_head_kv * hd),
                              ("attn_v", n_head_kv * hd)):
@@ -143,6 +159,7 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
             norm(p + "attn_q_norm", hd)
             norm(p + "attn_k_norm", hd)
         weight(p + "attn_output.weight", rand(n_embd, n_head * hd_v))
+        bias(p + "attn_output", n_embd)
         if post_norms:
             norm(p + "post_attention_norm", n_embd)
             norm(p + "post_ffw_norm", n_embd)
@@ -165,9 +182,12 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
             weight(p + "ffn_up.weight", rand(2 * n_ff, n_embd))
             weight(p + "ffn_down.weight", rand(n_embd, n_ff))
         else:
-            weight(p + "ffn_gate.weight", rand(n_ff, n_embd))
+            if ffn_gate:
+                weight(p + "ffn_gate.weight", rand(n_ff, n_embd))
             weight(p + "ffn_up.weight", rand(n_ff, n_embd))
+            bias(p + "ffn_up", n_ff)
             weight(p + "ffn_down.weight", rand(n_embd, n_ff))
+            bias(p + "ffn_down", n_embd)
     for name, arr in (extra_tensors or {}).items():
         w.add_tensor(name, np.asarray(arr, np.float32))
     w.write()
@@ -270,7 +290,7 @@ def test_qwen3moe_routing_without_the_norm_key(tmp_path):
 
 def test_unported_archs_and_features_raise_by_name():
     base = synthetic.qwen3_8b_config(n_layer=2)
-    for arch in ("phi2", "starcoder2", "gpt2", "llama4"):
+    for arch in ("bloom", "mpt", "olmo", "llama4"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             Engine({"layers": []}, ModelConfig(**{**base.__dict__, "arch": arch}),
                    device="cpu")
@@ -314,7 +334,12 @@ def test_synthetic_params_are_a_loaded_file(tmp_path, case):
     shapes the port loads from a Q4_K_M file of that geometry whose kinds
     are utils/synthetic.py's table (the runs on the card stand for such
     files): the biases, norms, shared expert and tied head included."""
-    geo = dict(_SYNTH_CASES[case], n_embd=256, n_ff=512)
+    synthetic_matches_file(tmp_path, dict(_SYNTH_CASES[case], n_embd=256, n_ff=512))
+
+
+def synthetic_matches_file(tmp_path, geo: dict) -> None:
+    """The check of test_synthetic_params_are_a_loaded_file at the
+    write_gguf geometry `geo` (shared with the layer-norm families' tests)."""
     cfg = load_model(write_gguf(str(tmp_path / "f32.gguf"), **geo), device="cpu",
                      with_tokenizer=False).config
     # a GGUF says it is tied by lacking output.weight; the config says it so
@@ -327,7 +352,8 @@ def test_synthetic_params_are_a_loaded_file(tmp_path, case):
             lk = table["layers"][int(il)]
             part = part.removesuffix("_exps")
             return GGMLType[lk[part]] if part in lk else None
-        return GGMLType[table[name.split(".")[0]]]
+        top = name.split(".")[0]  # a table the rules leave dense (position_embd) is F32
+        return GGMLType[table[top]] if top in table else None
 
     got = load_model(write_gguf(str(tmp_path / "q.gguf"), kind=kind, **geo),
                      dtype=torch.float32, device="cpu", with_tokenizer=False).params

@@ -20,8 +20,8 @@ import jax.numpy as jnp
 from llamacog_tpu.ops.pallas import flash_q8 as jax_flash_q8
 from llamacog_tpu.runtime.kv_cache import kv_quant_planes as jax_kv_quant_planes
 from llamacog_tpu_torch.ops.cuda.flash_q8 import (
-    SPLIT_ALIGN, SPLIT_MIN_LEN, SPLIT_TARGET_BLOCKS, choose_splits, combine_partials_plain,
-    flash_decode_stacked_dense_plain)
+    SPLIT_ALIGN, SPLIT_GROUP, SPLIT_MAX_GROUP, SPLIT_MIN_LEN, SPLIT_TARGET_BLOCKS, _split_grid,
+    choose_splits, combine_partials_plain, flash_decode_stacked_dense_plain, head_group)
 from llamacog_tpu_torch.runtime.kv_cache import kv_dequant_planes
 
 ATOL = RTOL = 2e-5
@@ -165,6 +165,64 @@ def test_split_partials_are_the_plain_decode():
         np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL, rtol=RTOL)
 
 
+def test_head_groups_cover_every_query_head():
+    """K4/K6 take any number of query heads a kv head: a block reduces a
+    group of head_group(rep) of them, the whole rep up to SPLIT_MAX_GROUP
+    (the layout every earlier shape keeps), else groups of SPLIT_GROUP
+    (Falcon-7B's 71: nine, the last of 7); the split count is chosen for
+    the blocks a split then has, one a (kv head, group)."""
+    for rep in range(1, 129):
+        grp = head_group(rep)
+        n_grp = -(-rep // grp)
+        assert 1 <= grp <= SPLIT_MAX_GROUP and (n_grp - 1) * grp < rep <= n_grp * grp
+        assert grp == (rep if rep <= SPLIT_MAX_GROUP else SPLIT_GROUP)
+    assert _split_grid(1024, 1, 8, 4) == (*choose_splits(1024, 1, 8), 4)  # the 8B heads
+    assert _split_grid(32768, 1, 1, 71) == (*choose_splits(32768, 1, 9), 8)
+
+
+@pytest.mark.parametrize("H,Hkv", [(32, 1), (48, 1), (71, 1), (24, 2)])
+def test_head_group_partials_are_the_whole_rep(H, Hkv):
+    """The grouped kernels' work in plain torch: each (kv head, group)
+    block's partials over its heads alone, written at the group's rows of
+    the [B, Hkv, n_split, rep, Dv + 2] workspace, combine to the plain
+    decode, as the whole rep's partials do (the combine is unchanged)."""
+    B, S, D = 2, 256, 32
+    rep = H // Hkv
+    rng = np.random.default_rng(H)
+    k, v = torch.from_numpy(_rand(rng, B, S, Hkv, D)), torch.from_numpy(_rand(rng, B, S, Hkv, D))
+    q = torch.from_numpy(_rand(rng, B, H, D))
+    kc, vc = torch.from_numpy(_rand(rng, B, Hkv, D)), torch.from_numpy(_rand(rng, B, Hkv, D))
+    seq = torch.tensor([255, 70], dtype=torch.int32)
+    n_split, split_len, grp = _split_grid(S, B, Hkv, rep)
+    ws = torch.full((B, Hkv, n_split, rep, D + 2), float("nan"))
+    for g0 in range(0, rep, grp):
+        qg = q.reshape(B, Hkv, rep, D)[:, :, g0:g0 + grp].reshape(B, -1, D)
+        part, live = decode_split_partials_plain(qg, k, v, seq, D**-0.5, s_eff=S,
+                                                 n_split=n_split, split_len=split_len)
+        ws[:, :, :, g0:g0 + grp] = part
+    ws = torch.where(live[:, None, :, None, None], ws, torch.zeros_like(ws))
+    got = combine_partials_plain(ws, live, q, kc, vc, D**-0.5)
+    ref = flash_decode_stacked_dense_plain(q, k[None], v[None], 0, kc, vc, seq, D**-0.5)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("H", [32, 48, 71])
+def test_multi_query_split_combine_matches_pallas(H):
+    """Multi-query heads (one kv head; StarCoderBase-7B's 32, StarCoder's
+    48, Falcon-7B's 71) through the split rule of their launch against the
+    Pallas K4, which takes any rep, with softcap off and on."""
+    L, B, S, Hkv, D = 2, 2, 512, 1, 64
+    rng = np.random.default_rng(H)
+    k, v = _rand(rng, L, B, S, Hkv, D), _rand(rng, L, B, S, Hkv, D)
+    q, kc, vc = _rand(rng, B, H, D), _rand(rng, B, Hkv, D), _rand(rng, B, Hkv, D)
+    seq_len = np.array([300, 17], np.int32)
+    n_split = _split_grid(S, B, Hkv, H)[0]
+    for softcap in (0.0, 25.0):
+        ref = _pallas_ref(q, k, v, kc, vc, seq_len, 1, softcap, 0, None)
+        got, _ = _split_path(q, k, v, kc, vc, seq_len, 1, softcap, 0, None, n_split)
+        np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=RTOL)
+
+
 # (seq_len per row, window) of the quantized-cache cases: B = 2 with unequal
 # depths, a window that leaves whole splits out, an empty old cache, and a
 # row deeper than the kv_cap bucket
@@ -216,3 +274,36 @@ def test_quant_split_combine_matches_pallas(kinds, lens, window, kv_cap):
                                    window, kv_cap, kinds, n_split, split_len)
             assert got.shape == (B, H, D) and got.dtype == torch.float32
             np.testing.assert_allclose(got.numpy(), want, atol=STACKED_TOL, rtol=STACKED_TOL)
+
+
+def test_c_entries_match_their_ctypes_signatures():
+    """Every exported C entry of csrc/*.cu takes the arguments that
+    ops/cuda/build.py's ctypes signature passes, one for one (a missing
+    one shifts the stream pointer into an int: the card's process
+    segfaults): the count, and int, float, long long or pointer each."""
+    import ctypes
+    import re
+    from pathlib import Path
+    from types import SimpleNamespace
+
+    from llamacog_tpu_torch.ops.cuda import build
+
+    src = Path(build.__file__).resolve().parents[2] / "csrc"
+    entries = {}
+    for path in src.glob("*.cu"):
+        for name, params in re.findall(r"LCG_EXPORT int (lcg_\w+)\(([^)]*)\)", path.read_text()):
+            entries[name] = [p.strip() for p in params.split(",") if p.strip()]
+    lib = SimpleNamespace(**{name: SimpleNamespace() for name in entries},
+                          lcg_error_string=SimpleNamespace())
+    build._bind(lib)
+    scalar = {"int": ctypes.c_int, "float": ctypes.c_float, "long long": ctypes.c_longlong}
+    assert "lcg_flash_decode_dense" in entries and "lcg_flash_decode_quant" in entries
+    for name, params in entries.items():
+        argtypes = getattr(lib, name).argtypes
+        assert len(argtypes) == len(params), name
+        for param, argtype in zip(params, argtypes):
+            if "*" in param:
+                assert argtype is ctypes.c_void_p or issubclass(argtype, ctypes._Pointer), \
+                    (name, param)
+            else:
+                assert argtype is scalar[param.rsplit(" ", 1)[0]], (name, param)

@@ -1,6 +1,8 @@
 """The dense attention kernels — prefill K5 (csrc/flash_prefill.cu, tensor
 cores in bf16) and split-S decode K4/K9 (csrc/flash_decode_dense.cu) —
-against their plain PyTorch versions, on the card.
+against their plain PyTorch versions, on the card; and multi-query heads
+(32, 48 and 71 query heads over one kv head) through K4-K7, the quantized
+ones over q8_0 planes.
 
 Every test needs an NVIDIA GPU (and nvcc): they carry the `cuda` marker and
 skip where none is present. Run them on the card with
@@ -20,7 +22,10 @@ from llamacog_tpu_torch.ops.cuda.flash_decode import (
 from llamacog_tpu_torch.ops.cuda.flash_prefill import (
     flash_prefill_attention_plain, flash_prefill_kernel)
 from llamacog_tpu_torch.ops.cuda.flash_q8 import (
-    choose_splits, flash_decode_stacked_dense, flash_decode_stacked_dense_plain)
+    choose_splits, flash_decode_stacked, flash_decode_stacked_dense,
+    flash_decode_stacked_dense_plain, flash_decode_stacked_plain, flash_prefill_q8,
+    flash_prefill_q8_plain)
+from llamacog_tpu_torch.runtime.kv_cache import QuantKVCache
 
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 DTYPES = [torch.float32, torch.bfloat16]
@@ -207,3 +212,45 @@ def test_flash_decode_dense_at_depth(dev, dtype):
         ref = flash_decode_attention_plain(q, ks[0], vs[0], kc, vc, seq, D**-0.5)
         torch.cuda.synchronize()
         assert rel_err(got, ref) <= ATTN_TOL[dtype] and torch.equal(got, k9)
+
+
+@pytest.mark.parametrize("H,D", [(32, 128), (48, 128), (71, 64)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_multi_query_heads(dev, dtype, H, D):
+    """StarCoderBase-7B's 32, StarCoder's 48 and Falcon-7B's 71 query heads
+    over one kv head: K4 and K6 (q8_0 planes; head groups of 8 past 16
+    heads) at depths 1000 and 32765 of 32768 slots, and K5 and K7 over a
+    128-token block from offsets 0 and 896 of 1024 slots, each against its
+    plain version."""
+    kinds = ("q8_0", "q8_0")
+    g = torch.Generator(device=dev).manual_seed(H)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)  # noqa: E731
+    for S, depths in ((32768, (32765, 1000)), (1024, ())):
+        ks, vs = rnd(1, 1, S, 1, D), rnd(1, 1, S, 1, D)
+        cache = QuantKVCache.create(1, 1, S, 1, D, D, kinds=kinds, device=dev)
+        cache = cache.write_all(ks.float(), vs.float(), torch.zeros(1, dtype=torch.int32,
+                                                                     device=dev))
+        q, kc, vc = rnd(1, H, D), rnd(1, 1, D), rnd(1, 1, D)
+        for n in depths:
+            seq = torch.tensor([n], dtype=torch.int32, device=dev)
+            got = _no_sync(lambda: flash_decode_stacked_dense(q, ks, vs, 0, kc, vc, seq,
+                                                              D**-0.5))
+            ref = flash_decode_stacked_dense_plain(q, ks, vs, 0, kc, vc, seq, D**-0.5)
+            args = (q, cache.k_planes, cache.v_planes, 0, kc, vc, seq, D**-0.5)
+            got_q = _no_sync(lambda: flash_decode_stacked(*args, kinds=kinds))
+            ref_q = flash_decode_stacked_plain(*args, kinds=kinds)
+            torch.cuda.synchronize()
+            assert rel_err(got, ref) <= ATTN_TOL[dtype], (n, "K4")
+            assert rel_err(got_q, ref_q) <= ATTN_TOL[dtype], (n, "K6")
+    qp, kcp, vcp = rnd(1, 128, H, D), rnd(1, 128, 1, D), rnd(1, 128, 1, D)
+    kp, vp = [p[0] for p in cache.k_planes], [p[0] for p in cache.v_planes]
+    for n in (0, 896):
+        seq = torch.tensor([n], dtype=torch.int32, device=dev)
+        got = _no_sync(lambda: flash_prefill_kernel(qp, ks[0], vs[0], kcp, vcp, seq, D**-0.5))
+        ref = flash_prefill_attention_plain(qp, ks[0], vs[0], kcp, vcp, seq, D**-0.5)
+        got_q = _no_sync(lambda: flash_prefill_q8(qp, kp, vp, kcp, vcp, seq, D**-0.5,
+                                                  kinds=kinds))
+        ref_q = flash_prefill_q8_plain(qp, kp, vp, kcp, vcp, seq, D**-0.5, kinds=kinds)
+        torch.cuda.synchronize()
+        assert rel_err(got, ref) <= ATTN_TOL[dtype], (n, "K5")
+        assert rel_err(got_q, ref_q) <= ATTN_TOL[dtype], (n, "K7")
