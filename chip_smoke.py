@@ -68,6 +68,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      at 71 query heads over one kv head of 64 (Falcon-7B), 48 and 32 over
      one of 128 (StarCoder-15B, StarCoderBase-7B), at depths 1000 and 32765,
      K5 and K7 at rep 71 from offsets 0 and 896; K4/K5 at Phi-2's D 80;
+     and Llama 4's, the OLMo and the scaled families' shapes: K1 on
+     Llama-4-Scout's 202048-row Q6_K head and Granite-3.1-8B's tied one,
+     K3 on Scout's q+k with v and on OLMo-2's and OLMoE's q, k and v apart,
+     K10 (1 and 4 tokens: Scout's top 1 gives S = 1) and K11 (a 128-token
+     prefill) at Scout's 16 experts, OLMoE's 64 and Granite-3.1-3B-A800M's
+     40;
   4. the full-width kernel path (8B widths, 2 layers) against the plain
      path (the same params on the CPU): prefill logits, 4 teacher-forced
      decode steps (Engine.decode_one: replays of the step's CUDA graph on
@@ -103,7 +109,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      80; q8_0: the masked path, no attention kernel, the JAX route), GPT-2,
      StableLM-2-1.6B, StarCoder2-7B, StarCoderBase-7B (q8_0: rep 32),
      Pythia-6.9B, GPT-J-6B and Falcon-40B (StableLM-2, StarCoder2,
-     StarCoderBase and GPT-J as f32 models: see phase 4's comment);
+     StarCoderBase and GPT-J as f32 models: see phase 4's comment); then
+     Llama 4, the OLMo and the scaled families at 2 layers:
+     Llama-4-Scout (chunked attention: the masked path, no attention
+     kernel; a 40-token prompt for the grouped GEMM at top 1),
+     Granite-3.1-8B (dense and q8_0), OLMoE-1B-7B, OLMo-2-7B (dense and
+     q8_0), OLMo-7B, Granite-3.1-3B-A800M and MiniCPM-2B;
   5. whether stream capture keeps the split-S combine's programmatic
      dependent launch (K4 and K6 captured alone: the graph's edges by
      type, the replay against the eager call), then the 8B Q4_K_M
@@ -164,8 +175,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      and K5, q8_0, which launches K6 and K7, at 71 query heads a kv head,
      and a 512-token prompt), GPT-2 (12 layers) and StableLM-2-1.6B (24)
      at full depth, StarCoder2-7B, StarCoderBase-7B (dense and q8_0),
-     Pythia-6.9B and GPT-J-6B at 4 layers and Falcon-40B at 2; the phase's
-     wall time;
+     Pythia-6.9B and GPT-J-6B at 4 layers and Falcon-40B at 2; then
+     Granite-3.1-8B at full depth (40 layers, dense and q8_0), OLMoE-1B-7B
+     at full depth (16), OLMo-2-7B, OLMo-7B, Granite-3.1-3B-A800M and
+     MiniCPM-2B at 4 layers, and Llama-4-Scout-17B-16E at full depth (48
+     layers: every layer through the masked path, which launches no
+     attention kernel, checked), each with its ms/token, TTFT, peak memory
+     and launches a token beside the card's name and power limit; the
+     phase's wall time;
   6. each phase's seconds, one JSON line of per-kernel results, the card's
      name and power limit, and the final {"ok": true, ...} line.
 
@@ -330,7 +347,9 @@ def main() -> int:
         qwen2_5_7b_config, qwen2_57b_a14b_config, qwen3_8b_config, qwen3_30b_a3b_config,
         random_experts, random_wire, falcon_7b_config, falcon_40b_config, gpt2_config,
         gptj_6b_config, phi2_config, pythia_6_9b_config, stablelm2_1_6b_config,
-        starcoder2_7b_config, starcoderbase_7b_config)
+        starcoder2_7b_config, starcoderbase_7b_config, llama4_scout_config,
+        granite_3_1_8b_config, granite_3_1_3b_a800m_config, olmoe_1b_7b_config,
+        olmo2_7b_config, olmo_7b_config, minicpm_2b_config)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1259,6 +1278,21 @@ def main() -> int:
         "phi2": [("attn_qkv Q5_K 7680x2560 (biased)", ["Q5_K"], [7680], 2560)],
         "gpt-j-6b": [("attn_qk+attn_v Q4_K 8192x4096 + Q6_K 4096x4096", ["Q4_K", "Q6_K"],
                       [8192, 4096], 4096)],
+        # Llama 4 and the OLMo and scaled families: Llama-4-Scout's q+k with
+        # a more-bits layer's Q6_K v over K 5120 and its 202048-row head;
+        # Granite-3.1-8B's gate_up and tied head; OLMo-2's and OLMoE's q, k
+        # and v apart in one launch (their whole-projection q/k norms keep
+        # q and k unfused)
+        "llama4-scout": [("attn_qk+attn_v Q4_K 6144x5120 + Q6_K 1024x5120", ["Q4_K", "Q6_K"],
+                          [6144, 1024], 5120),
+                         ("output Q6_K 202048x5120", ["Q6_K"], [202048], 5120)],
+        "granite-3.1-8b": [("ffn_gate_up Q4_K 25600x4096", ["Q4_K"], [25600], 4096),
+                           ("output (tied token_embd) Q6_K 49155x4096", ["Q6_K"], [49155],
+                            4096)],
+        "olmo2-7b": [("attn_q+attn_k+attn_v Q4_K 4096x4096 x2 + Q6_K 4096x4096",
+                      ["Q4_K", "Q4_K", "Q6_K"], [4096, 4096, 4096], 4096)],
+        "olmoe-1b-7b": [("attn_q+attn_k+attn_v Q4_K 2048x2048 x2 + Q6_K 2048x2048",
+                         ["Q4_K", "Q4_K", "Q6_K"], [2048, 2048, 2048], 2048)],
     }
     for run, items in fam_ws.items():
         for label, kinds, rows, Kw in items:
@@ -1505,6 +1539,20 @@ def main() -> int:
          random_experts("Q4_K", dv2.n_expert, 2 * dv2.n_ff_exp, dv2.n_embd, g, dev)),
         ("ffn_down_exps Q4_K 160x5120x1536",
          random_experts("Q4_K", dv2.n_expert, dv2.n_embd, dv2.n_ff_exp, g, dev))])
+    # Llama-4-Scout's experts (16, top 1: one pair a token, S = 1 at decode;
+    # 128 rows in a 128-token prefill): gate_up 16x16384x5120 (Q4_K) and down
+    # 16x5120x8192 (Q6_K, a more-bits layer's); OLMoE-1B-7B's (64, top 8):
+    # 64x2048x2048 and 64x2048x1024; Granite-3.1-3B-A800M's (40, top 8):
+    # 40x1024x1536 and 40x1536x512
+    for run, cfgx in (("llama4-scout", llama4_scout_config()),
+                      ("olmoe-1b-7b", olmoe_1b_7b_config()),
+                      ("granite-3.1-3b-a800m", granite_3_1_3b_a800m_config())):
+        n_x, f_x, e_x = cfgx.n_expert, cfgx.n_ff_exp, cfgx.n_embd
+        family_experts(run, n_x, cfgx.n_expert_used, [
+            (f"ffn_gate_up_exps Q4_K {n_x}x{2 * f_x}x{e_x}",
+             random_experts("Q4_K", n_x, 2 * f_x, e_x, g, dev)),
+            (f"ffn_down_exps Q6_K {n_x}x{e_x}x{f_x}",
+             random_experts("Q6_K", n_x, e_x, f_x, g, dev))])
 
     phase_s["phase 3"] = time.perf_counter() - t3
     log(f"[parity] done in {phase_s['phase 3']:.1f}s")
@@ -1544,7 +1592,8 @@ def main() -> int:
         card, the same torch ops as on the CPU, and is copied over (decoding
         the copies on the host took ~45% of phase 4); a sample of each
         weight's rows (every expert's first and last, and 32 drawn from the
-        whole weight) is decoded on the CPU too and must be bit-equal."""
+        whole weight) is decoded on the CPU too and must be bit-equal. An
+        untied embedding table keeps no decode: the lookup decodes its rows."""
         p_gpu = make_synthetic_params(cfgp, seed=7, ftype=ftype,
                                       imatrix=ftype in CODEBOOK_PRESETS)
         draw = torch.Generator().manual_seed(7)
@@ -1562,7 +1611,11 @@ def main() -> int:
                   f"{w.kind} {tuple(w.shape)}: the plain dequant on the card is not the CPU's")
             return WireTensor(w.kind, w.shape, w.blocks, w.qi8, w.ws8T, decoded)
         t_copy = time.perf_counter()
-        p_cpu = {k: (v if k == "layers" else on_cpu(v)) for k, v in p_gpu.items()}
+        # an untied embedding table is only gathered by row, which decodes
+        # the looked-up rows' blocks (wire.dequantize_rows): no kept decode
+        p_cpu = {k: (v if k == "layers" else v.to("cpu")
+                     if k == "tok_embd" and "output" in p_gpu else on_cpu(v))
+                 for k, v in p_gpu.items()}
         p_cpu["layers"] = [{k: on_cpu(v) for k, v in layer.items()} for layer in p_gpu["layers"]]
         log(f"[path] {cfgp.arch} {cfgp.n_layer} layers, {ftype}: the CPU copy in "
             f"{time.perf_counter() - t_copy:.1f}s")
@@ -1605,7 +1658,7 @@ def main() -> int:
         """The plain path of a MoE model routed as the kernel path was: each
         router call takes the experts that routing_record saw the kernel
         path choose in the same step and layer (`seen`), weighted by the
-        plain path's own gate probabilities. Every real row (the first
+        plain path's own gate probabilities (softmax, or sigmoid). Every real row (the first
         real_rows[step] rows; the rest are the prompt bucket's padding)
         whose experts differ from the plain path's own top-k is appended to
         `diffs` with whether it is a tie swap: the kernel path took the
@@ -1619,8 +1672,8 @@ def main() -> int:
         orig = llama_mod._moe_router
 
         def route_as_kernel(layer, x, cfg):
-            check(cfg.expert_gating_func != "sigmoid" and "exp_probs_b" not in layer,
-                  "the forced router repeats softmax gating without a selection bias only")
+            check("exp_probs_b" not in layer,
+                  "the forced router repeats gating without a selection bias only")
             logits = qmatmul(x, layer["ffn_gate_inp"]).float()
             il = calls[0] % n_l
             calls[0] += 1
@@ -1629,7 +1682,11 @@ def main() -> int:
             check(int(used[il]) == n_rows, f"layer {il} step {step[0]}: the plain path routes "
                   f"{n_rows} rows, the kernel path routed {int(used[il])}")
             top_i = ids[il, :n_rows].reshape(*logits.shape[:-1], k)
-            gate_w = torch.gather(torch.softmax(logits, dim=-1), -1, top_i)
+            # softmax, or llama4's sigmoid: either keeps the logits' order, so
+            # the tie analysis below reads the logits
+            probs = (torch.sigmoid(logits) if cfg.expert_gating_func == "sigmoid"
+                     else torch.softmax(logits, dim=-1))
+            gate_w = torch.gather(probs, -1, top_i)
             if cfg.expert_weights_norm:
                 gate_w = gate_w / (gate_w.sum(dim=-1, keepdim=True) + 1e-20)
             real = real_rows[step[0]]
@@ -2105,6 +2162,43 @@ def main() -> int:
         path_check(model, cfgf, p_gpu, p_cpu, cases, [11, 12345, 777, 31000], max_seq)
         del p_gpu, p_cpu
         torch.cuda.empty_cache()
+    # Llama 4, the OLMo families and the scaled families, Q4_K_M: 2 layers of
+    # each config's widths. Llama-4-Scout's two layers are chunked: the
+    # masked path on every layer, prefill and decode (the JAX route for a
+    # chunked model), no attention kernel; top 1 of 16 experts beside the
+    # shared one, so its 40-token prompt (40 pairs) takes the grouped GEMM;
+    # its NoPE layers (every 4th) differ only in torch glue and run in phase
+    # 5. Granite-3.1-8B dense and q8_0 (the three scales; K4-K7 at attention
+    # scale 1/128), OLMoE-1B-7B, OLMo-2-7B dense and q8_0 (post-norm-only,
+    # whole-projection q/k norms), OLMo-7B (no norm tensor, clamp_kqv 8),
+    # Granite-3.1-3B-A800M and MiniCPM-2B (its scale defaults)
+    prompt40 = [(i * 7919) % 49152 for i in range(2, 42)]
+    prompt20g = prompt40[:20]
+    for model, cfgf, cases, max_seq in (
+            ("Llama-4-Scout widths", llama4_scout_config(n_layer=2), [
+                ("kv dense (masked)", "dense", {}, prompt40, moe_attn, "masked")], 1024),
+            ("Granite-3.1-8B widths", granite_3_1_8b_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20g, ("qmv", "qgemm", *dense_attn), "stacked"),
+                ("kv q8_0", "q8_0", {}, prompt20g, ("qmv", "qgemm", *quant_attn), "stacked")],
+             1024),
+            ("OLMoE-1B-7B widths", olmoe_1b_7b_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20g, (*moe_attn, *dense_attn), "stacked")], 1024),
+            ("OLMo-2-7B widths", olmo2_7b_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20g, ("qmv", "qgemm", *dense_attn), "stacked"),
+                ("kv q8_0", "q8_0", {}, prompt20g, ("qmv", "qgemm", *quant_attn), "stacked")],
+             1024),
+            ("OLMo-7B widths", olmo_7b_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20g, ("qmv", "qgemm", *dense_attn), "stacked")],
+             1024),
+            ("Granite-3.1-3B-A800M widths", granite_3_1_3b_a800m_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20g, (*moe_attn, *dense_attn), "stacked")], 1024),
+            ("MiniCPM-2B widths", minicpm_2b_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20g, ("qmv", "qgemm", *dense_attn), "stacked")],
+             1024)):
+        p_gpu, p_cpu = two_copies(cfgf, "Q4_K_M")
+        path_check(model, cfgf, p_gpu, p_cpu, cases, [11, 12345, 777, 31000], max_seq)
+        del p_gpu, p_cpu
+        torch.cuda.empty_cache()
     phase_s["phase 4"] = time.perf_counter() - t0
     log(f"[path] done in {phase_s['phase 4']:.1f}s")
 
@@ -2124,6 +2218,7 @@ def main() -> int:
         bound_ms = sum_wire_bytes(params, cfgm) / HBM_BYTES_PER_S * 1e3
         out = {}
         for i, (name, kv_type, env, prompt_len, used, *sizes) in enumerate(runs):
+            t_run = time.perf_counter()
             max_seq, n_tok, *chunk = sizes or (1024, N_DECODE)
             prompt = [(j * 31337) % Vm for j in range(prompt_len)]
             tag = f"[{model} {name} run {i + 1}]"
@@ -2210,6 +2305,7 @@ def main() -> int:
                 prev = out.get(name, {})
                 out[name] = {"prefill": prefill_launches, "decode": decode_launches,
                              "total": launches, "tokens": toks, "ms": dt / n_tok * 1e3,
+                             "peak": peak,
                              "ttft": ttfts[1:] + prev.get("ttft", []),
                              **{k: prev[k] for k in ("graph_ms", "eager_ms") if k in prev}}
                 if (model, name) in EAGER_TURNS and "graph_ms" not in prev:
@@ -2239,6 +2335,7 @@ def main() -> int:
                 log(f"{tag} greedy loop and decode_one agree on the first 8 tokens: {host_toks}")
             del eng, c, planes
             torch.cuda.empty_cache()
+            log(f"{tag} wall time {time.perf_counter() - t_run:.1f}s")
         return out
 
     def sampled_runs(params, cfgm, seed=1234, n_tok=32):
@@ -2817,6 +2914,7 @@ def main() -> int:
     # the preset that puts a 70B on one card; 64 query heads over 8 kv heads
     preset_runs["70b IQ2_XXS"] = preset_run("70b", llama3_70b_config(), "IQ2_XXS", exact_path)
     log(f"[70b IQ2_XXS] on {nvidia_smi_line()}")
+    log(f"[phase 5] wall time after the presets and the 70B {time.perf_counter() - t5:.1f}s")
 
     def family_serving_run(tag, params, cfgm, ring):
         """A family model through the port's server on the card: 4 slots,
@@ -3058,6 +3156,59 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
     log(f"[layer-norm families] runs {time.perf_counter() - t_ln:.1f}s")
+    # Llama 4 and the OLMo and scaled families in Q4_K_M, a 128-token prompt
+    # and 64 greedy tokens through the graph: Granite-3.1-8B at full depth,
+    # dense and q8_0; OLMoE-1B-7B at full depth; OLMo-2-7B, OLMo-7B,
+    # Granite-3.1-3B-A800M and MiniCPM-2B at 4 layers; then, with the others
+    # freed, Llama-4-Scout-17B-16E at full depth (48 layers, ~60 GiB of wire
+    # blocks): chunked attention on every layer through the masked path (no
+    # attention kernel), NoPE layers 3, 7, ..., K10 at one pair a token and
+    # K11 over 16 experts, the 202048-row head
+    t_new = time.perf_counter()
+    for model, cfgf, runs_f in (
+            ("granite-3.1-8b", granite_3_1_8b_config(), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64),
+                ("kv q8_0", "q8_0", {}, PROMPT_LEN, quant_path, 1024, 64)]),
+            ("olmoe-1b-7b", olmoe_1b_7b_config(), [
+                ("kv dense", "dense", {}, PROMPT_LEN, moe_path, 1024, 64)]),
+            ("olmo2-7b", olmo2_7b_config(n_layer=4), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64)]),
+            ("olmo-7b", olmo_7b_config(n_layer=4), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64)]),
+            ("granite-3.1-3b-a800m", granite_3_1_3b_a800m_config(n_layer=4), [
+                ("kv dense", "dense", {}, PROMPT_LEN, moe_path, 1024, 64)]),
+            ("minicpm-2b", minicpm_2b_config(n_layer=4), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64)]),
+            ("llama4-scout", llama4_scout_config(), [
+                ("kv dense", "dense", {}, PROMPT_LEN, ("qmv", "qgemm", *moe_kernels), 1024,
+                 64)])):
+        params = build_params(model, cfgf, "Q4_K_M")
+        got = main_path_runs(model, params, cfgf, runs_f)
+        chunked = flash_q8_mod.chunked_attention(cfgf)
+        bound = sum_wire_bytes(params, cfgf) / HBM_BYTES_PER_S * 1e3
+        for (name, kv_type, _, prompt_len, _, max_seq, n_tok, *chunk) in runs_f:
+            key = model if name == "kv dense" else f"{model} {name}"
+            r = family_runs[key] = got[name]
+            # one prefill attention launch a layer, one decode one a layer and
+            # token; none at all for a chunked model (the masked path)
+            L_f = cfgf.n_layer
+            pre, dec = (("flash_prefill_quant", "flash_decode_quant") if kv_type == "q8_0"
+                        else ("flash_prefill", "flash_decode_dense"))
+            want_pre, want_dec = (0, 0) if chunked else (L_f, n_tok * L_f)
+            attn = {k: r["total"][k] for k in (*dense_attn, *quant_attn, "flash_decode")}
+            check(r["prefill"][pre] == want_pre and r["decode"][dec] == want_dec
+                  and sum(attn.values()) == want_pre + want_dec,
+                  f"{key}: prefill {pre} {r['prefill'][pre]} (want {want_pre}), decode {dec} "
+                  f"{r['decode'][dec]} (want {want_dec}); attention launches {attn}")
+            log(f"[{key}] {L_f} layers: decode {r['ms']:.3f} ms/token (bound {bound:.3f}), "
+                f"TTFT {statistics.median(r['ttft']) * 1e3:.2f} ms, peak device memory "
+                f"{r['peak'] / 2**30:.2f} GiB, {sum(r['decode'].values()) / n_tok:.0f} "
+                f"hand-written kernel launches a token; attention launches {json.dumps(attn)}"
+                + (" (chunked: the masked path)" if chunked else "")
+                + f" on {nvidia_smi_line()}")
+        del params
+        torch.cuda.empty_cache()
+    log(f"[llama4, olmo and scaled families] runs {time.perf_counter() - t_new:.1f}s")
     for model, name in sorted(EAGER_TURNS):
         r = (runs_8b if model == "8b" else runs_moe)[name]
         log(f"[{model} {name}] decode ms/token, graph {statistics.median(r['graph_ms']):.3f} "

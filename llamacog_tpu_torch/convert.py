@@ -7,7 +7,8 @@ with the same keys as the JAX loader's tree (``attn_qk``, ``attn_v``,
 ``ffn_gate_up``, ``ffn_gate_up_exps``, ...), applying the same fusion
 under the same conditions (llamacog_tpu/models/loader.py:297-350): q/k/v
 of one kind fuse, their biases concatenated; else q+k fuse, unless q
-carries a bias or a norm; gate+up fuse unless gate carries a bias; a lone
+carries a bias or a norm; neither under a q/k norm over the whole
+projection (olmo2, olmoe); gate+up fuse unless gate carries a bias; a lone
 ffn_up of 2 x n_ff rows (phi3's pre-fused [gate; up]) becomes ffn_gate_up.
 Quantized tensors stay in wire format; fusing two of them is a row
 concatenation of their block bytes. The port's loader and
@@ -128,7 +129,10 @@ def from_reference(cfg: ModelConfig, tensors: dict, device=None,
             name = f"blk.{il}.{suffix}"
             if name in tensors:
                 layer[key] = _to_param(name, tensors[name], dev, dtype)
-        if all(k in layer for k in ("attn_q", "attn_k", "attn_v")):
+        # olmo2, olmoe: a q/k norm over the whole projection needs q and k
+        # apart (the JAX loader's rule, loader.py:297-298)
+        whole_qk_norm = cfg.qk_norm_full and "attn_q_norm" in layer
+        if all(k in layer for k in ("attn_q", "attn_k", "attn_v")) and not whole_qk_norm:
             fused = wire.fuse_rows([layer["attn_q"], layer["attn_k"], layer["attn_v"]])
             if fused is not None:
                 layer["attn_qkv"] = fused

@@ -1,33 +1,43 @@
 """The generalized transformer forward pass (PyTorch).
 
 Counterpart of llamacog_tpu/models/llama.py::forward for the llama, Qwen,
-Gemma, Phi-3, Command-R and DeepSeek-V2 families and the layer-norm
+Gemma, Phi-3, Command-R and DeepSeek-V2 families, the layer-norm
 families (phi2, gpt2, starcoder, starcoder2, falcon, gptneox, gptj,
-stablelm): embedding (times sqrt(n_embd) on Gemma; plus the learned
+stablelm), Llama 4, the OLMo families (olmo, olmo2, olmoe) and the scaled
+families (granite, granitemoe, minicpm): embedding (times sqrt(n_embd) on
+Gemma, the embedding scale on granite and minicpm; plus the learned
 position rows on gpt2 and starcoder) -> per layer (rms norm, or layer norm
 with its bias where the file has one, q/k/v projections, pre-fused (phi3,
 phi2, falcon, gpt2, starcoder, gptneox) or with their biases (qwen2,
-stablelm, starcoder2), per-head q/k norm (qwen3, gemma3, command-r-plus),
+stablelm, starcoder2), per-head q/k norm (qwen3, gemma3, command-r-plus)
+or one over the whole projection (olmo2, olmoe), olmo's clamp of q/k/v,
 rope, full or partial (phi2, gptneox, stablelm, gptj; interleaved on gptj),
 where the arch has it (gemma3's local layers with a table of their own;
-none on cohere2's global layers, gpt2 or starcoder; phi3's long or short
+none on cohere2's global layers, gpt2 or starcoder; none on llama4's NoPE
+layers, whose q takes the attention temperature instead, and the weightless
+L2 q/k norm after it on its other layers; phi3's long or short
 factors by context length), or deepseek2's MLA in its decompressed form (a
 q LoRA or a plain q, the compressed kv and its rope part, decompressed to
 one K of 192 and a V of 128 a head), attention over the old cache plus the
 current block (sliding-window layers over their window; a ring of the last
-`window` tokens where the cache keeps one, runtime/kv_cache.py::SwaKVCache),
-the output projection and its bias, post-attention and post-FFN norms
-(gemma2/3), a SwiGLU or GeGLU FFN or an ungated GELU one, each product with
+`window` tokens where the cache keeps one, runtime/kv_cache.py::SwaKVCache;
+llama4's chunked layers within their chunk, every layer through the masked
+path), the output projection and its bias, post-attention and post-FFN norms
+(gemma2/3; olmo2's, which has no pre-norm), the residual scale on both
+branches (granite, minicpm), a SwiGLU or GeGLU FFN or an ungated GELU one,
+each product with
 its bias where the file has one, in parallel with the attention where the
 arch says so (command-r, cohere2, phi2, falcon, gptj: one shared norm;
 falcon-40B: the attention's own attn_norm_2; gptneox: the FFN's own
 ffn_norm)) -> final norm -> LM head (tied to the embedding where the file
-has no output tensor) and its bias (phi2, gptj) -> logit scale (command-r)
-and final logit softcap (gemma2), with the KV write deferred to one bulk
+has no output tensor) and its bias (phi2, gptj) -> logit scale (command-r,
+minicpm; granite's divisor) and final logit softcap (gemma2), with the KV
+write deferred to one bulk
 write per step. A layer with a router
 (``ffn_gate_inp``) takes the MoE FFN instead (top-k routing, softmax or
 sigmoid with a selection bias, sparse products over the selected experts
-only, and a shared expert, sigmoid-gated in qwen2moe, plain in deepseek2);
+only, llama4's gate weights on the expert input, and a shared expert,
+sigmoid-gated in qwen2moe, plain in deepseek2 and llama4);
 a layer without one the dense FFN (deepseek2's leading dense layers).
 Other architectures and features raise NotImplementedError.
 
@@ -38,8 +48,8 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.attention import (intra_block_mask, masked_attention, old_cache_mask,
-                             swa_ring_mask)
+from ..ops.attention import (chunked_masks, intra_block_mask, masked_attention,
+                             old_cache_mask, swa_ring_mask)
 from ..ops.cuda import flash_decode, flash_prefill, flash_q8, qmm_id
 from ..ops.linear import qmatmul, qmatmul_multi
 from ..ops.norms import layer_norm, rms_norm
@@ -50,21 +60,27 @@ from .config import ModelConfig
 
 SUPPORTED_ARCHES = ("llama", "qwen2", "qwen2moe", "qwen3", "qwen3moe", "gemma", "gemma2",
                     "gemma3", "phi3", "command-r", "cohere2", "deepseek2", "phi2", "gpt2",
-                    "starcoder", "starcoder2", "falcon", "gptneox", "gptj", "stablelm")
+                    "starcoder", "starcoder2", "falcon", "gptneox", "gptj", "stablelm",
+                    "llama4", "olmo", "olmo2", "olmoe", "granite", "granitemoe", "minicpm")
 
 
 # the features each admitted family brings: layer norm (Command-R and the
 # layer-norm families), the parallel residual (Command-R, phi2, falcon,
 # gptneox, gptj), the logit scale (Command-R), cohere2's NoPE global layers,
-# learned positions without rope (gpt2, starcoder), MLA (DeepSeek-V2) and
-# shared experts (Qwen2-MoE, DeepSeek-V2); another arch that sets one is
-# refused by the feature's name
+# learned positions without rope (gpt2, starcoder), MLA (DeepSeek-V2),
+# shared experts (Qwen2-MoE, DeepSeek-V2, Llama 4), the non-parametric layer
+# norm and clamp_kqv (olmo), post-norm-only layers (olmo2), q/k norms over
+# the whole projection (olmo2, olmoe), the residual and logit scales
+# (granite, granitemoe, minicpm) and Llama 4's chunked attention, NoPE
+# layers with attention temperature, L2 q/k norm and weights before the
+# experts; another arch that sets one is refused by the feature's name
 _COHERE_ARCHES = ("command-r", "cohere2")
 _LAYER_NORM_ARCHES = (*_COHERE_ARCHES, "phi2", "gpt2", "starcoder", "starcoder2", "falcon",
-                      "gptneox", "gptj", "stablelm")
+                      "gptneox", "gptj", "stablelm", "olmo")
 _PARALLEL_ARCHES = (*_COHERE_ARCHES, "phi2", "falcon", "gptneox", "gptj")
 _LEARNED_POS_ARCHES = ("gpt2", "starcoder")
-_SHEXP_ARCHES = ("qwen2moe", "deepseek2")
+_SHEXP_ARCHES = ("qwen2moe", "deepseek2", "llama4")
+_SCALED_ARCHES = ("granite", "granitemoe", "minicpm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -73,9 +89,9 @@ def check_supported(cfg: ModelConfig) -> None:
     other architectures (or metadata keys these do not use) set."""
     if cfg.arch not in SUPPORTED_ARCHES:
         raise NotImplementedError(f"architecture {cfg.arch!r} is not ported yet")
-    cohere = cfg.arch in _COHERE_ARCHES
+    cohere, llama4 = cfg.arch in _COHERE_ARCHES, cfg.arch == "llama4"
     unsupported = {
-        "non-parametric layer norm": cfg.nonparam_norms,
+        "non-parametric layer norm": cfg.nonparam_norms and cfg.arch != "olmo",
         "layer norm": cfg.norm_type != "rms" and cfg.arch not in _LAYER_NORM_ARCHES,
         "parallel residual": cfg.parallel_residual and cfg.arch not in _PARALLEL_ARCHES,
         "ALiBi": cfg.use_alibi,
@@ -84,17 +100,20 @@ def check_supported(cfg: ModelConfig) -> None:
         "MLA": (cfg.n_lora_q > 0 or cfg.n_lora_kv > 0) and cfg.arch != "deepseek2",
         "per-layer head counts": bool(cfg.n_head_arr or cfg.n_head_kv_arr),
         "M-RoPE": bool(cfg.rope.sections),
-        "chunked SWA": cfg.swa_type == "chunked",
-        "MoE weights before the experts": cfg.moe_weight_before,
+        "chunked SWA": cfg.swa_type == "chunked" and not llama4,
+        "MoE weights before the experts": cfg.moe_weight_before and not llama4,
         "shared experts": cfg.arch not in _SHEXP_ARCHES and (cfg.n_expert_shared > 0
                                                              or cfg.n_ff_shexp > 0),
-        "post-norm-only layers": cfg.post_norm_only,
-        "q/k norms over the whole projection": cfg.qk_norm_full or cfg.qk_norm_layer,
-        "NoPE layers and attention temperature": (cfg.use_attn_temp or cfg.use_kq_norm or (
-            cfg.n_no_rope_layer_step > 0 and cfg.arch != "cohere2")),
-        "logit scale": cfg.logit_scale != 1.0 and not cohere,
-        "residual scale": cfg.residual_scale != 1.0,
-        "clamp_kqv": cfg.attn_clamp > 0.0,
+        "post-norm-only layers": cfg.post_norm_only and cfg.arch != "olmo2",
+        # chameleon's per-head layer norm of q and k among them
+        "q/k norms over the whole projection or per-head layer norms": cfg.qk_norm_layer or (
+            cfg.qk_norm_full and cfg.arch not in ("olmo2", "olmoe")),
+        "NoPE layers and attention temperature": not llama4 and (
+            cfg.use_attn_temp or cfg.use_kq_norm or (cfg.n_no_rope_layer_step > 0
+                                                     and cfg.arch != "cohere2")),
+        "logit scale": cfg.logit_scale != 1.0 and not cohere and cfg.arch not in _SCALED_ARCHES,
+        "residual scale": cfg.residual_scale != 1.0 and cfg.arch not in _SCALED_ARCHES,
+        "clamp_kqv": cfg.attn_clamp > 0.0 and cfg.arch != "olmo",
         "non-causal attention": not cfg.causal,
         "interleaved MoE layers": cfg.moe_every_n_layers > 0,
     }
@@ -242,6 +261,8 @@ def _ffn_moe_sparse(layer: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Ten
     Sp = S * k
     ids = top_i.reshape(Sp).to(torch.int32)
     rows = xf.repeat_interleave(k, dim=0)  # [(s, slot)] pair rows
+    if cfg.moe_weight_before:  # llama4: the gate weights scale the expert input
+        rows = rows * gate_w.reshape(Sp, 1).to(rows.dtype)
     if not all(isinstance(layer[key], WireTensor) for key in
                ("ffn_gate_up_exps", "ffn_gate_exps", "ffn_up_exps", "ffn_down_exps")
                if key in layer):
@@ -265,26 +286,35 @@ def _ffn_moe_sparse(layer: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Ten
     down = product(h, layer["ffn_down_exps"])  # [Sp, E] or [s_pad, E] f32
     if ragged:
         down = down.index_select(0, dest)  # back to (s, slot) pair order
-    out = (down.reshape(S, k, E) * gate_w[..., None]).sum(dim=1)
+    down = down.reshape(S, k, E)
+    # with the weights before the experts, the outputs sum unweighted
+    out = (down if cfg.moe_weight_before else down * gate_w[..., None]).sum(dim=1)
     return out.reshape(B, T, E)
 
 
 def _ffn_moe(layer: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """MoE FFN. Wire-format experts take the sparse top-k path; dense
-    (f32/f16/bf16) experts the all-expert einsums, as the JAX package. A
-    shared expert (qwen2moe) adds its FFN, times the sigmoid of its gate
-    where the layer has one, in f32 before the cast."""
+    (f32/f16/bf16) experts the all-expert einsums, as the JAX package; with
+    moe_weight_before (llama4) the gate weights scale each expert's input
+    (an expert not selected sees zeros) and the outputs sum unweighted. A
+    shared expert (qwen2moe, deepseek2, llama4) adds its FFN, times the
+    sigmoid of its gate where the layer has one, in f32 before the cast."""
     if isinstance(layer.get("ffn_gate_up_exps", layer.get("ffn_gate_exps")), WireTensor):
         out = _ffn_moe_sparse(layer, x, cfg)
     else:
         top_i, gate_w = _moe_router(layer, x, cfg)  # [B, T, k]
         comb = torch.zeros((*x.shape[:-1], cfg.n_expert), dtype=torch.float32,
                            device=x.device).scatter_add_(-1, top_i, gate_w)
-        gate = torch.einsum("bte,nfe->btnf", x, layer["ffn_gate_exps"])
-        up = torch.einsum("bte,nfe->btnf", x, layer["ffn_up_exps"])
+        if cfg.moe_weight_before:
+            xin, spec = x[:, :, None, :] * comb[..., None].to(x.dtype), "btne,nfe->btnf"
+        else:
+            xin, spec = x, "bte,nfe->btnf"
+        gate = torch.einsum(spec, xin, layer["ffn_gate_exps"])
+        up = torch.einsum(spec, xin, layer["ffn_up_exps"])
         act = _act(gate, cfg.ffn_act).to(x.dtype) * up
         expert_out = torch.einsum("btnf,nef->btne", act, layer["ffn_down_exps"])
-        out = torch.einsum("btne,btn->bte", expert_out.float(), comb)
+        out = (expert_out.float().sum(dim=2) if cfg.moe_weight_before
+               else torch.einsum("btne,btn->bte", expert_out.float(), comb))
     if "ffn_up_shexp" in layer:
         shexp = {"ffn_gate": layer["ffn_gate_shexp"], "ffn_up": layer["ffn_up_shexp"],
                  "ffn_down": layer["ffn_down_shexp"]}
@@ -304,7 +334,8 @@ def _scale_in(x: torch.Tensor, value: float) -> torch.Tensor:
 
 def _norm(x: torch.Tensor, tensors: dict, key: str, cfg: ModelConfig) -> torch.Tensor:
     """The arch's norm with weight `key` (and its bias `key`_b where the
-    file has one): layer norm (command-r, cohere2) or rms norm."""
+    file has one): layer norm (command-r, cohere2, the layer-norm families;
+    olmo's has neither tensor: the non-parametric norm) or rms norm."""
     if cfg.norm_type == "layer":
         return layer_norm(x, tensors.get(key), tensors.get(key + "_b"), cfg.norm_eps)
     return rms_norm(x, tensors[key], cfg.rms_norm_eps, tensors.get(key + "_b"))
@@ -396,10 +427,24 @@ def forward(
     if ring:
         ring_ok = swa_ring_mask(write_pos, T, cache.window, cfg.sliding_window)
         ring_cur = intra_block_mask(T, cfg.sliding_window, device=tokens.device)
+    # Llama 4: every layer attends through the masked path (the JAX route,
+    # which turns every flash route off for a chunked model); the chunked
+    # layers within their chunk, the others over the whole causal past
+    chunked = flash_q8.chunked_attention(cfg)
+    if chunked:
+        s_att = kv_cap if kv_cap is not None else flat.max_seq
+        chunk_ok = chunked_masks(write_pos, T, s_att, cfg.sliding_window)
+        full_ok = (old_cache_mask(write_pos, T, s_att), intra_block_mask(T, device=tokens.device))
 
     def _attend(q, k, v, il, is_swa):
         win = cfg.sliding_window if is_swa else 0
         softcap = cfg.attn_logit_softcap
+        if chunked:
+            k_old, v_old = flat.read(il)
+            if kv_cap is not None:
+                k_old, v_old = k_old[:, :kv_cap], v_old[:, :kv_cap]
+            return masked_attention(q, k_old, v_old, k, v, *(chunk_ok if is_swa else full_ok),
+                                    scale, logit_softcap=softcap)
         if ring:
             is_ring, il = cache.index(il)
             if is_ring:
@@ -458,9 +503,16 @@ def forward(
                 if rtab is not None and cfg.rope_freq_base_swa > 0.0 else rtab)
     rdim = cfg.rope.dim or Dk
     eps = cfg.rms_norm_eps
+    if cfg.use_attn_temp:
+        # llama4's NoPE layers scale q by log(floor((p + 1) / floor_scale) + 1)
+        # * scale + 1 (build_inp_attn_scale), in f32, then in q's dtype
+        attn_temp = (torch.log(torch.floor((positions.float() + 1.0)
+                                           / cfg.n_attn_temp_floor_scale) + 1.0)
+                     * cfg.f_attn_temp_scale + 1.0)[:, :, None, None]
     new_ks, new_vs = [], []
     for il, layer in enumerate(params["layers"]):
-        h = _norm(x, layer, "attn_norm", cfg)
+        # olmo2's post-norm-only layers: the attention reads the raw residual
+        h = x if cfg.post_norm_only else _norm(x, layer, "attn_norm", cfg)
         # parallel residual: the FFN reads the same normed input (command-r,
         # cohere2, phi2, falcon-7B, gptj); falcon-40B's attention reads its
         # own attn_norm_2 and the FFN attn_norm; gptneox's FFN its own ffn_norm
@@ -486,21 +538,37 @@ def forward(
                 q, k = qk.split([H * Dk, Hkv * Dk], dim=-1)
             elif "attn_q" in layer:
                 q, k, v = _linear_multi(h, layer, ("attn_q", "attn_k", "attn_v"))
+                if cfg.qk_norm_full and "attn_q_norm" in layer:
+                    # olmo2, olmoe: one rms norm over the whole projection
+                    q = rms_norm(q, layer["attn_q_norm"], eps)
+                    k = rms_norm(k, layer["attn_k_norm"], eps)
             else:
                 raise NotImplementedError("attention-free layers are not ported yet")
             # by the weights' rows, never n_embd: Qwen3-30B-A3B's q is 4096 wide
             # over an n_embd of 2048
             q = q.reshape(B, T, -1, Dk)
             k = k.reshape(B, T, -1, Dk)
-            v = v.reshape(B, T, -1, Dv).contiguous()
-            if "attn_q_norm" in layer:  # qwen3, gemma3, command-r-plus: per-head rms norm
+            v = v.reshape(B, T, -1, Dv)
+            if cfg.attn_clamp > 0.0:  # olmo's clamp_kqv
+                c = cfg.attn_clamp
+                q, k, v = q.clamp(-c, c), k.clamp(-c, c), v.clamp(-c, c)
+            v = v.contiguous()
+            if "attn_q_norm" in layer and not cfg.qk_norm_full:
+                # qwen3, gemma3, command-r-plus: per-head rms norm
                 q = rms_norm(q, layer["attn_q_norm"], eps)
                 k = rms_norm(k, layer["attn_k_norm"], eps)
-            # cohere2's global layers (every n_no_rope_layer_step-th) take no rope
-            if tab is not None and not (cfg.n_no_rope_layer_step > 0
-                                        and (il + 1) % cfg.n_no_rope_layer_step == 0):
+            # the NoPE layers (every n_no_rope_layer_step-th) take no rope:
+            # cohere2's global layers, and llama4's, whose q takes the
+            # position temperature instead; llama4's roped layers normalize
+            # q and k after the rope (the weightless L2 norm)
+            nope = cfg.n_no_rope_layer_step > 0 and (il + 1) % cfg.n_no_rope_layer_step == 0
+            if tab is not None and not nope:
                 q = apply_rope_tables(q, tab, rdim, interleaved=cfg.rope.interleaved)
                 k = apply_rope_tables(k, tab, rdim, interleaved=cfg.rope.interleaved)
+                if cfg.use_kq_norm:
+                    q, k = rms_norm(q, None, eps), rms_norm(k, None, eps)
+            elif nope and cfg.use_attn_temp:
+                q = q * attn_temp.to(q.dtype)
             k = k.contiguous()
         new_ks.append(k)
         new_vs.append(v)
@@ -508,17 +576,22 @@ def forward(
         attn = _linear(attn.reshape(B, T, H * Dv), layer, "attn_output")
         if cfg.post_norms and "attn_post_norm" in layer:
             attn = _norm(attn, layer, "attn_post_norm", cfg)
+        if cfg.residual_scale != 1.0:  # granite, minicpm: both branches scaled
+            attn = _scale_in(attn, cfg.residual_scale)
         if cfg.parallel_residual:
             x = x + attn + _ffn(layer, par_ffn_h, cfg)
             continue
         x = x + attn
-        h = _norm(x, layer, "ffn_norm", cfg) if "ffn_norm" in layer else x
+        # olmo's FFN norm has no tensor: the non-parametric norm
+        h = _norm(x, layer, "ffn_norm", cfg) if "ffn_norm" in layer or cfg.nonparam_norms else x
         if cfg.n_expert > 0 and "ffn_gate_inp" in layer:
             ffn = _ffn_moe(layer, h, cfg)
-        else:  # a dense layer, deepseek2's leading ones among them
+        else:  # a dense layer, deepseek2's leading ones and llama4's interleaved ones
             ffn = _ffn(layer, h, cfg)
         if cfg.post_norms and "ffn_post_norm" in layer:
             ffn = _norm(ffn, layer, "ffn_post_norm", cfg)
+        if cfg.residual_scale != 1.0:
+            ffn = _scale_in(ffn, cfg.residual_scale)
         x = x + ffn
 
     cache = cache.write_all(torch.stack(new_ks), torch.stack(new_vs), write_pos,
@@ -532,7 +605,8 @@ def forward(
     logits = qmatmul(x, out_w).float()
     if "output_b" in params:  # phi2, gptj
         logits = logits + params["output_b"].float()
-    if cfg.logit_scale != 1.0:  # command-r (f_logit_scale)
+    if cfg.logit_scale != 1.0:  # command-r, minicpm; granite's divisor as its inverse
+        # (config.py: _apply_arch_defaults)
         logits = logits * cfg.logit_scale
     if cfg.final_logit_softcap > 0.0:  # gemma2
         c = cfg.final_logit_softcap

@@ -37,6 +37,24 @@ def intra_block_mask(t: int, window: int = 0, device=None) -> torch.Tensor:
     return ok
 
 
+def chunked_masks(seq_len: torch.Tensor, t: int, s: int, chunk: int):
+    """Llama 4's chunked attention (the JAX _build_masks' chunked branch,
+    llama.py:370-385): query i of a block written at offset seq_len
+    (position p = seq_len + i) attends only within its chunk of `chunk`
+    positions, to keys at positions >= (p // chunk) * chunk. Returns the
+    old-cache mask [B, T, S] and the current block's mask, which depends on
+    the absolute positions, [B, T, T]. Built on the device from seq_len
+    alone, so a captured decode step rebuilds them at every replay."""
+    dev = seq_len.device
+    n = seq_len.long()[:, None, None]
+    ti = torch.arange(t, device=dev)
+    start = torch.div(n + ti[None, :, None], chunk, rounding_mode="floor") * chunk  # [B, T, 1]
+    sj = torch.arange(s, device=dev)[None, None, :]
+    old_ok = (sj < n) & (sj >= start)
+    cur_ok = (ti[None, :] <= ti[:, None])[None] & (n + ti[None, None, :] >= start)
+    return old_ok, cur_ok
+
+
 def swa_ring_mask(write_pos: torch.Tensor, t: int, ring_w: int, window: int) -> torch.Tensor:
     """Boolean [B, T, W] over a sliding-window ring of W slots (the
     counterpart of kv_cache.py::build_swa_ring_mask): slot j of a row with
@@ -59,7 +77,7 @@ def masked_attention(
     k_cur: torch.Tensor,   # [B, T, Hkv, Dk] this step's keys
     v_cur: torch.Tensor,   # [B, T, Hkv, Dv]
     old_ok: torch.Tensor,  # [B, T, S] bool
-    cur_ok: torch.Tensor,  # [T, T] bool
+    cur_ok: torch.Tensor,  # [T, T] or [B, T, T] bool
     scale: float,
     logit_softcap: float = 0.0,
 ) -> torch.Tensor:  # [B, T, H, Dv]

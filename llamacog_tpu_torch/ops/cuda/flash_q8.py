@@ -404,6 +404,14 @@ def quant_heads_supported(cfg) -> bool:
     return cfg.head_dim_k % 32 == 0 and cfg.head_dim_v % 32 == 0
 
 
+def chunked_attention(cfg) -> bool:
+    """Llama 4's chunked attention: the JAX forward turns every flash route
+    off for such a model (llama.py:441-451), so every layer, at prefill and
+    decode, over a dense or a quantized cache, attends through the masked
+    path with the chunk masks (ops/attention.py::chunked_masks)."""
+    return cfg.swa_type == "chunked" and cfg.sliding_window > 0
+
+
 def stacked_decode_supported(cfg, cache, t: int) -> bool:
     """The stacked decode route (K4/K6, the default at T = 1), switched off
     by LLAMACOG_FLASH_STACKED=0 as in the JAX package (flash_q8.py:1034),
@@ -412,7 +420,10 @@ def stacked_decode_supported(cfg, cache, t: int) -> bool:
     8 divides, so a dense D-80 cache (Phi-2) decodes through K4 where the
     JAX route is masked: the same result by another route. Its other terms
     are TPU tiling rules or shapes the port's forward refuses; the kernels
-    here take any S."""
+    here take any S. A chunked model (chunked_attention) takes no flash
+    route."""
+    if chunked_attention(cfg):
+        return False
     if isinstance(cache, QuantKVCache) and not quant_heads_supported(cfg):
         return False
     return t == 1 and os.environ.get("LLAMACOG_FLASH_STACKED", "1") == "1"
@@ -422,8 +433,9 @@ def decode_supported(cfg, cache, t: int) -> bool:
     """The per-layer quantized decode route (K8, flash_decode_q8_auto) when
     the stacked route is off: a quantized cache at T = 1 whose head dims 32
     divides, unless LLAMACOG_FLASH_Q8=0 (flash_q8.py:372), which leaves the
-    masked path."""
+    masked path; never for a chunked model."""
     return (t == 1 and isinstance(cache, QuantKVCache) and quant_heads_supported(cfg)
+            and not chunked_attention(cfg)
             and os.environ.get("LLAMACOG_FLASH_Q8", "1") == "1")
 
 
@@ -432,8 +444,9 @@ def prefill_supported(cfg, cache) -> bool:
     quantized cache: head dims that 32 divides (the JAX prefill_supported's
     term, flash_q8.py:402-403; its T and S terms are TPU tiling rules, and
     the port reads LLAMACOG_FLASH_Q8 at decode only), else the masked path
-    over the dequantized planes."""
-    return isinstance(cache, QuantKVCache) and quant_heads_supported(cfg)
+    over the dequantized planes, as for a chunked model."""
+    return (isinstance(cache, QuantKVCache) and quant_heads_supported(cfg)
+            and not chunked_attention(cfg))
 
 
 def decode_from_cache(q, cache, il, k_cur, v_cur, seq_len, scale, softcap=0.0, window=0,

@@ -7,10 +7,14 @@ from __future__ import annotations
 import torch
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+def rms_norm(x: torch.Tensor, weight: torch.Tensor | None, eps: float,
              bias: torch.Tensor | None = None) -> torch.Tensor:
+    """RMS norm over the last axis; with no weight, the weightless norm
+    (llama4's L2 q/k norm, ggml_rms_norm alone)."""
     xf = x.float()
-    out = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps) * weight.float()
+    out = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    if weight is not None:
+        out = out * weight.float()
     if bias is not None:
         out = out + bias.float()
     return out.to(x.dtype)

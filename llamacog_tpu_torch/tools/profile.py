@@ -22,7 +22,12 @@ saw), the device's idle share of the profiled run, kernel launches and
 graph replays a token, and kernel time by name; the host time of the two
 pieces the cache kind changes (the step's bulk cache write and one layer's
 decode attention call, without a sync); host op time by name for the eager
-step. If the profiler sees no CUDA kernels, the device numbers are
+step; and where the forward attends through the masked path (Llama 4's
+chunked layers, a ring's window layers, a quantized cache at a head dim
+that 32 does not divide), that path's device time a token and its share of
+the graph step's device busy time (its calls wrapped in a profiler range
+in an eager run: the range's device time is that of the kernels launched
+in it). If the profiler sees no CUDA kernels, the device numbers are
 reported as not measured. With --prefill the profiled work is one prefill
 of the prompt instead (after two warm-up prefills), and the numbers are
 per prefill; the environment's routes apply (e.g. LLAMACOG_MMQ=1 for the
@@ -54,7 +59,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from ..models import llama as llama_mod
 
     from ..ops.cuda.flash_q8 import decode_from_cache
     from ..runtime.engine import Engine
@@ -82,7 +89,7 @@ def main(argv=None) -> int:
         if not kernels:
             print(f"[profile] {label}: device busy time: not measured (the profiler saw no "
                   "CUDA kernels)")
-            return
+            return None
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / per
         launches = sum(e.count for e in kernels) / per
         replays = sum(e.count for e in prof.key_averages() if e.key == "cudaGraphLaunch") / per
@@ -95,6 +102,7 @@ def main(argv=None) -> int:
             print(f"{e.key[:70]:<70} {e.count / per:>9.1f} "
                   f"{e.self_device_time_total / 1e3 / per:>11.4f} "
                   f"{e.self_device_time_total / max(e.count, 1):>8.2f}")
+        return busy_ms
 
     def host_ops(prof, per, unit) -> None:
         """Where the host's time goes (the profiler's own cost is in every row)."""
@@ -134,7 +142,7 @@ def main(argv=None) -> int:
     print(f"{head}: {args.steps} decode steps after the prompt")
     print("[profile] host clock, ms/token (in turns): "
           + "; ".join(f"{way} {', '.join(f'{t:.3f}' for t in ts)}" for way, ts in walls.items()))
-    profs = {}
+    profs, busy = {}, {}
     for way in ways:
         first = prefill()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -142,7 +150,29 @@ def main(argv=None) -> int:
             ways[way]([first], args.steps)
             wall_prof = time.perf_counter() - t0
         profs[way] = prof
-        report(prof, wall_prof, args.steps, "token", way)
+        busy[way] = report(prof, wall_prof, args.steps, "token", way)
+
+    orig_masked = llama_mod.masked_attention
+
+    def ranged(*a, **kw):
+        with record_function("masked_attention"):
+            return orig_masked(*a, **kw)
+
+    llama_mod.masked_attention = ranged
+    try:
+        first = prefill()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ways["eager"]([first], args.steps)
+    finally:
+        llama_mod.masked_attention = orig_masked
+    masked = [e for e in prof.key_averages() if e.key == "masked_attention"]
+    if masked:
+        m_ms = masked[0].device_time_total / 1e3 / args.steps
+        share = (f"{m_ms / busy['graph']:.3f} of the graph step's device busy time"
+                 if busy.get("graph") else "its share not measured")
+        print(f"[profile] masked attention (the plain path): {masked[0].count / args.steps:.1f} "
+              f"calls/token, {m_ms:.3f} ms/token of device time (its kernels, eager step), "
+              f"{share}")
 
     def host_us(fn, n=320) -> float:
         """Host time of one call, the device's drain excluded."""

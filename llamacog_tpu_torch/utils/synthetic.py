@@ -136,9 +136,22 @@ def _use_more_bits(i: int, n: int) -> bool:
 
 
 def shared_ff(cfg: ModelConfig) -> int:
-    """The shared expert's width: its own key (qwen2moe), or deepseek2's
-    n_expert_shared experts side by side."""
+    """The shared expert's width: its own key (qwen2moe), deepseek2's
+    n_expert_shared experts side by side, or llama4's one shared expert of
+    the routed experts' width (llama.cpp's llama4 tensors: ffn_*_shexp of
+    n_ff_exp rows; its GGUF has no expert_shared_count)."""
+    if cfg.arch == "llama4":
+        return cfg.n_ff_exp
     return cfg.n_ff_shexp or cfg.n_ff_exp * cfg.n_expert_shared
+
+
+def moe_layer(cfg: ModelConfig, il: int) -> bool:
+    """Whether layer il routes experts: past deepseek2's leading dense
+    layers, and under llama4's interleave (the GGUF key
+    interleave_moe_layer_step: only the layers with (il + 1) % step == 0,
+    the others dense of feed_forward_length, as Llama-4-Maverick's file)."""
+    step = int(cfg.metadata.get(f"{cfg.arch}.interleave_moe_layer_step", 1) or 1)
+    return cfg.n_expert > 0 and il >= cfg.n_layer_dense_lead and (il + 1) % step == 0
 
 
 def tensor_kinds(cfg: ModelConfig, ftype: str = "Q4_K_M", imatrix: bool = False) -> dict:
@@ -152,8 +165,8 @@ def tensor_kinds(cfg: ModelConfig, ftype: str = "Q4_K_M", imatrix: bool = False)
     q/k/v (Q5_K under Q4_K_M); an FFN without a gate (_UNGATED_ARCHES) has
     no ffn_gate; deepseek2's MLA layers have
     attn_q (or the q LoRA's attn_q_a and attn_q_b), attn_kv_a_mqa and
-    attn_kv_b, which no rule names, and its leading dense layers the dense
-    FFN's. Unfused, by the GGUF
+    attn_kv_b, which no rule names, and its leading dense layers (and
+    llama4's interleaved ones, moe_layer) the dense FFN's. Unfused, by the GGUF
     tensor names. A tied embedding (cfg.tie_word_embeddings) takes the
     output tensor's rule, as in llama.cpp; "output" is then the kind of
     that table. Each kind is fitted to its row length (fit_kind)."""
@@ -201,7 +214,7 @@ def tensor_kinds(cfg: ModelConfig, ftype: str = "Q4_K_M", imatrix: bool = False)
                 out = {"Q2_K": "Q3_K", "Q3_K_M": "Q4_K", "Q3_K_L": "Q5_K", "IQ3_XXS": "IQ3_S",
                        "IQ3_M": "Q4_K"}.get(ftype, base)
         E, q_width = cfg.n_embd, cfg.n_head * cfg.head_dim_v
-        moe = n_exp > 0 and il >= cfg.n_layer_dense_lead  # deepseek2 leads with dense layers
+        moe = moe_layer(cfg, il)
         f_down = (cfg.n_ff_exp or cfg.n_ff) if moe else cfg.n_ff
         lk = {"attn_q": fit_kind(q, E), "attn_k": fit_kind(k, E), "attn_v": fit_kind(v, E),
               "attn_output": fit_kind(out, q_width), "ffn_gate": fit_kind(base, E),
@@ -597,6 +610,106 @@ def gptj_6b_config(n_layer: int = 28) -> ModelConfig:
         rope=RopeConfig(dim=64, freq_base=10000.0))
 
 
+def llama4_scout_config(n_layer: int = 48) -> ModelConfig:
+    """Llama-4-Scout-17B-16E (meta-llama/Llama-4-Scout-17B-16E-Instruct
+    config.json, text_config: 48 layers, hidden 5120, 40 query heads over 8
+    kv heads of 128, 16 routed experts (top 1, sigmoid) of intermediate_size
+    8192 beside one shared expert of the same width, interleave_moe_layer_step
+    1 (every layer MoE), intermediate_size_mlp 16384 (the dense FFN width,
+    unused here), vocab 202048, rope theta 5e5, rms eps 1e-5, attention
+    chunk 8192, use_qk_norm, attention temperature floor 8192 / scale 0.1,
+    untied). The defaults llama4 gets (config.py): chunked attention on 3 of
+    every 4 layers, the 4th a NoPE layer. Its llama3 rope scaling (factor 16
+    over 8192 original positions, the rope_freqs tensor of a converted file)
+    is left out, as for the 8B; `n_layer` cuts depth only."""
+    return _family_config(
+        "llama4", n_vocab=202048, n_ctx_train=10485760, n_embd=5120, n_layer=n_layer,
+        n_head=40, n_head_kv=8, n_ff=16384, head_dim_k=128, head_dim_v=128, rms_norm_eps=1e-5,
+        n_expert=16, n_expert_used=1, n_ff_exp=8192, rope=RopeConfig(dim=128, freq_base=5e5))
+
+
+def granite_3_1_8b_config(n_layer: int = 40) -> ModelConfig:
+    """Granite-3.1-8B (ibm-granite/granite-3.1-8b-instruct config.json: 40
+    layers, hidden 4096, 32 query heads over 8 kv heads of 128, intermediate
+    12800, vocab 49155, rope theta 1e7, rms eps 1e-5, tied embeddings;
+    embedding_multiplier 12, residual_multiplier 0.22, attention_multiplier
+    1/128, logits_scaling 16, written as the GGUF keys embedding_scale,
+    residual_scale, attention.scale and logit_scale, which config.py turns
+    into a divisor); `n_layer` cuts depth only."""
+    return _family_config(
+        "granite", n_vocab=49155, n_ctx_train=131072, n_embd=4096, n_layer=n_layer,
+        n_head=32, n_head_kv=8, n_ff=12800, head_dim_k=128, head_dim_v=128, rms_norm_eps=1e-5,
+        embd_scale=12.0, residual_scale=0.22, attn_scale=1.0 / 128, logit_scale=16.0,
+        rope=RopeConfig(dim=128, freq_base=1e7), tie_word_embeddings=True)
+
+
+def granite_3_1_3b_a800m_config(n_layer: int = 32) -> ModelConfig:
+    """Granite-3.1-3B-A800M (ibm-granite/granite-3.1-3b-a800m-instruct
+    config.json: 32 layers, hidden 1536, 24 query heads over 8 kv heads of
+    64, 40 experts (top 8, softmax) of intermediate 512, vocab 49155, rope
+    theta 1e7, rms eps 1e-6, tied; multipliers 12 / 0.22 / attention 1/64,
+    logits_scaling 6). A converted file has no expert_weights_norm key, so both packages
+    route with unnormalized top-k weights (ROADMAP §3.14); `n_layer` cuts
+    depth only."""
+    return _family_config(
+        "granitemoe", n_vocab=49155, n_ctx_train=131072, n_embd=1536, n_layer=n_layer,
+        n_head=24, n_head_kv=8, n_ff=512, head_dim_k=64, head_dim_v=64, rms_norm_eps=1e-6,
+        n_expert=40, n_expert_used=8, n_ff_exp=512, embd_scale=12.0, residual_scale=0.22,
+        attn_scale=1.0 / 64, logit_scale=6.0, rope=RopeConfig(dim=64, freq_base=1e7),
+        tie_word_embeddings=True)
+
+
+def olmoe_1b_7b_config(n_layer: int = 16) -> ModelConfig:
+    """OLMoE-1B-7B (allenai/OLMoE-1B-7B-0924 config.json: 16 layers, hidden
+    2048, 16 heads of 128 (no GQA), 64 experts (top 8, softmax,
+    norm_topk_prob false) of intermediate 1024, vocab 50304, rope theta
+    10000, rms eps 1e-5, q/k norms over the whole projection, untied);
+    `n_layer` cuts depth only."""
+    return _family_config(
+        "olmoe", {"olmoe.expert_weights_norm": False}, n_vocab=50304, n_ctx_train=4096,
+        n_embd=2048, n_layer=n_layer, n_head=16, n_head_kv=16, n_ff=1024, head_dim_k=128,
+        head_dim_v=128, rms_norm_eps=1e-5, n_expert=64, n_expert_used=8, n_ff_exp=1024,
+        rope=RopeConfig(dim=128, freq_base=10000.0))
+
+
+def olmo2_7b_config(n_layer: int = 32) -> ModelConfig:
+    """OLMo-2-7B (allenai/OLMo-2-1124-7B config.json: 32 layers, hidden
+    4096, 32 heads of 128 (no GQA), intermediate 11008, vocab 100352, rope
+    theta 5e5, rms eps 1e-6, untied; no pre-norms: the attention and FFN
+    outputs normed, q/k norms over the whole projection); `n_layer` cuts
+    depth only."""
+    return _family_config(
+        "olmo2", n_vocab=100352, n_ctx_train=4096, n_embd=4096, n_layer=n_layer, n_head=32,
+        n_head_kv=32, n_ff=11008, head_dim_k=128, head_dim_v=128, rms_norm_eps=1e-6,
+        rope=RopeConfig(dim=128, freq_base=5e5))
+
+
+def olmo_7b_config(n_layer: int = 32) -> ModelConfig:
+    """OLMo-7B (allenai/OLMo-7B-0424-hf config.json: 32 layers, hidden 4096,
+    32 heads of 128 (no GQA), intermediate 11008, vocab 50304, rope theta
+    10000, clip_qkv 8 (the GGUF's attention.clamp_kqv), untied; the layer
+    norms carry no weight or bias); `n_layer` cuts depth only."""
+    return _family_config(
+        "olmo", n_vocab=50304, n_ctx_train=4096, n_embd=4096, n_layer=n_layer, n_head=32,
+        n_head_kv=32, n_ff=11008, head_dim_k=128, head_dim_v=128, norm_eps=1e-5,
+        attn_clamp=8.0, rope=RopeConfig(dim=128, freq_base=10000.0))
+
+
+def minicpm_2b_config(n_layer: int = 40) -> ModelConfig:
+    """MiniCPM-2B (openbmb/MiniCPM-2B-sft-bf16 config.json: 40 layers, hidden
+    2304, 36 heads of 64 (no GQA), intermediate 5760 (its ffn_down rows take
+    the 32-weight-block fallback), vocab 122753, rope theta 10000, rms eps
+    1e-5, tied; scale_emb 12, scale_depth 1.4, dim_model_base 256, which
+    a converted file leaves to minicpm's defaults in config.py: embedding x
+    12, residual x 1.4 / sqrt(40), logits x 256 / 2304); `n_layer` cuts depth
+    only (the residual scale takes the cut depth, as a file of that depth
+    would)."""
+    return _family_config(
+        "minicpm", n_vocab=122753, n_ctx_train=4096, n_embd=2304, n_layer=n_layer, n_head=36,
+        n_head_kv=36, n_ff=5760, head_dim_k=64, head_dim_v=64, rms_norm_eps=1e-5,
+        rope=RopeConfig(dim=64, freq_base=10000.0), tie_word_embeddings=True)
+
+
 # every synthetic configuration by the name the tools take (--model)
 CONFIGS = {"llama3-8b": llama3_8b_config, "llama3-70b": llama3_70b_config,
            "mixtral-8x7b": mixtral_8x7b_config, "qwen2.5-7b": qwen2_5_7b_config,
@@ -610,7 +723,11 @@ CONFIGS = {"llama3-8b": llama3_8b_config, "llama3-70b": llama3_70b_config,
            "phi2": phi2_config, "falcon-7b": falcon_7b_config, "falcon-40b": falcon_40b_config,
            "gpt2": gpt2_config, "stablelm-2-1.6b": stablelm2_1_6b_config,
            "starcoder2-7b": starcoder2_7b_config, "starcoderbase-7b": starcoderbase_7b_config,
-           "pythia-6.9b": pythia_6_9b_config, "gpt-j-6b": gptj_6b_config}
+           "pythia-6.9b": pythia_6_9b_config, "gpt-j-6b": gptj_6b_config,
+           "llama4-scout": llama4_scout_config, "granite-3.1-8b": granite_3_1_8b_config,
+           "granite-3.1-3b-a800m": granite_3_1_3b_a800m_config,
+           "olmoe-1b-7b": olmoe_1b_7b_config, "olmo2-7b": olmo2_7b_config,
+           "olmo-7b": olmo_7b_config, "minicpm-2b": minicpm_2b_config}
 # the families whose files carry q/k/v biases, and per-head q/k norms
 _QKV_BIAS_ARCHES = ("qwen2", "qwen2moe", "stablelm", "starcoder2")
 _QK_NORM_ARCHES = ("qwen3", "qwen3moe", "gemma3")
@@ -644,7 +761,10 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
     importance matrix if `imatrix`), or laid out as DEFAULT_LAYOUT
     (layout_kinds), for the forward, on `device`, fused as the loader fuses
     such a file (convert.py: q/k/v of one kind fuse with their biases; q+k
-    fuse unless q carries a bias or a norm; phi3's attn_qkv and its ffn_up
+    fuse unless q carries a bias or a norm; neither under olmo2's and
+    olmoe's q/k norms over the whole projection, which are ones of the
+    projections' widths; olmo has no norm tensor, olmo2 no attn_norm or
+    ffn_norm; phi3's attn_qkv and its ffn_up
     of 2 x n_ff rows, which is ffn_gate_up; the fused attn_qkv of
     _FUSED_QKV_ARCHES). Norm weights are ones (and a parallel-residual arch
     has no ffn_norm, its FFN reading the attention's input norm, but
@@ -659,6 +779,7 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
     E = cfg.n_embd
     kv = cfg.n_head_kv * cfg.head_dim_k
     bias, qk_norm = cfg.arch in _QKV_BIAS_ARCHES, cfg.arch in _QK_NORM_ARCHES
+    qk_full = cfg.qk_norm_full  # olmo2, olmoe: q and k apart, each normed whole
     biased = _BIASES.get(cfg.arch, ())
 
     def ones(n):
@@ -668,6 +789,8 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
         return torch.randn(shape, generator=g, device=dev) * 0.02
 
     def norm(tensors, key, n):
+        if cfg.nonparam_norms:  # olmo's file has no norm tensor at all
+            return
         tensors[key] = ones(n)
         if cfg.arch in _NORM_BIAS_ARCHES:
             tensors[key + "_b"] = small(n)
@@ -692,10 +815,11 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
         params["rope_long"] = torch.linspace(1.0, 40.0, half, device=dev)
     for il, lk in enumerate(kinds["layers"]):
         layer: dict = {}
-        norm(layer, "attn_norm", E)
+        if not cfg.post_norm_only:  # olmo2 norms the branch outputs only
+            norm(layer, "attn_norm", E)
         if cfg.arch == "falcon" and cfg.n_head_kv > 1:  # falcon-40B's second norm
             norm(layer, "attn_norm_2", E)
-        if not cfg.parallel_residual or cfg.arch == "gptneox":
+        if (not cfg.parallel_residual or cfg.arch == "gptneox") and not cfg.post_norm_only:
             norm(layer, "ffn_norm", E)
         rows = {"attn_q": cfg.n_head * cfg.head_dim_k, "attn_k": kv,
                 "attn_v": cfg.n_head_kv * cfg.head_dim_v}
@@ -715,11 +839,11 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
                 lk["attn_kv_b"], cfg.n_head * (Dk - r + cfg.head_dim_v), cfg.n_lora_kv, g, dev)
         elif "attn_qkv" in lk:
             product(layer, "attn_qkv", lk["attn_qkv"], sum(rows.values()), E)
-        elif lk["attn_q"] == lk["attn_k"] == lk["attn_v"]:
+        elif lk["attn_q"] == lk["attn_k"] == lk["attn_v"] and not qk_full:
             layer["attn_qkv"] = random_wire(lk["attn_q"], sum(rows.values()), E, g, dev)
             if bias:
                 layer["attn_qkv_b"] = small(sum(rows.values()))
-        elif lk["attn_q"] == lk["attn_k"] and not (bias or qk_norm):
+        elif lk["attn_q"] == lk["attn_k"] and not (bias or qk_norm or qk_full):
             layer["attn_qk"] = random_wire(lk["attn_q"], rows["attn_q"] + kv, E, g, dev)
             layer["attn_v"] = random_wire(lk["attn_v"], rows["attn_v"], E, g, dev)
         else:
@@ -729,17 +853,19 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
                     layer[key + "_b"] = small(n)
         if qk_norm:
             layer["attn_q_norm"], layer["attn_k_norm"] = ones(cfg.head_dim_k), ones(cfg.head_dim_k)
+        elif qk_full:
+            layer["attn_q_norm"], layer["attn_k_norm"] = ones(rows["attn_q"]), ones(kv)
         product(layer, "attn_output", lk["attn_output"], E, cfg.n_head * cfg.head_dim_v)
         if cfg.post_norms:
             layer["attn_post_norm"], layer["ffn_post_norm"] = ones(E), ones(E)
-        if cfg.n_expert > 0 and il >= cfg.n_layer_dense_lead:
+        if moe_layer(cfg, il):
             n_exp, F = cfg.n_expert, cfg.n_ff_exp or cfg.n_ff
             layer["ffn_gate_inp"] = small(n_exp, E)
             layer["ffn_gate_up_exps"] = random_experts(lk["ffn_gate"], n_exp, 2 * F, E, g, dev)
             layer["ffn_down_exps"] = random_experts(lk["ffn_down"], n_exp, E, F, g, dev)
             fs = shared_ff(cfg)
             if fs:
-                if cfg.arch == "qwen2moe":  # deepseek2's shared experts have no gate
+                if cfg.arch == "qwen2moe":  # deepseek2's and llama4's have no gate
                     layer["ffn_gate_inp_shexp"] = small(1, E)
                 layer["ffn_gate_shexp"] = random_wire(lk["ffn_gate_shexp"], fs, E, g, dev)
                 layer["ffn_up_shexp"] = random_wire(lk["ffn_up_shexp"], fs, E, g, dev)

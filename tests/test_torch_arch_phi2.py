@@ -145,8 +145,8 @@ def test_cli_runs_phi2(phi2_file, capsys):
 
 
 # the archs that stay refused, each by its own name (none is admitted)
-REFUSED_ARCHES = ("bloom", "mpt", "refact", "olmo", "olmo2", "granite", "nemotron", "dbrx",
-                  "chameleon", "llama4")
+REFUSED_ARCHES = ("bloom", "mpt", "refact", "jais", "nemotron", "dbrx", "chameleon", "arctic",
+                  "grok", "phimoe")
 # the features refused on an admitted arch, each set on a config that is
 # admitted without it (the layer-norm families', and Llama-3's)
 REFUSED_FEATURES = (("phi2", "use_alibi", True, "ALiBi"),

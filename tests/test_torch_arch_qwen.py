@@ -35,13 +35,25 @@ TOL = 1e-4  # of max |logit|: f32 models, summation order alone
 PROMPT = [(i * 37) % 250 + 3 for i in range(12)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch ops on one thread: its models are a few hundred
+    wide, so more threads buy nothing, and under the test runner's parallel
+    workers they contend for the cores (the previous count is restored)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, n_head_kv=2,
                head_dim=None, n_ff=128, qkv_bias=False, qk_norm=False, post_norms=False,
                tied=False, n_expert=0, n_expert_used=0, n_ff_exp=None, shexp_ff=0,
                shexp_gate=False, kind=None, metadata=None, seed=0, norm_bias=False,
                ffn_norm=True, fused_qkv=False, fused_up=False, mla=None, dense_lead=0,
                probs_bias=False, rope_factors=None, extra_tensors=None, ffn_gate=True,
-               biases=(), n_pos=0, attn_norm_2=False) -> str:
+               biases=(), n_pos=0, attn_norm_2=False, attn_norm=True, norms=True,
+               moe_step=0) -> str:
     """A tiny random GGUF of `arch` with llama.cpp's tensor names. `kind`
     maps a tensor name to its GGMLType (None: F32); norms, biases and the
     routers stay F32, as llama.cpp keeps them. Norm weights are drawn near
@@ -58,7 +70,10 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
     products among attn_qkv, attn_output, ffn_up, ffn_down and output that
     carry a bias), `n_pos` (rows of learned positions, position_embd.weight,
     of the kind `kind` gives it) and `attn_norm_2` (falcon-40B's second
-    norm)."""
+    norm); and `norms=False` (olmo: no norm tensor at all), `attn_norm=False`
+    (olmo2: no pre-norms), `qk_norm="full"` (olmo2, olmoe: q/k norms over the
+    whole projection) and `moe_step` (llama4's interleave: MoE only in the
+    layers il with (il + 1) % moe_step == 0, the others dense)."""
     rng = np.random.default_rng(seed)
     hd = head_dim or n_embd // n_head
     hd_k = hd_v = hd
@@ -102,6 +117,8 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
         return (rng.standard_normal(shape) * s).astype(np.float32)
 
     def norm(name, *shape):
+        if not norms:
+            return
         w.add_tensor(name + ".weight", (1.0 + rand(*shape, s=0.1)).astype(np.float32))
         if norm_bias:
             w.add_tensor(name + ".bias", rand(*shape, s=0.1))
@@ -129,7 +146,8 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
             w.add_tensor(f"rope_factors_{name}.weight", np.asarray(table, np.float32))
     for il in range(n_layer):
         p = f"blk.{il}."
-        norm(p + "attn_norm", n_embd)
+        if attn_norm:
+            norm(p + "attn_norm", n_embd)
         if attn_norm_2:
             norm(p + "attn_norm_2", n_embd)
         if mla:
@@ -155,6 +173,9 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
         if qk_norm == "head":
             norm(p + "attn_q_norm", n_head, hd)
             norm(p + "attn_k_norm", n_head_kv, hd)
+        elif qk_norm == "full":
+            norm(p + "attn_q_norm", n_head * hd)
+            norm(p + "attn_k_norm", n_head_kv * hd)
         elif qk_norm:
             norm(p + "attn_q_norm", hd)
             norm(p + "attn_k_norm", hd)
@@ -165,7 +186,7 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
             norm(p + "post_ffw_norm", n_embd)
         if ffn_norm:
             norm(p + "ffn_norm", n_embd)
-        if n_expert and il >= dense_lead:
+        if n_expert and il >= dense_lead and (not moe_step or (il + 1) % moe_step == 0):
             w.add_tensor(p + "ffn_gate_inp.weight", rand(n_expert, n_embd, s=0.5))
             if probs_bias:
                 w.add_tensor(p + "exp_probs_b.bias", rand(n_expert, s=0.5))
@@ -203,12 +224,25 @@ def q4_k_m_kinds(name: str):
     return GGMLType.Q4_K
 
 
+# one JAX engine per (file, engine settings) in a test process, reset before
+# each use: its jitted steps compile once (a new engine compiles its own,
+# most of a check's time here); reset empties it (every row at length 0: the
+# cache's old contents are never attended)
+_JAX_ENGINES = {}
+
+
 def load_both(path, **engine):
-    """(JAX engine, port engine) of the file as f32 models on the CPU."""
-    ref = jax_load_model(path, with_tokenizer=False, dtype=jnp.float32)
+    """(empty JAX engine, port engine, port model) of the file as f32 models
+    on the CPU."""
+    key = (path, tuple(sorted(engine.items())))
+    if key not in _JAX_ENGINES:
+        ref = jax_load_model(path, with_tokenizer=False, dtype=jnp.float32)
+        _JAX_ENGINES[key] = JaxEngine(ref.params, ref.config, dtype=jnp.float32, **engine)
+    jeng = _JAX_ENGINES[key]
+    jeng.reset()
     got = load_model(path, dtype=torch.float32, device="cpu", with_tokenizer=False)
-    return (JaxEngine(ref.params, ref.config, dtype=jnp.float32, **engine),
-            Engine(got.params, got.config, dtype=torch.float32, device="cpu", **engine), got)
+    return (jeng, Engine(got.params, got.config, dtype=torch.float32, device="cpu", **engine),
+            got)
 
 
 def check_same_run(path, kv_type="dense", prompt=PROMPT, n_decode=N_DECODE, max_seq=256):
@@ -290,7 +324,7 @@ def test_qwen3moe_routing_without_the_norm_key(tmp_path):
 
 def test_unported_archs_and_features_raise_by_name():
     base = synthetic.qwen3_8b_config(n_layer=2)
-    for arch in ("bloom", "mpt", "olmo", "llama4"):
+    for arch in ("bloom", "mpt", "nemotron", "dbrx"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             Engine({"layers": []}, ModelConfig(**{**base.__dict__, "arch": arch}),
                    device="cpu")

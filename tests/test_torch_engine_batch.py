@@ -57,6 +57,17 @@ MAX_SEQ = 64
 QUANT_STEP = {"q8_0": 1 / 127, "q4_0": 1 / 8}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch ops on one thread: its models are a few hundred
+    wide, so more threads buy nothing, and under the test runner's parallel
+    workers they contend for the cores (the previous count is restored)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def _bf16_old_planes(monkeypatch):
     """The port's plain K7 with the old planes' dequant rounded to bf16
@@ -90,19 +101,94 @@ def ggufs(tmp_path_factory):
     return {"q4k": q4k, "moe": moe}
 
 
-def _engines(path, kv_type="dense", batch=B, max_seq=MAX_SEQ):
-    import jax.numpy as jnp
+# one JAX engine per (file, cache kind, rows, max_seq) for the module, reset
+# before each use: its jitted steps compile once (a new engine compiles its
+# own); reset empties it (every row at length 0: the cache's old contents
+# are never attended)
+_JAX_ENGINES = {}
 
-    from llamacog_tpu.models.loader import load_model as jax_load_model
-    from llamacog_tpu.runtime.engine import Engine as JaxEngine
 
-    m = jax_load_model(path, with_tokenizer=False, dtype=jnp.float32)
-    ref = JaxEngine(m.params, m.config, batch_size=batch, max_seq=max_seq,
-                    dtype=jnp.float32, kv_type=kv_type)
+def _jax_engine(path, kv_type="dense", batch=B, max_seq=MAX_SEQ):
+    key = (path, kv_type, batch, max_seq)
+    if key not in _JAX_ENGINES:
+        import jax.numpy as jnp
+
+        from llamacog_tpu.models.loader import load_model as jax_load_model
+        from llamacog_tpu.runtime.engine import Engine as JaxEngine
+
+        m = jax_load_model(path, with_tokenizer=False, dtype=jnp.float32)
+        _JAX_ENGINES[key] = JaxEngine(m.params, m.config, batch_size=batch, max_seq=max_seq,
+                                      dtype=jnp.float32, kv_type=kv_type)
+    ref = _JAX_ENGINES[key]
+    ref.reset()
+    return ref
+
+
+def _port_engine(path, kv_type="dense", batch=B, max_seq=MAX_SEQ):
     m = load_model(path, dtype=torch.float32, device="cpu", with_tokenizer=False)
-    eng = Engine(m.params, m.config, batch_size=batch, max_seq=max_seq, dtype=torch.float32,
-                 kv_type=kv_type, device="cpu")
-    return ref, eng
+    return Engine(m.params, m.config, batch_size=batch, max_seq=max_seq, dtype=torch.float32,
+                  kv_type=kv_type, device="cpu")
+
+
+def _engines(path, kv_type="dense", batch=B, max_seq=MAX_SEQ):
+    return _jax_engine(path, kv_type, batch, max_seq), _port_engine(path, kv_type, batch, max_seq)
+
+
+class _JaxSide:
+    """The JAX engine's side of _scenario: each engine call's result, and the
+    lengths and caches each cache check reads, recorded on the first run of
+    a (file, cache kind) and replayed in a later test that makes the same
+    calls. The JAX calls' arguments come from the JAX outputs alone, never
+    from the port's, so a second run would compute the same numbers again."""
+
+    def __init__(self, engine=None, log=None):
+        self.engine, self.recording = engine, log is None
+        self.log, self.at = ([] if log is None else log), 0
+
+    def _next(self, what):
+        got, out = self.log[self.at]
+        self.at += 1
+        assert got == what, (got, what)
+        return out
+
+    def __getattr__(self, name):  # the engine calls _scenario makes
+        def call(*a, **kw):
+            if not self.recording:
+                return self._next(name)
+            out = getattr(self.engine, name)(*a, **kw)
+            out = None if out is None else np.array(out)
+            self.log.append((name, out))
+            return out
+        return call
+
+    def state(self):
+        if not self.recording:
+            return self._next("state")
+        out = (np.asarray(self.engine.seq_len).copy(), _jax_caches(self.engine))
+        self.log.append(("state", out))
+        return out
+
+
+# the recorded JAX side of each (file, cache kind) whose _scenario ran to
+# its end in this module
+_SCENARIOS = {}
+
+
+def _scenario_engines(ggufs, model, kv_type):
+    """(JAX side, port engine) for _scenario: the JAX side replayed where an
+    earlier test of the module ran the same scenario to its end, else
+    recorded from a fresh JAX engine."""
+    log = _SCENARIOS.get((model, kv_type))
+    ref = (_JaxSide(log=log) if log is not None
+           else _JaxSide(engine=_jax_engine(ggufs[model], kv_type)))
+    return ref, _port_engine(ggufs[model], kv_type)
+
+
+def _run_scenario(ggufs, model, kv_type, *tols):
+    ref, eng = _scenario_engines(ggufs, model, kv_type)
+    _scenario(ref, eng, kv_type, *tols)
+    if ref.recording:
+        _SCENARIOS[(model, kv_type)] = ref.log
 
 
 def _close(got, want, what, tol=LOGITS_TOL):
@@ -112,22 +198,35 @@ def _close(got, want, what, tol=LOGITS_TOL):
     assert err <= tol, f"{what}: max err {err:.3e} of max |logit|"
 
 
-def _caches(ref, eng):
-    """Both caches as f32 numpy [(k, v)] of shape [L, B, S, Hkv, D]."""
+def _jax_caches(ref):
+    """The JAX engine's cache as f32 numpy (k, v) of shape [L, B, S, Hkv, D]."""
     import jax.numpy as jnp
 
-    c, r = eng.cache, ref.cache
-    if isinstance(c, QuantKVCache):
-        got = (c.dequant_k(c.k_planes, torch.float32), c.dequant_v(c.v_planes, torch.float32))
+    r = ref.cache
+    if hasattr(r, "k_planes"):
         want = (r.dequant_k(r.k_planes, jnp.float32), r.dequant_v(r.v_planes, jnp.float32))
     else:
-        got, want = (c.k, c.v), (r.k, r.v)
-    return [(np.asarray(g, np.float32), np.asarray(w, np.float32)) for g, w in zip(got, want)]
+        want = (r.k, r.v)
+    return tuple(np.asarray(w, np.float32) for w in want)
+
+
+def _caches(ref, eng):
+    """Both caches as f32 numpy [(k, v)] of shape [L, B, S, Hkv, D], and the
+    JAX engine's lengths (through the recorder for a _JaxSide)."""
+    c = eng.cache
+    if isinstance(c, QuantKVCache):
+        got = (c.dequant_k(c.k_planes, torch.float32), c.dequant_v(c.v_planes, torch.float32))
+    else:
+        got = (c.k, c.v)
+    lens, want = (ref.state() if isinstance(ref, _JaxSide)
+                  else (np.asarray(ref.seq_len).copy(), _jax_caches(ref)))
+    return lens, [(np.asarray(g, np.float32), w) for g, w in zip(got, want)]
 
 
 def _check_caches(ref, eng, kv_type, rows=range(B), moved=0.01):
-    np.testing.assert_array_equal(eng.seq_len, ref.seq_len)
-    for got, want in _caches(ref, eng):
+    lens, caches = _caches(ref, eng)
+    np.testing.assert_array_equal(eng.seq_len, lens)
+    for got, want in caches:
         for b in rows:
             n = int(eng.seq_len[b])
             g, w = got[:, b, :n], want[:, b, :n]
@@ -197,17 +296,17 @@ def _scenario(ref, eng, kv_type, old_tol=LOGITS_TOL, old_moved=0.01):
 @pytest.mark.parametrize("model,kv_type", [("q4k", "dense"), ("q4k", "q8_0"),
                                            ("q4k", "q4_0"), ("moe", "dense")])
 def test_row_calls_match_jax(ggufs, model, kv_type, _bf16_old_planes):
-    ref, eng = _engines(ggufs[model], kv_type)
-    _scenario(ref, eng, kv_type)
+    _run_scenario(ggufs, model, kv_type)
 
 
 @pytest.mark.parametrize("kv_type", ["q8_0", "q4_0"])
 def test_row_calls_match_jax_with_f32_old_planes(ggufs, kv_type):
     """The same calls with the port's plain K7 as it ships (the old planes
     in f32): equal to the JAX engine's within LOGITS_TOL up to the first
-    prefill chunk over old quantized planes, within OLD_PLANES_TOL after."""
-    ref, eng = _engines(ggufs["q4k"], kv_type)
-    _scenario(ref, eng, kv_type, OLD_PLANES_TOL, OLD_PLANES_MOVED)
+    prefill chunk over old quantized planes, within OLD_PLANES_TOL after.
+    The JAX side's calls are those of test_row_calls_match_jax's case of
+    the same cache kind: replayed from that run where it ran first."""
+    _run_scenario(ggufs, "q4k", kv_type, OLD_PLANES_TOL, OLD_PLANES_MOVED)
 
 
 @pytest.mark.parametrize("kv_type", ["dense", "q8_0"])
@@ -254,7 +353,7 @@ def test_row_prefill_costs_one_row(ggufs, monkeypatch):
     times) and leaves the other rows' caches untouched."""
     from llamacog_tpu_torch.runtime import engine as engine_mod
 
-    _, eng = _engines(ggufs["q4k"])
+    eng = _port_engine(ggufs["q4k"])
     eng.prefill(PROMPTS[0], row=0)
     shapes = []
     real = engine_mod.forward

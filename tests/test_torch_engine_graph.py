@@ -30,6 +30,17 @@ PROMPT2 = [11, 23, 5, 140]
 LOGITS_TOL = dict(atol=2e-3, rtol=1e-3)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch ops on one thread: its models are a few hundred
+    wide, so more threads buy nothing, and under the test runner's parallel
+    workers they contend for the cores (the previous count is restored)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def ggufs(tmp_path_factory):
     from llamacog_tpu.gguf import GGMLType
@@ -48,16 +59,33 @@ def ggufs(tmp_path_factory):
     return {"q4km": q4km, "moe": moe}
 
 
+# one JAX engine per (file, cache kind, max_seq) for the module, reset before
+# each use: its jitted steps compile once (a new engine compiles its own,
+# most of a test's time here); reset empties it (every row at length 0: the
+# cache's old contents are never attended)
+_JAX_ENGINES = {}
+
+
+def _jax_engine(path, kv_type="dense", max_seq=512):
+    key = (path, kv_type, max_seq)
+    if key not in _JAX_ENGINES:
+        import jax.numpy as jnp
+
+        from llamacog_tpu.models.loader import load_model as jax_load_model
+        from llamacog_tpu.runtime.engine import Engine as JaxEngine
+
+        m = jax_load_model(path, with_tokenizer=False, dtype=jnp.float32)
+        _JAX_ENGINES[key] = JaxEngine(m.params, m.config, batch_size=1, max_seq=max_seq,
+                                      dtype=jnp.float32, kv_type=kv_type)
+    ref = _JAX_ENGINES[key]
+    ref.reset()
+    return ref
+
+
 def _engines(path, kv_type="dense", max_seq=512):
-    """The JAX engine and the port's, f32 on the CPU, on the same GGUF."""
-    import jax.numpy as jnp
-
-    from llamacog_tpu.models.loader import load_model as jax_load_model
-    from llamacog_tpu.runtime.engine import Engine as JaxEngine
-
-    m = jax_load_model(path, with_tokenizer=False, dtype=jnp.float32)
-    ref = JaxEngine(m.params, m.config, batch_size=1, max_seq=max_seq, dtype=jnp.float32,
-                    kv_type=kv_type)
+    """The JAX engine (empty; _jax_engine) and the port's, f32 on the CPU,
+    on the same GGUF."""
+    ref = _jax_engine(path, kv_type, max_seq)
     m = load_model(path, dtype=torch.float32, device="cpu", with_tokenizer=False)
     eng = Engine(m.params, m.config, batch_size=1, max_seq=max_seq, dtype=torch.float32,
                  kv_type=kv_type, device="cpu")
@@ -111,7 +139,9 @@ def test_interleaved_decode_one_and_greedy_loops_match_jax(ggufs, kv_type):
 def test_decode_one_returns_a_copy(ggufs):
     """The logits decode_one returns do not change under later steps (the
     holder writes the next step's logits into the same buffer)."""
-    _, eng = _engines(ggufs["q4km"])
+    m = load_model(ggufs["q4km"], dtype=torch.float32, device="cpu", with_tokenizer=False)
+    eng = Engine(m.params, m.config, batch_size=1, max_seq=512, dtype=torch.float32,
+                 device="cpu")
     tok = int(np.argmax(eng.prefill(PROMPT)))
     first = eng.decode_one([tok])
     kept = first.copy()
@@ -221,3 +251,28 @@ def test_graph_tokens_equal_eager_and_launches_count_replays():
     assert captured["qmv"] > 0 and captured["flash_decode_dense"] == cfg.n_layer
     assert launches == {k: captured.get(k, 0) * 16 for k in build.LAUNCHES}
     assert launches == eager_launches
+
+
+@pytest.mark.cuda
+def test_scout_graph_equals_eager_through_the_masked_path():
+    """On the card: Llama-4-Scout's widths at 4 layers (a NoPE layer), 16
+    greedy tokens replayed from the captured step (the chunk masks built
+    from the write offsets on the device) equal the eager step's, and no
+    attention kernel launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA graph has no CPU mode")
+    from llamacog_tpu_torch.utils.synthetic import llama4_scout_config, make_synthetic_params
+
+    cfg = llama4_scout_config(n_layer=4)
+    eng = Engine(make_synthetic_params(cfg, seed=7), cfg, batch_size=1, max_seq=256)
+    prompt = [(i * 7919) % cfg.n_vocab for i in range(2, 22)]
+    runs = {}
+    for mode in ("graph", "eager"):
+        eng.reset()
+        first = int(eng.prefill(prompt).argmax())
+        build.reset_launches()
+        run = eng.decode_greedy_tokens if mode == "graph" else eng.decode_greedy_tokens_eager
+        runs[mode] = (run([first], 16), dict(build.LAUNCHES))
+    np.testing.assert_array_equal(runs["graph"][0], runs["eager"][0])
+    assert runs["graph"][1]["qmv_id"] > 0
+    assert not any(runs["graph"][1].get(k, 0) for k in build.LAUNCHES if k.startswith("flash"))

@@ -30,6 +30,17 @@ PROMPT = [3, 17, 9, 41, 200, 5, 77]
 N_DECODE = 8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch ops on one thread: its models are a few hundred
+    wide, so more threads buy nothing, and under the test runner's parallel
+    workers they contend for the cores (the previous count is restored)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def q4km_path(tmp_path_factory):
     d = tmp_path_factory.mktemp("q4km")
