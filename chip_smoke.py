@@ -195,6 +195,7 @@ public files are made).
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import statistics
@@ -263,6 +264,11 @@ LONG_PROMPT = 4096
 # cases of phase 3 (a row at depth 0, rows at their own depths)
 SERVING_SLOTS = 4
 SERVING_DEPTHS = (0, 100, 1000, 2047)
+# the batched MoE decodes of phase 5: Mixtral at 8 rows a step (16 (token,
+# slot) rows a product over 8 experts: K10 groups them by expert), and
+# Qwen3-30B-A3B at SERVING_SLOTS (32 over 128: a block per row)
+MIXTRAL_BATCH = 8
+MIXTRAL_BATCH_RUN = f"mixtral batch {MIXTRAL_BATCH}"
 # phase-5 runs whose decode also runs eagerly, in turns with the graph
 EAGER_TURNS = {("8b", "kv dense"), ("8b", "kv q8_0"), ("mixtral", "kv dense")}
 
@@ -324,13 +330,13 @@ def main() -> int:
         flash_decode_stacked_dense, flash_decode_stacked_dense_plain,
         flash_decode_stacked_plain, flash_prefill_q8, flash_prefill_q8_plain)
     from llamacog_tpu_torch.models import llama as llama_mod
-    from llamacog_tpu_torch.models.llama import _ffn_moe, moe_sort
+    from llamacog_tpu_torch.models.llama import _MOE_GATHER_MAX, _ffn_moe, moe_sort
     from llamacog_tpu_torch.ops.linear import qmatmul
     from llamacog_tpu_torch.ops.cuda.qmm import qgemm, qmm_plain, qmv
     from llamacog_tpu_torch.ops.cuda.qmm_i8 import (
         qmm_i8_kernel, qmm_i8_plain, qmm_i8_tile_rows, quantize_activations, quantize_kernel)
     from llamacog_tpu_torch.ops.cuda.qmm_id import (
-        RAGGED_TILE, qmm_gather, qmm_gather_offset, qmm_gather_plain, qmm_ragged,
+        RAGGED_TILE, gather_groups, qmm_gather, qmm_gather_offset, qmm_gather_plain, qmm_ragged,
         qmm_ragged_plain)
     from llamacog_tpu_torch.ops.linear import qmatmul_multi
     from llamacog_tpu_torch.quant.mmq import build_mmq_planes
@@ -1120,10 +1126,24 @@ def main() -> int:
     def expert_bytes(w, ids):
         return w.nbytes // n_exp * len(set(ids.tolist()))
 
+    def gather_launches(S, run=None):
+        """Where a K10 row at S rows over a Mixtral stack reads its launches:
+        rows grouped by expert (qmm_id.gather_groups) count as qmv_id_group
+        in the 8-row Mixtral run of phase 5, a block per row as qmv_id in
+        `run` (by default the Mixtral run)."""
+        if gather_groups(S, n_exp):
+            return {"counter": "qmv_id_group", "run": MIXTRAL_BATCH_RUN}
+        return {"counter": "qmv_id", "run": run}
+
+    # one token's rows (a block per row), 16 tokens' (grouped), and the
+    # 8-row Mixtral run's rows (8 tokens' top 2: grouped) on both stacks
     for label, w, tokens, fn, line in (
             ("qmv_id gather ffn_gate_up_exps Q4_K 8x28672x4096", moe_gu, 1, qmm_gather, 115),
+            ("qmv_id gather ffn_gate_up_exps Q4_K 8x28672x4096", moe_gu, 8, qmm_gather, 115),
             ("qmv_id gather ffn_gate_up_exps Q4_K 8x28672x4096", moe_gu, 16, qmm_gather, 115),
             ("qmv_id gather ffn_down_exps Q6_K 8x4096x14336", moe_d6, 1, qmm_gather, 115),
+            ("qmv_id gather ffn_down_exps Q6_K 8x4096x14336", moe_d6, 8, qmm_gather, 115),
+            ("qmv_id gather ffn_down_exps Q6_K 8x4096x14336", moe_d6, 16, qmm_gather, 115),
             ("qmv_id offset ffn_gate_up_exps Q4_K 8x28672x4096", moe_gu, 1, qmm_gather_offset,
              267)):
         ids = route(tokens)
@@ -1134,7 +1154,55 @@ def main() -> int:
         record(f"{label} S={S_rows}", qmm_src.format("qmv_id"), qid_rep.format(line), [out],
                [ref], TOL_QMM, time_ms(lambda: fn(x, ids, w)),
                time_ms(lambda: qmm_gather_plain(x, ids, w), iters=5),
-               expert_bytes(w, ids) + x.numel() * 2 + out.numel() * 4, 2 * S_rows * Nw * Kw)
+               expert_bytes(w, ids) + x.numel() * 2 + out.numel() * 4, 2 * S_rows * Nw * Kw,
+               **gather_launches(S_rows))
+    # the gather's grouping by expert under skewed routing: 32 rows on one
+    # expert (four passes of 8 over its bytes) and 32 on four, on both
+    # stacks; launches from the 8-row Mixtral run of phase 5 (16 rows a
+    # product, grouped)
+    for (stem, w), (label, ids) in itertools.product(
+            (("ffn_gate_up_exps Q4_K 8x28672x4096", moe_gu),
+             ("ffn_down_exps Q6_K 8x4096x14336", moe_d6)),
+            (("one expert", torch.full((32,), 5, dtype=torch.int32, device=dev)),
+             ("four experts", torch.arange(32, dtype=torch.int32, device=dev) % 4 * 2))):
+        (_, Nw, Kw) = w.shape
+        x = torch.randn(32, Kw, generator=g, device=dev).to(torch.bfloat16)
+        out, ref = qmm_gather(x, ids, w), qmm_gather_plain(x, ids, w)
+        torch.cuda.synchronize()
+        record(f"qmv_id gather {stem} S=32 {label}",
+               qmm_src.format("qmv_id"), qid_rep.format(115), [out], [ref], TOL_QMM,
+               time_ms(lambda: qmm_gather(x, ids, w)),
+               time_ms(lambda: qmm_gather_plain(x, ids, w), iters=5),
+               expert_bytes(w, ids) + x.numel() * 2 + out.numel() * 4,
+               2 * 32 * Nw * Kw, **gather_launches(32))
+    # a row's result does not depend on the rows beside it: each of 8 rows
+    # alone (a pass of one row) against the same row in a 32-row launch
+    ids = route(16)
+    x = torch.randn(32, E, generator=g, device=dev).to(torch.bfloat16)
+    full = qmm_gather(x, ids, moe_gu)
+    worst = max(rel_err(qmm_gather(x[s:s + 1].contiguous(), ids[s:s + 1].contiguous(),
+                                   moe_gu)[0], full[s]) for s in range(8))
+    check(worst <= 1e-6, f"qmv_id: a row alone differs from the same row in a 32-row launch "
+          f"by {worst:.3e} (relative)")
+    log(f"[parity] qmv_id row independence: 8 rows alone against a 32-row launch over "
+        f"{len(set(ids.tolist()))} experts, worst relative difference {worst:.3e} (limit 1e-6)")
+    # the f32 ragged route (an f32 model's prefill): the gather kernel over a
+    # 128-token prefill's expert-sorted, padded rows, a block per row; no
+    # phase-5 run drives an f32 model (phase 4's f32 cases do)
+    ids = route(PROMPT_LEN)
+    dest, tile_expert, s_pad = moe_sort(ids, n_exp, RAGGED_TILE)
+    rows = torch.randn(ids.shape[0], E, generator=g, device=dev)
+    xs = torch.zeros(s_pad, E, device=dev).index_copy_(0, dest, rows)
+    out = qmm_ragged(xs, tile_expert, moe_gu, RAGGED_TILE)
+    ref = qmm_ragged_plain(xs, tile_expert, moe_gu, RAGGED_TILE)
+    torch.cuda.synchronize()
+    record(f"qmv_id ragged f32 ffn_gate_up_exps Q4_K 8x28672x4096 tokens={PROMPT_LEN} "
+           f"s_pad={s_pad}", qmm_src.format("qmv_id"), qid_rep.format(188), [out], [ref],
+           TOL_QMM, time_ms(lambda: qmm_ragged(xs, tile_expert, moe_gu, RAGGED_TILE)),
+           time_ms(lambda: qmm_ragged_plain(xs, tile_expert, moe_gu, RAGGED_TILE), iters=5),
+           expert_bytes(moe_gu, ids) + ids.shape[0] * (E * 4 + 2 * Fm * 4),
+           2 * ids.shape[0] * 2 * Fm * E, peak=F32_FLOPS, listed=False)
+    del full, xs, rows, out, ref
     # the grouped GEMM of a 128-token prefill (256 rows sorted by expert,
     # each expert's padded to the model's token tile) and of a 512-token one
     # (1024 rows: several tiles an expert)
@@ -1185,7 +1253,7 @@ def main() -> int:
                        time_ms(lambda: fn(x, ids, w)),
                        time_ms(lambda: qmm_gather_plain(x, ids, w), iters=5),
                        expert_bytes(w, ids) + x.numel() * 2 + out.numel() * 4,
-                       2 * ids.shape[0] * Nw * Kw, run=run)
+                       2 * ids.shape[0] * Nw * Kw, **gather_launches(ids.shape[0], run))
             for tokens in (PROMPT_LEN, 512):
                 ids = route(tokens)
                 dest, tile_expert, s_pad = moe_sort(ids, n_exp, RAGGED_TILE)
@@ -2888,6 +2956,72 @@ def main() -> int:
     preset_runs = {f"8b {p}": preset_run("8b", cfg, p, exact_path)
                    for p in ("Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K_M", "IQ4_XS",
                              "IQ4_NL", "IQ3_XXS", "IQ3_M", "IQ2_M", *LOW_PRESET.values())}
+    def batched_moe_run(tag, params, cfgm, B, n_tok=64):
+        """A B-row decode of a MoE model through the graph: each step sends B
+        x top-k (token, slot) rows through K10, at most 32 (the gather
+        route's most: models/llama.py::_MOE_GATHER_MAX), so rows share
+        experts; the kernel groups them by expert where there are at least
+        twice as many rows as experts (qmm_id.gather_groups: Mixtral's 16 of
+        8, launches counted as qmv_id_group), else takes a block per row
+        (Qwen3-30B-A3B's 32 of 128, counted as qmv_id). B prompts of their
+        own lengths, one a row; each row's greedy tokens must equal the same
+        prompt's single-stream run. Returns the counted run's launches (the
+        rows' prefills and the decode)."""
+        t_run = time.perf_counter()
+        Vm, rows = cfgm.n_vocab, B * cfgm.n_expert_used
+        check(rows <= _MOE_GATHER_MAX, f"{tag}: {rows} rows a step are past the gather route")
+        grouped = gather_groups(rows, cfgm.n_expert)
+        kernel, other = ("qmv_id_group", "qmv_id") if grouped else ("qmv_id", "qmv_id_group")
+        lengths = (PROMPT_LEN, 96, 64, 113, 80, 101, 72, 120)[:B]
+        prompts = [[(j * 31337 + 977 * r) % Vm for j in range(n)]
+                   for r, n in enumerate(lengths)]
+        single = []
+        eng1 = Engine(params, cfgm, batch_size=1, max_seq=1024)
+        for p in prompts:
+            eng1.reset()
+            first = int(eng1.prefill(p).argmax())
+            single.append([first, *eng1.decode_greedy_tokens([first], n_tok)[0].tolist()])
+        del eng1
+        eng = Engine(params, cfgm, batch_size=B, max_seq=1024)
+
+        def run():
+            eng.reset()
+            firsts = [int(eng.prefill(p, row=r).argmax()) for r, p in enumerate(prompts)]
+            t0 = time.perf_counter()
+            toks = eng.decode_greedy_tokens(firsts, n_tok)
+            return firsts, toks, time.perf_counter() - t0
+
+        run()  # the graph's capture for the bucket (and its eager warm-up step)
+        build.reset_launches()
+        firsts, toks, dt = run()
+        launches = dict(build.LAUNCHES)
+        kv_cap = eng._kv_cap(max(map(len, prompts)) + n_tok + 1)
+        captured = eng.decoder.graphs[kv_cap][1]
+        for r in range(B):
+            got = [firsts[r], *toks[r].tolist()]
+            part = next((j for j, (a, b) in enumerate(zip(got, single[r])) if a != b), None)
+            check(part is None, f"{tag} row {r}: greedy tokens part from the single-stream "
+                  f"run at token {part}")
+        products = 2 * cfgm.n_layer  # gate_up and down a layer
+        check(captured.get(kernel, 0) == products and captured.get(other, 0) == 0,
+              f"{tag}: {captured.get(kernel, 0)} {kernel} and {captured.get(other, 0)} {other} "
+              f"launches a step (want one {kernel} a product, {products}, and no {other})")
+        path = (*(k for k in moe_path if k != "qmv_id"), kernel)
+        missing = [k for k in path if launches[k] == 0]
+        stray = [k for k in launches if k not in path and launches[k] != 0]
+        check(not missing and not stray, f"{tag}: kernels never launched {missing}, kernels of "
+              f"another path launched {stray}")
+        log(f"[{tag}] {cfgm.n_layer} layers, {B} rows (prompts of "
+            f"{', '.join(str(len(p)) for p in prompts)} tokens), {n_tok} greedy steps through "
+            f"the graph in {dt:.3f}s: {dt / n_tok * 1e3:.3f} ms a step ({B} tokens), "
+            f"{B * n_tok / dt:.2f} tokens/s aggregate; {sum(captured.values())} launches a step "
+            f"({json.dumps(captured)}): K10 at {rows} rows over {cfgm.n_expert} experts, "
+            f"{'grouped by expert' if grouped else 'a block per row'} ({kernel}); every row's "
+            f"tokens equal its single-stream run's; launches {json.dumps(launches)}; "
+            f"{time.perf_counter() - t_run:.1f}s with the single-stream runs, on "
+            f"{nvidia_smi_line()}")
+        return {"total": launches, "ms": dt / n_tok * 1e3}
+
     # Mixtral-8x7B at full depth (28.3 GB of wire blocks), the dense cache,
     # the attention weight kinds of a real Q4_K_M file: the MoE kernels must
     # launch, the quantized-cache ones must not
@@ -2901,6 +3035,10 @@ def main() -> int:
     got = runs_moe["kv dense 512"]["prefill"]["qgemm_id"]
     check(got == 2 * mcfg.n_layer, f"mixtral 512 run: prefill qgemm_id {got} "
           f"(want {2 * mcfg.n_layer})")
+    # 8 rows a step over its first 4 layers: K10 groups 16 rows over 8 experts
+    batch_runs = {MIXTRAL_BATCH_RUN: batched_moe_run(
+        MIXTRAL_BATCH_RUN, {**params, "layers": params["layers"][:4]},
+        mixtral_8x7b_config(n_layer=4), MIXTRAL_BATCH)}
     del params
     torch.cuda.empty_cache()
     # Mixtral-8x7B Q5_K_M and IQ4_XS at full depth (Q5_K, IQ4_XS expert
@@ -3087,6 +3225,10 @@ def main() -> int:
             want512 = 2 * (cfgf.n_layer - cfgf.n_layer_dense_lead)
             check(got512 == want512, f"{model} 512 run: prefill qgemm_id {got512} (want "
                   f"{want512}: one 512-token chunk)")
+        if model == "qwen3-30b-a3b":  # its first 4 layers, 4 rows a step
+            batch_runs["qwen3-30b-a3b batch 4"] = batched_moe_run(
+                "qwen3-30b-a3b batch 4", {**params, "layers": params["layers"][:4]},
+                qwen3_30b_a3b_config(n_layer=4), SERVING_SLOTS)
         if model == "gemma3-12b":
             family_runs["gemma3-12b serving"] = family_serving_run("gemma3-12b serving", params,
                                                                    cfgf, ring=True)
@@ -3228,6 +3370,7 @@ def main() -> int:
               **{k: runs_8b["kv q8_0"] for k in quant_attn}}
     run_named = {**runs_8b, "mixtral": runs_moe["kv dense"],
                  "mixtral 512": runs_moe["kv dense 512"], **preset_runs, **serving, **rows_runs,
+                 **batch_runs,
                  **family_runs}
     for r in results:
         k, run = r.pop("kernel"), r.pop("run")

@@ -8,6 +8,13 @@ selected experts' bytes are read:
 
 - qmm_gather (K10, csrc/qmv_id.cu): x [S, K] rows, ids [S] expert per row
   -> [S, N] f32 with out[s] = x[s] @ dequant(W[ids[s]])^T; f32 operands.
+  Rows of several tokens over few experts (gather_groups: at least twice as
+  many rows as experts) are grouped by expert on the device, inside the
+  launch, and each used expert's levels are formed once for all of its rows
+  (up to 8 a pass); other rows (one token's top k, which are distinct, or
+  rows that seldom share an expert) take a block per row. A row's result is
+  the same bits whatever other rows the launch holds. The two kernels are
+  counted apart: ``qmv_id`` a block per row, ``qmv_id_group`` grouped.
 - qmm_gather_offset (K12): the same contract. The TPU ran it as one launch
   per row; here it is one launch of the K10 kernel over all rows, so the
   model never chooses it over qmm_gather (no GATHER_OFFSET_MAX setting).
@@ -18,7 +25,7 @@ selected experts' bytes are read:
   expert, dequantizes its weight strip once per pass of up to 64 of those
   rows and multiplies all of them against it); f32 activations take the
   K10 kernel over ids_rows = repeat(tile_expert, tt), the JAX package's
-  own non-TPU route (models/llama.py:168-169).
+  own non-TPU route (models/llama.py:168-169), a block per row.
 
 A stack of a 32-weight-block kind whose rows are padded to a whole
 256-weight run (quant/wire.py) takes x as it is in K10, whose row walk
@@ -45,6 +52,7 @@ RAGGED_TILE = 16  # the model's token tile (models/llama.py::moe_sort's padding)
 RAGGED_TILE_STEP = 16  # qgemm_id takes any multiple of this
 RAGGED_MAX_TILES = 1024  # token tiles a qgemm_id launch
 RAGGED_MAX_EXPERTS = 256  # experts of a stack qgemm_id takes
+GATHER_GROUP_MAX = 32  # rows qmv_id's grouping kernel takes (csrc/qmv_id.cu, QID_GROUP_MAX)
 
 
 def _plain(x: torch.Tensor, ids: torch.Tensor, w: WireTensor, bf16_weights: bool):
@@ -102,20 +110,34 @@ def _check(what: str, x: torch.Tensor, ids: torch.Tensor, w: WireTensor, dtypes)
         raise ValueError(f"{what}: expert ids must be a contiguous int32 vector on {x.device}")
 
 
+def gather_groups(S: int, n_exp: int) -> bool:
+    """Whether K10 groups its S rows by expert (csrc/qmv_id.cu's grouping
+    kernel) rather than taking a block per row: up to GATHER_GROUP_MAX
+    rows, at least twice as many as experts. Timed at a router's top k
+    (tools/gather_rule.py, PERF.md §6), the grouping kernel reads faster
+    from about two rows a used expert (Mixtral's 16 rows over 8, Llama-4-
+    Scout's 32 over 16) and slower below (Mixtral's 8 rows use 4-6 experts;
+    Qwen3-30B-A3B's 32 over 128 use ~28). A function of the shapes alone,
+    so a captured step keeps it."""
+    return 2 * n_exp <= S <= GATHER_GROUP_MAX
+
+
 def qmv_id_kernel(x: torch.Tensor, ids: torch.Tensor, w: WireTensor) -> torch.Tensor:
     """Kernel K10/K12 (CUDA tensors only): x [S, K] f32 or bf16, ids [S]
-    int32 -> [S, N] f32."""
+    int32 -> [S, N] f32, one launch of the kernel gather_groups picks."""
     _check("qmv_id", x, ids, w, (torch.float32, torch.bfloat16))
     if ids.shape[0] != x.shape[0]:
         raise ValueError(f"qmv_id: {ids.shape[0]} ids for {x.shape[0]} rows")
     n_exp, n, k = w.shape
-    out = torch.empty((x.shape[0], n), dtype=torch.float32, device=x.device)
+    S = x.shape[0]
+    out = torch.empty((S, n), dtype=torch.float32, device=x.device)
     lib = build.load("qmv_id")
-    rc = lib.lcg_qmv_id(x.data_ptr(), build.DTYPE_ID[x.dtype], x.shape[0], k,
-                        w.blocks.data_ptr(), _KIND_ID[w.kind], n_exp, n, ids.data_ptr(),
-                        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    group = gather_groups(S, n_exp)
+    rc = lib.lcg_qmv_id(x.data_ptr(), build.DTYPE_ID[x.dtype], S, k, w.blocks.data_ptr(),
+                        _KIND_ID[w.kind], n_exp, n, ids.data_ptr(), out.data_ptr(), int(group),
+                        torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, rc, "qmv_id")
-    build.LAUNCHES["qmv_id"] += 1
+    build.LAUNCHES["qmv_id_group" if group else "qmv_id"] += 1
     return out
 
 

@@ -15,10 +15,14 @@ and ``scaled_dot_product_attention`` are timed in one loop, one call of
 each in turn, L2 flushed before each call. The weight kernels the same way
 (no library call computes them): qmv (K1, K3) at one bf16 row over the 8B
 layer weights and the LM head, qgemm (K2, K3) at 128 and 512 rows over the
-five layer weights, and the MoE kernels at the Mixtral-8x7B expert shapes —
-the gather qmv_id (K10) at 2 and 32 rows, its offset entry (K12) and the
-grouped GEMM qgemm_id (K11) of a 128- and a 512-token prefill (each tree on
-its own model's token tile, the same routing); the Q8_0 and Q5_K
+five layer weights, and the MoE kernels: the gather qmv_id (K10) at the
+shapes chip_smoke.py's phase 3 holds (every expert kind at the Mixtral-8x7B
+stacks at 2 and 32 rows, Q4_K gate_up and Q6_K down also at 16, its offset
+entry (K12), 32 rows on one expert and on four, the families' stacks at one
+token's and four tokens' rows) and
+the grouped GEMM qgemm_id (K11) of a 128- and a 512-token prefill at the
+Mixtral shapes (each tree on its own model's token tile, the same
+routing); the Q8_0 and Q5_K
 weights of a real Mixtral Q4_K_M file (attn_k, attn_output and the
 attn_q + attn_k + attn_v launch) are timed on this tree alone where the
 baseline refuses their kinds. The quantized-cache decode kernel (K6, and
@@ -74,13 +78,13 @@ def rel_err(got, ref) -> float:
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
 
 
-def load_baseline(root: Path):
-    """The port package of the checkout at `root`, imported as BASE."""
+def load_baseline(root: Path, name: str = BASE):
+    """The port package of the checkout at `root`, imported as `name`."""
     pkg = root / "llamacog_tpu_torch"
     spec = importlib.util.spec_from_file_location(
-        BASE, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
     mod = importlib.util.module_from_spec(spec)
-    sys.modules[BASE] = mod
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
     return mod
 
@@ -370,18 +374,7 @@ def weights(args, compare, dev, g, qmm, qmm_id, b_qmm, b_qmm_id, b_wire, WireTen
         logits = torch.randn(tokens, n_exp, generator=g, device=dev)
         return torch.topk(logits, k_used, dim=-1).indices.reshape(-1).to(torch.int32)
 
-    for label, wt, bwt, tokens in (("ffn_gate_up_exps", gu, bgu, 1), ("ffn_gate_up_exps", gu, bgu, 16),
-                                   ("ffn_down_exps", d6, bd6, 1)):
-        ids = route(tokens)
-        x = torch.randn(ids.shape[0], wt.shape[2], generator=g, device=dev).to(torch.bfloat16)
-        callees = [("qmv_id gather this", lambda: qmm_id.qmm_gather(x, ids, wt)),
-                   ("qmv_id gather baseline", lambda: b_qmm_id.qmm_gather(x, ids, bwt))]
-        if tokens == 1 and label == "ffn_gate_up_exps":
-            callees += [("qmv_id offset this", lambda: qmm_id.qmm_gather_offset(x, ids, wt)),
-                        ("qmv_id offset baseline",
-                         lambda: b_qmm_id.qmm_gather_offset(x, ids, bwt))]
-        compare(f"qmv_id {label} S={ids.shape[0]}", callees,
-                lambda: qmm_id.qmm_gather_plain(x, ids, wt), TOL_QMM, library=False)
+    gather(compare, dev, g, qmm_id, b_qmm_id, base, mcfg, random_experts)
     from ..models.llama import moe_sort
 
     for tokens in (128, 512):
@@ -411,6 +404,79 @@ def weights(args, compare, dev, g, qmm, qmm_id, b_qmm, b_qmm_id, b_wire, WireTen
                 None, library=False)
     del gu, d6, bgu, bd6
     torch.cuda.empty_cache()
+
+
+# the expert kinds of llama.cpp's presets beside Q4_K_M's (chip_smoke.py's
+# EXPERT_PRESET keys)
+EXPERT_KINDS = ("Q8_0", "Q5_K", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K", "IQ4_NL",
+                "IQ4_XS", "IQ3_XXS", "IQ3_S", "IQ2_S", "IQ2_XXS", "IQ2_XS", "IQ1_S", "IQ1_M",
+                "TQ1_0", "TQ2_0")
+
+
+def gather(compare, dev, g, qmm_id, b_qmm_id, base, mcfg, random_experts):
+    """The gather qmv_id (K10) of both trees at the shapes chip_smoke.py's
+    phase 3 holds, on the same wire blocks and routing: the Mixtral-8x7B
+    stacks at 2, 16 and 32 rows (one token's, 8 tokens' and 16 tokens' top
+    2; the offset entry, K12, at 2 rows), every other expert kind there at
+    2 and 32, 32 rows all on one expert and 32 on four, and the families'
+    stacks at one token's and four tokens' rows (top k of their experts)."""
+    import torch
+
+    from ..utils import synthetic
+
+    def routed(n_exp, k_used, tokens):
+        logits = torch.randn(tokens, n_exp, generator=g, device=dev)
+        return torch.topk(logits, k_used, dim=-1).indices.reshape(-1).to(torch.int32)
+
+    def run(label, w, ids, offset=False):
+        bw = base(w)
+        x = torch.randn(ids.shape[0], w.shape[2], generator=g, device=dev).to(torch.bfloat16)
+        callees = [("qmv_id gather this", lambda: qmm_id.qmm_gather(x, ids, w)),
+                   ("qmv_id gather baseline", lambda: b_qmm_id.qmm_gather(x, ids, bw))]
+        if offset:
+            callees += [("qmv_id offset this", lambda: qmm_id.qmm_gather_offset(x, ids, w)),
+                        ("qmv_id offset baseline",
+                         lambda: b_qmm_id.qmm_gather_offset(x, ids, bw))]
+        compare(f"qmv_id {label} S={ids.shape[0]}", callees,
+                lambda: qmm_id.qmm_gather_plain(x, ids, w), TOL_QMM, library=False)
+
+    E, Fm, n_exp, k_used = mcfg.n_embd, mcfg.n_ff, mcfg.n_expert, mcfg.n_expert_used
+    for kind in ("Q4_K", "Q6_K", *EXPERT_KINDS):
+        for stem, N, K in (("ffn_gate_up_exps", 2 * Fm, E), ("ffn_down_exps", E, Fm)):
+            if (kind, stem) in (("Q4_K", "ffn_down_exps"), ("Q6_K", "ffn_gate_up_exps")):
+                continue  # a Q4_K_M file's experts: Q4_K gate_up, Q6_K down
+            w = random_experts(kind, n_exp, N, K, g, dev)
+            label = f"{stem} {kind} {n_exp}x{N}x{K}"
+            # a Q4_K_M file's stacks also at 8 tokens' rows (chip_smoke.py's
+            # 8-row Mixtral run: grouped)
+            for tokens in (1, 8, 16) if kind in ("Q4_K", "Q6_K") else (1, 16):
+                run(label, w, routed(n_exp, k_used, tokens),
+                    offset=tokens == 1 and stem == "ffn_gate_up_exps" and kind == "Q4_K")
+            if kind in ("Q4_K", "Q6_K"):  # skewed routing: 32 rows on one expert, and on four
+                run(label + " one expert", w, torch.full((32,), 5, dtype=torch.int32,
+                                                         device=dev))
+                run(label + " four experts", w,
+                    torch.arange(32, device=dev, dtype=torch.int32) % 4 * 2)
+            del w
+            torch.cuda.empty_cache()
+    # the families' stacks: (config, [(kind, N, K)]); a stack's K that 256
+    # does not divide is padded (DeepSeek-V2-Lite's downs)
+    families = []
+    for name in ("qwen3-30b-a3b", "deepseek-v2-lite", "deepseek-v2", "llama4-scout",
+                 "olmoe-1b-7b", "granite-3.1-3b-a800m"):
+        c = synthetic.CONFIGS[name]()
+        f, e = c.n_ff_exp, c.n_embd
+        down = {"qwen3-30b-a3b": ("Q6_K",), "deepseek-v2-lite": ("Q5_0", "Q8_0"),
+                "deepseek-v2": ("Q4_K",)}.get(name, ("Q6_K",))
+        families.append((name, c.n_expert, c.n_expert_used,
+                         [("Q4_K", 2 * f, e), *((kd, e, f) for kd in down)]))
+    for name, n_x, k_x, stacks in families:
+        for kind, N, K in stacks:
+            w = random_experts(kind, n_x, N, K, g, dev)
+            for tokens in (1, 4):
+                run(f"{name} {kind} {n_x}x{N}x{K}", w, routed(n_x, k_x, tokens))
+            del w
+            torch.cuda.empty_cache()
 
 
 def block32(compare, dev, g, qmm, qmm_id, b_qmm, b_qmm_id, b_wire, cfg, mcfg, random_wire,

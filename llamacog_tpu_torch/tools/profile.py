@@ -2,7 +2,7 @@
 
     python -m llamacog_tpu_torch.tools.profile [--model mixtral-8x7b] [--layers 32] \
         [--steps 32] [--kv-type q8_0] [--prompt 512 --prefill] [--max-seq 8192] \
-        [--ftype IQ3_XXS]
+        [--ftype IQ3_XXS] [--batch 4]
 
 Builds the synthetic model of the configuration --model (utils/synthetic.py
 CONFIGS: llama3-8b by default, mixtral-8x7b, qwen2.5-7b, qwen3-30b-a3b,
@@ -11,7 +11,11 @@ llama.cpp's rules give it, for a codebook preset those of a file made
 with an importance matrix, as the public IQ files are; by default
 utils/synthetic.py's DEFAULT_LAYOUT, Q4_K_M with every attn_v Q6_K) (depth
 cut by --layers) with an Engine of --max-seq
-slots (1024 by default) and prefills a --prompt-token prompt (128). Decode
+slots (1024 by default) and prefills a --prompt-token prompt (128). With
+--batch B the Engine has B rows, each prefilled with a prompt of its own
+(the serving step: a MoE layer sends B x top-k rows through the expert
+gather, K10), a decode step advances all B rows, and the decode numbers
+are per step of B tokens. Decode
 runs --steps greedy steps two ways: replayed from the step's CUDA graph
 (Engine.decode_greedy_tokens) and eagerly, the same step function called
 from Python every token (Engine.decode_greedy_tokens_eager). Each way is
@@ -53,6 +57,8 @@ def main(argv=None) -> int:
     ap.add_argument("--kv-type", default="dense", help="KV cache kinds, as Engine's kv_type")
     ap.add_argument("--prefill", action="store_true",
                     help="profile one prefill of the prompt instead of the decode steps")
+    ap.add_argument("--batch", type=int, default=1,
+                    help="rows of the Engine, each with its own prompt; decode steps all rows")
     ap.add_argument("--ftype", default=None,
                     help="weight preset of the synthetic model (utils/synthetic.py PRESETS; "
                          "DEFAULT_LAYOUT if not given)")
@@ -70,17 +76,19 @@ def main(argv=None) -> int:
     cfg = CONFIGS[args.model](**({} if args.layers is None else {"n_layer": args.layers}))
     params = make_synthetic_params(cfg, seed=0, ftype=args.ftype or DEFAULT_LAYOUT,
                                    imatrix=args.ftype in CODEBOOK_PRESETS)
-    eng = Engine(params, cfg, batch_size=1, max_seq=args.max_seq, kv_type=args.kv_type)
-    prompt = [(i * 31337) % cfg.n_vocab for i in range(args.prompt)]
+    B = args.batch
+    eng = Engine(params, cfg, batch_size=B, max_seq=args.max_seq, kv_type=args.kv_type)
+    prompts = [[(i * 31337 + 977 * r) % cfg.n_vocab for i in range(args.prompt)]
+               for r in range(B)]
 
-    def prefill() -> int:
-        eng.reset()
-        return int(eng.prefill(prompt).argmax())  # ends in a device->host copy
+    def prefill() -> list:
+        """Each row's prompt; the rows' first greedy tokens."""
+        eng.reset()  # each prefill ends in a device->host copy
+        return [int(eng.prefill(p, row=r).argmax()) for r, p in enumerate(prompts)]
 
     def timed_prefill() -> float:
-        eng.reset()
         t0 = time.perf_counter()
-        eng.prefill(prompt)  # ends in a device->host copy
+        prefill()
         return time.perf_counter() - t0
 
     def report(prof, wall_prof, per, unit, label) -> None:
@@ -114,7 +122,10 @@ def main(argv=None) -> int:
                   f"{e.self_cpu_time_total / max(e.count, 1):>8.2f}")
 
     head = (f"[profile] {torch.cuda.get_device_name(0)}, {args.model}, {cfg.n_layer} layers, "
-            f"kv {args.kv_type}, a {args.prompt}-token prompt")
+            f"kv {args.kv_type}, a {args.prompt}-token prompt" + (f" in each of {B} rows"
+                                                                  if B > 1 else ""))
+    unit = "token" if B == 1 else "step"
+
     if args.prefill:
         timed_prefill(), timed_prefill()  # warm-up
         wall = timed_prefill()
@@ -129,9 +140,9 @@ def main(argv=None) -> int:
     ways = {"graph": eng.decode_greedy_tokens, "eager": eng.decode_greedy_tokens_eager}
 
     def decode(way: str) -> float:
-        first = prefill()
+        firsts = prefill()
         t0 = time.perf_counter()
-        ways[way]([first], args.steps)  # ends in a device->host copy
+        ways[way](firsts, args.steps)  # ends in a device->host copy
         return time.perf_counter() - t0
 
     for way in ways:
@@ -140,17 +151,17 @@ def main(argv=None) -> int:
     for way in ("graph", "eager", "eager", "graph"):
         walls[way].append(decode(way) / args.steps * 1e3)
     print(f"{head}: {args.steps} decode steps after the prompt")
-    print("[profile] host clock, ms/token (in turns): "
+    print(f"[profile] host clock, ms/{unit} (in turns): "
           + "; ".join(f"{way} {', '.join(f'{t:.3f}' for t in ts)}" for way, ts in walls.items()))
     profs, busy = {}, {}
     for way in ways:
-        first = prefill()
+        firsts = prefill()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            ways[way]([first], args.steps)
+            ways[way](firsts, args.steps)
             wall_prof = time.perf_counter() - t0
         profs[way] = prof
-        busy[way] = report(prof, wall_prof, args.steps, "token", way)
+        busy[way] = report(prof, wall_prof, args.steps, unit, way)
 
     orig_masked = llama_mod.masked_attention
 
@@ -160,9 +171,9 @@ def main(argv=None) -> int:
 
     llama_mod.masked_attention = ranged
     try:
-        first = prefill()
+        firsts = prefill()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            ways["eager"]([first], args.steps)
+            ways["eager"](firsts, args.steps)
     finally:
         llama_mod.masked_attention = orig_masked
     masked = [e for e in prof.key_averages() if e.key == "masked_attention"]
@@ -171,7 +182,7 @@ def main(argv=None) -> int:
         share = (f"{m_ms / busy['graph']:.3f} of the graph step's device busy time"
                  if busy.get("graph") else "its share not measured")
         print(f"[profile] masked attention (the plain path): {masked[0].count / args.steps:.1f} "
-              f"calls/token, {m_ms:.3f} ms/token of device time (its kernels, eager step), "
+              f"calls/{unit}, {m_ms:.3f} ms/{unit} of device time (its kernels, eager step), "
               f"{share}")
 
     def host_us(fn, n=320) -> float:
@@ -187,14 +198,14 @@ def main(argv=None) -> int:
 
     L, H, Hkv, D = cfg.n_layer, cfg.n_head, cfg.n_head_kv, cfg.head_dim_k
     dev = eng.device
-    kv_new = torch.zeros((L, 1, 1, Hkv, D), dtype=eng.dtype, device=dev)
-    q, cur = (torch.zeros((1, h, D), dtype=eng.dtype, device=dev) for h in (H, Hkv))
-    pos = torch.tensor([args.prompt], dtype=torch.int32, device=dev)
+    kv_new = torch.zeros((L, B, 1, Hkv, D), dtype=eng.dtype, device=dev)
+    q, cur = (torch.zeros((B, h, D), dtype=eng.dtype, device=dev) for h in (H, Hkv))
+    pos = torch.full((B,), args.prompt, dtype=torch.int32, device=dev)
     write_us = host_us(lambda: eng.cache.write_all(kv_new, kv_new, pos))
     attn_us = host_us(lambda: decode_from_cache(q, eng.cache, 0, cur, cur, pos, D**-0.5))
     print(f"[profile] eager host time: cache write_all {write_us:.1f} us a step, "
           f"decode attention call {attn_us:.1f} us a layer")
-    host_ops(profs["eager"], args.steps, "token")
+    host_ops(profs["eager"], args.steps, unit)
     return 0
 
 

@@ -29,6 +29,7 @@ from llamacog_tpu_torch.ops.cuda.qmm import qgemm, qmm_multi_cuda, qmm_plain, qm
 from llamacog_tpu_torch.ops.cuda.qmm_id import (
     RAGGED_MAX_EXPERTS, RAGGED_MAX_TILES, RAGGED_TILE, qgemm_id_kernel, qmm_gather, qmm_gather_offset,
     qmm_gather_plain, qmm_ragged, qmm_ragged_plain, qmv_id_kernel)
+from llamacog_tpu_torch.ops.cuda import qmm_id
 from llamacog_tpu_torch.quant.wire import BLOCK_BYTES, WireTensor
 from llamacog_tpu_torch.runtime.kv_cache import QuantKVCache
 from llamacog_tpu_torch.utils.synthetic import random_experts, random_wire
@@ -180,20 +181,91 @@ def test_qmm_launchers_reject_bad_input(dev):
               [random_wire("IQ1_S", 64, 256, g, dev), random_wire("IQ4_XS", 64, 256, g, dev)])
 
 
+def _routing(routing, S, g, dev):
+    """Expert ids of S rows over 8 experts: random, all on one expert, on
+    two, or random with ids outside [0, 8) (-1 and 8, rows of zeros) mixed
+    in."""
+    if routing == "one":
+        return torch.full((S,), 3, dtype=torch.int32, device=dev)
+    if routing == "two":
+        return torch.arange(S, dtype=torch.int32, device=dev) % 2 * 5
+    ids = torch.randint(0, 8, (S,), generator=g, device=dev, dtype=torch.int32)
+    if routing == "outside":
+        ids[::3] = -1
+        ids[1::5] = 8
+    return ids
+
+
 @pytest.mark.parametrize("kind", WEIGHT_KINDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S", [1, 2, 32])
-def test_qmv_id_matches_plain(dev, kind, dtype, S):
+@pytest.mark.parametrize("S", [1, 2, 8, 16, 32, 300])
+@pytest.mark.parametrize("routing", ["random", "one", "two", "outside"])
+def test_qmv_id_matches_plain(dev, kind, dtype, S, routing, monkeypatch):
+    """K10 at a decode step's rows (1 to 32; 300: the f32 ragged route's
+    count), skewed routing and ids outside the stack; N 200, and 203, which
+    no block's rows divide; over 8 experts the rows of 16 and 32 are grouped
+    by expert (one qmv_id_group launch), the others a block a row (one
+    qmv_id launch), and both kernels are held on every case they take."""
     g = torch.Generator(device=dev).manual_seed(S)
-    w = random_experts(kind, 8, 200, 1024, g, dev)  # N not a multiple of the block rows
+    n = 200 if routing == "random" else 203
+    w = random_experts(kind, 8, n, 1024, g, dev)
     x = torch.randn(S, 1024, generator=g, device=dev).to(dtype)
-    ids = torch.randint(0, 8, (S,), generator=g, device=dev, dtype=torch.int32)
-    before = build.LAUNCHES["qmv_id"]
+    ids = _routing(routing, S, g, dev)
+    before = dict(build.LAUNCHES)
     got = qmm_gather(x, ids, w)
-    assert build.LAUNCHES["qmv_id"] == before + 1
+    counter = "qmv_id_group" if qmm_id.gather_groups(S, 8) else "qmv_id"
+    assert {k: v - before[k] for k, v in build.LAUNCHES.items() if v != before[k]} == \
+        {counter: 1}
     torch.cuda.synchronize()
-    assert got.shape == (S, 200) and rel_err(got, qmm_gather_plain(x, ids, w)) < QMM_TOL
+    assert got.shape == (S, n) and rel_err(got, qmm_gather_plain(x, ids, w)) < QMM_TOL
     assert torch.equal(qmm_gather_offset(x, ids, w), got)  # K12: the same kernel
+    outside = (ids < 0) | (ids >= 8)
+    assert (got[outside] == 0).all()
+    # each kernel on the same rows: the same bits (the grouping kernel takes
+    # 2 to 32 rows)
+    monkeypatch.setattr(qmm_id, "gather_groups", lambda S, n_exp: False)
+    assert torch.equal(qmm_gather(x, ids, w), got)
+    if 2 <= S <= qmm_id.GATHER_GROUP_MAX:
+        monkeypatch.setattr(qmm_id, "gather_groups", lambda S, n_exp: True)
+        assert torch.equal(qmm_gather(x, ids, w), got)
+
+
+@pytest.mark.parametrize("kind", ["Q4_K", "Q6_K", "Q8_0", "Q5_0", "IQ4_XS", "IQ2_XXS",
+                                  "TQ1_0"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qmv_id_row_independence(dev, kind, dtype):
+    """A row's result does not depend on the rows beside it: each of 8 rows
+    run alone (a pass of one row) against the same row inside a 32-row
+    launch that groups it with others on its expert."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    w = random_experts(kind, 8, 264, 2048, g, dev)
+    x = torch.randn(32, 2048, generator=g, device=dev).to(dtype)
+    ids = torch.randint(0, 4, (32,), generator=g, device=dev, dtype=torch.int32)
+    full = qmm_gather(x, ids, w)
+    for s in range(0, 32, 4):
+        alone = qmm_gather(x[s:s + 1].contiguous(), ids[s:s + 1].contiguous(), w)
+        torch.cuda.synchronize()
+        assert rel_err(alone[0], full[s]) <= 1e-6, s
+        assert torch.equal(alone[0], full[s]), s  # the fold is the same in both kernels
+
+
+@pytest.mark.parametrize("n_exp", [8, 128])
+def test_qmv_id_one_launch_at_32_rows(dev, n_exp):
+    """A 32-row gather (a 4-slot server's step at top 8) is one K10 launch
+    with nothing before it: over 8 experts the rows are grouped by expert
+    inside the kernel (qmv_id_group), over 128 (where rows seldom share one)
+    a block per row (qmv_id)."""
+    g = torch.Generator(device=dev).manual_seed(32)
+    w = random_experts("Q4_K", n_exp, 256, 2048, g, dev)
+    x = torch.randn(32, 2048, generator=g, device=dev).to(torch.bfloat16)
+    ids = torch.topk(torch.randn(4, n_exp, generator=g, device=dev), 8).indices.reshape(-1)
+    ids = ids.to(torch.int32)
+    build.reset_launches()
+    got = qmm_gather(x, ids, w)
+    counter = "qmv_id_group" if n_exp == 8 else "qmv_id"
+    assert build.LAUNCHES == {**{k: 0 for k in build.LAUNCHES}, counter: 1}
+    torch.cuda.synchronize()
+    assert rel_err(got, qmm_gather_plain(x, ids, w)) < QMM_TOL
 
 
 # tile -> expert maps: every expert, empty experts between used ones, one

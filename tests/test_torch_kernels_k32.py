@@ -3,7 +3,8 @@ whole 256-weight run, against their plain versions, on the card.
 
 The rows are padded with zero blocks at carry time (quant/wire.py). K1/K3
 (qmv) and K10 (the expert gather) read x only below K (the K tail of
-csrc/common.cuh::qmv_walk); K2/K3 at prefill (qgemm) and K11 (the grouped
+csrc/common.cuh::qmv_walk, and of K10's own walk in csrc/qmv_id.cu, which
+groups the rows by expert); K2/K3 at prefill (qgemm) and K11 (the grouped
 GEMM) take x padded with zero columns. Held at K = 96, 160 and 896
 (Qwen2.5-0.5B's n_embd), B 1-9 and 40, mixed kinds in one launch. These
 tests carry the `cuda` marker and skip where no GPU is present (the CUDA
@@ -70,3 +71,30 @@ def test_expert_kernels_on_padded_rows(dev, kind, k):
     got = qmm_id.qmm_ragged(xs, te, stack, 16)
     want = qmm_id.qmm_ragged_plain(xs.cpu(), te.cpu(), stack.to("cpu"), 16)
     assert _rel(got, want) <= TOL
+
+
+@pytest.mark.parametrize("S,routing", [(1, "random"), (8, "one"), (32, "two"), (32, "random"),
+                                       (300, "random")])
+@pytest.mark.parametrize("k", [160, 896])
+@pytest.mark.parametrize("kind", KINDS)
+def test_qmv_id_groups_padded_rows(dev, kind, k, S, routing, monkeypatch):
+    """K10's rows grouped by expert over padded stacks: one row, 8 rows on
+    one expert, 32 on two, 32 routed at random and 300 f32 rows (the f32
+    ragged route's count: a block per row); 2 to 32 rows also through the
+    grouping kernel where the rule would take a block per row."""
+    g = torch.Generator(device=dev).manual_seed(S + k)
+    stack = random_experts(kind, 8, 136, k, g, dev)
+    x = torch.randn((S, k), generator=g, device=dev).to(
+        torch.float32 if S > 32 else torch.bfloat16)
+    if routing == "one":
+        ids = torch.full((S,), 5, dtype=torch.int32, device=dev)
+    elif routing == "two":
+        ids = torch.arange(S, dtype=torch.int32, device=dev) % 2 * 3
+    else:
+        ids = torch.randint(0, 8, (S,), generator=g, device=dev, dtype=torch.int32)
+    got = qmm_id.qmm_gather(x, ids, stack)
+    assert _rel(got, qmm_id.qmm_gather_plain(x.cpu(), ids.cpu(), stack.to("cpu"))) <= TOL
+    if 2 <= S <= qmm_id.GATHER_GROUP_MAX:  # the other kernel: the same bits
+        grouped = qmm_id.gather_groups(S, 8)
+        monkeypatch.setattr(qmm_id, "gather_groups", lambda S, n_exp: not grouped)
+        assert torch.equal(qmm_id.qmm_gather(x, ids, stack), got)

@@ -35,6 +35,8 @@ from llamacog_tpu_torch.ops.cuda import qmm_id
 from llamacog_tpu_torch.quant import wire
 from llamacog_tpu_torch.runtime.engine import Engine
 
+from .test_torch_arch_qwen import one_torch_thread  # noqa: F401 (an autouse fixture)
+
 N_EXP, N, K = 4, 256, 512
 # every wire kind of the port: a Q4_K_M file's experts (Q4_K, Q6_K), and the
 # experts of llama.cpp's other presets
@@ -303,6 +305,16 @@ def test_moe_paths_taken(q4k_moe, monkeypatch):
     assert calls == {"ragged": 2 * 2, "gather": 0}  # 2 layers: gate_up, down
     eng.decode_one([5])
     assert calls == {"ragged": 4, "gather": 4}
+
+
+@pytest.mark.parametrize("S,n_exp,grouped", [
+    (1, 8, False), (2, 8, False), (8, 8, False), (15, 8, False), (16, 8, True), (32, 8, True),
+    (16, 16, False), (32, 16, True), (32, 40, False), (32, 128, False), (33, 8, False)])
+def test_gather_groups_rule(S, n_exp, grouped):
+    """K10 groups rows by expert only for up to 32 rows and at least twice
+    as many rows as experts (so never one token's top k, which share no
+    expert), a function of the shapes alone."""
+    assert qmm_id.gather_groups(S, n_exp) == grouped
 
 
 def test_bf16_prefill_logits_close_to_jax(q4k_moe):
