@@ -73,7 +73,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      K3 on Scout's q+k with v and on OLMo-2's and OLMoE's q, k and v apart,
      K10 (1 and 4 tokens: Scout's top 1 gives S = 1) and K11 (a 128-token
      prefill) at Scout's 16 experts, OLMoE's 64 and Granite-3.1-3B-A800M's
-     40;
+     40; and the ALiBi families', the clones' and relu^2's: K1 on
+     BLOOM-7B1's tied 250880-row Q6_K head, K1/K2 on its biased attn_qkv,
+     Jais-13B's biased 13653-row gate and Qwen-7B's gate_up (2 x 11008
+     rows, its tensors' width); K4/K5 at PLaMo-13B's 40 heads over 5;
   4. the full-width kernel path (8B widths, 2 layers) against the plain
      path (the same params on the CPU): prefill logits, 4 teacher-forced
      decode steps (Engine.decode_one: replays of the step's CUDA graph on
@@ -114,7 +117,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      Llama-4-Scout (chunked attention: the masked path, no attention
      kernel; a 40-token prompt for the grouped GEMM at top 1),
      Granite-3.1-8B (dense and q8_0), OLMoE-1B-7B, OLMo-2-7B (dense and
-     q8_0), OLMo-7B, Granite-3.1-3B-A800M and MiniCPM-2B;
+     q8_0), OLMo-7B, Granite-3.1-3B-A800M and MiniCPM-2B; then the ALiBi
+     families at 2 layers, every layer through the masked path with the
+     slopes and distances (no attention kernel, the JAX route): BLOOM-7B1
+     (dense and q8_0), MPT-7B, Jais-13B (its F16 ffn_down at K 13653 a
+     dense product) and Refact-1.6B (32 query heads over one); the
+     llama-graph clones XVERSE-7B, Baichuan2-7B, InternLM2-7B,
+     EXAONE-3.0-7.8B, Orion-14B, CodeShell-7B, Qwen-7B and PLaMo-13B, and
+     the squared-ReLU Minitron-4B and AFM-4.5B (BLOOM-7B1, MPT-7B, Jais-13B,
+     Orion-14B and CodeShell-7B as f32 models: see phase 4's comment);
   5. whether stream capture keeps the split-S combine's programmatic
      dependent launch (K4 and K6 captured alone: the graph's edges by
      type, the replay against the eager call), then the 8B Q4_K_M
@@ -180,9 +191,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      at full depth (16), OLMo-2-7B, OLMo-7B, Granite-3.1-3B-A800M and
      MiniCPM-2B at 4 layers, and Llama-4-Scout-17B-16E at full depth (48
      layers: every layer through the masked path, which launches no
-     attention kernel, checked), each with its ms/token, TTFT, peak memory
-     and launches a token beside the card's name and power limit; the
-     phase's wall time;
+     attention kernel, checked); then BLOOM-7B1 at full depth (30 layers,
+     dense and q8_0: the masked path on every layer, no attention kernel,
+     checked; four decode steps' logits replayed from the graph held bit
+     for bit against the eager step's), and MPT-7B, Jais-13B, Refact-1.6B,
+     Orion-14B, CodeShell-7B, Qwen-7B, PLaMo-13B and Minitron-4B at 4
+     layers, each with its ms/token, TTFT, peak memory and launches a
+     token beside the card's name and power limit; the phase's wall time;
   6. each phase's seconds, one JSON line of per-kernel results, the card's
      name and power limit, and the final {"ok": true, ...} line.
 
@@ -355,7 +370,10 @@ def main() -> int:
         gptj_6b_config, phi2_config, pythia_6_9b_config, stablelm2_1_6b_config,
         starcoder2_7b_config, starcoderbase_7b_config, llama4_scout_config,
         granite_3_1_8b_config, granite_3_1_3b_a800m_config, olmoe_1b_7b_config,
-        olmo2_7b_config, olmo_7b_config, minicpm_2b_config)
+        olmo2_7b_config, olmo_7b_config, minicpm_2b_config, bloom_7b1_config, mpt_7b_config,
+        jais_13b_config, refact_1_6b_config, xverse_7b_config, baichuan2_7b_config,
+        internlm2_7b_config, exaone_3_7_8b_config, orion_14b_config, codeshell_7b_config,
+        qwen_7b_config, plamo_13b_config, minitron_4b_config, afm_4_5b_config)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1361,6 +1379,14 @@ def main() -> int:
                       ["Q4_K", "Q4_K", "Q6_K"], [4096, 4096, 4096], 4096)],
         "olmoe-1b-7b": [("attn_q+attn_k+attn_v Q4_K 2048x2048 x2 + Q6_K 2048x2048",
                          ["Q4_K", "Q4_K", "Q6_K"], [2048, 2048, 2048], 2048)],
+        # the ALiBi families, the clones and relu^2: BLOOM-7B1's tied
+        # 250880-row head and biased Q5_K attn_qkv; Jais-13B's biased gate
+        # of 13653 rows (its own launch); Qwen-7B's gate_up of 2 x 11008
+        # rows (its tensors' width, half its feed_forward_length)
+        "bloom-7b1": [("output (tied token_embd) Q6_K 250880x4096", ["Q6_K"], [250880], 4096),
+                      ("attn_qkv Q5_K 12288x4096 (biased)", ["Q5_K"], [12288], 4096)],
+        "jais-13b": [("ffn_gate Q4_K 13653x5120 (biased)", ["Q4_K"], [13653], 5120)],
+        "qwen-7b": [("ffn_gate_up Q4_K 22016x4096", ["Q4_K"], [22016], 4096)],
     }
     for run, items in fam_ws.items():
         for label, kinds, rows, Kw in items:
@@ -1534,6 +1560,8 @@ def main() -> int:
     fam_attention("starcoderbase-7b", 32, 1, 128, 0.0, 0,
                   quant_run="starcoderbase-7b kv q8_0", deep=True)
     fam_attention("phi2", 32, 32, 80, 0.0, 0)
+    # PLaMo-13B's 40 query heads over 5 kv heads (8 a kv head at D 128)
+    fam_attention("plamo-13b", 40, 5, 128, 0.0, 0)
     torch.cuda.empty_cache()
 
     def family_experts(run, n_exp_f, top_k, stacks, run512=None):
@@ -2263,6 +2291,68 @@ def main() -> int:
             ("MiniCPM-2B widths", minicpm_2b_config(n_layer=2), [
                 ("kv dense", "dense", {}, prompt20g, ("qmv", "qgemm", *dense_attn), "stacked")],
              1024)):
+        p_gpu, p_cpu = two_copies(cfgf, "Q4_K_M")
+        path_check(model, cfgf, p_gpu, p_cpu, cases, [11, 12345, 777, 31000], max_seq)
+        del p_gpu, p_cpu
+        torch.cuda.empty_cache()
+    # the ALiBi families, the llama-graph clones and the squared-ReLU FFN,
+    # Q4_K_M: 2 layers of each config's widths. BLOOM-7B1, MPT-7B, Jais-13B
+    # and Refact-1.6B attend through the masked path on every layer, prefill
+    # and decode, with each head's slope times the distance (the JAX route:
+    # no attention kernel), BLOOM over the dense and the q8_0 cache (the
+    # dequantized planes); Jais-13B's ffn_down at K 13653 is F16, a dense
+    # product; Refact-1.6B's 32 query heads share one kv head. The clones
+    # and relu^2 take K4/K5: xverse, baichuan and internlm2 (interleaved
+    # rope), exaone, orion (layer norm), codeshell (GPT-2's block with
+    # rope), Qwen-7B (its FFN half its feed_forward_length), PLaMo-13B (the
+    # parallel residual without ffn_norm, 40 heads over 5), Minitron-4B
+    # (layer norm, partial rope, relu^2) and AFM-4.5B (relu^2). BLOOM-7B1,
+    # MPT-7B, Jais-13B, Orion-14B and CodeShell-7B run as f32 models: in
+    # bf16 their synthetic models' own plain paths move past TOL_PATH under
+    # noise of about a bf16 rounding on every product
+    # (tools/path_sensitivity.py --ftype Q4_K_M at eps 1e-3, 2 layers, on
+    # the CPU: 0.044-0.076, 0.063-0.075, 0.059-0.160, 0.202-0.634 and
+    # 0.036-0.083 of max |logit|; the others 0.003-0.008, Minitron-4B
+    # 0.030-0.046), as for four layer-norm families above
+    prompt20a = [(i * 7919) % 49216 for i in range(2, 22)]
+    stacked = ("qmv", "qgemm", *dense_attn)
+    for model, cfgf, cases, max_seq in (
+            ("BLOOM-7B1 widths", bloom_7b1_config(n_layer=2), [
+                ("kv dense f32 (masked)", "dense", {}, prompt20a, ("qmv",), "masked",
+                 torch.float32),
+                ("kv q8_0 f32 (masked)", "q8_0", {}, prompt20a, ("qmv",), "masked",
+                 torch.float32)], 1024),
+            ("MPT-7B widths", mpt_7b_config(n_layer=2), [
+                ("kv dense f32 (masked)", "dense", {}, prompt20a, ("qmv",), "masked",
+                 torch.float32)], 1024),
+            ("Jais-13B widths", jais_13b_config(n_layer=2), [
+                ("kv dense f32 (masked)", "dense", {}, prompt20a, ("qmv",), "masked",
+                 torch.float32)], 1024),
+            ("Refact-1.6B widths", refact_1_6b_config(n_layer=2), [
+                ("kv dense (masked)", "dense", {}, prompt20a, ("qmv", "qgemm"), "masked")],
+             1024),
+            ("XVERSE-7B widths", xverse_7b_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20a, stacked, "stacked")], 1024),
+            ("Baichuan2-7B widths", baichuan2_7b_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20a, stacked, "stacked")], 1024),
+            ("InternLM2-7B widths", internlm2_7b_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20a, stacked, "stacked")], 1024),
+            ("EXAONE-3.0-7.8B widths", exaone_3_7_8b_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20a, stacked, "stacked")], 1024),
+            ("Orion-14B widths", orion_14b_config(n_layer=2), [
+                ("kv dense f32", "dense", {}, prompt20a, f32_dense, "stacked", torch.float32)],
+             1024),
+            ("CodeShell-7B widths", codeshell_7b_config(n_layer=2), [
+                ("kv dense f32", "dense", {}, prompt20a, f32_dense, "stacked", torch.float32)],
+             1024),
+            ("Qwen-7B widths", qwen_7b_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20a, stacked, "stacked")], 1024),
+            ("PLaMo-13B widths", plamo_13b_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20a, stacked, "stacked")], 1024),
+            ("Minitron-4B widths", minitron_4b_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20a, stacked, "stacked")], 1024),
+            ("AFM-4.5B widths", afm_4_5b_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20a, stacked, "stacked")], 1024)):
         p_gpu, p_cpu = two_copies(cfgf, "Q4_K_M")
         path_check(model, cfgf, p_gpu, p_cpu, cases, [11, 12345, 777, 31000], max_seq)
         del p_gpu, p_cpu
@@ -3306,6 +3396,58 @@ def main() -> int:
     # blocks): chunked attention on every layer through the masked path (no
     # attention kernel), NoPE layers 3, 7, ..., K10 at one pair a token and
     # K11 over 16 experts, the 202048-row head
+    def family_path_runs(model, params, cfgf, runs_f, got):
+        """Record each run of main_path_runs in family_runs and check its
+        attention launches: one prefill attention launch a layer, one decode
+        one a layer and token, and none at all for a chunked or ALiBi model
+        (masked_only: the masked path); log its decode ms/token beside the
+        weight-stream bound, TTFT, peak memory and launches a token."""
+        masked = flash_q8_mod.masked_only(cfgf)
+        bound = sum_wire_bytes(params, cfgf) / HBM_BYTES_PER_S * 1e3
+        for (name, kv_type, _, prompt_len, _, max_seq, n_tok, *chunk) in runs_f:
+            key = model if name == "kv dense" else f"{model} {name}"
+            r = family_runs[key] = got[name]
+            L_f = cfgf.n_layer
+            pre, dec = (("flash_prefill_quant", "flash_decode_quant") if kv_type == "q8_0"
+                        else ("flash_prefill", "flash_decode_dense"))
+            want_pre, want_dec = (0, 0) if masked else (L_f, n_tok * L_f)
+            attn = {k: r["total"][k] for k in (*dense_attn, *quant_attn, "flash_decode")}
+            check(r["prefill"][pre] == want_pre and r["decode"][dec] == want_dec
+                  and sum(attn.values()) == want_pre + want_dec,
+                  f"{key}: prefill {pre} {r['prefill'][pre]} (want {want_pre}), decode {dec} "
+                  f"{r['decode'][dec]} (want {want_dec}); attention launches {attn}")
+            log(f"[{key}] {L_f} layers: decode {r['ms']:.3f} ms/token (bound {bound:.3f}), "
+                f"TTFT {statistics.median(r['ttft']) * 1e3:.2f} ms, peak device memory "
+                f"{r['peak'] / 2**30:.2f} GiB, {sum(r['decode'].values()) / n_tok:.0f} "
+                f"hand-written kernel launches a token; attention launches {json.dumps(attn)}"
+                + (" (the masked path)" if masked else "")
+                + f" on {nvidia_smi_line()}")
+
+    def graph_equals_eager(model, params, cfgm, n_steps=4):
+        """Two engines at the same state: each decode step's logits replayed
+        from the captured graph (decode_one) equal the same step's forward
+        called eagerly, bit for bit (the ALiBi distances and masks built on
+        the device from the step's write offset buffer at every replay)."""
+        engs = [Engine(params, cfgm, batch_size=1, max_seq=1024) for _ in range(2)]
+        prompt = [(j * 31337) % cfgm.n_vocab for j in range(PROMPT_LEN)]
+        for e in engs:
+            e.prefill(prompt)
+        graph, eager = engs
+        tok = 5
+        for i in range(n_steps):
+            n = int(eager.seq_len[0])
+            want = eager._step(torch.tensor([[tok]], device=dev), eager._dev_i32([n]), 1,
+                               kv_cap=eager._kv_cap(n + 1))[0, 0].cpu()
+            eager.seq_len[0] += 1
+            got = torch.from_numpy(graph.decode_one([tok])[0])
+            check(torch.equal(got, want), f"{model}: decode step {i}: the graph's logits "
+                  f"differ from the eager step's by {float((got - want).abs().max()):.3e}")
+            tok = int(want.argmax())
+        log(f"[{model}] {n_steps} decode steps: the graph's logits equal the eager step's bit "
+            f"for bit")
+        del engs, graph, eager
+        torch.cuda.empty_cache()
+
     t_new = time.perf_counter()
     for model, cfgf, runs_f in (
             ("granite-3.1-8b", granite_3_1_8b_config(), [
@@ -3326,31 +3468,50 @@ def main() -> int:
                  64)])):
         params = build_params(model, cfgf, "Q4_K_M")
         got = main_path_runs(model, params, cfgf, runs_f)
-        chunked = flash_q8_mod.chunked_attention(cfgf)
-        bound = sum_wire_bytes(params, cfgf) / HBM_BYTES_PER_S * 1e3
-        for (name, kv_type, _, prompt_len, _, max_seq, n_tok, *chunk) in runs_f:
-            key = model if name == "kv dense" else f"{model} {name}"
-            r = family_runs[key] = got[name]
-            # one prefill attention launch a layer, one decode one a layer and
-            # token; none at all for a chunked model (the masked path)
-            L_f = cfgf.n_layer
-            pre, dec = (("flash_prefill_quant", "flash_decode_quant") if kv_type == "q8_0"
-                        else ("flash_prefill", "flash_decode_dense"))
-            want_pre, want_dec = (0, 0) if chunked else (L_f, n_tok * L_f)
-            attn = {k: r["total"][k] for k in (*dense_attn, *quant_attn, "flash_decode")}
-            check(r["prefill"][pre] == want_pre and r["decode"][dec] == want_dec
-                  and sum(attn.values()) == want_pre + want_dec,
-                  f"{key}: prefill {pre} {r['prefill'][pre]} (want {want_pre}), decode {dec} "
-                  f"{r['decode'][dec]} (want {want_dec}); attention launches {attn}")
-            log(f"[{key}] {L_f} layers: decode {r['ms']:.3f} ms/token (bound {bound:.3f}), "
-                f"TTFT {statistics.median(r['ttft']) * 1e3:.2f} ms, peak device memory "
-                f"{r['peak'] / 2**30:.2f} GiB, {sum(r['decode'].values()) / n_tok:.0f} "
-                f"hand-written kernel launches a token; attention launches {json.dumps(attn)}"
-                + (" (chunked: the masked path)" if chunked else "")
-                + f" on {nvidia_smi_line()}")
+        family_path_runs(model, params, cfgf, runs_f, got)
         del params
         torch.cuda.empty_cache()
     log(f"[llama4, olmo and scaled families] runs {time.perf_counter() - t_new:.1f}s")
+    # the ALiBi families, the clones and relu^2 in Q4_K_M, a 128-token prompt
+    # and 64 greedy tokens through the graph: BLOOM-7B1 at full depth (30
+    # layers, its tied 250880-row head; dense and q8_0: every layer through
+    # the masked path with its slopes and distances, no attention kernel,
+    # checked; the graph's logits held bit for bit against the eager
+    # step's), then MPT-7B, Jais-13B (its F16 ffn_down a dense product) and
+    # Refact-1.6B (the masked path too), Orion-14B, CodeShell-7B, Qwen-7B,
+    # PLaMo-13B and Minitron-4B (K4/K5) at 4 layers. The four flag-identical
+    # clones (xverse, baichuan, internlm2, exaone) and AFM-4.5B run phase 4
+    # alone: their runs here would repeat the 8B's path
+    t_alibi = time.perf_counter()
+    masked_path = ("qmv", "qgemm")
+    for model, cfgf, runs_f in (
+            ("bloom-7b1", bloom_7b1_config(), [
+                ("kv dense", "dense", {}, PROMPT_LEN, masked_path, 1024, 64),
+                ("kv q8_0", "q8_0", {}, PROMPT_LEN, masked_path, 1024, 64)]),
+            ("mpt-7b", mpt_7b_config(n_layer=4), [
+                ("kv dense", "dense", {}, PROMPT_LEN, masked_path, 1024, 64)]),
+            ("jais-13b", jais_13b_config(n_layer=4), [
+                ("kv dense", "dense", {}, PROMPT_LEN, masked_path, 1024, 64)]),
+            ("refact-1.6b", refact_1_6b_config(n_layer=4), [
+                ("kv dense", "dense", {}, PROMPT_LEN, masked_path, 1024, 64)]),
+            ("orion-14b", orion_14b_config(n_layer=4), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64)]),
+            ("codeshell-7b", codeshell_7b_config(n_layer=4), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64)]),
+            ("qwen-7b", qwen_7b_config(n_layer=4), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64)]),
+            ("plamo-13b", plamo_13b_config(n_layer=4), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64)]),
+            ("minitron-4b", minitron_4b_config(n_layer=4), [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64)])):
+        params = build_params(model, cfgf, "Q4_K_M")
+        got = main_path_runs(model, params, cfgf, runs_f)
+        family_path_runs(model, params, cfgf, runs_f, got)
+        if model == "bloom-7b1":
+            graph_equals_eager(model, params, cfgf)
+        del params
+        torch.cuda.empty_cache()
+    log(f"[alibi families, clones and relu2] runs {time.perf_counter() - t_alibi:.1f}s")
     for model, name in sorted(EAGER_TURNS):
         r = (runs_8b if model == "8b" else runs_moe)[name]
         log(f"[{model} {name}] decode ms/token, graph {statistics.median(r['graph_ms']):.3f} "
@@ -3390,16 +3551,20 @@ def sum_wire_bytes(params: dict, cfg) -> int:
     """Bytes one decode step must stream: every layer weight, n_expert_used
     of the n_expert experts of each stacked expert tensor, and the LM head
     (the embedding table is gathered by row, not streamed; a tied one is
-    the head, and streamed as such)."""
-    from llamacog_tpu_torch.quant.wire import (
-        CODEBOOK_KINDS, LOW_BIT_KINDS, WireTensor, keep_decoded)
+    the head, and streamed as such). A dense layer tensor counts its bytes
+    as held: the norms and biases, and a product llama.cpp leaves F16
+    (Jais-13B's ffn_down at K 13653, kept in the model dtype)."""
+    from llamacog_tpu_torch.quant.wire import WireTensor
 
     total = wire_need(params.get("output", params["tok_embd"]))  # the tied table is the head
     for layer in params["layers"]:
         for v in layer.values():
-            if isinstance(v, WireTensor):
-                total += (wire_need(v) * cfg.n_expert_used // cfg.n_expert if len(v.shape) == 3
-                          else wire_need(v))
+            if not isinstance(v, WireTensor):
+                total += v.numel() * v.element_size()
+            elif len(v.shape) == 3:
+                total += wire_need(v) * cfg.n_expert_used // cfg.n_expert
+            else:
+                total += wire_need(v)
     return total
 
 

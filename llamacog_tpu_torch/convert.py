@@ -83,6 +83,9 @@ _MODEL_TENSORS = {
     # learned positions (gpt2, starcoder): dense in the model dtype, or
     # quantized, taken as a wire tensor whose looked-up rows are decoded
     "pos_embd": "position_embd.weight",
+    # bloom's layer norm of the embedding (f32, as every norm)
+    "tok_norm": "token_embd_norm.weight",
+    "tok_norm_b": "token_embd_norm.bias",
     "rope_freqs": "rope_freqs.weight",
     "rope_long": "rope_factors_long.weight",  # phi3 longrope
     "rope_short": "rope_factors_short.weight",

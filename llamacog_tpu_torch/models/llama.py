@@ -3,14 +3,19 @@
 Counterpart of llamacog_tpu/models/llama.py::forward for the llama, Qwen,
 Gemma, Phi-3, Command-R and DeepSeek-V2 families, the layer-norm
 families (phi2, gpt2, starcoder, starcoder2, falcon, gptneox, gptj,
-stablelm), Llama 4, the OLMo families (olmo, olmo2, olmoe) and the scaled
-families (granite, granitemoe, minicpm): embedding (times sqrt(n_embd) on
+stablelm), Llama 4, the OLMo families (olmo, olmo2, olmoe), the scaled
+families (granite, granitemoe, minicpm), the ALiBi families (bloom, mpt,
+refact, jais), the llama-graph clones (xverse, baichuan, internlm2,
+exaone, orion, codeshell, qwen, plamo) and the squared-ReLU FFN (nemotron,
+arcee): embedding (times sqrt(n_embd) on
 Gemma, the embedding scale on granite and minicpm; plus the learned
-position rows on gpt2 and starcoder) -> per layer (rms norm, or layer norm
+position rows on gpt2 and starcoder; then bloom's embedding layer norm) ->
+per layer (rms norm, or layer norm
 with its bias where the file has one, q/k/v projections, pre-fused (phi3,
 phi2, falcon, gpt2, starcoder, gptneox) or with their biases (qwen2,
 stablelm, starcoder2), per-head q/k norm (qwen3, gemma3, command-r-plus)
-or one over the whole projection (olmo2, olmoe), olmo's clamp of q/k/v,
+or one over the whole projection (olmo2, olmoe), olmo's and mpt's clamp of
+q/k/v,
 rope, full or partial (phi2, gptneox, stablelm, gptj; interleaved on gptj),
 where the arch has it (gemma3's local layers with a table of their own;
 none on cohere2's global layers, gpt2 or starcoder; none on llama4's NoPE
@@ -22,12 +27,14 @@ one K of 192 and a V of 128 a head), attention over the old cache plus the
 current block (sliding-window layers over their window; a ring of the last
 `window` tokens where the cache keeps one, runtime/kv_cache.py::SwaKVCache;
 llama4's chunked layers within their chunk, every layer through the masked
-path), the output projection and its bias, post-attention and post-FFN norms
+path; ALiBi's per-head distance bias, also on the masked path alone, with
+no rope), the output projection and its bias, post-attention and post-FFN norms
 (gemma2/3; olmo2's, which has no pre-norm), the residual scale on both
-branches (granite, minicpm), a SwiGLU or GeGLU FFN or an ungated GELU one,
+branches (granite, minicpm), a SwiGLU or GeGLU FFN or an ungated GELU or
+squared-ReLU one,
 each product with
 its bias where the file has one, in parallel with the attention where the
-arch says so (command-r, cohere2, phi2, falcon, gptj: one shared norm;
+arch says so (command-r, cohere2, phi2, falcon, gptj, plamo: one shared norm;
 falcon-40B: the attention's own attn_norm_2; gptneox: the FFN's own
 ffn_norm)) -> final norm -> LM head (tied to the embedding where the file
 has no output tensor) and its bias (phi2, gptj) -> logit scale (command-r,
@@ -48,8 +55,8 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.attention import (chunked_masks, intra_block_mask, masked_attention,
-                             old_cache_mask, swa_ring_mask)
+from ..ops.attention import (alibi_distances, alibi_slopes, chunked_masks, intra_block_mask,
+                             masked_attention, old_cache_mask, swa_ring_mask)
 from ..ops.cuda import flash_decode, flash_prefill, flash_q8, qmm_id
 from ..ops.linear import qmatmul, qmatmul_multi
 from ..ops.norms import layer_norm, rms_norm
@@ -61,7 +68,9 @@ from .config import ModelConfig
 SUPPORTED_ARCHES = ("llama", "qwen2", "qwen2moe", "qwen3", "qwen3moe", "gemma", "gemma2",
                     "gemma3", "phi3", "command-r", "cohere2", "deepseek2", "phi2", "gpt2",
                     "starcoder", "starcoder2", "falcon", "gptneox", "gptj", "stablelm",
-                    "llama4", "olmo", "olmo2", "olmoe", "granite", "granitemoe", "minicpm")
+                    "llama4", "olmo", "olmo2", "olmoe", "granite", "granitemoe", "minicpm",
+                    "bloom", "mpt", "refact", "jais", "xverse", "baichuan", "internlm2",
+                    "exaone", "orion", "codeshell", "qwen", "plamo", "nemotron", "arcee")
 
 
 # the features each admitted family brings: layer norm (Command-R and the
@@ -73,12 +82,17 @@ SUPPORTED_ARCHES = ("llama", "qwen2", "qwen2moe", "qwen3", "qwen3moe", "gemma", 
 # the whole projection (olmo2, olmoe), the residual and logit scales
 # (granite, granitemoe, minicpm) and Llama 4's chunked attention, NoPE
 # layers with attention temperature, L2 q/k norm and weights before the
-# experts; another arch that sets one is refused by the feature's name
+# experts; ALiBi without rope (bloom, mpt, refact, jais), mpt's clamp_kqv;
+# layer norm (bloom, mpt, jais, orion, codeshell, nemotron) and plamo's
+# parallel residual; another arch that sets one is refused by the
+# feature's name
 _COHERE_ARCHES = ("command-r", "cohere2")
 _LAYER_NORM_ARCHES = (*_COHERE_ARCHES, "phi2", "gpt2", "starcoder", "starcoder2", "falcon",
-                      "gptneox", "gptj", "stablelm", "olmo")
-_PARALLEL_ARCHES = (*_COHERE_ARCHES, "phi2", "falcon", "gptneox", "gptj")
+                      "gptneox", "gptj", "stablelm", "olmo", "bloom", "mpt", "jais", "orion",
+                      "codeshell", "nemotron")
+_PARALLEL_ARCHES = (*_COHERE_ARCHES, "phi2", "falcon", "gptneox", "gptj", "plamo")
 _LEARNED_POS_ARCHES = ("gpt2", "starcoder")
+_ALIBI_ARCHES = ("bloom", "mpt", "refact", "jais")
 _SHEXP_ARCHES = ("qwen2moe", "deepseek2", "llama4")
 _SCALED_ARCHES = ("granite", "granitemoe", "minicpm")
 
@@ -94,8 +108,9 @@ def check_supported(cfg: ModelConfig) -> None:
         "non-parametric layer norm": cfg.nonparam_norms and cfg.arch != "olmo",
         "layer norm": cfg.norm_type != "rms" and cfg.arch not in _LAYER_NORM_ARCHES,
         "parallel residual": cfg.parallel_residual and cfg.arch not in _PARALLEL_ARCHES,
-        "ALiBi": cfg.use_alibi,
-        "learned positions": ((cfg.learned_pos_embd or not cfg.rope.enabled)
+        "ALiBi": cfg.use_alibi and cfg.arch not in _ALIBI_ARCHES,
+        # no rope and no ALiBi: the positions must come from a table
+        "learned positions": ((cfg.learned_pos_embd or not (cfg.rope.enabled or cfg.use_alibi))
                               and cfg.arch not in _LEARNED_POS_ARCHES),
         "MLA": (cfg.n_lora_q > 0 or cfg.n_lora_kv > 0) and cfg.arch != "deepseek2",
         "per-layer head counts": bool(cfg.n_head_arr or cfg.n_head_kv_arr),
@@ -113,7 +128,7 @@ def check_supported(cfg: ModelConfig) -> None:
                                                      and cfg.arch != "cohere2")),
         "logit scale": cfg.logit_scale != 1.0 and not cohere and cfg.arch not in _SCALED_ARCHES,
         "residual scale": cfg.residual_scale != 1.0 and cfg.arch not in _SCALED_ARCHES,
-        "clamp_kqv": cfg.attn_clamp > 0.0 and cfg.arch != "olmo",
+        "clamp_kqv": cfg.attn_clamp > 0.0 and cfg.arch not in ("olmo", "mpt"),
         "non-causal attention": not cfg.causal,
         "interleaved MoE layers": cfg.moe_every_n_layers > 0,
     }
@@ -146,12 +161,15 @@ def embed_positions(params: dict, positions: torch.Tensor, dtype) -> torch.Tenso
 
 
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
-    """The FFN activation in f32: SiLU, or ggml_gelu's tanh form (Gemma)."""
+    """The FFN activation in f32: SiLU, ggml_gelu's tanh form (Gemma), or
+    the squared ReLU (nemotron, arcee)."""
     xf = x.float()
     if kind == "silu":
         return torch.nn.functional.silu(xf)
     if kind == "gelu":
         return torch.nn.functional.gelu(xf, approximate="tanh")
+    if kind == "relu2":  # nemotron, arcee: the squared ReLU
+        return torch.square(torch.relu(xf))
     raise NotImplementedError(f"FFN activation {kind!r} is not ported yet")
 
 
@@ -422,29 +440,39 @@ def forward(
     use_q8 = not use_stacked and flash_q8.decode_supported(cfg, flat, T)
     use_flash = flash_decode.supported(cfg, flat, T)
     # a block over a quantized cache: K7, or the masked path over the
-    # dequantized planes where 32 does not divide the head dim (Phi-2)
+    # dequantized planes where 32 does not divide the head dim (Phi-2); over
+    # the dense store K5
     use_q8_prefill = flash_q8.prefill_supported(cfg, flat)
+    use_dense_prefill = flash_prefill.supported(cfg, flat)
     if ring:
         ring_ok = swa_ring_mask(write_pos, T, cache.window, cfg.sliding_window)
         ring_cur = intra_block_mask(T, cfg.sliding_window, device=tokens.device)
-    # Llama 4: every layer attends through the masked path (the JAX route,
-    # which turns every flash route off for a chunked model); the chunked
-    # layers within their chunk, the others over the whole causal past
-    chunked = flash_q8.chunked_attention(cfg)
-    if chunked:
+    # Llama 4 and the ALiBi families: every layer attends through the masked
+    # path (the JAX route: every flash route is off for a chunked or an
+    # ALiBi model); Llama 4's chunked layers within their chunk, the others
+    # over the whole causal past; ALiBi adds each head's slope times the
+    # distance, all built on the device from write_pos
+    masked = flash_q8.masked_only(cfg)
+    if masked:
         s_att = kv_cap if kv_cap is not None else flat.max_seq
-        chunk_ok = chunked_masks(write_pos, T, s_att, cfg.sliding_window)
         full_ok = (old_cache_mask(write_pos, T, s_att), intra_block_mask(T, device=tokens.device))
+        chunk_ok = (chunked_masks(write_pos, T, s_att, cfg.sliding_window)
+                    if cfg.swa_type == "chunked" else full_ok)
+        alibi = ((alibi_slopes(H, cfg.max_alibi_bias, tokens.device),
+                  *alibi_distances(write_pos, T, s_att)) if cfg.use_alibi else None)
+
+    def _old(il):
+        k_old, v_old = flat.read(il)
+        if kv_cap is not None:
+            k_old, v_old = k_old[:, :kv_cap], v_old[:, :kv_cap]
+        return k_old, v_old
 
     def _attend(q, k, v, il, is_swa):
         win = cfg.sliding_window if is_swa else 0
         softcap = cfg.attn_logit_softcap
-        if chunked:
-            k_old, v_old = flat.read(il)
-            if kv_cap is not None:
-                k_old, v_old = k_old[:, :kv_cap], v_old[:, :kv_cap]
-            return masked_attention(q, k_old, v_old, k, v, *(chunk_ok if is_swa else full_ok),
-                                    scale, logit_softcap=softcap)
+        if masked:
+            return masked_attention(q, *_old(il), k, v, *(chunk_ok if is_swa else full_ok),
+                                    scale, logit_softcap=softcap, alibi=alibi)
         if ring:
             is_ring, il = cache.index(il)
             if is_ring:
@@ -460,39 +488,33 @@ def forward(
                 q[:, 0], tuple(p[il] for p in flat.k_planes),
                 tuple(p[il] for p in flat.v_planes), k[:, 0], v[:, 0], write_pos, scale,
                 softcap=softcap, window=win, kv_cap=kv_cap, kinds=flat.kinds)[:, None]
-        if T == 1:
-            k_old, v_old = flat.read(il)
-            if kv_cap is not None:
-                k_old, v_old = k_old[:, :kv_cap], v_old[:, :kv_cap]
-            if use_flash:
-                return flash_decode.flash_decode_attention(
-                    q[:, 0], k_old, v_old, k[:, 0], v[:, 0], write_pos, scale,
-                    softcap=softcap, window=win)[:, None]
-            return masked_attention(q, k_old, v_old, k, v,
-                                    old_cache_mask(write_pos, 1, k_old.shape[1], win),
-                                    intra_block_mask(1, win, device=q.device), scale,
-                                    logit_softcap=softcap)
-        if use_q8_prefill:
+        if T > 1 and use_q8_prefill:
             return flash_q8.flash_prefill_q8(
                 q, tuple(p[il] for p in flat.k_planes), tuple(p[il] for p in flat.v_planes),
                 k, v, write_pos, scale, softcap=softcap, window=win,
                 kv_cap=kv_cap, kinds=flat.kinds)
-        k_old, v_old = flat.read(il)
-        if kv_cap is not None:
-            k_old, v_old = k_old[:, :kv_cap], v_old[:, :kv_cap]
-        if isinstance(flat, QuantKVCache):
-            return masked_attention(q, k_old, v_old, k, v,
-                                    old_cache_mask(write_pos, T, k_old.shape[1], win),
-                                    intra_block_mask(T, win, device=q.device), scale,
-                                    logit_softcap=softcap)
-        return flash_prefill.flash_prefill_attention(
-            q, k_old, v_old, k, v, write_pos, scale, softcap=softcap, window=win)
+        k_old, v_old = _old(il)
+        if T == 1 and use_flash:
+            return flash_decode.flash_decode_attention(
+                q[:, 0], k_old, v_old, k[:, 0], v[:, 0], write_pos, scale,
+                softcap=softcap, window=win)[:, None]
+        if T > 1 and use_dense_prefill:
+            return flash_prefill.flash_prefill_attention(
+                q, k_old, v_old, k, v, write_pos, scale, softcap=softcap, window=win)
+        # the T=1 step with no flash route, and a quantized cache at a head
+        # dim that 32 does not divide
+        return masked_attention(q, k_old, v_old, k, v,
+                                old_cache_mask(write_pos, T, k_old.shape[1], win),
+                                intra_block_mask(T, win, device=q.device), scale,
+                                logit_softcap=softcap)
 
     x = embed_tokens(params, tokens, dtype)
     if cfg.embd_scale != 1.0:  # Gemma: sqrt(n_embd), multiplied in the activation dtype
         x = _scale_in(x, cfg.embd_scale)
     if cfg.learned_pos_embd and "pos_embd" in params:  # gpt2, starcoder
         x = x + embed_positions(params, positions, dtype)
+    if "tok_norm" in params:  # bloom: the embedding's layer norm
+        x = layer_norm(x, params["tok_norm"], params.get("tok_norm_b"), cfg.norm_eps)
     # llama-3.1 style per-dim rope factors, phi3's long or short ones
     # (rope_factors); gemma3's local layers take a rope of their own (base
     # 10000, no scaling); no rope at all where the arch has none (gpt2,
@@ -549,7 +571,7 @@ def forward(
             q = q.reshape(B, T, -1, Dk)
             k = k.reshape(B, T, -1, Dk)
             v = v.reshape(B, T, -1, Dv)
-            if cfg.attn_clamp > 0.0:  # olmo's clamp_kqv
+            if cfg.attn_clamp > 0.0:  # olmo's and mpt's clamp_kqv
                 c = cfg.attn_clamp
                 q, k, v = q.clamp(-c, c), k.clamp(-c, c), v.clamp(-c, c)
             v = v.contiguous()

@@ -3,12 +3,15 @@
 Counterpart of llamacog_tpu/ops/attention.py: masked attention that holds
 per-row lengths and the sliding window in boolean masks, with the current
 block's keys attended explicitly (the deferred KV write: the cache holds
-only old tokens). Softmax runs in f32. It is the plain version the two
-attention kernels are held against (ops/cuda/flash_q8.py,
+only old tokens), and ALiBi's per-head distance bias (bloom, mpt, refact,
+jais: alibi_slopes, alibi_distances). Softmax runs in f32. It is the plain
+version the two attention kernels are held against (ops/cuda/flash_q8.py,
 ops/cuda/flash_prefill.py).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -70,6 +73,42 @@ def swa_ring_mask(write_pos: torch.Tensor, t: int, ring_w: int, window: int) -> 
     return (a >= 0) & (a > q - window)
 
 
+# (n_head, max_bias, device) -> the slopes on the device: made once, so a
+# step copies nothing from the host (a host copy cannot be captured in a
+# CUDA graph)
+_SLOPES: dict = {}
+
+
+def alibi_slopes(n_head: int, max_bias: float, device=None) -> torch.Tensor:
+    """ALiBi's per-head slopes [n_head] f32, ggml soft_max_ext's two branches
+    (the JAX _alibi_slopes, llama.py:330-342): m0^(h + 1) for the first n2 =
+    2^floor(log2 n_head) heads, m1^(2 (h - n2) + 1) for the rest (Jais-13B's
+    heads 32-39), m0 = 2^(-max_bias / n2), m1 = 2^(-max_bias / (2 n2)); in
+    f64 on the host, then f32."""
+    key = (n_head, float(max_bias), str(device))
+    if key not in _SLOPES:
+        n2 = 2 ** math.floor(math.log2(n_head))
+        m0, m1 = 2.0 ** (-max_bias / n2), 2.0 ** (-max_bias / (2 * n2))
+        slopes = [m0 ** (h + 1) if h < n2 else m1 ** (2 * (h - n2) + 1) for h in range(n_head)]
+        _SLOPES[key] = torch.tensor(slopes, dtype=torch.float32).to(device)
+    return _SLOPES[key]
+
+
+def alibi_distances(seq_len: torch.Tensor, t: int, s: int):
+    """ALiBi's distances -(pos_q - pos_k) in f32 (the allowed cells of the
+    JAX _build_masks' ALiBi masks, llama.py:357-368): over the old cache
+    [B, T, S], query i of a block written at offset seq_len at position
+    seq_len + i and slot j at position j; over the current block [T, T],
+    -(i - j). Built on the device from seq_len alone, so a captured decode
+    step rebuilds them at every replay. The masks say which cells count."""
+    dev = seq_len.device
+    ti = torch.arange(t, device=dev)
+    pos_q = seq_len.long()[:, None, None] + ti[None, :, None]
+    old = -(pos_q - torch.arange(s, device=dev)[None, None, :]).float()
+    cur = -(ti[:, None] - ti[None, :]).float()
+    return old, cur
+
+
 def masked_attention(
     q: torch.Tensor,       # [B, T, H, Dk]
     k: torch.Tensor,       # [B, S, Hkv, Dk] old cache
@@ -80,14 +119,25 @@ def masked_attention(
     cur_ok: torch.Tensor,  # [T, T] or [B, T, T] bool
     scale: float,
     logit_softcap: float = 0.0,
+    alibi: tuple | None = None,  # (slopes [H], old distances [B, T, S], current [T, T])
 ) -> torch.Tensor:  # [B, T, H, Dv]
+    """With `alibi`, each head's slope times the distance joins the scores
+    in f32 after the scale and the softcap, before the mask selects the
+    allowed cells: the JAX order (ops/attention.py:69-72). Query head h
+    reads kv head h // rep, so h = kv_head * rep + r (multi-query models,
+    Refact-1.6B's 32 over one, take the whole slope row)."""
     B, T, H, Dk = q.shape
     S, Hkv = k.shape[1], k.shape[2]
-    qf = q.float().reshape(B, T, Hkv, H // Hkv, Dk)
+    rep = H // Hkv
+    qf = q.float().reshape(B, T, Hkv, rep, Dk)
     scores = torch.cat([torch.einsum("bthrd,bshd->bhrts", qf, k.float()),
                         torch.einsum("bthrd,bshd->bhrts", qf, k_cur.float())], dim=-1) * scale
     if logit_softcap > 0.0:
         scores = logit_softcap * torch.tanh(scores / logit_softcap)
+    if alibi is not None:
+        slopes, d_old, d_cur = alibi
+        dist = torch.cat([d_old, d_cur.expand(B, T, T)], dim=-1)[:, None, None]
+        scores = scores + slopes.reshape(1, Hkv, rep, 1, 1) * dist
     allowed = torch.cat([old_ok, cur_ok.expand(B, T, T)], dim=-1)[:, None, None]
     # select (not add) the mask: masked slots may hold anything, and the
     # finite floor keeps fully-masked rows NaN-free

@@ -20,8 +20,8 @@ import os
 
 from ...runtime.kv_cache import KVCache
 from . import build
-from .flash_q8 import (check_dense_q, chunked_attention, flash_decode_stacked_dense_plain,
-                       launch_dense_decode)
+from .flash_q8 import (check_dense_q, flash_decode_stacked_dense_plain,
+                       launch_dense_decode, masked_only)
 
 
 def flash_decode_attention_plain(q, k, v, k_cur, v_cur, seq_len, scale, softcap=0.0, window=0):
@@ -78,9 +78,10 @@ def flash_decode_attention(q, k, v, k_cur, v_cur, seq_len, scale, softcap=0.0, w
 def supported(cfg, cache, t: int) -> bool:
     """The JAX predicate (flash_decode.py:101-124): opted in with
     LLAMACOG_FLASH_DECODE=1, T = 1, the dense cache, head dims a multiple of
-    8, whole GQA groups, no ALiBi or per-layer heads, and not chunked (the
-    JAX forward's term, llama.py:446). (The port has no mesh.)"""
-    if cfg.use_alibi or cfg.n_head_kv_arr or chunked_attention(cfg):
+    8, whole GQA groups, no per-layer heads, and neither chunked nor ALiBi
+    (masked_only: the JAX forward's term, llama.py:446, and the
+    predicate's own). (The port has no mesh.)"""
+    if cfg.n_head_kv_arr or masked_only(cfg):
         return False
     if os.environ.get("LLAMACOG_FLASH_DECODE", "0") != "1":
         return False

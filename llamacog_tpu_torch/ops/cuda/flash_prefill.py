@@ -18,8 +18,10 @@ import ctypes
 
 import torch
 
+from ...runtime.kv_cache import KVCache
 from ..attention import intra_block_mask, masked_attention, old_cache_mask
 from . import build
+from .flash_q8 import masked_only
 
 MAX_D = 256
 
@@ -81,6 +83,16 @@ def flash_prefill_kernel(q, k, v, k_cur, v_cur, seq_len, scale, softcap=0.0, win
     build.check(lib, rc, "flash_prefill")
     build.LAUNCHES["flash_prefill_simt" if simt.value else "flash_prefill"] += 1
     return out
+
+
+def supported(cfg, cache) -> bool:
+    """The dense prefill route (K5) of a block over a dense store, unless
+    the model is chunked or ALiBi (masked_only: the JAX predicate's ALiBi
+    term, flash_prefill.py:161-162, and its forward's chunked one; its
+    other terms are TPU tiling rules or per-layer heads, which
+    check_supported refuses). A quantized cache takes K7 or the masked path
+    over its dequantized planes instead."""
+    return isinstance(cache, KVCache) and not masked_only(cfg)
 
 
 def flash_prefill_attention(q, k, v, k_cur, v_cur, seq_len, scale, softcap=0.0, window=0):

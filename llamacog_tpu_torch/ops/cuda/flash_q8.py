@@ -404,12 +404,17 @@ def quant_heads_supported(cfg) -> bool:
     return cfg.head_dim_k % 32 == 0 and cfg.head_dim_v % 32 == 0
 
 
-def chunked_attention(cfg) -> bool:
-    """Llama 4's chunked attention: the JAX forward turns every flash route
-    off for such a model (llama.py:441-451), so every layer, at prefill and
-    decode, over a dense or a quantized cache, attends through the masked
-    path with the chunk masks (ops/attention.py::chunked_masks)."""
-    return cfg.swa_type == "chunked" and cfg.sliding_window > 0
+def masked_only(cfg) -> bool:
+    """A model whose every layer attends through the masked path, at
+    prefill and decode, over a dense or a quantized cache: Llama 4's
+    chunked attention (the chunk masks, ops/attention.py::chunked_masks)
+    and ALiBi (bloom, mpt, refact, jais: the slopes and distances the masked
+    attention adds). The JAX terms: its forward turns every flash route off
+    for a chunked model (llama.py:441-451), and every flash predicate
+    refuses use_alibi (flash_q8.py:368-369,391-392,1032-1033,
+    flash_prefill.py:161-162, flash_decode.py). No flash kernel (K4-K9)
+    takes either, so this is the route of such a model, not a fallback."""
+    return (cfg.swa_type == "chunked" and cfg.sliding_window > 0) or cfg.use_alibi
 
 
 def stacked_decode_supported(cfg, cache, t: int) -> bool:
@@ -420,9 +425,9 @@ def stacked_decode_supported(cfg, cache, t: int) -> bool:
     8 divides, so a dense D-80 cache (Phi-2) decodes through K4 where the
     JAX route is masked: the same result by another route. Its other terms
     are TPU tiling rules or shapes the port's forward refuses; the kernels
-    here take any S. A chunked model (chunked_attention) takes no flash
+    here take any S. A chunked or ALiBi model (masked_only) takes no flash
     route."""
-    if chunked_attention(cfg):
+    if masked_only(cfg):
         return False
     if isinstance(cache, QuantKVCache) and not quant_heads_supported(cfg):
         return False
@@ -433,9 +438,9 @@ def decode_supported(cfg, cache, t: int) -> bool:
     """The per-layer quantized decode route (K8, flash_decode_q8_auto) when
     the stacked route is off: a quantized cache at T = 1 whose head dims 32
     divides, unless LLAMACOG_FLASH_Q8=0 (flash_q8.py:372), which leaves the
-    masked path; never for a chunked model."""
+    masked path; never for a chunked or ALiBi model (masked_only)."""
     return (t == 1 and isinstance(cache, QuantKVCache) and quant_heads_supported(cfg)
-            and not chunked_attention(cfg)
+            and not masked_only(cfg)
             and os.environ.get("LLAMACOG_FLASH_Q8", "1") == "1")
 
 
@@ -444,9 +449,10 @@ def prefill_supported(cfg, cache) -> bool:
     quantized cache: head dims that 32 divides (the JAX prefill_supported's
     term, flash_q8.py:402-403; its T and S terms are TPU tiling rules, and
     the port reads LLAMACOG_FLASH_Q8 at decode only), else the masked path
-    over the dequantized planes, as for a chunked model."""
+    over the dequantized planes, as for a chunked or ALiBi model
+    (masked_only)."""
     return (isinstance(cache, QuantKVCache) and quant_heads_supported(cfg)
-            and not chunked_attention(cfg))
+            and not masked_only(cfg))
 
 
 def decode_from_cache(q, cache, il, k_cur, v_cur, seq_len, scale, softcap=0.0, window=0,

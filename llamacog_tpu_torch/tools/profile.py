@@ -27,8 +27,9 @@ graph replays a token, and kernel time by name; the host time of the two
 pieces the cache kind changes (the step's bulk cache write and one layer's
 decode attention call, without a sync); host op time by name for the eager
 step; and where the forward attends through the masked path (Llama 4's
-chunked layers, a ring's window layers, a quantized cache at a head dim
-that 32 does not divide), that path's device time a token and its share of
+chunked layers, every layer of an ALiBi model (bloom-7b1, mpt-7b,
+jais-13b, refact-1.6b), a ring's window layers, a quantized cache at a head
+dim that 32 does not divide), that path's device time a token and its share of
 the graph step's device busy time (its calls wrapped in a profiler range
 in an eager run: the range's device time is that of the kernels launched
 in it). If the profiler sees no CUDA kernels, the device numbers are

@@ -29,15 +29,19 @@ A row whose length a 256-weight run does not divide (Qwen2.5-0.5B's n_embd
 of 896) takes llama.cpp's 32-weight-block fallback kind
 (llama-quant.cpp's convert_incompatible_tensor: Q5_0 for Q4_K, Q5_1 for
 Q5_K, Q8_0 for Q6_K, IQ4_NL for the other K-quants and codebook kinds,
-Q4_0 for the ternary ones; the LM head and a tied embedding Q8_0), so a
-synthetic model of such widths has the kinds a real file has. The config
-functions give the published geometry of Llama-3, Mixtral, Qwen2.5, Qwen3,
-Qwen2-MoE, Qwen3-MoE, Gemma-2 and Gemma-3 members, and of the layer-norm
-families' (Phi-2, Falcon-7B and -40B, GPT-2, StableLM-2, StarCoder2,
-StarCoderBase, Pythia, GPT-J) (CONFIGS by name); make_synthetic_params adds
+Q4_0 for the ternary ones; the LM head and a tied embedding Q8_0), and a
+row that 32 does not divide either stays F16 (Jais-13B's ffn_down: a dense
+weight), so a synthetic model of such widths has the kinds a real file
+has. The config functions give the published geometry of Llama-3, Mixtral,
+Qwen2.5, Qwen3, Qwen2-MoE, Qwen3-MoE, Gemma-2 and Gemma-3 members, of the
+layer-norm families' (Phi-2, Falcon-7B and -40B, GPT-2, StableLM-2,
+StarCoder2, StarCoderBase, Pythia, GPT-J) and of the later families'
+(Llama 4, OLMo, Granite, MiniCPM; BLOOM, MPT, Jais, Refact, the llama-graph
+clones, Minitron, AFM) (CONFIGS by name); make_synthetic_params adds
 what each family's file carries beside the weights: q/k/v biases (qwen2,
 qwen2moe, stablelm, starcoder2), the other products' biases (_BIASES), norm
-biases (the layer-norm families), learned positions (gpt2, starcoder),
+biases (the layer-norm families), BLOOM's embedding norm, learned positions
+(gpt2, starcoder),
 falcon-40B's attn_norm_2, per-head q/k norms (qwen3, qwen3moe, gemma3),
 post-attention and post-FFN norms (gemma2, gemma3), the shared expert and
 its gate (qwen2moe), and no output tensor where the embedding is tied
@@ -123,12 +127,32 @@ _FALLBACK = {"Q4_K": "Q5_0", "Q5_K": "Q5_1", "Q6_K": "Q8_0", "TQ1_0": "Q4_0", "T
 
 def fit_kind(kind: str, k: int) -> str:
     """`kind`, or its 32-weight-block fallback for rows of k weights that a
-    256-weight run does not divide."""
+    256-weight run does not divide, or F16 where 32 does not divide them
+    either (llama.cpp leaves such a tensor F16: Jais-13B's ffn_down at K
+    13653), a dense weight (random_weight)."""
+    if k % 32:
+        return "F16"
     if k % QK_K == 0 or kind in BLOCK32_KINDS:
         return kind
-    if k % 32:
-        raise NotImplementedError(f"rows of {k} weights take F16 in llama.cpp: not ported yet")
     return _FALLBACK[kind]
+
+
+def random_weight(kind: str, n: int, k: int, generator: torch.Generator, device=None):
+    """random_wire, or for F16 (fit_kind) a dense [n, k] bf16 weight of
+    small draws, as the loader keeps a dense tensor in the model dtype; its
+    product is a plain matmul (ops/linear.py::qmatmul), as the JAX package
+    computes it outside any Pallas kernel."""
+    if kind == "F16":
+        return (torch.randn((n, k), generator=generator, device=device) * 0.01).to(
+            torch.bfloat16)
+    return random_wire(kind, n, k, generator, device)
+
+
+def ffn_width(cfg: ModelConfig) -> int:
+    """The dense FFN's width, by its tensors' rows: cfg.n_ff, but half of it
+    for qwen (Qwen-1), whose feed_forward_length is twice the width of its
+    ffn_gate/ffn_up tensors (llama.cpp creates them n_ff / 2 wide)."""
+    return cfg.n_ff // 2 if cfg.arch == "qwen" else cfg.n_ff
 
 
 def _use_more_bits(i: int, n: int) -> bool:
@@ -215,7 +239,7 @@ def tensor_kinds(cfg: ModelConfig, ftype: str = "Q4_K_M", imatrix: bool = False)
                        "IQ3_M": "Q4_K"}.get(ftype, base)
         E, q_width = cfg.n_embd, cfg.n_head * cfg.head_dim_v
         moe = moe_layer(cfg, il)
-        f_down = (cfg.n_ff_exp or cfg.n_ff) if moe else cfg.n_ff
+        f_down = (cfg.n_ff_exp or cfg.n_ff) if moe else ffn_width(cfg)
         lk = {"attn_q": fit_kind(q, E), "attn_k": fit_kind(k, E), "attn_v": fit_kind(v, E),
               "attn_output": fit_kind(out, q_width), "ffn_gate": fit_kind(base, E),
               "ffn_up": fit_kind(base, E), "ffn_down": fit_kind(down, f_down)}
@@ -710,6 +734,178 @@ def minicpm_2b_config(n_layer: int = 40) -> ModelConfig:
         rope=RopeConfig(dim=64, freq_base=10000.0), tie_word_embeddings=True)
 
 
+def bloom_7b1_config(n_layer: int = 30) -> ModelConfig:
+    """BLOOM-7B1 (bigscience/bloom-7b1 config.json: n_layer 30, hidden_size
+    4096, n_head 32 of 128, an FFN of 4 x 4096 = 16384 (GELU, no gate),
+    vocab 250880, layer_norm_epsilon 1e-5, ALiBi and no rope, tied
+    embeddings; biases on every product and norm, the embedding's layer
+    norm, word_embeddings_layernorm, before the first layer); `n_layer`
+    cuts depth only."""
+    return _family_config(
+        "bloom", n_vocab=250880, n_ctx_train=2048, n_embd=4096, n_layer=n_layer, n_head=32,
+        n_head_kv=32, n_ff=16384, head_dim_k=128, head_dim_v=128, norm_eps=1e-5,
+        rope=RopeConfig(dim=128), tie_word_embeddings=True)
+
+
+def mpt_7b_config(n_layer: int = 32) -> ModelConfig:
+    """MPT-7B (mosaicml/mpt-7b config.json: n_layers 32, d_model 4096, n_heads
+    32 of 128, expansion_ratio 4 (an FFN of 16384, GELU, no gate), vocab
+    50432, max_seq_len 2048, ALiBi with alibi_bias_max 8 and no rope,
+    no_bias (no product or norm carries one), clip_qkv null, one fused Wqkv,
+    tied embeddings); `n_layer` cuts depth only."""
+    return _family_config(
+        "mpt", n_vocab=50432, n_ctx_train=2048, n_embd=4096, n_layer=n_layer, n_head=32,
+        n_head_kv=32, n_ff=16384, head_dim_k=128, head_dim_v=128, norm_eps=1e-5,
+        max_alibi_bias=8.0, rope=RopeConfig(dim=128), tie_word_embeddings=True)
+
+
+def jais_13b_config(n_layer: int = 40) -> ModelConfig:
+    """Jais-13B (core42/jais-13b config.json: n_layer 40, n_embd 5120, n_head
+    40 of 128, n_inner 13653 with a SwiGLU gate, vocab 84992, 2048
+    positions, ALiBi and no rope, scale_qk_dot_by_d (a 1/128 attention
+    scale: config.py), layer_norm_epsilon 1e-5, tied embeddings; biases on
+    every product and norm). Its ffn_down rows of 13653 weights, which
+    neither 256 nor 32 divides, are F16 in a llama.cpp file (fit_kind): a
+    dense weight; 40 heads take both branches of ALiBi's slopes (heads
+    32-39 the second); `n_layer` cuts depth only."""
+    return _family_config(
+        "jais", n_vocab=84992, n_ctx_train=2048, n_embd=5120, n_layer=n_layer, n_head=40,
+        n_head_kv=40, n_ff=13653, head_dim_k=128, head_dim_v=128, norm_eps=1e-5,
+        max_alibi_bias=8.0, rope=RopeConfig(dim=128), tie_word_embeddings=True)
+
+
+def refact_1_6b_config(n_layer: int = 32) -> ModelConfig:
+    """Refact-1.6B (smallcloudai/Refact-1_6B-fim config.json: n_layer 32,
+    n_embd 2048, n_head 32 of 64 over one kv head (multi_query), a SwiGLU FFN
+    of 5632, vocab 49216, 4096 positions, rms eps 1e-5, ALiBi (llama.cpp
+    fixes the max bias at 8) and no rope, untied); `n_layer` cuts depth
+    only."""
+    return _family_config(
+        "refact", n_vocab=49216, n_ctx_train=4096, n_embd=2048, n_layer=n_layer, n_head=32,
+        n_head_kv=1, n_ff=5632, head_dim_k=64, head_dim_v=64, rms_norm_eps=1e-5,
+        rope=RopeConfig(dim=64))
+
+
+def xverse_7b_config(n_layer: int = 32) -> ModelConfig:
+    """XVERSE-7B (xverse/XVERSE-7B config.json: 32 layers, hidden 4096, 32
+    heads of 128 (no GQA), intermediate 11008, vocab 100534, 8192
+    positions, rope theta 10000 (interleaved pairs in the GGUF), rms eps
+    1e-6, untied); `n_layer` cuts depth only."""
+    return _family_config(
+        "xverse", n_vocab=100534, n_ctx_train=8192, n_embd=4096, n_layer=n_layer, n_head=32,
+        n_head_kv=32, n_ff=11008, head_dim_k=128, head_dim_v=128, rms_norm_eps=1e-6,
+        rope=RopeConfig(dim=128, freq_base=10000.0))
+
+
+def baichuan2_7b_config(n_layer: int = 32) -> ModelConfig:
+    """Baichuan2-7B (baichuan-inc/Baichuan2-7B-Base config.json: 32 layers,
+    hidden 4096, 32 heads of 128, intermediate 11008, vocab 125696, 4096
+    positions, rope theta 10000 (the 7B's rope; interleaved pairs in the
+    GGUF), rms eps 1e-6, untied; llama.cpp's converter splits W_pack into
+    q, k and v); `n_layer` cuts depth only."""
+    return _family_config(
+        "baichuan", n_vocab=125696, n_ctx_train=4096, n_embd=4096, n_layer=n_layer, n_head=32,
+        n_head_kv=32, n_ff=11008, head_dim_k=128, head_dim_v=128, rms_norm_eps=1e-6,
+        rope=RopeConfig(dim=128, freq_base=10000.0))
+
+
+def internlm2_7b_config(n_layer: int = 32) -> ModelConfig:
+    """InternLM2-7B (internlm/internlm2-7b config.json: 32 layers, hidden
+    4096, 32 query heads over 8 kv heads of 128, intermediate 14336, vocab
+    92544, rope theta 1e6 (interleaved pairs in the GGUF), rms eps 1e-5,
+    untied; llama.cpp's converter splits wqkv into q, k and v); `n_layer`
+    cuts depth only."""
+    return _family_config(
+        "internlm2", n_vocab=92544, n_ctx_train=32768, n_embd=4096, n_layer=n_layer, n_head=32,
+        n_head_kv=8, n_ff=14336, head_dim_k=128, head_dim_v=128, rms_norm_eps=1e-5,
+        rope=RopeConfig(dim=128, freq_base=1e6))
+
+
+def exaone_3_7_8b_config(n_layer: int = 32) -> ModelConfig:
+    """EXAONE-3.0-7.8B (LGAI-EXAONE/EXAONE-3.0-7.8B-Instruct config.json: 32
+    layers, hidden 4096, 32 query heads over 8 kv heads of 128,
+    intermediate 14336, vocab 102400, rope theta 500000 (NeoX pairs), rms
+    eps 1e-5, untied); `n_layer` cuts depth only."""
+    return _family_config(
+        "exaone", n_vocab=102400, n_ctx_train=4096, n_embd=4096, n_layer=n_layer, n_head=32,
+        n_head_kv=8, n_ff=14336, head_dim_k=128, head_dim_v=128, rms_norm_eps=1e-5,
+        rope=RopeConfig(dim=128, freq_base=500000.0))
+
+
+def orion_14b_config(n_layer: int = 40) -> ModelConfig:
+    """Orion-14B (OrionStarAI/Orion-14B-Base config.json: 40 layers, hidden
+    5120, 40 heads of 128 (no GQA), intermediate 15360 with a SiLU gate,
+    vocab 84608, 4096 positions, rope theta 10000, layer norms with their
+    biases at eps 1e-5, untied); `n_layer` cuts depth only."""
+    return _family_config(
+        "orion", n_vocab=84608, n_ctx_train=4096, n_embd=5120, n_layer=n_layer, n_head=40,
+        n_head_kv=40, n_ff=15360, head_dim_k=128, head_dim_v=128, norm_eps=1e-5,
+        rope=RopeConfig(dim=128, freq_base=10000.0))
+
+
+def codeshell_7b_config(n_layer: int = 42) -> ModelConfig:
+    """CodeShell-7B (WisdomShell/CodeShell-7B config.json: n_layer 42, n_embd
+    4096, n_head 32 of 128 over num_query_groups 8, n_inner 16384 (GELU,
+    no gate), vocab 70144, 8192 positions, rope theta 10000 (NeoX pairs),
+    layer_norm_epsilon 1e-5; GPT-2's block: one biased c_attn, biases on
+    every product and norm; untied); `n_layer` cuts depth only."""
+    return _family_config(
+        "codeshell", n_vocab=70144, n_ctx_train=8192, n_embd=4096, n_layer=n_layer, n_head=32,
+        n_head_kv=8, n_ff=16384, head_dim_k=128, head_dim_v=128, norm_eps=1e-5,
+        rope=RopeConfig(dim=128, freq_base=10000.0))
+
+
+def qwen_7b_config(n_layer: int = 32) -> ModelConfig:
+    """Qwen-7B, the first Qwen (Qwen/Qwen-7B config.json: 32 layers, hidden
+    4096, 32 heads of 128, intermediate_size 22016, which llama.cpp writes
+    as feed_forward_length and halves for ffn_gate/ffn_up's 11008 rows
+    (ffn_width), vocab 151936, 8192 positions, rope theta 10000 (NeoX
+    pairs), rms eps 1e-6, untied; one c_attn with its bias, no other
+    bias); `n_layer` cuts depth only."""
+    return _family_config(
+        "qwen", n_vocab=151936, n_ctx_train=8192, n_embd=4096, n_layer=n_layer, n_head=32,
+        n_head_kv=32, n_ff=22016, head_dim_k=128, head_dim_v=128, rms_norm_eps=1e-6,
+        rope=RopeConfig(dim=128, freq_base=10000.0))
+
+
+def plamo_13b_config(n_layer: int = 40) -> ModelConfig:
+    """PLaMo-13B (pfnet/plamo-13b config.json: 40 layers, hidden 5120, 40
+    heads of 128, which llama.cpp's converter writes over 5 kv heads
+    (n_shared_head 8), intermediate 13824, vocab 50432, rope theta 10000,
+    rms eps 1e-6, untied; one attn_norm feeds the attention and the FFN in
+    parallel, and the file has no ffn_norm); `n_layer` cuts depth only."""
+    return _family_config(
+        "plamo", n_vocab=50432, n_ctx_train=4096, n_embd=5120, n_layer=n_layer, n_head=40,
+        n_head_kv=5, n_ff=13824, head_dim_k=128, head_dim_v=128, rms_norm_eps=1e-6,
+        rope=RopeConfig(dim=128, freq_base=10000.0))
+
+
+def minitron_4b_config(n_layer: int = 32) -> ModelConfig:
+    """Minitron-4B (nvidia/Minitron-4B-Base config.json, GGUF arch nemotron:
+    32 layers, hidden 3072, 24 query heads over 8 kv heads of 128,
+    intermediate 9216 with the squared ReLU and no gate,
+    partial_rotary_factor 0.5 (64 of 128 dims), rope theta 10000, norm eps
+    1e-5 (layer norms with their biases, the +1 of LayerNorm1P baked in by
+    the converter), vocab 256000, untied, no product biases); `n_layer`
+    cuts depth only."""
+    return _family_config(
+        "nemotron", n_vocab=256000, n_ctx_train=4096, n_embd=3072, n_layer=n_layer, n_head=24,
+        n_head_kv=8, n_ff=9216, head_dim_k=128, head_dim_v=128, norm_eps=1e-5,
+        rope=RopeConfig(dim=64, freq_base=10000.0))
+
+
+def afm_4_5b_config(n_layer: int = 36) -> ModelConfig:
+    """AFM-4.5B (arcee-ai/AFM-4.5B config.json, GGUF arch arcee: 36 layers,
+    hidden 2560, 20 query heads over 4 kv heads of 128, intermediate 18432
+    with the squared ReLU and no gate, vocab 128004, rope theta 10000
+    (interleaved pairs in the GGUF), rms eps 1e-5, untied). Its YaRN rope
+    scaling is left out, as the 8B's; `n_layer` cuts depth only."""
+    return _family_config(
+        "arcee", n_vocab=128004, n_ctx_train=4096, n_embd=2560, n_layer=n_layer, n_head=20,
+        n_head_kv=4, n_ff=18432, head_dim_k=128, head_dim_v=128, rms_norm_eps=1e-5,
+        rope=RopeConfig(dim=128, freq_base=10000.0))
+
+
 # every synthetic configuration by the name the tools take (--model)
 CONFIGS = {"llama3-8b": llama3_8b_config, "llama3-70b": llama3_70b_config,
            "mixtral-8x7b": mixtral_8x7b_config, "qwen2.5-7b": qwen2_5_7b_config,
@@ -727,25 +923,34 @@ CONFIGS = {"llama3-8b": llama3_8b_config, "llama3-70b": llama3_70b_config,
            "llama4-scout": llama4_scout_config, "granite-3.1-8b": granite_3_1_8b_config,
            "granite-3.1-3b-a800m": granite_3_1_3b_a800m_config,
            "olmoe-1b-7b": olmoe_1b_7b_config, "olmo2-7b": olmo2_7b_config,
-           "olmo-7b": olmo_7b_config, "minicpm-2b": minicpm_2b_config}
+           "olmo-7b": olmo_7b_config, "minicpm-2b": minicpm_2b_config,
+           "bloom-7b1": bloom_7b1_config, "mpt-7b": mpt_7b_config, "jais-13b": jais_13b_config,
+           "refact-1.6b": refact_1_6b_config, "xverse-7b": xverse_7b_config,
+           "baichuan2-7b": baichuan2_7b_config, "internlm2-7b": internlm2_7b_config,
+           "exaone-3-7.8b": exaone_3_7_8b_config, "orion-14b": orion_14b_config,
+           "codeshell-7b": codeshell_7b_config, "qwen-7b": qwen_7b_config,
+           "plamo-13b": plamo_13b_config, "minitron-4b": minitron_4b_config,
+           "afm-4.5b": afm_4_5b_config}
 # the families whose files carry q/k/v biases, and per-head q/k norms
 _QKV_BIAS_ARCHES = ("qwen2", "qwen2moe", "stablelm", "starcoder2")
 _QK_NORM_ARCHES = ("qwen3", "qwen3moe", "gemma3")
 # the files that hold q/k/v as one attn_qkv tensor, and the FFNs without a
 # gate (act(up) -> down)
-_FUSED_QKV_ARCHES = ("phi3", "phi2", "falcon", "gpt2", "starcoder", "gptneox")
-_UNGATED_ARCHES = ("phi2", "falcon", "gpt2", "starcoder", "starcoder2", "gptneox", "gptj")
-# the biases of the layer-norm families' products beside q/k/v's (llama.cpp's
-# tensor lists of each arch): "output" is the LM head's
-_BIASES = {"phi2": ("attn_qkv", "attn_output", "ffn_up", "ffn_down", "output"),
-           "gpt2": ("attn_qkv", "attn_output", "ffn_up", "ffn_down"),
-           "starcoder": ("attn_qkv", "attn_output", "ffn_up", "ffn_down"),
-           "gptneox": ("attn_qkv", "attn_output", "ffn_up", "ffn_down"),
-           "starcoder2": ("attn_output", "ffn_up", "ffn_down"),
-           "gptj": ("ffn_up", "ffn_down", "output")}
-# the layer-norm families whose norms carry biases (command-r's have none)
+_FUSED_QKV_ARCHES = ("phi3", "phi2", "falcon", "gpt2", "starcoder", "gptneox", "bloom", "mpt",
+                     "jais", "codeshell", "qwen")
+_UNGATED_ARCHES = ("phi2", "falcon", "gpt2", "starcoder", "starcoder2", "gptneox", "gptj",
+                   "bloom", "mpt", "codeshell", "nemotron", "arcee")
+# the biases of the products beside q/k/v's (llama.cpp's tensor lists of
+# each arch; a fused attn_qkv's bias is q/k/v's): "output" is the LM head's
+_GPT_BIASES = ("attn_qkv", "attn_output", "ffn_up", "ffn_down")
+_BIASES = {"phi2": (*_GPT_BIASES, "output"), "gpt2": _GPT_BIASES, "starcoder": _GPT_BIASES,
+           "gptneox": _GPT_BIASES, "starcoder2": ("attn_output", "ffn_up", "ffn_down"),
+           "gptj": ("ffn_up", "ffn_down", "output"), "bloom": _GPT_BIASES,
+           "codeshell": _GPT_BIASES, "jais": (*_GPT_BIASES, "ffn_gate"), "qwen": ("attn_qkv",)}
+# the layer-norm families whose norms carry biases (command-r's and mpt's
+# have none)
 _NORM_BIAS_ARCHES = ("phi2", "falcon", "gpt2", "starcoder", "starcoder2", "gptneox", "gptj",
-                     "stablelm")
+                     "stablelm", "bloom", "jais", "orion", "codeshell", "nemotron")
 
 
 def random_experts(kind: str, n_exp: int, n: int, k: int, generator: torch.Generator,
@@ -796,13 +1001,15 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
             tensors[key + "_b"] = small(n)
 
     def product(tensors, key, kind, n, k):
-        tensors[key] = random_wire(kind, n, k, g, dev)
+        tensors[key] = random_weight(kind, n, k, g, dev)
         if key in biased:
             tensors[key + "_b"] = small(n)
 
     params: dict = {"tok_embd": random_wire(kinds["token_embd"], cfg.n_vocab, E, g, dev),
                     "layers": []}
     norm(params, "output_norm", E)
+    if cfg.arch == "bloom":  # the embedding's layer norm
+        params["tok_norm"], params["tok_norm_b"] = ones(E), small(E)
     if cfg.learned_pos_embd:  # gpt2, starcoder: dense, as a converted file holds it
         params["pos_embd"] = small(cfg.n_ctx_train, E)
     if not cfg.tie_word_embeddings:
@@ -871,11 +1078,15 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
                 layer["ffn_up_shexp"] = random_wire(lk["ffn_up_shexp"], fs, E, g, dev)
                 layer["ffn_down_shexp"] = random_wire(lk["ffn_down_shexp"], E, fs, g, dev)
         else:
-            if "ffn_gate" in lk:
-                layer["ffn_gate_up"] = random_wire(lk["ffn_gate"], 2 * cfg.n_ff, E, g, dev)
+            F = ffn_width(cfg)
+            if "ffn_gate" in lk and "ffn_gate" not in biased:
+                layer["ffn_gate_up"] = random_wire(lk["ffn_gate"], 2 * F, E, g, dev)
+            elif "ffn_gate" in lk:  # jais: a biased gate does not fuse with up
+                product(layer, "ffn_gate", lk["ffn_gate"], F, E)
+                product(layer, "ffn_up", lk["ffn_up"], F, E)
             else:  # act(up) -> down
-                product(layer, "ffn_up", lk["ffn_up"], cfg.n_ff, E)
-            product(layer, "ffn_down", lk["ffn_down"], E, cfg.n_ff)
+                product(layer, "ffn_up", lk["ffn_up"], F, E)
+            product(layer, "ffn_down", lk["ffn_down"], E, F)
         params["layers"].append(layer)
     return params
 

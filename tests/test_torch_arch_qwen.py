@@ -55,7 +55,7 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
                biases=(), n_pos=0, attn_norm_2=False, attn_norm=True, norms=True,
                moe_step=0) -> str:
     """A tiny random GGUF of `arch` with llama.cpp's tensor names. `kind`
-    maps a tensor name to its GGMLType (None: F32); norms, biases and the
+    maps a tensor name to its GGMLType (None: F32; F16 stored as such); norms, biases and the
     routers stay F32, as llama.cpp keeps them. Norm weights are drawn near
     1, so a norm that is skipped or doubled shows. The other families'
     tensors: `norm_bias` (a bias on every norm), `ffn_norm=False` (command-r:
@@ -67,8 +67,8 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
     `probs_bias` (exp_probs_b), `rope_factors` ((long, short) tables),
     `extra_tensors` ({name: array}), and the layer-norm families' tensors:
     `ffn_gate=False` (an FFN of ffn_up and ffn_down alone), `biases` (the
-    products among attn_qkv, attn_output, ffn_up, ffn_down and output that
-    carry a bias), `n_pos` (rows of learned positions, position_embd.weight,
+    products among attn_qkv, attn_output, ffn_gate, ffn_up, ffn_down and
+    output that carry a bias), `n_pos` (rows of learned positions, position_embd.weight,
     of the kind `kind` gives it) and `attn_norm_2` (falcon-40B's second
     norm); and `norms=False` (olmo: no norm tensor at all), `attn_norm=False`
     (olmo2: no pre-norms), `qk_norm="full"` (olmo2, olmoe: q/k norms over the
@@ -127,6 +127,8 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
         t = kind(name) if kind is not None else None
         if t is None or t == GGMLType.F32:
             w.add_tensor(name, arr)
+        elif t == GGMLType.F16:
+            w.add_tensor(name, arr.astype(np.float16))
         else:
             w.add_tensor(name, quantize_tensor(arr, t).tobytes(), shape=arr.shape, ggml_type=t)
 
@@ -205,6 +207,7 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
         else:
             if ffn_gate:
                 weight(p + "ffn_gate.weight", rand(n_ff, n_embd))
+                bias(p + "ffn_gate", n_ff)
             weight(p + "ffn_up.weight", rand(n_ff, n_embd))
             bias(p + "ffn_up", n_ff)
             weight(p + "ffn_down.weight", rand(n_embd, n_ff))
@@ -324,7 +327,7 @@ def test_qwen3moe_routing_without_the_norm_key(tmp_path):
 
 def test_unported_archs_and_features_raise_by_name():
     base = synthetic.qwen3_8b_config(n_layer=2)
-    for arch in ("bloom", "mpt", "nemotron", "dbrx"):
+    for arch in ("plm", "glm4", "deci", "dbrx"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             Engine({"layers": []}, ModelConfig(**{**base.__dict__, "arch": arch}),
                    device="cpu")

@@ -18,6 +18,8 @@ from llamacog_tpu.runtime.kv_cache import kv_quant_planes
 from llamacog_tpu_torch.ops.cuda import flash_q8 as port
 from llamacog_tpu_torch.runtime.kv_cache import QuantKVCache
 
+from .test_torch_arch_qwen import one_torch_thread  # noqa: F401 (an autouse fixture)
+
 STACKED_TOL = 2e-4
 ATOL, RTOL = 5e-5, 1e-4
 KIND_PAIRS = [(k, k) for k in ("q8_0", "q4_0", "q4_1", "q5_0", "q5_1")] + [

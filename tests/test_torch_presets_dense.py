@@ -35,6 +35,8 @@ from llamacog_tpu_torch.runtime.engine import Engine
 from llamacog_tpu_torch.utils import synthetic
 from llamacog_tpu_torch.utils.synthetic import make_synthetic_params, tensor_kinds
 
+from .test_torch_arch_qwen import one_torch_thread  # noqa: F401 (an autouse fixture)
+
 PRESETS = ["Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q2_K", "Q3_K_M", "Q5_K_M", "Q8_0"]
 PROMPT = [(i * 37) % 250 + 3 for i in range(20)]
 N_DECODE = 8

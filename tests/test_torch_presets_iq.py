@@ -26,6 +26,7 @@ from llamacog_tpu_torch.utils import synthetic
 
 from .test_torch_presets_dense import (PresetFiles, check_greedy_tokens, check_kinds,
                                        check_same_tensors, check_tensor_kinds_at)
+from .test_torch_arch_qwen import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 PRESETS = ["IQ4_NL", "IQ4_XS", "IQ3_XXS", "IQ3_S", "IQ2_M"]
 IQ_PRESETS = ["IQ4_NL", "IQ4_XS", "IQ3_XXS", "IQ3_XS", "IQ3_S", "IQ3_M", "IQ2_M"]

@@ -17,6 +17,7 @@ import pytest
 
 from .test_torch_presets_dense import (PresetFiles, check_greedy_tokens, check_kinds,
                                        check_same_tensors)
+from .test_torch_arch_qwen import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 PRESETS = ["IQ1_S", "IQ1_M", "TQ1_0", "TQ2_0"]
 

@@ -22,6 +22,7 @@ from llamacog_tpu_torch.utils import synthetic
 
 from .test_torch_presets_dense import (PresetFiles, check_greedy_tokens, check_kinds,
                                        check_same_tensors, check_tensor_kinds_at)
+from .test_torch_arch_qwen import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 PRESETS = ["IQ2_XXS", "IQ2_S"]
 LOW_PRESETS = ["IQ2_XXS", "IQ2_XS", "IQ2_S", "IQ2_M", "IQ1_S", "IQ1_M", "TQ1_0", "TQ2_0"]

@@ -13,6 +13,7 @@ import pytest
 
 from .test_torch_presets_dense import (PresetFiles, check_greedy_tokens, check_kinds,
                                        check_same_tensors)
+from .test_torch_arch_qwen import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 PRESETS = ["Q5_K_M", "Q8_0", "Q3_K_M", "Q2_K"]
 

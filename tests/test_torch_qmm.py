@@ -17,6 +17,8 @@ from llamacog_tpu_torch.ops.cuda.qmm import qmm_plain, share_launch
 from llamacog_tpu_torch.quant import wire
 from llamacog_tpu_torch.utils.synthetic import random_wire
 
+from .test_torch_arch_qwen import one_torch_thread  # noqa: F401 (an autouse fixture)
+
 N, K = 256, 512
 
 
