@@ -76,7 +76,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      40; and the ALiBi families', the clones' and relu^2's: K1 on
      BLOOM-7B1's tied 250880-row Q6_K head, K1/K2 on its biased attn_qkv,
      Jais-13B's biased 13653-row gate and Qwen-7B's gate_up (2 x 11008
-     rows, its tensors' width); K4/K5 at PLaMo-13B's 40 heads over 5;
+     rows, its tensors' width); K4/K5 at PLaMo-13B's 40 heads over 5; and
+     the MoE variants': K1 on dots.llm1's 152064-row and Grok-1's tied
+     131072-row Q6_K heads, K1/K2 on DBRX's fused attn_qkv, K4/K5 at
+     Grok-1's 48 heads over 8 with softcap 30 at its fixed scale and at
+     Snowflake Arctic's 56 over 8, K10 (1 and 4 tokens) and K11 (a
+     128-token prefill) at Arctic's 128 experts of 4864 over 7168 (top 2),
+     DBRX's 16 of 10752 (top 4), Grok-1's 8 of 32768 (its down at K 32768)
+     and dots.llm1's 128 of 1408 (top 6, down padded to 1536);
   4. the full-width kernel path (8B widths, 2 layers) against the plain
      path (the same params on the CPU): prefill logits, 4 teacher-forced
      decode steps (Engine.decode_one: replays of the step's CUDA graph on
@@ -125,7 +132,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      llama-graph clones XVERSE-7B, Baichuan2-7B, InternLM2-7B,
      EXAONE-3.0-7.8B, Orion-14B, CodeShell-7B, Qwen-7B and PLaMo-13B, and
      the squared-ReLU Minitron-4B and AFM-4.5B (BLOOM-7B1, MPT-7B, Jais-13B,
-     Orion-14B and CodeShell-7B as f32 models: see phase 4's comment);
+     Orion-14B and CodeShell-7B as f32 models: see phase 4's comment); then
+     the MoE variants: DeepSeek-MoE-16B, dots.llm1 (dense and q8_0; the
+     forced routing repeats its selection bias), Ling-lite and Phi-3.5-MoE
+     at 2 layers, DBRX at 2 (dense and q8_0, as an f32 model: see phase 4's
+     comment), Grok-1 at 1 and Snowflake Arctic at 1 with its 128 experts
+     cut to 16 (the CPU copy of one layer's 128 would hold ~54 GB decoded);
   5. whether stream capture keeps the split-S combine's programmatic
      dependent launch (K4 and K6 captured alone: the graph's edges by
      type, the replay against the eager call), then the 8B Q4_K_M
@@ -196,7 +208,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      checked; four decode steps' logits replayed from the graph held bit
      for bit against the eager step's), and MPT-7B, Jais-13B, Refact-1.6B,
      Orion-14B, CodeShell-7B, Qwen-7B, PLaMo-13B and Minitron-4B at 4
-     layers, each with its ms/token, TTFT, peak memory and launches a
+     layers; then DeepSeek-MoE-16B at full depth (28 layers) and dots.llm1,
+     Ling-lite, Phi-3.5-MoE, Grok-1, DBRX and Snowflake Arctic at 4 layers
+     (Arctic's replayed step's logits held bit for bit against its eager
+     step's), each with its ms/token, TTFT, peak memory and launches a
      token beside the card's name and power limit; the phase's wall time;
   6. each phase's seconds, one JSON line of per-kernel results, the card's
      name and power limit, and the final {"ok": true, ...} line.
@@ -210,8 +225,10 @@ public files are made).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -373,7 +390,9 @@ def main() -> int:
         olmo2_7b_config, olmo_7b_config, minicpm_2b_config, bloom_7b1_config, mpt_7b_config,
         jais_13b_config, refact_1_6b_config, xverse_7b_config, baichuan2_7b_config,
         internlm2_7b_config, exaone_3_7_8b_config, orion_14b_config, codeshell_7b_config,
-        qwen_7b_config, plamo_13b_config, minitron_4b_config, afm_4_5b_config)
+        qwen_7b_config, plamo_13b_config, minitron_4b_config, afm_4_5b_config,
+        deepseek_moe_16b_config, dots1_config, ling_lite_config, phi3_5_moe_config,
+        grok_1_config, dbrx_config, arctic_config)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1387,6 +1406,12 @@ def main() -> int:
                       ("attn_qkv Q5_K 12288x4096 (biased)", ["Q5_K"], [12288], 4096)],
         "jais-13b": [("ffn_gate Q4_K 13653x5120 (biased)", ["Q4_K"], [13653], 5120)],
         "qwen-7b": [("ffn_gate_up Q4_K 22016x4096", ["Q4_K"], [22016], 4096)],
+        # the MoE variants: dots.llm1's 152064-row head and Grok-1's tied
+        # 131072-row one (Q6_K); DBRX's fused attn_qkv (Q5_K, 64 heads of 128
+        # over K 6144)
+        "dots1": [("output Q6_K 152064x4096", ["Q6_K"], [152064], 4096)],
+        "grok-1": [("output (tied token_embd) Q6_K 131072x6144", ["Q6_K"], [131072], 6144)],
+        "dbrx": [("attn_qkv Q5_K 8192x6144", ["Q5_K"], [8192], 6144)],
     }
     for run, items in fam_ws.items():
         for label, kinds, rows, Kw in items:
@@ -1562,6 +1587,11 @@ def main() -> int:
     fam_attention("phi2", 32, 32, 80, 0.0, 0)
     # PLaMo-13B's 40 query heads over 5 kv heads (8 a kv head at D 128)
     fam_attention("plamo-13b", 40, 5, 128, 0.0, 0)
+    # the MoE variants' heads: Grok-1's 48 over 8 with the softcap 30 after
+    # its fixed scale 1/sqrt(128) (scale, then softcap, as Gemma-2's; no
+    # SDPA beside it: SDPA has no softcap), Snowflake Arctic's 56 over 8
+    fam_attention("grok-1", 48, 8, 128, 30.0, 0)
+    fam_attention("arctic", 56, 8, 128, 0.0, 0)
     torch.cuda.empty_cache()
 
     def family_experts(run, n_exp_f, top_k, stacks, run512=None):
@@ -1649,6 +1679,27 @@ def main() -> int:
              random_experts("Q4_K", n_x, 2 * f_x, e_x, g, dev)),
             (f"ffn_down_exps Q6_K {n_x}x{e_x}x{f_x}",
              random_experts("Q6_K", n_x, e_x, f_x, g, dev))])
+    # the MoE variants' experts at their published widths: Snowflake
+    # Arctic's 128 (top 2) of 4864 over 7168, DBRX's 16 (top 4) of 10752
+    # over 6144 and Grok-1's 8 (top 2) of 32768 over 6144, whose down has K
+    # 32768: gate_up in Q4_K, down in Q6_K (a more-bits layer's); and
+    # dots.llm1's 128 (top 6) of 1408 over 4096, its down at K 1408 padded
+    # to 1536 (Q5_0, and Q8_0 on the more-bits layers, as DeepSeek-V2-Lite's)
+    for run, cfgx in (("arctic", arctic_config()), ("dbrx", dbrx_config()),
+                      ("grok-1", grok_1_config())):
+        n_x, f_x, e_x = cfgx.n_expert, cfgx.n_ff_exp or cfgx.n_ff, cfgx.n_embd
+        family_experts(run, n_x, cfgx.n_expert_used, [
+            (f"ffn_gate_up_exps Q4_K {n_x}x{2 * f_x}x{e_x}",
+             random_experts("Q4_K", n_x, 2 * f_x, e_x, g, dev)),
+            (f"ffn_down_exps Q6_K {n_x}x{e_x}x{f_x}",
+             random_experts("Q6_K", n_x, e_x, f_x, g, dev))])
+    d1 = dots1_config()
+    family_experts("dots1", d1.n_expert, d1.n_expert_used, [
+        ("ffn_gate_up_exps Q4_K 128x2816x4096",
+         random_experts("Q4_K", d1.n_expert, 2 * d1.n_ff_exp, d1.n_embd, g, dev)),
+        *((f"ffn_down_exps {kd} 128x4096x1408 (padded to 1536)",
+           random_experts(kd, d1.n_expert, d1.n_embd, d1.n_ff_exp, g, dev))
+          for kd in ("Q5_0", "Q8_0"))])
 
     phase_s["phase 3"] = time.perf_counter() - t3
     log(f"[parity] done in {phase_s['phase 3']:.1f}s")
@@ -1678,6 +1729,11 @@ def main() -> int:
             for mod, attr, fn in saved:
                 setattr(mod, attr, fn)
 
+    # the host memory of the plain copies' decoded weights, one buffer that
+    # grows and is reused by each two_copies call: a copy into fresh
+    # pageable memory spends most of its time faulting its pages in (~2 GB/s)
+    host_pool = [torch.empty(0, dtype=torch.uint8)]
+
     def two_copies(cfgp, ftype=DEFAULT_LAYOUT):
         """The synthetic params on the card, and a copy on the CPU for the
         plain path whose wire weights keep their plain dequant
@@ -1686,18 +1742,36 @@ def main() -> int:
         otherwise (4 bytes a weight: a 2-layer Mixtral-wide copy holds its
         expert stacks in ~11 GB of host memory). The dequant runs on the
         card, the same torch ops as on the CPU, and is copied over (decoding
-        the copies on the host took ~45% of phase 4); a sample of each
-        weight's rows (every expert's first and last, and 32 drawn from the
-        whole weight) is decoded on the CPU too and must be bit-equal. An
-        untied embedding table keeps no decode: the lookup decodes its rows."""
+        the copies on the host took ~45% of phase 4) into views of
+        host_pool, so the previous call's copy must be freed first; a sample
+        of each weight's rows (every expert's first and last, and 32 drawn
+        from the whole weight) is decoded on the CPU too and must be
+        bit-equal. An untied embedding table keeps no decode: the lookup
+        decodes its rows."""
         p_gpu = make_synthetic_params(cfgp, seed=7, ftype=ftype,
                                       imatrix=ftype in CODEBOOK_PRESETS)
         draw = torch.Generator().manual_seed(7)
+        untied_embd = "output" in p_gpu
+        kept = [v for k, v in p_gpu.items() if k != "layers" and isinstance(v, WireTensor)
+                and not (k == "tok_embd" and untied_embd)]
+        kept += [v for layer in p_gpu["layers"] for v in layer.values()
+                 if isinstance(v, WireTensor)]
+        need = sum(4 * math.prod(w.shape) for w in kept)
+        if host_pool[0].numel() < need:
+            host_pool[0] = torch.empty(0, dtype=torch.uint8)  # the old pages go first
+            host_pool[0] = torch.empty(need, dtype=torch.uint8)
+        used = [0]
+
+        def to_host(t):
+            n = 4 * t.numel()
+            out = host_pool[0][used[0]:used[0] + n].view(torch.float32).view(t.shape)
+            used[0] += n
+            return out.copy_(t)
 
         def on_cpu(v):
             if not isinstance(v, WireTensor):
                 return v.to("cpu")
-            w, decoded = v.to("cpu"), dequantize(v).cpu()
+            w, decoded = v.to("cpu"), to_host(dequantize(v))
             n_rows, n, k = w.blocks.shape[0], w.shape[-2], w.shape[-1]
             firsts = torch.arange(0, n_rows, n)  # one a stack's expert
             idx = torch.cat([firsts, firsts + n - 1,
@@ -1710,7 +1784,7 @@ def main() -> int:
         # an untied embedding table is only gathered by row, which decodes
         # the looked-up rows' blocks (wire.dequantize_rows): no kept decode
         p_cpu = {k: (v if k == "layers" else v.to("cpu")
-                     if k == "tok_embd" and "output" in p_gpu else on_cpu(v))
+                     if k == "tok_embd" and untied_embd else on_cpu(v))
                  for k, v in p_gpu.items()}
         p_cpu["layers"] = [{k: on_cpu(v) for k, v in layer.items()} for layer in p_gpu["layers"]]
         log(f"[path] {cfgp.arch} {cfgp.n_layer} layers, {ftype}: the CPU copy in "
@@ -1759,7 +1833,9 @@ def main() -> int:
         whose experts differ from the plain path's own top-k is appended to
         `diffs` with whether it is a tie swap: the kernel path took the
         plain path's (k+1)-th expert for its k-th, and the two logits lie
-        within TIE_ULPS bf16 ulps. Yields the function that ends a step."""
+        within TIE_ULPS bf16 ulps (with dots1's selection bias, the two
+        scores within TIE_ULPS of the k-th logit's bf16 ulp times the
+        sigmoid's slope there). Yields the function that ends a step."""
         if not cfgp.n_expert:
             yield lambda: None
             return
@@ -1768,31 +1844,41 @@ def main() -> int:
         orig = llama_mod._moe_router
 
         def route_as_kernel(layer, x, cfg):
-            check("exp_probs_b" not in layer,
-                  "the forced router repeats gating without a selection bias only")
             logits = qmatmul(x, layer["ffn_gate_inp"]).float()
             il = calls[0] % n_l
             calls[0] += 1
             ids, used = seen[step[0]]
-            n_rows = logits.reshape(-1, logits.shape[-1]).shape[0]
+            n_exp = logits.shape[-1]
+            n_rows = logits.reshape(-1, n_exp).shape[0]
             check(int(used[il]) == n_rows, f"layer {il} step {step[0]}: the plain path routes "
                   f"{n_rows} rows, the kernel path routed {int(used[il])}")
             top_i = ids[il, :n_rows].reshape(*logits.shape[:-1], k)
-            # softmax, or llama4's sigmoid: either keeps the logits' order, so
-            # the tie analysis below reads the logits
             probs = (torch.sigmoid(logits) if cfg.expert_gating_func == "sigmoid"
                      else torch.softmax(logits, dim=-1))
             gate_w = torch.gather(probs, -1, top_i)
             if cfg.expert_weights_norm:
                 gate_w = gate_w / (gate_w.sum(dim=-1, keepdim=True) + 1e-20)
             real = real_rows[step[0]]
-            own_l, own_i = torch.topk(logits.reshape(-1, logits.shape[-1])[:real], k + 1, dim=-1)
+            # the selection scores: the logits (softmax, or llama4's sigmoid:
+            # either keeps their order), or dots1's sigmoid probabilities
+            # plus its selection bias, which a logit's one ulp moves by the
+            # sigmoid's slope times that ulp
+            if "exp_probs_b" in layer:
+                check(cfg.expert_gating_func == "sigmoid",
+                      "the forced router takes a selection bias under sigmoid gating only")
+                scores, slope = probs + layer["exp_probs_b"].float(), probs * (1 - probs)
+            else:
+                scores, slope = logits, torch.ones_like(logits)
+            l2d, sl2d = logits.reshape(-1, n_exp)[:real], slope.reshape(-1, n_exp)[:real]
+            own_l, own_i = torch.topk(scores.reshape(-1, n_exp)[:real], k + 1, dim=-1)
             got = top_i.reshape(-1, k)[:real].sort(dim=1).values
             for r in torch.nonzero((own_i[:, :k].sort(dim=1).values != got).any(dim=1)).flatten():
                 r = int(r)
                 swap = torch.cat([own_i[r, : k - 1], own_i[r, k:]]).sort().values
                 hi, lo = float(own_l[r, k - 1]), float(own_l[r, k])
-                ulp = 2.0 ** (torch.frexp(own_l[r, k - 1]).exponent.item() - 8)
+                kth = int(own_i[r, k - 1])
+                ulp = (2.0 ** (torch.frexp(l2d[r, kth]).exponent.item() - 8)
+                       * float(sl2d[r, kth]))
                 diffs.append({"step": step[0], "layer": il, "row": r, "kernel": got[r].tolist(),
                               "plain top-k+1": own_i[r].tolist(), "gap_ulps": (hi - lo) / ulp,
                               "tie": torch.equal(swap, got[r]) and hi - lo <= TIE_ULPS * ulp})
@@ -2357,6 +2443,54 @@ def main() -> int:
         path_check(model, cfgf, p_gpu, p_cpu, cases, [11, 12345, 777, 31000], max_seq)
         del p_gpu, p_cpu
         torch.cuda.empty_cache()
+    # the MoE variants, Q4_K_M, at each config's widths; a 20-token prompt
+    # routes its (token, slot) rows through the grouped GEMM, each decode
+    # step through the gather. DeepSeek-MoE-16B and dots.llm1 at 2 layers
+    # (the dense lead layer and a MoE one; dots1's sigmoid router with its
+    # selection bias, which the plain path's forced routing repeats; dots1
+    # over the dense and the q8_0 cache), Ling-lite, Phi-3.5-MoE (rms norms
+    # with biases, the short rope factors) and DBRX (layer norms, clamp_kqv
+    # 8, the fused attn_qkv, top 4 of 16; dense and q8_0, as an f32 model:
+    # its bf16 plain path moves 0.046-0.091 of max |logit| under noise of
+    # about a bf16 rounding on every product, tools/path_sensitivity.py
+    # --model dbrx --ftype Q4_K_M, 2 layers, on the CPU; the others
+    # 0.0002-0.0068; in f32 qmv and K10 take every row, K5/K7 their f32
+    # bodies) at 2, Grok-1
+    # (softcap 30, post-norms, GELU experts, the tied 131072-row head) and
+    # Snowflake Arctic (the dense FFN and the MoE branch on the layer input)
+    # at 1: each plain copy keeps its stacks decoded at 4 bytes a weight,
+    # DBRX's 2 layers ~25 GB and Grok-1's one ~19 GB of host memory. Arctic
+    # runs here with its 128 experts cut to 16, each expert's widths and
+    # top 2 kept: one layer's 128 would hold ~54 GB decoded; phases 3 and 5
+    # run all 128
+    prompt20e = [(i * 7919) % 32000 for i in range(2, 22)]
+    moe_stacked = (*moe_attn, *dense_attn)
+    arctic16 = dataclasses.replace(arctic_config(n_layer=1), n_expert=16)
+    for model, cfgf, cases, max_seq in (
+            ("DeepSeek-MoE-16B widths", deepseek_moe_16b_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20e, moe_stacked, "stacked")], 1024),
+            ("dots.llm1 widths", dots1_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20e, moe_stacked, "stacked"),
+                ("kv q8_0", "q8_0", {}, prompt20e, (*moe_attn, *quant_attn), "stacked")],
+             1024),
+            ("Ling-lite widths", ling_lite_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20e, moe_stacked, "stacked")], 1024),
+            ("Phi-3.5-MoE widths", phi3_5_moe_config(n_layer=2), [
+                ("kv dense", "dense", {}, prompt20e, moe_stacked, "stacked")], 1024),
+            ("DBRX widths", dbrx_config(n_layer=2), [
+                ("kv dense f32", "dense", {}, prompt20e, (*f32_dense, "qmv_id"), "stacked",
+                 torch.float32),
+                ("kv q8_0 f32", "q8_0", {}, prompt20e, (*f32_q8, "qmv_id"), "stacked",
+                 torch.float32)], 64),
+            ("Grok-1 widths", grok_1_config(n_layer=1), [
+                ("kv dense", "dense", {}, prompt20e, moe_stacked, "stacked")], 64),
+            ("Arctic widths, 16 of its 128 experts", arctic16, [
+                ("kv dense", "dense", {}, prompt20e, moe_stacked, "stacked")], 64)):
+        p_gpu, p_cpu = two_copies(cfgf, "Q4_K_M")
+        path_check(model, cfgf, p_gpu, p_cpu, cases, [11, 12345, 777, 31000], max_seq)
+        del p_gpu, p_cpu
+        torch.cuda.empty_cache()
+    host_pool[0] = torch.empty(0, dtype=torch.uint8)
     phase_s["phase 4"] = time.perf_counter() - t0
     log(f"[path] done in {phase_s['phase 4']:.1f}s")
 
@@ -3426,8 +3560,9 @@ def main() -> int:
     def graph_equals_eager(model, params, cfgm, n_steps=4):
         """Two engines at the same state: each decode step's logits replayed
         from the captured graph (decode_one) equal the same step's forward
-        called eagerly, bit for bit (the ALiBi distances and masks built on
-        the device from the step's write offset buffer at every replay)."""
+        called eagerly, bit for bit (BLOOM's ALiBi distances and masks built
+        on the device from the step's write offset buffer at every replay;
+        Arctic's dense FFN and MoE branch in every layer)."""
         engs = [Engine(params, cfgm, batch_size=1, max_seq=1024) for _ in range(2)]
         prompt = [(j * 31337) % cfgm.n_vocab for j in range(PROMPT_LEN)]
         for e in engs:
@@ -3512,6 +3647,32 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
     log(f"[alibi families, clones and relu2] runs {time.perf_counter() - t_alibi:.1f}s")
+    # the MoE variants in Q4_K_M, a 128-token prompt and 64 greedy tokens
+    # through the graph: DeepSeek-MoE-16B at full depth (28 layers, ~11.2 GB
+    # of wire blocks: the dense lead layer's K-10944 ffn_down, 27 MoE layers
+    # of 64 experts top 6 beside 2 shared ones); dots.llm1, Ling-lite,
+    # Phi-3.5-MoE, Grok-1, DBRX and Snowflake Arctic at 4 layers (Grok-1,
+    # DBRX and Arctic do not fit on one card at full depth; Arctic's 4
+    # layers of 128 experts hold ~33.4 GB); Arctic's replayed step's logits
+    # held bit for bit against the eager step's (its two FFN branches a
+    # layer)
+    t_moe = time.perf_counter()
+    for model, cfgf in (("deepseek-moe-16b", deepseek_moe_16b_config()),
+                        ("dots1", dots1_config(n_layer=4)),
+                        ("ling-lite", ling_lite_config(n_layer=4)),
+                        ("phi3.5-moe", phi3_5_moe_config(n_layer=4)),
+                        ("grok-1", grok_1_config(n_layer=4)),
+                        ("dbrx", dbrx_config(n_layer=4)),
+                        ("arctic", arctic_config(n_layer=4))):
+        runs_f = [("kv dense", "dense", {}, PROMPT_LEN, moe_path, 1024, 64)]
+        params = build_params(model, cfgf, "Q4_K_M")
+        got = main_path_runs(model, params, cfgf, runs_f)
+        family_path_runs(model, params, cfgf, runs_f, got)
+        if model == "arctic":
+            graph_equals_eager(model, params, cfgf)
+        del params
+        torch.cuda.empty_cache()
+    log(f"[moe variants] runs {time.perf_counter() - t_moe:.1f}s")
     for model, name in sorted(EAGER_TURNS):
         r = (runs_8b if model == "8b" else runs_moe)[name]
         log(f"[{model} {name}] decode ms/token, graph {statistics.median(r['graph_ms']):.3f} "

@@ -5,7 +5,8 @@ form — dense tensors as float numpy arrays, quantized tensors as
 ``(ggml_type, shape, uint8 block bytes)`` — and returns the port's params
 with the same keys as the JAX loader's tree (``attn_qk``, ``attn_v``,
 ``ffn_gate_up``, ``ffn_gate_up_exps``, ...), applying the same fusion
-under the same conditions (llamacog_tpu/models/loader.py:297-350): q/k/v
+under the same conditions (llamacog_tpu/models/loader.py:297-350) and the
+same per-arch renames (dbrx's and grok's norms, loader.py:356-368): q/k/v
 of one kind fuse, their biases concatenated; else q+k fuse, unless q
 carries a bias or a norm; neither under a q/k norm over the whole
 projection (olmo2, olmoe); gate+up fuse unless gate carries a bias; a lone
@@ -55,9 +56,18 @@ _LAYER_TENSORS = {
     "attn_output": "attn_output.weight",
     "attn_output_b": "attn_output.bias",
     "attn_post_norm": "post_attention_norm.weight",
+    # the BERT-style names under which dbrx keeps its pre-FFN norm and grok
+    # its post-norms (renamed below, as the JAX loader renames them)
+    "attn_out_norm": "attn_output_norm.weight",
+    "attn_out_norm_b": "attn_output_norm.bias",
+    "layer_out_norm": "layer_output_norm.weight",
+    "layer_out_norm_b": "layer_output_norm.bias",
     "ffn_norm": "ffn_norm.weight",
     "ffn_norm_b": "ffn_norm.bias",
     "ffn_post_norm": "post_ffw_norm.weight",
+    # arctic's norm of its MoE branch; the name does not end in
+    # "_norm.weight", so it takes the model dtype, as in the JAX loader
+    "ffn_norm_exps": "ffn_norm_exps.weight",
     "ffn_gate": "ffn_gate.weight",
     "ffn_up": "ffn_up.weight",
     "ffn_down": "ffn_down.weight",
@@ -162,6 +172,16 @@ def from_reference(cfg: ModelConfig, tensors: dict, device=None,
             if fused is not None:
                 layer["ffn_gate_up_exps"] = fused
                 del layer["ffn_gate_exps"], layer["ffn_up_exps"]
+        # the JAX loader's per-arch renames (loader.py:356-368): dbrx's
+        # attn_output_norm is its pre-FFN norm; grok's two BERT-style norms
+        # are its post-attention and post-FFN norms
+        if cfg.arch == "dbrx" and "attn_out_norm" in layer:
+            layer["ffn_norm"] = layer.pop("attn_out_norm")
+        if cfg.arch == "grok":
+            for old, new in (("attn_out_norm", "attn_post_norm"),
+                             ("layer_out_norm", "ffn_post_norm")):
+                if old in layer:
+                    layer[new] = layer.pop(old)
         params["layers"].append(layer)
     return params
 

@@ -6,16 +6,19 @@ families (phi2, gpt2, starcoder, starcoder2, falcon, gptneox, gptj,
 stablelm), Llama 4, the OLMo families (olmo, olmo2, olmoe), the scaled
 families (granite, granitemoe, minicpm), the ALiBi families (bloom, mpt,
 refact, jais), the llama-graph clones (xverse, baichuan, internlm2,
-exaone, orion, codeshell, qwen, plamo) and the squared-ReLU FFN (nemotron,
-arcee): embedding (times sqrt(n_embd) on
-Gemma, the embedding scale on granite and minicpm; plus the learned
+exaone, orion, codeshell, qwen, plamo), the squared-ReLU FFN (nemotron,
+arcee) and the MoE variants (deepseek, dots1, bailingmoe, phimoe, grok,
+arctic, dbrx): embedding (times sqrt(n_embd) on
+Gemma, the embedding scale on granite, minicpm and grok; plus the learned
 position rows on gpt2 and starcoder; then bloom's embedding layer norm) ->
 per layer (rms norm, or layer norm
-with its bias where the file has one, q/k/v projections, pre-fused (phi3,
-phi2, falcon, gpt2, starcoder, gptneox) or with their biases (qwen2,
-stablelm, starcoder2), per-head q/k norm (qwen3, gemma3, command-r-plus)
-or one over the whole projection (olmo2, olmoe), olmo's and mpt's clamp of
-q/k/v,
+with its bias where the file has one (dbrx's has none; phimoe's rms norms
+carry one), q/k/v projections, pre-fused (phi3,
+phi2, falcon, gpt2, starcoder, gptneox, dbrx) or with their biases (qwen2,
+stablelm, starcoder2, phimoe), per-head q/k norm (qwen3, gemma3,
+command-r-plus, dots1)
+or one over the whole projection (olmo2, olmoe), olmo's, mpt's and dbrx's
+clamp of q/k/v,
 rope, full or partial (phi2, gptneox, stablelm, gptj; interleaved on gptj),
 where the arch has it (gemma3's local layers with a table of their own;
 none on cohere2's global layers, gpt2 or starcoder; none on llama4's NoPE
@@ -28,8 +31,9 @@ current block (sliding-window layers over their window; a ring of the last
 `window` tokens where the cache keeps one, runtime/kv_cache.py::SwaKVCache;
 llama4's chunked layers within their chunk, every layer through the masked
 path; ALiBi's per-head distance bias, also on the masked path alone, with
-no rope), the output projection and its bias, post-attention and post-FFN norms
-(gemma2/3; olmo2's, which has no pre-norm), the residual scale on both
+no rope; grok's softcap of 30 after its fixed scale), the output
+projection and its bias, post-attention and post-FFN norms
+(gemma2/3, grok; olmo2's, which has no pre-norm), the residual scale on both
 branches (granite, minicpm), a SwiGLU or GeGLU FFN or an ungated GELU or
 squared-ReLU one,
 each product with
@@ -37,15 +41,20 @@ its bias where the file has one, in parallel with the attention where the
 arch says so (command-r, cohere2, phi2, falcon, gptj, plamo: one shared norm;
 falcon-40B: the attention's own attn_norm_2; gptneox: the FFN's own
 ffn_norm)) -> final norm -> LM head (tied to the embedding where the file
-has no output tensor) and its bias (phi2, gptj) -> logit scale (command-r,
-minicpm; granite's divisor) and final logit softcap (gemma2), with the KV
+has no output tensor) and its bias (phi2, gptj, phimoe) -> logit scale
+(command-r, minicpm, grok; granite's divisor) and final logit softcap
+(gemma2), with the KV
 write deferred to one bulk
 write per step. A layer with a router
 (``ffn_gate_inp``) takes the MoE FFN instead (top-k routing, softmax or
-sigmoid with a selection bias, sparse products over the selected experts
-only, llama4's gate weights on the expert input, and a shared expert,
-sigmoid-gated in qwen2moe, plain in deepseek2 and llama4);
-a layer without one the dense FFN (deepseek2's leading dense layers).
+sigmoid with a selection bias (dots1), sparse products over the selected
+experts only, llama4's gate weights on the expert input, and a shared
+expert, sigmoid-gated in qwen2moe, plain in deepseek2, deepseek, dots1,
+bailingmoe and llama4);
+a layer without one the dense FFN (the leading dense layers of deepseek2,
+deepseek and dots1). An arctic layer takes both: the dense FFN as the
+sequential residual, then the MoE FFN on the rms-normed layer input
+(ffn_norm_exps) added on top.
 Other architectures and features raise NotImplementedError.
 
 Params are a plain dict of dense tensors and WireTensors (convert.py).
@@ -70,7 +79,8 @@ SUPPORTED_ARCHES = ("llama", "qwen2", "qwen2moe", "qwen3", "qwen3moe", "gemma", 
                     "starcoder", "starcoder2", "falcon", "gptneox", "gptj", "stablelm",
                     "llama4", "olmo", "olmo2", "olmoe", "granite", "granitemoe", "minicpm",
                     "bloom", "mpt", "refact", "jais", "xverse", "baichuan", "internlm2",
-                    "exaone", "orion", "codeshell", "qwen", "plamo", "nemotron", "arcee")
+                    "exaone", "orion", "codeshell", "qwen", "plamo", "nemotron", "arcee",
+                    "deepseek", "dots1", "bailingmoe", "phimoe", "grok", "arctic", "dbrx")
 
 
 # the features each admitted family brings: layer norm (Command-R and the
@@ -84,16 +94,18 @@ SUPPORTED_ARCHES = ("llama", "qwen2", "qwen2moe", "qwen3", "qwen3moe", "gemma", 
 # layers with attention temperature, L2 q/k norm and weights before the
 # experts; ALiBi without rope (bloom, mpt, refact, jais), mpt's clamp_kqv;
 # layer norm (bloom, mpt, jais, orion, codeshell, nemotron) and plamo's
-# parallel residual; another arch that sets one is refused by the
+# parallel residual; the MoE variants' ungated shared experts (deepseek,
+# dots1, bailingmoe), dbrx's layer norm without a bias and its clamp_kqv,
+# and grok's logit scale; another arch that sets one is refused by the
 # feature's name
 _COHERE_ARCHES = ("command-r", "cohere2")
 _LAYER_NORM_ARCHES = (*_COHERE_ARCHES, "phi2", "gpt2", "starcoder", "starcoder2", "falcon",
                       "gptneox", "gptj", "stablelm", "olmo", "bloom", "mpt", "jais", "orion",
-                      "codeshell", "nemotron")
+                      "codeshell", "nemotron", "dbrx")
 _PARALLEL_ARCHES = (*_COHERE_ARCHES, "phi2", "falcon", "gptneox", "gptj", "plamo")
 _LEARNED_POS_ARCHES = ("gpt2", "starcoder")
 _ALIBI_ARCHES = ("bloom", "mpt", "refact", "jais")
-_SHEXP_ARCHES = ("qwen2moe", "deepseek2", "llama4")
+_SHEXP_ARCHES = ("qwen2moe", "deepseek2", "llama4", "deepseek", "dots1", "bailingmoe")
 _SCALED_ARCHES = ("granite", "granitemoe", "minicpm")
 
 
@@ -126,9 +138,11 @@ def check_supported(cfg: ModelConfig) -> None:
         "NoPE layers and attention temperature": not llama4 and (
             cfg.use_attn_temp or cfg.use_kq_norm or (cfg.n_no_rope_layer_step > 0
                                                      and cfg.arch != "cohere2")),
-        "logit scale": cfg.logit_scale != 1.0 and not cohere and cfg.arch not in _SCALED_ARCHES,
+        # grok multiplies its logits by 0.57735, as command-r does
+        "logit scale": (cfg.logit_scale != 1.0 and not cohere and cfg.arch != "grok"
+                        and cfg.arch not in _SCALED_ARCHES),
         "residual scale": cfg.residual_scale != 1.0 and cfg.arch not in _SCALED_ARCHES,
-        "clamp_kqv": cfg.attn_clamp > 0.0 and cfg.arch not in ("olmo", "mpt"),
+        "clamp_kqv": cfg.attn_clamp > 0.0 and cfg.arch not in ("olmo", "mpt", "dbrx"),
         "non-causal attention": not cfg.causal,
         "interleaved MoE layers": cfg.moe_every_n_layers > 0,
     }
@@ -533,6 +547,7 @@ def forward(
                      * cfg.f_attn_temp_scale + 1.0)[:, :, None, None]
     new_ks, new_vs = [], []
     for il, layer in enumerate(params["layers"]):
+        x_in = x  # the layer input, which arctic's parallel MoE branch reads
         # olmo2's post-norm-only layers: the attention reads the raw residual
         h = x if cfg.post_norm_only else _norm(x, layer, "attn_norm", cfg)
         # parallel residual: the FFN reads the same normed input (command-r,
@@ -606,15 +621,19 @@ def forward(
         x = x + attn
         # olmo's FFN norm has no tensor: the non-parametric norm
         h = _norm(x, layer, "ffn_norm", cfg) if "ffn_norm" in layer or cfg.nonparam_norms else x
-        if cfg.n_expert > 0 and "ffn_gate_inp" in layer:
+        if cfg.n_expert > 0 and "ffn_gate_inp" in layer and "ffn_norm_exps" not in layer:
             ffn = _ffn_moe(layer, h, cfg)
-        else:  # a dense layer, deepseek2's leading ones and llama4's interleaved ones
+        else:  # a dense layer: deepseek2's leading ones, llama4's interleaved ones, arctic's
             ffn = _ffn(layer, h, cfg)
         if cfg.post_norms and "ffn_post_norm" in layer:
             ffn = _norm(ffn, layer, "ffn_post_norm", cfg)
         if cfg.residual_scale != 1.0:
             ffn = _scale_in(ffn, cfg.residual_scale)
         x = x + ffn
+        if "ffn_norm_exps" in layer:
+            # arctic: the dense FFN above is sequential; the MoE branch reads
+            # the rms-normed layer input, and its output adds on top
+            x = x + _ffn_moe(layer, rms_norm(x_in, layer["ffn_norm_exps"], eps), cfg)
 
     cache = cache.write_all(torch.stack(new_ks), torch.stack(new_vs), write_pos,
                             active=write_mask, n_new=n_new)

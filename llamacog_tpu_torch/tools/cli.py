@@ -1,6 +1,7 @@
 """llamacog-cli (PyTorch port) — generation from a GGUF of any architecture
 the port's forward takes (models/llama.py::SUPPORTED_ARCHES: the llama,
-Qwen, Gemma, layer-norm, ALiBi and other families).
+Qwen, Gemma, layer-norm, ALiBi and other families, and the MoE variants
+deepseek, dots1, bailingmoe, phimoe, grok, arctic and dbrx).
 
 Usage:
     python -m llamacog_tpu_torch.tools.cli -m model.gguf -p "..." -n 64 \
@@ -10,8 +11,9 @@ Usage:
 
 ``-m synthetic:NAME`` runs the random-weight Q4_K_M model of a published
 configuration instead of a file (utils/synthetic.py CONFIGS: llama3-8b,
-qwen2.5-7b, qwen3-30b-a3b, gemma3-12b, bloom-7b1, jais-13b, ...) at its
-published depth, with a
+qwen2.5-7b, qwen3-30b-a3b, gemma3-12b, bloom-7b1, jais-13b, deepseek-moe-16b,
+dots1, ling-lite, phi3.5-moe, grok-1, dbrx, arctic, ...) at its published
+depth (Grok-1, DBRX and Arctic do not fit on one card at it), with a
 synthetic SPM vocab of its size.
 
 Counterpart of llamacog_tpu/tools/cli.py's plain generation path, with its

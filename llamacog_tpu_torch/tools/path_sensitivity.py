@@ -1,9 +1,12 @@
 """How far the plain path of a synthetic model moves under small noise.
 
     python -m llamacog_tpu_torch.tools.path_sensitivity --ftype IQ3_XXS \
-        [--model mixtral-8x7b] [--layers 2] [--eps 1e-3] [--only dense|experts]
+        [--model mixtral-8x7b] [--layers 2] [--eps 1e-3] [--only dense|experts] \
+        [--experts 16]
 
-(--model: any name of utils/synthetic.py's CONFIGS, at --layers layers.)
+(--model: any name of utils/synthetic.py's CONFIGS, at --layers layers;
+--experts cuts a MoE config's expert count, its widths and top k kept, as
+phase 4 cuts Arctic's 128 to 16.)
 
 chip_smoke.py's phase 4 holds the kernel path against the plain path at full
 width and 2 layers: prefill logits, 4 teacher-forced decode steps and a
@@ -23,6 +26,7 @@ a codebook preset with an importance matrix's rules). Runs on the CPU only.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 
@@ -37,6 +41,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=("dense", "experts"), default=None,
                     help="perturb only the dense or only the expert products")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
+    ap.add_argument("--experts", type=int, default=None,
+                    help="cut a MoE config's expert count (its widths and top k kept)")
     args = ap.parse_args(argv)
 
     import torch
@@ -47,6 +53,8 @@ def main(argv=None) -> int:
     from ..utils.synthetic import CODEBOOK_PRESETS, DEFAULT_LAYOUT, make_synthetic_params
 
     cfg = CONFIGS[args.model](n_layer=args.layers)
+    if args.experts:
+        cfg = dataclasses.replace(cfg, n_expert=args.experts)
     moe = cfg.n_expert > 0
     params = make_synthetic_params(cfg, seed=7, device="cpu", ftype=args.ftype or DEFAULT_LAYOUT,
                                    imatrix=args.ftype in CODEBOOK_PRESETS)
@@ -82,7 +90,7 @@ def main(argv=None) -> int:
             for a, b in zip(got, ref)]
     names = ["prefill", *(f"decode step {i + 1}" for i in range(len(forced))), "prefill chunk 2"]
     print(json.dumps({"model": args.model, "layers": args.layers, "ftype": args.ftype,
-                      "dtype": args.dtype, "eps": args.eps,
+                      "dtype": args.dtype, "eps": args.eps, "experts": cfg.n_expert,
                       "perturbed": args.only or "all",
                       "max_abs_logit": float(ref[0].abs().max()),
                       "rel_err": dict(zip(names, errs))}))

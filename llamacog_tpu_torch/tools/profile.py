@@ -6,7 +6,10 @@
 
 Builds the synthetic model of the configuration --model (utils/synthetic.py
 CONFIGS: llama3-8b by default, mixtral-8x7b, qwen2.5-7b, qwen3-30b-a3b,
-gemma3-12b, ...) in the weight preset --ftype (each tensor of the kind
+gemma3-12b, the MoE variants deepseek-moe-16b, dots1, ling-lite,
+phi3.5-moe, grok-1, dbrx and arctic (the last three with --layers 4 or so:
+at their full depth they do not fit on one card), ...) in the weight
+preset --ftype (each tensor of the kind
 llama.cpp's rules give it, for a codebook preset those of a file made
 with an importance matrix, as the public IQ files are; by default
 utils/synthetic.py's DEFAULT_LAYOUT, Q4_K_M with every attn_v Q6_K) (depth

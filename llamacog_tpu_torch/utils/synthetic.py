@@ -37,15 +37,20 @@ Qwen2.5, Qwen3, Qwen2-MoE, Qwen3-MoE, Gemma-2 and Gemma-3 members, of the
 layer-norm families' (Phi-2, Falcon-7B and -40B, GPT-2, StableLM-2,
 StarCoder2, StarCoderBase, Pythia, GPT-J) and of the later families'
 (Llama 4, OLMo, Granite, MiniCPM; BLOOM, MPT, Jais, Refact, the llama-graph
-clones, Minitron, AFM) (CONFIGS by name); make_synthetic_params adds
+clones, Minitron, AFM; the MoE variants DeepSeek-MoE-16B, dots.llm1,
+Ling-lite, Phi-3.5-MoE, Grok-1, DBRX and Snowflake Arctic) (CONFIGS by
+name); make_synthetic_params adds
 what each family's file carries beside the weights: q/k/v biases (qwen2,
 qwen2moe, stablelm, starcoder2), the other products' biases (_BIASES), norm
 biases (the layer-norm families), BLOOM's embedding norm, learned positions
 (gpt2, starcoder),
 falcon-40B's attn_norm_2, per-head q/k norms (qwen3, qwen3moe, gemma3),
-post-attention and post-FFN norms (gemma2, gemma3), the shared expert and
-its gate (qwen2moe), and no output tensor where the embedding is tied
-(Gemma, Qwen2.5-0.5B, GPT-2, StarCoderBase).
+post-attention and post-FFN norms (gemma2, gemma3, grok), the shared expert
+and its gate (qwen2moe; ungated in deepseek2, deepseek, dots1, bailingmoe
+and llama4), dots1's selection bias, phimoe's biases and rope factor tables,
+arctic's dense FFN and MoE-branch norm beside its experts, and no output
+tensor where the embedding is tied (Gemma, Qwen2.5-0.5B, GPT-2,
+StarCoderBase, Grok-1).
 """
 
 from __future__ import annotations
@@ -151,7 +156,11 @@ def random_weight(kind: str, n: int, k: int, generator: torch.Generator, device=
 def ffn_width(cfg: ModelConfig) -> int:
     """The dense FFN's width, by its tensors' rows: cfg.n_ff, but half of it
     for qwen (Qwen-1), whose feed_forward_length is twice the width of its
-    ffn_gate/ffn_up tensors (llama.cpp creates them n_ff / 2 wide)."""
+    ffn_gate/ffn_up tensors (llama.cpp creates them n_ff / 2 wide), and
+    n_embd for arctic, whose dense residual MLP is as wide as the model
+    (its feed_forward_length is the experts' width)."""
+    if cfg.arch == "arctic":
+        return cfg.n_embd
     return cfg.n_ff // 2 if cfg.arch == "qwen" else cfg.n_ff
 
 
@@ -906,6 +915,119 @@ def afm_4_5b_config(n_layer: int = 36) -> ModelConfig:
         rope=RopeConfig(dim=128, freq_base=10000.0))
 
 
+def deepseek_moe_16b_config(n_layer: int = 28) -> ModelConfig:
+    """DeepSeek-MoE-16B (deepseek-ai/deepseek-moe-16b-base config.json, GGUF
+    arch deepseek: 28 layers, hidden 2048, 16 heads of 128 (no GQA), layer 0
+    dense (first_k_dense_replace 1, intermediate 10944), the rest 64 routed
+    experts of moe_intermediate 1408, top 6, softmax, norm_topk_prob false,
+    scale 1.0, beside 2 shared experts; vocab 102400, rope theta 10000
+    (interleaved pairs in the GGUF), rms eps 1e-6, untied); `n_layer` cuts
+    depth only."""
+    return _family_config(
+        "deepseek", n_vocab=102400, n_ctx_train=4096, n_embd=2048, n_layer=n_layer, n_head=16,
+        n_head_kv=16, n_ff=10944, head_dim_k=128, head_dim_v=128, rms_norm_eps=1e-6,
+        n_expert=64, n_expert_used=6, n_ff_exp=1408, n_expert_shared=2, n_layer_dense_lead=1,
+        rope=RopeConfig(dim=128, freq_base=10000.0))
+
+
+def dots1_config(n_layer: int = 62) -> ModelConfig:
+    """dots.llm1 (rednote-hilab/dots.llm1.base config.json: 62 layers, hidden
+    4096, 32 heads of 128 (MHA-shaped k/v), per-head q/k rms norms, layer 0
+    dense (intermediate 10944), the rest 128 routed experts of
+    moe_intermediate 1408, top 6, sigmoid scores (noaux_tc) with the
+    e_score_correction_bias as the selection bias, norm_topk_prob true,
+    routed_scaling_factor 2.5, beside 2 shared experts; vocab 152064, rope
+    theta 1e7, rms eps 1e-5, untied), as the GGUF keys expert_gating_func,
+    expert_weights_norm and expert_weights_scale carry them; `n_layer` cuts
+    depth only."""
+    return _family_config(
+        "dots1", n_vocab=152064, n_ctx_train=32768, n_embd=4096, n_layer=n_layer, n_head=32,
+        n_head_kv=32, n_ff=10944, head_dim_k=128, head_dim_v=128, rms_norm_eps=1e-5,
+        n_expert=128, n_expert_used=6, n_ff_exp=1408, n_expert_shared=2, n_layer_dense_lead=1,
+        expert_gating_func="sigmoid", expert_weights_norm=True, expert_weights_scale=2.5,
+        rope=RopeConfig(dim=128, freq_base=1e7))
+
+
+def ling_lite_config(n_layer: int = 28) -> ModelConfig:
+    """Ling-lite (inclusionAI/Ling-lite config.json, GGUF arch bailingmoe: 28
+    layers, hidden 2048, 16 query heads over 4 kv heads of 128, every layer
+    MoE (first_k_dense_replace 0; the intermediate 5632 of its config is
+    unused), 64 routed experts of moe_intermediate 1408, top 6, softmax,
+    norm_topk_prob true, beside 2 shared experts; vocab 126464, rope theta
+    600000 (interleaved pairs in the GGUF), rms eps 1e-6, untied); `n_layer`
+    cuts depth only."""
+    return _family_config(
+        "bailingmoe", n_vocab=126464, n_ctx_train=16384, n_embd=2048, n_layer=n_layer,
+        n_head=16, n_head_kv=4, n_ff=5632, head_dim_k=128, head_dim_v=128, rms_norm_eps=1e-6,
+        n_expert=64, n_expert_used=6, n_ff_exp=1408, n_expert_shared=2, expert_weights_norm=True,
+        rope=RopeConfig(dim=128, freq_base=600000.0))
+
+
+def phi3_5_moe_config(n_layer: int = 32) -> ModelConfig:
+    """Phi-3.5-MoE (microsoft/Phi-3.5-MoE-instruct config.json, GGUF arch
+    phimoe: 32 layers, hidden 4096, 32 query heads over 8 kv heads of 128,
+    16 experts of intermediate 6400, top 2, softmax renormalized (the arch's
+    default), vocab 32064, rope theta 10000, rms eps 1e-5; norms with their
+    biases, which llama.cpp runs as rms norms plus the bias, q/k/v, output
+    and LM head biases; longrope: 64 long and 64 short factors, original
+    context 4096 of 131072, rope.scaling.attn_factor sqrt(1 + ln 32 / ln
+    4096) as for Phi-3.5-mini, untied); `n_layer` cuts depth only."""
+    return _family_config(
+        "phimoe", n_vocab=32064, n_ctx_train=131072, n_embd=4096, n_layer=n_layer, n_head=32,
+        n_head_kv=8, n_ff=6400, head_dim_k=128, head_dim_v=128, rms_norm_eps=1e-5,
+        n_expert=16, n_expert_used=2,
+        rope=RopeConfig(dim=128, freq_base=10000.0, orig_ctx_len=4096,
+                        attn_factor=math.sqrt(1 + math.log(32) / math.log(4096))))
+
+
+def grok_1_config(n_layer: int = 64) -> ModelConfig:
+    """Grok-1 (xai-org/grok-1, its model.py and the config in run.py: 64
+    layers, emb_size 6144, 48 query heads over 8 kv heads of 128, 8 experts
+    of widening_factor 8 (32768 wide, GELU), top 2, vocab 131072, sequence
+    length 8192, embedding multiplier 78.38, output multiplier 0.57735, the
+    attention logits capped at 30; one in-out embedding table, so tied).
+    Its rope theta (10000) and rms eps (1e-5) are the JAX package's
+    defaults; the arch's defaults (config.py) give the scales, the fixed
+    attention scale 1/sqrt(128), the softcap, GELU, the post-norms and the
+    renormalized top 2; `n_layer` cuts depth only."""
+    return _family_config(
+        "grok", n_vocab=131072, n_ctx_train=8192, n_embd=6144, n_layer=n_layer, n_head=48,
+        n_head_kv=8, n_ff=32768, head_dim_k=128, head_dim_v=128, rms_norm_eps=1e-5,
+        n_expert=8, n_expert_used=2, rope=RopeConfig(dim=128, freq_base=10000.0),
+        tie_word_embeddings=True)
+
+
+def dbrx_config(n_layer: int = 40) -> ModelConfig:
+    """DBRX (databricks/dbrx-base config.json: n_layers 40, d_model 6144,
+    n_heads 48 over kv_n_heads 8 of 128, one fused Wqkv, clip_qkv 8, rope
+    theta 500000, layer norms without a bias, 16 experts of ffn_hidden_size
+    10752, top 4, vocab 100352, max_seq_len 32768, untied). Its layer-norm
+    eps is the JAX default (1e-5). A converted file carries no
+    expert_weights_norm key and the JAX package gives dbrx no default, so
+    both packages route with unnormalized top-4 weights (llama.cpp's dbrx
+    graph normalizes them); `n_layer` cuts depth only."""
+    return _family_config(
+        "dbrx", n_vocab=100352, n_ctx_train=32768, n_embd=6144, n_layer=n_layer, n_head=48,
+        n_head_kv=8, n_ff=10752, head_dim_k=128, head_dim_v=128, norm_eps=1e-5,
+        n_expert=16, n_expert_used=4, attn_clamp=8.0, rope=RopeConfig(dim=128, freq_base=5e5))
+
+
+def arctic_config(n_layer: int = 35) -> ModelConfig:
+    """Snowflake Arctic (Snowflake/snowflake-arctic-base config.json: 35
+    layers, hidden 7168, 56 query heads over 8 kv heads of 128, 128 experts
+    of intermediate 4864, top 2, renormalized (the arch's default), beside
+    a dense residual MLP on every layer whose width is the hidden size
+    (modeling_arctic's residual_mlp, llama.cpp's n_embd x n_embd ffn_gate,
+    ffn_up and ffn_down); vocab 32000, rope theta 10000 (interleaved pairs
+    in the GGUF), rms eps 1e-5, untied). Each layer runs the dense FFN as
+    its sequential residual and the MoE FFN on the layer input, normed by
+    ffn_norm_exps; `n_layer` cuts depth only."""
+    return _family_config(
+        "arctic", n_vocab=32000, n_ctx_train=4096, n_embd=7168, n_layer=n_layer, n_head=56,
+        n_head_kv=8, n_ff=4864, head_dim_k=128, head_dim_v=128, rms_norm_eps=1e-5,
+        n_expert=128, n_expert_used=2, rope=RopeConfig(dim=128, freq_base=10000.0))
+
+
 # every synthetic configuration by the name the tools take (--model)
 CONFIGS = {"llama3-8b": llama3_8b_config, "llama3-70b": llama3_70b_config,
            "mixtral-8x7b": mixtral_8x7b_config, "qwen2.5-7b": qwen2_5_7b_config,
@@ -930,14 +1052,17 @@ CONFIGS = {"llama3-8b": llama3_8b_config, "llama3-70b": llama3_70b_config,
            "exaone-3-7.8b": exaone_3_7_8b_config, "orion-14b": orion_14b_config,
            "codeshell-7b": codeshell_7b_config, "qwen-7b": qwen_7b_config,
            "plamo-13b": plamo_13b_config, "minitron-4b": minitron_4b_config,
-           "afm-4.5b": afm_4_5b_config}
+           "afm-4.5b": afm_4_5b_config, "deepseek-moe-16b": deepseek_moe_16b_config,
+           "dots1": dots1_config, "ling-lite": ling_lite_config,
+           "phi3.5-moe": phi3_5_moe_config, "grok-1": grok_1_config, "dbrx": dbrx_config,
+           "arctic": arctic_config}
 # the families whose files carry q/k/v biases, and per-head q/k norms
-_QKV_BIAS_ARCHES = ("qwen2", "qwen2moe", "stablelm", "starcoder2")
-_QK_NORM_ARCHES = ("qwen3", "qwen3moe", "gemma3")
+_QKV_BIAS_ARCHES = ("qwen2", "qwen2moe", "stablelm", "starcoder2", "phimoe")
+_QK_NORM_ARCHES = ("qwen3", "qwen3moe", "gemma3", "dots1")
 # the files that hold q/k/v as one attn_qkv tensor, and the FFNs without a
 # gate (act(up) -> down)
 _FUSED_QKV_ARCHES = ("phi3", "phi2", "falcon", "gpt2", "starcoder", "gptneox", "bloom", "mpt",
-                     "jais", "codeshell", "qwen")
+                     "jais", "codeshell", "qwen", "dbrx")
 _UNGATED_ARCHES = ("phi2", "falcon", "gpt2", "starcoder", "starcoder2", "gptneox", "gptj",
                    "bloom", "mpt", "codeshell", "nemotron", "arcee")
 # the biases of the products beside q/k/v's (llama.cpp's tensor lists of
@@ -946,11 +1071,12 @@ _GPT_BIASES = ("attn_qkv", "attn_output", "ffn_up", "ffn_down")
 _BIASES = {"phi2": (*_GPT_BIASES, "output"), "gpt2": _GPT_BIASES, "starcoder": _GPT_BIASES,
            "gptneox": _GPT_BIASES, "starcoder2": ("attn_output", "ffn_up", "ffn_down"),
            "gptj": ("ffn_up", "ffn_down", "output"), "bloom": _GPT_BIASES,
-           "codeshell": _GPT_BIASES, "jais": (*_GPT_BIASES, "ffn_gate"), "qwen": ("attn_qkv",)}
-# the layer-norm families whose norms carry biases (command-r's and mpt's
-# have none)
+           "codeshell": _GPT_BIASES, "jais": (*_GPT_BIASES, "ffn_gate"), "qwen": ("attn_qkv",),
+           "phimoe": ("attn_output", "output")}
+# the families whose norms carry biases: the layer-norm families but
+# command-r, mpt and dbrx, and phimoe's rms norms
 _NORM_BIAS_ARCHES = ("phi2", "falcon", "gpt2", "starcoder", "starcoder2", "gptneox", "gptj",
-                     "stablelm", "bloom", "jais", "orion", "codeshell", "nemotron")
+                     "stablelm", "bloom", "jais", "orion", "codeshell", "nemotron", "phimoe")
 
 
 def random_experts(kind: str, n_exp: int, n: int, k: int, generator: torch.Generator,
@@ -975,7 +1101,11 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
     has no ffn_norm, its FFN reading the attention's input norm, but
     gptneox, whose FFN has its own; falcon-40B's attention has its own
     attn_norm_2), biases, learned positions and routers small f32 draws,
-    phi3's rope factors a long and a short table of cfg.rope.dim / 2."""
+    phi3's and phimoe's rope factors a long and a short table of
+    cfg.rope.dim / 2. An arctic layer holds the dense FFN (ffn_gate_up and
+    ffn_down, ffn_width wide) and its MoE branch's norm, ffn_norm_exps (ones,
+    f32), beside the router and the experts; a dots1 MoE layer the
+    selection bias exp_probs_b (small f32 draws)."""
     from .. import resolve_device
 
     dev = resolve_device(device)
@@ -1016,7 +1146,7 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
         params["output"] = random_wire(kinds["output"], cfg.n_vocab, E, g, dev)
         if "output" in biased:
             params["output_b"] = small(cfg.n_vocab)
-    if cfg.arch == "phi3" and cfg.rope.orig_ctx_len:  # longrope's two factor tables
+    if cfg.arch in ("phi3", "phimoe") and cfg.rope.orig_ctx_len:  # longrope's two tables
         half = cfg.rope.dim // 2
         params["rope_short"] = 1.0 + torch.rand(half, generator=g, device=dev) * 0.1
         params["rope_long"] = torch.linspace(1.0, 40.0, half, device=dev)
@@ -1067,7 +1197,14 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
             layer["attn_post_norm"], layer["ffn_post_norm"] = ones(E), ones(E)
         if moe_layer(cfg, il):
             n_exp, F = cfg.n_expert, cfg.n_ff_exp or cfg.n_ff
+            if cfg.arch == "arctic":  # the dense FFN beside the MoE branch and its norm
+                Fd = ffn_width(cfg)
+                layer["ffn_gate_up"] = random_wire(lk["ffn_gate"], 2 * Fd, E, g, dev)
+                layer["ffn_down"] = random_wire(lk["ffn_down"], E, Fd, g, dev)
+                layer["ffn_norm_exps"] = ones(E)
             layer["ffn_gate_inp"] = small(n_exp, E)
+            if cfg.arch == "dots1":  # the selection bias of its sigmoid router
+                layer["exp_probs_b"] = small(n_exp)
             layer["ffn_gate_up_exps"] = random_experts(lk["ffn_gate"], n_exp, 2 * F, E, g, dev)
             layer["ffn_down_exps"] = random_experts(lk["ffn_down"], n_exp, E, F, g, dev)
             fs = shared_ff(cfg)

@@ -53,7 +53,8 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
                ffn_norm=True, fused_qkv=False, fused_up=False, mla=None, dense_lead=0,
                probs_bias=False, rope_factors=None, extra_tensors=None, ffn_gate=True,
                biases=(), n_pos=0, attn_norm_2=False, attn_norm=True, norms=True,
-               moe_step=0) -> str:
+               moe_step=0, post_norm_names=("post_attention_norm", "post_ffw_norm"),
+               moe_dense=0) -> str:
     """A tiny random GGUF of `arch` with llama.cpp's tensor names. `kind`
     maps a tensor name to its GGMLType (None: F32; F16 stored as such); norms, biases and the
     routers stay F32, as llama.cpp keeps them. Norm weights are drawn near
@@ -73,7 +74,11 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
     norm); and `norms=False` (olmo: no norm tensor at all), `attn_norm=False`
     (olmo2: no pre-norms), `qk_norm="full"` (olmo2, olmoe: q/k norms over the
     whole projection) and `moe_step` (llama4's interleave: MoE only in the
-    layers il with (il + 1) % moe_step == 0, the others dense)."""
+    layers il with (il + 1) % moe_step == 0, the others dense); and the MoE
+    variants': `post_norm_names` (grok keeps its post-norms under
+    attn_output_norm and layer_output_norm), `ffn_norm` as a name (dbrx's
+    pre-FFN norm is attn_output_norm) and `moe_dense` (arctic: a dense FFN
+    of that width and ffn_norm_exps beside the experts of a MoE layer)."""
     rng = np.random.default_rng(seed)
     hd = head_dim or n_embd // n_head
     hd_k = hd_v = hd
@@ -184,10 +189,10 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
         weight(p + "attn_output.weight", rand(n_embd, n_head * hd_v))
         bias(p + "attn_output", n_embd)
         if post_norms:
-            norm(p + "post_attention_norm", n_embd)
-            norm(p + "post_ffw_norm", n_embd)
+            for name in post_norm_names:
+                norm(p + name, n_embd)
         if ffn_norm:
-            norm(p + "ffn_norm", n_embd)
+            norm(p + (ffn_norm if isinstance(ffn_norm, str) else "ffn_norm"), n_embd)
         if n_expert and il >= dense_lead and (not moe_step or (il + 1) % moe_step == 0):
             w.add_tensor(p + "ffn_gate_inp.weight", rand(n_expert, n_embd, s=0.5))
             if probs_bias:
@@ -201,6 +206,11 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
                 weight(p + "ffn_down_shexp.weight", rand(n_embd, shexp_ff))
                 if shexp_gate:
                     w.add_tensor(p + "ffn_gate_inp_shexp.weight", rand(1, n_embd, s=0.5))
+            if moe_dense:
+                weight(p + "ffn_gate.weight", rand(moe_dense, n_embd))
+                weight(p + "ffn_up.weight", rand(moe_dense, n_embd))
+                weight(p + "ffn_down.weight", rand(n_embd, moe_dense))
+                norm(p + "ffn_norm_exps", n_embd)
         elif fused_up:
             weight(p + "ffn_up.weight", rand(2 * n_ff, n_embd))
             weight(p + "ffn_down.weight", rand(n_embd, n_ff))
@@ -327,7 +337,7 @@ def test_qwen3moe_routing_without_the_norm_key(tmp_path):
 
 def test_unported_archs_and_features_raise_by_name():
     base = synthetic.qwen3_8b_config(n_layer=2)
-    for arch in ("plm", "glm4", "deci", "dbrx"):
+    for arch in ("plm", "glm4", "deci", "chatglm"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             Engine({"layers": []}, ModelConfig(**{**base.__dict__, "arch": arch}),
                    device="cpu")
