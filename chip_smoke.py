@@ -83,7 +83,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      Snowflake Arctic's 56 over 8, K10 (1 and 4 tokens) and K11 (a
      128-token prefill) at Arctic's 128 experts of 4864 over 7168 (top 2),
      DBRX's 16 of 10752 (top 4), Grok-1's 8 of 32768 (its down at K 32768)
-     and dots.llm1's 128 of 1408 (top 6, down padded to 1536);
+     and dots.llm1's 128 of 1408 (top 6, down padded to 1536); and the
+     last decoders': K1/K2 on GLM-4-9B-0414's 27392-row fused gate_up and
+     its ffn_down at K 13696 (32-block fallback), K3 on MiniCPM3-4B's q
+     LoRA with the compressed kv and K1/K2 on its q decompression at K 768,
+     K1/K2 on BitNet b1.58-large's ternary rows (TQ2_0 and TQ1_0 at K 1536
+     and 4096), K4-K7 at MiniCPM3's MLA heads (K 96 / V 64, 40 over 40: the
+     96/64 tiles) and K4/K5 at GLM-4's 32 query heads over 2;
   4. the full-width kernel path (8B widths, 2 layers) against the plain
      path (the same params on the CPU): prefill logits, 4 teacher-forced
      decode steps (Engine.decode_one: replays of the step's CUDA graph on
@@ -106,7 +112,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      path against the plain path (the 8B as an f32 model); then each of
      the six new families at 2 layers of its config's widths: Qwen2.5-7B,
      Qwen2.5-0.5B, Qwen3-8B, Qwen3-30B-A3B,
-     Qwen2-57B-A14B, Gemma-2-9B (max_seq 8192: the ring; and q8_0) and
+     Qwen2-57B-A14B (1 layer), Gemma-2-9B (max_seq 8192: the ring; and q8_0) and
      Gemma-3 at Gemma-3-4B's widths and 6 layers (one global), an
      1100-token prompt past its 1024-token window at max_seq 1280 (the ring
      wraps; the decode steps and the second chunk read it); then the
@@ -121,7 +127,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      Pythia-6.9B, GPT-J-6B and Falcon-40B (StableLM-2, StarCoder2,
      StarCoderBase and GPT-J as f32 models: see phase 4's comment); then
      Llama 4, the OLMo and the scaled families at 2 layers:
-     Llama-4-Scout (chunked attention: the masked path, no attention
+     Llama-4-Scout at 1 (chunked attention: the masked path, no attention
      kernel; a 40-token prompt for the grouped GEMM at top 1),
      Granite-3.1-8B (dense and q8_0), OLMoE-1B-7B, OLMo-2-7B (dense and
      q8_0), OLMo-7B, Granite-3.1-3B-A800M and MiniCPM-2B; then the ALiBi
@@ -135,9 +141,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      Orion-14B and CodeShell-7B as f32 models: see phase 4's comment); then
      the MoE variants: DeepSeek-MoE-16B, dots.llm1 (dense and q8_0; the
      forced routing repeats its selection bias), Ling-lite and Phi-3.5-MoE
-     at 2 layers, DBRX at 2 (dense and q8_0, as an f32 model: see phase 4's
+     at 2 layers, DBRX at 1 (dense and q8_0, as an f32 model: see phase 4's
      comment), Grok-1 at 1 and Snowflake Arctic at 1 with its 128 experts
      cut to 16 (the CPU copy of one layer's 128 would hold ~54 GB decoded);
+     then the last decoders: MiniCPM3-4B (dense and q8_0), PLM-1.8B,
+     GLM-4-9B-0414 (as an f32 model: see phase 4's comment),
+     glm-4-9b-chat, Chameleon-7B and BitNet b1.58-large in
+     TQ2_0 and TQ1_0 at 4 layers, the swin Chameleon-30B at 2, OpenELM-3B
+     at its 36 layers (dense and q8_0) and the deci pattern at
+     Nemotron-51B's widths over 5 layers (dense and q8_0), the last two on
+     the masked path on every layer (no attention kernel, the JAX route);
+     chameleon's -FLT_MAX image-token logits must agree between the paths
+     and are left out of the error;
   5. whether stream capture keeps the split-S combine's programmatic
      dependent launch (K4 and K6 captured alone: the graph's edges by
      type, the replay against the eager call), then the 8B Q4_K_M
@@ -211,8 +226,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      layers; then DeepSeek-MoE-16B at full depth (28 layers) and dots.llm1,
      Ling-lite, Phi-3.5-MoE, Grok-1, DBRX and Snowflake Arctic at 4 layers
      (Arctic's replayed step's logits held bit for bit against its eager
-     step's), each with its ms/token, TTFT, peak memory and launches a
-     token beside the card's name and power limit; the phase's wall time;
+     step's); then GLM-4-9B-0414 (40 layers), OpenELM-3B (36: the masked
+     path on every layer, no attention kernel, checked; its replayed step
+     bit for bit against the eager step), MiniCPM3-4B (62; dense and q8_0)
+     and BitNet b1.58-large in TQ2_0 and TQ1_0 (24) at full depth, each
+     with its ms/token, TTFT, peak memory and launches a token beside the
+     card's name and power limit; the phase's wall time;
   6. each phase's seconds, one JSON line of per-kernel results, the card's
      name and power limit, and the final {"ok": true, ...} line.
 
@@ -258,6 +277,7 @@ TOL_QMM = 1e-4
 TOL_K13 = 1e-6
 TOL_ATTN = 1e-2       # bf16 outputs: one bf16 rounding (2^-8) of each side
 TOL_PATH = 5e-2       # bf16 model, 2 layers: bf16 roundings that flip between paths
+NEG_FLT_MAX = -3.4028234663852886e38  # chameleon's suppressed image tokens (-FLT_MAX)
 # a row of a B-row engine against a single-stream engine fed the row's own
 # calls, on the card: the same kernels at the same shapes, a row's qmv and
 # attention independent of the others' (at these depths one split of the
@@ -392,7 +412,9 @@ def main() -> int:
         internlm2_7b_config, exaone_3_7_8b_config, orion_14b_config, codeshell_7b_config,
         qwen_7b_config, plamo_13b_config, minitron_4b_config, afm_4_5b_config,
         deepseek_moe_16b_config, dots1_config, ling_lite_config, phi3_5_moe_config,
-        grok_1_config, dbrx_config, arctic_config)
+        grok_1_config, dbrx_config, arctic_config, minicpm3_4b_config, plm_1_8b_config,
+        glm4_9b_0414_config, glm_4_9b_chat_config, chameleon_7b_config, chameleon_30b_config,
+        bitnet_b1_58_large_config, openelm_3b_config, deci_51b_config)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1412,6 +1434,22 @@ def main() -> int:
         "dots1": [("output Q6_K 152064x4096", ["Q6_K"], [152064], 4096)],
         "grok-1": [("output (tied token_embd) Q6_K 131072x6144", ["Q6_K"], [131072], 6144)],
         "dbrx": [("attn_qkv Q5_K 8192x6144", ["Q5_K"], [8192], 6144)],
+        # the last decoders: GLM-4-9B-0414's fused gate_up (its lone ffn_up of
+        # 2 x 13696 rows) and its ffn_down at K 13696 in Q4_K's 32-block
+        # fallback; MiniCPM3-4B's q LoRA with the compressed kv in one
+        # launch and its q decompression at K 768; BitNet b1.58-large's
+        # ternary rows (K 1536 and 4096: whole 256-weight blocks) in TQ2_0
+        # and TQ1_0, each product its own launch (its scales keep them apart)
+        "glm4-9b-0414": [("ffn_gate_up Q4_K 27392x4096", ["Q4_K"], [27392], 4096),
+                         ("ffn_down Q5_0 4096x13696 (padded to 13824)", ["Q5_0"], [4096],
+                          13696)],
+        "minicpm3-4b": [("attn_q_a+attn_kv_a_mqa Q4_K 768x2560 + Q4_K 288x2560",
+                         ["Q4_K", "Q4_K"], [768, 288], 2560),
+                        ("attn_q_b Q4_K 3840x768", ["Q4_K"], [3840], 768)],
+        **{f"bitnet {tq}": [(f"ffn_gate {tq} 4096x1536", [tq], [4096], 1536),
+                            (f"ffn_down {tq} 1536x4096", [tq], [1536], 4096),
+                            (f"attn_q {tq} 1536x1536", [tq], [1536], 1536)]
+           for tq in ("TQ2_0", "TQ1_0")},
     }
     for run, items in fam_ws.items():
         for label, kinds, rows, Kw in items:
@@ -1592,6 +1630,12 @@ def main() -> int:
     # SDPA beside it: SDPA has no softcap), Snowflake Arctic's 56 over 8
     fam_attention("grok-1", 48, 8, 128, 30.0, 0)
     fam_attention("arctic", 56, 8, 128, 0.0, 0)
+    # the last decoders' heads: MiniCPM3-4B's MLA at K 96 (64 nope + 32
+    # rope) / V 64, one kv head a query head (K5/K7's 96/64 tiles), dense
+    # and q8_0; GLM-4-9B-0414's 32 query heads over 2 (16 a kv head, one
+    # head group of K4)
+    fam_attention("minicpm3-4b", 40, 40, 96, 0.0, 0, quant_run="minicpm3-4b kv q8_0", Dv_=64)
+    fam_attention("glm4-9b-0414", 32, 2, 128, 0.0, 0)
     torch.cuda.empty_cache()
 
     def family_experts(run, n_exp_f, top_k, stacks, run512=None):
@@ -1968,11 +2012,18 @@ def main() -> int:
                       f"{model} {label}: the kernel path routed a row away from the plain "
                       f"path's top-{cfgp.n_expert_used} other than by a tie swap")
             for i, (a, b) in enumerate(zip(runs["kernel"], runs["plain"])):
-                err = rel_err(torch.from_numpy(a), torch.from_numpy(b))
                 what = ("prefill" if i == 0 else "prefill chunk 2" if i == len(forced) + 1
                         else f"decode step {i}")
                 what = f"{label}, {what}"
-                check(a.shape == (Vp,) and bool(torch.isfinite(torch.from_numpy(a)).all()),
+                a_t, b_t = torch.from_numpy(a), torch.from_numpy(b)
+                # chameleon's image tokens hold -FLT_MAX on both paths; the
+                # error is taken over the other ids
+                sup = b_t == NEG_FLT_MAX
+                check(torch.equal(a_t == NEG_FLT_MAX, sup)
+                      and bool(sup.any()) == (cfgp.arch == "chameleon" and Vp > 8196),
+                      f"{model} {what}: the -FLT_MAX logits differ between the paths")
+                err = rel_err(a_t[~sup], b_t[~sup])
+                check(a.shape == (Vp,) and bool(torch.isfinite(a_t).all()),
                       f"{model} {what}: logits not finite of shape [{Vp}]")
                 log(f"[path] {model}, {cfgp.n_layer} layers, {what}: logits max rel err {err:.3e} "
                     f"(tol {TOL_PATH:.0e}), argmax kernel {int(a.argmax())} "
@@ -2231,7 +2282,8 @@ def main() -> int:
     # (a CPU copy of Gemma-3-12B's 262208 x 3840 head takes 4 GB decoded)
     # and 6 layers, so that one of them is global (pattern 6), its
     # 1100-token prompt past the 1024-token window: the ring wraps within
-    # the prompt, and the decode steps and the second chunk read it
+    # the prompt, and the decode steps and the second chunk read it;
+    # Qwen2-57B-A14B at 1 layer (its layers are alike; for time)
     prompt20f = [(i * 7919) % 151936 for i in range(2, 22)]
     for model, cfgf, cases, max_seq in (
             ("Qwen2.5-7B widths", qwen2_5_7b_config(n_layer=2), [
@@ -2246,7 +2298,7 @@ def main() -> int:
             ("Qwen3-30B-A3B widths", qwen3_30b_a3b_config(n_layer=2), [
                 ("kv dense", "dense", {}, prompt20f, ("qmv", "qgemm", "qmv_id", "qgemm_id",
                                                       *dense_attn), "stacked")], 64),
-            ("Qwen2-57B-A14B widths", qwen2_57b_a14b_config(n_layer=2), [
+            ("Qwen2-57B-A14B widths", qwen2_57b_a14b_config(n_layer=1), [
                 ("kv dense", "dense", {}, prompt20f, ("qmv", "qgemm", "qmv_id", "qgemm_id",
                                                       *dense_attn), "stacked")], 64),
             ("Gemma-2-9B widths", gemma2_9b_config(n_layer=2), [
@@ -2345,7 +2397,8 @@ def main() -> int:
         del p_gpu, p_cpu
         torch.cuda.empty_cache()
     # Llama 4, the OLMo families and the scaled families, Q4_K_M: 2 layers of
-    # each config's widths. Llama-4-Scout's two layers are chunked: the
+    # each config's widths. Llama-4-Scout at 1 layer (its first layers are
+    # alike; for time), chunked: the
     # masked path on every layer, prefill and decode (the JAX route for a
     # chunked model), no attention kernel; top 1 of 16 experts beside the
     # shared one, so its 40-token prompt (40 pairs) takes the grouped GEMM;
@@ -2357,7 +2410,7 @@ def main() -> int:
     prompt40 = [(i * 7919) % 49152 for i in range(2, 42)]
     prompt20g = prompt40[:20]
     for model, cfgf, cases, max_seq in (
-            ("Llama-4-Scout widths", llama4_scout_config(n_layer=2), [
+            ("Llama-4-Scout widths", llama4_scout_config(n_layer=1), [
                 ("kv dense (masked)", "dense", {}, prompt40, moe_attn, "masked")], 1024),
             ("Granite-3.1-8B widths", granite_3_1_8b_config(n_layer=2), [
                 ("kv dense", "dense", {}, prompt20g, ("qmv", "qgemm", *dense_attn), "stacked"),
@@ -2455,11 +2508,11 @@ def main() -> int:
     # about a bf16 rounding on every product, tools/path_sensitivity.py
     # --model dbrx --ftype Q4_K_M, 2 layers, on the CPU; the others
     # 0.0002-0.0068; in f32 qmv and K10 take every row, K5/K7 their f32
-    # bodies) at 2, Grok-1
+    # bodies) at 2, DBRX at 1 (its layers are alike; for time), Grok-1
     # (softcap 30, post-norms, GELU experts, the tied 131072-row head) and
     # Snowflake Arctic (the dense FFN and the MoE branch on the layer input)
     # at 1: each plain copy keeps its stacks decoded at 4 bytes a weight,
-    # DBRX's 2 layers ~25 GB and Grok-1's one ~19 GB of host memory. Arctic
+    # DBRX's layer ~12 GB and Grok-1's ~19 GB of host memory. Arctic
     # runs here with its 128 experts cut to 16, each expert's widths and
     # top 2 kept: one layer's 128 would hold ~54 GB decoded; phases 3 and 5
     # run all 128
@@ -2477,7 +2530,7 @@ def main() -> int:
                 ("kv dense", "dense", {}, prompt20e, moe_stacked, "stacked")], 1024),
             ("Phi-3.5-MoE widths", phi3_5_moe_config(n_layer=2), [
                 ("kv dense", "dense", {}, prompt20e, moe_stacked, "stacked")], 1024),
-            ("DBRX widths", dbrx_config(n_layer=2), [
+            ("DBRX widths", dbrx_config(n_layer=1), [
                 ("kv dense f32", "dense", {}, prompt20e, (*f32_dense, "qmv_id"), "stacked",
                  torch.float32),
                 ("kv q8_0 f32", "q8_0", {}, prompt20e, (*f32_q8, "qmv_id"), "stacked",
@@ -2487,6 +2540,61 @@ def main() -> int:
             ("Arctic widths, 16 of its 128 experts", arctic16, [
                 ("kv dense", "dense", {}, prompt20e, moe_stacked, "stacked")], 64)):
         p_gpu, p_cpu = two_copies(cfgf, "Q4_K_M")
+        path_check(model, cfgf, p_gpu, p_cpu, cases, [11, 12345, 777, 31000], max_seq)
+        del p_gpu, p_cpu
+        torch.cuda.empty_cache()
+    # the last decoders, at each config's widths, Q4_K_M unless named:
+    # MiniCPM3-4B (MLA with a q LoRA at K 96 / V 64, its residual scale not
+    # applied, the longrope tables; dense and q8_0) and PLM-1.8B (MLA
+    # without a q LoRA, relu^2, tied) at 4 layers; GLM-4-9B-0414 (biased
+    # q/k/v, the fused gate_up, pre- and post-norms, rope over half of each
+    # head, 16 query heads a kv head) and glm-4-9b-chat (biased attn_qkv) at
+    # 4; Chameleon-7B (per-head layer norms at eps 0, the image tokens'
+    # -FLT_MAX) at 4 and the swin Chameleon-30B at 2; BitNet b1.58-large in
+    # TQ2_0 and TQ1_0 (sub-norms, each product's scale, its own launch) at
+    # 4; OpenELM-3B at its 36 layers (12 to 24 query heads over 3 to 6 kv
+    # heads, the cache 6 wide: the masked path on every layer, no attention
+    # kernel, the JAX route; dense and q8_0) and the deci pattern at
+    # Nemotron-51B's widths over its first 5 layers (GQA at 8 and 2 kv
+    # heads, attention-free, linear attention, linear attention without an
+    # FFN; the masked path; dense and q8_0). GLM-4-9B-0414 runs as an f32
+    # model: its synthetic bf16 plain path moves 0.012-0.084 of max |logit|
+    # under noise of about a bf16 rounding on every product
+    # (tools/path_sensitivity.py --model glm4-9b-0414 --ftype Q4_K_M
+    # --layers 4, on the CPU: its post-norms of ones rescale each branch's
+    # small output to unit size), past TOL_PATH; in f32 the paths differ by
+    # summation order alone (qmv takes every f32 row, K5 its f32 body;
+    # phase 3 holds the bf16 tiles at its heads, phase 5 runs them)
+    prompt20d = [(i * 7919) % 32000 for i in range(2, 22)]
+    q8_stacked = ("qmv", "qgemm", *quant_attn)
+    for model, cfgf, ftype, cases, max_seq in (
+            ("MiniCPM3-4B widths", minicpm3_4b_config(n_layer=4), "Q4_K_M", [
+                ("kv dense", "dense", {}, prompt20d, stacked, "stacked"),
+                ("kv q8_0", "q8_0", {}, prompt20d, q8_stacked, "stacked")], 1024),
+            ("PLM-1.8B widths", plm_1_8b_config(n_layer=4), "Q4_K_M", [
+                ("kv dense", "dense", {}, prompt20d, stacked, "stacked")], 1024),
+            ("GLM-4-9B-0414 widths", glm4_9b_0414_config(n_layer=4), "Q4_K_M", [
+                ("kv dense f32", "dense", {}, prompt20d, f32_dense, "stacked", torch.float32)],
+             1024),
+            ("glm-4-9b-chat widths", glm_4_9b_chat_config(n_layer=4), "Q4_K_M", [
+                ("kv dense", "dense", {}, prompt20d, stacked, "stacked")], 1024),
+            ("Chameleon-7B widths", chameleon_7b_config(n_layer=4), "Q4_K_M", [
+                ("kv dense", "dense", {}, prompt20d, stacked, "stacked")], 1024),
+            ("Chameleon-30B widths (swin)", chameleon_30b_config(n_layer=2), "Q4_K_M", [
+                ("kv dense", "dense", {}, prompt20d, stacked, "stacked")], 1024),
+            ("BitNet b1.58-large widths", bitnet_b1_58_large_config(n_layer=4), "TQ2_0", [
+                ("TQ2_0 kv dense", "dense", {}, prompt20d, stacked, "stacked")], 1024),
+            ("BitNet b1.58-large widths", bitnet_b1_58_large_config(n_layer=4), "TQ1_0", [
+                ("TQ1_0 kv dense", "dense", {}, prompt20d, stacked, "stacked")], 1024),
+            ("OpenELM-3B widths", openelm_3b_config(), "Q4_K_M", [
+                ("kv dense (masked)", "dense", {}, prompt20d, ("qmv", "qgemm"), "masked"),
+                ("kv q8_0 (masked)", "q8_0", {}, prompt20d, ("qmv", "qgemm"), "masked")],
+             1024),
+            ("deci pattern at Nemotron-51B widths", deci_51b_config(n_layer=5), "Q4_K_M", [
+                ("kv dense (masked)", "dense", {}, prompt20d, ("qmv", "qgemm"), "masked"),
+                ("kv q8_0 (masked)", "q8_0", {}, prompt20d, ("qmv", "qgemm"), "masked")],
+             1024)):
+        p_gpu, p_cpu = two_copies(cfgf, ftype)
         path_check(model, cfgf, p_gpu, p_cpu, cases, [11, 12345, 777, 31000], max_seq)
         del p_gpu, p_cpu
         torch.cuda.empty_cache()
@@ -3673,6 +3781,35 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
     log(f"[moe variants] runs {time.perf_counter() - t_moe:.1f}s")
+    # the last decoders, a 128-token prompt and 64 greedy tokens through the
+    # graph: GLM-4-9B-0414 in Q4_K_M at full depth (40 layers; K4/K5 at 16
+    # query heads a kv head), OpenELM-3B in Q4_K_M at full depth (36 layers:
+    # the masked path on every layer, no attention kernel, checked; its
+    # replayed step's logits held bit for bit against the eager step's),
+    # MiniCPM3-4B in Q4_K_M at full depth (62 layers; dense and q8_0: K4-K7
+    # at K 96 / V 64) and BitNet b1.58-large in TQ2_0 and TQ1_0 at full
+    # depth (24 layers)
+    t_last = time.perf_counter()
+    for model, cfgf, ftype, runs_f in (
+            ("glm4-9b-0414", glm4_9b_0414_config(), "Q4_K_M", [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64)]),
+            ("openelm-3b", openelm_3b_config(), "Q4_K_M", [
+                ("kv dense", "dense", {}, PROMPT_LEN, masked_path, 1024, 64)]),
+            ("minicpm3-4b", minicpm3_4b_config(), "Q4_K_M", [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64),
+                ("kv q8_0", "q8_0", {}, PROMPT_LEN, quant_path, 1024, 64)]),
+            ("bitnet TQ2_0", bitnet_b1_58_large_config(), "TQ2_0", [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64)]),
+            ("bitnet TQ1_0", bitnet_b1_58_large_config(), "TQ1_0", [
+                ("kv dense", "dense", {}, PROMPT_LEN, exact_path, 1024, 64)])):
+        params = build_params(model, cfgf, ftype)
+        got = main_path_runs(model, params, cfgf, runs_f)
+        family_path_runs(model, params, cfgf, runs_f, got)
+        if model == "openelm-3b":
+            graph_equals_eager(model, params, cfgf)
+        del params
+        torch.cuda.empty_cache()
+    log(f"[last decoders] runs {time.perf_counter() - t_last:.1f}s")
     for model, name in sorted(EAGER_TURNS):
         r = (runs_8b if model == "8b" else runs_moe)[name]
         log(f"[{model} {name}] decode ms/token, graph {statistics.median(r['graph_ms']):.3f} "

@@ -6,11 +6,15 @@ form — dense tensors as float numpy arrays, quantized tensors as
 with the same keys as the JAX loader's tree (``attn_qk``, ``attn_v``,
 ``ffn_gate_up``, ``ffn_gate_up_exps``, ...), applying the same fusion
 under the same conditions (llamacog_tpu/models/loader.py:297-350) and the
-same per-arch renames (dbrx's and grok's norms, loader.py:356-368): q/k/v
-of one kind fuse, their biases concatenated; else q+k fuse, unless q
-carries a bias or a norm; neither under a q/k norm over the whole
-projection (olmo2, olmoe); gate+up fuse unless gate carries a bias; a lone
-ffn_up of 2 x n_ff rows (phi3's pre-fused [gate; up]) becomes ffn_gate_up.
+same per-arch renames (chameleon's swin norms, dbrx's and grok's norms,
+loader.py:349-368): q/k/v of one kind fuse, their biases concatenated;
+else q+k fuse, unless q carries a bias or a norm; neither under a q/k norm
+over the whole projection (olmo2, olmoe) or where q carries a scale
+(bitnet); gate+up fuse unless gate carries a bias or a scale; a lone
+ffn_up of 2 x n_ff rows (phi3's, glm4's and chatglm's pre-fused [gate;
+up]) becomes ffn_gate_up. Layers whose tensors differ in shape (openelm's
+per-layer heads and FFN widths, deci's attention-free and FFN-free
+layers) load as they stand.
 Quantized tensors stay in wire format; fusing two of them is a row
 concatenation of their block bytes. The port's loader and
 the tests that hold the port against the JAX package both go through it:
@@ -45,6 +49,8 @@ _LAYER_TENSORS = {
     "attn_v_b": "attn_v.bias",
     "attn_q_norm": "attn_q_norm.weight",
     "attn_k_norm": "attn_k_norm.weight",
+    "attn_q_norm_b": "attn_q_norm.bias",  # chameleon's per-head layer norms
+    "attn_k_norm_b": "attn_k_norm.bias",
     # deepseek2's MLA; the q LoRA's second product is attn_q_b_proj, apart
     # from the q bias key attn_q_b (the JAX loader's names, loader.py:45-53)
     "attn_q_a": "attn_q_a.weight",
@@ -83,6 +89,13 @@ _LAYER_TENSORS = {
     "ffn_up_shexp": "ffn_up_shexp.weight",
     "ffn_down_shexp": "ffn_down_shexp.weight",
     "exp_probs_b": "exp_probs_b.bias",  # DeepSeek-V3's selection bias
+    # bitnet: rms sub-norms before attn_output and ffn_down, and each
+    # product's scalar scale (model dtype: the names end in neither
+    # "_norm.weight" nor ".bias", as in the JAX loader)
+    "attn_sub_norm": "attn_sub_norm.weight",
+    "ffn_sub_norm": "ffn_sub_norm.weight",
+    **{f"{t}_scale": f"{t}.scale" for t in ("attn_q", "attn_k", "attn_v", "attn_output",
+                                            "ffn_gate", "ffn_up", "ffn_down")},
 }
 _MODEL_TENSORS = {
     "tok_embd": "token_embd.weight",
@@ -127,9 +140,14 @@ def from_reference(cfg: ModelConfig, tensors: dict, device=None,
     if any(n.endswith(_ABSORBED_MLA) for n in tensors):
         raise NotImplementedError("absorbed MLA (attn_k_b.weight / attn_v_b.weight, a newer "
                                   "llama.cpp DeepSeek conversion) is not ported yet")
+    # q/k norm biases belong to chameleon's per-head layer norms; MPT's
+    # whole-projection layer norms carry them too, which the JAX forward
+    # cannot broadcast over the heads, so another arch's stay refused
+    layer_names = set(_LAYER_TENSORS.values())
+    if not cfg.qk_norm_layer:
+        layer_names -= {"attn_q_norm.bias", "attn_k_norm.bias"}
     unknown = sorted(n for n in tensors if n not in _MODEL_TENSORS.values()
-                     and not (n.startswith("blk.")
-                              and n.split(".", 2)[2] in _LAYER_TENSORS.values()))
+                     and not (n.startswith("blk.") and n.split(".", 2)[2] in layer_names))
     if unknown:
         raise NotImplementedError(f"tensors not ported yet: {unknown[:8]}")
     params: dict = {"layers": []}
@@ -143,9 +161,10 @@ def from_reference(cfg: ModelConfig, tensors: dict, device=None,
             if name in tensors:
                 layer[key] = _to_param(name, tensors[name], dev, dtype)
         # olmo2, olmoe: a q/k norm over the whole projection needs q and k
-        # apart (the JAX loader's rule, loader.py:297-298)
-        whole_qk_norm = cfg.qk_norm_full and "attn_q_norm" in layer
-        if all(k in layer for k in ("attn_q", "attn_k", "attn_v")) and not whole_qk_norm:
+        # apart, and so do bitnet's scaled products (the JAX loader's rules,
+        # loader.py:297-302)
+        apart = (cfg.qk_norm_full and "attn_q_norm" in layer) or "attn_q_scale" in layer
+        if all(k in layer for k in ("attn_q", "attn_k", "attn_v")) and not apart:
             fused = wire.fuse_rows([layer["attn_q"], layer["attn_k"], layer["attn_v"]])
             if fused is not None:
                 layer["attn_qkv"] = fused
@@ -159,7 +178,8 @@ def from_reference(cfg: ModelConfig, tensors: dict, device=None,
                 if qk is not None:
                     layer["attn_qk"] = qk
                     del layer["attn_q"], layer["attn_k"]
-        if "ffn_gate" in layer and "ffn_up" in layer and "ffn_gate_b" not in layer:
+        if ("ffn_gate" in layer and "ffn_up" in layer and "ffn_gate_b" not in layer
+                and "ffn_gate_scale" not in layer):
             fused = wire.fuse_rows([layer["ffn_gate"], layer["ffn_up"]])
             if fused is not None:
                 layer["ffn_gate_up"] = fused
@@ -172,9 +192,14 @@ def from_reference(cfg: ModelConfig, tensors: dict, device=None,
             if fused is not None:
                 layer["ffn_gate_up_exps"] = fused
                 del layer["ffn_gate_exps"], layer["ffn_up_exps"]
-        # the JAX loader's per-arch renames (loader.py:356-368): dbrx's
-        # attn_output_norm is its pre-FFN norm; grok's two BERT-style norms
-        # are its post-attention and post-FFN norms
+        # the JAX loader's per-arch renames (loader.py:349-368): chameleon's
+        # swin ordering applies attn_norm and ffn_norm to the branch outputs;
+        # dbrx's attn_output_norm is its pre-FFN norm; grok's two BERT-style
+        # norms are its post-attention and post-FFN norms
+        if cfg.arch == "chameleon" and cfg.post_norm_only:
+            for old, new in (("attn_norm", "attn_post_norm"), ("ffn_norm", "ffn_post_norm")):
+                if old in layer:
+                    layer[new] = layer.pop(old)
         if cfg.arch == "dbrx" and "attn_out_norm" in layer:
             layer["ffn_norm"] = layer.pop("attn_out_norm")
         if cfg.arch == "grok":

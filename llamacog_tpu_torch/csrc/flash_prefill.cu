@@ -23,7 +23,8 @@
 // when 64-row tiles fill the card's 132 SMs, else 2 (T=128: 128 blocks);
 // above head dim 128 it is always 2. The mask runs only on tiles it can
 // cut, as two bounds a row. Head dims Dk == Dv, any multiple of 16 up to
-// 256, and Dk = 192 with Dv = 128 (deepseek2); rows 16-byte aligned.
+// 256, Dk = 192 with Dv = 128 (deepseek2) and Dk = 96 with Dv = 64
+// (minicpm3); rows 16-byte aligned.
 //
 // The SIMT body below (one block per 32 query rows, f32 FMAs from shared
 // memory, any Dk, Dv <= 256) takes f32 — the exact path of the -m cuda
@@ -300,8 +301,9 @@ static cudaError_t launch_simt(const void* q, const void* k, const void* v, long
 // with batch stride k_sb/v_sb and position stride k_ss/v_ss (elements; the
 // head and dimension axes contiguous); seq_len [B] int32; out [B, T, H, Dv].
 // Any Dk, Dv <= 256 in both types. bf16 runs the tensor-core tiles where
-// Dk == Dv is a multiple of 16 up to 256, or Dk = 192 with Dv = 128, and
-// every row is 16-byte aligned; its other calls, and f32, run the SIMT body.
+// Dk == Dv is a multiple of 16 up to 256, or Dk = 192 with Dv = 128, or
+// Dk = 96 with Dv = 64 (minicpm3), and every row is 16-byte aligned; its
+// other calls, and f32, run the SIMT body.
 // *simt is set to 1 when the SIMT body is launched, 0 for the tiles (the
 // wrapper counts the two bodies apart).
 LCG_EXPORT int lcg_flash_prefill(int dtype, const void* q, const void* k, const void* v,
@@ -330,7 +332,7 @@ LCG_EXPORT int lcg_flash_prefill(int dtype, const void* q, const void* k, const 
         LCG_PREFILL_D(128, 128) LCG_PREFILL_D(144, 144) LCG_PREFILL_D(160, 160)
         LCG_PREFILL_D(176, 176) LCG_PREFILL_D(192, 192) LCG_PREFILL_D(208, 208)
         LCG_PREFILL_D(224, 224) LCG_PREFILL_D(240, 240) LCG_PREFILL_D(256, 256)
-        LCG_PREFILL_D(192, 128)
+        LCG_PREFILL_D(192, 128) LCG_PREFILL_D(96, 64)
     }
 #undef LCG_PREFILL_D
     *simt = 1;

@@ -50,8 +50,9 @@
 // which puts their chunks on 8 distinct 16-byte bank groups for every head
 // dim (the row pitch in chunks, D / 8 + 1, is odd): no bank conflict.
 //
-// Bodies: bf16 runs the tiles at Dk == Dv in 32..256 (multiples of 32) and
-// Dk = 192 with Dv = 128 where q, k_cur and v_cur are 16-byte aligned and
+// Bodies: bf16 runs the tiles at Dk == Dv in 32..256 (multiples of 32),
+// Dk = 192 with Dv = 128 (deepseek2) and Dk = 96 with Dv = 64 (minicpm3)
+// where q, k_cur and v_cur are 16-byte aligned and
 // the tiles and both staging slots fit the block's shared memory (every
 // pair but f16/bf16 planes at head dim 256). f32, and bf16 outside that,
 // run the SIMT body (one block per 32 query rows, f32 FMAs from shared
@@ -553,6 +554,7 @@ LCG_EXPORT int lcg_flash_prefill_quant(int dtype, int kind_k, int kind_v, const 
             LCG_PREFILL_Q(32, 32) LCG_PREFILL_Q(64, 64) LCG_PREFILL_Q(96, 96)
             LCG_PREFILL_Q(128, 128) LCG_PREFILL_Q(160, 160) LCG_PREFILL_Q(192, 192)
             LCG_PREFILL_Q(224, 224) LCG_PREFILL_Q(256, 256) LCG_PREFILL_Q(192, 128)
+            LCG_PREFILL_Q(96, 64)
         }
 #undef LCG_PREFILL_Q
     }

@@ -7,33 +7,42 @@ stablelm), Llama 4, the OLMo families (olmo, olmo2, olmoe), the scaled
 families (granite, granitemoe, minicpm), the ALiBi families (bloom, mpt,
 refact, jais), the llama-graph clones (xverse, baichuan, internlm2,
 exaone, orion, codeshell, qwen, plamo), the squared-ReLU FFN (nemotron,
-arcee) and the MoE variants (deepseek, dots1, bailingmoe, phimoe, grok,
-arctic, dbrx): embedding (times sqrt(n_embd) on
-Gemma, the embedding scale on granite, minicpm and grok; plus the learned
+arcee), the MoE variants (deepseek, dots1, bailingmoe, phimoe, grok,
+arctic, dbrx) and the last decoders (MLA with minicpm's scales in minicpm3
+and without in plm; glm4 and chatglm; chameleon; bitnet; the per-layer head
+counts of openelm and deci): embedding (times sqrt(n_embd) on
+Gemma, the embedding scale on granite, minicpm, minicpm3 and grok; plus the learned
 position rows on gpt2 and starcoder; then bloom's embedding layer norm) ->
 per layer (rms norm, or layer norm
 with its bias where the file has one (dbrx's has none; phimoe's rms norms
 carry one), q/k/v projections, pre-fused (phi3,
 phi2, falcon, gpt2, starcoder, gptneox, dbrx) or with their biases (qwen2,
-stablelm, starcoder2, phimoe), per-head q/k norm (qwen3, gemma3,
-command-r-plus, dots1)
+stablelm, starcoder2, phimoe, glm4, chatglm), per-head q/k norm (qwen3,
+gemma3, command-r-plus, dots1, openelm), chameleon's per-head layer norm,
 or one over the whole projection (olmo2, olmoe), olmo's, mpt's and dbrx's
-clamp of q/k/v,
-rope, full or partial (phi2, gptneox, stablelm, gptj; interleaved on gptj),
+clamp of q/k/v, bitnet's scale of each product,
+rope, full or partial (phi2, gptneox, stablelm, gptj, glm4, chatglm;
+interleaved on gptj and the GLM family),
 where the arch has it (gemma3's local layers with a table of their own;
 none on cohere2's global layers, gpt2 or starcoder; none on llama4's NoPE
 layers, whose q takes the attention temperature instead, and the weightless
 L2 q/k norm after it on its other layers; phi3's long or short
-factors by context length), or deepseek2's MLA in its decompressed form (a
-q LoRA or a plain q, the compressed kv and its rope part, decompressed to
-one K of 192 and a V of 128 a head), attention over the old cache plus the
+factors by context length), or the MLA of deepseek2, minicpm3 and plm in
+its decompressed form (a q LoRA or a plain q, the compressed kv and its
+rope part, decompressed to one K and V a head: 192/128 on deepseek2,
+96/64 on minicpm3; an MLA layer takes no residual scale, the JAX branch's
+order), openelm's and deci's per-layer head counts (each layer's own
+heads, its K/V padded to the cache's; deci's attention-free, "linear
+attention" and FFN-free layers), attention over the old cache plus the
 current block (sliding-window layers over their window; a ring of the last
 `window` tokens where the cache keeps one, runtime/kv_cache.py::SwaKVCache;
 llama4's chunked layers within their chunk, every layer through the masked
 path; ALiBi's per-head distance bias, also on the masked path alone, with
-no rope; grok's softcap of 30 after its fixed scale), the output
+no rope; per-layer head counts there too; grok's softcap of 30 after its
+fixed scale), bitnet's sub-norm, the output
 projection and its bias, post-attention and post-FFN norms
-(gemma2/3, grok; olmo2's, which has no pre-norm), the residual scale on both
+(gemma2/3, grok, glm4; olmo2's and chameleon's swin ordering, which have
+no pre-norm), the residual scale on both
 branches (granite, minicpm), a SwiGLU or GeGLU FFN or an ungated GELU or
 squared-ReLU one,
 each product with
@@ -42,8 +51,8 @@ arch says so (command-r, cohere2, phi2, falcon, gptj, plamo: one shared norm;
 falcon-40B: the attention's own attn_norm_2; gptneox: the FFN's own
 ffn_norm)) -> final norm -> LM head (tied to the embedding where the file
 has no output tensor) and its bias (phi2, gptj, phimoe) -> logit scale
-(command-r, minicpm, grok; granite's divisor) and final logit softcap
-(gemma2), with the KV
+(command-r, minicpm, minicpm3, grok; granite's divisor) and final logit
+softcap (gemma2), chameleon's image tokens at -FLT_MAX, with the KV
 write deferred to one bulk
 write per step. A layer with a router
 (``ffn_gate_inp``) takes the MoE FFN instead (top-k routing, softmax or
@@ -80,7 +89,9 @@ SUPPORTED_ARCHES = ("llama", "qwen2", "qwen2moe", "qwen3", "qwen3moe", "gemma", 
                     "llama4", "olmo", "olmo2", "olmoe", "granite", "granitemoe", "minicpm",
                     "bloom", "mpt", "refact", "jais", "xverse", "baichuan", "internlm2",
                     "exaone", "orion", "codeshell", "qwen", "plamo", "nemotron", "arcee",
-                    "deepseek", "dots1", "bailingmoe", "phimoe", "grok", "arctic", "dbrx")
+                    "deepseek", "dots1", "bailingmoe", "phimoe", "grok", "arctic", "dbrx",
+                    "minicpm3", "plm", "glm4", "chatglm", "chameleon", "bitnet", "openelm",
+                    "deci")
 
 
 # the features each admitted family brings: layer norm (Command-R and the
@@ -96,8 +107,10 @@ SUPPORTED_ARCHES = ("llama", "qwen2", "qwen2moe", "qwen3", "qwen3moe", "gemma", 
 # layer norm (bloom, mpt, jais, orion, codeshell, nemotron) and plamo's
 # parallel residual; the MoE variants' ungated shared experts (deepseek,
 # dots1, bailingmoe), dbrx's layer norm without a bias and its clamp_kqv,
-# and grok's logit scale; another arch that sets one is refused by the
-# feature's name
+# and grok's logit scale; MLA with minicpm's scales (minicpm3) and without
+# (plm), chameleon's per-head layer norms and swin post-norm-only layers,
+# and the per-layer head counts of openelm and deci; another arch that sets
+# one is refused by the feature's name
 _COHERE_ARCHES = ("command-r", "cohere2")
 _LAYER_NORM_ARCHES = (*_COHERE_ARCHES, "phi2", "gpt2", "starcoder", "starcoder2", "falcon",
                       "gptneox", "gptj", "stablelm", "olmo", "bloom", "mpt", "jais", "orion",
@@ -106,7 +119,9 @@ _PARALLEL_ARCHES = (*_COHERE_ARCHES, "phi2", "falcon", "gptneox", "gptj", "plamo
 _LEARNED_POS_ARCHES = ("gpt2", "starcoder")
 _ALIBI_ARCHES = ("bloom", "mpt", "refact", "jais")
 _SHEXP_ARCHES = ("qwen2moe", "deepseek2", "llama4", "deepseek", "dots1", "bailingmoe")
-_SCALED_ARCHES = ("granite", "granitemoe", "minicpm")
+_SCALED_ARCHES = ("granite", "granitemoe", "minicpm", "minicpm3")
+_MLA_ARCHES = ("deepseek2", "minicpm3", "plm")
+_PER_LAYER_HEAD_ARCHES = ("openelm", "deci")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -124,17 +139,23 @@ def check_supported(cfg: ModelConfig) -> None:
         # no rope and no ALiBi: the positions must come from a table
         "learned positions": ((cfg.learned_pos_embd or not (cfg.rope.enabled or cfg.use_alibi))
                               and cfg.arch not in _LEARNED_POS_ARCHES),
-        "MLA": (cfg.n_lora_q > 0 or cfg.n_lora_kv > 0) and cfg.arch != "deepseek2",
-        "per-layer head counts": bool(cfg.n_head_arr or cfg.n_head_kv_arr),
+        "MLA": (cfg.n_lora_q > 0 or cfg.n_lora_kv > 0) and cfg.arch not in _MLA_ARCHES,
+        # the JAX MLA branch writes K of n_head heads into a cache of
+        # head_count_kv heads; config.py makes them equal for deepseek2 alone
+        "MLA over fewer kv heads than query heads (head_count_kv != head_count)": (
+            cfg.arch in ("minicpm3", "plm") and cfg.n_head_kv != cfg.n_head),
+        "per-layer head counts": (bool(cfg.n_head_arr or cfg.n_head_kv_arr)
+                                  and cfg.arch not in _PER_LAYER_HEAD_ARCHES),
         "M-RoPE": bool(cfg.rope.sections),
         "chunked SWA": cfg.swa_type == "chunked" and not llama4,
         "MoE weights before the experts": cfg.moe_weight_before and not llama4,
         "shared experts": cfg.arch not in _SHEXP_ARCHES and (cfg.n_expert_shared > 0
                                                              or cfg.n_ff_shexp > 0),
-        "post-norm-only layers": cfg.post_norm_only and cfg.arch != "olmo2",
-        # chameleon's per-head layer norm of q and k among them
-        "q/k norms over the whole projection or per-head layer norms": cfg.qk_norm_layer or (
-            cfg.qk_norm_full and cfg.arch not in ("olmo2", "olmoe")),
+        # olmo2's, and chameleon's swin ordering
+        "post-norm-only layers": cfg.post_norm_only and cfg.arch not in ("olmo2", "chameleon"),
+        "q/k norms over the whole projection or per-head layer norms": (
+            (cfg.qk_norm_layer and cfg.arch != "chameleon")
+            or (cfg.qk_norm_full and cfg.arch not in ("olmo2", "olmoe"))),
         "NoPE layers and attention temperature": not llama4 and (
             cfg.use_attn_temp or cfg.use_kq_norm or (cfg.n_no_rope_layer_step > 0
                                                      and cfg.arch != "cohere2")),
@@ -188,19 +209,23 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def _linear(x: torch.Tensor, layer: dict, key: str) -> torch.Tensor:
-    """One projection, plus its bias (qwen2's q/k/v, the layer-norm
-    families' products) in the activation dtype after the product, as the
-    JAX _linear adds it."""
+    """One projection, times its scalar scale (bitnet's `key`_scale) and
+    plus its bias (qwen2's q/k/v, the layer-norm families' products), each
+    in the activation dtype after the product, as the JAX _linear applies
+    them."""
     out = qmatmul(x, layer[key])
+    sc = layer.get(key + "_scale")
+    if sc is not None:
+        out = out * sc.to(out.dtype)
     b = layer.get(key + "_b")
     return out if b is None else out + b.to(out.dtype)
 
 
 def _linear_multi(x: torch.Tensor, layer: dict, keys) -> list:
     """Same-input projections through ONE kernel launch (mixed kinds OK)
-    when none carries a bias; per-key launches when one does, or when a
-    weight cannot ride the shared launch."""
-    if not any(k + "_b" in layer for k in keys):
+    when none carries a bias or a scale; per-key launches when one does, or
+    when a weight cannot ride the shared launch."""
+    if not any(k + "_b" in layer or k + "_scale" in layer for k in keys):
         outs = qmatmul_multi(x, [layer[k] for k in keys])
         if outs is not None:
             return outs
@@ -209,7 +234,8 @@ def _linear_multi(x: torch.Tensor, layer: dict, keys) -> list:
 
 def _ffn(layer: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Gated (SwiGLU/GeGLU) or, with no ffn_gate, the plain act(up) -> down
-    MLP (the layer-norm families), each product with its bias."""
+    MLP (the layer-norm families), each product with its bias; bitnet's
+    ffn_sub_norm (rms) on the activation before ffn_down."""
     if "ffn_gate_up" in layer:
         gate, up = _linear(x, layer, "ffn_gate_up").chunk(2, dim=-1)
         h = (_act(gate, cfg.ffn_act) * up.float()).to(x.dtype)
@@ -218,6 +244,8 @@ def _ffn(layer: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = (_act(gate, cfg.ffn_act) * up.float()).to(x.dtype)
     else:
         h = _act(_linear(x, layer, "ffn_up"), cfg.ffn_act).to(x.dtype)
+    if "ffn_sub_norm" in layer:
+        h = rms_norm(h, layer["ffn_sub_norm"], cfg.rms_norm_eps)
     return _linear(h, layer, "ffn_down")
 
 
@@ -357,6 +385,16 @@ def _ffn_moe(layer: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def _layer_ffn(layer: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A layer's FFN: the MoE FFN where the layer has a router (and no
+    arctic branch norm: arctic's router belongs to its parallel branch),
+    else the dense one (the leading dense layers of deepseek2, deepseek and
+    dots1, llama4's interleaved ones, arctic's)."""
+    if cfg.n_expert > 0 and "ffn_gate_inp" in layer and "ffn_norm_exps" not in layer:
+        return _ffn_moe(layer, h, cfg)
+    return _ffn(layer, h, cfg)
+
+
 def _scale_in(x: torch.Tensor, value: float) -> torch.Tensor:
     """x * value with value rounded to x's dtype first, as the JAX package
     multiplies by jnp.asarray(value, dtype): a Python scalar, so the step
@@ -461,10 +499,11 @@ def forward(
     if ring:
         ring_ok = swa_ring_mask(write_pos, T, cache.window, cfg.sliding_window)
         ring_cur = intra_block_mask(T, cfg.sliding_window, device=tokens.device)
-    # Llama 4 and the ALiBi families: every layer attends through the masked
-    # path (the JAX route: every flash route is off for a chunked or an
-    # ALiBi model); Llama 4's chunked layers within their chunk, the others
-    # over the whole causal past; ALiBi adds each head's slope times the
+    # Llama 4, the ALiBi families and the per-layer head counts (openelm,
+    # deci): every layer attends through the masked path (the JAX route:
+    # every flash route is off for a chunked, an ALiBi or a per-layer-head
+    # model); Llama 4's chunked layers within their chunk, the others over
+    # the whole causal past; ALiBi adds each head's slope times the
     # distance, all built on the device from write_pos
     masked = flash_q8.masked_only(cfg)
     if masked:
@@ -485,7 +524,10 @@ def forward(
         win = cfg.sliding_window if is_swa else 0
         softcap = cfg.attn_logit_softcap
         if masked:
-            return masked_attention(q, *_old(il), k, v, *(chunk_ok if is_swa else full_ok),
+            k_old, v_old = _old(il)
+            if k.shape[2] != Hkv:  # per-layer kv heads: the layer's own first heads
+                k_old, v_old = k_old[:, :, :k.shape[2]], v_old[:, :, :k.shape[2]]
+            return masked_attention(q, k_old, v_old, k, v, *(chunk_ok if is_swa else full_ok),
                                     scale, logit_softcap=softcap, alibi=alibi)
         if ring:
             is_ring, il = cache.index(il)
@@ -548,7 +590,15 @@ def forward(
     new_ks, new_vs = [], []
     for il, layer in enumerate(params["layers"]):
         x_in = x  # the layer input, which arctic's parallel MoE branch reads
-        # olmo2's post-norm-only layers: the attention reads the raw residual
+        attn_free = not any(kk in layer for kk in ("attn_qkv", "attn_qk", "attn_q",
+                                                    "attn_kv_a_mqa"))
+        if attn_free and "attn_norm" not in layer and not cfg.post_norm_only:
+            # the JAX forward norms every layer's input before it looks at
+            # the layer's kind, so such a layer raises there too
+            raise NotImplementedError(f"layer {il}: an attention-free layer without "
+                                      "attn_norm is not ported yet")
+        # olmo2's and chameleon's post-norm-only layers: the attention reads
+        # the raw residual
         h = x if cfg.post_norm_only else _norm(x, layer, "attn_norm", cfg)
         # parallel residual: the FFN reads the same normed input (command-r,
         # cohere2, phi2, falcon-7B, gptj); falcon-40B's attention reads its
@@ -562,55 +612,93 @@ def forward(
         is_swa = cfg.is_swa(il)
         tab = rtab_swa if is_swa else rtab
         if "attn_kv_a_mqa" in layer:
-            # the JAX MLA branch ends its layer as the common tail below
-            # does for deepseek2 (no post norms, no parallel residual)
+            # MLA (deepseek2, minicpm3, plm): the JAX branch ends its layer
+            # itself (llama.py:571-618): no residual scale on either branch
+            # (minicpm3's 1.4 / sqrt(n_layer) does not apply), the post norm
+            # where the layer has one, then ffn_norm and the dense or the MoE
+            # FFN
             q, k, v = _mla_qkv(layer, h, cfg, tab)
+            new_ks.append(k)
+            new_vs.append(v)
+            attn = _attend(q.contiguous(), k, v, il, is_swa)
+            attn = _linear(attn.reshape(B, T, H * Dv), layer, "attn_output")
+            if cfg.post_norms and "attn_post_norm" in layer:
+                attn = _norm(attn, layer, "attn_post_norm", cfg)
+            x = x + attn
+            x = x + _layer_ffn(layer, _norm(x, layer, "ffn_norm", cfg), cfg)
+            continue
+        if attn_free:
+            # deci's layer kinds (llama.py:619-635): the cache's rows still
+            # take zero K/V; a "linear attention" layer (attn_output alone)
+            # adds attn_output(attn_norm(x)); an FFN-free layer ends here
+            new_ks.append(torch.zeros((B, T, Hkv, Dk), dtype=x.dtype, device=x.device))
+            new_vs.append(torch.zeros((B, T, Hkv, Dv), dtype=x.dtype, device=x.device))
+            if "attn_output" in layer:
+                x = x + _linear(_norm(x, layer, "attn_norm", cfg), layer, "attn_output")
+            if not any(kk in layer for kk in ("ffn_gate_up", "ffn_up", "ffn_gate_inp")):
+                continue
+            h = _norm(x, layer, "ffn_norm", cfg) if "ffn_norm" in layer else x
+            x = x + _layer_ffn(layer, h, cfg)
+            continue
+        # openelm's and deci's per-layer head counts: a fused projection
+        # splits by the layer's own heads
+        h_l, hkv_l = cfg.n_head_at(il), cfg.n_head_kv_at(il)
+        if "attn_qkv" in layer:
+            qkv = _linear(h, layer, "attn_qkv")
+            q, k, v = qkv.split([h_l * Dk, hkv_l * Dk, hkv_l * Dv], dim=-1)
+        elif "attn_qk" in layer:
+            # q+k fused when v's quant kind differs; qk and v ride ONE launch
+            qk, v = _linear_multi(h, layer, ("attn_qk", "attn_v"))
+            q, k = qk.split([h_l * Dk, qk.shape[-1] - h_l * Dk], dim=-1)
         else:
-            if "attn_qkv" in layer:
-                qkv = _linear(h, layer, "attn_qkv")
-                q, k, v = qkv.split([H * Dk, Hkv * Dk, Hkv * Dv], dim=-1)
-            elif "attn_qk" in layer:
-                # q+k fused when v's quant kind differs; qk and v ride ONE launch
-                qk, v = _linear_multi(h, layer, ("attn_qk", "attn_v"))
-                q, k = qk.split([H * Dk, Hkv * Dk], dim=-1)
-            elif "attn_q" in layer:
-                q, k, v = _linear_multi(h, layer, ("attn_q", "attn_k", "attn_v"))
-                if cfg.qk_norm_full and "attn_q_norm" in layer:
-                    # olmo2, olmoe: one rms norm over the whole projection
-                    q = rms_norm(q, layer["attn_q_norm"], eps)
-                    k = rms_norm(k, layer["attn_k_norm"], eps)
-            else:
-                raise NotImplementedError("attention-free layers are not ported yet")
-            # by the weights' rows, never n_embd: Qwen3-30B-A3B's q is 4096 wide
-            # over an n_embd of 2048
-            q = q.reshape(B, T, -1, Dk)
-            k = k.reshape(B, T, -1, Dk)
-            v = v.reshape(B, T, -1, Dv)
-            if cfg.attn_clamp > 0.0:  # olmo's and mpt's clamp_kqv
-                c = cfg.attn_clamp
-                q, k, v = q.clamp(-c, c), k.clamp(-c, c), v.clamp(-c, c)
-            v = v.contiguous()
-            if "attn_q_norm" in layer and not cfg.qk_norm_full:
-                # qwen3, gemma3, command-r-plus: per-head rms norm
+            q, k, v = _linear_multi(h, layer, ("attn_q", "attn_k", "attn_v"))
+            if cfg.qk_norm_full and "attn_q_norm" in layer:
+                # olmo2, olmoe: one rms norm over the whole projection
                 q = rms_norm(q, layer["attn_q_norm"], eps)
                 k = rms_norm(k, layer["attn_k_norm"], eps)
-            # the NoPE layers (every n_no_rope_layer_step-th) take no rope:
-            # cohere2's global layers, and llama4's, whose q takes the
-            # position temperature instead; llama4's roped layers normalize
-            # q and k after the rope (the weightless L2 norm)
-            nope = cfg.n_no_rope_layer_step > 0 and (il + 1) % cfg.n_no_rope_layer_step == 0
-            if tab is not None and not nope:
-                q = apply_rope_tables(q, tab, rdim, interleaved=cfg.rope.interleaved)
-                k = apply_rope_tables(k, tab, rdim, interleaved=cfg.rope.interleaved)
-                if cfg.use_kq_norm:
-                    q, k = rms_norm(q, None, eps), rms_norm(k, None, eps)
-            elif nope and cfg.use_attn_temp:
-                q = q * attn_temp.to(q.dtype)
-            k = k.contiguous()
-        new_ks.append(k)
-        new_vs.append(v)
+        # by the weights' rows, never n_embd: Qwen3-30B-A3B's q is 4096 wide
+        # over an n_embd of 2048
+        q = q.reshape(B, T, -1, Dk)
+        k = k.reshape(B, T, -1, Dk)
+        v = v.reshape(B, T, -1, Dv)
+        if cfg.attn_clamp > 0.0:  # olmo's and mpt's clamp_kqv
+            c = cfg.attn_clamp
+            q, k, v = q.clamp(-c, c), k.clamp(-c, c), v.clamp(-c, c)
+        v = v.contiguous()
+        if cfg.qk_norm_layer and "attn_q_norm" in layer:
+            # chameleon: a layer norm of each head with [heads, head_dim]
+            # weights and biases, before rope, at cfg.norm_eps (0: the
+            # reference reads no eps for it)
+            q = layer_norm(q, layer["attn_q_norm"], layer.get("attn_q_norm_b"), cfg.norm_eps)
+            k = layer_norm(k, layer["attn_k_norm"], layer.get("attn_k_norm_b"), cfg.norm_eps)
+        elif "attn_q_norm" in layer and not cfg.qk_norm_full:
+            # qwen3, gemma3, command-r-plus, openelm: per-head rms norm
+            q = rms_norm(q, layer["attn_q_norm"], eps)
+            k = rms_norm(k, layer["attn_k_norm"], eps)
+        # the NoPE layers (every n_no_rope_layer_step-th) take no rope:
+        # cohere2's global layers, and llama4's, whose q takes the
+        # position temperature instead; llama4's roped layers normalize
+        # q and k after the rope (the weightless L2 norm)
+        nope = cfg.n_no_rope_layer_step > 0 and (il + 1) % cfg.n_no_rope_layer_step == 0
+        if tab is not None and not nope:
+            q = apply_rope_tables(q, tab, rdim, interleaved=cfg.rope.interleaved)
+            k = apply_rope_tables(k, tab, rdim, interleaved=cfg.rope.interleaved)
+            if cfg.use_kq_norm:
+                q, k = rms_norm(q, None, eps), rms_norm(k, None, eps)
+        elif nope and cfg.use_attn_temp:
+            q = q * attn_temp.to(q.dtype)
+        k = k.contiguous()
+        # a layer with fewer kv heads than the cache's writes its K/V padded
+        # with zero heads; it attends its own heads alone
+        pad = (0, 0, 0, Hkv - k.shape[2])
+        new_ks.append(torch.nn.functional.pad(k, pad) if pad[-1] else k)
+        new_vs.append(torch.nn.functional.pad(v, pad) if pad[-1] else v)
         attn = _attend(q.contiguous(), k, v, il, is_swa)
-        attn = _linear(attn.reshape(B, T, H * Dv), layer, "attn_output")
+        # flattened by the layer's own heads (openelm, deci)
+        attn = attn.reshape(B, T, attn.shape[2] * Dv)
+        if "attn_sub_norm" in layer:  # bitnet: rms norm before attn_output
+            attn = rms_norm(attn, layer["attn_sub_norm"], eps)
+        attn = _linear(attn, layer, "attn_output")
         if cfg.post_norms and "attn_post_norm" in layer:
             attn = _norm(attn, layer, "attn_post_norm", cfg)
         if cfg.residual_scale != 1.0:  # granite, minicpm: both branches scaled
@@ -621,10 +709,7 @@ def forward(
         x = x + attn
         # olmo's FFN norm has no tensor: the non-parametric norm
         h = _norm(x, layer, "ffn_norm", cfg) if "ffn_norm" in layer or cfg.nonparam_norms else x
-        if cfg.n_expert > 0 and "ffn_gate_inp" in layer and "ffn_norm_exps" not in layer:
-            ffn = _ffn_moe(layer, h, cfg)
-        else:  # a dense layer: deepseek2's leading ones, llama4's interleaved ones, arctic's
-            ffn = _ffn(layer, h, cfg)
+        ffn = _layer_ffn(layer, h, cfg)
         if cfg.post_norms and "ffn_post_norm" in layer:
             ffn = _norm(ffn, layer, "ffn_post_norm", cfg)
         if cfg.residual_scale != 1.0:
@@ -652,4 +737,8 @@ def forward(
     if cfg.final_logit_softcap > 0.0:  # gemma2
         c = cfg.final_logit_softcap
         logits = c * torch.tanh(logits / c)
+    if cfg.arch == "chameleon" and cfg.n_vocab > 8196:
+        # text-only output: the image tokens [4, 8196) get -FLT_MAX, filled
+        # on the device (the decode graph captures it)
+        logits[..., 4:8196] = -3.4028234663852886e38
     return logits, cache

@@ -78,10 +78,10 @@ def flash_decode_attention(q, k, v, k_cur, v_cur, seq_len, scale, softcap=0.0, w
 def supported(cfg, cache, t: int) -> bool:
     """The JAX predicate (flash_decode.py:101-124): opted in with
     LLAMACOG_FLASH_DECODE=1, T = 1, the dense cache, head dims a multiple of
-    8, whole GQA groups, no per-layer heads, and neither chunked nor ALiBi
+    8, whole GQA groups, and neither chunked, ALiBi nor per-layer heads
     (masked_only: the JAX forward's term, llama.py:446, and the
     predicate's own). (The port has no mesh.)"""
-    if cfg.n_head_kv_arr or masked_only(cfg):
+    if masked_only(cfg):
         return False
     if os.environ.get("LLAMACOG_FLASH_DECODE", "0") != "1":
         return False

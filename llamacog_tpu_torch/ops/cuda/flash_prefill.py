@@ -6,8 +6,9 @@ Counterpart of llamacog_tpu/ops/pallas/flash_prefill.py. The kernel
 a layer of the stacked cache, sliced to kv_cap, needs no copy — and takes
 any S and any T, and any head dims up to MAX_D in both types. In bf16 the
 C entry runs the tensor-core tiles at the head dims they take (Dk == Dv a
-multiple of 16, or 192/128) when every row is 16-byte aligned, and a bf16
-instantiation of the SIMT body otherwise; f32 always runs the SIMT body.
+multiple of 16, or 192/128, or 96/64) when every row is 16-byte aligned,
+and a bf16 instantiation of the SIMT body otherwise; f32 always runs the
+SIMT body.
 The C entry says which body it launched: they count as ``flash_prefill``
 (the tiles) and ``flash_prefill_simt``.
 """
@@ -87,11 +88,11 @@ def flash_prefill_kernel(q, k, v, k_cur, v_cur, seq_len, scale, softcap=0.0, win
 
 def supported(cfg, cache) -> bool:
     """The dense prefill route (K5) of a block over a dense store, unless
-    the model is chunked or ALiBi (masked_only: the JAX predicate's ALiBi
-    term, flash_prefill.py:161-162, and its forward's chunked one; its
-    other terms are TPU tiling rules or per-layer heads, which
-    check_supported refuses). A quantized cache takes K7 or the masked path
-    over its dequantized planes instead."""
+    the model is chunked, ALiBi or has per-layer kv heads (masked_only: the
+    JAX predicate's ALiBi and per-layer-head term, flash_prefill.py:161-162,
+    and its forward's chunked one; its other terms are TPU tiling rules). A
+    quantized cache takes K7 or the masked path over its dequantized planes
+    instead."""
     return isinstance(cache, KVCache) and not masked_only(cfg)
 
 

@@ -24,7 +24,7 @@ signatures:
   over one layer's quantized planes plus the causal current block. In bf16
   the C entry runs K5's tensor-core tile loop with a loader that
   dequantizes the planes (head dims Dk == Dv, multiples of 32 up to 256,
-  and 192/128, 16-byte aligned q and k_cur/v_cur); f32 and the other bf16
+  192/128 and 96/64, 16-byte aligned q and k_cur/v_cur); f32 and the other bf16
   calls run a SIMT body. The entry says which body it launched: they count
   as ``flash_prefill_quant`` (the tiles) and ``flash_prefill_quant_simt``.
 
@@ -407,14 +407,17 @@ def quant_heads_supported(cfg) -> bool:
 def masked_only(cfg) -> bool:
     """A model whose every layer attends through the masked path, at
     prefill and decode, over a dense or a quantized cache: Llama 4's
-    chunked attention (the chunk masks, ops/attention.py::chunked_masks)
-    and ALiBi (bloom, mpt, refact, jais: the slopes and distances the masked
-    attention adds). The JAX terms: its forward turns every flash route off
-    for a chunked model (llama.py:441-451), and every flash predicate
-    refuses use_alibi (flash_q8.py:368-369,391-392,1032-1033,
-    flash_prefill.py:161-162, flash_decode.py). No flash kernel (K4-K9)
-    takes either, so this is the route of such a model, not a fallback."""
-    return (cfg.swa_type == "chunked" and cfg.sliding_window > 0) or cfg.use_alibi
+    chunked attention (the chunk masks, ops/attention.py::chunked_masks),
+    ALiBi (bloom, mpt, refact, jais: the slopes and distances the masked
+    attention adds) and per-layer kv head counts (openelm, deci: each layer
+    reads its own first heads of the cache). The JAX terms: its forward
+    turns every flash route off for a chunked model (llama.py:441-451), and
+    every flash predicate refuses use_alibi and n_head_kv_arr
+    (flash_q8.py:368-369,391-392,1032-1033, flash_prefill.py:161-162,
+    flash_decode.py:106). No flash kernel (K4-K9) takes any of them, so
+    this is the route of such a model, not a fallback."""
+    return ((cfg.swa_type == "chunked" and cfg.sliding_window > 0) or cfg.use_alibi
+            or bool(cfg.n_head_kv_arr))
 
 
 def stacked_decode_supported(cfg, cache, t: int) -> bool:

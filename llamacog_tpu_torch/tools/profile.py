@@ -8,7 +8,10 @@ Builds the synthetic model of the configuration --model (utils/synthetic.py
 CONFIGS: llama3-8b by default, mixtral-8x7b, qwen2.5-7b, qwen3-30b-a3b,
 gemma3-12b, the MoE variants deepseek-moe-16b, dots1, ling-lite,
 phi3.5-moe, grok-1, dbrx and arctic (the last three with --layers 4 or so:
-at their full depth they do not fit on one card), ...) in the weight
+at their full depth they do not fit on one card), the last decoders
+minicpm3-4b, plm-1.8b, glm4-9b-0414, glm-4-9b-chat, chameleon-7b,
+chameleon-30b, bitnet-b1.58-large (with --ftype TQ2_0 or TQ1_0), openelm-3b
+and deci-51b (--layers 6 or so: one period of its pattern), ...) in the weight
 preset --ftype (each tensor of the kind
 llama.cpp's rules give it, for a codebook preset those of a file made
 with an importance matrix, as the public IQ files are; by default
@@ -200,13 +203,15 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return dt / n * 1e6
 
-    L, H, Hkv, D = cfg.n_layer, cfg.n_head, cfg.n_head_kv, cfg.head_dim_k
+    L, H, Hkv = cfg.n_layer, cfg.n_head, cfg.n_head_kv
+    Dk, Dv = cfg.head_dim_k, cfg.head_dim_v  # MLA: 192/128 on deepseek2, 96/64 on minicpm3
     dev = eng.device
-    kv_new = torch.zeros((L, B, 1, Hkv, D), dtype=eng.dtype, device=dev)
-    q, cur = (torch.zeros((B, h, D), dtype=eng.dtype, device=dev) for h in (H, Hkv))
+    k_new, v_new = (torch.zeros((L, B, 1, Hkv, d), dtype=eng.dtype, device=dev) for d in (Dk, Dv))
+    q, k_cur, v_cur = (torch.zeros((B, h, d), dtype=eng.dtype, device=dev)
+                       for h, d in ((H, Dk), (Hkv, Dk), (Hkv, Dv)))
     pos = torch.full((B,), args.prompt, dtype=torch.int32, device=dev)
-    write_us = host_us(lambda: eng.cache.write_all(kv_new, kv_new, pos))
-    attn_us = host_us(lambda: decode_from_cache(q, eng.cache, 0, cur, cur, pos, D**-0.5))
+    write_us = host_us(lambda: eng.cache.write_all(k_new, v_new, pos))
+    attn_us = host_us(lambda: decode_from_cache(q, eng.cache, 0, k_cur, v_cur, pos, Dk**-0.5))
     print(f"[profile] eager host time: cache write_all {write_us:.1f} us a step, "
           f"decode attention call {attn_us:.1f} us a layer")
     host_ops(profs["eager"], args.steps, unit)

@@ -38,8 +38,10 @@ layer-norm families' (Phi-2, Falcon-7B and -40B, GPT-2, StableLM-2,
 StarCoder2, StarCoderBase, Pythia, GPT-J) and of the later families'
 (Llama 4, OLMo, Granite, MiniCPM; BLOOM, MPT, Jais, Refact, the llama-graph
 clones, Minitron, AFM; the MoE variants DeepSeek-MoE-16B, dots.llm1,
-Ling-lite, Phi-3.5-MoE, Grok-1, DBRX and Snowflake Arctic) (CONFIGS by
-name); make_synthetic_params adds
+Ling-lite, Phi-3.5-MoE, Grok-1, DBRX and Snowflake Arctic; the last
+decoders MiniCPM3-4B, PLM-1.8B, GLM-4-9B-0414, glm-4-9b-chat, Chameleon-7B
+and -30B, BitNet b1.58-large, OpenELM-3B and a stated deci pattern at
+Nemotron-51B's widths) (CONFIGS by name); make_synthetic_params adds
 what each family's file carries beside the weights: q/k/v biases (qwen2,
 qwen2moe, stablelm, starcoder2), the other products' biases (_BIASES), norm
 biases (the layer-norm families), BLOOM's embedding norm, learned positions
@@ -48,15 +50,19 @@ falcon-40B's attn_norm_2, per-head q/k norms (qwen3, qwen3moe, gemma3),
 post-attention and post-FFN norms (gemma2, gemma3, grok), the shared expert
 and its gate (qwen2moe; ungated in deepseek2, deepseek, dots1, bailingmoe
 and llama4), dots1's selection bias, phimoe's biases and rope factor tables,
-arctic's dense FFN and MoE-branch norm beside its experts, and no output
-tensor where the embedding is tied (Gemma, Qwen2.5-0.5B, GPT-2,
-StarCoderBase, Grok-1).
+arctic's dense FFN and MoE-branch norm beside its experts, chameleon's
+per-head layer norms with biases, bitnet's sub-norms and one-element
+scales (its products unfused), each layer's own head counts and FFN width
+(openelm, deci; deci's attention-free, linear-attention and FFN-free
+layers), and no output tensor where the embedding is tied (Gemma,
+Qwen2.5-0.5B, GPT-2, StarCoderBase, Grok-1, PLM, BitNet, OpenELM).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..models.config import ModelConfig, RopeConfig, _apply_arch_defaults
@@ -153,14 +159,19 @@ def random_weight(kind: str, n: int, k: int, generator: torch.Generator, device=
     return random_wire(kind, n, k, generator, device)
 
 
-def ffn_width(cfg: ModelConfig) -> int:
-    """The dense FFN's width, by its tensors' rows: cfg.n_ff, but half of it
-    for qwen (Qwen-1), whose feed_forward_length is twice the width of its
-    ffn_gate/ffn_up tensors (llama.cpp creates them n_ff / 2 wide), and
-    n_embd for arctic, whose dense residual MLP is as wide as the model
-    (its feed_forward_length is the experts' width)."""
+def ffn_width(cfg: ModelConfig, il: int = 0) -> int:
+    """The dense FFN's width in layer il, by its tensors' rows: cfg.n_ff,
+    or the layer's entry where feed_forward_length is a per-layer array
+    (openelm, deci: the GGUF key in cfg.metadata; 0 for deci's FFN-free
+    layers), but half of it for qwen (Qwen-1), whose feed_forward_length
+    is twice the width of its ffn_gate/ffn_up tensors (llama.cpp creates
+    them n_ff / 2 wide), and n_embd for arctic, whose dense residual MLP is
+    as wide as the model (its feed_forward_length is the experts' width)."""
     if cfg.arch == "arctic":
         return cfg.n_embd
+    per_layer = cfg.metadata.get(f"{cfg.arch}.feed_forward_length")
+    if per_layer is not None and np.ndim(per_layer) == 1:  # a list, or a GGUF's array
+        return int(per_layer[il])
     return cfg.n_ff // 2 if cfg.arch == "qwen" else cfg.n_ff
 
 
@@ -211,8 +222,15 @@ def tensor_kinds(cfg: ModelConfig, ftype: str = "Q4_K_M", imatrix: bool = False)
     lowbit = ftype in LOWBIT_PRESETS
     iq2_sm = ftype in ("IQ2_S", "IQ2_M")  # take IQ3_S where the other 1-2 bpw presets Q2_K
     layers = []
+    # llama.cpp counts attn_v and ffn_down by the tensors it has met (the
+    # JAX quantizer's i_attn_v, i_ffn_down): deci's layers without
+    # attention or without an FFN skip a count
+    i_v = i_down = 0
     for il in range(n):
-        more, first8 = _use_more_bits(il, n), il < n // 8
+        h_l, hkv_l, ff_l = cfg.n_head_at(il), cfg.n_head_kv_at(il), ffn_width(cfg, il)
+        i_d, i_a = il if n_exp > 1 else i_down, i_v
+        i_v, i_down = i_v + (hkv_l > 0), i_down + (ff_l > 0)
+        more, first8, more_v = _use_more_bits(i_d, n), i_d < n // 8, _use_more_bits(i_a, n)
         if lowbit:
             v = "Q4_K" if n_gqa >= 4 or n_exp >= 4 else "IQ3_S" if iq2_sm else "Q2_K"
             q, k = base, "Q4_K" if n_exp == 8 else base
@@ -221,9 +239,9 @@ def tensor_kinds(cfg: ModelConfig, ftype: str = "Q4_K_M", imatrix: bool = False)
                    else "IQ3_S" if iq2_sm else base)
         else:
             v = {"Q2_K": "Q4_K" if n_gqa >= 4 else "Q3_K",
-                 "Q3_K_M": "Q5_K" if il < 2 else "Q4_K", "Q3_K_L": "Q5_K",
-                 "Q4_K_M": "Q6_K" if more else base, "Q5_K_M": "Q6_K" if more else base,
-                 "Q4_K_S": "Q5_K" if il < 4 else base,
+                 "Q3_K_M": "Q5_K" if i_a < 2 else "Q4_K", "Q3_K_L": "Q5_K",
+                 "Q4_K_M": "Q6_K" if more_v else base, "Q5_K_M": "Q6_K" if more_v else base,
+                 "Q4_K_S": "Q5_K" if i_a < 4 else base,
                  "IQ3_XXS": "Q4_K" if n_gqa >= 4 else "IQ3_XXS" if imatrix else "IQ3_S",
                  "IQ3_XS": "Q4_K" if n_gqa >= 4 else base, "IQ3_S": "Q4_K" if n_gqa >= 4 else base,
                  "IQ3_M": "Q4_K", "IQ4_NL": "Q5_K" if n_gqa >= 4 else base,
@@ -231,7 +249,7 @@ def tensor_kinds(cfg: ModelConfig, ftype: str = "Q4_K_M", imatrix: bool = False)
             q = {"IQ3_XS": "IQ3_XXS", "IQ3_XXS": "IQ2_S"}.get(ftype, base)
             k = "Q8_0" if n_exp == 8 else q
             v = "Q8_0" if n_exp == 8 else v
-            down = {"Q2_K": "Q3_K", "Q3_K_M": "Q5_K" if il < n // 16 else "Q4_K",
+            down = {"Q2_K": "Q3_K", "Q3_K_M": "Q5_K" if i_d < n // 16 else "Q4_K",
                     "Q3_K_L": "Q5_K", "Q4_K_M": "Q6_K" if more else base,
                     "Q5_K_M": "Q6_K" if more else base, "Q4_K_S": "Q5_K" if first8 else base,
                     "Q4_0": "Q4_1" if imatrix and first8 else base,
@@ -246,9 +264,9 @@ def tensor_kinds(cfg: ModelConfig, ftype: str = "Q4_K_M", imatrix: bool = False)
             else:
                 out = {"Q2_K": "Q3_K", "Q3_K_M": "Q4_K", "Q3_K_L": "Q5_K", "IQ3_XXS": "IQ3_S",
                        "IQ3_M": "Q4_K"}.get(ftype, base)
-        E, q_width = cfg.n_embd, cfg.n_head * cfg.head_dim_v
+        E, q_width = cfg.n_embd, h_l * cfg.head_dim_v
         moe = moe_layer(cfg, il)
-        f_down = (cfg.n_ff_exp or cfg.n_ff) if moe else ffn_width(cfg)
+        f_down = (cfg.n_ff_exp or cfg.n_ff) if moe else ff_l
         lk = {"attn_q": fit_kind(q, E), "attn_k": fit_kind(k, E), "attn_v": fit_kind(v, E),
               "attn_output": fit_kind(out, q_width), "ffn_gate": fit_kind(base, E),
               "ffn_up": fit_kind(base, E), "ffn_down": fit_kind(down, f_down)}
@@ -265,6 +283,13 @@ def tensor_kinds(cfg: ModelConfig, ftype: str = "Q4_K_M", imatrix: bool = False)
             lk.update(attn_kv_a_mqa=fit_kind(base, E), attn_kv_b=fit_kind(base, cfg.n_lora_kv))
         if cfg.arch in _UNGATED_ARCHES:
             del lk["ffn_gate"]
+        if hkv_l == 0:  # deci: no attention, or attn_output alone ("linear attention")
+            for key in ("attn_q", "attn_k", "attn_v", "attn_qkv",
+                        *(("attn_output",) if h_l == 0 else ())):
+                lk.pop(key, None)
+        if not moe and ff_l == 0:  # deci's FFN-free layers
+            for key in ("ffn_gate", "ffn_up", "ffn_down"):
+                lk.pop(key, None)
         shexp = shared_ff(cfg) if moe else 0
         if shexp:
             lk.update(ffn_gate_shexp=lk["ffn_gate"], ffn_up_shexp=lk["ffn_up"],
@@ -1028,6 +1053,175 @@ def arctic_config(n_layer: int = 35) -> ModelConfig:
         n_expert=128, n_expert_used=2, rope=RopeConfig(dim=128, freq_base=10000.0))
 
 
+def minicpm3_4b_config(n_layer: int = 62) -> ModelConfig:
+    """MiniCPM3-4B (openbmb/MiniCPM3-4B config.json: 62 layers, hidden 2560,
+    40 heads (num_key_value_heads 40); MLA with q_lora_rank 768,
+    kv_lora_rank 256, qk_nope_head_dim 64 + qk_rope_head_dim 32 (key 96),
+    v_head_dim 64; intermediate 6400, vocab 73448, rms eps 1e-5, rope theta
+    10000 over the 32 rope dims with longrope factors (original context
+    32768 of 32768: the short table at any context here); scale_emb 12,
+    scale_depth 1.4, dim_model_base 256, which a converted file leaves to
+    minicpm3's defaults in config.py: embedding x 12, logits x 256 / 2560,
+    and a residual scale of 1.4 / sqrt(n_layer) that the MLA layers do not
+    apply (the JAX forward's MLA branch); untied). The synthetic rope tables
+    are make_synthetic_params' longrope pair, not the published factors;
+    `n_layer` cuts depth only."""
+    return _family_config(
+        "minicpm3", n_vocab=73448, n_ctx_train=32768, n_embd=2560, n_layer=n_layer, n_head=40,
+        n_head_kv=40, n_ff=6400, head_dim_k=96, head_dim_v=64, rms_norm_eps=1e-5,
+        n_lora_q=768, n_lora_kv=256,
+        rope=RopeConfig(dim=32, freq_base=10000.0, orig_ctx_len=32768))
+
+
+def plm_1_8b_config(n_layer: int = 32) -> ModelConfig:
+    """PLM-1.8B (PLM-Team/PLM-1.8B-Base config.json: 32 layers, hidden 2048,
+    16 heads (num_key_value_heads 16); MLA without a q LoRA, kv_lora_rank
+    512, qk_nope_head_dim 128 + qk_rope_head_dim 64 (key 192), v_head_dim
+    128; an ungated squared-ReLU FFN of intermediate 8192; vocab 151936,
+    rms eps 1e-6, rope theta 100000, tied embeddings); `n_layer` cuts depth
+    only."""
+    return _family_config(
+        "plm", n_vocab=151936, n_ctx_train=4096, n_embd=2048, n_layer=n_layer, n_head=16,
+        n_head_kv=16, n_ff=8192, head_dim_k=192, head_dim_v=128, rms_norm_eps=1e-6,
+        n_lora_kv=512, rope=RopeConfig(dim=64, freq_base=100000.0), tie_word_embeddings=True)
+
+
+def glm4_9b_0414_config(n_layer: int = 40) -> ModelConfig:
+    """GLM-4-9B-0414 (THUDM/GLM-4-9B-0414 config.json: 40 layers, hidden
+    4096, 32 query heads over 2 kv heads of 128, partial_rotary_factor 0.5
+    (rope over 64 of the 128 dims, interleaved pairs), intermediate 13696
+    (its ffn_down rows take the 32-weight-block fallback), vocab 151552,
+    rms eps 1e-5, rope theta 10000, attention_bias (q/k/v biases), untied);
+    llama.cpp's file holds the fused gate_up_proj as one ffn_up of 2 x 13696
+    rows, and the post-attention and post-FFN norms beside the pre-norms;
+    `n_layer` cuts depth only."""
+    return _family_config(
+        "glm4", n_vocab=151552, n_ctx_train=32768, n_embd=4096, n_layer=n_layer, n_head=32,
+        n_head_kv=2, n_ff=13696, head_dim_k=128, head_dim_v=128, rms_norm_eps=1e-5,
+        rope=RopeConfig(dim=64, freq_base=10000.0))
+
+
+def glm_4_9b_chat_config(n_layer: int = 40) -> ModelConfig:
+    """glm-4-9b-chat, GGUF arch chatglm (THUDM/glm-4-9b-chat config.json:
+    num_layers 40, hidden_size 4096, 32 heads, multi_query_group_num 2,
+    kv_channels 128, ffn_hidden_size 13696, padded_vocab_size 151552,
+    layernorm_epsilon 1.5625e-07, rope_ratio 500 (llama.cpp's rope base
+    10000 x 500), rope over half of each head, seq_length 131072,
+    add_qkv_bias: one attn_qkv with its bias; the FFN one ffn_up of 2 x
+    13696 rows, untied); `n_layer` cuts depth only."""
+    return _family_config(
+        "chatglm", n_vocab=151552, n_ctx_train=131072, n_embd=4096, n_layer=n_layer,
+        n_head=32, n_head_kv=2, n_ff=13696, head_dim_k=128, head_dim_v=128,
+        rms_norm_eps=1.5625e-07, rope=RopeConfig(dim=64, freq_base=5e6))
+
+
+def chameleon_7b_config(n_layer: int = 32) -> ModelConfig:
+    """Chameleon-7B (facebook/chameleon-7b config.json: 32 layers, hidden
+    4096, 32 heads of 128 (no GQA), intermediate 11008, vocab 65536, rms eps
+    1e-5, rope theta 10000, qk_layernorm (a layer norm of each head with
+    [heads, 128] weights and biases, at eps 0 in llama.cpp's graph),
+    swin_norm false, untied); the image tokens 4-8195 take -FLT_MAX in the
+    logits; `n_layer` cuts depth only."""
+    return _family_config(
+        "chameleon", {"chameleon.swin_norm": False}, n_vocab=65536, n_ctx_train=4096,
+        n_embd=4096, n_layer=n_layer, n_head=32, n_head_kv=32, n_ff=11008, head_dim_k=128,
+        head_dim_v=128, rms_norm_eps=1e-5, rope=RopeConfig(dim=128, freq_base=10000.0))
+
+
+def chameleon_30b_config(n_layer: int = 48) -> ModelConfig:
+    """Chameleon-30B (facebook/chameleon-30b config.json: 48 layers, hidden
+    8192, 64 query heads over 8 kv heads of 128, intermediate 22016, vocab
+    65536, rms eps 1e-5, rope theta 10000, qk_layernorm, swin_norm true: no
+    pre-norms, attn_norm and ffn_norm applied to the branch outputs);
+    `n_layer` cuts depth only."""
+    return _family_config(
+        "chameleon", {"chameleon.swin_norm": True}, n_vocab=65536, n_ctx_train=4096,
+        n_embd=8192, n_layer=n_layer, n_head=64, n_head_kv=8, n_ff=22016, head_dim_k=128,
+        head_dim_v=128, rms_norm_eps=1e-5, rope=RopeConfig(dim=128, freq_base=10000.0))
+
+
+def bitnet_b1_58_large_config(n_layer: int = 24) -> ModelConfig:
+    """BitNet b1.58-large (1bitLLM/bitnet_b1_58-large config.json: 24
+    layers, hidden 1536, 16 heads of 96 (no GQA), intermediate 4096, vocab
+    32002, rms eps 1e-5, rope theta 10000; tied embeddings); llama.cpp's
+    bitnet graph adds an rms sub-norm before attn_output and before
+    ffn_down, and each product's one-element scale (attn_q, attn_k, attn_v,
+    attn_output, ffn_gate, ffn_up, ffn_down .scale tensors). Its weights
+    are ternary: the TQ1_0 and TQ2_0 presets, whose 256-weight blocks
+    divide 1536 and 4096; `n_layer` cuts depth only."""
+    return _family_config(
+        "bitnet", n_vocab=32002, n_ctx_train=2048, n_embd=1536, n_layer=n_layer, n_head=16,
+        n_head_kv=16, n_ff=4096, head_dim_k=96, head_dim_v=96, rms_norm_eps=1e-5,
+        rope=RopeConfig(dim=96, freq_base=10000.0), tie_word_embeddings=True)
+
+
+def _make_divisible(v: float, divisor: int) -> int:
+    """OpenELM's make_divisible (the JAX converter's _make_divisible)."""
+    new_v = max(divisor, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
+
+
+def openelm_3b_config(n_layer: int = 36) -> ModelConfig:
+    """OpenELM-3B (apple/OpenELM-3B config.json: 36 transformer layers,
+    model_dim 3072, head_dim 128, num_gqa_groups 4, qkv_multipliers (0.5,
+    1.0), ffn_multipliers (0.5, 4.0), ffn_dim_divisor 256, ffn_with_glu,
+    vocab 32000, rope_freq_constant 10000, rms eps 1e-6, tied, q/k rms
+    norms of each head). Each layer's multipliers are OpenELM's
+    np.linspace over the 36 layers rounded to 2 decimals; its query heads
+    make_divisible(3072 x m, 128 x 4) / 128 (12 to 24), its kv heads a
+    quarter of them (3 to 6), its FFN width make_divisible(3072 x m, 256)
+    (1536 to 12288): the arrays of the GGUF's head_count, head_count_kv and
+    feed_forward_length. The cache holds the widest layer's 6 kv heads;
+    `n_layer` keeps the first layers of the 36-layer schedule."""
+    full = 36
+    qkv_m = [round(float(v), 2) for v in np.linspace(0.5, 1.0, full)]
+    ffn_m = [round(float(v), 2) for v in np.linspace(0.5, 4.0, full)]
+    q_heads = [_make_divisible(3072 * m, 128 * 4) // 128 for m in qkv_m][:n_layer]
+    kv_heads = [h // 4 for h in q_heads]
+    ffn = [_make_divisible(m * 3072, 256) for m in ffn_m][:n_layer]
+    return _family_config(
+        "openelm", {"openelm.feed_forward_length": ffn}, n_vocab=32000, n_ctx_train=2048,
+        n_embd=3072, n_layer=n_layer, n_head=max(q_heads), n_head_kv=max(kv_heads),
+        n_ff=max(ffn), head_dim_k=128, head_dim_v=128, rms_norm_eps=1e-6,
+        n_head_arr=tuple(q_heads), n_head_kv_arr=tuple(kv_heads),
+        rope=RopeConfig(dim=128, freq_base=10000.0), tie_word_embeddings=True)
+
+
+# the per-layer pattern of deci_51b_config, repeated over the depth: (query
+# heads, kv heads, FFN width); kv heads 0 with query heads is a "linear
+# attention" layer, with none an attention-free one; FFN width 0 an
+# FFN-free layer
+DECI_PATTERN = ((64, 8, 28672), (64, 2, 14336), (0, 0, 28672), (64, 0, 14336), (64, 0, 0),
+                (64, 8, 14336))
+
+
+def deci_51b_config(n_layer: int = 80) -> ModelConfig:
+    """DeciLM at Llama-3.1-Nemotron-51B's global widths
+    (nvidia/Llama-3_1-Nemotron-51B-Instruct config.json: 80 layers, hidden
+    8192, 64 heads of 128, vocab 128256, rms eps 1e-5, rope theta 500000;
+    its rope_scaling factors (rope_freqs) left out, untied) with a stated
+    per-layer pattern, DECI_PATTERN, repeated: not the published
+    block_configs, which the repository does not hold. The pattern holds
+    every layer kind of that family: GQA attention at n_heads_in_group 8
+    (8 kv heads) and 32 (2), an attention-free layer, "linear attention"
+    layers (attn_output alone, replace_with_linear), an FFN-free layer, and
+    FFN widths 28672 and 14336 from ffn_mult 5.25 and 2.625 by the JAX
+    converter's _ffn_mult_to_intermediate_size rule (2 x mult x 8192 / 3,
+    up to a multiple of 256). Every layer keeps its attn_norm (the JAX
+    forward norms each layer's input before it looks at the layer's kind);
+    an FFN-free layer has no ffn_norm. `n_layer` cuts depth only."""
+    pat = [DECI_PATTERN[il % len(DECI_PATTERN)] for il in range(n_layer)]
+    q_heads, kv_heads, ffn = ([p[i] for p in pat] for i in range(3))
+    return _family_config(
+        "deci", {"deci.feed_forward_length": ffn}, n_vocab=128256, n_ctx_train=131072,
+        n_embd=8192, n_layer=n_layer, n_head=max(q_heads), n_head_kv=max(kv_heads),
+        n_ff=max(ffn), head_dim_k=128, head_dim_v=128, rms_norm_eps=1e-5,
+        n_head_arr=tuple(q_heads), n_head_kv_arr=tuple(kv_heads),
+        rope=RopeConfig(dim=128, freq_base=500000.0))
+
+
 # every synthetic configuration by the name the tools take (--model)
 CONFIGS = {"llama3-8b": llama3_8b_config, "llama3-70b": llama3_70b_config,
            "mixtral-8x7b": mixtral_8x7b_config, "qwen2.5-7b": qwen2_5_7b_config,
@@ -1055,16 +1249,20 @@ CONFIGS = {"llama3-8b": llama3_8b_config, "llama3-70b": llama3_70b_config,
            "afm-4.5b": afm_4_5b_config, "deepseek-moe-16b": deepseek_moe_16b_config,
            "dots1": dots1_config, "ling-lite": ling_lite_config,
            "phi3.5-moe": phi3_5_moe_config, "grok-1": grok_1_config, "dbrx": dbrx_config,
-           "arctic": arctic_config}
+           "arctic": arctic_config, "minicpm3-4b": minicpm3_4b_config,
+           "plm-1.8b": plm_1_8b_config, "glm4-9b-0414": glm4_9b_0414_config,
+           "glm-4-9b-chat": glm_4_9b_chat_config, "chameleon-7b": chameleon_7b_config,
+           "chameleon-30b": chameleon_30b_config, "bitnet-b1.58-large": bitnet_b1_58_large_config,
+           "openelm-3b": openelm_3b_config, "deci-51b": deci_51b_config}
 # the families whose files carry q/k/v biases, and per-head q/k norms
-_QKV_BIAS_ARCHES = ("qwen2", "qwen2moe", "stablelm", "starcoder2", "phimoe")
-_QK_NORM_ARCHES = ("qwen3", "qwen3moe", "gemma3", "dots1")
+_QKV_BIAS_ARCHES = ("qwen2", "qwen2moe", "stablelm", "starcoder2", "phimoe", "glm4")
+_QK_NORM_ARCHES = ("qwen3", "qwen3moe", "gemma3", "dots1", "openelm")
 # the files that hold q/k/v as one attn_qkv tensor, and the FFNs without a
 # gate (act(up) -> down)
 _FUSED_QKV_ARCHES = ("phi3", "phi2", "falcon", "gpt2", "starcoder", "gptneox", "bloom", "mpt",
-                     "jais", "codeshell", "qwen", "dbrx")
+                     "jais", "codeshell", "qwen", "dbrx", "chatglm", "openelm")
 _UNGATED_ARCHES = ("phi2", "falcon", "gpt2", "starcoder", "starcoder2", "gptneox", "gptj",
-                   "bloom", "mpt", "codeshell", "nemotron", "arcee")
+                   "bloom", "mpt", "codeshell", "nemotron", "arcee", "plm")
 # the biases of the products beside q/k/v's (llama.cpp's tensor lists of
 # each arch; a fused attn_qkv's bias is q/k/v's): "output" is the LM head's
 _GPT_BIASES = ("attn_qkv", "attn_output", "ffn_up", "ffn_down")
@@ -1072,7 +1270,7 @@ _BIASES = {"phi2": (*_GPT_BIASES, "output"), "gpt2": _GPT_BIASES, "starcoder": _
            "gptneox": _GPT_BIASES, "starcoder2": ("attn_output", "ffn_up", "ffn_down"),
            "gptj": ("ffn_up", "ffn_down", "output"), "bloom": _GPT_BIASES,
            "codeshell": _GPT_BIASES, "jais": (*_GPT_BIASES, "ffn_gate"), "qwen": ("attn_qkv",),
-           "phimoe": ("attn_output", "output")}
+           "phimoe": ("attn_output", "output"), "chatglm": ("attn_qkv",)}
 # the families whose norms carry biases: the layer-norm families but
 # command-r, mpt and dbrx, and phimoe's rms norms
 _NORM_BIAS_ARCHES = ("phi2", "falcon", "gpt2", "starcoder", "starcoder2", "gptneox", "gptj",
@@ -1112,9 +1310,10 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
     g = torch.Generator(device=dev).manual_seed(seed)
     kinds = layout_kinds(cfg, ftype, imatrix)
     E = cfg.n_embd
-    kv = cfg.n_head_kv * cfg.head_dim_k
     bias, qk_norm = cfg.arch in _QKV_BIAS_ARCHES, cfg.arch in _QK_NORM_ARCHES
     qk_full = cfg.qk_norm_full  # olmo2, olmoe: q and k apart, each normed whole
+    qk_layer = cfg.qk_norm_layer  # chameleon: per-head layer norms with biases
+    scaled = cfg.arch == "bitnet"  # products apart, each with its scale
     biased = _BIASES.get(cfg.arch, ())
 
     def ones(n):
@@ -1134,6 +1333,8 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
         tensors[key] = random_weight(kind, n, k, g, dev)
         if key in biased:
             tensors[key + "_b"] = small(n)
+        if scaled:  # a one-element scale in the model dtype, as the loader keeps it
+            tensors[key + "_scale"] = (1.0 + small(1)).to(torch.bfloat16)
 
     params: dict = {"tok_embd": random_wire(kinds["token_embd"], cfg.n_vocab, E, g, dev),
                     "layers": []}
@@ -1146,21 +1347,26 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
         params["output"] = random_wire(kinds["output"], cfg.n_vocab, E, g, dev)
         if "output" in biased:
             params["output_b"] = small(cfg.n_vocab)
-    if cfg.arch in ("phi3", "phimoe") and cfg.rope.orig_ctx_len:  # longrope's two tables
+    if cfg.arch in ("phi3", "phimoe", "minicpm3") and cfg.rope.orig_ctx_len:
+        # longrope's two tables
         half = cfg.rope.dim // 2
         params["rope_short"] = 1.0 + torch.rand(half, generator=g, device=dev) * 0.1
         params["rope_long"] = torch.linspace(1.0, 40.0, half, device=dev)
     for il, lk in enumerate(kinds["layers"]):
         layer: dict = {}
-        if not cfg.post_norm_only:  # olmo2 norms the branch outputs only
+        h_l, hkv_l, ff_l = cfg.n_head_at(il), cfg.n_head_kv_at(il), ffn_width(cfg, il)
+        if not cfg.post_norm_only:  # olmo2 and chameleon's swin norm the branch outputs only
             norm(layer, "attn_norm", E)
         if cfg.arch == "falcon" and cfg.n_head_kv > 1:  # falcon-40B's second norm
             norm(layer, "attn_norm_2", E)
-        if (not cfg.parallel_residual or cfg.arch == "gptneox") and not cfg.post_norm_only:
+        if ((not cfg.parallel_residual or cfg.arch == "gptneox") and not cfg.post_norm_only
+                and (ff_l or moe_layer(cfg, il))):
             norm(layer, "ffn_norm", E)
-        rows = {"attn_q": cfg.n_head * cfg.head_dim_k, "attn_k": kv,
-                "attn_v": cfg.n_head_kv * cfg.head_dim_v}
-        if cfg.n_lora_kv:  # deepseek2's MLA
+        kv = hkv_l * cfg.head_dim_k
+        rows = {"attn_q": h_l * cfg.head_dim_k, "attn_k": kv, "attn_v": hkv_l * cfg.head_dim_v}
+        if hkv_l == 0:  # deci: an attention-free layer, or attn_output alone
+            pass
+        elif cfg.n_lora_kv:  # the MLA of deepseek2, minicpm3 and plm
             Dk, r = cfg.head_dim_k, cfg.rope.dim
             if cfg.n_lora_q:
                 layer["attn_q_a"] = random_wire(lk["attn_q_a"], cfg.n_lora_q, E, g, dev)
@@ -1176,23 +1382,34 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
                 lk["attn_kv_b"], cfg.n_head * (Dk - r + cfg.head_dim_v), cfg.n_lora_kv, g, dev)
         elif "attn_qkv" in lk:
             product(layer, "attn_qkv", lk["attn_qkv"], sum(rows.values()), E)
-        elif lk["attn_q"] == lk["attn_k"] == lk["attn_v"] and not qk_full:
+        elif lk["attn_q"] == lk["attn_k"] == lk["attn_v"] and not (qk_full or scaled):
             layer["attn_qkv"] = random_wire(lk["attn_q"], sum(rows.values()), E, g, dev)
             if bias:
                 layer["attn_qkv_b"] = small(sum(rows.values()))
-        elif lk["attn_q"] == lk["attn_k"] and not (bias or qk_norm or qk_full):
+        elif lk["attn_q"] == lk["attn_k"] and not (bias or qk_norm or qk_full or qk_layer
+                                                   or scaled):
             layer["attn_qk"] = random_wire(lk["attn_q"], rows["attn_q"] + kv, E, g, dev)
             layer["attn_v"] = random_wire(lk["attn_v"], rows["attn_v"], E, g, dev)
         else:
             for key, n in rows.items():
-                layer[key] = random_wire(lk[key], n, E, g, dev)
+                product(layer, key, lk[key], n, E)
                 if bias:
                     layer[key + "_b"] = small(n)
-        if qk_norm:
+        if hkv_l == 0:
+            pass
+        elif qk_norm:
             layer["attn_q_norm"], layer["attn_k_norm"] = ones(cfg.head_dim_k), ones(cfg.head_dim_k)
         elif qk_full:
             layer["attn_q_norm"], layer["attn_k_norm"] = ones(rows["attn_q"]), ones(kv)
-        product(layer, "attn_output", lk["attn_output"], E, cfg.n_head * cfg.head_dim_v)
+        elif qk_layer:  # [heads, head_dim] weights and biases
+            layer["attn_q_norm"] = ones(h_l * cfg.head_dim_k).reshape(h_l, -1)
+            layer["attn_k_norm"] = ones(kv).reshape(hkv_l, -1)
+            layer["attn_q_norm_b"] = small(h_l, cfg.head_dim_k)
+            layer["attn_k_norm_b"] = small(hkv_l, cfg.head_dim_k)
+        if scaled:  # bitnet's sub-norm before attn_output
+            layer["attn_sub_norm"] = ones(h_l * cfg.head_dim_v)
+        if "attn_output" in lk:
+            product(layer, "attn_output", lk["attn_output"], E, h_l * cfg.head_dim_v)
         if cfg.post_norms:
             layer["attn_post_norm"], layer["ffn_post_norm"] = ones(E), ones(E)
         if moe_layer(cfg, il):
@@ -1214,15 +1431,17 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
                 layer["ffn_gate_shexp"] = random_wire(lk["ffn_gate_shexp"], fs, E, g, dev)
                 layer["ffn_up_shexp"] = random_wire(lk["ffn_up_shexp"], fs, E, g, dev)
                 layer["ffn_down_shexp"] = random_wire(lk["ffn_down_shexp"], E, fs, g, dev)
-        else:
-            F = ffn_width(cfg)
-            if "ffn_gate" in lk and "ffn_gate" not in biased:
+        elif ff_l:
+            F = ff_l
+            if "ffn_gate" in lk and "ffn_gate" not in biased and not scaled:
                 layer["ffn_gate_up"] = random_wire(lk["ffn_gate"], 2 * F, E, g, dev)
-            elif "ffn_gate" in lk:  # jais: a biased gate does not fuse with up
+            elif "ffn_gate" in lk:  # jais, bitnet: a biased or scaled gate stays apart
                 product(layer, "ffn_gate", lk["ffn_gate"], F, E)
                 product(layer, "ffn_up", lk["ffn_up"], F, E)
             else:  # act(up) -> down
                 product(layer, "ffn_up", lk["ffn_up"], F, E)
+            if scaled:  # bitnet's sub-norm before ffn_down
+                layer["ffn_sub_norm"] = ones(F)
             product(layer, "ffn_down", lk["ffn_down"], E, F)
         params["layers"].append(layer)
     return params

@@ -143,14 +143,14 @@ def test_prefill_keeps_2048_token_steps():
 
 def test_phi2_and_absorbed_mla_are_refused_by_name(files, tmp_path):
     """check_supported refuses an arch outside the ported families by name
-    (chatglm; phi2 is admitted) and every feature outside the admitted
+    (jamba; phi2 is admitted) and every feature outside the admitted
     families by name,
     and a newer llama.cpp DeepSeek conversion (absorbed MLA: attn_k_b /
     attn_v_b, no attn_kv_b), which the JAX loader has no keys for, is
     refused naming its tensors."""
     cfg = load_model(files["v2-lite"], device="cpu", with_tokenizer=False).config
-    with pytest.raises(NotImplementedError, match="architecture 'chatglm' is not ported yet"):
-        llama.check_supported(ModelConfig(**{**cfg.__dict__, "arch": "chatglm"}))
+    with pytest.raises(NotImplementedError, match="architecture 'jamba' is not ported yet"):
+        llama.check_supported(ModelConfig(**{**cfg.__dict__, "arch": "jamba"}))
     llama.check_supported(synthetic.phi2_config(n_layer=2))
     # every feature outside the admitted families, on an admitted arch
     for field, value, words in (("nonparam_norms", True, "non-parametric layer norm"),

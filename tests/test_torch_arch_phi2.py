@@ -145,8 +145,8 @@ def test_cli_runs_phi2(phi2_file, capsys):
 
 
 # the archs that stay refused, each by its own name (none is admitted)
-REFUSED_ARCHES = ("deci", "glm4", "plm", "minicpm3", "bitnet", "chatglm", "chameleon", "openelm",
-                  "jamba", "mamba")
+REFUSED_ARCHES = ("bert", "nomic-bert", "neo-bert", "t5", "jina-bert-v2", "nomic-bert-moe",
+                  "rwkv6", "t5encoder", "jamba", "mamba")
 # the features refused on an admitted arch, each set on a config that is
 # admitted without it (the layer-norm families', and Llama-3's)
 REFUSED_FEATURES = (("phi2", "use_alibi", True, "ALiBi"),

@@ -54,7 +54,7 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
                probs_bias=False, rope_factors=None, extra_tensors=None, ffn_gate=True,
                biases=(), n_pos=0, attn_norm_2=False, attn_norm=True, norms=True,
                moe_step=0, post_norm_names=("post_attention_norm", "post_ffw_norm"),
-               moe_dense=0) -> str:
+               moe_dense=0, bitnet=False) -> str:
     """A tiny random GGUF of `arch` with llama.cpp's tensor names. `kind`
     maps a tensor name to its GGMLType (None: F32; F16 stored as such); norms, biases and the
     routers stay F32, as llama.cpp keeps them. Norm weights are drawn near
@@ -78,9 +78,20 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
     variants': `post_norm_names` (grok keeps its post-norms under
     attn_output_norm and layer_output_norm), `ffn_norm` as a name (dbrx's
     pre-FFN norm is attn_output_norm) and `moe_dense` (arctic: a dense FFN
-    of that width and ffn_norm_exps beside the experts of a MoE layer)."""
+    of that width and ffn_norm_exps beside the experts of a MoE layer); and
+    the last decoders': `n_head`, `n_head_kv` and `n_ff` as per-layer lists
+    (openelm, deci: written as arrays; a layer of no kv heads has attn_output
+    alone where it has query heads, no attention at all where it has none,
+    and a layer of FFN width 0 no FFN and no ffn_norm), `qk_norm="layer"`
+    (chameleon: [heads, head_dim] norms with biases) and `bitnet` (the rms
+    sub-norms before attn_output and ffn_down and a one-element scale,
+    not 1, on each product)."""
     rng = np.random.default_rng(seed)
-    hd = head_dim or n_embd // n_head
+
+    def per_layer(v, il):
+        return v[il] if isinstance(v, (list, tuple)) else v
+
+    hd = head_dim or n_embd // max(per_layer(n_head, il) for il in range(n_layer))
     hd_k = hd_v = hd
     if mla:
         hd_k, hd_v = mla["nope"] + mla["rope"], mla["v"]
@@ -94,7 +105,7 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
                        "attention.key_length": hd_k, "attention.value_length": hd_v,
                        "attention.layer_norm_rms_epsilon": 1e-6, "rope.freq_base": 10000.0,
                        "vocab_size": n_vocab}.items():
-        w.add(f"{arch}.{key}", value)
+        w.add(f"{arch}.{key}", list(value) if isinstance(value, (list, tuple)) else value)
     if n_expert:
         w.add(f"{arch}.expert_count", n_expert)
         w.add(f"{arch}.expert_used_count", n_expert_used)
@@ -153,11 +164,15 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
             w.add_tensor(f"rope_factors_{name}.weight", np.asarray(table, np.float32))
     for il in range(n_layer):
         p = f"blk.{il}."
+        hq, hk, ff = per_layer(n_head, il), per_layer(n_head_kv, il), per_layer(n_ff, il)
         if attn_norm:
             norm(p + "attn_norm", n_embd)
         if attn_norm_2:
             norm(p + "attn_norm_2", n_embd)
-        if mla:
+        if not mla and hk == 0:  # deci: attn_output alone, or no attention
+            if hq:
+                weight(p + "attn_output.weight", rand(n_embd, hq * hd_v))
+        elif mla:
             q_rows, r = n_head * hd_k, mla["rope"]
             if mla.get("q_lora"):
                 weight(p + "attn_q_a.weight", rand(mla["q_lora"], n_embd))
@@ -169,31 +184,42 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
             norm(p + "attn_kv_a_norm", mla["kv_lora"])
             weight(p + "attn_kv_b.weight", rand(n_head * (mla["nope"] + hd_v), mla["kv_lora"]))
         elif fused_qkv:
-            weight(p + "attn_qkv.weight", rand((n_head + 2 * n_head_kv) * hd, n_embd))
-            bias(p + "attn_qkv", (n_head + 2 * n_head_kv) * hd)
+            weight(p + "attn_qkv.weight", rand((hq + 2 * hk) * hd, n_embd))
+            bias(p + "attn_qkv", (hq + 2 * hk) * hd)
         else:
-            for nm, rows in (("attn_q", n_head * hd), ("attn_k", n_head_kv * hd),
-                             ("attn_v", n_head_kv * hd)):
+            for nm, rows in (("attn_q", hq * hd), ("attn_k", hk * hd), ("attn_v", hk * hd)):
                 weight(p + nm + ".weight", rand(rows, n_embd))
                 if qkv_bias:
                     w.add_tensor(p + nm + ".bias", rand(rows, s=0.2))
-        if qk_norm == "head":
-            norm(p + "attn_q_norm", n_head, hd)
-            norm(p + "attn_k_norm", n_head_kv, hd)
+        if hk == 0 and not mla:
+            pass
+        elif qk_norm == "head":
+            norm(p + "attn_q_norm", hq, hd)
+            norm(p + "attn_k_norm", hk, hd)
+        elif qk_norm == "layer":
+            for nm, heads in (("attn_q_norm", hq), ("attn_k_norm", hk)):
+                w.add_tensor(p + nm + ".weight", (1.0 + rand(heads, hd, s=0.1)).astype(np.float32))
+                w.add_tensor(p + nm + ".bias", rand(heads, hd, s=0.1))
         elif qk_norm == "full":
-            norm(p + "attn_q_norm", n_head * hd)
-            norm(p + "attn_k_norm", n_head_kv * hd)
+            norm(p + "attn_q_norm", hq * hd)
+            norm(p + "attn_k_norm", hk * hd)
         elif qk_norm:
             norm(p + "attn_q_norm", hd)
             norm(p + "attn_k_norm", hd)
-        weight(p + "attn_output.weight", rand(n_embd, n_head * hd_v))
-        bias(p + "attn_output", n_embd)
+        if hk or mla:
+            weight(p + "attn_output.weight", rand(n_embd, hq * hd_v))
+            bias(p + "attn_output", n_embd)
+        if bitnet and hk:
+            norm(p + "attn_sub_norm", hq * hd_v)
+            for nm in ("attn_q", "attn_k", "attn_v", "attn_output"):
+                w.add_tensor(p + nm + ".scale", np.asarray([1.0 + 0.1 * (il + 1)], np.float32))
         if post_norms:
             for name in post_norm_names:
                 norm(p + name, n_embd)
-        if ffn_norm:
+        is_moe = n_expert and il >= dense_lead and (not moe_step or (il + 1) % moe_step == 0)
+        if ffn_norm and (ff or is_moe):
             norm(p + (ffn_norm if isinstance(ffn_norm, str) else "ffn_norm"), n_embd)
-        if n_expert and il >= dense_lead and (not moe_step or (il + 1) % moe_step == 0):
+        if is_moe:
             w.add_tensor(p + "ffn_gate_inp.weight", rand(n_expert, n_embd, s=0.5))
             if probs_bias:
                 w.add_tensor(p + "exp_probs_b.bias", rand(n_expert, s=0.5))
@@ -211,17 +237,23 @@ def write_gguf(path, arch: str, *, n_vocab=256, n_embd=64, n_layer=2, n_head=4, 
                 weight(p + "ffn_up.weight", rand(moe_dense, n_embd))
                 weight(p + "ffn_down.weight", rand(n_embd, moe_dense))
                 norm(p + "ffn_norm_exps", n_embd)
+        elif not ff:
+            pass
         elif fused_up:
-            weight(p + "ffn_up.weight", rand(2 * n_ff, n_embd))
-            weight(p + "ffn_down.weight", rand(n_embd, n_ff))
+            weight(p + "ffn_up.weight", rand(2 * ff, n_embd))
+            weight(p + "ffn_down.weight", rand(n_embd, ff))
         else:
             if ffn_gate:
-                weight(p + "ffn_gate.weight", rand(n_ff, n_embd))
-                bias(p + "ffn_gate", n_ff)
-            weight(p + "ffn_up.weight", rand(n_ff, n_embd))
-            bias(p + "ffn_up", n_ff)
-            weight(p + "ffn_down.weight", rand(n_embd, n_ff))
+                weight(p + "ffn_gate.weight", rand(ff, n_embd))
+                bias(p + "ffn_gate", ff)
+            weight(p + "ffn_up.weight", rand(ff, n_embd))
+            bias(p + "ffn_up", ff)
+            weight(p + "ffn_down.weight", rand(n_embd, ff))
             bias(p + "ffn_down", n_embd)
+            if bitnet:
+                norm(p + "ffn_sub_norm", ff)
+                for nm in ("ffn_gate", "ffn_up", "ffn_down"):
+                    w.add_tensor(p + nm + ".scale", np.asarray([1.0 - 0.05 * (il + 1)], np.float32))
     for name, arr in (extra_tensors or {}).items():
         w.add_tensor(name, np.asarray(arr, np.float32))
     w.write()
@@ -337,7 +369,7 @@ def test_qwen3moe_routing_without_the_norm_key(tmp_path):
 
 def test_unported_archs_and_features_raise_by_name():
     base = synthetic.qwen3_8b_config(n_layer=2)
-    for arch in ("plm", "glm4", "deci", "chatglm"):
+    for arch in ("neo-bert", "jamba", "t5", "rwkv6"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             Engine({"layers": []}, ModelConfig(**{**base.__dict__, "arch": arch}),
                    device="cpu")
@@ -412,8 +444,12 @@ def synthetic_matches_file(tmp_path, geo: dict) -> None:
             s = ls[key]
             if isinstance(w, wire.WireTensor):
                 assert (s.kind, s.shape) == (w.kind, w.shape), key
-            elif key != "ffn_gate_inp":  # the file's router is F32 in the model dtype
+            elif key != "ffn_gate_inp" and not key.endswith("_scale"):
+                # the file's router and bitnet's scales are F32 in the model
+                # dtype (f32 here; the synthetic scales bf16, a bf16 model's)
                 assert (s.dtype, tuple(s.shape)) == (w.dtype, tuple(w.shape)), key
+            else:
+                assert tuple(s.shape) == tuple(w.shape), key
 
 
 def _spm_metadata() -> dict:

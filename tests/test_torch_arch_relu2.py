@@ -105,13 +105,13 @@ def test_synthetic_params_are_a_loaded_file(tmp_path, case):
 
 
 def test_the_synthetic_configs_are_admitted():
-    """Minitron-4B and AFM-4.5B are admitted at their published widths; plm,
-    relu^2 over MLA, stays refused by name."""
+    """Minitron-4B and AFM-4.5B are admitted at their published widths; an
+    arch outside the ported families (mamba) stays refused by name."""
     for name in ("minitron-4b", "afm-4.5b"):
         cfg = synthetic.CONFIGS[name](n_layer=2)
         llama.check_supported(cfg)
         assert cfg.ffn_act == "relu2" and "ffn_gate" not in synthetic.tensor_kinds(cfg)[
             "layers"][0]
     cfg = synthetic.minitron_4b_config(n_layer=2)
-    with pytest.raises(NotImplementedError, match="architecture 'plm' is not ported"):
-        llama.check_supported(type(cfg)(**{**cfg.__dict__, "arch": "plm"}))
+    with pytest.raises(NotImplementedError, match="architecture 'mamba' is not ported"):
+        llama.check_supported(type(cfg)(**{**cfg.__dict__, "arch": "mamba"}))

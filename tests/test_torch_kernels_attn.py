@@ -84,10 +84,11 @@ def test_flash_prefill_matches_plain(dev, dtype, D, Hkv, T, softcap, window):
 
 @pytest.mark.parametrize("T", [37, 128])
 @pytest.mark.parametrize("Dk,Dv", [(16, 16), (48, 48), (80, 80), (112, 112), (192, 192),
-                                   (256, 256), (192, 128)])
+                                   (256, 256), (192, 128), (96, 64)])
 def test_flash_prefill_bf16_head_dims(dev, Dk, Dv, T):
     """The tensor-core tiles at the other head dims the bf16 route takes
-    (phi-2's 80, gemma's 256, deepseek2's 192/128 among them), with softcap
+    (phi-2's 80, gemma's 256, deepseek2's 192/128, minicpm3's 96/64 among
+    them), with softcap
     and a window, rows at write offsets 250, 1000 and 0."""
     B, S, Hkv, H = 3, 1024, 2, 8
     g = torch.Generator(device=dev).manual_seed(Dk + Dv + T)
@@ -110,7 +111,8 @@ def test_flash_prefill_bf16_head_dims(dev, Dk, Dv, T):
                                               (128, 128, True)])
 def test_flash_prefill_bf16_simt_head_dims(dev, Dk, Dv, misaligned, T):
     """bf16 calls the tensor-core tiles do not take run the bf16 SIMT body:
-    head dims that are not a tile's (8, 40, 72, Dk != Dv but 192/128) and a
+    head dims that are not a tile's (8, 40, 72, Dk != Dv but 192/128 and
+    96/64) and a
     cache view whose rows are not 16-byte aligned (one element off), with
     softcap and a window, rows at write offsets 250, 1000 and 0."""
     B, S, Hkv, H = 3, 1024, 2, 8
