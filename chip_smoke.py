@@ -89,7 +89,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      LoRA with the compressed kv and K1/K2 on its q decompression at K 768,
      K1/K2 on BitNet b1.58-large's ternary rows (TQ2_0 and TQ1_0 at K 1536
      and 4096), K4-K7 at MiniCPM3's MLA heads (K 96 / V 64, 40 over 40: the
-     96/64 tiles) and K4/K5 at GLM-4's 32 query heads over 2;
+     96/64 tiles) and K4/K5 at GLM-4's 32 query heads over 2; and
+     speculative decoding's verify over the 128256-row Q6_K head: K1 at 5
+     rows and K2 at 32;
   4. the full-width kernel path (8B widths, 2 layers) against the plain
      path (the same params on the CPU): prefill logits, 4 teacher-forced
      decode steps (Engine.decode_one: replays of the step's CUDA graph on
@@ -97,8 +99,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      chunk, with the dense cache, q8_0,
      the split q5_1:q4_0 cache, LLAMACOG_MMQ=1 on a 300-token prompt (int8
      prefill), and the per-layer decode routes (LLAMACOG_FLASH_STACKED=0:
-     K9 on the dense cache with LLAMACOG_FLASH_DECODE=1, K8 on q8_0), and
-     the presets Q4_0 (with LLAMACOG_MMQ=1), Q5_1, Q3_K_M, Q2_K, IQ4_XS,
+     K9 on the dense cache with LLAMACOG_FLASH_DECODE=1, K8 on q8_0);
+     speculative decoding's verify forwards, the logits of every position
+     of a target step at T = 5 (K1 at 5 rows) and T = 9 (K2) and of
+     Engine.prefill_logits (9 tokens, the 32-row bucket), and one
+     on-device speculative round (1-layer self-draft, k = 4) captured as a
+     CUDA graph against its eager run, bit for bit; and the presets Q4_0 (with LLAMACOG_MMQ=1), Q5_1, Q3_K_M, Q2_K, IQ4_XS,
      IQ3_XXS and IQ1_M; then the same at Mixtral widths (2 layers, dense
      cache, the attention weight kinds of a real Q4_K_M file: Q8_0
      attn_k/attn_v, Q5_K attn_output): a 20-token prefill (grouped GEMM), 4
@@ -148,7 +154,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      GLM-4-9B-0414 (as an f32 model: see phase 4's comment),
      glm-4-9b-chat, Chameleon-7B and BitNet b1.58-large in
      TQ2_0 and TQ1_0 at 4 layers, the swin Chameleon-30B at 2, OpenELM-3B
-     at its 36 layers (dense and q8_0) and the deci pattern at
+     at 8 of its 36 layers (dense and q8_0) and the deci pattern at
      Nemotron-51B's widths over 5 layers (dense and q8_0), the last two on
      the masked path on every layer (no attention kernel, the JAX route);
      chameleon's -FLT_MAX image-token logits must agree between the paths
@@ -173,7 +179,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      step called from Python every token, in turns with the graph (graph,
      eager, eager, graph; the tokens must be equal), with ms/token of both;
      one sampled loop (SamplerChain with a fixed seed, 32 tokens through
-     decode_one), run twice, must draw the same tokens; then, with the
+     decode_one), run twice, must draw the same tokens; speculative
+     decoding on the device (OnDeviceSpeculative, k = 4, one graph a round:
+     the full-depth self-draft and a 4-layer one, 128 tokens, the round's
+     launches the captured ones times the replays), host-driven with a
+     draft of Llama-3.2-1B's shape (greedy; seeded sampling twice, the same
+     tokens), the greedy tokens equal to the plain ones or parting first at
+     a near-tie of the plain logits; a state round trip, dense and q8_0
+     (the continuation after restore equals the uninterrupted one); the
+     server with -md and slot save/restore; then, with the
      8B params freed, the Mixtral-8x7B Q4_K_M synthetic run at full depth
      (32 layers, the kinds of a real file), the same way, and with a
      512-token prompt and 16 tokens (the grouped GEMM over several tiles an
@@ -252,6 +266,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -397,6 +412,9 @@ def main() -> int:
     from llamacog_tpu_torch.runtime.kv_cache import (
         QuantKVCache, kv_dequant_planes, kv_plane_shapes)
     from llamacog_tpu_torch.runtime.sampler import SamplerChain, SamplerParams
+    from llamacog_tpu_torch.runtime.speculative import (
+        OnDeviceSpeculative, SpeculativeDecoder, SpeculativeParams, truncated_draft_params)
+    from llamacog_tpu_torch.runtime.state import load_row_state, save_row_state
     from llamacog_tpu_torch.utils.synthetic import (
         CODEBOOK_PRESETS, DEFAULT_LAYOUT, command_r7b_config, command_r_v01_config,
         deepseek_v2_config, deepseek_v2_lite_config, gemma2_9b_config, gemma3_4b_config,
@@ -405,6 +423,7 @@ def main() -> int:
         qwen2_5_7b_config, qwen2_57b_a14b_config, qwen3_8b_config, qwen3_30b_a3b_config,
         random_experts, random_wire, falcon_7b_config, falcon_40b_config, gpt2_config,
         gptj_6b_config, phi2_config, pythia_6_9b_config, stablelm2_1_6b_config,
+        llama3_2_1b_config,
         starcoder2_7b_config, starcoderbase_7b_config, llama4_scout_config,
         granite_3_1_8b_config, granite_3_1_3b_a800m_config, olmoe_1b_7b_config,
         olmo2_7b_config, olmo_7b_config, minicpm_2b_config, bloom_7b1_config, mpt_7b_config,
@@ -631,6 +650,12 @@ def main() -> int:
     for label, ws, multi in shapes:
         if not any(w.kind in ("Q8_0", "Q5_K") for w in ws):
             weight_parity("qmv", qmv, SERVING_SLOTS, label, ws, multi, "serving")
+    # the LM head over several positions, speculative decoding's verify: the
+    # on-device round's k + 1 = 5 rows (qmv) and the host-driven verify's
+    # 32-row bucket (qgemm, Engine.prefill_logits); launches from the
+    # phase-5 speculative runs
+    weight_parity("qmv", qmv, 5, "output Q6_K 128256x4096", [w_head], False, "8b spec on device")
+    weight_parity("qgemm", qgemm, 32, "output Q6_K 128256x4096", [w_head], False, "8b spec host")
     # the legacy, low-bit and codebook kinds of llama.cpp's other presets at
     # the 8B FFN shapes, each read in the phase-5 run of a preset that holds
     # it; and the mixed launches of a Q3_K_M layer's attn_qk (Q3_K) + attn_v
@@ -2171,6 +2196,97 @@ def main() -> int:
             f"plain max rel err {worst:.3e}; {time.perf_counter() - t_case:.1f}s")
         return launches
 
+    def verify_path_check(cfgp, p_gpu, p_cpu, prompt):
+        """Speculative decoding's verify forwards, on the card and on the
+        CPU, the same params (bf16, dense cache): after the prompt's prefill,
+        the target step over T = 5 and then T = 9 tokens, unpadded, with the
+        logits of every position (the on-device round's target step at k =
+        4, K1 at 5 rows, and at k = 8, K2 at 9 rows: Engine._step, as
+        runtime/speculative.py calls it), then Engine.prefill_logits of 9
+        tokens (the host-driven verify, padded to the 32-row bucket: K2);
+        every position's logits within TOL_PATH, each step's launches
+        logged and the kernels of its route checked."""
+        t_case = time.perf_counter()
+        V2, runs = cfgp.n_vocab, {}
+        for name, params, device in (("kernel", p_gpu, "cuda"), ("plain", p_cpu, "cpu")):
+            eng = Engine(params, cfgp, batch_size=1, max_seq=1024, device=device)
+            eng.prefill(prompt)
+            steps = []
+            for T in (5, 9):
+                build.reset_launches()
+                toks = torch.tensor([[(7919 * (j + T)) % V2 for j in range(T)]], device=eng.device)
+                wp = int(eng.seq_len[0])
+                logits = eng._step(toks, eng._dev_i32([wp]), T, kv_cap=eng._kv_cap(wp + T))[0]
+                eng.seq_len[0] += T
+                steps.append((f"verify step T={T}", logits.cpu(), dict(build.LAUNCHES)))
+            build.reset_launches()
+            steps.append(("prefill_logits of 9 tokens",
+                          torch.from_numpy(eng.prefill_logits(prompt[:9])), dict(build.LAUNCHES)))
+            runs[name] = steps
+            del eng
+        for (what, a, launches), (_, b, _) in zip(runs["kernel"], runs["plain"]):
+            used = {k: v for k, v in launches.items() if v}
+            T = a.shape[0]
+            weights = "qmv" if T <= 8 and what.startswith("verify") else "qgemm"
+            check(a.shape == b.shape == (T, V2) and bool(torch.isfinite(a).all()),
+                  f"8B widths {what}: logits not finite of shape [{T}, {V2}]")
+            check(used.get(weights, 0) > 0 and used.get("flash_prefill", 0) == cfgp.n_layer
+                  and used.get("qgemm" if weights == "qmv" else "qmv", 0) == 0,
+                  f"8B widths {what}: launches {used}, not {weights} and K5 a layer")
+            errs = [rel_err(a[i], b[i]) for i in range(T)]
+            log(f"[path] 8B widths, {cfgp.n_layer} layers, {what}: every position's logits, "
+                f"max rel err {max(errs):.3e} (tol {TOL_PATH:.0e}; per position "
+                f"{', '.join(f'{e:.1e}' for e in errs)}), argmax agree at "
+                f"{int((a.argmax(-1) == b.argmax(-1)).sum())} of {T}; kernel launches "
+                f"{json.dumps(used)}")
+            check(max(errs) <= TOL_PATH, f"8B widths {what}: kernel path disagrees with the "
+                  "plain path")
+        log(f"[path] 8B widths, verify forwards: {time.perf_counter() - t_case:.1f}s")
+
+    def spec_round_check(cfgp, p_gpu, prompt, k=4):
+        """One on-device speculative round (OnDeviceSpeculative.round: k + 1
+        draft steps of a 1-layer self-draft, the T = k + 1 target step, the
+        accept and the device state) captured as a CUDA graph against the
+        same round called from Python, from the same state: one token is
+        one round (a round emits 1 to k + 1). The tokens, the stats, the lengths and every K/V slot
+        the round wrote, in the target's and the draft's cache, equal bit
+        for bit; the replay's launches are the captured ones."""
+        t = Engine(p_gpu, cfgp, batch_size=1, max_seq=1024)
+        d = Engine(truncated_draft_params(p_gpu, 1), dataclasses.replace(cfgp, n_layer=1),
+                   batch_size=1, max_seq=1024)
+        first = int(t.prefill(prompt).argmax())
+        d.prefill(prompt)
+        pre = (int(t.seq_len[0]), int(d.seq_len[0]))
+        sp = OnDeviceSpeculative(t, d, k=k)
+        got = {}
+        for way in ("eager", "graph (capture)", "graph"):
+            t.seq_len[0], d.seq_len[0] = pre
+            build.reset_launches()
+            toks, stats = sp.generate_greedy(first, 1, eager=way == "eager")
+            torch.cuda.synchronize()
+            wrote = [pl[:, 0, pre[0]:pre[0] + k + 1].clone() for pl in t.cache.planes()]
+            wrote += [pl[:, 0, pre[1]:pre[1] + k + 1].clone() for pl in d.cache.planes()]
+            got[way] = (toks.tolist(), stats, (int(t.seq_len[0]), int(d.seq_len[0])), wrote,
+                        dict(build.LAUNCHES), sp.replays, sp.host_reads)
+        (e_toks, e_stats, e_len, e_kv, _, _, _), (g_toks, g_stats, g_len, g_kv, launches,
+                                                  replays, reads) = got["eager"], got["graph"]
+        captured = next(iter(sp.graphs.values()))[1]
+        same_kv = all(torch.equal(a, b) for a, b in zip(e_kv, g_kv))
+        log(f"[path] 8B widths, one speculative round (k {k}, 1-layer self-draft): eager "
+            f"{e_toks} {e_stats} lengths {e_len}; graph {g_toks} {g_stats} lengths {g_len}; the "
+            f"written K/V equal bit for bit: {same_kv}; {replays} replay, {reads} host reads; "
+            f"captured launches {json.dumps(captured)}")
+        check(e_stats["rounds"] == 1 and len(sp.graphs) == 1,
+              f"speculative round: {e_stats['rounds']} rounds, {len(sp.graphs)} graphs")
+        check(got["graph (capture)"][:3] == got["eager"][:3] and g_toks == e_toks
+              and g_stats == e_stats and g_len == e_len and same_kv,
+              "the captured speculative round differs from its eager run")
+        want = {kk: captured.get(kk, 0) * replays for kk in launches}
+        check(launches == want and all(captured.get(kk, 0) for kk in ("qmv", *dense_attn)),
+              f"speculative round launches {launches} are not the captured {captured} x "
+              f"{replays}, or lack K1/K4/K5")
+        del t, d, sp
+
     # the dense cache, q8_0 and a split pair; int8 prefill on a 300-token
     # prompt (bucket 512, so the real MMQ_MIN_B of 256 holds); the per-layer
     # decode routes (LLAMACOG_FLASH_STACKED=0): K9 on the dense cache, K8 on q8_0
@@ -2206,6 +2322,8 @@ def main() -> int:
         launches = batched_path_check("8B widths", cfg2, p_gpu, p_cpu, kv_type,
                                       ("qmv", "qgemm", *attn), 1024, prompts_b, torch.float32)
         rows_runs[f"8b {SERVING_SLOTS} rows {kv_type}"] = {"total": launches}
+    verify_path_check(cfg2, p_gpu, p_cpu, prompt20)
+    spec_round_check(cfg2, p_gpu, prompt20)
     del p_gpu, p_cpu, exact, mm
     torch.cuda.empty_cache()
     # the other presets at 8B widths: legacy Q4_0 (q+k+v and gate+up fused)
@@ -2552,9 +2670,10 @@ def main() -> int:
     # 4; Chameleon-7B (per-head layer norms at eps 0, the image tokens'
     # -FLT_MAX) at 4 and the swin Chameleon-30B at 2; BitNet b1.58-large in
     # TQ2_0 and TQ1_0 (sub-norms, each product's scale, its own launch) at
-    # 4; OpenELM-3B at its 36 layers (12 to 24 query heads over 3 to 6 kv
-    # heads, the cache 6 wide: the masked path on every layer, no attention
-    # kernel, the JAX route; dense and q8_0) and the deci pattern at
+    # 4; OpenELM-3B at the first 8 of its 36 layers (12 and 16 query heads
+    # over 3 and 4 kv heads, the cache 4 wide: the masked path on every
+    # layer, no attention kernel, the JAX route; dense and q8_0; phase 5 runs
+    # all 36) and the deci pattern at
     # Nemotron-51B's widths over its first 5 layers (GQA at 8 and 2 kv
     # heads, attention-free, linear attention, linear attention without an
     # FFN; the masked path; dense and q8_0). GLM-4-9B-0414 runs as an f32
@@ -2586,7 +2705,7 @@ def main() -> int:
                 ("TQ2_0 kv dense", "dense", {}, prompt20d, stacked, "stacked")], 1024),
             ("BitNet b1.58-large widths", bitnet_b1_58_large_config(n_layer=4), "TQ1_0", [
                 ("TQ1_0 kv dense", "dense", {}, prompt20d, stacked, "stacked")], 1024),
-            ("OpenELM-3B widths", openelm_3b_config(), "Q4_K_M", [
+            ("OpenELM-3B widths", openelm_3b_config(n_layer=8), "Q4_K_M", [
                 ("kv dense (masked)", "dense", {}, prompt20d, ("qmv", "qgemm"), "masked"),
                 ("kv q8_0 (masked)", "q8_0", {}, prompt20d, ("qmv", "qgemm"), "masked")],
              1024),
@@ -2768,6 +2887,229 @@ def main() -> int:
             f"({len(set(drawn[0]))} distinct)")
         del eng
         torch.cuda.empty_cache()
+
+    def spec_runs(params, cfgm, plain):
+        """Phase 5's speculative and state runs on the 8B at full depth, a
+        PROMPT_LEN-token prompt: the plain greedy tokens and logits first,
+        one decode_one (a graph replay) a step, which must be the counted
+        dense run's `plain` tokens; then OnDeviceSpeculative (k = 4) with the
+        full-depth self-draft (the target's weights: the cost of a round when
+        drafts are accepted) and a 4-layer self-draft, N_DECODE tokens, each
+        after a call that captures the round's graph: its launches the
+        captured ones times the replays; SpeculativeDecoder with the
+        Llama-3.2-1B-shaped draft (its default n_draft 8 and p_min 0.75),
+        greedy, and seeded-sampled twice (the same tokens); a state round
+        trip with the dense and the q8_0 cache (the continuation after
+        restore equals the uninterrupted one); and one server run with -md
+        and slot save/restore. The greedy speculative tokens equal the plain
+        ones or part from them first at a near-tie of the plain logits:
+        the token taken within TIE_ULPS bf16 ulps of the top logit (the
+        verify step's K5 and K1 at k + 1 rows, or K2, round otherwise than
+        the decode step's K4 and K1 at one row, each held against its plain
+        version in phase 3; the synthetic 8B's logits tie often: the
+        parting position is printed)."""
+        from llamacog_tpu_torch.models.loader import Model
+        from llamacog_tpu_torch.server.server import serve
+        from llamacog_tpu_torch.utils.synthetic import synthetic_vocab
+
+        t_phase = time.perf_counter()
+        Vm, n, card = cfgm.n_vocab, N_DECODE, nvidia_smi_line()
+        prompt = [(j * 31337) % Vm for j in range(PROMPT_LEN)]
+        plain_ms = statistics.median(plain["graph_ms"])
+
+        def greedy_ref(eng, ids, n_tok):
+            """The prefill's greedy token, then the plain greedy tokens and
+            each step's logits (decode_one)."""
+            tok = int(eng.prefill(ids).argmax())
+            toks, logits = [tok], []
+            for _ in range(n_tok):
+                lg = eng.decode_one([tok])[0]
+                tok = int(lg.argmax())
+                toks.append(tok)
+                logits.append(lg)
+            return toks[0], toks[1:], logits
+
+        def agree(tag, toks, ref_toks, ref_logits):
+            """The greedy speculative tokens against the plain ones: equal, or
+            parting first at a near-tie of the plain logits."""
+            toks = [int(x) for x in toks]
+            part = next((j for j, (a, b) in enumerate(zip(toks, ref_toks)) if a != b), None)
+            if part is None:
+                log(f"{tag} its {len(toks)} tokens equal the plain greedy tokens")
+                return
+            lg = ref_logits[part]
+            top = float(lg[ref_toks[part]])
+            ulp = 2.0 ** (torch.frexp(torch.tensor(top)).exponent.item() - 8)
+            gap = (top - float(lg[toks[part]])) / ulp
+            log(f"{tag} parts from the plain greedy tokens at token {part}: plain "
+                f"{ref_toks[part]}, speculative {toks[part]}, its plain logit {gap:.2f} bf16 "
+                f"ulps below the top one {top:.3f} (near-tie tolerance {TIE_ULPS} ulps)")
+            check(gap <= TIE_ULPS, f"{tag} greedy tokens part from the plain ones at {part} "
+                  f"with a gap of {gap:.2f} bf16 ulps")
+
+        t = Engine(params, cfgm, batch_size=1, max_seq=1024)
+        ref_first, ref_toks, ref_logits = greedy_ref(t, prompt, n)
+        check(ref_toks == [int(x) for x in plain["tokens"][0]],
+              "spec runs: the decode_one loop's greedy tokens differ from the graph loop's")
+        # the verify step over the plain tokens (teacher-forced) against the
+        # decode steps' logits, position by position: T = 5 (K1 at 5 rows,
+        # the round's step at k = 4) and T = 9 (K2: bf16-rounded weights)
+        for T in (5, 9):
+            t.reset()
+            t.prefill(prompt)
+            wp = int(t.seq_len[0])
+            x = torch.tensor([[ref_first] + ref_toks[:T - 1]], device=dev)
+            v = t._step(x, t._dev_i32([wp]), T, kv_cap=t._kv_cap(wp + T))[0].float().cpu()
+            diff = [float((v[i] - torch.from_numpy(ref_logits[i])).abs().max()) for i in range(T)]
+            same = sum(int(v[i].argmax()) == ref_toks[i] for i in range(T))
+            log(f"[8b spec] the T={T} verify step over the plain tokens against the decode "
+                f"steps: max |logit difference| by position {[round(d, 3) for d in diff]} (max "
+                f"|logit| {float(np.abs(ref_logits[0]).max()):.3f}); argmax agrees at {same} of "
+                f"{T}")
+        spec_named = {}
+        for name, n_l in (("full-depth self-draft", cfgm.n_layer), ("4-layer self-draft", 4)):
+            tag, k = f"[8b spec on device, {name}, k 4]", 4
+            d = (Engine(params, cfgm, batch_size=1, max_seq=1024) if n_l == cfgm.n_layer else
+                 Engine(truncated_draft_params(params, n_l),
+                        dataclasses.replace(cfgm, n_layer=n_l), batch_size=1, max_seq=1024))
+            sp = OnDeviceSpeculative(t, d, k=k)
+            for counted in (False, True):  # the first call captures the round's graph
+                t.reset()
+                d.reset()
+                first = int(t.prefill(prompt).argmax())
+                d.prefill(prompt)
+                torch.cuda.synchronize()
+                build.reset_launches()
+                t1 = time.perf_counter()
+                toks, st = sp.generate_greedy(first, n)
+                dt = time.perf_counter() - t1
+            launches = {kk: v for kk, v in build.LAUNCHES.items() if v}
+            (cap_key, (_, captured)), = sp.graphs.items()
+            log(f"{tag} {n} tokens in {dt:.3f}s: {dt / n * 1e3:.3f} ms/token against the plain "
+                f"graph's {plain_ms:.3f}; {st['rounds']} rounds, accept rate "
+                f"{st['accept_rate']:.3f} ({st['accepted']} of {st['drafted']}); {sp.host_reads} "
+                f"host reads in the call; lengths {int(t.seq_len[0])}, {int(d.seq_len[0])}; "
+                f"{card}")
+            log(f"{tag} the round's graph (t_cap, d_cap) {cap_key}: {sum(captured.values())} "
+                f"launches ({json.dumps(captured)}) x {sp.replays} replays; the call's launches "
+                f"{json.dumps(launches)}")
+            if n_l == cfgm.n_layer:
+                spec_named["8b spec on device"] = {"total": dict(build.LAUNCHES)}
+            check(launches == {kk: v * sp.replays for kk, v in captured.items()}
+                  and sp.replays == st["rounds"] and captured.get("qmv")
+                  and captured.get("flash_decode_dense") and captured.get("flash_prefill"),
+                  f"{tag} launches {launches} are not the captured {captured} x {sp.replays}")
+            check(PROMPT_LEN + n <= int(t.seq_len[0]) <= PROMPT_LEN + n + k
+                  and int(d.seq_len[0]) == int(t.seq_len[0]),
+                  f"{tag} lengths {t.seq_len} {d.seq_len}")
+            agree(tag, toks, ref_toks, ref_logits)
+            del d, sp
+        # the host-driven rounds with a draft of Llama-3.2-1B's shape
+        dcfg = llama3_2_1b_config()
+        dparams = make_synthetic_params(dcfg, seed=1, ftype="Q4_K_M")
+        d = Engine(dparams, dcfg, batch_size=1, max_seq=1024)
+        tag = "[8b spec host, Llama-3.2-1B draft]"
+        t.reset()
+        d.reset()
+        build.reset_launches()
+        t1 = time.perf_counter()
+        toks, st = SpeculativeDecoder(t, d).generate(prompt, n + 1)
+        dt = time.perf_counter() - t1
+        log(f"{tag} greedy, {n + 1} tokens (prefill included) in {dt:.3f}s: "
+            f"{dt / (n + 1) * 1e3:.3f} ms/token against the plain graph's {plain_ms:.3f}; "
+            f"{st['rounds']} rounds, {st['drafted']} drafted, {st['accepted']} accepted; "
+            f"launches {json.dumps({kk: v for kk, v in build.LAUNCHES.items() if v})}; {card}")
+        check(all(build.LAUNCHES[kk] for kk in ("qmv", "qgemm", *dense_attn)),
+              f"{tag} launches {build.LAUNCHES}: not K1, K2, K4 and K5")
+        spec_named["8b spec host"] = {"total": dict(build.LAUNCHES)}
+        check(toks[0] == ref_first, f"{tag} first token {toks[0]}, not the prefill's {ref_first}")
+        agree(tag, toks[1:], ref_toks, ref_logits)
+        drawn = []
+        for _ in range(2):
+            t.reset()
+            d.reset()
+            chain = SamplerChain(SamplerParams(seed=1234), n_vocab=Vm)
+            t1 = time.perf_counter()
+            got, st = SpeculativeDecoder(t, d).generate(prompt, 32, sampler=chain)
+            drawn.append(got)
+            log(f"{tag} seeded sampling (seed 1234, the CLI's defaults), 32 tokens in "
+                f"{time.perf_counter() - t1:.3f}s, {st}: {got[:12]}")
+        check(drawn[0] == drawn[1], f"{tag} the seeded runs drew {drawn[0]} and {drawn[1]}")
+        # a state round trip: the continuation after restore is the uninterrupted one
+        with tempfile.TemporaryDirectory() as tmp:
+            for kv in ("dense", "q8_0"):
+                tag = f"[8b state, kv {kv}]"
+                a = Engine(params, cfgm, batch_size=1, max_seq=1024, kv_type=kv)
+                build.reset_launches()
+                first = int(a.prefill(prompt).argmax())
+                path = os.path.join(tmp, f"{kv}.state")
+                t1 = time.perf_counter()
+                save_row_state(a, path, tokens=prompt)
+                t_save = time.perf_counter() - t1
+                want = a.decode_greedy_tokens([first], 32)
+                b = Engine(params, cfgm, batch_size=1, max_seq=1024, kv_type=kv)
+                t1 = time.perf_counter()
+                back = load_row_state(b, path)
+                t_load = time.perf_counter() - t1
+                n_back = int(b.seq_len[0])
+                got = b.decode_greedy_tokens([first], 32)
+                used = {kk: v for kk, v in build.LAUNCHES.items() if v}
+                log(f"{tag} {os.path.getsize(path) / 1e6:.3f} MB saved in {t_save * 1e3:.1f} ms, "
+                    f"restored in {t_load * 1e3:.1f} ms; the 32 tokens after restore equal the "
+                    f"uninterrupted ones: {bool((got == want).all())}; launches {json.dumps(used)}")
+                check(back == prompt and n_back == PROMPT_LEN
+                      and bool((got == want).all()),
+                      f"{tag} the restored row continues otherwise: {got[0, :8]} {want[0, :8]}")
+                attn = quant_attn if kv == "q8_0" else dense_attn
+                check(all(used.get(kk) for kk in ("qmv", "qgemm", *attn)),
+                      f"{tag} launches {used}: not the path's kernels")
+                del a, b
+            # the server with -md, then slot save/restore
+            tag = "[8b server -md]"
+            vocab = synthetic_vocab(Vm)
+            rng = np.random.default_rng(SEED + 23)
+            prompts = [rng.integers(256, 128000, size=PROMPT_LEN).tolist() for _ in range(2)]
+            refs = []
+            for ids in prompts:
+                t.reset()
+                refs.append(greedy_ref(t, ids, 32))
+            del t
+            torch.cuda.empty_cache()
+            ctx, httpd = serve(Model(cfgm, params, vocab, None), host="127.0.0.1", port=0,
+                               n_slots=2, ctx_size=1024, draft_model=Model(dcfg, dparams, vocab,
+                                                                           None))
+            th = threading.Thread(target=httpd.serve_forever, daemon=True)
+            th.start()
+            url = f"http://127.0.0.1:{httpd.server_address[1]}"
+            try:
+                bodies = [{"prompt": ids, "n_predict": 33, "temperature": 0.0, "ignore_eos": True,
+                           "return_tokens": True} for ids in prompts]
+                out, wall = post_all(url, bodies)
+                for i, (r, (rf, rt, rl)) in enumerate(zip(out, refs)):
+                    tm = r["timings"]
+                    log(f"{tag} request {i}: {r['tokens_predicted']} tokens at "
+                        f"{tm['predicted_ms'] / r['tokens_predicted']:.3f} ms/token, drafted "
+                        f"{tm.get('draft_n')}, accepted {tm.get('draft_n_accepted')}; {card}")
+                    check(r["tokens"][0] == rf, f"{tag} request {i}: first token "
+                          f"{r['tokens'][0]}, not the prefill's {rf}")
+                    agree(f"{tag} request {i}", r["tokens"][1:], rt, rl)
+                saved = http_post(url + "/slots/0?action=save", {"filename": "slot0.bin"})
+                restored = http_post(url + "/slots/1?action=restore", {"filename": "slot0.bin"})
+                erased = http_post(url + "/slots/1?action=erase", {})
+                log(f"{tag} slot 0 saved {saved}; restored into slot 1 {restored}; {erased}")
+                check(saved["n_saved"] == restored["n_restored"] >= PROMPT_LEN
+                      and erased["n_erased"] == 1 and int(ctx.engine.seq_len[1]) == 0,
+                      f"{tag} slot save/restore: {saved} {restored} {erased}")
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                ctx.stop()
+                th.join(timeout=60)
+            check(not th.is_alive() and not ctx.thread.is_alive(), f"{tag} server threads run on")
+        del d, dparams, ctx
+        torch.cuda.empty_cache()
+        log(f"[8b spec and state] wall time {time.perf_counter() - t_phase:.1f}s")
+        return spec_named
 
     def graph_edges(raw_graph) -> dict:
         """{"nodes": n, "edges": {type: count}} of a captured cudaGraph_t
@@ -3259,6 +3601,7 @@ def main() -> int:
     log(f"[8b] per-layer K9 run: {N_DECODE} greedy tokens equal the stacked dense run's: {same}")
     check(same, "the per-layer K9 route's greedy tokens differ from the stacked route's")
     sampled_runs(params, cfg)
+    spec_named = spec_runs(params, cfg, runs_8b["kv dense"])
     single_ms = statistics.median(runs_8b["kv dense"]["graph_ms"])
     serving = serving_runs(params, cfg, single_ms)
     del params
@@ -3829,7 +4172,7 @@ def main() -> int:
               **{k: runs_8b["kv q8_0"] for k in quant_attn}}
     run_named = {**runs_8b, "mixtral": runs_moe["kv dense"],
                  "mixtral 512": runs_moe["kv dense 512"], **preset_runs, **serving, **rows_runs,
-                 **batch_runs,
+                 **batch_runs, **spec_named,
                  **family_runs}
     for r in results:
         k, run = r.pop("kernel"), r.pop("run")

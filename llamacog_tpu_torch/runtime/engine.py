@@ -9,8 +9,11 @@ make_cache), or, for a dense cache
 of a model with interleaved sliding-window layers whose window is shorter
 than max_seq, the ring cache (SwaKVCache: the JAX engine's choice,
 engine.py:103-118): prefill in padded length buckets (the pad slots are
-written to the cache, as the JAX engine writes them), one-token decode
-steps, and a greedy loop that keeps the token on the device. The cache bound `_kv_cap`
+written to the cache, as the JAX engine writes them; prefill_logits returns
+every position's logits, the host-driven speculative verify's and the
+perplexity path's), one-token decode steps, and a greedy loop that keeps
+the token on the device (runtime/speculative.py adds the on-device draft +
+verify round, and runtime/state.py saves and restores a row's cache). The cache bound `_kv_cap`
 is the JAX engine's. With batch_size B > 1 each row is a sequence of its
 own (a server slot): a row's prefill runs the forward at B = 1 over the
 row's view of the cache (KVCache.row; the JAX engine's step_row), so one
@@ -274,21 +277,25 @@ class Engine:
             t = self.max_seq - wp  # exact tail fit, no padding
         return t
 
-    def _prefill_chunk(self, token_ids, row: int) -> torch.Tensor:
+    def _prefill_chunk(self, token_ids, row: int, all_logits: bool = False) -> torch.Tensor:
         """One padded prefill step of `row`. At B = 1 the step runs over the
         whole cache; at B > 1 over the row's view at B = 1 (the JAX engine's
         step_row, engine.py:152-177), so a prompt never costs B times its
-        FLOPs and the other rows' caches are not touched."""
+        FLOPs and the other rows' caches are not touched. Returns the last
+        token's f32 logits [V], or with all_logits those of every token
+        [n, V] (the LM head then runs on all t padded positions, as the JAX
+        engine's _prefill_row_logits does)."""
         n = len(token_ids)
         wp = int(self.seq_len[row])
         t = self._prefill_t_at(n, wp)
         toks = torch.zeros((1, t), dtype=torch.int64)
         toks[0, :n] = torch.as_tensor(np.asarray(token_ids, np.int64))
         view = {} if self.batch_size == 1 else {"cache": self.cache.row(row)}
-        logits = self._step(toks.to(self.device), self._dev_i32([wp]), t, last_pos=[n - 1],
+        logits = self._step(toks.to(self.device), self._dev_i32([wp]), t,
+                            last_pos=None if all_logits else [n - 1],
                             kv_cap=self._kv_cap(wp + t), n_new=self._dev_i32([n]), **view)
         self.seq_len[row] += n
-        return logits[0, -1]
+        return logits[0, :n] if all_logits else logits[0, -1]
 
     def _check_row(self, row: int) -> None:
         if not 0 <= row < self.batch_size:
@@ -305,6 +312,19 @@ class Engine:
         for off in range(0, len(token_ids), chunk):
             logits = self._prefill_chunk(token_ids[off : off + chunk], row)
         return logits.cpu().numpy()
+
+    def prefill_logits(self, token_ids: list[int], row: int = 0) -> np.ndarray:
+        """Prefill a row and return the f32 logits of every prompt position
+        [n, V] (engine.py:511-522: the perplexity path, and the host-driven
+        speculative verify), in chunks of the model's prefill_chunk; the pad
+        slots are written and the row advances by n, as in prefill."""
+        if not len(token_ids):
+            raise ValueError("empty prompt: nothing to prefill")
+        self._check_row(row)
+        chunk = prefill_chunk(self.config)
+        outs = [self._prefill_chunk(token_ids[off:off + chunk], row, all_logits=True).cpu()
+                for off in range(0, len(token_ids), chunk)]
+        return torch.cat(outs).numpy()
 
     def _active(self, active) -> np.ndarray:
         if active is None:

@@ -17,6 +17,18 @@ at its context) and a prompt that shares only part of a slot's cached
 tokens is prefilled anew in that slot (llama.cpp's rule for a
 sliding-window cache).
 
+Speculative decoding: with a draft model (-md) each generating slot runs
+host-driven rounds (runtime/speculative.py::SpeculativeDecoder: the draft
+engine mirrors the target's slot rows; a request may override n_max, n_min
+and p_min under "speculative"); with --spec-ondevice on one slot a greedy
+request decodes in chunks of 16 tokens through OnDeviceSpeculative (the
+draft, -md or the target's first N layers, and the verify on the device:
+one CUDA graph a round), and a sampled one token by token, as the JAX
+server does. Neither runs over the ring: a rollback would leave rejected
+tokens in it, so the constructor refuses the pair by name. Slots save to
+and restore from files of runtime/state.py (POST /slots/:id?action=save|
+restore|erase) in a temporary directory.
+
 Endpoints: /health, /props, /metrics, /slots, /v1/models, /completion(s),
 /v1/completions, /chat/completions, /v1/chat/completions, /api/chat,
 /tokenize, /detokenize, /apply-template, /infill, the web UI at /, and the
@@ -24,10 +36,8 @@ ollama-compatible /api/tags and /api/show.
 
 Not ported yet, each refused by name (a constructor argument raises
 NotImplementedError, an endpoint answers HTTP 501 with the same words):
-speculative decoding (host and on-device), multimodal input (--mmproj),
-LoRA adapters and control vectors, the multi-host mirror, embeddings and
-rerank (they need models/bert.py) and slot save/restore (it needs
-runtime/state.py).
+multimodal input (--mmproj), LoRA adapters and control vectors, the
+multi-host mirror, embeddings and rerank (they need models/bert.py).
 """
 
 from __future__ import annotations
@@ -35,10 +45,11 @@ from __future__ import annotations
 import json
 import os
 import queue
+import tempfile
 import threading
 import time
 import uuid
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -49,6 +60,9 @@ from ..runtime.engine import Engine
 from ..runtime.grammar import grammar_from_gbnf
 from ..runtime.json_schema import json_schema_to_gbnf
 from ..runtime.sampler import SamplerChain, SamplerParams
+from ..runtime.speculative import (OnDeviceSpeculative, SpeculativeDecoder, SpeculativeParams,
+                                   truncated_draft_params)
+from ..runtime.state import load_row_state, save_row_state
 
 IDLE, PROMPT, GENERATING = 0, 1, 2
 
@@ -77,6 +91,7 @@ class Task:
     n_keep: int = 0  # context-shift keep prefix (-1 = whole prompt)
     ignore_eos: bool = False  # keep generating past EOG (server.cpp ignore_eos)
     return_tokens: bool = False  # the final message carries the generated ids
+    spec: dict | None = None  # per-request speculative overrides (n_max/n_min/p_min)
 
 
 class Slot:
@@ -98,6 +113,7 @@ class Slot:
         self.n_cached = 0  # prompt tokens reused from the row's KV
         self.generated: list[int] = []  # token ids emitted for the task
         self.finished = False  # set by _emit_token when the slot is done
+        self.spec_stats: dict = {}  # per-slot speculative accept stats
 
 
 class ServerContext:
@@ -109,25 +125,50 @@ class ServerContext:
     ):
         """The JAX server's arguments; those of the parts not ported yet
         raise by name. `device` is the engine's (None: CUDA; the CPU only
-        when asked for), where the model's params must live."""
+        when asked for), where the model's params and the draft model's
+        must live."""
         refused = {"LoRA adapters": bool(loras), "the multi-host mirror": mesh is not None,
-                   "multimodal input (--mmproj)": vision is not None,
-                   "speculative decoding (-md)": draft_model is not None,
-                   "on-device speculative decoding (--spec-ondevice)": bool(spec_ondevice)}
+                   "multimodal input (--mmproj)": vision is not None}
         for what, asked in refused.items():
             if asked:
                 raise not_ported(what)
         self.model = model
+        dtype = dtype or torch.bfloat16
         self.engine = Engine(
             model.params, model.config, batch_size=n_slots,
-            max_seq=ctx_size, dtype=dtype or torch.bfloat16, kv_type=kv_type,
-            device=device,
+            max_seq=ctx_size, dtype=dtype, kv_type=kv_type, device=device,
         )
         # a ring cannot be shifted (Engine.shift_row refuses it)
         self.ctx_shift = ctx_shift and not self.engine.ring
+        # per-slot speculative decoding (server.cpp:3559-3584): the draft
+        # engine mirrors the target's slot rows and stays in lockstep; both
+        # speculative classes refuse an engine that holds the ring
+        self.spec: SpeculativeDecoder | None = None
+        self.spec_ondevice: OnDeviceSpeculative | None = None  # greedy, one slot
+        self.draft_engine: Engine | None = None
+        if spec_ondevice:
+            # --spec-ondevice: draft + verify on the device, one graph a
+            # round; the draft is the -md model or the target's first N layers
+            if n_slots != 1:
+                raise ValueError("--spec-ondevice requires a single slot "
+                                 "(-np 1): the fused loop is batch-1")
+            if draft_model is not None:
+                d_params, d_cfg = draft_model.params, draft_model.config
+            else:
+                d_params = truncated_draft_params(model.params, spec_ondevice)
+                d_cfg = replace(model.config, n_layer=spec_ondevice)
+            self.draft_engine = Engine(d_params, d_cfg, batch_size=1, max_seq=ctx_size,
+                                       dtype=dtype, device=device)
+            self.spec_ondevice = OnDeviceSpeculative(self.engine, self.draft_engine, k=spec_k)
+        elif draft_model is not None:
+            self.draft_engine = Engine(draft_model.params, draft_model.config,
+                                       batch_size=n_slots, max_seq=ctx_size, dtype=dtype,
+                                       device=device)
+            self.spec = SpeculativeDecoder(self.engine, self.draft_engine, SpeculativeParams())
         self.slots = [Slot(i) for i in range(n_slots)]
         self.pending: "queue.Queue[Task]" = queue.Queue()
         self.ctx_size = ctx_size
+        self._slot_save_path: str | None = None
         self.metrics = {
             "prompt_tokens_total": 0,
             "tokens_predicted_total": 0,
@@ -183,6 +224,7 @@ class ServerContext:
             slot.n_cached = 0
             slot.generated = []
             slot.finished = False
+            slot.spec_stats = {}
             slot.t_start = time.time()
             grammar = None
             if task.grammar_text:
@@ -221,7 +263,7 @@ class ServerContext:
                 # common prefix already in this row's KV, prefill only the
                 # new suffix (at least one token, so we get logits)
                 n_common = 0
-                if task.cache_prompt and slot.cache_tokens:
+                if task.cache_prompt and slot.cache_tokens and self.spec is None:
                     limit = min(len(slot.cache_tokens), len(ids) - 1)
                     while n_common < limit and slot.cache_tokens[n_common] == ids[n_common]:
                         n_common += 1
@@ -233,6 +275,8 @@ class ServerContext:
                     self.engine.set_seq_len(slot.id, n_common)
                 else:
                     self.engine.clear_row(slot.id)
+                if self.draft_engine is not None:
+                    self.draft_engine.clear_row(slot.id)
                 slot.prompt_ids = list(ids)
                 slot.prompt_pos = n_common
                 slot.n_cached = n_common
@@ -246,6 +290,8 @@ class ServerContext:
             end = min(slot.prompt_pos + PREFILL_CHUNK, len(ids))
             chunk = ids[slot.prompt_pos:end]
             logits = self.engine.prefill(chunk, row=slot.id)
+            if self.draft_engine is not None:
+                self.draft_engine.prefill(chunk, row=slot.id)
             slot.prompt_pos = end
             self.metrics["prompt_tokens_total"] += len(chunk)
             if end == len(ids):
@@ -316,6 +362,9 @@ class ServerContext:
                 "predicted_n": slot.n_gen,
                 "predicted_ms": (t_now - slot.t_first_token) * 1000.0,
             }
+            if slot.spec_stats.get("drafted"):
+                timings["draft_n"] = slot.spec_stats["drafted"]
+                timings["draft_n_accepted"] = slot.spec_stats["accepted"]
             final = {
                 "content": content,
                 "stop": True,
@@ -349,10 +398,57 @@ class ServerContext:
         n_keep = min(n_keep, self.ctx_size // 2)
         n_discard = max((cur - n_keep) // 2, headroom)
         self.engine.shift_row(slot.id, n_keep, n_discard)
+        if self.draft_engine is not None:
+            self.draft_engine.shift_row(slot.id, n_keep, n_discard)
         del slot.cache_tokens[n_keep:n_keep + n_discard]
         self.metrics["context_shifts_total"] = (
             self.metrics.get("context_shifts_total", 0) + 1
         )
+
+    def _spec_ondevice_round(self, slot: Slot) -> None:
+        """One chunk of on-device speculation (OnDeviceSpeculative): up to
+        CHUNK greedy tokens from rounds on the device, then streamed through
+        the normal emit path. Greedy-exact, so the stop strings, EOG and
+        n_predict are checked on the host afterwards; on an early stop the
+        rows are trimmed back to the emitted tokens (server.py:405-450)."""
+        CHUNK = 16
+        k = self.spec_ondevice.k
+        self._maybe_context_shift(slot, headroom=CHUNK + k + 2)
+        room = self.ctx_size - int(self.engine.seq_len[slot.id]) - k - 2
+        if room < 1:
+            # too close to the context's end for a round (context shift off,
+            # or n_keep leaves no headroom): one plain decode step, as the
+            # JAX server takes it
+            logits = self.engine.decode_one(np.array([slot.next_token]))
+            self.draft_engine.decode_one(np.array([slot.next_token]))
+            slot.next_token = slot.sampler.sample(logits[0])
+            return
+        n = max(1, min(CHUNK, slot.task.n_predict - slot.n_gen + 1, room))
+        pre_t = int(self.engine.seq_len[slot.id])
+        pre_d = int(self.draft_engine.seq_len[slot.id])
+        toks, stats = self.spec_ondevice.generate_greedy(int(slot.next_token), n)
+        # the rounds may run past n (whole rounds only): rewind both rows to
+        # the n inputs consumed, so the next input (toks[-1]) lands right
+        self.engine.set_seq_len(slot.id, pre_t + n)
+        self.draft_engine.set_seq_len(slot.id, pre_d + n)
+        for key, v in stats.items():
+            if key != "accept_rate":
+                slot.spec_stats[key] = slot.spec_stats.get(key, 0) + v
+        finished = False
+        # emit toks[:-1] (next_token itself was emitted at the top of
+        # _decode_step); the last token is the next round's input
+        for t in toks[:-1]:
+            finished = self._emit_token(slot, int(t))
+            if finished:
+                break
+        if finished:
+            # trim to the tokens kept: the rows hold K/V past the stop
+            keep = len(slot.cache_tokens)
+            self.engine.set_seq_len(slot.id, keep)
+            self.draft_engine.set_seq_len(
+                slot.id, min(keep, int(self.draft_engine.seq_len[slot.id])))
+        else:
+            slot.next_token = int(toks[-1])
 
     def _decode_step(self) -> None:
         gen = [s for s in self.slots if s.state == GENERATING]
@@ -363,6 +459,37 @@ class ServerContext:
             self._emit_token(slot, slot.next_token)
         gen = [s for s in self.slots if s.state == GENERATING]
         if not gen:
+            return
+        if self.spec_ondevice is not None:
+            slot = gen[0]  # one slot, checked at construction
+            if slot.sampler.is_pure_greedy():
+                self._spec_ondevice_round(slot)
+                return
+            # a sampled request: exactness does not hold, so it decodes
+            # token by token below (the JAX server's path)
+        if self.spec is not None:
+            # per-slot speculative rounds (server.cpp:3559-3584): draft a
+            # continuation, verify it in one target call, emit all accepted
+            for slot in gen:
+                old_p = self.spec.p
+                if slot.task.spec:  # per-request overrides (server.cpp:299-305)
+                    self.spec.p = SpeculativeParams(
+                        n_draft=int(slot.task.spec.get("n_max", old_p.n_draft)),
+                        n_min=int(slot.task.spec.get("n_min", old_p.n_min)),
+                        p_min=float(slot.task.spec.get("p_min", old_p.p_min)),
+                    )
+                self._maybe_context_shift(slot, headroom=self.spec.p.n_draft + 2)
+                max_accept = slot.task.n_predict - slot.n_gen - 1
+                accepted, nxt = self.spec.step_slot(
+                    slot.id, slot.next_token, slot.sampler.sample,
+                    max(max_accept, 0), slot.spec_stats,
+                )
+                self.spec.p = old_p
+                for t in accepted:
+                    if self._emit_token(slot, t):
+                        break
+                if slot.state == GENERATING:
+                    slot.next_token = nxt
             return
         # batch decode one token for every generating slot
         for slot in gen:
@@ -441,20 +568,50 @@ class ServerContext:
         return extra + ids + [v.fim_mid_id]
 
 
+    @property
+    def slot_save_path(self) -> str:
+        """The directory slot files go to: a temporary directory, made at
+        the first save or restore."""
+        if self._slot_save_path is None:
+            self._slot_save_path = tempfile.mkdtemp(prefix="llamacog_slots_")
+        return self._slot_save_path
+
     def slot_action(self, slot_id: int, action: str, body: dict) -> dict:
-        """POST /slots/:id?action=erase (reference tools/server/server.cpp:4861).
-        save and restore are not ported yet: they need runtime/state.py."""
+        """POST /slots/:id?action=save|restore|erase (reference
+        tools/server/server.cpp:4861, llama_state_seq_* backing; the JAX
+        server's slot_action, server.py:644-690). As there, a save writes
+        the row's KV and no tokens, and a restore sets the row's KV and
+        length but not the slot's cached tokens."""
         if not (0 <= slot_id < len(self.slots)):
             raise ValueError(f"invalid slot id {slot_id}")
-        if action in ("save", "restore"):
-            raise not_ported("slot save/restore")
         if action == "erase":
             self.engine.clear_row(slot_id)
             self.slots[slot_id].state = IDLE
             self.slots[slot_id].task = None
             self.slots[slot_id].cache_tokens = []
             return {"id_slot": slot_id, "n_erased": 1}
-        raise ValueError(f"unknown action {action!r}")
+        filename = str(body.get("filename", f"slot_{slot_id}.bin"))
+        if "/" in filename or filename.startswith("."):
+            raise ValueError("invalid filename")
+        if action not in ("save", "restore"):
+            raise ValueError(f"unknown action {action!r}")
+        path = os.path.join(self.slot_save_path, filename)
+        t0 = time.time()
+        if action == "save":
+            save_row_state(self.engine, path, row=slot_id)
+            return {
+                "id_slot": slot_id, "filename": filename,
+                "n_saved": int(self.engine.seq_len[slot_id]),
+                "n_written": os.path.getsize(path),
+                "timings": {"save_ms": (time.time() - t0) * 1e3},
+            }
+        load_row_state(self.engine, path, row=slot_id)
+        return {
+            "id_slot": slot_id, "filename": filename,
+            "n_restored": int(self.engine.seq_len[slot_id]),
+            "n_read": os.path.getsize(path),
+            "timings": {"restore_ms": (time.time() - t0) * 1e3},
+        }
 
     # -- request handling ----------------------------------------------------
     def _tokenizer(self):
@@ -541,6 +698,8 @@ class ServerContext:
             kind=kind,
             cache_prompt=bool(body.get("cache_prompt", True)),
             n_keep=int(body.get("n_keep", 0)),
+            spec=body.get("speculative") if isinstance(body.get("speculative"), dict)
+            else None,
         )
         self.metrics["requests_total"] += 1
         return task

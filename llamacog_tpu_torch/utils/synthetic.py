@@ -326,6 +326,48 @@ def llama3_8b_config(n_layer: int = 32) -> ModelConfig:
     )
 
 
+def llama3_2_1b_config(n_layer: int = 16) -> ModelConfig:
+    """Llama-3.2-1B (meta-llama/Llama-3.2-1B config.json: 16 layers, hidden
+    2048, 32 heads over 8 kv heads of 64, intermediate 8192, rope_theta
+    500000, tied embeddings, Llama-3's 128256-id vocab: the 8B's draft),
+    with the llama3 rope scaling of its config (factor 32, low_freq_factor
+    1, high_freq_factor 4, original_max_position_embeddings 8192), which
+    llama.cpp's converter writes as the rope_freqs tensor
+    (make_synthetic_params: llama3_rope_freqs); `n_layer` cuts depth only."""
+    return ModelConfig(
+        arch="llama", n_vocab=128256, n_ctx_train=131072, n_embd=2048,
+        n_layer=n_layer, n_head=32, n_head_kv=8, n_ff=8192,
+        head_dim_k=64, head_dim_v=64,
+        rope=RopeConfig(dim=64, freq_base=500000.0), tie_word_embeddings=True,
+        metadata={"rope_scaling": {"rope_type": "llama3", "factor": 32.0,
+                                   "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                                   "original_max_position_embeddings": 8192}})
+
+
+def llama3_rope_freqs(cfg: ModelConfig) -> torch.Tensor:
+    """The rope_freqs tensor [dim / 2] f32 that llama.cpp's converter writes
+    for a llama3 rope scaling (convert_hf_to_gguf.py, LlamaModel's
+    generate_extra_tensors): 1 for the short wavelengths, the factor for
+    the long ones, and between them 1 / ((1 - s) / factor + s) with s the
+    smoothing of old_context_len / wavelength."""
+    sc = cfg.metadata["rope_scaling"]
+    dim, base = cfg.rope.dim or cfg.head_dim_k, cfg.rope.freq_base
+    factor, low, high = sc["factor"], sc["low_freq_factor"], sc["high_freq_factor"]
+    old = sc["original_max_position_embeddings"]
+    freqs = 1.0 / (base ** (torch.arange(0, dim, 2, dtype=torch.float32) / dim))
+    out = []
+    for freq in freqs.tolist():
+        wavelen = 2 * math.pi / freq
+        if wavelen < old / high:
+            out.append(1.0)
+        elif wavelen > old / low:
+            out.append(factor)
+        else:
+            smooth = (old / wavelen - low) / (high - low)
+            out.append(1 / ((1 - smooth) / factor + smooth))
+    return torch.tensor(out, dtype=torch.float32)
+
+
 def llama3_70b_config(n_layer: int = 80) -> ModelConfig:
     """Llama-3-70B geometry (64 query heads over 8 kv heads); `n_layer` cuts
     depth only."""
@@ -1224,6 +1266,7 @@ def deci_51b_config(n_layer: int = 80) -> ModelConfig:
 
 # every synthetic configuration by the name the tools take (--model)
 CONFIGS = {"llama3-8b": llama3_8b_config, "llama3-70b": llama3_70b_config,
+           "llama3.2-1b": llama3_2_1b_config,
            "mixtral-8x7b": mixtral_8x7b_config, "qwen2.5-7b": qwen2_5_7b_config,
            "qwen2.5-0.5b": qwen2_5_0_5b_config, "qwen3-8b": qwen3_8b_config,
            "qwen3-30b-a3b": qwen3_30b_a3b_config, "qwen2-57b-a14b": qwen2_57b_a14b_config,
@@ -1347,6 +1390,8 @@ def make_synthetic_params(cfg: ModelConfig, seed: int = 0, device=None,
         params["output"] = random_wire(kinds["output"], cfg.n_vocab, E, g, dev)
         if "output" in biased:
             params["output_b"] = small(cfg.n_vocab)
+    if cfg.metadata.get("rope_scaling", {}).get("rope_type") == "llama3":
+        params["rope_freqs"] = llama3_rope_freqs(cfg).to(dev)
     if cfg.arch in ("phi3", "phimoe", "minicpm3") and cfg.rope.orig_ctx_len:
         # longrope's two tables
         half = cfg.rope.dim // 2

@@ -31,7 +31,9 @@ _REQUIRED = ("llamacog_tpu_torch.runtime.engine", "llamacog_tpu_torch.runtime.sa
              "llamacog_tpu_torch.tokenizer.bpe", "llamacog_tpu_torch.runtime.chat",
              "llamacog_tpu_torch.runtime.grammar", "llamacog_tpu_torch.runtime.json_schema",
              "llamacog_tpu_torch.runtime.partial", "llamacog_tpu_torch.server.server",
-             "llamacog_tpu_torch.server.__main__", "llamacog_tpu_torch.server.webui")
+             "llamacog_tpu_torch.server.__main__", "llamacog_tpu_torch.server.webui",
+             "llamacog_tpu_torch.runtime.speculative", "llamacog_tpu_torch.runtime.state",
+             "llamacog_tpu_torch.runtime.ngram_cache")
 
 
 def test_port_imports_no_jax_and_no_jax_package():

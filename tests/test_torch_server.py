@@ -158,7 +158,7 @@ def test_http_endpoints(tiny):
         assert status == 200 and out["usage"]["completion_tokens"] == 4
         slots, _ = _get(url + "/slots")
         assert len(slots) == 2
-        for path in ("/v1/embeddings", "/rerank", "/slots/0?action=save"):
+        for path in ("/v1/embeddings", "/rerank"):
             with pytest.raises(urllib.error.HTTPError) as e:
                 _post(url + path, {"input": "x", "query": "q", "documents": ["d"]})
             assert e.value.code == 501 and "is not ported yet" in e.value.read().decode()
@@ -176,17 +176,16 @@ def test_http_endpoints(tiny):
 
 @pytest.mark.parametrize("kw,what", [
     ({"loras": [object()]}, "LoRA adapters"), ({"mesh": object()}, "multi-host mirror"),
-    ({"vision": object()}, "multimodal input"), ({"draft_model": object()}, "speculative"),
-    ({"spec_ondevice": 2}, "on-device speculative")])
+    ({"vision": object()}, "multimodal input")])
 def test_refused_options_raise_by_name(tiny, kw, what):
     model = load_model(tiny, dtype=torch.float32, device="cpu")
     with pytest.raises(NotImplementedError, match=f"{what}.* is not ported yet"):
         ServerContext(model, n_slots=1, ctx_size=64, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("flag", [["--lora", "a.gguf"], ["-md", "d.gguf"], ["--mmproj", "m"],
-                                  ["-tp", "2"], ["--override-kv", "a=int:1"],
-                                  ["--spec-ondevice", "2"], ["--coordinator", "h:1"]])
+@pytest.mark.parametrize("flag", [["--lora", "a.gguf"], ["--control-vector", "c.gguf"],
+                                  ["--mmproj", "m"], ["-tp", "2"], ["--override-kv", "a=int:1"],
+                                  ["--num-hosts", "2"], ["--coordinator", "h:1"]])
 def test_main_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit):
         server_main.main(["-m", "x.gguf", *flag])
